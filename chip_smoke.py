@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's retrieval-serving path once on one NVIDIA GPU.
+"""Drive the PyTorch port's two paths once on one NVIDIA GPU: retrieval
+serving and the pre-training step.
 
     python3 chip_smoke.py
 
@@ -8,7 +9,7 @@ toolkit (nvcc) and PyTorch built for CUDA; JAX is not needed. Phases, one
 JSON line each; a failed phase raises and the script exits non-zero:
 
   1. device: card name and power limit (nvidia-smi), torch/CUDA/nvcc versions;
-     TF32 off for the fp32 comparisons;
+     TF32 off (matmul and cuDNN) for the fp32 comparisons;
   2. build: nvcc compiles mvlt_tpu_torch/csrc/*.cu for sm_90a;
   3. kernels: kernel A (SR-KV) and kernel B (whole block) against their plain
      PyTorch versions on the card in bf16, bound max|kernel - plain| /
@@ -16,21 +17,42 @@ JSON line each; a failed phase raises and the script exits non-zero:
      ragged shape, and the four stage shapes at B = 101, where each kernel's
      time is also taken beside the plain version's;
   4. uint8 / 255 on the card, bit-equal to the host's float32 division;
-  5. the slice: pvlt_tiny (itm head only, bf16, 256x256, 128 tokens, seeded
-     random weights) scores three synthetic 101-candidate bundles through
-     evaluate_retrieval(make_itm_scorer(model)); every score finite and in
-     (0, 1); each kernel launched 8 times per forward. Then every block of
-     a B = 101 forward within 2e-2 of the plain versions on that block's
-     input, and the ITM logits of two pairs within 3e-2 (relative to the
-     largest) of the same weights run in fp32 on the CPU through the plain
-     path, printed beside the plain path's own bf16 error on the CPU;
-  6. throughput of the scorer at B = 101 on pre-staged device tensors, peak
-     device memory, and a torch.profiler breakdown of device time by kernel.
+  5. the serving slice: pvlt_tiny (itm head only, bf16, 256x256, 128
+     tokens, seeded random weights) scores three synthetic 101-candidate
+     bundles through evaluate_retrieval(make_itm_scorer(model)); every score
+     finite and in (0, 1); each serving kernel launched 8 times per forward
+     and no training kernel. Then every block of a B = 101 forward within
+     2e-2 of the plain versions on that block's input, and the ITM logits of
+     two pairs within 3e-2 (relative to the largest) of the same weights run
+     in fp32 on the CPU through the plain path, printed beside the plain
+     path's own bf16 error on the CPU;
+  6. serving throughput at B = 101 on pre-staged device tensors, peak device
+     memory, and a torch.profiler breakdown of device time by kernel;
+  7. training kernels: attention forward/backward and LN-MLP
+     forward/backward against their plain versions in bf16 (every output,
+     bound 2e-2 as in phase 3) at the four stage shapes at B = 4 and
+     B = 150 and a ragged shape; at B = 150 each kernel's time beside its
+     plain version's, its bound, and for attention
+     F.scaled_dot_product_attention's (a yardstick the port never calls);
+  8. the training slice: pvlt_tiny pre-training (ITM + MLM + T2I at 1/1/10,
+     bf16, B = 150, DropPath 0.1, BERT dropout 0.1, AdamW, mlm_ce_kernel
+     off) takes 6 steps through train_one_epoch(make_train_step(...)) on one
+     repeated synthetic batch (warmup 0): every loss finite, each training
+     kernel launched 8 times per step and no serving kernel, the loss of
+     steps 4 and 5 below that of steps 0 and 1 (the parities alternate clean
+     and masked images), BatchNorm statistics changed. Then every block of a
+     B = 150 step (output; input and parameter gradients for the step's
+     upstream gradient) within 2e-2 of the plain versions, and one step on
+     4 samples against the same weights in fp32 on the CPU (losses, and
+     per-tensor gradient cosines), beside the CPU's own bf16 gap;
+  9. training throughput at B = 150: ms/step and samples/s, peak memory,
+     and a torch.profiler breakdown.
 
-Then one line {"kernels": [...]}: per kernel the launches of phase 5, the
-largest error of phase 3, and its time and its plain version's summed over
-the four stage shapes at B = 101 (one launch each); the nvidia-smi line;
-and last {"ok": true, "device": {...}}. Without a CUDA device it exits
+Then one line {"kernels": [...]}: per kernel the launches of its path's
+run, the largest error of its checks, its time and its plain version's
+summed over the four stage shapes at the path's batch (one launch each),
+the bound, and the library call's time where there is one; the nvidia-smi
+line; and last {"ok": true, "device": {...}}. Without a CUDA device it exits
 non-zero before printing any result.
 """
 
@@ -47,15 +69,24 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
-from mvlt_tpu.config import LossType, ModelConfig
-from mvlt_tpu.data.tokenizer import WordPieceTokenizer
+from mvlt_tpu_torch.config import DataConfig, LossType, ModelConfig, OptimConfig
+from mvlt_tpu_torch.data.fashion_gen import SyntheticFashionGen, batch_to_device, collate
+from mvlt_tpu_torch.data.tokenizer import WordPieceTokenizer
 from mvlt_tpu_torch.eval.retrieval import evaluate_retrieval, make_itm_scorer, uint8_to_unit
 from mvlt_tpu_torch.models.pvlt import Block, create_model, kernel_operand
 from mvlt_tpu_torch.ops import _build
 from mvlt_tpu_torch.ops.block_fused import block_reference, fused_block
+from mvlt_tpu_torch.ops.fused_mlp import (ln_mlp_bwd, ln_mlp_bwd_reference, ln_mlp_fwd,
+                                          ln_mlp_reference)
+from mvlt_tpu_torch.ops.pallas_attention import (attention_bwd, attention_bwd_reference,
+                                                 attention_fwd, attention_reference)
 from mvlt_tpu_torch.ops.sr_kv import fused_ln_sr_kv, sr_kv_reference
+from mvlt_tpu_torch.train.engine import train_one_epoch
+from mvlt_tpu_torch.train.state import create_train_state
+from mvlt_tpu_torch.train.step import make_train_step
 
 SEED = 0
 BATCH = 101                 # candidates of one retrieval bundle
@@ -79,12 +110,54 @@ STAGES = [
 ]
 TEXT = 128
 RAGGED = (12, 12, 64, 1, 4, 512, 20)   # N = 164, M = 29: ragged row tile and K/V
+TRAIN_BATCH = 150          # pre-training batch (configs/pretrain_exp21.py)
+TRAIN_STEPS = 6
+CPU_BATCH = 4              # card-vs-CPU step
+# bf16 card step vs fp32 CPU step: |loss diff| / |CPU loss| per loss, and
+# the smallest per-tensor gradient cosine (tensors with a gradient norm
+# above 1e-6 of the largest). Measured on an H100 (seeded weights and
+# batch): 2.1e-3 (ITM) and 0.99942 (a T2I conv), the CPU's own bf16 model
+# 3.7e-4 and 0.99939; the bounds keep a margin of ~5x on the loss gap and
+# ~10x on 1 - cosine.
+STEP_LOSS_TOL = 1e-2
+GRAD_COS_MIN = 0.995
+# H100 SXM peaks (NVIDIA's data sheet): bf16 dense tensor cores, HBM
+PEAK_FLOPS = 989e12
+PEAK_BYTES = 3.35e12
 KERNELS = [
     {"name": "sr_kv", "route": "cuda", "source": "mvlt_tpu_torch/csrc/sr_kv.cu",
      "replaces": "mvlt_tpu/ops/sr_kv.py:129 (+ mvlt_tpu/ops/block_packed.py:418)"},
     {"name": "block_fused", "route": "cuda", "source": "mvlt_tpu_torch/csrc/block_fused.cu",
      "replaces": "mvlt_tpu/ops/block_fused.py:130 (+ mvlt_tpu/ops/block_packed.py:131)"},
+    {"name": "attention_fwd", "route": "cuda", "source": "mvlt_tpu_torch/csrc/attention.cu",
+     "replaces": "mvlt_tpu/ops/pallas_attention.py:184"},
+    {"name": "attention_bwd", "route": "cuda", "source": "mvlt_tpu_torch/csrc/attention.cu",
+     "replaces": "mvlt_tpu/ops/pallas_attention.py:118"},
+    {"name": "ln_mlp_fwd", "route": "cuda", "source": "mvlt_tpu_torch/csrc/ln_mlp.cu",
+     "replaces": "mvlt_tpu/ops/fused_mlp.py:380"},
+    {"name": "ln_mlp_bwd", "route": "cuda", "source": "mvlt_tpu_torch/csrc/ln_mlp.cu",
+     "replaces": "mvlt_tpu/ops/fused_mlp.py:214"},
 ]
+SERVING_WRAPPERS = {"sr_kv": fused_ln_sr_kv, "block_fused": fused_block}
+TRAINING_WRAPPERS = {"attention_fwd": attention_fwd, "attention_bwd": attention_bwd,
+                     "ln_mlp_fwd": ln_mlp_fwd, "ln_mlp_bwd": ln_mlp_bwd}
+WRAPPERS = {**SERVING_WRAPPERS, **TRAINING_WRAPPERS}
+
+
+def reset_launches() -> None:
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+def bound(flops: float, nbytes: float) -> tuple[float, str]:
+    """The least time (ms) the card could take: the larger of the
+    operations over the bf16 peak and the bytes over the memory rate."""
+    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def emit(phase: str, **fields) -> None:
@@ -208,6 +281,34 @@ def check_kernels(stats: dict, gen, label: str, shape: tuple, batch: int):
     return p, x, k_ref, v_ref, kw_kv, kw_b
 
 
+def serving_bounds(shape: tuple, batch: int) -> dict:
+    """(ms, bound_by) of kernels A and B at one stage shape: the SR conv and
+    K/V products, and the block's Q, logits, P.V, out-proj, fc1 and fc2;
+    bytes: the stream read (and for B written) once, K/V written (A) or
+    read (B) once, the bf16 weights read once."""
+    h, w, d, _, sr, hid, t = shape
+    n = h * w + t
+    m = (h // sr) * (w // sr) + t if sr > 1 else n
+    flops_a = 2 * batch * ((h * w * d * d if sr > 1 else 0) + m * d * 2 * d)
+    bytes_a = 2 * (batch * n * d + 2 * batch * m * d + (sr * sr * d * d if sr > 1 else 0) + 2 * d * d)
+    flops_b = 2 * batch * n * (2 * d * d + 2 * m * d + 2 * d * hid)
+    bytes_b = 2 * (2 * batch * n * d + 2 * batch * m * d + 2 * d * d + 2 * d * hid)
+    return {"sr_kv": bound(flops_a, bytes_a), "block_fused": bound(flops_b, bytes_b)}
+
+
+def add_time(stats: dict, name: str, **fields) -> None:
+    """Sum a kernel's per-shape times and bound into its stats entry; its
+    bound_by is the kind (bytes or operations) with the larger share of
+    the summed bound."""
+    st = stats[name]
+    for key in ("ms", "plain_ms", "bound_ms"):
+        st[key] += fields[key]
+    lib = fields.get("library_ms")
+    st["library_ms"] = None if lib is None else (st["library_ms"] or 0.0) + lib
+    st["bound_shares"][fields["bound_by"]] += fields["bound_ms"]
+    st["bound_by"] = max(st["bound_shares"], key=st["bound_shares"].get)
+
+
 def phase_kernels(stats: dict) -> None:
     """Kernel vs plain on the card: errors at B = 4 (stage shapes + ragged),
     then errors and times at B = 101 (stage shapes, the main path's)."""
@@ -228,11 +329,14 @@ def phase_kernels(stats: dict) -> None:
             "block_fused": (cuda_time_ms(lambda: fused_block(x, k, v, *_block_args(p), **kw_b)),
                             cuda_time_ms(lambda: block_reference(x, k, v, *_block_args(p), **kw_b))),
         }
+        bounds = serving_bounds(shape, BATCH)
         for name, (ms, plain_ms) in times.items():
+            bound_ms, bound_by = bounds[name]
             emit("kernel_time", kernel=name, shape=label, batch=BATCH, ms=ms,
-                 plain_ms=plain_ms, speedup=plain_ms / ms)
-            stats[name]["ms"] += ms
-            stats[name]["plain_ms"] += plain_ms
+                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                 library_ms=None, speedup=plain_ms / ms)
+            add_time(stats, name, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                     bound_by=bound_by, library_ms=None)
         del x, k, v
         torch.cuda.empty_cache()
 
@@ -251,7 +355,8 @@ def phase_uint8() -> None:
 def seeded_state_dict(model, seed: int) -> dict:
     """Weights made with numpy from a seed, as the JAX package initialises
     them (trunc-normal 0.02 matrices, conv kernels and pos-embeds, normal 0.02
-    embedding tables, zero biases, unit LayerNorm scales), with a 0.03 normal
+    embedding tables, zero biases, unit LayerNorm and BatchNorm scales and
+    running variances), with a 0.03 normal
     perturbation on every bias and LayerNorm affine so they carry signal.
     The matrices stay unperturbed: perturbing them too shrinks the logits
     until bf16 rounding alone moves them by 4-6% (see SLICE_TOL)."""
@@ -260,7 +365,8 @@ def seeded_state_dict(model, seed: int) -> dict:
     for name, t in model.state_dict().items():
         shape = tuple(t.shape)
         if t.dim() == 1:
-            base = np.ones(shape) if name.endswith("weight") else np.zeros(shape)
+            base = (np.ones(shape) if name.endswith(("weight", "running_var"))
+                    else np.zeros(shape))
             base = base + 0.03 * gen.standard_normal(shape)
         elif "text_embeddings." in name:
             base = 0.02 * gen.standard_normal(shape)
@@ -314,13 +420,13 @@ def phase_slice(stats: dict):
         scores.append(s)
         return s
 
-    # only the main path's launches count: not those of phase 3
-    fused_ln_sr_kv.launches = fused_block.launches = 0
+    # only this path's launches count: not those of the kernel checks
+    reset_launches()
     start = time.perf_counter()
     results = evaluate_retrieval(recording, bundles, is_main=False)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - start
-    launches = {"sr_kv": fused_ln_sr_kv.launches, "block_fused": fused_block.launches}
+    launches = read_launches()
     forwards = len(scores)
     s = torch.cat(scores).float().cpu()
     finite = bool(torch.isfinite(s).all())
@@ -335,7 +441,10 @@ def phase_slice(stats: dict):
         raise AssertionError(f"scored {s.numel()} pairs in {results['num_queries']} queries")
     if not (finite and in_range):
         raise AssertionError("ITM scores not all finite and inside (0, 1)")
-    for name, count in launches.items():
+    if any(launches[name] for name in TRAINING_WRAPPERS):
+        raise AssertionError(f"the serving path launched a training kernel: {launches}")
+    for name in SERVING_WRAPPERS:
+        count = launches[name]
         stats[name]["launches"] = count
         if count != blocks * forwards:
             raise AssertionError(f"{name} launched {count} times in {forwards} "
@@ -349,7 +458,7 @@ def check_blocks(model, bundle) -> None:
     at the main path's shapes and operands, with no bf16 drift carried from
     block to block."""
     seen = []
-    hooks = [blk.register_forward_hook(lambda m, args, out: seen.append((m, *args, out)))
+    hooks = [blk.register_forward_hook(lambda m, args, out: seen.append((m, args[0], args[1], out)))
              for blk in model.modules() if isinstance(blk, Block)]
     try:
         with torch.no_grad():
@@ -388,7 +497,7 @@ def compare_cpu_fp32(model, bundle, sd) -> float:
     ids = torch.from_numpy(bundle["ori_input_ids_101"][:2]).long()
     logits = {}
     for dtype in ("float32", "bfloat16"):
-        cpu = create_model(dataclasses.replace(cfg, compute_dtype=dtype)).eval()
+        cpu = create_model(dataclasses.replace(cfg, compute_dtype=dtype), device="cpu").eval()
         cpu.load_state_dict(sd, strict=True)
         with torch.no_grad():
             logits[dtype] = cpu(images, ids)["itm_logits"].float()
@@ -424,11 +533,19 @@ def phase_throughput(model, bundles) -> None:
                 "3 distinct pre-staged uint8 bundles")
 
     # where the device time goes: kernel time by name over 3 scorer calls
+    profile_device(lambda: [scorer(images, ids) for images, ids in staged], len(staged),
+                   {"sr_kv": ("sr_kv_kernel",), "block_fused": ("block_fused_kernel",)},
+                   "profile")
+
+
+def profile_device(run, calls: int, groups: dict, phase: str) -> None:
+    """torch.profiler over ``run`` (``calls`` calls): device kernel time
+    summed by name and by group (a group's kernels matched by name
+    fragments), against the host wall time; idle share = 1 - device / wall."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
-        for images, ids in staged:
-            scorer(images, ids)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - start) * 1e3
     by_name: dict = {}
@@ -438,16 +555,344 @@ def phase_throughput(model, bundles) -> None:
         if evt.device_type == torch.autograd.DeviceType.CUDA and evt.self_device_time_total > 0:
             by_name[evt.key] = by_name.get(evt.key, 0.0) + evt.self_device_time_total / 1e3
     device_ms = sum(by_name.values())
-    groups = {"sr_kv": 0.0, "block_fused": 0.0, "other": 0.0}
+    by_group = dict.fromkeys(list(groups) + ["other"], 0.0)
     for name, t in by_name.items():
-        key = ("sr_kv" if "sr_kv_kernel" in name else
-               "block_fused" if "block_fused_kernel" in name else "other")
-        groups[key] += t
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    emit("profile", calls=len(staged), wall_ms=wall_ms,
+        key = next((g for g, frags in groups.items() if any(f in name for f in frags)), "other")
+        by_group[key] += t
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    emit(phase, calls=calls, wall_ms=wall_ms,
          device_ms=device_ms if device_ms else "not measured",
          device_idle_share=(1 - device_ms / wall_ms) if device_ms else "not measured",
-         ms_by_group=groups, top_kernels=[[n[:80], t] for n, t in top])
+         ms_by_group=by_group, top_kernels=[[n[:80], t] for n, t in top])
+
+
+# ---- the training path -------------------------------------------------
+
+TRAIN_RAGGED = (6, 10, 96, 3, 2, 384, 7)   # N = 67, M = 22, head dim 32
+
+
+def train_kernel_inputs(gen, shape: tuple, batch: int) -> dict:
+    """Seeded inputs of the four training kernels at one shape, in the
+    model's layouts: q and dO as [B, H, N, hd] views of [B, N, D], K and V
+    as views of the [B, M, 2D] projection; LN-MLP weights with std
+    gain / sqrt(fan_in) (phase 3's), a DropPath scale with one dropped
+    sample."""
+    h, w, d, nh, sr, hid, t = shape
+    n = h * w + t
+    m = (h // sr) * (w // sr) + t if sr > 1 else n
+    hd = d // nh
+    dev = torch.device("cuda")
+    bf = lambda *s, std=1.0: (std * torch.randn(*s, generator=gen)).to(dev, torch.bfloat16)
+    kv = bf(batch, m, 2, nh, hd).permute(2, 0, 3, 1, 4)
+    p = stage_params(gen, d, sr, hid, dev)
+    s = ((torch.rand(batch, generator=gen) < 0.9).float() / 0.9).to(dev)
+    s[0] = 0.0
+    return {"q": bf(batch, n, nh, hd, std=1.5).transpose(1, 2), "k": kv[0], "v": kv[1],
+            "do": bf(batch, n, nh, hd).transpose(1, 2), "scale": hd ** -0.5,
+            "x": bf(batch, n, d), "dy": bf(batch, n, d),
+            "mlp": (p["ln2_weight"], p["ln2_bias"], p["w1"], p["b1"], p["w2"], p["b2"]),
+            "s": s}
+
+
+def _attn_args(a):
+    return a["q"], a["k"], a["v"]
+
+
+def _mlp_fwd_args(a):
+    return (a["x"], *a["mlp"], a["s"], 1e-6)
+
+
+def _mlp_bwd_args(a):
+    g, b, w1, b1, w2, _ = a["mlp"]
+    return (a["x"], g, b, w1, b1, w2, a["s"], 1e-6, a["dy"])
+
+
+def check_train_kernels(stats: dict, gen, label: str, shape: tuple, batch: int) -> dict:
+    """The four training kernels against their plain versions on one
+    shape's seeded inputs; every output within KERNEL_TOL."""
+    a = train_kernel_inputs(gen, shape, batch)
+    outs = {
+        "attention_fwd": (("o",), (attention_fwd(*_attn_args(a), a["scale"]),),
+                          (attention_reference(*_attn_args(a), a["scale"]),)),
+        "attention_bwd": (("dq", "dk", "dv"), attention_bwd(*_attn_args(a), a["do"], a["scale"]),
+                          attention_bwd_reference(*_attn_args(a), a["do"], a["scale"])),
+        "ln_mlp_fwd": (("y",), (ln_mlp_fwd(*_mlp_fwd_args(a)),),
+                       (ln_mlp_reference(*_mlp_fwd_args(a)),)),
+        "ln_mlp_bwd": (("dx", "dgamma", "dbeta", "dW1", "db1", "dW2", "db2"),
+                       ln_mlp_bwd(*_mlp_bwd_args(a)), ln_mlp_bwd_reference(*_mlp_bwd_args(a))),
+    }
+    torch.cuda.synchronize()
+    h, w, d, nh, sr, hid, t = shape
+    for name, (keys, got, want) in outs.items():
+        errs = {k: _rel_err(g, w_) for k, g, w_ in zip(keys, got, want)}
+        worst = max(e[1] for e in errs.values())
+        ok = bool(worst <= KERNEL_TOL and np.isfinite(worst))
+        emit("kernel_check", kernel=name, shape=label, batch=batch, n=h * w + t, dim=d,
+             heads=nh, m=a["k"].shape[2], hidden=hid,
+             rel_err={k: e[1] for k, e in errs.items()}, tol=KERNEL_TOL, ok=ok)
+        if not ok:
+            raise AssertionError(f"{name} disagrees with its plain version at {label}, "
+                                 f"B = {batch}: {errs} (tol {KERNEL_TOL})")
+        stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"],
+                                         max(e[0] for e in errs.values()))
+    return a
+
+
+def train_bounds(shape: tuple, batch: int) -> dict:
+    """(ms, bound_by) of the four training kernels at one stage shape. Forward
+    attention: 4.B.H.N.M.hd flops (q.K^T and P.V), q read and o written, K/V
+    read; backward: 10.B.H.N.M.hd (P recomputed, dV, dP, dQ, dK), q and dO
+    read and dq written, K/V read and dK/dV written. LN-MLP forward:
+    4.rows.D.H, the stream read and written and the bf16 weights read;
+    backward: 10.rows.D.H (hidden recomputed, dW2, dG, dW1, dLN), x and dy
+    read and dx written, the weights read and their fp32 gradients written."""
+    h, w, d, nh, sr, hid, t = shape
+    n = h * w + t
+    m = (h // sr) * (w // sr) + t if sr > 1 else n
+    q_elems, kv_elems, rows = batch * n * d, batch * m * d, batch * n
+    return {
+        "attention_fwd": bound(4 * q_elems * m, 2 * (2 * q_elems + 2 * kv_elems)),
+        "attention_bwd": bound(10 * q_elems * m, 2 * (3 * q_elems + 4 * kv_elems)),
+        "ln_mlp_fwd": bound(4 * rows * d * hid, 2 * 2 * rows * d + 2 * 2 * d * hid),
+        "ln_mlp_bwd": bound(10 * rows * d * hid,
+                            2 * 3 * rows * d + 2 * 2 * d * hid + 4 * 2 * d * hid),
+    }
+
+
+def sdpa_times(a: dict) -> tuple[float, float, float]:
+    """F.scaled_dot_product_attention on the same tensors: forward, backward
+    alone (on a kept graph) and forward + backward, in ms."""
+    q, k, v = (t.detach().requires_grad_() for t in _attn_args(a))
+    fwd = lambda: F.scaled_dot_product_attention(q, k, v, scale=a["scale"])
+    o = fwd()
+    bwd = lambda: torch.autograd.grad(o, (q, k, v), a["do"], retain_graph=True)
+    both = lambda: torch.autograd.grad(fwd(), (q, k, v), a["do"])
+    return cuda_time_ms(fwd), cuda_time_ms(bwd), cuda_time_ms(both)
+
+
+def phase_train_kernels(stats: dict) -> None:
+    """Training kernels vs plain: errors at B = 4 (stage shapes + ragged),
+    then errors and times at B = 150 (the stage shapes of the step)."""
+    gen = torch.Generator().manual_seed(SEED + 7)
+    shapes = [(f"stage{i + 1}", (h, w, d, nh, sr, hid, TEXT))
+              for i, (h, w, d, nh, sr, hid) in enumerate(STAGES)]
+    for label, shape in shapes + [("ragged", TRAIN_RAGGED)]:
+        check_train_kernels(stats, gen, label, shape, SMOKE_BATCH)
+    for label, shape in shapes:
+        a = check_train_kernels(stats, gen, label, shape, TRAIN_BATCH)
+        sdpa_fwd, sdpa_bwd, sdpa_both = sdpa_times(a)
+        times = {
+            "attention_fwd": (lambda: attention_fwd(*_attn_args(a), a["scale"]),
+                              lambda: attention_reference(*_attn_args(a), a["scale"]), sdpa_fwd),
+            "attention_bwd": (lambda: attention_bwd(*_attn_args(a), a["do"], a["scale"]),
+                              lambda: attention_bwd_reference(*_attn_args(a), a["do"], a["scale"]),
+                              sdpa_bwd),
+            "ln_mlp_fwd": (lambda: ln_mlp_fwd(*_mlp_fwd_args(a)),
+                           lambda: ln_mlp_reference(*_mlp_fwd_args(a)), None),
+            "ln_mlp_bwd": (lambda: ln_mlp_bwd(*_mlp_bwd_args(a)),
+                           lambda: ln_mlp_bwd_reference(*_mlp_bwd_args(a)), None),
+        }
+        bounds = train_bounds(shape, TRAIN_BATCH)
+        for name, (kernel, plain, library_ms) in times.items():
+            ms, plain_ms = cuda_time_ms(kernel), cuda_time_ms(plain)
+            bound_ms, bound_by = bounds[name]
+            emit("kernel_time", kernel=name, shape=label, batch=TRAIN_BATCH, ms=ms,
+                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                 library_ms=library_ms, speedup=plain_ms / ms,
+                 **({"sdpa_fwd_bwd_ms": sdpa_both} if name == "attention_bwd" else {}))
+            add_time(stats, name, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                     bound_by=bound_by, library_ms=library_ms)
+        del a, times
+        torch.cuda.empty_cache()
+
+
+def train_config() -> ModelConfig:
+    """configs/pretrain_exp21.py: pvlt_tiny, ITM + MLM + T2I, DropPath 0.1,
+    BERT dropout 0.1, bf16; with the MLM CE kernel off (not ported yet)."""
+    return ModelConfig(name="pvlt_tiny", compute_dtype="bfloat16", drop_path_rate=0.1,
+                       mlm_ce_kernel=False)
+
+
+def train_batch(seed: int, size: int) -> dict:
+    """A host batch of the synthetic pre-training set (256x256, 128 tokens)."""
+    data = SyntheticFashionGen(DataConfig(), size=size, seed=seed)
+    return collate([data[i] for i in range(size)])
+
+
+def phase_train_slice(stats: dict):
+    """pvlt_tiny takes TRAIN_STEPS pre-training steps at B = 150 through
+    train_one_epoch(make_train_step(...)) on one repeated batch; returns the
+    state, the config, the weights and the device batch."""
+    cfg = train_config()
+    model = create_model(cfg)
+    sd = seeded_state_dict(model, SEED)
+    model.load_state_dict(sd, strict=True)
+    batch = batch_to_device(train_batch(SEED, TRAIN_BATCH), "cuda")
+    state = create_train_state(model, OptimConfig(warmup_epochs=0), TRAIN_BATCH,
+                               TRAIN_STEPS, seed=SEED)
+    step = make_train_step(cfg)
+    seen = []
+
+    def recording(state, batch):
+        state, losses = step(state, batch)
+        seen.append(losses)
+        return state, losses
+
+    stats_before = {k: v.clone() for k, v in model.named_buffers()}
+    reset_launches()
+    start = time.perf_counter()
+    state, _ = train_one_epoch(recording, state, [batch] * TRAIN_STEPS,
+                                      lr_schedule=state.lr_schedule, is_main=False)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = read_launches()
+    losses = [{k: float(v) for k, v in ls.items()} for ls in seen]
+    totals = [ls["total_loss"] for ls in losses]
+    finite = all(np.isfinite(v) for ls in losses for v in ls.values())
+    falling = totals[4] < totals[0] and totals[5] < totals[1]
+    bn_moved = any(not torch.equal(v, stats_before[k]) for k, v in model.named_buffers())
+    blocks = sum(cfg.depths)
+    expected = {name: blocks * TRAIN_STEPS for name in TRAINING_WRAPPERS}
+    emit("train_slice", model=cfg.name, compute_dtype=cfg.compute_dtype, batch=TRAIN_BATCH,
+         steps=TRAIN_STEPS, seconds_host_inclusive=seconds, losses=losses,
+         launches=launches, launches_expected=expected, finite=finite,
+         loss_falling=falling, bn_stats_changed=bn_moved)
+    if not finite:
+        raise AssertionError(f"a training loss is not finite: {losses}")
+    if any(launches[name] for name in SERVING_WRAPPERS) or any(
+            launches[name] != count for name, count in expected.items()):
+        raise AssertionError(f"training launches {launches}, expected {expected} and "
+                             f"no serving kernel")
+    if not falling:
+        raise AssertionError(f"total loss did not fall over {TRAIN_STEPS} steps: {totals}")
+    if not bn_moved:
+        raise AssertionError("the T2I BatchNorm statistics did not change")
+    for name in TRAINING_WRAPPERS:
+        stats[name]["launches"] = launches[name]
+    return state, cfg, sd, batch
+
+
+def plain_ln_mlp(x, gamma, beta, w1, b1, w2, b2, row_scale, eps):
+    """ln_mlp_reference with fused_ln_mlp's signature (row_scale None: ones)."""
+    if row_scale is None:
+        row_scale = torch.ones(x.shape[0], device=x.device)
+    return ln_mlp_reference(x, gamma, beta, w1, b1, w2, b2, row_scale, eps)
+
+
+def check_train_blocks(state, cfg, batch) -> None:
+    """Every block of one B = 150 training step: its output, and the
+    gradients of its input and parameters for the upstream gradient the
+    step gave it, against the plain versions on the block's own input and
+    DropPath draws, within KERNEL_TOL."""
+    model = state.model
+    saved = {k: v.clone() for k, v in model.state_dict().items()}
+    seen = {}
+
+    def pre(blk, args):
+        seen[blk] = {"x": args[0].detach(), "hw": args[1], "rng": args[2].get_state()}
+
+    def post(blk, args, out):
+        seen[blk]["out"] = out.detach()
+        out.register_hook(lambda g: seen[blk].__setitem__("dy", g))
+
+    blocks = [blk for blk in model.modules() if isinstance(blk, Block)]
+    hooks = [h for blk in blocks for h in (blk.register_forward_pre_hook(pre),
+                                           blk.register_forward_hook(post))]
+    try:
+        make_train_step(cfg)(state, batch)
+    finally:
+        for h in hooks:
+            h.remove()
+    model.load_state_dict(saved)     # the weights the step's forward saw
+    gen = torch.Generator(device=state.device)
+    errs = {"out": [], "grad": []}
+    for blk in blocks:
+        e = seen[blk]
+        params = list(blk.parameters())
+        results = []
+        plain = lambda x, hw, g: blk.train_forward(x, hw, g, attention=attention_reference,
+                                                   ln_mlp=plain_ln_mlp)
+        for fn in (blk, plain):
+            gen.set_state(e["rng"])
+            x = e["x"].clone().requires_grad_()
+            out = fn(x, e["hw"], gen)
+            results.append((out.detach(), torch.autograd.grad(out, [x] + params, e["dy"])))
+        (out_k, grads_k), (out_p, grads_p) = results
+        errs["out"].append(max(_rel_err(e["out"], out_p)[1], _rel_err(out_k, out_p)[1]))
+        errs["grad"].append(max(_rel_err(g, w)[1] for g, w in zip(grads_k, grads_p)))
+    worst = max(errs["out"] + errs["grad"])
+    ok = len(errs["out"]) == sum(cfg.depths) and worst <= KERNEL_TOL
+    emit("train_blocks_vs_plain", batch=TRAIN_BATCH, blocks=len(errs["out"]),
+         rel_err_out=errs["out"], rel_err_grads=errs["grad"], tol=KERNEL_TOL, ok=ok)
+    if not ok:
+        raise AssertionError(f"a block of the training step disagrees with its plain "
+                             f"version: {errs} (tol {KERNEL_TOL})")
+
+
+def compare_train_cpu(cfg, sd) -> None:
+    """One step on CPU_BATCH samples, DropPath and dropout off, from the same
+    weights: card bf16 against CPU fp32 (losses, per-tensor gradient
+    cosines), beside the CPU bf16 model's own gap to fp32."""
+    cfg = dataclasses.replace(cfg, drop_path_rate=0.0, bert_dropout=0.0)
+    batch = train_batch(SEED + 3, CPU_BATCH)
+    runs = {}
+    for label, device, dtype in (("card_bf16", "cuda", "bfloat16"),
+                                 ("cpu_fp32", "cpu", "float32"),
+                                 ("cpu_bf16", "cpu", "bfloat16")):
+        run_cfg = dataclasses.replace(cfg, compute_dtype=dtype)
+        model = create_model(run_cfg, device=device)
+        model.load_state_dict(sd, strict=True)
+        state = create_train_state(model, OptimConfig(warmup_epochs=0), CPU_BATCH, 1)
+        _, losses = make_train_step(run_cfg)(state, batch)
+        runs[label] = ({k: float(v) for k, v in losses.items()},
+                       {n: p.grad.float().cpu() for n, p in model.named_parameters()
+                        if p.grad is not None})
+    want_l, want_g = runs["cpu_fp32"]
+    top = max(g.norm().item() for g in want_g.values())
+
+    def gap(label):
+        got_l, got_g = runs[label]
+        loss_err = {k: abs(got_l[k] - v) / max(abs(v), 1e-12) for k, v in want_l.items() if v}
+        cos = {n: torch.nn.functional.cosine_similarity(got_g[n].flatten(), w.flatten(),
+                                                        dim=0).item()
+               for n, w in want_g.items() if w.norm().item() > 1e-6 * top}
+        worst = min(cos, key=cos.get)
+        return loss_err, cos[worst], worst
+
+    card_loss, card_cos, card_worst = gap("card_bf16")
+    cpu_loss, cpu_cos, cpu_worst = gap("cpu_bf16")
+    ok = max(card_loss.values()) <= STEP_LOSS_TOL and card_cos >= GRAD_COS_MIN
+    emit("train_vs_cpu_fp32", batch=CPU_BATCH, losses_card=runs["card_bf16"][0],
+         losses_cpu=want_l, rel_err_losses=card_loss, min_grad_cosine=card_cos,
+         min_cosine_tensor=card_worst, rel_err_losses_cpu_bf16=cpu_loss,
+         min_grad_cosine_cpu_bf16=cpu_cos, min_cosine_tensor_cpu_bf16=cpu_worst,
+         loss_tol=STEP_LOSS_TOL, cosine_min=GRAD_COS_MIN, ok=ok)
+    if not ok:
+        raise AssertionError(f"the card's step differs from the CPU fp32 step: losses "
+                             f"{card_loss}, smallest gradient cosine {card_cos} "
+                             f"({card_worst})")
+
+
+def phase_train_throughput(state, cfg) -> None:
+    """ms per step and samples/s at B = 150 on two pre-staged device batches,
+    peak memory, and the device profile of three steps."""
+    step = make_train_step(cfg)
+    staged = [batch_to_device(train_batch(SEED + i, TRAIN_BATCH), "cuda") for i in (1, 2)]
+    calls = iter(range(10 ** 9))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_time_ms(lambda: step(state, staged[next(calls) % 2]), warmup=3, reps=10)
+    emit("train_throughput", model=cfg.name, batch=TRAIN_BATCH, ms_per_step=ms,
+         samples_per_s=TRAIN_BATCH / (ms / 1e3),
+         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+         method="CUDA events around each step call (forward, backward, AdamW), 3 warm-up, "
+                "median of 10, 2 distinct pre-staged batches")
+    profile_device(lambda: [step(state, staged[i % 2]) for i in range(3)], 3,
+                   {"attention_fwd": ("attn_fwd_kernel",),
+                    "attention_bwd": ("attn_bwd_kernel",),
+                    "ln_mlp_fwd": ("ln_mlp_fwd_kernel",),
+                    "ln_mlp_bwd": ("ln_mlp_bwd_kernel", "ln_mlp_reduce_kernel")},
+                   "train_profile")
 
 
 def main() -> int:
@@ -457,17 +902,24 @@ def main() -> int:
         return 2
     smi = phase_device()
     phase_build()
-    stats = {k["name"]: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0} for k in KERNELS}
+    stats = {k["name"]: {"launches": 0, "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                         "bound_ms": 0.0, "bound_by": None, "library_ms": None,
+                         "bound_shares": {"bytes": 0.0, "operations": 0.0}}
+             for k in KERNELS}
     phase_kernels(stats)
     phase_uint8()
     model, bundles, sd = phase_slice(stats)
     check_blocks(model, bundles[0])
     compare_cpu_fp32(model, bundles[0], sd)
     phase_throughput(model, bundles)
+    del model
+    phase_train_kernels(stats)
+    state, cfg, sd, batch = phase_train_slice(stats)
+    check_train_blocks(state, cfg, batch)
+    compare_train_cpu(cfg, sd)
+    phase_train_throughput(state, cfg)
     print(json.dumps({"kernels": [
-        {**k, "launches": stats[k["name"]]["launches"],
-         "max_abs_err": stats[k["name"]]["max_abs_err"],
-         "ms": stats[k["name"]]["ms"], "plain_ms": stats[k["name"]]["plain_ms"]}
+        {**k, **{key: v for key, v in stats[k["name"]].items() if key != "bound_shares"}}
         for k in KERNELS]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,8 @@
 Counterpart of mvlt_tpu/models/bert_embeddings.py (HF ``BertEmbeddings`` as
 the reference builds it). Position ids are arange(T) and the token type is
 always 0, so the type embedding is one row broadcast over [B, T], not a
-gather. LayerNorm eps is 1e-12; dropout is the identity in eval.
+gather. LayerNorm eps is 1e-12; dropout (0.1) acts in training only, with
+its mask drawn from the generator the caller passes.
 """
 
 from __future__ import annotations
@@ -12,20 +13,33 @@ import torch
 from torch import nn
 
 
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:
+    """Inverted dropout with the mask from ``generator``: kept elements are
+    scaled by 1 / (1 - rate), as flax's Dropout does."""
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
 class BertEmbeddings(nn.Module):
     def __init__(self, vocab_size: int = 30522, hidden_size: int = 768,
                  max_position_embeddings: int = 512, type_vocab_size: int = 2,
-                 ln_eps: float = 1e-12):
+                 ln_eps: float = 1e-12, dropout_rate: float = 0.1):
         super().__init__()
         self.word_embeddings = nn.Embedding(vocab_size, hidden_size)
         self.position_embeddings = nn.Embedding(max_position_embeddings, hidden_size)
         self.token_type_embeddings = nn.Embedding(type_vocab_size, hidden_size)
         self.LayerNorm = nn.LayerNorm(hidden_size, eps=ln_eps)
+        self.dropout_rate = dropout_rate
 
-    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+    def forward(self, input_ids: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         """input_ids [B, T] -> fp32 [B, T, hidden]."""
         t = input_ids.shape[-1]
         x = (self.word_embeddings(input_ids)
              + self.position_embeddings.weight[:t]
              + self.token_type_embeddings.weight[0])
-        return self.LayerNorm(x)
+        x = self.LayerNorm(x)
+        if self.training and self.dropout_rate:
+            x = dropout(x, self.dropout_rate, generator)
+        return x

@@ -12,28 +12,38 @@ slot, dropped at use; NHWC images in (NCHW accepted).
 
 Parameters stay fp32; with ``compute_dtype="bfloat16"`` the stream and the
 matrix-product operands are bf16 and LayerNorm statistics and softmax fp32.
-A block runs the two wrappers of ops/sr_kv.py and ops/block_fused.py: their
-plain PyTorch versions on a CPU tensor, the two Hopper kernels and nothing
-else on a CUDA tensor.
-Serving only: the model raises in training mode, and heads other than ITM
-raise until they are ported.
+A block has two paths, each the plain PyTorch versions on a CPU tensor and
+Hopper kernels and nothing else in their place on a CUDA tensor:
+  * serving, in eval mode when no gradient is wanted: ops/sr_kv.py then
+    ops/block_fused.py, on bf16 operands cast once and detached;
+  * training, whenever a gradient is wanted or in training mode: the
+    projections, SR conv and SR-LN in PyTorch, the attention core of
+    ops/pallas_attention.py and the LN-MLP of ops/fused_mlp.py, both
+    differentiable, with DropPath (training mode only) as per-sample scales.
+The training forward returns the MLM head's transformed hidden rows, the
+tied table and the bias (``mlm_hidden``, ``mlm_table``, ``mlm_bias``) in
+place of the [B, T, vocab] logits, for the chunked loss; eval returns all
+five logits.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mvlt_tpu.config import ModelConfig
+from mvlt_tpu_torch.config import ModelConfig
 from mvlt_tpu_torch.models.bert_embeddings import BertEmbeddings
-from mvlt_tpu_torch.models.heads import ITMHead
+from mvlt_tpu_torch.models.heads import CLSHead, ITGHead, ITMHead, MLMHead
 from mvlt_tpu_torch.models.registry import resolve_model_config, validate_model_config
 from mvlt_tpu_torch.ops.block_fused import fused_block
+from mvlt_tpu_torch.ops.fused_mlp import fused_ln_mlp
 from mvlt_tpu_torch.ops.kernel_math import layer_norm_fp32, linear
-from mvlt_tpu_torch.ops.sr_kv import fused_ln_sr_kv
+from mvlt_tpu_torch.ops.pallas_attention import fused_attention
+from mvlt_tpu_torch.ops.sr_kv import fused_ln_sr_kv, reduce_kv_input, split_kv
 
 
 def _ln(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
@@ -65,8 +75,8 @@ class PatchEmbed(nn.Module):
 class JointSRAttention(nn.Module):
     """Parameters of the joint image+text attention with spatial reduction on
     the visual K/V: queries from all N rows, K/V from
-    [SR-LN(SRconv(visual)) ; text]. ``Block`` computes it through the
-    SR-KV and whole-block wrappers."""
+    [SR-LN(SRconv(visual)) ; text]. ``Block`` computes it on one of its
+    two paths."""
 
     def __init__(self, dim: int, num_heads: int, sr_ratio: int = 1,
                  qkv_bias: bool = False, ln_eps: float = 1e-5):
@@ -102,15 +112,16 @@ def kernel_operand(t: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[to
 
 
 class Block(nn.Module):
-    """Pre-LN block: x + attn(LN1 x), then + mlp(LN2 .), as ``fused_ln_sr_kv``
-    then ``fused_block``: the plain PyTorch versions on a CPU tensor, the two
-    kernels on a CUDA tensor. DropPath and dropout are the identity in eval,
-    the only mode ported so far."""
+    """Pre-LN block: x + s1 attn(LN1 x), then + s2 mlp(LN2 .), where s1, s2
+    are per-sample DropPath scales (mask / keep) in training mode and 1 in
+    eval. Serving path or training path as the module docstring says."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float, sr_ratio: int,
-                 qkv_bias: bool, ln_eps: float = 1e-6, sr_ln_eps: float = 1e-5):
+                 qkv_bias: bool, ln_eps: float = 1e-6, sr_ln_eps: float = 1e-5,
+                 drop_path: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
+        self.drop_path = drop_path
         self.norm1 = nn.LayerNorm(dim, eps=ln_eps)
         self.attn = JointSRAttention(dim, num_heads, sr_ratio, qkv_bias, sr_ln_eps)
         self.norm2 = nn.LayerNorm(dim, eps=ln_eps)
@@ -149,13 +160,49 @@ class Block(nn.Module):
         self._operands = None
         return super()._apply(fn, *args, **kwargs)
 
-    def forward(self, x: torch.Tensor, hw: tuple) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError("the training path of the port is not written yet")
+    def drop_path_scale(self, x: torch.Tensor,
+                        generator: Optional[torch.Generator]) -> Optional[torch.Tensor]:
+        """Per-sample stochastic-depth scale [B] fp32 (Bernoulli(keep) /
+        keep) in training mode, None where DropPath is off."""
+        if not self.training or self.drop_path == 0.0:
+            return None
+        keep = 1.0 - self.drop_path
+        mask = torch.rand(x.shape[0], generator=generator, device=x.device) < keep
+        return mask.float() / keep
+
+    def forward(self, x: torch.Tensor, hw: tuple,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        wants_grad = torch.is_grad_enabled() and (
+            x.requires_grad or any(p.requires_grad for p in self.parameters()))
+        if self.training or wants_grad:
+            return self.train_forward(x, hw, generator)
         kv_ops, block_ops = self.kernel_operands(x.dtype)
         kv_kw, block_kw = self.kernel_kwargs()
         k, v = fused_ln_sr_kv(x, hw, *kv_ops, **kv_kw)
         return fused_block(x, k, v, *block_ops, **block_kw)
+
+    def train_forward(self, x, hw, generator=None, *, attention=fused_attention,
+                      ln_mlp=fused_ln_mlp):
+        """The differentiable path on the fp32 master parameters. ``attention``
+        and ``ln_mlp`` are the kernels' wrappers; a check passes functions of
+        the same signatures over their plain versions."""
+        a, m = self.attn, self.mlp
+        b, n, d = x.shape
+        heads = self.num_heads
+        hd = d // heads
+        normed = layer_norm_fp32(x, self.norm1.weight, self.norm1.bias, self.norm1.eps)
+        q = linear(normed, a.q.weight, a.q.bias).reshape(b, n, heads, hd).transpose(1, 2)
+        sr = ((a.sr.weight, a.sr.bias, a.norm.weight, a.norm.bias, a.norm.eps)
+              if a.sr_ratio > 1 else (None,) * 4 + (1e-5,))
+        kv_in = reduce_kv_input(normed, hw, a.sr_ratio, *sr)
+        k, v = split_kv(linear(kv_in, a.kv.weight, a.kv.bias), heads)
+        o = attention(q, k, v, hd ** -0.5).transpose(1, 2).reshape(b, n, d)
+        attn_out = linear(o, a.proj.weight, a.proj.bias)
+        s1 = self.drop_path_scale(x, generator)
+        x = x + (attn_out if s1 is None else attn_out * s1.to(x.dtype)[:, None, None])
+        return ln_mlp(x, self.norm2.weight, self.norm2.bias, m.fc1.weight, m.fc1.bias,
+                      m.fc2.weight, m.fc2.bias, self.drop_path_scale(x, generator),
+                      self.norm2.eps)
 
 
 def resize_pos_embed(pos: torch.Tensor, native_hw: tuple, hw: tuple) -> torch.Tensor:
@@ -172,27 +219,31 @@ def resize_pos_embed(pos: torch.Tensor, native_hw: tuple, hw: tuple) -> torch.Te
 
 
 class PVLT(nn.Module):
-    """``model(images, input_ids)`` -> dict of logits as in the JAX package;
-    only ``itm_logits`` [B, 1, 2] is computed, the other heads are None.
+    """``model(images, input_ids)`` -> dict of logits as in the JAX package:
+    ``mlm_logits``, ``itm_logits``, ``sup_cls_logits``, ``sub_cls_logits``
+    and ``t2i_logits`` (NHWC), None for a head that is off. In training mode
+    with ``cfg.mlm_loss_chunk > 0`` the MLM head returns ``mlm_hidden``,
+    ``mlm_table`` and ``mlm_bias`` instead of logits, and ``mlm_row_idx``
+    (from train/losses.py:mlm_gather_plan) picks the text rows it runs on.
+    ``generator`` draws the dropout and DropPath masks.
 
     Parameters start at PyTorch's defaults; load trained or exported
     weights with ``load_state_dict``."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        lt = cfg.loss_type
-        if lt.mlm or lt.cls or lt.t2i:
-            raise NotImplementedError(
-                "only the ITM head is ported: use LossType(itm=True, mlm=False, "
-                "t2i=False, cls=False)")
         if cfg.variant != "v1" or cfg.linear_sr:
             raise NotImplementedError(f"variant {cfg.variant!r} is not ported yet")
         self.cfg = cfg
         self.compute_dtype = getattr(torch, cfg.compute_dtype)
         eps = cfg.other_ln_eps
+        lt = cfg.loss_type
+        hidden = cfg.token_hidden_size
         self.text_embeddings = BertEmbeddings(
-            cfg.vocab_size, cfg.token_hidden_size, cfg.max_position_embeddings,
-            cfg.type_vocab_size, cfg.bert_ln_eps)
+            cfg.vocab_size, hidden, cfg.max_position_embeddings,
+            cfg.type_vocab_size, cfg.bert_ln_eps, cfg.bert_dropout)
+        # stochastic-depth decay rule: linspace over the total depth
+        dpr = iter(np.linspace(0.0, cfg.drop_path_rate, sum(cfg.depths)).tolist())
         for i, dim in enumerate(cfg.embed_dims):
             prev = cfg.embed_dims[i - 1] if i else None
             native_g = cfg.img_size // (cfg.patch_size * 2 ** i)
@@ -200,30 +251,48 @@ class PVLT(nn.Module):
             setattr(self, f"patch_embed{i + 1}", PatchEmbed(
                 cfg.patch_size if i == 0 else 2, prev or cfg.in_chans, dim, eps))
             setattr(self, f"text_embed{i + 1}", nn.Sequential(
-                nn.Linear(prev or cfg.token_hidden_size, dim), nn.LayerNorm(dim, eps=eps)))
+                nn.Linear(prev or hidden, dim), nn.LayerNorm(dim, eps=eps)))
             setattr(self, f"pos_embed{i + 1}", nn.Parameter(torch.zeros(1, slots, dim)))
             setattr(self, f"text_pos_embed{i + 1}",
                     nn.Parameter(torch.zeros(1, cfg.num_text_tokens, dim)))
             setattr(self, f"block{i + 1}", nn.ModuleList(
                 Block(dim, cfg.num_heads[i], cfg.mlp_ratios[i], cfg.sr_ratios[i],
-                      cfg.qkv_bias, cfg.block_ln_eps, eps)
+                      cfg.qkv_bias, cfg.block_ln_eps, eps, next(dpr))
                 for _ in range(cfg.depths[i])))
-        self.itm_head_embed = nn.Sequential(
-            nn.Linear(cfg.embed_dims[-1], cfg.token_hidden_size),
-            nn.LayerNorm(cfg.token_hidden_size, eps=eps))
-        self.itm_head = ITMHead(cfg.token_hidden_size)
+        adapter = lambda: nn.Sequential(nn.Linear(cfg.embed_dims[-1], hidden),
+                                        nn.LayerNorm(hidden, eps=eps))
+        if lt.mlm:
+            self.mlm_head_embed = adapter()
+            self.mlm_head = MLMHead(cfg.vocab_size, hidden)
+        if lt.itm:
+            self.itm_head_embed = adapter()
+            self.itm_head = ITMHead(hidden)
+        if lt.cls:
+            self.sup_cls_head_embed = adapter()
+            self.sup_cls_head = CLSHead(cfg.num_super_classes, hidden)
+            self.sub_cls_head_embed = adapter()
+            self.sub_cls_head = CLSHead(cfg.num_sub_classes, hidden)
+        if lt.t2i:
+            self.t2i_head = ITGHead(cfg.embed_dims, cfg.itg_channel)
 
-    def forward(self, images: torch.Tensor,
-                input_ids: torch.Tensor) -> Dict[str, Optional[torch.Tensor]]:
-        if self.training:
-            raise NotImplementedError("the training path of the port is not written yet")
+    def _adapter(self, name: str, feat: torch.Tensor) -> torch.Tensor:
+        dense, norm = getattr(self, f"{name}_head_embed")
+        return _ln(linear(feat, dense.weight, dense.bias), norm)
+
+    def forward(self, images: torch.Tensor, input_ids: torch.Tensor, *,
+                mlm_row_idx: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> Dict[str, Optional[torch.Tensor]]:
         cfg = self.cfg
+        if self.training and (cfg.drop_rate or cfg.attn_drop_rate):
+            raise NotImplementedError("drop_rate and attn_drop_rate are not ported: "
+                                      "training needs both at 0")
         dtype = self.compute_dtype
         if images.shape[-1] != cfg.in_chans and images.shape[1] == cfg.in_chans:
             images = images.permute(0, 2, 3, 1)        # NCHW accepted
         b = images.shape[0]
-        y = self.text_embeddings(input_ids).to(dtype)
+        y = self.text_embeddings(input_ids, generator).to(dtype)
         x = images.to(dtype)
+        img_feats = []
         for i, dim in enumerate(cfg.embed_dims):
             x, (h, w) = getattr(self, f"patch_embed{i + 1}")(x)
             dense, norm = getattr(self, f"text_embed{i + 1}")
@@ -236,18 +305,36 @@ class PVLT(nn.Module):
             text_pos = getattr(self, f"text_pos_embed{i + 1}").to(dtype)
             z = torch.cat([x + pos, y + text_pos], dim=1)
             for blk in getattr(self, f"block{i + 1}"):
-                z = blk(z, (h, w))
+                z = blk(z, (h, w), generator)
             x = z[:, : h * w].reshape(b, h, w, dim)
             y = z[:, h * w:]
-        dense, norm = self.itm_head_embed
-        feat = _ln(linear(y[:, 0:1], dense.weight, dense.bias), norm)
-        return {"mlm_logits": None, "itm_logits": self.itm_head(feat),
-                "sup_cls_logits": None, "sub_cls_logits": None, "t2i_logits": None}
+            img_feats.append(x)
+
+        lt = cfg.loss_type
+        out: Dict[str, Optional[torch.Tensor]] = dict.fromkeys(
+            ("mlm_logits", "itm_logits", "sup_cls_logits", "sub_cls_logits", "t2i_logits"))
+        if lt.mlm:
+            table = self.text_embeddings.word_embeddings.weight
+            if self.training and cfg.mlm_loss_chunk > 0:
+                rows = y if mlm_row_idx is None else y.reshape(-1, y.shape[-1])[mlm_row_idx][None]
+                hid, bias = self.mlm_head(self._adapter("mlm", rows), table, decode=False)
+                out.update(mlm_hidden=hid, mlm_table=table, mlm_bias=bias)
+            else:
+                out["mlm_logits"] = self.mlm_head(self._adapter("mlm", y), table)
+        cls_feat = y[:, 0:1]
+        if lt.itm:
+            out["itm_logits"] = self.itm_head(self._adapter("itm", cls_feat))
+        if lt.cls:
+            out["sup_cls_logits"] = self.sup_cls_head(self._adapter("sup_cls", cls_feat))
+            out["sub_cls_logits"] = self.sub_cls_head(self._adapter("sub_cls", cls_feat))
+        if lt.t2i:
+            out["t2i_logits"] = self.t2i_head(*img_feats[1:4]).float()
+        return out
 
 
-def create_model(cfg: ModelConfig, *, device="cpu") -> PVLT:
+def create_model(cfg: ModelConfig, *, device="cuda") -> PVLT:
     """A PVLT for ``cfg`` with the registry preset for ``cfg.name`` applied,
-    on ``device``."""
+    on ``device`` (the card unless the caller asks for another)."""
     cfg = resolve_model_config(cfg)
     validate_model_config(cfg)
     return PVLT(cfg).to(device)

@@ -10,7 +10,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict
 
-from mvlt_tpu.config import ModelConfig
+from mvlt_tpu_torch.config import ModelConfig
 
 MODEL_REGISTRY: Dict[str, Dict[str, Any]] = {
     "pvlt_tiny": dict(depths=(2, 2, 2, 2)),

@@ -29,13 +29,27 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
+_STRIDES = ctypes.POINTER(ctypes.c_longlong)
 # C signatures of the kernels' entries (csrc/*.cu); every pointer and the
 # stream are c_void_p so ctypes never truncates them.
 _SIGNATURES = {
     "mvlt_sr_kv": [_P] * 11 + [_I] * 7 + [_F, _F, _P],
     "mvlt_block_fused": [_P] * 16 + [_I] * 6 + [_F, _F, _F, _P],
+    "mvlt_attention_fwd": [_P] * 4 + [_STRIDES] + [_I] * 5 + [_F, _P],
+    "mvlt_attention_bwd": [_P] * 7 + [_STRIDES] + [_I] * 5 + [_F, _P],
+    "mvlt_ln_mlp_fwd": [_P] * 9 + [_L] + [_I] * 3 + [_F, _P],
+    "mvlt_ln_mlp_slot_floats": [_I, _I],
+    "mvlt_ln_mlp_bwd": [_P] * 10 + [_I] + [_P] * 6 + [_L] + [_I] * 3 + [_F, _P],
 }
+
+
+def strides_arg(*tensors):
+    """(batch, head, row) element strides of each [B, H, rows, hd] tensor,
+    as the C entries take them."""
+    vals = [s for t in tensors for s in t.stride()[:3]]
+    return (ctypes.c_longlong * len(vals))(*vals)
 
 
 def _nvcc() -> str:

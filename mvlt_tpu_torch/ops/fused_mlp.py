@@ -1,0 +1,166 @@
+"""LN -> fc1 -> GELU(erf) -> fc2 -> scaled residual of the training path,
+forward and backward:
+    y = x + s * (GELU(LN(x) W1^T + b1) W2^T + b2)
+with x [B, N, D], W1 [H, D] and W2 [D, H] in torch Linear layout, and s [B]
+the per-sample DropPath scale (mask / keep; ones when DropPath is off).
+
+Counterpart of mvlt_tpu/ops/fused_mlp.py:fused_ln_mlp (forward
+``_fused_ln_mlp_impl``, backward ``_fused_ln_mlp_bwd``), with gelu="erf".
+The plain versions are ``ln_mlp_reference`` and ``ln_mlp_bwd_reference``;
+the latter recomputes the hidden as the Pallas backward does.
+``ln_mlp_fwd`` and ``ln_mlp_bwd`` take them for CPU tensors and launch the
+Hopper kernels (csrc/ln_mlp.cu) for CUDA tensors, or raise; ``fused_ln_mlp``
+is the differentiable ``autograd.Function``. It takes the fp32 master
+parameters, rounds the matrices to x.dtype inside, and returns fp32
+gradients for them; s gets no gradient (the DropPath mask is a constant).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from mvlt_tpu_torch.ops import _build
+from mvlt_tpu_torch.ops.kernel_math import (acc_dtype, gelu, gelu_grad, layer_norm_bwd,
+                                            layer_norm_fp32, matmul_acc)
+
+
+def _rows_scale(row_scale, x):
+    """[B] per-sample scale -> [B, 1, 1] in the sum type."""
+    return row_scale.to(acc_dtype(x.dtype))[:, None, None]
+
+
+def ln_mlp_reference(x, gamma, beta, w1, b1, w2, b2, row_scale, eps: float):
+    """Plain forward in x.dtype: LN statistics, the products' sums, GELU and
+    the residual in fp32, the LN output and the GELU output rounded to
+    x.dtype before the products."""
+    acc = acc_dtype(x.dtype)
+    normed = layer_norm_fp32(x, gamma, beta, eps)
+    h = matmul_acc(normed, w1.transpose(0, 1), x.dtype) + b1.to(acc)
+    y = matmul_acc(gelu(h).to(x.dtype), w2.transpose(0, 1), x.dtype) + b2.to(acc)
+    return (x.to(acc) + _rows_scale(row_scale, x) * y).to(x.dtype)
+
+
+def ln_mlp_bwd_reference(x, gamma, beta, w1, b1, w2, row_scale, eps: float, dy):
+    """Plain backward for the output gradient dy: (dx, dgamma, dbeta, dW1,
+    db1, dW2, db2), the hidden recomputed; parameter gradients in fp32 (fp64
+    for fp64), dx in x.dtype. Rows with s = 0 pass dy through to dx."""
+    acc = acc_dtype(x.dtype)
+    dt = x.dtype
+    d, hidden = x.shape[-1], w1.shape[0]
+    normed = layer_norm_fp32(x, gamma, beta, eps)
+    h1 = matmul_acc(normed, w1.transpose(0, 1), dt) + b1.to(acc)
+    g = gelu(h1).to(dt)
+    dys = dy.to(acc) * _rows_scale(row_scale, x)
+    rows_dys = dys.reshape(-1, d)
+    db2 = rows_dys.sum(0)
+    dw2 = matmul_acc(rows_dys.transpose(0, 1), g.reshape(-1, hidden), dt)
+    dh1 = matmul_acc(dys, w2, dt) * gelu_grad(h1)
+    rows_dh1 = dh1.reshape(-1, hidden)
+    db1 = rows_dh1.sum(0)
+    dw1 = matmul_acc(rows_dh1.transpose(0, 1), normed.reshape(-1, d), dt)
+    dnormed = matmul_acc(dh1, w1, dt)
+    dx_ln, dgamma, dbeta = layer_norm_bwd(x, gamma, eps, dnormed)
+    dx = (dy.to(acc) + dx_ln).to(dt)
+    return dx, dgamma, dbeta, dw1, db1, dw2, db2
+
+
+def _check(name: str, x, gamma, beta, w1, b1, w2, b2, row_scale):
+    """Shapes, devices and types the kernels take; returns the operands as
+    they read them (bf16 matrices, fp32 vectors and row scale)."""
+    _build.check_stream(name, x)
+    b, n, d = x.shape
+    hidden = w1.shape[0]
+    if d > 512 or hidden % 16:
+        raise ValueError(f"{name}: D = {d} (<= 512) and hidden {hidden} (a multiple "
+                         f"of 16) out of range")
+    dev = x.device
+    vec = _build.kernel_vector
+    s = vec(name, row_scale, b, dev)
+    return (vec(name, gamma, d, dev), vec(name, beta, d, dev),
+            _build.kernel_weight(name, w1, (hidden, d), dev), vec(name, b1, hidden, dev),
+            _build.kernel_weight(name, w2, (d, hidden), dev),
+            None if b2 is None else vec(name, b2, d, dev), s)
+
+
+def ln_mlp_fwd(x, gamma, beta, w1, b1, w2, b2, row_scale, eps: float):
+    """Forward. A CPU tensor takes ``ln_mlp_reference``; a CUDA tensor
+    launches the kernel, anything else raises. Counts launches in
+    ``ln_mlp_fwd.launches``."""
+    if x.device.type == "cpu":
+        return ln_mlp_reference(x, gamma, beta, w1, b1, w2, b2, row_scale, eps)
+    name = "ln_mlp_fwd"
+    g, be, w1_, b1_, w2_, b2_, s = _check(name, x, gamma, beta, w1, b1, w2, b2, row_scale)
+    b, n, d = x.shape
+    out = torch.empty_like(x)
+    err = _build.load_library().mvlt_ln_mlp_fwd(
+        x.data_ptr(), g.data_ptr(), be.data_ptr(), w1_.data_ptr(), b1_.data_ptr(),
+        w2_.data_ptr(), b2_.data_ptr(), s.data_ptr(), out.data_ptr(), b * n, n, d,
+        w1.shape[0], eps, torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check_launch(name, err)
+    ln_mlp_fwd.launches += 1
+    return out
+
+
+def ln_mlp_bwd(x, gamma, beta, w1, b1, w2, row_scale, eps: float, dy):
+    """Backward (dx, dgamma, dbeta, dW1, db1, dW2, db2). A CPU tensor takes
+    ``ln_mlp_bwd_reference``; a CUDA tensor launches the kernel (and its
+    slot reduction), anything else raises. Counts launches in
+    ``ln_mlp_bwd.launches``."""
+    if x.device.type == "cpu":
+        return ln_mlp_bwd_reference(x, gamma, beta, w1, b1, w2, row_scale, eps, dy)
+    name = "ln_mlp_bwd"
+    g, be, w1_, b1_, w2_, _, s = _check(name, x, gamma, beta, w1, b1, w2, None, row_scale)
+    _build.check_stream(name, dy)
+    if dy.shape != x.shape:
+        raise ValueError(f"{name}: dy {tuple(dy.shape)} and x {tuple(x.shape)} differ")
+    b, n, d = x.shape
+    hidden = w1.shape[0]
+    dev = x.device
+    lib = _build.load_library()
+    # one fp32 slot of partial weight gradients per block, a block per SM
+    slots = torch.cuda.get_device_properties(dev).multi_processor_count
+    ws = torch.empty(slots * lib.mvlt_ln_mlp_slot_floats(d, hidden), dtype=torch.float32,
+                     device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    dx = torch.empty_like(x)
+    dw1, dw2 = torch.empty((hidden, d), **f32), torch.empty((d, hidden), **f32)
+    db1, db2 = torch.empty(hidden, **f32), torch.empty(d, **f32)
+    dgamma, dbeta = torch.empty(d, **f32), torch.empty(d, **f32)
+    err = lib.mvlt_ln_mlp_bwd(
+        x.data_ptr(), dy.data_ptr(), g.data_ptr(), be.data_ptr(), w1_.data_ptr(),
+        b1_.data_ptr(), w2_.data_ptr(), s.data_ptr(), dx.data_ptr(), ws.data_ptr(), slots,
+        dw1.data_ptr(), dw2.data_ptr(), db1.data_ptr(), db2.data_ptr(), dgamma.data_ptr(),
+        dbeta.data_ptr(), b * n, n, d, hidden, eps, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check_launch(name, err)
+    ln_mlp_bwd.launches += 1
+    return dx, dgamma, dbeta, dw1, db1, dw2, db2
+
+
+ln_mlp_fwd.launches = 0
+ln_mlp_bwd.launches = 0
+
+
+class _FusedLnMlp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, gamma, beta, w1, b1, w2, b2, row_scale, eps):
+        ctx.eps = eps
+        ctx.param_dtypes = [t.dtype for t in (gamma, beta, w1, b1, w2, b2)]
+        ctx.save_for_backward(x, gamma, beta, w1, b1, w2, row_scale)
+        return ln_mlp_fwd(x, gamma, beta, w1, b1, w2, b2, row_scale, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, gamma, beta, w1, b1, w2, row_scale = ctx.saved_tensors
+        if dy.device.type == "cuda":
+            dy = dy.contiguous()   # an incoming gradient's layout is autograd's choice
+        dx, *grads = ln_mlp_bwd(x, gamma, beta, w1, b1, w2, row_scale, ctx.eps, dy)
+        return (dx, *(g.to(t) for g, t in zip(grads, ctx.param_dtypes)), None, None)
+
+
+def fused_ln_mlp(x, gamma, beta, w1, b1, w2, b2, row_scale=None, eps: float = 1e-6):
+    """x + s * MLP(LN(x)), differentiable: the forward and the backward are
+    the kernels on CUDA tensors and their plain versions on CPU tensors.
+    row_scale None means ones."""
+    if row_scale is None:
+        row_scale = torch.ones(x.shape[0], dtype=torch.float32, device=x.device)
+    return _FusedLnMlp.apply(x, gamma, beta, w1, b1, w2, b2, row_scale, eps)

@@ -9,7 +9,9 @@ PyTorch for CUDA:
 (``--noconftest``: tests/conftest.py configures JAX, which this file does
 not need.) chip_smoke.py checks the kernels at the pvlt_tiny stage shapes;
 these tests take other widths, head dims, grids and lengths, the row tiles
-kernel B falls back to, and the ways a wrapper refuses its input. Bound:
+kernel B falls back to, the training kernels at head dim 32 with M = 600,
+rows off the tile and D = 320 at ratio 4, and the ways a wrapper refuses
+its input. Bound:
 max|kernel - plain| / max|plain| <= 2e-2 in bf16, as in chip_smoke.py.
 """
 
@@ -18,6 +20,11 @@ import torch
 
 from mvlt_tpu_torch.models.pvlt import Block
 from mvlt_tpu_torch.ops.block_fused import block_reference, fused_block
+from mvlt_tpu_torch.ops.fused_mlp import (fused_ln_mlp, ln_mlp_bwd, ln_mlp_bwd_reference,
+                                          ln_mlp_fwd, ln_mlp_reference)
+from mvlt_tpu_torch.ops.pallas_attention import (attention_bwd, attention_bwd_reference,
+                                                 attention_fwd, attention_reference,
+                                                 fused_attention)
 from mvlt_tpu_torch.ops.sr_kv import fused_ln_sr_kv, sr_kv_reference
 
 pytestmark = pytest.mark.cuda
@@ -111,6 +118,103 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         long_kv = torch.zeros(2, heads, 2048, dim // heads, device=dev, dtype=torch.bfloat16)
         with pytest.raises(RuntimeError, match="cudaError_t"):
             fused_block(x, long_kv, long_kv, *_block_args(blk), **kw_b)
-    with pytest.raises(NotImplementedError):
-        blk.train()(x, hw)
+    # training mode is the training path: its kernels, not the serving ones
+    launches = (fused_ln_sr_kv.launches, fused_block.launches, attention_fwd.launches,
+                ln_mlp_fwd.launches)
+    out = blk.train()(x, hw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    assert (fused_ln_sr_kv.launches, fused_block.launches, attention_fwd.launches,
+            ln_mlp_fwd.launches) == (launches[0], launches[1], launches[2] + 1, launches[3] + 1)
+
+
+def _mlp_params(d, hidden, dev, gen):
+    r = lambda *s, std: (std * torch.randn(*s, generator=gen)).to(dev)
+    return (1 + r(d, std=0.1), r(d, std=0.1), r(hidden, d, std=d ** -0.5),
+            r(hidden, std=0.05), r(d, hidden, std=hidden ** -0.5), r(d, std=0.05))
+
+
+@pytest.mark.parametrize("b,h,n,m,hd", [
+    (2, 3, 300, 600, 32),     # head dim 32, M = 600 (padded to 608), N off the q tile
+    (3, 5, 77, 192, 64),      # stage-3 heads, N off the tile
+    (1, 1, 17, 5, 16),        # tiny M and N
+])
+def test_attention_kernels_match_plain(dev, b, h, n, m, hd):
+    gen = torch.Generator().manual_seed(n + m)
+    bf = lambda *s, std=1.0: (std * torch.randn(*s, generator=gen)).to(dev, torch.bfloat16)
+    q, do = bf(b, n, h, hd, std=1.5).transpose(1, 2), bf(b, n, h, hd).transpose(1, 2)
+    kv = bf(b, m, 2, h, hd).permute(2, 0, 3, 1, 4)
+    k, v = kv[0], kv[1]
+    launches = (attention_fwd.launches, attention_bwd.launches)
+    o = attention_fwd(q, k, v, hd ** -0.5)
+    grads = attention_bwd(q, k, v, do, hd ** -0.5)
+    torch.cuda.synchronize()
+    assert (attention_fwd.launches, attention_bwd.launches) == (launches[0] + 1, launches[1] + 1)
+    assert _rel(o, attention_reference(q, k, v, hd ** -0.5)) <= TOL
+    for got, want in zip(grads, attention_bwd_reference(q, k, v, do, hd ** -0.5)):
+        assert got.shape == want.shape and _rel(got, want) <= TOL
+    # the autograd Function: the same kernels under backward()
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    fused_attention(*leaves, hd ** -0.5).backward(do)
+    for leaf, want in zip(leaves, grads):
+        assert _rel(leaf.grad, want) <= TOL
+
+
+@pytest.mark.parametrize("b,n,d,hidden", [
+    (2, 333, 320, 1280),      # D = 320 at ratio 4, rows off the tile
+    (3, 70, 64, 512),         # ratio 8, the row scale spans samples in a tile
+    (2, 20, 512, 2048),       # stage-4 widths, one tile per sample
+])
+def test_ln_mlp_kernels_match_plain(dev, b, n, d, hidden):
+    gen = torch.Generator().manual_seed(d + n)
+    x = torch.randn(b, n, d, generator=gen).to(dev, torch.bfloat16)
+    dy = torch.randn(b, n, d, generator=gen).to(dev, torch.bfloat16)
+    g, be, w1, b1, w2, b2 = _mlp_params(d, hidden, dev, gen)
+    s = torch.full((b,), 1 / 0.9, device=dev)
+    s[0] = 0.0
+    y = ln_mlp_fwd(x, g, be, w1, b1, w2, b2, s, 1e-6)
+    grads = ln_mlp_bwd(x, g, be, w1, b1, w2, s, 1e-6, dy)
+    torch.cuda.synchronize()
+    assert _rel(y, ln_mlp_reference(x, g, be, w1, b1, w2, b2, s, 1e-6)) <= TOL
+    want = ln_mlp_bwd_reference(x, g, be, w1, b1, w2, s, 1e-6, dy)
+    for got, w in zip(grads, want):
+        assert got.shape == w.shape and _rel(got, w) <= TOL
+    torch.testing.assert_close(grads[0][0], dy[0])          # a dropped sample: dx = dy
+    # deterministic: the slot sums run in a fixed order
+    again = ln_mlp_bwd(x, g, be, w1, b1, w2, s, 1e-6, dy)
+    assert all(torch.equal(a, c) for a, c in zip(grads, again))
+    # the autograd Function on fp32 masters returns fp32 gradients
+    params = [t.detach().requires_grad_() for t in (g, be, w1, b1, w2, b2)]
+    xl = x.detach().requires_grad_()
+    fused_ln_mlp(xl, *params, s, 1e-6).backward(dy)
+    assert xl.grad.dtype == torch.bfloat16
+    assert all(p.grad.dtype == torch.float32 for p in params)
+    assert _rel(params[2].grad, grads[3]) <= TOL
+
+
+def test_training_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    gen = torch.Generator().manual_seed(0)
+    q = torch.randn(2, 2, 40, 32, generator=gen).to(dev, torch.bfloat16)
+    k = torch.randn(2, 2, 24, 32, generator=gen).to(dev, torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA tensor for k"):
+        attention_fwd(q, k.cpu(), k, 0.2)                    # CPU/CUDA mix
+    with pytest.raises(ValueError, match="does not match"):
+        attention_fwd(q, k[:1], k, 0.2)
+    with pytest.raises(ValueError, match="bfloat16"):
+        attention_fwd(q.float(), k, k, 0.2)
+    with pytest.raises(ValueError, match="contiguous"):
+        attention_fwd(torch.cat([q, q], -1)[..., ::2], k, k, 0.2)   # last dim strided
+    with pytest.raises(ValueError, match="multiple of 16"):
+        attention_fwd(q[..., :24], k[..., :24], k[..., :24], 0.2)
+    x = torch.randn(2, 10, 64, generator=gen).to(dev, torch.bfloat16)
+    g, be, w1, b1, w2, b2 = _mlp_params(64, 256, dev, gen)
+    s = torch.ones(2, device=dev)
+    with pytest.raises(ValueError, match="weight on cpu"):
+        ln_mlp_fwd(x, g, be, w1.cpu(), b1, w2, b2, s, 1e-6)
+    with pytest.raises(ValueError, match="bfloat16"):
+        ln_mlp_fwd(x.float(), g, be, w1, b1, w2, b2, s, 1e-6)
+    with pytest.raises(ValueError, match="contiguous"):
+        ln_mlp_fwd(x.transpose(0, 1), g, be, w1, b1, w2, b2, s, 1e-6)
+    with pytest.raises(ValueError, match="differ"):
+        ln_mlp_bwd(x, g, be, w1, b1, w2, s, 1e-6, x[:, :5].contiguous())
 

@@ -1,5 +1,5 @@
-"""The port runs where JAX is absent: a GPU host for it needs no jax, no
-flax, no PIL and no cv2."""
+"""The port runs where JAX and the JAX package are absent: a GPU host for it
+needs no jax, no flax, no PIL, no cv2 and nothing of mvlt_tpu."""
 
 import pathlib
 import re
@@ -11,35 +11,47 @@ PKG = REPO / "mvlt_tpu_torch"
 
 _GUARDED = r"""
 import sys
-for name in ("jax", "jaxlib", "flax", "PIL", "cv2"):
+for name in ("jax", "jaxlib", "flax", "PIL", "cv2", "mvlt_tpu"):
     sys.modules[name] = None        # any import of them now fails
 import importlib, pkgutil
 import mvlt_tpu_torch
 for info in pkgutil.walk_packages(mvlt_tpu_torch.__path__, "mvlt_tpu_torch."):
     importlib.import_module(info.name)
 import chip_smoke
+import numpy as np
 import torch
-from mvlt_tpu.config import LossType, ModelConfig
+from mvlt_tpu_torch.config import DataConfig, LossType, ModelConfig, OptimConfig
+from mvlt_tpu_torch.data.fashion_gen import SyntheticFashionGen, batches
 from mvlt_tpu_torch.eval.retrieval import evaluate_retrieval, make_itm_scorer
 from mvlt_tpu_torch.models.pvlt import create_model
-cfg = ModelConfig(img_size=64, embed_dims=(8, 16, 32, 64), num_heads=(1, 2, 2, 4),
-                  mlp_ratios=(2, 2, 2, 2), sr_ratios=(8, 4, 2, 1),
-                  token_hidden_size=32, num_text_tokens=16,
-                  max_position_embeddings=64, compute_dtype="float32",
-                  loss_type=LossType(itm=True, mlm=False, t2i=False, cls=False))
-model = create_model(cfg).eval()
-import numpy as np
-bundle = {"images_101": np.zeros((5, 64, 64, 3), np.uint8),
+from mvlt_tpu_torch.train.engine import train_one_epoch
+from mvlt_tpu_torch.train.state import create_train_state
+from mvlt_tpu_torch.train.step import make_train_step
+micro = dict(img_size=32, embed_dims=(8, 16, 32, 64), num_heads=(1, 2, 2, 4),
+             mlp_ratios=(2, 2, 2, 2), sr_ratios=(8, 4, 2, 1), token_hidden_size=32,
+             num_text_tokens=16, max_position_embeddings=32, itg_channel=8,
+             compute_dtype="float32", mlm_ce_kernel=False)
+cfg = ModelConfig(**micro, loss_type=LossType(itm=True, mlm=False, t2i=False, cls=False))
+model = create_model(cfg, device="cpu").eval()
+bundle = {"images_101": np.zeros((5, 32, 32, 3), np.uint8),
           "ori_input_ids_101": np.zeros((5, 16), np.int32)}
 res = evaluate_retrieval(make_itm_scorer(model), [bundle], is_main=False)
 assert res["num_queries"] == 1, res
-loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax"))
+cfg = ModelConfig(**micro)
+model = create_model(cfg, device="cpu")
+state = create_train_state(model, OptimConfig(warmup_epochs=0), 2, 1)
+data = SyntheticFashionGen(DataConfig(input_size=32, num_text_tokens=16), size=2)
+state, stats = train_one_epoch(make_train_step(cfg), state, batches(data, 2), is_main=False)
+assert state.step == 1 and np.isfinite(stats["total_loss"]), stats
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "mvlt_tpu"))
 assert not [m for m in loaded if sys.modules[m] is not None], loaded
 print("OK")
 """
 
 
 def test_port_imports_and_serves_without_jax():
+    """Serving and one training step of the port with jax, flax and the
+    JAX package blocked."""
     proc = subprocess.run([sys.executable, "-c", _GUARDED], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
@@ -47,8 +59,12 @@ def test_port_imports_and_serves_without_jax():
 
 
 def test_no_jax_import_in_port_sources():
-    pattern = re.compile(r"^\s*(import\s+(jax|flax)\b|from\s+(jax|flax)\b)", re.M)
+    pattern = re.compile(
+        r"^\s*(import\s+(jax|flax|mvlt_tpu)\b(?!_)|from\s+(jax|flax|mvlt_tpu)\b(?!_))", re.M)
     files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) > 10
+    assert len(files) > 20
     offenders = [str(f.relative_to(REPO)) for f in files if pattern.search(f.read_text())]
     assert not offenders, offenders
+    assert pattern.search("from mvlt_tpu.config import ModelConfig")
+    assert pattern.search("import mvlt_tpu")
+    assert not pattern.search("from mvlt_tpu_torch.config import ModelConfig")

@@ -17,6 +17,8 @@ import torch
 from mvlt_tpu_torch.convert import state_dict_from_jax
 from mvlt_tpu_torch.models.pvlt import Block as TorchBlock
 from mvlt_tpu_torch.ops.block_fused import block_reference, fused_block
+from mvlt_tpu_torch.ops.fused_mlp import ln_mlp_bwd, ln_mlp_fwd
+from mvlt_tpu_torch.ops.pallas_attention import attention_bwd, attention_fwd
 from mvlt_tpu_torch.ops.sr_kv import fused_ln_sr_kv, sr_kv_reference
 from tests.kernel_utils import run_interpret
 
@@ -187,7 +189,7 @@ def test_module_path_matches_kernel_references(sr):
 
 def test_wrappers_refuse_non_cpu_non_cuda_tensors():
     """Off the CPU a wrapper launches its kernel or raises: it never falls
-    back to the plain version."""
+    back to the plain version. The same holds for the training kernels."""
     blk = TorchBlock(64, 1, 4.0, 2, True).eval()
     x = torch.empty(1, 16 + 4, 64, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
@@ -196,5 +198,15 @@ def test_wrappers_refuse_non_cpu_non_cuda_tensors():
     k = torch.empty(1, 1, 8, 64, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         fused_block(x, k, k, *_block_args(blk), heads=1, eps1=1e-6, eps2=1e-6)
-    with pytest.raises(NotImplementedError):
-        blk.train()(torch.zeros(1, 20, 64), (4, 4))
+    # the training path's kernels refuse them too
+    q = torch.empty(1, 1, 20, 64, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        attention_fwd(q, k, k, 0.125)
+    with pytest.raises(ValueError, match="CUDA"):
+        attention_bwd(q, k, k, q, 0.125)
+    mlp = (blk.norm2.weight, blk.norm2.bias, blk.mlp.fc1.weight, blk.mlp.fc1.bias,
+           blk.mlp.fc2.weight)
+    with pytest.raises(ValueError, match="CUDA"):
+        ln_mlp_fwd(x, *mlp, blk.mlp.fc2.bias, torch.ones(1), 1e-6)
+    with pytest.raises(ValueError, match="CUDA"):
+        ln_mlp_bwd(x, *mlp, torch.ones(1), 1e-6, x)
