@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's two paths once on one NVIDIA GPU: retrieval
-serving and the pre-training step.
+"""Drive the PyTorch port's paths once on one NVIDIA GPU: retrieval serving,
+the pre-training step, and pre-training through the command line.
 
     python3 chip_smoke.py
 
@@ -34,24 +34,41 @@ JSON line each; a failed phase raises and the script exits non-zero:
      B = 150 and a ragged shape; at B = 150 each kernel's time beside its
      plain version's, its bound, and for attention
      F.scaled_dot_product_attention's (a yardstick the port never calls);
-  8. the training slice: pvlt_tiny pre-training (ITM + MLM + T2I at 1/1/10,
-     bf16, B = 150, DropPath 0.1, BERT dropout 0.1, AdamW, mlm_ce_kernel
-     off) takes 6 steps through train_one_epoch(make_train_step(...)) on one
-     repeated synthetic batch (warmup 0): every loss finite, each training
-     kernel launched 8 times per step and no serving kernel, the loss of
+  8. the MLM CE kernels (forward; backward dx and dE/db) against their plain
+     versions in bf16 (nll, lse and the three gradients within 2e-2) at the
+     path's R = 3,072 gathered rows (~15% labeled), a ragged R = 1,000, and
+     with every row ignored (exact zeros); their times at R = 3,072 beside
+     the plain versions', the bounds and the cuBLAS logits +
+     F.cross_entropy yardstick;
+  9. the training slice: pvlt_tiny pre-training (ITM + MLM + T2I at 1/1/10,
+     bf16, B = 150, DropPath 0.1, BERT dropout 0.1, AdamW, the MLM loss
+     through the MLM CE kernels) takes 6 steps through
+     train_one_epoch(make_train_step(...)) on one repeated synthetic batch
+     (warmup 0): every loss finite, each block kernel launched 8 times per
+     step and each MLM CE kernel once, no serving kernel, the loss of
      steps 4 and 5 below that of steps 0 and 1 (the parities alternate clean
      and masked images), BatchNorm statistics changed. Then every block of a
      B = 150 step (output; input and parameter gradients for the step's
      upstream gradient) within 2e-2 of the plain versions, and one step on
      4 samples against the same weights in fp32 on the CPU (losses, and
-     per-tensor gradient cosines), beside the CPU's own bf16 gap;
-  9. training throughput at B = 150: ms/step and samples/s, peak memory,
-     and a torch.profiler breakdown.
+     per-tensor gradient cosines; the card's MLM loss through the kernels,
+     the CPU's through the chunked plain decode), beside the CPU's own bf16
+     gap;
+ 10. training throughput at B = 150: ms/step and samples/s, peak memory,
+     and a torch.profiler breakdown;
+ 11. the command line: ``mvlt_tpu_torch.cli.main`` with
+     configs/pretrain_exp21.py on synthetic data (B = 150) for 2 epochs with
+     the VL eval in epoch 1, ``--resume last`` for epoch 2, then one CLS
+     fine-tune epoch (configs/finetune_exp48.py) from that checkpoint, in
+     build/chip_smoke_cli (removed after): logs, checkpoints, finite losses
+     and eval statistics, every kernel launched, the MLM CE kernels once per
+     pre-training step.
 
 Then one line {"kernels": [...]}: per kernel the launches of its path's
-run, the largest error of its checks, its time and its plain version's
-summed over the four stage shapes at the path's batch (one launch each),
-the bound, and the library call's time where there is one; the nvidia-smi
+run (the MLM CE kernels': the command line's), the largest error of its
+checks, its time and its plain version's summed over the four stage shapes
+at the path's batch (one launch each; the MLM CE kernels at R = 3,072), the
+bound, and the library call's time where there is one; the nvidia-smi
 line; and last {"ok": true, "device": {...}}. Without a CUDA device it exits
 non-zero before printing any result.
 """
@@ -62,6 +79,7 @@ import dataclasses
 import json
 import math
 import pathlib
+import shutil
 import statistics
 import subprocess
 import sys
@@ -72,6 +90,7 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
+from mvlt_tpu_torch import cli
 from mvlt_tpu_torch.config import DataConfig, LossType, ModelConfig, OptimConfig
 from mvlt_tpu_torch.data.fashion_gen import SyntheticFashionGen, batch_to_device, collate
 from mvlt_tpu_torch.data.tokenizer import WordPieceTokenizer
@@ -81,6 +100,8 @@ from mvlt_tpu_torch.ops import _build
 from mvlt_tpu_torch.ops.block_fused import block_reference, fused_block
 from mvlt_tpu_torch.ops.fused_mlp import (ln_mlp_bwd, ln_mlp_bwd_reference, ln_mlp_fwd,
                                           ln_mlp_reference)
+from mvlt_tpu_torch.ops.mlm_ce import (mlm_ce_bwd, mlm_ce_fwd, mlm_nll_bwd_reference,
+                                       mlm_nll_reference)
 from mvlt_tpu_torch.ops.pallas_attention import (attention_bwd, attention_bwd_reference,
                                                  attention_fwd, attention_reference)
 from mvlt_tpu_torch.ops.sr_kv import fused_ln_sr_kv, sr_kv_reference
@@ -137,11 +158,16 @@ KERNELS = [
      "replaces": "mvlt_tpu/ops/fused_mlp.py:380"},
     {"name": "ln_mlp_bwd", "route": "cuda", "source": "mvlt_tpu_torch/csrc/ln_mlp.cu",
      "replaces": "mvlt_tpu/ops/fused_mlp.py:214"},
+    {"name": "mlm_ce_fwd", "route": "cuda", "source": "mvlt_tpu_torch/csrc/mlm_ce.cu",
+     "replaces": "mvlt_tpu/ops/mlm_ce.py:187"},
+    {"name": "mlm_ce_bwd", "route": "cuda", "source": "mvlt_tpu_torch/csrc/mlm_ce.cu",
+     "replaces": "mvlt_tpu/ops/mlm_ce.py:249"},
 ]
 SERVING_WRAPPERS = {"sr_kv": fused_ln_sr_kv, "block_fused": fused_block}
 TRAINING_WRAPPERS = {"attention_fwd": attention_fwd, "attention_bwd": attention_bwd,
                      "ln_mlp_fwd": ln_mlp_fwd, "ln_mlp_bwd": ln_mlp_bwd}
-WRAPPERS = {**SERVING_WRAPPERS, **TRAINING_WRAPPERS}
+MLM_WRAPPERS = {"mlm_ce_fwd": mlm_ce_fwd, "mlm_ce_bwd": mlm_ce_bwd}   # once per step
+WRAPPERS = {**SERVING_WRAPPERS, **TRAINING_WRAPPERS, **MLM_WRAPPERS}
 
 
 def reset_launches() -> None:
@@ -441,7 +467,7 @@ def phase_slice(stats: dict):
         raise AssertionError(f"scored {s.numel()} pairs in {results['num_queries']} queries")
     if not (finite and in_range):
         raise AssertionError("ITM scores not all finite and inside (0, 1)")
-    if any(launches[name] for name in TRAINING_WRAPPERS):
+    if any(launches[name] for name in WRAPPERS if name not in SERVING_WRAPPERS):
         raise AssertionError(f"the serving path launched a training kernel: {launches}")
     for name in SERVING_WRAPPERS:
         count = launches[name]
@@ -708,9 +734,9 @@ def phase_train_kernels(stats: dict) -> None:
 
 def train_config() -> ModelConfig:
     """configs/pretrain_exp21.py: pvlt_tiny, ITM + MLM + T2I, DropPath 0.1,
-    BERT dropout 0.1, bf16; with the MLM CE kernel off (not ported yet)."""
-    return ModelConfig(name="pvlt_tiny", compute_dtype="bfloat16", drop_path_rate=0.1,
-                       mlm_ce_kernel=False)
+    BERT dropout 0.1, bf16, the MLM loss through the MLM CE kernels (the
+    default, mlm_ce_kernel=True)."""
+    return ModelConfig(name="pvlt_tiny", compute_dtype="bfloat16", drop_path_rate=0.1)
 
 
 def train_batch(seed: int, size: int) -> dict:
@@ -752,7 +778,8 @@ def phase_train_slice(stats: dict):
     falling = totals[4] < totals[0] and totals[5] < totals[1]
     bn_moved = any(not torch.equal(v, stats_before[k]) for k, v in model.named_buffers())
     blocks = sum(cfg.depths)
-    expected = {name: blocks * TRAIN_STEPS for name in TRAINING_WRAPPERS}
+    expected = {**{name: blocks * TRAIN_STEPS for name in TRAINING_WRAPPERS},
+                **{name: TRAIN_STEPS for name in MLM_WRAPPERS}}
     emit("train_slice", model=cfg.name, compute_dtype=cfg.compute_dtype, batch=TRAIN_BATCH,
          steps=TRAIN_STEPS, seconds_host_inclusive=seconds, losses=losses,
          launches=launches, launches_expected=expected, finite=finite,
@@ -859,10 +886,11 @@ def compare_train_cpu(cfg, sd) -> None:
         worst = min(cos, key=cos.get)
         return loss_err, cos[worst], worst
 
-    card_loss, card_cos, card_worst = gap("card_bf16")
+    card_loss, card_cos, card_worst = gap("card_bf16")   # MLM: kernels vs chunked plain
     cpu_loss, cpu_cos, cpu_worst = gap("cpu_bf16")
     ok = max(card_loss.values()) <= STEP_LOSS_TOL and card_cos >= GRAD_COS_MIN
-    emit("train_vs_cpu_fp32", batch=CPU_BATCH, losses_card=runs["card_bf16"][0],
+    emit("train_vs_cpu_fp32", batch=CPU_BATCH, mlm_card="mlm_ce kernels",
+         mlm_cpu="chunked plain decode", losses_card=runs["card_bf16"][0],
          losses_cpu=want_l, rel_err_losses=card_loss, min_grad_cosine=card_cos,
          min_cosine_tensor=card_worst, rel_err_losses_cpu_bf16=cpu_loss,
          min_grad_cosine_cpu_bf16=cpu_cos, min_cosine_tensor_cpu_bf16=cpu_worst,
@@ -891,8 +919,177 @@ def phase_train_throughput(state, cfg) -> None:
                    {"attention_fwd": ("attn_fwd_kernel",),
                     "attention_bwd": ("attn_bwd_kernel",),
                     "ln_mlp_fwd": ("ln_mlp_fwd_kernel",),
-                    "ln_mlp_bwd": ("ln_mlp_bwd_kernel", "ln_mlp_reduce_kernel")},
+                    "ln_mlp_bwd": ("ln_mlp_bwd_kernel", "ln_mlp_reduce_kernel"),
+                    "mlm_ce_fwd": ("mlm_ce_fwd_kernel", "mlm_ce_merge_kernel"),
+                    "mlm_ce_bwd": ("mlm_ce_dx_kernel", "mlm_ce_dx_reduce_kernel",
+                                   "mlm_ce_dtable_kernel")},
                    "train_profile")
+
+
+# ---- the MLM cross entropy and the pre-training CLI ------------------------
+
+REPO = pathlib.Path(__file__).resolve().parent
+MLM_ROWS = 3072            # the gather plan's capacity at B = 150 x 128 tokens, frac 0.16
+MLM_WIDTH, VOCAB = 768, 30522
+
+
+def mlm_inputs(gen, rows: int, frac: float) -> tuple:
+    """Seeded operands of the MLM CE kernels on the card: bf16 rows, the bf16
+    table with std 3 / sqrt(H) (logits of std ~3, a peaked softmax), an fp32
+    bias, labels with ``frac`` of the rows labeled, and the per-row gradient
+    the mean loss gives (1 / labeled count)."""
+    dev = torch.device("cuda")
+    x = torch.randn(rows, MLM_WIDTH, generator=gen).to(dev, torch.bfloat16)
+    table = (3.0 / MLM_WIDTH ** 0.5 * torch.randn(VOCAB, MLM_WIDTH, generator=gen)).to(
+        dev, torch.bfloat16)
+    bias = (0.1 * torch.randn(VOCAB, generator=gen)).to(dev)
+    labels = torch.where(torch.rand(rows, generator=gen) < frac,
+                         torch.randint(0, VOCAB, (rows,), generator=gen), -1).to(dev)
+    g = torch.full((rows,), 1.0 / max(int((labels >= 0).sum()), 1), device=dev)
+    return x, table, bias, labels, g
+
+
+def mlm_bounds(rows: int) -> dict:
+    """(ms, bound_by) of the two MLM CE kernels. Forward: 2.R.V.H flops;
+    rows, table, bias and labels read, nll and lse written. Backward: the
+    least work, one logits recompute, dx and dE (6.R.V.H); rows, table,
+    bias, labels, lse and g read, fp32 dx, dE and db written."""
+    r, h, v = rows, MLM_WIDTH, VOCAB
+    operands = 2 * r * h + 2 * v * h + 4 * v + 4 * r
+    return {"mlm_ce_fwd": bound(2 * r * v * h, operands + 2 * 4 * r),
+            "mlm_ce_bwd": bound(6 * r * v * h, operands + 2 * 4 * r + 4 * (r * h + v * h + v))}
+
+
+def library_ce_times(x, table, bias, labels) -> tuple[float, float, float]:
+    """The library yardstick the port never calls: the cuBLAS bf16 logits,
+    then F.cross_entropy(ignore_index=-1) summed, as one autograd graph:
+    forward, backward alone (on a kept graph) and both, in ms."""
+    xr, tr, br = (t.detach().requires_grad_() for t in (x, table.float(), bias))
+    fwd = lambda: F.cross_entropy((xr @ tr.to(torch.bfloat16).t()).float() + br, labels,
+                                  ignore_index=-1, reduction="sum")
+    loss = fwd()
+    bwd = lambda: torch.autograd.grad(loss, (xr, tr, br), retain_graph=True)
+    both = lambda: torch.autograd.grad(fwd(), (xr, tr, br))
+    return cuda_time_ms(fwd), cuda_time_ms(bwd), cuda_time_ms(both)
+
+
+def phase_mlm_kernels(stats: dict) -> None:
+    """The MLM CE kernels against their plain versions in bf16 (nll, lse and
+    the three gradients, each within KERNEL_TOL) at the path's R = 3,072
+    rows with ~15% labeled, at a ragged R = 1,000, and with every row
+    ignored (exact zeros); at R = 3,072 their times beside the plain
+    versions', the bounds and the library call's."""
+    gen = torch.Generator().manual_seed(SEED + 11)
+    for label, rows, frac in (("path", MLM_ROWS, 0.15), ("ragged", 1000, 0.3),
+                              ("all_ignored", 512, 0.0)):
+        x, table, bias, labels, g = mlm_inputs(gen, rows, frac)
+        nll, lse = mlm_ce_fwd(x, table, bias, labels)
+        want_nll, want_lse = mlm_nll_reference(x, table, bias, labels)
+        grads = mlm_ce_bwd(x, table, bias, labels, want_lse, g)
+        want = mlm_nll_bwd_reference(x, table, bias, labels, want_lse, g)
+        torch.cuda.synchronize()
+        errs = {"mlm_ce_fwd": {"nll": _rel_err(nll, want_nll), "lse": _rel_err(lse, want_lse)},
+                "mlm_ce_bwd": {k: _rel_err(a, b) for k, a, b in
+                               zip(("d_rows", "d_table", "d_bias"), grads, want)}}
+        if frac == 0.0:
+            nonzero = int(torch.count_nonzero(nll)) + sum(int(torch.count_nonzero(t))
+                                                           for t in grads)
+            ok = nonzero == 0
+            emit("kernel_check", kernel="mlm_ce", shape=label, rows=rows, labeled=0,
+                 nonzero_outputs=nonzero, ok=ok)
+            if not ok:
+                raise AssertionError(f"MLM CE with every row ignored left {nonzero} non-zeros")
+            continue
+        for name, e in errs.items():
+            worst = max(v[1] for v in e.values())
+            ok = bool(worst <= KERNEL_TOL and np.isfinite(worst))
+            emit("kernel_check", kernel=name, shape=label, rows=rows, width=MLM_WIDTH,
+                 vocab=VOCAB, labeled=int((labels >= 0).sum()),
+                 rel_err={k: v[1] for k, v in e.items()}, tol=KERNEL_TOL, ok=ok)
+            if not ok:
+                raise AssertionError(f"{name} disagrees with its plain version at {label}: "
+                                     f"{e} (tol {KERNEL_TOL})")
+            stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"],
+                                             max(v[0] for v in e.values()))
+        if label != "path":
+            continue
+        lib_fwd, lib_bwd, lib_both = library_ce_times(x, table, bias, labels)
+        times = {"mlm_ce_fwd": (lambda: mlm_ce_fwd(x, table, bias, labels),
+                                lambda: mlm_nll_reference(x, table, bias, labels), lib_fwd),
+                 "mlm_ce_bwd": (lambda: mlm_ce_bwd(x, table, bias, labels, lse, g),
+                                lambda: mlm_nll_bwd_reference(x, table, bias, labels, lse, g),
+                                lib_bwd)}
+        bounds = mlm_bounds(rows)
+        for name, (kernel, plain, library_ms) in times.items():
+            ms, plain_ms = cuda_time_ms(kernel), cuda_time_ms(plain)
+            bound_ms, bound_by = bounds[name]
+            emit("kernel_time", kernel=name, shape=label, rows=rows, ms=ms, plain_ms=plain_ms,
+                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                 speedup=plain_ms / ms,
+                 **({"library_fwd_bwd_ms": lib_both} if name == "mlm_ce_bwd" else {}))
+            add_time(stats, name, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                     bound_by=bound_by, library_ms=library_ms)
+        del times
+    torch.cuda.empty_cache()
+
+
+def _train_log(run: pathlib.Path) -> list:
+    with open(run / "train_log.jsonl") as f:
+        return [json.loads(line) for line in f]
+
+
+def phase_cli(stats: dict) -> None:
+    """The pre-training entry point on the card, as a user runs it:
+    ``mvlt_tpu_torch.cli.main`` with configs/pretrain_exp21.py on synthetic
+    data (B = 150, one step per epoch over 64 items x 3 repeats) for 2
+    epochs, the VL eval in epoch 1; then ``--resume last`` for epoch 2;
+    then one CLS fine-tune epoch (configs/finetune_exp48.py) from that
+    checkpoint. Checks the logs, the checkpoints, finite losses and eval
+    statistics, and that every kernel of the path launched: the MLM CE
+    kernels once per pre-training step."""
+    out = REPO / "build" / "chip_smoke_cli"
+    shutil.rmtree(out, ignore_errors=True)
+    pre, ft = out / "pretrain", out / "finetune"
+    base = ["--config", str(REPO / "configs" / "pretrain_exp21.py"), "--synthetic-data",
+            "--output-dir", str(pre)]
+    runs = [("pretrain", base + ["--epochs", "2"]),
+            ("resume", base + ["--epochs", "3", "--resume", "last"]),
+            ("finetune", ["--config", str(REPO / "configs" / "finetune_exp48.py"),
+                          "--synthetic-data", "--output-dir", str(ft), "--epochs", "1",
+                          "--finetune", str(pre)])]
+    try:
+        reset_launches()
+        seconds = {}
+        for label, argv in runs:
+            start = time.perf_counter()
+            cli.main(argv)
+            torch.cuda.synchronize()
+            seconds[label] = time.perf_counter() - start
+        launches = read_launches()
+        pre_log, ft_log = _train_log(pre), _train_log(ft)
+        steps = int(torch.load(pre / "checkpoint" / "last" / "state.pt", map_location="cpu",
+                               weights_only=True)["step"])
+        with open(pre / "checkpoint" / "last.json") as f:
+            last_epoch = json.load(f)["epoch"]
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    evals = [{k: v for k, v in line.items() if k.startswith("eval_")}
+             for line in pre_log + ft_log]
+    finite = all(np.isfinite(v) for line in pre_log + ft_log for v in line.values())
+    ok = ([line["epoch"] for line in pre_log] == [0, 1, 2] and len(ft_log) == 1
+          and not evals[0] and all(evals[1:]) and finite and steps == 3 and last_epoch == 2
+          and launches["mlm_ce_fwd"] == launches["mlm_ce_bwd"] == steps
+          and all(launches.values()))
+    emit("cli", config="configs/pretrain_exp21.py", batch=TRAIN_BATCH, epochs_run=[0, 1, 2],
+         resumed_at_epoch=2, pretrain_steps=steps, finetune_steps=1, seconds=seconds,
+         losses={f"epoch{line['epoch']}": line["total_loss"] for line in pre_log},
+         finetune_loss=ft_log[0]["total_loss"], eval_stats=[e for e in evals if e],
+         launches=launches, finite=finite, ok=ok)
+    if not ok:
+        raise AssertionError(f"the CLI path failed its checks: logs {pre_log} {ft_log}, "
+                             f"steps {steps}, launches {launches}")
+    for name in MLM_WRAPPERS:
+        stats[name]["launches"] = launches[name]
 
 
 def main() -> int:
@@ -914,10 +1111,14 @@ def main() -> int:
     phase_throughput(model, bundles)
     del model
     phase_train_kernels(stats)
+    phase_mlm_kernels(stats)
     state, cfg, sd, batch = phase_train_slice(stats)
     check_train_blocks(state, cfg, batch)
     compare_train_cpu(cfg, sd)
     phase_train_throughput(state, cfg)
+    del state, batch
+    torch.cuda.empty_cache()
+    phase_cli(stats)
     print(json.dumps({"kernels": [
         {**k, **{key: v for key, v in stats[k["name"]].items() if key != "bound_shares"}}
         for k in KERNELS]}), flush=True)

@@ -1,22 +1,24 @@
-"""The synthetic Fashion-Gen pre-training set, batching, and the move to the
-device.
+"""The synthetic Fashion-Gen pre-training set, the dataset factory, batching,
+and the move to the device.
 
 ``SyntheticFashionGen`` is the port's copy of
 mvlt_tpu/data/fashion_gen.py:SyntheticFashionGen: items with the exact
 pre-training schema, each a deterministic function of (seed, epoch, index),
-captions tokenised with the shipped vocab. The readers of the on-disk
-Fashion-Gen tree and the prefetching pipeline are not ported yet.
+captions tokenised with the shipped vocab. ``build_dataset`` returns it; the
+readers of the on-disk Fashion-Gen tree (pre-training, retrieval,
+recognition) are not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, List
+from typing import Dict, Iterator
 
 import numpy as np
 import torch
 
 from mvlt_tpu_torch.config import DataConfig
 from mvlt_tpu_torch.data.masks import apply_mask, generate_grid_mask
+from mvlt_tpu_torch.data.pipeline import collate
 from mvlt_tpu_torch.data.text_masking import process_caption
 from mvlt_tpu_torch.data.tokenizer import make_tokenizer
 
@@ -76,9 +78,15 @@ class SyntheticFashionGen:
         }
 
 
-def collate(items: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
-    """Stack items into a batch: every key gains a leading [B] axis."""
-    return {k: np.stack([np.asarray(it[k]) for it in items]) for k in items[0]}
+def build_dataset(split: str, cfg: DataConfig, itm_enabled: bool = True, seed: int = 0):
+    """Dataset factory (mvlt_tpu/data/fashion_gen.py:build_dataset): the
+    synthetic set for ``cfg.synthetic`` or an empty ``data_path``; the
+    on-disk readers raise."""
+    if cfg.synthetic or not cfg.data_path:
+        return SyntheticFashionGen(cfg, itm_enabled=itm_enabled, seed=seed)
+    raise NotImplementedError(
+        f"the on-disk Fashion-Gen readers (FashionGenPretrain, {split} split of "
+        f"{cfg.data_path!r}) are not ported yet: use synthetic data")
 
 
 def batches(dataset, batch_size: int, drop_last: bool = True) -> Iterator[Dict[str, np.ndarray]]:

@@ -227,8 +227,9 @@ class PVLT(nn.Module):
     (from train/losses.py:mlm_gather_plan) picks the text rows it runs on.
     ``generator`` draws the dropout and DropPath masks.
 
-    Parameters start at PyTorch's defaults; load trained or exported
-    weights with ``load_state_dict``."""
+    Parameters start at PyTorch's defaults (``create_model`` re-initialises
+    them as the JAX package does); load trained or exported weights with
+    ``load_state_dict``."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -332,9 +333,44 @@ class PVLT(nn.Module):
         return out
 
 
+def _trunc_normal(t: torch.Tensor, std: float) -> None:
+    """A normal of scale ``std`` truncated at two scales (jax.nn.initializers'
+    truncated normal)."""
+    nn.init.trunc_normal_(t, std=std, a=-2.0 * std, b=2.0 * std)
+
+
+def init_weights(model: PVLT) -> PVLT:
+    """The JAX package's initialisers (its flax modules' ``kernel_init``),
+    in place, from torch's global generator: Linear and conv weights and
+    the positional embeddings truncated normal 0.02; in the T2I decoder the
+    ConvBN convolutions He normal over fan-out and the score conv LeCun
+    normal; embedding tables normal 0.02; every bias 0. LayerNorm and
+    BatchNorm keep torch's (scale 1, shift 0, running variance 1)."""
+    with torch.no_grad():
+        for name, m in model.named_modules():
+            if isinstance(m, nn.Embedding):
+                nn.init.normal_(m.weight, std=0.02)
+            elif isinstance(m, (nn.Linear, nn.Conv2d)):
+                if name == "t2i_head.score.0":
+                    # lecun_normal: variance 1/fan_in, truncated, std-corrected
+                    fan_in = m.weight[0].numel()
+                    _trunc_normal(m.weight, fan_in ** -0.5 / 0.87962566103423978)
+                elif name.startswith("t2i_head."):
+                    nn.init.kaiming_normal_(m.weight, mode="fan_out", nonlinearity="relu")
+                else:
+                    _trunc_normal(m.weight, 0.02)
+                if m.bias is not None:
+                    nn.init.zeros_(m.bias)
+        for name, p in model.named_parameters(recurse=False):
+            if "pos_embed" in name:
+                _trunc_normal(p, 0.02)
+    return model
+
+
 def create_model(cfg: ModelConfig, *, device="cuda") -> PVLT:
     """A PVLT for ``cfg`` with the registry preset for ``cfg.name`` applied,
-    on ``device`` (the card unless the caller asks for another)."""
+    initialised as the JAX package initialises it (``init_weights``), on
+    ``device`` (the card unless the caller asks for another)."""
     cfg = resolve_model_config(cfg)
     validate_model_config(cfg)
-    return PVLT(cfg).to(device)
+    return init_weights(PVLT(cfg)).to(device)

@@ -42,6 +42,10 @@ _SIGNATURES = {
     "mvlt_ln_mlp_fwd": [_P] * 9 + [_L] + [_I] * 3 + [_F, _P],
     "mvlt_ln_mlp_slot_floats": [_I, _I],
     "mvlt_ln_mlp_bwd": [_P] * 10 + [_I] + [_P] * 6 + [_L] + [_I] * 3 + [_F, _P],
+    "mvlt_mlm_ce_tile": [],
+    "mvlt_mlm_ce_splits": [_I, _I, _I],
+    "mvlt_mlm_ce_fwd": [_P] * 7 + [_I] * 4 + [_P],
+    "mvlt_mlm_ce_bwd": [_P] * 10 + [_I] * 4 + [_P],
 }
 
 

@@ -23,7 +23,8 @@ def train_one_epoch(train_step, state, loader: Iterable, epoch: int = 0,
     pending = None   # (step index, device losses), read one step late
     for batch in logger.log_every(loader, log_every, header=f"Epoch [{epoch}]"):
         step_idx = state.step
-        state, losses = train_step(state, batch)
+        feed = {k: v for k, v in batch.items() if not isinstance(v, list)}   # info lists
+        state, losses = train_step(state, feed)
         if pending is not None:
             _drain(pending, logger, lr_schedule)
         pending = (step_idx, losses)

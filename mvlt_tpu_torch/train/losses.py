@@ -4,10 +4,11 @@ Counterpart of mvlt_tpu/train/losses.py (reference
 engine_grid_masking.py:81-102): MLM cross entropy with ignore index -1
 (weight 1), ITM cross entropy (1), the two CLS cross entropies (1 each) and
 T2I SmoothL1 with beta 1 against the clean image (10). All reductions are
-means. The MLM loss decodes the tied vocabulary in row chunks, recomputing
-each chunk's logits in the backward (activation checkpointing), so the
-[rows, vocab] logits never exist whole; with the gather plan it decodes only
-the labeled rows.
+means. The MLM loss decodes the tied vocabulary through the fused CE kernels
+on the card (``mlm_ce_kernel``), or in row chunks, recomputing each chunk's
+logits in the backward (activation checkpointing), so the [rows, vocab]
+logits never exist whole; with the gather plan it decodes only the labeled
+rows.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ from typing import Any, Dict, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
+
+from mvlt_tpu_torch.ops.mlm_ce import mlm_ce_loss
 
 MLM_LOSS_WEIGHT = 1.0
 ITM_LOSS_WEIGHT = 1.0
@@ -72,13 +75,12 @@ def chunked_mlm_loss(hidden: torch.Tensor, table: torch.Tensor, bias: torch.Tens
 
 
 def _mlm_decode_loss(hidden, table, bias, labels, chunk: int, use_kernel: bool):
-    """The MLM decode: the fused vocab-tiled CE kernel (JAX
-    ops/mlm_ce.py:fused_mlm_loss) is not ported yet, so on the card
-    ``use_kernel`` raises; on the CPU the chunked loss is the kernel's plain
-    version, as it is in the JAX package off the TPU."""
+    """The MLM decode: with ``use_kernel``, on the card, the fused vocab-tiled
+    CE kernels (ops/mlm_ce.py:mlm_ce_loss, the logits never in device
+    memory); otherwise, and always on the CPU, the chunked loss, as in the
+    JAX package off the TPU (mvlt_tpu/train/losses.py:_mlm_decode_loss)."""
     if use_kernel and hidden.device.type == "cuda":
-        raise NotImplementedError("the fused MLM cross-entropy kernel is not ported yet: "
-                                  "set ModelConfig.mlm_ce_kernel=False")
+        return mlm_ce_loss(hidden, table, bias, labels)
     return chunked_mlm_loss(hidden, table, bias, labels, chunk=chunk)
 
 

@@ -6,7 +6,7 @@ schedule (optax.warmup_cosine_decay_schedule: linear from warmup_lr to the
 peak over the warmup steps, then cosine to min_lr at the last step), and
 AdamW with no weight decay on 1-D parameters (biases, LayerNorm and
 BatchNorm scales; timm's add_weight_decay), as torch.optim.AdamW parameter
-groups.
+groups, optionally after optax.clip_by_global_norm (``clip_grad``).
 """
 
 from __future__ import annotations
@@ -42,9 +42,8 @@ def make_lr_schedule(cfg: OptimConfig, global_batch_size: int,
 
 def make_optimizer(cfg: OptimConfig, model: torch.nn.Module) -> torch.optim.AdamW:
     """AdamW over the model's parameters, weight decay on those with more
-    than one dimension only. The LR is set per step from the schedule."""
-    if cfg.clip_grad:
-        raise NotImplementedError("clip_grad is not ported yet")
+    than one dimension only. The LR is set per step from the schedule;
+    ``cfg.clip_grad`` is applied by the step (``clip_by_global_norm``)."""
     params = [p for p in model.parameters() if p.requires_grad]
     groups = [{"params": [p for p in params if p.dim() > 1], "weight_decay": cfg.weight_decay},
               {"params": [p for p in params if p.dim() <= 1], "weight_decay": 0.0}]
@@ -54,3 +53,17 @@ def make_optimizer(cfg: OptimConfig, model: torch.nn.Module) -> torch.optim.Adam
 def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
     for group in optimizer.param_groups:
         group["lr"] = lr
+
+
+def clip_by_global_norm(params, max_norm: float) -> torch.Tensor:
+    """optax.clip_by_global_norm on the gradients of ``params``, in place:
+    with the global norm at or above ``max_norm`` every gradient g becomes
+    (g / norm) * max_norm, below it none changes (torch's
+    clip_grad_norm_ would scale by max_norm / (norm + 1e-6) instead).
+    Returns the norm, a device scalar; nothing waits for the device."""
+    grads = [p.grad for p in params if p.grad is not None]
+    norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+    keep = norm < max_norm
+    for g in grads:
+        g.copy_(torch.where(keep, g, g / norm.to(g.dtype) * max_norm))
+    return norm

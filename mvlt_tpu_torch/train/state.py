@@ -1,6 +1,6 @@
 """Train state: the step counter, the model (parameters and BatchNorm
-buffers), the optimizer, the LR schedule and the generator of the
-dropout and DropPath masks.
+buffers), the optimizer, the LR schedule, the generator of the dropout,
+DropPath and device grid masks, and the gradient-clipping bound.
 
 Counterpart of mvlt_tpu/train/state.py. PyTorch updates in place, so the
 step returns the same object it was given, advanced by one step.
@@ -9,7 +9,7 @@ step returns the same object it was given, advanced by one step.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -24,6 +24,7 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     lr_schedule: Callable[[int], float]
     generator: torch.Generator
+    clip_grad: Optional[float] = None   # global-norm bound before AdamW
 
     @property
     def device(self) -> torch.device:
@@ -37,4 +38,5 @@ def create_train_state(model: torch.nn.Module, cfg: OptimConfig, global_batch_si
     device = next(model.parameters()).device
     return TrainState(step=0, model=model, optimizer=make_optimizer(cfg, model),
                       lr_schedule=make_lr_schedule(cfg, global_batch_size, steps_per_epoch),
-                      generator=torch.Generator(device=device).manual_seed(seed))
+                      generator=torch.Generator(device=device).manual_seed(seed),
+                      clip_grad=cfg.clip_grad or None)

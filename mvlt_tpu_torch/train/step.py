@@ -2,16 +2,22 @@
 
 Counterpart of mvlt_tpu/train/step.py:make_train_step. Kept from it:
   * the reference's alternation by step parity when T2I is on: clean images
-    on even steps, ``masked_images`` on odd ones (engine_grid_masking.py:
-    72-78); every enabled loss is computed on the forward that ran;
+    on even steps, masked images on odd ones (engine_grid_masking.py:
+    72-78), either the batch's ``masked_images`` or, with
+    ``device_masks``, grid masks made on the device on odd steps only; every
+    enabled loss is computed on the forward that ran;
   * the MLM gather plan: the labeled text rows are gathered before the MLM
     head, and the loss is taken against the plan's labels;
   * ``train_mode``: False reproduces the fine-tune quirk of training in eval
     mode (no dropout or DropPath, BatchNorm on its running statistics), with
     gradients to every parameter;
+  * ``grad_accum = k``: the batch is split into k microbatches in order,
+    which share the optimizer step's parity; the gradients are averaged,
+    the losses are the means of the microbatch means, and the BatchNorm
+    running statistics pass through the microbatches in order;
+  * the global-norm gradient clipping of ``state.clip_grad`` before AdamW;
   * the BatchNorm running statistics, updated by the training forward.
-Not ported yet, and refused: ``grad_accum > 1``, ``scan_steps > 1`` and
-``device_masks=True``.
+Not ported, and refused: ``scan_steps > 1`` (one dispatch for several steps).
 """
 
 from __future__ import annotations
@@ -22,30 +28,36 @@ import torch
 
 from mvlt_tpu_torch.config import ModelConfig
 from mvlt_tpu_torch.data.fashion_gen import batch_to_device
+from mvlt_tpu_torch.data.masks import device_apply_mask, device_grid_masks
 from mvlt_tpu_torch.train.losses import compute_losses, mlm_gather_plan
-from mvlt_tpu_torch.train.schedule import set_lr
+from mvlt_tpu_torch.train.schedule import clip_by_global_norm, set_lr
 from mvlt_tpu_torch.train.state import TrainState
 
 
-def make_train_step(cfg: ModelConfig, *, device_masks: bool = False,
-                    train_mode: bool = True, scan_steps: int = 1,
+def make_train_step(cfg: ModelConfig, *, device_masks: bool = False, mask_ratio: float = 0.5,
+                    mask_patch_size: int = 16, train_mode: bool = True, scan_steps: int = 1,
                     grad_accum: int = 1) -> Callable[[TrainState, Dict], Tuple[TrainState, Dict]]:
-    """``train_step(state, batch) -> (state, losses)``: one forward, backward
-    and AdamW update of ``state.model`` on ``batch`` (numpy arrays or
-    tensors; moved to the model's device), with the LR of
+    """``train_step(state, batch) -> (state, losses)``: one optimizer step of
+    ``state.model`` on ``batch`` (numpy arrays or tensors; moved to the
+    model's device): forward and backward over ``grad_accum``
+    microbatches, clipping, and the AdamW update with the LR of
     ``state.lr_schedule(state.step)``. ``losses`` holds detached scalars on
     the device (reading them waits for the step)."""
-    if grad_accum != 1 or scan_steps != 1 or device_masks:
-        raise NotImplementedError("grad_accum > 1, scan_steps > 1 and device_masks=True "
-                                  "are not ported yet")
+    if scan_steps != 1:
+        raise NotImplementedError("scan_steps > 1 is not ported")
     use_masked_input = cfg.loss_type.t2i
 
-    def train_step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
-        model = state.model
-        batch = batch_to_device(batch, state.device)
+    def forward_backward(state: TrainState, batch: Dict, scale: float) -> Dict:
+        """Losses of one (micro)batch; its gradients, times ``scale``, are
+        added to the parameters' .grad."""
         images = batch["images"].float()
         if use_masked_input and state.step % 2 == 1:
-            images = batch["masked_images"].float()
+            if device_masks:
+                masks = device_grid_masks(state.generator, images.shape[0], images.shape[1],
+                                          mask_ratio, mask_patch_size)
+                images = device_apply_mask(images, masks)
+            else:
+                images = batch["masked_images"].float()
 
         kwargs, loss_batch = {}, batch
         mlm_chunk = max(cfg.mlm_loss_chunk, 1)
@@ -59,16 +71,32 @@ def make_train_step(cfg: ModelConfig, *, device_masks: bool = False,
                 loss_batch = {**batch, "mlm_labels": sel[None]}
                 mlm_frac = 1.0
 
-        model.train(train_mode)
-        out = model(images, batch["input_ids"].long(), generator=state.generator, **kwargs)
+        out = state.model(images, batch["input_ids"].long(), generator=state.generator, **kwargs)
         losses = compute_losses(out, loss_batch, cfg.num_super_classes, cfg.num_sub_classes,
                                 mlm_chunk=mlm_chunk, mlm_capacity_frac=mlm_frac,
                                 mlm_ce_kernel=cfg.mlm_ce_kernel)
+        (losses["total_loss"] * scale).backward()
+        return {k: v.detach() for k, v in losses.items()}
+
+    def train_step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
+        batch = batch_to_device(batch, state.device)
+        state.model.train(train_mode)
         state.optimizer.zero_grad(set_to_none=True)
-        losses["total_loss"].backward()
+        if grad_accum == 1:
+            losses = forward_backward(state, batch, 1.0)
+        else:
+            n = next(iter(batch.values())).shape[0]
+            if n % grad_accum:
+                raise ValueError(f"grad_accum {grad_accum} does not divide the batch {n}")
+            mb = n // grad_accum
+            parts = [forward_backward(state, {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()},
+                                      1.0 / grad_accum) for i in range(grad_accum)]
+            losses = {k: torch.stack([p[k] for p in parts]).mean() for k in parts[0]}
+        if state.clip_grad:
+            clip_by_global_norm(state.model.parameters(), state.clip_grad)
         set_lr(state.optimizer, state.lr_schedule(state.step))
         state.optimizer.step()
         state.step += 1
-        return state, {k: v.detach() for k, v in losses.items()}
+        return state, losses
 
     return train_step

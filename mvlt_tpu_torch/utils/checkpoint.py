@@ -1,0 +1,172 @@
+"""Checkpoint save and resume with ``torch.save``.
+
+Counterpart of mvlt_tpu/utils/checkpoint.py (reference main_vl.py:441-498
+and :327-346). The reference policy: a checkpoint every epoch for the first
+``save_every_frac`` (2/3) of training, then one only when the summed eval
+quality score (mlm + itm + sup + sub accuracy) improves; resume restores
+everything and goes on at epoch + 1.
+
+Layout: ``<output_dir>/checkpoint/{last,best}/state.pt`` holds the step,
+the model's state dict (parameters and BatchNorm buffers, the reference's
+names), the AdamW state and the mask generator's state; ``{last,best}.json``
+beside it holds the epoch, the score and the config. The data goes to a
+temporary file that is renamed into place, and the meta is written after
+it, so a meta never points at a torn checkpoint. Saves are synchronous: the
+JAX package's asynchronous Orbax writer has no counterpart here. The LR
+schedule is a function of the step and needs no state.
+
+The fine-tune init (``load_finetune_state``) intersects state-dict keys with
+shape filtering, as ``merge_params_by_path`` intersects parameter paths: a
+reference ``.pth`` loads as it is.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Dict, Mapping, Optional, Tuple
+
+import torch
+
+from mvlt_tpu_torch.config import RunConfig, config_to_dict
+
+STATE_FILE = "state.pt"
+
+
+def resolve_checkpoint_path(path: str, root: Optional[str] = None) -> str:
+    """A checkpoint directory from a checkpoint directory itself, an output
+    directory holding ``checkpoint/{best,last}``, or a bare tag (``last``,
+    ``best``) relative to ``root``."""
+    cand = path
+    if root and not os.path.exists(cand) and not os.path.isabs(cand):
+        cand = os.path.join(root, path)
+    p = os.path.abspath(cand)
+    if os.path.isdir(p) and not os.path.exists(os.path.join(p, STATE_FILE)):
+        for sub in ("checkpoint/best", "checkpoint/last", "best", "last"):
+            if os.path.exists(os.path.join(p, sub, STATE_FILE)):
+                return os.path.join(p, sub)
+    return p
+
+
+def merge_state_dicts(template: Mapping[str, torch.Tensor],
+                      restored: Mapping) -> Tuple[Dict[str, torch.Tensor], Dict[str, list]]:
+    """Intersect by key with shape filtering (the reference's fine-tune load,
+    main_vl.py:284-290): keys only in the checkpoint are dropped, keys only
+    in the template and shape mismatches keep the template's tensor, the
+    rest take the checkpoint's, cast to the template's type."""
+    report: Dict[str, list] = {"loaded": [], "skipped_shape": [], "missing": [],
+                               "dropped": [k for k in restored if k not in template]}
+    merged = {}
+    for k, t in template.items():
+        r = restored.get(k)
+        if not isinstance(r, torch.Tensor):
+            report["missing"].append(k)
+            merged[k] = t
+        elif r.shape != t.shape:
+            report["skipped_shape"].append(f"{k}: ckpt {tuple(r.shape)} vs model {tuple(t.shape)}")
+            merged[k] = t
+        else:
+            report["loaded"].append(k)
+            merged[k] = r.to(t.dtype)
+    print(f"param merge: {len(report['loaded'])} loaded, "
+          f"{len(report['skipped_shape'])} shape-filtered, "
+          f"{len(report['missing'])} kept at init, "
+          f"{len(report['dropped'])} checkpoint-only dropped", flush=True)
+    return merged, report
+
+
+def load_finetune_state(path: str, model: torch.nn.Module) -> Dict[str, list]:
+    """Fine-tune init (main_vl.py:272-291): model weights only, from a
+    reference ``.pth`` (its ``model`` entry, or the file itself) or a
+    checkpoint of this package (a checkpoint or output directory), merged
+    into ``model`` by ``merge_state_dicts``; returns the merge report and
+    raises when no tensor matched."""
+    if path.endswith(".pth"):
+        # the reference's checkpoints pickle their argparse namespace too
+        restored = torch.load(path, map_location="cpu", weights_only=False)
+        restored = restored.get("model", restored)
+    else:
+        file = os.path.join(resolve_checkpoint_path(path), STATE_FILE)
+        if not os.path.exists(file):
+            raise FileNotFoundError(f"finetune checkpoint not found: {path!r} ({file})")
+        restored = torch.load(file, map_location="cpu", weights_only=True)["model"]
+    merged, report = merge_state_dicts(model.state_dict(), restored)
+    if not report["loaded"]:
+        raise ValueError(f"finetune init from {path}: no checkpoint tensor matched the model")
+    model.load_state_dict(merged)
+    return report
+
+
+class CheckpointManager:
+    """Two-phase checkpointing under ``<output_dir>/checkpoint``."""
+
+    def __init__(self, output_dir: str, cfg: Optional[RunConfig] = None):
+        self.root = os.path.abspath(os.path.join(output_dir, "checkpoint"))
+        os.makedirs(self.root, exist_ok=True)
+        self.cfg = cfg
+        self.best_score = float("-inf")
+        meta = self._read_meta("best")
+        if meta:
+            self.best_score = meta.get("score", float("-inf"))
+
+    def _path(self, tag: str) -> str:
+        return os.path.join(self.root, tag)
+
+    def _read_meta(self, tag: str) -> Optional[dict]:
+        p = self._path(tag) + ".json"
+        if os.path.exists(p):
+            with open(p) as f:
+                return json.load(f)
+        return None
+
+    def _save(self, tag: str, state, epoch: int, score: Optional[float]) -> None:
+        d = self._path(tag)
+        os.makedirs(d, exist_ok=True)
+        data = {"step": state.step, "model": state.model.state_dict(),
+                "optimizer": state.optimizer.state_dict(),
+                "generator": state.generator.get_state()}
+        tmp = os.path.join(d, STATE_FILE + ".tmp")
+        torch.save(data, tmp)
+        os.replace(tmp, os.path.join(d, STATE_FILE))
+        meta = {"epoch": epoch, "score": score}
+        if self.cfg is not None:
+            meta["config"] = config_to_dict(self.cfg)
+        with open(d + ".json.tmp", "w") as f:
+            json.dump(meta, f, indent=1)
+        os.replace(d + ".json.tmp", d + ".json")
+
+    def save_epoch(self, state, epoch: int, total_epochs: int,
+                   quality_score: Optional[float] = None,
+                   save_every_frac: float = 2.0 / 3.0) -> bool:
+        """The reference's two-phase policy; True when a new best was saved
+        or the epoch is in the first phase. ``last`` is written every epoch."""
+        if epoch < int(total_epochs * save_every_frac):
+            self._save("last", state, epoch, quality_score)
+            return True
+        if quality_score is not None and quality_score > self.best_score:
+            self.best_score = quality_score
+            self._save("best", state, epoch, quality_score)
+            self._save("last", state, epoch, quality_score)
+            return True
+        self._save("last", state, epoch, quality_score)
+        return False
+
+    def restore(self, state, tag_or_path: str = "last"):
+        """Restore ``state`` in place from a tag of this run or a path to
+        another run or checkpoint; returns (state, the epoch to start at).
+        Raises when the target is missing instead of starting afresh."""
+        path = resolve_checkpoint_path(tag_or_path, self.root)
+        file = os.path.join(path, STATE_FILE)
+        if not os.path.exists(file):
+            raise FileNotFoundError(
+                f"resume target not found: {tag_or_path!r} (resolved to {path})")
+        data = torch.load(file, map_location="cpu", weights_only=True)
+        state.model.load_state_dict(data["model"])
+        state.optimizer.load_state_dict(data["optimizer"])
+        state.generator.set_state(data["generator"])
+        state.step = int(data["step"])
+        meta = {}
+        if os.path.exists(path + ".json"):
+            with open(path + ".json") as f:
+                meta = json.load(f)
+        return state, int(meta.get("epoch", -1)) + 1

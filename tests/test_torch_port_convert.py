@@ -4,6 +4,7 @@ reference-name weight mapping (on a full pre-training model: every head and
 the T2I BatchNorm statistics)."""
 
 import dataclasses
+import pathlib
 import re
 
 import jax
@@ -15,19 +16,36 @@ from mvlt_tpu import config as jax_config
 from mvlt_tpu_torch import config, convert
 from mvlt_tpu_torch.data import tokenizer
 
+CONFIGS = pathlib.Path(__file__).resolve().parent.parent / "configs"
 FULL = dict(img_size=32, embed_dims=(8, 16, 32, 64), num_heads=(1, 2, 2, 4),
             mlp_ratios=(2, 2, 2, 2), token_hidden_size=32, num_text_tokens=16,
             vocab_size=64, max_position_embeddings=32, itg_channel=8,
             compute_dtype="float32", use_pallas_attention=False)
 
 
-@pytest.mark.parametrize("name", ["LossType", "ModelConfig", "DataConfig", "OptimConfig"])
+@pytest.mark.parametrize("name", ["LossType", "ModelConfig", "DataConfig", "OptimConfig",
+                                  "RunConfig"])
 def test_config_fields_and_defaults_match_jax(name):
     ours, theirs = getattr(config, name), getattr(jax_config, name)
     assert [f.name for f in dataclasses.fields(ours)] == [f.name for f in dataclasses.fields(theirs)]
     assert dataclasses.asdict(ours()) == dataclasses.asdict(theirs())
     if name == "ModelConfig":
         assert ours().num_stages == theirs().num_stages
+
+
+@pytest.mark.parametrize("name", sorted(p.name for p in CONFIGS.glob("*.py")))
+def test_config_files_load_as_in_jax(name):
+    """load_config_file, apply_overrides and config_to_dict of the port's
+    copy give the JAX package's tree for every preset, and for flat
+    overrides on top of it."""
+    path = CONFIGS / name
+    ours, theirs = config.load_config_file(path), jax_config.load_config_file(path)
+    assert config.config_to_dict(ours) == jax_config.config_to_dict(theirs)
+    flat = {"batch_size": 8, "loss_type": {"cls": 1}, "model_overrides": {"num_text_tokens": 24},
+            "mixup": 0.8, "clip_grad": 1.0}
+    assert (config.config_to_dict(config.apply_overrides(ours, flat))
+            == jax_config.config_to_dict(jax_config.apply_overrides(theirs, flat)))
+    assert config._FLAT_KEYS == jax_config._FLAT_KEYS
 
 
 def test_tokenizer_ids_match_jax():

@@ -25,6 +25,8 @@ from mvlt_tpu_torch.ops.fused_mlp import (fused_ln_mlp, ln_mlp_bwd, ln_mlp_bwd_r
 from mvlt_tpu_torch.ops.pallas_attention import (attention_bwd, attention_bwd_reference,
                                                  attention_fwd, attention_reference,
                                                  fused_attention)
+from mvlt_tpu_torch.ops.mlm_ce import (mlm_ce_bwd, mlm_ce_fwd, mlm_ce_loss,
+                                       mlm_nll_bwd_reference, mlm_nll_reference)
 from mvlt_tpu_torch.ops.sr_kv import fused_ln_sr_kv, sr_kv_reference
 
 pytestmark = pytest.mark.cuda
@@ -218,3 +220,65 @@ def test_training_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="differ"):
         ln_mlp_bwd(x, g, be, w1, b1, w2, s, 1e-6, x[:, :5].contiguous())
 
+
+
+@pytest.mark.parametrize("r,v,h,frac", [(70, 1000, 64, 0.5), (513, 4099, 256, 0.2),
+                                        (64, 64, 768, 1.0), (200, 30522, 768, 0.15)])
+def test_mlm_ce_kernels_match_plain(dev, r, v, h, frac):
+    """nll, lse and the three gradients at other widths, ragged row and
+    vocabulary counts, a single tile, every row labeled, and labels in the
+    last (ragged) vocabulary tile."""
+    gen = torch.Generator().manual_seed(r)
+    x = torch.randn(r, h, generator=gen).to(dev, torch.bfloat16)
+    table = (torch.randn(v, h, generator=gen) * (2.0 / h ** 0.5)).to(dev, torch.bfloat16)
+    bias = (0.1 * torch.randn(v, generator=gen)).to(dev)
+    labels = torch.where(torch.rand(r, generator=gen) < frac,
+                         torch.randint(v - 70 if v > 70 else 0, v, (r,), generator=gen), -1).to(dev)
+    nll, lse = mlm_ce_fwd(x, table, bias, labels)
+    want_nll, want_lse = mlm_nll_reference(x, table, bias, labels)
+    g = torch.rand(r, generator=gen).to(dev)
+    got = mlm_ce_bwd(x, table, bias, labels, want_lse, g)
+    want = mlm_nll_bwd_reference(x, table, bias, labels, want_lse, g)
+    torch.cuda.synchronize()
+    assert _rel(nll, want_nll) <= TOL and _rel(lse, want_lse) <= TOL
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float32 and a.shape == b.shape
+        assert _rel(a, b) <= TOL
+    assert torch.equal(nll[labels < 0], torch.zeros_like(nll[labels < 0]))
+
+
+def test_mlm_ce_loss_gradients_through_autograd(dev):
+    """The Function on fp32 masters: fp32 gradients for the table and bias,
+    bf16 for the rows, against autograd through the plain logits."""
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(300, 128, generator=gen).to(dev, torch.bfloat16).requires_grad_()
+    table = (0.1 * torch.randn(3000, 128, generator=gen)).to(dev).requires_grad_()
+    bias = (0.1 * torch.randn(3000, generator=gen)).to(dev).requires_grad_()
+    labels = torch.where(torch.rand(300, generator=gen) < 0.3,
+                         torch.randint(0, 3000, (300,), generator=gen), -1).to(dev)
+    mlm_ce_loss(x, table, bias, labels).backward()
+    got = (x.grad, table.grad, bias.grad)
+    assert [t.dtype for t in got] == [torch.bfloat16, torch.float32, torch.float32]
+    x.grad = table.grad = bias.grad = None
+    logits = (x.float() @ table.to(torch.bfloat16).float().T) + bias
+    torch.nn.functional.cross_entropy(logits, labels, ignore_index=-1).backward()
+    for a, b in zip(got, (x.grad, table.grad, bias.grad)):
+        assert _rel(a, b) <= TOL
+
+
+def test_mlm_ce_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    x = torch.zeros(10, 64, device=dev, dtype=torch.bfloat16)
+    table = torch.zeros(100, 64, device=dev)
+    bias = torch.zeros(100, device=dev)
+    labels = torch.zeros(10, dtype=torch.long, device=dev)
+    with pytest.raises(ValueError, match="bfloat16"):
+        mlm_ce_fwd(x.float(), table, bias, labels)
+    with pytest.raises(ValueError, match="width"):
+        mlm_ce_fwd(torch.zeros(10, 1024, device=dev, dtype=torch.bfloat16),
+                   torch.zeros(100, 1024, device=dev), bias, labels)
+    with pytest.raises(ValueError, match="labels"):
+        mlm_ce_fwd(x, table, bias, labels[:5])
+    with pytest.raises(ValueError, match="weight on cpu"):
+        mlm_ce_fwd(x, table.cpu(), bias, labels)
+    with pytest.raises(ValueError, match="lse and g"):
+        mlm_ce_bwd(x, table, bias, labels, torch.zeros(10, device=dev), torch.zeros(9, device=dev))

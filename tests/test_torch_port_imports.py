@@ -43,6 +43,12 @@ state = create_train_state(model, OptimConfig(warmup_epochs=0), 2, 1)
 data = SyntheticFashionGen(DataConfig(input_size=32, num_text_tokens=16), size=2)
 state, stats = train_one_epoch(make_train_step(cfg), state, batches(data, 2), is_main=False)
 assert state.step == 1 and np.isfinite(stats["total_loss"]), stats
+import os, tempfile
+from mvlt_tpu_torch import cli
+with tempfile.TemporaryDirectory() as out:
+    cli.main(["--config", "configs/test_micro.py", "--synthetic-data", "--device", "cpu",
+              "--batch-size", "48", "--epochs", "1", "--output-dir", out])
+    assert os.path.exists(os.path.join(out, "checkpoint", "last", "state.pt"))
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "mvlt_tpu"))
 assert not [m for m in loaded if sys.modules[m] is not None], loaded
 print("OK")
@@ -50,8 +56,9 @@ print("OK")
 
 
 def test_port_imports_and_serves_without_jax():
-    """Serving and one training step of the port with jax, flax and the
-    JAX package blocked."""
+    """Serving, one training step and one epoch through the CLI (training,
+    VL eval, checkpoint) of the port with jax, flax and the JAX package
+    blocked."""
     proc = subprocess.run([sys.executable, "-c", _GUARDED], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -236,7 +236,90 @@ def test_train_one_epoch_on_synthetic_data(capsys):
     assert state.step == 5 and capsys.readouterr().out.count("non-finite total loss") == 2
 
 
-@pytest.mark.parametrize("kw", [dict(grad_accum=2), dict(scan_steps=2), dict(device_masks=True)])
+@pytest.mark.parametrize("kw", [dict(scan_steps=2)])
 def test_unported_step_options_raise(kw):
     with pytest.raises(NotImplementedError):
         make_train_step(_configs(HEADS)[1], **kw)
+
+
+def test_grad_accum_step_matches_jax(jax_step):
+    """grad_accum=2 at step 1 (masked images) against mvlt_tpu/train/step.py's
+    microbatch loop: the halves in order, each with its own gather plan, the
+    BatchNorm statistics threaded from the first half into the second, the
+    gradients averaged and the losses the means of the halves'; at the
+    tolerances of test_step_matches_jax."""
+    from mvlt_tpu.models import create_model as jax_create_model
+    from mvlt_tpu.train.losses import compute_losses, mlm_gather_plan
+
+    jcfg, pcfg, params, stats, batch, _ = jax_step
+    model = jax_create_model(jcfg)
+
+    @jax.jit
+    def micro_grads(params, stats, mb):
+        kwargs, loss_batch = {}, mb
+        chunk, frac = max(jcfg.mlm_loss_chunk, 1), jcfg.mlm_capacity_frac
+        plan = mlm_gather_plan(mb["mlm_labels"], capacity_frac=frac, chunk=chunk)
+        if plan is not None:
+            kwargs["mlm_row_idx"], sel, chunk = plan
+            loss_batch, frac = {**mb, "mlm_labels": sel[None]}, 1.0
+
+        def loss_fn(p):
+            out, new = model.apply({"params": p, "batch_stats": stats}, mb["masked_images"],
+                                   mb["input_ids"], train=True, mutable=["batch_stats"],
+                                   rngs={"dropout": jax.random.PRNGKey(0)}, **kwargs)
+            losses = compute_losses(out, loss_batch, mlm_chunk=chunk, mlm_capacity_frac=frac,
+                                    mlm_ce_kernel=False)
+            return losses["total_loss"], (losses, new["batch_stats"])
+
+        return jax.grad(loss_fn, has_aux=True)(params)
+
+    half = B // 2
+    g_acc, s, parts = jax.tree_util.tree_map(jnp.zeros_like, params), stats, []
+    for i in range(2):
+        mb = {k: v[i * half:(i + 1) * half] for k, v in batch.items()}
+        g, (losses, s) = micro_grads(params, s, mb)
+        g_acc = jax.tree_util.tree_map(lambda a, b: a + b / 2, g_acc, g)
+        parts.append(losses)
+
+    state = _port_state(pcfg, params, stats, 1)
+    state, l_port = make_train_step(pcfg, grad_accum=2)(state, batch)
+    assert state.step == 2
+    for k in LOSS_KEYS:
+        want = (float(parts[0][k]) + float(parts[1][k])) / 2
+        np.testing.assert_allclose(float(l_port[k]), want, rtol=2e-4, atol=2e-4, err_msg=k)
+    got = dict(state.model.named_parameters())
+    for name, w in state_dict_from_jax(jax.device_get(g_acc)).items():
+        g = got[name].grad
+        g = torch.zeros_like(w) if g is None else g
+        bound = 1e-3 * float(w.abs().max()) + 1e-12
+        assert float((g - w).abs().max()) <= bound, (name, float((g - w).abs().max()), bound)
+    buffers = dict(state.model.named_buffers())
+    for name, w in state_dict_from_jax({}, jax.device_get(s)).items():
+        np.testing.assert_allclose(buffers[name].numpy(), w.numpy(), rtol=2e-4, atol=2e-4,
+                                   err_msg=name)
+
+
+def test_device_masks_on_odd_steps_only(jax_step):
+    """device_masks=True: an even step feeds the clean images and draws
+    nothing; an odd step feeds the images with exactly half of the 8x8
+    patches filled with 1e-6, the rest untouched, and needs no
+    masked_images in the batch."""
+    _, pcfg, params, stats, batch, _ = jax_step
+    cfg = dataclasses.replace(pcfg, img_size=IMG)
+    batch = {k: v for k, v in batch.items() if k != "masked_images"}
+    state = _port_state(cfg, params, stats, 0)
+    seen = []
+    state.model.register_forward_pre_hook(lambda m, args: seen.append(args[0].clone()))
+    step = make_train_step(cfg, device_masks=True, mask_ratio=0.5, mask_patch_size=8)
+    rng_before = state.generator.get_state()
+    state, _ = step(state, batch)
+    assert torch.equal(seen[0], torch.from_numpy(batch["images"]))
+    assert torch.equal(state.generator.get_state(), rng_before)
+    state, losses = step(state, batch)
+    images = torch.from_numpy(batch["images"])
+    filled = seen[1] == torch.tensor(1e-6)
+    assert torch.equal(seen[1][~filled], images[~filled])
+    per_patch = filled.all(-1).reshape(B, 4, 8, 4, 8).float().mean((2, 4))
+    assert set(per_patch.unique().tolist()) == {0.0, 1.0}
+    assert per_patch.sum((1, 2)).tolist() == [8.0] * B
+    assert all(np.isfinite(float(v)) for v in losses.values())

@@ -6,7 +6,8 @@ kernels they replace, run in interpret mode on the CPU, forward and
 gradients, in fp32 at rtol = atol = 1e-4 (the JAX kernels take one-pass LN
 statistics and exp2 softmax). Both autograd Functions pass gradcheck in
 fp64. The heads' BatchNorm, the upsample, the MLM gather plan, the LR
-schedule and AdamW are held to their JAX counterparts.
+schedule, AdamW and the model's initialisation are held to their JAX
+counterparts.
 """
 
 import jax
@@ -188,3 +189,56 @@ def test_adamw_matches_optax():
     for name in ("w", "b"):
         np.testing.assert_allclose(getattr(module, name).detach().numpy(),
                                    np.asarray(params[name]), rtol=1e-5, atol=1e-6)
+
+
+def test_init_follows_the_jax_initialisers():
+    """create_model initialises as the JAX package's flax modules: each
+    parameter's standard deviation within 5% (plus three times its sampling
+    spread) of the same flax initialiser's draws at the same fan, the
+    truncation bound shared, and every bias, LayerNorm and BatchNorm tensor
+    at its constant."""
+    import flax.linen as fnn
+
+    from mvlt_tpu_torch.config import LossType, ModelConfig
+    from mvlt_tpu_torch.models.pvlt import create_model
+
+    torch.manual_seed(0)
+    cfg = ModelConfig(img_size=32, embed_dims=(8, 16, 32, 64), num_heads=(1, 2, 2, 4),
+                      mlp_ratios=(2, 2, 2, 2), token_hidden_size=32, num_text_tokens=16,
+                      vocab_size=500, max_position_embeddings=32, itg_channel=8,
+                      loss_type=LossType(itm=True, mlm=True, t2i=True, cls=True))
+    model = create_model(cfg, device="cpu")
+    trunc02 = fnn.initializers.truncated_normal(stddev=0.02)
+    normal02 = fnn.initializers.normal(stddev=0.02)
+    lecun = fnn.initializers.lecun_normal()
+    he_fan_out = fnn.initializers.variance_scaling(2.0, "fan_out", "normal")
+    key = jax.random.PRNGKey(0)
+    draws = {}
+    for name, p in model.named_parameters():
+        p = p.detach()
+        if p.dim() == 1:
+            const = 1.0 if name.endswith("weight") and ("norm" in name or "LayerNorm" in name
+                                                        or ".1." in name) else 0.0
+            assert torch.all(p == const), name
+            continue
+        # flax conv kernels are [kh, kw, in, out]; many draws of the same
+        # fan: more inputs for a fan-out law, more outputs for a fan-in one
+        m = -(-20000 // p.numel())
+        kh, kw = p.shape[2:] if p.dim() == 4 else (1, 1)
+        if name.startswith("text_embeddings."):
+            init, shape = normal02, (20000,)
+        elif name == "t2i_head.score.0.weight":
+            init, shape = lecun, (kh, kw, p.shape[1], p.shape[0] * m)
+        elif name.startswith("t2i_head."):
+            init, shape = he_fan_out, (kh, kw, p.shape[1] * m, p.shape[0])
+        else:
+            init, shape = trunc02, (20000,)
+        if (id(init), shape) not in draws:
+            draws[id(init), shape] = np.asarray(init(key, shape)).std()
+        tol = 0.05 + 3 / np.sqrt(2 * p.numel())     # the sample std's spread
+        want = draws[id(init), shape]
+        assert abs(float(p.std()) / want - 1) < tol, (name, float(p.std()), want)
+        if init is trunc02:
+            assert float(p.abs().max()) <= 0.04 + 1e-7, name
+    for name, b in model.named_buffers():
+        assert torch.all(b == (1.0 if name.endswith("running_var") else 0.0)), name
