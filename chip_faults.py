@@ -1,0 +1,99 @@
+#!/usr/bin/env python3
+"""Plant known faults in copies of the port's kernels and check that
+chip_smoke.py's kernel checks catch each one.
+
+    python3 chip_faults.py
+
+run from the root of a checkout on a machine with a CUDA card and nvcc, as
+chip_smoke.py is. For each fault it copies ``mvlt_tpu_torch/`` and
+``chip_smoke.py`` into ``build/planted_faults/<fault>/``, rewrites one line
+of a kernel source there, runs chip_smoke's ``v2_kernels`` phase in that
+copy (its kernels built from the changed source), and then, with the bound
+lifted, prints every check's error at the B = 4 shapes. The copy is removed
+afterwards; the sources of the checkout are never changed. It exits non-zero
+if a fault passes the phase.
+
+Faults (kernel D, csrc/dwconv_mlp.cu):
+  halo_wrap     a token's left and right neighbours taken from the flat
+                row index, so they wrap into the previous or next grid row;
+  no_conv_bias  the depthwise conv's bias dropped.
+"""
+
+from __future__ import annotations
+
+import json
+import pathlib
+import shutil
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parent
+FAULTS = {
+    "halo_wrap": (
+        "mvlt_tpu_torch/csrc/dwconv_mlp.cu",
+        "              if (xx < 0 || xx >= w) continue;",
+        "              if ((yy - g_lo) * w + xx < 0 ||\n"
+        "                  (yy - g_lo) * w + xx >= (min(a.h, y0 + a.band + 1) - g_lo) * w)\n"
+        "                continue;"),
+    "no_conv_bias": (
+        "mvlt_tpu_torch/csrc/dwconv_mlp.cu",
+        "          z = a.bdw[c0 + c];",
+        "          z = 0.0f;"),
+}
+RUN = """
+import math, torch, chip_smoke as c
+stats = c.new_stats()
+c.phase_build()
+try:
+    c.phase_v2_kernels(stats)
+    print("FAULT_PASSED")
+except AssertionError as e:
+    print("FAULT_CAUGHT", e)
+c.KERNEL_TOL = math.inf
+gen = torch.Generator().manual_seed(c.SEED + 5)
+shapes = [(f"v2_stage{i + 1}", (h, w, d, nh, sr, hid, c.TEXT))
+          for i, (h, w, d, nh, sr, hid) in enumerate(c.STAGES)]
+for label, shape in shapes + [("v2_ragged", c.V2_RAGGED)]:
+    c.check_v2_kernels(stats, gen, label, shape, c.SMOKE_BATCH)
+"""
+
+
+def run_fault(name: str, source: str, good: str, bad: str) -> bool:
+    """True if chip_smoke's v2_kernels phase fails on the planted fault."""
+    dst = ROOT / "build" / "planted_faults" / name
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(ROOT / "mvlt_tpu_torch", dst / "mvlt_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(ROOT / "chip_smoke.py", dst)
+    path = dst / source
+    text = path.read_text()
+    if text.count(good) != 1:
+        raise RuntimeError(f"{name}: the line to change is not in {source} exactly once")
+    path.write_text(text.replace(good, bad))
+    try:
+        proc = subprocess.run([sys.executable, "-c", RUN], cwd=dst, capture_output=True,
+                              text=True, check=False)
+    finally:
+        shutil.rmtree(dst, ignore_errors=True)
+    caught = "FAULT_CAUGHT" in proc.stdout
+    checks = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    print(json.dumps({"fault": name, "source": source, "caught": caught,
+                      "message": next((ln for ln in proc.stdout.splitlines()
+                                       if ln.startswith("FAULT_")), None),
+                      "rel_err_by_check": [
+                          [c["kernel"], c["shape"], c["batch"], c["rel_err"]]
+                          for c in checks if c.get("phase") == "kernel_check"],
+                      "rc": proc.returncode}), flush=True)
+    if proc.returncode:
+        print(proc.stderr[-3000:], file=sys.stderr)
+    return caught and proc.returncode == 0
+
+
+def main() -> int:
+    results = {name: run_fault(name, *fault) for name, fault in FAULTS.items()}
+    print(json.dumps({"all_caught": all(results.values()), "caught": results}), flush=True)
+    return 0 if all(results.values()) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's paths once on one NVIDIA GPU: retrieval serving,
-the pre-training step, and pre-training through the command line.
+"""Drive the PyTorch port's paths once on one NVIDIA GPU: retrieval serving
+(pvlt_tiny and pvlt_v2_tiny), the pre-training step, and pre-training
+through the command line.
 
     python3 chip_smoke.py
 
@@ -28,6 +29,16 @@ JSON line each; a failed phase raises and the script exits non-zero:
      path's own bf16 error on the CPU;
   6. serving throughput at B = 101 on pre-staged device tensors, peak device
      memory, and a torch.profiler breakdown of device time by kernel;
+  6b. PVT-v2 serving: kernels C (attention half) and D (DWConv MLP) against
+     their plain versions in bf16 (every output within 2e-2 as in phase 3)
+     at the four pvlt_v2_tiny stage shapes (B = 4), a ragged shape (grid
+     12x20, T = 7, head dim 32) and the stage shapes at B = 101 with times
+     and bounds; pvlt_v2_tiny (itm only, bf16, seeded weights) scores three
+     bundles through evaluate_retrieval (kernels A, C and D each launched 8
+     times per forward, no other kernel); every block of a B = 101 forward
+     (K/V, attention half, block output) within 2e-2 of the plain versions;
+     ITM logits of two pairs within 3e-2 of the fp32 CPU model; pairs/s,
+     peak memory and a profile, as phases 5-6 for pvlt_tiny;
   7. training kernels: attention forward/backward and LN-MLP
      forward/backward against their plain versions in bf16 (every output,
      bound 2e-2 as in phase 3) at the four stage shapes at B = 4 and
@@ -97,7 +108,9 @@ from mvlt_tpu_torch.data.tokenizer import WordPieceTokenizer
 from mvlt_tpu_torch.eval.retrieval import evaluate_retrieval, make_itm_scorer, uint8_to_unit
 from mvlt_tpu_torch.models.pvlt import Block, create_model, kernel_operand
 from mvlt_tpu_torch.ops import _build
+from mvlt_tpu_torch.ops.block_attention import block_attention_reference, fused_block_attention
 from mvlt_tpu_torch.ops.block_fused import block_reference, fused_block
+from mvlt_tpu_torch.ops.dwconv_mlp import dwconv_mlp_reference, fused_dwconv_mlp
 from mvlt_tpu_torch.ops.fused_mlp import (ln_mlp_bwd, ln_mlp_bwd_reference, ln_mlp_fwd,
                                           ln_mlp_reference)
 from mvlt_tpu_torch.ops.mlm_ce import (mlm_ce_bwd, mlm_ce_fwd, mlm_nll_bwd_reference,
@@ -122,7 +135,9 @@ KERNEL_TOL = 2e-2           # bf16 kernel vs bf16 plain, relative to max|plain|
 SLICE_TOL = 3e-2
 
 # pvlt_tiny at 256x256 input and 128 text tokens: per stage (h, w, dim,
-# heads, sr, hidden); M = (h/sr)(w/sr) + 128 = 192 at every stage
+# heads, sr, hidden); M = (h/sr)(w/sr) + 128 = 192 at every stage. The
+# overlapping patch embeds of pvlt_v2_tiny give the same grids, so its
+# stages have the same shapes.
 STAGES = [
     (64, 64, 64, 1, 8, 512),
     (32, 32, 128, 2, 4, 1024),
@@ -131,6 +146,9 @@ STAGES = [
 ]
 TEXT = 128
 RAGGED = (12, 12, 64, 1, 4, 512, 20)   # N = 164, M = 29: ragged row tile and K/V
+# h != w (a halo that wraps across grid rows shows), T not a multiple of 8,
+# head dim 32: N = 247, M = 22
+V2_RAGGED = (12, 20, 96, 3, 4, 384, 7)
 TRAIN_BATCH = 150          # pre-training batch (configs/pretrain_exp21.py)
 TRAIN_STEPS = 6
 CPU_BATCH = 4              # card-vs-CPU step
@@ -162,12 +180,28 @@ KERNELS = [
      "replaces": "mvlt_tpu/ops/mlm_ce.py:187"},
     {"name": "mlm_ce_bwd", "route": "cuda", "source": "mvlt_tpu_torch/csrc/mlm_ce.cu",
      "replaces": "mvlt_tpu/ops/mlm_ce.py:249"},
+    {"name": "block_attention", "route": "cuda",
+     "source": "mvlt_tpu_torch/csrc/block_attention.cu",
+     "replaces": "mvlt_tpu/ops/block_attention.py:754 (+ mvlt_tpu/ops/block_packed.py:269)"},
+    {"name": "dwconv_mlp", "route": "cuda", "source": "mvlt_tpu_torch/csrc/dwconv_mlp.cu",
+     "replaces": "mvlt_tpu/ops/dwconv_mlp.py:98 (+ mvlt_tpu/ops/dwconv_mlp.py:263)"},
 ]
 SERVING_WRAPPERS = {"sr_kv": fused_ln_sr_kv, "block_fused": fused_block}
+V2_SERVING_WRAPPERS = {"sr_kv": fused_ln_sr_kv, "block_attention": fused_block_attention,
+                       "dwconv_mlp": fused_dwconv_mlp}
 TRAINING_WRAPPERS = {"attention_fwd": attention_fwd, "attention_bwd": attention_bwd,
                      "ln_mlp_fwd": ln_mlp_fwd, "ln_mlp_bwd": ln_mlp_bwd}
 MLM_WRAPPERS = {"mlm_ce_fwd": mlm_ce_fwd, "mlm_ce_bwd": mlm_ce_bwd}   # once per step
-WRAPPERS = {**SERVING_WRAPPERS, **TRAINING_WRAPPERS, **MLM_WRAPPERS}
+WRAPPERS = {**SERVING_WRAPPERS, **V2_SERVING_WRAPPERS, **TRAINING_WRAPPERS, **MLM_WRAPPERS}
+
+
+def new_stats() -> dict:
+    """Per kernel of KERNELS, the fields of its entry in the kernels line,
+    summed or maxed over the phases that run it."""
+    return {k["name"]: {"launches": 0, "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                        "bound_ms": 0.0, "bound_by": None, "library_ms": None,
+                        "bound_shares": {"bytes": 0.0, "operations": 0.0}}
+            for k in KERNELS}
 
 
 def reset_launches() -> None:
@@ -380,7 +414,8 @@ def phase_uint8() -> None:
 
 def seeded_state_dict(model, seed: int) -> dict:
     """Weights made with numpy from a seed, as the JAX package initialises
-    them (trunc-normal 0.02 matrices, conv kernels and pos-embeds, normal 0.02
+    them (trunc-normal 0.02 matrices, conv kernels and pos-embeds; v2's
+    depthwise convs LeCun normal over their 9 taps, std 1/3; normal 0.02
     embedding tables, zero biases, unit LayerNorm and BatchNorm scales and
     running variances), with a 0.03 normal
     perturbation on every bias and LayerNorm affine so they carry signal.
@@ -396,6 +431,8 @@ def seeded_state_dict(model, seed: int) -> dict:
             base = base + 0.03 * gen.standard_normal(shape)
         elif "text_embeddings." in name:
             base = 0.02 * gen.standard_normal(shape)
+        elif name.endswith("dwconv.dwconv.weight"):
+            base = 9 ** -0.5 / 0.87962566103423978 * np.clip(gen.standard_normal(shape), -2, 2)
         else:
             base = 0.02 * np.clip(gen.standard_normal(shape), -2.0, 2.0)
         out[name] = torch.from_numpy(base.astype(np.float32))
@@ -426,10 +463,12 @@ def synthetic_bundles(n: int, seed: int, size: int, text_len: int) -> list:
     return bundles
 
 
-def phase_slice(stats: dict):
-    """pvlt_tiny scores three bundles through the serving entry points;
+def phase_slice(stats: dict, model_name: str = "pvlt_tiny", path: dict = SERVING_WRAPPERS,
+                phase: str = "slice"):
+    """``model_name`` scores three bundles through the serving entry points,
+    launching each kernel of ``path`` once per block and no other kernel;
     returns the model, the bundles and the weights."""
-    cfg = ModelConfig(name="pvlt_tiny", compute_dtype="bfloat16",
+    cfg = ModelConfig(name=model_name, compute_dtype="bfloat16",
                       loss_type=LossType(itm=True, mlm=False, t2i=False, cls=False))
     model = create_model(cfg, device="cuda").eval()
     sd = seeded_state_dict(model, SEED)
@@ -457,7 +496,7 @@ def phase_slice(stats: dict):
     s = torch.cat(scores).float().cpu()
     finite = bool(torch.isfinite(s).all())
     in_range = bool(((s > 0) & (s < 1)).all())
-    emit("slice", model=cfg.name, compute_dtype=cfg.compute_dtype, input=size,
+    emit(phase, model=cfg.name, compute_dtype=cfg.compute_dtype, input=size,
          text_tokens=cfg.num_text_tokens, bundles=len(bundles), forwards=forwards,
          pairs=int(s.numel()), seconds_host_inclusive=seconds, results=results,
          score_min=float(s.min()), score_max=float(s.max()),
@@ -467,9 +506,9 @@ def phase_slice(stats: dict):
         raise AssertionError(f"scored {s.numel()} pairs in {results['num_queries']} queries")
     if not (finite and in_range):
         raise AssertionError("ITM scores not all finite and inside (0, 1)")
-    if any(launches[name] for name in WRAPPERS if name not in SERVING_WRAPPERS):
-        raise AssertionError(f"the serving path launched a training kernel: {launches}")
-    for name in SERVING_WRAPPERS:
+    if any(launches[name] for name in WRAPPERS if name not in path):
+        raise AssertionError(f"{cfg.name} serving launched a kernel of another path: {launches}")
+    for name in path:
         count = launches[name]
         stats[name]["launches"] = count
         if count != blocks * forwards:
@@ -515,7 +554,7 @@ def check_blocks(model, bundle) -> None:
                              f"version: rel errs {errs} (tol {KERNEL_TOL})")
 
 
-def compare_cpu_fp32(model, bundle, sd) -> float:
+def compare_cpu_fp32(model, bundle, sd, phase: str = "slice_vs_cpu_fp32") -> float:
     """ITM logits of two pairs against the same weights in fp32 on the CPU
     (plain path), beside the plain path's own bf16 error on the CPU."""
     cfg = model.cfg
@@ -534,7 +573,7 @@ def compare_cpu_fp32(model, bundle, sd) -> float:
     diff = (got - want).abs().max().item()
     rel = diff / scale
     ok = bool(rel <= SLICE_TOL)
-    emit("slice_vs_cpu_fp32", pairs=2, logits_card=got.flatten().tolist(),
+    emit(phase, pairs=2, logits_card=got.flatten().tolist(),
          logits_cpu=want.flatten().tolist(), max_abs_diff=diff, rel_err=rel,
          rel_err_cpu_bf16_plain=(logits["bfloat16"] - want).abs().max().item() / scale,
          tol=SLICE_TOL, ok=ok)
@@ -544,8 +583,9 @@ def compare_cpu_fp32(model, bundle, sd) -> float:
     return rel
 
 
-def phase_throughput(model, bundles) -> None:
-    """Scorer pairs/s at B = 101 on pre-staged device tensors (H2D excluded)."""
+def phase_throughput(model, bundles, groups: dict, prefix: str = "") -> None:
+    """Scorer pairs/s at B = 101 on pre-staged device tensors (H2D excluded),
+    and the device profile of three calls by kernel ``groups``."""
     scorer = make_itm_scorer(model)
     staged = [(torch.from_numpy(b["images_101"]).cuda(),
                torch.from_numpy(b["ori_input_ids_101"]).long().cuda()) for b in bundles]
@@ -553,15 +593,14 @@ def phase_throughput(model, bundles) -> None:
     torch.cuda.reset_peak_memory_stats()
     calls = iter(range(10 ** 9))
     ms = cuda_time_ms(lambda: scorer(*staged[next(calls) % len(staged)]), warmup=3, reps=15)
-    emit("throughput", model="pvlt_tiny", batch=BATCH, ms_per_batch=ms,
+    emit(prefix + "throughput", model=model.cfg.name, batch=BATCH, ms_per_batch=ms,
          pairs_per_s=BATCH / (ms / 1e3), peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
          method="CUDA events around each scorer call, 3 warm-up, median of 15, "
                 "3 distinct pre-staged uint8 bundles")
 
     # where the device time goes: kernel time by name over 3 scorer calls
     profile_device(lambda: [scorer(images, ids) for images, ids in staged], len(staged),
-                   {"sr_kv": ("sr_kv_kernel",), "block_fused": ("block_fused_kernel",)},
-                   "profile")
+                   groups, prefix + "profile")
 
 
 def profile_device(run, calls: int, groups: dict, phase: str) -> None:
@@ -590,6 +629,139 @@ def profile_device(run, calls: int, groups: dict, phase: str) -> None:
          device_ms=device_ms if device_ms else "not measured",
          device_idle_share=(1 - device_ms / wall_ms) if device_ms else "not measured",
          ms_by_group=by_group, top_kernels=[[n[:80], t] for n, t in top])
+
+
+# ---- PVT-v2 serving -------------------------------------------------------
+
+def v2_stage_params(gen, d: int, sr: int, hidden: int, device) -> dict:
+    """stage_params plus the depthwise conv: taps of std 1 / sqrt(9) (its
+    fan-in, gain 1), bias std 0.1 (at 0.05 a dropped conv bias would move
+    the output by only ~1.5x the bound)."""
+    p = stage_params(gen, d, sr, hidden, device)
+    p["dw_weight"] = (9 ** -0.5 * torch.randn(hidden, 1, 3, 3, generator=gen)).to(device)
+    p["dw_bias"] = (0.1 * torch.randn(hidden, generator=gen)).to(device)
+    return p
+
+
+def _c_args(p):
+    return (p["ln1_weight"], p["ln1_bias"], p["wq"], p["bq"], p["wp"], p["bp"])
+
+
+def _d_args(p):
+    return (p["ln2_weight"], p["ln2_bias"], p["w1"], p["b1"], p["dw_weight"], p["dw_bias"],
+            p["w2"], p["b2"])
+
+
+def v2_bounds(shape: tuple, batch: int) -> dict:
+    """(ms, bound_by) of kernels C and D at one stage shape. C: the Q,
+    logits, P.V and out-proj products, 4.N.D^2 + 4.N.M.D flops per sample;
+    the stream read and written, K/V read, Wq and Wp read. D: fc1 and fc2,
+    4.N.D.hidden, and the conv, 18.h.w.hidden; the stream read and written,
+    the bf16 weights read."""
+    h, w, d, _, sr, hid, t = shape
+    n = h * w + t
+    m = (h // sr) * (w // sr) + t if sr > 1 else n
+    flops_c = batch * (4 * n * d * d + 4 * n * m * d)
+    bytes_c = 2 * (2 * batch * n * d + 2 * batch * m * d + 2 * d * d)
+    flops_d = batch * (4 * n * d * hid + 18 * h * w * hid)
+    bytes_d = 2 * (2 * batch * n * d + 2 * d * hid + 9 * hid)
+    return {"block_attention": bound(flops_c, bytes_c), "dwconv_mlp": bound(flops_d, bytes_d)}
+
+
+def check_v2_kernels(stats: dict, gen, label: str, shape: tuple, batch: int):
+    """Kernels C and D against their plain versions on one shape's seeded
+    inputs (C on the plain K/V); raises past KERNEL_TOL. Returns the inputs
+    and the plain K/V, for timing."""
+    h, w, d, nh, sr, hid, t = shape
+    p = v2_stage_params(gen, d, sr, hid, torch.device("cuda"))
+    x = torch.randn(batch, h * w + t, d, generator=gen).to("cuda", torch.bfloat16)
+    k, v = sr_kv_reference(x, (h, w), *_kv_args(p), sr=sr, heads=nh, eps1=1e-6, eps_sr=1e-5)
+    kw_c, kw_d = dict(heads=nh, eps=1e-6), dict(eps=1e-6)
+    errs = {"block_attention": _rel_err(fused_block_attention(x, k, v, *_c_args(p), **kw_c),
+                                        block_attention_reference(x, k, v, *_c_args(p), **kw_c)),
+            "dwconv_mlp": _rel_err(fused_dwconv_mlp(x, (h, w), *_d_args(p), **kw_d),
+                                   dwconv_mlp_reference(x, (h, w), *_d_args(p), **kw_d))}
+    torch.cuda.synchronize()
+    for name, (abs_err, rel) in errs.items():
+        ok = bool(rel <= KERNEL_TOL and np.isfinite(rel))
+        emit("kernel_check", kernel=name, shape=label, batch=batch, n=h * w + t, hw=[h, w],
+             dim=d, heads=nh, m=k.shape[2], hidden=hid, max_abs_err=abs_err, rel_err=rel,
+             tol=KERNEL_TOL, ok=ok)
+        if not ok:
+            raise AssertionError(f"{name} disagrees with its plain version at "
+                                 f"{label}, B = {batch}: rel err {rel:.3e} > {KERNEL_TOL}")
+        stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], abs_err)
+    return p, x, k, v, kw_c, kw_d
+
+
+def phase_v2_kernels(stats: dict) -> None:
+    """Kernels C and D vs plain on the card: errors at B = 4 (the
+    pvlt_v2_tiny stage shapes + ragged), then errors and times at B = 101."""
+    gen = torch.Generator().manual_seed(SEED + 5)
+    shapes = [(f"v2_stage{i + 1}", (h, w, d, nh, sr, hid, TEXT))
+              for i, (h, w, d, nh, sr, hid) in enumerate(STAGES)]
+    for label, shape in shapes + [("v2_ragged", V2_RAGGED)]:
+        check_v2_kernels(stats, gen, label, shape, SMOKE_BATCH)
+    for label, shape in shapes:
+        p, x, k, v, kw_c, kw_d = check_v2_kernels(stats, gen, label, shape, BATCH)
+        hw = shape[:2]
+        p = {name: kernel_operand(t, torch.bfloat16) for name, t in p.items()}
+        times = {
+            "block_attention": (
+                cuda_time_ms(lambda: fused_block_attention(x, k, v, *_c_args(p), **kw_c)),
+                cuda_time_ms(lambda: block_attention_reference(x, k, v, *_c_args(p), **kw_c))),
+            "dwconv_mlp": (cuda_time_ms(lambda: fused_dwconv_mlp(x, hw, *_d_args(p), **kw_d)),
+                           cuda_time_ms(lambda: dwconv_mlp_reference(x, hw, *_d_args(p), **kw_d))),
+        }
+        bounds = v2_bounds(shape, BATCH)
+        for name, (ms, plain_ms) in times.items():
+            bound_ms, bound_by = bounds[name]
+            emit("kernel_time", kernel=name, shape=label, batch=BATCH, ms=ms,
+                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                 library_ms=None, speedup=plain_ms / ms)
+            add_time(stats, name, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                     bound_by=bound_by, library_ms=None)
+        del x, k, v
+        torch.cuda.empty_cache()
+
+
+def check_v2_blocks(model, bundle) -> None:
+    """Every block of one B = 101 pvlt_v2_tiny forward against the plain
+    versions on the block's own input and parameters, within KERNEL_TOL:
+    K/V element by element and the attention half (kernels A and C run
+    again on the block's input and cached operands, as the forward ran
+    them), and the block's output."""
+    seen = []
+    hooks = [blk.register_forward_hook(lambda m, args, out: seen.append((m, args[0], args[1], out)))
+             for blk in model.modules() if isinstance(blk, Block)]
+    try:
+        with torch.no_grad():
+            model(uint8_to_unit(torch.from_numpy(bundle["images_101"]).cuda()),
+                  torch.from_numpy(bundle["ori_input_ids_101"]).long().cuda())
+    finally:
+        for h in hooks:
+            h.remove()
+    errs = {"kv": [], "attn": [], "out": []}
+    for blk, x, hw, out in seen:
+        (kv_p, attn_p, mlp_p), (kv_kw, attn_kw, mlp_kw) = blk.kernel_params(), blk.kernel_kwargs()
+        kv_ops, attn_ops, _ = blk.kernel_operands(x.dtype)
+        with torch.no_grad():
+            k_ref, v_ref = sr_kv_reference(x, hw, *kv_p, **kv_kw)
+            attn_ref = block_attention_reference(x, k_ref, v_ref, *attn_p, **attn_kw)
+            want = dwconv_mlp_reference(attn_ref, hw, *mlp_p, **mlp_kw)
+            k, v = fused_ln_sr_kv(x, hw, *kv_ops, **kv_kw)
+            attn = fused_block_attention(x, k, v, *attn_ops, **attn_kw)
+        errs["kv"].append(max(_rel_err(k, k_ref)[1], _rel_err(v, v_ref)[1]))
+        errs["attn"].append(_rel_err(attn, attn_ref)[1])
+        errs["out"].append(_rel_err(out, want)[1])
+    worst = max(errs["kv"] + errs["attn"] + errs["out"])
+    ok = len(errs["out"]) == sum(model.cfg.depths) and worst <= KERNEL_TOL
+    emit("v2_slice_blocks_vs_plain", batch=BATCH, blocks=len(errs["out"]),
+         rel_err_kv=errs["kv"], rel_err_attn=errs["attn"], rel_err_out=errs["out"],
+         tol=KERNEL_TOL, ok=ok)
+    if not ok:
+        raise AssertionError(f"a block of the v2 path disagrees with its plain "
+                             f"version: rel errs {errs} (tol {KERNEL_TOL})")
 
 
 # ---- the training path -------------------------------------------------
@@ -786,7 +958,7 @@ def phase_train_slice(stats: dict):
          loss_falling=falling, bn_stats_changed=bn_moved)
     if not finite:
         raise AssertionError(f"a training loss is not finite: {losses}")
-    if any(launches[name] for name in SERVING_WRAPPERS) or any(
+    if any(launches[name] for name in WRAPPERS if name not in expected) or any(
             launches[name] != count for name, count in expected.items()):
         raise AssertionError(f"training launches {launches}, expected {expected} and "
                              f"no serving kernel")
@@ -1079,7 +1251,9 @@ def phase_cli(stats: dict) -> None:
     ok = ([line["epoch"] for line in pre_log] == [0, 1, 2] and len(ft_log) == 1
           and not evals[0] and all(evals[1:]) and finite and steps == 3 and last_epoch == 2
           and launches["mlm_ce_fwd"] == launches["mlm_ce_bwd"] == steps
-          and all(launches.values()))
+          and all(launches[name] for name in
+                  (*SERVING_WRAPPERS, *TRAINING_WRAPPERS, *MLM_WRAPPERS))
+          and not any(launches[name] for name in V2_SERVING_WRAPPERS if name != "sr_kv"))
     emit("cli", config="configs/pretrain_exp21.py", batch=TRAIN_BATCH, epochs_run=[0, 1, 2],
          resumed_at_epoch=2, pretrain_steps=steps, finetune_steps=1, seconds=seconds,
          losses={f"epoch{line['epoch']}": line["total_loss"] for line in pre_log},
@@ -1099,17 +1273,24 @@ def main() -> int:
         return 2
     smi = phase_device()
     phase_build()
-    stats = {k["name"]: {"launches": 0, "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-                         "bound_ms": 0.0, "bound_by": None, "library_ms": None,
-                         "bound_shares": {"bytes": 0.0, "operations": 0.0}}
-             for k in KERNELS}
+    stats = new_stats()
     phase_kernels(stats)
     phase_uint8()
     model, bundles, sd = phase_slice(stats)
     check_blocks(model, bundles[0])
     compare_cpu_fp32(model, bundles[0], sd)
-    phase_throughput(model, bundles)
+    phase_throughput(model, bundles, {"sr_kv": ("sr_kv_kernel",),
+                                      "block_fused": ("block_fused_kernel",)})
     del model
+    phase_v2_kernels(stats)
+    model, bundles, sd = phase_slice(stats, "pvlt_v2_tiny", V2_SERVING_WRAPPERS, "v2_slice")
+    check_v2_blocks(model, bundles[0])
+    compare_cpu_fp32(model, bundles[0], sd, "v2_slice_vs_cpu_fp32")
+    phase_throughput(model, bundles, {"sr_kv": ("sr_kv_kernel",),
+                                      "block_attention": ("block_attention_kernel",),
+                                      "dwconv_mlp": ("dwconv_mlp_kernel",)}, "v2_")
+    del model
+    torch.cuda.empty_cache()
     phase_train_kernels(stats)
     phase_mlm_kernels(stats)
     state, cfg, sd, batch = phase_train_slice(stats)

@@ -27,29 +27,21 @@
 // the warp tile that needs the fewest rounds of loads. LayerNorm statistics,
 // logits and softmax are fp32; GELU is exact erf. The softmax is masked past
 // the true K/V length M, and rows past N are computed on zeros and never
-// stored. Measured and dropped: weight tiles staged through shared memory
-// with cp.async (double-buffered), and a three-deep ring of weight fragments
-// in registers; neither was faster. wgmma and TMA are for later work.
-
-#include <math.h>
+// stored. The attention half is attn_half.cuh's, which kernel C shares.
+// Measured and dropped: weight tiles staged through shared memory with
+// cp.async (double-buffered), and a three-deep ring of weight fragments in
+// registers; neither was faster. wgmma and TMA are for later work.
 
 #include <initializer_list>
 
-#include "common.cuh"
+#include "attn_half.cuh"
 
 namespace mvlt {
 namespace {
 
 struct BlockArgs {
   const bf16* x;
-  const bf16* k;
-  const bf16* v;
-  const float* ln1_w;
-  const float* ln1_b;
-  const bf16* wq;
-  const float* bq;
-  const bf16* wp;
-  const float* bp;
+  AttnArgs at;
   const float* ln2_w;
   const float* ln2_b;
   const bf16* w1;
@@ -57,16 +49,12 @@ struct BlockArgs {
   const bf16* w2;
   const float* b2;
   bf16* out;
-  int n, d, heads, m, hidden, tr, chunk;
-  float scale, eps1, eps2;
+  int n, d, hidden, tr, chunk;
+  float eps2;
 };
 
-// Shared-memory rows of bf16 operands are padded by kPad elements (16 bytes)
-// so that the 16 rows of a tensor-core fragment fall on different banks.
-constexpr int kPad = 8;
-
 struct BlockSmem {
-  size_t xres, abuf, qall, kv, u2, probs, stage, total;
+  size_t xres, abuf, qall, kv, u2, stage, total;
 };
 
 // Shared-memory layout, computed the same way on the host and the device.
@@ -80,8 +68,7 @@ __host__ __device__ inline BlockSmem block_smem(int tr, int d, int mp, int hd, i
   s.qall = o;  o += align128((size_t)tr * (d + kPad) * 2);
   s.kv = o;    o += align128((size_t)mp * (hd + kPad) * 2);
   s.u2 = o;
-  s.probs = o + align128((size_t)tr * mp * 4);
-  const size_t attn = align128((size_t)tr * mp * 4) + align128((size_t)tr * (mp + kPad) * 2);
+  const size_t attn = attn_scratch_bytes(tr, mp);
   const size_t mlp = align128((size_t)tr * (chunk + kPad) * 2);
   o += attn > mlp ? attn : mlp;
   s.stage = o; o += kStageBytes;
@@ -89,103 +76,24 @@ __host__ __device__ inline BlockSmem block_smem(int tr, int d, int mp, int hd, i
   return s;
 }
 
-__device__ void layer_norm_tile(const float* src, int rows, int d, const float* gamma,
-                                const float* beta, float eps, bf16* dst, int ld) {
-  const int warp = threadIdx.x >> 5;
-  for (int r = warp; r < rows; r += kWarps) {
-    const float* row = src + (size_t)r * d;
-    layer_norm_row([&](int c) { return row[c]; }, d, gamma, beta, eps, dst + (size_t)r * ld);
-  }
-}
-
-// One head's K or V [m, hd] (global, contiguous) into rows of ld = hd + kPad,
-// rows m..mp zero; 16-byte asynchronous copies, waited for by the caller.
-__device__ void load_head_async(bf16* dst, const bf16* src, int m, int mp, int hd) {
-  const int ld = hd + kPad, per_row = hd / 8;
-  for (int i = threadIdx.x; i < m * per_row; i += kThreads) {
-    const int r = i / per_row, c = (i - r * per_row) * 8;
-    cp_async16(dst + r * ld + c, src + (size_t)r * hd + c);
-  }
-  for (int i = m * ld + threadIdx.x; i < mp * ld; i += kThreads) dst[i] = __float2bfloat16(0.0f);
-}
-
 __global__ void __launch_bounds__(kThreads) block_fused_kernel(BlockArgs a) {
   extern __shared__ __align__(128) char smem[];
-  const int tr = a.tr, d = a.d, hd = d / a.heads, m = a.m, mp = (m + 15) & ~15;
-  const int ld = d + kPad, ldk = hd + kPad, ldp = mp + kPad, ldh = a.chunk + kPad;
+  const int tr = a.tr, d = a.d, hd = d / a.at.heads, mp = (a.at.m + 15) & ~15;
+  const int ld = d + kPad, ldh = a.chunk + kPad;
   const int b = blockIdx.y, n0 = blockIdx.x * tr;
   const int rows = min(tr, a.n - n0);
   const BlockSmem L = block_smem(tr, d, mp, hd, a.chunk);
   float* xres = reinterpret_cast<float*>(smem + L.xres);
   bf16* abuf = reinterpret_cast<bf16*>(smem + L.abuf);
-  bf16* qall = reinterpret_cast<bf16*>(smem + L.qall);
-  bf16* kv = reinterpret_cast<bf16*>(smem + L.kv);
-  float* logit = reinterpret_cast<float*>(smem + L.u2);
-  bf16* probs = reinterpret_cast<bf16*>(smem + L.probs);
   bf16* hid = reinterpret_cast<bf16*>(smem + L.u2);
   float* stage = reinterpret_cast<float*>(smem + L.stage);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
   // residual tile, fp32; rows past N are zero and never stored
-  // (8 bf16 per 16-byte load; D is a multiple of 16)
-  const bf16* xb = a.x + ((size_t)b * a.n + n0) * d;
-#pragma unroll 4
-  for (int i = threadIdx.x * 8; i < tr * d; i += kThreads * 8) {
-    uint4 raw = make_uint4(0, 0, 0, 0);
-    if (i / d < rows) raw = *reinterpret_cast<const uint4*>(xb + i);
-    const bf16* e = reinterpret_cast<const bf16*>(&raw);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) xres[i + j] = __bfloat162float(e[j]);
-  }
+  load_residual_tile(xres, a.x + ((size_t)b * a.n + n0) * d, tr, d, rows, nullptr);
   __syncthreads();
-
-  // ---- attention half ----
-  layer_norm_tile(xres, tr, d, a.ln1_w, a.ln1_b, a.eps1, abuf, ld);
-  __syncthreads();
-  gemm_bf16<true, 2>(abuf, ld, a.wq, d, tr, d, d, stage, [&](int r, int c, float v) {
-    qall[r * ld + c] = __float2bfloat16(v + a.bq[c]);
-  });
-  __syncthreads();
-
-  for (int h = 0; h < a.heads; ++h) {
-    const size_t kv_off = ((size_t)b * a.heads + h) * m * hd;
-    load_head_async(kv, a.k + kv_off, m, mp, hd);
-    cp_async_wait_all();
-    __syncthreads();
-    // logits = q_h . K_h^T * scale (fp32)
-    gemm_bf16<true, 2>(qall + h * hd, ld, kv, ldk, tr, mp, hd, stage,
-                    [&](int r, int c, float v) { logit[r * mp + c] = v * a.scale; });
-    __syncthreads();
-    // V_h streams in while the softmax runs
-    load_head_async(kv, a.v + kv_off, m, mp, hd);
-    // fp32 softmax over the first m columns; padded columns get probability 0
-    for (int r = warp; r < tr; r += kWarps) {
-      float* lr = logit + (size_t)r * mp;
-      float mx = -INFINITY;
-      for (int c = lane; c < m; c += 32) mx = fmaxf(mx, lr[c]);
-      mx = warp_max(mx);
-      float s = 0.0f;
-      for (int c = lane; c < m; c += 32) {
-        const float e = __expf(lr[c] - mx);
-        lr[c] = e;
-        s += e;
-      }
-      const float inv = 1.0f / warp_sum(s);
-      for (int c = lane; c < mp; c += 32)
-        probs[(size_t)r * ldp + c] = __float2bfloat16(c < m ? lr[c] * inv : 0.0f);
-    }
-    cp_async_wait_all();
-    __syncthreads();
-    // head output P . V_h into its columns of abuf (LN1 is no longer needed)
-    gemm_bf16<false, 2>(probs, ldp, kv, ldk, tr, hd, mp, stage, [&](int r, int c, float v) {
-      abuf[r * ld + h * hd + c] = __float2bfloat16(v);
-    });
-    __syncthreads();
-  }
-
-  gemm_bf16<true, 2>(abuf, ld, a.wp, d, tr, d, d, stage,
-                  [&](int r, int c, float v) { xres[r * d + c] += v + a.bp[c]; });
-  __syncthreads();
+  attention_half(a.at, b, tr, d, xres, abuf, reinterpret_cast<bf16*>(smem + L.qall),
+                 reinterpret_cast<bf16*>(smem + L.kv), reinterpret_cast<float*>(smem + L.u2),
+                 stage);
 
   // ---- MLP half, the hidden in chunks ----
   layer_norm_tile(xres, tr, d, a.ln2_w, a.ln2_b, a.eps2, abuf, ld);
@@ -240,15 +148,16 @@ extern "C" int mvlt_block_fused(const void* x, const void* k, const void* v,
   cudaError_t err = cudaFuncSetAttribute(
       block_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  BlockArgs a{static_cast<const bf16*>(x),      static_cast<const bf16*>(k),
-              static_cast<const bf16*>(v),      static_cast<const float*>(ln1_w),
-              static_cast<const float*>(ln1_b), static_cast<const bf16*>(wq),
-              static_cast<const float*>(bq),    static_cast<const bf16*>(wp),
-              static_cast<const float*>(bp),    static_cast<const float*>(ln2_w),
-              static_cast<const float*>(ln2_b), static_cast<const bf16*>(w1),
-              static_cast<const float*>(b1),    static_cast<const bf16*>(w2),
-              static_cast<const float*>(b2),    static_cast<bf16*>(out),
-              n, d, heads, m, hidden, tr, chunk, scale, eps1, eps2};
+  const AttnArgs at{static_cast<const bf16*>(k),      static_cast<const bf16*>(v),
+                    static_cast<const float*>(ln1_w), static_cast<const float*>(ln1_b),
+                    static_cast<const bf16*>(wq),     static_cast<const float*>(bq),
+                    static_cast<const bf16*>(wp),     static_cast<const float*>(bp),
+                    heads, m, scale, eps1};
+  BlockArgs a{static_cast<const bf16*>(x),      at,
+              static_cast<const float*>(ln2_w), static_cast<const float*>(ln2_b),
+              static_cast<const bf16*>(w1),     static_cast<const float*>(b1),
+              static_cast<const bf16*>(w2),     static_cast<const float*>(b2),
+              static_cast<bf16*>(out),          n, d, hidden, tr, chunk, eps2};
   dim3 grid((n + tr - 1) / tr, batch);
   block_fused_kernel<<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();

@@ -1,4 +1,5 @@
-"""PVLT, the Pyramid Vision-Language Transformer, in PyTorch (v1 backbone).
+"""PVLT, the Pyramid Vision-Language Transformer, in PyTorch (v1 and v2
+backbones).
 
 Counterpart of mvlt_tpu/models/pvlt.py: a 4-stage PVT pyramid whose stages
 each re-project the BERT text tokens and concatenate them with the image
@@ -8,15 +9,19 @@ state-dict names (mvlt_tpu/convert/torch_to_jax.py:_MAPPING), so a state dict
 exported from the JAX package or a published ``.pth`` loads with
 ``strict=True``. Reference quirks kept: built at ``img_size`` 224 and run at
 256 through a bilinear pos-embed resize; the stage-4 pos-embed has one extra
-slot, dropped at use; NHWC images in (NCHW accepted).
+slot, dropped at use; NHWC images in (NCHW accepted). The v2 backbone
+(PVT-v2) embeds patches with overlapping convs (k7 s4, then k3 s2) and runs
+the DWConv MLP (fc1 -> 3x3 depthwise conv on the visual rows -> GELU -> fc2);
+its conv-SR attention is v1's.
 
 Parameters stay fp32; with ``compute_dtype="bfloat16"`` the stream and the
 matrix-product operands are bf16 and LayerNorm statistics and softmax fp32.
 A block has two paths, each the plain PyTorch versions on a CPU tensor and
 Hopper kernels and nothing else in their place on a CUDA tensor:
   * serving, in eval mode when no gradient is wanted: ops/sr_kv.py then
-    ops/block_fused.py, on bf16 operands cast once and detached;
-  * training, whenever a gradient is wanted or in training mode: the
+    ops/block_fused.py (v1), or ops/sr_kv.py, ops/block_attention.py and
+    ops/dwconv_mlp.py (v2), on bf16 operands cast once and detached;
+  * training (v1 only), whenever a gradient is wanted or in training mode: the
     projections, SR conv and SR-LN in PyTorch, the attention core of
     ops/pallas_attention.py and the LN-MLP of ops/fused_mlp.py, both
     differentiable, with DropPath (training mode only) as per-sample scales.
@@ -39,7 +44,9 @@ from mvlt_tpu_torch.config import ModelConfig
 from mvlt_tpu_torch.models.bert_embeddings import BertEmbeddings
 from mvlt_tpu_torch.models.heads import CLSHead, ITGHead, ITMHead, MLMHead
 from mvlt_tpu_torch.models.registry import resolve_model_config, validate_model_config
+from mvlt_tpu_torch.ops.block_attention import fused_block_attention
 from mvlt_tpu_torch.ops.block_fused import fused_block
+from mvlt_tpu_torch.ops.dwconv_mlp import fused_dwconv_mlp
 from mvlt_tpu_torch.ops.fused_mlp import fused_ln_mlp
 from mvlt_tpu_torch.ops.kernel_math import layer_norm_fp32, linear
 from mvlt_tpu_torch.ops.pallas_attention import fused_attention
@@ -48,6 +55,15 @@ from mvlt_tpu_torch.ops.sr_kv import fused_ln_sr_kv, reduce_kv_input, split_kv
 
 def _ln(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
     return layer_norm_fp32(x, norm.weight, norm.bias, norm.eps)
+
+
+def _embed(x: torch.Tensor, conv: nn.Conv2d, norm: nn.LayerNorm):
+    """conv then LayerNorm: NHWC [B, H, W, C_in] -> (tokens [B, gh*gw, D] in
+    row-major (y, x), (gh, gw))."""
+    y = F.conv2d(x.permute(0, 3, 1, 2), conv.weight.to(x.dtype), conv.bias.to(x.dtype),
+                 stride=conv.stride, padding=conv.padding)
+    gh, gw = y.shape[-2:]
+    return _ln(y.flatten(2).transpose(1, 2), norm), (gh, gw)
 
 
 class PatchEmbed(nn.Module):
@@ -66,10 +82,22 @@ class PatchEmbed(nn.Module):
         p = self.patch_size
         if h % p or w % p:
             raise ValueError(f"input {h}x{w} not divisible by patch size {p}")
-        y = F.conv2d(x.permute(0, 3, 1, 2), self.proj.weight.to(x.dtype),
-                     self.proj.bias.to(x.dtype), stride=p)
-        gh, gw = y.shape[-2:]
-        return _ln(y.flatten(2).transpose(1, 2), self.norm), (gh, gw)
+        return _embed(x, self.proj, self.norm)
+
+
+class OverlapPatchEmbed(nn.Module):
+    """PVT-v2 overlapping patch embedding: a conv with kernel > stride and
+    padding kernel // 2, then LayerNorm; NHWC in, tokens out as
+    ``PatchEmbed``."""
+
+    def __init__(self, kernel: int, stride: int, in_chans: int, embed_dim: int,
+                 ln_eps: float = 1e-5):
+        super().__init__()
+        self.proj = nn.Conv2d(in_chans, embed_dim, kernel, stride=stride, padding=kernel // 2)
+        self.norm = nn.LayerNorm(embed_dim, eps=ln_eps)
+
+    def forward(self, x: torch.Tensor):
+        return _embed(x, self.proj, self.norm)
 
 
 class JointSRAttention(nn.Module):
@@ -99,9 +127,29 @@ class Mlp(nn.Module):
         self.fc2 = nn.Linear(hidden, dim)
 
 
+class DWConv(nn.Module):
+    """Parameters of PVT-v2's 3x3 depthwise conv (``dwconv``)."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.dwconv = nn.Conv2d(dim, dim, 3, padding=1, groups=dim)
+
+
+class DWConvMlp(nn.Module):
+    """Parameters of PVT-v2's MLP: fc1 -> depthwise 3x3 conv over the visual
+    rows -> exact-erf GELU -> fc2 (ops/dwconv_mlp.py computes it)."""
+
+    def __init__(self, dim: int, hidden: int):
+        super().__init__()
+        self.fc1 = nn.Linear(dim, hidden)
+        self.dwconv = DWConv(hidden)
+        self.fc2 = nn.Linear(hidden, dim)
+
+
 def kernel_operand(t: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[torch.Tensor]:
-    """A parameter as the wrappers take it: matrices in the compute dtype (the
-    SR conv weight channels-last, the [out, (r, s, in)] layout kernel A
+    """A parameter as the wrappers take it: matrices in the compute dtype (a
+    conv weight channels-last: for the SR conv the [out, (r, s, in)] layout
+    kernel A reads, for the depthwise conv the [hidden, 9] taps kernel D
     reads), vectors fp32 as they are."""
     if t is None or t.dim() == 1:
         return t
@@ -114,39 +162,50 @@ def kernel_operand(t: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[to
 class Block(nn.Module):
     """Pre-LN block: x + s1 attn(LN1 x), then + s2 mlp(LN2 .), where s1, s2
     are per-sample DropPath scales (mask / keep) in training mode and 1 in
-    eval. Serving path or training path as the module docstring says."""
+    eval; ``mlp`` is the DWConv MLP for ``v2``. Serving path or training path
+    as the module docstring says."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float, sr_ratio: int,
                  qkv_bias: bool, ln_eps: float = 1e-6, sr_ln_eps: float = 1e-5,
-                 drop_path: float = 0.0):
+                 drop_path: float = 0.0, v2: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.drop_path = drop_path
+        self.v2 = v2
         self.norm1 = nn.LayerNorm(dim, eps=ln_eps)
         self.attn = JointSRAttention(dim, num_heads, sr_ratio, qkv_bias, sr_ln_eps)
         self.norm2 = nn.LayerNorm(dim, eps=ln_eps)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self.mlp = (DWConvMlp if v2 else Mlp)(dim, int(dim * mlp_ratio))
         self._operands = None
 
-    def kernel_params(self) -> tuple[tuple, tuple]:
-        """The parameters in the argument order of ``fused_ln_sr_kv`` and of
-        ``fused_block``; the SR ones are None at sr == 1."""
+    def kernel_params(self) -> tuple[tuple, ...]:
+        """The parameters in the argument order of the serving wrappers: v1
+        ``fused_ln_sr_kv`` and ``fused_block``; v2 ``fused_ln_sr_kv``,
+        ``fused_block_attention`` and ``fused_dwconv_mlp``. The SR ones are
+        None at sr == 1."""
         a, m = self.attn, self.mlp
         sr = ((a.sr.weight, a.sr.bias, a.norm.weight, a.norm.bias)
               if a.sr_ratio > 1 else (None,) * 4)
-        return ((self.norm1.weight, self.norm1.bias, *sr, a.kv.weight, a.kv.bias),
-                (self.norm1.weight, self.norm1.bias, a.q.weight, a.q.bias,
-                 a.proj.weight, a.proj.bias, self.norm2.weight, self.norm2.bias,
-                 m.fc1.weight, m.fc1.bias, m.fc2.weight, m.fc2.bias))
+        kv = (self.norm1.weight, self.norm1.bias, *sr, a.kv.weight, a.kv.bias)
+        attn = (self.norm1.weight, self.norm1.bias, a.q.weight, a.q.bias,
+                a.proj.weight, a.proj.bias)
+        if self.v2:
+            dw = m.dwconv.dwconv
+            return kv, attn, (self.norm2.weight, self.norm2.bias, m.fc1.weight, m.fc1.bias,
+                              dw.weight, dw.bias, m.fc2.weight, m.fc2.bias)
+        return kv, (*attn, self.norm2.weight, self.norm2.bias,
+                    m.fc1.weight, m.fc1.bias, m.fc2.weight, m.fc2.bias)
 
-    def kernel_kwargs(self) -> tuple[dict, dict]:
-        """The keyword arguments of ``fused_ln_sr_kv`` and of ``fused_block``."""
+    def kernel_kwargs(self) -> tuple[dict, ...]:
+        """The keyword arguments of the wrappers, in ``kernel_params``'s order."""
         a = self.attn
-        return (dict(sr=a.sr_ratio, heads=self.num_heads, eps1=self.norm1.eps,
-                     eps_sr=a.norm.eps if a.sr_ratio > 1 else 1e-5),
-                dict(heads=self.num_heads, eps1=self.norm1.eps, eps2=self.norm2.eps))
+        kv = dict(sr=a.sr_ratio, heads=self.num_heads, eps1=self.norm1.eps,
+                  eps_sr=a.norm.eps if a.sr_ratio > 1 else 1e-5)
+        if self.v2:
+            return kv, dict(heads=self.num_heads, eps=self.norm1.eps), dict(eps=self.norm2.eps)
+        return kv, dict(heads=self.num_heads, eps1=self.norm1.eps, eps2=self.norm2.eps)
 
-    def kernel_operands(self, dtype: torch.dtype) -> tuple[tuple, tuple]:
+    def kernel_operands(self, dtype: torch.dtype) -> tuple[tuple, ...]:
         """``kernel_params`` cast by ``kernel_operand`` once, and again only
         after a parameter changed in place (load_state_dict), moved, or the
         compute dtype changed."""
@@ -176,16 +235,22 @@ class Block(nn.Module):
             x.requires_grad or any(p.requires_grad for p in self.parameters()))
         if self.training or wants_grad:
             return self.train_forward(x, hw, generator)
-        kv_ops, block_ops = self.kernel_operands(x.dtype)
-        kv_kw, block_kw = self.kernel_kwargs()
-        k, v = fused_ln_sr_kv(x, hw, *kv_ops, **kv_kw)
-        return fused_block(x, k, v, *block_ops, **block_kw)
+        ops, kws = self.kernel_operands(x.dtype), self.kernel_kwargs()
+        k, v = fused_ln_sr_kv(x, hw, *ops[0], **kws[0])
+        if self.v2:
+            x = fused_block_attention(x, k, v, *ops[1], **kws[1])
+            return fused_dwconv_mlp(x, hw, *ops[2], **kws[2])
+        return fused_block(x, k, v, *ops[1], **kws[1])
 
     def train_forward(self, x, hw, generator=None, *, attention=fused_attention,
                       ln_mlp=fused_ln_mlp):
         """The differentiable path on the fp32 master parameters. ``attention``
         and ``ln_mlp`` are the kernels' wrappers; a check passes functions of
         the same signatures over their plain versions."""
+        if self.v2:
+            raise NotImplementedError(
+                "PVT-v2 training (or a gradient through a v2 block) is not ported yet: "
+                "ROADMAP Queue 1 item 14; v2 serves in eval mode under torch.no_grad()")
         a, m = self.attn, self.mlp
         b, n, d = x.shape
         heads = self.num_heads
@@ -233,8 +298,11 @@ class PVLT(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.variant != "v1" or cfg.linear_sr:
-            raise NotImplementedError(f"variant {cfg.variant!r} is not ported yet")
+        if cfg.variant not in ("v1", "v2") or cfg.linear_sr:
+            raise NotImplementedError(
+                f"variant {cfg.variant!r}{' with linear_sr' if cfg.linear_sr else ''} "
+                f"is not ported yet")
+        v2 = cfg.variant == "v2"
         self.cfg = cfg
         self.compute_dtype = getattr(torch, cfg.compute_dtype)
         eps = cfg.other_ln_eps
@@ -249,8 +317,10 @@ class PVLT(nn.Module):
             prev = cfg.embed_dims[i - 1] if i else None
             native_g = cfg.img_size // (cfg.patch_size * 2 ** i)
             slots = native_g * native_g + (1 if i == cfg.num_stages - 1 else 0)
-            setattr(self, f"patch_embed{i + 1}", PatchEmbed(
-                cfg.patch_size if i == 0 else 2, prev or cfg.in_chans, dim, eps))
+            stride = cfg.patch_size if i == 0 else 2
+            setattr(self, f"patch_embed{i + 1}", OverlapPatchEmbed(
+                7 if i == 0 else 3, stride, prev or cfg.in_chans, dim, eps) if v2
+                else PatchEmbed(stride, prev or cfg.in_chans, dim, eps))
             setattr(self, f"text_embed{i + 1}", nn.Sequential(
                 nn.Linear(prev or hidden, dim), nn.LayerNorm(dim, eps=eps)))
             setattr(self, f"pos_embed{i + 1}", nn.Parameter(torch.zeros(1, slots, dim)))
@@ -258,7 +328,7 @@ class PVLT(nn.Module):
                     nn.Parameter(torch.zeros(1, cfg.num_text_tokens, dim)))
             setattr(self, f"block{i + 1}", nn.ModuleList(
                 Block(dim, cfg.num_heads[i], cfg.mlp_ratios[i], cfg.sr_ratios[i],
-                      cfg.qkv_bias, cfg.block_ln_eps, eps, next(dpr))
+                      cfg.qkv_bias, cfg.block_ln_eps, eps, next(dpr), v2)
                 for _ in range(cfg.depths[i])))
         adapter = lambda: nn.Sequential(nn.Linear(cfg.embed_dims[-1], hidden),
                                         nn.LayerNorm(hidden, eps=eps))
@@ -343,15 +413,16 @@ def init_weights(model: PVLT) -> PVLT:
     """The JAX package's initialisers (its flax modules' ``kernel_init``),
     in place, from torch's global generator: Linear and conv weights and
     the positional embeddings truncated normal 0.02; in the T2I decoder the
-    ConvBN convolutions He normal over fan-out and the score conv LeCun
-    normal; embedding tables normal 0.02; every bias 0. LayerNorm and
-    BatchNorm keep torch's (scale 1, shift 0, running variance 1)."""
+    ConvBN convolutions He normal over fan-out; the T2I score conv and v2's
+    depthwise convs (flax's default, no ``kernel_init`` given) LeCun normal;
+    embedding tables normal 0.02; every bias 0. LayerNorm and BatchNorm keep
+    torch's (scale 1, shift 0, running variance 1)."""
     with torch.no_grad():
         for name, m in model.named_modules():
             if isinstance(m, nn.Embedding):
                 nn.init.normal_(m.weight, std=0.02)
             elif isinstance(m, (nn.Linear, nn.Conv2d)):
-                if name == "t2i_head.score.0":
+                if name == "t2i_head.score.0" or name.endswith(".dwconv.dwconv"):
                     # lecun_normal: variance 1/fan_in, truncated, std-corrected
                     fan_in = m.weight[0].numel()
                     _trunc_normal(m.weight, fan_in ** -0.5 / 0.87962566103423978)

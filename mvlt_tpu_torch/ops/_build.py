@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 ``load_library()`` compiles every ``mvlt_tpu_torch/csrc/*.cu`` with ``nvcc``
-for ``sm_90a`` into one shared library with a plain C interface, the first
-time a kernel is launched in the process, and loads it with ``ctypes``. The
+for ``sm_90a`` (one ``nvcc`` per source, all started together) and links the
+objects into one shared library with a plain C interface, the first time a
+kernel is launched in the process, and loads it with ``ctypes``. The
 library goes to ``build/mvlt_tpu_torch/`` at the root of the checkout, named by
 a hash of the sources and the flags, so a stale build is never loaded. Nothing
 here runs at import time; a missing ``nvcc`` or a failed build raises.
@@ -24,8 +25,8 @@ import torch
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "mvlt_tpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,6 +38,8 @@ _STRIDES = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
     "mvlt_sr_kv": [_P] * 11 + [_I] * 7 + [_F, _F, _P],
     "mvlt_block_fused": [_P] * 16 + [_I] * 6 + [_F, _F, _F, _P],
+    "mvlt_block_attention": [_P] * 10 + [_I] * 5 + [_F, _F, _P],
+    "mvlt_dwconv_mlp": [_P] * 10 + [_I] * 6 + [_F, _P],
     "mvlt_attention_fwd": [_P] * 4 + [_STRIDES] + [_I] * 5 + [_F, _P],
     "mvlt_attention_bwd": [_P] * 7 + [_STRIDES] + [_I] * 5 + [_F, _P],
     "mvlt_ln_mlp_fwd": [_P] * 9 + [_L] + [_I] * 3 + [_F, _P],
@@ -83,23 +86,41 @@ def library_path() -> pathlib.Path:
 
 def build() -> tuple[pathlib.Path, str, float]:
     """Compile the library unless it exists; returns (path, compiler log,
-    seconds spent compiling, 0.0 when it was already built)."""
+    seconds spent compiling and linking, 0.0 when it was already built).
+    The sources compile in parallel, one nvcc process each."""
     path = library_path()
     if path.exists():
         return path, "", 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+    nvcc, tag = _nvcc(), f"{path.stem}.{os.getpid()}"
     start = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    seconds = time.perf_counter() - start
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        jobs.append((src, obj, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for src, obj, proc in jobs:
+        logs.append(f"== {src.name}\n{proc.communicate()[0]}")
+        if proc.returncode != 0:
+            failed.append(src.name)
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    try:
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n" + "".join(logs))
+        link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                               *[str(obj) for _, obj, _ in jobs]],
+                              capture_output=True, text=True, check=False)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stdout}{link.stderr}")
+        os.replace(tmp, path)
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-    os.replace(tmp, path)
-    return path, log, seconds
+        for _, obj, _ in jobs:
+            obj.unlink(missing_ok=True)
+    return path, "".join(logs), time.perf_counter() - start
 
 
 @functools.cache
@@ -135,6 +156,20 @@ def check_stream(name: str, x) -> None:
         raise ValueError(f"{name}: width {x.shape[-1]} is not a multiple of 16")
     if x.data_ptr() % 16:
         raise ValueError(f"{name}: the stream must start on a 16-byte boundary")
+
+
+def check_kv(name: str, k, v, batch: int, heads: int, hd: int, device) -> None:
+    """K and V as the attention kernels read them: contiguous, 16-byte
+    aligned bf16 [batch, heads, M, hd] on the stream's device, of one shape."""
+    for t, what in ((k, "k"), (v, "v")):
+        if (t.device != device or t.dtype != torch.bfloat16 or not t.is_contiguous()
+                or t.dim() != 4 or t.shape[:2] != (batch, heads) or t.shape[3] != hd
+                or t.data_ptr() % 16):
+            raise ValueError(f"{name}: {what} must be contiguous, 16-byte aligned bf16 "
+                             f"[{batch}, {heads}, M, {hd}] on {device}, got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    if k.shape != v.shape:
+        raise ValueError(f"{name}: k {tuple(k.shape)} and v {tuple(v.shape)} differ")
 
 
 def kernel_weight(name: str, t, shape: tuple, device):

@@ -12,7 +12,8 @@ from __future__ import annotations
 import torch
 
 from mvlt_tpu_torch.ops import _build
-from mvlt_tpu_torch.ops.kernel_math import gelu, layer_norm_fp32, linear, softmax_av
+from mvlt_tpu_torch.ops.block_attention import attention_residual
+from mvlt_tpu_torch.ops.kernel_math import gelu, layer_norm_fp32, linear
 
 
 def block_reference(x, k, v, ln1_weight, ln1_bias, wq, bq, wp, bp,
@@ -21,13 +22,8 @@ def block_reference(x, k, v, ln1_weight, ln1_bias, wq, bq, wp, bp,
     """Plain PyTorch block in x.dtype with an fp32 residual, LN statistics
     and softmax. x [B, N, D]; k, v [B, heads, M, hd]; Linear weights in
     torch layout [out, in]."""
-    b, n, d = x.shape
-    hd = d // heads
-    normed = layer_norm_fp32(x, ln1_weight, ln1_bias, eps1)
-    q = linear(normed, wq, bq).reshape(b, n, heads, hd).transpose(1, 2)
-    attn = softmax_av(q, k.to(x.dtype), v.to(x.dtype), scale=hd ** -0.5)
-    attn = attn.transpose(1, 2).reshape(b, n, d)
-    res = x.float() + linear(attn, wp, bp).float()
+    res = attention_residual(x, k, v, ln1_weight, ln1_bias, wq, bq, wp, bp,
+                             heads=heads, eps=eps1)
     normed2 = layer_norm_fp32(res, ln2_weight, ln2_bias, eps2).to(x.dtype)
     y = linear(gelu(linear(normed2, w1, b1)), w2, b2)
     return (res + y.float()).to(x.dtype)
@@ -50,15 +46,7 @@ def fused_block(x, k, v, ln1_weight, ln1_bias, wq, bq, wp, bp,
     if d % heads or (d // heads) % 16:
         raise ValueError(f"{name}: D={d} with {heads} heads gives no 16-multiple head dim")
     hd = d // heads
-    for t, what in ((k, "k"), (v, "v")):
-        if (t.device != x.device or t.dtype != torch.bfloat16 or not t.is_contiguous()
-                or t.dim() != 4 or t.shape[:2] != (b, heads) or t.shape[3] != hd
-                or t.data_ptr() % 16):
-            raise ValueError(f"{name}: {what} must be contiguous, 16-byte aligned bf16 "
-                             f"[{b}, {heads}, M, {hd}] on {x.device}, got "
-                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
-    if k.shape != v.shape:
-        raise ValueError(f"{name}: k {tuple(k.shape)} and v {tuple(v.shape)} differ")
+    _build.check_kv(name, k, v, b, heads, hd, x.device)
     m = k.shape[2]
     hidden = w1.shape[0]
     if hidden % 16:

@@ -10,8 +10,9 @@ PyTorch for CUDA:
 not need.) chip_smoke.py checks the kernels at the pvlt_tiny stage shapes;
 these tests take other widths, head dims, grids and lengths, the row tiles
 kernel B falls back to, the training kernels at head dim 32 with M = 600,
-rows off the tile and D = 320 at ratio 4, and the ways a wrapper refuses
-its input. Bound:
+rows off the tile and D = 320 at ratio 4, the v2 kernels on grids of odd
+sizes, one wider than 128, no text rows and a hidden width off the chunk,
+and the ways a wrapper refuses its input. Bound:
 max|kernel - plain| / max|plain| <= 2e-2 in bf16, as in chip_smoke.py.
 """
 
@@ -19,7 +20,9 @@ import pytest
 import torch
 
 from mvlt_tpu_torch.models.pvlt import Block
+from mvlt_tpu_torch.ops.block_attention import block_attention_reference, fused_block_attention
 from mvlt_tpu_torch.ops.block_fused import block_reference, fused_block
+from mvlt_tpu_torch.ops.dwconv_mlp import dwconv_mlp_reference, fused_dwconv_mlp
 from mvlt_tpu_torch.ops.fused_mlp import (fused_ln_mlp, ln_mlp_bwd, ln_mlp_bwd_reference,
                                           ln_mlp_fwd, ln_mlp_reference)
 from mvlt_tpu_torch.ops.pallas_attention import (attention_bwd, attention_bwd_reference,
@@ -41,10 +44,10 @@ def dev():
     return torch.device("cuda")
 
 
-def _block(dim, heads, sr, mlp_ratio, dev, seed):
+def _block(dim, heads, sr, mlp_ratio, dev, seed, v2=False):
     """A port Block in eval mode with every parameter perturbed."""
     gen = torch.Generator().manual_seed(seed)
-    blk = Block(dim, heads, mlp_ratio, sr, True).eval()
+    blk = Block(dim, heads, mlp_ratio, sr, True, v2=v2).eval()
     with torch.no_grad():
         for p in blk.parameters():
             p.add_(0.05 * torch.randn(p.shape, generator=gen))
@@ -282,3 +285,87 @@ def test_mlm_ce_wrappers_refuse_what_the_kernels_do_not_take(dev):
         mlm_ce_fwd(x, table.cpu(), bias, labels)
     with pytest.raises(ValueError, match="lse and g"):
         mlm_ce_bwd(x, table, bias, labels, torch.zeros(10, device=dev), torch.zeros(9, device=dev))
+
+
+@pytest.mark.parametrize("hw,dim,heads,sr,mlp_ratio,t,batch", [
+    ((8, 8), 32, 2, 2, 4.0, 5, 3),       # head dim 16, M = 21
+    ((7, 9), 48, 3, 1, 4.0, 5, 2),       # odd grid sides, sr == 1, hidden 192 in one chunk
+    ((2, 130), 32, 2, 2, 4.0, 3, 2),     # a grid row wider than kernel D's 128-row tile
+    ((3, 40), 64, 4, 1, 4.0, 0, 2),      # no text rows
+    ((4, 4), 512, 8, 2, 2.03125, 9, 2),  # hidden 1040: the last chunk 16 wide
+])
+def test_v2_kernels_match_plain(dev, hw, dim, heads, sr, mlp_ratio, t, batch):
+    """Kernels C and D against their plain versions, and the v2 Block on the
+    card: kernels A, C and D once each, on its cached operands."""
+    blk = _block(dim, heads, sr, mlp_ratio, dev, seed=dim + t, v2=True)
+    with torch.no_grad():
+        p = blk.mlp.dwconv.dwconv.weight
+        p.copy_(torch.randn(p.shape, generator=torch.Generator().manual_seed(1)) / 3)
+    gen = torch.Generator().manual_seed(t)
+    x = torch.randn(batch, hw[0] * hw[1] + t, dim, generator=gen).to(dev, torch.bfloat16)
+    (kv_args, attn_args, mlp_args), (kw_kv, kw_c, kw_d) = blk.kernel_params(), blk.kernel_kwargs()
+    with torch.no_grad():
+        k, v = sr_kv_reference(x, hw, *kv_args, **kw_kv)
+        launches = (fused_block_attention.launches, fused_dwconv_mlp.launches)
+        attn = fused_block_attention(x, k, v, *attn_args, **kw_c)
+        mlp = fused_dwconv_mlp(x, hw, *mlp_args, **kw_d)
+        torch.cuda.synchronize()
+        assert (fused_block_attention.launches, fused_dwconv_mlp.launches) == (launches[0] + 1,
+                                                                               launches[1] + 1)
+        assert _rel(attn, block_attention_reference(x, k, v, *attn_args, **kw_c)) <= TOL
+        assert _rel(mlp, dwconv_mlp_reference(x, hw, *mlp_args, **kw_d)) <= TOL
+        launches = (fused_ln_sr_kv.launches, fused_block.launches, fused_block_attention.launches,
+                    fused_dwconv_mlp.launches)
+        out = blk(x, hw)
+        want = dwconv_mlp_reference(block_attention_reference(x, k, v, *attn_args, **kw_c), hw,
+                                    *mlp_args, **kw_d)
+        torch.cuda.synchronize()
+    assert (fused_ln_sr_kv.launches, fused_block.launches, fused_block_attention.launches,
+            fused_dwconv_mlp.launches) == (launches[0] + 1, launches[1], launches[2] + 1,
+                                           launches[3] + 1)
+    assert torch.isfinite(out.float()).all() and _rel(out, want) <= TOL
+
+
+def test_v2_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    hw, dim, heads = (4, 4), 64, 2
+    blk = _block(dim, heads, 2, 4.0, dev, seed=0, v2=True)
+    (kv_args, attn_args, mlp_args), (kw_kv, kw_c, kw_d) = blk.kernel_params(), blk.kernel_kwargs()
+    x = torch.randn(2, 16 + 4, dim, device=dev).to(torch.bfloat16)
+    with torch.no_grad():
+        k, v = fused_ln_sr_kv(x, hw, *kv_args, **kw_kv)
+        with pytest.raises(ValueError, match="bfloat16"):
+            fused_block_attention(x.float(), k, v, *attn_args, **kw_c)
+        with pytest.raises(ValueError, match="contiguous"):
+            fused_block_attention(x.transpose(0, 1).contiguous().transpose(0, 1), k, v,
+                                  *attn_args, **kw_c)
+        with pytest.raises(ValueError, match="k must be"):
+            fused_block_attention(x, k[:, :1].contiguous(), v, *attn_args, **kw_c)
+        with pytest.raises(ValueError, match="differ"):
+            fused_block_attention(x, k, v[:, :, :-1].contiguous(), *attn_args, **kw_c)
+        with pytest.raises(ValueError, match="head dim"):
+            fused_block_attention(x, k, v, *attn_args, heads=8, eps=1e-6)
+        with pytest.raises(ValueError, match="bfloat16"):
+            fused_dwconv_mlp(x.float(), hw, *mlp_args, **kw_d)
+        with pytest.raises(ValueError, match="contiguous"):
+            fused_dwconv_mlp(x.transpose(0, 1).contiguous().transpose(0, 1), hw, *mlp_args,
+                             **kw_d)
+        with pytest.raises(ValueError, match="unsupported shape"):
+            fused_dwconv_mlp(x, (5, 5), *mlp_args, **kw_d)        # N < h*w
+        wide = torch.zeros(1, 20, 528, device=dev, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="D <= 512"):
+            fused_dwconv_mlp(wide, hw, *[torch.zeros(528, device=dev)] * 2,
+                             torch.zeros(16, 528, device=dev), None,
+                             torch.zeros(16, 1, 3, 3, device=dev), None,
+                             torch.zeros(528, 16, device=dev), None, eps=1e-6)
+        g, b = mlp_args[:2]
+        with pytest.raises(ValueError, match="hidden a multiple of 16"):
+            fused_dwconv_mlp(x, hw, g, b, torch.zeros(40, dim, device=dev), None,
+                             torch.zeros(40, 1, 3, 3, device=dev), None,
+                             torch.zeros(dim, 40, device=dev), None, eps=1e-6)
+        with pytest.raises(ValueError, match="weight shape"):
+            fused_dwconv_mlp(x, hw, *mlp_args[:4], mlp_args[4][:, :, :2], *mlp_args[5:], **kw_d)
+    # a gradient wanted, or training mode: v2 serves only
+    with pytest.raises(NotImplementedError):
+        blk(x, hw)
+    with pytest.raises(NotImplementedError):
+        blk.train()(x, hw)

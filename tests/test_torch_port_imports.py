@@ -37,6 +37,11 @@ bundle = {"images_101": np.zeros((5, 32, 32, 3), np.uint8),
           "ori_input_ids_101": np.zeros((5, 16), np.int32)}
 res = evaluate_retrieval(make_itm_scorer(model), [bundle], is_main=False)
 assert res["num_queries"] == 1, res
+v2 = create_model(ModelConfig(**micro, name="pvlt_v2_tiny", loss_type=cfg.loss_type),
+                  device="cpu").eval()
+assert v2.cfg.variant == "v2"
+res = evaluate_retrieval(make_itm_scorer(v2), [bundle], is_main=False)
+assert res["num_queries"] == 1, res
 cfg = ModelConfig(**micro)
 model = create_model(cfg, device="cpu")
 state = create_train_state(model, OptimConfig(warmup_epochs=0), 2, 1)
@@ -56,9 +61,9 @@ print("OK")
 
 
 def test_port_imports_and_serves_without_jax():
-    """Serving, one training step and one epoch through the CLI (training,
-    VL eval, checkpoint) of the port with jax, flax and the JAX package
-    blocked."""
+    """Serving (v1 and v2), one training step and one epoch through the CLI
+    (training, VL eval, checkpoint) of the port with jax, flax and the JAX
+    package blocked."""
     proc = subprocess.run([sys.executable, "-c", _GUARDED], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
@@ -68,7 +73,7 @@ def test_port_imports_and_serves_without_jax():
 def test_no_jax_import_in_port_sources():
     pattern = re.compile(
         r"^\s*(import\s+(jax|flax|mvlt_tpu)\b(?!_)|from\s+(jax|flax|mvlt_tpu)\b(?!_))", re.M)
-    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "chip_faults.py"]
     assert len(files) > 20
     offenders = [str(f.relative_to(REPO)) for f in files if pattern.search(f.read_text())]
     assert not offenders, offenders
