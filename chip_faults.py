@@ -7,16 +7,22 @@ chip_smoke.py's kernel checks catch each one.
 run from the root of a checkout on a machine with a CUDA card and nvcc, as
 chip_smoke.py is. For each fault it copies ``mvlt_tpu_torch/`` and
 ``chip_smoke.py`` into ``build/planted_faults/<fault>/``, rewrites one line
-of a kernel source there, runs chip_smoke's ``v2_kernels`` phase in that
-copy (its kernels built from the changed source), and then, with the bound
-lifted, prints every check's error at the B = 4 shapes. The copy is removed
-afterwards; the sources of the checkout are never changed. It exits non-zero
-if a fault passes the phase.
+of a kernel source there, runs the chip_smoke phase that checks that kernel
+(``v2_kernels`` or ``swin_kernels``) in that copy (its kernels built from the
+changed source), and then, with the bound lifted, prints every check's error
+at the B = 4 shapes. The copy is removed afterwards; the sources of the
+checkout are never changed. It exits non-zero if a fault passes the phase.
 
-Faults (kernel D, csrc/dwconv_mlp.cu):
-  halo_wrap     a token's left and right neighbours taken from the flat
-                row index, so they wrap into the previous or next grid row;
-  no_conv_bias  the depthwise conv's bias dropped.
+Faults, kernel D (csrc/dwconv_mlp.cu), phase v2_kernels:
+  halo_wrap        a token's left and right neighbours taken from the flat
+                   row index, so they wrap into the previous or next grid row;
+  no_conv_bias     the depthwise conv's bias dropped.
+Kernel E (csrc/swin_block.cu) and kernel F (csrc/swin_attention.cu), phase
+swin_kernels:
+  no_region_mask   E ignores the shifted-window region mask;
+  rel_bias_swapped E indexes the relative-position bias with dy and dx
+                   swapped;
+  table_off_window F reads the additive table of the next window.
 """
 
 from __future__ import annotations
@@ -30,36 +36,58 @@ import sys
 ROOT = pathlib.Path(__file__).resolve().parent
 FAULTS = {
     "halo_wrap": (
-        "mvlt_tpu_torch/csrc/dwconv_mlp.cu",
+        "v2_kernels", "mvlt_tpu_torch/csrc/dwconv_mlp.cu",
         "              if (xx < 0 || xx >= w) continue;",
         "              if ((yy - g_lo) * w + xx < 0 ||\n"
         "                  (yy - g_lo) * w + xx >= (min(a.h, y0 + a.band + 1) - g_lo) * w)\n"
         "                continue;"),
     "no_conv_bias": (
-        "mvlt_tpu_torch/csrc/dwconv_mlp.cu",
+        "v2_kernels", "mvlt_tpu_torch/csrc/dwconv_mlp.cu",
         "          z = a.bdw[c0 + c];",
         "          z = 0.0f;"),
+    "no_region_mask": (
+        "swin_kernels", "mvlt_tpu_torch/csrc/swin_block.cu",
+        "          if (region(wy * ws + iq, a.h) != region(wy * ws + ik, a.h) ||\n"
+        "              region(wx * ws + jq, a.w) != region(wx * ws + jk, a.w))\n"
+        "            return -INFINITY;\n",
+        ""),
+    "rel_bias_swapped": (
+        "swin_kernels", "mvlt_tpu_torch/csrc/swin_block.cu",
+        "(iq - ik + ws - 1) * (2 * ws - 1) + (jq - jk + ws - 1)",
+        "(jq - jk + ws - 1) * (2 * ws - 1) + (iq - ik + ws - 1)"),
+    "table_off_window": (
+        "swin_kernels", "mvlt_tpu_torch/csrc/swin_attention.cu",
+        "a.table + ((size_t)win * a.heads + head)",
+        "a.table + ((size_t)((win + 1) % a.nw) * a.heads + head)"),
+}
+# per phase: the checks at B = 4 that print each error with the bound lifted
+MARGINS = {
+    "v2_kernels": """
+gen = torch.Generator().manual_seed(c.SEED + 5)
+shapes = [(f"v2_stage{i + 1}", (h, w, d, nh, sr, hid, c.TEXT))
+          for i, (h, w, d, nh, sr, hid) in enumerate(c.STAGES)]
+for label, shape in shapes + [("v2_ragged", c.V2_RAGGED)]:
+    c.check_v2_kernels(stats, gen, label, shape, c.SMOKE_BATCH)
+""",
+    "swin_kernels": """
+c.check_swin_kernels(stats, torch.Generator().manual_seed(c.SEED + 13), c.SMOKE_BATCH)
+""",
 }
 RUN = """
 import math, torch, chip_smoke as c
 stats = c.new_stats()
 c.phase_build()
 try:
-    c.phase_v2_kernels(stats)
+    c.phase_{phase}(stats)
     print("FAULT_PASSED")
 except AssertionError as e:
     print("FAULT_CAUGHT", e)
 c.KERNEL_TOL = math.inf
-gen = torch.Generator().manual_seed(c.SEED + 5)
-shapes = [(f"v2_stage{i + 1}", (h, w, d, nh, sr, hid, c.TEXT))
-          for i, (h, w, d, nh, sr, hid) in enumerate(c.STAGES)]
-for label, shape in shapes + [("v2_ragged", c.V2_RAGGED)]:
-    c.check_v2_kernels(stats, gen, label, shape, c.SMOKE_BATCH)
 """
 
 
-def run_fault(name: str, source: str, good: str, bad: str) -> bool:
-    """True if chip_smoke's v2_kernels phase fails on the planted fault."""
+def run_fault(name: str, phase: str, source: str, good: str, bad: str) -> bool:
+    """True if chip_smoke's ``phase`` fails on the planted fault."""
     dst = ROOT / "build" / "planted_faults" / name
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(ROOT / "mvlt_tpu_torch", dst / "mvlt_tpu_torch",
@@ -71,13 +99,13 @@ def run_fault(name: str, source: str, good: str, bad: str) -> bool:
         raise RuntimeError(f"{name}: the line to change is not in {source} exactly once")
     path.write_text(text.replace(good, bad))
     try:
-        proc = subprocess.run([sys.executable, "-c", RUN], cwd=dst, capture_output=True,
-                              text=True, check=False)
+        proc = subprocess.run([sys.executable, "-c", RUN.format(phase=phase) + MARGINS[phase]],
+                              cwd=dst, capture_output=True, text=True, check=False)
     finally:
         shutil.rmtree(dst, ignore_errors=True)
     caught = "FAULT_CAUGHT" in proc.stdout
     checks = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
-    print(json.dumps({"fault": name, "source": source, "caught": caught,
+    print(json.dumps({"fault": name, "phase": phase, "source": source, "caught": caught,
                       "message": next((ln for ln in proc.stdout.splitlines()
                                        if ln.startswith("FAULT_")), None),
                       "rel_err_by_check": [

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths once on one NVIDIA GPU: retrieval serving
-(pvlt_tiny and pvlt_v2_tiny), the pre-training step, and pre-training
-through the command line.
+(pvlt_tiny, pvlt_v2_tiny and pvlt_swin_tiny), the pre-training step, and
+pre-training through the command line.
 
     python3 chip_smoke.py
 
@@ -39,6 +39,18 @@ JSON line each; a failed phase raises and the script exits non-zero:
      (K/V, attention half, block output) within 2e-2 of the plain versions;
      ITM logits of two pairs within 3e-2 of the fp32 CPU model; pairs/s,
      peak memory and a profile, as phases 5-6 for pvlt_tiny;
+  6c. Swin serving: kernels E (whole Swin block + pooled LN1 rows) and F
+     (windowed joint attention) against their plain versions in bf16 (every
+     output within 2e-2 as in phase 3), unshifted and shifted, E at the four
+     pvlt_swin_tiny stage shapes at 256 and a ragged 16x24 grid, F at the
+     three window-path stage shapes at 224 and a ragged 10x6 grid, at B = 4,
+     then the stage shapes at B = 101 with times, bounds and, for F,
+     F.scaled_dot_product_attention's; pvlt_swin_tiny (itm only, bf16,
+     seeded weights) at 224 scores three bundles (kernel E 2, F 6 and the
+     LN-MLP forward 6 launches per forward, no other kernel), every block
+     within 2e-2 of the plain versions, ITM logits within 3e-2 of the fp32
+     CPU model, pairs/s and a profile; then the same at 256 (E 8 launches
+     per forward and nothing else);
   7. training kernels: attention forward/backward and LN-MLP
      forward/backward against their plain versions in bf16 (every output,
      bound 2e-2 as in phase 3) at the four stage shapes at B = 4 and
@@ -106,7 +118,9 @@ from mvlt_tpu_torch.config import DataConfig, LossType, ModelConfig, OptimConfig
 from mvlt_tpu_torch.data.fashion_gen import SyntheticFashionGen, batch_to_device, collate
 from mvlt_tpu_torch.data.tokenizer import WordPieceTokenizer
 from mvlt_tpu_torch.eval.retrieval import evaluate_retrieval, make_itm_scorer, uint8_to_unit
-from mvlt_tpu_torch.models.pvlt import Block, create_model, kernel_operand
+from mvlt_tpu_torch.models.pvlt import Block, SwinBlock, create_model, kernel_operand
+from mvlt_tpu_torch.models.swin import (add_table, heads_of, relative_position_index,
+                                        window_masks, window_partition)
 from mvlt_tpu_torch.ops import _build
 from mvlt_tpu_torch.ops.block_attention import block_attention_reference, fused_block_attention
 from mvlt_tpu_torch.ops.block_fused import block_reference, fused_block
@@ -118,6 +132,8 @@ from mvlt_tpu_torch.ops.mlm_ce import (mlm_ce_bwd, mlm_ce_fwd, mlm_nll_bwd_refer
 from mvlt_tpu_torch.ops.pallas_attention import (attention_bwd, attention_bwd_reference,
                                                  attention_fwd, attention_reference)
 from mvlt_tpu_torch.ops.sr_kv import fused_ln_sr_kv, sr_kv_reference
+from mvlt_tpu_torch.ops.swin_attention import fused_swin_attention, swin_attention_reference
+from mvlt_tpu_torch.ops.swin_band import fused_swin_block, swin_block_reference
 from mvlt_tpu_torch.train.engine import train_one_epoch
 from mvlt_tpu_torch.train.state import create_train_state
 from mvlt_tpu_torch.train.step import make_train_step
@@ -185,14 +201,21 @@ KERNELS = [
      "replaces": "mvlt_tpu/ops/block_attention.py:754 (+ mvlt_tpu/ops/block_packed.py:269)"},
     {"name": "dwconv_mlp", "route": "cuda", "source": "mvlt_tpu_torch/csrc/dwconv_mlp.cu",
      "replaces": "mvlt_tpu/ops/dwconv_mlp.py:98 (+ mvlt_tpu/ops/dwconv_mlp.py:263)"},
+    {"name": "swin_block", "route": "cuda", "source": "mvlt_tpu_torch/csrc/swin_block.cu",
+     "replaces": "mvlt_tpu/ops/swin_band.py:269"},
+    {"name": "swin_attention", "route": "cuda",
+     "source": "mvlt_tpu_torch/csrc/swin_attention.cu",
+     "replaces": "mvlt_tpu/ops/swin_attention.py:142"},
 ]
 SERVING_WRAPPERS = {"sr_kv": fused_ln_sr_kv, "block_fused": fused_block}
 V2_SERVING_WRAPPERS = {"sr_kv": fused_ln_sr_kv, "block_attention": fused_block_attention,
                        "dwconv_mlp": fused_dwconv_mlp}
+SWIN_WRAPPERS = {"swin_block": fused_swin_block, "swin_attention": fused_swin_attention}
 TRAINING_WRAPPERS = {"attention_fwd": attention_fwd, "attention_bwd": attention_bwd,
                      "ln_mlp_fwd": ln_mlp_fwd, "ln_mlp_bwd": ln_mlp_bwd}
 MLM_WRAPPERS = {"mlm_ce_fwd": mlm_ce_fwd, "mlm_ce_bwd": mlm_ce_bwd}   # once per step
-WRAPPERS = {**SERVING_WRAPPERS, **V2_SERVING_WRAPPERS, **TRAINING_WRAPPERS, **MLM_WRAPPERS}
+WRAPPERS = {**SERVING_WRAPPERS, **V2_SERVING_WRAPPERS, **SWIN_WRAPPERS, **TRAINING_WRAPPERS,
+            **MLM_WRAPPERS}
 
 
 def new_stats() -> dict:
@@ -464,18 +487,20 @@ def synthetic_bundles(n: int, seed: int, size: int, text_len: int) -> list:
 
 
 def phase_slice(stats: dict, model_name: str = "pvlt_tiny", path: dict = SERVING_WRAPPERS,
-                phase: str = "slice"):
-    """``model_name`` scores three bundles through the serving entry points,
-    launching each kernel of ``path`` once per block and no other kernel;
-    returns the model, the bundles and the weights."""
+                phase: str = "slice", size: int = 256, per_forward: dict | None = None):
+    """``model_name``, built for and run at ``size``, scores three bundles
+    through the serving entry points, launching each kernel of ``path``
+    ``per_forward[name]`` times a forward (default once per block) and no
+    other kernel; ``stats`` keeps this run's launches. Returns the model,
+    the bundles and the weights."""
     cfg = ModelConfig(name=model_name, compute_dtype="bfloat16",
                       loss_type=LossType(itm=True, mlm=False, t2i=False, cls=False))
-    model = create_model(cfg, device="cuda").eval()
+    model = create_model(cfg, device="cuda", input_size=size).eval()
     sd = seeded_state_dict(model, SEED)
     model.load_state_dict(sd, strict=True)
-    size = 256
     bundles = synthetic_bundles(3, SEED + 1, size, cfg.num_text_tokens)
     blocks = sum(model.cfg.depths)
+    per_forward = per_forward or dict.fromkeys(path, blocks)
 
     scorer = make_itm_scorer(model)
     scores = []
@@ -499,21 +524,21 @@ def phase_slice(stats: dict, model_name: str = "pvlt_tiny", path: dict = SERVING
     emit(phase, model=cfg.name, compute_dtype=cfg.compute_dtype, input=size,
          text_tokens=cfg.num_text_tokens, bundles=len(bundles), forwards=forwards,
          pairs=int(s.numel()), seconds_host_inclusive=seconds, results=results,
-         score_min=float(s.min()), score_max=float(s.max()),
-         launches=launches, launches_expected=blocks * forwards,
+         score_min=float(s.min()), score_max=float(s.max()), launches=launches,
+         launches_expected={name: n * forwards for name, n in per_forward.items()},
          finite=finite, in_unit_interval=in_range)
     if results["num_queries"] != len(bundles) or s.numel() != BATCH * len(bundles):
         raise AssertionError(f"scored {s.numel()} pairs in {results['num_queries']} queries")
     if not (finite and in_range):
         raise AssertionError("ITM scores not all finite and inside (0, 1)")
-    if any(launches[name] for name in WRAPPERS if name not in path):
+    if any(launches[name] for name in WRAPPERS if name not in per_forward):
         raise AssertionError(f"{cfg.name} serving launched a kernel of another path: {launches}")
-    for name in path:
+    for name, n in per_forward.items():
         count = launches[name]
         stats[name]["launches"] = count
-        if count != blocks * forwards:
+        if count != n * forwards:
             raise AssertionError(f"{name} launched {count} times in {forwards} "
-                                 f"forwards, expected {blocks} per forward")
+                                 f"forwards, expected {n} per forward")
     return model, bundles, sd
 
 
@@ -562,7 +587,8 @@ def compare_cpu_fp32(model, bundle, sd, phase: str = "slice_vs_cpu_fp32") -> flo
     ids = torch.from_numpy(bundle["ori_input_ids_101"][:2]).long()
     logits = {}
     for dtype in ("float32", "bfloat16"):
-        cpu = create_model(dataclasses.replace(cfg, compute_dtype=dtype), device="cpu").eval()
+        cpu = create_model(dataclasses.replace(cfg, compute_dtype=dtype), device="cpu",
+                           input_size=model.input_size).eval()
         cpu.load_state_dict(sd, strict=True)
         with torch.no_grad():
             logits[dtype] = cpu(images, ids)["itm_logits"].float()
@@ -762,6 +788,270 @@ def check_v2_blocks(model, bundle) -> None:
     if not ok:
         raise AssertionError(f"a block of the v2 path disagrees with its plain "
                              f"version: rel errs {errs} (tol {KERNEL_TOL})")
+
+
+# ---- Swin serving ----------------------------------------------------------
+
+# pvlt_swin_tiny at 224x224, stages 2-4 (the window path, kernel F): per
+# stage (h, w, dim, heads); windows of 8 (stage 4: 7), head dim 64
+SWIN224_F_STAGES = [(28, 28, 128, 2), (14, 14, 320, 5), (7, 7, 512, 8)]
+# kernel E off the stage shapes: h != w, pool window 2, head dim 32, T = 7
+SWIN_E_RAGGED = (16, 24, 96, 3, 384, 7)
+# kernel F off them: a 10x6 grid padded to 12x8 (6 windows of 4x4), head dim 32
+SWIN_F_RAGGED = (10, 6, 96, 3, 4, 7)
+
+
+def swin_block_params(gen, d: int, heads: int, hidden: int, ws: int, device) -> tuple:
+    """stage_params' block weights in fused_swin_block's order, the kv weight
+    [2C, C] of gain 1.5, and the relative-position table at std 0.5: at the
+    init's 0.02 a transposed (dy, dx) index would move the output by less
+    than the bound."""
+    p = stage_params(gen, d, 1, hidden, device)
+    rel = (0.5 * torch.randn((2 * ws - 1) ** 2, heads, generator=gen)).to(device)
+    return (rel, p["ln1_weight"], p["ln1_bias"], p["wq"], p["bq"], p["kv_weight"],
+            p["kv_bias"], p["wp"], p["bp"], p["ln2_weight"], p["ln2_bias"], p["w1"], p["b1"],
+            p["w2"], p["b2"])
+
+
+def swin_e_bound(shape: tuple, batch: int) -> tuple[float, str]:
+    """Kernel E at one stage shape: q, K, V and out-projection products
+    (8.C^2 a row), logits and P.V (4.(ws^2 + T).C a row), fc1 and fc2
+    (4.C.hidden a row); bytes: the stream read and written, text K/V read,
+    the pooled rows written, the bf16 weights and the bias table read."""
+    h, w, d, nh, hid, t, ws, pool = shape
+    n = h * w
+    flops = 2 * batch * n * (4 * d * d + 2 * (ws * ws + t) * d + 2 * d * hid)
+    nbytes = (2 * (2 * batch * n * d + 2 * batch * t * d + batch * (n // pool ** 2) * d
+                   + 4 * d * d + 2 * d * hid) + 4 * (2 * ws - 1) ** 2 * nh)
+    return bound(flops, nbytes)
+
+
+def swin_f_bound(nw: int, nh: int, ws2: int, t: int, hd: int, batch: int) -> tuple[float, str]:
+    """Kernel F: q.K^T and P.V, 4.ws^2.(ws^2 + T).hd flops per (window,
+    head); q, K, V read and the output written once, the text K/V once per
+    sample, the fp32 table once."""
+    flops = 4 * batch * nw * nh * ws2 * (ws2 + t) * hd
+    nbytes = (2 * (4 * batch * nw * nh * ws2 * hd + 2 * batch * nh * t * hd)
+              + 4 * nw * nh * ws2 * (ws2 + t))
+    return bound(flops, nbytes)
+
+
+def check_swin_block_kernel(stats, gen, label, shape, shift, batch):
+    """Kernel E against its plain version on seeded inputs (the output and
+    the pooled rows); raises past KERNEL_TOL. Returns its arguments."""
+    h, w, d, nh, hid, t, ws, pool = shape
+    dev = torch.device("cuda")
+    x = torch.randn(batch, h * w, d, generator=gen).to(dev, torch.bfloat16)
+    kt, vt = (torch.randn(batch, t, d, generator=gen).to(dev, torch.bfloat16) for _ in range(2))
+    args = (x, kt, vt, *swin_block_params(gen, d, nh, hid, ws, dev))
+    kw = dict(hw=(h, w), heads=nh, window=ws, shift=ws // 2 if shift else 0, pool=pool,
+              eps1=1e-6, eps2=1e-6)
+    out, pooled = fused_swin_block(*args, **kw)
+    want_out, want_pooled = swin_block_reference(*args, **kw)
+    torch.cuda.synchronize()
+    errs = {"out": _rel_err(out, want_out), "pooled": _rel_err(pooled, want_pooled)}
+    worst = max(e[1] for e in errs.values())
+    ok = bool(worst <= KERNEL_TOL and np.isfinite(worst))
+    emit("kernel_check", kernel="swin_block", shape=label, batch=batch, hw=[h, w], dim=d,
+         heads=nh, hidden=hid, text=t, window=ws, shift=kw["shift"], pool=pool,
+         rel_err={k: e[1] for k, e in errs.items()}, tol=KERNEL_TOL, ok=ok)
+    if not ok:
+        raise AssertionError(f"swin_block disagrees with its plain version at {label}, "
+                             f"B = {batch}: {errs} (tol {KERNEL_TOL})")
+    stats["swin_block"]["max_abs_err"] = max(stats["swin_block"]["max_abs_err"],
+                                             max(e[0] for e in errs.values()))
+    return args, kw
+
+
+def swin_attention_inputs(gen, shape: tuple, shift: bool, batch: int) -> tuple:
+    """Kernel F's inputs as the window path makes them on a grid: q, K and V
+    rows of [B, h*w, C] cut into (padded, shifted) windows, text K/V, and the
+    grid's table from a relative-position table of std 0.5."""
+    h, w, d, nh, ws, t = shape
+    dev = torch.device("cuda")
+    s = ws // 2 if shift else 0
+    win = lambda: heads_of(window_partition(
+        torch.randn(batch, h * w, d, generator=gen).to(dev, torch.bfloat16), (h, w), ws, s),
+        nh).contiguous()
+    txt = lambda: torch.randn(batch, nh, t, d // nh, generator=gen).to(dev, torch.bfloat16)
+    rel = (0.5 * torch.randn((2 * ws - 1) ** 2, nh, generator=gen)).to(dev)
+    index = torch.from_numpy(relative_position_index(ws)).to(dev)
+    mask = torch.from_numpy(window_masks(h, w, ws, s)).to(dev)
+    return (win(), win(), win(), txt(), txt(), add_table(rel, index, mask, t)), (d // nh) ** -0.5
+
+
+def check_swin_attention_kernel(stats, gen, label, shape, shift, batch):
+    """Kernel F against its plain version; raises past KERNEL_TOL."""
+    args, scale = swin_attention_inputs(gen, shape, shift, batch)
+    got = fused_swin_attention(*args, scale=scale)
+    want = swin_attention_reference(*args, scale=scale)
+    torch.cuda.synchronize()
+    abs_err, rel = _rel_err(got, want)
+    ok = bool(rel <= KERNEL_TOL and np.isfinite(rel))
+    b, nw, nh, ws2, hd = args[0].shape
+    emit("kernel_check", kernel="swin_attention", shape=label, batch=batch, windows=nw,
+         heads=nh, ws2=ws2, text=args[3].shape[2], head_dim=hd, shift=shift,
+         max_abs_err=abs_err, rel_err=rel, tol=KERNEL_TOL, ok=ok)
+    if not ok:
+        raise AssertionError(f"swin_attention disagrees with its plain version at {label}, "
+                             f"B = {batch}: rel err {rel:.3e} > {KERNEL_TOL}")
+    stats["swin_attention"]["max_abs_err"] = max(stats["swin_attention"]["max_abs_err"],
+                                                 abs_err)
+    return args, scale
+
+
+def sdpa_window_ms(args: tuple, scale: float) -> float:
+    """F.scaled_dot_product_attention on [B.nW, heads, ws^2, hd] queries
+    against the window's K/V concatenated with the text K/V, the table as a
+    float attn_mask (a yardstick the port never calls)."""
+    q, k, v, kt, vt, table = args
+    b, nw, nh, ws2, hd = q.shape
+    cat = lambda win, txt: torch.cat([win, txt[:, None].expand(b, nw, *txt.shape[1:])],
+                                     dim=-2).reshape(b * nw, nh, -1, hd)
+    qq, kk, vv = q.reshape(b * nw, nh, ws2, hd), cat(k, kt), cat(v, vt)
+    mask = table[None].expand(b, *table.shape).reshape(b * nw, nh, ws2, -1).to(q.dtype)
+    return cuda_time_ms(lambda: F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask,
+                                                               scale=scale))
+
+
+def swin_kernel_shapes() -> tuple[list, list]:
+    """(kernel E's shapes, kernel F's shapes) as (label, shape) pairs, the
+    stage shapes first and a ragged one last: E at the four pvlt_swin_tiny
+    stages at 256 (h, w, dim, heads, hidden, T, window, pool); F at the three
+    window-path stages at 224 (grids 28 and 14 padded to 32 and 16, 7x7
+    windows at stage 4) as (h, w, dim, heads, window, T)."""
+    e_shapes = [(f"swin_stage{i + 1}", (h, w, d, nh, hid, TEXT, 8, max(1, h // 8)))
+                for i, (h, w, d, nh, _, hid) in enumerate(STAGES)]
+    h, w, d, nh, hid, t = SWIN_E_RAGGED
+    f_shapes = [(f"swin224_stage{i + 2}", (h_, w_, d_, nh_, min(8, h_), TEXT))
+                for i, (h_, w_, d_, nh_) in enumerate(SWIN224_F_STAGES)]
+    return (e_shapes + [("swin_ragged", (h, w, d, nh, hid, t, 8, h // 8))],
+            f_shapes + [("swin_window_ragged", SWIN_F_RAGGED)])
+
+
+def check_swin_kernels(stats: dict, gen, batch: int) -> None:
+    """Kernels E and F against their plain versions at every shape of
+    ``swin_kernel_shapes``, unshifted and shifted."""
+    e_shapes, f_shapes = swin_kernel_shapes()
+    for shift in (False, True):
+        for label, shape in e_shapes:
+            check_swin_block_kernel(stats, gen, label, shape, shift, batch)
+        for label, shape in f_shapes:
+            check_swin_attention_kernel(stats, gen, label, shape, shift, batch)
+
+
+def phase_swin_kernels(stats: dict) -> None:
+    """Kernels E and F against their plain versions at B = 4 at every shape
+    of ``swin_kernel_shapes``, unshifted and shifted; then the stage shapes
+    at B = 101, where each kernel is timed beside its plain version, its
+    bound and, for F, SDPA. Times summed over the unshifted stage shapes."""
+    gen = torch.Generator().manual_seed(SEED + 13)
+    check_swin_kernels(stats, gen, SMOKE_BATCH)
+    e_shapes, f_shapes = (shapes[:-1] for shapes in swin_kernel_shapes())
+    for shift in (False, True):
+        for label, shape in e_shapes:
+            args, kw = check_swin_block_kernel(stats, gen, label, shape, shift, BATCH)
+            ops = tuple(kernel_operand(t, torch.bfloat16) if i > 3 else t
+                        for i, t in enumerate(args))
+            ms = cuda_time_ms(lambda: fused_swin_block(*ops, **kw))
+            plain_ms = cuda_time_ms(lambda: swin_block_reference(*ops, **kw))
+            bound_ms, bound_by = swin_e_bound(shape, BATCH)
+            emit("kernel_time", kernel="swin_block", shape=label, shift=kw["shift"], batch=BATCH,
+                 ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                 library_ms=None, speedup=plain_ms / ms)
+            if not shift:
+                add_time(stats, "swin_block", ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=None)
+            del args, ops
+        for label, shape in f_shapes:
+            args, scale = check_swin_attention_kernel(stats, gen, label, shape, shift, BATCH)
+            ms = cuda_time_ms(lambda: fused_swin_attention(*args, scale=scale))
+            plain_ms = cuda_time_ms(lambda: swin_attention_reference(*args, scale=scale))
+            library_ms = sdpa_window_ms(args, scale)
+            bound_ms, bound_by = swin_f_bound(*args[0].shape[1:4], args[3].shape[2],
+                                              args[0].shape[4], BATCH)
+            emit("kernel_time", kernel="swin_attention", shape=label, shift=shift, batch=BATCH,
+                 ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                 library_ms=library_ms, speedup=plain_ms / ms)
+            if not shift:
+                add_time(stats, "swin_attention", ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=library_ms)
+            del args
+        torch.cuda.empty_cache()
+
+
+def _ln_mlp_plain(x, gamma, beta, w1, b1, w2, b2, row_scale, eps):
+    """fused_ln_mlp's signature over the plain forward (no DropPath)."""
+    ones = torch.ones(x.shape[0], dtype=torch.float32, device=x.device)
+    return ln_mlp_reference(x, gamma, beta, w1, b1, w2, b2, ones, eps)
+
+
+def check_swin_blocks(model, bundle, phase: str) -> None:
+    """Every Swin block of one B = 101 forward against the plain versions on
+    the block's own input and parameters, within KERNEL_TOL: a block on
+    kernel E's route (both streams' outputs, and the pooled LN1 rows of
+    kernel E run again on the block's input), or on the window route (its
+    output, kernel F and the LN-MLP replaced by their plain versions)."""
+    seen = []
+    hooks = [blk.register_forward_hook(lambda m, args, out: seen.append((m, args[0], args[1], out)))
+             for blk in model.modules() if isinstance(blk, SwinBlock)]
+    try:
+        with torch.no_grad():
+            model(uint8_to_unit(torch.from_numpy(bundle["images_101"]).cuda()),
+                  torch.from_numpy(bundle["ori_input_ids_101"]).long().cuda())
+    finally:
+        for h in hooks:
+            h.remove()
+    errs = {"route": [], "out": [], "pooled": []}
+    for blk, x, hw, out in seen:
+        with torch.no_grad():
+            if isinstance(x, tuple):
+                want = blk.band_forward(*x, hw, block=swin_block_reference)
+                _, k_t, v_t = blk.text_qkv(x[1])
+                args = (x[0], k_t, v_t, blk.attn.relative_position_bias_table,
+                        *blk.kernel_operands(x[0].dtype)[0])
+                pooled = fused_swin_block(*args, **blk.kernel_kwargs(hw))[1]
+                pooled_ref = swin_block_reference(*args, **blk.kernel_kwargs(hw))[1]
+                errs["route"].append("E")
+                errs["out"].append(max(_rel_err(out[0], want[0])[1], _rel_err(out[1], want[1])[1]))
+                errs["pooled"].append(_rel_err(pooled, pooled_ref)[1])
+            else:
+                want = blk.window_forward(x, hw, attention=swin_attention_reference,
+                                          ln_mlp=_ln_mlp_plain)
+                errs["route"].append("F")
+                errs["out"].append(_rel_err(out, want)[1])
+    worst = max(errs["out"] + errs["pooled"])
+    ok = len(errs["out"]) == sum(model.cfg.depths) and worst <= KERNEL_TOL
+    emit(phase, batch=BATCH, input=model.input_size, blocks=len(errs["out"]),
+         route=errs["route"], rel_err_out=errs["out"], rel_err_pooled=errs["pooled"],
+         tol=KERNEL_TOL, ok=ok)
+    if not ok:
+        raise AssertionError(f"a block of the Swin path disagrees with its plain "
+                             f"version: rel errs {errs} (tol {KERNEL_TOL})")
+
+
+SWIN_GROUPS = {"swin_block": ("swin_block_kernel", "swin_pool_kernel"),
+               "swin_attention": ("swin_attention_kernel",), "ln_mlp_fwd": ("ln_mlp_fwd",)}
+
+
+def phase_swin(stats: dict) -> None:
+    """Swin serving: kernels E and F vs plain; pvlt_swin_tiny at 224 (stage 1
+    on kernel E, stages 2-4 on F and the LN-MLP forward) through
+    evaluate_retrieval, its blocks, its logits vs the CPU fp32 model, pairs/s
+    and a profile; then the same at 256 (every stage on E), whose launches
+    of E are the ones kept (the training path's, run later, keep the LN-MLP
+    forward's)."""
+    phase_swin_kernels(stats)
+    for size, per_forward, prefix in (
+            (224, {"swin_block": 2, "swin_attention": 6, "ln_mlp_fwd": 6}, "swin224_"),
+            (256, {"swin_block": 8}, "swin_")):
+        model, bundles, sd = phase_slice(stats, "pvlt_swin_tiny", SWIN_WRAPPERS,
+                                         prefix + "slice", size, per_forward)
+        check_swin_blocks(model, bundles[0], prefix + "slice_blocks_vs_plain")
+        compare_cpu_fp32(model, bundles[0], sd, prefix + "slice_vs_cpu_fp32")
+        phase_throughput(model, bundles, SWIN_GROUPS, prefix)
+        del model
+        torch.cuda.empty_cache()
 
 
 # ---- the training path -------------------------------------------------
@@ -1291,6 +1581,7 @@ def main() -> int:
                                       "dwconv_mlp": ("dwconv_mlp_kernel",)}, "v2_")
     del model
     torch.cuda.empty_cache()
+    phase_swin(stats)
     phase_train_kernels(stats)
     phase_mlm_kernels(stats)
     state, cfg, sd, batch = phase_train_slice(stats)

@@ -172,7 +172,7 @@ def main(argv=None) -> "dict | None":
                                  if device.type == "cuda" else ""), flush=True)
 
     torch.manual_seed(cfg.seed)
-    model = create_model(cfg.model, device=device)
+    model = create_model(cfg.model, device=device, input_size=cfg.data.input_size)
 
     train_ds = build_dataset("train", cfg.data, itm_enabled=cfg.model.loss_type.itm,
                              seed=cfg.seed)

@@ -1,5 +1,5 @@
-"""PVLT, the Pyramid Vision-Language Transformer, in PyTorch (v1 and v2
-backbones).
+"""PVLT, the Pyramid Vision-Language Transformer, in PyTorch (v1, v2 and
+Swin backbones).
 
 Counterpart of mvlt_tpu/models/pvlt.py: a 4-stage PVT pyramid whose stages
 each re-project the BERT text tokens and concatenate them with the image
@@ -12,7 +12,10 @@ exported from the JAX package or a published ``.pth`` loads with
 slot, dropped at use; NHWC images in (NCHW accepted). The v2 backbone
 (PVT-v2) embeds patches with overlapping convs (k7 s4, then k3 s2) and runs
 the DWConv MLP (fc1 -> 3x3 depthwise conv on the visual rows -> GELU -> fc2);
-its conv-SR attention is v1's.
+its conv-SR attention is v1's. The Swin backbone embeds patches as v1 and
+attends in (shifted on every odd block) windows plus all text tokens
+(models/swin.py); a Swin model is built for the input size it runs at, since
+its relative-position tables take their shape from the stages' grids.
 
 Parameters stay fp32; with ``compute_dtype="bfloat16"`` the stream and the
 matrix-product operands are bf16 and LayerNorm statistics and softmax fp32.
@@ -21,6 +24,10 @@ Hopper kernels and nothing else in their place on a CUDA tensor:
   * serving, in eval mode when no gradient is wanted: ops/sr_kv.py then
     ops/block_fused.py (v1), or ops/sr_kv.py, ops/block_attention.py and
     ops/dwconv_mlp.py (v2), on bf16 operands cast once and detached;
+  * Swin serving, in eval mode when no gradient is wanted: on a stage
+    ``swin_band_stage`` admits, ops/swin_band.py (kernel E) for the visual
+    rows' whole block, their text rows in PyTorch; elsewhere SwinJointAttention
+    with ops/swin_attention.py (kernel F) and the LN-MLP of ops/fused_mlp.py;
   * training (v1 only), whenever a gradient is wanted or in training mode: the
     projections, SR conv and SR-LN in PyTorch, the attention core of
     ops/pallas_attention.py and the LN-MLP of ops/fused_mlp.py, both
@@ -40,17 +47,21 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mvlt_tpu_torch.config import ModelConfig
+from mvlt_tpu_torch.config import DataConfig, ModelConfig
 from mvlt_tpu_torch.models.bert_embeddings import BertEmbeddings
 from mvlt_tpu_torch.models.heads import CLSHead, ITGHead, ITMHead, MLMHead
 from mvlt_tpu_torch.models.registry import resolve_model_config, validate_model_config
+from mvlt_tpu_torch.models.swin import (TEXT_POOL, SwinJointAttention, heads_of, merge_heads,
+                                        swin_band_stage, window_size_for)
 from mvlt_tpu_torch.ops.block_attention import fused_block_attention
 from mvlt_tpu_torch.ops.block_fused import fused_block
 from mvlt_tpu_torch.ops.dwconv_mlp import fused_dwconv_mlp
 from mvlt_tpu_torch.ops.fused_mlp import fused_ln_mlp
-from mvlt_tpu_torch.ops.kernel_math import layer_norm_fp32, linear
+from mvlt_tpu_torch.ops.kernel_math import gelu, layer_norm_fp32, linear, softmax_av
 from mvlt_tpu_torch.ops.pallas_attention import fused_attention
 from mvlt_tpu_torch.ops.sr_kv import fused_ln_sr_kv, reduce_kv_input, split_kv
+from mvlt_tpu_torch.ops.swin_attention import fused_swin_attention
+from mvlt_tpu_torch.ops.swin_band import fused_swin_block
 
 
 def _ln(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
@@ -159,7 +170,33 @@ def kernel_operand(t: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[to
     return t.to(dtype)
 
 
-class Block(nn.Module):
+class CastOperands:
+    """The cache of a block's serving operands: ``kernel_params`` cast by
+    ``kernel_operand``."""
+
+    _operands = None
+
+    def kernel_operands(self, dtype: torch.dtype) -> tuple[tuple, ...]:
+        """``kernel_params`` cast by ``kernel_operand`` once, and again only
+        after a parameter changed in place (load_state_dict), moved, or the
+        compute dtype changed."""
+        stamp = (dtype, *((p.device, p.data_ptr(), p._version) for p in self.parameters()))
+        if self._operands is None or self._operands[0] != stamp:
+            self._operands = (stamp, tuple(tuple(kernel_operand(t, dtype) for t in group)
+                                           for group in self.kernel_params()))
+        return self._operands[1]
+
+    def _apply(self, fn, *args, **kwargs):
+        self._operands = None
+        return super()._apply(fn, *args, **kwargs)
+
+    def wants_grad(self, *xs: torch.Tensor) -> bool:
+        """Whether autograd would want a gradient through the block."""
+        return torch.is_grad_enabled() and (
+            any(x.requires_grad for x in xs) or any(p.requires_grad for p in self.parameters()))
+
+
+class Block(CastOperands, nn.Module):
     """Pre-LN block: x + s1 attn(LN1 x), then + s2 mlp(LN2 .), where s1, s2
     are per-sample DropPath scales (mask / keep) in training mode and 1 in
     eval; ``mlp`` is the DWConv MLP for ``v2``. Serving path or training path
@@ -176,7 +213,6 @@ class Block(nn.Module):
         self.attn = JointSRAttention(dim, num_heads, sr_ratio, qkv_bias, sr_ln_eps)
         self.norm2 = nn.LayerNorm(dim, eps=ln_eps)
         self.mlp = (DWConvMlp if v2 else Mlp)(dim, int(dim * mlp_ratio))
-        self._operands = None
 
     def kernel_params(self) -> tuple[tuple, ...]:
         """The parameters in the argument order of the serving wrappers: v1
@@ -205,20 +241,6 @@ class Block(nn.Module):
             return kv, dict(heads=self.num_heads, eps=self.norm1.eps), dict(eps=self.norm2.eps)
         return kv, dict(heads=self.num_heads, eps1=self.norm1.eps, eps2=self.norm2.eps)
 
-    def kernel_operands(self, dtype: torch.dtype) -> tuple[tuple, ...]:
-        """``kernel_params`` cast by ``kernel_operand`` once, and again only
-        after a parameter changed in place (load_state_dict), moved, or the
-        compute dtype changed."""
-        stamp = (dtype, *((p.device, p.data_ptr(), p._version) for p in self.parameters()))
-        if self._operands is None or self._operands[0] != stamp:
-            self._operands = (stamp, tuple(tuple(kernel_operand(t, dtype) for t in group)
-                                           for group in self.kernel_params()))
-        return self._operands[1]
-
-    def _apply(self, fn, *args, **kwargs):
-        self._operands = None
-        return super()._apply(fn, *args, **kwargs)
-
     def drop_path_scale(self, x: torch.Tensor,
                         generator: Optional[torch.Generator]) -> Optional[torch.Tensor]:
         """Per-sample stochastic-depth scale [B] fp32 (Bernoulli(keep) /
@@ -231,9 +253,7 @@ class Block(nn.Module):
 
     def forward(self, x: torch.Tensor, hw: tuple,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        wants_grad = torch.is_grad_enabled() and (
-            x.requires_grad or any(p.requires_grad for p in self.parameters()))
-        if self.training or wants_grad:
+        if self.training or self.wants_grad(x):
             return self.train_forward(x, hw, generator)
         ops, kws = self.kernel_operands(x.dtype), self.kernel_kwargs()
         k, v = fused_ln_sr_kv(x, hw, *ops[0], **kws[0])
@@ -270,6 +290,89 @@ class Block(nn.Module):
                       self.norm2.eps)
 
 
+class SwinBlock(CastOperands, nn.Module):
+    """Pre-LN Swin block, serving only: x + attn(LN1 x), then + mlp(LN2 .),
+    the window shifted by half on ``shift`` blocks. On a stage
+    ``swin_band_stage`` admits it takes and returns the split stream (visual
+    rows [B, h*w, C], text rows [B, T, C]): kernel E runs the visual rows'
+    whole block, PyTorch the text rows' (their queries over K/V of the pooled
+    LN1 rows and of the text rows, then the MLP), as the JAX package's
+    mvlt_tpu/models/pvlt.py:Block._swin_fused_block does. Elsewhere it takes
+    the joint stream [B, h*w + T, C]: SwinJointAttention (kernel F), then the
+    LN-MLP of ops/fused_mlp.py. Training mode, or a gradient wanted, raises."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float, qkv_bias: bool,
+                 window_size: int, shift: bool, table_ws: int, ln_eps: float = 1e-6):
+        super().__init__()
+        self.num_heads = num_heads
+        self.norm1 = nn.LayerNorm(dim, eps=ln_eps)
+        self.attn = SwinJointAttention(dim, num_heads, window_size, shift, qkv_bias, table_ws)
+        self.norm2 = nn.LayerNorm(dim, eps=ln_eps)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+
+    def kernel_params(self) -> tuple[tuple, ...]:
+        """The parameters in ``fused_swin_block``'s argument order after the
+        bias table."""
+        a, m = self.attn, self.mlp
+        return ((self.norm1.weight, self.norm1.bias, a.q.weight, a.q.bias, a.kv.weight,
+                 a.kv.bias, a.proj.weight, a.proj.bias, self.norm2.weight, self.norm2.bias,
+                 m.fc1.weight, m.fc1.bias, m.fc2.weight, m.fc2.bias),)
+
+    def kernel_kwargs(self, hw: tuple) -> dict:
+        """``fused_swin_block``'s keyword arguments on a grid of ``hw``."""
+        ws, shift = self.attn.window(hw)
+        return dict(hw=hw, heads=self.num_heads, window=ws, shift=shift,
+                    pool=max(1, hw[0] // TEXT_POOL), eps1=self.norm1.eps, eps2=self.norm2.eps)
+
+    def forward(self, x, hw: tuple, generator: Optional[torch.Generator] = None):
+        joint = torch.is_tensor(x)
+        if self.training or self.wants_grad(*((x,) if joint else x)):
+            raise NotImplementedError(
+                "Swin training (or a gradient through a Swin block) is not ported yet: "
+                "ROADMAP Queue 1 item 14; Swin serves in eval mode under torch.no_grad()")
+        return self.window_forward(x, hw) if joint else self.band_forward(*x, hw)
+
+    def window_forward(self, x: torch.Tensor, hw: tuple, *, attention=fused_swin_attention,
+                       ln_mlp=fused_ln_mlp) -> torch.Tensor:
+        """The joint stream's block: attention with kernel F, then the LN-MLP
+        (``attention`` and ``ln_mlp`` the kernels' wrappers; a check passes
+        their plain versions)."""
+        t = x.shape[1] - hw[0] * hw[1]
+        x = x + self.attn(_ln(x, self.norm1), hw, t, attention=attention)
+        m = self.mlp
+        return ln_mlp(x, self.norm2.weight, self.norm2.bias, m.fc1.weight, m.fc1.bias,
+                      m.fc2.weight, m.fc2.bias, None, self.norm2.eps)
+
+    def text_qkv(self, xt: torch.Tensor) -> tuple[torch.Tensor, ...]:
+        """The text rows' q, k and v [B, T, C] from their LN1, on the cast
+        operands."""
+        g1, be1, wq, bq, wkv, bkv = self.kernel_operands(xt.dtype)[0][:6]
+        ln_t = layer_norm_fp32(xt, g1, be1, self.norm1.eps)
+        kv_t = linear(ln_t, wkv, bkv)
+        c = xt.shape[-1]
+        return linear(ln_t, wq, bq), kv_t[..., :c].contiguous(), kv_t[..., c:].contiguous()
+
+    def band_forward(self, xv: torch.Tensor, xt: torch.Tensor, hw: tuple, *,
+                     block=fused_swin_block):
+        """The split stream's block: kernel E (``block``, its wrapper; a check
+        passes its plain version) on the visual rows, the text rows in
+        PyTorch on the pooled LN1 rows it returns."""
+        ops = self.kernel_operands(xv.dtype)[0]
+        _, _, _, _, wkv, bkv, wp, bp, g2, be2, w1, b1, w2, b2 = ops
+        c, nh = xv.shape[-1], self.num_heads
+        q_t, k_t, v_t = self.text_qkv(xt)
+        out_vis, pooled = block(xv, k_t, v_t, self.attn.relative_position_bias_table, *ops,
+                                **self.kernel_kwargs(hw))
+        # pool(LN1) then project equals project then pool: the projection is affine
+        kv_p = linear(pooled, wkv, bkv)
+        k_cat = torch.cat([heads_of(kv_p[..., :c], nh), heads_of(k_t, nh)], dim=-2)
+        v_cat = torch.cat([heads_of(kv_p[..., c:], nh), heads_of(v_t, nh)], dim=-2)
+        out_txt = softmax_av(heads_of(q_t, nh), k_cat, v_cat, scale=(c // nh) ** -0.5)
+        xt = xt + linear(merge_heads(out_txt), wp, bp)
+        hid = gelu(linear(layer_norm_fp32(xt, g2, be2, self.norm2.eps), w1, b1))
+        return out_vis, xt + linear(hid, w2, b2)
+
+
 def resize_pos_embed(pos: torch.Tensor, native_hw: tuple, hw: tuple) -> torch.Tensor:
     """Bilinearly resize a [1, gh*gw, C] table to a new grid
     (align_corners=False, no antialias)."""
@@ -294,16 +397,19 @@ class PVLT(nn.Module):
 
     Parameters start at PyTorch's defaults (``create_model`` re-initialises
     them as the JAX package does); load trained or exported weights with
-    ``load_state_dict``."""
+    ``load_state_dict``. A Swin model's relative-position tables are sized
+    for the stage grids of ``input_size`` x ``input_size`` images, the size
+    it then runs at (JAX sizes them from the images it initialises with)."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, input_size: int = DataConfig.input_size):
         super().__init__()
-        if cfg.variant not in ("v1", "v2") or cfg.linear_sr:
+        if cfg.variant not in ("v1", "v2", "swin") or cfg.linear_sr:
             raise NotImplementedError(
                 f"variant {cfg.variant!r}{' with linear_sr' if cfg.linear_sr else ''} "
                 f"is not ported yet")
         v2 = cfg.variant == "v2"
         self.cfg = cfg
+        self.input_size = input_size
         self.compute_dtype = getattr(torch, cfg.compute_dtype)
         eps = cfg.other_ln_eps
         lt = cfg.loss_type
@@ -313,6 +419,7 @@ class PVLT(nn.Module):
             cfg.type_vocab_size, cfg.bert_ln_eps, cfg.bert_dropout)
         # stochastic-depth decay rule: linspace over the total depth
         dpr = iter(np.linspace(0.0, cfg.drop_path_rate, sum(cfg.depths)).tolist())
+        grid = input_size // cfg.patch_size
         for i, dim in enumerate(cfg.embed_dims):
             prev = cfg.embed_dims[i - 1] if i else None
             native_g = cfg.img_size // (cfg.patch_size * 2 ** i)
@@ -326,10 +433,17 @@ class PVLT(nn.Module):
             setattr(self, f"pos_embed{i + 1}", nn.Parameter(torch.zeros(1, slots, dim)))
             setattr(self, f"text_pos_embed{i + 1}",
                     nn.Parameter(torch.zeros(1, cfg.num_text_tokens, dim)))
-            setattr(self, f"block{i + 1}", nn.ModuleList(
-                Block(dim, cfg.num_heads[i], cfg.mlp_ratios[i], cfg.sr_ratios[i],
-                      cfg.qkv_bias, cfg.block_ln_eps, eps, next(dpr), v2)
-                for _ in range(cfg.depths[i])))
+            if cfg.variant == "swin":
+                table_ws = window_size_for(cfg.window_size, (grid, grid))
+                blocks = [SwinBlock(dim, cfg.num_heads[i], cfg.mlp_ratios[i], cfg.qkv_bias,
+                                    cfg.window_size, j % 2 == 1, table_ws, cfg.block_ln_eps)
+                          for j in range(cfg.depths[i])]
+            else:
+                blocks = [Block(dim, cfg.num_heads[i], cfg.mlp_ratios[i], cfg.sr_ratios[i],
+                                cfg.qkv_bias, cfg.block_ln_eps, eps, next(dpr), v2)
+                          for _ in range(cfg.depths[i])]
+            setattr(self, f"block{i + 1}", nn.ModuleList(blocks))
+            grid //= 2
         adapter = lambda: nn.Sequential(nn.Linear(cfg.embed_dims[-1], hidden),
                                         nn.LayerNorm(hidden, eps=eps))
         if lt.mlm:
@@ -374,11 +488,14 @@ class PVLT(nn.Module):
             native_g = cfg.img_size // (cfg.patch_size * 2 ** i)
             pos = resize_pos_embed(pos.to(dtype), (native_g, native_g), (h, w))
             text_pos = getattr(self, f"text_pos_embed{i + 1}").to(dtype)
-            z = torch.cat([x + pos, y + text_pos], dim=1)
+            if cfg.variant == "swin" and swin_band_stage(cfg.window_size, (h, w)):
+                z = (x + pos, y + text_pos)              # split: kernel E's stage
+            else:
+                z = torch.cat([x + pos, y + text_pos], dim=1)
             for blk in getattr(self, f"block{i + 1}"):
                 z = blk(z, (h, w), generator)
-            x = z[:, : h * w].reshape(b, h, w, dim)
-            y = z[:, h * w:]
+            x, y = z if isinstance(z, tuple) else (z[:, : h * w], z[:, h * w:])
+            x = x.reshape(b, h, w, dim)
             img_feats.append(x)
 
         lt = cfg.loss_type
@@ -415,7 +532,8 @@ def init_weights(model: PVLT) -> PVLT:
     the positional embeddings truncated normal 0.02; in the T2I decoder the
     ConvBN convolutions He normal over fan-out; the T2I score conv and v2's
     depthwise convs (flax's default, no ``kernel_init`` given) LeCun normal;
-    embedding tables normal 0.02; every bias 0. LayerNorm and BatchNorm keep
+    Swin's relative-position tables truncated normal 0.02; embedding tables
+    normal 0.02; every bias 0. LayerNorm and BatchNorm keep
     torch's (scale 1, shift 0, running variance 1)."""
     with torch.no_grad():
         for name, m in model.named_modules():
@@ -432,16 +550,18 @@ def init_weights(model: PVLT) -> PVLT:
                     _trunc_normal(m.weight, 0.02)
                 if m.bias is not None:
                     nn.init.zeros_(m.bias)
-        for name, p in model.named_parameters(recurse=False):
-            if "pos_embed" in name:
+        for name, p in model.named_parameters():
+            if "pos_embed" in name or name.endswith("relative_position_bias_table"):
                 _trunc_normal(p, 0.02)
     return model
 
 
-def create_model(cfg: ModelConfig, *, device="cuda") -> PVLT:
+def create_model(cfg: ModelConfig, *, device="cuda",
+                 input_size: int = DataConfig.input_size) -> PVLT:
     """A PVLT for ``cfg`` with the registry preset for ``cfg.name`` applied,
     initialised as the JAX package initialises it (``init_weights``), on
-    ``device`` (the card unless the caller asks for another)."""
+    ``device`` (the card unless the caller asks for another); a Swin model
+    for images of ``input_size``."""
     cfg = resolve_model_config(cfg)
     validate_model_config(cfg)
-    return init_weights(PVLT(cfg)).to(device)
+    return init_weights(PVLT(cfg, input_size)).to(device)

@@ -49,6 +49,8 @@ _SIGNATURES = {
     "mvlt_mlm_ce_splits": [_I, _I, _I],
     "mvlt_mlm_ce_fwd": [_P] * 7 + [_I] * 4 + [_P],
     "mvlt_mlm_ce_bwd": [_P] * 10 + [_I] * 4 + [_P],
+    "mvlt_swin_attention": [_P] * 7 + [_I] * 6 + [_F, _P],
+    "mvlt_swin_block": [_P] * 20 + [_I] * 10 + [_F] * 3 + [_P],
 }
 
 

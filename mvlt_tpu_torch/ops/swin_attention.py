@@ -1,0 +1,79 @@
+"""Windowed joint attention of the Swin variant: each window's queries attend
+over [the window's K/V | all text K/V] with one additive logit table.
+
+Counterpart of mvlt_tpu/ops/swin_attention.py:fused_swin_attention (Pallas
+bodies ``_kernel`` and ``_kernel_paired``). The TPU's window-pair grouping is
+MXU tiling and has no counterpart: kernel F computes one (sample, window,
+head) per block. ``swin_attention_reference`` is the plain version;
+``fused_swin_attention`` takes it for a CPU tensor and launches the Hopper
+kernel (csrc/swin_attention.cu) for a CUDA tensor, or raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from mvlt_tpu_torch.ops import _build
+from mvlt_tpu_torch.ops.kernel_math import acc_dtype
+
+
+def swin_attention_reference(q_win, k_win, v_win, k_txt, v_txt, add_table, *,
+                             scale: float) -> torch.Tensor:
+    """softmax(q [k_win | k_txt]^T * scale + add_table) [v_win | v_txt] with
+    fp32 logits and softmax and an fp32 P.V sum over probabilities rounded
+    to the value dtype; returns q's dtype. q/k/v_win [B, nW, heads, ws^2, hd],
+    k/v_txt [B, heads, T, hd] (shared by every window), add_table [nW, heads,
+    ws^2, ws^2 + T]."""
+    acc = acc_dtype(q_win.dtype)
+    q = q_win.to(acc)
+    logits = torch.cat([torch.matmul(q, k_win.to(acc).transpose(-1, -2)),
+                        torch.matmul(q, k_txt[:, None].to(acc).transpose(-1, -2))], dim=-1)
+    probs = torch.softmax(logits * scale + add_table.to(acc), dim=-1).to(v_win.dtype).to(acc)
+    ws2 = q_win.shape[-2]
+    out = (torch.matmul(probs[..., :ws2], v_win.to(acc))
+           + torch.matmul(probs[..., ws2:], v_txt[:, None].to(acc)))
+    return out.to(q_win.dtype)
+
+
+def fused_swin_attention(q_win, k_win, v_win, k_txt, v_txt, add_table, *,
+                         scale: float) -> torch.Tensor:
+    """Windowed joint attention. A CPU tensor takes
+    ``swin_attention_reference``; a CUDA tensor launches kernel F (bf16,
+    contiguous q/k/v, head dim a multiple of 16 up to 128, ws^2 + T <= 512,
+    an fp32 table), and anything else raises. ``fused_swin_attention.launches``
+    counts the kernel launches."""
+    if q_win.device.type == "cpu":
+        return swin_attention_reference(q_win, k_win, v_win, k_txt, v_txt, add_table,
+                                        scale=scale)
+    name = "fused_swin_attention"
+    dev = q_win.device
+    b, nw, nh, ws2, hd = q_win.shape
+    t = k_txt.shape[2]
+    for label, x, shape in (("q_win", q_win, (b, nw, nh, ws2, hd)),
+                            ("k_win", k_win, (b, nw, nh, ws2, hd)),
+                            ("v_win", v_win, (b, nw, nh, ws2, hd)),
+                            ("k_txt", k_txt, (b, nh, t, hd)), ("v_txt", v_txt, (b, nh, t, hd))):
+        if (x.device != dev or x.dtype != torch.bfloat16 or not x.is_contiguous()
+                or tuple(x.shape) != shape or x.data_ptr() % 16):
+            raise ValueError(f"{name}: {label} must be contiguous, 16-byte aligned bf16 "
+                             f"{list(shape)} on {dev}, got {tuple(x.shape)} {x.dtype} "
+                             f"on {x.device}")
+    if hd % 16 or hd > 128 or ws2 + t > 512:
+        raise ValueError(f"{name}: head dim {hd} (a multiple of 16, <= 128) or "
+                         f"ws^2 + T = {ws2 + t} (<= 512) out of range")
+    if (add_table.device != dev or add_table.dtype != torch.float32
+            or tuple(add_table.shape) != (nw, nh, ws2, ws2 + t)):
+        raise ValueError(f"{name}: add_table must be fp32 [{nw}, {nh}, {ws2}, {ws2 + t}] "
+                         f"on {dev}, got {tuple(add_table.shape)} {add_table.dtype}")
+    table = add_table.contiguous()
+    out = torch.empty_like(q_win)
+    err = _build.load_library().mvlt_swin_attention(
+        q_win.data_ptr(), k_win.data_ptr(), v_win.data_ptr(), k_txt.data_ptr(),
+        v_txt.data_ptr(), table.data_ptr(), out.data_ptr(), b, nw, nh, ws2, t, hd, scale,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check_launch(name, err)
+    fused_swin_attention.launches += 1
+    return out
+
+
+fused_swin_attention.launches = 0

@@ -12,14 +12,16 @@ these tests take other widths, head dims, grids and lengths, the row tiles
 kernel B falls back to, the training kernels at head dim 32 with M = 600,
 rows off the tile and D = 320 at ratio 4, the v2 kernels on grids of odd
 sizes, one wider than 128, no text rows and a hidden width off the chunk,
-and the ways a wrapper refuses its input. Bound:
+the Swin kernels at windows of 4 and 6 (36 rows, off the 16-row tile), grids
+with h != w, pool windows of 2, T = 7 and a head dim of 32, a Swin block
+on both of its routes, and the ways a wrapper refuses its input. Bound:
 max|kernel - plain| / max|plain| <= 2e-2 in bf16, as in chip_smoke.py.
 """
 
 import pytest
 import torch
 
-from mvlt_tpu_torch.models.pvlt import Block
+from mvlt_tpu_torch.models.pvlt import Block, SwinBlock
 from mvlt_tpu_torch.ops.block_attention import block_attention_reference, fused_block_attention
 from mvlt_tpu_torch.ops.block_fused import block_reference, fused_block
 from mvlt_tpu_torch.ops.dwconv_mlp import dwconv_mlp_reference, fused_dwconv_mlp
@@ -31,6 +33,8 @@ from mvlt_tpu_torch.ops.pallas_attention import (attention_bwd, attention_bwd_re
 from mvlt_tpu_torch.ops.mlm_ce import (mlm_ce_bwd, mlm_ce_fwd, mlm_ce_loss,
                                        mlm_nll_bwd_reference, mlm_nll_reference)
 from mvlt_tpu_torch.ops.sr_kv import fused_ln_sr_kv, sr_kv_reference
+from mvlt_tpu_torch.ops.swin_attention import fused_swin_attention, swin_attention_reference
+from mvlt_tpu_torch.ops.swin_band import fused_swin_block, swin_block_reference
 
 pytestmark = pytest.mark.cuda
 
@@ -369,3 +373,106 @@ def test_v2_wrappers_refuse_what_the_kernels_do_not_take(dev):
         blk(x, hw)
     with pytest.raises(NotImplementedError):
         blk.train()(x, hw)
+
+
+def _swin_block(dim, heads, mlp_ratio, ws, shift, dev, seed):
+    """A port SwinBlock in eval mode with every parameter perturbed, its
+    bias table at std 0.5, no gradient wanted."""
+    gen = torch.Generator().manual_seed(seed)
+    blk = SwinBlock(dim, heads, mlp_ratio, True, ws, shift, ws).eval().requires_grad_(False)
+    with torch.no_grad():
+        for p in blk.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=gen))
+        blk.attn.relative_position_bias_table.normal_(0.0, 0.5, generator=gen)
+    return blk.to(dev)
+
+
+@pytest.mark.parametrize("hw,dim,heads,mlp_ratio,ws,shift,t,batch", [
+    ((8, 16), 64, 2, 4.0, 4, True, 7, 3),        # h != w, 8 windows, T = 7
+    ((12, 12), 96, 3, 4.0, 6, True, 16, 2),      # 36 rows, head dim 32
+    ((16, 16), 128, 2, 2.0, 8, False, 33, 2),    # pool window 2, unshifted
+    ((16, 16), 128, 2, 2.0, 8, True, 128, 2),    # shifted, T = 128
+])
+def test_swin_kernels_match_plain(dev, hw, dim, heads, mlp_ratio, ws, shift, t, batch):
+    """Kernel E on the split stream and the Swin block on it, then kernel F
+    on the same block's windows."""
+    blk = _swin_block(dim, heads, mlp_ratio, ws, shift, dev, seed=dim + t)
+    gen = torch.Generator().manual_seed(t)
+    h, w = hw
+    xv = torch.randn(batch, h * w, dim, generator=gen).to(dev, torch.bfloat16)
+    xt = torch.randn(batch, t, dim, generator=gen).to(dev, torch.bfloat16)
+    kt, vt = (torch.randn(batch, t, dim, generator=gen).to(dev, torch.bfloat16)
+              for _ in range(2))
+    args = (xv, kt, vt, blk.attn.relative_position_bias_table, *blk.kernel_params()[0])
+    kw = blk.kernel_kwargs(hw)
+    with torch.no_grad():
+        launches = fused_swin_block.launches
+        out, pooled = fused_swin_block(*args, **kw)
+        want_out, want_pooled = swin_block_reference(*args, **kw)
+        torch.cuda.synchronize()
+        assert fused_swin_block.launches == launches + 1
+        assert _rel(out, want_out) <= TOL and _rel(pooled, want_pooled) <= TOL
+        # the block on its split stream (kernel E) and on the joint stream (kernel F)
+        vis, txt = blk((xv, xt), hw)
+        joint = blk(torch.cat([xv, xt], dim=1), hw)
+        torch.cuda.synchronize()
+    assert torch.isfinite(vis.float()).all() and torch.isfinite(txt.float()).all()
+    assert _rel(joint[:, : h * w], vis) <= 3 * TOL and _rel(joint[:, h * w:], txt) <= 3 * TOL
+
+
+@pytest.mark.parametrize("nw,heads,ws2,t,hd,batch", [
+    (4, 2, 16, 7, 32, 3), (3, 3, 36, 20, 64, 2), (1, 4, 49, 128, 64, 2), (16, 2, 64, 128, 64, 2),
+])
+def test_swin_attention_kernel_matches_plain(dev, nw, heads, ws2, t, hd, batch):
+    gen = torch.Generator().manual_seed(nw + ws2)
+    bf = lambda *s: torch.randn(*s, generator=gen).to(dev, torch.bfloat16)
+    q, k, v = (bf(batch, nw, heads, ws2, hd) for _ in range(3))
+    kt, vt = bf(batch, heads, t, hd), bf(batch, heads, t, hd)
+    table = 0.5 * torch.randn(nw, heads, ws2, ws2 + t, generator=gen)
+    table[..., :ws2] += torch.where(torch.rand(nw, heads, ws2, ws2, generator=gen) < 0.3,
+                                    -1e9, 0.0)
+    table = table.to(dev)
+    launches = fused_swin_attention.launches
+    got = fused_swin_attention(q, k, v, kt, vt, table, scale=hd ** -0.5)
+    want = swin_attention_reference(q, k, v, kt, vt, table, scale=hd ** -0.5)
+    torch.cuda.synchronize()
+    assert fused_swin_attention.launches == launches + 1
+    assert _rel(got, want) <= TOL
+
+
+def test_swin_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    blk = _swin_block(64, 2, 2.0, 4, True, dev, seed=0)
+    hw, t = (8, 8), 5
+    xv = torch.randn(2, 64, 64, device=dev).to(torch.bfloat16)
+    kt = torch.randn(2, t, 64, device=dev).to(torch.bfloat16)
+    params = (blk.attn.relative_position_bias_table, *blk.kernel_params()[0])
+    kw = blk.kernel_kwargs(hw)
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="bfloat16"):
+            fused_swin_block(xv.float(), kt, kt, *params, **kw)
+        with pytest.raises(ValueError, match="k_txt must be"):
+            fused_swin_block(xv, kt.float(), kt, *params, **kw)
+        with pytest.raises(ValueError, match="unsupported shape"):
+            fused_swin_block(xv, kt, kt, *params, **{**kw, "window": 3})
+        with pytest.raises(ValueError, match="unsupported shape"):
+            fused_swin_block(xv, kt, kt, *params, **{**kw, "pool": 3})
+        with pytest.raises(ValueError, match="rel_table"):
+            fused_swin_block(xv, kt, kt, params[0][:-1], *params[1:], **kw)
+        q = torch.zeros(2, 4, 2, 16, 32, device=dev, dtype=torch.bfloat16)
+        kt4 = torch.zeros(2, 2, t, 32, device=dev, dtype=torch.bfloat16)
+        table = torch.zeros(4, 2, 16, 16 + t, device=dev)
+        with pytest.raises(ValueError, match="q_win must be"):
+            fused_swin_attention(q.float(), q, q, kt4, kt4, table, scale=1.0)
+        with pytest.raises(ValueError, match="k_txt must be"):
+            fused_swin_attention(q, q, q, kt4[:, :1].contiguous(), kt4, table, scale=1.0)
+        with pytest.raises(ValueError, match="add_table"):
+            fused_swin_attention(q, q, q, kt4, kt4, table.double(), scale=1.0)
+        with pytest.raises(ValueError, match="out of range"):
+            fused_swin_attention(q[..., :24].contiguous(), q[..., :24].contiguous(),
+                                 q[..., :24].contiguous(), kt4[..., :24].contiguous(),
+                                 kt4[..., :24].contiguous(), table, scale=1.0)
+    # a gradient wanted, or training mode: Swin serves only
+    with pytest.raises(NotImplementedError):
+        blk.requires_grad_(True)((xv, kt), hw)
+    with pytest.raises(NotImplementedError):
+        blk.train()((xv, kt), hw)

@@ -42,6 +42,11 @@ v2 = create_model(ModelConfig(**micro, name="pvlt_v2_tiny", loss_type=cfg.loss_t
 assert v2.cfg.variant == "v2"
 res = evaluate_retrieval(make_itm_scorer(v2), [bundle], is_main=False)
 assert res["num_queries"] == 1, res
+swin = create_model(ModelConfig(**micro, name="pvlt_swin_tiny", loss_type=cfg.loss_type),
+                    device="cpu", input_size=32).eval()
+assert swin.cfg.variant == "swin"
+res = evaluate_retrieval(make_itm_scorer(swin), [bundle], is_main=False)
+assert res["num_queries"] == 1, res
 cfg = ModelConfig(**micro)
 model = create_model(cfg, device="cpu")
 state = create_train_state(model, OptimConfig(warmup_epochs=0), 2, 1)
@@ -61,7 +66,7 @@ print("OK")
 
 
 def test_port_imports_and_serves_without_jax():
-    """Serving (v1 and v2), one training step and one epoch through the CLI
+    """Serving (v1, v2 and Swin), one training step and one epoch through the CLI
     (training, VL eval, checkpoint) of the port with jax, flax and the JAX
     package blocked."""
     proc = subprocess.run([sys.executable, "-c", _GUARDED], cwd=REPO,

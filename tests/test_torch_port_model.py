@@ -111,19 +111,21 @@ def test_registry_matches_jax():
 
 @pytest.mark.parametrize("loss_type", [LossType(), LossType(itm=True, mlm=False, t2i=False, cls=True)])
 def test_unported_heads_raise(loss_type):
-    """Every head is ported now, with any choice of heads, on the v1 and v2
-    backbones; what is still unported, v2's linear SR and the Swin backbone,
-    raises whatever heads are on."""
+    """Every head is ported now, with any choice of heads, on the v1, v2 and
+    Swin backbones; what is still unported, v2's linear SR, raises whatever
+    heads are on."""
     model = create_model(dataclasses.replace(MICRO, loss_type=loss_type), device="cpu")
     assert hasattr(model, "sup_cls_head") == loss_type.cls
     assert hasattr(model, "t2i_head") == loss_type.t2i
     v2 = create_model(dataclasses.replace(MICRO, name="pvlt_v2_tiny", loss_type=loss_type),
                       device="cpu")
     assert v2.cfg.variant == "v2" and hasattr(v2, "t2i_head") == loss_type.t2i
-    for name in ("pvlt_v2_linear_tiny", "pvlt_swin_tiny"):
-        with pytest.raises(NotImplementedError):
-            create_model(dataclasses.replace(MICRO, name=name, loss_type=loss_type),
-                         device="cpu")
+    swin = create_model(dataclasses.replace(MICRO, name="pvlt_swin_tiny", loss_type=loss_type),
+                        device="cpu")
+    assert swin.cfg.variant == "swin" and hasattr(swin, "t2i_head") == loss_type.t2i
+    with pytest.raises(NotImplementedError):
+        create_model(dataclasses.replace(MICRO, name="pvlt_v2_linear_tiny", loss_type=loss_type),
+                     device="cpu")
 
 
 def test_training_mode_raises(micro_pair):

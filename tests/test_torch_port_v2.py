@@ -187,8 +187,8 @@ def test_full_v2_tree_loads_strictly():
 
 def test_v2_training_and_gradients_raise():
     """v2 serves only: training mode, or a gradient wanted through a block,
-    raises NotImplementedError (ROADMAP Queue 1 item 14); linear SR and Swin
-    stay unported."""
+    raises NotImplementedError (ROADMAP Queue 1 item 14), as Swin training
+    does; linear SR stays unported."""
     model = create_model(MICRO_V2, device="cpu")
     images, ids = torch.zeros(1, 64, 64, 3), torch.zeros(1, 16, dtype=torch.long)
     with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
@@ -197,6 +197,9 @@ def test_v2_training_and_gradients_raise():
         model.eval()(images, ids)                 # parameters want gradients
     with torch.no_grad():
         assert model(images, ids)["itm_logits"].shape == (1, 1, 2)
-    for name in ("pvlt_v2_linear_tiny", "pvlt_swin_tiny"):
-        with pytest.raises(NotImplementedError):
-            create_model(dataclasses.replace(MICRO_V2, name=name), device="cpu")
+    with pytest.raises(NotImplementedError):
+        create_model(dataclasses.replace(MICRO_V2, name="pvlt_v2_linear_tiny"), device="cpu")
+    swin = create_model(dataclasses.replace(MICRO_V2, name="pvlt_swin_tiny"), device="cpu",
+                        input_size=64)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
+        swin.train()(images, ids)
