@@ -23,6 +23,12 @@ swin_kernels:
   rel_bias_swapped E indexes the relative-position bias with dy and dx
                    swapped;
   table_off_window F reads the additive table of the next window.
+The fused attention half's backward (csrc/block_attention_train.cu), phase
+fba_train_kernels:
+  dk_one_tile      dK keeps only one row tile's dS^T Q (its sum restarts on
+                   every tile);
+  dbp_unscaled     the projection bias gradient sums dy without the row
+                   scale, so a dropped sample's rows reach it.
 """
 
 from __future__ import annotations
@@ -59,6 +65,14 @@ FAULTS = {
         "swin_kernels", "mvlt_tpu_torch/csrc/swin_attention.cu",
         "a.table + ((size_t)win * a.heads + head)",
         "a.table + ((size_t)((win + 1) % a.nw) * a.heads + head)"),
+    "dk_one_tile": (
+        "fba_train_kernels", "mvlt_tpu_torch/csrc/block_attention_train.cu",
+        "gemm_acc<false>(tt, ldt, qt, ldq, mp, hd, tq, acc, hd, n0 == 0);",
+        "gemm_acc<false>(tt, ldt, qt, ldq, mp, hd, tq, acc, hd, true);"),
+    "dbp_unscaled": (
+        "fba_train_kernels", "mvlt_tpu_torch/csrc/block_attention_train.cu",
+        "sbp += __bfloat162float(dyb[(size_t)r * d + c]) * sc;",
+        "sbp += __bfloat162float(dyb[(size_t)r * d + c]);"),
 }
 # per phase: the checks at B = 4 that print each error with the bound lifted
 MARGINS = {
@@ -71,6 +85,13 @@ for label, shape in shapes + [("v2_ragged", c.V2_RAGGED)]:
 """,
     "swin_kernels": """
 c.check_swin_kernels(stats, torch.Generator().manual_seed(c.SEED + 13), c.SMOKE_BATCH)
+""",
+    "fba_train_kernels": """
+gen = torch.Generator().manual_seed(c.SEED + 17)
+shapes = [(f"stage{i + 1}", (h, w, d, nh, sr, hid, c.TEXT))
+          for i, (h, w, d, nh, sr, hid) in enumerate(c.STAGES)]
+for label, shape in shapes + [("ragged", c.TRAIN_RAGGED)]:
+    c.check_fba_kernels(stats, gen, label, shape, c.SMOKE_BATCH)
 """,
 }
 RUN = """

@@ -50,7 +50,9 @@ JSON line each; a failed phase raises and the script exits non-zero:
      LN-MLP forward 6 launches per forward, no other kernel), every block
      within 2e-2 of the plain versions, ITM logits within 3e-2 of the fp32
      CPU model, pairs/s and a profile; then the same at 256 (E 8 launches
-     per forward and nothing else);
+     per forward and nothing else), where the ITM logits with create_model's
+     own initialisation are also measured on the card and on the CPU in
+     bf16 against the CPU fp32 model (a measurement, not a check);
   7. training kernels: attention forward/backward and LN-MLP
      forward/backward against their plain versions in bf16 (every output,
      bound 2e-2 as in phase 3) at the four stage shapes at B = 4 and
@@ -72,13 +74,31 @@ JSON line each; a failed phase raises and the script exits non-zero:
      steps 4 and 5 below that of steps 0 and 1 (the parities alternate clean
      and masked images), BatchNorm statistics changed. Then every block of a
      B = 150 step (output; input and parameter gradients for the step's
-     upstream gradient) within 2e-2 of the plain versions, and one step on
-     4 samples against the same weights in fp32 on the CPU (losses, and
-     per-tensor gradient cosines; the card's MLM loss through the kernels,
-     the CPU's through the chunked plain decode), beside the CPU's own bf16
-     gap;
+     upstream gradient) within 2e-2 of the plain versions (the step on 4
+     samples against the CPU comes after phase 10b);
  10. training throughput at B = 150: ms/step and samples/s, peak memory,
      and a torch.profiler breakdown;
+ 10b. the fused_attn_train route (kernels #6/#7 forward, #8 backward):
+     fba_train_kernels holds the fused attention half's forward (out), its
+     statistics form (out; LN mean and 1/std, each head's row max and
+     1/denominator) and its backward in the recompute and the statistics
+     form (dx, dK, dV and the six parameter gradients, each form fed its own
+     forward's statistics) to their plain versions in bf16 (every output
+     within 2e-2 as in phase 3; the dropped sample's dx equal to its dy) at
+     the four stage shapes at B = 4 and B = 150 and a ragged shape (N off
+     the row tile, M off 16, head dim 32), with a DropPath scale holding a
+     zero; at B = 150 each kernel's time beside its plain version's, its
+     bound and the default route's attention half on the same inputs
+     (cuBLAS Q and projection, #10/#11; no single library call computes
+     the fused half). Then, per backward form, phase 9's six steps with
+     fused_attn_train on (the fused forward and backward 8 times a step,
+     #10/#11 never, LN-MLP 8 and MLM CE once a step, no serving kernel;
+     falling loss), every block of a step (output, input, K/V and parameter
+     gradients) vs the plain route, ms/step, peak memory and a profile;
+     then one step on 4 samples on each route (default, both fused forms)
+     against the same weights in fp32 on the CPU (losses, and per-tensor
+     gradient cosines; the card's MLM loss through the kernels, the CPU's
+     through the chunked plain decode), beside the CPU's own bf16 gap;
  11. the command line: ``mvlt_tpu_torch.cli.main`` with
      configs/pretrain_exp21.py on synthetic data (B = 150) for 2 epochs with
      the VL eval in epoch 1, ``--resume last`` for epoch 2, then one CLS
@@ -122,15 +142,23 @@ from mvlt_tpu_torch.models.pvlt import Block, SwinBlock, create_model, kernel_op
 from mvlt_tpu_torch.models.swin import (add_table, heads_of, relative_position_index,
                                         window_masks, window_partition)
 from mvlt_tpu_torch.ops import _build
-from mvlt_tpu_torch.ops.block_attention import block_attention_reference, fused_block_attention
+from mvlt_tpu_torch.ops.block_attention import (block_attention_bwd_reference,
+                                                block_attention_reference,
+                                                block_attention_train_bwd,
+                                                block_attention_train_fwd,
+                                                block_attention_train_reference,
+                                                fused_block_attention,
+                                                fused_block_attention_train)
 from mvlt_tpu_torch.ops.block_fused import block_reference, fused_block
 from mvlt_tpu_torch.ops.dwconv_mlp import dwconv_mlp_reference, fused_dwconv_mlp
-from mvlt_tpu_torch.ops.fused_mlp import (ln_mlp_bwd, ln_mlp_bwd_reference, ln_mlp_fwd,
-                                          ln_mlp_reference)
+from mvlt_tpu_torch.ops.fused_mlp import (fused_ln_mlp, ln_mlp_bwd, ln_mlp_bwd_reference,
+                                          ln_mlp_fwd, ln_mlp_reference)
+from mvlt_tpu_torch.ops.kernel_math import layer_norm_fp32, linear
 from mvlt_tpu_torch.ops.mlm_ce import (mlm_ce_bwd, mlm_ce_fwd, mlm_nll_bwd_reference,
                                        mlm_nll_reference)
 from mvlt_tpu_torch.ops.pallas_attention import (attention_bwd, attention_bwd_reference,
-                                                 attention_fwd, attention_reference)
+                                                 attention_fwd, attention_reference,
+                                                 fused_attention)
 from mvlt_tpu_torch.ops.sr_kv import fused_ln_sr_kv, sr_kv_reference
 from mvlt_tpu_torch.ops.swin_attention import fused_swin_attention, swin_attention_reference
 from mvlt_tpu_torch.ops.swin_band import fused_swin_block, swin_block_reference
@@ -206,6 +234,18 @@ KERNELS = [
     {"name": "swin_attention", "route": "cuda",
      "source": "mvlt_tpu_torch/csrc/swin_attention.cu",
      "replaces": "mvlt_tpu/ops/swin_attention.py:142"},
+    {"name": "fba_train_fwd", "route": "cuda",
+     "source": "mvlt_tpu_torch/csrc/block_attention_train.cu",
+     "replaces": "mvlt_tpu/ops/block_attention.py:647"},
+    {"name": "fba_train_fwd_stats", "route": "cuda",
+     "source": "mvlt_tpu_torch/csrc/block_attention_train.cu",
+     "replaces": "mvlt_tpu/ops/block_attention.py:692"},
+    {"name": "fba_train_bwd", "route": "cuda",
+     "source": "mvlt_tpu_torch/csrc/block_attention_train.cu",
+     "replaces": "mvlt_tpu/ops/block_attention.py:544 (_bwd_kernel :136)"},
+    {"name": "fba_train_bwd_stats", "route": "cuda",
+     "source": "mvlt_tpu_torch/csrc/block_attention_train.cu",
+     "replaces": "mvlt_tpu/ops/block_attention.py:544 (_bwd_kernel_stats :265)"},
 ]
 SERVING_WRAPPERS = {"sr_kv": fused_ln_sr_kv, "block_fused": fused_block}
 V2_SERVING_WRAPPERS = {"sr_kv": fused_ln_sr_kv, "block_attention": fused_block_attention,
@@ -214,8 +254,13 @@ SWIN_WRAPPERS = {"swin_block": fused_swin_block, "swin_attention": fused_swin_at
 TRAINING_WRAPPERS = {"attention_fwd": attention_fwd, "attention_bwd": attention_bwd,
                      "ln_mlp_fwd": ln_mlp_fwd, "ln_mlp_bwd": ln_mlp_bwd}
 MLM_WRAPPERS = {"mlm_ce_fwd": mlm_ce_fwd, "mlm_ce_bwd": mlm_ce_bwd}   # once per step
+# the fused_attn_train route: one wrapper each for the forward and the
+# backward, in either form (the kernels line keeps the two forms apart)
+FBA_WRAPPERS = {"fba_train_fwd": block_attention_train_fwd,
+                "fba_train_bwd": block_attention_train_bwd}
+FBA_ROUTE = {**FBA_WRAPPERS, "ln_mlp_fwd": ln_mlp_fwd, "ln_mlp_bwd": ln_mlp_bwd}
 WRAPPERS = {**SERVING_WRAPPERS, **V2_SERVING_WRAPPERS, **SWIN_WRAPPERS, **TRAINING_WRAPPERS,
-            **MLM_WRAPPERS}
+            **MLM_WRAPPERS, **FBA_WRAPPERS}
 
 
 def new_stats() -> dict:
@@ -1030,6 +1075,36 @@ def check_swin_blocks(model, bundle, phase: str) -> None:
                              f"version: rel errs {errs} (tol {KERNEL_TOL})")
 
 
+def swin_init_gap(model, bundle, sd) -> None:
+    """A measurement, not a check: the ITM logits with create_model's own
+    initialisation (torch.manual_seed(SEED)) on the card in bf16 and on the
+    CPU in bf16 (plain path), each against the CPU fp32 model, to tell a
+    card fault from the bf16 rounding of near-uniform logits; the model gets
+    ``sd`` back afterwards."""
+    images = uint8_to_unit(torch.from_numpy(bundle["images_101"][:2]))
+    ids = torch.from_numpy(bundle["ori_input_ids_101"][:2]).long()
+    torch.manual_seed(SEED)
+    init = create_model(model.cfg, device="cpu", input_size=model.input_size).state_dict()
+    logits = {}
+    for dtype in ("float32", "bfloat16"):
+        cpu = create_model(dataclasses.replace(model.cfg, compute_dtype=dtype), device="cpu",
+                           input_size=model.input_size).eval()
+        cpu.load_state_dict(init, strict=True)
+        with torch.no_grad():
+            logits[dtype] = cpu(images, ids)["itm_logits"].float()
+    model.load_state_dict(init, strict=True)
+    with torch.no_grad():
+        card = model(images.cuda(), ids.cuda())["itm_logits"].float().cpu()
+    model.load_state_dict(sd, strict=True)
+    want = logits["float32"]
+    scale = want.abs().max().item()
+    emit("swin_init_gap", pairs=2, logits_cpu_fp32=want.flatten().tolist(),
+         logits_card=card.flatten().tolist(), logits_cpu_bf16=logits["bfloat16"].flatten().tolist(),
+         rel_err_card=(card - want).abs().max().item() / scale,
+         rel_err_cpu_bf16=(logits["bfloat16"] - want).abs().max().item() / scale,
+         rel_err_card_vs_cpu_bf16=(card - logits["bfloat16"]).abs().max().item() / scale)
+
+
 SWIN_GROUPS = {"swin_block": ("swin_block_kernel", "swin_pool_kernel"),
                "swin_attention": ("swin_attention_kernel",), "ln_mlp_fwd": ("ln_mlp_fwd",)}
 
@@ -1049,6 +1124,8 @@ def phase_swin(stats: dict) -> None:
                                          prefix + "slice", size, per_forward)
         check_swin_blocks(model, bundles[0], prefix + "slice_blocks_vs_plain")
         compare_cpu_fp32(model, bundles[0], sd, prefix + "slice_vs_cpu_fp32")
+        if size == 256:
+            swin_init_gap(model, bundles[0], sd)
         phase_throughput(model, bundles, SWIN_GROUPS, prefix)
         del model
         torch.cuda.empty_cache()
@@ -1207,11 +1284,16 @@ def train_batch(seed: int, size: int) -> dict:
     return collate([data[i] for i in range(size)])
 
 
-def phase_train_slice(stats: dict):
+def phase_train_slice(stats: dict, cfg: ModelConfig | None = None, phase: str = "train_slice",
+                      route: dict = TRAINING_WRAPPERS, record: dict | None = None):
     """pvlt_tiny takes TRAIN_STEPS pre-training steps at B = 150 through
-    train_one_epoch(make_train_step(...)) on one repeated batch; returns the
-    state, the config, the weights and the device batch."""
-    cfg = train_config()
+    train_one_epoch(make_train_step(...)) on one repeated batch, each block
+    kernel of ``route`` launched once per block and step, each MLM CE kernel
+    once per step, nothing else; ``stats[record[name]]`` keeps the launches
+    of ``route``'s wrapper ``name`` (default: under its own name). Returns
+    the state, the config, the weights and the device batch."""
+    cfg = cfg or train_config()
+    record = record or {name: name for name in route}
     model = create_model(cfg)
     sd = seeded_state_dict(model, SEED)
     model.load_state_dict(sd, strict=True)
@@ -1240,9 +1322,10 @@ def phase_train_slice(stats: dict):
     falling = totals[4] < totals[0] and totals[5] < totals[1]
     bn_moved = any(not torch.equal(v, stats_before[k]) for k, v in model.named_buffers())
     blocks = sum(cfg.depths)
-    expected = {**{name: blocks * TRAIN_STEPS for name in TRAINING_WRAPPERS},
+    expected = {**{name: blocks * TRAIN_STEPS for name in route},
                 **{name: TRAIN_STEPS for name in MLM_WRAPPERS}}
-    emit("train_slice", model=cfg.name, compute_dtype=cfg.compute_dtype, batch=TRAIN_BATCH,
+    emit(phase, model=cfg.name, compute_dtype=cfg.compute_dtype, batch=TRAIN_BATCH,
+         fused_attn_train=cfg.fused_attn_train, fused_attn_stats=cfg.fused_attn_stats,
          steps=TRAIN_STEPS, seconds_host_inclusive=seconds, losses=losses,
          launches=launches, launches_expected=expected, finite=finite,
          loss_falling=falling, bn_stats_changed=bn_moved)
@@ -1256,8 +1339,8 @@ def phase_train_slice(stats: dict):
         raise AssertionError(f"total loss did not fall over {TRAIN_STEPS} steps: {totals}")
     if not bn_moved:
         raise AssertionError("the T2I BatchNorm statistics did not change")
-    for name in TRAINING_WRAPPERS:
-        stats[name]["launches"] = launches[name]
+    for name, key in record.items():
+        stats[key]["launches"] = launches[name]
     return state, cfg, sd, batch
 
 
@@ -1268,11 +1351,19 @@ def plain_ln_mlp(x, gamma, beta, w1, b1, w2, b2, row_scale, eps):
     return ln_mlp_reference(x, gamma, beta, w1, b1, w2, b2, row_scale, eps)
 
 
-def check_train_blocks(state, cfg, batch) -> None:
+def plain_block_attention(x, k, v, *params, heads, eps, save_stats):
+    """block_attention_train_reference with fused_block_attention_train's
+    signature, differentiable by autograd (the statistics form is a
+    backward choice: the plain route has none)."""
+    return block_attention_train_reference(x, k, v, *params, heads=heads, eps=eps)
+
+
+def check_train_blocks(state, cfg, batch, phase: str = "train_blocks_vs_plain") -> None:
     """Every block of one B = 150 training step: its output, and the
     gradients of its input and parameters for the upstream gradient the
     step gave it, against the plain versions on the block's own input and
-    DropPath draws, within KERNEL_TOL."""
+    DropPath draws, within KERNEL_TOL; on the fused_attn_train route also
+    the gradients of the block's K and V (the fused call's dK, dV)."""
     model = state.model
     saved = {k: v.clone() for k, v in model.state_dict().items()}
     seen = {}
@@ -1294,41 +1385,60 @@ def check_train_blocks(state, cfg, batch) -> None:
             h.remove()
     model.load_state_dict(saved)     # the weights the step's forward saw
     gen = torch.Generator(device=state.device)
-    errs = {"out": [], "grad": []}
+    errs = {"out": [], "grad": [], "kv_grad": []}
+
+    def kv_recorder(fn, store):
+        """fn with the gradients of its K and V kept in ``store``."""
+        def run(x, k, v, *args, **kwargs):
+            k.register_hook(lambda g: store.__setitem__("dk", g))
+            v.register_hook(lambda g: store.__setitem__("dv", g))
+            return fn(x, k, v, *args, **kwargs)
+        return run
+
     for blk in blocks:
         e = seen[blk]
         params = list(blk.parameters())
         results = []
-        plain = lambda x, hw, g: blk.train_forward(x, hw, g, attention=attention_reference,
-                                                   ln_mlp=plain_ln_mlp)
-        for fn in (blk, plain):
+        for attention, ln_mlp, fba in ((fused_attention, fused_ln_mlp,
+                                        fused_block_attention_train),
+                                       (attention_reference, plain_ln_mlp,
+                                        plain_block_attention)):
             gen.set_state(e["rng"])
             x = e["x"].clone().requires_grad_()
-            out = fn(x, e["hw"], gen)
-            results.append((out.detach(), torch.autograd.grad(out, [x] + params, e["dy"])))
-        (out_k, grads_k), (out_p, grads_p) = results
+            kv = {}
+            out = blk.train_forward(x, e["hw"], gen, attention=attention, ln_mlp=ln_mlp,
+                                    block_attention=kv_recorder(fba, kv))
+            grads = torch.autograd.grad(out, [x] + params, e["dy"])
+            results.append((out.detach(), grads, kv))
+        (out_k, grads_k, kv_k), (out_p, grads_p, kv_p) = results
         errs["out"].append(max(_rel_err(e["out"], out_p)[1], _rel_err(out_k, out_p)[1]))
         errs["grad"].append(max(_rel_err(g, w)[1] for g, w in zip(grads_k, grads_p)))
-    worst = max(errs["out"] + errs["grad"])
-    ok = len(errs["out"]) == sum(cfg.depths) and worst <= KERNEL_TOL
-    emit("train_blocks_vs_plain", batch=TRAIN_BATCH, blocks=len(errs["out"]),
-         rel_err_out=errs["out"], rel_err_grads=errs["grad"], tol=KERNEL_TOL, ok=ok)
+        if cfg.fused_attn_train:
+            errs["kv_grad"].append(max(_rel_err(kv_k[n], kv_p[n])[1] for n in ("dk", "dv")))
+    worst = max(errs["out"] + errs["grad"] + errs["kv_grad"])
+    ok = (len(errs["out"]) == sum(cfg.depths) and worst <= KERNEL_TOL
+          and len(errs["kv_grad"]) == (len(blocks) if cfg.fused_attn_train else 0))
+    emit(phase, batch=TRAIN_BATCH, blocks=len(errs["out"]), rel_err_out=errs["out"],
+         rel_err_grads=errs["grad"], rel_err_kv_grads=errs["kv_grad"], tol=KERNEL_TOL, ok=ok)
     if not ok:
         raise AssertionError(f"a block of the training step disagrees with its plain "
                              f"version: {errs} (tol {KERNEL_TOL})")
 
 
-def compare_train_cpu(cfg, sd) -> None:
+def compare_train_cpu(cfg, sd, card_routes: dict) -> None:
     """One step on CPU_BATCH samples, DropPath and dropout off, from the same
-    weights: card bf16 against CPU fp32 (losses, per-tensor gradient
-    cosines), beside the CPU bf16 model's own gap to fp32."""
+    weights: the card in bf16 on each route of ``card_routes`` (phase name
+    -> the fused_attn_train and fused_attn_stats flags) against the CPU in
+    fp32 (losses, per-tensor gradient cosines), beside the CPU bf16 model's
+    own gap to fp32. The CPU takes the default route (the same function)."""
     cfg = dataclasses.replace(cfg, drop_path_rate=0.0, bert_dropout=0.0)
     batch = train_batch(SEED + 3, CPU_BATCH)
     runs = {}
-    for label, device, dtype in (("card_bf16", "cuda", "bfloat16"),
-                                 ("cpu_fp32", "cpu", "float32"),
-                                 ("cpu_bf16", "cpu", "bfloat16")):
-        run_cfg = dataclasses.replace(cfg, compute_dtype=dtype)
+    cards = [(phase, "cuda", "bfloat16", flags) for phase, flags in card_routes.items()]
+    for label, device, dtype, flags in cards + [("cpu_fp32", "cpu", "float32", (False, False)),
+                                                ("cpu_bf16", "cpu", "bfloat16", (False, False))]:
+        run_cfg = dataclasses.replace(cfg, compute_dtype=dtype, fused_attn_train=flags[0],
+                                      fused_attn_stats=flags[1])
         model = create_model(run_cfg, device=device)
         model.load_state_dict(sd, strict=True)
         state = create_train_state(model, OptimConfig(warmup_epochs=0), CPU_BATCH, 1)
@@ -1348,22 +1458,35 @@ def compare_train_cpu(cfg, sd) -> None:
         worst = min(cos, key=cos.get)
         return loss_err, cos[worst], worst
 
-    card_loss, card_cos, card_worst = gap("card_bf16")   # MLM: kernels vs chunked plain
     cpu_loss, cpu_cos, cpu_worst = gap("cpu_bf16")
-    ok = max(card_loss.values()) <= STEP_LOSS_TOL and card_cos >= GRAD_COS_MIN
-    emit("train_vs_cpu_fp32", batch=CPU_BATCH, mlm_card="mlm_ce kernels",
-         mlm_cpu="chunked plain decode", losses_card=runs["card_bf16"][0],
-         losses_cpu=want_l, rel_err_losses=card_loss, min_grad_cosine=card_cos,
-         min_cosine_tensor=card_worst, rel_err_losses_cpu_bf16=cpu_loss,
-         min_grad_cosine_cpu_bf16=cpu_cos, min_cosine_tensor_cpu_bf16=cpu_worst,
-         loss_tol=STEP_LOSS_TOL, cosine_min=GRAD_COS_MIN, ok=ok)
-    if not ok:
-        raise AssertionError(f"the card's step differs from the CPU fp32 step: losses "
-                             f"{card_loss}, smallest gradient cosine {card_cos} "
-                             f"({card_worst})")
+    for phase, flags in card_routes.items():
+        card_loss, card_cos, card_worst = gap(phase)   # MLM: kernels vs chunked plain
+        ok = max(card_loss.values()) <= STEP_LOSS_TOL and card_cos >= GRAD_COS_MIN
+        emit(phase, batch=CPU_BATCH, fused_attn_train=flags[0], fused_attn_stats=flags[1],
+             mlm_card="mlm_ce kernels", mlm_cpu="chunked plain decode",
+             losses_card=runs[phase][0], losses_cpu=want_l, rel_err_losses=card_loss,
+             min_grad_cosine=card_cos, min_cosine_tensor=card_worst,
+             rel_err_losses_cpu_bf16=cpu_loss, min_grad_cosine_cpu_bf16=cpu_cos,
+             min_cosine_tensor_cpu_bf16=cpu_worst, loss_tol=STEP_LOSS_TOL,
+             cosine_min=GRAD_COS_MIN, ok=ok)
+        if not ok:
+            raise AssertionError(f"the card's step ({phase}) differs from the CPU fp32 step: "
+                                 f"losses {card_loss}, smallest gradient cosine {card_cos} "
+                                 f"({card_worst})")
 
 
-def phase_train_throughput(state, cfg) -> None:
+TRAIN_GROUPS = {"attention_fwd": ("attn_fwd_kernel",), "attention_bwd": ("attn_bwd_kernel",),
+                "fba_train_fwd": ("fba_fwd_kernel",),
+                "fba_train_bwd": ("fba_bwd_rows_kernel", "fba_bwd_kv_kernel",
+                                  "fba_reduce_kernel"),
+                "ln_mlp_fwd": ("ln_mlp_fwd_kernel",),
+                "ln_mlp_bwd": ("ln_mlp_bwd_kernel", "ln_mlp_reduce_kernel"),
+                "mlm_ce_fwd": ("mlm_ce_fwd_kernel", "mlm_ce_merge_kernel"),
+                "mlm_ce_bwd": ("mlm_ce_dx_kernel", "mlm_ce_dx_reduce_kernel",
+                               "mlm_ce_dtable_kernel")}
+
+
+def phase_train_throughput(state, cfg, prefix: str = "") -> None:
     """ms per step and samples/s at B = 150 on two pre-staged device batches,
     peak memory, and the device profile of three steps."""
     step = make_train_step(cfg)
@@ -1372,20 +1495,210 @@ def phase_train_throughput(state, cfg) -> None:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ms = cuda_time_ms(lambda: step(state, staged[next(calls) % 2]), warmup=3, reps=10)
-    emit("train_throughput", model=cfg.name, batch=TRAIN_BATCH, ms_per_step=ms,
+    emit(prefix + "train_throughput", model=cfg.name, fused_attn_train=cfg.fused_attn_train,
+         fused_attn_stats=cfg.fused_attn_stats, batch=TRAIN_BATCH, ms_per_step=ms,
          samples_per_s=TRAIN_BATCH / (ms / 1e3),
          peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
          method="CUDA events around each step call (forward, backward, AdamW), 3 warm-up, "
                 "median of 10, 2 distinct pre-staged batches")
-    profile_device(lambda: [step(state, staged[i % 2]) for i in range(3)], 3,
-                   {"attention_fwd": ("attn_fwd_kernel",),
-                    "attention_bwd": ("attn_bwd_kernel",),
-                    "ln_mlp_fwd": ("ln_mlp_fwd_kernel",),
-                    "ln_mlp_bwd": ("ln_mlp_bwd_kernel", "ln_mlp_reduce_kernel"),
-                    "mlm_ce_fwd": ("mlm_ce_fwd_kernel", "mlm_ce_merge_kernel"),
-                    "mlm_ce_bwd": ("mlm_ce_dx_kernel", "mlm_ce_dx_reduce_kernel",
-                                   "mlm_ce_dtable_kernel")},
-                   "train_profile")
+    profile_device(lambda: [step(state, staged[i % 2]) for i in range(3)], 3, TRAIN_GROUPS,
+                   prefix + "train_profile")
+
+
+# ---- the fused_attn_train route ------------------------------------------
+
+FBA_GRADS = ("dx", "dk", "dv", "dgamma", "dbeta", "dWq", "dbq", "dWp", "dbp")
+FBA_FORMS = {"fba_recompute": (True, False), "fba_stats": (True, True)}
+
+
+def fba_inputs(gen, shape: tuple, batch: int) -> dict:
+    """Seeded inputs of the fused attention half at one shape: the stream and
+    its upstream gradient at unit scale, K and V as the model's contiguous
+    [B, H, M, hd] copies, phase 3's parameters (Q at gain 1.5 / sqrt(D), so
+    the softmax is peaked, the out-projection at gain 1) with Wq and Wp in
+    bf16 as the autograd Function rounds them, a DropPath scale with one
+    dropped sample."""
+    h, w, d, nh, sr, hid, t = shape
+    n = h * w + t
+    m = (h // sr) * (w // sr) + t if sr > 1 else n
+    dev = torch.device("cuda")
+    bf = lambda *s: torch.randn(*s, generator=gen).to(dev, torch.bfloat16)
+    kv = bf(batch, m, 2, nh, d // nh).permute(2, 0, 3, 1, 4)
+    p = stage_params(gen, d, sr, hid, dev)
+    s = ((torch.rand(batch, generator=gen) < 0.9).float() / 0.9).to(dev)
+    s[0] = 0.0
+    master = (p["ln1_weight"], p["ln1_bias"], p["wq"], p["bq"], p["wp"], p["bp"])
+    cast = (p["ln1_weight"], p["ln1_bias"], p["wq"].to(torch.bfloat16), p["bq"],
+            p["wp"].to(torch.bfloat16), p["bp"])
+    return {"x": bf(batch, n, d), "dy": bf(batch, n, d), "k": kv[0].contiguous(),
+            "v": kv[1].contiguous(), "params": cast, "master": master, "s": s,
+            "kw": dict(heads=nh, eps=1e-6)}
+
+
+def _fba_fwd_args(a):
+    return (a["x"], a["k"], a["v"], *a["params"], a["s"])
+
+
+def _fba_bwd_args(a):
+    g, be, wq, bq, wp, _ = a["params"]
+    return (a["x"], a["k"], a["v"], g, be, wq, bq, wp, a["s"], a["dy"])
+
+
+def check_fba_kernels(stats: dict, gen, label: str, shape: tuple, batch: int) -> dict:
+    """The fused attention half's kernels against their plain versions on
+    one shape's seeded inputs: the forward (out), the forward with
+    statistics (out; LN mean, 1/std, row max and 1/denominator, each
+    against its own largest value), and the backward in both forms (all nine
+    gradients, each form fed its own forward's statistics), every one within
+    KERNEL_TOL; the dropped sample's dx equal to its dy and its dK, dV zero.
+    Returns the inputs and both statistics, for timing."""
+    a = fba_inputs(gen, shape, batch)
+    kw = a["kw"]
+    out = block_attention_train_fwd(*_fba_fwd_args(a), **kw)
+    out_s, st = block_attention_train_fwd(*_fba_fwd_args(a), save_stats=True, **kw)
+    out_ref = block_attention_train_reference(*_fba_fwd_args(a), **kw)
+    _, st_ref = block_attention_train_reference(*_fba_fwd_args(a), save_stats=True, **kw)
+    grads = block_attention_train_bwd(*_fba_bwd_args(a), **kw)
+    grads_s = block_attention_train_bwd(*_fba_bwd_args(a), stats=st, **kw)
+    want = block_attention_bwd_reference(*_fba_bwd_args(a), **kw)
+    want_s = block_attention_bwd_reference(*_fba_bwd_args(a), stats=st_ref, **kw)
+    torch.cuda.synchronize()
+    cols = {"stats_mean": slice(0, 1), "stats_rstd": slice(1, 2), "stats_max": slice(2, None, 2),
+            "stats_inv": slice(3, None, 2)}
+    errs = {
+        "fba_train_fwd": {"out": _rel_err(out, out_ref)},
+        "fba_train_fwd_stats": {"out": _rel_err(out_s, out_ref),
+                                **{k: _rel_err(st[..., c], st_ref[..., c])
+                                   for k, c in cols.items()}},
+        "fba_train_bwd": {k: _rel_err(g, w) for k, g, w in zip(FBA_GRADS, grads, want)},
+        "fba_train_bwd_stats": {k: _rel_err(g, w) for k, g, w in zip(FBA_GRADS, grads_s, want_s)},
+    }
+    dropped = all(torch.equal(g[0][0], a["dy"][0]) and not g[1][0].any() and not g[2][0].any()
+                  for g in (grads, grads_s))
+    h, w, d, nh, sr, hid, t = shape
+    for name, e in errs.items():
+        worst = max(v[1] for v in e.values())
+        ok = bool(worst <= KERNEL_TOL and np.isfinite(worst)) and (
+            dropped or not name.startswith("fba_train_bwd"))
+        emit("kernel_check", kernel=name, shape=label, batch=batch, n=h * w + t, dim=d,
+             heads=nh, m=a["k"].shape[2], rel_err={k: v[1] for k, v in e.items()},
+             dropped_sample_passes_dy=dropped, tol=KERNEL_TOL, ok=ok)
+        if not ok:
+            raise AssertionError(f"{name} disagrees with its plain version at {label}, "
+                                 f"B = {batch}: {e} (tol {KERNEL_TOL}; dropped sample "
+                                 f"passes dy: {dropped})")
+        stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"],
+                                         max(v[0] for v in e.values()))
+    return {**a, "stats": st, "stats_ref": st_ref}
+
+
+def fba_bounds(shape: tuple, batch: int) -> dict:
+    """(ms, bound_by) of the fused attention half at one stage shape. Forward:
+    4.B.N.(D^2 + M.D) flops (Q, out-projection, q.K^T, P.V); x read, out
+    written, K/V and the bf16 Wq, Wp read (the statistics written too).
+    Backward, the least work: 10.B.N.D^2 + 12.B.N.M.D (Q and dO recomputed,
+    dWq, dWp, dLN1; logits, P.V, dP, dQ, dK, dV); x and dy read, dx written,
+    K/V read and dK/dV written, the bf16 weights read and their fp32
+    gradients written (the statistics read)."""
+    h, w, d, nh, sr, hid, t = shape
+    n = h * w + t
+    m = (h // sr) * (w // sr) + t if sr > 1 else n
+    rows, kv, st = batch * n, batch * m * d, 4 * batch * n * (2 + 2 * nh)
+    fwd_bytes = 2 * (2 * rows * d + 2 * kv + 2 * d * d)
+    bwd_bytes = 2 * (3 * rows * d + 4 * kv + 2 * d * d) + 4 * (2 * d * d + 4 * d)
+    fwd_flops = 4 * rows * (d * d + m * d)
+    bwd_flops = 10 * rows * d * d + 12 * rows * m * d
+    return {"fba_train_fwd": bound(fwd_flops, fwd_bytes),
+            "fba_train_fwd_stats": bound(fwd_flops, fwd_bytes + st),
+            "fba_train_bwd": bound(bwd_flops, bwd_bytes),
+            "fba_train_bwd_stats": bound(bwd_flops, bwd_bytes + st)}
+
+
+def default_route_times(a: dict) -> tuple[float, float]:
+    """The default route's attention half on the same inputs, the yardstick
+    of the fused one: LN1, the cuBLAS Q and out-projections and the port's
+    attention kernels (#10/#11) with the DropPath scale, on fp32 master
+    parameters; forward, and backward alone (on a kept graph) to x, K, V and
+    every parameter, in ms."""
+    x, k, v = (a[n].detach().requires_grad_() for n in ("x", "k", "v"))
+    g, be, wq, bq, wp, bp = (t.detach().requires_grad_() for t in a["master"])
+    b, n, d = x.shape
+    heads = a["kw"]["heads"]
+    hd = d // heads
+    s = a["s"].to(torch.bfloat16)[:, None, None]
+
+    def fwd():
+        q = linear(layer_norm_fp32(x, g, be, 1e-6), wq, bq).reshape(b, n, heads, hd)
+        o = fused_attention(q.transpose(1, 2), k, v, hd ** -0.5).transpose(1, 2)
+        return x + linear(o.reshape(b, n, d), wp, bp) * s
+
+    out = fwd()
+    bwd = lambda: torch.autograd.grad(out, (x, k, v, g, be, wq, bq, wp, bp), a["dy"],
+                                      retain_graph=True)
+    return cuda_time_ms(fwd), cuda_time_ms(bwd)
+
+
+def phase_fba_train_kernels(stats: dict) -> None:
+    """The fused attention half's kernels vs plain: errors at B = 4 (the four
+    stage shapes and a ragged one: N off the row tile, M off 16, head dim
+    32), then errors and times at B = 150 (the stage shapes of the step),
+    beside the default route's attention half on the same inputs."""
+    gen = torch.Generator().manual_seed(SEED + 17)
+    shapes = [(f"stage{i + 1}", (h, w, d, nh, sr, hid, TEXT))
+              for i, (h, w, d, nh, sr, hid) in enumerate(STAGES)]
+    for label, shape in shapes + [("ragged", TRAIN_RAGGED)]:
+        check_fba_kernels(stats, gen, label, shape, SMOKE_BATCH)
+    for label, shape in shapes:
+        a = check_fba_kernels(stats, gen, label, shape, TRAIN_BATCH)
+        kw, st, st_ref = a["kw"], a["stats"], a["stats_ref"]
+        route_fwd, route_bwd = default_route_times(a)
+        times = {
+            "fba_train_fwd": (lambda: block_attention_train_fwd(*_fba_fwd_args(a), **kw),
+                              lambda: block_attention_train_reference(*_fba_fwd_args(a), **kw),
+                              {"route_fwd_ms": route_fwd}),
+            "fba_train_fwd_stats": (
+                lambda: block_attention_train_fwd(*_fba_fwd_args(a), save_stats=True, **kw),
+                lambda: block_attention_train_reference(*_fba_fwd_args(a), save_stats=True, **kw),
+                {"route_fwd_ms": route_fwd}),
+            "fba_train_bwd": (lambda: block_attention_train_bwd(*_fba_bwd_args(a), **kw),
+                              lambda: block_attention_bwd_reference(*_fba_bwd_args(a), **kw),
+                              {"route_bwd_ms": route_bwd}),
+            "fba_train_bwd_stats": (
+                lambda: block_attention_train_bwd(*_fba_bwd_args(a), stats=st, **kw),
+                lambda: block_attention_bwd_reference(*_fba_bwd_args(a), stats=st_ref, **kw),
+                {"route_bwd_ms": route_bwd}),
+        }
+        bounds = fba_bounds(shape, TRAIN_BATCH)
+        for name, (kernel, plain, route) in times.items():
+            ms, plain_ms = cuda_time_ms(kernel), cuda_time_ms(plain)
+            bound_ms, bound_by = bounds[name]
+            emit("kernel_time", kernel=name, shape=label, batch=TRAIN_BATCH, ms=ms,
+                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                 speedup=plain_ms / ms, **route)
+            add_time(stats, name, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                     bound_by=bound_by, library_ms=None)
+        del a, times
+        torch.cuda.empty_cache()
+
+
+def phase_fba_train(stats: dict) -> None:
+    """The fused_attn_train route in each backward form: TRAIN_STEPS steps
+    of the pre-training configuration at B = 150 (the fused forward and
+    backward 8 times a step, #10/#11 never, the LN-MLP kernels 8 times, the
+    MLM CE kernels once, no serving kernel; finite and falling losses),
+    every block of a step vs the plain route, and the step's throughput and
+    profile."""
+    for prefix, (fused, with_stats) in FBA_FORMS.items():
+        cfg = dataclasses.replace(train_config(), fused_attn_train=fused,
+                                  fused_attn_stats=with_stats)
+        suffix = "_stats" if with_stats else ""
+        state, cfg, _, batch = phase_train_slice(
+            stats, cfg, prefix + "_train_slice", FBA_ROUTE,
+            {name: name + suffix for name in FBA_WRAPPERS})
+        check_train_blocks(state, cfg, batch, prefix + "_train_blocks_vs_plain")
+        phase_train_throughput(state, cfg, prefix + "_")
+        del state, batch
+        torch.cuda.empty_cache()
 
 
 # ---- the MLM cross entropy and the pre-training CLI ------------------------
@@ -1543,7 +1856,8 @@ def phase_cli(stats: dict) -> None:
           and launches["mlm_ce_fwd"] == launches["mlm_ce_bwd"] == steps
           and all(launches[name] for name in
                   (*SERVING_WRAPPERS, *TRAINING_WRAPPERS, *MLM_WRAPPERS))
-          and not any(launches[name] for name in V2_SERVING_WRAPPERS if name != "sr_kv"))
+          and not any(launches[name] for name in V2_SERVING_WRAPPERS if name != "sr_kv")
+          and not any(launches[name] for name in FBA_WRAPPERS))
     emit("cli", config="configs/pretrain_exp21.py", batch=TRAIN_BATCH, epochs_run=[0, 1, 2],
          resumed_at_epoch=2, pretrain_steps=steps, finetune_steps=1, seconds=seconds,
          losses={f"epoch{line['epoch']}": line["total_loss"] for line in pre_log},
@@ -1586,10 +1900,13 @@ def main() -> int:
     phase_mlm_kernels(stats)
     state, cfg, sd, batch = phase_train_slice(stats)
     check_train_blocks(state, cfg, batch)
-    compare_train_cpu(cfg, sd)
     phase_train_throughput(state, cfg)
     del state, batch
     torch.cuda.empty_cache()
+    phase_fba_train_kernels(stats)
+    phase_fba_train(stats)
+    compare_train_cpu(cfg, sd, {"train_vs_cpu_fp32": (False, False),
+                                **{p + "_train_vs_cpu_fp32": f for p, f in FBA_FORMS.items()}})
     phase_cli(stats)
     print(json.dumps({"kernels": [
         {**k, **{key: v for key, v in stats[k["name"]].items() if key != "bound_shares"}}

@@ -5,12 +5,15 @@ The port's own copy of the JAX package's ``LossType``, ``ModelConfig``,
 machinery (``apply_overrides``, ``load_config_file``, ``config_to_dict``;
 mvlt_tpu/config.py): the same fields, defaults and merge rules (every key
 of a config file wins over the default), so a configuration means the same
-thing on both sides; tests/test_torch_port_convert.py pins them equal. Fields that steer the JAX
-package's TPU kernels (``block_attn_kernel``, ``pack_stage1``,
-``head_pair_attn``, ``pack_mlp_train``, ``fused_*``, ``kernel_gelu``,
-``dwconv_mlp_kernel``, ``remat``) are kept for that equality and are not read
-by the port, which has one kernel path per mode and exact-erf GELU
-everywhere.
+thing on both sides; tests/test_torch_port_convert.py pins them equal. The
+port reads ``fused_attn_train`` (a v1 block in training mode runs its
+attention half as one fused call, ops/block_attention.py) and
+``fused_attn_stats`` (that call's saved-statistics backward). Other fields
+that steer the JAX package's TPU kernels (``block_attn_kernel``,
+``pack_stage1``, ``head_pair_attn``, ``pack_mlp_train``,
+``fused_mlp_train``, ``kernel_gelu``, ``dwconv_mlp_kernel``, ``remat``) are
+kept for that equality and are not read by the port, which has exact-erf
+GELU everywhere.
 """
 
 from __future__ import annotations

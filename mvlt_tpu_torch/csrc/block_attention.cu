@@ -35,23 +35,6 @@ struct AttnKernelArgs {
   int n, d, tr;
 };
 
-struct AttnSmem {
-  size_t xres, abuf, qall, kv, logit, stage, total;
-};
-
-__host__ __device__ inline AttnSmem attn_smem(int tr, int d, int mp, int hd) {
-  AttnSmem s;
-  size_t o = 0;
-  s.xres = o;  o += align128((size_t)tr * d * 4);
-  s.abuf = o;  o += align128((size_t)tr * (d + kPad) * 2);
-  s.qall = o;  o += align128((size_t)tr * (d + kPad) * 2);
-  s.kv = o;    o += align128((size_t)mp * (hd + kPad) * 2);
-  s.logit = o; o += attn_scratch_bytes(tr, mp);
-  s.stage = o; o += kStageBytes;
-  s.total = o;
-  return s;
-}
-
 __global__ void __launch_bounds__(kThreads) block_attention_kernel(AttnKernelArgs a) {
   extern __shared__ __align__(128) char smem[];
   const int tr = a.tr, d = a.d, hd = d / a.at.heads, mp = (a.at.m + 15) & ~15;

@@ -100,10 +100,10 @@ __device__ __forceinline__ void load_tile_rows(bf16* dst, int dst_ld, const bf16
 
 // LayerNorm of one row of n values, computed by one warp in fp32 with
 // two-pass statistics; load(c) returns element c as float, the result goes to
-// dst as bf16.
+// dst as bf16. Returns (mean, 1/std) to every lane.
 template <typename Load>
-__device__ __forceinline__ void layer_norm_row(Load load, int n, const float* gamma,
-                                               const float* beta, float eps, bf16* dst) {
+__device__ __forceinline__ float2 layer_norm_row(Load load, int n, const float* gamma,
+                                                 const float* beta, float eps, bf16* dst) {
   const int lane = threadIdx.x & 31;
   float s = 0.0f;
   for (int c = lane; c < n; c += 32) s += load(c);
@@ -116,6 +116,7 @@ __device__ __forceinline__ void layer_norm_row(Load load, int n, const float* ga
   const float rstd = rsqrtf(warp_sum(q) / n + eps);
   for (int c = lane; c < n; c += 32)
     dst[c] = __float2bfloat16((load(c) - mean) * rstd * gamma[c] + beta[c]);
+  return make_float2(mean, rstd);
 }
 
 // LayerNorm of one row of n <= 32 * kMaxPerLane bf16 values in global memory,

@@ -31,7 +31,12 @@ Hopper kernels and nothing else in their place on a CUDA tensor:
   * training (v1 only), whenever a gradient is wanted or in training mode: the
     projections, SR conv and SR-LN in PyTorch, the attention core of
     ops/pallas_attention.py and the LN-MLP of ops/fused_mlp.py, both
-    differentiable, with DropPath (training mode only) as per-sample scales.
+    differentiable, with DropPath (training mode only) as per-sample scales;
+    with ``fused_attn_train`` in training mode the K/V projection stays in
+    PyTorch and the rest of the attention half (LN1, Q, attention, the
+    out-projection and the DropPath add) is one call of
+    ops/block_attention.py:fused_block_attention_train (``fused_attn_stats``:
+    its saved-statistics backward).
 The training forward returns the MLM head's transformed hidden rows, the
 tied table and the bias (``mlm_hidden``, ``mlm_table``, ``mlm_bias``) in
 place of the [B, T, vocab] logits, for the chunked loss; eval returns all
@@ -46,6 +51,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.optim.optimizer import register_optimizer_step_post_hook
 
 from mvlt_tpu_torch.config import DataConfig, ModelConfig
 from mvlt_tpu_torch.models.bert_embeddings import BertEmbeddings
@@ -53,7 +59,8 @@ from mvlt_tpu_torch.models.heads import CLSHead, ITGHead, ITMHead, MLMHead
 from mvlt_tpu_torch.models.registry import resolve_model_config, validate_model_config
 from mvlt_tpu_torch.models.swin import (TEXT_POOL, SwinJointAttention, heads_of, merge_heads,
                                         swin_band_stage, window_size_for)
-from mvlt_tpu_torch.ops.block_attention import fused_block_attention
+from mvlt_tpu_torch.ops.block_attention import (fused_block_attention,
+                                                fused_block_attention_train)
 from mvlt_tpu_torch.ops.block_fused import fused_block
 from mvlt_tpu_torch.ops.dwconv_mlp import fused_dwconv_mlp
 from mvlt_tpu_torch.ops.fused_mlp import fused_ln_mlp
@@ -170,6 +177,20 @@ def kernel_operand(t: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[to
     return t.to(dtype)
 
 
+# Optimizer steps taken in this process, by any torch optimizer: a fused
+# update (AdamW(fused=True)) writes the parameters without moving their
+# ``_version``, so the serving caches read this count too.
+_optimizer_steps = 0
+
+
+def _count_optimizer_step(optimizer, args, kwargs) -> None:
+    global _optimizer_steps
+    _optimizer_steps += 1
+
+
+register_optimizer_step_post_hook(_count_optimizer_step)
+
+
 class CastOperands:
     """The cache of a block's serving operands: ``kernel_params`` cast by
     ``kernel_operand``."""
@@ -178,9 +199,12 @@ class CastOperands:
 
     def kernel_operands(self, dtype: torch.dtype) -> tuple[tuple, ...]:
         """``kernel_params`` cast by ``kernel_operand`` once, and again only
-        after a parameter changed in place (load_state_dict), moved, or the
-        compute dtype changed."""
-        stamp = (dtype, *((p.device, p.data_ptr(), p._version) for p in self.parameters()))
+        after a parameter changed in place (load_state_dict, an in-place
+        edit), moved, or the compute dtype changed, or after any optimizer
+        step (fused or not). A write through ``.data`` outside an optimizer
+        step moves none of these and is not seen."""
+        stamp = (dtype, _optimizer_steps,
+                 *((p.device, p.data_ptr(), p._version) for p in self.parameters()))
         if self._operands is None or self._operands[0] != stamp:
             self._operands = (stamp, tuple(tuple(kernel_operand(t, dtype) for t in group)
                                            for group in self.kernel_params()))
@@ -204,11 +228,14 @@ class Block(CastOperands, nn.Module):
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float, sr_ratio: int,
                  qkv_bias: bool, ln_eps: float = 1e-6, sr_ln_eps: float = 1e-5,
-                 drop_path: float = 0.0, v2: bool = False):
+                 drop_path: float = 0.0, v2: bool = False, fused_attn_train: bool = False,
+                 fused_attn_stats: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.drop_path = drop_path
         self.v2 = v2
+        self.fused_attn_train = fused_attn_train
+        self.fused_attn_stats = fused_attn_stats
         self.norm1 = nn.LayerNorm(dim, eps=ln_eps)
         self.attn = JointSRAttention(dim, num_heads, sr_ratio, qkv_bias, sr_ln_eps)
         self.norm2 = nn.LayerNorm(dim, eps=ln_eps)
@@ -263,10 +290,14 @@ class Block(CastOperands, nn.Module):
         return fused_block(x, k, v, *ops[1], **kws[1])
 
     def train_forward(self, x, hw, generator=None, *, attention=fused_attention,
-                      ln_mlp=fused_ln_mlp):
-        """The differentiable path on the fp32 master parameters. ``attention``
-        and ``ln_mlp`` are the kernels' wrappers; a check passes functions of
-        the same signatures over their plain versions."""
+                      ln_mlp=fused_ln_mlp, block_attention=fused_block_attention_train):
+        """The differentiable path on the fp32 master parameters. ``attention``,
+        ``ln_mlp`` and ``block_attention`` are the kernels' wrappers; a check
+        passes functions of the same signatures over their plain versions.
+        In training mode with ``fused_attn_train`` the attention half after
+        the K/V projection is one ``block_attention`` call; otherwise (and in
+        eval mode with a gradient wanted) Q, ``attention``, the projection
+        and the DropPath add run apart."""
         if self.v2:
             raise NotImplementedError(
                 "PVT-v2 training (or a gradient through a v2 block) is not ported yet: "
@@ -276,15 +307,21 @@ class Block(CastOperands, nn.Module):
         heads = self.num_heads
         hd = d // heads
         normed = layer_norm_fp32(x, self.norm1.weight, self.norm1.bias, self.norm1.eps)
-        q = linear(normed, a.q.weight, a.q.bias).reshape(b, n, heads, hd).transpose(1, 2)
         sr = ((a.sr.weight, a.sr.bias, a.norm.weight, a.norm.bias, a.norm.eps)
               if a.sr_ratio > 1 else (None,) * 4 + (1e-5,))
         kv_in = reduce_kv_input(normed, hw, a.sr_ratio, *sr)
         k, v = split_kv(linear(kv_in, a.kv.weight, a.kv.bias), heads)
-        o = attention(q, k, v, hd ** -0.5).transpose(1, 2).reshape(b, n, d)
-        attn_out = linear(o, a.proj.weight, a.proj.bias)
-        s1 = self.drop_path_scale(x, generator)
-        x = x + (attn_out if s1 is None else attn_out * s1.to(x.dtype)[:, None, None])
+        if self.fused_attn_train and self.training:
+            x = block_attention(x, k, v, self.norm1.weight, self.norm1.bias, a.q.weight,
+                                a.q.bias, a.proj.weight, a.proj.bias,
+                                self.drop_path_scale(x, generator), heads=heads,
+                                eps=self.norm1.eps, save_stats=self.fused_attn_stats)
+        else:
+            q = linear(normed, a.q.weight, a.q.bias).reshape(b, n, heads, hd).transpose(1, 2)
+            o = attention(q, k, v, hd ** -0.5).transpose(1, 2).reshape(b, n, d)
+            attn_out = linear(o, a.proj.weight, a.proj.bias)
+            s1 = self.drop_path_scale(x, generator)
+            x = x + (attn_out if s1 is None else attn_out * s1.to(x.dtype)[:, None, None])
         return ln_mlp(x, self.norm2.weight, self.norm2.bias, m.fc1.weight, m.fc1.bias,
                       m.fc2.weight, m.fc2.bias, self.drop_path_scale(x, generator),
                       self.norm2.eps)
@@ -440,7 +477,8 @@ class PVLT(nn.Module):
                           for j in range(cfg.depths[i])]
             else:
                 blocks = [Block(dim, cfg.num_heads[i], cfg.mlp_ratios[i], cfg.sr_ratios[i],
-                                cfg.qkv_bias, cfg.block_ln_eps, eps, next(dpr), v2)
+                                cfg.qkv_bias, cfg.block_ln_eps, eps, next(dpr), v2,
+                                cfg.fused_attn_train, cfg.fused_attn_stats)
                           for _ in range(cfg.depths[i])]
             setattr(self, f"block{i + 1}", nn.ModuleList(blocks))
             grid //= 2

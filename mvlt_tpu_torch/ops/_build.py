@@ -39,6 +39,9 @@ _SIGNATURES = {
     "mvlt_sr_kv": [_P] * 11 + [_I] * 7 + [_F, _F, _P],
     "mvlt_block_fused": [_P] * 16 + [_I] * 6 + [_F, _F, _F, _P],
     "mvlt_block_attention": [_P] * 10 + [_I] * 5 + [_F, _F, _P],
+    "mvlt_fba_fwd": [_P] * 12 + [_I] * 5 + [_F, _F, _P],
+    "mvlt_fba_slot_floats": [_I],
+    "mvlt_fba_bwd": [_P] * 13 + [_I] + [_P] * 11 + [_I] * 5 + [_F, _F, _P],
     "mvlt_dwconv_mlp": [_P] * 10 + [_I] * 6 + [_F, _P],
     "mvlt_attention_fwd": [_P] * 4 + [_STRIDES] + [_I] * 5 + [_F, _P],
     "mvlt_attention_bwd": [_P] * 7 + [_STRIDES] + [_I] * 5 + [_F, _P],

@@ -121,6 +121,38 @@ def test_step_options_through_the_cli(tmp_path):
         cli.main(BASE + ["--output-dir", run, "--grad-accum", "3"])
 
 
+def test_fused_attention_route_from_a_json_config(tmp_path):
+    """A JSON config whose model_overrides set fused_attn_train and
+    fused_attn_stats trains one finite epoch on the fused route: its
+    saved-statistics backward once per block and step, the default route's
+    attention core never."""
+    import runpy
+    from unittest import mock
+
+    from mvlt_tpu_torch.ops import block_attention, pallas_attention
+
+    flat = runpy.run_path("configs/test_micro.py")["cfg"]
+    flat["model_overrides"] = {**flat["model_overrides"], "fused_attn_train": True,
+                               "fused_attn_stats": True}
+    path = tmp_path / "fused.json"
+    path.write_text(json.dumps(flat))
+    run = str(tmp_path / "fused")
+    with mock.patch.object(block_attention, "block_attention_bwd_reference",
+                           wraps=block_attention.block_attention_bwd_reference) as fused_bwd, \
+            mock.patch.object(pallas_attention, "attention_bwd_reference",
+                              wraps=pallas_attention.attention_bwd_reference) as default_bwd:
+        cli.main(["--config", str(path), "--synthetic-data", "--device", "cpu",
+                  "--batch-size", "16", "--epochs", "1", "--output-dir", run])
+    (line,) = _log(run)
+    assert np.isfinite(line["total_loss"])
+    steps = _saved(run)["step"]
+    assert fused_bwd.call_count == 8 * steps and default_bwd.call_count == 0
+    assert all(c.kwargs["stats"] is not None for c in fused_bwd.call_args_list)
+    with open(os.path.join(run, "checkpoint", "last.json")) as f:
+        model = json.load(f)["config"]["model"]
+    assert model["fused_attn_train"] and model["fused_attn_stats"]
+
+
 @pytest.mark.parametrize("flags", [["--viz"], ["--zero1"], ["--tp-size", "2"],
                                    ["--steps-per-dispatch", "2"], ["--eval-retrieval-itr"],
                                    ["--eval-recognition"], ["--remat"], ["--profile-dir", "p"]])

@@ -14,7 +14,10 @@ rows off the tile and D = 320 at ratio 4, the v2 kernels on grids of odd
 sizes, one wider than 128, no text rows and a hidden width off the chunk,
 the Swin kernels at windows of 4 and 6 (36 rows, off the 16-row tile), grids
 with h != w, pool windows of 2, T = 7 and a head dim of 32, a Swin block
-on both of its routes, and the ways a wrapper refuses its input. Bound:
+on both of its routes, the fused attention half's training kernels at head
+dims 16 and 32, M = 600, five and sixteen heads, both backward forms, and a
+training block on that route against the plain route, and the ways a
+wrapper refuses its input. Bound:
 max|kernel - plain| / max|plain| <= 2e-2 in bf16, as in chip_smoke.py.
 """
 
@@ -22,7 +25,13 @@ import pytest
 import torch
 
 from mvlt_tpu_torch.models.pvlt import Block, SwinBlock
-from mvlt_tpu_torch.ops.block_attention import block_attention_reference, fused_block_attention
+from mvlt_tpu_torch.ops.block_attention import (block_attention_bwd_reference,
+                                                block_attention_reference,
+                                                block_attention_train_bwd,
+                                                block_attention_train_fwd,
+                                                block_attention_train_reference,
+                                                fused_block_attention,
+                                                fused_block_attention_train)
 from mvlt_tpu_torch.ops.block_fused import block_reference, fused_block
 from mvlt_tpu_torch.ops.dwconv_mlp import dwconv_mlp_reference, fused_dwconv_mlp
 from mvlt_tpu_torch.ops.fused_mlp import (fused_ln_mlp, ln_mlp_bwd, ln_mlp_bwd_reference,
@@ -227,6 +236,105 @@ def test_training_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="differ"):
         ln_mlp_bwd(x, g, be, w1, b1, w2, s, 1e-6, x[:, :5].contiguous())
 
+
+
+def _fba_inputs(b, n, d, heads, m, dev, gen):
+    """Inputs of the fused attention half: Q at gain 1.5 (a peaked softmax),
+    Wq and Wp in bf16, a row scale with a dropped sample."""
+    bf = lambda *s: torch.randn(*s, generator=gen).to(dev, torch.bfloat16)
+    r = lambda *s, std: (std * torch.randn(*s, generator=gen)).to(dev)
+    params = (1 + r(d, std=0.1), r(d, std=0.1),
+              r(d, d, std=1.5 * d ** -0.5).to(torch.bfloat16), r(d, std=0.05),
+              r(d, d, std=d ** -0.5).to(torch.bfloat16), r(d, std=0.05))
+    s = torch.full((b,), 1 / 0.9, device=dev)
+    s[0] = 0.0
+    hd = d // heads
+    return bf(b, n, d), bf(b, heads, m, hd), bf(b, heads, m, hd), params, s, bf(b, n, d)
+
+
+@pytest.mark.parametrize("b,n,d,heads,m", [
+    (2, 300, 96, 3, 600),     # head dim 32, M = 600 (padded to 608), N off the row tile
+    (3, 77, 160, 5, 40),      # head dim 32, five heads, one row tile per sample
+    (2, 129, 256, 16, 7),     # head dim 16, M under one tensor-core tile
+])
+def test_fba_train_kernels_match_plain(dev, b, n, d, heads, m):
+    """The fused attention half's forward (with and without statistics) and
+    its backward in both forms against their plain versions; a dropped
+    sample passes dy through; the backward is deterministic."""
+    gen = torch.Generator().manual_seed(n + d)
+    x, k, v, params, s, dy = _fba_inputs(b, n, d, heads, m, dev, gen)
+    g, be, wq, bq, wp, bp = params
+    kw = dict(heads=heads, eps=1e-6)
+    launches = (block_attention_train_fwd.launches, block_attention_train_bwd.launches)
+    out = block_attention_train_fwd(x, k, v, *params, s, **kw)
+    out_s, st = block_attention_train_fwd(x, k, v, *params, s, save_stats=True, **kw)
+    grads = block_attention_train_bwd(x, k, v, g, be, wq, bq, wp, s, dy, **kw)
+    grads_s = block_attention_train_bwd(x, k, v, g, be, wq, bq, wp, s, dy, stats=st, **kw)
+    torch.cuda.synchronize()
+    assert (block_attention_train_fwd.launches - launches[0],
+            block_attention_train_bwd.launches - launches[1]) == (2, 2)
+    want = block_attention_train_reference(x, k, v, *params, s, **kw)
+    _, st_ref = block_attention_train_reference(x, k, v, *params, s, save_stats=True, **kw)
+    assert _rel(out, want) <= TOL and _rel(out_s, want) <= TOL
+    for c in (slice(0, 1), slice(1, 2), slice(2, None, 2), slice(3, None, 2)):
+        assert _rel(st[..., c], st_ref[..., c]) <= TOL
+    for got, stats in ((grads, None), (grads_s, st_ref)):
+        ref = block_attention_bwd_reference(x, k, v, g, be, wq, bq, wp, s, dy, stats=stats, **kw)
+        for a, w in zip(got, ref):
+            assert a.shape == w.shape and a.dtype == w.dtype and _rel(a, w) <= TOL
+        assert torch.equal(got[0][0], dy[0]) and not got[1][0].any() and not got[2][0].any()
+    again = block_attention_train_bwd(x, k, v, g, be, wq, bq, wp, s, dy, stats=st, **kw)
+    assert all(torch.equal(a, c) for a, c in zip(grads_s, again))
+
+
+def test_fused_attention_route_block_matches_plain(dev):
+    """A training Block on the fused_attn_train route (both forms) against
+    the same block on the plain route: output and every gradient."""
+    gen = torch.Generator().manual_seed(5)
+    blk = Block(96, 3, 2.0, 2, True, drop_path=0.3).train()
+    with torch.no_grad():
+        for p in blk.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=gen))
+    blk = blk.to(dev)
+    x = torch.randn(3, 8 * 6 + 9, 96, generator=gen).to(dev, torch.bfloat16)
+    dy = torch.randn(x.shape, generator=gen).to(dev, torch.bfloat16)
+    def plain_ln_mlp(x, gamma, beta, w1, b1, w2, b2, row_scale, eps):
+        if row_scale is None:
+            row_scale = torch.ones(x.shape[0], device=x.device)
+        return ln_mlp_reference(x, gamma, beta, w1, b1, w2, b2, row_scale, eps)
+
+    plain = dict(attention=attention_reference, ln_mlp=plain_ln_mlp,
+                 block_attention=lambda *a, save_stats, **kw: block_attention_train_reference(
+                     *a, **kw))
+    for with_stats in (False, True):
+        blk.fused_attn_train, blk.fused_attn_stats = True, with_stats
+        results = []
+        for kwargs in ({}, plain):
+            xl = x.clone().requires_grad_()
+            out = blk.train_forward(xl, (8, 6), torch.Generator(dev).manual_seed(1), **kwargs)
+            results.append((out, torch.autograd.grad(out, [xl] + list(blk.parameters()), dy)))
+        (out_k, g_k), (out_p, g_p) = results
+        assert _rel(out_k, out_p) <= TOL
+        for a, w in zip(g_k, g_p):
+            assert _rel(a, w) <= TOL
+
+
+def test_fba_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    gen = torch.Generator().manual_seed(0)
+    x, k, v, params, s, dy = _fba_inputs(2, 40, 64, 2, 24, dev, gen)
+    g, be, wq, bq, wp, bp = params
+    kw = dict(heads=2, eps=1e-6)
+    with pytest.raises(ValueError, match="bfloat16"):
+        block_attention_train_fwd(x.float(), k, v, *params, s, **kw)
+    with pytest.raises(ValueError, match="16-multiple head dim"):
+        block_attention_train_fwd(x, k, v, *params, s, heads=8, eps=1e-6)
+    with pytest.raises(ValueError, match="contiguous"):
+        block_attention_train_fwd(x, k.transpose(2, 3), v, *params, s, **kw)
+    with pytest.raises(ValueError, match="stats"):
+        block_attention_train_bwd(x, k, v, g, be, wq, bq, wp, s, dy,
+                                  stats=torch.zeros(2, 40, 4, device=dev), **kw)
+    with pytest.raises(ValueError, match="differ"):
+        block_attention_train_bwd(x, k, v, g, be, wq, bq, wp, s, dy[:, :5].contiguous(), **kw)
 
 
 @pytest.mark.parametrize("r,v,h,frac", [(70, 1000, 64, 0.5), (513, 4099, 256, 0.2),

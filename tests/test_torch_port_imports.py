@@ -53,6 +53,18 @@ state = create_train_state(model, OptimConfig(warmup_epochs=0), 2, 1)
 data = SyntheticFashionGen(DataConfig(input_size=32, num_text_tokens=16), size=2)
 state, stats = train_one_epoch(make_train_step(cfg), state, batches(data, 2), is_main=False)
 assert state.step == 1 and np.isfinite(stats["total_loss"]), stats
+from mvlt_tpu_torch.ops import block_attention
+for with_stats in (False, True):
+    fused = ModelConfig(**micro, fused_attn_train=True, fused_attn_stats=with_stats)
+    state = create_train_state(create_model(fused, device="cpu"), OptimConfig(warmup_epochs=0),
+                               2, 1)
+    calls = []
+    ref = block_attention.block_attention_bwd_reference
+    block_attention.block_attention_bwd_reference = lambda *a, **k: calls.append(1) or ref(*a, **k)
+    state, stats = train_one_epoch(make_train_step(fused), state, batches(data, 2),
+                                   is_main=False)
+    block_attention.block_attention_bwd_reference = ref
+    assert len(calls) == 8 and np.isfinite(stats["total_loss"]), (calls, stats)
 import os, tempfile
 from mvlt_tpu_torch import cli
 with tempfile.TemporaryDirectory() as out:
@@ -66,9 +78,10 @@ print("OK")
 
 
 def test_port_imports_and_serves_without_jax():
-    """Serving (v1, v2 and Swin), one training step and one epoch through the CLI
-    (training, VL eval, checkpoint) of the port with jax, flax and the JAX
-    package blocked."""
+    """Serving (v1, v2 and Swin), one training step on the default route and
+    one on the fused_attn_train route in each backward form, and one epoch
+    through the CLI (training, VL eval, checkpoint) of the port with jax,
+    flax and the JAX package blocked."""
     proc = subprocess.run([sys.executable, "-c", _GUARDED], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
