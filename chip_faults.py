@@ -8,7 +8,8 @@ run from the root of a checkout on a machine with a CUDA card and nvcc, as
 chip_smoke.py is. For each fault it copies ``mvlt_tpu_torch/`` and
 ``chip_smoke.py`` into ``build/planted_faults/<fault>/``, rewrites one line
 of a kernel source there, runs the chip_smoke phase that checks that kernel
-(``v2_kernels`` or ``swin_kernels``) in that copy (its kernels built from the
+(``v2_kernels``, ``swin_kernels``, ``fba_train_kernels`` or
+``train_kernels``) in that copy (its kernels built from the
 changed source), and then, with the bound lifted, prints every check's error
 at the B = 4 shapes. The copy is removed afterwards; the sources of the
 checkout are never changed. It exits non-zero if a fault passes the phase.
@@ -29,6 +30,13 @@ fba_train_kernels:
                    every tile);
   dbp_unscaled     the projection bias gradient sums dy without the row
                    scale, so a dropped sample's rows reach it.
+The training attention kernels (csrc/attention.cu), phase train_kernels:
+  no_online_rescale    the forward keeps the running sum and output as they
+                       are when a later K/V chunk raises a row's max (seen
+                       only at M above one 64-column chunk, peaked logits);
+  one_split_slot       the slot sum drops the last range's dK/dV partial;
+  lse_natural_vs_log2  the backward takes lse (natural log) as a base-2
+                       exponent.
 """
 
 from __future__ import annotations
@@ -73,6 +81,18 @@ FAULTS = {
         "fba_train_kernels", "mvlt_tpu_torch/csrc/block_attention_train.cu",
         "sbp += __bfloat162float(dyb[(size_t)r * d + c]) * sc;",
         "sbp += __bfloat162float(dyb[(size_t)r * d + c]);"),
+    "no_online_rescale": (
+        "train_kernels", "mvlt_tpu_torch/csrc/attention.cu",
+        "const float a0 = exp2f(m0 - mn0), a1 = exp2f(m1 - mn1);",
+        "const float a0 = 1.0f, a1 = 1.0f;"),
+    "one_split_slot": (
+        "train_kernels", "mvlt_tpu_torch/csrc/attention.cu",
+        "for (int s = 0; s < splits; ++s) {",
+        "for (int s = 0; s < splits - 1; ++s) {"),
+    "lse_natural_vs_log2": (
+        "train_kernels", "mvlt_tpu_torch/csrc/attention.cu",
+        "a.lse[(size_t)bh * a.n + row] * kLog2e",
+        "a.lse[(size_t)bh * a.n + row]"),
 }
 # per phase: the checks at B = 4 that print each error with the bound lifted
 MARGINS = {
@@ -85,6 +105,14 @@ for label, shape in shapes + [("v2_ragged", c.V2_RAGGED)]:
 """,
     "swin_kernels": """
 c.check_swin_kernels(stats, torch.Generator().manual_seed(c.SEED + 13), c.SMOKE_BATCH)
+""",
+    "train_kernels": """
+gen = torch.Generator().manual_seed(c.SEED + 7)
+shapes = [(f"stage{i + 1}", (h, w, d, nh, sr, hid, c.TEXT))
+          for i, (h, w, d, nh, sr, hid) in enumerate(c.STAGES)]
+extra = [("ragged", c.TRAIN_RAGGED), ("m177", c.TRAIN_M177), ("m272", c.TRAIN_M272)]
+for label, shape in shapes + extra:
+    c.check_train_kernels(stats, gen, label, shape, c.SMOKE_BATCH)
 """,
     "fba_train_kernels": """
 gen = torch.Generator().manual_seed(c.SEED + 17)

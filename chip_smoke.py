@@ -11,7 +11,9 @@ JSON line each; a failed phase raises and the script exits non-zero:
 
   1. device: card name and power limit (nvidia-smi), torch/CUDA/nvcc versions;
      TF32 off (matmul and cuDNN) for the fp32 comparisons;
-  2. build: nvcc compiles mvlt_tpu_torch/csrc/*.cu for sm_90a;
+  2. build: nvcc compiles mvlt_tpu_torch/csrc/*.cu for sm_90a; ptxas's
+     registers and spills per kernel, and the HGMMA instructions in the SASS
+     of each attention kernel (cuobjdump), which the wgmma kernels must hold;
   3. kernels: kernel A (SR-KV) and kernel B (whole block) against their plain
      PyTorch versions on the card in bf16, bound max|kernel - plain| /
      max|plain| <= 2e-2, at the four pvlt_tiny stage shapes (B = 4), one
@@ -53,11 +55,13 @@ JSON line each; a failed phase raises and the script exits non-zero:
      per forward and nothing else), where the ITM logits with create_model's
      own initialisation are also measured on the card and on the CPU in
      bf16 against the CPU fp32 model (a measurement, not a check);
-  7. training kernels: attention forward/backward and LN-MLP
-     forward/backward against their plain versions in bf16 (every output,
-     bound 2e-2 as in phase 3) at the four stage shapes at B = 4 and
-     B = 150 and a ragged shape; at B = 150 each kernel's time beside its
-     plain version's, its bound, and for attention
+  7. training kernels: attention forward (o, lse) and backward (dq, dk,
+     dv, fed the plain forward's o and lse) and LN-MLP forward/backward
+     against their plain versions in bf16 (every output, bound 2e-2 as in
+     phase 3) at the four stage shapes at B = 4 and B = 150, a ragged shape
+     (M = 22, head dim 32), stage 1 at 224 input (M = 177) and M = 272 (two
+     K/V groups of the backward, head dim 32) at B = 4; at B = 150 each
+     kernel's time beside its plain version's, its bound, and for attention
      F.scaled_dot_product_attention's (a yardstick the port never calls);
   8. the MLM CE kernels (forward; backward dx and dE/db) against their plain
      versions in bf16 (nll, lse and the three gradients within 2e-2) at the
@@ -156,9 +160,10 @@ from mvlt_tpu_torch.ops.fused_mlp import (fused_ln_mlp, ln_mlp_bwd, ln_mlp_bwd_r
 from mvlt_tpu_torch.ops.kernel_math import layer_norm_fp32, linear
 from mvlt_tpu_torch.ops.mlm_ce import (mlm_ce_bwd, mlm_ce_fwd, mlm_nll_bwd_reference,
                                        mlm_nll_reference)
-from mvlt_tpu_torch.ops.pallas_attention import (attention_bwd, attention_bwd_reference,
-                                                 attention_fwd, attention_reference,
-                                                 fused_attention)
+from mvlt_tpu_torch.ops.pallas_attention import (attention_bwd, attention_fwd,
+                                                 attention_reference,
+                                                 attention_stats_bwd_reference,
+                                                 attention_stats_reference, fused_attention)
 from mvlt_tpu_torch.ops.sr_kv import fused_ln_sr_kv, sr_kv_reference
 from mvlt_tpu_torch.ops.swin_attention import fused_swin_attention, swin_attention_reference
 from mvlt_tpu_torch.ops.swin_band import fused_swin_block, swin_block_reference
@@ -328,13 +333,39 @@ def phase_device() -> str:
     return smi
 
 
+# the wgmma kernels, each of which must hold HGMMA instructions in its SASS
+WGMMA_KERNELS = ("attn_fwd_hopper_kernel", "attn_bwd_hopper_kernel")
+
+
+def hgmma_counts(library: pathlib.Path) -> dict:
+    """HGMMA instructions in the SASS of each kernel of the library whose
+    name holds "attn_" (``cuobjdump -sass``), by mangled name."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    counts, current = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            name = ln.split("Function :", 1)[1].strip()
+            current = name if "attn_" in name else None
+            if current:
+                counts[current] = 0
+        elif current and "HGMMA" in ln:
+            counts[current] += 1
+    return counts
+
+
 def phase_build() -> None:
     path, log, seconds = _build.build()
     _build.load_library()
     ptxas = [ln.strip() for ln in log.splitlines()
              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+    hgmma = hgmma_counts(path)
+    ok = all(any(k in name and n > 0 for name, n in hgmma.items()) for k in WGMMA_KERNELS)
     emit("build", library=str(path.relative_to(path.parents[2])),
-         seconds=round(seconds, 2), ptxas=ptxas)
+         seconds=round(seconds, 2), ptxas=ptxas, hgmma=hgmma, ok=ok)
+    if not ok:
+        raise AssertionError(f"a wgmma kernel has no HGMMA in its SASS: {hgmma}")
 
 
 def stage_params(gen, d: int, sr: int, hidden: int, device) -> dict:
@@ -1134,6 +1165,8 @@ def phase_swin(stats: dict) -> None:
 # ---- the training path -------------------------------------------------
 
 TRAIN_RAGGED = (6, 10, 96, 3, 2, 384, 7)   # N = 67, M = 22, head dim 32
+TRAIN_M177 = (56, 56, 64, 1, 8, 512, TEXT)  # stage 1 at 224 input: N = 3,264, M = 177
+TRAIN_M272 = (48, 48, 64, 2, 4, 512, TEXT)  # N = 2,432, M = 272 (two K/V groups), head dim 32
 
 
 def train_kernel_inputs(gen, shape: tuple, batch: int) -> dict:
@@ -1163,6 +1196,10 @@ def _attn_args(a):
     return a["q"], a["k"], a["v"]
 
 
+def _bwd_args(a, o_lse):
+    return (*_attn_args(a), *o_lse, a["do"], a["scale"])
+
+
 def _mlp_fwd_args(a):
     return (a["x"], *a["mlp"], a["s"], 1e-6)
 
@@ -1176,11 +1213,11 @@ def check_train_kernels(stats: dict, gen, label: str, shape: tuple, batch: int) 
     """The four training kernels against their plain versions on one
     shape's seeded inputs; every output within KERNEL_TOL."""
     a = train_kernel_inputs(gen, shape, batch)
+    o_lse = attention_stats_reference(*_attn_args(a), a["scale"])   # the backward's o, lse
     outs = {
-        "attention_fwd": (("o",), (attention_fwd(*_attn_args(a), a["scale"]),),
-                          (attention_reference(*_attn_args(a), a["scale"]),)),
-        "attention_bwd": (("dq", "dk", "dv"), attention_bwd(*_attn_args(a), a["do"], a["scale"]),
-                          attention_bwd_reference(*_attn_args(a), a["do"], a["scale"])),
+        "attention_fwd": (("o", "lse"), attention_fwd(*_attn_args(a), a["scale"]), o_lse),
+        "attention_bwd": (("dq", "dk", "dv"), attention_bwd(*_bwd_args(a, o_lse)),
+                          attention_stats_bwd_reference(*_bwd_args(a, o_lse))),
         "ln_mlp_fwd": (("y",), (ln_mlp_fwd(*_mlp_fwd_args(a)),),
                        (ln_mlp_reference(*_mlp_fwd_args(a)),)),
         "ln_mlp_bwd": (("dx", "dgamma", "dbeta", "dW1", "db1", "dW2", "db2"),
@@ -1241,16 +1278,19 @@ def phase_train_kernels(stats: dict) -> None:
     gen = torch.Generator().manual_seed(SEED + 7)
     shapes = [(f"stage{i + 1}", (h, w, d, nh, sr, hid, TEXT))
               for i, (h, w, d, nh, sr, hid) in enumerate(STAGES)]
-    for label, shape in shapes + [("ragged", TRAIN_RAGGED)]:
+    extra = [("ragged", TRAIN_RAGGED), ("m177", TRAIN_M177), ("m272", TRAIN_M272)]
+    for label, shape in shapes + extra:
         check_train_kernels(stats, gen, label, shape, SMOKE_BATCH)
     for label, shape in shapes:
         a = check_train_kernels(stats, gen, label, shape, TRAIN_BATCH)
         sdpa_fwd, sdpa_bwd, sdpa_both = sdpa_times(a)
+        o_lse = attention_fwd(*_attn_args(a), a["scale"])
         times = {
             "attention_fwd": (lambda: attention_fwd(*_attn_args(a), a["scale"]),
-                              lambda: attention_reference(*_attn_args(a), a["scale"]), sdpa_fwd),
-            "attention_bwd": (lambda: attention_bwd(*_attn_args(a), a["do"], a["scale"]),
-                              lambda: attention_bwd_reference(*_attn_args(a), a["do"], a["scale"]),
+                              lambda: attention_stats_reference(*_attn_args(a), a["scale"]),
+                              sdpa_fwd),
+            "attention_bwd": (lambda: attention_bwd(*_bwd_args(a, o_lse)),
+                              lambda: attention_stats_bwd_reference(*_bwd_args(a, o_lse)),
                               sdpa_bwd),
             "ln_mlp_fwd": (lambda: ln_mlp_fwd(*_mlp_fwd_args(a)),
                            lambda: ln_mlp_reference(*_mlp_fwd_args(a)), None),
@@ -1267,7 +1307,7 @@ def phase_train_kernels(stats: dict) -> None:
                  **({"sdpa_fwd_bwd_ms": sdpa_both} if name == "attention_bwd" else {}))
             add_time(stats, name, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                      bound_by=bound_by, library_ms=library_ms)
-        del a, times
+        del a, times, o_lse
         torch.cuda.empty_cache()
 
 
@@ -1475,7 +1515,8 @@ def compare_train_cpu(cfg, sd, card_routes: dict) -> None:
                                  f"({card_worst})")
 
 
-TRAIN_GROUPS = {"attention_fwd": ("attn_fwd_kernel",), "attention_bwd": ("attn_bwd_kernel",),
+TRAIN_GROUPS = {"attention_fwd": ("attn_fwd_hopper_kernel",),
+                "attention_bwd": ("attn_bwd_hopper_kernel", "attn_bwd_slot_sum_kernel"),
                 "fba_train_fwd": ("fba_fwd_kernel",),
                 "fba_train_bwd": ("fba_bwd_rows_kernel", "fba_bwd_kv_kernel",
                                   "fba_reduce_kernel"),

@@ -43,8 +43,8 @@ _SIGNATURES = {
     "mvlt_fba_slot_floats": [_I],
     "mvlt_fba_bwd": [_P] * 13 + [_I] + [_P] * 11 + [_I] * 5 + [_F, _F, _P],
     "mvlt_dwconv_mlp": [_P] * 10 + [_I] * 6 + [_F, _P],
-    "mvlt_attention_fwd": [_P] * 4 + [_STRIDES] + [_I] * 5 + [_F, _P],
-    "mvlt_attention_bwd": [_P] * 7 + [_STRIDES] + [_I] * 5 + [_F, _P],
+    "mvlt_attention_fwd": [_P] * 5 + [_STRIDES] + [_I] * 5 + [_F, _P],
+    "mvlt_attention_bwd": [_P] * 11 + [_STRIDES] + [_I] * 6 + [_F, _P],
     "mvlt_ln_mlp_fwd": [_P] * 9 + [_L] + [_I] * 3 + [_F, _P],
     "mvlt_ln_mlp_slot_floats": [_I, _I],
     "mvlt_ln_mlp_bwd": [_P] * 10 + [_I] + [_P] * 6 + [_L] + [_I] * 3 + [_F, _P],

@@ -139,8 +139,8 @@ def test_fused_attention_route_from_a_json_config(tmp_path):
     run = str(tmp_path / "fused")
     with mock.patch.object(block_attention, "block_attention_bwd_reference",
                            wraps=block_attention.block_attention_bwd_reference) as fused_bwd, \
-            mock.patch.object(pallas_attention, "attention_bwd_reference",
-                              wraps=pallas_attention.attention_bwd_reference) as default_bwd:
+            mock.patch.object(pallas_attention, "attention_stats_bwd_reference",
+                              wraps=pallas_attention.attention_stats_bwd_reference) as default_bwd:
         cli.main(["--config", str(path), "--synthetic-data", "--device", "cpu",
                   "--batch-size", "16", "--epochs", "1", "--output-dir", run])
     (line,) = _log(run)

@@ -9,8 +9,10 @@ PyTorch for CUDA:
 (``--noconftest``: tests/conftest.py configures JAX, which this file does
 not need.) chip_smoke.py checks the kernels at the pvlt_tiny stage shapes;
 these tests take other widths, head dims, grids and lengths, the row tiles
-kernel B falls back to, the training kernels at head dim 32 with M = 600,
-rows off the tile and D = 320 at ratio 4, the v2 kernels on grids of odd
+kernel B falls back to, the training attention kernels at head dims 32 and
+64 with M = 5, 22, 177, 192, 272, 600 and 900, N off the tile, one range of N
+and four, and the backward's bit-equal repeat at stage 1, B = 150, the
+LN-MLP kernels at rows off the tile and D = 320 at ratio 4, the v2 kernels on grids of odd
 sizes, one wider than 128, no text rows and a hidden width off the chunk,
 the Swin kernels at windows of 4 and 6 (36 rows, off the 16-row tile), grids
 with h != w, pool windows of 2, T = 7 and a head dim of 32, a Swin block
@@ -38,7 +40,8 @@ from mvlt_tpu_torch.ops.fused_mlp import (fused_ln_mlp, ln_mlp_bwd, ln_mlp_bwd_r
                                           ln_mlp_fwd, ln_mlp_reference)
 from mvlt_tpu_torch.ops.pallas_attention import (attention_bwd, attention_bwd_reference,
                                                  attention_fwd, attention_reference,
-                                                 fused_attention)
+                                                 attention_stats_bwd_reference,
+                                                 attention_stats_reference, fused_attention)
 from mvlt_tpu_torch.ops.mlm_ce import (mlm_ce_bwd, mlm_ce_fwd, mlm_ce_loss,
                                        mlm_nll_bwd_reference, mlm_nll_reference)
 from mvlt_tpu_torch.ops.sr_kv import fused_ln_sr_kv, sr_kv_reference
@@ -152,30 +155,58 @@ def _mlp_params(d, hidden, dev, gen):
             r(hidden, std=0.05), r(d, hidden, std=hidden ** -0.5), r(d, std=0.05))
 
 
-@pytest.mark.parametrize("b,h,n,m,hd", [
-    (2, 3, 300, 600, 32),     # head dim 32, M = 600 (padded to 608), N off the q tile
-    (3, 5, 77, 192, 64),      # stage-3 heads, N off the tile
-    (1, 1, 17, 5, 16),        # tiny M and N
+# q, do (and o, dq) are [B, H, N, hd] views of [B, N, H, hd] (row stride D);
+# `splits` is what plan_splits gives the backward on a 132-SM card (an H100)
+@pytest.mark.parametrize("b,h,n,m,hd,splits", [
+    (2, 3, 300, 600, 32, 1),    # head dim 32, M = 600 (4 K/V groups), N off the q tile
+    (3, 5, 77, 192, 64, 1),     # stage-3 heads, N off the tile
+    (1, 1, 17, 5, 32, 1),       # tiny M and N
+    (2, 1, 130, 22, 64, 1),     # M = 22 (the ragged check's), N off the tile
+    (1, 2, 1000, 177, 64, 4),   # M = 177 (stage 1 at 224 input), N split in 4 ranges
+    (2, 2, 1030, 272, 32, 4),   # M = 272 (two K/V groups), head dim 32, 4 ranges
+    (1, 2, 200, 900, 64, 1),    # M = 900: the forward stages K/V in two windows
 ])
-def test_attention_kernels_match_plain(dev, b, h, n, m, hd):
+def test_attention_kernels_match_plain(dev, b, h, n, m, hd, splits):
+    from mvlt_tpu_torch.ops.pallas_attention import plan_splits
+
+    assert plan_splits(b * h, n, 132) == splits
     gen = torch.Generator().manual_seed(n + m)
     bf = lambda *s, std=1.0: (std * torch.randn(*s, generator=gen)).to(dev, torch.bfloat16)
     q, do = bf(b, n, h, hd, std=1.5).transpose(1, 2), bf(b, n, h, hd).transpose(1, 2)
     kv = bf(b, m, 2, h, hd).permute(2, 0, 3, 1, 4)
     k, v = kv[0], kv[1]
     launches = (attention_fwd.launches, attention_bwd.launches)
-    o = attention_fwd(q, k, v, hd ** -0.5)
-    grads = attention_bwd(q, k, v, do, hd ** -0.5)
+    o, lse = attention_fwd(q, k, v, hd ** -0.5)
+    o_ref, lse_ref = attention_stats_reference(q, k, v, hd ** -0.5)
+    grads = attention_bwd(q, k, v, o_ref, lse_ref, do, hd ** -0.5)
     torch.cuda.synchronize()
     assert (attention_fwd.launches, attention_bwd.launches) == (launches[0] + 1, launches[1] + 1)
-    assert _rel(o, attention_reference(q, k, v, hd ** -0.5)) <= TOL
-    for got, want in zip(grads, attention_bwd_reference(q, k, v, do, hd ** -0.5)):
-        assert got.shape == want.shape and _rel(got, want) <= TOL
-    # the autograd Function: the same kernels under backward()
+    assert o.stride() == q.stride() and lse.dtype == torch.float32
+    assert _rel(o, o_ref) <= TOL and _rel(lse, lse_ref) <= TOL
+    want = attention_stats_bwd_reference(q, k, v, o_ref, lse_ref, do, hd ** -0.5)
+    for got, w in zip(grads, want):
+        assert got.shape == w.shape and _rel(got, w) <= TOL
+    # the recomputing plain backward agrees too
+    for got, w in zip(grads, attention_bwd_reference(q, k, v, do, hd ** -0.5)):
+        assert _rel(got, w) <= TOL
+    # the autograd Function: the same kernels under backward(), o and lse saved
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     fused_attention(*leaves, hd ** -0.5).backward(do)
-    for leaf, want in zip(leaves, grads):
-        assert _rel(leaf.grad, want) <= TOL
+    for leaf, w in zip(leaves, grads):
+        assert _rel(leaf.grad, w) <= TOL
+
+
+def test_attention_backward_is_deterministic(dev):
+    """Stage 1 at B = 150 (4 ranges of N, their dK/dV slots summed in order):
+    two calls are bit-equal."""
+    gen = torch.Generator().manual_seed(1)
+    bf = lambda *s: torch.randn(*s, generator=gen).to(dev, torch.bfloat16)
+    q, do = bf(150, 1, 4224, 64), bf(150, 1, 4224, 64)
+    k, v = bf(150, 1, 192, 64), bf(150, 1, 192, 64)
+    o, lse = attention_fwd(q, k, v, 0.125)
+    one = attention_bwd(q, k, v, o, lse, do, 0.125)
+    two = attention_bwd(q, k, v, o, lse, do, 0.125)
+    assert all(torch.equal(x, y) for x, y in zip(one, two))
 
 
 @pytest.mark.parametrize("b,n,d,hidden", [
@@ -222,8 +253,17 @@ def test_training_wrappers_refuse_what_the_kernels_do_not_take(dev):
         attention_fwd(q.float(), k, k, 0.2)
     with pytest.raises(ValueError, match="contiguous"):
         attention_fwd(torch.cat([q, q], -1)[..., ::2], k, k, 0.2)   # last dim strided
-    with pytest.raises(ValueError, match="multiple of 16"):
-        attention_fwd(q[..., :24], k[..., :24], k[..., :24], 0.2)
+    q48, k48 = (torch.randn(*t.shape[:3], 48, generator=gen).to(dev, torch.bfloat16)
+                for t in (q, k))
+    with pytest.raises(ValueError, match="head dim 48"):
+        attention_fwd(q48, k48, k48, 0.2)
+    lse = torch.zeros(2, 2, 40, device=dev)
+    with pytest.raises(ValueError, match="head dim 48"):
+        attention_bwd(q48, k48, k48, q48, lse, q48, 0.2)
+    with pytest.raises(ValueError, match="positive scale"):
+        attention_fwd(q, k, k, -0.2)
+    with pytest.raises(ValueError, match="lse must be"):
+        attention_bwd(q, k, k, q, lse.double(), q, 0.2)
     x = torch.randn(2, 10, 64, generator=gen).to(dev, torch.bfloat16)
     g, be, w1, b1, w2, b2 = _mlp_params(64, 256, dev, gen)
     s = torch.ones(2, device=dev)

@@ -137,8 +137,8 @@ def test_step_on_the_route_matches_jax(jax_step, save_stats, step):
 def _counted():
     """Patch the four plain versions of the two attention routes with
     counting wrappers; returns the patches and their mocks."""
-    targets = [(pallas_attention, "attention_reference"),
-               (pallas_attention, "attention_bwd_reference"),
+    targets = [(pallas_attention, "attention_stats_reference"),
+               (pallas_attention, "attention_stats_bwd_reference"),
                (fba, "block_attention_train_reference"),
                (fba, "block_attention_bwd_reference")]
     return [mock.patch.object(mod, name, wraps=getattr(mod, name)) for mod, name in targets]

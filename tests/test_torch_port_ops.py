@@ -202,8 +202,9 @@ def test_wrappers_refuse_non_cpu_non_cuda_tensors():
     q = torch.empty(1, 1, 20, 64, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         attention_fwd(q, k, k, 0.125)
+    lse = torch.empty(1, 1, 20, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
-        attention_bwd(q, k, k, q, 0.125)
+        attention_bwd(q, k, k, q, lse, q, 0.125)
     mlp = (blk.norm2.weight, blk.norm2.bias, blk.mlp.fc1.weight, blk.mlp.fc1.bias,
            blk.mlp.fc2.weight)
     with pytest.raises(ValueError, match="CUDA"):
