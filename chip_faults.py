@@ -8,8 +8,8 @@ run from the root of a checkout on a machine with a CUDA card and nvcc, as
 chip_smoke.py is. For each fault it copies ``mvlt_tpu_torch/`` and
 ``chip_smoke.py`` into ``build/planted_faults/<fault>/``, rewrites one line
 of a kernel source there, runs the chip_smoke phase that checks that kernel
-(``v2_kernels``, ``swin_kernels``, ``fba_train_kernels`` or
-``train_kernels``) in that copy (its kernels built from the
+(``v2_kernels``, ``swin_kernels``, ``fba_train_kernels``, ``train_kernels``
+or ``mlm_kernels``) in that copy (its kernels built from the
 changed source), and then, with the bound lifted, prints every check's error
 at the B = 4 shapes. The copy is removed afterwards; the sources of the
 checkout are never changed. It exits non-zero if a fault passes the phase.
@@ -23,7 +23,8 @@ swin_kernels:
   no_region_mask   E ignores the shifted-window region mask;
   rel_bias_swapped E indexes the relative-position bias with dy and dx
                    swapped;
-  table_off_window F reads the additive table of the next window.
+  table_off_window F reads the additive table of the next window;
+  text_other_sample F reads the next sample's text K/V.
 The fused attention half's backward (csrc/block_attention_train.cu), phase
 fba_train_kernels:
   dk_one_tile      dK keeps only one row tile's dS^T Q (its sum restarts on
@@ -37,6 +38,11 @@ The training attention kernels (csrc/attention.cu), phase train_kernels:
   one_split_slot       the slot sum drops the last range's dK/dV partial;
   lse_natural_vs_log2  the backward takes lse (natural log) as a base-2
                        exponent.
+The MLM CE backward (csrc/mlm_ce.cu), phase mlm_kernels:
+  no_onehot        dl keeps the softmax at the label, the onehot not
+                   subtracted;
+  one_slot_dropped the slot sum drops the last slot: dx loses its last
+                   vocabulary range, db its last row tile.
 """
 
 from __future__ import annotations
@@ -71,8 +77,12 @@ FAULTS = {
         "(jq - jk + ws - 1) * (2 * ws - 1) + (iq - ik + ws - 1)"),
     "table_off_window": (
         "swin_kernels", "mvlt_tpu_torch/csrc/swin_attention.cu",
-        "a.table + ((size_t)win * a.heads + head)",
-        "a.table + ((size_t)((win + 1) % a.nw) * a.heads + head)"),
+        "const float* tab = a.table + ((size_t)win * a.heads + h) * a.ws2 * m;",
+        "const float* tab = a.table + ((size_t)((win + 1) % a.nw) * a.heads + h) * a.ws2 * m;"),
+    "text_other_sample": (
+        "swin_kernels", "mvlt_tpu_torch/csrc/swin_attention.cu",
+        "const size_t txt = ((size_t)b * a.heads + h) * a.t * HD;",
+        "const size_t txt = ((size_t)((b + 1) % a.batch) * a.heads + h) * a.t * HD;"),
     "dk_one_tile": (
         "fba_train_kernels", "mvlt_tpu_torch/csrc/block_attention_train.cu",
         "gemm_acc<false>(tt, ldt, qt, ldq, mp, hd, tq, acc, hd, n0 == 0);",
@@ -93,6 +103,14 @@ FAULTS = {
         "train_kernels", "mvlt_tpu_torch/csrc/attention.cu",
         "a.lse[(size_t)bh * a.n + row] * kLog2e",
         "a.lse[(size_t)bh * a.n + row]"),
+    "no_onehot": (
+        "mlm_kernels", "mvlt_tpu_torch/csrc/mlm_ce.cu",
+        "dl = g[h] * (v == lab[h] ? p - 1.0f : p);",
+        "dl = g[h] * p;"),
+    "one_slot_dropped": (
+        "mlm_kernels", "mvlt_tpu_torch/csrc/mlm_ce.cu",
+        "for (int s = 0; s < count; ++s) sum += slots[s * stride + i];",
+        "for (int s = 0; s < count - 1; ++s) sum += slots[s * stride + i];"),
 }
 # per phase: the checks at B = 4 that print each error with the bound lifted
 MARGINS = {
@@ -113,6 +131,9 @@ shapes = [(f"stage{i + 1}", (h, w, d, nh, sr, hid, c.TEXT))
 extra = [("ragged", c.TRAIN_RAGGED), ("m177", c.TRAIN_M177), ("m272", c.TRAIN_M272)]
 for label, shape in shapes + extra:
     c.check_train_kernels(stats, gen, label, shape, c.SMOKE_BATCH)
+""",
+    "mlm_kernels": """
+c.phase_mlm_kernels(stats)
 """,
     "fba_train_kernels": """
 gen = torch.Generator().manual_seed(c.SEED + 17)
@@ -158,7 +179,7 @@ def run_fault(name: str, phase: str, source: str, good: str, bad: str) -> bool:
                       "message": next((ln for ln in proc.stdout.splitlines()
                                        if ln.startswith("FAULT_")), None),
                       "rel_err_by_check": [
-                          [c["kernel"], c["shape"], c["batch"], c["rel_err"]]
+                          [c["kernel"], c["shape"], c.get("batch"), c.get("rel_err")]
                           for c in checks if c.get("phase") == "kernel_check"],
                       "rc": proc.returncode}), flush=True)
     if proc.returncode:

@@ -13,7 +13,8 @@ JSON line each; a failed phase raises and the script exits non-zero:
      TF32 off (matmul and cuDNN) for the fp32 comparisons;
   2. build: nvcc compiles mvlt_tpu_torch/csrc/*.cu for sm_90a; ptxas's
      registers and spills per kernel, and the HGMMA instructions in the SASS
-     of each attention kernel (cuobjdump), which the wgmma kernels must hold;
+     of each wgmma kernel (WGMMA_KERNELS: the training attention kernels,
+     the MLM CE backward, kernel F; cuobjdump), which each must hold;
   3. kernels: kernel A (SR-KV) and kernel B (whole block) against their plain
      PyTorch versions on the card in bf16, bound max|kernel - plain| /
      max|plain| <= 2e-2, at the four pvlt_tiny stage shapes (B = 4), one
@@ -47,7 +48,8 @@ JSON line each; a failed phase raises and the script exits non-zero:
      pvlt_swin_tiny stage shapes at 256 and a ragged 16x24 grid, F at the
      three window-path stage shapes at 224 and a ragged 10x6 grid, at B = 4,
      then the stage shapes at B = 101 with times, bounds and, for F,
-     F.scaled_dot_product_attention's; pvlt_swin_tiny (itm only, bf16,
+     F.scaled_dot_product_attention's (F and SDPA by CUDA events and by
+     torch.profiler device time); pvlt_swin_tiny (itm only, bf16,
      seeded weights) at 224 scores three bundles (kernel E 2, F 6 and the
      LN-MLP forward 6 launches per forward, no other kernel), every block
      within 2e-2 of the plain versions, ITM logits within 3e-2 of the fp32
@@ -63,12 +65,14 @@ JSON line each; a failed phase raises and the script exits non-zero:
      K/V groups of the backward, head dim 32) at B = 4; at B = 150 each
      kernel's time beside its plain version's, its bound, and for attention
      F.scaled_dot_product_attention's (a yardstick the port never calls);
-  8. the MLM CE kernels (forward; backward dx and dE/db) against their plain
-     versions in bf16 (nll, lse and the three gradients within 2e-2) at the
-     path's R = 3,072 gathered rows (~15% labeled), a ragged R = 1,000, and
-     with every row ignored (exact zeros); their times at R = 3,072 beside
-     the plain versions', the bounds and the cuBLAS logits +
-     F.cross_entropy yardstick;
+  8. the MLM CE kernels (forward; backward: dl recomputed once, then dx,
+     dE and db) against their plain versions in bf16 (nll, lse and the
+     three gradients within 2e-2) at the path's R = 3,072 gathered rows
+     (~15% labeled), a ragged R = 1,000, and with every row ignored (exact
+     zeros); two backward calls at R = 3,072 bit-equal; their times at R =
+     3,072 beside the plain versions', the bounds and the cuBLAS logits +
+     F.cross_entropy yardstick (the backward and its yardstick by CUDA
+     events and by torch.profiler device time);
   9. the training slice: pvlt_tiny pre-training (ITM + MLM + T2I at 1/1/10,
      bf16, B = 150, DropPath 0.1, BERT dropout 0.1, AdamW, the MLM loss
      through the MLM CE kernels) takes 6 steps through
@@ -320,6 +324,21 @@ def cuda_time_ms(fn, warmup: int = 3, reps: int = 10) -> float:
     return statistics.median(times)
 
 
+def device_time_ms(fn, calls: int = 10) -> float | str:
+    """Device time of one call: the kernels' time by torch.profiler over
+    ``calls`` calls after one warm-up, per call ("not measured" where the
+    profiler shows no device time)."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(evt.self_device_time_total for evt in prof.key_averages()
+                if evt.device_type == torch.autograd.DeviceType.CUDA)
+    return total / 1e3 / calls if total else "not measured"
+
+
 def phase_device() -> str:
     smi = nvidia_smi_line()
     nvcc = subprocess.run(["nvcc", "--version"], capture_output=True, text=True,
@@ -334,12 +353,14 @@ def phase_device() -> str:
 
 
 # the wgmma kernels, each of which must hold HGMMA instructions in its SASS
-WGMMA_KERNELS = ("attn_fwd_hopper_kernel", "attn_bwd_hopper_kernel")
+WGMMA_KERNELS = ("attn_fwd_hopper_kernel", "attn_bwd_hopper_kernel", "mlm_ce_dlogits_kernel",
+                 "mlm_ce_gemm_kernel", "swin_attn_hopper_kernel")
 
 
 def hgmma_counts(library: pathlib.Path) -> dict:
     """HGMMA instructions in the SASS of each kernel of the library whose
-    name holds "attn_" (``cuobjdump -sass``), by mangled name."""
+    name holds one of WGMMA_KERNELS (``cuobjdump -sass``), by mangled name:
+    one entry per template instantiation."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True,
                           timeout=300, check=True).stdout
@@ -347,7 +368,7 @@ def hgmma_counts(library: pathlib.Path) -> dict:
     for ln in sass.splitlines():
         if "Function :" in ln:
             name = ln.split("Function :", 1)[1].strip()
-            current = name if "attn_" in name else None
+            current = name if any(k in name for k in WGMMA_KERNELS) else None
             if current:
                 counts[current] = 0
         elif current and "HGMMA" in ln:
@@ -361,7 +382,8 @@ def phase_build() -> None:
     ptxas = [ln.strip() for ln in log.splitlines()
              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     hgmma = hgmma_counts(path)
-    ok = all(any(k in name and n > 0 for name, n in hgmma.items()) for k in WGMMA_KERNELS)
+    ok = (all(any(k in name for name in hgmma) for k in WGMMA_KERNELS)
+          and all(n > 0 for n in hgmma.values()))
     emit("build", library=str(path.relative_to(path.parents[2])),
          seconds=round(seconds, 2), ptxas=ptxas, hgmma=hgmma, ok=ok)
     if not ok:
@@ -976,18 +998,17 @@ def check_swin_attention_kernel(stats, gen, label, shape, shift, batch):
     return args, scale
 
 
-def sdpa_window_ms(args: tuple, scale: float) -> float:
-    """F.scaled_dot_product_attention on [B.nW, heads, ws^2, hd] queries
-    against the window's K/V concatenated with the text K/V, the table as a
-    float attn_mask (a yardstick the port never calls)."""
+def sdpa_window(args: tuple, scale: float):
+    """A call of F.scaled_dot_product_attention on [B.nW, heads, ws^2, hd]
+    queries against the window's K/V concatenated with the text K/V, the
+    table as a float attn_mask (a yardstick the port never calls)."""
     q, k, v, kt, vt, table = args
     b, nw, nh, ws2, hd = q.shape
     cat = lambda win, txt: torch.cat([win, txt[:, None].expand(b, nw, *txt.shape[1:])],
                                      dim=-2).reshape(b * nw, nh, -1, hd)
     qq, kk, vv = q.reshape(b * nw, nh, ws2, hd), cat(k, kt), cat(v, vt)
     mask = table[None].expand(b, *table.shape).reshape(b * nw, nh, ws2, -1).to(q.dtype)
-    return cuda_time_ms(lambda: F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask,
-                                                               scale=scale))
+    return lambda: F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask, scale=scale)
 
 
 def swin_kernel_shapes() -> tuple[list, list]:
@@ -1041,18 +1062,20 @@ def phase_swin_kernels(stats: dict) -> None:
             del args, ops
         for label, shape in f_shapes:
             args, scale = check_swin_attention_kernel(stats, gen, label, shape, shift, BATCH)
-            ms = cuda_time_ms(lambda: fused_swin_attention(*args, scale=scale))
+            kernel = lambda: fused_swin_attention(*args, scale=scale)
+            sdpa = sdpa_window(args, scale)
+            ms, library_ms = cuda_time_ms(kernel), cuda_time_ms(sdpa)
             plain_ms = cuda_time_ms(lambda: swin_attention_reference(*args, scale=scale))
-            library_ms = sdpa_window_ms(args, scale)
             bound_ms, bound_by = swin_f_bound(*args[0].shape[1:4], args[3].shape[2],
                                               args[0].shape[4], BATCH)
             emit("kernel_time", kernel="swin_attention", shape=label, shift=shift, batch=BATCH,
                  ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                 library_ms=library_ms, speedup=plain_ms / ms)
+                 library_ms=library_ms, speedup=plain_ms / ms,
+                 device_ms=device_time_ms(kernel), library_device_ms=device_time_ms(sdpa))
             if not shift:
                 add_time(stats, "swin_attention", ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                          bound_by=bound_by, library_ms=library_ms)
-            del args
+            del args, kernel, sdpa
         torch.cuda.empty_cache()
 
 
@@ -1137,7 +1160,7 @@ def swin_init_gap(model, bundle, sd) -> None:
 
 
 SWIN_GROUPS = {"swin_block": ("swin_block_kernel", "swin_pool_kernel"),
-               "swin_attention": ("swin_attention_kernel",), "ln_mlp_fwd": ("ln_mlp_fwd",)}
+               "swin_attention": ("swin_attn_hopper_kernel",), "ln_mlp_fwd": ("ln_mlp_fwd",)}
 
 
 def phase_swin(stats: dict) -> None:
@@ -1523,8 +1546,8 @@ TRAIN_GROUPS = {"attention_fwd": ("attn_fwd_hopper_kernel",),
                 "ln_mlp_fwd": ("ln_mlp_fwd_kernel",),
                 "ln_mlp_bwd": ("ln_mlp_bwd_kernel", "ln_mlp_reduce_kernel"),
                 "mlm_ce_fwd": ("mlm_ce_fwd_kernel", "mlm_ce_merge_kernel"),
-                "mlm_ce_bwd": ("mlm_ce_dx_kernel", "mlm_ce_dx_reduce_kernel",
-                               "mlm_ce_dtable_kernel")}
+                "mlm_ce_bwd": ("mlm_ce_dlogits_kernel", "mlm_ce_gemm_kernel",
+                               "mlm_ce_slot_sum_kernel")}
 
 
 def phase_train_throughput(state, cfg, prefix: str = "") -> None:
@@ -1776,25 +1799,27 @@ def mlm_bounds(rows: int) -> dict:
             "mlm_ce_bwd": bound(6 * r * v * h, operands + 2 * 4 * r + 4 * (r * h + v * h + v))}
 
 
-def library_ce_times(x, table, bias, labels) -> tuple[float, float, float]:
+def library_ce_calls(x, table, bias, labels) -> tuple:
     """The library yardstick the port never calls: the cuBLAS bf16 logits,
     then F.cross_entropy(ignore_index=-1) summed, as one autograd graph:
-    forward, backward alone (on a kept graph) and both, in ms."""
+    calls of its forward, its backward alone (on a kept graph) and both."""
     xr, tr, br = (t.detach().requires_grad_() for t in (x, table.float(), bias))
     fwd = lambda: F.cross_entropy((xr @ tr.to(torch.bfloat16).t()).float() + br, labels,
                                   ignore_index=-1, reduction="sum")
     loss = fwd()
     bwd = lambda: torch.autograd.grad(loss, (xr, tr, br), retain_graph=True)
     both = lambda: torch.autograd.grad(fwd(), (xr, tr, br))
-    return cuda_time_ms(fwd), cuda_time_ms(bwd), cuda_time_ms(both)
+    return fwd, bwd, both
 
 
 def phase_mlm_kernels(stats: dict) -> None:
     """The MLM CE kernels against their plain versions in bf16 (nll, lse and
     the three gradients, each within KERNEL_TOL) at the path's R = 3,072
     rows with ~15% labeled, at a ragged R = 1,000, and with every row
-    ignored (exact zeros); at R = 3,072 their times beside the plain
-    versions', the bounds and the library call's."""
+    ignored (exact zeros); at R = 3,072 two backward calls bit-equal, and
+    their times beside the plain versions', the bounds and the library
+    call's (CUDA events; the backward's and its yardstick's device time by
+    torch.profiler as well)."""
     gen = torch.Generator().manual_seed(SEED + 11)
     for label, rows, frac in (("path", MLM_ROWS, 0.15), ("ragged", 1000, 0.3),
                               ("all_ignored", 512, 0.0)):
@@ -1829,23 +1854,35 @@ def phase_mlm_kernels(stats: dict) -> None:
                                              max(v[0] for v in e.values()))
         if label != "path":
             continue
-        lib_fwd, lib_bwd, lib_both = library_ce_times(x, table, bias, labels)
+        again = mlm_ce_bwd(x, table, bias, labels, want_lse, g)
+        torch.cuda.synchronize()
+        equal = all(torch.equal(a, b) for a, b in zip(grads, again))
+        emit("kernel_check", kernel="mlm_ce_bwd", shape=label, rows=rows,
+             check="two calls bit-equal", ok=equal)
+        if not equal:
+            raise AssertionError("two mlm_ce_bwd calls on the same inputs differ")
+        del again
+        lib_fwd, lib_bwd, lib_both = library_ce_calls(x, table, bias, labels)
         times = {"mlm_ce_fwd": (lambda: mlm_ce_fwd(x, table, bias, labels),
                                 lambda: mlm_nll_reference(x, table, bias, labels), lib_fwd),
                  "mlm_ce_bwd": (lambda: mlm_ce_bwd(x, table, bias, labels, lse, g),
                                 lambda: mlm_nll_bwd_reference(x, table, bias, labels, lse, g),
                                 lib_bwd)}
         bounds = mlm_bounds(rows)
-        for name, (kernel, plain, library_ms) in times.items():
+        for name, (kernel, plain, library) in times.items():
             ms, plain_ms = cuda_time_ms(kernel), cuda_time_ms(plain)
+            library_ms = cuda_time_ms(library)
             bound_ms, bound_by = bounds[name]
+            device = ({"device_ms": device_time_ms(kernel),
+                       "library_device_ms": device_time_ms(library),
+                       "library_fwd_bwd_ms": cuda_time_ms(lib_both)}
+                      if name == "mlm_ce_bwd" else {})
             emit("kernel_time", kernel=name, shape=label, rows=rows, ms=ms, plain_ms=plain_ms,
                  bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-                 speedup=plain_ms / ms,
-                 **({"library_fwd_bwd_ms": lib_both} if name == "mlm_ce_bwd" else {}))
+                 speedup=plain_ms / ms, **device)
             add_time(stats, name, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                      bound_by=bound_by, library_ms=library_ms)
-        del times
+        del times, lib_fwd, lib_bwd, lib_both
     torch.cuda.empty_cache()
 
 

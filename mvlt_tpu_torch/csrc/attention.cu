@@ -82,7 +82,6 @@ namespace {
 
 using namespace hopper;
 
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kTile = 64;            // q rows of a tile, K/V rows of a slice (wgmma M)
 constexpr int kSlices = 3;           // K/V slices of a backward group (its warpgroups)
@@ -121,12 +120,6 @@ struct BwdArgs {
   int heads, n, m, tiles, splits;
   float scale, scale_log2;
 };
-
-// The first 1024-byte boundary at or after p (a swizzle atom's alignment),
-// by an offset, so that the compiler still sees a shared-memory pointer.
-__device__ __forceinline__ char* align1024(char* p) {
-  return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
-}
 
 __host__ __device__ constexpr size_t fwd_smem(int win, int rb) {
   return 1024 + 2 * (size_t)win * rb + 4 * (size_t)kTile * rb;

@@ -1,4 +1,5 @@
-// Hopper (sm_90a) device helpers of the port's wgmma kernels (attention.cu):
+// Hopper (sm_90a) device helpers of the port's wgmma kernels (attention.cu,
+// mlm_ce.cu, swin_attention.cu):
 // warpgroup matrix multiply (wgmma) on bf16 operands with fp32 sums, its
 // shared-memory descriptors and fences, cp.async copies into the swizzled
 // tiles wgmma reads, named barriers, and the fragment-layout maps.
@@ -33,8 +34,16 @@
 namespace mvlt {
 namespace hopper {
 
+constexpr float kLog2e = 1.4426950408889634f;
+
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The first 1024-byte boundary at or after p (a swizzle atom's alignment),
+// by an offset, so that the compiler still sees a shared-memory pointer.
+__device__ __forceinline__ char* align1024(char* p) {
+  return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
 }
 
 // Byte offset of 16-byte chunk c of row r in a swizzled tile of RB-byte rows.
@@ -194,6 +203,54 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(TransB));
 }
 
+// The same product at N = 128 (both operands through descriptors).
+template <int TransA, int TransB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %67, %68;"
+      "\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(acc), "n"(TransA), "n"(TransB));
+}
+
+// The N = 64 product into columns 64 (Off / 32) .. + 63 of an N = 128
+// accumulator (Off 0 or 32), for a B operand held as two 64-column panels.
+template <int TransA, int TransB, int Off>
+__device__ __forceinline__ void wgmma_ss_half(float (&d)[64], uint64_t da, uint64_t db,
+                                              int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;"
+      "\n}\n"
+      : "+f"(d[Off + 0]), "+f"(d[Off + 1]), "+f"(d[Off + 2]), "+f"(d[Off + 3]),
+        "+f"(d[Off + 4]), "+f"(d[Off + 5]), "+f"(d[Off + 6]), "+f"(d[Off + 7]),
+        "+f"(d[Off + 8]), "+f"(d[Off + 9]), "+f"(d[Off + 10]), "+f"(d[Off + 11]),
+        "+f"(d[Off + 12]), "+f"(d[Off + 13]), "+f"(d[Off + 14]), "+f"(d[Off + 15]),
+        "+f"(d[Off + 16]), "+f"(d[Off + 17]), "+f"(d[Off + 18]), "+f"(d[Off + 19]),
+        "+f"(d[Off + 20]), "+f"(d[Off + 21]), "+f"(d[Off + 22]), "+f"(d[Off + 23]),
+        "+f"(d[Off + 24]), "+f"(d[Off + 25]), "+f"(d[Off + 26]), "+f"(d[Off + 27]),
+        "+f"(d[Off + 28]), "+f"(d[Off + 29]), "+f"(d[Off + 30]), "+f"(d[Off + 31])
+      : "l"(da), "l"(db), "r"(acc), "n"(TransA), "n"(TransB));
+}
 
 }  // namespace hopper
 }  // namespace mvlt

@@ -1,12 +1,13 @@
-// MLM cross entropy of PVLT pre-training against the tied vocabulary, with
-// the [rows, vocab] logits never in device memory:
+// MLM cross entropy of PVLT pre-training against the tied vocabulary:
 //   forward   logit = x E^T + b;  lse[r] = log sum_v exp(logit[r, v]);
 //             nll[r] = lse[r] - logit[r, label[r]]  (0 where label = -1)
 //   backward  dl = g[r] (softmax - onehot), recomputed from the saved lse
 //             (0 where label = -1);  dx = dl E, dE = dl^T x, db = sum_r dl
 // for x [R, H] bf16, E [V, H] bf16 (the tied fp32 word embeddings, rounded
 // by the wrapper), b [V] fp32 and labels [R] int32. dl is rounded to bf16
-// before the two products, db sums it in fp32, as the TPU kernel does.
+// before the two products, db sums it in fp32, as the TPU kernel does. The
+// forward never writes the [R, V] logits to device memory; the backward
+// writes dl once, in bf16.
 //
 // Replaces: mvlt_tpu/ops/mlm_ce.py:_fwd_impl (Pallas body _fwd_kernel) and
 // _bwd_impl (bodies _bwd_rows_kernel and _bwd_table_kernel), without their
@@ -18,38 +19,46 @@
 // the backward's least work is one recompute, dx and dE: 432 GFLOP (0.437
 // ms).
 //
-// Design. Tiles of 64 rows by 64 vocabulary columns with the whole H of both
-// operands in shared memory, so every product reads A and B there
-// (common.cuh:gemm_bf16 for the logits, gemm_acc for the sums); one block of
-// 8 warps per SM.
-// Forward: the TPU carries (max, sum-exp, picked) across a sequential vocab
-// grid axis. A grid over row tiles alone is 48 blocks for 132 SMs at R =
-// 3,072, so the vocabulary is split over S blocks as well (S chosen so that
-// the blocks fill whole waves of the SMs, 11 there): each block runs the
-// online logsumexp over its vocab tiles and writes a partial (max, sum,
-// picked) per row, and a second launch merges a row's S partials in split
-// order.
-// Backward, dx: the same (row tile, split) grid; a block recomputes each
-// logits tile, forms dl and adds dl.E_j into its split's fp32 slot of dx
-// partials (gemm_acc: whole accumulator fragments loaded from and stored to
-// device memory); a second launch sums the S slots in order: deterministic,
-// no atomics. The slots take S.R.H.4 bytes (104 MB at the pre-training
-// shape).
-// Backward, dE and db: one block per vocab tile keeps its E tile in shared
-// memory and loops over every row tile: recompute, dl, then dE_j += dl^T.x
-// (gemm_acc into the block's own rows of dE, written on the first row tile)
-// and db_j += the column sums of the fp32 dl, in row order.
-// One recompute or two: two, as on the TPU. With one, every vocab tile would
-// leave a dx partial of all R rows (477 x 9.4 MB at the pre-training shape),
-// or the partials would need atomics; the second recompute costs 144 GFLOP
-// (576 instead of 432).
-// The vocabulary is ragged (30,522 = 476 x 64 + 58): the last tile's missing
-// rows of E load as zeros, their logits are -inf (never the max, never
-// picked) and their dl is 0. Rows past R load as zeros with label -1.
+// Forward (wmma, common.cuh). Tiles of 64 rows by 64 vocabulary columns
+// with the whole H of both operands in shared memory (gemm_bf16); one block
+// of 8 warps per SM. The TPU carries (max, sum-exp, picked) across a
+// sequential vocab grid axis. A grid over row tiles alone is 48 blocks for
+// 132 SMs at R = 3,072, so the vocabulary is split over S blocks as well (S
+// chosen so that the blocks fill whole waves of the SMs, 11 there): each
+// block runs the online logsumexp over its vocab tiles and writes a partial
+// (max, sum, picked) per row, and a second launch merges a row's S partials
+// in split order. The vocabulary is ragged (30,522 = 476 x 64 + 58): the
+// last tile's missing rows of E load as zeros and their logits are -inf
+// (never the max, never picked). Rows past R load as zeros with label -1.
+//
+// Backward (wgmma, hopper.cuh): one recompute of the logits, then the two
+// products as GEMMs of their own, all on 128 x 128 output tiles of two
+// warpgroups (64 rows each, fp32 sums in registers) that stream the
+// contraction in 64-deep chunks through a 5-stage cp.async ring of
+// swizzled tiles, two chunks in flight ahead of the product and one product
+// in flight behind it.
+//   mlm_ce_dlogits_kernel  S = x E^T (x and E K-major), then in registers
+//       dl = g (exp(S + b - lse) - onehot), 0 on ignored rows and padded
+//       columns; dl goes out once in bf16 to a [R_pad, V_pad] scratch
+//       (rows and columns rounded up to 128: 188 MB at the pre-training
+//       shape) through a shared-memory stage, and the tile's fp32 column
+//       sums to a [R_pad / 128, V_pad] slot of db partials;
+//   mlm_ce_gemm_kernel<false>  dx^T = E^T dl^T: A = E read MN-major (H
+//       across the tile's rows), B = dl K-major, the 30,592-deep vocabulary
+//       split into S ranges (ops/mlm_ce.py: bwd_plan, 5 at the
+//       pre-training shape) whose fp32 dx slots a sum launch adds in order;
+//   mlm_ce_gemm_kernel<true>   dE^T = x^T dl: A = x MN-major, B = dl
+//       MN-major (two 64-column panels, two m64n64 products a step), the
+//       3,072-deep rows in one range;
+//   mlm_ce_slot_sum_kernel     db and dx from their slots, in order.
+// Every sum runs in a fixed order: two calls on the same inputs are
+// bit-equal, and no float atomics are used. The least traffic is 432 GFLOP
+// against ~0.4 GB of dl written and read twice.
 
 #include <math.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace mvlt {
 namespace {
@@ -63,11 +72,7 @@ struct Args {
   const bf16* table;
   const float* bias;
   const int* labels;
-  const float* lse;  // backward
-  const float* g;    // backward
-  float* ws;         // forward: [S][rows][3] partials; dx: [S][rows_pad][h] slots
-  float* dtable;     // [vocab_pad][h]
-  float* dbias;      // [vocab]
+  float* ws;  // [S][rows][3] partials
   int rows, vocab, h, per_split;  // per_split: vocab tiles per split
 };
 
@@ -86,50 +91,6 @@ __host__ __device__ inline size_t fwd_smem(int h, size_t* off) {
   off[3] = o; o += align128((size_t)kTile * 4 * 4);
   off[4] = o; o += kStageBytes;
   return o;
-}
-
-// x tile | E tile | dl bf16 | label, lse, g | stage
-__host__ __device__ inline size_t dx_smem(int h, size_t* off) {
-  size_t o = 0;
-  off[0] = o; o += operand_bytes(h);
-  off[1] = o; o += operand_bytes(h);
-  off[2] = o; o += align128((size_t)kTile * (kTile + kPad) * 2);
-  off[3] = o; o += align128((size_t)kTile * 3 * 4);
-  off[4] = o; o += kStageBytes;
-  return o;
-}
-
-// E tile | x tile | dl fp32 | dl^T bf16 sharing the stage | label, lse, g
-__host__ __device__ inline size_t dtable_smem(int h, size_t* off) {
-  const size_t dlt = (size_t)kTile * (kTile + kPad) * 2;
-  size_t o = 0;
-  off[0] = o; o += operand_bytes(h);
-  off[1] = o; o += operand_bytes(h);
-  off[2] = o; o += align128((size_t)kTile * kTile * 4);
-  off[3] = o; o += align128(dlt > kStageBytes ? dlt : kStageBytes);
-  off[4] = o; o += align128((size_t)kTile * 3 * 4);
-  return o;
-}
-
-// Rows [r0, r0 + kTile) of the per-row operands into shared memory; rows past
-// R get label -1 (no loss, no gradient).
-__device__ __forceinline__ void load_row_operands(const Args& a, int r0, int* lab, float* lse,
-                                                  float* g) {
-  for (int r = threadIdx.x; r < kTile; r += kThreads) {
-    const bool in = r0 + r < a.rows;
-    lab[r] = in ? a.labels[r0 + r] : -1;
-    lse[r] = in ? a.lse[r0 + r] : 0.0f;
-    g[r] = in ? a.g[r0 + r] : 0.0f;
-  }
-}
-
-// dl of one logit (bias not yet added) at tile column c of a tile with nv
-// valid columns starting at v0.
-__device__ __forceinline__ float dlogit(const Args& a, float v, int c, int nv, int v0, int lab,
-                                        float lse, float g) {
-  if (lab < 0 || c >= nv) return 0.0f;
-  const float p = __expf(v + a.bias[v0 + c] - lse);
-  return g * (c == lab - v0 ? p - 1.0f : p);
 }
 
 __global__ void __launch_bounds__(kThreads) mlm_ce_fwd_kernel(Args a) {
@@ -205,90 +166,220 @@ __global__ void mlm_ce_merge_kernel(const float* ws, const int* labels, int rows
   nll[r] = labels[r] >= 0 ? l - picked : 0.0f;
 }
 
-__global__ void __launch_bounds__(kThreads) mlm_ce_dx_kernel(Args a) {
-  extern __shared__ __align__(128) char smem[];
-  size_t off[5];
-  dx_smem(a.h, off);
-  const int ld = a.h + kPad, ldd = kTile + kPad;
-  bf16* xs = reinterpret_cast<bf16*>(smem + off[0]);
-  bf16* ts = reinterpret_cast<bf16*>(smem + off[1]);
-  bf16* dl = reinterpret_cast<bf16*>(smem + off[2]);
-  int* lab = reinterpret_cast<int*>(smem + off[3]);
-  float* lse = reinterpret_cast<float*>(lab + kTile);
-  float* g = lse + kTile;
-  float* stage = reinterpret_cast<float*>(smem + off[4]);
-  const int r0 = blockIdx.x * kTile, nrows = min(kTile, a.rows - r0);
-  const int j0 = blockIdx.y * a.per_split, j1 = min(tiles(a.vocab), j0 + a.per_split);
-  float* slot = a.ws + ((size_t)blockIdx.y * gridDim.x * kTile + r0) * a.h;
 
-  load_tile_rows(xs, ld, a.x + (size_t)r0 * a.h, a.h, nrows, kTile, a.h);
-  load_row_operands(a, r0, lab, lse, g);
-  for (int j = j0; j < j1; ++j) {
-    const int v0 = j * kTile, nv = min(kTile, a.vocab - v0);
-    load_tile_rows(ts, ld, a.table + (size_t)v0 * a.h, a.h, nv, kTile, a.h);
-    __syncthreads();
-    gemm_bf16<true, 2>(xs, ld, ts, ld, kTile, kTile, a.h, stage, [&](int r, int c, float v) {
-      dl[r * ldd + c] = __float2bfloat16(dlogit(a, v, c, nv, v0, lab[r], lse[r], g[r]));
-    });
-    __syncthreads();
-    // slot += dl . E_j, E_j read as B[k = vocab][n = h]
-    gemm_acc<false>(dl, ldd, ts, ld, kTile, a.h, kTile, slot, a.h, j == j0);
-    __syncthreads();
+// ---- backward (wgmma) ----------------------------------------------------
+
+using namespace hopper;
+
+constexpr int kBwdTile = 128;     // rows and columns of a block's output tile
+constexpr int kChunk = 64;        // contraction depth of one ring stage
+constexpr int kRing = 5;          // ring stages; kRing - 2 chunks load ahead
+constexpr int kBwdThreads = 256;  // two warpgroups, 64 rows of the tile each
+constexpr int kOperandBytes = kBwdTile * kChunk * 2;  // one operand of one stage
+constexpr int kPanelBytes = kOperandBytes / 2;        // 64 rows of 128 bytes
+constexpr size_t kBwdSmem = 1024 + (size_t)kRing * 2 * kOperandBytes;
+constexpr int kLds = kBwdTile + 8;  // bf16 row of the dl stage
+
+// A row-major bf16 matrix in device memory, ld elements a row; elements
+// past [rows][cols] read as zeros.
+struct Mat {
+  const bf16* p;
+  long long ld;
+  int rows, cols;
+};
+
+struct DlArgs {
+  Mat x, e;
+  const float* bias;
+  const int* labels;
+  const float* lse;
+  const float* g;
+  bf16* dl;    // [rows_pad][vocab_pad]
+  float* dbp;  // [rows_pad / 128][vocab_pad] column sums of each row tile
+  int rows, vocab, vocab_pad, chunks;
+};
+
+// out[n][m] = sum_k A[k][m] B(k, n) over the split's chunks of k, fp32, for
+// m < m_out and n < n_out; split s writes out + s * split_stride.
+struct GemmArgs {
+  Mat a, b;
+  float* out;
+  long long split_stride;
+  int m_out, n_out, ldo, chunks, per_split;
+};
+
+// One ring stage of an operand, a 128 x 64 tile of m, by cp.async:
+//   K-major  (MN false): rows r0 .. r0 + 127, columns k0 .. k0 + 63, one
+//            128-byte swizzled row each;
+//   MN-major (MN true):  rows k0 .. k0 + 63, columns r0 .. r0 + 127, as two
+//            panels of 64 columns [64][128 B], kPanelBytes apart.
+template <bool MN>
+__device__ __forceinline__ void load_operand(uint32_t dst, const Mat& m, int r0, int k0) {
+  for (int i = threadIdx.x; i < kBwdTile * 8; i += kBwdThreads) {
+    int row, col;
+    uint32_t off;
+    if (MN) {
+      const int k = i >> 4, c = i & 15;
+      row = k0 + k;
+      col = r0 + c * 8;
+      off = (c >> 3) * kPanelBytes + tile_off<128>(k, c & 7);
+    } else {
+      const int r = i >> 3, c = i & 7;
+      row = r0 + r;
+      col = k0 + c * 8;
+      off = tile_off<128>(r, c);
+    }
+    const bool ok = row < m.rows && col < m.cols;
+    cp_async16_zfill(dst + off, ok ? m.p + row * m.ld + col : m.p, ok);
   }
 }
 
-// dx[r] = the sum of the S slots' rows r, in split order.
-__global__ void mlm_ce_dx_reduce_kernel(const float* ws, int splits, long long slot_floats,
-                                        long long n, float* dx) {
+// d = the block's 128 x 128 tile of A^T B (A rows m0.., B rows n0..) over
+// chunks [c0, c1) of the contraction; warpgroup w holds rows 64w .. 64w + 63.
+// A is K-major (A_MN false: [M][K] in memory) or MN-major ([K][M]); so is B.
+template <bool A_MN, bool B_MN>
+__device__ __forceinline__ void mma_tile(const Mat& a, const Mat& b, int m0, int n0, int c0,
+                                         int c1, uint32_t ring, float (&d)[64]) {
+  const int wg = threadIdx.x >> 7, n = c1 - c0;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) d[i] = 0.0f;
+  auto load = [&](int i) {  // chunk c0 + i into its stage; one commit group each
+    if (i < n) {
+      const uint32_t st = ring + (i % kRing) * 2 * kOperandBytes;
+      load_operand<A_MN>(st, a, m0, (c0 + i) * kChunk);
+      load_operand<B_MN>(st + kOperandBytes, b, n0, (c0 + i) * kChunk);
+    }
+    cp_async_commit();
+  };
+  for (int i = 0; i < kRing - 2; ++i) load(i);
+  for (int i = 0; i < n; ++i) {
+    cp_async_wait<kRing - 3>();
+    fence_proxy_async();
+    __syncthreads();  // chunk i is in; both warpgroups' products of chunk i - 2 are done
+    load(i + kRing - 2);  // into chunk i - 2's stage
+    const uint32_t st = ring + (i % kRing) * 2 * kOperandBytes;
+    const uint32_t sa = st + wg * kPanelBytes, sb = st + kOperandBytes;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kChunk / 16; ++kk) {
+      const uint64_t da = make_desc<128>(sa + (A_MN ? kk * 16 * 128 : kk * 32));
+      if (B_MN) {
+        wgmma_ss_half<A_MN, 1, 0>(d, da, make_desc<128>(sb + kk * 16 * 128), 1);
+        wgmma_ss_half<A_MN, 1, 32>(d, da, make_desc<128>(sb + kPanelBytes + kk * 16 * 128), 1);
+      } else {
+        wgmma_ss<A_MN, 0>(d, da, make_desc<128>(sb + kk * 32), 1);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // chunk i - 1's product is done
+  }
+  wgmma_wait<0>();
+  fence_regs(d);
+}
+
+__global__ void __launch_bounds__(kBwdThreads, 1) mlm_ce_dlogits_kernel(DlArgs a) {
+  extern __shared__ char smem_raw[];
+  char* smem = align1024(smem_raw);
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int m0 = blockIdx.x * kBwdTile, n0 = blockIdx.y * kBwdTile;
+  float d[64];
+  mma_tile<false, false>(a.x, a.e, m0, n0, 0, a.chunks, smem_u32(smem), d);
+
+  // dl in registers: thread rows rl and rl + 8 of the tile, columns 8j + cq, + 1
+  const int rl = 64 * wg + 16 * warp + (lane >> 2), cq = 2 * (lane & 3);
+  int lab[2];
+  float nlse[2], g[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = m0 + rl + 8 * h;
+    const bool in = r < a.rows;
+    lab[h] = in ? a.labels[r] : -1;
+    nlse[h] = in ? -a.lse[r] * kLog2e : 0.0f;
+    g[h] = in ? a.g[r] : 0.0f;
+  }
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int h = e >> 1, v = n0 + 8 * j + cq + (e & 1);
+      float dl = 0.0f;
+      if (lab[h] >= 0 && v < a.vocab) {
+        const float p = fast_exp2(fmaf(d[4 * j + e] + a.bias[v], kLog2e, nlse[h]));
+        dl = g[h] * (v == lab[h] ? p - 1.0f : p);
+      }
+      d[4 * j + e] = dl;
+    }
+  }
+
+  __syncthreads();  // both warpgroups are done with the ring: it becomes the stage
+  bf16* st = reinterpret_cast<bf16*>(smem);
+  float* red = reinterpret_cast<float*>(smem + kBwdTile * kLds * 2);  // [8 warps][128]
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<uint32_t*>(st + (rl + 8 * h) * kLds + 8 * j + cq) =
+          pack_bf16(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {  // the column's sum over the warp's 16 rows
+      float s = d[4 * j + c] + d[4 * j + 2 + c];
+      s += __shfl_xor_sync(0xffffffffu, s, 4);
+      s += __shfl_xor_sync(0xffffffffu, s, 8);
+      s += __shfl_xor_sync(0xffffffffu, s, 16);
+      if (lane < 4) red[(tid >> 5) * kBwdTile + 8 * j + cq + c] = s;
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < kBwdTile * kBwdTile / 8; i += kBwdThreads) {
+    const int r = i >> 4, c = (i & 15) * 8;
+    *reinterpret_cast<uint4*>(a.dl + (size_t)(m0 + r) * a.vocab_pad + n0 + c) =
+        *reinterpret_cast<const uint4*>(st + r * kLds + c);
+  }
+  if (tid < kBwdTile) {
+    float s = 0.0f;
+    for (int w = 0; w < kBwdThreads / 32; ++w) s += red[w * kBwdTile + tid];
+    a.dbp[(size_t)blockIdx.x * a.vocab_pad + n0 + tid] = s;
+  }
+}
+
+template <bool B_MN>
+__global__ void __launch_bounds__(kBwdThreads, 1) mlm_ce_gemm_kernel(GemmArgs a) {
+  extern __shared__ char smem_raw[];
+  char* smem = align1024(smem_raw);
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int m0 = blockIdx.x * kBwdTile, n0 = blockIdx.y * kBwdTile, split = blockIdx.z;
+  const int c0 = split * a.per_split, c1 = min(a.chunks, c0 + a.per_split);
+  float d[64];
+  mma_tile<true, B_MN>(a.a, a.b, m0, n0, c0, c1, smem_u32(smem), d);
+  float* out = a.out + split * a.split_stride;
+  const int m = m0 + 64 * wg + 16 * warp + (lane >> 2), cq = 2 * (lane & 3);
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int mm = m + 8 * (e >> 1), nn = n0 + 8 * j + cq + (e & 1);
+      if (mm < a.m_out && nn < a.n_out) out[(size_t)nn * a.ldo + mm] = d[4 * j + e];
+    }
+  }
+}
+
+// out[i] = the sum over s of slots[s * stride + i], in slot order, i < n.
+__global__ void mlm_ce_slot_sum_kernel(const float* slots, long long stride, int count,
+                                       long long n, float* out) {
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
        i += (long long)gridDim.x * blockDim.x) {
     float sum = 0.0f;
-    for (int s = 0; s < splits; ++s) sum += ws[s * slot_floats + i];
-    dx[i] = sum;
+    for (int s = 0; s < count; ++s) sum += slots[s * stride + i];
+    out[i] = sum;
   }
 }
 
-__global__ void __launch_bounds__(kThreads) mlm_ce_dtable_kernel(Args a) {
-  extern __shared__ __align__(128) char smem[];
-  size_t off[5];
-  dtable_smem(a.h, off);
-  const int ld = a.h + kPad, ldt = kTile + kPad;
-  bf16* ts = reinterpret_cast<bf16*>(smem + off[0]);
-  bf16* xs = reinterpret_cast<bf16*>(smem + off[1]);
-  float* dl = reinterpret_cast<float*>(smem + off[2]);
-  bf16* dlt = reinterpret_cast<bf16*>(smem + off[3]);
-  float* stage = reinterpret_cast<float*>(smem + off[3]);  // free again once dl^T is written
-  int* lab = reinterpret_cast<int*>(smem + off[4]);
-  float* lse = reinterpret_cast<float*>(lab + kTile);
-  float* g = lse + kTile;
-  const int v0 = blockIdx.x * kTile, nv = min(kTile, a.vocab - v0);
-  float* dt = a.dtable + (size_t)v0 * a.h;
-  float db = 0.0f;  // thread c < kTile: column c's sum
-
-  load_tile_rows(ts, ld, a.table + (size_t)v0 * a.h, a.h, nv, kTile, a.h);
-  for (int i = 0, nrt = tiles(a.rows); i < nrt; ++i) {
-    const int r0 = i * kTile;
-    load_tile_rows(xs, ld, a.x + (size_t)r0 * a.h, a.h, min(kTile, a.rows - r0), kTile, a.h);
-    load_row_operands(a, r0, lab, lse, g);
-    __syncthreads();
-    gemm_bf16<true, 2>(xs, ld, ts, ld, kTile, kTile, a.h, stage,
-                       [&](int r, int c, float v) { dl[r * kTile + c] = v; });
-    __syncthreads();
-    for (int e = threadIdx.x; e < kTile * kTile; e += kThreads) {
-      const int r = e / kTile, c = e - r * kTile;
-      const float d = dlogit(a, dl[e], c, nv, v0, lab[r], lse[r], g[r]);
-      dl[e] = d;
-      dlt[c * ldt + r] = __float2bfloat16(d);
-    }
-    __syncthreads();
-    if (threadIdx.x < kTile) {
-      for (int r = 0; r < kTile; ++r) db += dl[r * kTile + threadIdx.x];
-    }
-    // dE_j += dl^T . x, x read as B[k = row][n = h]
-    gemm_acc<false>(dlt, ldt, xs, ld, kTile, a.h, kTile, dt, a.h, i == 0);
-    __syncthreads();
-  }
-  if (threadIdx.x < nv) a.dbias[v0 + threadIdx.x] = db;
+cudaError_t slot_sum(const float* slots, long long stride, int count, long long n, float* out,
+                     cudaStream_t st) {
+  const long long blocks = (n + 255) / 256;
+  mlm_ce_slot_sum_kernel<<<(int)(blocks < 4096 ? blocks : 4096), 256, 0, st>>>(slots, stride,
+                                                                              count, n, out);
+  return cudaGetLastError();
 }
 
 cudaError_t prepare(const void* kernel, size_t bytes) {
@@ -300,12 +391,11 @@ cudaError_t prepare(const void* kernel, size_t bytes) {
 }  // namespace mvlt
 
 // C entries, bound with ctypes. They launch on `stream` and return the
-// cudaError_t of the launches (0 on success); no synchronisation. h is a
-// multiple of 16 and at most 768 (the two operand tiles fill shared memory).
+// cudaError_t of the launches (0 on success); no synchronisation. The
+// forward takes h a multiple of 16 and at most 768 (its two operand tiles
+// fill shared memory).
 
-extern "C" int mvlt_mlm_ce_tile() { return mvlt::kTile; }
-
-// The vocabulary splits of the forward and of the dx backward for `rows`
+// The vocabulary splits of the forward for `rows`
 // rows on `sms` SMs: the count up to 16 whose (row tile, split) blocks fill
 // the largest share of their last wave, the smallest such; trimmed so that
 // no split is empty.
@@ -339,8 +429,8 @@ extern "C" int mvlt_mlm_ce_fwd(const void* x, const void* table, const void* bia
   const int per = (tiles(vocab) + splits - 1) / splits;
   splits = (tiles(vocab) + per - 1) / per;  // no empty split
   Args a{static_cast<const bf16*>(x), static_cast<const bf16*>(table),
-         static_cast<const float*>(bias), static_cast<const int*>(labels), nullptr, nullptr,
-         static_cast<float*>(ws), nullptr, nullptr, rows, vocab, h, per};
+         static_cast<const float*>(bias), static_cast<const int*>(labels),
+         static_cast<float*>(ws), rows, vocab, h, per};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   mlm_ce_fwd_kernel<<<dim3(tiles(rows), splits), kThreads, bytes, st>>>(a);
   err = cudaGetLastError();
@@ -351,36 +441,56 @@ extern "C" int mvlt_mlm_ce_fwd(const void* x, const void* table, const void* bia
   return (int)cudaGetLastError();
 }
 
-// ws: splits * tiles(rows) * 64 * h floats; dx [rows, h], dtable
-// [tiles(vocab) * 64, h] and dbias [vocab], all fp32.
+// dl: rows_pad * vocab_pad bf16 and dbp: rows_pad / 128 * vocab_pad floats
+// (rows and vocab rounded up to 128); slots: splits * rows * h floats when
+// splits > 1 (else unused). dx [rows, h], dtable [vocab, h] and dbias
+// [vocab], all fp32. h is a multiple of 64; splits (the vocabulary ranges of
+// dx) at least 1, trimmed so that none is empty.
 extern "C" int mvlt_mlm_ce_bwd(const void* x, const void* table, const void* bias,
-                               const void* labels, const void* lse, const void* g, void* ws,
-                               void* dx, void* dtable, void* dbias, int rows, int vocab, int h,
-                               int splits, void* stream) {
+                               const void* labels, const void* lse, const void* g, void* dl,
+                               void* dbp, void* slots, void* dx, void* dtable, void* dbias,
+                               int rows, int vocab, int h, int splits, void* stream) {
   using namespace mvlt;
-  if (rows < 1 || vocab < 1 || h % 16 || splits < 1) return (int)cudaErrorInvalidValue;
-  size_t off[5];
-  const size_t dx_bytes = dx_smem(h, off), dt_bytes = dtable_smem(h, off);
-  cudaError_t err = prepare((const void*)mlm_ce_dx_kernel, dx_bytes);
-  if (err == cudaSuccess) err = prepare((const void*)mlm_ce_dtable_kernel, dt_bytes);
+  if (rows < 1 || vocab < 1 || h < 64 || h % 64 || splits < 1) return (int)cudaErrorInvalidValue;
+  const int rows_pad = (rows + kBwdTile - 1) / kBwdTile * kBwdTile;
+  const int vocab_pad = (vocab + kBwdTile - 1) / kBwdTile * kBwdTile;
+  cudaError_t err = prepare((const void*)mlm_ce_dlogits_kernel, kBwdSmem);
+  if (err == cudaSuccess) err = prepare((const void*)mlm_ce_gemm_kernel<false>, kBwdSmem);
+  if (err == cudaSuccess) err = prepare((const void*)mlm_ce_gemm_kernel<true>, kBwdSmem);
   if (err != cudaSuccess) return (int)err;
-  const int per = (tiles(vocab) + splits - 1) / splits;
-  splits = (tiles(vocab) + per - 1) / per;  // no empty split: every slot is written
-  Args a{static_cast<const bf16*>(x),    static_cast<const bf16*>(table),
-         static_cast<const float*>(bias), static_cast<const int*>(labels),
-         static_cast<const float*>(lse),  static_cast<const float*>(g),
-         static_cast<float*>(ws),         static_cast<float*>(dtable),
-         static_cast<float*>(dbias),      rows, vocab, h, per};
+  const bf16* xb = static_cast<const bf16*>(x);
+  const bf16* eb = static_cast<const bf16*>(table);
+  bf16* dlb = static_cast<bf16*>(dl);
+  const Mat xm{xb, h, rows, h}, em{eb, h, vocab, h}, dlm{dlb, vocab_pad, rows_pad, vocab_pad};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  mlm_ce_dx_kernel<<<dim3(tiles(rows), splits), kThreads, dx_bytes, st>>>(a);
+  const int row_tiles = rows_pad / kBwdTile, vocab_tiles = vocab_pad / kBwdTile;
+  const int m_tiles = (h + kBwdTile - 1) / kBwdTile;
+
+  const DlArgs da{xm, em, static_cast<const float*>(bias), static_cast<const int*>(labels),
+                  static_cast<const float*>(lse), static_cast<const float*>(g), dlb,
+                  static_cast<float*>(dbp), rows, vocab, vocab_pad, h / kChunk};
+  mlm_ce_dlogits_kernel<<<dim3(row_tiles, vocab_tiles), kBwdThreads, kBwdSmem, st>>>(da);
   err = cudaGetLastError();
+  if (err == cudaSuccess)
+    err = slot_sum(static_cast<const float*>(dbp), vocab_pad, row_tiles, vocab,
+                   static_cast<float*>(dbias), st);
   if (err != cudaSuccess) return (int)err;
-  const long long n = (long long)rows * h;
-  mlm_ce_dx_reduce_kernel<<<(int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096), 256, 0, st>>>(
-      static_cast<const float*>(ws), splits, (long long)tiles(rows) * kTile * h, n,
-      static_cast<float*>(dx));
+
+  // dx^T = E^T dl^T over the vocabulary, in `splits` ranges
+  const int vchunks = vocab_pad / kChunk, per = (vchunks + splits - 1) / splits;
+  splits = (vchunks + per - 1) / per;
+  float* dx_out = splits > 1 ? static_cast<float*>(slots) : static_cast<float*>(dx);
+  const GemmArgs ga{em, dlm, dx_out, (long long)rows * h, h, rows, h, vchunks, per};
+  mlm_ce_gemm_kernel<false><<<dim3(m_tiles, row_tiles, splits), kBwdThreads, kBwdSmem, st>>>(ga);
   err = cudaGetLastError();
+  if (err == cudaSuccess && splits > 1)
+    err = slot_sum(static_cast<const float*>(slots), (long long)rows * h, splits,
+                   (long long)rows * h, static_cast<float*>(dx), st);
   if (err != cudaSuccess) return (int)err;
-  mlm_ce_dtable_kernel<<<tiles(vocab), kThreads, dt_bytes, st>>>(a);
+
+  // dE^T = x^T dl over the rows, in one range
+  const int rchunks = rows_pad / kChunk;
+  const GemmArgs ge{xm, dlm, static_cast<float*>(dtable), 0, h, vocab, h, rchunks, rchunks};
+  mlm_ce_gemm_kernel<true><<<dim3(m_tiles, vocab_tiles, 1), kBwdThreads, kBwdSmem, st>>>(ge);
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,6 @@
-// Window attention with an additive logit bias, shared by kernel E
-// (swin_block.cu, the whole Swin block) and kernel F (swin_attention.cu, the
-// windowed joint attention of the Swin window path):
+// Window attention with an additive logit bias on the wmma core, for kernel
+// E (swin_block.cu, the whole Swin block; kernel F, swin_attention.cu, runs
+// on wgmma):
 //   out = softmax(q [K_win | K_txt]^T * scale + add) [V_win | V_txt]
 // for one head of one window, everything in shared memory. The softmax is
 // the exp2 form of mvlt_tpu/ops/kernel_math.py:softmax_av: logits in fp32

@@ -48,11 +48,10 @@ _SIGNATURES = {
     "mvlt_ln_mlp_fwd": [_P] * 9 + [_L] + [_I] * 3 + [_F, _P],
     "mvlt_ln_mlp_slot_floats": [_I, _I],
     "mvlt_ln_mlp_bwd": [_P] * 10 + [_I] + [_P] * 6 + [_L] + [_I] * 3 + [_F, _P],
-    "mvlt_mlm_ce_tile": [],
     "mvlt_mlm_ce_splits": [_I, _I, _I],
     "mvlt_mlm_ce_fwd": [_P] * 7 + [_I] * 4 + [_P],
-    "mvlt_mlm_ce_bwd": [_P] * 10 + [_I] * 4 + [_P],
-    "mvlt_swin_attention": [_P] * 7 + [_I] * 6 + [_F, _P],
+    "mvlt_mlm_ce_bwd": [_P] * 12 + [_I] * 4 + [_P],
+    "mvlt_swin_attention": [_P] * 7 + [_I] * 8 + [_F, _P],
     "mvlt_swin_block": [_P] * 20 + [_I] * 10 + [_F] * 3 + [_P],
 }
 
@@ -138,6 +137,12 @@ def load_library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``, asked once."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check_launch(name: str, err: int) -> None:

@@ -1,15 +1,19 @@
-"""MLM cross entropy against the tied vocabulary, the [rows, vocab] logits
-never in device memory:
+"""MLM cross entropy against the tied vocabulary:
     nll[r] = logsumexp(x E^T + b)[r] - (x E^T + b)[r, label[r]]
 for rows x [R, H], the tied word-embedding table E [V, H], the decoder bias
-b [V] and labels [R], -1 ignored (0 nll, 0 gradient).
+b [V] and labels [R], -1 ignored (0 nll, 0 gradient). The forward never
+writes the [R, V] logits to device memory; the backward recomputes them
+once and writes their gradient dl once, in bf16, to a [R, V] scratch
+rounded up to 128 (188 MB at R = 3,072, V = 30,522) that its two products
+read.
 
 Counterpart of mvlt_tpu/ops/mlm_ce.py:fused_mlm_nll (forward ``_fwd_impl``,
 backward ``_bwd_impl``) and ``fused_mlm_loss``. The plain versions are
 ``mlm_nll_reference`` and ``mlm_nll_bwd_reference``; the latter recomputes
 the logits from the saved logsumexp as the kernels do. ``mlm_ce_fwd`` and
 ``mlm_ce_bwd`` take them for CPU tensors and launch the Hopper kernels
-(csrc/mlm_ce.cu) for CUDA tensors, or raise; ``mlm_nll`` is the
+(csrc/mlm_ce.cu: the forward on wmma, the backward on wgmma) for CUDA
+tensors, or raise; ``mlm_nll`` is the
 differentiable ``autograd.Function``. It takes the fp32 master table, rounds
 it to the rows' type once in the forward, and returns fp32 gradients for the
 table and the bias.
@@ -22,8 +26,14 @@ import torch
 from mvlt_tpu_torch.ops import _build
 from mvlt_tpu_torch.ops.kernel_math import acc_dtype, matmul_acc
 
-# shared memory holds a 64-row tile of x and of E, each of the whole width
+# the forward holds a 64-row tile of x and of E, each of the whole width, in
+# shared memory; the backward streams the width in 64-deep chunks
 MAX_WIDTH = 768
+WIDTH_MULTIPLE = 64
+# the backward's output tiles (csrc/mlm_ce.cu: kBwdTile, kChunk)
+BWD_TILE = 128
+BWD_CHUNK = 64
+MAX_SPLITS = 16
 
 
 def _logits(rows, table, bias):
@@ -65,8 +75,9 @@ def _check(name: str, rows, table, bias, labels):
         raise ValueError(f"{name}: expected contiguous, 16-byte aligned [R, H] rows, "
                          f"got shape {tuple(rows.shape)}")
     r, h = rows.shape
-    if h % 16 or h > MAX_WIDTH:
-        raise ValueError(f"{name}: width {h} must be a multiple of 16 and <= {MAX_WIDTH}")
+    if h % WIDTH_MULTIPLE or not 0 < h <= MAX_WIDTH:
+        raise ValueError(f"{name}: width {h} must be a multiple of {WIDTH_MULTIPLE} "
+                         f"and <= {MAX_WIDTH}")
     if tuple(labels.shape) != (r,) or labels.device != rows.device:
         raise ValueError(f"{name}: labels {tuple(labels.shape)} on {labels.device}, "
                          f"expected ({r},) on {rows.device}")
@@ -77,8 +88,33 @@ def _check(name: str, rows, table, bias, labels):
 
 
 def _splits(lib, rows: int, vocab: int, device) -> int:
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return lib.mvlt_mlm_ce_splits(rows, vocab, sms)
+    return lib.mvlt_mlm_ce_splits(rows, vocab, _build.sm_count(device.index))
+
+
+def _up(n: int, tile: int) -> int:
+    return -(-n // tile) * tile
+
+
+def bwd_plan(rows: int, vocab: int, width: int, sms: int) -> tuple[int, int, int]:
+    """(rows_pad, vocab_pad, splits) of the backward: rows and vocabulary
+    rounded up to its 128 tile, and the vocabulary ranges of dx, the fewest
+    whose (width tile, row tile, range) blocks, one an SM, fill at least 90%
+    of their last wave on ``sms`` SMs (else the fullest), trimmed so that
+    no range is empty."""
+    rows_pad, vocab_pad = _up(rows, BWD_TILE), _up(vocab, BWD_TILE)
+    tiles = _up(width, BWD_TILE) // BWD_TILE * (rows_pad // BWD_TILE)
+    chunks = vocab_pad // BWD_CHUNK
+    best, best_fill = 1, 0.0
+    for s in range(1, min(MAX_SPLITS, chunks) + 1):
+        blocks = tiles * s
+        fill = blocks / (_up(blocks, sms))
+        if fill >= 0.9:
+            best = s
+            break
+        if fill > best_fill + 1e-9:
+            best, best_fill = s, fill
+    per = -(-chunks // best)
+    return rows_pad, vocab_pad, -(-chunks // per)
 
 
 def mlm_ce_fwd(rows, table, bias, labels):
@@ -107,8 +143,8 @@ def mlm_ce_fwd(rows, table, bias, labels):
 
 def mlm_ce_bwd(rows, table, bias, labels, lse, g):
     """Backward (d_rows, d_table, d_bias), all fp32. A CPU tensor takes
-    ``mlm_nll_bwd_reference``; a CUDA tensor launches the kernels (dx with
-    its slot reduction, then dE and db), anything else raises. Counts
+    ``mlm_nll_bwd_reference``; a CUDA tensor launches the kernels (dl, the
+    db sum, dx with its range sum, dE), anything else raises. Counts
     launches in ``mlm_ce_bwd.launches``."""
     if rows.device.type == "cpu":
         return mlm_nll_bwd_reference(rows, table, bias, labels, lse, g)
@@ -121,20 +157,22 @@ def mlm_ce_bwd(rows, table, bias, labels, lse, g):
     if any(tuple(t.shape) != (r,) or t.device != dev for t in per_row):
         raise ValueError(f"{name}: lse and g must be [{r}] on {dev}")
     lib = _build.load_library()
-    tile = lib.mvlt_mlm_ce_tile()
-    splits = _splits(lib, r, v, dev)
+    rows_pad, vocab_pad, splits = bwd_plan(r, v, h, _build.sm_count(dev.index))
     f32 = dict(dtype=torch.float32, device=dev)
-    ws = torch.empty(splits * -(-r // tile) * tile * h, **f32)
+    dl = torch.empty(rows_pad * vocab_pad, dtype=torch.bfloat16, device=dev)
+    dbp = torch.empty(rows_pad // BWD_TILE * vocab_pad, **f32)
+    slots = torch.empty(splits * r * h if splits > 1 else 1, **f32)
     d_rows = torch.empty((r, h), **f32)
-    d_table = torch.empty((-(-v // tile) * tile, h), **f32)
+    d_table = torch.empty((v, h), **f32)
     d_bias = torch.empty(v, **f32)
     err = lib.mvlt_mlm_ce_bwd(rows.data_ptr(), tab.data_ptr(), b.data_ptr(), lab.data_ptr(),
-                              per_row[0].data_ptr(), per_row[1].data_ptr(), ws.data_ptr(),
-                              d_rows.data_ptr(), d_table.data_ptr(), d_bias.data_ptr(), r, v, h,
-                              splits, torch.cuda.current_stream(dev).cuda_stream)
+                              per_row[0].data_ptr(), per_row[1].data_ptr(), dl.data_ptr(),
+                              dbp.data_ptr(), slots.data_ptr(), d_rows.data_ptr(),
+                              d_table.data_ptr(), d_bias.data_ptr(), r, v, h, splits,
+                              torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(name, err)
     mlm_ce_bwd.launches += 1
-    return d_rows, d_table[:v], d_bias
+    return d_rows, d_table, d_bias
 
 
 mlm_ce_fwd.launches = 0

@@ -3,10 +3,12 @@ over [the window's K/V | all text K/V] with one additive logit table.
 
 Counterpart of mvlt_tpu/ops/swin_attention.py:fused_swin_attention (Pallas
 bodies ``_kernel`` and ``_kernel_paired``). The TPU's window-pair grouping is
-MXU tiling and has no counterpart: kernel F computes one (sample, window,
-head) per block. ``swin_attention_reference`` is the plain version;
-``fused_swin_attention`` takes it for a CPU tensor and launches the Hopper
-kernel (csrc/swin_attention.cu) for a CUDA tensor, or raises.
+MXU tiling and has no counterpart: kernel F (wgmma) gives each warpgroup one
+window of a (sample, head) at a time, and each block a run of windows that
+share its copy of the sample's text K/V (``plan``).
+``swin_attention_reference`` is the plain version; ``fused_swin_attention``
+takes it for a CPU tensor and launches the Hopper kernel
+(csrc/swin_attention.cu) for a CUDA tensor, or raises.
 """
 
 from __future__ import annotations
@@ -35,12 +37,27 @@ def swin_attention_reference(q_win, k_win, v_win, k_txt, v_txt, add_table, *,
     return out.to(q_win.dtype)
 
 
+HEAD_DIMS = (32, 64)
+MAX_WINDOW_ROWS = 64   # ws^2: one wgmma row tile
+MAX_KEYS = 512         # ws^2 + T: the text K/V stays in shared memory
+
+
+def plan(batch: int, nw: int, heads: int, sms: int) -> tuple[int, int]:
+    """(warpgroups a block, windows a block) of kernel F: two warpgroups
+    taking alternate windows where a sample has more than one, and as many
+    windows a block (sharing its text K/V) as keep at least 4 waves of
+    blocks, two an SM, on ``sms`` SMs."""
+    wgs = 2 if nw > 1 else 1
+    per = wgs * max(1, batch * heads * nw // (wgs * 8 * sms))
+    return wgs, min(nw, per)
+
+
 def fused_swin_attention(q_win, k_win, v_win, k_txt, v_txt, add_table, *,
                          scale: float) -> torch.Tensor:
     """Windowed joint attention. A CPU tensor takes
     ``swin_attention_reference``; a CUDA tensor launches kernel F (bf16,
-    contiguous q/k/v, head dim a multiple of 16 up to 128, ws^2 + T <= 512,
-    an fp32 table), and anything else raises. ``fused_swin_attention.launches``
+    contiguous q/k/v, head dim 32 or 64, ws^2 <= 64, ws^2 + T <= 512, an
+    fp32 table), and anything else raises. ``fused_swin_attention.launches``
     counts the kernel launches."""
     if q_win.device.type == "cpu":
         return swin_attention_reference(q_win, k_win, v_win, k_txt, v_txt, add_table,
@@ -58,19 +75,21 @@ def fused_swin_attention(q_win, k_win, v_win, k_txt, v_txt, add_table, *,
             raise ValueError(f"{name}: {label} must be contiguous, 16-byte aligned bf16 "
                              f"{list(shape)} on {dev}, got {tuple(x.shape)} {x.dtype} "
                              f"on {x.device}")
-    if hd % 16 or hd > 128 or ws2 + t > 512:
-        raise ValueError(f"{name}: head dim {hd} (a multiple of 16, <= 128) or "
-                         f"ws^2 + T = {ws2 + t} (<= 512) out of range")
+    if hd not in HEAD_DIMS or ws2 > MAX_WINDOW_ROWS or ws2 + t > MAX_KEYS:
+        raise ValueError(f"{name}: head dim {hd} (one of {HEAD_DIMS}), ws^2 = {ws2} "
+                         f"(<= {MAX_WINDOW_ROWS}) or ws^2 + T = {ws2 + t} (<= {MAX_KEYS}) "
+                         f"out of range")
     if (add_table.device != dev or add_table.dtype != torch.float32
             or tuple(add_table.shape) != (nw, nh, ws2, ws2 + t)):
         raise ValueError(f"{name}: add_table must be fp32 [{nw}, {nh}, {ws2}, {ws2 + t}] "
                          f"on {dev}, got {tuple(add_table.shape)} {add_table.dtype}")
     table = add_table.contiguous()
     out = torch.empty_like(q_win)
+    wgs, per_block = plan(b, nw, nh, _build.sm_count(dev.index))
     err = _build.load_library().mvlt_swin_attention(
         q_win.data_ptr(), k_win.data_ptr(), v_win.data_ptr(), k_txt.data_ptr(),
-        v_txt.data_ptr(), table.data_ptr(), out.data_ptr(), b, nw, nh, ws2, t, hd, scale,
-        torch.cuda.current_stream(dev).cuda_stream)
+        v_txt.data_ptr(), table.data_ptr(), out.data_ptr(), b, nw, nh, ws2, t, hd, per_block,
+        wgs, scale, torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(name, err)
     fused_swin_attention.launches += 1
     return out

@@ -5,10 +5,11 @@ engine_grid_masking.py:81-102): MLM cross entropy with ignore index -1
 (weight 1), ITM cross entropy (1), the two CLS cross entropies (1 each) and
 T2I SmoothL1 with beta 1 against the clean image (10). All reductions are
 means. The MLM loss decodes the tied vocabulary through the fused CE kernels
-on the card (``mlm_ce_kernel``), or in row chunks, recomputing each chunk's
-logits in the backward (activation checkpointing), so the [rows, vocab]
-logits never exist whole; with the gather plan it decodes only the labeled
-rows.
+on the card (``mlm_ce_kernel``: the fp32 logits never exist whole, the
+backward writes their bf16 gradient once), or in row chunks, recomputing
+each chunk's logits in the backward (activation checkpointing), so the
+[rows, vocab] logits never exist whole; with the gather plan it decodes
+only the labeled rows.
 """
 
 from __future__ import annotations
@@ -76,9 +77,10 @@ def chunked_mlm_loss(hidden: torch.Tensor, table: torch.Tensor, bias: torch.Tens
 
 def _mlm_decode_loss(hidden, table, bias, labels, chunk: int, use_kernel: bool):
     """The MLM decode: with ``use_kernel``, on the card, the fused vocab-tiled
-    CE kernels (ops/mlm_ce.py:mlm_ce_loss, the logits never in device
-    memory); otherwise, and always on the CPU, the chunked loss, as in the
-    JAX package off the TPU (mvlt_tpu/train/losses.py:_mlm_decode_loss)."""
+    CE kernels (ops/mlm_ce.py:mlm_ce_loss: the logits never in device
+    memory, their gradient once, in bf16, in the backward); otherwise, and
+    always on the CPU, the chunked loss, as in the JAX package off the TPU
+    (mvlt_tpu/train/losses.py:_mlm_decode_loss)."""
     if use_kernel and hidden.device.type == "cuda":
         return mlm_ce_loss(hidden, table, bias, labels)
     return chunked_mlm_loss(hidden, table, bias, labels, chunk=chunk)

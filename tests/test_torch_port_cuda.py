@@ -16,7 +16,11 @@ LN-MLP kernels at rows off the tile and D = 320 at ratio 4, the v2 kernels on gr
 sizes, one wider than 128, no text rows and a hidden width off the chunk,
 the Swin kernels at windows of 4 and 6 (36 rows, off the 16-row tile), grids
 with h != w, pool windows of 2, T = 7 and a head dim of 32, a Swin block
-on both of its routes, the fused attention half's training kernels at head
+on both of its routes, kernel F at ws^2 16, 36, 49 and 64, T 7, 20, 128
+and 300, head dims 32 and 64, one and two warpgroups, looping warpgroups,
+and on padded, shifted grids, the MLM CE kernels at widths 64, 256 and
+768 with ragged rows and vocabularies, the backward bit-equal twice and
+exactly zero with every row ignored, the fused attention half's training kernels at head
 dims 16 and 32, M = 600, five and sixteen heads, both backward forms, and a
 training block on that route against the plain route, and the ways a
 wrapper refuses its input. Bound:
@@ -378,11 +382,13 @@ def test_fba_wrappers_refuse_what_the_kernels_do_not_take(dev):
 
 
 @pytest.mark.parametrize("r,v,h,frac", [(70, 1000, 64, 0.5), (513, 4099, 256, 0.2),
-                                        (64, 64, 768, 1.0), (200, 30522, 768, 0.15)])
+                                        (64, 64, 768, 1.0), (200, 30522, 768, 0.15),
+                                        (1000, 30522, 768, 0.3), (129, 130, 64, 1.0)])
 def test_mlm_ce_kernels_match_plain(dev, r, v, h, frac):
     """nll, lse and the three gradients at other widths, ragged row and
-    vocabulary counts, a single tile, every row labeled, and labels in the
-    last (ragged) vocabulary tile."""
+    vocabulary counts (the backward's 128 tiles: 1,000 rows, 130 and 30,522
+    columns), a single tile, every row labeled, and labels in the last
+    (ragged) vocabulary tile."""
     gen = torch.Generator().manual_seed(r)
     x = torch.randn(r, h, generator=gen).to(dev, torch.bfloat16)
     table = (torch.randn(v, h, generator=gen) * (2.0 / h ** 0.5)).to(dev, torch.bfloat16)
@@ -400,6 +406,28 @@ def test_mlm_ce_kernels_match_plain(dev, r, v, h, frac):
         assert a.dtype == torch.float32 and a.shape == b.shape
         assert _rel(a, b) <= TOL
     assert torch.equal(nll[labels < 0], torch.zeros_like(nll[labels < 0]))
+
+
+def test_mlm_ce_backward_is_deterministic_and_zero_where_ignored(dev):
+    """Two backward calls at the pre-training shape (R = 3,072, H = 768, V =
+    30,522, five vocabulary ranges of dx) are bit-equal; with every row
+    ignored every gradient is exactly zero."""
+    gen = torch.Generator().manual_seed(3)
+    r, v, h = 3072, 30522, 768
+    x = torch.randn(r, h, generator=gen).to(dev, torch.bfloat16)
+    table = (torch.randn(v, h, generator=gen) * (3.0 / h ** 0.5)).to(dev, torch.bfloat16)
+    bias = (0.1 * torch.randn(v, generator=gen)).to(dev)
+    labels = torch.where(torch.rand(r, generator=gen) < 0.15,
+                         torch.randint(0, v, (r,), generator=gen), -1).to(dev)
+    g = torch.rand(r, generator=gen).to(dev)
+    _, lse = mlm_ce_fwd(x, table, bias, labels)
+    one = mlm_ce_bwd(x, table, bias, labels, lse, g)
+    two = mlm_ce_bwd(x, table, bias, labels, lse, g)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+    ignored = torch.full_like(labels, -1)
+    for t in mlm_ce_bwd(x[:700], table, bias, ignored[:700], lse[:700], g[:700]):
+        assert not torch.count_nonzero(t)
 
 
 def test_mlm_ce_loss_gradients_through_autograd(dev):
@@ -431,6 +459,10 @@ def test_mlm_ce_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="width"):
         mlm_ce_fwd(torch.zeros(10, 1024, device=dev, dtype=torch.bfloat16),
                    torch.zeros(100, 1024, device=dev), bias, labels)
+    with pytest.raises(ValueError, match="width"):   # the backward streams 64-deep chunks
+        mlm_ce_bwd(torch.zeros(10, 96, device=dev, dtype=torch.bfloat16),
+                   torch.zeros(100, 96, device=dev), bias, labels, torch.zeros(10, device=dev),
+                   torch.zeros(10, device=dev))
     with pytest.raises(ValueError, match="labels"):
         mlm_ce_fwd(x, table, bias, labels[:5])
     with pytest.raises(ValueError, match="weight on cpu"):
@@ -570,6 +602,10 @@ def test_swin_kernels_match_plain(dev, hw, dim, heads, mlp_ratio, ws, shift, t, 
 
 @pytest.mark.parametrize("nw,heads,ws2,t,hd,batch", [
     (4, 2, 16, 7, 32, 3), (3, 3, 36, 20, 64, 2), (1, 4, 49, 128, 64, 2), (16, 2, 64, 128, 64, 2),
+    (1, 8, 49, 128, 32, 3),      # stage 4 at 224 with head dim 32, one warpgroup a block
+    (5, 2, 64, 20, 32, 2),       # an odd window count over two warpgroups
+    (2, 2, 36, 300, 64, 2),      # five 64-key text chunks, the last ragged
+    (7, 2, 16, 7, 32, 1200),     # seven windows a block: each warpgroup loops
 ])
 def test_swin_attention_kernel_matches_plain(dev, nw, heads, ws2, t, hd, batch):
     gen = torch.Generator().manual_seed(nw + ws2)
@@ -585,6 +621,32 @@ def test_swin_attention_kernel_matches_plain(dev, nw, heads, ws2, t, hd, batch):
     want = swin_attention_reference(q, k, v, kt, vt, table, scale=hd ** -0.5)
     torch.cuda.synchronize()
     assert fused_swin_attention.launches == launches + 1
+    assert _rel(got, want) <= TOL
+
+
+@pytest.mark.parametrize("hw,ws,shift,dim,heads,t", [((10, 6), 4, True, 96, 3, 7),
+                                                     ((28, 28), 8, True, 128, 2, 128),
+                                                     ((7, 7), 7, False, 256, 8, 20)])
+def test_swin_attention_kernel_on_a_grid(dev, hw, ws, shift, dim, heads, t):
+    """Kernel F on the windows of a padded, shifted grid as the window path
+    cuts them, with the grid's table (relative bias at std 0.5, region and
+    pad masks): a 10x6 grid padded to 12x8, stage 2 at 224 (28 -> 32) and
+    stage 4 (one 7x7 window, head dim 32)."""
+    from mvlt_tpu_torch.models.swin import (add_table, heads_of, relative_position_index,
+                                            window_masks, window_partition)
+    gen = torch.Generator().manual_seed(sum(hw) + t)
+    s = ws // 2 if shift else 0
+    win = lambda: heads_of(window_partition(
+        torch.randn(2, hw[0] * hw[1], dim, generator=gen).to(dev, torch.bfloat16), hw, ws, s),
+        heads).contiguous()
+    txt = lambda: torch.randn(2, heads, t, dim // heads, generator=gen).to(dev, torch.bfloat16)
+    rel = (0.5 * torch.randn((2 * ws - 1) ** 2, heads, generator=gen)).to(dev)
+    table = add_table(rel, torch.from_numpy(relative_position_index(ws)).to(dev),
+                      torch.from_numpy(window_masks(*hw, ws, s)).to(dev), t)
+    args = (win(), win(), win(), txt(), txt(), table)
+    got = fused_swin_attention(*args, scale=(dim // heads) ** -0.5)
+    want = swin_attention_reference(*args, scale=(dim // heads) ** -0.5)
+    torch.cuda.synchronize()
     assert _rel(got, want) <= TOL
 
 
@@ -619,6 +681,15 @@ def test_swin_wrappers_refuse_what_the_kernels_do_not_take(dev):
             fused_swin_attention(q[..., :24].contiguous(), q[..., :24].contiguous(),
                                  q[..., :24].contiguous(), kt4[..., :24].contiguous(),
                                  kt4[..., :24].contiguous(), table, scale=1.0)
+        for hd in (16, 48):   # kernel F takes head dims 32 and 64 only
+            qh = torch.zeros(2, 4, 2, 16, hd, device=dev, dtype=torch.bfloat16)
+            kh = torch.zeros(2, 2, t, hd, device=dev, dtype=torch.bfloat16)
+            with pytest.raises(ValueError, match="out of range"):
+                fused_swin_attention(qh, qh, qh, kh, kh, table, scale=1.0)
+        q81 = torch.zeros(2, 1, 2, 81, 32, device=dev, dtype=torch.bfloat16)   # ws = 9
+        with pytest.raises(ValueError, match="out of range"):
+            fused_swin_attention(q81, q81, q81, kt4, kt4,
+                                 torch.zeros(1, 2, 81, 81 + t, device=dev), scale=1.0)
     # a gradient wanted, or training mode: Swin serves only
     with pytest.raises(NotImplementedError):
         blk.requires_grad_(True)((xv, kt), hw)

@@ -15,7 +15,8 @@ import numpy as np
 import pytest
 import torch
 
-from mvlt_tpu_torch.ops.mlm_ce import (mlm_ce_bwd, mlm_ce_fwd, mlm_ce_loss, mlm_nll,
+from mvlt_tpu_torch.ops.mlm_ce import (BWD_TILE, MAX_SPLITS, bwd_plan, mlm_ce_bwd,
+                                       mlm_ce_fwd, mlm_ce_loss, mlm_nll,
                                        mlm_nll_bwd_reference, mlm_nll_reference)
 from mvlt_tpu_torch.train.losses import chunked_mlm_loss, compute_losses
 from tests.kernel_utils import run_interpret
@@ -105,3 +106,26 @@ def test_kernel_route_on_the_cpu_is_the_chunked_loss():
     want = chunked_mlm_loss(rows[None], table, bias, labels[None], chunk=8)
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
     torch.testing.assert_close(mlm_ce_loss(rows, table, bias, labels), want, rtol=1e-5, atol=1e-5)
+
+
+def test_bwd_plan_at_the_pretraining_shape():
+    """R = 3,072 gathered rows, H = 768, V = 30,522 on 132 SMs: 128-padded
+    rows and vocabulary (a bf16 dl scratch of 187,957,248 bytes), and dx's
+    478 vocabulary chunks in 5 ranges (144 tiles x 5 = 720 blocks fill 91%
+    of 6 waves)."""
+    rows_pad, vocab_pad, splits = bwd_plan(3072, 30522, 768, 132)
+    assert (rows_pad, vocab_pad, splits) == (3072, 30592, 5)
+    assert 2 * rows_pad * vocab_pad == 187_957_248
+
+
+@pytest.mark.parametrize("rows,vocab,width,sms", [(1000, 30522, 768, 132), (70, 1000, 64, 132),
+                                                  (129, 130, 256, 132), (64, 64, 768, 114),
+                                                  (513, 4099, 256, 8)])
+def test_bwd_plan_covers_every_chunk_with_nonempty_ranges(rows, vocab, width, sms):
+    rows_pad, vocab_pad, splits = bwd_plan(rows, vocab, width, sms)
+    assert rows_pad % BWD_TILE == 0 and rows <= rows_pad < rows + BWD_TILE
+    assert vocab_pad % BWD_TILE == 0 and vocab <= vocab_pad < vocab + BWD_TILE
+    chunks = vocab_pad // 64
+    per = -(-chunks // splits)
+    assert 1 <= splits <= min(MAX_SPLITS, chunks)
+    assert (splits - 1) * per < chunks <= splits * per      # no range empty, none left out

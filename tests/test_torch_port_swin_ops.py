@@ -22,7 +22,7 @@ import pytest
 import torch
 
 from mvlt_tpu_torch.models import swin as port_swin
-from mvlt_tpu_torch.ops.swin_attention import fused_swin_attention
+from mvlt_tpu_torch.ops.swin_attention import fused_swin_attention, plan
 from mvlt_tpu_torch.ops.swin_band import fused_swin_block
 from tests.kernel_utils import run_interpret
 
@@ -58,19 +58,24 @@ def _grid_table(gen, hw, ws, shift, nh, t):
     return port_swin.add_table(rel, index, mask, t).numpy()
 
 
-ATTN_CASES = ["nw4_paired", "nw4_single", "nw3", "padded_shifted"]
+ATTN_CASES = ["nw4_paired", "nw4_single", "nw3", "padded_shifted", "window7_hd32"]
 
 
 @pytest.mark.parametrize("case", ATTN_CASES)
 def test_swin_attention_reference_matches_pallas(case):
     """Pallas #19 in its paired form (nW even, the JAX default) and its
-    single-window form (nW even with pairing off, and nW odd), and on a
-    real 6x6 grid padded to 8x8 and shifted, against the plain version."""
+    single-window form (nW even with pairing off, and nW odd), on a real
+    6x6 grid padded to 8x8 and shifted, and on one 7x7 window (stage 4 at
+    224: ws^2 = 49, 61 keys, head dim 32), against the plain version."""
     from mvlt_tpu.ops.swin_attention import _fused_swin_attention
 
     gen = np.random.default_rng(ATTN_CASES.index(case))
     b, nh, t, hd = 2, 2, 12, 16
-    if case == "padded_shifted":
+    if case == "window7_hd32":
+        ws, pair, hd = 7, False, 32
+        table = _grid_table(gen, (7, 7), ws, 0, nh, t)
+        nw = table.shape[0]
+    elif case == "padded_shifted":
         ws, pair = 4, True
         table = _grid_table(gen, (6, 6), ws, ws // 2, nh, t)
         nw = table.shape[0]
@@ -86,6 +91,23 @@ def test_swin_attention_reference_matches_pallas(case):
     got = fused_swin_attention(*map(torch.from_numpy, args), scale=scale)
     assert got.shape == (b, nw, nh, ws * ws, hd)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("batch,nw,heads,want", [
+    (101, 16, 2, (2, 2)),     # stage 2 at 224: 1,616 blocks of two windows
+    (101, 4, 5, (2, 2)),      # stage 3
+    (101, 1, 8, (1, 1)),      # stage 4: one window, one warpgroup
+    (4, 16, 2, (2, 2)),
+    (1200, 7, 2, (2, 7)),     # enough windows to share the text K/V seven ways
+    (3000, 16, 2, (2, 16)),
+])
+def test_kernel_f_plan(batch, nw, heads, want):
+    """Kernel F's (warpgroups, windows) a block on 132 SMs: at least four
+    waves of blocks, two an SM, and no more windows a block than a sample
+    has."""
+    assert plan(batch, nw, heads, 132) == want
+    wgs, per = want
+    assert -(-nw // per) * batch * heads >= min(8 * 132, batch * heads * -(-nw // wgs))
 
 
 def _block_weights(gen, c, hidden, nh, ws):
