@@ -38,11 +38,22 @@ The training attention kernels (csrc/attention.cu), phase train_kernels:
   one_split_slot       the slot sum drops the last range's dK/dV partial;
   lse_natural_vs_log2  the backward takes lse (natural log) as a base-2
                        exponent.
-The MLM CE backward (csrc/mlm_ce.cu), phase mlm_kernels:
-  no_onehot        dl keeps the softmax at the label, the onehot not
-                   subtracted;
-  one_slot_dropped the slot sum drops the last slot: dx loses its last
-                   vocabulary range, db its last row tile.
+The LN-MLP backward (csrc/ln_mlp_bwd.cu), phase train_kernels:
+  wgrad_range_dropped  the in-order sum of dW1's and dW2's slots drops the
+                       last range of rows;
+  dys_unscaled         s.dy written without the row scale: dW2, dh1 and
+                       all that follows see the dropped sample and miss
+                       the 1/keep factor;
+  no_gelu_grad         dh1 = dG, GELU'(h1) left out.
+The MLM CE kernels (csrc/mlm_ce.cu), phase mlm_kernels:
+  no_onehot            the backward's dl keeps the softmax at the label, the
+                       onehot not subtracted;
+  one_slot_dropped     the backward's slot sum drops the last slot: dx loses
+                       its last vocabulary range, db its last row tile;
+  padded_vocab_at_zero the forward counts the padded vocabulary columns
+                       (zero rows of E) at logit 0 instead of -inf;
+  merge_last_dropped   the forward's merge leaves out the last vocabulary
+                       tile's partial.
 """
 
 from __future__ import annotations
@@ -103,6 +114,18 @@ FAULTS = {
         "train_kernels", "mvlt_tpu_torch/csrc/attention.cu",
         "a.lse[(size_t)bh * a.n + row] * kLog2e",
         "a.lse[(size_t)bh * a.n + row]"),
+    "wgrad_range_dropped": (
+        "train_kernels", "mvlt_tpu_torch/csrc/ln_mlp_bwd.cu",
+        "const int ranges = splits;",
+        "const int ranges = splits - 1;"),
+    "dys_unscaled": (
+        "train_kernels", "mvlt_tpu_torch/csrc/ln_mlp_bwd.cu",
+        "store_bf16x2(a.dys + o, dv[k][p].x * sc, dv[k][p].y * sc);",
+        "store_bf16x2(a.dys + o, dv[k][p].x, dv[k][p].y);"),
+    "no_gelu_grad": (
+        "train_kernels", "mvlt_tpu_torch/csrc/ln_mlp_bwd.cu",
+        "dg[i] = dg[i] * gg.y;",
+        "dg[i] = dg[i];"),
     "no_onehot": (
         "mlm_kernels", "mvlt_tpu_torch/csrc/mlm_ce.cu",
         "dl = g[h] * (v == lab[h] ? p - 1.0f : p);",
@@ -111,6 +134,14 @@ FAULTS = {
         "mlm_kernels", "mvlt_tpu_torch/csrc/mlm_ce.cu",
         "for (int s = 0; s < count; ++s) sum += slots[s * stride + i];",
         "for (int s = 0; s < count - 1; ++s) sum += slots[s * stride + i];"),
+    "padded_vocab_at_zero": (
+        "mlm_kernels", "mvlt_tpu_torch/csrc/mlm_ce.cu",
+        "const float l = v < a.vocab ? d[4 * j + e] + a.bias[v] : -INFINITY;",
+        "const float l = d[4 * j + e] + (v < a.vocab ? a.bias[v] : 0.0f);"),
+    "merge_last_dropped": (
+        "mlm_kernels", "mvlt_tpu_torch/csrc/mlm_ce.cu",
+        "for (int s = 0; s < parts; ++s) {",
+        "for (int s = 0; s < parts - 1; ++s) {"),
 }
 # per phase: the checks at B = 4 that print each error with the bound lifted
 MARGINS = {

@@ -14,7 +14,8 @@ JSON line each; a failed phase raises and the script exits non-zero:
   2. build: nvcc compiles mvlt_tpu_torch/csrc/*.cu for sm_90a; ptxas's
      registers and spills per kernel, and the HGMMA instructions in the SASS
      of each wgmma kernel (WGMMA_KERNELS: the training attention kernels,
-     the MLM CE backward, kernel F; cuobjdump), which each must hold;
+     the MLM CE kernels, the LN-MLP backward's product kernels, kernel F;
+     cuobjdump), which each must hold;
   3. kernels: kernel A (SR-KV) and kernel B (whole block) against their plain
      PyTorch versions on the card in bf16, bound max|kernel - plain| /
      max|plain| <= 2e-2, at the four pvlt_tiny stage shapes (B = 4), one
@@ -62,17 +63,22 @@ JSON line each; a failed phase raises and the script exits non-zero:
      against their plain versions in bf16 (every output, bound 2e-2 as in
      phase 3) at the four stage shapes at B = 4 and B = 150, a ragged shape
      (M = 22, head dim 32), stage 1 at 224 input (M = 177) and M = 272 (two
-     K/V groups of the backward, head dim 32) at B = 4; at B = 150 each
-     kernel's time beside its plain version's, its bound, and for attention
-     F.scaled_dot_product_attention's (a yardstick the port never calls);
-  8. the MLM CE kernels (forward; backward: dl recomputed once, then dx,
-     dE and db) against their plain versions in bf16 (nll, lse and the
-     three gradients within 2e-2) at the path's R = 3,072 gathered rows
-     (~15% labeled), a ragged R = 1,000, and with every row ignored (exact
-     zeros); two backward calls at R = 3,072 bit-equal; their times at R =
+     K/V groups of the backward, head dim 32) at B = 4; at B = 150 two
+     LN-MLP backward calls bit-equal, and each kernel's time beside its
+     plain version's, its bound, and for attention
+     F.scaled_dot_product_attention's (a yardstick the port never calls),
+     for the LN-MLP backward its device time and a bf16 cuBLAS composition
+     of its five products (a yardstick too);
+  8. the MLM CE kernels (forward: logits on wgmma with per-tile partials
+     merged in order; backward: dl recomputed once, then dx, dE and db)
+     against their plain versions in bf16 (nll, lse and the three gradients
+     within 2e-2) at the path's R = 3,072 gathered rows (~15% labeled), a
+     ragged R = 1,000, a ragged vocabulary of 4,099 with every logit below
+     0 and labels in its last columns, and with every row ignored (exact
+     zeros); two calls of each at R = 3,072 bit-equal; their times at R =
      3,072 beside the plain versions', the bounds and the cuBLAS logits +
-     F.cross_entropy yardstick (the backward and its yardstick by CUDA
-     events and by torch.profiler device time);
+     F.cross_entropy yardstick (by CUDA events and by torch.profiler device
+     time);
   9. the training slice: pvlt_tiny pre-training (ITM + MLM + T2I at 1/1/10,
      bf16, B = 150, DropPath 0.1, BERT dropout 0.1, AdamW, the MLM loss
      through the MLM CE kernels) takes 6 steps through
@@ -161,7 +167,7 @@ from mvlt_tpu_torch.ops.block_fused import block_reference, fused_block
 from mvlt_tpu_torch.ops.dwconv_mlp import dwconv_mlp_reference, fused_dwconv_mlp
 from mvlt_tpu_torch.ops.fused_mlp import (fused_ln_mlp, ln_mlp_bwd, ln_mlp_bwd_reference,
                                           ln_mlp_fwd, ln_mlp_reference)
-from mvlt_tpu_torch.ops.kernel_math import layer_norm_fp32, linear
+from mvlt_tpu_torch.ops.kernel_math import gelu_grad, layer_norm_fp32, linear
 from mvlt_tpu_torch.ops.mlm_ce import (mlm_ce_bwd, mlm_ce_fwd, mlm_nll_bwd_reference,
                                        mlm_nll_reference)
 from mvlt_tpu_torch.ops.pallas_attention import (attention_bwd, attention_fwd,
@@ -227,7 +233,7 @@ KERNELS = [
      "replaces": "mvlt_tpu/ops/pallas_attention.py:118"},
     {"name": "ln_mlp_fwd", "route": "cuda", "source": "mvlt_tpu_torch/csrc/ln_mlp.cu",
      "replaces": "mvlt_tpu/ops/fused_mlp.py:380"},
-    {"name": "ln_mlp_bwd", "route": "cuda", "source": "mvlt_tpu_torch/csrc/ln_mlp.cu",
+    {"name": "ln_mlp_bwd", "route": "cuda", "source": "mvlt_tpu_torch/csrc/ln_mlp_bwd.cu",
      "replaces": "mvlt_tpu/ops/fused_mlp.py:214"},
     {"name": "mlm_ce_fwd", "route": "cuda", "source": "mvlt_tpu_torch/csrc/mlm_ce.cu",
      "replaces": "mvlt_tpu/ops/mlm_ce.py:187"},
@@ -324,6 +330,15 @@ def cuda_time_ms(fn, warmup: int = 3, reps: int = 10) -> float:
     return statistics.median(times)
 
 
+def is_kernel(evt) -> bool:
+    """A device-side event of a profile: not an operator's own row (which
+    repeats the device time of the kernels it launched), and not a user
+    annotation's span on the device timeline (the optimizer step's, which
+    covers idle gaps where the device waits on the host)."""
+    return (evt.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(evt, "is_user_annotation", False))
+
+
 def device_time_ms(fn, calls: int = 10) -> float | str:
     """Device time of one call: the kernels' time by torch.profiler over
     ``calls`` calls after one warm-up, per call ("not measured" where the
@@ -334,8 +349,7 @@ def device_time_ms(fn, calls: int = 10) -> float | str:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    total = sum(evt.self_device_time_total for evt in prof.key_averages()
-                if evt.device_type == torch.autograd.DeviceType.CUDA)
+    total = sum(evt.self_device_time_total for evt in prof.key_averages() if is_kernel(evt))
     return total / 1e3 / calls if total else "not measured"
 
 
@@ -353,8 +367,9 @@ def phase_device() -> str:
 
 
 # the wgmma kernels, each of which must hold HGMMA instructions in its SASS
-WGMMA_KERNELS = ("attn_fwd_hopper_kernel", "attn_bwd_hopper_kernel", "mlm_ce_dlogits_kernel",
-                 "mlm_ce_gemm_kernel", "swin_attn_hopper_kernel")
+WGMMA_KERNELS = ("attn_fwd_hopper_kernel", "attn_bwd_hopper_kernel", "mlm_ce_fwd_kernel",
+                 "mlm_ce_dlogits_kernel", "mlm_ce_gemm_kernel", "ln_mlp_bwd_hidden_kernel",
+                 "ln_mlp_bwd_wgrad_kernel", "ln_mlp_bwd_dnorm_kernel", "swin_attn_hopper_kernel")
 
 
 def hgmma_counts(library: pathlib.Path) -> dict:
@@ -739,9 +754,7 @@ def profile_device(run, calls: int, groups: dict, phase: str) -> None:
         wall_ms = (time.perf_counter() - start) * 1e3
     by_name: dict = {}
     for evt in prof.key_averages():
-        # device-side kernel events only: an operator's own row repeats the
-        # device time of the kernels it launched
-        if evt.device_type == torch.autograd.DeviceType.CUDA and evt.self_device_time_total > 0:
+        if is_kernel(evt) and evt.self_device_time_total > 0:
             by_name[evt.key] = by_name.get(evt.key, 0.0) + evt.self_device_time_total / 1e3
     device_ms = sum(by_name.values())
     by_group = dict.fromkeys(list(groups) + ["other"], 0.0)
@@ -1260,7 +1273,47 @@ def check_train_kernels(stats: dict, gen, label: str, shape: tuple, batch: int) 
                                  f"B = {batch}: {errs} (tol {KERNEL_TOL})")
         stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"],
                                          max(e[0] for e in errs.values()))
+    if batch == TRAIN_BATCH:
+        again = ln_mlp_bwd(*_mlp_bwd_args(a))
+        torch.cuda.synchronize()
+        equal = all(torch.equal(x, y) for x, y in zip(outs["ln_mlp_bwd"][1], again))
+        emit("kernel_check", kernel="ln_mlp_bwd", shape=label, batch=batch,
+             check="two calls bit-equal", ok=equal)
+        if not equal:
+            raise AssertionError(f"two ln_mlp_bwd calls on the same inputs differ at {label}")
     return a
+
+
+def ln_mlp_bwd_composition(a: dict):
+    """The LN-MLP backward as the five products in bf16 torch.matmul (cuBLAS)
+    and PyTorch's elementwise LN and GELU work in fp32: a yardstick for
+    #13 (PERF.md section 5), never a path the port calls."""
+    g, be, w1, b1, w2, _ = a["mlp"]
+    x, dy, s = a["x"], a["dy"], a["s"]
+    w1b, w2b = w1.to(torch.bfloat16), w2.to(torch.bfloat16)
+    d, hid = x.shape[-1], w1.shape[0]
+
+    def run():
+        xf = x.float()
+        mean = xf.mean(-1, keepdim=True)
+        rstd = torch.rsqrt((xf - mean).square().mean(-1, keepdim=True) + 1e-6)
+        nhat = (xf - mean) * rstd
+        n = (nhat * g + be).to(torch.bfloat16)
+        dys = dy.float() * s[:, None, None]
+        dysb = dys.to(torch.bfloat16)
+        h1 = (n @ w1b.t()).float() + b1
+        gl = F.gelu(h1).to(torch.bfloat16)
+        dh1 = (dysb @ w2b).float() * gelu_grad(h1)
+        dh1b = dh1.to(torch.bfloat16)
+        dw2 = dysb.reshape(-1, d).t() @ gl.reshape(-1, hid)
+        dw1 = dh1b.reshape(-1, hid).t() @ n.reshape(-1, d)
+        dn = (dh1b @ w1b).float()
+        dng = dn * g
+        dx = dy.float() + (dng - dng.mean(-1, keepdim=True)
+                           - nhat * (dng * nhat).mean(-1, keepdim=True)) * rstd
+        return (dx.to(torch.bfloat16), (dn * nhat).sum((0, 1)), dn.sum((0, 1)), dw1,
+                dh1.sum((0, 1)), dw2, dys.sum((0, 1)))
+    return run
 
 
 def train_bounds(shape: tuple, batch: int) -> dict:
@@ -1324,10 +1377,13 @@ def phase_train_kernels(stats: dict) -> None:
         for name, (kernel, plain, library_ms) in times.items():
             ms, plain_ms = cuda_time_ms(kernel), cuda_time_ms(plain)
             bound_ms, bound_by = bounds[name]
+            extra = ({"sdpa_fwd_bwd_ms": sdpa_both} if name == "attention_bwd" else
+                     {"device_ms": device_time_ms(kernel),
+                      "composition_ms": cuda_time_ms(ln_mlp_bwd_composition(a))}
+                     if name == "ln_mlp_bwd" else {})
             emit("kernel_time", kernel=name, shape=label, batch=TRAIN_BATCH, ms=ms,
                  plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                 library_ms=library_ms, speedup=plain_ms / ms,
-                 **({"sdpa_fwd_bwd_ms": sdpa_both} if name == "attention_bwd" else {}))
+                 library_ms=library_ms, speedup=plain_ms / ms, **extra)
             add_time(stats, name, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                      bound_by=bound_by, library_ms=library_ms)
         del a, times, o_lse
@@ -1544,7 +1600,7 @@ TRAIN_GROUPS = {"attention_fwd": ("attn_fwd_hopper_kernel",),
                 "fba_train_bwd": ("fba_bwd_rows_kernel", "fba_bwd_kv_kernel",
                                   "fba_reduce_kernel"),
                 "ln_mlp_fwd": ("ln_mlp_fwd_kernel",),
-                "ln_mlp_bwd": ("ln_mlp_bwd_kernel", "ln_mlp_reduce_kernel"),
+                "ln_mlp_bwd": ("ln_mlp_bwd_",),
                 "mlm_ce_fwd": ("mlm_ce_fwd_kernel", "mlm_ce_merge_kernel"),
                 "mlm_ce_bwd": ("mlm_ce_dlogits_kernel", "mlm_ce_gemm_kernel",
                                "mlm_ce_slot_sum_kernel")}
@@ -1772,18 +1828,21 @@ MLM_ROWS = 3072            # the gather plan's capacity at B = 150 x 128 tokens,
 MLM_WIDTH, VOCAB = 768, 30522
 
 
-def mlm_inputs(gen, rows: int, frac: float) -> tuple:
+def mlm_inputs(gen, rows: int, frac: float, vocab: int = VOCAB, bias_mean: float = 0.0,
+               last: int = 0) -> tuple:
     """Seeded operands of the MLM CE kernels on the card: bf16 rows, the bf16
     table with std 3 / sqrt(H) (logits of std ~3, a peaked softmax), an fp32
-    bias, labels with ``frac`` of the rows labeled, and the per-row gradient
-    the mean loss gives (1 / labeled count)."""
+    bias around ``bias_mean``, labels with ``frac`` of the rows labeled (among
+    the last ``last`` columns of the vocabulary where ``last`` is set), and
+    the per-row gradient the mean loss gives (1 / labeled count)."""
     dev = torch.device("cuda")
     x = torch.randn(rows, MLM_WIDTH, generator=gen).to(dev, torch.bfloat16)
-    table = (3.0 / MLM_WIDTH ** 0.5 * torch.randn(VOCAB, MLM_WIDTH, generator=gen)).to(
+    table = (3.0 / MLM_WIDTH ** 0.5 * torch.randn(vocab, MLM_WIDTH, generator=gen)).to(
         dev, torch.bfloat16)
-    bias = (0.1 * torch.randn(VOCAB, generator=gen)).to(dev)
+    bias = (bias_mean + 0.1 * torch.randn(vocab, generator=gen)).to(dev)
     labels = torch.where(torch.rand(rows, generator=gen) < frac,
-                         torch.randint(0, VOCAB, (rows,), generator=gen), -1).to(dev)
+                         torch.randint(vocab - last if last else 0, vocab, (rows,),
+                                       generator=gen), -1).to(dev)
     g = torch.full((rows,), 1.0 / max(int((labels >= 0).sum()), 1), device=dev)
     return x, table, bias, labels, g
 
@@ -1812,18 +1871,27 @@ def library_ce_calls(x, table, bias, labels) -> tuple:
     return fwd, bwd, both
 
 
+# the MLM CE checks: (label, rows, labeled share, mlm_inputs' keywords).
+# "ragged_vocab": V = 4,099 (its last 128-column tile holds 3 columns, 125
+# padded), every logit far below 0 (bias -10) and the labels among the last
+# 70 columns, so that a padded column counted in the sum, or a dropped last
+# tile, shows.
+MLM_CHECKS = (("path", MLM_ROWS, 0.15, {}), ("ragged", 1000, 0.3, {}),
+              ("ragged_vocab", 1000, 0.3, {"vocab": 4099, "bias_mean": -10.0, "last": 70}),
+              ("all_ignored", 512, 0.0, {}))
+
+
 def phase_mlm_kernels(stats: dict) -> None:
     """The MLM CE kernels against their plain versions in bf16 (nll, lse and
     the three gradients, each within KERNEL_TOL) at the path's R = 3,072
-    rows with ~15% labeled, at a ragged R = 1,000, and with every row
-    ignored (exact zeros); at R = 3,072 two backward calls bit-equal, and
-    their times beside the plain versions', the bounds and the library
-    call's (CUDA events; the backward's and its yardstick's device time by
-    torch.profiler as well)."""
+    rows with ~15% labeled, at a ragged R = 1,000, on a ragged vocabulary
+    with logits below 0, and with every row ignored (exact zeros); at R =
+    3,072 two calls of each bit-equal, and their times beside the plain
+    versions', the bounds and the library call's (CUDA events and
+    torch.profiler device time)."""
     gen = torch.Generator().manual_seed(SEED + 11)
-    for label, rows, frac in (("path", MLM_ROWS, 0.15), ("ragged", 1000, 0.3),
-                              ("all_ignored", 512, 0.0)):
-        x, table, bias, labels, g = mlm_inputs(gen, rows, frac)
+    for label, rows, frac, kw in MLM_CHECKS:
+        x, table, bias, labels, g = mlm_inputs(gen, rows, frac, **kw)
         nll, lse = mlm_ce_fwd(x, table, bias, labels)
         want_nll, want_lse = mlm_nll_reference(x, table, bias, labels)
         grads = mlm_ce_bwd(x, table, bias, labels, want_lse, g)
@@ -1845,7 +1913,7 @@ def phase_mlm_kernels(stats: dict) -> None:
             worst = max(v[1] for v in e.values())
             ok = bool(worst <= KERNEL_TOL and np.isfinite(worst))
             emit("kernel_check", kernel=name, shape=label, rows=rows, width=MLM_WIDTH,
-                 vocab=VOCAB, labeled=int((labels >= 0).sum()),
+                 vocab=table.shape[0], labeled=int((labels >= 0).sum()),
                  rel_err={k: v[1] for k, v in e.items()}, tol=KERNEL_TOL, ok=ok)
             if not ok:
                 raise AssertionError(f"{name} disagrees with its plain version at {label}: "
@@ -1854,13 +1922,15 @@ def phase_mlm_kernels(stats: dict) -> None:
                                              max(v[0] for v in e.values()))
         if label != "path":
             continue
-        again = mlm_ce_bwd(x, table, bias, labels, want_lse, g)
+        again = (mlm_ce_fwd(x, table, bias, labels),
+                 mlm_ce_bwd(x, table, bias, labels, want_lse, g))
         torch.cuda.synchronize()
-        equal = all(torch.equal(a, b) for a, b in zip(grads, again))
-        emit("kernel_check", kernel="mlm_ce_bwd", shape=label, rows=rows,
-             check="two calls bit-equal", ok=equal)
-        if not equal:
-            raise AssertionError("two mlm_ce_bwd calls on the same inputs differ")
+        for name, first, second in zip(MLM_WRAPPERS, ((nll, lse), grads), again):
+            equal = all(torch.equal(a, b) for a, b in zip(first, second))
+            emit("kernel_check", kernel=name, shape=label, rows=rows,
+                 check="two calls bit-equal", ok=equal)
+            if not equal:
+                raise AssertionError(f"two {name} calls on the same inputs differ")
         del again
         lib_fwd, lib_bwd, lib_both = library_ce_calls(x, table, bias, labels)
         times = {"mlm_ce_fwd": (lambda: mlm_ce_fwd(x, table, bias, labels),
@@ -1873,10 +1943,10 @@ def phase_mlm_kernels(stats: dict) -> None:
             ms, plain_ms = cuda_time_ms(kernel), cuda_time_ms(plain)
             library_ms = cuda_time_ms(library)
             bound_ms, bound_by = bounds[name]
-            device = ({"device_ms": device_time_ms(kernel),
-                       "library_device_ms": device_time_ms(library),
-                       "library_fwd_bwd_ms": cuda_time_ms(lib_both)}
-                      if name == "mlm_ce_bwd" else {})
+            device = {"device_ms": device_time_ms(kernel),
+                      "library_device_ms": device_time_ms(library),
+                      **({"library_fwd_bwd_ms": cuda_time_ms(lib_both)}
+                         if name == "mlm_ce_bwd" else {})}
             emit("kernel_time", kernel=name, shape=label, rows=rows, ms=ms, plain_ms=plain_ms,
                  bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
                  speedup=plain_ms / ms, **device)

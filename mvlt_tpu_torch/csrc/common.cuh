@@ -7,7 +7,8 @@
 //                  digits on residual-grown rows)
 //   softmax_av  -> written out inside block_fused.cu and attention.cu (fp32
 //                  logits and softmax)
-//   gelu / gelu_grad -> gelu_erf / gelu_erf_grad (exact erf, never the tanh form)
+//   gelu / gelu_grad -> gelu_erf / gelu_erf_and_grad (exact erf, never the tanh
+//                  form)
 // gemm_bf16 is the matrix-product routine: bf16 tensor-core tiles
 // (nvcuda::wmma, 16x16x16, fp32 accumulation), a tile of up to eight 16x16
 // output blocks per warp at a time, each handed element by element to an
@@ -55,10 +56,11 @@ __device__ __forceinline__ float gelu_erf(float u) {
   return 0.5f * u * (1.0f + erff(u * 0.70710678118654752f));
 }
 
-// d/du of the exact GELU: Phi(u) + u * phi(u)
-__device__ __forceinline__ float gelu_erf_grad(float u) {
-  return 0.5f * (1.0f + erff(u * 0.70710678118654752f)) +
-         u * 0.39894228040143268f * __expf(-0.5f * u * u);
+// The exact GELU and its derivative Phi(u) + u * phi(u), sharing one erf.
+__device__ __forceinline__ float2 gelu_erf_and_grad(float u) {
+  const float phi2 = 1.0f + erff(u * 0.70710678118654752f);  // 2 Phi(u)
+  return make_float2(0.5f * u * phi2,
+                     0.5f * phi2 + u * 0.39894228040143268f * __expf(-0.5f * u * u));
 }
 
 // Two-pass LayerNorm statistics (mean, 1/sqrt(var + eps)) of one row of

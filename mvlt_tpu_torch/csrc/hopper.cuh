@@ -1,8 +1,10 @@
 // Hopper (sm_90a) device helpers of the port's wgmma kernels (attention.cu,
-// mlm_ce.cu, swin_attention.cu):
+// mlm_ce.cu, ln_mlp_bwd.cu, swin_attention.cu):
 // warpgroup matrix multiply (wgmma) on bf16 operands with fp32 sums, its
 // shared-memory descriptors and fences, cp.async copies into the swizzled
-// tiles wgmma reads, named barriers, and the fragment-layout maps.
+// tiles wgmma reads, named barriers, the fragment-layout maps, and the
+// 128 x 128 output tile over a streamed contraction (mma_tile) that the
+// GEMM-shaped kernels share.
 //
 // Tiles in shared memory. Every bf16 operand tile is row-major, one row of
 // RB = 64 or 128 bytes (32 or 64 values), rows in groups of eight that
@@ -250,6 +252,142 @@ __device__ __forceinline__ void wgmma_ss_half(float (&d)[64], uint64_t da, uint6
         "+f"(d[Off + 24]), "+f"(d[Off + 25]), "+f"(d[Off + 26]), "+f"(d[Off + 27]),
         "+f"(d[Off + 28]), "+f"(d[Off + 29]), "+f"(d[Off + 30]), "+f"(d[Off + 31])
       : "l"(da), "l"(db), "r"(acc), "n"(TransA), "n"(TransB));
+}
+
+// ---- 128 x 128 output tiles over a streamed contraction ------------------
+//
+// A block of two warpgroups (kGemmThreads) computes one 128 x 128 fp32 tile
+// of a product, warpgroup w holding rows 64w .. 64w + 63 in registers, and
+// streams the contraction in kGemmChunk-deep chunks through a kGemmRing-stage
+// cp.async ring of swizzled tiles: two chunks in flight ahead of the
+// product and one product in flight behind it (mlm_ce.cu, ln_mlp_bwd.cu).
+
+constexpr int kGemmTile = 128;     // rows and columns of a block's output tile
+constexpr int kGemmChunk = 64;     // contraction depth of one ring stage
+constexpr int kGemmRing = 5;       // ring stages; kGemmRing - 2 chunks load ahead
+constexpr int kGemmThreads = 256;  // two warpgroups, 64 rows of the tile each
+constexpr int kGemmOperandBytes = kGemmTile * kGemmChunk * 2;  // one operand of one stage
+constexpr int kGemmPanelBytes = kGemmOperandBytes / 2;         // 64 rows of 128 bytes
+constexpr size_t kGemmSmem = 1024 + (size_t)kGemmRing * 2 * kGemmOperandBytes;
+constexpr int kGemmStageLd = kGemmTile + 8;  // bf16 row of an output stage in shared memory
+
+// Thread t's accumulator rows of the tile: tile_row() and tile_row() + 8, at
+// columns 8j + tile_col() and + 1 (j < 16) -- d[4j + e] at row
+// tile_row() + 8(e / 2), column 8j + tile_col() + e % 2.
+__device__ __forceinline__ int tile_row() {
+  return 64 * (threadIdx.x >> 7) + 16 * ((threadIdx.x >> 5) & 3) + ((threadIdx.x & 31) >> 2);
+}
+__device__ __forceinline__ int tile_col() { return 2 * (threadIdx.x & 3); }
+
+// A row-major bf16 matrix in device memory, ld elements a row; elements
+// past [rows][cols] read as zeros. cols and ld are multiples of 8.
+struct Mat {
+  const __nv_bfloat16* p;
+  long long ld;
+  int rows, cols;
+};
+
+// One ring stage of an operand, a Rows x 64 tile of m (Rows 128 or 64), by
+// cp.async:
+//   K-major  (MN false): rows r0 .. r0 + Rows - 1, columns k0 .. k0 + 63,
+//            one 128-byte swizzled row each;
+//   MN-major (MN true):  rows k0 .. k0 + 63, columns r0 .. r0 + Rows - 1, as
+//            panels of 64 columns [64][128 B], kGemmPanelBytes apart.
+template <bool MN, int Rows = kGemmTile>
+__device__ __forceinline__ void load_operand(uint32_t dst, const Mat& m, int r0, int k0) {
+  constexpr int kChunksPerRow = Rows / 8;  // 16-byte chunks across an MN-major tile
+  for (int i = threadIdx.x; i < Rows * 8; i += kGemmThreads) {
+    int row, col;
+    uint32_t off;
+    if (MN) {
+      const int k = i / kChunksPerRow, c = i % kChunksPerRow;
+      row = k0 + k;
+      col = r0 + c * 8;
+      off = (c >> 3) * kGemmPanelBytes + tile_off<128>(k, c & 7);
+    } else {
+      const int r = i >> 3, c = i & 7;
+      row = r0 + r;
+      col = k0 + c * 8;
+      off = tile_off<128>(r, c);
+    }
+    const bool ok = row < m.rows && col < m.cols;
+    cp_async16_zfill(dst + off, ok ? m.p + row * m.ld + col : m.p, ok);
+  }
+}
+
+// d = the block's 128 x 128 tile of A^T B (A rows m0.., B rows n0..) over
+// chunks [c0, c1) of the contraction; warpgroup w holds rows 64w .. 64w + 63.
+// A is K-major (A_MN false: [M][K] in memory) or MN-major ([K][M]); so is B.
+// Every thread of the block calls it; the ring is free again for the next
+// call only after a __syncthreads().
+template <bool A_MN, bool B_MN>
+__device__ __forceinline__ void mma_tile(const Mat& a, const Mat& b, int m0, int n0, int c0,
+                                         int c1, uint32_t ring, float (&d)[64]) {
+  const int wg = threadIdx.x >> 7, n = c1 - c0;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) d[i] = 0.0f;
+  auto load = [&](int i) {  // chunk c0 + i into its stage; one commit group each
+    if (i < n) {
+      const uint32_t st = ring + (i % kGemmRing) * 2 * kGemmOperandBytes;
+      load_operand<A_MN>(st, a, m0, (c0 + i) * kGemmChunk);
+      load_operand<B_MN>(st + kGemmOperandBytes, b, n0, (c0 + i) * kGemmChunk);
+    }
+    cp_async_commit();
+  };
+  for (int i = 0; i < kGemmRing - 2; ++i) load(i);
+  for (int i = 0; i < n; ++i) {
+    cp_async_wait<kGemmRing - 3>();
+    fence_proxy_async();
+    __syncthreads();  // chunk i is in; both warpgroups' products of chunk i - 2 are done
+    load(i + kGemmRing - 2);  // into chunk i - 2's stage
+    const uint32_t st = ring + (i % kGemmRing) * 2 * kGemmOperandBytes;
+    const uint32_t sa = st + wg * kGemmPanelBytes, sb = st + kGemmOperandBytes;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kGemmChunk / 16; ++kk) {
+      const uint64_t da = make_desc<128>(sa + (A_MN ? kk * 16 * 128 : kk * 32));
+      if (B_MN) {
+        wgmma_ss_half<A_MN, 1, 0>(d, da, make_desc<128>(sb + kk * 16 * 128), 1);
+        wgmma_ss_half<A_MN, 1, 32>(d, da, make_desc<128>(sb + kGemmPanelBytes + kk * 16 * 128),
+                                   1);
+      } else {
+        wgmma_ss<A_MN, 0>(d, da, make_desc<128>(sb + kk * 32), 1);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // chunk i - 1's product is done
+  }
+  wgmma_wait<0>();
+  fence_regs(d);
+}
+
+// out[n][m] = sum_k A[k][m] B(k, n) over the chunks of k of one split, fp32,
+// for m < m_out and n < n_out (A MN-major; B MN-major or K-major); split s
+// writes out + s * split_stride. The long-K weight-gradient form: the
+// contraction runs over rows, each split over its own range of them.
+struct GemmArgs {
+  Mat a, b;
+  float* out;
+  long long split_stride;
+  int m_out, n_out, ldo, chunks, per_split;
+};
+
+template <bool B_MN>
+__device__ __forceinline__ void gemm_tn_block(const GemmArgs& a, int m0, int n0, int split,
+                                              uint32_t ring) {
+  const int c0 = split * a.per_split, c1 = min(a.chunks, c0 + a.per_split);
+  float d[64];
+  mma_tile<true, B_MN>(a.a, a.b, m0, n0, c0, c1, ring, d);
+  float* out = a.out + split * a.split_stride;
+  const int m = m0 + tile_row(), cq = tile_col();
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int mm = m + 8 * (e >> 1), nn = n0 + 8 * j + cq + (e & 1);
+      if (mm < a.m_out && nn < a.n_out) out[(size_t)nn * a.ldo + mm] = d[4 * j + e];
+    }
+  }
 }
 
 }  // namespace hopper

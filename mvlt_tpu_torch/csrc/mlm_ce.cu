@@ -19,17 +19,22 @@
 // the backward's least work is one recompute, dx and dE: 432 GFLOP (0.437
 // ms).
 //
-// Forward (wmma, common.cuh). Tiles of 64 rows by 64 vocabulary columns
-// with the whole H of both operands in shared memory (gemm_bf16); one block
-// of 8 warps per SM. The TPU carries (max, sum-exp, picked) across a
-// sequential vocab grid axis. A grid over row tiles alone is 48 blocks for
-// 132 SMs at R = 3,072, so the vocabulary is split over S blocks as well (S
-// chosen so that the blocks fill whole waves of the SMs, 11 there): each
-// block runs the online logsumexp over its vocab tiles and writes a partial
-// (max, sum, picked) per row, and a second launch merges a row's S partials
-// in split order. The vocabulary is ragged (30,522 = 476 x 64 + 58): the
-// last tile's missing rows of E load as zeros and their logits are -inf
-// (never the max, never picked). Rows past R load as zeros with label -1.
+// Forward (wgmma, hopper.cuh): mlm_ce_fwd_kernel computes the logits of a
+// 128-row by 128-column tile on the backward's mma_tile (x and E K-major, H
+// streamed in 64-deep chunks), adds the bias in registers and sets padded
+// vocabulary columns (v >= V, zero rows of E) to -inf, then reduces each row
+// of the tile to a partial (max, sum of exp, the labelled logit) over its 2 x
+// 16 values a thread and the 4 lanes of a quad (__shfl_xor). The TPU carries
+// (max, sum-exp, picked) across a sequential vocab grid axis; here every
+// (row tile, vocab tile) block writes its partials ([V_pad / 128][R][3], 8.8
+// MB at the pre-training shape: 239 x 3,072 x 12 B) and mlm_ce_merge_kernel
+// merges a row's partials in vocabulary order: deterministic, no atomics.
+// Measured (chip_smoke.py, H100 80GB HBM3 at 700 W, R = 3,072): 0.67-0.70 ms
+// by CUDA events, 0.52 of device time (the merge 0.036), against 1.77 for
+// the cuBLAS logits + F.cross_entropy (device 1.56) and 2.58-2.62 for the
+// wmma forward it replaces (64 x 64 tiles with both whole-H operands in
+// shared memory, loaded synchronously, a warp-per-row online logsumexp
+// through an fp32 shared tile).
 //
 // Backward (wgmma, hopper.cuh): one recompute of the logits, then the two
 // products as GEMMs of their own, all on 128 x 128 output tiles of two
@@ -63,100 +68,82 @@
 namespace mvlt {
 namespace {
 
-constexpr int kTile = 64;  // rows, and vocabulary columns, per tile
-constexpr int kPad = 8;
-constexpr int kMaxSplits = 16;
+using namespace hopper;
 
-struct Args {
-  const bf16* x;
-  const bf16* table;
+struct FwdArgs {
+  Mat x, e;
   const float* bias;
   const int* labels;
-  float* ws;  // [S][rows][3] partials
-  int rows, vocab, h, per_split;  // per_split: vocab tiles per split
+  float* ws;  // [vocab tiles][rows][3] partials (max, sum of exp, picked)
+  int rows, vocab, chunks;
 };
 
-__host__ __device__ inline int tiles(int n) { return (n + kTile - 1) / kTile; }
+__global__ void __launch_bounds__(kGemmThreads, 1) mlm_ce_fwd_kernel(FwdArgs a) {
+  extern __shared__ char smem_raw[];
+  const int m0 = blockIdx.x * kGemmTile, n0 = blockIdx.y * kGemmTile;
+  float d[64];
+  mma_tile<false, false>(a.x, a.e, m0, n0, 0, a.chunks, smem_u32(align1024(smem_raw)), d);
 
-__host__ __device__ inline size_t operand_bytes(int h) {
-  return align128((size_t)kTile * (h + kPad) * 2);
-}
-
-// x tile | E tile | logits fp32 | running max, sum, picked, label | stage
-__host__ __device__ inline size_t fwd_smem(int h, size_t* off) {
-  size_t o = 0;
-  off[0] = o; o += operand_bytes(h);
-  off[1] = o; o += operand_bytes(h);
-  off[2] = o; o += align128((size_t)kTile * kTile * 4);
-  off[3] = o; o += align128((size_t)kTile * 4 * 4);
-  off[4] = o; o += kStageBytes;
-  return o;
-}
-
-__global__ void __launch_bounds__(kThreads) mlm_ce_fwd_kernel(Args a) {
-  extern __shared__ __align__(128) char smem[];
-  size_t off[5];
-  fwd_smem(a.h, off);
-  const int ld = a.h + kPad;
-  bf16* xs = reinterpret_cast<bf16*>(smem + off[0]);
-  bf16* ts = reinterpret_cast<bf16*>(smem + off[1]);
-  float* logits = reinterpret_cast<float*>(smem + off[2]);
-  float* run_m = reinterpret_cast<float*>(smem + off[3]);
-  float* run_s = run_m + kTile;
-  float* run_p = run_s + kTile;
-  int* lab = reinterpret_cast<int*>(run_p + kTile);
-  float* stage = reinterpret_cast<float*>(smem + off[4]);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r0 = blockIdx.x * kTile, nrows = min(kTile, a.rows - r0);
-  const int j0 = blockIdx.y * a.per_split, j1 = min(tiles(a.vocab), j0 + a.per_split);
-
-  load_tile_rows(xs, ld, a.x + (size_t)r0 * a.h, a.h, nrows, kTile, a.h);
-  for (int r = threadIdx.x; r < kTile; r += kThreads) {
-    run_m[r] = -INFINITY;
-    run_s[r] = 0.0f;
-    run_p[r] = 0.0f;
-    lab[r] = r < nrows ? a.labels[r0 + r] : -1;
+  // thread rows rl and rl + 8 of the tile, columns 8j + cq, + 1
+  const int rl = tile_row(), cq = tile_col();
+  float mx[2] = {-INFINITY, -INFINITY}, picked[2] = {0.0f, 0.0f};
+  int lab[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = m0 + rl + 8 * h;
+    lab[h] = r < a.rows ? a.labels[r] : -1;
   }
-  for (int j = j0; j < j1; ++j) {
-    const int v0 = j * kTile, nv = min(kTile, a.vocab - v0);
-    load_tile_rows(ts, ld, a.table + (size_t)v0 * a.h, a.h, nv, kTile, a.h);
-    __syncthreads();
-    gemm_bf16<true, 2>(xs, ld, ts, ld, kTile, kTile, a.h, stage, [&](int r, int c, float v) {
-      logits[r * kTile + c] = c < nv ? v + a.bias[v0 + c] : -INFINITY;
-    });
-    __syncthreads();
-    // online logsumexp, one warp per row, two columns per lane
-    for (int r = warp; r < kTile; r += kWarps) {
-      const float l0 = logits[r * kTile + lane], l1 = logits[r * kTile + lane + 32];
-      const float m_old = run_m[r];
-      const float m_new = fmaxf(m_old, warp_max(fmaxf(l0, l1)));
-      const float s = warp_sum(__expf(l0 - m_new) + __expf(l1 - m_new));
-      if (lane == 0) {
-        run_s[r] = run_s[r] * __expf(m_old - m_new) + s;
-        run_m[r] = m_new;
-        const int c = lab[r] - v0;
-        if (c >= 0 && c < nv) run_p[r] += logits[r * kTile + c];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int h = e >> 1, v = n0 + 8 * j + cq + (e & 1);
+      const float l = v < a.vocab ? d[4 * j + e] + a.bias[v] : -INFINITY;
+      d[4 * j + e] = l;
+      mx[h] = fmaxf(mx[h], l);
+      if (v == lab[h]) picked[h] = l;
+    }
+  }
+  float sum[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    const float nm = -mx[h] * kLog2e;
+    float s = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      s += fast_exp2(fmaf(d[4 * j + 2 * h], kLog2e, nm)) +
+           fast_exp2(fmaf(d[4 * j + 2 * h + 1], kLog2e, nm));
+    s += __shfl_xor_sync(0xffffffffu, s, 1);
+    s += __shfl_xor_sync(0xffffffffu, s, 2);
+    sum[h] = s;
+    picked[h] += __shfl_xor_sync(0xffffffffu, picked[h], 1);  // one lane holds it, or none
+    picked[h] += __shfl_xor_sync(0xffffffffu, picked[h], 2);
+  }
+  if ((threadIdx.x & 3) == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = m0 + rl + 8 * h;
+      if (r < a.rows) {
+        float* p = a.ws + ((size_t)blockIdx.y * a.rows + r) * 3;
+        p[0] = mx[h];
+        p[1] = sum[h];
+        p[2] = picked[h];
       }
     }
   }
-  __syncthreads();
-  for (int r = threadIdx.x; r < nrows; r += kThreads) {
-    float* p = a.ws + ((size_t)blockIdx.y * a.rows + r0 + r) * 3;
-    p[0] = run_m[r];
-    p[1] = run_s[r];
-    p[2] = run_p[r];
-  }
 }
 
-// One thread per row: merge the splits' (max, sum, picked) in split order.
-__global__ void mlm_ce_merge_kernel(const float* ws, const int* labels, int rows, int splits,
+// One thread per row: merge the vocabulary tiles' (max, sum, picked) in order.
+__global__ void mlm_ce_merge_kernel(const float* ws, const int* labels, int rows, int parts,
                                     float* nll, float* lse) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= rows) return;
   float m = -INFINITY;
-  for (int s = 0; s < splits; ++s) m = fmaxf(m, ws[((size_t)s * rows + r) * 3]);
+  for (int s = 0; s < parts; ++s) m = fmaxf(m, ws[((size_t)s * rows + r) * 3]);
   float sum = 0.0f, picked = 0.0f;
-  for (int s = 0; s < splits; ++s) {
+  for (int s = 0; s < parts; ++s) {
     const float* p = ws + ((size_t)s * rows + r) * 3;
     sum += p[1] * expf(p[0] - m);
     picked += p[2];
@@ -166,27 +153,7 @@ __global__ void mlm_ce_merge_kernel(const float* ws, const int* labels, int rows
   nll[r] = labels[r] >= 0 ? l - picked : 0.0f;
 }
 
-
 // ---- backward (wgmma) ----------------------------------------------------
-
-using namespace hopper;
-
-constexpr int kBwdTile = 128;     // rows and columns of a block's output tile
-constexpr int kChunk = 64;        // contraction depth of one ring stage
-constexpr int kRing = 5;          // ring stages; kRing - 2 chunks load ahead
-constexpr int kBwdThreads = 256;  // two warpgroups, 64 rows of the tile each
-constexpr int kOperandBytes = kBwdTile * kChunk * 2;  // one operand of one stage
-constexpr int kPanelBytes = kOperandBytes / 2;        // 64 rows of 128 bytes
-constexpr size_t kBwdSmem = 1024 + (size_t)kRing * 2 * kOperandBytes;
-constexpr int kLds = kBwdTile + 8;  // bf16 row of the dl stage
-
-// A row-major bf16 matrix in device memory, ld elements a row; elements
-// past [rows][cols] read as zeros.
-struct Mat {
-  const bf16* p;
-  long long ld;
-  int rows, cols;
-};
 
 struct DlArgs {
   Mat x, e;
@@ -199,94 +166,16 @@ struct DlArgs {
   int rows, vocab, vocab_pad, chunks;
 };
 
-// out[n][m] = sum_k A[k][m] B(k, n) over the split's chunks of k, fp32, for
-// m < m_out and n < n_out; split s writes out + s * split_stride.
-struct GemmArgs {
-  Mat a, b;
-  float* out;
-  long long split_stride;
-  int m_out, n_out, ldo, chunks, per_split;
-};
-
-// One ring stage of an operand, a 128 x 64 tile of m, by cp.async:
-//   K-major  (MN false): rows r0 .. r0 + 127, columns k0 .. k0 + 63, one
-//            128-byte swizzled row each;
-//   MN-major (MN true):  rows k0 .. k0 + 63, columns r0 .. r0 + 127, as two
-//            panels of 64 columns [64][128 B], kPanelBytes apart.
-template <bool MN>
-__device__ __forceinline__ void load_operand(uint32_t dst, const Mat& m, int r0, int k0) {
-  for (int i = threadIdx.x; i < kBwdTile * 8; i += kBwdThreads) {
-    int row, col;
-    uint32_t off;
-    if (MN) {
-      const int k = i >> 4, c = i & 15;
-      row = k0 + k;
-      col = r0 + c * 8;
-      off = (c >> 3) * kPanelBytes + tile_off<128>(k, c & 7);
-    } else {
-      const int r = i >> 3, c = i & 7;
-      row = r0 + r;
-      col = k0 + c * 8;
-      off = tile_off<128>(r, c);
-    }
-    const bool ok = row < m.rows && col < m.cols;
-    cp_async16_zfill(dst + off, ok ? m.p + row * m.ld + col : m.p, ok);
-  }
-}
-
-// d = the block's 128 x 128 tile of A^T B (A rows m0.., B rows n0..) over
-// chunks [c0, c1) of the contraction; warpgroup w holds rows 64w .. 64w + 63.
-// A is K-major (A_MN false: [M][K] in memory) or MN-major ([K][M]); so is B.
-template <bool A_MN, bool B_MN>
-__device__ __forceinline__ void mma_tile(const Mat& a, const Mat& b, int m0, int n0, int c0,
-                                         int c1, uint32_t ring, float (&d)[64]) {
-  const int wg = threadIdx.x >> 7, n = c1 - c0;
-#pragma unroll
-  for (int i = 0; i < 64; ++i) d[i] = 0.0f;
-  auto load = [&](int i) {  // chunk c0 + i into its stage; one commit group each
-    if (i < n) {
-      const uint32_t st = ring + (i % kRing) * 2 * kOperandBytes;
-      load_operand<A_MN>(st, a, m0, (c0 + i) * kChunk);
-      load_operand<B_MN>(st + kOperandBytes, b, n0, (c0 + i) * kChunk);
-    }
-    cp_async_commit();
-  };
-  for (int i = 0; i < kRing - 2; ++i) load(i);
-  for (int i = 0; i < n; ++i) {
-    cp_async_wait<kRing - 3>();
-    fence_proxy_async();
-    __syncthreads();  // chunk i is in; both warpgroups' products of chunk i - 2 are done
-    load(i + kRing - 2);  // into chunk i - 2's stage
-    const uint32_t st = ring + (i % kRing) * 2 * kOperandBytes;
-    const uint32_t sa = st + wg * kPanelBytes, sb = st + kOperandBytes;
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < kChunk / 16; ++kk) {
-      const uint64_t da = make_desc<128>(sa + (A_MN ? kk * 16 * 128 : kk * 32));
-      if (B_MN) {
-        wgmma_ss_half<A_MN, 1, 0>(d, da, make_desc<128>(sb + kk * 16 * 128), 1);
-        wgmma_ss_half<A_MN, 1, 32>(d, da, make_desc<128>(sb + kPanelBytes + kk * 16 * 128), 1);
-      } else {
-        wgmma_ss<A_MN, 0>(d, da, make_desc<128>(sb + kk * 32), 1);
-      }
-    }
-    wgmma_commit();
-    wgmma_wait<1>();  // chunk i - 1's product is done
-  }
-  wgmma_wait<0>();
-  fence_regs(d);
-}
-
-__global__ void __launch_bounds__(kBwdThreads, 1) mlm_ce_dlogits_kernel(DlArgs a) {
+__global__ void __launch_bounds__(kGemmThreads, 1) mlm_ce_dlogits_kernel(DlArgs a) {
   extern __shared__ char smem_raw[];
   char* smem = align1024(smem_raw);
-  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
-  const int m0 = blockIdx.x * kBwdTile, n0 = blockIdx.y * kBwdTile;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int m0 = blockIdx.x * kGemmTile, n0 = blockIdx.y * kGemmTile;
   float d[64];
   mma_tile<false, false>(a.x, a.e, m0, n0, 0, a.chunks, smem_u32(smem), d);
 
   // dl in registers: thread rows rl and rl + 8 of the tile, columns 8j + cq, + 1
-  const int rl = 64 * wg + 16 * warp + (lane >> 2), cq = 2 * (lane & 3);
+  const int rl = tile_row(), cq = tile_col();
   int lab[2];
   float nlse[2], g[2];
 #pragma unroll
@@ -313,12 +202,12 @@ __global__ void __launch_bounds__(kBwdThreads, 1) mlm_ce_dlogits_kernel(DlArgs a
 
   __syncthreads();  // both warpgroups are done with the ring: it becomes the stage
   bf16* st = reinterpret_cast<bf16*>(smem);
-  float* red = reinterpret_cast<float*>(smem + kBwdTile * kLds * 2);  // [8 warps][128]
+  float* red = reinterpret_cast<float*>(smem + kGemmTile * kGemmStageLd * 2);  // [8 warps][128]
 #pragma unroll
   for (int j = 0; j < 16; ++j) {
 #pragma unroll
     for (int h = 0; h < 2; ++h)
-      *reinterpret_cast<uint32_t*>(st + (rl + 8 * h) * kLds + 8 * j + cq) =
+      *reinterpret_cast<uint32_t*>(st + (rl + 8 * h) * kGemmStageLd + 8 * j + cq) =
           pack_bf16(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
 #pragma unroll
     for (int c = 0; c < 2; ++c) {  // the column's sum over the warp's 16 rows
@@ -326,41 +215,27 @@ __global__ void __launch_bounds__(kBwdThreads, 1) mlm_ce_dlogits_kernel(DlArgs a
       s += __shfl_xor_sync(0xffffffffu, s, 4);
       s += __shfl_xor_sync(0xffffffffu, s, 8);
       s += __shfl_xor_sync(0xffffffffu, s, 16);
-      if (lane < 4) red[(tid >> 5) * kBwdTile + 8 * j + cq + c] = s;
+      if (lane < 4) red[(tid >> 5) * kGemmTile + 8 * j + cq + c] = s;
     }
   }
   __syncthreads();
-  for (int i = tid; i < kBwdTile * kBwdTile / 8; i += kBwdThreads) {
+  for (int i = tid; i < kGemmTile * kGemmTile / 8; i += kGemmThreads) {
     const int r = i >> 4, c = (i & 15) * 8;
     *reinterpret_cast<uint4*>(a.dl + (size_t)(m0 + r) * a.vocab_pad + n0 + c) =
-        *reinterpret_cast<const uint4*>(st + r * kLds + c);
+        *reinterpret_cast<const uint4*>(st + r * kGemmStageLd + c);
   }
-  if (tid < kBwdTile) {
+  if (tid < kGemmTile) {
     float s = 0.0f;
-    for (int w = 0; w < kBwdThreads / 32; ++w) s += red[w * kBwdTile + tid];
+    for (int w = 0; w < kGemmThreads / 32; ++w) s += red[w * kGemmTile + tid];
     a.dbp[(size_t)blockIdx.x * a.vocab_pad + n0 + tid] = s;
   }
 }
 
 template <bool B_MN>
-__global__ void __launch_bounds__(kBwdThreads, 1) mlm_ce_gemm_kernel(GemmArgs a) {
+__global__ void __launch_bounds__(kGemmThreads, 1) mlm_ce_gemm_kernel(GemmArgs a) {
   extern __shared__ char smem_raw[];
-  char* smem = align1024(smem_raw);
-  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
-  const int m0 = blockIdx.x * kBwdTile, n0 = blockIdx.y * kBwdTile, split = blockIdx.z;
-  const int c0 = split * a.per_split, c1 = min(a.chunks, c0 + a.per_split);
-  float d[64];
-  mma_tile<true, B_MN>(a.a, a.b, m0, n0, c0, c1, smem_u32(smem), d);
-  float* out = a.out + split * a.split_stride;
-  const int m = m0 + 64 * wg + 16 * warp + (lane >> 2), cq = 2 * (lane & 3);
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int mm = m + 8 * (e >> 1), nn = n0 + 8 * j + cq + (e & 1);
-      if (mm < a.m_out && nn < a.n_out) out[(size_t)nn * a.ldo + mm] = d[4 * j + e];
-    }
-  }
+  gemm_tn_block<B_MN>(a, blockIdx.x * kGemmTile, blockIdx.y * kGemmTile, blockIdx.z,
+                      smem_u32(align1024(smem_raw)));
 }
 
 // out[i] = the sum over s of slots[s * stride + i], in slot order, i < n.
@@ -391,52 +266,29 @@ cudaError_t prepare(const void* kernel, size_t bytes) {
 }  // namespace mvlt
 
 // C entries, bound with ctypes. They launch on `stream` and return the
-// cudaError_t of the launches (0 on success); no synchronisation. The
-// forward takes h a multiple of 16 and at most 768 (its two operand tiles
-// fill shared memory).
+// cudaError_t of the launches (0 on success); no synchronisation. h is a
+// multiple of 64 (both directions stream it in 64-deep chunks).
 
-// The vocabulary splits of the forward for `rows`
-// rows on `sms` SMs: the count up to 16 whose (row tile, split) blocks fill
-// the largest share of their last wave, the smallest such; trimmed so that
-// no split is empty.
-extern "C" int mvlt_mlm_ce_splits(int rows, int vocab, int sms) {
-  using namespace mvlt;
-  const int rt = tiles(rows), nvt = tiles(vocab);
-  int best = 1;
-  float best_fill = 0.0f;
-  for (int s = 1; s <= kMaxSplits && s <= nvt; ++s) {
-    const int blocks = rt * s, waves = (blocks + sms - 1) / sms;
-    const float fill = (float)blocks / ((float)waves * sms);
-    if (fill > best_fill + 1e-6f) {
-      best_fill = fill;
-      best = s;
-    }
-  }
-  const int per = (nvt + best - 1) / best;
-  return (nvt + per - 1) / per;
-}
-
-// ws: splits * rows * 3 floats.
+// ws: (vocab rounded up to 128) / 128 * rows * 3 floats, the partials.
 extern "C" int mvlt_mlm_ce_fwd(const void* x, const void* table, const void* bias,
                                const void* labels, void* ws, void* nll, void* lse, int rows,
-                               int vocab, int h, int splits, void* stream) {
+                               int vocab, int h, void* stream) {
   using namespace mvlt;
-  if (rows < 1 || vocab < 1 || h % 16 || splits < 1) return (int)cudaErrorInvalidValue;
-  size_t off[5];
-  const size_t bytes = fwd_smem(h, off);
-  cudaError_t err = prepare((const void*)mlm_ce_fwd_kernel, bytes);
+  if (rows < 1 || vocab < 1 || h < 64 || h % 64) return (int)cudaErrorInvalidValue;
+  cudaError_t err = prepare((const void*)mlm_ce_fwd_kernel, kGemmSmem);
   if (err != cudaSuccess) return (int)err;
-  const int per = (tiles(vocab) + splits - 1) / splits;
-  splits = (tiles(vocab) + per - 1) / per;  // no empty split
-  Args a{static_cast<const bf16*>(x), static_cast<const bf16*>(table),
-         static_cast<const float*>(bias), static_cast<const int*>(labels),
-         static_cast<float*>(ws), rows, vocab, h, per};
+  const int row_tiles = (rows + kGemmTile - 1) / kGemmTile;
+  const int vocab_tiles = (vocab + kGemmTile - 1) / kGemmTile;
+  const FwdArgs a{Mat{static_cast<const bf16*>(x), h, rows, h},
+                  Mat{static_cast<const bf16*>(table), h, vocab, h},
+                  static_cast<const float*>(bias), static_cast<const int*>(labels),
+                  static_cast<float*>(ws), rows, vocab, h / kGemmChunk};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  mlm_ce_fwd_kernel<<<dim3(tiles(rows), splits), kThreads, bytes, st>>>(a);
+  mlm_ce_fwd_kernel<<<dim3(row_tiles, vocab_tiles), kGemmThreads, kGemmSmem, st>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   mlm_ce_merge_kernel<<<(rows + 255) / 256, 256, 0, st>>>(
-      static_cast<const float*>(ws), static_cast<const int*>(labels), rows, splits,
+      static_cast<const float*>(ws), static_cast<const int*>(labels), rows, vocab_tiles,
       static_cast<float*>(nll), static_cast<float*>(lse));
   return (int)cudaGetLastError();
 }
@@ -452,24 +304,24 @@ extern "C" int mvlt_mlm_ce_bwd(const void* x, const void* table, const void* bia
                                int rows, int vocab, int h, int splits, void* stream) {
   using namespace mvlt;
   if (rows < 1 || vocab < 1 || h < 64 || h % 64 || splits < 1) return (int)cudaErrorInvalidValue;
-  const int rows_pad = (rows + kBwdTile - 1) / kBwdTile * kBwdTile;
-  const int vocab_pad = (vocab + kBwdTile - 1) / kBwdTile * kBwdTile;
-  cudaError_t err = prepare((const void*)mlm_ce_dlogits_kernel, kBwdSmem);
-  if (err == cudaSuccess) err = prepare((const void*)mlm_ce_gemm_kernel<false>, kBwdSmem);
-  if (err == cudaSuccess) err = prepare((const void*)mlm_ce_gemm_kernel<true>, kBwdSmem);
+  const int rows_pad = (rows + kGemmTile - 1) / kGemmTile * kGemmTile;
+  const int vocab_pad = (vocab + kGemmTile - 1) / kGemmTile * kGemmTile;
+  cudaError_t err = prepare((const void*)mlm_ce_dlogits_kernel, kGemmSmem);
+  if (err == cudaSuccess) err = prepare((const void*)mlm_ce_gemm_kernel<false>, kGemmSmem);
+  if (err == cudaSuccess) err = prepare((const void*)mlm_ce_gemm_kernel<true>, kGemmSmem);
   if (err != cudaSuccess) return (int)err;
   const bf16* xb = static_cast<const bf16*>(x);
   const bf16* eb = static_cast<const bf16*>(table);
   bf16* dlb = static_cast<bf16*>(dl);
   const Mat xm{xb, h, rows, h}, em{eb, h, vocab, h}, dlm{dlb, vocab_pad, rows_pad, vocab_pad};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int row_tiles = rows_pad / kBwdTile, vocab_tiles = vocab_pad / kBwdTile;
-  const int m_tiles = (h + kBwdTile - 1) / kBwdTile;
+  const int row_tiles = rows_pad / kGemmTile, vocab_tiles = vocab_pad / kGemmTile;
+  const int m_tiles = (h + kGemmTile - 1) / kGemmTile;
 
   const DlArgs da{xm, em, static_cast<const float*>(bias), static_cast<const int*>(labels),
                   static_cast<const float*>(lse), static_cast<const float*>(g), dlb,
-                  static_cast<float*>(dbp), rows, vocab, vocab_pad, h / kChunk};
-  mlm_ce_dlogits_kernel<<<dim3(row_tiles, vocab_tiles), kBwdThreads, kBwdSmem, st>>>(da);
+                  static_cast<float*>(dbp), rows, vocab, vocab_pad, h / kGemmChunk};
+  mlm_ce_dlogits_kernel<<<dim3(row_tiles, vocab_tiles), kGemmThreads, kGemmSmem, st>>>(da);
   err = cudaGetLastError();
   if (err == cudaSuccess)
     err = slot_sum(static_cast<const float*>(dbp), vocab_pad, row_tiles, vocab,
@@ -477,11 +329,11 @@ extern "C" int mvlt_mlm_ce_bwd(const void* x, const void* table, const void* bia
   if (err != cudaSuccess) return (int)err;
 
   // dx^T = E^T dl^T over the vocabulary, in `splits` ranges
-  const int vchunks = vocab_pad / kChunk, per = (vchunks + splits - 1) / splits;
+  const int vchunks = vocab_pad / kGemmChunk, per = (vchunks + splits - 1) / splits;
   splits = (vchunks + per - 1) / per;
   float* dx_out = splits > 1 ? static_cast<float*>(slots) : static_cast<float*>(dx);
   const GemmArgs ga{em, dlm, dx_out, (long long)rows * h, h, rows, h, vchunks, per};
-  mlm_ce_gemm_kernel<false><<<dim3(m_tiles, row_tiles, splits), kBwdThreads, kBwdSmem, st>>>(ga);
+  mlm_ce_gemm_kernel<false><<<dim3(m_tiles, row_tiles, splits), kGemmThreads, kGemmSmem, st>>>(ga);
   err = cudaGetLastError();
   if (err == cudaSuccess && splits > 1)
     err = slot_sum(static_cast<const float*>(slots), (long long)rows * h, splits,
@@ -489,8 +341,8 @@ extern "C" int mvlt_mlm_ce_bwd(const void* x, const void* table, const void* bia
   if (err != cudaSuccess) return (int)err;
 
   // dE^T = x^T dl over the rows, in one range
-  const int rchunks = rows_pad / kChunk;
+  const int rchunks = rows_pad / kGemmChunk;
   const GemmArgs ge{xm, dlm, static_cast<float*>(dtable), 0, h, vocab, h, rchunks, rchunks};
-  mlm_ce_gemm_kernel<true><<<dim3(m_tiles, vocab_tiles, 1), kBwdThreads, kBwdSmem, st>>>(ge);
+  mlm_ce_gemm_kernel<true><<<dim3(m_tiles, vocab_tiles, 1), kGemmThreads, kGemmSmem, st>>>(ge);
   return (int)cudaGetLastError();
 }

@@ -46,10 +46,8 @@ _SIGNATURES = {
     "mvlt_attention_fwd": [_P] * 5 + [_STRIDES] + [_I] * 5 + [_F, _P],
     "mvlt_attention_bwd": [_P] * 11 + [_STRIDES] + [_I] * 6 + [_F, _P],
     "mvlt_ln_mlp_fwd": [_P] * 9 + [_L] + [_I] * 3 + [_F, _P],
-    "mvlt_ln_mlp_slot_floats": [_I, _I],
-    "mvlt_ln_mlp_bwd": [_P] * 10 + [_I] + [_P] * 6 + [_L] + [_I] * 3 + [_F, _P],
-    "mvlt_mlm_ce_splits": [_I, _I, _I],
-    "mvlt_mlm_ce_fwd": [_P] * 7 + [_I] * 4 + [_P],
+    "mvlt_ln_mlp_bwd": [_P] * 24 + [_L] + [_I] * 4 + [_F, _P],
+    "mvlt_mlm_ce_fwd": [_P] * 7 + [_I] * 3 + [_P],
     "mvlt_mlm_ce_bwd": [_P] * 12 + [_I] * 4 + [_P],
     "mvlt_swin_attention": [_P] * 7 + [_I] * 8 + [_F, _P],
     "mvlt_swin_block": [_P] * 20 + [_I] * 10 + [_F] * 3 + [_P],
@@ -143,6 +141,24 @@ def load_library() -> ctypes.CDLL:
 def sm_count(index: int) -> int:
     """Streaming multiprocessors of CUDA device ``index``, asked once."""
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def split_plan(tiles: int, chunks: int, sms: int, max_splits: int) -> int:
+    """Ranges of a contraction of ``chunks`` chunks for a grid of ``tiles``
+    output tiles (one block an SM each): the fewest whose blocks fill at
+    least 90% of their last wave on ``sms`` SMs, else the count up to
+    ``max_splits`` that fills it most; trimmed so that no range is empty."""
+    best, best_fill = 1, 0.0
+    for s in range(1, min(max_splits, chunks) + 1):
+        blocks = tiles * s
+        fill = blocks / (-(-blocks // sms) * sms)
+        if fill >= 0.9:
+            best = s
+            break
+        if fill > best_fill + 1e-9:
+            best, best_fill = s, fill
+    per = -(-chunks // best)
+    return -(-chunks // per)
 
 
 def check_launch(name: str, err: int) -> None:

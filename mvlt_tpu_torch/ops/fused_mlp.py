@@ -9,10 +9,11 @@ Counterpart of mvlt_tpu/ops/fused_mlp.py:fused_ln_mlp (forward
 The plain versions are ``ln_mlp_reference`` and ``ln_mlp_bwd_reference``;
 the latter recomputes the hidden as the Pallas backward does.
 ``ln_mlp_fwd`` and ``ln_mlp_bwd`` take them for CPU tensors and launch the
-Hopper kernels (csrc/ln_mlp.cu) for CUDA tensors, or raise; ``fused_ln_mlp``
-is the differentiable ``autograd.Function``. It takes the fp32 master
-parameters, rounds the matrices to x.dtype inside, and returns fp32
-gradients for them; s gets no gradient (the DropPath mask is a constant).
+Hopper kernels (csrc/ln_mlp.cu, csrc/ln_mlp_bwd.cu) for CUDA tensors, or
+raise; ``fused_ln_mlp`` is the differentiable ``autograd.Function``. It
+takes the fp32 master parameters, rounds the matrices to x.dtype inside,
+and returns fp32 gradients for them; s gets no gradient (the DropPath mask
+is a constant).
 """
 
 from __future__ import annotations
@@ -22,6 +23,14 @@ import torch
 from mvlt_tpu_torch.ops import _build
 from mvlt_tpu_torch.ops.kernel_math import (acc_dtype, gelu, gelu_grad, layer_norm_bwd,
                                             layer_norm_fp32, matmul_acc)
+
+
+# the backward's tiles (csrc/hopper.cuh: kGemmTile, kGemmChunk) and the rows
+# a block of its row kernel sums over (csrc/ln_mlp_bwd.cu: kColRows)
+BWD_TILE = 128
+BWD_CHUNK = 64
+BWD_COL_ROWS = 128
+MAX_SPLITS = 64
 
 
 def _rows_scale(row_scale, x):
@@ -82,6 +91,33 @@ def _check(name: str, x, gamma, beta, w1, b1, w2, b2, row_scale):
             None if b2 is None else vec(name, b2, d, dev), s)
 
 
+def bwd_plan(rows: int, d: int, hidden: int, sms: int) -> int:
+    """Row ranges of the backward's weight-gradient GEMMs (dW1 and dW2 in
+    one launch, each of ceil(D/128) x ceil(H/128) output tiles, contracting
+    over the rows in 64-row chunks): the fewest whose blocks fill at least
+    90% of their last wave on ``sms`` SMs (else the fullest), no range
+    empty. Each range sums into an fp32 slot, added in order after."""
+    tiles = 2 * (-(-d // BWD_TILE)) * (-(-hidden // BWD_TILE))
+    return _build.split_plan(tiles, -(-rows // BWD_CHUNK), sms, MAX_SPLITS)
+
+
+def bwd_scratch(rows: int, d: int, hidden: int, splits: int) -> dict:
+    """The backward's scratch, name -> (elements, dtype), in the order the
+    kernels take it: LN(x) and s.dy in bf16 [rows, D], (mean, rstd) [rows];
+    G and dh1 in bf16 [rows, H]; dn in fp32 [rows, D] -- 0 elements where it
+    fits in G's space (H >= 2D), which the weight gradients have read before
+    dn is written; db1 partials [row tiles, H]; column-sum partials of s.dy,
+    dn.nhat and dn [row blocks, 3, D]; the weight gradients' slots [2,
+    splits, H, D] (0 elements for one range, written straight to dW1/dW2)."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    return {"nhat": (rows * d, bf16), "dys": (rows * d, bf16), "stats": (2 * rows, f32),
+            "g": (rows * hidden, bf16), "dh": (rows * hidden, bf16),
+            "dn": (0 if hidden >= 2 * d else rows * d, f32),
+            "db1p": (-(-rows // BWD_TILE) * hidden, f32),
+            "colp": (-(-rows // BWD_COL_ROWS) * 3 * d, f32),
+            "wslots": (2 * splits * hidden * d if splits > 1 else 0, f32)}
+
+
 def ln_mlp_fwd(x, gamma, beta, w1, b1, w2, b2, row_scale, eps: float):
     """Forward. A CPU tensor takes ``ln_mlp_reference``; a CUDA tensor
     launches the kernel, anything else raises. Counts launches in
@@ -103,8 +139,10 @@ def ln_mlp_fwd(x, gamma, beta, w1, b1, w2, b2, row_scale, eps: float):
 
 def ln_mlp_bwd(x, gamma, beta, w1, b1, w2, row_scale, eps: float, dy):
     """Backward (dx, dgamma, dbeta, dW1, db1, dW2, db2). A CPU tensor takes
-    ``ln_mlp_bwd_reference``; a CUDA tensor launches the kernel (and its
-    slot reduction), anything else raises. Counts launches in
+    ``ln_mlp_bwd_reference``; a CUDA tensor launches the kernels (the rows'
+    LN and s.dy, the hidden and its gradient, the weight gradients, dn, dx
+    with the column sums, the in-order slot sums) with the scratch of
+    ``bwd_scratch``, anything else raises. Counts launches in
     ``ln_mlp_bwd.launches``."""
     if x.device.type == "cpu":
         return ln_mlp_bwd_reference(x, gamma, beta, w1, b1, w2, row_scale, eps, dy)
@@ -116,21 +154,24 @@ def ln_mlp_bwd(x, gamma, beta, w1, b1, w2, row_scale, eps: float, dy):
     b, n, d = x.shape
     hidden = w1.shape[0]
     dev = x.device
-    lib = _build.load_library()
-    # one fp32 slot of partial weight gradients per block, a block per SM
-    slots = torch.cuda.get_device_properties(dev).multi_processor_count
-    ws = torch.empty(slots * lib.mvlt_ln_mlp_slot_floats(d, hidden), dtype=torch.float32,
-                     device=dev)
+    rows = b * n
+    splits = bwd_plan(rows, d, hidden, _build.sm_count(dev.index))
+    layout = bwd_scratch(rows, d, hidden, splits)
+    scratch = {k: torch.empty(max(count, 1), dtype=dt, device=dev)
+               for k, (count, dt) in layout.items()}
+    if not layout["dn"][0]:
+        scratch["dn"] = scratch["g"]   # dn is written after G's last read
     f32 = dict(dtype=torch.float32, device=dev)
     dx = torch.empty_like(x)
     dw1, dw2 = torch.empty((hidden, d), **f32), torch.empty((d, hidden), **f32)
     db1, db2 = torch.empty(hidden, **f32), torch.empty(d, **f32)
     dgamma, dbeta = torch.empty(d, **f32), torch.empty(d, **f32)
-    err = lib.mvlt_ln_mlp_bwd(
+    err = _build.load_library().mvlt_ln_mlp_bwd(
         x.data_ptr(), dy.data_ptr(), g.data_ptr(), be.data_ptr(), w1_.data_ptr(),
-        b1_.data_ptr(), w2_.data_ptr(), s.data_ptr(), dx.data_ptr(), ws.data_ptr(), slots,
-        dw1.data_ptr(), dw2.data_ptr(), db1.data_ptr(), db2.data_ptr(), dgamma.data_ptr(),
-        dbeta.data_ptr(), b * n, n, d, hidden, eps, torch.cuda.current_stream(dev).cuda_stream)
+        b1_.data_ptr(), w2_.data_ptr(), s.data_ptr(), dx.data_ptr(),
+        *(t.data_ptr() for t in scratch.values()), dw1.data_ptr(), dw2.data_ptr(),
+        db1.data_ptr(), db2.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(), rows, n, d,
+        hidden, splits, eps, torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(name, err)
     ln_mlp_bwd.launches += 1
     return dx, dgamma, dbeta, dw1, db1, dw2, db2

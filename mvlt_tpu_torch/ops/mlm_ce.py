@@ -12,8 +12,7 @@ backward ``_bwd_impl``) and ``fused_mlm_loss``. The plain versions are
 ``mlm_nll_reference`` and ``mlm_nll_bwd_reference``; the latter recomputes
 the logits from the saved logsumexp as the kernels do. ``mlm_ce_fwd`` and
 ``mlm_ce_bwd`` take them for CPU tensors and launch the Hopper kernels
-(csrc/mlm_ce.cu: the forward on wmma, the backward on wgmma) for CUDA
-tensors, or raise; ``mlm_nll`` is the
+(csrc/mlm_ce.cu, on wgmma) for CUDA tensors, or raise; ``mlm_nll`` is the
 differentiable ``autograd.Function``. It takes the fp32 master table, rounds
 it to the rows' type once in the forward, and returns fp32 gradients for the
 table and the bias.
@@ -26,11 +25,11 @@ import torch
 from mvlt_tpu_torch.ops import _build
 from mvlt_tpu_torch.ops.kernel_math import acc_dtype, matmul_acc
 
-# the forward holds a 64-row tile of x and of E, each of the whole width, in
-# shared memory; the backward streams the width in 64-deep chunks
+# both directions stream the width in 64-deep chunks; widths up to 768, the
+# one the JAX kernel's VMEM tiles are sized for (mvlt_tpu/ops/mlm_ce.py:54)
 MAX_WIDTH = 768
 WIDTH_MULTIPLE = 64
-# the backward's output tiles (csrc/mlm_ce.cu: kBwdTile, kChunk)
+# the kernels' output tiles (csrc/hopper.cuh: kGemmTile, kGemmChunk)
 BWD_TILE = 128
 BWD_CHUNK = 64
 MAX_SPLITS = 16
@@ -87,12 +86,16 @@ def _check(name: str, rows, table, bias, labels):
             labels.to(torch.int32).contiguous())
 
 
-def _splits(lib, rows: int, vocab: int, device) -> int:
-    return lib.mvlt_mlm_ce_splits(rows, vocab, _build.sm_count(device.index))
-
-
 def _up(n: int, tile: int) -> int:
     return -(-n // tile) * tile
+
+
+def fwd_partials(rows: int, vocab: int) -> tuple[int, int]:
+    """(vocab_tiles, floats) of the forward's partials: one (max, sum of
+    exp, picked) per row and 128-column vocabulary tile, [vocab_tiles, rows,
+    3] fp32, merged in vocabulary order by the second launch."""
+    tiles = _up(vocab, BWD_TILE) // BWD_TILE
+    return tiles, tiles * rows * 3
 
 
 def bwd_plan(rows: int, vocab: int, width: int, sms: int) -> tuple[int, int, int]:
@@ -103,24 +106,14 @@ def bwd_plan(rows: int, vocab: int, width: int, sms: int) -> tuple[int, int, int
     no range is empty."""
     rows_pad, vocab_pad = _up(rows, BWD_TILE), _up(vocab, BWD_TILE)
     tiles = _up(width, BWD_TILE) // BWD_TILE * (rows_pad // BWD_TILE)
-    chunks = vocab_pad // BWD_CHUNK
-    best, best_fill = 1, 0.0
-    for s in range(1, min(MAX_SPLITS, chunks) + 1):
-        blocks = tiles * s
-        fill = blocks / (_up(blocks, sms))
-        if fill >= 0.9:
-            best = s
-            break
-        if fill > best_fill + 1e-9:
-            best, best_fill = s, fill
-    per = -(-chunks // best)
-    return rows_pad, vocab_pad, -(-chunks // per)
+    return rows_pad, vocab_pad, _build.split_plan(tiles, vocab_pad // BWD_CHUNK, sms, MAX_SPLITS)
 
 
 def mlm_ce_fwd(rows, table, bias, labels):
     """Forward (nll, lse). A CPU tensor takes ``mlm_nll_reference``; a CUDA
-    tensor launches the kernel (and its merge of the vocabulary splits),
-    anything else raises. Counts launches in ``mlm_ce_fwd.launches``."""
+    tensor launches the kernel (and its merge of the vocabulary tiles'
+    partials), anything else raises. Counts launches in
+    ``mlm_ce_fwd.launches``."""
     if rows.device.type == "cpu":
         return mlm_nll_reference(rows, table, bias, labels)
     name = "mlm_ce_fwd"
@@ -129,12 +122,11 @@ def mlm_ce_fwd(rows, table, bias, labels):
     v = tab.shape[0]
     dev = rows.device
     lib = _build.load_library()
-    splits = _splits(lib, r, v, dev)
-    ws = torch.empty(splits * r * 3, dtype=torch.float32, device=dev)
+    ws = torch.empty(fwd_partials(r, v)[1], dtype=torch.float32, device=dev)
     nll = torch.empty(r, dtype=torch.float32, device=dev)
     lse = torch.empty(r, dtype=torch.float32, device=dev)
     err = lib.mvlt_mlm_ce_fwd(rows.data_ptr(), tab.data_ptr(), b.data_ptr(), lab.data_ptr(),
-                              ws.data_ptr(), nll.data_ptr(), lse.data_ptr(), r, v, h, splits,
+                              ws.data_ptr(), nll.data_ptr(), lse.data_ptr(), r, v, h,
                               torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(name, err)
     mlm_ce_fwd.launches += 1

@@ -12,15 +12,16 @@ these tests take other widths, head dims, grids and lengths, the row tiles
 kernel B falls back to, the training attention kernels at head dims 32 and
 64 with M = 5, 22, 177, 192, 272, 600 and 900, N off the tile, one range of N
 and four, and the backward's bit-equal repeat at stage 1, B = 150, the
-LN-MLP kernels at rows off the tile and D = 320 at ratio 4, the v2 kernels on grids of odd
+LN-MLP kernels at rows off the tile, D = 96 and 320, and the largest stage
+with one and two row ranges of the weight gradients, the v2 kernels on grids of odd
 sizes, one wider than 128, no text rows and a hidden width off the chunk,
 the Swin kernels at windows of 4 and 6 (36 rows, off the 16-row tile), grids
 with h != w, pool windows of 2, T = 7 and a head dim of 32, a Swin block
 on both of its routes, kernel F at ws^2 16, 36, 49 and 64, T 7, 20, 128
 and 300, head dims 32 and 64, one and two warpgroups, looping warpgroups,
 and on padded, shifted grids, the MLM CE kernels at widths 64, 256 and
-768 with ragged rows and vocabularies, the backward bit-equal twice and
-exactly zero with every row ignored, the fused attention half's training kernels at head
+768 with ragged rows and vocabularies (one with every logit below 0), the
+backward bit-equal twice and exactly zero with every row ignored, the fused attention half's training kernels at head
 dims 16 and 32, M = 600, five and sixteen heads, both backward forms, and a
 training block on that route against the plain route, and the ways a
 wrapper refuses its input. Bound:
@@ -214,9 +215,11 @@ def test_attention_backward_is_deterministic(dev):
 
 
 @pytest.mark.parametrize("b,n,d,hidden", [
-    (2, 333, 320, 1280),      # D = 320 at ratio 4, rows off the tile
+    (2, 333, 320, 1280),      # D = 320 at ratio 4, rows off the tile, two row ranges
     (3, 70, 64, 512),         # ratio 8, the row scale spans samples in a tile
     (2, 20, 512, 2048),       # stage-4 widths, one tile per sample
+    (4, 77, 96, 384),         # D = 96, off the 64-deep chunk and the 128 tile
+    (8, 192, 512, 2048),      # the largest stage, 12 row tiles, one row range
 ])
 def test_ln_mlp_kernels_match_plain(dev, b, n, d, hidden):
     gen = torch.Generator().manual_seed(d + n)
@@ -381,18 +384,20 @@ def test_fba_wrappers_refuse_what_the_kernels_do_not_take(dev):
         block_attention_train_bwd(x, k, v, g, be, wq, bq, wp, s, dy[:, :5].contiguous(), **kw)
 
 
-@pytest.mark.parametrize("r,v,h,frac", [(70, 1000, 64, 0.5), (513, 4099, 256, 0.2),
-                                        (64, 64, 768, 1.0), (200, 30522, 768, 0.15),
-                                        (1000, 30522, 768, 0.3), (129, 130, 64, 1.0)])
-def test_mlm_ce_kernels_match_plain(dev, r, v, h, frac):
+@pytest.mark.parametrize("r,v,h,frac,bias_mean", [
+    (70, 1000, 64, 0.5, 0.0), (513, 4099, 256, 0.2, 0.0), (64, 64, 768, 1.0, 0.0),
+    (200, 30522, 768, 0.15, 0.0), (1000, 30522, 768, 0.3, 0.0), (129, 130, 64, 1.0, 0.0),
+    (300, 4099, 768, 0.5, -10.0)])
+def test_mlm_ce_kernels_match_plain(dev, r, v, h, frac, bias_mean):
     """nll, lse and the three gradients at other widths, ragged row and
-    vocabulary counts (the backward's 128 tiles: 1,000 rows, 130 and 30,522
-    columns), a single tile, every row labeled, and labels in the last
-    (ragged) vocabulary tile."""
+    vocabulary counts (the kernels' 128 tiles: 1,000 rows, 130, 4,099 and
+    30,522 columns), a single tile, every row labeled, labels in the last
+    (ragged) vocabulary tile, and every logit far below 0 on a vocabulary
+    ragged against 128 (a padded column counted at 0 would dominate)."""
     gen = torch.Generator().manual_seed(r)
     x = torch.randn(r, h, generator=gen).to(dev, torch.bfloat16)
     table = (torch.randn(v, h, generator=gen) * (2.0 / h ** 0.5)).to(dev, torch.bfloat16)
-    bias = (0.1 * torch.randn(v, generator=gen)).to(dev)
+    bias = (bias_mean + 0.1 * torch.randn(v, generator=gen)).to(dev)
     labels = torch.where(torch.rand(r, generator=gen) < frac,
                          torch.randint(v - 70 if v > 70 else 0, v, (r,), generator=gen), -1).to(dev)
     nll, lse = mlm_ce_fwd(x, table, bias, labels)

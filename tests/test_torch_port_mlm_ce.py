@@ -15,8 +15,8 @@ import numpy as np
 import pytest
 import torch
 
-from mvlt_tpu_torch.ops.mlm_ce import (BWD_TILE, MAX_SPLITS, bwd_plan, mlm_ce_bwd,
-                                       mlm_ce_fwd, mlm_ce_loss, mlm_nll,
+from mvlt_tpu_torch.ops.mlm_ce import (BWD_TILE, MAX_SPLITS, bwd_plan, fwd_partials,
+                                       mlm_ce_bwd, mlm_ce_fwd, mlm_ce_loss, mlm_nll,
                                        mlm_nll_bwd_reference, mlm_nll_reference)
 from mvlt_tpu_torch.train.losses import chunked_mlm_loss, compute_losses
 from tests.kernel_utils import run_interpret
@@ -129,3 +129,14 @@ def test_bwd_plan_covers_every_chunk_with_nonempty_ranges(rows, vocab, width, sm
     per = -(-chunks // splits)
     assert 1 <= splits <= min(MAX_SPLITS, chunks)
     assert (splits - 1) * per < chunks <= splits * per      # no range empty, none left out
+
+
+@pytest.mark.parametrize("rows,vocab,tiles", [(3072, 30522, 239), (1000, 4099, 33), (64, 64, 1),
+                                              (129, 130, 2)])
+def test_fwd_partials_one_per_row_and_vocabulary_tile(rows, vocab, tiles):
+    """The forward's partials: (max, sum of exp, picked) per row and
+    128-column vocabulary tile; 8,810,496 bytes at the pre-training shape."""
+    assert fwd_partials(rows, vocab) == (tiles, tiles * rows * 3)
+    assert (tiles - 1) * BWD_TILE < vocab <= tiles * BWD_TILE
+    if rows == 3072:
+        assert 4 * fwd_partials(rows, vocab)[1] == 8_810_496

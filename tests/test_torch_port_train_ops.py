@@ -7,7 +7,9 @@ gradients, in fp32 at rtol = atol = 1e-4 (the JAX kernels take one-pass LN
 statistics and exp2 softmax). Both autograd Functions pass gradcheck in
 fp64. The heads' BatchNorm, the upsample, the MLM gather plan, the LR
 schedule, AdamW and the model's initialisation are held to their JAX
-counterparts.
+counterparts. The LN-MLP backward kernels' host-side plan (the row ranges
+of the weight-gradient GEMMs) and scratch sizes are checked at the stage
+shapes.
 """
 
 import jax
@@ -19,8 +21,8 @@ import torch
 
 from mvlt_tpu_torch.config import OptimConfig
 from mvlt_tpu_torch.models.heads import ConvBN
-from mvlt_tpu_torch.ops.fused_mlp import (fused_ln_mlp, ln_mlp_bwd_reference,
-                                          ln_mlp_reference)
+from mvlt_tpu_torch.ops.fused_mlp import (BWD_CHUNK, MAX_SPLITS, bwd_plan, bwd_scratch,
+                                          fused_ln_mlp, ln_mlp_bwd_reference, ln_mlp_reference)
 from mvlt_tpu_torch.ops.pallas_attention import (attention_bwd_reference,
                                                  attention_reference, fused_attention)
 from mvlt_tpu_torch.ops.upsample import upsample_bilinear_align_corners
@@ -79,6 +81,43 @@ def test_ln_mlp_twins_match_pallas():
         np.testing.assert_allclose(a.numpy(), np.asarray(w), **TOL, err_msg=name)
     # a dropped sample's rows: dx is dy alone
     np.testing.assert_array_equal(dx[0].numpy(), dy[0])
+
+
+@pytest.mark.parametrize("rows,d,hidden,splits", [(633_600, 64, 512, 15), (172_800, 128, 1024, 8),
+                                                   (57_600, 320, 1280, 2), (28_800, 512, 2048, 1)])
+def test_ln_mlp_bwd_plan_at_the_stage_shapes(rows, d, hidden, splits):
+    """The four pvlt_tiny stages at B = 150 on 132 SMs: dW1 and dW2 take 2 x
+    ceil(D/128) x ceil(H/128) output tiles (8, 16, 60, 128), times the row
+    ranges the fewest blocks that fill 90% of a wave (120, 128, 120, 128)."""
+    assert bwd_plan(rows, d, hidden, 132) == splits
+
+
+@pytest.mark.parametrize("rows,d,hidden,sms", [(666, 320, 1280, 132), (210, 64, 512, 132),
+                                               (308, 96, 384, 132), (40, 512, 2048, 8),
+                                               (1, 16, 16, 132)])
+def test_ln_mlp_bwd_plan_covers_every_chunk_with_nonempty_ranges(rows, d, hidden, sms):
+    splits = bwd_plan(rows, d, hidden, sms)
+    chunks = -(-rows // BWD_CHUNK)
+    per = -(-chunks // splits)
+    assert 1 <= splits <= min(MAX_SPLITS, chunks)
+    assert (splits - 1) * per < chunks <= splits * per      # no range empty, none left out
+
+
+def test_ln_mlp_bwd_scratch_sizes():
+    """Stage 1 at B = 150 (633,600 rows, D = 64, H = 512, 15 row ranges):
+    LN(x) and s.dy 81 MB each, G and dh1 649 MB each, dn in G's space, the
+    partial sums and slots 23 MB: 1.48 GB. dn takes its own fp32 space
+    where H < 2D; one row range has no slots."""
+    def nbytes(sizes):
+        return {k: n * torch.empty(0, dtype=dt).element_size() for k, (n, dt) in sizes.items()}
+    got = nbytes(bwd_scratch(633_600, 64, 512, 15))
+    assert got == {"nhat": 81_100_800, "dys": 81_100_800, "stats": 5_068_800,
+                   "g": 648_806_400, "dh": 648_806_400, "dn": 0, "db1p": 10_137_600,
+                   "colp": 3_801_600, "wslots": 3_932_160}
+    assert sum(got.values()) == 1_482_754_560
+    assert bwd_scratch(100, 64, 96, 1)["dn"] == (6400, torch.float32)
+    assert bwd_scratch(100, 64, 512, 1)["wslots"][0] == 0
+    assert bwd_scratch(100, 64, 512, 3)["wslots"][0] == 2 * 3 * 512 * 64
 
 
 def test_autograd_functions_pass_gradcheck():
