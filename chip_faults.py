@@ -25,12 +25,19 @@ swin_kernels:
                    swapped;
   table_off_window F reads the additive table of the next window;
   text_other_sample F reads the next sample's text K/V.
-The fused attention half's backward (csrc/block_attention_train.cu), phase
-fba_train_kernels:
-  dk_one_tile      dK keeps only one row tile's dS^T Q (its sum restarts on
+The fused attention half's backward (csrc/block_attention_train.cu, its
+attention core on csrc/attention.cu), phase fba_train_kernels:
+  dk_one_tile      dK keeps only one q tile's dS^T Q (its sum restarts on
                    every tile);
   dbp_unscaled     the projection bias gradient sums dy without the row
-                   scale, so a dropped sample's rows reach it.
+                   scale, so a dropped sample's rows reach it;
+  fba_wgrad_range_dropped  the in-order sum of dWq's and dWp's slots drops
+                   the last range of rows;
+  q_head_stride    the [B, H, N, hd] views of Q, dO, A and dQ step hd / 2
+                   columns a head instead of hd (seen only with more than one
+                   head);
+  lse_stats_log2   the statistics form takes lse = max - log2(1/den), the
+                   base-2 log of the natural statistics.
 The training attention kernels (csrc/attention.cu), phase train_kernels:
   no_online_rescale    the forward keeps the running sum and output as they
                        are when a later K/V chunk raises a row's max (seen
@@ -45,6 +52,11 @@ The LN-MLP backward (csrc/ln_mlp_bwd.cu), phase train_kernels:
                        all that follows see the dropped sample and miss
                        the 1/keep factor;
   no_gelu_grad         dh1 = dG, GELU'(h1) left out.
+The LN-MLP forward (csrc/ln_mlp.cu), phase train_kernels:
+  gelu_last_chunk_skipped  the one-launch kernel passes the last 64 hidden
+                       columns to fc2 without GELU;
+  row_scale_first_row  every row takes the DropPath scale of its tile's first
+                       row (seen where a 128-row tile spans two samples).
 The MLM CE kernels (csrc/mlm_ce.cu), phase mlm_kernels:
   no_onehot            the backward's dl keeps the softmax at the label, the
                        onehot not subtracted;
@@ -63,6 +75,7 @@ import pathlib
 import shutil
 import subprocess
 import sys
+import textwrap
 
 ROOT = pathlib.Path(__file__).resolve().parent
 FAULTS = {
@@ -95,17 +108,29 @@ FAULTS = {
         "const size_t txt = ((size_t)b * a.heads + h) * a.t * HD;",
         "const size_t txt = ((size_t)((b + 1) % a.batch) * a.heads + h) * a.t * HD;"),
     "dk_one_tile": (
-        "fba_train_kernels", "mvlt_tpu_torch/csrc/block_attention_train.cu",
-        "gemm_acc<false>(tt, ldt, qt, ldq, mp, hd, tq, acc, hd, n0 == 0);",
-        "gemm_acc<false>(tt, ldt, qt, ldq, mp, hd, tq, acc, hd, true);"),
+        "fba_train_kernels", "mvlt_tpu_torch/csrc/attention.cu",
+        "wgmma_rs<1>(dk, da[kk], make_desc<RB>(sq + (q0 + 16 * kk) * RB), 1);",
+        "wgmma_rs<1>(dk, da[kk], make_desc<RB>(sq + (q0 + 16 * kk) * RB), kk | half);"),
     "dbp_unscaled": (
         "fba_train_kernels", "mvlt_tpu_torch/csrc/block_attention_train.cu",
-        "sbp += __bfloat162float(dyb[(size_t)r * d + c]) * sc;",
-        "sbp += __bfloat162float(dyb[(size_t)r * d + c]);"),
+        "sum[0][p][0] += dyv[k][p].x * sc, sum[0][p][1] += dyv[k][p].y * sc;",
+        "sum[0][p][0] += dyv[k][p].x, sum[0][p][1] += dyv[k][p].y;"),
+    "fba_wgrad_range_dropped": (
+        "fba_train_kernels", "mvlt_tpu_torch/csrc/block_attention_train.cu",
+        "const int ranges = splits;",
+        "const int ranges = splits - 1;"),
+    "q_head_stride": (
+        "fba_train_kernels", "mvlt_tpu_torch/csrc/block_attention_train.cu",
+        "const long long sq[3] = {(long long)n * d, hd, d}",
+        "const long long sq[3] = {(long long)n * d, hd / 2, d}"),
+    "lse_stats_log2": (
+        "fba_train_kernels", "mvlt_tpu_torch/csrc/block_attention_train.cu",
+        "sr[0] - logf(sr[1]);",
+        "sr[0] - log2f(sr[1]);"),
     "no_online_rescale": (
         "train_kernels", "mvlt_tpu_torch/csrc/attention.cu",
-        "const float a0 = exp2f(m0 - mn0), a1 = exp2f(m1 - mn1);",
-        "const float a0 = 1.0f, a1 = 1.0f;"),
+        "a0 = exp2f(m0 - mn0), a1 = exp2f(m1 - mn1);",
+        "a0 = 1.0f, a1 = 1.0f;"),
     "one_split_slot": (
         "train_kernels", "mvlt_tpu_torch/csrc/attention.cu",
         "for (int s = 0; s < splits; ++s) {",
@@ -126,6 +151,15 @@ FAULTS = {
         "train_kernels", "mvlt_tpu_torch/csrc/ln_mlp_bwd.cu",
         "dg[i] = dg[i] * gg.y;",
         "dg[i] = dg[i];"),
+    "gelu_last_chunk_skipped": (
+        "train_kernels", "mvlt_tpu_torch/csrc/ln_mlp.cu",
+        "h[4 * jj + e] = gelu_erf(h[4 * jj + e] + (col < a.hidden ? a.b1[col] : 0.0f));",
+        "h[4 * jj + e] += col < a.hidden ? a.b1[col] : 0.0f;\n"
+        "        if (j + 1 < chunks) h[4 * jj + e] = gelu_erf(h[4 * jj + e]);"),
+    "row_scale_first_row": (
+        "train_kernels", "mvlt_tpu_torch/csrc/ln_mlp.cu",
+        "const float sc = a.s[row / a.n];",
+        "const float sc = a.s[(row & ~(kGemmTile - 1)) / a.n];"),
     "no_onehot": (
         "mlm_kernels", "mvlt_tpu_torch/csrc/mlm_ce.cu",
         "dl = g[h] * (v == lab[h] ? p - 1.0f : p);",
@@ -185,6 +219,9 @@ except AssertionError as e:
     print("FAULT_CAUGHT", e)
 c.KERNEL_TOL = math.inf
 """
+# the margins run with the bound lifted; a check that raises all the same (a
+# dropped sample's dx no longer its dy) ends the printout, not the fault's run
+MARGIN_RUN = "try:\n{body}\nexcept AssertionError as e:\n    print('MARGINS_STOPPED', e)\n"
 
 
 def run_fault(name: str, phase: str, source: str, good: str, bad: str) -> bool:
@@ -200,7 +237,8 @@ def run_fault(name: str, phase: str, source: str, good: str, bad: str) -> bool:
         raise RuntimeError(f"{name}: the line to change is not in {source} exactly once")
     path.write_text(text.replace(good, bad))
     try:
-        proc = subprocess.run([sys.executable, "-c", RUN.format(phase=phase) + MARGINS[phase]],
+        margins = MARGIN_RUN.format(body=textwrap.indent(MARGINS[phase].strip(), "    "))
+        proc = subprocess.run([sys.executable, "-c", RUN.format(phase=phase) + margins],
                               cwd=dst, capture_output=True, text=True, check=False)
     finally:
         shutil.rmtree(dst, ignore_errors=True)

@@ -14,7 +14,8 @@ JSON line each; a failed phase raises and the script exits non-zero:
   2. build: nvcc compiles mvlt_tpu_torch/csrc/*.cu for sm_90a; ptxas's
      registers and spills per kernel, and the HGMMA instructions in the SASS
      of each wgmma kernel (WGMMA_KERNELS: the training attention kernels,
-     the MLM CE kernels, the LN-MLP backward's product kernels, kernel F;
+     the MLM CE kernels, the LN-MLP forward's and backward's product
+     kernels, the fused attention backward's, kernel F;
      cuobjdump), which each must hold;
   3. kernels: kernel A (SR-KV) and kernel B (whole block) against their plain
      PyTorch versions on the card in bf16, bound max|kernel - plain| /
@@ -67,8 +68,8 @@ JSON line each; a failed phase raises and the script exits non-zero:
      LN-MLP backward calls bit-equal, and each kernel's time beside its
      plain version's, its bound, and for attention
      F.scaled_dot_product_attention's (a yardstick the port never calls),
-     for the LN-MLP backward its device time and a bf16 cuBLAS composition
-     of its five products (a yardstick too);
+     for the LN-MLP forward and backward their device time and a bf16
+     PyTorch composition of their work (cuBLAS products; yardsticks too);
   8. the MLM CE kernels (forward: logits on wgmma with per-tile partials
      merged in order; backward: dl recomputed once, then dx, dE and db)
      against their plain versions in bf16 (nll, lse and the three gradients
@@ -101,11 +102,13 @@ JSON line each; a failed phase raises and the script exits non-zero:
      within 2e-2 as in phase 3; the dropped sample's dx equal to its dy) at
      the four stage shapes at B = 4 and B = 150 and a ragged shape (N off
      the row tile, M off 16, head dim 32), with a DropPath scale holding a
-     zero; at B = 150 each kernel's time beside its plain version's, its
-     bound and the default route's attention half on the same inputs
-     (cuBLAS Q and projection, #10/#11; no single library call computes
-     the fused half). Then, per backward form, phase 9's six steps with
-     fused_attn_train on (the fused forward and backward 8 times a step,
+     zero; at B = 150 both backward forms bit-equal over two calls, each
+     kernel's time beside its plain version's (the backward's device time
+     too), its bound and the default route's attention half on the same
+     inputs by events and device time (cuBLAS Q and projection, #10/#11;
+     no single library call computes the fused half). Then, per backward
+     form, phase 9's six steps with fused_attn_train on (the fused forward
+     and backward 8 times a step,
      #10/#11 never, LN-MLP 8 and MLM CE once a step, no serving kernel;
      falling loss), every block of a step (output, input, K/V and parameter
      gradients) vs the plain route, ms/step, peak memory and a profile;
@@ -369,7 +372,9 @@ def phase_device() -> str:
 # the wgmma kernels, each of which must hold HGMMA instructions in its SASS
 WGMMA_KERNELS = ("attn_fwd_hopper_kernel", "attn_bwd_hopper_kernel", "mlm_ce_fwd_kernel",
                  "mlm_ce_dlogits_kernel", "mlm_ce_gemm_kernel", "ln_mlp_bwd_hidden_kernel",
-                 "ln_mlp_bwd_wgrad_kernel", "ln_mlp_bwd_dnorm_kernel", "swin_attn_hopper_kernel")
+                 "ln_mlp_bwd_wgrad_kernel", "ln_mlp_bwd_dnorm_kernel", "swin_attn_hopper_kernel",
+                 "ln_mlp_fwd_fused_kernel", "ln_mlp_fwd_hidden_kernel", "ln_mlp_fwd_out_kernel",
+                 "fba_bwd_proj_kernel", "fba_bwd_wgrad_kernel")
 
 
 def hgmma_counts(library: pathlib.Path) -> dict:
@@ -1284,6 +1289,18 @@ def check_train_kernels(stats: dict, gen, label: str, shape: tuple, batch: int) 
     return a
 
 
+def ln_mlp_fwd_composition(a: dict):
+    """The LN-MLP forward as PyTorch calls in bf16: F.layer_norm, F.linear
+    (cuBLAS), the erf F.gelu, F.linear and the scaled residual; a yardstick
+    for #12 (PERF.md section 6), never a path the port calls."""
+    bf = torch.bfloat16
+    g, be, w1, b1, w2, b2 = (t.to(bf) for t in a["mlp"])
+    x, s = a["x"], a["s"].to(bf)[:, None, None]
+    d = x.shape[-1]
+    return lambda: x + F.linear(F.gelu(F.linear(F.layer_norm(x, (d,), g, be, 1e-6), w1, b1)),
+                                w2, b2) * s
+
+
 def ln_mlp_bwd_composition(a: dict):
     """The LN-MLP backward as the five products in bf16 torch.matmul (cuBLAS)
     and PyTorch's elementwise LN and GELU work in fp32: a yardstick for
@@ -1377,10 +1394,13 @@ def phase_train_kernels(stats: dict) -> None:
         for name, (kernel, plain, library_ms) in times.items():
             ms, plain_ms = cuda_time_ms(kernel), cuda_time_ms(plain)
             bound_ms, bound_by = bounds[name]
+            compositions = {"ln_mlp_fwd": ln_mlp_fwd_composition,
+                            "ln_mlp_bwd": ln_mlp_bwd_composition}
             extra = ({"sdpa_fwd_bwd_ms": sdpa_both} if name == "attention_bwd" else
                      {"device_ms": device_time_ms(kernel),
-                      "composition_ms": cuda_time_ms(ln_mlp_bwd_composition(a))}
-                     if name == "ln_mlp_bwd" else {})
+                      "composition_ms": cuda_time_ms(compositions[name](a)),
+                      "composition_device_ms": device_time_ms(compositions[name](a))}
+                     if name in compositions else {})
             emit("kernel_time", kernel=name, shape=label, batch=TRAIN_BATCH, ms=ms,
                  plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                  library_ms=library_ms, speedup=plain_ms / ms, **extra)
@@ -1597,18 +1617,25 @@ def compare_train_cpu(cfg, sd, card_routes: dict) -> None:
 TRAIN_GROUPS = {"attention_fwd": ("attn_fwd_hopper_kernel",),
                 "attention_bwd": ("attn_bwd_hopper_kernel", "attn_bwd_slot_sum_kernel"),
                 "fba_train_fwd": ("fba_fwd_kernel",),
-                "fba_train_bwd": ("fba_bwd_rows_kernel", "fba_bwd_kv_kernel",
-                                  "fba_reduce_kernel"),
-                "ln_mlp_fwd": ("ln_mlp_fwd_kernel",),
+                "fba_train_bwd": ("fba_bwd_",),
+                "ln_mlp_fwd": ("ln_mlp_fwd_",),
                 "ln_mlp_bwd": ("ln_mlp_bwd_",),
                 "mlm_ce_fwd": ("mlm_ce_fwd_kernel", "mlm_ce_merge_kernel"),
                 "mlm_ce_bwd": ("mlm_ce_dlogits_kernel", "mlm_ce_gemm_kernel",
                                "mlm_ce_slot_sum_kernel")}
 
 
-def phase_train_throughput(state, cfg, prefix: str = "") -> None:
+# the fused_attn_train route: its backward runs the attention core on
+# #10/#11's kernels, whose device time is the backward's there
+FBA_GROUPS = {"fba_train_bwd": ("fba_bwd_", "attn_fwd_hopper_kernel", "attn_bwd_hopper_kernel",
+                                "attn_bwd_slot_sum_kernel"),
+              **{k: v for k, v in TRAIN_GROUPS.items() if k != "fba_train_bwd"}}
+
+
+def phase_train_throughput(state, cfg, prefix: str = "", groups: dict = TRAIN_GROUPS) -> None:
     """ms per step and samples/s at B = 150 on two pre-staged device batches,
-    peak memory, and the device profile of three steps."""
+    peak memory, and the device profile of three steps (device time summed
+    by ``groups``)."""
     step = make_train_step(cfg)
     staged = [batch_to_device(train_batch(SEED + i, TRAIN_BATCH), "cuda") for i in (1, 2)]
     calls = iter(range(10 ** 9))
@@ -1621,7 +1648,7 @@ def phase_train_throughput(state, cfg, prefix: str = "") -> None:
          peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
          method="CUDA events around each step call (forward, backward, AdamW), 3 warm-up, "
                 "median of 10, 2 distinct pre-staged batches")
-    profile_device(lambda: [step(state, staged[i % 2]) for i in range(3)], 3, TRAIN_GROUPS,
+    profile_device(lambda: [step(state, staged[i % 2]) for i in range(3)], 3, groups,
                    prefix + "train_profile")
 
 
@@ -1709,6 +1736,16 @@ def check_fba_kernels(stats: dict, gen, label: str, shape: tuple, batch: int) ->
                                  f"passes dy: {dropped})")
         stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"],
                                          max(v[0] for v in e.values()))
+    if batch == TRAIN_BATCH:
+        for name, got, form in (("fba_train_bwd", grads, None),
+                                ("fba_train_bwd_stats", grads_s, st)):
+            again = block_attention_train_bwd(*_fba_bwd_args(a), stats=form, **kw)
+            torch.cuda.synchronize()
+            equal = all(torch.equal(x, y) for x, y in zip(got, again))
+            emit("kernel_check", kernel=name, shape=label, batch=batch,
+                 check="two calls bit-equal", ok=equal)
+            if not equal:
+                raise AssertionError(f"two {name} calls on the same inputs differ at {label}")
     return {**a, "stats": st, "stats_ref": st_ref}
 
 
@@ -1734,12 +1771,13 @@ def fba_bounds(shape: tuple, batch: int) -> dict:
             "fba_train_bwd_stats": bound(bwd_flops, bwd_bytes + st)}
 
 
-def default_route_times(a: dict) -> tuple[float, float]:
+def default_route_times(a: dict) -> dict:
     """The default route's attention half on the same inputs, the yardstick
     of the fused one: LN1, the cuBLAS Q and out-projections and the port's
     attention kernels (#10/#11) with the DropPath scale, on fp32 master
     parameters; forward, and backward alone (on a kept graph) to x, K, V and
-    every parameter, in ms."""
+    every parameter, in ms by CUDA events and by torch.profiler device
+    time."""
     x, k, v = (a[n].detach().requires_grad_() for n in ("x", "k", "v"))
     g, be, wq, bq, wp, bp = (t.detach().requires_grad_() for t in a["master"])
     b, n, d = x.shape
@@ -1755,7 +1793,8 @@ def default_route_times(a: dict) -> tuple[float, float]:
     out = fwd()
     bwd = lambda: torch.autograd.grad(out, (x, k, v, g, be, wq, bq, wp, bp), a["dy"],
                                       retain_graph=True)
-    return cuda_time_ms(fwd), cuda_time_ms(bwd)
+    return {"route_fwd_ms": cuda_time_ms(fwd), "route_fwd_device_ms": device_time_ms(fwd),
+            "route_bwd_ms": cuda_time_ms(bwd), "route_bwd_device_ms": device_time_ms(bwd)}
 
 
 def phase_fba_train_kernels(stats: dict) -> None:
@@ -1771,30 +1810,34 @@ def phase_fba_train_kernels(stats: dict) -> None:
     for label, shape in shapes:
         a = check_fba_kernels(stats, gen, label, shape, TRAIN_BATCH)
         kw, st, st_ref = a["kw"], a["stats"], a["stats_ref"]
-        route_fwd, route_bwd = default_route_times(a)
+        route = default_route_times(a)
+        route_fwd = {k: v for k, v in route.items() if k.startswith("route_fwd")}
+        route_bwd = {k: v for k, v in route.items() if k.startswith("route_bwd")}
         times = {
             "fba_train_fwd": (lambda: block_attention_train_fwd(*_fba_fwd_args(a), **kw),
                               lambda: block_attention_train_reference(*_fba_fwd_args(a), **kw),
-                              {"route_fwd_ms": route_fwd}),
+                              route_fwd),
             "fba_train_fwd_stats": (
                 lambda: block_attention_train_fwd(*_fba_fwd_args(a), save_stats=True, **kw),
                 lambda: block_attention_train_reference(*_fba_fwd_args(a), save_stats=True, **kw),
-                {"route_fwd_ms": route_fwd}),
+                route_fwd),
             "fba_train_bwd": (lambda: block_attention_train_bwd(*_fba_bwd_args(a), **kw),
                               lambda: block_attention_bwd_reference(*_fba_bwd_args(a), **kw),
-                              {"route_bwd_ms": route_bwd}),
+                              route_bwd),
             "fba_train_bwd_stats": (
                 lambda: block_attention_train_bwd(*_fba_bwd_args(a), stats=st, **kw),
                 lambda: block_attention_bwd_reference(*_fba_bwd_args(a), stats=st_ref, **kw),
-                {"route_bwd_ms": route_bwd}),
+                route_bwd),
         }
         bounds = fba_bounds(shape, TRAIN_BATCH)
-        for name, (kernel, plain, route) in times.items():
+        for name, (kernel, plain, yardstick) in times.items():
             ms, plain_ms = cuda_time_ms(kernel), cuda_time_ms(plain)
             bound_ms, bound_by = bounds[name]
+            extra = ({"device_ms": device_time_ms(kernel)} if name.startswith("fba_train_bwd")
+                     else {})
             emit("kernel_time", kernel=name, shape=label, batch=TRAIN_BATCH, ms=ms,
                  plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-                 speedup=plain_ms / ms, **route)
+                 speedup=plain_ms / ms, **yardstick, **extra)
             add_time(stats, name, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                      bound_by=bound_by, library_ms=None)
         del a, times
@@ -1816,7 +1859,7 @@ def phase_fba_train(stats: dict) -> None:
             stats, cfg, prefix + "_train_slice", FBA_ROUTE,
             {name: name + suffix for name in FBA_WRAPPERS})
         check_train_blocks(state, cfg, batch, prefix + "_train_blocks_vs_plain")
-        phase_train_throughput(state, cfg, prefix + "_")
+        phase_train_throughput(state, cfg, prefix + "_", FBA_GROUPS)
         del state, batch
         torch.cuda.empty_cache()
 

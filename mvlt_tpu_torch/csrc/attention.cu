@@ -131,7 +131,10 @@ __host__ __device__ constexpr size_t bwd_smem(int hd) {
          4 * (size_t)kTile * 4;
 }
 
-template <int HD>
+// Fixed: lse is the input, the rows' natural logsumexp (fused attention
+// backward, statistics form): P = exp(S scale - lse) directly, with no row
+// max, rescale or sum, and o = P V is not divided.
+template <int HD, bool Fixed>
 __global__ void __launch_bounds__(kFwdThreads, 2) attn_fwd_hopper_kernel(FwdArgs a) {
   constexpr int RB = HD * 2, CH = RB / 16, NA = HD / 2;
   extern __shared__ char smem_raw[];
@@ -190,6 +193,12 @@ __global__ void __launch_bounds__(kFwdThreads, 2) attn_fwd_hopper_kernel(FwdArgs
     float o[NA], m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;
 #pragma unroll
     for (int i = 0; i < NA; ++i) o[i] = 0.0f;
+    if (Fixed) {  // lse in log2 units; +inf past N gives P = 0
+      const int row = tile * kTile + r0;
+      const float* lrow = a.lse + (size_t)bh * a.n;
+      m0 = active && row < a.n ? lrow[row] * kLog2e : INFINITY;
+      m1 = active && row + 8 < a.n ? lrow[row + 8] * kLog2e : INFINITY;
+    }
     for (int w = 0; w < nwin; ++w) {
       if (nwin > 1) {
         __syncthreads();
@@ -221,22 +230,26 @@ __global__ void __launch_bounds__(kFwdThreads, 2) attn_fwd_hopper_kernel(FwdArgs
           for (int i = 0; i < 32; ++i)
             if (col0 + 8 * (i >> 2) + cq + (i & 1) >= a.m) s[i] = -INFINITY;
         }
-        float x0 = -INFINITY, x1 = -INFINITY;
+        float a0 = 1.0f, a1 = 1.0f;
+        if (!Fixed) {
+          float x0 = -INFINITY, x1 = -INFINITY;
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          x0 = fmaxf(x0, fmaxf(s[4 * j], s[4 * j + 1]));
-          x1 = fmaxf(x1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
-        }
+          for (int j = 0; j < 8; ++j) {
+            x0 = fmaxf(x0, fmaxf(s[4 * j], s[4 * j + 1]));
+            x1 = fmaxf(x1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+          }
 #pragma unroll
-        for (int off = 1; off <= 2; off <<= 1) {
-          x0 = fmaxf(x0, __shfl_xor_sync(0xffffffffu, x0, off));
-          x1 = fmaxf(x1, __shfl_xor_sync(0xffffffffu, x1, off));
+          for (int off = 1; off <= 2; off <<= 1) {
+            x0 = fmaxf(x0, __shfl_xor_sync(0xffffffffu, x0, off));
+            x1 = fmaxf(x1, __shfl_xor_sync(0xffffffffu, x1, off));
+          }
+          // the scale (> 0) goes into the exponent's fma: max of the raw logits
+          const float mn0 = fmaxf(m0, x0 * a.scale_log2), mn1 = fmaxf(m1, x1 * a.scale_log2);
+          a0 = exp2f(m0 - mn0), a1 = exp2f(m1 - mn1);
+          m0 = mn0;
+          m1 = mn1;
         }
-        // the scale (> 0) goes into the exponent's fma: max of the raw logits
-        const float mn0 = fmaxf(m0, x0 * a.scale_log2), mn1 = fmaxf(m1, x1 * a.scale_log2);
-        const float a0 = exp2f(m0 - mn0), a1 = exp2f(m1 - mn1);
-        m0 = mn0;
-        m1 = mn1;
+        const float mn0 = m0, mn1 = m1;
         float p0 = 0.0f, p1 = 0.0f;
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
@@ -251,12 +264,14 @@ __global__ void __launch_bounds__(kFwdThreads, 2) attn_fwd_hopper_kernel(FwdArgs
         l1 = l1 * a1 + p1;
         wgmma_wait<0>();  // the last chunk's P.V is done: o may be rescaled
         fence_regs(o);
+        if (!Fixed) {
 #pragma unroll
-        for (int j = 0; j < NA / 4; ++j) {
-          o[4 * j] *= a0;
-          o[4 * j + 1] *= a0;
-          o[4 * j + 2] *= a1;
-          o[4 * j + 3] *= a1;
+          for (int j = 0; j < NA / 4; ++j) {
+            o[4 * j] *= a0;
+            o[4 * j + 1] *= a0;
+            o[4 * j + 2] *= a1;
+            o[4 * j + 3] *= a1;
+          }
         }
         uint32_t p[4][4];
 #pragma unroll
@@ -288,7 +303,7 @@ __global__ void __launch_bounds__(kFwdThreads, 2) attn_fwd_hopper_kernel(FwdArgs
         l0 += __shfl_xor_sync(0xffffffffu, l0, off);
         l1 += __shfl_xor_sync(0xffffffffu, l1, off);
       }
-      const float i0 = 1.0f / l0, i1 = 1.0f / l1;
+      const float i0 = Fixed ? 1.0f : 1.0f / l0, i1 = Fixed ? 1.0f : 1.0f / l1;
 #pragma unroll
       for (int j = 0; j < NA / 4; ++j) {
         *reinterpret_cast<uint32_t*>(st + tile_off<RB>(r0, j) + cq * 2) =
@@ -296,7 +311,7 @@ __global__ void __launch_bounds__(kFwdThreads, 2) attn_fwd_hopper_kernel(FwdArgs
         *reinterpret_cast<uint32_t*>(st + tile_off<RB>(r0 + 8, j) + cq * 2) =
             pack_bf16(o[4 * j + 2] * i1, o[4 * j + 3] * i1);
       }
-      if ((lane & 3) == 0) {
+      if (!Fixed && (lane & 3) == 0) {
         float* lrow = a.lse + (size_t)bh * a.n + tile * kTile;
         if (tile * kTile + r0 < a.n) lrow[r0] = (m0 + log2f(l0)) * kLn2;
         if (tile * kTile + r0 + 8 < a.n) lrow[r0 + 8] = (m1 + log2f(l1)) * kLn2;
@@ -590,6 +605,7 @@ __global__ void attn_bwd_slot_sum_kernel(const float* slots, bf16* dk, bf16* dv,
 
 View view(const long long* s) { return View{s[0], s[1], s[2]}; }
 
+
 // The device's SM count, and letting `kernel` take all of an SM's shared
 // memory there; each asked of the runtime once per device.
 int sm_count(int dev) {
@@ -611,7 +627,7 @@ cudaError_t allow_smem(Kernel kernel, int dev, int& cached_dev) {
   return err;
 }
 
-template <int HD>
+template <int HD, bool Fixed>
 int launch_fwd(FwdArgs a, int batch, cudaStream_t stream) {
   constexpr int RB = HD * 2;
   const int mpad = (a.m + kTile - 1) & ~(kTile - 1);
@@ -622,7 +638,7 @@ int launch_fwd(FwdArgs a, int batch, cudaStream_t stream) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   static int smem_dev = -1;
-  if (err == cudaSuccess) err = allow_smem(attn_fwd_hopper_kernel<HD>, dev, smem_dev);
+  if (err == cudaSuccess) err = allow_smem(attn_fwd_hopper_kernel<HD, Fixed>, dev, smem_dev);
   if (err != cudaSuccess) return (int)err;
   // an even run of q tiles per block, about 8 blocks an SM over the grid
   const long long bhs = (long long)batch * a.heads, sms = max(1, sm_count(dev));
@@ -630,7 +646,7 @@ int launch_fwd(FwdArgs a, int batch, cudaStream_t stream) {
   per = min(max(2, (per + 1) & ~1), (a.tiles + 1) & ~1);
   a.per_block = per;
   dim3 grid((a.tiles + per - 1) / per, (unsigned)bhs);
-  attn_fwd_hopper_kernel<HD><<<grid, kFwdThreads, bytes, stream>>>(a);
+  attn_fwd_hopper_kernel<HD, Fixed><<<grid, kFwdThreads, bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -652,6 +668,21 @@ int launch_bwd(const BwdArgs& a, int batch, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+int attention_fwd(const void* q, const void* k, const void* v, void* o, const void* lse,
+                  const long long* strides, int batch, int heads, int n, int m, int hd,
+                  float scale, bool fixed, cudaStream_t st) {
+  FwdArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+            static_cast<const bf16*>(v), static_cast<bf16*>(o),
+            static_cast<float*>(const_cast<void*>(lse)), view(strides), view(strides + 3),
+            view(strides + 6), view(strides + 9), heads, n, m, (n + kTile - 1) / kTile, 0, 0,
+            scale * kLog2e};
+  if (hd == 64) return fixed ? launch_fwd<64, true>(a, batch, st)
+                     : launch_fwd<64, false>(a, batch, st);
+  if (hd == 32) return fixed ? launch_fwd<32, true>(a, batch, st)
+                     : launch_fwd<32, false>(a, batch, st);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 }  // namespace mvlt
 
@@ -663,15 +694,19 @@ int launch_bwd(const BwdArgs& a, int batch, cudaStream_t stream) {
 extern "C" int mvlt_attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                                   const long long* strides, int batch, int heads, int n, int m,
                                   int hd, float scale, void* stream) {
-  using namespace mvlt;
-  FwdArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-            static_cast<const bf16*>(v), static_cast<bf16*>(o), static_cast<float*>(lse),
-            view(strides), view(strides + 3), view(strides + 6), view(strides + 9),
-            heads, n, m, (n + kTile - 1) / kTile, 0, 0, scale * kLog2e};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hd == 64) return launch_fwd<64>(a, batch, st);
-  if (hd == 32) return launch_fwd<32>(a, batch, st);
-  return (int)cudaErrorInvalidValue;
+  return mvlt::attention_fwd(q, k, v, o, lse, strides, batch, heads, n, m, hd, scale, false,
+                             static_cast<cudaStream_t>(stream));
+}
+
+// The same with the rows' lse [B, H, N] given (natural log, as the forward
+// writes it): o = exp(q k^T scale - lse) v, no softmax reductions (the fused
+// attention backward's statistics form, csrc/block_attention_train.cu).
+extern "C" int mvlt_attention_fwd_from_lse(const void* q, const void* k, const void* v, void* o,
+                                           const void* lse, const long long* strides, int batch,
+                                           int heads, int n, int m, int hd, float scale,
+                                           void* stream) {
+  return mvlt::attention_fwd(q, k, v, o, lse, strides, batch, heads, n, m, hd, scale, true,
+                             static_cast<cudaStream_t>(stream));
 }
 
 // `splits` (1 .. the q tiles) ranges of q tiles per (sample, head); with more

@@ -1,5 +1,5 @@
-// Device helpers shared by the port's Hopper kernels (sr_kv.cu,
-// block_fused.cu, attention.cu, ln_mlp.cu).
+// Device and host helpers shared by the port's Hopper kernels (every
+// csrc/*.cu).
 //
 // Counterparts of the in-kernel helpers of mvlt_tpu/ops/kernel_math.py:
 //   one_pass_ln -> layer_norm_row, row_stats_global (two-pass statistics:
@@ -9,13 +9,10 @@
 //                  logits and softmax)
 //   gelu / gelu_grad -> gelu_erf / gelu_erf_and_grad (exact erf, never the tanh
 //                  form)
-// gemm_bf16 is the matrix-product routine: bf16 tensor-core tiles
-// (nvcuda::wmma, 16x16x16, fp32 accumulation), a tile of up to eight 16x16
-// output blocks per warp at a time, each handed element by element to an
-// epilogue. gemm_acc is its form for a plain sum into an fp32 matrix: the
-// blocks load from and store to it whole, with no epilogue; it pays where A
-// and B are both in shared memory, and loses where B is read from L2 (no
-// two-row-block reuse, no prefetch).
+// gemm_bf16 is the wmma kernels' matrix-product routine: bf16 tensor-core
+// tiles (nvcuda::wmma, 16x16x16, fp32 accumulation), a tile of up to eight
+// 16x16 output blocks per warp at a time, each handed element by element to
+// an epilogue (the wgmma kernels' products are hopper.cuh's).
 
 #pragma once
 
@@ -52,6 +49,25 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+__device__ __forceinline__ float2 load_bf16x2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ void store_bf16x2(bf16* p, float lo, float hi) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(lo, hi);
+}
+
+// The row kernels of the wgmma kernels' chains (ln_mlp_bwd.cu,
+// block_attention_train.cu): a lane holds P column pairs of a row (2 lane +
+// 64 p, + 1; D <= 64 P), and a warp takes R = 8 / P rows at once, so that
+// each lane keeps about 8 pairs of loads in flight.
+__host__ __device__ constexpr int rows_at_once(int p) { return p >= 8 ? 1 : 8 / p; }
+
+// Lets `kernel` take `bytes` of dynamic shared memory (at most kSmemLimit).
+inline cudaError_t allow_dynamic_smem(const void* kernel, size_t bytes) {
+  if (bytes > kSmemLimit) return cudaErrorInvalidConfiguration;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
 __device__ __forceinline__ float gelu_erf(float u) {
   return 0.5f * u * (1.0f + erff(u * 0.70710678118654752f));
 }
@@ -83,21 +99,6 @@ __device__ __forceinline__ float2 row_stats_global(const bf16* src, int n, float
     q += z * z;
   }
   return make_float2(mean, rsqrtf(warp_sum(q) / n + eps));
-}
-
-// Rows [0, rows) of a [tile, n] bf16 tile with row stride ld elements, from
-// global memory with row stride src_ld, into shared memory with row stride
-// dst_ld; rows [rows, tile) become zero. n, src_ld and dst_ld are multiples
-// of 8 and both bases 16-byte aligned (16-byte loads).
-__device__ __forceinline__ void load_tile_rows(bf16* dst, int dst_ld, const bf16* src,
-                                               long long src_ld, int rows, int tile, int n) {
-  const int per_row = n / 8;
-  for (int i = threadIdx.x; i < tile * per_row; i += kThreads) {
-    const int r = i / per_row, c = (i - r * per_row) * 8;
-    uint4 raw = make_uint4(0, 0, 0, 0);
-    if (r < rows) raw = *reinterpret_cast<const uint4*>(src + r * src_ld + c);
-    *reinterpret_cast<uint4*>(dst + r * dst_ld + c) = raw;
-  }
 }
 
 // LayerNorm of one row of n values, computed by one warp in fp32 with
@@ -281,57 +282,6 @@ __device__ void gemm_bf16(const bf16* a, int lda, const bf16* b, int ldb, int ro
     gemm_tiles<MaxRB, BColMajor>(a, lda, b, ldb, rows, ncols, kdim, best_cb, st, epi);
   else
     gemm_tiles<1, BColMajor>(a, lda, b, ldb, rows, ncols, kdim, best_cb, st, epi);
-}
-
-// c[rows, ncols] = (first ? 0 : c) + a . B, c fp32 row-major (leading
-// dimension ldc) in shared or device memory; a and B as for gemm_bf16. A
-// warp takes strips of one 16-row block by up to 4 column blocks; their
-// accumulators load from and store to c as whole fragments, so each element
-// of c is read and written once per call and nothing passes through a
-// per-element epilogue. c and every 16-row or 16-column block start in it
-// are 32-byte aligned and ldc is a multiple of 4.
-template <bool BColMajor>
-__device__ void gemm_acc(const bf16* a, int lda, const bf16* b, int ldb, int rows, int ncols,
-                         int kdim, float* c, int ldc, bool first) {
-  using namespace nvcuda;
-  using BLayout = typename std::conditional<BColMajor, wmma::col_major, wmma::row_major>::type;
-  constexpr int CB = 4;
-  const int nb = ncols >> 4, per_row = (nb + CB - 1) / CB;
-  const int strips = (rows >> 4) * per_row;
-  for (int t = threadIdx.x >> 5; t < strips; t += kWarps) {
-    const int r0 = (t / per_row) * 16, c0 = (t % per_row) * CB * 16;
-    const int ncb = min(CB, nb - c0 / 16);
-    float* cp = c + (size_t)r0 * ldc + c0;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[CB];
-#pragma unroll
-    for (int j = 0; j < CB; ++j) {
-      if (j < ncb) {
-        if (first) {
-          wmma::fill_fragment(acc[j], 0.0f);
-        } else {
-          wmma::load_matrix_sync(acc[j], cp + 16 * j, ldc, wmma::mem_row_major);
-        }
-      }
-    }
-    for (int k0 = 0; k0 < kdim; k0 += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::load_matrix_sync(fa, a + (size_t)r0 * lda + k0, lda);
-#pragma unroll
-      for (int j = 0; j < CB; ++j) {
-        if (j < ncb) {
-          const int col = c0 + 16 * j;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLayout> fb;
-          wmma::load_matrix_sync(
-              fb, BColMajor ? b + (size_t)col * ldb + k0 : b + (size_t)k0 * ldb + col, ldb);
-          wmma::mma_sync(acc[j], fa, fb, acc[j]);
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < CB; ++j) {
-      if (j < ncb) wmma::store_matrix_sync(cp + 16 * j, acc[j], ldc, wmma::mem_row_major);
-    }
-  }
 }
 
 }  // namespace mvlt

@@ -1,10 +1,11 @@
 // Hopper (sm_90a) device helpers of the port's wgmma kernels (attention.cu,
-// mlm_ce.cu, ln_mlp_bwd.cu, swin_attention.cu):
+// mlm_ce.cu, ln_mlp.cu, ln_mlp_bwd.cu, block_attention_train.cu,
+// swin_attention.cu):
 // warpgroup matrix multiply (wgmma) on bf16 operands with fp32 sums, its
 // shared-memory descriptors and fences, cp.async copies into the swizzled
 // tiles wgmma reads, named barriers, the fragment-layout maps, and the
-// 128 x 128 output tile over a streamed contraction (mma_tile) that the
-// GEMM-shaped kernels share.
+// 128 x 128 output tile over a streamed contraction (mma_tile), with its
+// staged epilogue (store_tile), that the GEMM-shaped kernels share.
 //
 // Tiles in shared memory. Every bf16 operand tile is row-major, one row of
 // RB = 64 or 128 bytes (32 or 64 values), rows in groups of eight that
@@ -231,6 +232,33 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t d
       : "l"(da), "l"(db), "r"(acc), "n"(TransA), "n"(TransB));
 }
 
+// The same product at N = 128 with A from registers.
+template <int TransB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
+                                         int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;"
+      "\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(TransB));
+}
+
 // The N = 64 product into columns 64 (Off / 32) .. + 63 of an N = 128
 // accumulator (Off 0 or 32), for a B operand held as two 64-column panels.
 template <int TransA, int TransB, int Off>
@@ -361,6 +389,41 @@ __device__ __forceinline__ void mma_tile(const Mat& a, const Mat& b, int m0, int
   fence_regs(d);
 }
 
+// The block's 128 x 128 fp32 tile d (every thread's, after mma_tile) handed
+// to epi(r, c, v) eight columns at a time -- r and c tile-relative, v[8]
+// the values at columns c .. c + 7 -- through a staging copy in shared
+// memory at `stage` (the ring: kGemmTile * kStageLdF floats), so that the
+// epilogue reads and writes device memory in 16-byte rows.
+constexpr int kStageLdF = kGemmTile + 4;  // fp32 row of an output stage
+template <typename Epi>
+__device__ __forceinline__ void store_tile(const float (&d)[64], float* stage, Epi epi) {
+  __syncthreads();  // every warpgroup is done with the ring
+  const int r = tile_row(), cq = tile_col();
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float2*>(stage + (r + 8 * h) * kStageLdF + 8 * j + cq) =
+          make_float2(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < kGemmTile * kGemmTile / 8; i += kGemmThreads) {
+    const int rr = i >> 4, c = (i & 15) * 8;
+    float v[8];
+    const float4 lo = *reinterpret_cast<const float4*>(stage + rr * kStageLdF + c);
+    const float4 hi = *reinterpret_cast<const float4*>(stage + rr * kStageLdF + c + 4);
+    v[0] = lo.x, v[1] = lo.y, v[2] = lo.z, v[3] = lo.w;
+    v[4] = hi.x, v[5] = hi.y, v[6] = hi.z, v[7] = hi.w;
+    epi(rr, c, v);
+  }
+}
+
+// Eight fp32 values to 16 bytes of bf16.
+__device__ __forceinline__ uint4 pack_bf16x8(const float (&v)[8]) {
+  return make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]), pack_bf16(v[4], v[5]),
+                    pack_bf16(v[6], v[7]));
+}
+
 // out[n][m] = sum_k A[k][m] B(k, n) over the chunks of k of one split, fp32,
 // for m < m_out and n < n_out (A MN-major; B MN-major or K-major); split s
 // writes out + s * split_stride. The long-K weight-gradient form: the
@@ -388,6 +451,19 @@ __device__ __forceinline__ void gemm_tn_block(const GemmArgs& a, int m0, int n0,
       if (mm < a.m_out && nn < a.n_out) out[(size_t)nn * a.ldo + mm] = d[4 * j + e];
     }
   }
+}
+
+// Two weight gradients of a backward in one launch: blocks [0, tiles) x
+// splits (blockIdx.y) take the first, the same again the second; the block's
+// output tile runs down the rows of out fastest.
+__device__ __forceinline__ void gemm_tn_pair(const GemmArgs& first, const GemmArgs& second,
+                                             int splits, char* smem_raw) {
+  const int z = blockIdx.y;
+  const bool two = z >= splits;
+  const GemmArgs& g = two ? second : first;
+  const int mt = (g.m_out + kGemmTile - 1) / kGemmTile;
+  gemm_tn_block<true>(g, (blockIdx.x % mt) * kGemmTile, (blockIdx.x / mt) * kGemmTile,
+                      z - (two ? splits : 0), smem_u32(align1024(smem_raw)));
 }
 
 }  // namespace hopper

@@ -1,9 +1,12 @@
 // LN -> fc1 -> GELU -> fc2 -> scaled residual of PVLT training, forward
 // (the backward is ln_mlp_bwd.cu):
 //   y = x + s[b] * (GELU(LN(x) W1^T + b1) W2^T + b2)
-// for x [B, N, D] bf16, W1 [H, D] and W2 [D, H] in torch Linear layout (bf16
-// copies of the fp32 masters), b1, b2 and the LN affine fp32, and s [B] fp32,
-// the per-sample DropPath scale (mask / keep).
+// for x [rows = B*N, D] bf16, W1 [H, D] and W2 [D, H] in torch Linear layout
+// (bf16 copies of the fp32 masters), b1, b2 and the LN affine fp32, and s
+// [B] fp32, the per-sample DropPath scale (mask / keep). LN(x) (two-pass
+// fp32 statistics) and GELU (exact erf) are rounded to bf16 before the
+// product that reads them, every sum is fp32, and y is rounded once, as
+// ops/fused_mlp.py:ln_mlp_reference computes it.
 //
 // Replaces: mvlt_tpu/ops/fused_mlp.py:_fused_ln_mlp_impl (Pallas body
 // _kernel), without its TPU layouts (no 128-lane padding, no
@@ -11,29 +14,46 @@
 //
 // What bounds it on the H100: the products, 4.rows.D.H flops (83 GFLOP at
 // stage 1, B = 150: 84 us at the bf16 peak) against one read and one write
-// of the stream (162 MB, 48 us). The hidden [rows, H] never reaches device
-// memory.
+// of the stream (162 MB, 48 us); beside them the erf of every hidden value
+// (324 M at stage 1), about a quarter of a millisecond of issue slots.
 //
-// Design: one block of 8 warps per tile of TR rows of the flattened
-// [B*N, D] stream (the row scale is looked up per row, so a tile may span two
-// samples): LN per row by one warp (two-pass statistics), then the hidden in
-// 64-wide chunks: fc1 + b1 + GELU into shared memory, fc2 accumulated in fp32
-// in shared memory; the residual is read again at the end. The products run
-// on common.cuh:gemm_bf16 (wmma), whose B operand -- the weights -- comes
-// from L2 with two-row-block tiles and prefetch (gemm_acc's whole-fragment
-// sums were 19-34% slower here).
+// Design, on wgmma (hopper.cuh), by the width of the stream:
+//   D <= 128, one launch, the hidden never in device memory
+//     (ln_mlp_fwd_fused_kernel): a block of two warpgroups owns 128 rows of
+//     the flattened stream (the row scale is looked up per row, so a tile
+//     may span two samples). LN(x) by one warp a row, written once into a
+//     swizzled shared-memory operand; then per 64 hidden columns: fc1 =
+//     LN(x) W1^T on wgmma from shared memory (W1's and W2's panels of the
+//     chunk streamed through a 4-stage cp.async ring, two chunks ahead),
+//     + b1 and GELU in registers, packed to bf16 A fragments (acc_to_a), and
+//     fc2 += G W2^T through wgmma with A from registers into an fp32 [64, D]
+//     sum per warpgroup that stays in registers over all of H (D padded to
+//     64 or 128). The epilogue stages the sum in shared memory and adds b2,
+//     the row's own scale and the residual in 16-byte rows.
+//   D > 128, three launches (the [64, D] sum no longer fits in registers
+//     beside the fc1 chunk): ln_mlp_fwd_norm_kernel writes LN(x) bf16
+//     [rows, D]; ln_mlp_fwd_hidden_kernel G = GELU(LN(x) W1^T + b1) bf16
+//     [rows, H] on hopper.cuh:mma_tile (128 x 128 tiles, K = D);
+//     ln_mlp_fwd_out_kernel y = x + s (G W2^T + b2) on mma_tile (K = H).
+//     The scratch (ops/fused_mlp.py:fwd_scratch) is the wrapper's: at stage
+//     4, B = 150, 29 MB of LN(x) and 118 MB of G, written once and read once
+//     (about 90 us of traffic against 0.12 ms of products at the peak).
 
 #include <math.h>
 
 #include <initializer_list>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace mvlt {
 namespace {
 
-constexpr int kPad = 8;
-constexpr int kChunk = 64;  // hidden columns per step
+using namespace hopper;
+
+constexpr int kFusedMaxD = 128;  // widest stream of the one-launch kernel
+constexpr int kHidChunk = 64;    // hidden columns a step of the one-launch kernel
+constexpr int kWRing = 4;        // its weight ring: stages, two chunks loading ahead
 
 struct FwdArgs {
   const bf16* x;
@@ -45,95 +65,278 @@ struct FwdArgs {
   const float* b2;
   const float* s;
   bf16* out;
-  long long rows;
-  int n, d, hidden, tr;
+  bf16* nrm;  // [rows, D] LN(x) (three-launch form)
+  bf16* g;    // [rows, H] GELU hidden (three-launch form)
+  int rows, n, d, hidden;
   float eps;
 };
 
-__host__ __device__ inline size_t fwd_smem(int tr, int d, size_t* off) {
-  size_t o = 0;
-  off[0] = o; o += align128((size_t)tr * (d + kPad) * 2);       // LN(x) bf16
-  off[1] = o; o += align128((size_t)tr * (kChunk + kPad) * 2);  // GELU chunk bf16
-  off[2] = o; o += align128((size_t)tr * d * 4);                // fc2 sum fp32
-  off[3] = o; o += kStageBytes;
-  return o;
-}
-
-__global__ void __launch_bounds__(kThreads) ln_mlp_fwd_kernel(FwdArgs a) {
-  extern __shared__ __align__(128) char smem[];
-  const int tr = a.tr, d = a.d, ld = d + kPad, ldh = kChunk + kPad;
-  const long long r0 = (long long)blockIdx.x * tr;
-  const int rows = (int)min((long long)tr, a.rows - r0);
-  size_t off[4];
-  fwd_smem(tr, d, off);
-  bf16* normed = reinterpret_cast<bf16*>(smem + off[0]);
-  bf16* hid = reinterpret_cast<bf16*>(smem + off[1]);
-  float* y = reinterpret_cast<float*>(smem + off[2]);
-  float* stage = reinterpret_cast<float*>(smem + off[3]);
-  const int warp = threadIdx.x >> 5;
-  const bf16* xb = a.x + r0 * d;
-
-  for (int r = warp; r < tr; r += kWarps) {
-    if (r < rows) {
-      layer_norm_row_global(xb + (size_t)r * d, d, a.gamma, a.beta, a.eps, normed + r * ld);
-    } else {
-      for (int c = threadIdx.x & 31; c < d; c += 32) normed[r * ld + c] = __float2bfloat16(0.0f);
+// LN(x) of one row by one warp: the lane's P column pairs (2 lane + 64 p,
+// + 1), two-pass fp32 statistics, zeros past D.
+template <int P>
+__device__ __forceinline__ void ln_row(const bf16* xr, const FwdArgs& a, float2 (&v)[P]) {
+  const int lane = threadIdx.x & 31, d = a.d;
+  float sum = 0.0f;
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    const int c = 2 * lane + 64 * p;
+    v[p] = c < d ? load_bf16x2(xr + c) : make_float2(0.0f, 0.0f);
+    sum += v[p].x + v[p].y;
+  }
+  const float mean = warp_sum(sum) / d;
+  float var = 0.0f;
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    if (2 * lane + 64 * p < d) {
+      const float z0 = v[p].x - mean, z1 = v[p].y - mean;
+      var += z0 * z0 + z1 * z1;
     }
   }
-  for (int i = threadIdx.x; i < tr * d; i += kThreads) y[i] = 0.0f;
-  __syncthreads();
-
-  for (int c0 = 0; c0 < a.hidden; c0 += kChunk) {
-    const int cw = min(kChunk, a.hidden - c0);
-    gemm_bf16<true, 2>(normed, ld, a.w1 + (size_t)c0 * d, d, tr, cw, d, stage,
-                       [&](int r, int c, float v) {
-                         hid[r * ldh + c] = __float2bfloat16(gelu_erf(v + a.b1[c0 + c]));
-                       });
-    __syncthreads();
-    gemm_bf16<true, 2>(hid, ldh, a.w2 + c0, a.hidden, tr, d, cw, stage,
-                       [&](int r, int c, float v) { y[r * d + c] += v; });
-    __syncthreads();
-  }
-
-  bf16* ob = a.out + r0 * d;
-  for (int i = threadIdx.x; i < rows * d; i += kThreads) {
-    const int r = i / d, c = i - r * d;
-    const float sc = a.s[(r0 + r) / a.n];
-    ob[i] = __float2bfloat16(__bfloat162float(xb[i]) + sc * (y[i] + a.b2[c]));
+  const float rstd = rsqrtf(warp_sum(var) / d + a.eps);
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    const int c = 2 * lane + 64 * p;
+    v[p] = c < d ? make_float2((v[p].x - mean) * rstd * a.gamma[c] + a.beta[c],
+                               (v[p].y - mean) * rstd * a.gamma[c + 1] + a.beta[c + 1])
+                 : make_float2(0.0f, 0.0f);
   }
 }
 
-int pick_tile(size_t (*smem)(int, int, size_t*), int d, size_t* bytes) {
-  size_t off[4];
-  for (int cand : {128, 64, 32, 16}) {
-    *bytes = smem(cand, d, off);
-    if (*bytes <= kSmemLimit) return cand;
+// y rows of the epilogue: 8 columns c .. c + 7 of row `row`, v the fc2 sums.
+__device__ __forceinline__ void store_out(const FwdArgs& a, int row, int c, const float (&v)[8]) {
+  const size_t o = (size_t)row * a.d + c;
+  const float sc = a.s[row / a.n];
+  const uint4 xr = *reinterpret_cast<const uint4*>(a.x + o);
+  const __nv_bfloat162* xp = reinterpret_cast<const __nv_bfloat162*>(&xr);
+  float y[8];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 xf = __bfloat1622float2(xp[e]);
+    y[2 * e] = xf.x + sc * (v[2 * e] + a.b2[c + 2 * e]);
+    y[2 * e + 1] = xf.y + sc * (v[2 * e + 1] + a.b2[c + 2 * e + 1]);
   }
-  return 0;
+  *reinterpret_cast<uint4*>(a.out + o) = pack_bf16x8(y);
+}
+
+template <int DP>
+__host__ __device__ constexpr size_t fused_smem() {
+  // LN(x) [128][DP] | kWRing stages of (W1 chunk [64][DP] | W2 chunk [DP][64])
+  return 1024 + (size_t)kGemmTile * DP * 2 + (size_t)kWRing * 2 * (DP / 64) * kGemmPanelBytes;
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kGemmThreads, DP == 64 ? 2 : 1) ln_mlp_fwd_fused_kernel(
+    FwdArgs a) {
+  constexpr int DC = DP / 64;  // 64-column chunks of D (and 64-row panels of W2)
+  constexpr uint32_t kNrm = kGemmTile * DP * 2, kStage = 2 * DC * kGemmPanelBytes;
+  extern __shared__ char smem_raw[];
+  char* smem = align1024(smem_raw);
+  const uint32_t s_nrm = smem_u32(smem), s_ring = s_nrm + kNrm;
+  const int tid = threadIdx.x, wg = tid >> 7, warp = tid >> 5, lane = tid & 31;
+  const int m0 = blockIdx.x * kGemmTile, chunks = (a.hidden + kHidChunk - 1) / kHidChunk;
+  const Mat w1{a.w1, a.d, a.hidden, a.d}, w2{a.w2, a.hidden, a.d, a.hidden};
+  auto load = [&](int j) {  // chunk j: W1 rows j*64.. (all of D) | W2 columns j*64.. (all of D)
+    if (j < chunks) {
+      const uint32_t st = s_ring + (j % kWRing) * kStage;
+#pragma unroll
+      for (int c = 0; c < DC; ++c)
+        load_operand<false, 64>(st + c * kGemmPanelBytes, w1, j * kHidChunk, c * 64);
+      load_operand<false, DP>(st + DC * kGemmPanelBytes, w2, 0, j * kHidChunk);
+    }
+    cp_async_commit();
+  };
+  load(0);
+  load(1);
+
+  // LN(x) into the swizzled operand, chunk c of columns 64c .. 64c + 63 a
+  // [128][128 B] tile; rows past the end zero
+  for (int r = warp; r < kGemmTile; r += kGemmThreads / 32) {
+    float2 v[DC];
+    if (m0 + r < a.rows) {
+      ln_row<DC>(a.x + (size_t)(m0 + r) * a.d, a, v);
+    } else {
+#pragma unroll
+      for (int p = 0; p < DC; ++p) v[p] = make_float2(0.0f, 0.0f);
+    }
+#pragma unroll
+    for (int p = 0; p < DC; ++p)
+      *reinterpret_cast<uint32_t*>(smem + p * kGemmOperandBytes + tile_off<128>(r, lane >> 2) +
+                                   (lane & 3) * 4) = pack_bf16(v[p].x, v[p].y);
+  }
+
+  float acc[DP / 2];  // fc2: the warpgroup's 64 rows by DP columns, over all of H
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.0f;
+  const uint32_t a_rows = s_nrm + wg * kGemmPanelBytes;  // the warpgroup's 64 rows of LN(x)
+  const int cq = tile_col();
+  for (int j = 0; j < chunks; ++j) {
+    cp_async_wait<kWRing - 3>();
+    fence_proxy_async();
+    __syncthreads();  // chunk j is in (and LN(x)); chunk j - 2's fc2 is done in both warpgroups
+    load(j + 2);      // into chunk j - 2's stage
+    const uint32_t st = s_ring + (j % kWRing) * kStage;
+    float h[32];
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < DC; ++c)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss<0, 0>(h, make_desc<128>(a_rows + c * kGemmOperandBytes + kk * 32),
+                       make_desc<128>(st + c * kGemmPanelBytes + kk * 32), c | kk);
+    wgmma_commit();
+    wgmma_wait<0>();  // fc1 of this chunk, and the last chunk's fc2
+    fence_regs(h);
+    // + b1, GELU, bf16 A fragments; columns past H have zero weights and
+    // no bias, so their GELU(0) = 0 adds nothing
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = j * kHidChunk + 8 * jj + cq + (e & 1);
+        h[4 * jj + e] = gelu_erf(h[4 * jj + e] + (col < a.hidden ? a.b1[col] : 0.0f));
+      }
+    }
+    uint32_t ga[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      acc_to_a(h, kk, ga[kk]);
+      fence_regs(ga[kk]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<0>(acc, ga[kk], make_desc<128>(st + DC * kGemmPanelBytes + kk * 32), 1);
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  // the sums through shared memory (the ring), then b2, the row's scale and
+  // the residual in 16-byte rows
+  constexpr int LD = DP + 4;
+  float* stage = reinterpret_cast<float*>(smem + kNrm);
+  __syncthreads();
+  const int r = tile_row();
+#pragma unroll
+  for (int jj = 0; jj < DP / 8; ++jj) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      *reinterpret_cast<float2*>(stage + (r + 8 * hh) * LD + 8 * jj + cq) =
+          make_float2(acc[4 * jj + 2 * hh], acc[4 * jj + 2 * hh + 1]);
+  }
+  __syncthreads();
+  for (int i = tid; i < kGemmTile * DP / 8; i += kGemmThreads) {
+    const int rr = i / (DP / 8), c = (i % (DP / 8)) * 8;
+    if (m0 + rr >= a.rows || c >= a.d) continue;
+    float v[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = stage[rr * LD + c + e];
+    store_out(a, m0 + rr, c, v);
+  }
+}
+
+// LN(x) bf16 [rows, D], one warp a row (the three-launch form).
+template <int P>
+__global__ void __launch_bounds__(kThreads) ln_mlp_fwd_norm_kernel(FwdArgs a) {
+  const int r = blockIdx.x * kWarps + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (r >= a.rows) return;
+  float2 v[P];
+  ln_row<P>(a.x + (size_t)r * a.d, a, v);
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    const int c = 2 * lane + 64 * p;
+    if (c < a.d)
+      *reinterpret_cast<uint32_t*>(a.nrm + (size_t)r * a.d + c) = pack_bf16(v[p].x, v[p].y);
+  }
+}
+
+// G = GELU(LN(x) W1^T + b1), a 128 x 128 tile a block, row tile major.
+__global__ void __launch_bounds__(kGemmThreads, 1) ln_mlp_fwd_hidden_kernel(FwdArgs a) {
+  extern __shared__ char smem_raw[];
+  char* smem = align1024(smem_raw);
+  const int htiles = (a.hidden + kGemmTile - 1) / kGemmTile;
+  const int m0 = (blockIdx.x / htiles) * kGemmTile, n0 = (blockIdx.x % htiles) * kGemmTile;
+  float d[64];
+  mma_tile<false, false>(Mat{a.nrm, a.d, a.rows, a.d}, Mat{a.w1, a.d, a.hidden, a.d}, m0, n0,
+                         0, (a.d + kGemmChunk - 1) / kGemmChunk, smem_u32(smem), d);
+  store_tile(d, reinterpret_cast<float*>(smem), [&](int r, int c, float (&v)[8]) {
+    if (m0 + r >= a.rows || n0 + c >= a.hidden) return;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = gelu_erf(v[e] + a.b1[n0 + c + e]);
+    *reinterpret_cast<uint4*>(a.g + (size_t)(m0 + r) * a.hidden + n0 + c) = pack_bf16x8(v);
+  });
+}
+
+// y = x + s (G W2^T + b2), a 128 x 128 tile a block, row tile major.
+__global__ void __launch_bounds__(kGemmThreads, 1) ln_mlp_fwd_out_kernel(FwdArgs a) {
+  extern __shared__ char smem_raw[];
+  char* smem = align1024(smem_raw);
+  const int dtiles = (a.d + kGemmTile - 1) / kGemmTile;
+  const int m0 = (blockIdx.x / dtiles) * kGemmTile, n0 = (blockIdx.x % dtiles) * kGemmTile;
+  float d[64];
+  mma_tile<false, false>(Mat{a.g, a.hidden, a.rows, a.hidden},
+                         Mat{a.w2, a.hidden, a.d, a.hidden}, m0, n0, 0,
+                         (a.hidden + kGemmChunk - 1) / kGemmChunk, smem_u32(smem), d);
+  store_tile(d, reinterpret_cast<float*>(smem), [&](int r, int c, float (&v)[8]) {
+    if (m0 + r < a.rows && n0 + c < a.d) store_out(a, m0 + r, n0 + c, v);
+  });
+}
+
+template <int DP>
+cudaError_t launch_fused(const FwdArgs& a, cudaStream_t st) {
+  const cudaError_t err =
+      allow_dynamic_smem((const void*)ln_mlp_fwd_fused_kernel<DP>, fused_smem<DP>());
+  if (err != cudaSuccess) return err;
+  ln_mlp_fwd_fused_kernel<DP>
+      <<<(a.rows + kGemmTile - 1) / kGemmTile, kGemmThreads, fused_smem<DP>(), st>>>(a);
+  return cudaGetLastError();
+}
+
+template <int P>
+cudaError_t launch_norm(const FwdArgs& a, cudaStream_t st) {
+  ln_mlp_fwd_norm_kernel<P><<<(a.rows + kWarps - 1) / kWarps, kThreads, 0, st>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
 }  // namespace mvlt
 
-// C entries, bound with ctypes. They launch on `stream` and return the
-// cudaError_t of the launches (0 on success); no synchronisation.
+// C entry, bound with ctypes. It launches on `stream` and returns the
+// cudaError_t of the launches (0 on success); no synchronisation. D a
+// multiple of 16 and at most 512, H a multiple of 16. `fused` (D <= 128
+// only) picks the one-launch kernel; otherwise nrm (rows * D) and g (rows *
+// H) bf16 are the three-launch form's scratch.
 extern "C" int mvlt_ln_mlp_fwd(const void* x, const void* gamma, const void* beta,
                                const void* w1, const void* b1, const void* w2, const void* b2,
-                               const void* s, void* out, long long rows, int n, int d,
-                               int hidden, float eps, void* stream) {
+                               const void* s, void* out, void* nrm, void* g, long long rows, int n,
+                               int d, int hidden, int fused, float eps, void* stream) {
   using namespace mvlt;
-  size_t bytes = 0;
-  const int tr = pick_tile(fwd_smem, d, &bytes);
-  if (!tr) return (int)cudaErrorInvalidConfiguration;
-  cudaError_t err = cudaFuncSetAttribute(ln_mlp_fwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (rows < 1 || rows > (1LL << 30) || n < 1 || d < 16 || d > 512 || d % 16 || hidden < 16 ||
+      hidden % 16 || (fused && d > kFusedMaxD))
+    return (int)cudaErrorInvalidValue;
+  const FwdArgs a{static_cast<const bf16*>(x),     static_cast<const float*>(gamma),
+                  static_cast<const float*>(beta), static_cast<const bf16*>(w1),
+                  static_cast<const float*>(b1),   static_cast<const bf16*>(w2),
+                  static_cast<const float*>(b2),   static_cast<const float*>(s),
+                  static_cast<bf16*>(out),         static_cast<bf16*>(nrm),
+                  static_cast<bf16*>(g),           (int)rows,
+                  n,                               d,
+                  hidden,                          eps};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (fused) return (int)(d <= 64 ? launch_fused<64>(a, st) : launch_fused<128>(a, st));
+  cudaError_t err = d <= 64    ? launch_norm<1>(a, st)
+                    : d <= 128 ? launch_norm<2>(a, st)
+                    : d <= 256 ? launch_norm<4>(a, st)
+                               : launch_norm<8>(a, st);
+  for (const void* k : {(const void*)ln_mlp_fwd_hidden_kernel, (const void*)ln_mlp_fwd_out_kernel})
+    if (err == cudaSuccess) err = allow_dynamic_smem(k, kGemmSmem);
   if (err != cudaSuccess) return (int)err;
-  FwdArgs a{static_cast<const bf16*>(x),    static_cast<const float*>(gamma),
-            static_cast<const float*>(beta), static_cast<const bf16*>(w1),
-            static_cast<const float*>(b1),  static_cast<const bf16*>(w2),
-            static_cast<const float*>(b2),  static_cast<const float*>(s),
-            static_cast<bf16*>(out),        rows, n, d, hidden, tr, eps};
-  const long long blocks = (rows + tr - 1) / tr;
-  ln_mlp_fwd_kernel<<<(unsigned)blocks, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(a);
+  const int row_tiles = (a.rows + kGemmTile - 1) / kGemmTile;
+  ln_mlp_fwd_hidden_kernel<<<row_tiles * ((hidden + kGemmTile - 1) / kGemmTile), kGemmThreads,
+                             kGemmSmem, st>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  ln_mlp_fwd_out_kernel<<<row_tiles * ((d + kGemmTile - 1) / kGemmTile), kGemmThreads, kGemmSmem,
+                          st>>>(a);
   return (int)cudaGetLastError();
 }

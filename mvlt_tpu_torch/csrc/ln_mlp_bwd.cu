@@ -111,17 +111,7 @@ struct BwdArgs {
   float eps;
 };
 
-__device__ __forceinline__ float2 load_bf16x2(const bf16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-__device__ __forceinline__ void store_bf16x2(bf16* p, float lo, float hi) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(lo, hi);
-}
 
-// The row kernels: a lane holds P column pairs of a row (2 lane + 64 p, + 1;
-// D <= 64 P), and a warp takes R = 8 / P rows at once so that each lane
-// keeps about 8 pairs of loads in flight.
-__host__ __device__ constexpr int rows_at_once(int p) { return p >= 8 ? 1 : 8 / p; }
 
 template <int P>
 __global__ void __launch_bounds__(kThreads) ln_mlp_bwd_prep_kernel(BwdArgs a) {
@@ -287,16 +277,10 @@ __global__ void __launch_bounds__(kGemmThreads, 2) ln_mlp_bwd_hidden_kernel(BwdA
 }
 
 // Blocks [0, tiles) x splits for dW1, the same again for dW2 (blockIdx.y).
-__global__ void __launch_bounds__(kGemmThreads, 1) ln_mlp_bwd_wgrad_kernel(GemmArgs dw1,
-                                                                           GemmArgs dw2,
-                                                                           int splits) {
+__global__ void __launch_bounds__(kGemmThreads, 1) ln_mlp_bwd_wgrad_kernel(
+    const __grid_constant__ GemmArgs dw1, const __grid_constant__ GemmArgs dw2, int splits) {
   extern __shared__ char smem_raw[];
-  const int z = blockIdx.y;
-  const bool second = z >= splits;
-  const GemmArgs& g = second ? dw2 : dw1;
-  const int mt = (g.m_out + kGemmTile - 1) / kGemmTile;
-  gemm_tn_block<true>(g, (blockIdx.x % mt) * kGemmTile, (blockIdx.x / mt) * kGemmTile,
-                      z - (second ? splits : 0), smem_u32(align1024(smem_raw)));
+  gemm_tn_pair(dw1, dw2, splits, smem_raw);
 }
 
 __global__ void __launch_bounds__(kGemmThreads, 1) ln_mlp_bwd_dnorm_kernel(BwdArgs a) {
@@ -446,11 +430,6 @@ __global__ void __launch_bounds__(kSumWarps * 32) ln_mlp_bwd_sum_kernel(SumJobs 
   }
 }
 
-cudaError_t prepare(const void* kernel, size_t bytes) {
-  if (bytes > kSmemLimit) return cudaErrorInvalidConfiguration;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
 // The prep (Rows false) or the finishing row kernel for a lane's P column
 // pairs of a D-wide row.
 template <int P>
@@ -461,7 +440,7 @@ cudaError_t launch_rows(bool rows_kernel, const BwdArgs& a, cudaStream_t st) {
     return cudaGetLastError();
   }
   const size_t smem = (size_t)kWarps * 3 * a.d * sizeof(float);
-  const cudaError_t err = prepare((const void*)ln_mlp_bwd_rows_kernel<P>, smem);
+  const cudaError_t err = allow_dynamic_smem((const void*)ln_mlp_bwd_rows_kernel<P>, smem);
   if (err != cudaSuccess) return err;
   ln_mlp_bwd_rows_kernel<P><<<(a.rows + kColRows - 1) / kColRows, kThreads, smem, st>>>(a);
   return cudaGetLastError();
@@ -498,9 +477,9 @@ extern "C" int mvlt_ln_mlp_bwd(const void* x, const void* dy, const void* gamma,
       hidden < 16 || hidden % 16 || splits < 1)
     return (int)cudaErrorInvalidValue;
   const int nr = (int)rows;
-  cudaError_t err = prepare((const void*)ln_mlp_bwd_hidden_kernel, kHidSmem);
-  if (err == cudaSuccess) err = prepare((const void*)ln_mlp_bwd_wgrad_kernel, kGemmSmem);
-  if (err == cudaSuccess) err = prepare((const void*)ln_mlp_bwd_dnorm_kernel, kGemmSmem);
+  cudaError_t err = allow_dynamic_smem((const void*)ln_mlp_bwd_hidden_kernel, kHidSmem);
+  if (err == cudaSuccess) err = allow_dynamic_smem((const void*)ln_mlp_bwd_wgrad_kernel, kGemmSmem);
+  if (err == cudaSuccess) err = allow_dynamic_smem((const void*)ln_mlp_bwd_dnorm_kernel, kGemmSmem);
   if (err != cudaSuccess) return (int)err;
   const BwdArgs a{static_cast<const bf16*>(x),     static_cast<const bf16*>(dy),
                   static_cast<const float*>(gamma), static_cast<const float*>(beta),

@@ -40,12 +40,11 @@ _SIGNATURES = {
     "mvlt_block_fused": [_P] * 16 + [_I] * 6 + [_F, _F, _F, _P],
     "mvlt_block_attention": [_P] * 10 + [_I] * 5 + [_F, _F, _P],
     "mvlt_fba_fwd": [_P] * 12 + [_I] * 5 + [_F, _F, _P],
-    "mvlt_fba_slot_floats": [_I],
-    "mvlt_fba_bwd": [_P] * 13 + [_I] + [_P] * 11 + [_I] * 5 + [_F, _F, _P],
+    "mvlt_fba_bwd": [_P] * 31 + [_I] * 8 + [_F, _F, _P],
     "mvlt_dwconv_mlp": [_P] * 10 + [_I] * 6 + [_F, _P],
     "mvlt_attention_fwd": [_P] * 5 + [_STRIDES] + [_I] * 5 + [_F, _P],
     "mvlt_attention_bwd": [_P] * 11 + [_STRIDES] + [_I] * 6 + [_F, _P],
-    "mvlt_ln_mlp_fwd": [_P] * 9 + [_L] + [_I] * 3 + [_F, _P],
+    "mvlt_ln_mlp_fwd": [_P] * 11 + [_L] + [_I] * 4 + [_F, _P],
     "mvlt_ln_mlp_bwd": [_P] * 24 + [_L] + [_I] * 4 + [_F, _P],
     "mvlt_mlm_ce_fwd": [_P] * 7 + [_I] * 3 + [_P],
     "mvlt_mlm_ce_bwd": [_P] * 12 + [_I] * 4 + [_P],

@@ -17,9 +17,12 @@ with s [B] the per-sample DropPath scale. ``block_attention_train_reference``
 and ``block_attention_bwd_reference`` are the plain versions (the latter
 written out, in a recompute form and a saved-statistics form);
 ``block_attention_train_fwd`` and ``block_attention_train_bwd`` take them
-for CPU tensors and launch the Hopper kernels (csrc/block_attention_train.cu)
-for CUDA tensors, or raise; ``fused_block_attention_train`` is the
+for CPU tensors and launch the Hopper kernels (csrc/block_attention_train.cu,
+whose backward runs the attention core on csrc/attention.cu's kernels) for
+CUDA tensors, or raise; ``fused_block_attention_train`` is the
 differentiable ``autograd.Function`` on the fp32 master parameters.
+``bwd_plan``, ``bwd_col_blocks`` and ``bwd_scratch`` size the backward's
+launches and scratch.
 
 K and V are [B, heads, M, hd]. The statistics side output is [B, N, 2 + 2H]
 fp32 in natural units: per row the LN1 mean and 1/std, then per head h the
@@ -32,11 +35,19 @@ exp2 units, times log2(e), and pads the columns to a multiple of 8.)
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from mvlt_tpu_torch.ops import _build
+# the wgmma tiles (csrc/hopper.cuh: kGemmTile, kGemmChunk) and the most row
+# ranges of a weight gradient, as the LN-MLP backward's plan takes them
+from mvlt_tpu_torch.ops.fused_mlp import BWD_CHUNK, BWD_TILE, MAX_SPLITS
 from mvlt_tpu_torch.ops.kernel_math import (acc_dtype, layer_norm_fp32, linear, matmul_acc,
                                             softmax_av)
+from mvlt_tpu_torch.ops.pallas_attention import HEAD_DIMS, TILE, plan_splits
+
+# the rows a block of the backward's finishing row kernel takes at least,
+# in at most BWD_MAX_COL_BLOCKS blocks
+BWD_COL_ROWS = 256
+BWD_MAX_COL_BLOCKS = 512
 
 
 def attention_residual(x, k, v, ln1_weight, ln1_bias, wq, bq, wp, bp, *,
@@ -211,6 +222,53 @@ def _check_stream_heads(name: str, x, heads: int) -> int:
     return d // heads
 
 
+def check_train_heads(name: str, d: int, heads: int) -> None:
+    """The backward's attention core (csrc/attention.cu) takes head dims 32
+    and 64 only; the training form refuses any other before its forward
+    launches, so that a step never fails halfway into its backward."""
+    if d % heads or d // heads not in HEAD_DIMS:
+        raise ValueError(f"{name}: D={d} with {heads} heads gives head dim {d / heads:g}; "
+                         f"the training kernels take head dims {HEAD_DIMS}")
+
+
+def bwd_plan(rows: int, d: int, sms: int) -> int:
+    """Row ranges of the backward's weight-gradient GEMMs (dWq and dWp in one
+    launch, each of ceil(D/128)^2 output tiles, contracting over the rows in
+    64-row chunks): the fewest whose blocks fill at least 90% of their last
+    wave on ``sms`` SMs (else the fullest), no range empty. Each range sums
+    into an fp32 slot, added in order after."""
+    tiles = 2 * (-(-d // BWD_TILE)) ** 2
+    return _build.split_plan(tiles, -(-rows // BWD_CHUNK), sms, MAX_SPLITS)
+
+
+def bwd_col_blocks(rows: int) -> int:
+    """Blocks of the backward's finishing row kernel, each writing one slot
+    of column sums: one per BWD_COL_ROWS rows, at most BWD_MAX_COL_BLOCKS. A
+    function of the rows alone, so the sums' order is fixed."""
+    return min(-(-rows // BWD_COL_ROWS), BWD_MAX_COL_BLOCKS)
+
+
+def bwd_scratch(batch: int, n: int, d: int, heads: int, m: int, splits: int,
+                attn_splits: int) -> dict:
+    """The backward's scratch, name -> (elements, dtype), in the order the C
+    entry takes it: LN1(x) and s.dy bf16 [rows, D]; Q then dO bf16 [2, rows,
+    D] (dLN1 in fp32 over both once they are read); A = P V and dQ bf16
+    [rows, D]; (mean, rstd) [rows]; lse [B, H, N]; column-sum slots [col
+    blocks, 4, D]; the weight gradients' slots [2, splits, D, D] (0 for one
+    range, written straight to dWq/dWp); the attention backward's dK/dV
+    slots [attn_splits, 2, B.H.M.hd] (0 for one split) and its fp32 dq sum
+    where M > 192 (else 0)."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    rows, hd = batch * n, d // heads
+    bhm = batch * heads * m * hd
+    return {"nrm": (rows * d, bf16), "dys": (rows * d, bf16), "qdo": (2 * rows * d, bf16),
+            "attn": (rows * d, bf16), "dq": (rows * d, bf16), "st": (2 * rows, f32),
+            "lse": (batch * heads * n, f32), "colp": (bwd_col_blocks(rows) * 4 * d, f32),
+            "wslots": (2 * splits * d * d if splits > 1 else 0, f32),
+            "aslots": (2 * attn_splits * bhm if attn_splits > 1 else 0, f32),
+            "dq_acc": (batch * heads * n * hd if m > 3 * TILE else 0, f32)}
+
+
 def _train_operands(name: str, x, k, v, ln1_weight, ln1_bias, wq, bq, wp, row_scale,
                     heads: int):
     """What the training kernels read: (hd, gamma, beta, Wq, bq, Wp, s) as
@@ -258,10 +316,11 @@ def block_attention_train_bwd(x, k, v, ln1_weight, ln1_bias, wq, bq, wp, row_sca
     """Backward of the training form: (dx, dk, dv, dgamma, dbeta, dWq, dbq,
     dWp, dbp), the recompute form without ``stats``, the saved-statistics
     form with them. A CPU tensor takes ``block_attention_bwd_reference``; a
-    CUDA tensor launches the kernels (Pallas #8: a row-tile launch, a
-    (sample, head) launch for dK/dV and the in-order sum of the weight
-    gradients), anything else raises. Counts launches in
-    ``block_attention_train_bwd.launches``."""
+    CUDA tensor (head dim 32 or 64) launches the kernels (Pallas #8: the
+    rows' LN1 and s.dy, Q and dO, the attention core's forward and backward,
+    the weight gradients, dLN1, dx with the column sums, the in-order slot
+    sums) with the scratch of ``bwd_scratch``, anything else raises. Counts
+    launches in ``block_attention_train_bwd.launches``."""
     if x.device.type == "cpu":
         return block_attention_bwd_reference(x, k, v, ln1_weight, ln1_bias, wq, bq, wp,
                                              row_scale, dy, heads=heads, eps=eps, stats=stats)
@@ -270,6 +329,7 @@ def block_attention_train_bwd(x, k, v, ln1_weight, ln1_bias, wq, bq, wp, row_sca
                                                     bq, wp, row_scale, heads)
     _build.check_stream(name, dy)
     b, n, d = x.shape
+    check_train_heads(name, d, heads)
     if dy.shape != x.shape:
         raise ValueError(f"{name}: dy {tuple(dy.shape)} and x {tuple(x.shape)} differ")
     if stats is not None and (stats.device != x.device or stats.dtype != torch.float32
@@ -278,27 +338,22 @@ def block_attention_train_bwd(x, k, v, ln1_weight, ln1_bias, wq, bq, wp, row_sca
         raise ValueError(f"{name}: stats must be contiguous fp32 [{b}, {n}, {2 + 2 * heads}] "
                          f"on {x.device}, got {tuple(stats.shape)} {stats.dtype}")
     m = k.shape[2]
-    # the backward reads K and V as tensor-core fragments: rows padded to 16
-    pad = (-m) % 16
-    kp, vp = (F.pad(t, (0, 0, 0, pad)) if pad else t for t in (k, v))
     dev = x.device
-    lib = _build.load_library()
-    # one fp32 slot of partial weight gradients per block, a block per SM
-    slots = torch.cuda.get_device_properties(dev).multi_processor_count
-    ws = torch.empty(slots * lib.mvlt_fba_slot_floats(d), dtype=torch.float32, device=dev)
-    qs, dos = torch.empty_like(x), torch.empty_like(x)
-    rs = torch.empty((b, heads, n, 3), dtype=torch.float32, device=dev)
+    sms = _build.sm_count(dev.index)
+    splits, attn_splits = bwd_plan(b * n, d, sms), plan_splits(b * heads, n, sms)
+    scratch = [torch.empty(max(count, 1), dtype=dt, device=dev)
+               for count, dt in bwd_scratch(b, n, d, heads, m, splits, attn_splits).values()]
     f32 = dict(dtype=torch.float32, device=dev)
     dx, dk, dv = torch.empty_like(x), torch.empty_like(k), torch.empty_like(v)
     dwq, dwp = torch.empty((d, d), **f32), torch.empty((d, d), **f32)
     dbq, dbp, dg, dbe = (torch.empty(d, **f32) for _ in range(4))
-    err = lib.mvlt_fba_bwd(
-        x.data_ptr(), dy.data_ptr(), kp.data_ptr(), vp.data_ptr(), g1.data_ptr(),
+    err = _build.load_library().mvlt_fba_bwd(
+        x.data_ptr(), dy.data_ptr(), k.data_ptr(), v.data_ptr(), g1.data_ptr(),
         be1.data_ptr(), wq_.data_ptr(), bq_.data_ptr(), wp_.data_ptr(), s.data_ptr(),
-        None if stats is None else stats.data_ptr(), dx.data_ptr(), ws.data_ptr(), slots,
-        qs.data_ptr(), dos.data_ptr(), rs.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        dwq.data_ptr(), dbq.data_ptr(), dwp.data_ptr(), dbp.data_ptr(), dg.data_ptr(),
-        dbe.data_ptr(), b, n, d, heads, m, hd ** -0.5, eps,
+        None if stats is None else stats.data_ptr(), dx.data_ptr(),
+        *(t.data_ptr() for t in scratch), dk.data_ptr(), dv.data_ptr(), dwq.data_ptr(),
+        dbq.data_ptr(), dwp.data_ptr(), dbp.data_ptr(), dg.data_ptr(), dbe.data_ptr(), b, n, d,
+        heads, m, splits, attn_splits, bwd_col_blocks(b * n), hd ** -0.5, eps,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(name, err)
     block_attention_train_bwd.launches += 1
@@ -318,6 +373,7 @@ class FusedBlockAttentionTrain(torch.autograd.Function):
     def forward(ctx, x, k, v, ln1_weight, ln1_bias, wq, bq, wp, bp, row_scale, heads, eps,
                 save_stats):
         if x.device.type == "cuda":
+            check_train_heads("fused_block_attention_train", x.shape[-1], heads)
             k, v = k.contiguous(), v.contiguous()
         wq_c, wp_c = wq.detach().to(x.dtype), wp.detach().to(x.dtype)
         res = block_attention_train_fwd(x, k, v, ln1_weight, ln1_bias, wq_c, bq, wp_c, bp,

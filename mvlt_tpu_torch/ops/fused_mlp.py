@@ -10,7 +10,8 @@ The plain versions are ``ln_mlp_reference`` and ``ln_mlp_bwd_reference``;
 the latter recomputes the hidden as the Pallas backward does.
 ``ln_mlp_fwd`` and ``ln_mlp_bwd`` take them for CPU tensors and launch the
 Hopper kernels (csrc/ln_mlp.cu, csrc/ln_mlp_bwd.cu) for CUDA tensors, or
-raise; ``fused_ln_mlp`` is the differentiable ``autograd.Function``. It
+raise (``fwd_fused`` and ``fwd_scratch`` say which form of the forward runs
+and what scratch it takes); ``fused_ln_mlp`` is the differentiable ``autograd.Function``. It
 takes the fp32 master parameters, rounds the matrices to x.dtype inside,
 and returns fp32 gradients for them; s gets no gradient (the DropPath mask
 is a constant).
@@ -25,6 +26,8 @@ from mvlt_tpu_torch.ops.kernel_math import (acc_dtype, gelu, gelu_grad, layer_no
                                             layer_norm_fp32, matmul_acc)
 
 
+# the widest stream of the one-launch forward (csrc/ln_mlp.cu: kFusedMaxD)
+FWD_FUSED_MAX_D = 128
 # the backward's tiles (csrc/hopper.cuh: kGemmTile, kGemmChunk) and the rows
 # a block of its row kernel sums over (csrc/ln_mlp_bwd.cu: kColRows)
 BWD_TILE = 128
@@ -91,6 +94,21 @@ def _check(name: str, x, gamma, beta, w1, b1, w2, b2, row_scale):
             None if b2 is None else vec(name, b2, d, dev), s)
 
 
+def fwd_fused(d: int) -> bool:
+    """Whether the forward is the one-launch kernel (the hidden kept on chip,
+    the fc2 sum [64, D] in a warpgroup's registers: D <= 128) or the
+    three-launch form through LN(x) and G in device memory."""
+    return d <= FWD_FUSED_MAX_D
+
+
+def fwd_scratch(rows: int, d: int, hidden: int, fused: bool) -> dict:
+    """The forward's scratch, name -> (elements, dtype): none for the
+    one-launch kernel; LN(x) bf16 [rows, D] and G = GELU(h1) bf16 [rows, H]
+    for the three-launch form."""
+    bf16 = torch.bfloat16
+    return {"nrm": (0 if fused else rows * d, bf16), "g": (0 if fused else rows * hidden, bf16)}
+
+
 def bwd_plan(rows: int, d: int, hidden: int, sms: int) -> int:
     """Row ranges of the backward's weight-gradient GEMMs (dW1 and dW2 in
     one launch, each of ceil(D/128) x ceil(H/128) output tiles, contracting
@@ -120,18 +138,24 @@ def bwd_scratch(rows: int, d: int, hidden: int, splits: int) -> dict:
 
 def ln_mlp_fwd(x, gamma, beta, w1, b1, w2, b2, row_scale, eps: float):
     """Forward. A CPU tensor takes ``ln_mlp_reference``; a CUDA tensor
-    launches the kernel, anything else raises. Counts launches in
+    launches the kernel (one launch for D <= 128, else three with the
+    scratch of ``fwd_scratch``), anything else raises. Counts launches in
     ``ln_mlp_fwd.launches``."""
     if x.device.type == "cpu":
         return ln_mlp_reference(x, gamma, beta, w1, b1, w2, b2, row_scale, eps)
     name = "ln_mlp_fwd"
     g, be, w1_, b1_, w2_, b2_, s = _check(name, x, gamma, beta, w1, b1, w2, b2, row_scale)
     b, n, d = x.shape
+    hidden = w1.shape[0]
+    fused = fwd_fused(d)
+    scratch = [torch.empty(max(count, 1), dtype=dt, device=x.device)
+               for count, dt in fwd_scratch(b * n, d, hidden, fused).values()]
     out = torch.empty_like(x)
     err = _build.load_library().mvlt_ln_mlp_fwd(
         x.data_ptr(), g.data_ptr(), be.data_ptr(), w1_.data_ptr(), b1_.data_ptr(),
-        w2_.data_ptr(), b2_.data_ptr(), s.data_ptr(), out.data_ptr(), b * n, n, d,
-        w1.shape[0], eps, torch.cuda.current_stream(x.device).cuda_stream)
+        w2_.data_ptr(), b2_.data_ptr(), s.data_ptr(), out.data_ptr(),
+        *(t.data_ptr() for t in scratch), b * n, n, d, hidden, int(fused), eps,
+        torch.cuda.current_stream(x.device).cuda_stream)
     _build.check_launch(name, err)
     ln_mlp_fwd.launches += 1
     return out

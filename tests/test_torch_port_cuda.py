@@ -12,8 +12,9 @@ these tests take other widths, head dims, grids and lengths, the row tiles
 kernel B falls back to, the training attention kernels at head dims 32 and
 64 with M = 5, 22, 177, 192, 272, 600 and 900, N off the tile, one range of N
 and four, and the backward's bit-equal repeat at stage 1, B = 150, the
-LN-MLP kernels at rows off the tile, D = 96 and 320, and the largest stage
-with one and two row ranges of the weight gradients, the v2 kernels on grids of odd
+LN-MLP kernels at the four stage widths, rows off the tile, D = 96, D =
+128 and 144 (the forward's one-launch and three-launch forms side by side),
+and the largest stage with one and two row ranges of the weight gradients, the v2 kernels on grids of odd
 sizes, one wider than 128, no text rows and a hidden width off the chunk,
 the Swin kernels at windows of 4 and 6 (36 rows, off the 16-row tile), grids
 with h != w, pool windows of 2, T = 7 and a head dim of 32, a Swin block
@@ -21,10 +22,12 @@ on both of its routes, kernel F at ws^2 16, 36, 49 and 64, T 7, 20, 128
 and 300, head dims 32 and 64, one and two warpgroups, looping warpgroups,
 and on padded, shifted grids, the MLM CE kernels at widths 64, 256 and
 768 with ragged rows and vocabularies (one with every logit below 0), the
-backward bit-equal twice and exactly zero with every row ignored, the fused attention half's training kernels at head
-dims 16 and 32, M = 600, five and sixteen heads, both backward forms, and a
-training block on that route against the plain route, and the ways a
-wrapper refuses its input. Bound:
+backward bit-equal twice and exactly zero with every row ignored, the fused
+attention half's training kernels at head dim 64 with 1, 2, 5 and 8 heads
+(M = 192) and a ragged M, at head dim 32 with M = 600 and five heads, both
+backward forms, bit-equal repeats, head dim 16 refused, and a training block
+on that route against the plain route, and the ways a wrapper refuses its
+input. Bound:
 max|kernel - plain| / max|plain| <= 2e-2 in bf16, as in chip_smoke.py.
 """
 
@@ -220,6 +223,8 @@ def test_attention_backward_is_deterministic(dev):
     (2, 20, 512, 2048),       # stage-4 widths, one tile per sample
     (4, 77, 96, 384),         # D = 96, off the 64-deep chunk and the 128 tile
     (8, 192, 512, 2048),      # the largest stage, 12 row tiles, one row range
+    (3, 150, 128, 1024),      # stage-2 widths: the widest one-launch forward
+    (3, 70, 144, 576),        # the narrowest three-launch forward
 ])
 def test_ln_mlp_kernels_match_plain(dev, b, n, d, hidden):
     gen = torch.Generator().manual_seed(d + n)
@@ -300,9 +305,13 @@ def _fba_inputs(b, n, d, heads, m, dev, gen):
 
 
 @pytest.mark.parametrize("b,n,d,heads,m", [
-    (2, 300, 96, 3, 600),     # head dim 32, M = 600 (padded to 608), N off the row tile
+    (2, 300, 96, 3, 600),     # head dim 32, M = 600 (two K/V groups), N off the row tile
     (3, 77, 160, 5, 40),      # head dim 32, five heads, one row tile per sample
-    (2, 129, 256, 16, 7),     # head dim 16, M under one tensor-core tile
+    (2, 300, 64, 1, 192),     # stage 1's head: one head of 64, M = 192
+    (2, 150, 128, 2, 192),    # stage 2's heads
+    (2, 100, 320, 5, 192),    # stage 3's heads: five head columns of Q, dO, A and dQ
+    (2, 70, 512, 8, 192),     # stage 4's heads
+    (3, 77, 128, 2, 37),      # head dim 64, a ragged M under one K/V chunk
 ])
 def test_fba_train_kernels_match_plain(dev, b, n, d, heads, m):
     """The fused attention half's forward (with and without statistics) and
@@ -330,8 +339,9 @@ def test_fba_train_kernels_match_plain(dev, b, n, d, heads, m):
         for a, w in zip(got, ref):
             assert a.shape == w.shape and a.dtype == w.dtype and _rel(a, w) <= TOL
         assert torch.equal(got[0][0], dy[0]) and not got[1][0].any() and not got[2][0].any()
-    again = block_attention_train_bwd(x, k, v, g, be, wq, bq, wp, s, dy, stats=st, **kw)
-    assert all(torch.equal(a, c) for a, c in zip(grads_s, again))
+    for got, stats in ((grads, None), (grads_s, st)):   # in-order sums: repeats bit-equal
+        again = block_attention_train_bwd(x, k, v, g, be, wq, bq, wp, s, dy, stats=stats, **kw)
+        assert all(torch.equal(a, c) for a, c in zip(got, again))
 
 
 def test_fused_attention_route_block_matches_plain(dev):
@@ -382,6 +392,16 @@ def test_fba_wrappers_refuse_what_the_kernels_do_not_take(dev):
                                   stats=torch.zeros(2, 40, 4, device=dev), **kw)
     with pytest.raises(ValueError, match="differ"):
         block_attention_train_bwd(x, k, v, g, be, wq, bq, wp, s, dy[:, :5].contiguous(), **kw)
+    # head dim 16 (the attention core takes 32 and 64): the backward refuses
+    # it, and the training form refuses it before its forward launches
+    x, k, v, params, s, dy = _fba_inputs(2, 129, 256, 16, 7, dev, gen)
+    g, be, wq, bq, wp, bp = params
+    with pytest.raises(ValueError, match="head dims"):
+        block_attention_train_bwd(x, k, v, g, be, wq, bq, wp, s, dy, heads=16, eps=1e-6)
+    launches = block_attention_train_fwd.launches
+    with pytest.raises(ValueError, match="head dims"):
+        fused_block_attention_train(x, k, v, *params, s, heads=16, eps=1e-6)
+    assert block_attention_train_fwd.launches == launches
 
 
 @pytest.mark.parametrize("r,v,h,frac,bias_mean", [

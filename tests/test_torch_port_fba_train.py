@@ -207,3 +207,61 @@ def test_route_matches_the_default_route_with_drop_path():
     torch.testing.assert_close(out_f, out_d, rtol=1e-5, atol=1e-5)
     for a, b in zip(g_f, g_d):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("rows,d,splits", [(633_600, 64, 60), (172_800, 128, 60),
+                                           (57_600, 320, 7), (28_800, 512, 4)])
+def test_bwd_plan_at_the_stage_shapes(rows, d, splits):
+    """The four pvlt_tiny stages at B = 150 on 132 SMs: dWq and dWp take
+    2 x ceil(D/128)^2 output tiles (2, 2, 18, 32), times the row ranges
+    the fewest blocks that fill 90% of a wave (120, 120, 126, 128)."""
+    assert fba.bwd_plan(rows, d, 132) == splits
+
+
+@pytest.mark.parametrize("rows,d,sms", [(600, 96, 132), (154, 160, 132), (258, 256, 132),
+                                        (1, 64, 132), (40, 512, 8)])
+def test_bwd_plan_covers_every_chunk_with_nonempty_ranges(rows, d, sms):
+    splits = fba.bwd_plan(rows, d, sms)
+    chunks = -(-rows // fba.BWD_CHUNK)
+    per = -(-chunks // splits)
+    assert 1 <= splits <= min(fba.MAX_SPLITS, chunks)
+    assert (splits - 1) * per < chunks <= splits * per      # no range empty, none left out
+
+
+@pytest.mark.parametrize("rows,blocks", [(1, 1), (256, 1), (257, 2), (28_800, 113),
+                                         (131_072, 512), (633_600, 512)])
+def test_bwd_col_blocks(rows, blocks):
+    """One slot of column sums per 256 rows, at most 512: a function of the
+    rows alone, so the in-order sums repeat bit for bit."""
+    assert fba.bwd_col_blocks(rows) == blocks
+
+
+def test_bwd_scratch_sizes():
+    """Stage 1 at B = 150 (N = 4,224, D = 64, one head, M = 192; 60 row
+    ranges, 4 splits of N): LN1(x), s.dy, A and dQ 81 MB each, Q and dO
+    162 MB (dLN1 in fp32 over them), the statistics and lse 5 and 2.5 MB,
+    the attention backward's dK/dV slots 59 MB, the rest 2.5 MB: 0.56 GB.
+    M above 192 adds the attention backward's fp32 dq sum; one range or
+    split has no slots."""
+    def nbytes(sizes):
+        return {k: n * torch.empty(0, dtype=dt).element_size() for k, (n, dt) in sizes.items()}
+    got = nbytes(fba.bwd_scratch(150, 4224, 64, 1, 192, 60, 4))
+    assert got == {"nrm": 81_100_800, "dys": 81_100_800, "qdo": 162_201_600,
+                   "attn": 81_100_800, "dq": 81_100_800, "st": 5_068_800, "lse": 2_534_400,
+                   "colp": 524_288, "wslots": 1_966_080, "aslots": 58_982_400, "dq_acc": 0}
+    assert sum(got.values()) == 555_680_768
+    small = fba.bwd_scratch(2, 300, 96, 3, 600, 1, 1)
+    assert small["wslots"][0] == small["aslots"][0] == 0
+    assert small["dq_acc"] == (2 * 3 * 300 * 32, torch.float32)
+
+
+@pytest.mark.parametrize("d,heads,ok", [(64, 1, True), (320, 5, True), (96, 3, True),
+                                        (256, 16, False), (96, 2, False), (64, 3, False)])
+def test_training_form_takes_head_dims_32_and_64(d, heads, ok):
+    """The backward's attention core takes head dims 32 and 64; any other is
+    refused by name before the forward launches."""
+    if ok:
+        fba.check_train_heads("x", d, heads)
+    else:
+        with pytest.raises(ValueError, match="head dims"):
+            fba.check_train_heads("x", d, heads)

@@ -8,8 +8,8 @@ statistics and exp2 softmax). Both autograd Functions pass gradcheck in
 fp64. The heads' BatchNorm, the upsample, the MLM gather plan, the LR
 schedule, AdamW and the model's initialisation are held to their JAX
 counterparts. The LN-MLP backward kernels' host-side plan (the row ranges
-of the weight-gradient GEMMs) and scratch sizes are checked at the stage
-shapes.
+of the weight-gradient GEMMs) and scratch sizes, and the forward's choice of
+form and its scratch, are checked at the stage shapes.
 """
 
 import jax
@@ -22,7 +22,8 @@ import torch
 from mvlt_tpu_torch.config import OptimConfig
 from mvlt_tpu_torch.models.heads import ConvBN
 from mvlt_tpu_torch.ops.fused_mlp import (BWD_CHUNK, MAX_SPLITS, bwd_plan, bwd_scratch,
-                                          fused_ln_mlp, ln_mlp_bwd_reference, ln_mlp_reference)
+                                          fused_ln_mlp, fwd_fused, fwd_scratch,
+                                          ln_mlp_bwd_reference, ln_mlp_reference)
 from mvlt_tpu_torch.ops.pallas_attention import (attention_bwd_reference,
                                                  attention_reference, fused_attention)
 from mvlt_tpu_torch.ops.upsample import upsample_bilinear_align_corners
@@ -281,3 +282,28 @@ def test_init_follows_the_jax_initialisers():
             assert float(p.abs().max()) <= 0.04 + 1e-7, name
     for name, b in model.named_buffers():
         assert torch.all(b == (1.0 if name.endswith("running_var") else 0.0)), name
+
+
+@pytest.mark.parametrize("d,fused", [(16, True), (64, True), (96, True), (128, True),
+                                     (144, False), (320, False), (512, False)])
+def test_ln_mlp_fwd_form_by_width(d, fused):
+    """The forward keeps the hidden on chip (one launch, the fc2 sum [64, D]
+    in registers) up to D = 128 and goes through LN(x) and G in device
+    memory above."""
+    assert fwd_fused(d) is fused
+    sizes = fwd_scratch(10, d, 4 * d, fused)
+    assert list(sizes) == ["nrm", "g"]
+    assert sizes["nrm"] == (0 if fused else 10 * d, torch.bfloat16)
+    assert sizes["g"] == (0 if fused else 40 * d, torch.bfloat16)
+
+
+def test_ln_mlp_fwd_scratch_at_the_stage_shapes():
+    """B = 150: none at stages 1-2; LN(x) and G at stages 3 (57,600 rows,
+    D = 320, H = 1,280: 37 MB + 147 MB) and 4 (28,800 rows, D = 512, H =
+    2,048: 29 MB + 118 MB)."""
+    def nbytes(rows, d, hidden):
+        return [n * 2 for n, _ in fwd_scratch(rows, d, hidden, fwd_fused(d)).values()]
+    assert nbytes(633_600, 64, 512) == [0, 0]
+    assert nbytes(172_800, 128, 1024) == [0, 0]
+    assert nbytes(57_600, 320, 1280) == [36_864_000, 147_456_000]
+    assert nbytes(28_800, 512, 2048) == [29_491_200, 117_964_800]
