@@ -14,15 +14,20 @@ changed source), and then, with the bound lifted, prints every check's error
 at the B = 4 shapes. The copy is removed afterwards; the sources of the
 checkout are never changed. It exits non-zero if a fault passes the phase.
 
-Faults, kernel D (csrc/dwconv_mlp.cu), phase v2_kernels:
-  halo_wrap        a token's left and right neighbours taken from the flat
-                   row index, so they wrap into the previous or next grid row;
+Faults, kernel D's conv (csrc/dwconv_mlp.cu:dwconv_stencil_kernel), phase
+v2_kernels:
+  halo_wrap        a token's left and right neighbours bounded by the flat
+                   row index within the grid, so they wrap into the previous
+                   or next grid row;
   no_conv_bias     the depthwise conv's bias dropped.
-Kernel E (csrc/swin_block.cu) and kernel F (csrc/swin_attention.cu), phase
-swin_kernels:
-  no_region_mask   E ignores the shifted-window region mask;
-  rel_bias_swapped E indexes the relative-position bias with dy and dx
-                   swapped;
+Kernel E's chain (csrc/swin_block.cu, ops/swin_band.py) and kernel F
+(csrc/swin_attention.cu), phase swin_kernels:
+  window_index_no_shift  E's token -> window-slot index built without the
+                   shift (the additive table keeps it);
+  proj_next_window E's out-projection gathers each row from the same slot
+                   of the next window;
+  qkv_head_stride  E's q/k/v epilogue steps ws^2 x hd / 2 a head instead of
+                   ws^2 x hd (seen only with more than one head);
   table_off_window F reads the additive table of the next window;
   text_other_sample F reads the next sample's text K/V.
 The fused attention half's backward (csrc/block_attention_train.cu, its
@@ -52,7 +57,8 @@ The LN-MLP backward (csrc/ln_mlp_bwd.cu), phase train_kernels:
                        all that follows see the dropped sample and miss
                        the 1/keep factor;
   no_gelu_grad         dh1 = dG, GELU'(h1) left out.
-The LN-MLP forward (csrc/ln_mlp.cu), phase train_kernels:
+The LN-MLP forward (csrc/ln_mlp.cu, its epilogue in csrc/ln_mlp.cuh), phase
+train_kernels:
   gelu_last_chunk_skipped  the one-launch kernel passes the last 64 hidden
                        columns to fc2 without GELU;
   row_scale_first_row  every row takes the DropPath scale of its tile's first
@@ -81,32 +87,32 @@ ROOT = pathlib.Path(__file__).resolve().parent
 FAULTS = {
     "halo_wrap": (
         "v2_kernels", "mvlt_tpu_torch/csrc/dwconv_mlp.cu",
-        "              if (xx < 0 || xx >= w) continue;",
-        "              if ((yy - g_lo) * w + xx < 0 ||\n"
-        "                  (yy - g_lo) * w + xx >= (min(a.h, y0 + a.band + 1) - g_lo) * w)\n"
-        "                continue;"),
+        "const bool in = xx >= 0 && xx < a.w;",
+        "const bool in = yy * a.w + xx >= 0 && yy * a.w + xx < a.h * a.w;"),
     "no_conv_bias": (
         "v2_kernels", "mvlt_tpu_torch/csrc/dwconv_mlp.cu",
-        "          z = a.bdw[c0 + c];",
-        "          z = 0.0f;"),
-    "no_region_mask": (
+        "z[k][e] = a.bdw[c0 + e];",
+        "z[k][e] = 0.0f;"),
+    "window_index_no_shift": (
+        "swin_kernels", "mvlt_tpu_torch/ops/swin_band.py",
+        "window_partition(tokens, hw, window, shift)",
+        "window_partition(tokens, hw, window, 0)"),
+    "proj_next_window": (
         "swin_kernels", "mvlt_tpu_torch/csrc/swin_block.cu",
-        "          if (region(wy * ws + iq, a.h) != region(wy * ws + ik, a.h) ||\n"
-        "              region(wx * ws + jq, a.w) != region(wx * ws + jk, a.w))\n"
-        "            return -INFINITY;\n",
-        ""),
-    "rel_bias_swapped": (
+        "const int slot = ok ? a.index[row % hw] : 0;",
+        "const int slot = ok ? (a.index[row % hw] + a.ws2) % (a.nw * a.ws2) : 0;"),
+    "qkv_head_stride": (
         "swin_kernels", "mvlt_tpu_torch/csrc/swin_block.cu",
-        "(iq - ik + ws - 1) * (2 * ws - 1) + (jq - jk + ws - 1)",
-        "(jq - jk + ws - 1) * (2 * ws - 1) + (iq - ik + ws - 1)"),
+        "(size_t)head * a.ws2 * a.hd +",
+        "(size_t)head * a.ws2 * (a.hd / 2) +"),
     "table_off_window": (
         "swin_kernels", "mvlt_tpu_torch/csrc/swin_attention.cu",
         "const float* tab = a.table + ((size_t)win * a.heads + h) * a.ws2 * m;",
         "const float* tab = a.table + ((size_t)((win + 1) % a.nw) * a.heads + h) * a.ws2 * m;"),
     "text_other_sample": (
         "swin_kernels", "mvlt_tpu_torch/csrc/swin_attention.cu",
-        "const size_t txt = ((size_t)b * a.heads + h) * a.t * HD;",
-        "const size_t txt = ((size_t)((b + 1) % a.batch) * a.heads + h) * a.t * HD;"),
+        "const size_t txt = (size_t)b * a.txt_b",
+        "const size_t txt = (size_t)((b + 1) % a.batch) * a.txt_b"),
     "dk_one_tile": (
         "fba_train_kernels", "mvlt_tpu_torch/csrc/attention.cu",
         "wgmma_rs<1>(dk, da[kk], make_desc<RB>(sq + (q0 + 16 * kk) * RB), 1);",
@@ -157,9 +163,9 @@ FAULTS = {
         "h[4 * jj + e] += col < a.hidden ? a.b1[col] : 0.0f;\n"
         "        if (j + 1 < chunks) h[4 * jj + e] = gelu_erf(h[4 * jj + e]);"),
     "row_scale_first_row": (
-        "train_kernels", "mvlt_tpu_torch/csrc/ln_mlp.cu",
-        "const float sc = a.s[row / a.n];",
-        "const float sc = a.s[(row & ~(kGemmTile - 1)) / a.n];"),
+        "train_kernels", "mvlt_tpu_torch/csrc/ln_mlp.cuh",
+        "a.s[row / a.n]",
+        "a.s[(row & ~(hopper::kGemmTile - 1)) / a.n]"),
     "no_onehot": (
         "mlm_kernels", "mvlt_tpu_torch/csrc/mlm_ce.cu",
         "dl = g[h] * (v == lab[h] ? p - 1.0f : p);",

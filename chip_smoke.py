@@ -15,8 +15,10 @@ JSON line each; a failed phase raises and the script exits non-zero:
      registers and spills per kernel, and the HGMMA instructions in the SASS
      of each wgmma kernel (WGMMA_KERNELS: the training attention kernels,
      the MLM CE kernels, the LN-MLP forward's and backward's product
-     kernels, the fused attention backward's, kernel F;
-     cuobjdump), which each must hold;
+     kernels, the fused attention backward's, kernel F and kernel E's q/k/v
+     and out-projection products; cuobjdump), which each must hold, and
+     the instantiations of #12's and F's product kernels under D's and E's
+     route tags (WGMMA_ROUTES);
   3. kernels: kernel A (SR-KV) and kernel B (whole block) against their plain
      PyTorch versions on the card in bf16, bound max|kernel - plain| /
      max|plain| <= 2e-2, at the four pvlt_tiny stage shapes (B = 4), one
@@ -38,7 +40,9 @@ JSON line each; a failed phase raises and the script exits non-zero:
      their plain versions in bf16 (every output within 2e-2 as in phase 3)
      at the four pvlt_v2_tiny stage shapes (B = 4), a ragged shape (grid
      12x20, T = 7, head dim 32) and the stage shapes at B = 101 with times
-     and bounds; pvlt_v2_tiny (itm only, bf16, seeded weights) scores three
+     and bounds, D's device time and a bf16 PyTorch composition of its
+     work (LayerNorm, cuBLAS, cuDNN's depthwise conv; a yardstick);
+     pvlt_v2_tiny (itm only, bf16, seeded weights) scores three
      bundles through evaluate_retrieval (kernels A, C and D each launched 8
      times per forward, no other kernel); every block of a B = 101 forward
      (K/V, attention half, block output) within 2e-2 of the plain versions;
@@ -51,7 +55,9 @@ JSON line each; a failed phase raises and the script exits non-zero:
      three window-path stage shapes at 224 and a ragged 10x6 grid, at B = 4,
      then the stage shapes at B = 101 with times, bounds and, for F,
      F.scaled_dot_product_attention's (F and SDPA by CUDA events and by
-     torch.profiler device time); pvlt_swin_tiny (itm only, bf16,
+     torch.profiler device time), for E its device time and the window
+     path's own PyTorch ops in bf16 on SDPA with a float mask (a
+     yardstick); pvlt_swin_tiny (itm only, bf16,
      seeded weights) at 224 scores three bundles (kernel E 2, F 6 and the
      LN-MLP forward 6 launches per forward, no other kernel), every block
      within 2e-2 of the plain versions, ITM logits within 3e-2 of the fp32
@@ -157,7 +163,7 @@ from mvlt_tpu_torch.data.tokenizer import WordPieceTokenizer
 from mvlt_tpu_torch.eval.retrieval import evaluate_retrieval, make_itm_scorer, uint8_to_unit
 from mvlt_tpu_torch.models.pvlt import Block, SwinBlock, create_model, kernel_operand
 from mvlt_tpu_torch.models.swin import (add_table, heads_of, relative_position_index,
-                                        window_masks, window_partition)
+                                        window_masks, window_partition, window_reverse)
 from mvlt_tpu_torch.ops import _build
 from mvlt_tpu_torch.ops.block_attention import (block_attention_bwd_reference,
                                                 block_attention_reference,
@@ -374,7 +380,18 @@ WGMMA_KERNELS = ("attn_fwd_hopper_kernel", "attn_bwd_hopper_kernel", "mlm_ce_fwd
                  "mlm_ce_dlogits_kernel", "mlm_ce_gemm_kernel", "ln_mlp_bwd_hidden_kernel",
                  "ln_mlp_bwd_wgrad_kernel", "ln_mlp_bwd_dnorm_kernel", "swin_attn_hopper_kernel",
                  "ln_mlp_fwd_fused_kernel", "ln_mlp_fwd_hidden_kernel", "ln_mlp_fwd_out_kernel",
-                 "fba_bwd_proj_kernel", "fba_bwd_wgrad_kernel")
+                 "fba_bwd_proj_kernel", "fba_bwd_wgrad_kernel", "swin_qkv_kernel",
+                 "swin_proj_kernel")
+# kernel D's and E's chains run #12's and F's product kernels under their own
+# route tags (csrc/common.cuh): (kernel, tag) pairs whose instantiation must
+# be in the library, with HGMMA like every instantiation of a WGMMA_KERNELS
+# entry
+WGMMA_ROUTES = (("ln_mlp_fwd_hidden_kernel", "DwConvRoute"),
+                ("ln_mlp_fwd_out_kernel", "DwConvRoute"),
+                ("ln_mlp_fwd_fused_kernel", "SwinBlockRoute"),
+                ("ln_mlp_fwd_hidden_kernel", "SwinBlockRoute"),
+                ("ln_mlp_fwd_out_kernel", "SwinBlockRoute"),
+                ("swin_attn_hopper_kernel", "SwinBlockRoute"))
 
 
 def hgmma_counts(library: pathlib.Path) -> dict:
@@ -403,6 +420,7 @@ def phase_build() -> None:
              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     hgmma = hgmma_counts(path)
     ok = (all(any(k in name for name in hgmma) for k in WGMMA_KERNELS)
+          and all(any(k in name and tag in name for name in hgmma) for k, tag in WGMMA_ROUTES)
           and all(n > 0 for n in hgmma.values()))
     emit("build", library=str(path.relative_to(path.parents[2])),
          seconds=round(seconds, 2), ptxas=ptxas, hgmma=hgmma, ok=ok)
@@ -810,6 +828,23 @@ def v2_bounds(shape: tuple, batch: int) -> dict:
     return {"block_attention": bound(flops_c, bytes_c), "dwconv_mlp": bound(flops_d, bytes_d)}
 
 
+def dwconv_mlp_composition(x, hw: tuple, p: dict):
+    """Kernel D's function as PyTorch calls in bf16: F.layer_norm, F.linear
+    (cuBLAS), the depthwise F.conv2d (cuDNN) on the visual rows, the erf
+    F.gelu, F.linear and the residual; a yardstick, never a path the port
+    calls."""
+    g, be, w1, b1, wdw, bdw, w2, b2 = (t.to(torch.bfloat16) for t in _d_args(p))
+    (h, w), d = hw, x.shape[-1]
+
+    def run():
+        hid = F.linear(F.layer_norm(x, (d,), g, be, 1e-6), w1, b1)
+        b, _, c = hid.shape
+        grid = hid[:, : h * w].transpose(1, 2).reshape(b, c, h, w)
+        vis = F.conv2d(grid, wdw, bdw, padding=1, groups=c).flatten(2).transpose(1, 2)
+        return x + F.linear(F.gelu(torch.cat([vis, hid[:, h * w:]], dim=1)), w2, b2)
+    return run
+
+
 def check_v2_kernels(stats: dict, gen, label: str, shape: tuple, batch: int):
     """Kernels C and D against their plain versions on one shape's seeded
     inputs (C on the plain K/V); raises past KERNEL_TOL. Returns the inputs
@@ -856,14 +891,19 @@ def phase_v2_kernels(stats: dict) -> None:
                            cuda_time_ms(lambda: dwconv_mlp_reference(x, hw, *_d_args(p), **kw_d))),
         }
         bounds = v2_bounds(shape, BATCH)
+        composition = dwconv_mlp_composition(x, hw, p)
+        extra = {"dwconv_mlp": {
+            "device_ms": device_time_ms(lambda: fused_dwconv_mlp(x, hw, *_d_args(p), **kw_d)),
+            "composition_ms": cuda_time_ms(composition),
+            "composition_device_ms": device_time_ms(composition)}}
         for name, (ms, plain_ms) in times.items():
             bound_ms, bound_by = bounds[name]
             emit("kernel_time", kernel=name, shape=label, batch=BATCH, ms=ms,
                  plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                 library_ms=None, speedup=plain_ms / ms)
+                 library_ms=None, speedup=plain_ms / ms, **extra.get(name, {}))
             add_time(stats, name, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                      bound_by=bound_by, library_ms=None)
-        del x, k, v
+        del x, k, v, composition
         torch.cuda.empty_cache()
 
 
@@ -962,7 +1002,7 @@ def check_swin_block_kernel(stats, gen, label, shape, shift, batch):
     args = (x, kt, vt, *swin_block_params(gen, d, nh, hid, ws, dev))
     kw = dict(hw=(h, w), heads=nh, window=ws, shift=ws // 2 if shift else 0, pool=pool,
               eps1=1e-6, eps2=1e-6)
-    out, pooled = fused_swin_block(*args, **kw)
+    out, pooled = fused_swin_block(*args, **kw, table=swin_table(args, kw))
     want_out, want_pooled = swin_block_reference(*args, **kw)
     torch.cuda.synchronize()
     errs = {"out": _rel_err(out, want_out), "pooled": _rel_err(pooled, want_pooled)}
@@ -1029,6 +1069,51 @@ def sdpa_window(args: tuple, scale: float):
     return lambda: F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask, scale=scale)
 
 
+def swin_table(args: tuple, kw: dict) -> torch.Tensor:
+    """Kernel E's additive table for its arguments (models/swin.py:add_table),
+    made once as a SwinBlock caches it beside its operands
+    (models/pvlt.py:CastOperands.kernel_table)."""
+    dev, ws = args[3].device, kw["window"]
+    index = torch.from_numpy(relative_position_index(ws)).to(dev)
+    mask = torch.from_numpy(window_masks(*kw["hw"], ws, kw["shift"])).to(dev)
+    return add_table(args[3], index, mask, args[1].shape[1]).contiguous()
+
+
+def swin_block_composition(args: tuple, kw: dict):
+    """Kernel E's function as the window path's own PyTorch ops in bf16:
+    F.layer_norm, F.linear (cuBLAS), window_partition (roll and partition
+    copies), F.scaled_dot_product_attention over [window K/V | text K/V]
+    with the additive table as a float mask, window_reverse, the projection
+    and residual, the MLP (F.linear, erf F.gelu) and the pooled LN1 rows
+    (F.avg_pool2d); a yardstick, never a path the port calls."""
+    bf = torch.bfloat16
+    x, kt, vt, rel = args[:4]
+    g1, be1, wq, bq, wkv, bkv, wp, bp, g2, be2, w1, b1, w2, b2 = (t.to(bf) for t in args[4:])
+    (h, w), ws, s, nh, pool = kw["hw"], kw["window"], kw["shift"], kw["heads"], kw["pool"]
+    b, _, c = x.shape
+    t, hd, nw = kt.shape[1], c // nh, (h // ws) * (w // ws)
+    mask = swin_table(args, kw).to(bf)
+    mask = mask[None].expand(b, *mask.shape).reshape(b * nw, nh, ws * ws, -1)
+
+    def run():
+        ln = F.layer_norm(x, (c,), g1, be1, kw["eps1"])
+        q, kv = F.linear(ln, wq, bq), F.linear(ln, wkv, bkv)
+        def win(z, txt):   # window rows then the text rows, [B.nW, heads, ws^2 + T, hd]
+            return torch.cat([heads_of(window_partition(z, (h, w), ws, s), nh),
+                              heads_of(txt, nh)[:, None].expand(b, nw, nh, t, hd)],
+                             dim=-2).reshape(b * nw, nh, -1, hd)
+        qw = heads_of(window_partition(q, (h, w), ws, s), nh).reshape(b * nw, nh, ws * ws, hd)
+        o = F.scaled_dot_product_attention(qw, win(kv[..., :c], kt), win(kv[..., c:], vt),
+                                           attn_mask=mask, scale=hd ** -0.5)
+        attn = window_reverse(o.reshape(b, nw, nh, ws * ws, hd).movedim(2, -2).flatten(-2),
+                              (h, w), ws, s)
+        res = x + F.linear(attn, wp, bp)
+        hid = F.gelu(F.linear(F.layer_norm(res, (c,), g2, be2, kw["eps2"]), w1, b1))
+        pooled = F.avg_pool2d(ln.transpose(1, 2).reshape(b, c, h, w), pool)
+        return res + F.linear(hid, w2, b2), pooled.flatten(2).transpose(1, 2)
+    return run
+
+
 def swin_kernel_shapes() -> tuple[list, list]:
     """(kernel E's shapes, kernel F's shapes) as (label, shape) pairs, the
     stage shapes first and a ragged one last: E at the four pvlt_swin_tiny
@@ -1068,16 +1153,21 @@ def phase_swin_kernels(stats: dict) -> None:
             args, kw = check_swin_block_kernel(stats, gen, label, shape, shift, BATCH)
             ops = tuple(kernel_operand(t, torch.bfloat16) if i > 3 else t
                         for i, t in enumerate(args))
-            ms = cuda_time_ms(lambda: fused_swin_block(*ops, **kw))
+            table = swin_table(ops, kw)
+            kernel = lambda: fused_swin_block(*ops, **kw, table=table)
+            composition = swin_block_composition(ops, kw)
+            ms = cuda_time_ms(kernel)
             plain_ms = cuda_time_ms(lambda: swin_block_reference(*ops, **kw))
             bound_ms, bound_by = swin_e_bound(shape, BATCH)
             emit("kernel_time", kernel="swin_block", shape=label, shift=kw["shift"], batch=BATCH,
                  ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                 library_ms=None, speedup=plain_ms / ms)
+                 library_ms=None, speedup=plain_ms / ms, device_ms=device_time_ms(kernel),
+                 composition_ms=cuda_time_ms(composition),
+                 composition_device_ms=device_time_ms(composition))
             if not shift:
                 add_time(stats, "swin_block", ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                          bound_by=bound_by, library_ms=None)
-            del args, ops
+            del args, ops, kernel, composition, table
         for label, shape in f_shapes:
             args, scale = check_swin_attention_kernel(stats, gen, label, shape, shift, BATCH)
             kernel = lambda: fused_swin_attention(*args, scale=scale)
@@ -1123,11 +1213,13 @@ def check_swin_blocks(model, bundle, phase: str) -> None:
     for blk, x, hw, out in seen:
         with torch.no_grad():
             if isinstance(x, tuple):
-                want = blk.band_forward(*x, hw, block=swin_block_reference)
+                want = blk.band_forward(*x, hw, block=lambda *a, table, **k:
+                                        swin_block_reference(*a, **k))
                 _, k_t, v_t = blk.text_qkv(x[1])
                 args = (x[0], k_t, v_t, blk.attn.relative_position_bias_table,
                         *blk.kernel_operands(x[0].dtype)[0])
-                pooled = fused_swin_block(*args, **blk.kernel_kwargs(hw))[1]
+                pooled = fused_swin_block(*args, **blk.kernel_kwargs(hw),
+                                          table=blk.attn.add_table(hw, k_t.shape[1]))[1]
                 pooled_ref = swin_block_reference(*args, **blk.kernel_kwargs(hw))[1]
                 errs["route"].append("E")
                 errs["out"].append(max(_rel_err(out[0], want[0])[1], _rel_err(out[1], want[1])[1]))
@@ -1177,8 +1269,15 @@ def swin_init_gap(model, bundle, sd) -> None:
          rel_err_card_vs_cpu_bf16=(card - logits["bfloat16"]).abs().max().item() / scale)
 
 
-SWIN_GROUPS = {"swin_block": ("swin_block_kernel", "swin_pool_kernel"),
+# kernel E's chain runs F's and #12's kernels under its own route tag
+# (csrc/common.cuh: SwinBlockRoute); its group comes first, so their device
+# time there is E's
+SWIN_GROUPS = {"swin_block": ("SwinBlockRoute", "swin_qkv_kernel", "swin_proj_kernel",
+                              "swin_pool_kernel"),
                "swin_attention": ("swin_attn_hopper_kernel",), "ln_mlp_fwd": ("ln_mlp_fwd",)}
+# kernel D's chain runs #12's kernels under DwConvRoute
+V2_GROUPS = {"sr_kv": ("sr_kv_kernel",), "block_attention": ("block_attention_kernel",),
+             "dwconv_mlp": ("DwConvRoute", "dwconv_")}
 
 
 def phase_swin(stats: dict) -> None:
@@ -2081,9 +2180,7 @@ def main() -> int:
     model, bundles, sd = phase_slice(stats, "pvlt_v2_tiny", V2_SERVING_WRAPPERS, "v2_slice")
     check_v2_blocks(model, bundles[0])
     compare_cpu_fp32(model, bundles[0], sd, "v2_slice_vs_cpu_fp32")
-    phase_throughput(model, bundles, {"sr_kv": ("sr_kv_kernel",),
-                                      "block_attention": ("block_attention_kernel",),
-                                      "dwconv_mlp": ("dwconv_mlp_kernel",)}, "v2_")
+    phase_throughput(model, bundles, V2_GROUPS, "v2_")
     del model
     torch.cuda.empty_cache()
     phase_swin(stats)

@@ -33,6 +33,22 @@ constexpr size_t kSmemLimit = 232448;
 // Per-warp fp32 staging tile for the GEMM epilogue.
 constexpr size_t kStageBytes = kWarps * 256 * sizeof(float);
 
+// Route tags: a template argument of a kernel that several paths launch,
+// naming the path, so that a profile (which sees kernel names) books its
+// device time to that path -- #12's kernels inside kernels D and E, kernel
+// F's inside E. kRowScale: whether an LN-MLP epilogue takes the per-sample
+// row scale.
+struct LnMlpRoute {  // #12 (ln_mlp.cu) itself
+  static constexpr bool kRowScale = true;
+};
+struct SwinAttnRoute {};  // kernel F (swin_attention.cu) itself
+struct DwConvRoute {      // kernel D's chain (dwconv_mlp.cu)
+  static constexpr bool kRowScale = false;
+};
+struct SwinBlockRoute {  // kernel E's chain (swin_block.cu)
+  static constexpr bool kRowScale = false;
+};
+
 __host__ __device__ inline size_t align128(size_t bytes) {
   return (bytes + 127) & ~size_t(127);
 }

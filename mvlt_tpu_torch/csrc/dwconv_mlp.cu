@@ -1,4 +1,5 @@
-// MLP half of a PVT-v2 serving block, one launch per block (kernel D).
+// MLP half of a PVT-v2 serving block (kernel D), a chain of launches on
+// wgmma (hopper.cuh) over bf16 scratch in device memory.
 //
 // Replaces: mvlt_tpu/ops/dwconv_mlp.py:fused_dwconv_mlp (Pallas body _kernel,
 // on the lane-padded stream of stages 2-4) and fused_dwconv_mlp_p2 (body
@@ -9,230 +10,191 @@
 //   T text rows after them
 // with x [B, N, D] bf16 (N = h*w + T, visual rows in row-major (y, x) order),
 // fc1/fc2 weights in torch Linear layout bf16, the depthwise weight
-// [hidden, 1, 3, 3] bf16, biases and LayerNorm affines fp32. The fc1 output is
-// rounded to bf16 before the conv, as the Pallas kernel does; the conv sums
-// in fp32, GELU is exact erf.
+// [hidden, 1, 3, 3] bf16, biases and LayerNorm affines fp32. The fc1 output
+// is rounded to bf16 before the conv, as the Pallas kernel does; the conv
+// sums in fp32, GELU is exact erf.
 //
-// What bounds it on the H100: fc1 and fc2, 4.N.D.hidden flops per sample,
-// plus 18.h.w.hidden for the conv, against one read and one write of the
-// stream: operations.
+// What bounds it on the H100: fc1 and fc2, 4.N.D.hidden flops a sample, and
+// the conv's 18.h.w.hidden, against one read and one write of the stream:
+// operations (0.060-0.083 ms a stage at B = 101). At D <= 128 the bf16
+// hidden that a chain writes and reads again outweighs the products (H1 and
+// G are 437 MB each at stage 1, B = 101).
 //
-// The hard part is the conv's halo. On the TPU a whole sample's image sits in
-// VMEM and a sequential grid axis walks the hidden chunks; here the fc1
-// output of one sample (4,096 x 512 fp32 at stage 1) is far larger than a
-// block's 227 KB of shared memory. Design: one block of 8 warps per (sample,
-// band of grid rows), plus blocks of text rows. A visual block LayerNorms its
-// band and one halo grid row above and below (rows outside the grid are not
-// loaded: the conv's zero padding), then walks the hidden width in chunks:
-// fc1 of band + halo into shared memory (the halo rows recomputed, never
-// exchanged between blocks), the nine taps per output as (row, column)
-// neighbours checked against the grid's borders -- so a token's left or right
-// neighbour never wraps into the previous or next grid row -- plus the conv
-// bias and GELU, then fc2 of the chunk added into the block's fp32 residual
-// tile. Text blocks skip the conv and its bias. Each row is written once. The
-// band is the one that minimises the rows of fc1 and fc2 per sample within an
-// output tile of 128 rows; the chunk the widest that then fits.
+// Design. On the TPU a whole sample's image sits in VMEM and a sequential
+// grid axis walks the hidden chunks; here the conv's halo (the grid rows
+// above and below a tile) needs the fc1 output of rows another block
+// computes, so fc1 and the conv are separate launches:
+//   1. LN2(x) -> bf16 [rows, D]: #12's ln_mlp_fwd_norm_kernel;
+//   2. H1 = LN2(x) W1^T + b1 -> bf16 [rows, hidden]: #12's
+//      ln_mlp_fwd_hidden_kernel with GELU off (mma_tile, 128 x 128 tiles);
+//   3. the conv, its bias and GELU (GELU alone on the text rows) ->
+//      G bf16 [rows, hidden]: dwconv_stencil_kernel, a thread for 8
+//      channels of 4 neighbouring tokens of a grid row (16-byte loads, so
+//      each tap is a coalesced read along the channels, mostly from L1/L2;
+//      the taps and each loaded H1 value serve 4 outputs);
+//   4. y = x + G W2^T + b2: #12's ln_mlp_fwd_out_kernel without a row scale.
+// #12's kernels run through ln_mlp.cuh under DwConvRoute. A fused form
+// that merged 3 into 4 (each 128-row fc2 tile forming conv + GELU of its
+// rows from H1 straight into its A operand, G never written) lost the A/B
+// of scripts/probe_dwconv_swin.py at every v2 stage and was dropped; its
+// times are in PERF.md section 6.
+//
+// The trap is the conv's halo: a token's neighbours are taken by grid
+// (y, x), each side checked against the grid's borders, never by the flat
+// row index, so a token's left or right neighbour never wraps into the
+// previous or next grid row.
 
-#include <initializer_list>
-
-#include "attn_half.cuh"
+#include "ln_mlp.cuh"
 
 namespace mvlt {
 namespace {
 
+using namespace hopper;
+
 struct DwArgs {
-  const bf16* x;
-  const float* ln_w;
-  const float* ln_b;
-  const bf16* w1;
-  const float* b1;
-  const bf16* wdw;
-  const float* bdw;
-  const bf16* w2;
-  const float* b2;
-  bf16* out;
-  int h, w, t, n, d, hidden;
-  int band;    // grid rows of a visual block
-  int mp;      // output rows a block holds (a multiple of 16; also a text block's rows)
-  int nbands;  // visual blocks per sample
-  int chunk;   // hidden columns per pass
-  float eps;
+  const bf16* h1;    // [rows, hidden] fc1 output, b1 added
+  const bf16* wdw;   // [hidden, 9] depthwise taps
+  const float* bdw;  // [hidden]
+  bf16* g;           // [rows, hidden] the GELU output
+  int h, w, n, hidden;
 };
 
-struct DwSmem {
-  size_t xres, normed, hid, act, taps, stage, total;
-};
-
-// xres: the fp32 residual [mp, d]; normed: LN2 of band + halo, bf16
-// [hp, d + kPad]; hid: the fc1 chunk of band + halo; act: GELU of the
-// chunk's conv output [mp, chunk + kPad]; taps: the chunk's nine taps, fp32.
-__host__ __device__ inline DwSmem dw_smem(int mp, int hp, int d, int chunk) {
-  DwSmem s;
-  size_t o = 0;
-  s.xres = o;   o += align128((size_t)mp * d * 4);
-  s.normed = o; o += align128((size_t)hp * (d + kPad) * 2);
-  s.hid = o;    o += align128((size_t)hp * (chunk + kPad) * 2);
-  s.act = o;    o += align128((size_t)mp * (chunk + kPad) * 2);
-  s.taps = o;   o += align128((size_t)9 * chunk * 4);
-  s.stage = o;  o += kStageBytes;
-  s.total = o;
-  return s;
+__device__ __forceinline__ void unpack8(const uint4& raw, float (&v)[8]) {
+  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 f = __bfloat1622float2(p[e]);
+    v[2 * e] = f.x;
+    v[2 * e + 1] = f.y;
+  }
 }
 
-// fc1 rows of a visual block of `band` grid rows: band + halo, clipped to the
-// grid, rounded up to whole 16-row blocks
-__host__ __device__ inline int dw_halo_rows(int band, int h, int w) {
-  return ((band + 2 < h ? band + 2 : h) * w + 15) & ~15;
+// Value k of the bf16 values packed in r, as fp32 (k a constant after unrolling).
+__device__ __forceinline__ float bf16_at(const uint4 (&r)[9], int k) {
+  const uint4& q = r[k >> 3];
+  const int j = (k >> 1) & 3;
+  const uint32_t word = j == 0 ? q.x : j == 1 ? q.y : j == 2 ? q.z : q.w;
+  return __uint_as_float((k & 1) ? (word & 0xffff0000u) : (word << 16));
 }
 
-__global__ void __launch_bounds__(kThreads) dwconv_mlp_kernel(DwArgs a) {
-  extern __shared__ __align__(128) char smem[];
-  const int d = a.d, w = a.w, b = blockIdx.y;
-  const int ld = d + kPad, ldh = a.chunk + kPad;
-  const DwSmem L = dw_smem(a.mp, dw_halo_rows(a.band, a.h, w), d, a.chunk);
-  float* xres = reinterpret_cast<float*>(smem + L.xres);
-  bf16* normed = reinterpret_cast<bf16*>(smem + L.normed);
-  bf16* hid = reinterpret_cast<bf16*>(smem + L.hid);
-  bf16* act = reinterpret_cast<bf16*>(smem + L.act);
-  float* taps = reinterpret_cast<float*>(smem + L.taps);
-  float* stage = reinterpret_cast<float*>(smem + L.stage);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+constexpr int kRun = 4;  // tokens of one grid row (or text rows) a stencil thread takes
 
-  // rows [row0, row0 + rows) are this block's output; rows [lrow0, lrow0 +
-  // lrows) go through LN2 and fc1 (a visual band plus its halo grid rows)
-  const bool visual = blockIdx.x < a.nbands;
-  int y0 = 0, g_lo = 0, row0, rows, lrow0, lrows;
-  if (visual) {
-    y0 = blockIdx.x * a.band;
-    g_lo = max(0, y0 - 1);
-    row0 = y0 * w;
-    rows = min(a.band, a.h - y0) * w;
-    lrow0 = g_lo * w;
-    lrows = (min(a.h, y0 + a.band + 1) - g_lo) * w;
-  } else {
-    row0 = a.h * w + (blockIdx.x - a.nbands) * a.mp;
-    rows = min(a.mp, a.n - row0);
-    lrow0 = row0;
-    lrows = rows;
+// Step 3: G = GELU(conv(H1) + b_dw) (text rows GELU(H1)). Block row
+// blockIdx.y is a sample; a thread takes 8 channels of kRun neighbouring
+// tokens of one grid row, so that its taps (converted once) and each H1
+// value it loads (3 rows of kRun + 2 tokens) serve kRun outputs;
+// neighbouring threads take neighbouring channels.
+__global__ void __launch_bounds__(kThreads) dwconv_stencil_kernel(DwArgs a) {
+  const int groups = a.hidden / 8, runs = (a.w + kRun - 1) / kRun, vis = a.h * runs;
+  const int units = vis + (a.n - a.h * a.w + kRun - 1) / kRun;
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= units * groups) return;
+  const int u = i / groups, c0 = (i - u * groups) * 8;
+  const bf16* h1 = a.h1 + (size_t)blockIdx.y * a.n * a.hidden + c0;
+  bf16* g = a.g + (size_t)blockIdx.y * a.n * a.hidden + c0;
+  float z[kRun][8];
+  if (u >= vis) {  // text rows: GELU(H1) alone
+    const int r0 = a.h * a.w + (u - vis) * kRun;
+#pragma unroll
+    for (int k = 0; k < kRun; ++k) {
+      if (r0 + k >= a.n) break;
+      unpack8(*reinterpret_cast<const uint4*>(h1 + (size_t)(r0 + k) * a.hidden), z[k]);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) z[k][e] = gelu_erf(z[k][e]);
+      *reinterpret_cast<uint4*>(g + (size_t)(r0 + k) * a.hidden) = pack_bf16x8(z[k]);
+    }
+    return;
   }
-  const int frows = (lrows + 15) & ~15, orows = (rows + 15) & ~15;
-  const bf16* xs = a.x + (size_t)b * a.n * d;
-
-  // residual + fc2 bias, fp32; rows past the block's are zero and never stored
-  load_residual_tile(xres, xs + (size_t)row0 * d, orows, d, rows, a.b2);
-  for (int r = warp; r < frows; r += kWarps) {
-    bf16* dst = normed + (size_t)r * ld;
-    if (r < lrows) {
-      layer_norm_row_global(xs + (size_t)(lrow0 + r) * d, d, a.ln_w, a.ln_b, a.eps, dst);
-    } else {
-      for (int c = lane; c < d; c += 32) dst[c] = __float2bfloat16(0.0f);
+  const int y = u / runs, x0 = (u - y * runs) * kRun;
+  uint4 wr[9];  // the 8 channels' taps, [8][9] bf16 contiguous
+  const uint4* wsrc = reinterpret_cast<const uint4*>(a.wdw + (size_t)c0 * 9);
+#pragma unroll
+  for (int j = 0; j < 9; ++j) wr[j] = wsrc[j];
+#pragma unroll
+  for (int k = 0; k < kRun; ++k)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) z[k][e] = a.bdw[c0 + e];
+#pragma unroll
+  for (int dy = -1; dy <= 1; ++dy) {
+    const int yy = y + dy;
+    if (yy < 0 || yy >= a.h) continue;
+    uint4 v[kRun + 2];  // grid columns x0 - 1 .. x0 + kRun of row yy; zeros past the borders
+#pragma unroll
+    for (int j = 0; j < kRun + 2; ++j) {
+      const int xx = x0 - 1 + j;
+      const bool in = xx >= 0 && xx < a.w;
+      v[j] = in ? *reinterpret_cast<const uint4*>(h1 + (size_t)(yy * a.w + xx) * a.hidden)
+                : make_uint4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int j = 0; j < kRun + 2; ++j) {
+      float f[8];
+      unpack8(v[j], f);
+#pragma unroll
+      for (int dx = -1; dx <= 1; ++dx) {
+        const int k = j - 1 - dx;  // the output token whose tap (dy, dx) column j is
+        if (k < 0 || k >= kRun) continue;
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          z[k][e] = fmaf(f[e], bf16_at(wr, e * 9 + (dy + 1) * 3 + dx + 1), z[k][e]);
+      }
     }
   }
-  __syncthreads();
-
-  for (int c0 = 0; c0 < a.hidden; c0 += a.chunk) {
-    const int cw = min(a.chunk, a.hidden - c0);
-    const bf16* w1c = a.w1 + (size_t)c0 * d;
-    if (visual) {
-      for (int i = threadIdx.x; i < 9 * cw; i += kThreads) {
-        const int k = i / cw, c = i - k * cw;
-        taps[k * cw + c] = __bfloat162float(a.wdw[(size_t)(c0 + c) * 9 + k]);
-      }
-      gemm_bf16<true, 2>(normed, ld, w1c, d, frows, cw, d, stage, [&](int r, int c, float v) {
-        hid[r * ldh + c] = __float2bfloat16(v + a.b1[c0 + c]);
-      });
-      __syncthreads();
-      // the 3x3 depthwise conv of the band's rows, neighbours by grid
-      // (row, column); a neighbour outside the grid is the zero padding
-      for (int i = threadIdx.x; i < orows * cw; i += kThreads) {
-        const int r = i / cw, c = i - r * cw;
-        float z = 0.0f;
-        if (r < rows) {
-          const int y = y0 + r / w, xc = r % w;
-          z = a.bdw[c0 + c];
 #pragma unroll
-          for (int dy = 0; dy < 3; ++dy) {
-            const int yy = y + dy - 1;
-            if (yy < 0 || yy >= a.h) continue;
-            const bf16* src = hid + (size_t)(yy - g_lo) * w * ldh + c;
+  for (int k = 0; k < kRun; ++k) {
+    if (x0 + k >= a.w) break;
 #pragma unroll
-            for (int dx = 0; dx < 3; ++dx) {
-              const int xx = xc + dx - 1;
-              if (xx < 0 || xx >= w) continue;
-              z += taps[(dy * 3 + dx) * cw + c] * __bfloat162float(src[xx * ldh]);
-            }
-          }
-          z = gelu_erf(z);
-        }
-        act[r * ldh + c] = __float2bfloat16(z);
-      }
-    } else {
-      gemm_bf16<true, 2>(normed, ld, w1c, d, orows, cw, d, stage, [&](int r, int c, float v) {
-        act[r * ldh + c] = __float2bfloat16(gelu_erf(v + a.b1[c0 + c]));
-      });
-    }
-    __syncthreads();
-    gemm_bf16<true, 2>(act, ldh, a.w2 + c0, a.hidden, orows, d, cw, stage,
-                       [&](int r, int c, float v) { xres[r * d + c] += v; });
-    __syncthreads();
-  }
-
-  bf16* ob = a.out + ((size_t)b * a.n + row0) * d;
-  for (int i = threadIdx.x * 8; i < rows * d; i += kThreads * 8) {
-    uint4 raw;
-    bf16* e = reinterpret_cast<bf16*>(&raw);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) e[j] = __float2bfloat16(xres[i + j]);
-    *reinterpret_cast<uint4*>(ob + i) = raw;
+    for (int e = 0; e < 8; ++e) z[k][e] = gelu_erf(z[k][e]);
+    *reinterpret_cast<uint4*>(g + (size_t)(y * a.w + x0 + k) * a.hidden) = pack_bf16x8(z[k]);
   }
 }
 
 }  // namespace
 }  // namespace mvlt
 
-// C entry, bound with ctypes. Launches on `stream` and returns the
-// cudaError_t of the launch (0 on success); it does not synchronise.
+// C entry, bound with ctypes. Launches the chain on `stream` and returns the
+// first failing cudaError_t (0 on success); it does not synchronise. D a
+// multiple of 16 and at most 512, hidden a multiple of 16. `scratch` holds
+// H1 bf16 [rows, hidden], then LN2(x) bf16 [rows, D] whose space G [rows,
+// hidden] takes over in the chain: rows * (hidden + max(D, hidden)) bf16
+// (ops/dwconv_mlp.py:scratch_elems).
 extern "C" int mvlt_dwconv_mlp(const void* x, const void* ln_w, const void* ln_b, const void* w1,
                                const void* b1, const void* wdw, const void* bdw, const void* w2,
-                               const void* b2, void* out, int batch, int h, int w, int t, int d,
-                               int hidden, float eps, void* stream) {
+                               const void* b2, void* out, void* scratch, int batch, int h, int w,
+                               int t, int d, int hidden, float eps, void* stream) {
   using namespace mvlt;
-  // the band with the fewest fc1 + fc2 rows per sample (halo recompute
-  // against the last band's padding), output tiles of at most 128 rows, with
-  // the widest hidden chunk (at least 64 columns, or the whole hidden) that
-  // fits; ties go to the wider chunk
-  int band = 0, chunk = 0;
-  long long best = -1;
-  size_t bytes = 0;
-  const int max_band = w >= 128 ? 1 : (128 / w < h ? 128 / w : h);
-  for (int rb = 1; rb <= max_band; ++rb) {
-    const int mp = (rb * w + 15) & ~15, hp = dw_halo_rows(rb, h, w);
-    for (int cand : {256, 128, 64}) {
-      const int ch = cand < hidden ? cand : hidden;
-      const size_t need = dw_smem(mp, hp, d, ch).total;
-      if (need > kSmemLimit) continue;
-      const long long rows = (long long)((h + rb - 1) / rb) * (hp + mp);
-      if (best < 0 || rows < best || (rows == best && ch > chunk)) {
-        best = rows;
-        band = rb;
-        chunk = ch;
-        bytes = need;
-      }
-      break;
-    }
-  }
-  if (!band) return (int)cudaErrorInvalidConfiguration;
-  cudaError_t err = cudaFuncSetAttribute(
-      dwconv_mlp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  const long long rows = (long long)batch * (h * w + t);
+  if (batch < 1 || h < 1 || w < 1 || t < 0 || rows > (1LL << 30) || d < 16 || d > 512 ||
+      d % 16 || hidden < 16 || hidden % 16)
+    return (int)cudaErrorInvalidValue;
+  bf16* h1 = static_cast<bf16*>(scratch);
+  bf16* rest = h1 + rows * hidden;  // LN2(x), then G
+  LnMlpArgs la{static_cast<const bf16*>(x),
+               static_cast<const float*>(ln_w),
+               static_cast<const float*>(ln_b),
+               static_cast<const bf16*>(w1),
+               static_cast<const float*>(b1),
+               static_cast<const bf16*>(w2),
+               static_cast<const float*>(b2),
+               nullptr,
+               static_cast<bf16*>(out),
+               rest,
+               h1,
+               (int)rows,
+               h * w + t,
+               d,
+               hidden,
+               eps};
+  const DwArgs da{h1, static_cast<const bf16*>(wdw), static_cast<const float*>(bdw), rest,
+                  h, w, h * w + t, hidden};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = ln_mlp_fwd_norm<DwConvRoute>(la, st);
+  if (err == cudaSuccess) err = ln_mlp_fwd_hidden<DwConvRoute, false>(la, st);
   if (err != cudaSuccess) return (int)err;
-  const int mp = (band * w + 15) & ~15, nbands = (h + band - 1) / band;
-  DwArgs a{static_cast<const bf16*>(x),   static_cast<const float*>(ln_w),
-           static_cast<const float*>(ln_b), static_cast<const bf16*>(w1),
-           static_cast<const float*>(b1), static_cast<const bf16*>(wdw),
-           static_cast<const float*>(bdw), static_cast<const bf16*>(w2),
-           static_cast<const float*>(b2), static_cast<bf16*>(out),
-           h, w, t, h * w + t, d, hidden, band, mp, nbands, chunk, eps};
-  dim3 grid(nbands + (t + mp - 1) / mp, batch);
-  dwconv_mlp_kernel<<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
+  la.g = rest;  // fc2 reads G
+  const int units = (h * ((w + kRun - 1) / kRun) + (t + kRun - 1) / kRun) * (hidden / 8);
+  dwconv_stencil_kernel<<<dim3((units + kThreads - 1) / kThreads, batch), kThreads, 0, st>>>(da);
+  err = cudaGetLastError();
+  if (err == cudaSuccess) err = ln_mlp_fwd_out<DwConvRoute>(la, st);
+  return (int)err;
 }

@@ -1,6 +1,6 @@
 // Hopper (sm_90a) device helpers of the port's wgmma kernels (attention.cu,
-// mlm_ce.cu, ln_mlp.cu, ln_mlp_bwd.cu, block_attention_train.cu,
-// swin_attention.cu):
+// mlm_ce.cu, ln_mlp.cu, ln_mlp_bwd.cu, block_attention_train.cu, dwconv_mlp.cu,
+// swin_attention.cu, swin_block.cu):
 // warpgroup matrix multiply (wgmma) on bf16 operands with fp32 sums, its
 // shared-memory descriptors and fences, cp.async copies into the swizzled
 // tiles wgmma reads, named barriers, the fragment-layout maps, and the
@@ -348,16 +348,23 @@ __device__ __forceinline__ void load_operand(uint32_t dst, const Mat& m, int r0,
 // A is K-major (A_MN false: [M][K] in memory) or MN-major ([K][M]); so is B.
 // Every thread of the block calls it; the ring is free again for the next
 // call only after a __syncthreads().
-template <bool A_MN, bool B_MN>
-__device__ __forceinline__ void mma_tile(const Mat& a, const Mat& b, int m0, int n0, int c0,
-                                         int c1, uint32_t ring, float (&d)[64]) {
+//
+// mma_tile_from takes the A operand from load_a(dst, k0) instead: it fills
+// the stage at dst with the tile's 128 rows by contraction columns k0 ..
+// k0 + 63 in load_operand's layout (K-major, or MN-major for A_MN), by
+// cp.async or by plain shared-memory stores -- a gather, or A computed on
+// the fly. It is called kGemmRing - 2 chunks ahead of the product, into a
+// stage whose product both warpgroups have finished.
+template <bool A_MN, bool B_MN, typename LoadA>
+__device__ __forceinline__ void mma_tile_from(LoadA load_a, const Mat& b, int n0, int c0, int c1,
+                                              uint32_t ring, float (&d)[64]) {
   const int wg = threadIdx.x >> 7, n = c1 - c0;
 #pragma unroll
   for (int i = 0; i < 64; ++i) d[i] = 0.0f;
   auto load = [&](int i) {  // chunk c0 + i into its stage; one commit group each
     if (i < n) {
       const uint32_t st = ring + (i % kGemmRing) * 2 * kGemmOperandBytes;
-      load_operand<A_MN>(st, a, m0, (c0 + i) * kGemmChunk);
+      load_a(st, (c0 + i) * kGemmChunk);
       load_operand<B_MN>(st + kGemmOperandBytes, b, n0, (c0 + i) * kGemmChunk);
     }
     cp_async_commit();
@@ -389,12 +396,31 @@ __device__ __forceinline__ void mma_tile(const Mat& a, const Mat& b, int m0, int
   fence_regs(d);
 }
 
+template <bool A_MN, bool B_MN>
+__device__ __forceinline__ void mma_tile(const Mat& a, const Mat& b, int m0, int n0, int c0,
+                                         int c1, uint32_t ring, float (&d)[64]) {
+  mma_tile_from<A_MN, B_MN>(
+      [&](uint32_t dst, int k0) { load_operand<A_MN>(dst, a, m0, k0); }, b, n0, c0, c1, ring, d);
+}
+
 // The block's 128 x 128 fp32 tile d (every thread's, after mma_tile) handed
 // to epi(r, c, v) eight columns at a time -- r and c tile-relative, v[8]
 // the values at columns c .. c + 7 -- through a staging copy in shared
 // memory at `stage` (the ring: kGemmTile * kStageLdF floats), so that the
 // epilogue reads and writes device memory in 16-byte rows.
 constexpr int kStageLdF = kGemmTile + 4;  // fp32 row of an output stage
+
+// Dynamic shared memory of a block that runs mma_tile over `chunks` chunks
+// and then store_tile: the ring stages the contraction touches (chunk i
+// takes stage i % kGemmRing), and at least the epilogue's staging copy;
+// kGemmSmem from five chunks on. A short contraction (K <= 128) then leaves
+// room for two blocks an SM, so that one block's loads overlap another's
+// products and epilogue.
+__host__ __device__ constexpr size_t gemm_smem(int chunks) {
+  constexpr size_t kStaging = (size_t)kGemmTile * kStageLdF * 4;
+  const size_t ring = (size_t)(chunks < kGemmRing ? chunks : kGemmRing) * 2 * kGemmOperandBytes;
+  return 1024 + (ring > kStaging ? ring : kStaging);
+}
 template <typename Epi>
 __device__ __forceinline__ void store_tile(const float (&d)[64], float* stage, Epi epi) {
   __syncthreads();  // every warpgroup is done with the ring

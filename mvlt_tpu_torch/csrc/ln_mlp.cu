@@ -38,13 +38,14 @@
 //     The scratch (ops/fused_mlp.py:fwd_scratch) is the wrapper's: at stage
 //     4, B = 150, 29 MB of LN(x) and 118 MB of G, written once and read once
 //     (about 90 us of traffic against 0.12 ms of products at the peak).
+//
+// The three-launch kernels are also run by kernel D's chain (LN2, fc1 with
+// GELU off, fc2 without a row scale) and kernel E's (the MLP half), under
+// their route tags (ln_mlp.cuh).
 
 #include <math.h>
 
-#include <initializer_list>
-
-#include "common.cuh"
-#include "hopper.cuh"
+#include "ln_mlp.cuh"
 
 namespace mvlt {
 namespace {
@@ -55,26 +56,10 @@ constexpr int kFusedMaxD = 128;  // widest stream of the one-launch kernel
 constexpr int kHidChunk = 64;    // hidden columns a step of the one-launch kernel
 constexpr int kWRing = 4;        // its weight ring: stages, two chunks loading ahead
 
-struct FwdArgs {
-  const bf16* x;
-  const float* gamma;
-  const float* beta;
-  const bf16* w1;
-  const float* b1;
-  const bf16* w2;
-  const float* b2;
-  const float* s;
-  bf16* out;
-  bf16* nrm;  // [rows, D] LN(x) (three-launch form)
-  bf16* g;    // [rows, H] GELU hidden (three-launch form)
-  int rows, n, d, hidden;
-  float eps;
-};
-
 // LN(x) of one row by one warp: the lane's P column pairs (2 lane + 64 p,
 // + 1), two-pass fp32 statistics, zeros past D.
 template <int P>
-__device__ __forceinline__ void ln_row(const bf16* xr, const FwdArgs& a, float2 (&v)[P]) {
+__device__ __forceinline__ void ln_row(const bf16* xr, const LnMlpArgs& a, float2 (&v)[P]) {
   const int lane = threadIdx.x & 31, d = a.d;
   float sum = 0.0f;
 #pragma unroll
@@ -102,31 +87,15 @@ __device__ __forceinline__ void ln_row(const bf16* xr, const FwdArgs& a, float2 
   }
 }
 
-// y rows of the epilogue: 8 columns c .. c + 7 of row `row`, v the fc2 sums.
-__device__ __forceinline__ void store_out(const FwdArgs& a, int row, int c, const float (&v)[8]) {
-  const size_t o = (size_t)row * a.d + c;
-  const float sc = a.s[row / a.n];
-  const uint4 xr = *reinterpret_cast<const uint4*>(a.x + o);
-  const __nv_bfloat162* xp = reinterpret_cast<const __nv_bfloat162*>(&xr);
-  float y[8];
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const float2 xf = __bfloat1622float2(xp[e]);
-    y[2 * e] = xf.x + sc * (v[2 * e] + a.b2[c + 2 * e]);
-    y[2 * e + 1] = xf.y + sc * (v[2 * e + 1] + a.b2[c + 2 * e + 1]);
-  }
-  *reinterpret_cast<uint4*>(a.out + o) = pack_bf16x8(y);
-}
-
 template <int DP>
 __host__ __device__ constexpr size_t fused_smem() {
   // LN(x) [128][DP] | kWRing stages of (W1 chunk [64][DP] | W2 chunk [DP][64])
   return 1024 + (size_t)kGemmTile * DP * 2 + (size_t)kWRing * 2 * (DP / 64) * kGemmPanelBytes;
 }
 
-template <int DP>
+template <int DP, class Route>
 __global__ void __launch_bounds__(kGemmThreads, DP == 64 ? 2 : 1) ln_mlp_fwd_fused_kernel(
-    FwdArgs a) {
+    LnMlpArgs a) {
   constexpr int DC = DP / 64;  // 64-column chunks of D (and 64-row panels of W2)
   constexpr uint32_t kNrm = kGemmTile * DP * 2, kStage = 2 * DC * kGemmPanelBytes;
   extern __shared__ char smem_raw[];
@@ -231,13 +200,13 @@ __global__ void __launch_bounds__(kGemmThreads, DP == 64 ? 2 : 1) ln_mlp_fwd_fus
     float v[8];
 #pragma unroll
     for (int e = 0; e < 8; ++e) v[e] = stage[rr * LD + c + e];
-    store_out(a, m0 + rr, c, v);
+    store_out<Route>(a, m0 + rr, c, v);
   }
 }
 
 // LN(x) bf16 [rows, D], one warp a row (the three-launch form).
-template <int P>
-__global__ void __launch_bounds__(kThreads) ln_mlp_fwd_norm_kernel(FwdArgs a) {
+template <int P, class Route>
+__global__ void __launch_bounds__(kThreads) ln_mlp_fwd_norm_kernel(LnMlpArgs a) {
   const int r = blockIdx.x * kWarps + (threadIdx.x >> 5), lane = threadIdx.x & 31;
   if (r >= a.rows) return;
   float2 v[P];
@@ -250,8 +219,10 @@ __global__ void __launch_bounds__(kThreads) ln_mlp_fwd_norm_kernel(FwdArgs a) {
   }
 }
 
-// G = GELU(LN(x) W1^T + b1), a 128 x 128 tile a block, row tile major.
-__global__ void __launch_bounds__(kGemmThreads, 1) ln_mlp_fwd_hidden_kernel(FwdArgs a) {
+// G = GELU(LN(x) W1^T + b1) (without the GELU where !Gelu), a 128 x 128
+// tile a block, row tile major.
+template <bool Gelu, class Route>
+__global__ void __launch_bounds__(kGemmThreads, 1) ln_mlp_fwd_hidden_kernel(LnMlpArgs a) {
   extern __shared__ char smem_raw[];
   char* smem = align1024(smem_raw);
   const int htiles = (a.hidden + kGemmTile - 1) / kGemmTile;
@@ -262,13 +233,17 @@ __global__ void __launch_bounds__(kGemmThreads, 1) ln_mlp_fwd_hidden_kernel(FwdA
   store_tile(d, reinterpret_cast<float*>(smem), [&](int r, int c, float (&v)[8]) {
     if (m0 + r >= a.rows || n0 + c >= a.hidden) return;
 #pragma unroll
-    for (int e = 0; e < 8; ++e) v[e] = gelu_erf(v[e] + a.b1[n0 + c + e]);
+    for (int e = 0; e < 8; ++e) {
+      v[e] += a.b1[n0 + c + e];
+      if (Gelu) v[e] = gelu_erf(v[e]);
+    }
     *reinterpret_cast<uint4*>(a.g + (size_t)(m0 + r) * a.hidden + n0 + c) = pack_bf16x8(v);
   });
 }
 
 // y = x + s (G W2^T + b2), a 128 x 128 tile a block, row tile major.
-__global__ void __launch_bounds__(kGemmThreads, 1) ln_mlp_fwd_out_kernel(FwdArgs a) {
+template <class Route>
+__global__ void __launch_bounds__(kGemmThreads, 1) ln_mlp_fwd_out_kernel(LnMlpArgs a) {
   extern __shared__ char smem_raw[];
   char* smem = align1024(smem_raw);
   const int dtiles = (a.d + kGemmTile - 1) / kGemmTile;
@@ -278,24 +253,75 @@ __global__ void __launch_bounds__(kGemmThreads, 1) ln_mlp_fwd_out_kernel(FwdArgs
                          Mat{a.w2, a.hidden, a.d, a.hidden}, m0, n0, 0,
                          (a.hidden + kGemmChunk - 1) / kGemmChunk, smem_u32(smem), d);
   store_tile(d, reinterpret_cast<float*>(smem), [&](int r, int c, float (&v)[8]) {
-    if (m0 + r < a.rows && n0 + c < a.d) store_out(a, m0 + r, n0 + c, v);
+    if (m0 + r < a.rows && n0 + c < a.d) store_out<Route>(a, m0 + r, n0 + c, v);
   });
 }
 
-template <int DP>
-cudaError_t launch_fused(const FwdArgs& a, cudaStream_t st) {
+template <int DP, class Route>
+cudaError_t launch_fused(const LnMlpArgs& a, cudaStream_t st) {
   const cudaError_t err =
-      allow_dynamic_smem((const void*)ln_mlp_fwd_fused_kernel<DP>, fused_smem<DP>());
+      allow_dynamic_smem((const void*)ln_mlp_fwd_fused_kernel<DP, Route>, fused_smem<DP>());
   if (err != cudaSuccess) return err;
-  ln_mlp_fwd_fused_kernel<DP>
+  ln_mlp_fwd_fused_kernel<DP, Route>
       <<<(a.rows + kGemmTile - 1) / kGemmTile, kGemmThreads, fused_smem<DP>(), st>>>(a);
   return cudaGetLastError();
 }
 
-template <int P>
-cudaError_t launch_norm(const FwdArgs& a, cudaStream_t st) {
-  ln_mlp_fwd_norm_kernel<P><<<(a.rows + kWarps - 1) / kWarps, kThreads, 0, st>>>(a);
+template <int P, class Route>
+cudaError_t launch_norm(const LnMlpArgs& a, cudaStream_t st) {
+  ln_mlp_fwd_norm_kernel<P, Route><<<(a.rows + kWarps - 1) / kWarps, kThreads, 0, st>>>(a);
   return cudaGetLastError();
+}
+
+int row_tiles(const LnMlpArgs& a) { return (a.rows + kGemmTile - 1) / kGemmTile; }
+
+}  // namespace
+
+template <class Route>
+cudaError_t ln_mlp_fwd_norm(const LnMlpArgs& a, cudaStream_t st) {
+  return a.d <= 64    ? launch_norm<1, Route>(a, st)
+         : a.d <= 128 ? launch_norm<2, Route>(a, st)
+         : a.d <= 256 ? launch_norm<4, Route>(a, st)
+                      : launch_norm<8, Route>(a, st);
+}
+
+template <class Route, bool Gelu>
+cudaError_t ln_mlp_fwd_hidden(const LnMlpArgs& a, cudaStream_t st) {
+  const cudaError_t err =
+      allow_dynamic_smem((const void*)ln_mlp_fwd_hidden_kernel<Gelu, Route>, kGemmSmem);
+  if (err != cudaSuccess) return err;
+  ln_mlp_fwd_hidden_kernel<Gelu, Route>
+      <<<row_tiles(a) * ((a.hidden + kGemmTile - 1) / kGemmTile), kGemmThreads,
+         gemm_smem((a.d + kGemmChunk - 1) / kGemmChunk), st>>>(a);
+  return cudaGetLastError();
+}
+
+template <class Route>
+cudaError_t ln_mlp_fwd_out(const LnMlpArgs& a, cudaStream_t st) {
+  const cudaError_t err = allow_dynamic_smem((const void*)ln_mlp_fwd_out_kernel<Route>, kGemmSmem);
+  if (err != cudaSuccess) return err;
+  ln_mlp_fwd_out_kernel<Route>
+      <<<row_tiles(a) * ((a.d + kGemmTile - 1) / kGemmTile), kGemmThreads, kGemmSmem, st>>>(a);
+  return cudaGetLastError();
+}
+
+// kernel D's chain (dwconv_mlp.cu) runs these three, kernel E's
+// (swin_block.cu) the norm for its LN1
+template cudaError_t ln_mlp_fwd_norm<DwConvRoute>(const LnMlpArgs&, cudaStream_t);
+template cudaError_t ln_mlp_fwd_norm<SwinBlockRoute>(const LnMlpArgs&, cudaStream_t);
+template cudaError_t ln_mlp_fwd_hidden<DwConvRoute, false>(const LnMlpArgs&, cudaStream_t);
+template cudaError_t ln_mlp_fwd_out<DwConvRoute>(const LnMlpArgs&, cudaStream_t);
+
+namespace {
+
+// The whole forward on one route: one launch (fused, D <= 128) or three.
+template <class Route>
+cudaError_t ln_mlp_fwd(const LnMlpArgs& a, bool fused, cudaStream_t st) {
+  if (fused) return a.d <= 64 ? launch_fused<64, Route>(a, st) : launch_fused<128, Route>(a, st);
+  cudaError_t err = ln_mlp_fwd_norm<Route>(a, st);
+  if (err == cudaSuccess) err = ln_mlp_fwd_hidden<Route, true>(a, st);
+  if (err == cudaSuccess) err = ln_mlp_fwd_out<Route>(a, st);
+  return err;
 }
 
 }  // namespace
@@ -305,38 +331,25 @@ cudaError_t launch_norm(const FwdArgs& a, cudaStream_t st) {
 // cudaError_t of the launches (0 on success); no synchronisation. D a
 // multiple of 16 and at most 512, H a multiple of 16. `fused` (D <= 128
 // only) picks the one-launch kernel; otherwise nrm (rows * D) and g (rows *
-// H) bf16 are the three-launch form's scratch.
+// H) bf16 are the three-launch form's scratch. `route` 0 runs #12 itself,
+// 1 kernel E's MLP half (SwinBlockRoute: no row scale, s unused).
 extern "C" int mvlt_ln_mlp_fwd(const void* x, const void* gamma, const void* beta,
                                const void* w1, const void* b1, const void* w2, const void* b2,
                                const void* s, void* out, void* nrm, void* g, long long rows, int n,
-                               int d, int hidden, int fused, float eps, void* stream) {
+                               int d, int hidden, int fused, int route, float eps, void* stream) {
   using namespace mvlt;
   if (rows < 1 || rows > (1LL << 30) || n < 1 || d < 16 || d > 512 || d % 16 || hidden < 16 ||
-      hidden % 16 || (fused && d > kFusedMaxD))
+      hidden % 16 || (fused && d > kFusedMaxD) || (route != 0 && route != 1))
     return (int)cudaErrorInvalidValue;
-  const FwdArgs a{static_cast<const bf16*>(x),     static_cast<const float*>(gamma),
-                  static_cast<const float*>(beta), static_cast<const bf16*>(w1),
-                  static_cast<const float*>(b1),   static_cast<const bf16*>(w2),
-                  static_cast<const float*>(b2),   static_cast<const float*>(s),
-                  static_cast<bf16*>(out),         static_cast<bf16*>(nrm),
-                  static_cast<bf16*>(g),           (int)rows,
-                  n,                               d,
-                  hidden,                          eps};
+  const LnMlpArgs a{static_cast<const bf16*>(x),     static_cast<const float*>(gamma),
+                    static_cast<const float*>(beta), static_cast<const bf16*>(w1),
+                    static_cast<const float*>(b1),   static_cast<const bf16*>(w2),
+                    static_cast<const float*>(b2),   static_cast<const float*>(s),
+                    static_cast<bf16*>(out),         static_cast<bf16*>(nrm),
+                    static_cast<bf16*>(g),           (int)rows,
+                    n,                               d,
+                    hidden,                          eps};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (fused) return (int)(d <= 64 ? launch_fused<64>(a, st) : launch_fused<128>(a, st));
-  cudaError_t err = d <= 64    ? launch_norm<1>(a, st)
-                    : d <= 128 ? launch_norm<2>(a, st)
-                    : d <= 256 ? launch_norm<4>(a, st)
-                               : launch_norm<8>(a, st);
-  for (const void* k : {(const void*)ln_mlp_fwd_hidden_kernel, (const void*)ln_mlp_fwd_out_kernel})
-    if (err == cudaSuccess) err = allow_dynamic_smem(k, kGemmSmem);
-  if (err != cudaSuccess) return (int)err;
-  const int row_tiles = (a.rows + kGemmTile - 1) / kGemmTile;
-  ln_mlp_fwd_hidden_kernel<<<row_tiles * ((hidden + kGemmTile - 1) / kGemmTile), kGemmThreads,
-                             kGemmSmem, st>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  ln_mlp_fwd_out_kernel<<<row_tiles * ((d + kGemmTile - 1) / kGemmTile), kGemmThreads, kGemmSmem,
-                          st>>>(a);
-  return (int)cudaGetLastError();
+  return (int)(route == 0 ? ln_mlp_fwd<LnMlpRoute>(a, fused, st)
+                          : ln_mlp_fwd<SwinBlockRoute>(a, fused, st));
 }

@@ -5,11 +5,13 @@
 // bodies _kernel and _kernel_paired). It computes, per sample, window and
 // head,
 //   out = softmax(q [k_win | k_txt]^T * scale + table) [v_win | v_txt]
-// with q/k/v_win [B, nW, H, ws^2, hd] and k/v_txt [B, H, T, hd] bf16 and the
-// additive table [nW, H, ws^2, ws^2 + T] fp32 (relative-position bias plus
-// the region/pad mask on the window columns, zeros on the text columns).
-// The text K/V is read from its one copy by the windows of a block, never
-// duplicated.
+// with q/k/v_win [B, nW, H, ws^2, hd] and k/v_txt [B, H, T, hd] bf16 (any
+// batch, head and row strides: kernel E passes [B, T, C] as such a view) and
+// the additive table [nW, H, ws^2, ws^2 + T] fp32 (relative-position bias
+// plus the region/pad mask on the window columns, zeros on the text
+// columns). The text K/V is read from its one copy by the windows of a
+// block, never duplicated. Kernel E (swin_block.cu) runs this kernel through
+// the C entry under its own route tag (common.cuh).
 //
 // What bounds it on the H100: the q.K^T and P.V products, 4.ws^2.(ws^2 +
 // T).hd flops per (window, head), against reading q/k/v/out once, the text
@@ -57,6 +59,7 @@ struct SwinAttnArgs {
   const bf16* vt;
   const float* table;
   bf16* out;
+  long long txt_b, txt_h, txt_r;  // element strides of the text K/V: sample, head, row
   int batch, nw, heads, ws2, t, per_block;
   float scale_log2;
 };
@@ -69,7 +72,7 @@ __host__ __device__ constexpr size_t swin_attn_smem(int t, int rb, int wgs) {
   return 1024 + 2 * (size_t)round_win(t) * rb + (size_t)wgs * 3 * kWin * rb;
 }
 
-template <int HD>
+template <int HD, class Route>
 __global__ void __launch_bounds__(256, 2) swin_attn_hopper_kernel(SwinAttnArgs a) {
   constexpr int RB = HD * 2, CH = RB / 16, NA = HD / 2;
   extern __shared__ char smem_raw[];
@@ -81,7 +84,7 @@ __global__ void __launch_bounds__(256, 2) swin_attn_hopper_kernel(SwinAttnArgs a
   const uint32_t s_kt = smem_u32(smem), s_vt = s_kt + tp * RB;
   const uint32_t s_q = s_vt + tp * RB + wg * 3 * kWin * RB;
   const uint32_t s_kw = s_q + kWin * RB, s_vw = s_kw + kWin * RB;
-  const size_t txt = ((size_t)b * a.heads + h) * a.t * HD;
+  const size_t txt = (size_t)b * a.txt_b + (size_t)h * a.txt_h;
   const bf16* ktb = a.kt + txt;
   const bf16* vtb = a.vt + txt;
 
@@ -107,8 +110,8 @@ __global__ void __launch_bounds__(256, 2) swin_attn_hopper_kernel(SwinAttnArgs a
   for (int i = tid; i < tp * CH; i += blockDim.x) {
     const int r = i / CH, c = i % CH;
     const bool ok = r < a.t;
-    cp_async16_zfill(s_kt + tile_off<RB>(r, c), ok ? ktb + r * HD + c * 8 : ktb, ok);
-    cp_async16_zfill(s_vt + tile_off<RB>(r, c), ok ? vtb + r * HD + c * 8 : vtb, ok);
+    cp_async16_zfill(s_kt + tile_off<RB>(r, c), ok ? ktb + r * a.txt_r + c * 8 : ktb, ok);
+    cp_async16_zfill(s_vt + tile_off<RB>(r, c), ok ? vtb + r * a.txt_r + c * 8 : vtb, ok);
   }
   cp_async_commit();
   load_window(win0 + wg);
@@ -227,7 +230,7 @@ __global__ void __launch_bounds__(256, 2) swin_attn_hopper_kernel(SwinAttnArgs a
   }
 }
 
-template <int HD>
+template <int HD, class Route>
 int launch(const SwinAttnArgs& a, int wgs, cudaStream_t stream) {
   const size_t bytes = swin_attn_smem(a.t, HD * 2, wgs);
   if (bytes > kSmemLimit) return (int)cudaErrorInvalidValue;
@@ -235,13 +238,13 @@ int launch(const SwinAttnArgs& a, int wgs, cudaStream_t stream) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess && dev != smem_dev) {
-    err = cudaFuncSetAttribute(swin_attn_hopper_kernel<HD>,
+    err = cudaFuncSetAttribute(swin_attn_hopper_kernel<HD, Route>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemLimit);
     if (err == cudaSuccess) smem_dev = dev;
   }
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((a.nw + a.per_block - 1) / a.per_block, a.batch * a.heads);
-  swin_attn_hopper_kernel<HD><<<grid, 128 * wgs, bytes, stream>>>(a);
+  swin_attn_hopper_kernel<HD, Route><<<grid, 128 * wgs, bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -250,22 +253,40 @@ int launch(const SwinAttnArgs& a, int wgs, cudaStream_t stream) {
 
 // C entry, bound with ctypes: hd 32 or 64, 1 <= ws2 <= 64, T >= 0, one block
 // per (sample, head) and run of `per_block` windows, `wgs` (1 or 2)
-// warpgroups a block. Launches on `stream` and returns the cudaError_t of
+// warpgroups a block; txt_strides the text K/V's (sample, head, row) element
+// strides (rows of 16-byte aligned hd values). `route` 0 is kernel F itself,
+// 1 kernel E's chain. Launches on `stream` and returns the cudaError_t of
 // the launch (0 on success); it does not synchronise.
 extern "C" int mvlt_swin_attention(const void* q, const void* kw, const void* vw,
                                    const void* kt, const void* vt, const void* table, void* out,
-                                   int batch, int nw, int heads, int ws2, int t, int hd,
-                                   int per_block, int wgs, float scale, void* stream) {
+                                   const long long* txt_strides, int batch, int nw, int heads,
+                                   int ws2, int t, int hd, int per_block, int wgs, int route,
+                                   float scale, void* stream) {
   using namespace mvlt;
-  if (ws2 < 1 || ws2 > kWin || t < 0 || per_block < 1 || (wgs != 1 && wgs != 2))
+  if (ws2 < 1 || ws2 > kWin || t < 0 || per_block < 1 || (wgs != 1 && wgs != 2) ||
+      (route != 0 && route != 1))
     return (int)cudaErrorInvalidValue;
-  const SwinAttnArgs a{static_cast<const bf16*>(q),  static_cast<const bf16*>(kw),
-                       static_cast<const bf16*>(vw), static_cast<const bf16*>(kt),
-                       static_cast<const bf16*>(vt), static_cast<const float*>(table),
-                       static_cast<bf16*>(out),      batch, nw, heads, ws2, t, per_block,
+  const SwinAttnArgs a{static_cast<const bf16*>(q),
+                       static_cast<const bf16*>(kw),
+                       static_cast<const bf16*>(vw),
+                       static_cast<const bf16*>(kt),
+                       static_cast<const bf16*>(vt),
+                       static_cast<const float*>(table),
+                       static_cast<bf16*>(out),
+                       txt_strides[0],
+                       txt_strides[1],
+                       txt_strides[2],
+                       batch,
+                       nw,
+                       heads,
+                       ws2,
+                       t,
+                       per_block,
                        scale * kLog2e};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hd == 64) return launch<64>(a, wgs, st);
-  if (hd == 32) return launch<32>(a, wgs, st);
+  if (hd == 64)
+    return route ? launch<64, SwinBlockRoute>(a, wgs, st) : launch<64, SwinAttnRoute>(a, wgs, st);
+  if (hd == 32)
+    return route ? launch<32, SwinBlockRoute>(a, wgs, st) : launch<32, SwinAttnRoute>(a, wgs, st);
   return (int)cudaErrorInvalidValue;
 }

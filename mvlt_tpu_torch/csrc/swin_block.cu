@@ -1,5 +1,5 @@
-// Whole Swin block on the visual stream, one launch of two kernels per
-// block (kernel E).
+// Whole Swin block on the visual stream (kernel E), a chain of launches on
+// wgmma (hopper.cuh) over bf16 scratch in device memory.
 //
 // Replaces: mvlt_tpu/ops/swin_band.py:fused_swin_band_block (Pallas body
 // _kernel). It computes the same function without the TPU's band layout (a
@@ -7,206 +7,123 @@
 // the windows, the caller's vertical roll, lane padding, head stripes):
 //   h   = x + proj(concat_h attn_h) + bp
 //   out = h + fc2(gelu(fc1(LN2(h)) + b1)) + b2
-//   attn_h = softmax(q_h [K_h | Kt_h]^T * scale + bias_h + mask) [V_h | Vt_h]
-// with q, K, V from LN1 of the window's rows, the relative-position bias
-// indexed by in-window position, and Swin's shifted-window region mask, both
-// in rolled coordinates as mvlt_tpu/ops/swin_band.py:_band_layout sets them
-// out; text K/V [B, T, C] come projected from PyTorch. x [B, h*w, C] bf16 in
-// row-major (y, x) order, weights in torch Linear layout [out, in] bf16 (the
-// kv weight [2C, C]: K rows, then V rows), biases, LayerNorm affines and the
-// bias table [(2 ws - 1)^2, H] fp32. A second kernel writes the pooled LN1
-// rows [B, (h/p)(w/p), C] the text queries consume: LN1 recomputed for every
-// visual row and averaged over p x p cells, in a fixed order (no atomics).
+//   attn_h = softmax(q_h [K_h | Kt_h]^T * scale + table_h) [V_h | Vt_h]
+// with q, K, V from LN1 of the window's rows, in Swin's (shifted) windows;
+// the additive table [nW, H, ws^2, ws^2 + T] fp32 holds the relative-position
+// bias by in-window position plus the shifted-window region mask (built by
+// the caller, as the JAX package builds it in XLA: models/swin.py:add_table);
+// text K/V [B, T, C] come projected from PyTorch. x [B, h*w, C] bf16 in
+// row-major (y, x) order, weights in torch Linear layout [out, in] bf16 (q
+// and kv stacked as wqkv [3C, C]), biases and LayerNorm affines fp32. It
+// also writes the pooled LN1 rows [B, (h/p)(w/p), C] the text queries
+// consume.
 //
 // What bounds it on the H100: the products (q, K, V, logits, P.V, proj, fc1,
-// fc2), about 2.N.(4.C^2 + 2.(ws^2 + T).C + 2.C.hidden) flops per sample,
-// against one read and one write of the bf16 stream; weights, the bias table
-// and each sample's text K/V stay in the 50 MB L2.
+// fc2), about 2.N.(4.C^2 + 2.(ws^2 + T).C + 2.C.hidden) flops a sample,
+// against one read and one write of the bf16 stream: operations.
 //
-// Design: one block of 8 warps per (sample, window). It gathers the window's
-// ws^2 rows by index -- for a shifted block, grid row (y + s) % h and column
-// (x + s) % w -- and writes them back to the same places, so no roll copy
-// and no dense mask exist. Shared memory holds, while attending, LN1 of the
-// rows, one head's q and K (then V) and the fp32 logits (swin_window.cuh),
-// with the head outputs gathered in obuf; then the fp32 residual tile and a
-// chunk of the MLP hidden take the attention's place: 223 KB at C = 512,
-// T = 128, so one block per SM. GELU is exact erf. Products run on the wmma
-// core (common.cuh:gemm_bf16). wgmma and TMA are for later work.
+// Design: the window partition and the shift's roll live in an int32 index
+// of h*w entries, token -> window slot (window * ws^2 + position;
+// ops/swin_band.py:window_index, from models/swin.py:window_partition), read
+// by two GEMM epilogues, so no roll or partition copy exists:
+//   1. LN1(x) -> bf16 [rows, C]: #12's ln_mlp_fwd_norm_kernel; the pooled
+//      LN1 rows by swin_pool_kernel (fp32 sums of the unrounded LN1, one
+//      warp a pooled cell, in a fixed order);
+//   2. q | k | v = LN1 wqkv^T + bqkv on mma_tile (swin_qkv_kernel), each row
+//      stored straight into its window slot of q, k, v [B, nW, H, ws^2, hd];
+//   3. the window attention on kernel F's kernel (swin_attention.cu), called
+//      through its C entry, the text K/V read as a [B, H, T, hd] view of
+//      [B, T, C] (strides, no copy);
+//   4. h = x + A wp^T + bp on mma_tile (swin_proj_kernel), A's rows gathered
+//      from the window layout through the same index, h bf16 [rows, C] in
+//      row-major order;
+//   5. out = h + MLP(LN2(h)): #12's forward through its C entry (one launch
+//      at C <= 128, three above), without a row scale.
+// #12's and F's kernels run under SwinBlockRoute (common.cuh). h is rounded
+// to bf16 between 4 and 5, where the plain version keeps it in fp32.
 
 #include <initializer_list>
 
-#include "swin_window.cuh"
+#include "ln_mlp.cuh"
+
+extern "C" int mvlt_swin_attention(const void* q, const void* kw, const void* vw,
+                                   const void* kt, const void* vt, const void* table, void* out,
+                                   const long long* txt_strides, int batch, int nw, int heads,
+                                   int ws2, int t, int hd, int per_block, int wgs, int route,
+                                   float scale, void* stream);
 
 namespace mvlt {
 namespace {
 
+using namespace hopper;
+
 struct SwinBlockArgs {
   const bf16* x;
-  const bf16* kt;
-  const bf16* vt;
-  const float* rel;
+  const bf16* ln1;  // [rows, C] LN1(x)
   const float* ln1_w;
   const float* ln1_b;
-  const bf16* wq;
-  const float* bq;
-  const bf16* wkv;
-  const float* bkv;
-  const bf16* wp;
-  const float* bp;
-  const float* ln2_w;
-  const float* ln2_b;
-  const bf16* w1;
-  const float* b1;
-  const bf16* w2;
-  const float* b2;
-  bf16* out;
   bf16* pooled;
-  int h, w, d, heads, t, hidden, ws, shift, pool, chunk;
-  float scale, eps1, eps2;
+  const int* index;  // [h*w] token -> window slot
+  const bf16* wqkv;  // [3C, C]
+  const float* bqkv;
+  bf16* q;  // [B, nW, H, ws^2, hd] each
+  bf16* k;
+  bf16* v;
+  const bf16* attn;  // the attention output, [B, nW, H, ws^2, hd]
+  int h, w, d, heads, hd, nw, ws2, pool, rows;
+  float eps1;
 };
 
-struct SwinBlockSmem {
-  size_t ln1, qh, kv, logit, inv, xres, hid, obuf, stage, total;
-};
-
-// Shared-memory layout, computed the same way on the host and the device.
-// The attention buffers (ln1 .. inv) and the MLP buffers (xres, hid)
-// overlay each other; obuf (the head outputs, then LN2) and the GEMM staging
-// follow.
-__host__ __device__ inline SwinBlockSmem swin_block_smem(int rows_p, int d, int hd, int mp,
-                                                         int chunk) {
-  SwinBlockSmem s;
-  size_t o = 0;
-  s.ln1 = o;   o += align128((size_t)rows_p * (d + kWinPad) * 2);
-  s.qh = o;    o += align128((size_t)rows_p * (hd + kWinPad) * 2);
-  s.kv = o;    o += align128((size_t)mp * (hd + kWinPad) * 2);
-  s.logit = o; o += win_logit_bytes(rows_p, mp);
-  s.inv = o;   o += align128((size_t)rows_p * 4);
-  const size_t attn = o;
-  s.xres = 0;
-  s.hid = align128((size_t)rows_p * d * 4);
-  const size_t mlp = s.hid + align128((size_t)rows_p * (chunk + kWinPad) * 2);
-  o = attn > mlp ? attn : mlp;
-  s.obuf = o;  o += align128((size_t)rows_p * (d + kWinPad) * 2);
-  s.stage = o; o += kStageBytes;
-  s.total = o;
-  return s;
+// q | k | v = LN1(x) wqkv^T + bqkv, a 128 x 128 tile a block, row tile
+// major; each 8 columns go to their window slot.
+__global__ void __launch_bounds__(kGemmThreads, 1) swin_qkv_kernel(SwinBlockArgs a) {
+  extern __shared__ char smem_raw[];
+  char* smem = align1024(smem_raw);
+  const int n3 = 3 * a.d, ntiles = (n3 + kGemmTile - 1) / kGemmTile;
+  const int m0 = (blockIdx.x / ntiles) * kGemmTile, n0 = (blockIdx.x % ntiles) * kGemmTile;
+  float d[64];
+  mma_tile<false, false>(Mat{a.ln1, a.d, a.rows, a.d}, Mat{a.wqkv, a.d, n3, a.d}, m0, n0, 0,
+                         (a.d + kGemmChunk - 1) / kGemmChunk, smem_u32(smem), d);
+  const int hw = a.h * a.w;
+  store_tile(d, reinterpret_cast<float*>(smem), [&](int r, int c, float (&v)[8]) {
+    const int row = m0 + r, col = n0 + c;
+    if (row >= a.rows || col >= n3) return;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] += a.bqkv[col + e];
+    const int which = col / a.d, ch = col - which * a.d, head = ch / a.hd, dd = ch % a.hd;
+    const int slot = a.index[row % hw];
+    const size_t win = ((size_t)(row / hw) * a.nw + slot / a.ws2) * a.heads * a.ws2 * a.hd;
+    bf16* dst = which == 0 ? a.q : which == 1 ? a.k : a.v;
+    *reinterpret_cast<uint4*>(dst + win + (size_t)head * a.ws2 * a.hd +
+                              (size_t)(slot % a.ws2) * a.hd + dd) = pack_bf16x8(v);
+  });
 }
 
-__global__ void __launch_bounds__(kThreads) swin_block_kernel(SwinBlockArgs a) {
-  extern __shared__ __align__(128) char smem[];
-  const int ws = a.ws, rows = ws * ws, rows_p = round16(rows), d = a.d, hd = d / a.heads;
-  const int m = rows + a.t, mp = round16(m), ld = d + kWinPad, ldk = hd + kWinPad;
-  const int ldh = a.chunk + kWinPad;
-  const int b = blockIdx.y, wy = blockIdx.x / (a.w / ws), wx = blockIdx.x % (a.w / ws);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const SwinBlockSmem L = swin_block_smem(rows_p, d, hd, mp, a.chunk);
-  bf16* ln1 = reinterpret_cast<bf16*>(smem + L.ln1);
-  bf16* qh = reinterpret_cast<bf16*>(smem + L.qh);
-  bf16* kv = reinterpret_cast<bf16*>(smem + L.kv);
-  float* xres = reinterpret_cast<float*>(smem + L.xres);
-  bf16* hid = reinterpret_cast<bf16*>(smem + L.hid);
-  bf16* obuf = reinterpret_cast<bf16*>(smem + L.obuf);
-  float* stage = reinterpret_cast<float*>(smem + L.stage);
-  const size_t n = (size_t)a.h * a.w;
-  const bf16* xb = a.x + b * n * d;
-
-  // window row r (row-major in the window) -> its token in the un-rolled grid
-  auto token = [&](int r) {
-    const int y = (wy * ws + r / ws + a.shift) % a.h;
-    const int x = (wx * ws + r % ws + a.shift) % a.w;
-    return (size_t)y * a.w + x;
-  };
-  // Swin's region id along one axis of length len, at rolled position pos
-  auto region = [&](int pos, int len) {
-    return a.shift == 0 ? 0 : pos < len - ws ? 0 : pos < len - a.shift ? 1 : 2;
-  };
-
-  for (int r = warp; r < rows_p; r += kWarps) {
-    if (r < rows) {
-      layer_norm_row_global(xb + token(r) * d, d, a.ln1_w, a.ln1_b, a.eps1, ln1 + r * ld);
-    } else {
-      for (int c = lane; c < d; c += 32) ln1[r * ld + c] = __float2bfloat16(0.0f);
+// h = x + A wp^T + bp, a 128 x 128 tile a block, row tile major; A's rows
+// gathered from the window layout.
+__global__ void __launch_bounds__(kGemmThreads, 1) swin_proj_kernel(SwinBlockArgs a,
+                                                                    LnMlpArgs o) {
+  extern __shared__ char smem_raw[];
+  char* smem = align1024(smem_raw);
+  const int dtiles = (a.d + kGemmTile - 1) / kGemmTile, hw = a.h * a.w;
+  const int m0 = (blockIdx.x / dtiles) * kGemmTile, n0 = (blockIdx.x % dtiles) * kGemmTile;
+  auto load_a = [&](uint32_t dst, int k0) {
+    for (int i = threadIdx.x; i < kGemmTile * 8; i += kGemmThreads) {
+      const int r = i >> 3, c = i & 7, row = m0 + r, col = k0 + 8 * c;
+      const bool ok = row < a.rows && col < a.d;
+      const int slot = ok ? a.index[row % hw] : 0;
+      const size_t src = (((size_t)(row / hw) * a.nw + slot / a.ws2) * a.heads + col / a.hd) *
+                             a.ws2 * a.hd +
+                         (size_t)(slot % a.ws2) * a.hd + col % a.hd;
+      cp_async16_zfill(dst + tile_off<128>(r, c), ok ? a.attn + src : a.attn, ok);
     }
-  }
-  __syncthreads();
-
-  const bf16* ktb = a.kt + (size_t)b * a.t * d;
-  const bf16* vtb = a.vt + (size_t)b * a.t * d;
-  // one head's window K or V: LN1 . W[rows of the head] + bias, into kv
-  auto project = [&](const bf16* wm, const float* bias) {
-    gemm_bf16<true, 2>(ln1, ld, wm, d, rows_p, hd, d, stage, [&](int r, int c, float v) {
-      if (r < rows) kv[r * ldk + c] = __float2bfloat16(v + bias[c]);
-    });
   };
-  for (int h = 0; h < a.heads; ++h) {
-    gemm_bf16<true, 2>(ln1, ld, a.wq + (size_t)h * hd * d, d, rows_p, hd, d, stage,
-                       [&](int r, int c, float v) {
-                         qh[r * ldk + c] = __float2bfloat16(v + a.bq[h * hd + c]);
-                       });
-    window_attention(
-        qh, kv, ldk, rows, m, hd, reinterpret_cast<float*>(smem + L.logit),
-        reinterpret_cast<float*>(smem + L.inv), stage, a.scale,
-        [&] {
-          project(a.wkv + (size_t)h * hd * d, a.bkv + h * hd);
-          load_rows_async(kv + (size_t)rows * ldk, ldk, ktb + h * hd, d, a.t, hd);
-        },
-        [&] {
-          project(a.wkv + (size_t)(d + h * hd) * d, a.bkv + d + h * hd);
-          load_rows_async(kv + (size_t)rows * ldk, ldk, vtb + h * hd, d, a.t, hd);
-        },
-        [&](int r, int c) -> float {
-          if (c >= rows) return 0.0f;   // text columns
-          const int iq = r / ws, jq = r % ws, ik = c / ws, jk = c % ws;
-          if (region(wy * ws + iq, a.h) != region(wy * ws + ik, a.h) ||
-              region(wx * ws + jq, a.w) != region(wx * ws + jk, a.w))
-            return -INFINITY;
-          return a.rel[((iq - ik + ws - 1) * (2 * ws - 1) + (jq - jk + ws - 1)) * a.heads + h];
-        },
-        [&](int r, int c, float v) { obuf[r * ld + h * hd + c] = __float2bfloat16(v); });
-  }
-
-  // ---- out-projection onto the fp32 residual (over the attention buffers) ----
-  for (int i = threadIdx.x * 8; i < rows_p * d; i += kThreads * 8) {
-    const int r = i / d, c = i - r * d;
-    uint4 raw = make_uint4(0, 0, 0, 0);
-    if (r < rows) raw = *reinterpret_cast<const uint4*>(xb + token(r) * d + c);
-    const bf16* e = reinterpret_cast<const bf16*>(&raw);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) xres[i + j] = __bfloat162float(e[j]);
-  }
-  __syncthreads();
-  gemm_bf16<true, 2>(obuf, ld, a.wp, d, rows_p, d, d, stage,
-                     [&](int r, int c, float v) { xres[r * d + c] += v + a.bp[c]; });
-  __syncthreads();
-
-  // ---- MLP half, the hidden in chunks ----
-  for (int r = warp; r < rows_p; r += kWarps) {
-    const float* row = xres + (size_t)r * d;
-    layer_norm_row([&](int c) { return row[c]; }, d, a.ln2_w, a.ln2_b, a.eps2, obuf + r * ld);
-  }
-  __syncthreads();
-  for (int c0 = 0; c0 < a.hidden; c0 += a.chunk) {
-    const int cw = min(a.chunk, a.hidden - c0);
-    gemm_bf16<true, 2>(obuf, ld, a.w1 + (size_t)c0 * d, d, rows_p, cw, d, stage,
-                       [&](int r, int c, float v) {
-                         hid[r * ldh + c] = __float2bfloat16(gelu_erf(v + a.b1[c0 + c]));
-                       });
-    __syncthreads();
-    gemm_bf16<true, 2>(hid, ldh, a.w2 + c0, a.hidden, rows_p, d, cw, stage,
-                       [&](int r, int c, float v) { xres[r * d + c] += v; });
-    __syncthreads();
-  }
-
-  bf16* ob = a.out + b * n * d;
-  for (int i = threadIdx.x * 8; i < rows * d; i += kThreads * 8) {
-    const int r = i / d, c = i - r * d;
-    uint4 raw;
-    bf16* e = reinterpret_cast<bf16*>(&raw);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) e[j] = __float2bfloat16(xres[i + j] + a.b2[c + j]);
-    *reinterpret_cast<uint4*>(ob + token(r) * d + c) = raw;
-  }
+  float d[64];
+  mma_tile_from<false, false>(load_a, Mat{o.w2, a.d, a.d, a.d}, n0, 0,
+                              (a.d + kGemmChunk - 1) / kGemmChunk, smem_u32(smem), d);
+  store_tile(d, reinterpret_cast<float*>(smem), [&](int r, int c, float (&v)[8]) {
+    if (m0 + r < a.rows && n0 + c < a.d) store_out<SwinBlockRoute>(o, m0 + r, n0 + c, v);
+  });
 }
 
 // Pooled LN1 rows: one warp per cell of the (h/p) x (w/p) pooled grid sums
@@ -244,53 +161,84 @@ __global__ void __launch_bounds__(kThreads) swin_pool_kernel(SwinBlockArgs a) {
 }  // namespace
 }  // namespace mvlt
 
-// C entry, bound with ctypes. Launches both kernels on `stream` and returns
-// the first failing cudaError_t (0 on success); it does not synchronise.
-extern "C" int mvlt_swin_block(const void* x, const void* kt, const void* vt, const void* rel,
-                               const void* ln1_w, const void* ln1_b, const void* wq,
-                               const void* bq, const void* wkv, const void* bkv,
-                               const void* wp, const void* bp, const void* ln2_w,
-                               const void* ln2_b, const void* w1, const void* b1,
-                               const void* w2, const void* b2, void* out, void* pooled,
-                               int batch, int h, int w, int d, int heads, int t, int hidden,
-                               int ws, int shift, int pool, float scale, float eps1, float eps2,
-                               void* stream) {
+// C entry, bound with ctypes. Launches the chain on `stream` and returns the
+// first failing cudaError_t (0 on success); it does not synchronise. The
+// window ws divides h and w, ws^2 <= 64 and ws^2 + T <= 512, head dim 32 or
+// 64 (kernel F's), the pool divides h and w, C <= 512 and hidden multiples of
+// 16. `table` and `index` as the header says; per_block and wgs kernel F's
+// plan (ops/swin_attention.py:plan). `scratch` holds LN1(x) [rows, C] (then
+// #12's LN2(h)), h [rows, C], then q, k, v and the attention output [rows,
+// C] each, whose space #12's hidden [rows, hidden] takes over at C > 128:
+// rows * (2 C + max(4 C, hidden)) bf16 (ops/swin_band.py:scratch_elems).
+extern "C" int mvlt_swin_block(const void* x, const void* kt, const void* vt, const void* table,
+                               const void* index, const void* ln1_w, const void* ln1_b,
+                               const void* wqkv, const void* bqkv, const void* wp, const void* bp,
+                               const void* ln2_w, const void* ln2_b, const void* w1,
+                               const void* b1, const void* w2, const void* b2, void* out,
+                               void* pooled, void* scratch, int batch, int h, int w, int d,
+                               int heads, int t, int hidden, int ws, int pool, int per_block,
+                               int wgs, float scale, float eps1, float eps2, void* stream) {
   using namespace mvlt;
-  const int rows_p = round16(ws * ws), mp = round16(ws * ws + t), hd = d / heads;
-  if (ws * ws + t > kMaxKeys || d > 32 * kMaxPerLane || h % ws || w % ws || h % pool ||
-      w % pool)
-    return (int)cudaErrorInvalidConfiguration;
-  int chunk = 0;
-  size_t bytes = 0;
-  for (int cand : {256, 128, 64}) {
-    const int c = hidden < cand ? hidden : cand;
-    bytes = swin_block_smem(rows_p, d, hd, mp, c).total;
-    if (bytes <= kSmemLimit) {
-      chunk = c;
-      break;
-    }
-  }
-  if (!chunk) return (int)cudaErrorInvalidConfiguration;
-  cudaError_t err = cudaFuncSetAttribute(
-      swin_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  const SwinBlockArgs a{
-      static_cast<const bf16*>(x),     static_cast<const bf16*>(kt),
-      static_cast<const bf16*>(vt),    static_cast<const float*>(rel),
-      static_cast<const float*>(ln1_w), static_cast<const float*>(ln1_b),
-      static_cast<const bf16*>(wq),    static_cast<const float*>(bq),
-      static_cast<const bf16*>(wkv),   static_cast<const float*>(bkv),
-      static_cast<const bf16*>(wp),    static_cast<const float*>(bp),
-      static_cast<const float*>(ln2_w), static_cast<const float*>(ln2_b),
-      static_cast<const bf16*>(w1),    static_cast<const float*>(b1),
-      static_cast<const bf16*>(w2),    static_cast<const float*>(b2),
-      static_cast<bf16*>(out),         static_cast<bf16*>(pooled),
-      h, w, d, heads, t, hidden, ws, shift, pool, chunk, scale, eps1, eps2};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  swin_block_kernel<<<dim3((h / ws) * (w / ws), batch), kThreads, bytes, s>>>(a);
-  err = cudaGetLastError();
+  const int hw = h * w, ws2 = ws * ws, hd = heads > 0 ? d / heads : 0;
+  const long long rows = (long long)batch * hw;
+  if (batch < 1 || ws < 1 || h % ws || w % ws || pool < 1 || h % pool || w % pool ||
+      d > 32 * kMaxPerLane || d % 16 || hidden % 16 || heads < 1 || d % heads ||
+      (hd != 32 && hd != 64) || rows > (1LL << 30))
+    return (int)cudaErrorInvalidValue;
+  bf16* ln1 = static_cast<bf16*>(scratch);
+  bf16* hres = ln1 + rows * d;
+  bf16* qkv = hres + rows * d;
+  SwinBlockArgs a{static_cast<const bf16*>(x),
+                  ln1,
+                  static_cast<const float*>(ln1_w),
+                  static_cast<const float*>(ln1_b),
+                  static_cast<bf16*>(pooled),
+                  static_cast<const int*>(index),
+                  static_cast<const bf16*>(wqkv),
+                  static_cast<const float*>(bqkv),
+                  qkv,
+                  qkv + rows * d,
+                  qkv + 2 * rows * d,
+                  qkv + 3 * rows * d,
+                  h,
+                  w,
+                  d,
+                  heads,
+                  hd,
+                  (h / ws) * (w / ws),
+                  ws2,
+                  pool,
+                  (int)rows,
+                  eps1};
+  // LN1 and the out-projection's epilogue (x + v + bp into h) on #12's args
+  const LnMlpArgs ln{static_cast<const bf16*>(x), static_cast<const float*>(ln1_w),
+                     static_cast<const float*>(ln1_b), nullptr, nullptr,
+                     static_cast<const bf16*>(wp), static_cast<const float*>(bp), nullptr, hres,
+                     ln1, nullptr, (int)rows, hw, d, 16, eps1};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = ln_mlp_fwd_norm<SwinBlockRoute>(ln, st);
   if (err != cudaSuccess) return (int)err;
   const int cells = (h / pool) * (w / pool);
-  swin_pool_kernel<<<dim3((cells + kWarps - 1) / kWarps, batch), kThreads, 0, s>>>(a);
-  return (int)cudaGetLastError();
+  swin_pool_kernel<<<dim3((cells + kWarps - 1) / kWarps, batch), kThreads, 0, st>>>(a);
+  for (const void* k : {(const void*)swin_qkv_kernel, (const void*)swin_proj_kernel})
+    if (err == cudaSuccess) err = allow_dynamic_smem(k, hopper::kGemmSmem);
+  if (err == cudaSuccess) err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int row_tiles = (int)((rows + hopper::kGemmTile - 1) / hopper::kGemmTile);
+  const int tiles = (d + hopper::kGemmTile - 1) / hopper::kGemmTile;
+  const size_t smem = hopper::gemm_smem((d + hopper::kGemmChunk - 1) / hopper::kGemmChunk);
+  swin_qkv_kernel<<<row_tiles * ((3 * d + hopper::kGemmTile - 1) / hopper::kGemmTile),
+                    hopper::kGemmThreads, smem, st>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const long long txt_strides[3] = {(long long)t * d, hd, d};
+  err = (cudaError_t)mvlt_swin_attention(a.q, a.k, a.v, kt, vt, table, qkv + 3 * rows * d,
+                                         txt_strides, batch, a.nw, heads, ws2, t, hd, per_block,
+                                         wgs, 1, scale, stream);
+  if (err != cudaSuccess) return (int)err;
+  swin_proj_kernel<<<row_tiles * tiles, hopper::kGemmThreads, smem, st>>>(a, ln);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return mvlt_ln_mlp_fwd(hres, ln2_w, ln2_b, w1, b1, w2, b2, nullptr, out, ln1, qkv, rows, hw, d,
+                         hidden, d <= 128, 1, eps2, stream);
 }

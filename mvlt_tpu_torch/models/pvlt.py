@@ -193,7 +193,7 @@ register_optimizer_step_post_hook(_count_optimizer_step)
 
 class CastOperands:
     """The cache of a block's serving operands: ``kernel_params`` cast by
-    ``kernel_operand``."""
+    ``kernel_operand``, and tables made from them (``kernel_table``)."""
 
     _operands = None
 
@@ -207,8 +207,17 @@ class CastOperands:
                  *((p.device, p.data_ptr(), p._version) for p in self.parameters()))
         if self._operands is None or self._operands[0] != stamp:
             self._operands = (stamp, tuple(tuple(kernel_operand(t, dtype) for t in group)
-                                           for group in self.kernel_params()))
+                                           for group in self.kernel_params()), {})
         return self._operands[1]
+
+    def kernel_table(self, dtype: torch.dtype, key, make):
+        """``make()``, made once per ``key`` beside the operands cast to
+        ``dtype`` and again whenever they are re-cast."""
+        self.kernel_operands(dtype)
+        tables = self._operands[2]
+        if key not in tables:
+            tables[key] = make()
+        return tables[key]
 
     def _apply(self, fn, *args, **kwargs):
         self._operands = None
@@ -392,14 +401,18 @@ class SwinBlock(CastOperands, nn.Module):
     def band_forward(self, xv: torch.Tensor, xt: torch.Tensor, hw: tuple, *,
                      block=fused_swin_block):
         """The split stream's block: kernel E (``block``, its wrapper; a check
-        passes its plain version) on the visual rows, the text rows in
-        PyTorch on the pooled LN1 rows it returns."""
+        passes its plain version) on the visual rows, with the additive
+        table cached beside the operands, the text rows in PyTorch on the
+        pooled LN1 rows it returns."""
         ops = self.kernel_operands(xv.dtype)[0]
         _, _, _, _, wkv, bkv, wp, bp, g2, be2, w1, b1, w2, b2 = ops
         c, nh = xv.shape[-1], self.num_heads
         q_t, k_t, v_t = self.text_qkv(xt)
+        t = xt.shape[1]
+        table = self.kernel_table(xv.dtype, ("band", tuple(hw), t),
+                                  lambda: self.attn.add_table(hw, t).contiguous())
         out_vis, pooled = block(xv, k_t, v_t, self.attn.relative_position_bias_table, *ops,
-                                **self.kernel_kwargs(hw))
+                                **self.kernel_kwargs(hw), table=table)
         # pool(LN1) then project equals project then pool: the projection is affine
         kv_p = linear(pooled, wkv, bkv)
         k_cat = torch.cat([heads_of(kv_p[..., :c], nh), heads_of(k_t, nh)], dim=-2)

@@ -41,15 +41,15 @@ _SIGNATURES = {
     "mvlt_block_attention": [_P] * 10 + [_I] * 5 + [_F, _F, _P],
     "mvlt_fba_fwd": [_P] * 12 + [_I] * 5 + [_F, _F, _P],
     "mvlt_fba_bwd": [_P] * 31 + [_I] * 8 + [_F, _F, _P],
-    "mvlt_dwconv_mlp": [_P] * 10 + [_I] * 6 + [_F, _P],
+    "mvlt_dwconv_mlp": [_P] * 11 + [_I] * 6 + [_F, _P],
     "mvlt_attention_fwd": [_P] * 5 + [_STRIDES] + [_I] * 5 + [_F, _P],
     "mvlt_attention_bwd": [_P] * 11 + [_STRIDES] + [_I] * 6 + [_F, _P],
-    "mvlt_ln_mlp_fwd": [_P] * 11 + [_L] + [_I] * 4 + [_F, _P],
+    "mvlt_ln_mlp_fwd": [_P] * 11 + [_L] + [_I] * 5 + [_F, _P],
     "mvlt_ln_mlp_bwd": [_P] * 24 + [_L] + [_I] * 4 + [_F, _P],
     "mvlt_mlm_ce_fwd": [_P] * 7 + [_I] * 3 + [_P],
     "mvlt_mlm_ce_bwd": [_P] * 12 + [_I] * 4 + [_P],
-    "mvlt_swin_attention": [_P] * 7 + [_I] * 8 + [_F, _P],
-    "mvlt_swin_block": [_P] * 20 + [_I] * 10 + [_F] * 3 + [_P],
+    "mvlt_swin_attention": [_P] * 7 + [_STRIDES] + [_I] * 9 + [_F, _P],
+    "mvlt_swin_block": [_P] * 20 + [_I] * 11 + [_F] * 3 + [_P],
 }
 
 

@@ -7,8 +7,9 @@ mvlt_tpu/models/pvlt.py:DWConvMlp). The first h*w rows of the stream are the
 visual grid in row-major (y, x) order: they go through the conv (zero
 padding at the grid's borders) and its bias; the T text rows after them
 skip both. ``dwconv_mlp_reference`` is the plain version; ``fused_dwconv_mlp``
-takes it for a CPU tensor and launches the Hopper kernel (csrc/dwconv_mlp.cu)
-for a CUDA tensor, or raises.
+takes it for a CPU tensor and launches kernel D (csrc/dwconv_mlp.cu: LN2 and
+fc1 on #12's kernels, the conv and GELU, fc2 and the residual) for a CUDA
+tensor, or raises.
 """
 
 from __future__ import annotations
@@ -38,12 +39,20 @@ def dwconv_mlp_reference(x, hw, ln2_weight, ln2_bias, w1, b1, dw_weight, dw_bias
     return (x.to(acc) + y.to(acc)).to(x.dtype)
 
 
+def scratch_elems(rows: int, d: int, hidden: int) -> int:
+    """bf16 elements of kernel D's scratch: fc1's output H1 [rows, hidden],
+    then LN2(x) [rows, D], whose space the GELU output G [rows, hidden]
+    takes over (csrc/dwconv_mlp.cu's C entry)."""
+    return rows * (hidden + max(d, hidden))
+
+
 def fused_dwconv_mlp(x, hw, ln2_weight, ln2_bias, w1, b1, dw_weight, dw_bias, w2, b2, *,
                      eps: float) -> torch.Tensor:
     """The MLP half of one v2 block. A CPU tensor takes
     ``dwconv_mlp_reference``; a CUDA tensor (bf16, contiguous, D <= 512 and
-    the hidden width multiples of 16) launches kernel D, and anything else
-    raises. ``fused_dwconv_mlp.launches`` counts the kernel launches."""
+    the hidden width multiples of 16) launches kernel D's chain, and
+    anything else raises.
+    ``fused_dwconv_mlp.launches`` counts the calls that launch it."""
     if x.device.type == "cpu":
         return dwconv_mlp_reference(x, hw, ln2_weight, ln2_bias, w1, b1, dw_weight, dw_bias,
                                     w2, b2, eps=eps)
@@ -65,12 +74,13 @@ def fused_dwconv_mlp(x, hw, ln2_weight, ln2_bias, w1, b1, dw_weight, dw_bias, w2
     g2, be2 = vec(name, ln2_weight, d, dev), vec(name, ln2_bias, d, dev)
     b1_, bdw = vec(name, b1, hidden, dev), vec(name, dw_bias, hidden, dev)
     b2_ = vec(name, b2, d, dev)
+    scratch = torch.empty(scratch_elems(b * n, d, hidden), dtype=torch.bfloat16, device=dev)
     out = torch.empty_like(x)
-    lib = _build.load_library()
-    err = lib.mvlt_dwconv_mlp(
+    err = _build.load_library().mvlt_dwconv_mlp(
         x.data_ptr(), g2.data_ptr(), be2.data_ptr(), w1_.data_ptr(), b1_.data_ptr(),
         wdw.data_ptr(), bdw.data_ptr(), w2_.data_ptr(), b2_.data_ptr(), out.data_ptr(),
-        b, h, w, t, d, hidden, eps, torch.cuda.current_stream(dev).cuda_stream)
+        scratch.data_ptr(), b, h, w, t, d, hidden, eps,
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(name, err)
     fused_dwconv_mlp.launches += 1
     return out

@@ -88,8 +88,8 @@ def fused_swin_attention(q_win, k_win, v_win, k_txt, v_txt, add_table, *,
     wgs, per_block = plan(b, nw, nh, _build.sm_count(dev.index))
     err = _build.load_library().mvlt_swin_attention(
         q_win.data_ptr(), k_win.data_ptr(), v_win.data_ptr(), k_txt.data_ptr(),
-        v_txt.data_ptr(), table.data_ptr(), out.data_ptr(), b, nw, nh, ws2, t, hd, per_block,
-        wgs, scale, torch.cuda.current_stream(dev).cuda_stream)
+        v_txt.data_ptr(), table.data_ptr(), out.data_ptr(), _build.strides_arg(k_txt), b, nw,
+        nh, ws2, t, hd, per_block, wgs, 0, scale, torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(name, err)
     fused_swin_attention.launches += 1
     return out

@@ -60,7 +60,7 @@ def ln_mlp_fwd_form(fused: bool, x, gamma, beta, w1, b1, w2, b2, row_scale, eps)
     err = _build.load_library().mvlt_ln_mlp_fwd(
         x.data_ptr(), g.data_ptr(), be.data_ptr(), w1_.data_ptr(), b1_.data_ptr(),
         w2_.data_ptr(), b2_.data_ptr(), s.data_ptr(), out.data_ptr(),
-        *(t.data_ptr() for t in scratch), b * n, n, d, w1.shape[0], int(fused), eps,
+        *(t.data_ptr() for t in scratch), b * n, n, d, w1.shape[0], int(fused), 0, eps,
         torch.cuda.current_stream().cuda_stream)
     _build.check_launch("probe", err)
     return out

@@ -22,6 +22,7 @@ import torch
 
 from mvlt_tpu_torch.config import LossType, ModelConfig
 from mvlt_tpu_torch.models.pvlt import create_model
+from mvlt_tpu_torch.models.swin import add_table, relative_position_index, window_masks
 from mvlt_tpu_torch.ops import _build
 from mvlt_tpu_torch.ops.swin_attention import fused_swin_attention, swin_attention_reference
 from mvlt_tpu_torch.ops.swin_band import fused_swin_block, swin_block_reference
@@ -64,7 +65,9 @@ def main() -> None:
             kt, vt = rnd(b, 128, d).to(torch.bfloat16), rnd(b, 128, d).to(torch.bfloat16)
             kw = dict(hw=(h, w), heads=nh, window=ws, shift=shift, pool=max(1, h // 8),
                       eps1=1e-6, eps2=1e-6)
-            out, pooled = fused_swin_block(x, kt, vt, *p, **kw)
+            table = add_table(p[0], torch.from_numpy(relative_position_index(ws)).to(dev),
+                              torch.from_numpy(window_masks(h, w, ws, shift)).to(dev), 128)
+            out, pooled = fused_swin_block(x, kt, vt, *p, **kw, table=table)
             ro, rp = swin_block_reference(x, kt, vt, *p, **kw)
             torch.cuda.synchronize()
             print(json.dumps({"E": [h, w, d, nh, b, shift], "out": rel(out, ro),

@@ -16,7 +16,12 @@ LN-MLP kernels at the four stage widths, rows off the tile, D = 96, D =
 128 and 144 (the forward's one-launch and three-launch forms side by side),
 and the largest stage with one and two row ranges of the weight gradients, the v2 kernels on grids of odd
 sizes, one wider than 128, no text rows and a hidden width off the chunk,
-the Swin kernels at windows of 4 and 6 (36 rows, off the 16-row tile), grids
+kernel D's chain on grids with h != w, w = 7, no or ragged text rows, hidden
+1,280 and the stage-1 shape, kernel E's chain at the Swin stage shapes of
+windows of 8 (two, five and eight heads, one window a sample, shifted and
+not) and h != w, each with the wrappers' launch counts (D and E run #12's
+and F's kernels through C, so those counts stay), the Swin kernels at
+windows of 4 and 6 (36 rows, off the 16-row tile), grids
 with h != w, pool windows of 2, T = 7 and a head dim of 32, a Swin block
 on both of its routes, kernel F at ws^2 16, 36, 49 and 64, T 7, 20, 128
 and 300, head dims 32 and 64, one and two warpgroups, looping warpgroups,
@@ -580,6 +585,36 @@ def test_v2_wrappers_refuse_what_the_kernels_do_not_take(dev):
         blk.train()(x, hw)
 
 
+def _launch_counts():
+    return {"D": fused_dwconv_mlp.launches, "E": fused_swin_block.launches,
+            "F": fused_swin_attention.launches, "ln_mlp_fwd": ln_mlp_fwd.launches}
+
+
+@pytest.mark.parametrize("hw,dim,hidden,t,batch", [
+    ((6, 10), 64, 256, 0, 2),        # h != w, no text rows
+    ((7, 7), 128, 512, 5, 2),        # w = 7: a grid row off a 16-row step; ragged T
+    ((9, 13), 96, 384, 3, 3),        # odd sides, ragged T
+    ((16, 16), 320, 1280, 128, 2),   # stage 3: hidden 1,280, not a power of two
+    ((64, 64), 64, 512, 128, 2),     # stage 1, the shape of Pallas #17
+])
+def test_dwconv_mlp_chain_matches_plain(dev, hw, dim, hidden, t, batch):
+    """Kernel D's chain against its plain version; the wrapper's count moves
+    by one and E's, F's and #12's wrappers' counts not at all (D runs #12's
+    kernels through C)."""
+    gen = torch.Generator().manual_seed(dim + t)
+    rnd = lambda *s, std=1.0: (std * torch.randn(*s, generator=gen)).to(dev)
+    params = (1.0 + rnd(dim, std=0.1), rnd(dim, std=0.1), rnd(hidden, dim, std=dim ** -0.5),
+              rnd(hidden, std=0.05), rnd(hidden, 1, 3, 3, std=1 / 3), rnd(hidden, std=0.1),
+              rnd(dim, hidden, std=hidden ** -0.5), rnd(dim, std=0.05))
+    x = torch.randn(batch, hw[0] * hw[1] + t, dim, generator=gen).to(dev, torch.bfloat16)
+    before = _launch_counts()
+    got = fused_dwconv_mlp(x, hw, *params, eps=1e-6)
+    want = dwconv_mlp_reference(x, hw, *params, eps=1e-6)
+    torch.cuda.synchronize()
+    assert _launch_counts() == {**before, "D": before["D"] + 1}
+    assert torch.isfinite(got.float()).all() and _rel(got, want) <= TOL
+
+
 def _swin_block(dim, heads, mlp_ratio, ws, shift, dev, seed):
     """A port SwinBlock in eval mode with every parameter perturbed, its
     bias table at std 0.5, no gradient wanted."""
@@ -612,7 +647,7 @@ def test_swin_kernels_match_plain(dev, hw, dim, heads, mlp_ratio, ws, shift, t, 
     kw = blk.kernel_kwargs(hw)
     with torch.no_grad():
         launches = fused_swin_block.launches
-        out, pooled = fused_swin_block(*args, **kw)
+        out, pooled = fused_swin_block(*args, **kw, table=blk.attn.add_table(hw, t))
         want_out, want_pooled = swin_block_reference(*args, **kw)
         torch.cuda.synchronize()
         assert fused_swin_block.launches == launches + 1
@@ -623,6 +658,41 @@ def test_swin_kernels_match_plain(dev, hw, dim, heads, mlp_ratio, ws, shift, t, 
         torch.cuda.synchronize()
     assert torch.isfinite(vis.float()).all() and torch.isfinite(txt.float()).all()
     assert _rel(joint[:, : h * w], vis) <= 3 * TOL and _rel(joint[:, h * w:], txt) <= 3 * TOL
+
+
+@pytest.mark.parametrize("hw,dim,heads,mlp_ratio,shift,t,batch", [
+    ((32, 32), 128, 2, 4.0, True, 128, 2),    # stage 2 at 256: two heads, shifted
+    ((16, 16), 320, 5, 4.0, True, 128, 2),    # stage 3: five heads, #12 in three launches
+    ((8, 8), 512, 8, 4.0, False, 128, 2),     # stage 4: one window a sample, pool 1
+    ((8, 8), 512, 8, 4.0, True, 20, 3),       # one window, shifted (regions in one window)
+    ((16, 24), 96, 3, 4.0, True, 7, 2),       # h != w, head dim 32, ragged T
+])
+def test_swin_block_chain_matches_plain(dev, hw, dim, heads, mlp_ratio, shift, t, batch):
+    """Kernel E (windows of 8) against its plain version, both outputs; E's
+    count moves by one and F's, #12's and D's wrappers' counts not at all (E
+    runs their kernels through C). Then the Block on the split stream (its
+    cached table) against the plain version."""
+    blk = _swin_block(dim, heads, mlp_ratio, 8, shift, dev, seed=dim + t)
+    gen = torch.Generator().manual_seed(t + heads)
+    h, w = hw
+    xv = torch.randn(batch, h * w, dim, generator=gen).to(dev, torch.bfloat16)
+    xt = torch.randn(batch, t, dim, generator=gen).to(dev, torch.bfloat16)
+    kt, vt = (torch.randn(batch, t, dim, generator=gen).to(dev, torch.bfloat16)
+              for _ in range(2))
+    args = (xv, kt, vt, blk.attn.relative_position_bias_table, *blk.kernel_params()[0])
+    kw = blk.kernel_kwargs(hw)
+    with torch.no_grad():
+        before = _launch_counts()
+        out, pooled = fused_swin_block(*args, **kw, table=blk.attn.add_table(hw, t))
+        want_out, want_pooled = swin_block_reference(*args, **kw)
+        torch.cuda.synchronize()
+        assert _launch_counts() == {**before, "E": before["E"] + 1}
+        assert _rel(out, want_out) <= TOL and _rel(pooled, want_pooled) <= TOL
+        vis, txt = blk((xv, xt), hw)
+        want = blk.band_forward(xv, xt, hw, block=lambda *a, table, **k:
+                                swin_block_reference(*a, **k))
+        torch.cuda.synchronize()
+    assert _rel(vis, want[0]) <= TOL and _rel(txt, want[1]) <= TOL
 
 
 @pytest.mark.parametrize("nw,heads,ws2,t,hd,batch", [
@@ -681,7 +751,7 @@ def test_swin_wrappers_refuse_what_the_kernels_do_not_take(dev):
     xv = torch.randn(2, 64, 64, device=dev).to(torch.bfloat16)
     kt = torch.randn(2, t, 64, device=dev).to(torch.bfloat16)
     params = (blk.attn.relative_position_bias_table, *blk.kernel_params()[0])
-    kw = blk.kernel_kwargs(hw)
+    kw = {**blk.kernel_kwargs(hw), "table": blk.attn.add_table(hw, t)}
     with torch.no_grad():
         with pytest.raises(ValueError, match="bfloat16"):
             fused_swin_block(xv.float(), kt, kt, *params, **kw)
@@ -693,6 +763,12 @@ def test_swin_wrappers_refuse_what_the_kernels_do_not_take(dev):
             fused_swin_block(xv, kt, kt, *params, **{**kw, "pool": 3})
         with pytest.raises(ValueError, match="rel_table"):
             fused_swin_block(xv, kt, kt, params[0][:-1], *params[1:], **kw)
+        with pytest.raises(ValueError, match="unsupported shape"):   # head dim 16
+            fused_swin_block(xv, kt, kt, params[0].repeat(1, 2), *params[1:],
+                             **{**kw, "heads": 4})
+        with pytest.raises(ValueError, match="table must be"):
+            fused_swin_block(xv, kt, kt, *params,
+                             **{**kw, "table": torch.zeros(4, 2, 16, 16, device=dev)})
         q = torch.zeros(2, 4, 2, 16, 32, device=dev, dtype=torch.bfloat16)
         kt4 = torch.zeros(2, 2, t, 32, device=dev, dtype=torch.bfloat16)
         table = torch.zeros(4, 2, 16, 16 + t, device=dev)

@@ -58,6 +58,14 @@ def _grid_table(gen, hw, ws, shift, nh, t):
     return port_swin.add_table(rel, index, mask, t).numpy()
 
 
+def _port_table(rel, hw, ws, shift, t):
+    """``rel``'s additive table on a grid, as a SwinBlock hands it to kernel E
+    (the plain version, which a CPU tensor takes, builds its own)."""
+    return port_swin.add_table(torch.from_numpy(rel),
+                               torch.from_numpy(port_swin.relative_position_index(ws)),
+                               torch.from_numpy(port_swin.window_masks(*hw, ws, shift)), t)
+
+
 ATTN_CASES = ["nw4_paired", "nw4_single", "nw3", "padded_shifted", "window7_hd32"]
 
 
@@ -182,7 +190,7 @@ def test_swin_block_reference_matches_band_pallas(hw, ws, shift, c, nh, hidden, 
         tt(np.concatenate([p["bk"], p["bv"]])), tl(p["wp"]), tt(p["bp"]),
         tt(p["ln2_scale"]), tt(p["ln2_bias"]), tl(p["w1"]), tt(p["b1"]), tl(p["w2"]),
         tt(p["b2"]), hw=hw, heads=nh, window=ws, shift=ws // 2 if shift else 0, pool=win,
-        eps1=1e-6, eps2=1e-6)
+        eps1=1e-6, eps2=1e-6, table=_port_table(p["rel"], hw, ws, ws // 2 if shift else 0, t))
     assert got_pooled.shape == (2, (h // win) * (w // win), c)
     np.testing.assert_allclose(got_out.numpy(), want_out, **TOL)
     np.testing.assert_allclose(got_pooled.numpy(), want_pooled, **TOL)
