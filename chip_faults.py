@@ -8,13 +8,20 @@ run from the root of a checkout on a machine with a CUDA card and nvcc, as
 chip_smoke.py is. For each fault it copies ``mvlt_tpu_torch/`` and
 ``chip_smoke.py`` into ``build/planted_faults/<fault>/``, rewrites one line
 of a kernel source there, runs the chip_smoke phase that checks that kernel
-(``v2_kernels``, ``swin_kernels``, ``fba_train_kernels``, ``train_kernels``
-or ``mlm_kernels``) in that copy (its kernels built from the
+(``kernels``, ``v2_kernels``, ``swin_kernels``, ``fba_train_kernels``,
+``train_kernels`` or ``mlm_kernels``) in that copy (its kernels built from the
 changed source), and then, with the bound lifted, prints every check's error
 at the B = 4 shapes. The copy is removed afterwards; the sources of the
 checkout are never changed. It exits non-zero if a fault passes the phase.
 
-Faults, kernel D's conv (csrc/dwconv_mlp.cu:dwconv_stencil_kernel), phase
+Faults, kernel B's chain (csrc/block_fused.cu on csrc/attn_chain.cuh),
+phase kernels:
+  a_head_stride    the [B, H, N, hd] view of the attention output steps
+                   hd / 2 columns a head instead of hd (seen only with more
+                   than one head);
+  mlp_reads_x      the MLP half's LN2 and residual read the block's input x
+                   instead of h.
+Kernel D's conv (csrc/dwconv_mlp.cu:dwconv_stencil_kernel), phase
 v2_kernels:
   halo_wrap        a token's left and right neighbours bounded by the flat
                    row index within the grid, so they wrap into the previous
@@ -30,6 +37,14 @@ Kernel E's chain (csrc/swin_block.cu, ops/swin_band.py) and kernel F
                    ws^2 x hd (seen only with more than one head);
   table_off_window F reads the additive table of the next window;
   text_other_sample F reads the next sample's text K/V.
+The fused attention half's forward (the chain of csrc/attn_chain.cuh under
+FbaFwdRoute: #12's kernels, #10's forward in its statistics mode), phase
+fba_train_kernels:
+  fwd_row_scale_first_row  the out-projection's epilogue takes the DropPath
+                   scale of its tile's first row (seen where a 128-row tile
+                   spans two samples of different scales);
+  stats_max_log2   the statistics' row max written in exp2 units (times
+                   log2 e), not natural ones.
 The fused attention half's backward (csrc/block_attention_train.cu, its
 attention core on csrc/attention.cu), phase fba_train_kernels:
   dk_one_tile      dK keeps only one q tile's dS^T Q (its sum restarts on
@@ -85,6 +100,22 @@ import textwrap
 
 ROOT = pathlib.Path(__file__).resolve().parent
 FAULTS = {
+    "a_head_stride": (
+        "kernels", "mvlt_tpu_torch/csrc/attn_chain.cuh",
+        "const long long view_a[3] = {(long long)h.n * d, hd, d};",
+        "const long long view_a[3] = {(long long)h.n * d, hd / 2, d};"),
+    "mlp_reads_x": (
+        "kernels", "mvlt_tpu_torch/csrc/block_fused.cu",
+        "return mvlt_ln_mlp_fwd(h, ln2_w,",
+        "return mvlt_ln_mlp_fwd(x, ln2_w,"),
+    "fwd_row_scale_first_row": (
+        "fba_train_kernels", "mvlt_tpu_torch/csrc/ln_mlp.cuh",
+        "a.s[row / a.n]",
+        "a.s[(row & ~(hopper::kGemmTile - 1)) / a.n]"),
+    "stats_max_log2": (
+        "fba_train_kernels", "mvlt_tpu_torch/csrc/attention.cu",
+        "make_float2(m0 * kLn2, i0)",
+        "make_float2(m0, i0)"),
     "halo_wrap": (
         "v2_kernels", "mvlt_tpu_torch/csrc/dwconv_mlp.cu",
         "const bool in = xx >= 0 && xx < a.w;",
@@ -185,6 +216,14 @@ FAULTS = {
 }
 # per phase: the checks at B = 4 that print each error with the bound lifted
 MARGINS = {
+    "kernels": """
+gen = torch.Generator().manual_seed(c.SEED)
+shapes = [(f"stage{i + 1}", (h, w, d, nh, sr, hid, c.TEXT))
+          for i, (h, w, d, nh, sr, hid) in enumerate(c.STAGES)]
+traps = [("ragged", c.RAGGED), ("ragged_heads", c.RAGGED_HEADS), ("m177", c.TRAIN_M177)]
+for label, shape in shapes + traps:
+    c.check_kernels(stats, gen, label, shape, c.SMOKE_BATCH)
+""",
     "v2_kernels": """
 gen = torch.Generator().manual_seed(c.SEED + 5)
 shapes = [(f"v2_stage{i + 1}", (h, w, d, nh, sr, hid, c.TEXT))
@@ -207,11 +246,7 @@ for label, shape in shapes + extra:
 c.phase_mlm_kernels(stats)
 """,
     "fba_train_kernels": """
-gen = torch.Generator().manual_seed(c.SEED + 17)
-shapes = [(f"stage{i + 1}", (h, w, d, nh, sr, hid, c.TEXT))
-          for i, (h, w, d, nh, sr, hid) in enumerate(c.STAGES)]
-for label, shape in shapes + [("ragged", c.TRAIN_RAGGED)]:
-    c.check_fba_kernels(stats, gen, label, shape, c.SMOKE_BATCH)
+c.check_fba_traps(stats, torch.Generator().manual_seed(c.SEED + 17))
 """,
 }
 RUN = """

@@ -17,13 +17,19 @@ JSON line each; a failed phase raises and the script exits non-zero:
      the MLM CE kernels, the LN-MLP forward's and backward's product
      kernels, the fused attention backward's, kernel F and kernel E's q/k/v
      and out-projection products; cuobjdump), which each must hold, and
-     the instantiations of #12's and F's product kernels under D's and E's
-     route tags (WGMMA_ROUTES);
-  3. kernels: kernel A (SR-KV) and kernel B (whole block) against their plain
-     PyTorch versions on the card in bf16, bound max|kernel - plain| /
+     the instantiations of #10's, #12's and F's product kernels under the
+     route tags of the chains of kernels B, D and E and of the fused
+     attention forward (WGMMA_ROUTES);
+  3. kernels: kernel A (SR-KV) and kernel B (whole block, a chain of LN1, Q,
+     #10's forward, the out-projection and #12's forward) against their
+     plain PyTorch versions on the card in bf16, bound max|kernel - plain| /
      max|plain| <= 2e-2, at the four pvlt_tiny stage shapes (B = 4), one
-     ragged shape, and the four stage shapes at B = 101, where each kernel's
-     time is also taken beside the plain version's;
+     ragged shape, one with two heads (the head stride of the Q and A
+     views), stage 1 at 224 input (M = 177, off #10's 64-row chunk), and
+     the four stage shapes at B = 101, where each kernel's time is also
+     taken beside the plain version's, with B's device time and a bf16
+     PyTorch composition of its work (LayerNorm, cuBLAS, SDPA; a
+     yardstick);
   4. uint8 / 255 on the card, bit-equal to the host's float32 division;
   5. the serving slice: pvlt_tiny (itm head only, bf16, 256x256, 128
      tokens, seeded random weights) scores three synthetic 101-candidate
@@ -106,9 +112,12 @@ JSON line each; a failed phase raises and the script exits non-zero:
      form (dx, dK, dV and the six parameter gradients, each form fed its own
      forward's statistics) to their plain versions in bf16 (every output
      within 2e-2 as in phase 3; the dropped sample's dx equal to its dy) at
-     the four stage shapes at B = 4 and B = 150 and a ragged shape (N off
-     the row tile, M off 16, head dim 32), with a DropPath scale holding a
-     zero; at B = 150 both backward forms bit-equal over two calls, each
+     the four stage shapes at B = 4 and B = 150, a ragged shape (N off
+     the row tile, M off 16, head dim 32), stage 1 at 224 input (M = 177)
+     and a two-head shape whose first 128-row tile spans a dropped and a
+     kept sample (the forward's row scale taken row by row), with a
+     DropPath scale holding a zero; at B = 150 both backward forms bit-equal
+     over two calls, each
      kernel's time beside its plain version's (the backward's device time
      too), its bound and the default route's attention half on the same
      inputs by events and device time (cuBLAS Q and projection, #10/#11;
@@ -214,6 +223,7 @@ STAGES = [
 ]
 TEXT = 128
 RAGGED = (12, 12, 64, 1, 4, 512, 20)   # N = 164, M = 29: ragged row tile and K/V
+RAGGED_HEADS = (12, 12, 128, 2, 4, 1024, 20)   # the same with two heads of 64
 # h != w (a halo that wraps across grid rows shows), T not a multiple of 8,
 # head dim 32: N = 247, M = 22
 V2_RAGGED = (12, 20, 96, 3, 4, 384, 7)
@@ -272,6 +282,8 @@ KERNELS = [
      "replaces": "mvlt_tpu/ops/block_attention.py:544 (_bwd_kernel_stats :265)"},
 ]
 SERVING_WRAPPERS = {"sr_kv": fused_ln_sr_kv, "block_fused": fused_block}
+# kernel B's chain runs #10's and #12's kernels under BlockFusedRoute
+V1_GROUPS = {"sr_kv": ("sr_kv_kernel",), "block_fused": ("BlockFusedRoute",)}
 V2_SERVING_WRAPPERS = {"sr_kv": fused_ln_sr_kv, "block_attention": fused_block_attention,
                        "dwconv_mlp": fused_dwconv_mlp}
 SWIN_WRAPPERS = {"swin_block": fused_swin_block, "swin_attention": fused_swin_attention}
@@ -382,16 +394,23 @@ WGMMA_KERNELS = ("attn_fwd_hopper_kernel", "attn_bwd_hopper_kernel", "mlm_ce_fwd
                  "ln_mlp_fwd_fused_kernel", "ln_mlp_fwd_hidden_kernel", "ln_mlp_fwd_out_kernel",
                  "fba_bwd_proj_kernel", "fba_bwd_wgrad_kernel", "swin_qkv_kernel",
                  "swin_proj_kernel")
-# kernel D's and E's chains run #12's and F's product kernels under their own
-# route tags (csrc/common.cuh): (kernel, tag) pairs whose instantiation must
-# be in the library, with HGMMA like every instantiation of a WGMMA_KERNELS
-# entry
+# the chains of kernels B, D and E and of the fused attention forward run
+# #10's, #12's and F's product kernels under their own route tags
+# (csrc/common.cuh): (kernel, tag) pairs whose instantiation must be in the
+# library, with HGMMA like every instantiation of a WGMMA_KERNELS entry
 WGMMA_ROUTES = (("ln_mlp_fwd_hidden_kernel", "DwConvRoute"),
                 ("ln_mlp_fwd_out_kernel", "DwConvRoute"),
                 ("ln_mlp_fwd_fused_kernel", "SwinBlockRoute"),
                 ("ln_mlp_fwd_hidden_kernel", "SwinBlockRoute"),
                 ("ln_mlp_fwd_out_kernel", "SwinBlockRoute"),
-                ("swin_attn_hopper_kernel", "SwinBlockRoute"))
+                ("swin_attn_hopper_kernel", "SwinBlockRoute"),
+                ("attn_fwd_hopper_kernel", "BlockFusedRoute"),
+                ("ln_mlp_fwd_hidden_kernel", "BlockFusedRoute"),
+                ("ln_mlp_fwd_out_kernel", "BlockFusedRoute"),
+                ("ln_mlp_fwd_fused_kernel", "BlockFusedRoute"),
+                ("attn_fwd_hopper_kernel", "FbaFwdRoute"),
+                ("ln_mlp_fwd_hidden_kernel", "FbaFwdRoute"),
+                ("ln_mlp_fwd_out_kernel", "FbaFwdRoute"))
 
 
 def hgmma_counts(library: pathlib.Path) -> dict:
@@ -528,13 +547,33 @@ def add_time(stats: dict, name: str, **fields) -> None:
     st["bound_by"] = max(st["bound_shares"], key=st["bound_shares"].get)
 
 
+def block_composition(x, k, v, p: dict, heads: int):
+    """Kernel B's function as PyTorch calls in bf16: F.layer_norm, F.linear
+    (cuBLAS), F.scaled_dot_product_attention, the projection and residual,
+    the MLP (F.linear, erf F.gelu) and its residual; a yardstick, never a
+    path the port calls."""
+    g1, be1, wq, bq, wp, bp, g2, be2, w1, b1, w2, b2 = (t.to(torch.bfloat16)
+                                                        for t in _block_args(p))
+    b, n, d = x.shape
+
+    def run():
+        q = F.linear(F.layer_norm(x, (d,), g1, be1, 1e-6), wq, bq)
+        o = F.scaled_dot_product_attention(q.view(b, n, heads, d // heads).transpose(1, 2), k, v)
+        h = x + F.linear(o.transpose(1, 2).reshape(b, n, d), wp, bp)
+        return h + F.linear(F.gelu(F.linear(F.layer_norm(h, (d,), g2, be2, 1e-6), w1, b1)),
+                            w2, b2)
+    return run
+
+
 def phase_kernels(stats: dict) -> None:
-    """Kernel vs plain on the card: errors at B = 4 (stage shapes + ragged),
-    then errors and times at B = 101 (stage shapes, the main path's)."""
+    """Kernel vs plain on the card: errors at B = 4 (stage shapes, ragged,
+    two heads, M = 177), then errors and times at B = 101 (stage shapes, the
+    main path's)."""
     gen = torch.Generator().manual_seed(SEED)
     shapes = [(f"stage{i + 1}", (h, w, d, nh, sr, hid, TEXT))
               for i, (h, w, d, nh, sr, hid) in enumerate(STAGES)]
-    for label, shape in shapes + [("ragged", RAGGED)]:
+    traps = [("ragged", RAGGED), ("ragged_heads", RAGGED_HEADS), ("m177", TRAIN_M177)]
+    for label, shape in shapes + traps:
         check_kernels(stats, gen, label, shape, SMOKE_BATCH)
 
     for label, shape in shapes:
@@ -549,14 +588,19 @@ def phase_kernels(stats: dict) -> None:
                             cuda_time_ms(lambda: block_reference(x, k, v, *_block_args(p), **kw_b))),
         }
         bounds = serving_bounds(shape, BATCH)
+        composition = block_composition(x, k, v, p, kw_b["heads"])
+        extra = {"block_fused": {
+            "device_ms": device_time_ms(lambda: fused_block(x, k, v, *_block_args(p), **kw_b)),
+            "composition_ms": cuda_time_ms(composition),
+            "composition_device_ms": device_time_ms(composition)}}
         for name, (ms, plain_ms) in times.items():
             bound_ms, bound_by = bounds[name]
             emit("kernel_time", kernel=name, shape=label, batch=BATCH, ms=ms,
                  plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                 library_ms=None, speedup=plain_ms / ms)
+                 library_ms=None, speedup=plain_ms / ms, **extra.get(name, {}))
             add_time(stats, name, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                      bound_by=bound_by, library_ms=None)
-        del x, k, v
+        del x, k, v, composition
         torch.cuda.empty_cache()
 
 
@@ -1307,6 +1351,10 @@ def phase_swin(stats: dict) -> None:
 TRAIN_RAGGED = (6, 10, 96, 3, 2, 384, 7)   # N = 67, M = 22, head dim 32
 TRAIN_M177 = (56, 56, 64, 1, 8, 512, TEXT)  # stage 1 at 224 input: N = 3,264, M = 177
 TRAIN_M272 = (48, 48, 64, 2, 4, 512, TEXT)  # N = 2,432, M = 272 (two K/V groups), head dim 32
+# N = 67, M = 22, two heads of 64; its first 128-row tile spans sample 0
+# (scale 0) and sample 1 (kept), FBA_TWO_SAMPLE_SCALES
+TRAIN_TWO_SAMPLES = (6, 10, 128, 2, 2, 512, 7)
+FBA_TWO_SAMPLE_SCALES = (0.0, 1 / 0.9, 1 / 0.9, 0.5)
 
 
 def train_kernel_inputs(gen, shape: tuple, batch: int) -> dict:
@@ -1713,9 +1761,11 @@ def compare_train_cpu(cfg, sd, card_routes: dict) -> None:
                                  f"({card_worst})")
 
 
-TRAIN_GROUPS = {"attention_fwd": ("attn_fwd_hopper_kernel",),
+# a kernel books to the first group with a fragment of its name: the fused
+# attention forward's chain (#10's and #12's kernels under FbaFwdRoute) first
+TRAIN_GROUPS = {"fba_train_fwd": ("FbaFwdRoute",),
+                "attention_fwd": ("attn_fwd_hopper_kernel",),
                 "attention_bwd": ("attn_bwd_hopper_kernel", "attn_bwd_slot_sum_kernel"),
-                "fba_train_fwd": ("fba_fwd_kernel",),
                 "fba_train_bwd": ("fba_bwd_",),
                 "ln_mlp_fwd": ("ln_mlp_fwd_",),
                 "ln_mlp_bwd": ("ln_mlp_bwd_",),
@@ -1725,10 +1775,13 @@ TRAIN_GROUPS = {"attention_fwd": ("attn_fwd_hopper_kernel",),
 
 
 # the fused_attn_train route: its backward runs the attention core on
-# #10/#11's kernels, whose device time is the backward's there
-FBA_GROUPS = {"fba_train_bwd": ("fba_bwd_", "attn_fwd_hopper_kernel", "attn_bwd_hopper_kernel",
+# #10/#11's kernels untagged, whose device time is the backward's there
+# (the forward's tagged #10 books to the forward, the first group)
+FBA_GROUPS = {"fba_train_fwd": TRAIN_GROUPS["fba_train_fwd"],
+              "fba_train_bwd": ("fba_bwd_", "attn_fwd_hopper_kernel", "attn_bwd_hopper_kernel",
                                 "attn_bwd_slot_sum_kernel"),
-              **{k: v for k, v in TRAIN_GROUPS.items() if k != "fba_train_bwd"}}
+              **{k: v for k, v in TRAIN_GROUPS.items() if k not in ("fba_train_fwd",
+                                                                     "fba_train_bwd")}}
 
 
 def phase_train_throughput(state, cfg, prefix: str = "", groups: dict = TRAIN_GROUPS) -> None:
@@ -1757,13 +1810,13 @@ FBA_GRADS = ("dx", "dk", "dv", "dgamma", "dbeta", "dWq", "dbq", "dWp", "dbp")
 FBA_FORMS = {"fba_recompute": (True, False), "fba_stats": (True, True)}
 
 
-def fba_inputs(gen, shape: tuple, batch: int) -> dict:
+def fba_inputs(gen, shape: tuple, batch: int, scales: tuple | None = None) -> dict:
     """Seeded inputs of the fused attention half at one shape: the stream and
     its upstream gradient at unit scale, K and V as the model's contiguous
     [B, H, M, hd] copies, phase 3's parameters (Q at gain 1.5 / sqrt(D), so
     the softmax is peaked, the out-projection at gain 1) with Wq and Wp in
     bf16 as the autograd Function rounds them, a DropPath scale with one
-    dropped sample."""
+    dropped sample (or ``scales``, one a sample)."""
     h, w, d, nh, sr, hid, t = shape
     n = h * w + t
     m = (h // sr) * (w // sr) + t if sr > 1 else n
@@ -1773,6 +1826,8 @@ def fba_inputs(gen, shape: tuple, batch: int) -> dict:
     p = stage_params(gen, d, sr, hid, dev)
     s = ((torch.rand(batch, generator=gen) < 0.9).float() / 0.9).to(dev)
     s[0] = 0.0
+    if scales is not None:
+        s = torch.tensor(scales, dtype=torch.float32, device=dev)
     master = (p["ln1_weight"], p["ln1_bias"], p["wq"], p["bq"], p["wp"], p["bp"])
     cast = (p["ln1_weight"], p["ln1_bias"], p["wq"].to(torch.bfloat16), p["bq"],
             p["wp"].to(torch.bfloat16), p["bp"])
@@ -1790,7 +1845,8 @@ def _fba_bwd_args(a):
     return (a["x"], a["k"], a["v"], g, be, wq, bq, wp, a["s"], a["dy"])
 
 
-def check_fba_kernels(stats: dict, gen, label: str, shape: tuple, batch: int) -> dict:
+def check_fba_kernels(stats: dict, gen, label: str, shape: tuple, batch: int,
+                      scales: tuple | None = None) -> dict:
     """The fused attention half's kernels against their plain versions on
     one shape's seeded inputs: the forward (out), the forward with
     statistics (out; LN mean, 1/std, row max and 1/denominator, each
@@ -1798,7 +1854,7 @@ def check_fba_kernels(stats: dict, gen, label: str, shape: tuple, batch: int) ->
     gradients, each form fed its own forward's statistics), every one within
     KERNEL_TOL; the dropped sample's dx equal to its dy and its dK, dV zero.
     Returns the inputs and both statistics, for timing."""
-    a = fba_inputs(gen, shape, batch)
+    a = fba_inputs(gen, shape, batch, scales)
     kw = a["kw"]
     out = block_attention_train_fwd(*_fba_fwd_args(a), **kw)
     out_s, st = block_attention_train_fwd(*_fba_fwd_args(a), save_stats=True, **kw)
@@ -1896,16 +1952,27 @@ def default_route_times(a: dict) -> dict:
             "route_bwd_ms": cuda_time_ms(bwd), "route_bwd_device_ms": device_time_ms(bwd)}
 
 
-def phase_fba_train_kernels(stats: dict) -> None:
-    """The fused attention half's kernels vs plain: errors at B = 4 (the four
-    stage shapes and a ragged one: N off the row tile, M off 16, head dim
-    32), then errors and times at B = 150 (the stage shapes of the step),
-    beside the default route's attention half on the same inputs."""
-    gen = torch.Generator().manual_seed(SEED + 17)
+def check_fba_traps(stats: dict, gen) -> None:
+    """check_fba_kernels at B = 4 on the stage shapes and on the shapes that
+    catch each trap of the chains."""
     shapes = [(f"stage{i + 1}", (h, w, d, nh, sr, hid, TEXT))
               for i, (h, w, d, nh, sr, hid) in enumerate(STAGES)]
-    for label, shape in shapes + [("ragged", TRAIN_RAGGED)]:
+    for label, shape in shapes + [("ragged", TRAIN_RAGGED), ("m177", TRAIN_M177)]:
         check_fba_kernels(stats, gen, label, shape, SMOKE_BATCH)
+    check_fba_kernels(stats, gen, "two_samples", TRAIN_TWO_SAMPLES, SMOKE_BATCH,
+                      FBA_TWO_SAMPLE_SCALES)
+
+
+def phase_fba_train_kernels(stats: dict) -> None:
+    """The fused attention half's kernels vs plain: errors at B = 4 (the four
+    stage shapes, a ragged one: N off the row tile, M off 16, head dim 32;
+    M = 177; two heads with a 128-row tile across a dropped and a kept
+    sample), then errors and times at B = 150 (the stage shapes of the
+    step), beside the default route's attention half on the same inputs."""
+    gen = torch.Generator().manual_seed(SEED + 17)
+    check_fba_traps(stats, gen)
+    shapes = [(f"stage{i + 1}", (h, w, d, nh, sr, hid, TEXT))
+              for i, (h, w, d, nh, sr, hid) in enumerate(STAGES)]
     for label, shape in shapes:
         a = check_fba_kernels(stats, gen, label, shape, TRAIN_BATCH)
         kw, st, st_ref = a["kw"], a["stats"], a["stats_ref"]
@@ -2173,8 +2240,7 @@ def main() -> int:
     model, bundles, sd = phase_slice(stats)
     check_blocks(model, bundles[0])
     compare_cpu_fp32(model, bundles[0], sd)
-    phase_throughput(model, bundles, {"sr_kv": ("sr_kv_kernel",),
-                                      "block_fused": ("block_fused_kernel",)})
+    phase_throughput(model, bundles, V1_GROUPS)
     del model
     phase_v2_kernels(stats)
     model, bundles, sd = phase_slice(stats, "pvlt_v2_tiny", V2_SERVING_WRAPPERS, "v2_slice")

@@ -41,7 +41,12 @@
 // MN-major. The next chunk's S is issued ahead of this chunk's P.V, so P.V
 // runs while the next softmax takes its max and exponentials. O / l
 // leaves through the tile's ring slot as 16-byte row stores, lse as fp32.
-// q and o are the strided [B, N, H, hd] views the step passes.
+// q and o are the strided [B, N, H, hd] views the step passes. In its
+// statistics mode (Stats, the fused attention forward's #7) it also writes
+// each row's final max and 1/l, in natural units, into the row's head
+// columns of the [B, N, 2 + 2H] statistics. The chains of kernel B and the
+// fused attention forward (attn_chain.cuh) launch it under their route tags
+// (common.cuh) through mvlt_attention_fwd_route.
 //
 // Backward (attn_bwd_hopper_kernel, 3 warpgroups, 1 block an SM). One block
 // owns one (sample, head), a range of q tiles, and the whole K/V of the head
@@ -102,6 +107,8 @@ struct FwdArgs {
   View vq, vk, vv, vo;
   int heads, n, m, tiles, per_block, win;  // win: K/V rows staged at once
   float scale_log2;
+  float* stats;  // Stats: [B, N, stats_ld] fp32, head h's (max, 1/l) at column 2 + 2h
+  int stats_ld;
 };
 
 struct BwdArgs {
@@ -133,9 +140,12 @@ __host__ __device__ constexpr size_t bwd_smem(int hd) {
 
 // Fixed: lse is the input, the rows' natural logsumexp (fused attention
 // backward, statistics form): P = exp(S scale - lse) directly, with no row
-// max, rescale or sum, and o = P V is not divided.
-template <int HD, bool Fixed>
+// max, rescale or sum, and o = P V is not divided. Stats (never with Fixed):
+// the row's max of the scaled logits and 1/l also go to a.stats. Route: the
+// path that launched it (common.cuh), for profiles.
+template <int HD, bool Fixed, bool Stats, class Route>
 __global__ void __launch_bounds__(kFwdThreads, 2) attn_fwd_hopper_kernel(FwdArgs a) {
+  static_assert(!(Fixed && Stats), "the statistics come from the softmax reductions");
   constexpr int RB = HD * 2, CH = RB / 16, NA = HD / 2;
   extern __shared__ char smem_raw[];
   char* smem = align1024(smem_raw);
@@ -315,6 +325,13 @@ __global__ void __launch_bounds__(kFwdThreads, 2) attn_fwd_hopper_kernel(FwdArgs
         float* lrow = a.lse + (size_t)bh * a.n + tile * kTile;
         if (tile * kTile + r0 < a.n) lrow[r0] = (m0 + log2f(l0)) * kLn2;
         if (tile * kTile + r0 + 8 < a.n) lrow[r0 + 8] = (m1 + log2f(l1)) * kLn2;
+        if (Stats) {  // the max in natural units (m is in log2 units), 1/l
+          float* srow = a.stats + ((size_t)b * a.n + tile * kTile + r0) * a.stats_ld + 2 + 2 * h;
+          if (tile * kTile + r0 < a.n)
+            *reinterpret_cast<float2*>(srow) = make_float2(m0 * kLn2, i0);
+          if (tile * kTile + r0 + 8 < a.n)
+            *reinterpret_cast<float2*>(srow + 8 * a.stats_ld) = make_float2(m1 * kLn2, i1);
+        }
       }
     }
     named_barrier(1 + wg, 128);
@@ -627,7 +644,7 @@ cudaError_t allow_smem(Kernel kernel, int dev, int& cached_dev) {
   return err;
 }
 
-template <int HD, bool Fixed>
+template <int HD, bool Fixed, bool Stats, class Route>
 int launch_fwd(FwdArgs a, int batch, cudaStream_t stream) {
   constexpr int RB = HD * 2;
   const int mpad = (a.m + kTile - 1) & ~(kTile - 1);
@@ -638,7 +655,8 @@ int launch_fwd(FwdArgs a, int batch, cudaStream_t stream) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   static int smem_dev = -1;
-  if (err == cudaSuccess) err = allow_smem(attn_fwd_hopper_kernel<HD, Fixed>, dev, smem_dev);
+  if (err == cudaSuccess)
+    err = allow_smem(attn_fwd_hopper_kernel<HD, Fixed, Stats, Route>, dev, smem_dev);
   if (err != cudaSuccess) return (int)err;
   // an even run of q tiles per block, about 8 blocks an SM over the grid
   const long long bhs = (long long)batch * a.heads, sms = max(1, sm_count(dev));
@@ -646,7 +664,7 @@ int launch_fwd(FwdArgs a, int batch, cudaStream_t stream) {
   per = min(max(2, (per + 1) & ~1), (a.tiles + 1) & ~1);
   a.per_block = per;
   dim3 grid((a.tiles + per - 1) / per, (unsigned)bhs);
-  attn_fwd_hopper_kernel<HD, Fixed><<<grid, kFwdThreads, bytes, stream>>>(a);
+  attn_fwd_hopper_kernel<HD, Fixed, Stats, Route><<<grid, kFwdThreads, bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -668,18 +686,33 @@ int launch_bwd(const BwdArgs& a, int batch, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// route 0: #10 itself (fixed picks the Fixed form); FbaFwdRoute::kAttn
+// (with or without statistics) and BlockFusedRoute::kAttn: the chains'.
+template <int HD>
+int fwd_on_route(const FwdArgs& a, int batch, bool fixed, int route, cudaStream_t st) {
+  if (route == FbaFwdRoute::kAttn)
+    return a.stats ? launch_fwd<HD, false, true, FbaFwdRoute>(a, batch, st)
+                   : launch_fwd<HD, false, false, FbaFwdRoute>(a, batch, st);
+  if (route == BlockFusedRoute::kAttn)
+    return launch_fwd<HD, false, false, BlockFusedRoute>(a, batch, st);
+  return fixed ? launch_fwd<HD, true, false, AttnRoute>(a, batch, st)
+               : launch_fwd<HD, false, false, AttnRoute>(a, batch, st);
+}
+
 int attention_fwd(const void* q, const void* k, const void* v, void* o, const void* lse,
                   const long long* strides, int batch, int heads, int n, int m, int hd,
-                  float scale, bool fixed, cudaStream_t st) {
+                  float scale, bool fixed, int route, float* stats, int stats_ld,
+                  cudaStream_t st) {
+  if ((route != 0 && route != FbaFwdRoute::kAttn && route != BlockFusedRoute::kAttn) ||
+      (stats && route != FbaFwdRoute::kAttn) || (stats && (stats_ld < 2 || stats_ld % 2)))
+    return (int)cudaErrorInvalidValue;
   FwdArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
             static_cast<const bf16*>(v), static_cast<bf16*>(o),
             static_cast<float*>(const_cast<void*>(lse)), view(strides), view(strides + 3),
             view(strides + 6), view(strides + 9), heads, n, m, (n + kTile - 1) / kTile, 0, 0,
-            scale * kLog2e};
-  if (hd == 64) return fixed ? launch_fwd<64, true>(a, batch, st)
-                     : launch_fwd<64, false>(a, batch, st);
-  if (hd == 32) return fixed ? launch_fwd<32, true>(a, batch, st)
-                     : launch_fwd<32, false>(a, batch, st);
+            scale * kLog2e, stats, stats_ld};
+  if (hd == 64) return fwd_on_route<64>(a, batch, fixed, route, st);
+  if (hd == 32) return fwd_on_route<32>(a, batch, fixed, route, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -694,7 +727,21 @@ int attention_fwd(const void* q, const void* k, const void* v, void* o, const vo
 extern "C" int mvlt_attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                                   const long long* strides, int batch, int heads, int n, int m,
                                   int hd, float scale, void* stream) {
+  return mvlt::attention_fwd(q, k, v, o, lse, strides, batch, heads, n, m, hd, scale, false, 0,
+                             nullptr, 0, static_cast<cudaStream_t>(stream));
+}
+
+// The same on a chain's route (attn_chain.cuh): `route` FbaFwdRoute::kAttn
+// (1) or BlockFusedRoute::kAttn (2). Where `stats` is not null (route 1
+// only), each row's max of the scaled logits (natural units) and 1/l go to
+// stats[(b * n + row) * stats_ld + 2 + 2h] and + 1 ([B, N, stats_ld] fp32,
+// stats_ld even).
+extern "C" int mvlt_attention_fwd_route(const void* q, const void* k, const void* v, void* o,
+                                        void* lse, void* stats, const long long* strides,
+                                        int batch, int heads, int n, int m, int hd, int stats_ld,
+                                        int route, float scale, void* stream) {
   return mvlt::attention_fwd(q, k, v, o, lse, strides, batch, heads, n, m, hd, scale, false,
+                             route, static_cast<float*>(stats), stats_ld,
                              static_cast<cudaStream_t>(stream));
 }
 
@@ -705,8 +752,8 @@ extern "C" int mvlt_attention_fwd_from_lse(const void* q, const void* k, const v
                                            const void* lse, const long long* strides, int batch,
                                            int heads, int n, int m, int hd, float scale,
                                            void* stream) {
-  return mvlt::attention_fwd(q, k, v, o, lse, strides, batch, heads, n, m, hd, scale, true,
-                             static_cast<cudaStream_t>(stream));
+  return mvlt::attention_fwd(q, k, v, o, lse, strides, batch, heads, n, m, hd, scale, true, 0,
+                             nullptr, 0, static_cast<cudaStream_t>(stream));
 }
 
 // `splits` (1 .. the q tiles) ranges of q tiles per (sample, head); with more

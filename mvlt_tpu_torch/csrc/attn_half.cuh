@@ -1,10 +1,7 @@
 // The attention half of a PVLT block on a tile of stream rows in shared
-// memory, shared by kernel B (block_fused.cu, the whole v1 block), kernel C
-// (block_attention.cu, the v2 block's attention half) and the training
-// form's forward (block_attention_train.cu):
+// memory, the body of kernel C (block_attention.cu, the v2 block's
+// attention half) on the wmma core (common.cuh:gemm_bf16):
 //   xres += proj(concat_h softmax((LN1(xres) Wq_h + bq_h) K_h^T * scale) V_h) + bp
-// (the training form: xres += s * (proj(...) + bp), and optionally the LN1
-// and softmax statistics of each row)
 // with xres the fp32 residual tile [tr, d], K and V [B, H, M, hd] bf16 from
 // kernel A, weights in torch Linear layout [out, in] bf16, biases and
 // LayerNorm affines fp32. LayerNorm statistics, logits and softmax are fp32;
@@ -46,7 +43,7 @@ __host__ __device__ inline size_t attn_scratch_bytes(int tr, int mp) {
 }
 
 // Shared-memory layout of a kernel that runs the attention half alone on a
-// tile of tr rows (kernel C and the training forward): the fp32 residual, the
+// tile of tr rows (kernel C): the fp32 residual, the
 // LN1 (later head outputs) and Q tiles, one head's K or V, the logits and
 // probabilities, the GEMM staging.
 struct AttnSmem {
@@ -76,19 +73,16 @@ __device__ inline void layer_norm_tile(const float* src, int rows, int d, const 
 }
 
 // The fp32 residual tile [tr, d] from tr rows of a bf16 stream (rows past
-// `rows` zero; d a multiple of 8, 16-byte loads), plus `bias` per column
-// when it is not null.
-__device__ inline void load_residual_tile(float* xres, const bf16* src, int tr, int d, int rows,
-                                          const float* bias) {
+// `rows` zero; d a multiple of 8, 16-byte loads).
+__device__ inline void load_residual_tile(float* xres, const bf16* src, int tr, int d,
+                                          int rows) {
 #pragma unroll 4
   for (int i = threadIdx.x * 8; i < tr * d; i += kThreads * 8) {
     uint4 raw = make_uint4(0, 0, 0, 0);
-    const bool live = i / d < rows;
-    if (live) raw = *reinterpret_cast<const uint4*>(src + i);
+    if (i / d < rows) raw = *reinterpret_cast<const uint4*>(src + i);
     const bf16* e = reinterpret_cast<const bf16*>(&raw);
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-      xres[i + j] = __bfloat162float(e[j]) + (bias && live ? bias[(i + j) % d] : 0.0f);
+    for (int j = 0; j < 8; ++j) xres[i + j] = __bfloat162float(e[j]);
   }
 }
 
@@ -108,35 +102,15 @@ __device__ inline void load_head_async(bf16* dst, const bf16* src, int m, int mp
 // attention-half output, synchronised. Scratch: abuf and qall bf16
 // [tr, d + kPad], kv bf16 [mp, hd + kPad], logit (attn_scratch_bytes),
 // stage (kStageBytes). abuf ends up holding the concatenated head outputs.
-// kTrain (the training forward): the projection sum is scaled by
-// row_scale, and where stats is not null the first `rows` rows get their
-// statistics at stats[r * (2 + 2H)]: LN1 mean and 1/std, then per head the
-// row max of the scaled logits and 1/denominator (P = exp(l - max) * inv).
-// The serving form (kTrain false) compiles to the code it always had.
-template <bool kTrain = false>
 __device__ __forceinline__ void attention_half(const AttnArgs& a, int b, int tr, int d, float* xres,
                                                bf16* abuf, bf16* qall, bf16* kv, float* logit,
-                                               float* stage, float row_scale = 1.0f,
-                                               float* stats = nullptr, int rows = 0) {
+                                               float* stage) {
   const int hd = d / a.heads, m = a.m, mp = (m + 15) & ~15;
   const int ld = d + kPad, ldk = hd + kPad, ldp = mp + kPad;
   bf16* probs = reinterpret_cast<bf16*>(reinterpret_cast<char*>(logit) + attn_logit_bytes(tr, mp));
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  [[maybe_unused]] const int sw = 2 + 2 * a.heads;
 
-  if constexpr (kTrain) {
-    for (int r = warp; r < tr; r += kWarps) {
-      const float* row = xres + (size_t)r * d;
-      const float2 st = layer_norm_row([&](int c) { return row[c]; }, d, a.ln1_w, a.ln1_b,
-                                       a.eps1, abuf + (size_t)r * ld);
-      if (stats && r < rows && lane == 0) {
-        stats[(size_t)r * sw] = st.x;
-        stats[(size_t)r * sw + 1] = st.y;
-      }
-    }
-  } else {
-    layer_norm_tile(xres, tr, d, a.ln1_w, a.ln1_b, a.eps1, abuf, ld);
-  }
+  layer_norm_tile(xres, tr, d, a.ln1_w, a.ln1_b, a.eps1, abuf, ld);
   __syncthreads();
   gemm_bf16<true, 2>(abuf, ld, a.wq, d, tr, d, d, stage, [&](int r, int c, float v) {
     qall[r * ld + c] = __float2bfloat16(v + a.bq[c]);
@@ -169,12 +143,6 @@ __device__ __forceinline__ void attention_half(const AttnArgs& a, int b, int tr,
       const float inv = 1.0f / warp_sum(s);
       for (int c = lane; c < mp; c += 32)
         probs[(size_t)r * ldp + c] = __float2bfloat16(c < m ? lr[c] * inv : 0.0f);
-      if constexpr (kTrain) {
-        if (stats && r < rows && lane == 0) {
-          stats[(size_t)r * sw + 2 + 2 * h] = mx;
-          stats[(size_t)r * sw + 3 + 2 * h] = inv;
-        }
-      }
     }
     cp_async_wait_all();
     __syncthreads();
@@ -185,14 +153,8 @@ __device__ __forceinline__ void attention_half(const AttnArgs& a, int b, int tr,
     __syncthreads();
   }
 
-  if constexpr (kTrain) {
-    gemm_bf16<true, 2>(abuf, ld, a.wp, d, tr, d, d, stage, [&](int r, int c, float v) {
-      xres[r * d + c] += row_scale * (v + a.bp[c]);
-    });
-  } else {
-    gemm_bf16<true, 2>(abuf, ld, a.wp, d, tr, d, d, stage,
-                       [&](int r, int c, float v) { xres[r * d + c] += v + a.bp[c]; });
-  }
+  gemm_bf16<true, 2>(abuf, ld, a.wp, d, tr, d, d, stage,
+                     [&](int r, int c, float v) { xres[r * d + c] += v + a.bp[c]; });
   __syncthreads();
 }
 

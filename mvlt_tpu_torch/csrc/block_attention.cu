@@ -14,7 +14,7 @@
 // bf16 stream and one read of K/V; at stage 1 (D = 64, one head) the bytes
 // weigh more, at stages 2-4 the products.
 //
-// Design: kernel B's attention half (attn_half.cuh), alone. One block of 8
+// Design: attn_half.cuh's tile code on the wmma core. One block of 8
 // warps owns TR stream rows of one sample, keeps their fp32 residual, LN1'd
 // copy, Q, one head's K and V, and the logits and probabilities in shared
 // memory, and writes the tile once. TR is the largest of 64/32/16 whose
@@ -44,7 +44,7 @@ __global__ void __launch_bounds__(kThreads) block_attention_kernel(AttnKernelArg
   float* xres = reinterpret_cast<float*>(smem + L.xres);
 
   // residual tile, fp32; rows past N are zero and never stored
-  load_residual_tile(xres, a.x + ((size_t)b * a.n + n0) * d, tr, d, rows, nullptr);
+  load_residual_tile(xres, a.x + ((size_t)b * a.n + n0) * d, tr, d, rows);
   __syncthreads();
   attention_half(a.at, b, tr, d, xres, reinterpret_cast<bf16*>(smem + L.abuf),
                  reinterpret_cast<bf16*>(smem + L.qall), reinterpret_cast<bf16*>(smem + L.kv),

@@ -15,17 +15,21 @@
 // the LN1 mean and 1/std, then per head the row max of the scaled logits
 // and 1/denominator, so that P = exp(l - max) * inv.
 //
-// What bounds it on the H100: the forward does kernel C's products,
-// 2.N.(2D^2 + 2.M.D) flops per sample, against one read and one write of
-// the bf16 stream; the backward 10.N.D^2 + 12.N.M.D flops per sample (Q and
-// dO, the attention core's logits, P.V, dP, dQ, dK, dV, then dWq, dWp and
-// dLN1) against x and dy read and dx written: operations at every stage on
-// paper (0.41 ms summed over the four stages at B = 150).
+// What bounds it on the H100: the forward does 4.N.(D^2 + M.D) flops per
+// sample (Q, logits, P.V, out-projection) against one read and one write of
+// the bf16 stream: bytes at every stage on paper (0.16 ms summed over the
+// four stages at B = 150); the backward 10.N.D^2 + 12.N.M.D flops per
+// sample (Q and dO, the attention core's logits, P.V, dP, dQ, dK, dV, then
+// dWq, dWp and dLN1) against x and dy read and dx written: operations at
+// every stage on paper (0.41 ms summed over the four stages at B = 150).
 //
-// Design, forward: kernel C (attn_half.cuh) in its training form: one block
-// of 8 warps per tile of TR rows of one sample; the projection sum is scaled
-// by s[b] before it joins the fp32 residual; the statistics are written per
-// row where asked (Pallas #7), nothing else changes (Pallas #6).
+// Design, forward: the attention-half chain of attn_chain.cuh under
+// FbaFwdRoute (#12's norm, Q on #12's hidden kernel, #10's forward on
+// [B, H, N, hd] views, the out-projection on #12's out kernel with the
+// row's own scale s[b]) over the scratch of ops/block_attention.py:
+// fwd_scratch; in the statistics form (Pallas #7) the norm kernel writes
+// each row's LN1 mean and 1/std and #10's forward, in its statistics mode,
+// each head's row max and 1/denominator, nothing else changes (Pallas #6).
 //
 // Design, backward: the TPU kernel fuses everything per row tile because its
 // grid runs in order and carries the weight gradients; on Hopper that fusion
@@ -59,10 +63,9 @@
 // has dO = 0, so its dQ, dLN1 and every sum it joins are exactly 0 and its
 // dx is dy.
 
-#include <initializer_list>
+#include <math.h>
 
-#include "attn_half.cuh"
-#include "hopper.cuh"
+#include "attn_chain.cuh"
 
 // The attention core's C entries (attention.cu).
 extern "C" int mvlt_attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
@@ -80,43 +83,6 @@ extern "C" int mvlt_attention_bwd(const void* q, const void* k, const void* v, c
 
 namespace mvlt {
 namespace {
-
-struct FwdArgs {
-  const bf16* x;
-  AttnArgs at;
-  const float* s;
-  bf16* out;
-  float* stats;  // [B, N, 2 + 2H] or null
-  int n, d, tr;
-};
-
-__global__ void __launch_bounds__(kThreads) fba_fwd_kernel(FwdArgs a) {
-  extern __shared__ __align__(128) char smem[];
-  const int tr = a.tr, d = a.d, hd = d / a.at.heads, mp = (a.at.m + 15) & ~15;
-  const int b = blockIdx.y, n0 = blockIdx.x * tr;
-  const int rows = min(tr, a.n - n0);
-  const AttnSmem L = attn_smem(tr, d, mp, hd);
-  float* xres = reinterpret_cast<float*>(smem + L.xres);
-
-  // residual tile, fp32; rows past N are zero and never stored
-  load_residual_tile(xres, a.x + ((size_t)b * a.n + n0) * d, tr, d, rows, nullptr);
-  __syncthreads();
-  float* stats = a.stats ? a.stats + ((size_t)b * a.n + n0) * (2 + 2 * a.at.heads) : nullptr;
-  attention_half<true>(a.at, b, tr, d, xres, reinterpret_cast<bf16*>(smem + L.abuf),
-                       reinterpret_cast<bf16*>(smem + L.qall), reinterpret_cast<bf16*>(smem + L.kv),
-                       reinterpret_cast<float*>(smem + L.logit),
-                       reinterpret_cast<float*>(smem + L.stage), a.s[b], stats, rows);
-
-  bf16* ob = a.out + ((size_t)b * a.n + n0) * d;
-  for (int i = threadIdx.x * 8; i < rows * d; i += kThreads * 8) {
-    uint4 raw;
-    bf16* e = reinterpret_cast<bf16*>(&raw);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) e[j] = __float2bfloat16(xres[i + j]);
-    *reinterpret_cast<uint4*>(ob + i) = raw;
-  }
-}
-
 
 // ---- backward ---------------------------------------------------------------
 
@@ -393,15 +359,6 @@ cudaError_t launch_proj(const ProjJob& j0, const ProjJob* j1, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-template <typename Smem>
-int pick_tile(Smem smem, size_t* bytes) {
-  for (int cand : {64, 32, 16}) {
-    *bytes = smem(cand);
-    if (*bytes <= kSmemLimit) return cand;
-  }
-  return 0;
-}
-
 }  // namespace
 }  // namespace mvlt
 
@@ -409,30 +366,28 @@ int pick_tile(Smem smem, size_t* bytes) {
 // cudaError_t of the launches (0 on success); no synchronisation.
 
 // Forward: out [B, N, D]; stats [B, N, 2 + 2H] fp32 where not null. K and V
-// [B, H, m, hd] contiguous.
+// [B, H, m, hd] contiguous, hd 32 or 64. The scratch, as
+// ops/block_attention.py:fwd_scratch sizes it: nrm, q and attn rows * D
+// bf16, lse B * H * N floats.
 extern "C" int mvlt_fba_fwd(const void* x, const void* k, const void* v, const void* ln1_w,
                             const void* ln1_b, const void* wq, const void* bq, const void* wp,
-                            const void* bp, const void* s, void* out, void* stats, int batch,
-                            int n, int d, int heads, int m, float scale, float eps1,
-                            void* stream) {
+                            const void* bp, const void* s, void* out, void* stats, void* nrm,
+                            void* q, void* attn, void* lse, int batch, int n, int d, int heads,
+                            int m, float scale, float eps1, void* stream) {
   using namespace mvlt;
-  const int hd = d / heads, mp = (m + 15) & ~15;
-  size_t bytes = 0;
-  const int tr = pick_tile([&](int t) { return attn_smem(t, d, mp, hd).total; }, &bytes);
-  if (!tr) return (int)cudaErrorInvalidConfiguration;
-  cudaError_t err = cudaFuncSetAttribute(fba_fwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  const AttnArgs at{static_cast<const bf16*>(k),      static_cast<const bf16*>(v),
-                    static_cast<const float*>(ln1_w), static_cast<const float*>(ln1_b),
-                    static_cast<const bf16*>(wq),     static_cast<const float*>(bq),
-                    static_cast<const bf16*>(wp),     static_cast<const float*>(bp),
-                    heads, m, scale, eps1};
-  FwdArgs a{static_cast<const bf16*>(x), at, static_cast<const float*>(s),
-            static_cast<bf16*>(out), static_cast<float*>(stats), n, d, tr};
-  dim3 grid((n + tr - 1) / tr, batch);
-  fba_fwd_kernel<<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
+  const HalfArgs h{static_cast<const bf16*>(x),     static_cast<const bf16*>(k),
+                   static_cast<const bf16*>(v),     static_cast<const float*>(ln1_w),
+                   static_cast<const float*>(ln1_b), static_cast<const bf16*>(wq),
+                   static_cast<const float*>(bq),   static_cast<const bf16*>(wp),
+                   static_cast<const float*>(bp),   static_cast<const float*>(s),
+                   static_cast<bf16*>(out),         static_cast<float*>(stats),
+                   static_cast<bf16*>(nrm),         static_cast<bf16*>(q),
+                   static_cast<bf16*>(attn),        static_cast<float*>(lse),
+                   batch,                           n,
+                   d,                               heads,
+                   m,                               scale,
+                   eps1};
+  return (int)attention_half_chain<FbaFwdRoute>(h, static_cast<cudaStream_t>(stream));
 }
 
 // Backward. K and V [B, H, m, hd] contiguous, hd 32 or 64; stats as the

@@ -5,14 +5,15 @@
 //   one_pass_ln -> layer_norm_row, row_stats_global (two-pass statistics:
 //                  mean, then the centred variance; E[x^2] - mean^2 loses
 //                  digits on residual-grown rows)
-//   softmax_av  -> written out inside block_fused.cu and attention.cu (fp32
+//   softmax_av  -> written out inside attn_half.cuh and attention.cu (fp32
 //                  logits and softmax)
 //   gelu / gelu_grad -> gelu_erf / gelu_erf_and_grad (exact erf, never the tanh
 //                  form)
-// gemm_bf16 is the wmma kernels' matrix-product routine: bf16 tensor-core
-// tiles (nvcuda::wmma, 16x16x16, fp32 accumulation), a tile of up to eight
-// 16x16 output blocks per warp at a time, each handed element by element to
-// an epilogue (the wgmma kernels' products are hopper.cuh's).
+// gemm_bf16 is the wmma kernels' matrix-product routine (kernels A and C:
+// sr_kv.cu, attn_half.cuh): bf16 tensor-core tiles (nvcuda::wmma, 16x16x16,
+// fp32 accumulation), a tile of up to eight 16x16 output blocks per warp at a
+// time, each handed element by element to an epilogue (the wgmma kernels'
+// products are hopper.cuh's).
 
 #pragma once
 
@@ -35,18 +36,29 @@ constexpr size_t kStageBytes = kWarps * 256 * sizeof(float);
 
 // Route tags: a template argument of a kernel that several paths launch,
 // naming the path, so that a profile (which sees kernel names) books its
-// device time to that path -- #12's kernels inside kernels D and E, kernel
-// F's inside E. kRowScale: whether an LN-MLP epilogue takes the per-sample
-// row scale.
+// device time to that path -- #12's kernels inside kernels B, D and E and
+// the fused attention forward, kernel F's inside E, #10's inside B and the
+// fused attention forward. kRowScale: whether an LN-MLP epilogue takes the
+// per-sample row scale; kAttn: the route's number at #10's chain entry
+// (attention.cu:mvlt_attention_fwd_route).
 struct LnMlpRoute {  // #12 (ln_mlp.cu) itself
   static constexpr bool kRowScale = true;
 };
+struct AttnRoute {};      // #10 (attention.cu) itself
 struct SwinAttnRoute {};  // kernel F (swin_attention.cu) itself
 struct DwConvRoute {      // kernel D's chain (dwconv_mlp.cu)
   static constexpr bool kRowScale = false;
 };
 struct SwinBlockRoute {  // kernel E's chain (swin_block.cu)
   static constexpr bool kRowScale = false;
+};
+struct FbaFwdRoute {  // the fused attention forward's chain (block_attention_train.cu)
+  static constexpr bool kRowScale = true;
+  static constexpr int kAttn = 1;
+};
+struct BlockFusedRoute {  // kernel B's chain (block_fused.cu)
+  static constexpr bool kRowScale = false;
+  static constexpr int kAttn = 2;
 };
 
 __host__ __device__ inline size_t align128(size_t bytes) {
@@ -119,10 +131,10 @@ __device__ __forceinline__ float2 row_stats_global(const bf16* src, int n, float
 
 // LayerNorm of one row of n values, computed by one warp in fp32 with
 // two-pass statistics; load(c) returns element c as float, the result goes to
-// dst as bf16. Returns (mean, 1/std) to every lane.
+// dst as bf16.
 template <typename Load>
-__device__ __forceinline__ float2 layer_norm_row(Load load, int n, const float* gamma,
-                                                 const float* beta, float eps, bf16* dst) {
+__device__ __forceinline__ void layer_norm_row(Load load, int n, const float* gamma,
+                                               const float* beta, float eps, bf16* dst) {
   const int lane = threadIdx.x & 31;
   float s = 0.0f;
   for (int c = lane; c < n; c += 32) s += load(c);
@@ -135,7 +147,6 @@ __device__ __forceinline__ float2 layer_norm_row(Load load, int n, const float* 
   const float rstd = rsqrtf(warp_sum(q) / n + eps);
   for (int c = lane; c < n; c += 32)
     dst[c] = __float2bfloat16((load(c) - mean) * rstd * gamma[c] + beta[c]);
-  return make_float2(mean, rstd);
 }
 
 // LayerNorm of one row of n <= 32 * kMaxPerLane bf16 values in global memory,

@@ -57,9 +57,9 @@ constexpr int kHidChunk = 64;    // hidden columns a step of the one-launch kern
 constexpr int kWRing = 4;        // its weight ring: stages, two chunks loading ahead
 
 // LN(x) of one row by one warp: the lane's P column pairs (2 lane + 64 p,
-// + 1), two-pass fp32 statistics, zeros past D.
+// + 1), two-pass fp32 statistics, zeros past D. Returns (mean, 1/std).
 template <int P>
-__device__ __forceinline__ void ln_row(const bf16* xr, const LnMlpArgs& a, float2 (&v)[P]) {
+__device__ __forceinline__ float2 ln_row(const bf16* xr, const LnMlpArgs& a, float2 (&v)[P]) {
   const int lane = threadIdx.x & 31, d = a.d;
   float sum = 0.0f;
 #pragma unroll
@@ -85,6 +85,7 @@ __device__ __forceinline__ void ln_row(const bf16* xr, const LnMlpArgs& a, float
                                (v[p].y - mean) * rstd * a.gamma[c + 1] + a.beta[c + 1])
                  : make_float2(0.0f, 0.0f);
   }
+  return make_float2(mean, rstd);
 }
 
 template <int DP>
@@ -204,13 +205,15 @@ __global__ void __launch_bounds__(kGemmThreads, DP == 64 ? 2 : 1) ln_mlp_fwd_fus
   }
 }
 
-// LN(x) bf16 [rows, D], one warp a row (the three-launch form).
+// LN(x) bf16 [rows, D], one warp a row (the three-launch form); each row's
+// (mean, 1/std) too where a.stats is not null.
 template <int P, class Route>
 __global__ void __launch_bounds__(kThreads) ln_mlp_fwd_norm_kernel(LnMlpArgs a) {
   const int r = blockIdx.x * kWarps + (threadIdx.x >> 5), lane = threadIdx.x & 31;
   if (r >= a.rows) return;
   float2 v[P];
-  ln_row<P>(a.x + (size_t)r * a.d, a, v);
+  const float2 st = ln_row<P>(a.x + (size_t)r * a.d, a, v);
+  if (a.stats && lane == 0) *reinterpret_cast<float2*>(a.stats + (size_t)r * a.stats_ld) = st;
 #pragma unroll
   for (int p = 0; p < P; ++p) {
     const int c = 2 * lane + 64 * p;
@@ -241,7 +244,8 @@ __global__ void __launch_bounds__(kGemmThreads, 1) ln_mlp_fwd_hidden_kernel(LnMl
   });
 }
 
-// y = x + s (G W2^T + b2), a 128 x 128 tile a block, row tile major.
+// y = x + s (G W2^T + b2), a 128 x 128 tile a block, row tile major (G the
+// attention output and W2 the out-projection in the attention-half chain).
 template <class Route>
 __global__ void __launch_bounds__(kGemmThreads, 1) ln_mlp_fwd_out_kernel(LnMlpArgs a) {
   extern __shared__ char smem_raw[];
@@ -301,16 +305,24 @@ cudaError_t ln_mlp_fwd_out(const LnMlpArgs& a, cudaStream_t st) {
   const cudaError_t err = allow_dynamic_smem((const void*)ln_mlp_fwd_out_kernel<Route>, kGemmSmem);
   if (err != cudaSuccess) return err;
   ln_mlp_fwd_out_kernel<Route>
-      <<<row_tiles(a) * ((a.d + kGemmTile - 1) / kGemmTile), kGemmThreads, kGemmSmem, st>>>(a);
+      <<<row_tiles(a) * ((a.d + kGemmTile - 1) / kGemmTile), kGemmThreads,
+         gemm_smem((a.hidden + kGemmChunk - 1) / kGemmChunk), st>>>(a);
   return cudaGetLastError();
 }
 
 // kernel D's chain (dwconv_mlp.cu) runs these three, kernel E's
-// (swin_block.cu) the norm for its LN1
+// (swin_block.cu) the norm for its LN1, and the attention-half chain
+// (attn_chain.cuh) all three for kernel B and the fused attention forward
 template cudaError_t ln_mlp_fwd_norm<DwConvRoute>(const LnMlpArgs&, cudaStream_t);
 template cudaError_t ln_mlp_fwd_norm<SwinBlockRoute>(const LnMlpArgs&, cudaStream_t);
 template cudaError_t ln_mlp_fwd_hidden<DwConvRoute, false>(const LnMlpArgs&, cudaStream_t);
 template cudaError_t ln_mlp_fwd_out<DwConvRoute>(const LnMlpArgs&, cudaStream_t);
+template cudaError_t ln_mlp_fwd_norm<FbaFwdRoute>(const LnMlpArgs&, cudaStream_t);
+template cudaError_t ln_mlp_fwd_hidden<FbaFwdRoute, false>(const LnMlpArgs&, cudaStream_t);
+template cudaError_t ln_mlp_fwd_out<FbaFwdRoute>(const LnMlpArgs&, cudaStream_t);
+template cudaError_t ln_mlp_fwd_norm<BlockFusedRoute>(const LnMlpArgs&, cudaStream_t);
+template cudaError_t ln_mlp_fwd_hidden<BlockFusedRoute, false>(const LnMlpArgs&, cudaStream_t);
+template cudaError_t ln_mlp_fwd_out<BlockFusedRoute>(const LnMlpArgs&, cudaStream_t);
 
 namespace {
 
@@ -332,14 +344,15 @@ cudaError_t ln_mlp_fwd(const LnMlpArgs& a, bool fused, cudaStream_t st) {
 // multiple of 16 and at most 512, H a multiple of 16. `fused` (D <= 128
 // only) picks the one-launch kernel; otherwise nrm (rows * D) and g (rows *
 // H) bf16 are the three-launch form's scratch. `route` 0 runs #12 itself,
-// 1 kernel E's MLP half (SwinBlockRoute: no row scale, s unused).
+// 1 kernel E's MLP half (SwinBlockRoute), 2 kernel B's (BlockFusedRoute);
+// 1 and 2 take no row scale (s unused).
 extern "C" int mvlt_ln_mlp_fwd(const void* x, const void* gamma, const void* beta,
                                const void* w1, const void* b1, const void* w2, const void* b2,
                                const void* s, void* out, void* nrm, void* g, long long rows, int n,
                                int d, int hidden, int fused, int route, float eps, void* stream) {
   using namespace mvlt;
   if (rows < 1 || rows > (1LL << 30) || n < 1 || d < 16 || d > 512 || d % 16 || hidden < 16 ||
-      hidden % 16 || (fused && d > kFusedMaxD) || (route != 0 && route != 1))
+      hidden % 16 || (fused && d > kFusedMaxD) || route < 0 || route > 2)
     return (int)cudaErrorInvalidValue;
   const LnMlpArgs a{static_cast<const bf16*>(x),     static_cast<const float*>(gamma),
                     static_cast<const float*>(beta), static_cast<const bf16*>(w1),
@@ -350,6 +363,7 @@ extern "C" int mvlt_ln_mlp_fwd(const void* x, const void* gamma, const void* bet
                     n,                               d,
                     hidden,                          eps};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)(route == 0 ? ln_mlp_fwd<LnMlpRoute>(a, fused, st)
-                          : ln_mlp_fwd<SwinBlockRoute>(a, fused, st));
+  return (int)(route == 0   ? ln_mlp_fwd<LnMlpRoute>(a, fused, st)
+               : route == 1 ? ln_mlp_fwd<SwinBlockRoute>(a, fused, st)
+                            : ln_mlp_fwd<BlockFusedRoute>(a, fused, st));
 }

@@ -1,11 +1,15 @@
 // The LN-MLP forward's (#12, ln_mlp.cu) host launchers and epilogue, shared
 // with the chains that run its kernels: kernel D (dwconv_mlp.cu: LN2, fc1
-// without GELU, and fc2 with the residual, around its conv) and kernel E
-// (swin_block.cu: the block's MLP half, and its out-projection epilogue).
+// without GELU, and fc2 with the residual, around its conv), kernel E
+// (swin_block.cu: the block's MLP half, and its out-projection epilogue),
+// and the attention-half chain of kernel B and the fused attention forward
+// (attn_chain.cuh: LN1, Q as fc1 without GELU, the out-projection as fc2
+// over the attention output; B's MLP half through the C entry).
 //
 // Its kernels carry a route tag (common.cuh): LnMlpRoute when #12 runs
-// itself, DwConvRoute and SwinBlockRoute inside D's and E's chains, whose
-// epilogues take no row scale.
+// itself, DwConvRoute, SwinBlockRoute and BlockFusedRoute inside D's, E's
+// and B's chains, whose epilogues take no row scale, and FbaFwdRoute inside
+// the fused attention forward's, whose out-projection takes it.
 
 #pragma once
 
@@ -28,6 +32,8 @@ struct LnMlpArgs {
   bf16* g;    // [rows, H] the hidden (three-launch form)
   int rows, n, d, hidden;
   float eps;
+  float* stats;  // the norm kernel's (mean, 1/std) of row r at stats[r * stats_ld], or null
+  int stats_ld;
 };
 
 // y rows of an epilogue: 8 columns c .. c + 7 of row `row`, v the fc2 sums:
@@ -49,7 +55,8 @@ __device__ __forceinline__ void store_out(const LnMlpArgs& a, int row, int c,
   *reinterpret_cast<uint4*>(a.out + o) = hopper::pack_bf16x8(y);
 }
 
-// The three-launch form's kernels, one launch each: nrm = LN(x);
+// The three-launch form's kernels, one launch each: nrm = LN(x) (and the
+// rows' statistics where a.stats is not null);
 // g = LN(x) W1^T + b1, through GELU where Gelu; out = x + s (g W2^T + b2).
 template <class Route>
 cudaError_t ln_mlp_fwd_norm(const LnMlpArgs& a, cudaStream_t st);
@@ -61,7 +68,8 @@ cudaError_t ln_mlp_fwd_out(const LnMlpArgs& a, cudaStream_t st);
 }  // namespace mvlt
 
 // ln_mlp.cu's C entry; route 0 is #12 itself (LnMlpRoute), 1 kernel E
-// (SwinBlockRoute, no row scale: s may be null).
+// (SwinBlockRoute), 2 kernel B (BlockFusedRoute); routes 1 and 2 take no
+// row scale (s may be null).
 extern "C" int mvlt_ln_mlp_fwd(const void* x, const void* gamma, const void* beta,
                                const void* w1, const void* b1, const void* w2, const void* b2,
                                const void* s, void* out, void* nrm, void* g, long long rows, int n,

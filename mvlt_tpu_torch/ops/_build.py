@@ -37,9 +37,9 @@ _STRIDES = ctypes.POINTER(ctypes.c_longlong)
 # stream are c_void_p so ctypes never truncates them.
 _SIGNATURES = {
     "mvlt_sr_kv": [_P] * 11 + [_I] * 7 + [_F, _F, _P],
-    "mvlt_block_fused": [_P] * 16 + [_I] * 6 + [_F, _F, _F, _P],
+    "mvlt_block_fused": [_P] * 22 + [_I] * 6 + [_F, _F, _F, _P],
     "mvlt_block_attention": [_P] * 10 + [_I] * 5 + [_F, _F, _P],
-    "mvlt_fba_fwd": [_P] * 12 + [_I] * 5 + [_F, _F, _P],
+    "mvlt_fba_fwd": [_P] * 16 + [_I] * 5 + [_F, _F, _P],
     "mvlt_fba_bwd": [_P] * 31 + [_I] * 8 + [_F, _F, _P],
     "mvlt_dwconv_mlp": [_P] * 11 + [_I] * 6 + [_F, _P],
     "mvlt_attention_fwd": [_P] * 5 + [_STRIDES] + [_I] * 5 + [_F, _P],

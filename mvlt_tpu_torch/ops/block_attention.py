@@ -17,11 +17,12 @@ with s [B] the per-sample DropPath scale. ``block_attention_train_reference``
 and ``block_attention_bwd_reference`` are the plain versions (the latter
 written out, in a recompute form and a saved-statistics form);
 ``block_attention_train_fwd`` and ``block_attention_train_bwd`` take them
-for CPU tensors and launch the Hopper kernels (csrc/block_attention_train.cu,
-whose backward runs the attention core on csrc/attention.cu's kernels) for
-CUDA tensors, or raise; ``fused_block_attention_train`` is the
+for CPU tensors and launch the Hopper kernels (csrc/block_attention_train.cu:
+chains of launches that run the attention core on csrc/attention.cu's
+kernels) for CUDA tensors, or raise; ``fused_block_attention_train`` is the
 differentiable ``autograd.Function`` on the fp32 master parameters.
-``bwd_plan``, ``bwd_col_blocks`` and ``bwd_scratch`` size the backward's
+``fwd_scratch`` sizes the forward's scratch (kernel B's chain shares it),
+``bwd_plan``, ``bwd_col_blocks`` and ``bwd_scratch`` the backward's
 launches and scratch.
 
 K and V are [B, heads, M, hd]. The statistics side output is [B, N, 2 + 2H]
@@ -248,6 +249,15 @@ def bwd_col_blocks(rows: int) -> int:
     return min(-(-rows // BWD_COL_ROWS), BWD_MAX_COL_BLOCKS)
 
 
+def fwd_scratch(batch: int, n: int, d: int, heads: int) -> dict:
+    """The forward's scratch, name -> (elements, dtype), in the order the C
+    entry takes it: LN1(x), Q and the attention output A bf16 [rows, D],
+    the attention core's lse [B, H, N] fp32 (written, not read)."""
+    bf16, rows = torch.bfloat16, batch * n
+    return {"nrm": (rows * d, bf16), "q": (rows * d, bf16), "attn": (rows * d, bf16),
+            "lse": (batch * heads * n, torch.float32)}
+
+
 def bwd_scratch(batch: int, n: int, d: int, heads: int, m: int, splits: int,
                 attn_splits: int) -> dict:
     """The backward's scratch, name -> (elements, dtype), in the order the C
@@ -286,9 +296,11 @@ def block_attention_train_fwd(x, k, v, ln1_weight, ln1_bias, wq, bq, wp, bp, row
                               heads: int, eps: float, save_stats: bool = False):
     """Forward of the training form: out, or (out, stats) with
     ``save_stats``. A CPU tensor takes ``block_attention_train_reference``;
-    a CUDA tensor (bf16, contiguous, D and hd multiples of 16) launches the
-    kernel (Pallas #6, or #7 with the statistics), anything else raises.
-    Counts launches in ``block_attention_train_fwd.launches``."""
+    a CUDA tensor (bf16, contiguous, D a multiple of 16, head dim 32 or 64)
+    launches the chain (Pallas #6, or #7 with the statistics: LN1, Q, the
+    attention core, the scaled projection) with the scratch of
+    ``fwd_scratch``, anything else raises. Counts calls in
+    ``block_attention_train_fwd.launches``."""
     if x.device.type == "cpu":
         return block_attention_train_reference(x, k, v, ln1_weight, ln1_bias, wq, bq, wp, bp,
                                                row_scale, heads=heads, eps=eps,
@@ -297,15 +309,19 @@ def block_attention_train_fwd(x, k, v, ln1_weight, ln1_bias, wq, bq, wp, bp, row
     hd, g1, be1, wq_, bq_, wp_, s = _train_operands(name, x, k, v, ln1_weight, ln1_bias, wq,
                                                     bq, wp, row_scale, heads)
     b, n, d = x.shape
+    check_train_heads(name, d, heads)
     bp_ = _build.kernel_vector(name, bp, d, x.device)
     out = torch.empty_like(x)
     stats = (torch.empty((b, n, 2 + 2 * heads), dtype=torch.float32, device=x.device)
              if save_stats else None)
+    work = [torch.empty(count, dtype=dt, device=x.device)
+            for count, dt in fwd_scratch(b, n, d, heads).values()]
     err = _build.load_library().mvlt_fba_fwd(
         x.data_ptr(), k.data_ptr(), v.data_ptr(), g1.data_ptr(), be1.data_ptr(),
         wq_.data_ptr(), bq_.data_ptr(), wp_.data_ptr(), bp_.data_ptr(), s.data_ptr(),
-        out.data_ptr(), None if stats is None else stats.data_ptr(), b, n, d, heads,
-        k.shape[2], hd ** -0.5, eps, torch.cuda.current_stream(x.device).cuda_stream)
+        out.data_ptr(), None if stats is None else stats.data_ptr(),
+        *(t.data_ptr() for t in work), b, n, d, heads, k.shape[2], hd ** -0.5, eps,
+        torch.cuda.current_stream(x.device).cuda_stream)
     _build.check_launch(name, err)
     block_attention_train_fwd.launches += 1
     return (out, stats) if save_stats else out

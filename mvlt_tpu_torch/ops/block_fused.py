@@ -4,7 +4,8 @@ out-proj -> +res -> LN2 -> fc1 -> GELU(erf) -> fc2 -> +res.
 Counterpart of mvlt_tpu/ops/block_fused.py:fused_block and, at stage 1, of
 mvlt_tpu/ops/block_packed.py:fused_block_p2. ``block_reference`` is the plain
 version; ``fused_block`` takes it for a CPU tensor and launches the Hopper
-kernel (csrc/block_fused.cu) for a CUDA tensor, or raises.
+kernels (csrc/block_fused.cu: a chain over the scratch that ``scratch``
+sizes) for a CUDA tensor, or raises.
 """
 
 from __future__ import annotations
@@ -12,8 +13,10 @@ from __future__ import annotations
 import torch
 
 from mvlt_tpu_torch.ops import _build
-from mvlt_tpu_torch.ops.block_attention import attention_residual
+from mvlt_tpu_torch.ops.block_attention import attention_residual, fwd_scratch
+from mvlt_tpu_torch.ops.fused_mlp import fwd_fused
 from mvlt_tpu_torch.ops.kernel_math import gelu, layer_norm_fp32, linear
+from mvlt_tpu_torch.ops.pallas_attention import HEAD_DIMS
 
 
 def block_reference(x, k, v, ln1_weight, ln1_bias, wq, bq, wp, bp,
@@ -29,13 +32,26 @@ def block_reference(x, k, v, ln1_weight, ln1_bias, wq, bq, wp, bp,
     return (res + y.float()).to(x.dtype)
 
 
+def scratch(batch: int, n: int, d: int, heads: int, hidden: int) -> dict:
+    """Kernel B's scratch, name -> (elements, dtype), in the order its C
+    entry takes it: the attention half's (``fwd_scratch``: LN1(x), then
+    #12's LN2(h), Q and the attention output bf16 [rows, D], lse [B, H, N]),
+    h bf16 [rows, D], and #12's hidden G bf16 [rows, hidden] where its
+    forward takes three launches (D > 128; else 0 elements)."""
+    rows = batch * n
+    half = fwd_scratch(batch, n, d, heads)
+    return {"nrm": half["nrm"], "q": half["q"], "attn": half["attn"],
+            "h": (rows * d, torch.bfloat16),
+            "g": (0 if fwd_fused(d) else rows * hidden, torch.bfloat16), "lse": half["lse"]}
+
+
 def fused_block(x, k, v, ln1_weight, ln1_bias, wq, bq, wp, bp,
                 ln2_weight, ln2_bias, w1, b1, w2, b2, *, heads: int,
                 eps1: float, eps2: float) -> torch.Tensor:
     """One block. A CPU tensor takes ``block_reference``; a CUDA tensor (bf16,
-    contiguous, D, hd and the hidden width multiples of 16) launches kernel B,
-    and anything else raises. ``fused_block.launches`` counts the kernel
-    launches."""
+    contiguous, D and the hidden width multiples of 16, D <= 512, head dim
+    32 or 64) launches kernel B's chain, and anything else raises.
+    ``fused_block.launches`` counts the chain's launches (one a call)."""
     if x.device.type == "cpu":
         return block_reference(x, k, v, ln1_weight, ln1_bias, wq, bq, wp, bp,
                                ln2_weight, ln2_bias, w1, b1, w2, b2, heads=heads,
@@ -43,8 +59,9 @@ def fused_block(x, k, v, ln1_weight, ln1_bias, wq, bq, wp, bp,
     name = "fused_block"
     _build.check_stream(name, x)
     b, n, d = x.shape
-    if d % heads or (d // heads) % 16:
-        raise ValueError(f"{name}: D={d} with {heads} heads gives no 16-multiple head dim")
+    if d % heads or d // heads not in HEAD_DIMS or d > 512:
+        raise ValueError(f"{name}: D={d} with {heads} heads: the chain takes D <= 512 and "
+                         f"head dims {HEAD_DIMS}")
     hd = d // heads
     _build.check_kv(name, k, v, b, heads, hd, x.device)
     m = k.shape[2]
@@ -62,13 +79,16 @@ def fused_block(x, k, v, ln1_weight, ln1_bias, wq, bq, wp, bp,
     bq_, bp_ = vec(name, bq, d, dev), vec(name, bp, d, dev)
     b1_, b2_ = vec(name, b1, hidden, dev), vec(name, b2, d, dev)
     out = torch.empty_like(x)
+    work = [torch.empty(max(count, 1), dtype=dt, device=dev)
+            for count, dt in scratch(b, n, d, heads, hidden).values()]
     lib = _build.load_library()
     err = lib.mvlt_block_fused(
         x.data_ptr(), k.data_ptr(), v.data_ptr(), g1.data_ptr(), be1.data_ptr(),
         wq_.data_ptr(), bq_.data_ptr(), wp_.data_ptr(), bp_.data_ptr(),
         g2.data_ptr(), be2.data_ptr(), w1_.data_ptr(), b1_.data_ptr(),
-        w2_.data_ptr(), b2_.data_ptr(), out.data_ptr(), b, n, d, heads, m, hidden,
-        hd ** -0.5, eps1, eps2, torch.cuda.current_stream(dev).cuda_stream)
+        w2_.data_ptr(), b2_.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in work),
+        b, n, d, heads, m, hidden, hd ** -0.5, eps1, eps2,
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(name, err)
     fused_block.launches += 1
     return out

@@ -26,8 +26,7 @@ def main() -> None:
     sys.path.insert(0, root)
     import chip_smoke as c
 
-    wrappers = {"pvlt_tiny": (c.SERVING_WRAPPERS, None, {"sr_kv": ("sr_kv_kernel",),
-                                                         "block_fused": ("block_fused_kernel",)}),
+    wrappers = {"pvlt_tiny": (c.SERVING_WRAPPERS, None, c.V1_GROUPS),
                 "pvlt_swin_tiny": (c.SWIN_WRAPPERS,
                                    {"swin_block": 2, "swin_attention": 6, "ln_mlp_fwd": 6},
                                    c.SWIN_GROUPS)}

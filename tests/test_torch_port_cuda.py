@@ -8,8 +8,11 @@ PyTorch for CUDA:
 
 (``--noconftest``: tests/conftest.py configures JAX, which this file does
 not need.) chip_smoke.py checks the kernels at the pvlt_tiny stage shapes;
-these tests take other widths, head dims, grids and lengths, the row tiles
-kernel B falls back to, the training attention kernels at head dims 32 and
+these tests take other widths, head dims, grids and lengths, kernel B's
+chain at D = 96 with head dim 32 and at D = 320 with odd N (its launch
+counts: #10's and #12's wrappers count none of its launches), the fused
+attention forward's chain at D = 96, head dim 32, an odd N and a tile
+across samples of different scales, the training attention kernels at head dims 32 and
 64 with M = 5, 22, 177, 192, 272, 600 and 900, N off the tile, one range of N
 and four, and the backward's bit-equal repeat at stage 1, B = 150, the
 LN-MLP kernels at the four stage widths, rows off the tile, D = 96, D =
@@ -96,11 +99,11 @@ def _rel(got, want):
 
 
 @pytest.mark.parametrize("hw,dim,heads,sr,mlp_ratio,t,batch", [
-    ((8, 8), 32, 2, 2, 4.0, 5, 3),       # head dim 16, M = 21, N = 69
+    ((8, 8), 64, 2, 2, 4.0, 5, 3),       # head dim 32, M = 21, N = 69
     ((6, 10), 96, 3, 2, 4.0, 7, 2),      # non-square grid, head dim 32
-    ((4, 4), 64, 4, 1, 4.0, 9, 2),       # sr == 1: M = N = 25
+    ((4, 4), 64, 2, 1, 4.0, 9, 2),       # sr == 1: M = N = 25
     ((16, 16), 512, 8, 4, 2.0, 3, 1),    # widest kernel-A variant, M = 19
-    ((24, 24), 128, 2, 1, 4.0, 24, 1),   # M = 600: kernel B takes 16-row tiles
+    ((24, 24), 128, 2, 1, 4.0, 24, 1),   # M = 600: ten 64-row K/V chunks of #10
 ])
 def test_kernels_match_plain(dev, hw, dim, heads, sr, mlp_ratio, t, batch):
     blk = _block(dim, heads, sr, mlp_ratio, dev, seed=dim + t)
@@ -148,10 +151,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
             fused_block(x, k, v[:, :, :-1].contiguous(), *_block_args(blk), **kw_b)
         with pytest.raises(ValueError, match="contiguous"):
             fused_block(x, k.transpose(2, 3), v, *_block_args(blk), **kw_b)
-        # K/V too long for any row tile's shared memory: the launch is refused
-        long_kv = torch.zeros(2, heads, 2048, dim // heads, device=dev, dtype=torch.bfloat16)
-        with pytest.raises(RuntimeError, match="cudaError_t"):
-            fused_block(x, long_kv, long_kv, *_block_args(blk), **kw_b)
+        # head dim 16: #10's forward, which the chain runs, takes 32 and 64
+        launches = fused_block.launches
+        with pytest.raises(ValueError, match="head dims"):
+            fused_block(x, k, v, *_block_args(blk), **dict(kw_b, heads=4))
+        assert fused_block.launches == launches
     # training mode is the training path: its kernels, not the serving ones
     launches = (fused_ln_sr_kv.launches, fused_block.launches, attention_fwd.launches,
                 ln_mlp_fwd.launches)
@@ -160,6 +164,39 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     assert torch.isfinite(out.float()).all()
     assert (fused_ln_sr_kv.launches, fused_block.launches, attention_fwd.launches,
             ln_mlp_fwd.launches) == (launches[0], launches[1], launches[2] + 1, launches[3] + 1)
+
+
+def _chain_counts():
+    """The wrappers' counts of #10's and #12's own launches, which the
+    chains of kernel B and the fused attention forward (run through C) leave
+    as they are."""
+    return {"attention_fwd": attention_fwd.launches, "ln_mlp_fwd": ln_mlp_fwd.launches}
+
+
+@pytest.mark.parametrize("hw,dim,heads,sr,mlp_ratio,t,batch", [
+    ((7, 9), 96, 3, 1, 4.0, 8, 2),       # head dim 32, N = M = 71 (odd), one-launch MLP
+    ((10, 6), 96, 3, 2, 4.0, 3, 3),      # head dim 32, N = 63, M = 18
+    ((5, 5), 320, 5, 1, 4.0, 8, 2),      # N = M = 33, the three-launch MLP (hidden 1,280)
+])
+def test_block_chain_matches_plain(dev, hw, dim, heads, sr, mlp_ratio, t, batch):
+    """Kernel B's chain against its plain version, through the wrapper and
+    through the Block; the wrapper counts one launch a call and #10's and
+    #12's wrappers none."""
+    blk = _block(dim, heads, sr, mlp_ratio, dev, seed=dim + t + 1)
+    gen = torch.Generator().manual_seed(t + 1)
+    x = torch.randn(batch, hw[0] * hw[1] + t, dim, generator=gen).to(dev, torch.bfloat16)
+    kw_kv = dict(sr=sr, heads=heads, eps1=1e-6, eps_sr=1e-5)
+    kw_b = dict(heads=heads, eps1=1e-6, eps2=1e-6)
+    with torch.no_grad():
+        k, v = sr_kv_reference(x, hw, *_kv_args(blk), **kw_kv)
+        before, launches = _chain_counts(), fused_block.launches
+        out = fused_block(x, k, v, *_block_args(blk), **kw_b)
+        torch.cuda.synchronize()
+        assert fused_block.launches == launches + 1 and _chain_counts() == before
+        want = block_reference(x, k, v, *_block_args(blk), **kw_b)
+        via_module = blk(x, hw)
+    assert torch.isfinite(out.float()).all() and _rel(out, want) <= TOL
+    assert _rel(via_module, want) <= TOL
 
 
 def _mlp_params(d, hidden, dev, gen):
@@ -347,6 +384,29 @@ def test_fba_train_kernels_match_plain(dev, b, n, d, heads, m):
     for got, stats in ((grads, None), (grads_s, st)):   # in-order sums: repeats bit-equal
         again = block_attention_train_bwd(x, k, v, g, be, wq, bq, wp, s, dy, stats=stats, **kw)
         assert all(torch.equal(a, c) for a, c in zip(got, again))
+
+
+@pytest.mark.parametrize("b,n,d,heads,m,scales", [
+    (3, 131, 96, 3, 177, (0.0, 1.25, 0.5)),   # head dim 32, odd N: tile 1 spans samples 0, 1
+    (2, 77, 320, 5, 40, (2.0, 0.0)),          # odd N, five heads of 64
+])
+def test_fba_forward_chain_matches_plain(dev, b, n, d, heads, m, scales):
+    """The fused attention forward's chain (both forms) against its plain
+    version, every statistics column included, each row at its own sample's
+    scale; #10's and #12's wrappers count none of its launches."""
+    gen = torch.Generator().manual_seed(n + d + 1)
+    x, k, v, params, _, _ = _fba_inputs(b, n, d, heads, m, dev, gen)
+    s = torch.tensor(scales, device=dev)
+    kw = dict(heads=heads, eps=1e-6)
+    before, launches = _chain_counts(), block_attention_train_fwd.launches
+    out = block_attention_train_fwd(x, k, v, *params, s, **kw)
+    out_s, st = block_attention_train_fwd(x, k, v, *params, s, save_stats=True, **kw)
+    torch.cuda.synchronize()
+    assert block_attention_train_fwd.launches == launches + 2 and _chain_counts() == before
+    want, st_ref = block_attention_train_reference(x, k, v, *params, s, save_stats=True, **kw)
+    assert _rel(out, want) <= TOL and _rel(out_s, want) <= TOL
+    for c in (slice(0, 1), slice(1, 2), slice(2, None, 2), slice(3, None, 2)):
+        assert _rel(st[..., c], st_ref[..., c]) <= TOL
 
 
 def test_fused_attention_route_block_matches_plain(dev):

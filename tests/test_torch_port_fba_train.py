@@ -255,6 +255,17 @@ def test_bwd_scratch_sizes():
     assert small["dq_acc"] == (2 * 3 * 300 * 32, torch.float32)
 
 
+def test_fwd_scratch_sizes():
+    """The forward chain's scratch at stage 1, B = 150 (N = 4,224, D = 64,
+    one head): LN1(x), Q and A 81 MB each, the attention core's lse 2.5 MB:
+    0.25 GB, freed when the call returns. lse has a row per head."""
+    got = {k: n * torch.empty(0, dtype=dt).element_size()
+           for k, (n, dt) in fba.fwd_scratch(150, 4224, 64, 1).items()}
+    assert got == {"nrm": 81_100_800, "q": 81_100_800, "attn": 81_100_800, "lse": 2_534_400}
+    assert sum(got.values()) == 245_836_800
+    assert fba.fwd_scratch(150, 192, 512, 8)["lse"] == (150 * 8 * 192, torch.float32)
+
+
 @pytest.mark.parametrize("d,heads,ok", [(64, 1, True), (320, 5, True), (96, 3, True),
                                         (256, 16, False), (96, 2, False), (64, 3, False)])
 def test_training_form_takes_head_dims_32_and_64(d, heads, ok):

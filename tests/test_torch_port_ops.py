@@ -17,6 +17,7 @@ import torch
 from mvlt_tpu_torch.convert import state_dict_from_jax
 from mvlt_tpu_torch.models.pvlt import Block as TorchBlock
 from mvlt_tpu_torch.ops.block_fused import block_reference, fused_block
+from mvlt_tpu_torch.ops.block_fused import scratch as block_scratch
 from mvlt_tpu_torch.ops.fused_mlp import ln_mlp_bwd, ln_mlp_fwd
 from mvlt_tpu_torch.ops.pallas_attention import attention_bwd, attention_fwd
 from mvlt_tpu_torch.ops.sr_kv import fused_ln_sr_kv, sr_kv_reference
@@ -185,6 +186,19 @@ def test_module_path_matches_kernel_references(sr):
         other = TorchBlock(dim, heads, 4.0, sr, True).eval()
         blk.load_state_dict(other.state_dict())
         np.testing.assert_array_equal(blk(x, hw).numpy(), other(x, hw).numpy())
+
+
+def test_block_scratch_sizes():
+    """Kernel B's chain's scratch at stage 1, B = 101 (N = 4,224, D = 64,
+    one head, hidden 512): LN1(x) (then LN2(h)), Q, A and h 54.6 MB each,
+    lse 1.7 MB, no hidden (the MLP is one launch at D <= 128): 0.22 GB.
+    At stage 3 (D = 320, hidden 1,280) #12's three launches add G."""
+    got = {k: n * torch.empty(0, dtype=dt).element_size()
+           for k, (n, dt) in block_scratch(101, 4224, 64, 1, 512).items()}
+    assert got == {"nrm": 54_607_872, "q": 54_607_872, "attn": 54_607_872, "h": 54_607_872,
+                   "g": 0, "lse": 1_706_496}
+    assert sum(got.values()) == 220_137_984
+    assert block_scratch(101, 384, 320, 5, 1280)["g"] == (49_643_520, torch.bfloat16)
 
 
 def test_wrappers_refuse_non_cpu_non_cuda_tensors():
