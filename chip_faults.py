@@ -14,13 +14,25 @@ changed source), and then, with the bound lifted, prints every check's error
 at the B = 4 shapes. The copy is removed afterwards; the sources of the
 checkout are never changed. It exits non-zero if a fault passes the phase.
 
-Faults, kernel B's chain (csrc/block_fused.cu on csrc/attn_chain.cuh),
-phase kernels:
+Faults, kernel A's chain (csrc/sr_kv.cu), phase kernels:
+  sr_gather_swaps_rs  the SR conv's gather takes kernel offset (s, r) for
+                   (r, s): the pixel of the transposed offset;
+  text_rows_sr_ln  the text rows of the K/V input go through SR-LN instead
+                   of being LN1 as they are;
+  split_slot_dropped  the SR-LN row kernel's in-order sum of the SR conv's
+                   slots leaves out the last contraction range.
+Kernel B's chain (csrc/block_fused.cu on csrc/attn_chain.cuh), phase
+kernels:
   a_head_stride    the [B, H, N, hd] view of the attention output steps
                    hd / 2 columns a head instead of hd (seen only with more
                    than one head);
   mlp_reads_x      the MLP half's LN2 and residual read the block's input x
                    instead of h.
+Kernel C's chain (csrc/block_attention.cu on csrc/attn_chain.cuh), phase
+v2_kernels:
+  c_head_stride    the [B, H, N, hd] view of the attention output steps
+                   hd / 2 columns a head instead of hd (B's a_head_stride,
+                   caught by C's own checks).
 Kernel D's conv (csrc/dwconv_mlp.cu:dwconv_stencil_kernel), phase
 v2_kernels:
   halo_wrap        a token's left and right neighbours bounded by the flat
@@ -100,6 +112,22 @@ import textwrap
 
 ROOT = pathlib.Path(__file__).resolve().parent
 FAULTS = {
+    "sr_gather_swaps_rs": (
+        "kernels", "mvlt_tpu_torch/csrc/sr_kv.cu",
+        "const long long off = ((long long)r * a.w + s) * a.d + ch;",
+        "const long long off = ((long long)s * a.w + r) * a.d + ch;"),
+    "text_rows_sr_ln": (
+        "kernels", "mvlt_tpu_torch/csrc/sr_kv.cu",
+        "if (text) return store_row<P>(dst, v, d);",
+        ""),
+    "split_slot_dropped": (
+        "kernels", "mvlt_tpu_torch/csrc/sr_kv.cu",
+        "for (int s = 0; s < a.splits; ++s) {",
+        "for (int s = 0; s < a.splits - 1; ++s) {"),
+    "c_head_stride": (
+        "v2_kernels", "mvlt_tpu_torch/csrc/attn_chain.cuh",
+        "const long long view_a[3] = {(long long)h.n * d, hd, d};",
+        "const long long view_a[3] = {(long long)h.n * d, hd / 2, d};"),
     "a_head_stride": (
         "kernels", "mvlt_tpu_torch/csrc/attn_chain.cuh",
         "const long long view_a[3] = {(long long)h.n * d, hd, d};",
@@ -220,7 +248,8 @@ MARGINS = {
 gen = torch.Generator().manual_seed(c.SEED)
 shapes = [(f"stage{i + 1}", (h, w, d, nh, sr, hid, c.TEXT))
           for i, (h, w, d, nh, sr, hid) in enumerate(c.STAGES)]
-traps = [("ragged", c.RAGGED), ("ragged_heads", c.RAGGED_HEADS), ("m177", c.TRAIN_M177)]
+traps = [("ragged", c.RAGGED), ("ragged_heads", c.RAGGED_HEADS), ("m177", c.TRAIN_M177),
+         ("v2_ragged", c.V2_RAGGED)]
 for label, shape in shapes + traps:
     c.check_kernels(stats, gen, label, shape, c.SMOKE_BATCH)
 """,

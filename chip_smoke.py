@@ -15,21 +15,25 @@ JSON line each; a failed phase raises and the script exits non-zero:
      registers and spills per kernel, and the HGMMA instructions in the SASS
      of each wgmma kernel (WGMMA_KERNELS: the training attention kernels,
      the MLM CE kernels, the LN-MLP forward's and backward's product
-     kernels, the fused attention backward's, kernel F and kernel E's q/k/v
-     and out-projection products; cuobjdump), which each must hold, and
-     the instantiations of #10's, #12's and F's product kernels under the
-     route tags of the chains of kernels B, D and E and of the fused
-     attention forward (WGMMA_ROUTES);
-  3. kernels: kernel A (SR-KV) and kernel B (whole block, a chain of LN1, Q,
-     #10's forward, the out-projection and #12's forward) against their
-     plain PyTorch versions on the card in bf16, bound max|kernel - plain| /
-     max|plain| <= 2e-2, at the four pvlt_tiny stage shapes (B = 4), one
-     ragged shape, one with two heads (the head stride of the Q and A
-     views), stage 1 at 224 input (M = 177, off #10's 64-row chunk), and
-     the four stage shapes at B = 101, where each kernel's time is also
-     taken beside the plain version's, with B's device time and a bf16
-     PyTorch composition of its work (LayerNorm, cuBLAS, SDPA; a
-     yardstick);
+     kernels, the fused attention backward's, kernel F, kernel E's q/k/v
+     and out-projection products and kernel A's SR conv and K/V products;
+     cuobjdump), which each must hold, and the instantiations of #10's,
+     #12's, F's and A's product kernels under the route tags of the chains
+     of kernels A, B, C, D and E and of the fused attention forward
+     (WGMMA_ROUTES);
+  3. kernels: kernel A (SR-KV, a chain of LN1, the SR conv on a gathered
+     operand with its contraction split, SR-LN and the K/V product) and
+     kernel B (whole block, a chain of LN1, Q, #10's forward, the
+     out-projection and #12's forward) against their plain PyTorch versions
+     on the card in bf16, bound max|kernel - plain| / max|plain| <= 2e-2,
+     and A's output bit-equal over two calls (its split sums), at the four
+     pvlt_tiny stage shapes (B = 4), one ragged shape, one with two heads
+     (the head stride of the Q and A views), stage 1 at 224 input (M =
+     177, off #10's 64-row chunk), v2's ragged shape (D = 96, h != w, head
+     dim 32), and the four stage shapes at B = 101, where each kernel's
+     time is also taken beside the plain version's, with A's and B's device
+     time and a bf16 PyTorch composition of each one's work (LayerNorm,
+     cuDNN's conv, cuBLAS, SDPA; yardsticks);
   4. uint8 / 255 on the card, bit-equal to the host's float32 division;
   5. the serving slice: pvlt_tiny (itm head only, bf16, 256x256, 128
      tokens, seeded random weights) scores three synthetic 101-candidate
@@ -42,12 +46,13 @@ JSON line each; a failed phase raises and the script exits non-zero:
      path's own bf16 error on the CPU;
   6. serving throughput at B = 101 on pre-staged device tensors, peak device
      memory, and a torch.profiler breakdown of device time by kernel;
-  6b. PVT-v2 serving: kernels C (attention half) and D (DWConv MLP) against
-     their plain versions in bf16 (every output within 2e-2 as in phase 3)
-     at the four pvlt_v2_tiny stage shapes (B = 4), a ragged shape (grid
-     12x20, T = 7, head dim 32) and the stage shapes at B = 101 with times
-     and bounds, D's device time and a bf16 PyTorch composition of its
-     work (LayerNorm, cuBLAS, cuDNN's depthwise conv; a yardstick);
+  6b. PVT-v2 serving: kernels C (attention half, kernel B's attention-half
+     chain under its own route tag) and D (DWConv MLP) against their plain
+     versions in bf16 (every output within 2e-2 as in phase 3) at the four
+     pvlt_v2_tiny stage shapes (B = 4), a ragged shape (grid 12x20, T = 7,
+     head dim 32) and the stage shapes at B = 101 with times and bounds,
+     C's and D's device time and a bf16 PyTorch composition of each one's
+     work (LayerNorm, cuBLAS, SDPA, cuDNN's depthwise conv; yardsticks);
      pvlt_v2_tiny (itm only, bf16, seeded weights) scores three
      bundles through evaluate_retrieval (kernels A, C and D each launched 8
      times per forward, no other kernel); every block of a B = 101 forward
@@ -282,8 +287,9 @@ KERNELS = [
      "replaces": "mvlt_tpu/ops/block_attention.py:544 (_bwd_kernel_stats :265)"},
 ]
 SERVING_WRAPPERS = {"sr_kv": fused_ln_sr_kv, "block_fused": fused_block}
-# kernel B's chain runs #10's and #12's kernels under BlockFusedRoute
-V1_GROUPS = {"sr_kv": ("sr_kv_kernel",), "block_fused": ("BlockFusedRoute",)}
+# kernel A's chain runs #12's norm kernel and its own under SrKvRoute,
+# kernel B's #10's and #12's kernels under BlockFusedRoute
+V1_GROUPS = {"sr_kv": ("SrKvRoute",), "block_fused": ("BlockFusedRoute",)}
 V2_SERVING_WRAPPERS = {"sr_kv": fused_ln_sr_kv, "block_attention": fused_block_attention,
                        "dwconv_mlp": fused_dwconv_mlp}
 SWIN_WRAPPERS = {"swin_block": fused_swin_block, "swin_attention": fused_swin_attention}
@@ -393,11 +399,11 @@ WGMMA_KERNELS = ("attn_fwd_hopper_kernel", "attn_bwd_hopper_kernel", "mlm_ce_fwd
                  "ln_mlp_bwd_wgrad_kernel", "ln_mlp_bwd_dnorm_kernel", "swin_attn_hopper_kernel",
                  "ln_mlp_fwd_fused_kernel", "ln_mlp_fwd_hidden_kernel", "ln_mlp_fwd_out_kernel",
                  "fba_bwd_proj_kernel", "fba_bwd_wgrad_kernel", "swin_qkv_kernel",
-                 "swin_proj_kernel")
-# the chains of kernels B, D and E and of the fused attention forward run
-# #10's, #12's and F's product kernels under their own route tags
-# (csrc/common.cuh): (kernel, tag) pairs whose instantiation must be in the
-# library, with HGMMA like every instantiation of a WGMMA_KERNELS entry
+                 "swin_proj_kernel", "sr_conv_gemm_kernel", "kv_proj_gemm_kernel")
+# the chains of kernels A, B, C, D and E and of the fused attention forward
+# run #10's, #12's, F's and their own product kernels under their route
+# tags (csrc/common.cuh): (kernel, tag) pairs whose instantiation must be in
+# the library, with HGMMA like every instantiation of a WGMMA_KERNELS entry
 WGMMA_ROUTES = (("ln_mlp_fwd_hidden_kernel", "DwConvRoute"),
                 ("ln_mlp_fwd_out_kernel", "DwConvRoute"),
                 ("ln_mlp_fwd_fused_kernel", "SwinBlockRoute"),
@@ -410,7 +416,12 @@ WGMMA_ROUTES = (("ln_mlp_fwd_hidden_kernel", "DwConvRoute"),
                 ("ln_mlp_fwd_fused_kernel", "BlockFusedRoute"),
                 ("attn_fwd_hopper_kernel", "FbaFwdRoute"),
                 ("ln_mlp_fwd_hidden_kernel", "FbaFwdRoute"),
-                ("ln_mlp_fwd_out_kernel", "FbaFwdRoute"))
+                ("ln_mlp_fwd_out_kernel", "FbaFwdRoute"),
+                ("attn_fwd_hopper_kernel", "BlockAttentionRoute"),
+                ("ln_mlp_fwd_hidden_kernel", "BlockAttentionRoute"),
+                ("ln_mlp_fwd_out_kernel", "BlockAttentionRoute"),
+                ("sr_conv_gemm_kernel", "SrKvRoute"),
+                ("kv_proj_gemm_kernel", "SrKvRoute"))
 
 
 def hgmma_counts(library: pathlib.Path) -> dict:
@@ -493,7 +504,8 @@ def _rel_err(got, want) -> tuple[float, float]:
 
 def check_kernels(stats: dict, gen, label: str, shape: tuple, batch: int):
     """Both kernels against their plain versions on one shape's seeded
-    inputs on the card; raises past KERNEL_TOL. Returns the inputs and the
+    inputs on the card, and A's output bit-equal over two calls; raises
+    past KERNEL_TOL or on a repeat that differs. Returns the inputs and the
     plain K/V, for timing."""
     h, w, d, nh, sr, hid, t = shape
     p = stage_params(gen, d, sr, hid, torch.device("cuda"))
@@ -502,9 +514,14 @@ def check_kernels(stats: dict, gen, label: str, shape: tuple, batch: int):
     kw_b = dict(heads=nh, eps1=1e-6, eps2=1e-6)
     k_ref, v_ref = sr_kv_reference(x, (h, w), *_kv_args(p), **kw_kv)
     k, v = fused_ln_sr_kv(x, (h, w), *_kv_args(p), **kw_kv)
+    k2, v2 = fused_ln_sr_kv(x, (h, w), *_kv_args(p), **kw_kv)
     out_ref = block_reference(x, k_ref, v_ref, *_block_args(p), **kw_b)
     out = fused_block(x, k_ref, v_ref, *_block_args(p), **kw_b)
     torch.cuda.synchronize()
+    repeat = bool(torch.equal(k, k2) and torch.equal(v, v2))
+    emit("kernel_repeat", kernel="sr_kv", shape=label, batch=batch, bit_equal=repeat)
+    if not repeat:
+        raise AssertionError(f"sr_kv differs between two calls at {label}, B = {batch}")
     errs = {"sr_kv": max(_rel_err(k, k_ref), _rel_err(v, v_ref), key=lambda e: e[1]),
             "block_fused": _rel_err(out, out_ref)}
     for name, (abs_err, rel) in errs.items():
@@ -547,6 +564,48 @@ def add_time(stats: dict, name: str, **fields) -> None:
     st["bound_by"] = max(st["bound_shares"], key=st["bound_shares"].get)
 
 
+def yardsticks(run, composition) -> dict:
+    """A kernel's device time and a bf16 PyTorch composition of its work
+    by CUDA events and by device time (the composition is a yardstick,
+    never a path the port calls)."""
+    return {"device_ms": device_time_ms(run), "composition_ms": cuda_time_ms(composition),
+            "composition_device_ms": device_time_ms(composition)}
+
+
+def sr_kv_composition(x, hw: tuple, p: dict, sr: int):
+    """Kernel A's function as PyTorch calls in bf16: F.layer_norm, the SR
+    conv (cuDNN's F.conv2d), F.layer_norm, torch.cat with the text rows and
+    F.linear (cuBLAS) to [B, M, 2D]; a yardstick, never a path the port
+    calls."""
+    g1, be1, wsr, bsr, gsr, bsrn, wkv, bkv = (None if t is None else t.to(torch.bfloat16)
+                                              for t in _kv_args(p))
+    (h, w), d = hw, x.shape[-1]
+
+    def run():
+        normed = F.layer_norm(x, (d,), g1, be1, 1e-6)
+        if sr == 1:
+            return F.linear(normed, wkv, bkv)
+        grid = normed[:, : h * w].reshape(x.shape[0], h, w, d).permute(0, 3, 1, 2)
+        red = F.conv2d(grid, wsr, bsr, stride=sr).flatten(2).transpose(1, 2)
+        red = F.layer_norm(red, (d,), gsr, bsrn, 1e-5)
+        return F.linear(torch.cat([red, normed[:, h * w:]], dim=1), wkv, bkv)
+    return run
+
+
+def attention_half_composition(x, k, v, p: dict, heads: int):
+    """Kernel C's function as PyTorch calls in bf16: F.layer_norm, F.linear
+    (cuBLAS), F.scaled_dot_product_attention, the projection and the
+    residual; a yardstick, never a path the port calls."""
+    g1, be1, wq, bq, wp, bp = (t.to(torch.bfloat16) for t in _c_args(p))
+    b, n, d = x.shape
+
+    def run():
+        q = F.linear(F.layer_norm(x, (d,), g1, be1, 1e-6), wq, bq)
+        o = F.scaled_dot_product_attention(q.view(b, n, heads, d // heads).transpose(1, 2), k, v)
+        return x + F.linear(o.transpose(1, 2).reshape(b, n, d), wp, bp)
+    return run
+
+
 def block_composition(x, k, v, p: dict, heads: int):
     """Kernel B's function as PyTorch calls in bf16: F.layer_norm, F.linear
     (cuBLAS), F.scaled_dot_product_attention, the projection and residual,
@@ -572,7 +631,8 @@ def phase_kernels(stats: dict) -> None:
     gen = torch.Generator().manual_seed(SEED)
     shapes = [(f"stage{i + 1}", (h, w, d, nh, sr, hid, TEXT))
               for i, (h, w, d, nh, sr, hid) in enumerate(STAGES)]
-    traps = [("ragged", RAGGED), ("ragged_heads", RAGGED_HEADS), ("m177", TRAIN_M177)]
+    traps = [("ragged", RAGGED), ("ragged_heads", RAGGED_HEADS), ("m177", TRAIN_M177),
+             ("v2_ragged", V2_RAGGED)]
     for label, shape in shapes + traps:
         check_kernels(stats, gen, label, shape, SMOKE_BATCH)
 
@@ -588,11 +648,11 @@ def phase_kernels(stats: dict) -> None:
                             cuda_time_ms(lambda: block_reference(x, k, v, *_block_args(p), **kw_b))),
         }
         bounds = serving_bounds(shape, BATCH)
-        composition = block_composition(x, k, v, p, kw_b["heads"])
-        extra = {"block_fused": {
-            "device_ms": device_time_ms(lambda: fused_block(x, k, v, *_block_args(p), **kw_b)),
-            "composition_ms": cuda_time_ms(composition),
-            "composition_device_ms": device_time_ms(composition)}}
+        extra = {
+            "sr_kv": yardsticks(lambda: fused_ln_sr_kv(x, (h, w), *_kv_args(p), **kw_kv),
+                                sr_kv_composition(x, (h, w), p, kw_kv["sr"])),
+            "block_fused": yardsticks(lambda: fused_block(x, k, v, *_block_args(p), **kw_b),
+                                      block_composition(x, k, v, p, kw_b["heads"]))}
         for name, (ms, plain_ms) in times.items():
             bound_ms, bound_by = bounds[name]
             emit("kernel_time", kernel=name, shape=label, batch=BATCH, ms=ms,
@@ -600,7 +660,7 @@ def phase_kernels(stats: dict) -> None:
                  library_ms=None, speedup=plain_ms / ms, **extra.get(name, {}))
             add_time(stats, name, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                      bound_by=bound_by, library_ms=None)
-        del x, k, v, composition
+        del x, k, v, extra
         torch.cuda.empty_cache()
 
 
@@ -935,11 +995,12 @@ def phase_v2_kernels(stats: dict) -> None:
                            cuda_time_ms(lambda: dwconv_mlp_reference(x, hw, *_d_args(p), **kw_d))),
         }
         bounds = v2_bounds(shape, BATCH)
-        composition = dwconv_mlp_composition(x, hw, p)
-        extra = {"dwconv_mlp": {
-            "device_ms": device_time_ms(lambda: fused_dwconv_mlp(x, hw, *_d_args(p), **kw_d)),
-            "composition_ms": cuda_time_ms(composition),
-            "composition_device_ms": device_time_ms(composition)}}
+        extra = {
+            "block_attention": yardsticks(
+                lambda: fused_block_attention(x, k, v, *_c_args(p), **kw_c),
+                attention_half_composition(x, k, v, p, kw_c["heads"])),
+            "dwconv_mlp": yardsticks(lambda: fused_dwconv_mlp(x, hw, *_d_args(p), **kw_d),
+                                     dwconv_mlp_composition(x, hw, p))}
         for name, (ms, plain_ms) in times.items():
             bound_ms, bound_by = bounds[name]
             emit("kernel_time", kernel=name, shape=label, batch=BATCH, ms=ms,
@@ -947,7 +1008,7 @@ def phase_v2_kernels(stats: dict) -> None:
                  library_ms=None, speedup=plain_ms / ms, **extra.get(name, {}))
             add_time(stats, name, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                      bound_by=bound_by, library_ms=None)
-        del x, k, v, composition
+        del x, k, v, extra
         torch.cuda.empty_cache()
 
 
@@ -1319,8 +1380,9 @@ def swin_init_gap(model, bundle, sd) -> None:
 SWIN_GROUPS = {"swin_block": ("SwinBlockRoute", "swin_qkv_kernel", "swin_proj_kernel",
                               "swin_pool_kernel"),
                "swin_attention": ("swin_attn_hopper_kernel",), "ln_mlp_fwd": ("ln_mlp_fwd",)}
-# kernel D's chain runs #12's kernels under DwConvRoute
-V2_GROUPS = {"sr_kv": ("sr_kv_kernel",), "block_attention": ("block_attention_kernel",),
+# kernel C's chain runs #10's and #12's kernels under BlockAttentionRoute,
+# kernel D's #12's kernels under DwConvRoute
+V2_GROUPS = {"sr_kv": ("SrKvRoute",), "block_attention": ("BlockAttentionRoute",),
              "dwconv_mlp": ("DwConvRoute", "dwconv_")}
 
 

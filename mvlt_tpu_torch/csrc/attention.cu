@@ -44,9 +44,9 @@
 // q and o are the strided [B, N, H, hd] views the step passes. In its
 // statistics mode (Stats, the fused attention forward's #7) it also writes
 // each row's final max and 1/l, in natural units, into the row's head
-// columns of the [B, N, 2 + 2H] statistics. The chains of kernel B and the
-// fused attention forward (attn_chain.cuh) launch it under their route tags
-// (common.cuh) through mvlt_attention_fwd_route.
+// columns of the [B, N, 2 + 2H] statistics. The chains of kernels B and C
+// and the fused attention forward (attn_chain.cuh) launch it under their
+// route tags (common.cuh) through mvlt_attention_fwd_route.
 //
 // Backward (attn_bwd_hopper_kernel, 3 warpgroups, 1 block an SM). One block
 // owns one (sample, head), a range of q tiles, and the whole K/V of the head
@@ -687,7 +687,8 @@ int launch_bwd(const BwdArgs& a, int batch, cudaStream_t stream) {
 }
 
 // route 0: #10 itself (fixed picks the Fixed form); FbaFwdRoute::kAttn
-// (with or without statistics) and BlockFusedRoute::kAttn: the chains'.
+// (with or without statistics), BlockFusedRoute::kAttn and
+// BlockAttentionRoute::kAttn: the chains'.
 template <int HD>
 int fwd_on_route(const FwdArgs& a, int batch, bool fixed, int route, cudaStream_t st) {
   if (route == FbaFwdRoute::kAttn)
@@ -695,6 +696,8 @@ int fwd_on_route(const FwdArgs& a, int batch, bool fixed, int route, cudaStream_
                    : launch_fwd<HD, false, false, FbaFwdRoute>(a, batch, st);
   if (route == BlockFusedRoute::kAttn)
     return launch_fwd<HD, false, false, BlockFusedRoute>(a, batch, st);
+  if (route == BlockAttentionRoute::kAttn)
+    return launch_fwd<HD, false, false, BlockAttentionRoute>(a, batch, st);
   return fixed ? launch_fwd<HD, true, false, AttnRoute>(a, batch, st)
                : launch_fwd<HD, false, false, AttnRoute>(a, batch, st);
 }
@@ -703,7 +706,8 @@ int attention_fwd(const void* q, const void* k, const void* v, void* o, const vo
                   const long long* strides, int batch, int heads, int n, int m, int hd,
                   float scale, bool fixed, int route, float* stats, int stats_ld,
                   cudaStream_t st) {
-  if ((route != 0 && route != FbaFwdRoute::kAttn && route != BlockFusedRoute::kAttn) ||
+  if ((route != 0 && route != FbaFwdRoute::kAttn && route != BlockFusedRoute::kAttn &&
+       route != BlockAttentionRoute::kAttn) ||
       (stats && route != FbaFwdRoute::kAttn) || (stats && (stats_ld < 2 || stats_ld % 2)))
     return (int)cudaErrorInvalidValue;
   FwdArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
@@ -732,10 +736,10 @@ extern "C" int mvlt_attention_fwd(const void* q, const void* k, const void* v, v
 }
 
 // The same on a chain's route (attn_chain.cuh): `route` FbaFwdRoute::kAttn
-// (1) or BlockFusedRoute::kAttn (2). Where `stats` is not null (route 1
-// only), each row's max of the scaled logits (natural units) and 1/l go to
-// stats[(b * n + row) * stats_ld + 2 + 2h] and + 1 ([B, N, stats_ld] fp32,
-// stats_ld even).
+// (1), BlockFusedRoute::kAttn (2) or BlockAttentionRoute::kAttn (3). Where
+// `stats` is not null (route 1 only), each row's max of the scaled logits
+// (natural units) and 1/l go to stats[(b * n + row) * stats_ld + 2 + 2h] and
+// + 1 ([B, N, stats_ld] fp32, stats_ld even).
 extern "C" int mvlt_attention_fwd_route(const void* q, const void* k, const void* v, void* o,
                                         void* lse, void* stats, const long long* strides,
                                         int batch, int heads, int n, int m, int hd, int stats_ld,

@@ -1,9 +1,11 @@
-// The attention half of a PVLT v1 block as a chain of wgmma launches over
-// bf16 scratch in device memory, shared by kernel B's chain (block_fused.cu,
+// The attention half of a PVLT block as a chain of wgmma launches over bf16
+// scratch in device memory, shared by kernel B's chain (block_fused.cu, v1
+// serving), kernel C (block_attention.cu, the v2 block's attention half,
 // serving) and the fused attention forward (block_attention_train.cu,
 // Pallas #6/#7):
 //   out = x + s[b] * (proj(concat_h softmax((LN1(x) Wq_h + bq_h) K_h^T * scale) V_h) + bp)
-// with s = 1 on a route without a row scale (BlockFusedRoute), for x
+// with s = 1 on a route without a row scale (BlockFusedRoute,
+// BlockAttentionRoute), for x
 // [B, N, D] bf16, K and V [B, H, M, hd] bf16 contiguous, Wq and Wp [D, D] in
 // torch Linear layout bf16, biases, the LN1 affine and s [B] fp32:
 //   1. LN1(x) -> nrm bf16 [rows, D] by #12's norm kernel, one warp a row

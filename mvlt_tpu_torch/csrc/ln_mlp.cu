@@ -311,8 +311,9 @@ cudaError_t ln_mlp_fwd_out(const LnMlpArgs& a, cudaStream_t st) {
 }
 
 // kernel D's chain (dwconv_mlp.cu) runs these three, kernel E's
-// (swin_block.cu) the norm for its LN1, and the attention-half chain
-// (attn_chain.cuh) all three for kernel B and the fused attention forward
+// (swin_block.cu) and kernel A's (sr_kv.cu) the norm for their LN1, and the
+// attention-half chain (attn_chain.cuh) all three for kernels B and C and
+// the fused attention forward
 template cudaError_t ln_mlp_fwd_norm<DwConvRoute>(const LnMlpArgs&, cudaStream_t);
 template cudaError_t ln_mlp_fwd_norm<SwinBlockRoute>(const LnMlpArgs&, cudaStream_t);
 template cudaError_t ln_mlp_fwd_hidden<DwConvRoute, false>(const LnMlpArgs&, cudaStream_t);
@@ -323,6 +324,11 @@ template cudaError_t ln_mlp_fwd_out<FbaFwdRoute>(const LnMlpArgs&, cudaStream_t)
 template cudaError_t ln_mlp_fwd_norm<BlockFusedRoute>(const LnMlpArgs&, cudaStream_t);
 template cudaError_t ln_mlp_fwd_hidden<BlockFusedRoute, false>(const LnMlpArgs&, cudaStream_t);
 template cudaError_t ln_mlp_fwd_out<BlockFusedRoute>(const LnMlpArgs&, cudaStream_t);
+template cudaError_t ln_mlp_fwd_norm<BlockAttentionRoute>(const LnMlpArgs&, cudaStream_t);
+template cudaError_t ln_mlp_fwd_hidden<BlockAttentionRoute, false>(const LnMlpArgs&,
+                                                                   cudaStream_t);
+template cudaError_t ln_mlp_fwd_out<BlockAttentionRoute>(const LnMlpArgs&, cudaStream_t);
+template cudaError_t ln_mlp_fwd_norm<SrKvRoute>(const LnMlpArgs&, cudaStream_t);
 
 namespace {
 

@@ -1,15 +1,17 @@
 // The LN-MLP forward's (#12, ln_mlp.cu) host launchers and epilogue, shared
-// with the chains that run its kernels: kernel D (dwconv_mlp.cu: LN2, fc1
-// without GELU, and fc2 with the residual, around its conv), kernel E
-// (swin_block.cu: the block's MLP half, and its out-projection epilogue),
-// and the attention-half chain of kernel B and the fused attention forward
-// (attn_chain.cuh: LN1, Q as fc1 without GELU, the out-projection as fc2
-// over the attention output; B's MLP half through the C entry).
+// with the chains that run its kernels: kernel A (sr_kv.cu: LN1), kernel D
+// (dwconv_mlp.cu: LN2, fc1 without GELU, and fc2 with the residual, around
+// its conv), kernel E (swin_block.cu: the block's MLP half, and its
+// out-projection epilogue), and the attention-half chain of kernels B and C
+// and the fused attention forward (attn_chain.cuh: LN1, Q as fc1 without
+// GELU, the out-projection as fc2 over the attention output; B's MLP half
+// through the C entry).
 //
 // Its kernels carry a route tag (common.cuh): LnMlpRoute when #12 runs
-// itself, DwConvRoute, SwinBlockRoute and BlockFusedRoute inside D's, E's
-// and B's chains, whose epilogues take no row scale, and FbaFwdRoute inside
-// the fused attention forward's, whose out-projection takes it.
+// itself, SrKvRoute, DwConvRoute, SwinBlockRoute, BlockFusedRoute and
+// BlockAttentionRoute inside A's, D's, E's, B's and C's chains, whose
+// epilogues take no row scale, and FbaFwdRoute inside the fused attention
+// forward's, whose out-projection takes it.
 
 #pragma once
 

@@ -36,9 +36,9 @@ _STRIDES = ctypes.POINTER(ctypes.c_longlong)
 # C signatures of the kernels' entries (csrc/*.cu); every pointer and the
 # stream are c_void_p so ctypes never truncates them.
 _SIGNATURES = {
-    "mvlt_sr_kv": [_P] * 11 + [_I] * 7 + [_F, _F, _P],
+    "mvlt_sr_kv": [_P] * 14 + [_I] * 8 + [_F, _F, _P],
     "mvlt_block_fused": [_P] * 22 + [_I] * 6 + [_F, _F, _F, _P],
-    "mvlt_block_attention": [_P] * 10 + [_I] * 5 + [_F, _F, _P],
+    "mvlt_block_attention": [_P] * 14 + [_I] * 5 + [_F, _F, _P],
     "mvlt_fba_fwd": [_P] * 16 + [_I] * 5 + [_F, _F, _P],
     "mvlt_fba_bwd": [_P] * 31 + [_I] * 8 + [_F, _F, _P],
     "mvlt_dwconv_mlp": [_P] * 11 + [_I] * 6 + [_F, _P],
@@ -199,7 +199,7 @@ def check_kv(name: str, k, v, batch: int, heads: int, hd: int, device) -> None:
 
 def kernel_weight(name: str, t, shape: tuple, device):
     """A weight as the kernels read it: bf16, contiguous, 32-byte aligned
-    (wmma loads it straight from global memory), of the given shape."""
+    (cp.async copies it in 16-byte chunks), of the given shape."""
     if t.device != device:
         raise ValueError(f"{name}: weight on {t.device}, stream on {device}")
     if tuple(t.shape) != shape:

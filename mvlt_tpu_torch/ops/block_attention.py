@@ -6,8 +6,9 @@ mvlt_tpu/ops/block_attention.py:fused_block_attention_padded (the
 lane-padded PVT-v2 serving form) and, at stage 1, of
 mvlt_tpu/ops/block_packed.py:fused_attention_p2. ``block_attention_reference``
 is the plain version; ``fused_block_attention`` takes it for a CPU tensor
-and launches the Hopper kernel (csrc/block_attention.cu, kernel C) for a
-CUDA tensor, or raises.
+and launches the Hopper kernels (csrc/block_attention.cu, kernel C: the
+attention-half chain of csrc/attn_chain.cuh over the scratch that
+``fwd_scratch`` sizes) for a CUDA tensor, or raises.
 
 Training: counterpart of mvlt_tpu/ops/block_attention.py:fused_block_attention
 with a row scale, whose forward is ``_fba_impl`` (or ``_fba_impl_stats``
@@ -21,7 +22,7 @@ for CPU tensors and launch the Hopper kernels (csrc/block_attention_train.cu:
 chains of launches that run the attention core on csrc/attention.cu's
 kernels) for CUDA tensors, or raise; ``fused_block_attention_train`` is the
 differentiable ``autograd.Function`` on the fp32 master parameters.
-``fwd_scratch`` sizes the forward's scratch (kernel B's chain shares it),
+``fwd_scratch`` sizes the forward's scratch (kernels B and C share it),
 ``bwd_plan``, ``bwd_col_blocks`` and ``bwd_scratch`` the backward's
 launches and scratch.
 
@@ -81,15 +82,19 @@ def block_attention_reference(x, k, v, ln1_weight, ln1_bias, wq, bq, wp, bp, *,
 def fused_block_attention(x, k, v, ln1_weight, ln1_bias, wq, bq, wp, bp, *,
                           heads: int, eps: float) -> torch.Tensor:
     """The attention half of one block. A CPU tensor takes
-    ``block_attention_reference``; a CUDA tensor (bf16, contiguous, D and hd
-    multiples of 16) launches kernel C, and anything else raises.
-    ``fused_block_attention.launches`` counts the kernel launches."""
+    ``block_attention_reference``; a CUDA tensor (bf16, contiguous, D a
+    multiple of 16 and at most 512, head dim 32 or 64) launches kernel C's
+    chain, and anything else raises. ``fused_block_attention.launches``
+    counts the chain's launches (one a call)."""
     if x.device.type == "cpu":
         return block_attention_reference(x, k, v, ln1_weight, ln1_bias, wq, bq, wp, bp,
                                          heads=heads, eps=eps)
     name = "fused_block_attention"
     hd = _check_stream_heads(name, x, heads)
     b, n, d = x.shape
+    if hd not in HEAD_DIMS or d > 512:
+        raise ValueError(f"{name}: D={d} with {heads} heads: the chain takes D <= 512 and "
+                         f"head dims {HEAD_DIMS}")
     _build.check_kv(name, k, v, b, heads, hd, x.device)
     dev = x.device
     wq_ = _build.kernel_weight(name, wq, (d, d), dev)
@@ -98,11 +103,14 @@ def fused_block_attention(x, k, v, ln1_weight, ln1_bias, wq, bq, wp, bp, *,
     g1, be1 = vec(name, ln1_weight, d, dev), vec(name, ln1_bias, d, dev)
     bq_, bp_ = vec(name, bq, d, dev), vec(name, bp, d, dev)
     out = torch.empty_like(x)
+    work = [torch.empty(max(count, 1), dtype=dt, device=dev)
+            for count, dt in fwd_scratch(b, n, d, heads).values()]
     lib = _build.load_library()
     err = lib.mvlt_block_attention(
         x.data_ptr(), k.data_ptr(), v.data_ptr(), g1.data_ptr(), be1.data_ptr(),
         wq_.data_ptr(), bq_.data_ptr(), wp_.data_ptr(), bp_.data_ptr(), out.data_ptr(),
-        b, n, d, heads, k.shape[2], hd ** -0.5, eps, torch.cuda.current_stream(dev).cuda_stream)
+        *(t.data_ptr() for t in work), b, n, d, heads, k.shape[2], hd ** -0.5, eps,
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(name, err)
     fused_block_attention.launches += 1
     return out

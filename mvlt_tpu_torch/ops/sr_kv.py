@@ -4,10 +4,13 @@ K and V projections.
 Counterpart of mvlt_tpu/ops/sr_kv.py:fused_ln_sr_kv and, at stage 1, of
 mvlt_tpu/ops/block_packed.py:fused_ln_sr_kv_p2 (reference semantics
 libs/pvlt.py:100-108). ``sr_kv_reference`` is the plain version;
-``fused_ln_sr_kv`` takes it for a CPU tensor and launches the Hopper kernel
-(csrc/sr_kv.cu) for a CUDA tensor, or raises. K and V are
-[B, heads, M, hd] with M = (h/sr)(w/sr) + T, or M = N at sr == 1; the text
-rows of the K/V input are LN1 of the stream, not SR-normalised.
+``fused_ln_sr_kv`` takes it for a CPU tensor and launches the Hopper kernels
+(csrc/sr_kv.cu: a chain over the scratch that ``scratch`` sizes, the SR
+conv's contraction split by ``conv_splits``) for a CUDA tensor, or raises.
+K and V are [B, heads, M, hd] with M = (h/sr)(w/sr) + T, or M = N at
+sr == 1; the text rows of the K/V input are LN1 of the stream, not
+SR-normalised. ``s2d_operand`` writes out the space-to-depth operand the SR
+conv's kernel gathers, for the tests.
 """
 
 from __future__ import annotations
@@ -16,6 +19,9 @@ import torch
 import torch.nn.functional as F
 
 from mvlt_tpu_torch.ops import _build
+# the wgmma tiles (csrc/hopper.cuh: kGemmTile, kGemmChunk) and the most
+# ranges of a split contraction, as the LN-MLP backward's plan takes them
+from mvlt_tpu_torch.ops.fused_mlp import BWD_CHUNK, BWD_TILE, MAX_SPLITS
 from mvlt_tpu_torch.ops.kernel_math import layer_norm_fp32, linear
 
 
@@ -56,13 +62,53 @@ def sr_kv_reference(x, hw, ln1_weight, ln1_bias, sr_weight, sr_bias,
     return k.contiguous(), v.contiguous()
 
 
+def s2d_operand(normed: torch.Tensor, hw: tuple, sr: int) -> torch.Tensor:
+    """The SR conv's operand [B*p, sr*sr*D] from the LN1'd stream
+    [B, h*w + T, D], built element by element as the kernel's gather
+    (csrc/sr_kv.cu:sr_conv_gemm_kernel) addresses it: column k of reduced
+    pixel (b, py, px) is normed[b, (py*sr + r)*w + px*sr + s, c] with
+    (r, s, c) = unravel(k, (sr, sr, D)). Times the conv weight laid out as
+    [D_out, (r, s, c_in)] it is the k = stride = sr conv. For tests only."""
+    b, _, d = normed.shape
+    h, w = hw
+    pw, p = w // sr, (h // sr) * (w // sr)
+    rows = torch.arange(b * p)
+    bi, pix = rows // p, rows % p
+    py, px = pix // pw, pix % pw
+    k = torch.arange(sr * sr * d)
+    rs, ch = k // d, k % d
+    r, s = rs // sr, rs % sr
+    token = (py[:, None] * sr + r[None]) * w + px[:, None] * sr + s[None]
+    return normed[bi[:, None], token, ch[None]]
+
+
+def conv_splits(batch: int, p: int, d: int, sr: int, sms: int) -> int:
+    """Ranges of the SR conv's contraction (sr*sr*D deep, in 64-deep chunks)
+    for its ceil(B*p/128) x ceil(D/128) output tiles: the fewest whose
+    blocks fill at least 90% of their last wave on ``sms`` SMs (else the
+    fullest), no range empty. Each range sums into its own fp32 slot; the
+    SR-LN row kernel adds them in order."""
+    tiles = -(-batch * p // BWD_TILE) * -(-d // BWD_TILE)
+    return _build.split_plan(tiles, -(-sr * sr * d // BWD_CHUNK), sms, MAX_SPLITS)
+
+
+def scratch(batch: int, n: int, d: int, m: int, p: int, splits: int) -> dict:
+    """Kernel A's scratch, name -> (elements, dtype), in the order its C
+    entry takes it: LN1(x) bf16 [B*N, D], the SR conv's slots fp32 [splits,
+    B*p, D] and the K/V input bf16 [B*M, D] (both 0 at sr == 1, p = 0)."""
+    return {"nrm": (batch * n * d, torch.bfloat16),
+            "slots": (splits * batch * p * d, torch.float32),
+            "kvin": (batch * m * d if p else 0, torch.bfloat16)}
+
+
 def fused_ln_sr_kv(x, hw, ln1_weight, ln1_bias, sr_weight, sr_bias,
                    srn_weight, srn_bias, kv_weight, kv_bias, *, sr: int,
                    heads: int, eps1: float, eps_sr: float):
     """K, V [B, heads, M, hd] of one block. A CPU tensor takes
     ``sr_kv_reference``; a CUDA tensor (bf16, contiguous, D and hd multiples
-    of 16, D <= 512, h and w multiples of sr) launches kernel A, and anything else
-    raises. ``fused_ln_sr_kv.launches`` counts the kernel launches."""
+    of 16, D <= 512, h and w multiples of sr) launches kernel A's chain, and
+    anything else raises. ``fused_ln_sr_kv.launches`` counts the chain's
+    launches (one a call)."""
     if x.device.type == "cpu":
         return sr_kv_reference(x, hw, ln1_weight, ln1_bias, sr_weight, sr_bias,
                                srn_weight, srn_bias, kv_weight, kv_bias, sr=sr,
@@ -87,10 +133,12 @@ def fused_ln_sr_kv(x, hw, ln1_weight, ln1_bias, sr_weight, sr_bias,
         bsr = _build.kernel_vector(name, sr_bias, d, dev)
         gsr = _build.kernel_vector(name, srn_weight, d, dev)
         bsrn = _build.kernel_vector(name, srn_bias, d, dev)
-        m = (h // sr) * (w // sr) + t
+        p = (h // sr) * (w // sr)
+        m = p + t
+        splits = conv_splits(b, p, d, sr, _build.sm_count(dev.index))
     else:
         wsr = bsr = gsr = bsrn = x   # never read at sr == 1
-        m = n
+        p, m, splits = 0, n, 1
     wkv = _build.kernel_weight(name, kv_weight, (2 * d, d), dev)
     bkv = _build.kernel_vector(name, kv_bias, 2 * d, dev)
     g1 = _build.kernel_vector(name, ln1_weight, d, dev)
@@ -98,12 +146,14 @@ def fused_ln_sr_kv(x, hw, ln1_weight, ln1_bias, sr_weight, sr_bias,
     hd = d // heads
     k = torch.empty((b, heads, m, hd), dtype=torch.bfloat16, device=dev)
     v = torch.empty_like(k)
+    work = [torch.empty(max(count, 1), dtype=dt, device=dev)
+            for count, dt in scratch(b, n, d, m, p, splits).values()]
     lib = _build.load_library()
     err = lib.mvlt_sr_kv(
         x.data_ptr(), g1.data_ptr(), b1.data_ptr(), wsr.data_ptr(), bsr.data_ptr(),
         gsr.data_ptr(), bsrn.data_ptr(), wkv.data_ptr(), bkv.data_ptr(),
-        k.data_ptr(), v.data_ptr(), b, h, w, t, d, heads, sr, eps1, eps_sr,
-        torch.cuda.current_stream(dev).cuda_stream)
+        k.data_ptr(), v.data_ptr(), *(t_.data_ptr() for t_ in work), b, h, w, t, d, heads,
+        sr, splits, eps1, eps_sr, torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(name, err)
     fused_ln_sr_kv.launches += 1
     return k, v

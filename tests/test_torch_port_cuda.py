@@ -8,7 +8,10 @@ PyTorch for CUDA:
 
 (``--noconftest``: tests/conftest.py configures JAX, which this file does
 not need.) chip_smoke.py checks the kernels at the pvlt_tiny stage shapes;
-these tests take other widths, head dims, grids and lengths, kernel B's
+these tests take other widths, head dims, grids and lengths, kernel A's
+chain on grids with h != w at sr = 2 and 4, D = 96 and 320 (five heads), a
+ragged T = 7, sr = 1, and one and many ranges of its split SR conv, its
+output bit-equal twice, kernel B's
 chain at D = 96 with head dim 32 and at D = 320 with odd N (its launch
 counts: #10's and #12's wrappers count none of its launches), the fused
 attention forward's chain at D = 96, head dim 32, an odd N and a tile
@@ -18,7 +21,8 @@ and four, and the backward's bit-equal repeat at stage 1, B = 150, the
 LN-MLP kernels at the four stage widths, rows off the tile, D = 96, D =
 128 and 144 (the forward's one-launch and three-launch forms side by side),
 and the largest stage with one and two row ranges of the weight gradients, the v2 kernels on grids of odd
-sizes, one wider than 128, no text rows and a hidden width off the chunk,
+sizes, one wider than 128, no text rows and a hidden width off the chunk
+(kernel C's chain at head dims 32 and 64, head dim 16 refused),
 kernel D's chain on grids with h != w, w = 7, no or ragged text rows, hidden
 1,280 and the stage-1 shape, kernel E's chain at the Swin stage shapes of
 windows of 8 (two, five and eight heads, one window a sample, shifted and
@@ -60,7 +64,7 @@ from mvlt_tpu_torch.ops.pallas_attention import (attention_bwd, attention_bwd_re
                                                  attention_stats_reference, fused_attention)
 from mvlt_tpu_torch.ops.mlm_ce import (mlm_ce_bwd, mlm_ce_fwd, mlm_ce_loss,
                                        mlm_nll_bwd_reference, mlm_nll_reference)
-from mvlt_tpu_torch.ops.sr_kv import fused_ln_sr_kv, sr_kv_reference
+from mvlt_tpu_torch.ops.sr_kv import conv_splits, fused_ln_sr_kv, sr_kv_reference
 from mvlt_tpu_torch.ops.swin_attention import fused_swin_attention, swin_attention_reference
 from mvlt_tpu_torch.ops.swin_band import fused_swin_block, swin_block_reference
 
@@ -102,7 +106,7 @@ def _rel(got, want):
     ((8, 8), 64, 2, 2, 4.0, 5, 3),       # head dim 32, M = 21, N = 69
     ((6, 10), 96, 3, 2, 4.0, 7, 2),      # non-square grid, head dim 32
     ((4, 4), 64, 2, 1, 4.0, 9, 2),       # sr == 1: M = N = 25
-    ((16, 16), 512, 8, 4, 2.0, 3, 1),    # widest kernel-A variant, M = 19
+    ((16, 16), 512, 8, 4, 2.0, 3, 1),    # widest kernel A: an 8,192-deep SR conv, M = 19
     ((24, 24), 128, 2, 1, 4.0, 24, 1),   # M = 600: ten 64-row K/V chunks of #10
 ])
 def test_kernels_match_plain(dev, hw, dim, heads, sr, mlp_ratio, t, batch):
@@ -164,6 +168,41 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     assert torch.isfinite(out.float()).all()
     assert (fused_ln_sr_kv.launches, fused_block.launches, attention_fwd.launches,
             ln_mlp_fwd.launches) == (launches[0], launches[1], launches[2] + 1, launches[3] + 1)
+
+
+@pytest.mark.parametrize("hw,dim,heads,sr,t,batch", [
+    ((6, 10), 96, 3, 2, 7, 3),       # h != w, D = 96: a 64-column stage spans two pixels
+    ((8, 12), 96, 3, 4, 7, 2),       # sr = 4, ragged T = 7
+    ((8, 4), 320, 5, 2, 7, 2),       # D = 320, five heads, h != w
+    ((8, 16), 320, 5, 4, 0, 1),      # sr = 4 at D = 320 (80 chunks), no text rows
+    ((5, 7), 96, 3, 1, 7, 2),        # sr = 1: LN1 and the K/V product only
+    ((16, 16), 64, 1, 2, 7, 4),      # the split plan: many ranges
+    ((16, 16), 64, 1, 2, 7, 240),    # the split plan: one range (120 tiles)
+])
+def test_sr_kv_chain_matches_plain(dev, hw, dim, heads, sr, t, batch):
+    """Kernel A's chain against its plain version, element by element, and
+    bit-equal over two calls; the wrapper counts one launch a call and #12's
+    wrapper none (the chain runs #12's norm kernel through C)."""
+    blk = _block(dim, heads, sr, 4.0, dev, seed=dim + t + sr)
+    gen = torch.Generator().manual_seed(batch + sr)
+    x = torch.randn(batch, hw[0] * hw[1] + t, dim, generator=gen).to(dev, torch.bfloat16)
+    kw_kv = dict(sr=sr, heads=heads, eps1=1e-6, eps_sr=1e-5)
+    with torch.no_grad():
+        k_ref, v_ref = sr_kv_reference(x, hw, *_kv_args(blk), **kw_kv)
+        launches, norm = fused_ln_sr_kv.launches, ln_mlp_fwd.launches
+        k, v = fused_ln_sr_kv(x, hw, *_kv_args(blk), **kw_kv)
+        k2, v2 = fused_ln_sr_kv(x, hw, *_kv_args(blk), **kw_kv)
+        torch.cuda.synchronize()
+    assert fused_ln_sr_kv.launches == launches + 2 and ln_mlp_fwd.launches == norm
+    m = (hw[0] // sr) * (hw[1] // sr) + t if sr > 1 else x.shape[1]
+    assert k.shape == v.shape == (batch, heads, m, dim // heads)
+    assert _rel(k, k_ref) <= TOL and _rel(v, v_ref) <= TOL
+    assert torch.equal(k, k2) and torch.equal(v, v2)
+    if sr > 1 and hw == (16, 16):
+        p = (hw[0] // sr) * (hw[1] // sr)
+        splits = conv_splits(batch, p, dim, sr, torch.cuda.get_device_properties(dev)
+                             .multi_processor_count)
+        assert (splits > 1) == (batch == 4)
 
 
 def _chain_counts():
@@ -562,11 +601,11 @@ def test_mlm_ce_wrappers_refuse_what_the_kernels_do_not_take(dev):
 
 
 @pytest.mark.parametrize("hw,dim,heads,sr,mlp_ratio,t,batch", [
-    ((8, 8), 32, 2, 2, 4.0, 5, 3),       # head dim 16, M = 21
-    ((7, 9), 48, 3, 1, 4.0, 5, 2),       # odd grid sides, sr == 1, hidden 192 in one chunk
-    ((2, 130), 32, 2, 2, 4.0, 3, 2),     # a grid row wider than kernel D's 128-row tile
-    ((3, 40), 64, 4, 1, 4.0, 0, 2),      # no text rows
-    ((4, 4), 512, 8, 2, 2.03125, 9, 2),  # hidden 1040: the last chunk 16 wide
+    ((8, 8), 32, 1, 2, 4.0, 5, 3),       # D = 32, head dim 32, M = 21
+    ((7, 9), 64, 2, 1, 3.0, 5, 2),       # odd grid sides, sr == 1, hidden 192 in one chunk
+    ((2, 130), 32, 1, 2, 4.0, 3, 2),     # a grid row wider than kernel D's 128-row tile
+    ((3, 40), 64, 2, 1, 4.0, 0, 2),      # no text rows
+    ((4, 4), 512, 8, 2, 2.03125, 9, 2),  # hidden 1040: the last chunk 16 wide; head dim 64
 ])
 def test_v2_kernels_match_plain(dev, hw, dim, heads, sr, mlp_ratio, t, batch):
     """Kernels C and D against their plain versions, and the v2 Block on the
@@ -618,6 +657,12 @@ def test_v2_wrappers_refuse_what_the_kernels_do_not_take(dev):
             fused_block_attention(x, k, v[:, :, :-1].contiguous(), *attn_args, **kw_c)
         with pytest.raises(ValueError, match="head dim"):
             fused_block_attention(x, k, v, *attn_args, heads=8, eps=1e-6)
+        # head dim 16: #10's forward, which the chain runs, takes 32 and 64
+        k16, v16 = fused_ln_sr_kv(x, hw, *kv_args, **dict(kw_kv, heads=4))
+        launches = fused_block_attention.launches
+        with pytest.raises(ValueError, match="head dims"):
+            fused_block_attention(x, k16, v16, *attn_args, heads=4, eps=1e-6)
+        assert fused_block_attention.launches == launches
         with pytest.raises(ValueError, match="bfloat16"):
             fused_dwconv_mlp(x.float(), hw, *mlp_args, **kw_d)
         with pytest.raises(ValueError, match="contiguous"):
