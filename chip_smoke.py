@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths once on one NVIDIA GPU: retrieval serving
-(pvlt_tiny, pvlt_v2_tiny and pvlt_swin_tiny), the pre-training step, and
-pre-training through the command line.
+(pvlt_tiny, pvlt_v2_tiny and pvlt_swin_tiny), recognition at B = 500, the
+pre-training step, pre-training through the command line, and the
+downstream evals through the command line on an on-disk tree.
 
     python3 chip_smoke.py
 
@@ -76,6 +77,21 @@ JSON line each; a failed phase raises and the script exits non-zero:
      per forward and nothing else), where the ITM logits with create_model's
      own initialisation are also measured on the card and on the CPU in
      bf16 against the CPU fp32 model (a measurement, not a check);
+  6d. recognition (M-CR / S-CR) at the protocol's batch of 500:
+     recognition_kernels holds kernels A and B (v1 stage 1), C and D (v2
+     stage 1) and E (Swin stage 1 at 256) to their plain versions in bf16
+     (every output within 2e-2) at B = 500 and the valid split's ragged last
+     batch of 28, where each scratch is largest, A bit-equal over two calls
+     at each, with each kernel's time by events and by device time beside
+     its plain version's; recognition scores 528 in-memory items with
+     FashionGenRecognition's schema through
+     evaluate_recognition(make_cls_scorer(model)) over the CLI's loader at
+     B = 500 (pvlt_tiny, the fine-tune heads, bf16, 256x256, 128 tokens,
+     seeded weights): kernels A and B 8 launches per forward and no other
+     kernel, 528 predictions in the artifact, the sup/sub logits of 4 rows
+     of the B = 500 call within 3e-2 of the CPU fp32 model; then images/s at
+     B = 500 on pre-staged uint8 device tensors, peak memory, the caching
+     allocator's snapshot (utils/profiling.py) and a profile;
   7. training kernels: attention forward (o, lse) and backward (dq, dk,
      dv, fed the plain forward's o and lse) and LN-MLP forward/backward
      against their plain versions in bf16 (every output, bound 2e-2 as in
@@ -142,7 +158,16 @@ JSON line each; a failed phase raises and the script exits non-zero:
      fine-tune epoch (configs/finetune_exp48.py) from that checkpoint, in
      build/chip_smoke_cli (removed after): logs, checkpoints, finite losses
      and eval statistics, every kernel launched, the MLM CE kernels once per
-     pre-training step.
+     pre-training step; then one more epoch, apart from those three timed
+     runs, under ``--profile-dir``, whose trace names the training kernels;
+ 12. the downstream command lines (cli_eval) on a small Fashion-Gen tree
+     written under build/ and a .pth of seeded weights:
+     ``--eval-retrieval-itr`` and ``-tir``, each with and without
+     ``--parity-heads``, and ``--eval-recognition``, each returning the
+     metrics of the same reader and scorer run directly (kernels A and B
+     launched, no training kernel), the recognition artifact, ``--viz``,
+     and one pre-training epoch on the tree's reader (the readers decode
+     with Pillow; the phase fails where it is not installed).
 
 Then one line {"kernels": [...]}: per kernel the launches of its path's
 run (the MLM CE kernels': the command line's), the largest error of its
@@ -158,12 +183,15 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import pathlib
+import pickle
 import shutil
 import statistics
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -171,9 +199,13 @@ import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
 from mvlt_tpu_torch import cli
-from mvlt_tpu_torch.config import DataConfig, LossType, ModelConfig, OptimConfig
-from mvlt_tpu_torch.data.fashion_gen import SyntheticFashionGen, batch_to_device, collate
+from mvlt_tpu_torch.config import (DataConfig, LossType, ModelConfig, OptimConfig,
+                                   apply_overrides)
+from mvlt_tpu_torch.data.fashion_gen import (FashionGenRecognition, FashionGenRetrieval,
+                                             SyntheticFashionGen, batch_to_device, collate)
 from mvlt_tpu_torch.data.tokenizer import WordPieceTokenizer
+from mvlt_tpu_torch.eval import recognition
+from mvlt_tpu_torch.eval.recognition import evaluate_recognition, make_cls_scorer
 from mvlt_tpu_torch.eval.retrieval import evaluate_retrieval, make_itm_scorer, uint8_to_unit
 from mvlt_tpu_torch.models.pvlt import Block, SwinBlock, create_model, kernel_operand
 from mvlt_tpu_torch.models.swin import (add_table, heads_of, relative_position_index,
@@ -187,7 +219,7 @@ from mvlt_tpu_torch.ops.block_attention import (block_attention_bwd_reference,
                                                 fused_block_attention,
                                                 fused_block_attention_train)
 from mvlt_tpu_torch.ops.block_fused import block_reference, fused_block
-from mvlt_tpu_torch.ops.dwconv_mlp import dwconv_mlp_reference, fused_dwconv_mlp
+from mvlt_tpu_torch.ops.dwconv_mlp import dwconv_mlp_reference, fused_dwconv_mlp, scratch_elems
 from mvlt_tpu_torch.ops.fused_mlp import (fused_ln_mlp, ln_mlp_bwd, ln_mlp_bwd_reference,
                                           ln_mlp_fwd, ln_mlp_reference)
 from mvlt_tpu_torch.ops.kernel_math import gelu_grad, layer_norm_fp32, linear
@@ -197,12 +229,14 @@ from mvlt_tpu_torch.ops.pallas_attention import (attention_bwd, attention_fwd,
                                                  attention_reference,
                                                  attention_stats_bwd_reference,
                                                  attention_stats_reference, fused_attention)
-from mvlt_tpu_torch.ops.sr_kv import fused_ln_sr_kv, sr_kv_reference
+from mvlt_tpu_torch.ops.sr_kv import conv_splits, fused_ln_sr_kv, sr_kv_reference
 from mvlt_tpu_torch.ops.swin_attention import fused_swin_attention, swin_attention_reference
 from mvlt_tpu_torch.ops.swin_band import fused_swin_block, swin_block_reference
 from mvlt_tpu_torch.train.engine import train_one_epoch
 from mvlt_tpu_torch.train.state import create_train_state
 from mvlt_tpu_torch.train.step import make_train_step
+from mvlt_tpu_torch.utils.checkpoint import merge_state_dicts
+from mvlt_tpu_torch.utils.profiling import device_memory_profile
 
 SEED = 0
 BATCH = 101                 # candidates of one retrieval bundle
@@ -702,16 +736,19 @@ def seeded_state_dict(model, seed: int) -> dict:
     return out
 
 
+CAPTIONS = ["a red cotton t-shirt with a round neck and short sleeves",
+            "slim-fit black denim jeans with a five-pocket styling",
+            "white leather sneakers with a rubber sole and lace-up front",
+            "a navy wool coat with notched lapels and a button closure",
+            "gold-tone hoop earrings", "a floral silk midi dress"]
+
+
 def synthetic_bundles(n: int, seed: int, size: int, text_len: int) -> list:
     """101-candidate bundles with FashionGenRetrieval's item schema: uint8
     NHWC images from the seed, token ids from the shipped WordPiece vocab."""
     tok = WordPieceTokenizer(str(pathlib.Path(__file__).resolve().parent
                                  / "preweights" / "bert-base-uncased-vocab.txt"))
-    captions = ["a red cotton t-shirt with a round neck and short sleeves",
-                "slim-fit black denim jeans with a five-pocket styling",
-                "white leather sneakers with a rubber sole and lace-up front",
-                "a navy wool coat with notched lapels and a button closure",
-                "gold-tone hoop earrings", "a floral silk midi dress"]
+    captions = CAPTIONS
     gen = np.random.default_rng(seed)
     bundles = []
     for q in range(n):
@@ -1406,6 +1443,200 @@ def phase_swin(stats: dict) -> None:
         phase_throughput(model, bundles, SWIN_GROUPS, prefix)
         del model
         torch.cuda.empty_cache()
+
+
+# ---- recognition (M-CR / S-CR) at the protocol's batch ----------------------
+
+REC_BATCH = 500            # the recognition protocol's batch (main_vl.py:374-385)
+REC_RAGGED = 28            # the valid split's last batch: 35,528 items = 71 x 500 + 28
+REC_ITEMS = REC_BATCH + REC_RAGGED
+CLS_HEADS = LossType(itm=False, mlm=False, t2i=False, cls=True)   # configs/finetune_exp48.py
+
+
+def emit_recognition_time(name: str, label: str, batch: int, run, plain,
+                          bound_ms: float, bound_by: str, **extra) -> None:
+    """One kernel's time at a recognition batch by CUDA events and by device
+    time, beside its plain version's and its bound (not summed into the
+    kernels line, whose times are the B = 101 rows')."""
+    ms = cuda_time_ms(run)
+    plain_ms = cuda_time_ms(plain)
+    emit("kernel_time", kernel=name, shape=label, batch=batch, ms=ms, plain_ms=plain_ms,
+         bound_ms=bound_ms, bound_by=bound_by, library_ms=None, speedup=plain_ms / ms,
+         device_ms=device_time_ms(run), **extra)
+
+
+def phase_recognition_kernels(stats: dict) -> None:
+    """Kernels A and B at v1's stage 1, C and D at v2's and E at Swin's
+    (256) against their plain versions in bf16 at the recognition batch of
+    500 and the ragged 28, where each scratch is largest (D's H1 and G 2.16
+    GB each at B = 500), A bit-equal over two calls at each; each kernel's
+    time by events and by device time beside its plain version's."""
+    gen = torch.Generator().manual_seed(SEED + 21)
+    h, w, d, nh, sr, hid = STAGES[0]
+    shape, hw = (h, w, d, nh, sr, hid, TEXT), (h, w)
+    e_label, e_shape = swin_kernel_shapes()[0][0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for batch in (REC_BATCH, REC_RAGGED):
+        p, x, k, v, kw_kv, kw_b = check_kernels(stats, gen, "stage1", shape, batch)
+        p = {name: kernel_operand(t, torch.bfloat16) for name, t in p.items()}
+        bounds = serving_bounds(shape, batch)
+        emit_recognition_time(
+            "sr_kv", "stage1", batch, lambda: fused_ln_sr_kv(x, hw, *_kv_args(p), **kw_kv),
+            lambda: sr_kv_reference(x, hw, *_kv_args(p), **kw_kv), *bounds["sr_kv"],
+            conv_splits=conv_splits(batch, (h // sr) * (w // sr), d, sr, sms))
+        emit_recognition_time(
+            "block_fused", "stage1", batch, lambda: fused_block(x, k, v, *_block_args(p), **kw_b),
+            lambda: block_reference(x, k, v, *_block_args(p), **kw_b), *bounds["block_fused"])
+        del x, k, v
+        p, x, k, v, kw_c, kw_d = check_v2_kernels(stats, gen, "v2_stage1", shape, batch)
+        p = {name: kernel_operand(t, torch.bfloat16) for name, t in p.items()}
+        bounds = v2_bounds(shape, batch)
+        emit_recognition_time(
+            "block_attention", "v2_stage1", batch,
+            lambda: fused_block_attention(x, k, v, *_c_args(p), **kw_c),
+            lambda: block_attention_reference(x, k, v, *_c_args(p), **kw_c),
+            *bounds["block_attention"])
+        emit_recognition_time(
+            "dwconv_mlp", "v2_stage1", batch, lambda: fused_dwconv_mlp(x, hw, *_d_args(p), **kw_d),
+            lambda: dwconv_mlp_reference(x, hw, *_d_args(p), **kw_d), *bounds["dwconv_mlp"],
+            scratch_gb=2 * scratch_elems(x.shape[0] * x.shape[1], d, hid) / 1e9)
+        del x, k, v
+        args, kw = check_swin_block_kernel(stats, gen, e_label, e_shape, False, batch)
+        ops = tuple(kernel_operand(t, torch.bfloat16) if i > 3 else t for i, t in enumerate(args))
+        table = swin_table(ops, kw)
+        emit_recognition_time("swin_block", e_label, batch,
+                              lambda: fused_swin_block(*ops, **kw, table=table),
+                              lambda: swin_block_reference(*ops, **kw), *swin_e_bound(e_shape, batch))
+        del args, ops, table
+        torch.cuda.empty_cache()
+
+
+class RecognitionItems:
+    """``n`` in-memory items with FashionGenRecognition's schema, each a
+    function of (seed, index): a uint8 NHWC image, clean ids of a caption of
+    the shipped vocab, super and sub labels, and a name."""
+
+    def __init__(self, n: int, seed: int, size: int, text_len: int):
+        tok = WordPieceTokenizer(str(REPO / "preweights" / "bert-base-uncased-vocab.txt"))
+        self.ids = [np.asarray(tok.encode(c, text_len), np.int32) for c in CAPTIONS]
+        self.n, self.seed, self.size = n, seed, size
+
+    def __len__(self) -> int:
+        return self.n
+
+    def __getitem__(self, i: int) -> dict:
+        gen = np.random.default_rng((self.seed, i))
+        return {"images": gen.integers(0, 256, (self.size, self.size, 3), dtype=np.uint8),
+                "ori_input_ids": self.ids[i % len(self.ids)],
+                "sup_cls_labels": np.int32(gen.integers(0, 48)),
+                "sub_cls_labels": np.int32(gen.integers(0, 122)),
+                "info_list": f"synthetic_{i}.jpg"}
+
+
+def cls_logits_vs_cpu(model, sd, images, ids, card: tuple) -> None:
+    """The card's sup/sub logits of a few rows against the same weights in
+    fp32 on the CPU (plain path), beside the plain path's own bf16 error on
+    the CPU; relative to the largest CPU logit of each head."""
+    cpu = {}
+    for dtype in ("float32", "bfloat16"):
+        m = create_model(dataclasses.replace(model.cfg, compute_dtype=dtype), device="cpu").eval()
+        m.load_state_dict(sd, strict=True)
+        cpu[dtype] = recognition.cls_logits(m, torch.device("cpu"), images, ids)
+    errs, errs_cpu_bf16 = [], []
+    for got, want, plain_bf16 in zip(card, cpu["float32"], cpu["bfloat16"]):
+        scale = want.abs().max().item()
+        errs.append((got - want).abs().max().item() / scale)
+        errs_cpu_bf16.append((plain_bf16 - want).abs().max().item() / scale)
+    ok = max(errs) <= SLICE_TOL
+    emit("recognition_vs_cpu_fp32", rows=len(ids), rel_err_sup_sub=errs,
+         rel_err_cpu_bf16_plain=errs_cpu_bf16, tol=SLICE_TOL, ok=ok)
+    if not ok:
+        raise AssertionError(f"CLS logits on the card differ from the CPU fp32 model by "
+                             f"{errs} > {SLICE_TOL}")
+
+
+def phase_recognition() -> None:
+    """M-CR / S-CR recognition as the CLI runs it on the card: pvlt_tiny with
+    the fine-tune heads (cls only, bf16, 256x256, 128 tokens, seeded
+    weights) scores 528 in-memory items through
+    evaluate_recognition(make_cls_scorer(model)) over the CLI's loader at
+    B = 500, the last batch ragged: kernels A and B 8 launches per forward
+    and no other kernel, 528 predictions in the artifact, the first four
+    rows' logits of the B = 500 call vs the CPU fp32 model; then images/s at
+    B = 500 on pre-staged uint8 device tensors, peak memory and a profile."""
+    cfg = ModelConfig(name="pvlt_tiny", compute_dtype="bfloat16", loss_type=CLS_HEADS)
+    model = create_model(cfg, device="cuda").eval()
+    sd = seeded_state_dict(model, SEED)
+    model.load_state_dict(sd, strict=True)
+    items = RecognitionItems(REC_ITEMS, SEED + 3, 256, cfg.num_text_tokens)
+    out = REPO / "build" / "chip_smoke_recognition"
+    shutil.rmtree(out, ignore_errors=True)
+    calls, real = [], recognition.cls_logits
+
+    def recording(model, device, images, ids):
+        logits = real(model, device, images, ids)
+        calls.append((len(ids), images[:4], ids[:4], tuple(t[:4].cpu() for t in logits)))
+        return logits
+
+    try:
+        reset_launches()
+        start = time.perf_counter()
+        with mock.patch.object(recognition, "cls_logits", recording):
+            results = evaluate_recognition(make_cls_scorer(model),
+                                           cli._simple_loader(items, REC_BATCH),
+                                           artifact_dir=str(out))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        launches = read_launches()
+        with open(out / "recognition_predictions.json") as f:
+            artifact = json.load(f)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    batches = [c[0] for c in calls]
+    per_forward = {"sr_kv": 8, "block_fused": 8}
+    ok = (batches == [REC_BATCH, REC_RAGGED]
+          and len(artifact["sup_preds"]) == len(artifact["sub_preds"]) == REC_ITEMS
+          and len(artifact["names"]) == REC_ITEMS
+          and all(launches[name] == n * len(calls) for name, n in per_forward.items())
+          and not any(launches[name] for name in WRAPPERS if name not in per_forward))
+    emit("recognition", model=cfg.name, heads="cls", compute_dtype=cfg.compute_dtype, input=256,
+         text_tokens=cfg.num_text_tokens, items=REC_ITEMS, batches=batches,
+         seconds_host_inclusive=seconds, results=results, launches=launches,
+         launches_expected={name: n * len(calls) for name, n in per_forward.items()},
+         predictions=len(artifact["sup_preds"]), ok=ok)
+    if not ok:
+        raise AssertionError(f"recognition failed its checks: batches {batches}, "
+                             f"launches {launches}, {len(artifact['sup_preds'])} predictions")
+    _, images, ids, card = calls[0]
+    cls_logits_vs_cpu(model, sd, images, ids, card)
+
+    scorer = make_cls_scorer(model)
+    staged = []
+    for first in (0, REC_RAGGED):
+        batch = collate([items[first + i] for i in range(REC_BATCH)])
+        staged.append((torch.from_numpy(batch["images"]).cuda(),
+                       torch.from_numpy(batch["ori_input_ids"]).long().cuda()))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    turns = iter(range(10 ** 9))
+    ms = cuda_time_ms(lambda: scorer(*staged[next(turns) % 2]), warmup=3, reps=10)
+    snapshot = REPO / "build" / "chip_smoke_memory.pickle"
+    device_memory_profile(str(snapshot))
+    with open(snapshot, "rb") as f:
+        segments = len(pickle.load(f)["segments"])
+    snapshot.unlink()
+    if not segments:
+        raise AssertionError("the device memory snapshot holds no segment")
+    emit("recognition_throughput", model=cfg.name, batch=REC_BATCH, ms_per_batch=ms,
+         images_per_s=REC_BATCH / (ms / 1e3),
+         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+         memory_snapshot_segments=segments,
+         method="CUDA events around each scorer call (uint8 /255 on the card, forward, "
+                "argmax), 3 warm-up, median of 10, 2 distinct pre-staged uint8 batches")
+    profile_device(lambda: [scorer(*s) for s in staged], len(staged), V1_GROUPS,
+                   "recognition_profile")
+    del model, staged
+    torch.cuda.empty_cache()
 
 
 # ---- the training path -------------------------------------------------
@@ -2232,6 +2463,13 @@ def _train_log(run: pathlib.Path) -> list:
         return [json.loads(line) for line in f]
 
 
+# the training kernels of the default route, as a trace names their launches
+TRACE_KERNELS = {"attention_fwd": ("attn_fwd_hopper_kernel",),
+                 "attention_bwd": ("attn_bwd_hopper_kernel",),
+                 "ln_mlp_fwd": ("ln_mlp_fwd_",), "ln_mlp_bwd": ("ln_mlp_bwd_",),
+                 "mlm_ce_fwd": ("mlm_ce_fwd_kernel",), "mlm_ce_bwd": ("mlm_ce_dlogits_kernel",)}
+
+
 def phase_cli(stats: dict) -> None:
     """The pre-training entry point on the card, as a user runs it:
     ``mvlt_tpu_torch.cli.main`` with configs/pretrain_exp21.py on synthetic
@@ -2239,8 +2477,10 @@ def phase_cli(stats: dict) -> None:
     epochs, the VL eval in epoch 1; then ``--resume last`` for epoch 2;
     then one CLS fine-tune epoch (configs/finetune_exp48.py) from that
     checkpoint. Checks the logs, the checkpoints, finite losses and eval
-    statistics, and that every kernel of the path launched: the MLM CE
-    kernels once per pre-training step."""
+    statistics, and that every kernel of the path launched (the MLM CE
+    kernels once per pre-training step). Then one more pre-training epoch
+    under ``--profile-dir``, apart from the three timed runs, whose trace
+    must name the training kernels' launches."""
     out = REPO / "build" / "chip_smoke_cli"
     shutil.rmtree(out, ignore_errors=True)
     pre, ft = out / "pretrain", out / "finetune"
@@ -2260,13 +2500,25 @@ def phase_cli(stats: dict) -> None:
             torch.cuda.synchronize()
             seconds[label] = time.perf_counter() - start
         launches = read_launches()
+        start = time.perf_counter()
+        cli.main(["--config", str(REPO / "configs" / "pretrain_exp21.py"), "--synthetic-data",
+                  "--output-dir", str(out / "profiled"), "--epochs", "1",
+                  "--profile-dir", str(out / "profile")])
+        torch.cuda.synchronize()
+        profiled_seconds = time.perf_counter() - start
         pre_log, ft_log = _train_log(pre), _train_log(ft)
         steps = int(torch.load(pre / "checkpoint" / "last" / "state.pt", map_location="cpu",
                                weights_only=True)["step"])
         with open(pre / "checkpoint" / "last.json") as f:
             last_epoch = json.load(f)["epoch"]
+        traces = os.listdir(out / "profile")
+        with open(out / "profile" / traces[0]) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
     finally:
         shutil.rmtree(out, ignore_errors=True)
+    # the profiled epoch's trace names the training kernels' launches
+    traced = {group: any(frag in name for name in names for frag in frags)
+              for group, frags in TRACE_KERNELS.items()}
     evals = [{k: v for k, v in line.items() if k.startswith("eval_")}
              for line in pre_log + ft_log]
     finite = all(np.isfinite(v) for line in pre_log + ft_log for v in line.values())
@@ -2276,8 +2528,11 @@ def phase_cli(stats: dict) -> None:
           and all(launches[name] for name in
                   (*SERVING_WRAPPERS, *TRAINING_WRAPPERS, *MLM_WRAPPERS))
           and not any(launches[name] for name in V2_SERVING_WRAPPERS if name != "sr_kv")
-          and not any(launches[name] for name in FBA_WRAPPERS))
+          and not any(launches[name] for name in FBA_WRAPPERS)
+          and len(traces) == 1 and all(traced.values()))
     emit("cli", config="configs/pretrain_exp21.py", batch=TRAIN_BATCH, epochs_run=[0, 1, 2],
+         profile_traces=len(traces), profile_kernels=traced,
+         profiled_epoch_seconds=profiled_seconds,
          resumed_at_epoch=2, pretrain_steps=steps, finetune_steps=1, seconds=seconds,
          losses={f"epoch{line['epoch']}": line["total_loss"] for line in pre_log},
          finetune_loss=ft_log[0]["total_loss"], eval_stats=[e for e in evals if e],
@@ -2287,6 +2542,125 @@ def phase_cli(stats: dict) -> None:
                              f"steps {steps}, launches {launches}")
     for name in MLM_WRAPPERS:
         stats[name]["launches"] = launches[name]
+
+
+def write_fashion_gen_tree(root: pathlib.Path) -> None:
+    """A small Fashion-Gen tree in the reference's layout (as
+    tests/test_cli_downstream.py's): 64 train and 10 valid products (a
+    coloured block on white, PNG), their pickled info dicts, and 2 retrieval
+    queries of 4 candidates each way."""
+    from PIL import Image
+
+    rng = np.random.default_rng(SEED + 7)
+    for split, n in (("train", 64), ("valid", 10)):
+        (root / f"extracted_{split}_images").mkdir(parents=True)
+        (root / f"full_{split}_info_PAI").mkdir()
+        for i in range(n):
+            name = f"prod{i:04d}_img.png"
+            path = root / f"extracted_{split}_images" / name
+            arr = np.full((40, 44, 3), 255, np.uint8)
+            arr[6:34, 5 + i % 4:38] = rng.integers(0, 220, (28, 33 - i % 4, 3), np.uint8)
+            Image.fromarray(arr).save(path)
+            info = {"product_id": i, "img_name": name, "super_cls_id": int(rng.integers(0, 48)),
+                    "sub_cls_id": int(rng.integers(0, 122)),
+                    "captions": f"item {i} {CAPTIONS[i % len(CAPTIONS)]}"}
+            with open(root / f"full_{split}_info_PAI" / f"prod{i:04d}_info.pkl", "wb") as f:
+                pickle.dump(info, f)
+    for step, direction in ((1, "ITR"), (3, "TIR")):
+        (root / f"retrieve_{direction}").mkdir()
+        for q in range(2):
+            bundle = {c: {"img_name": f"prod{(q + step * c) % 10:04d}_img.png",
+                          "captions": f"item {q + c} {CAPTIONS[(q + c) % len(CAPTIONS)]}"}
+                      for c in range(4)}
+            with open(root / f"retrieve_{direction}" / f"q{q:04d}.pkl", "wb") as f:
+                pickle.dump(bundle, f)
+
+
+def direct_eval(argv: list, tree: str, sd: dict) -> dict:
+    """The metrics of an eval command line computed without its dispatch:
+    the model of its config with the heads the mode needs, ``sd`` merged in
+    by name, and the mode's reader, scorer and protocol called directly."""
+    args = cli.get_args_parser().parse_args(argv)
+    cfg = cli.build_run_config(args)
+    if args.eval_recognition:
+        cfg = apply_overrides(cfg, {"loss_type": {"cls": 1}})
+    elif not args.parity_heads:
+        cfg = apply_overrides(cfg, {"loss_type": {"itm": 1, "mlm": 0, "t2i": 0, "cls": 0}})
+    model = create_model(cfg.model, device="cuda")
+    model.load_state_dict(merge_state_dicts(model.state_dict(), sd)[0])
+    model.eval()
+    if args.eval_recognition:
+        return evaluate_recognition(make_cls_scorer(model), cli._simple_loader(
+            FashionGenRecognition(tree, cfg.data), REC_BATCH), is_main=False)
+    direction = "itr" if args.eval_retrieval_itr else "tir"
+    return evaluate_retrieval(make_itm_scorer(model), cli._simple_loader(
+        FashionGenRetrieval(tree, cfg.data, direction), 1), is_main=False)
+
+
+def phase_cli_eval() -> None:
+    """The downstream entry points on the card, as a user runs them, on a
+    small Fashion-Gen tree under build/ and a reference-style .pth of seeded
+    weights (every head): ``--eval-retrieval-itr`` and ``-tir`` with and
+    without ``--parity-heads`` (configs/pretrain_exp21.py) and
+    ``--eval-recognition`` (configs/finetune_exp48.py), each returning the
+    metrics of the same reader and scorer run directly, kernels A and B
+    launched and no training kernel; the recognition artifact; ``--viz``;
+    one pre-training epoch on the tree's reader. The readers decode, crop
+    and resize with Pillow, so the phase fails where it is not installed."""
+    import PIL
+
+    out = REPO / "build" / "chip_smoke_cli_eval"
+    shutil.rmtree(out, ignore_errors=True)
+    tree = out / "fashion_gen"
+    write_fashion_gen_tree(tree)
+    every = LossType(itm=True, mlm=True, t2i=True, cls=True)
+    sd = seeded_state_dict(create_model(ModelConfig(name="pvlt_tiny", loss_type=every),
+                                        device="cpu"), SEED)
+    pth = out / "checkpoint_seeded.pth"
+    torch.save({"model": sd, "epoch": 0}, pth)
+    pretrain, finetune = (str(REPO / "configs" / c) for c in ("pretrain_exp21.py",
+                                                              "finetune_exp48.py"))
+    base = ["--data-path", str(tree), "--resume", str(pth), "--output-dir", str(out / "eval")]
+    modes = {"itr": ["--config", pretrain, "--eval-retrieval-itr"],
+             "tir": ["--config", pretrain, "--eval-retrieval-tir"],
+             "itr_parity_heads": ["--config", pretrain, "--eval-retrieval-itr", "--parity-heads"],
+             "tir_parity_heads": ["--config", pretrain, "--eval-retrieval-tir", "--parity-heads"],
+             "recognition": ["--config", finetune, "--eval-recognition"]}
+    try:
+        reset_launches()
+        got = {mode: cli.main(flags + base) for mode, flags in modes.items()}
+        torch.cuda.synchronize()
+        launches = read_launches()
+        with open(out / "eval" / "visualization" / "recognition_predictions.json") as f:
+            predictions = len(json.load(f)["sup_preds"])
+        want = {mode: direct_eval(flags + base, str(tree), sd) for mode, flags in modes.items()}
+        cli.main(["--config", pretrain, "--data-path", str(tree), "--finetune", str(pth),
+                  "--viz", "--viz-samples", "4", "--output-dir", str(out / "viz")])
+        viz = sorted(sorted(os.listdir(out / "viz" / "visualization" / d))
+                     for d in os.listdir(out / "viz" / "visualization"))
+        reset_launches()
+        cli.main(["--config", pretrain, "--data-path", str(tree), "--epochs", "1",
+                  "--output-dir", str(out / "pretrain")])
+        torch.cuda.synchronize()
+        train_launches = read_launches()
+        (train_line,) = _train_log(out / "pretrain")
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    files = ["masked.png", "original.png", "predictions.txt", "reconstruction.png"]
+    ok = (all(got[m] == want[m] for m in modes) and predictions == 10
+          and all(got[m]["num_queries"] == 2 for m in modes if m != "recognition")
+          and launches["sr_kv"] > 0 and launches["block_fused"] > 0
+          and not any(launches[name] for name in WRAPPERS if name not in SERVING_WRAPPERS)
+          and viz == [files] * 4
+          and np.isfinite(train_line["total_loss"]) and "eval_quality_score" in train_line
+          and all(train_launches[name] for name in (*TRAINING_WRAPPERS, *MLM_WRAPPERS)))
+    emit("cli_eval", pillow=PIL.__version__, results=got, direct_results_equal={
+        m: got[m] == want[m] for m in modes}, recognition_predictions=predictions,
+        launches=launches, viz_samples=viz, pretrain_on_reader=train_line,
+        pretrain_launches=train_launches, ok=ok)
+    if not ok:
+        raise AssertionError(f"the downstream CLI failed its checks: {got} vs {want}, "
+                             f"launches {launches}, viz {viz}, {train_line}")
 
 
 def main() -> int:
@@ -2312,6 +2686,8 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
     phase_swin(stats)
+    phase_recognition_kernels(stats)
+    phase_recognition()
     phase_train_kernels(stats)
     phase_mlm_kernels(stats)
     state, cfg, sd, batch = phase_train_slice(stats)
@@ -2324,6 +2700,7 @@ def main() -> int:
     compare_train_cpu(cfg, sd, {"train_vs_cpu_fp32": (False, False),
                                 **{p + "_train_vs_cpu_fp32": f for p, f in FBA_FORMS.items()}})
     phase_cli(stats)
+    phase_cli_eval()
     print(json.dumps({"kernels": [
         {**k, **{key: v for key, v in stats[k["name"]].items() if key != "bound_shares"}}
         for k in KERNELS]}), flush=True)

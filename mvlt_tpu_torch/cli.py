@@ -2,22 +2,32 @@
 
 Counterpart of mvlt_tpu/cli.py (the reference's main_vl.py): the same
 flags, the same config loading (every key of the config file wins over a
-flag, a flag over the default), and its training branch: the synthetic
-data set through the sampler and the prefetching loader, optional gradient
-accumulation, device grid masks and gradient clipping, the VL eval in the
-last third of the epochs, two-phase checkpoints, ``--resume`` and the
-``--finetune`` init, ``train_log.jsonl`` with the same keys; ``--eval`` runs
-the VL eval alone. It runs on the card unless ``--device cpu`` is given.
+flag, a flag over the default), its eval dispatch (main_vl.py:348-399) and
+its training branch. Training: the Fashion-Gen tree at ``--data-path`` or
+the synthetic set through the sampler and the prefetching loader, optional
+gradient accumulation, device grid masks and gradient clipping, the VL eval
+in the last third of the epochs, two-phase checkpoints, ``--resume`` and the
+``--finetune`` init, ``train_log.jsonl`` with the same keys, and a
+torch.profiler trace of the first trained epoch with ``--profile-dir``.
+``--eval`` runs the VL eval alone, ``--viz`` writes qualitative samples,
+``--eval-retrieval-itr`` / ``-tir`` the zero-shot retrieval protocol and
+``--eval-recognition`` the M-CR / S-CR protocol (at B = 500 on the card, 64
+on the CPU), each on the weights of ``--resume`` (a reference ``.pth``, a
+checkpoint of the port, or none: a fresh init). It runs on the card unless
+``--device cpu`` is given, and raises when there is no card.
 
-Not ported, and refused with NotImplementedError: the retrieval and
-recognition evals and ``--viz`` (they need the on-disk Fashion-Gen readers),
-``--zero1``, ``--tp-size`` other than 1, ``--steps-per-dispatch`` above 1,
-``--remat`` and ``--profile-dir``.
+Not ported, and refused with NotImplementedError: ``--zero1``,
+``--tp-size`` other than 1, ``--steps-per-dispatch`` above 1 and
+``--remat``.
 
 Usage:
-  python -m mvlt_tpu_torch.cli --config configs/pretrain_exp21.py --synthetic-data
-  python -m mvlt_tpu_torch.cli --config configs/finetune_exp48.py --synthetic-data \\
+  python -m mvlt_tpu_torch.cli --config configs/pretrain_exp21.py --data-path <root>
+  python -m mvlt_tpu_torch.cli --config configs/finetune_exp48.py --data-path <root> \\
       --finetune ./runs/pretrain_exp21
+  python -m mvlt_tpu_torch.cli --config configs/pretrain_exp21.py --data-path <root> \\
+      --eval-retrieval-itr --resume checkpoint_retrieval.pth
+  python -m mvlt_tpu_torch.cli --config configs/finetune_exp48.py --data-path <root> \\
+      --eval-recognition --resume checkpoint_recognition.pth
 """
 
 from __future__ import annotations
@@ -70,13 +80,17 @@ def get_args_parser() -> argparse.ArgumentParser:
                    help="k>1 splits each batch into k sequential microbatches inside "
                         "the step (averaged grads, BN stats threaded through)")
     p.add_argument("--eval", action="store_true", help="pre-train metric eval on valid")
-    p.add_argument("--eval-retrieval-itr", action="store_true", help="not ported")
-    p.add_argument("--eval-retrieval-tir", action="store_true", help="not ported")
-    p.add_argument("--parity-heads", action="store_true", help="not ported")
-    p.add_argument("--eval-recognition", action="store_true", help="not ported")
-    p.add_argument("--viz", action="store_true", help="not ported")
+    p.add_argument("--eval-retrieval-itr", action="store_true")
+    p.add_argument("--eval-retrieval-tir", action="store_true")
+    p.add_argument("--parity-heads", action="store_true",
+                   help="retrieval scores with every head of the config, as the reference "
+                        "does (engine_grid_masking.py:358); by default with the ITM head "
+                        "only: the same ranks, without the MLM decode and the T2I head")
+    p.add_argument("--eval-recognition", action="store_true")
+    p.add_argument("--viz", action="store_true", help="dump qualitative samples")
     p.add_argument("--viz-samples", type=int, default=32)
-    p.add_argument("--profile-dir", default="", help="not ported")
+    p.add_argument("--profile-dir", default="",
+                   help="torch.profiler trace of the first trained epoch, written here")
     p.add_argument("--device", default="cuda", help="torch device to run on (cuda or cpu)")
     return p
 
@@ -135,24 +149,83 @@ def build_run_config(args) -> RunConfig:
 
 def _refuse_unported(args, cfg: RunConfig) -> None:
     unported = {
-        "--eval-retrieval-itr / --eval-retrieval-tir / --eval-recognition (they need the "
-        "on-disk Fashion-Gen readers)":
-            args.eval_retrieval_itr or args.eval_retrieval_tir or args.eval_recognition,
-        "--viz (it needs the on-disk Fashion-Gen readers)": args.viz,
         "--zero1": args.zero1,
         "--tp-size other than 1": cfg.tp_size != 1,
         "--steps-per-dispatch above 1": args.steps_per_dispatch > 1,
         "--remat": cfg.model.remat,
-        "--profile-dir": bool(args.profile_dir),
     }
     refused = [name for name, on in unported.items() if on]
     if refused:
         raise NotImplementedError(f"not ported to mvlt_tpu_torch yet: {'; '.join(refused)}")
 
 
+def load_eval_model(cfg: RunConfig, device):
+    """The eval model of ``cfg`` on ``device`` in eval mode, with the weights
+    of ``cfg.resume`` (mvlt_tpu/cli.py:_load_eval_variables): a reference
+    ``.pth`` (its ``model`` entry), a checkpoint or output directory of the
+    port, or none (the seeded init, useful only for smoke tests). Weights
+    merge by name, so a model with fewer heads than the checkpoint drops the
+    others' tensors; it raises when no tensor matched."""
+    from mvlt_tpu_torch.models.pvlt import create_model
+    from mvlt_tpu_torch.utils.checkpoint import load_finetune_state
+
+    model = create_model(cfg.model, device=device, input_size=cfg.data.input_size)
+    if cfg.resume:
+        load_finetune_state(cfg.resume, model)
+    return model.eval()
+
+
+def _simple_loader(dataset, batch: int = 1):
+    """Host batches of an eval dataset in order, the last one ragged."""
+    from mvlt_tpu_torch.data.pipeline import DataLoader
+    from mvlt_tpu_torch.data.samplers import SequentialSampler
+
+    return DataLoader(dataset, SequentialSampler(len(dataset)), batch, num_workers=4,
+                      drop_last=False)
+
+
+def _eval_retrieval(args, cfg: RunConfig, device) -> dict:
+    from mvlt_tpu_torch.data.fashion_gen import FashionGenRetrieval
+    from mvlt_tpu_torch.eval.retrieval import evaluate_retrieval, make_itm_scorer
+
+    direction = "itr" if args.eval_retrieval_itr else "tir"
+    lt = cfg.model.loss_type
+    if not args.parity_heads and (lt.mlm or lt.t2i or lt.cls):
+        # the reference scores retrieval under the full pre-training config,
+        # paying the MLM decode and the T2I decoder per pair and discarding
+        # them (engine_grid_masking.py:358); the ITM ranks are the same
+        # without them, and the checkpoint's other heads are dropped on load
+        cfg = apply_overrides(cfg, {"loss_type": {"itm": 1, "mlm": 0, "t2i": 0, "cls": 0}})
+    model = load_eval_model(cfg, device)
+    dataset = FashionGenRetrieval(cfg.data.data_path, cfg.data, direction)
+    results = evaluate_retrieval(make_itm_scorer(model), _simple_loader(dataset, batch=1))
+    print(f"retrieval {direction.upper()}: "
+          + " ".join(f"acc@{k}: {results[f'acc@{k}']}" for k in (1, 5, 10)), flush=True)
+    return results
+
+
+def _eval_recognition(cfg: RunConfig, device) -> dict:
+    from mvlt_tpu_torch.data.fashion_gen import FashionGenRecognition
+    from mvlt_tpu_torch.eval.recognition import evaluate_recognition, make_cls_scorer
+
+    if not cfg.model.loss_type.cls:
+        # recognition needs the CLS heads whatever the config trains (the
+        # reference runs it with the fine-tune config)
+        cfg = apply_overrides(cfg, {"loss_type": {"cls": 1}})
+    model = load_eval_model(cfg, device)
+    dataset = FashionGenRecognition(cfg.data.data_path, cfg.data)
+    # the reference protocol batches recognition at 500 (main_vl.py:374-385)
+    rec_batch = 500 if device.type == "cuda" else 64
+    return evaluate_recognition(
+        make_cls_scorer(model), _simple_loader(dataset, batch=rec_batch),
+        num_super=cfg.model.num_super_classes, num_sub=cfg.model.num_sub_classes,
+        artifact_dir=os.path.join(cfg.output_dir or ".", "visualization"))
+
+
 def main(argv=None) -> "dict | None":
-    """CLI entry point. Returns the eval stats for ``--eval``; training
-    returns None."""
+    """CLI entry point. Returns the metrics of the eval modes (retrieval,
+    recognition, ``--eval``), so that callers such as eval/parity.py read
+    them; training and ``--viz`` return None."""
     from mvlt_tpu_torch.data.fashion_gen import build_dataset
     from mvlt_tpu_torch.data.pipeline import DataLoader, to_device
     from mvlt_tpu_torch.data.samplers import (DistributedSampler, RepeatedAugmentSampler,
@@ -163,15 +236,24 @@ def main(argv=None) -> "dict | None":
     from mvlt_tpu_torch.train.state import create_train_state
     from mvlt_tpu_torch.train.step import make_train_step
     from mvlt_tpu_torch.utils.checkpoint import CheckpointManager, load_finetune_state
+    from mvlt_tpu_torch.utils.profiling import trace
 
     args = get_args_parser().parse_args(argv)
     cfg = build_run_config(args)
     _refuse_unported(args, cfg)
     device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {args.device}: torch sees no CUDA device "
+                           f"(pass --device cpu to run on the host)")
     print(f"device: {device}" + (f" ({torch.cuda.get_device_name(device)})"
                                  if device.type == "cuda" else ""), flush=True)
-
     torch.manual_seed(cfg.seed)
+
+    if args.eval_retrieval_itr or args.eval_retrieval_tir:
+        return _eval_retrieval(args, cfg, device)
+    if args.eval_recognition:
+        return _eval_recognition(cfg, device)
+
     model = create_model(cfg.model, device=device, input_size=cfg.data.input_size)
 
     train_ds = build_dataset("train", cfg.data, itm_enabled=cfg.model.loss_type.itm,
@@ -224,13 +306,32 @@ def main(argv=None) -> "dict | None":
     if args.eval:
         return evaluate_vl(eval_fn, valid_loader)
 
+    if args.viz:
+        from mvlt_tpu_torch.eval.visualize import visualize_vl
+
+        model.eval()
+
+        @torch.no_grad()
+        def viz_step(images, ids):
+            return model(torch.as_tensor(images, device=device).float(),
+                         torch.as_tensor(ids, device=device).long())
+
+        n = visualize_vl(viz_step, valid_loader, valid_ds.tokenizer,
+                         os.path.join(cfg.output_dir or ".", "visualization"),
+                         max_samples=args.viz_samples)
+        print(f"wrote {n} visualization samples", flush=True)
+        return None
+
     log_path = os.path.join(cfg.output_dir or ".", "train_log.jsonl")
     os.makedirs(os.path.dirname(log_path) or ".", exist_ok=True)
     for epoch in range(start_epoch, cfg.optim.epochs):
         loader.set_epoch(epoch)
         t0 = time.time()
-        state, stats = train_one_epoch(train_step, state, loader, epoch,
-                                       lr_schedule=state.lr_schedule, log_every=cfg.log_every)
+        # a trace of the first trained epoch only, when asked for
+        with trace(args.profile_dir if epoch == start_epoch else ""):
+            state, stats = train_one_epoch(train_step, state, loader, epoch,
+                                           lr_schedule=state.lr_schedule,
+                                           log_every=cfg.log_every)
         quality = None
         if epoch >= int(cfg.optim.epochs * cfg.save_every_frac):
             eval_stats = evaluate_vl(eval_fn, valid_loader)

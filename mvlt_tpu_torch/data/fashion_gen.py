@@ -1,26 +1,200 @@
-"""The synthetic Fashion-Gen pre-training set, the dataset factory, batching,
+"""Fashion-Gen datasets: the on-disk readers (pre-training, retrieval,
+recognition), the synthetic pre-training set, the dataset factory, batching,
 and the move to the device.
 
-``SyntheticFashionGen`` is the port's copy of
-mvlt_tpu/data/fashion_gen.py:SyntheticFashionGen: items with the exact
-pre-training schema, each a deterministic function of (seed, epoch, index),
-captions tokenised with the shipped vocab. ``build_dataset`` returns it; the
-readers of the on-disk Fashion-Gen tree (pre-training, retrieval,
-recognition) are not ported yet.
+The readers are the port's copies of mvlt_tpu/data/fashion_gen.py and read
+the reference's layout (mcloader/fashion_gen.py):
+
+  <root>/extracted_{train,valid}_images/   one image file per pair
+  <root>/full_{train,valid}_info_PAI/      one pickled dict per pair (keys
+        product_id, img_name, super_cls_id, sub_cls_id, captions, ...)
+  <root>/retrieve_ITR/, retrieve_TIR/      pickled 101-candidate bundles
+        (candidate 0 the ground truth)
+  <root>/generated_valid_masking{ratio:.2f}_size{sz}_images/ (or
+        generated_valid_noise_images/)   pickled masks for the valid split
+
+Every item is a deterministic function of (seed, epoch, index). A missing
+directory raises, as ``os.listdir`` does; no reader falls back to synthetic
+data. Images go through PIL (``image_ops``): the JAX package's native C++
+crop-resize (``use_native_image_ops``, its default, agreeing with PIL to
+1.5/255) and its batch tokenizer are not ported, so the port takes the PIL
+path and the Python WordPiece tokenizer (the same ids) whatever the config
+key says.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator
+import os
+import pickle
+from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
 
 from mvlt_tpu_torch.config import DataConfig
-from mvlt_tpu_torch.data.masks import apply_mask, generate_grid_mask
+from mvlt_tpu_torch.data.image_ops import load_image, load_image_u8
+from mvlt_tpu_torch.data.masks import (apply_mask, generate_grid_mask, generate_square_mask,
+                                       generate_stroke_mask)
 from mvlt_tpu_torch.data.pipeline import collate
 from mvlt_tpu_torch.data.text_masking import process_caption
 from mvlt_tpu_torch.data.tokenizer import make_tokenizer
+
+
+def _listdir_sorted(d: str) -> List[str]:
+    return sorted(os.path.join(d, f) for f in os.listdir(d))
+
+
+def _load_pickle(path: str):
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+class FashionGenPretrain:
+    """Map-style pre-training dataset (train or valid split)."""
+
+    def __init__(self, root: str, split: str, cfg: DataConfig,
+                 itm_enabled: bool = True, seed: int = 0):
+        if split not in ("train", "valid"):
+            raise ValueError(f"unknown split {split!r}")
+        self.cfg = cfg
+        self.split = split
+        self.itm_enabled = itm_enabled
+        self.seed = seed
+        self.epoch = 0
+        self.tokenizer = make_tokenizer(cfg.vocab_file)
+        self.images = _listdir_sorted(os.path.join(root, f"extracted_{split}_images"))
+        self.text_dicts = _listdir_sorted(os.path.join(root, f"full_{split}_info_PAI"))
+        if len(self.images) != len(self.text_dicts):
+            raise ValueError(
+                f"image/text count mismatch: {len(self.images)} vs {len(self.text_dicts)}")
+        self.size = len(self.images)
+
+        # the valid split's stored masks make its eval reproducible
+        # (mcloader/fashion_gen.py:170-174)
+        self.mask_files: Optional[List[str]] = None
+        if split == "valid":
+            if cfg.mask_strategy == "random_grid":
+                mask_root = os.path.join(root, f"generated_valid_masking{cfg.mask_ratio:.2f}"
+                                               f"_size{cfg.mask_patch_size}_images")
+            else:
+                mask_root = os.path.join(root, "generated_valid_noise_images")
+            if os.path.isdir(mask_root):
+                self.mask_files = _listdir_sorted(mask_root)
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = epoch
+
+    def _make_mask(self, rng: np.random.Generator, index: int) -> np.ndarray:
+        cfg = self.cfg
+        if self.mask_files is not None:
+            m = np.asarray(_load_pickle(self.mask_files[index]), np.float32)
+            return m[0] if m.ndim == 3 else m   # the reference pickles CHW
+        if cfg.mask_strategy == "random_grid":
+            return generate_grid_mask(cfg.input_size, cfg.mask_ratio, patch_size=16, rng=rng)
+        if cfg.mask_strategy == "square":
+            return generate_square_mask(cfg.input_size, int(cfg.input_size // cfg.mask_ratio),
+                                        rng=rng)
+        if cfg.mask_strategy == "stroke":
+            return generate_stroke_mask(cfg.input_size, rng=rng)
+        raise ValueError(f"invalid mask_strategy {cfg.mask_strategy!r}")
+
+    def __len__(self) -> int:
+        return self.size
+
+    def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
+        cfg = self.cfg
+        rng = np.random.default_rng((self.seed, self.epoch, index))
+        if self.itm_enabled and rng.random() <= 0.5:
+            # a negative: the text of the item index + offset, the offset in
+            # [50, size / 2) (mcloader/fashion_gen.py:134), clamped so that
+            # a set of fewer than ~100 items still has low < high
+            lo = min(50, max(1, self.size - 2))
+            hi = max(self.size // 2, lo + 1)
+            text_idx = (index + int(rng.integers(lo, hi))) % self.size
+            itm_label = 0
+        else:
+            text_idx, itm_label = index, 1
+        text_dict = _load_pickle(self.text_dicts[text_idx])
+        image = load_image(self.images[index], cfg.input_size)
+        img_mask = self._make_mask(rng, index)
+        text = process_caption(text_dict["captions"], self.tokenizer, cfg.num_text_tokens,
+                               cfg.word_mask_rate, rng)
+        return {
+            "images": image,
+            "masked_images": apply_mask(image, img_mask),
+            "t2i_labels": img_mask,
+            "input_ids": text["input_ids"],
+            "ori_input_ids": text["ori_input_ids"],
+            "attention_mask": text["attention_mask"],
+            "segment_ids": text["segment_ids"],
+            "mlm_labels": text["mlm_labels"],
+            "itm_labels": np.int32(itm_label),
+            "sup_cls_labels": np.int32(text_dict["super_cls_id"]),
+            "sub_cls_labels": np.int32(text_dict["sub_cls_id"]),
+        }
+
+
+class FashionGenRetrieval:
+    """Zero-shot retrieval: each item is one pickled 101-candidate bundle,
+    candidate 0 the ground truth (mcloader/fashion_gen.py:436-511), as uint8
+    images and clean text ids."""
+
+    def __init__(self, root: str, cfg: DataConfig, direction: str):
+        if direction not in ("itr", "tir"):
+            raise ValueError("direction must be 'itr' or 'tir'")
+        self.cfg = cfg
+        self.tokenizer = make_tokenizer(cfg.vocab_file)
+        self.image_root = os.path.join(root, "extracted_valid_images")
+        self.bundles = _listdir_sorted(os.path.join(root, f"retrieve_{direction.upper()}"))
+        self.size = len(self.bundles)
+
+    def __len__(self) -> int:
+        return self.size
+
+    def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
+        cfg = self.cfg
+        images, ids, info = [], [], []
+        for cand in _load_pickle(self.bundles[index]).values():
+            images.append(load_image_u8(os.path.join(self.image_root, cand["img_name"]),
+                                        cfg.input_size))
+            # clean ids: encode == process_caption's ori_input_ids at rate 0
+            ids.append(self.tokenizer.encode(cand["captions"], cfg.num_text_tokens))
+            info.append({"img_name": cand["img_name"], "prod_caption": cand["captions"]})
+        return {
+            "images_101": np.stack(images),
+            "ori_input_ids_101": np.asarray(ids, np.int32),
+            "info_list": info,
+        }
+
+
+class FashionGenRecognition:
+    """Recognition eval over the whole valid split with clean text ids
+    (mcloader/fashion_gen.py:630-799): uint8 images, labels and names."""
+
+    def __init__(self, root: str, cfg: DataConfig):
+        self.cfg = cfg
+        self.tokenizer = make_tokenizer(cfg.vocab_file)
+        self.images = _listdir_sorted(os.path.join(root, "extracted_valid_images"))
+        self.text_dicts = _listdir_sorted(os.path.join(root, "full_valid_info_PAI"))
+        if len(self.images) != len(self.text_dicts):
+            raise ValueError("image/text count mismatch")
+        self.size = len(self.images)
+
+    def __len__(self) -> int:
+        return self.size
+
+    def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
+        cfg = self.cfg
+        text_dict = _load_pickle(self.text_dicts[index])
+        text = process_caption(text_dict["captions"], self.tokenizer, cfg.num_text_tokens,
+                               word_mask_rate=0.0, rng=np.random.default_rng(index))
+        return {
+            "images": load_image_u8(self.images[index], cfg.input_size),
+            "ori_input_ids": text["ori_input_ids"],
+            "sup_cls_labels": np.int32(text_dict["super_cls_id"]),
+            "sub_cls_labels": np.int32(text_dict["sub_cls_id"]),
+            "info_list": text_dict["img_name"],
+        }
 
 
 class SyntheticFashionGen:
@@ -80,13 +254,11 @@ class SyntheticFashionGen:
 
 def build_dataset(split: str, cfg: DataConfig, itm_enabled: bool = True, seed: int = 0):
     """Dataset factory (mvlt_tpu/data/fashion_gen.py:build_dataset): the
-    synthetic set for ``cfg.synthetic`` or an empty ``data_path``; the
-    on-disk readers raise."""
+    synthetic set for ``cfg.synthetic`` or an empty ``data_path``, else the
+    ``split`` of the tree at ``data_path``."""
     if cfg.synthetic or not cfg.data_path:
         return SyntheticFashionGen(cfg, itm_enabled=itm_enabled, seed=seed)
-    raise NotImplementedError(
-        f"the on-disk Fashion-Gen readers (FashionGenPretrain, {split} split of "
-        f"{cfg.data_path!r}) are not ported yet: use synthetic data")
+    return FashionGenPretrain(cfg.data_path, split, cfg, itm_enabled=itm_enabled, seed=seed)
 
 
 def batches(dataset, batch_size: int, drop_last: bool = True) -> Iterator[Dict[str, np.ndarray]]:

@@ -1,11 +1,12 @@
-"""Image grid masks on the host (numpy).
+"""Image masks: grid, square and free-form stroke.
 
-Counterpart of the numpy part of mvlt_tpu/data/masks.py (reference
-mcloader/fashion_gen.py:225-319): exactly int(mask_ratio * patches) of the
-(H/patch)^2 patches are masked, chosen by a uniform permutation, and masked
-pixels are filled with 1e-6; and the batched grid masks made on the device
-inside the step (``device_grid_masks``, ``device_apply_mask``). The square
-and stroke masks are not ported yet.
+Counterpart of mvlt_tpu/data/masks.py (reference
+mcloader/fashion_gen.py:225-319). On the host (numpy): the grid mask, where
+exactly int(mask_ratio * patches) of the (H/patch)^2 patches are masked,
+chosen by a uniform permutation; one random square; 5 to 13 random brush
+strokes (OpenCV lines and circles, imported at first use). Masked pixels
+are filled with 1e-6. On the device: the batched grid masks made inside the
+step (``device_grid_masks``, ``device_apply_mask``).
 """
 
 from __future__ import annotations
@@ -26,6 +27,53 @@ def generate_grid_mask(input_size: int, mask_ratio: float, patch_size: int = 16,
     flat = np.zeros(g * g, dtype=np.float32)
     flat[rng.permutation(g * g)[:int(mask_ratio * g * g)]] = 1.0
     return np.kron(flat.reshape(g, g), np.ones((patch_size, patch_size), np.float32))
+
+
+def generate_square_mask(im_size: int, mask_size: int,
+                         rng: np.random.Generator | None = None) -> np.ndarray:
+    """[H, W] float32 mask with one random mask_size x mask_size box
+    (mcloader/fashion_gen.py:256-266)."""
+    rng = rng or np.random.default_rng()
+    half = mask_size // 2
+    cy = rng.integers(half, im_size - half)
+    cx = rng.integers(half, im_size - half)
+    mask = np.zeros((im_size, im_size), np.float32)
+    mask[cy - half: cy + half, cx - half: cx + half] = 1.0
+    return mask
+
+
+def generate_stroke_mask(im_size: int, parts_range=(5, 13), mask_scale: float = 1.0,
+                         rng: np.random.Generator | None = None) -> np.ndarray:
+    """[H, W] float32 free-form brush mask (mcloader/fashion_gen.py:269-319);
+    raises RuntimeError where OpenCV is absent."""
+    try:
+        import cv2
+    except ImportError as e:
+        raise RuntimeError("stroke masks require cv2") from e
+    rng = rng or np.random.default_rng()
+    max_vertex = int(im_size // (70 / mask_scale))
+    max_brush = int(im_size // (25 / mask_scale))
+    mask = np.zeros((im_size, im_size, 1), np.float32)
+    parts = int(rng.integers(parts_range[0], parts_range[1] + 1))
+    for _ in range(parts):
+        stroke = np.zeros((im_size, im_size, 1), np.float32)
+        n_vert = int(rng.integers(0, max_vertex + 1))
+        y, x = int(rng.integers(im_size)), int(rng.integers(im_size))
+        width = 0
+        for i in range(n_vert):
+            angle = rng.integers(0, 361) / 360.0 * 2 * np.pi
+            if i % 2 == 0:
+                angle = 2 * np.pi - angle
+            length = int(rng.integers(0, im_size + 1))
+            width = int(rng.integers(5, max_brush + 1)) // 2 * 2
+            ny = int(np.clip(y + length * np.cos(angle), 0, im_size - 1))
+            nx = int(np.clip(x + length * np.sin(angle), 0, im_size - 1))
+            cv2.line(stroke, (y, x), (ny, nx), 1, width)
+            cv2.circle(stroke, (y, x), width // 2, 2)
+            y, x = ny, nx
+        cv2.circle(stroke, (y, x), width // 2, 2)
+        mask += stroke
+    return np.minimum(mask, 1.0)[..., 0]
 
 
 def apply_mask(image: np.ndarray, mask: np.ndarray) -> np.ndarray:

@@ -13,13 +13,13 @@ sup_cls_acc + sub_cls_acc`` picks the best checkpoint (main_vl.py:462-498).
 
 from __future__ import annotations
 
-import math
 from typing import Callable, Dict, Iterable
 
 import numpy as np
 import torch
 
 from mvlt_tpu_torch.data.fashion_gen import batch_to_device
+from mvlt_tpu_torch.eval.metrics import argmax_accuracy_count, psnr_from_mse
 from mvlt_tpu_torch.train.losses import cross_entropy
 from mvlt_tpu_torch.utils.logging import MetricLogger
 
@@ -36,8 +36,8 @@ def make_vl_eval_fn(model, cfg) -> Callable[[Dict], Dict[str, torch.Tensor]]:
         return model(images.float(), ids.long())
 
     def masked_correct(logits, labels):
-        labels = labels.reshape(-1)
-        return ((logits.argmax(-1) == labels) & (labels != PAD_LABEL)).sum().float()
+        # an argmax is never -1, so padded rows and ignored tokens count nothing
+        return argmax_accuracy_count(logits, labels.reshape(logits.shape[:-1])).float()
 
     @torch.no_grad()
     def eval_batch(batch: Dict) -> Dict[str, torch.Tensor]:
@@ -55,7 +55,7 @@ def make_vl_eval_fn(model, cfg) -> Callable[[Dict], Dict[str, torch.Tensor]]:
             total = total + cross_entropy(logits.reshape(-1, logits.shape[-1]),
                                           labels.reshape(-1), ignore_index=PAD_LABEL)
             tok_valid = labels != PAD_LABEL
-            m["mlm_correct"] = ((logits.argmax(-1) == labels) & tok_valid).sum().float()
+            m["mlm_correct"] = masked_correct(logits, labels)
             m["mlm_count"] = tok_valid.sum().float()
 
         if lt.itm or lt.cls:
@@ -130,11 +130,10 @@ def evaluate_vl(eval_batch_fn: Callable, loader: Iterable, log_every: int = 10,
             logger.meters["sub_cls_acc"].update(m["sub_correct"] / max(nv, 1.0), n=int(nv))
         logger.meters["total_loss"].update(m["total_loss"], n=int(nv))
         if "t2i_mse_sum" in m:
-            mse = m["t2i_mse_sum"] / max(nv, 1.0)
-            # PSNR of the per-batch MSE with peak 255 on [0, 1] images: the
-            # reference's quirk (libs/vl_scores.py:57-63)
-            p = 100.0 if mse == 0 else 20 * math.log10(255.0 / math.sqrt(mse))
-            logger.meters["t2i_psnr"].update(p, n=int(nv))
+            # PSNR of the per-batch MSE, peak 255 on [0, 1] images as the
+            # reference (libs/vl_scores.py:57-63)
+            logger.meters["t2i_psnr"].update(psnr_from_mse(m["t2i_mse_sum"] / max(nv, 1.0)),
+                                             n=int(nv))
     stats = logger.global_averages()
     stats["quality_score"] = sum(
         stats.get(k, 0.0) for k in ("mlm_acc", "itm_acc", "sup_cls_acc", "sub_cls_acc"))

@@ -76,7 +76,8 @@ def merge_state_dicts(template: Mapping[str, torch.Tensor],
 
 
 def load_finetune_state(path: str, model: torch.nn.Module) -> Dict[str, list]:
-    """Fine-tune init (main_vl.py:272-291): model weights only, from a
+    """Fine-tune init (main_vl.py:272-291) and the eval modes' weights
+    (cli.py:load_eval_model): model weights only, from a
     reference ``.pth`` (its ``model`` entry, or the file itself) or a
     checkpoint of this package (a checkpoint or output directory), merged
     into ``model`` by ``merge_state_dicts``; returns the merge report and
@@ -92,7 +93,7 @@ def load_finetune_state(path: str, model: torch.nn.Module) -> Dict[str, list]:
         restored = torch.load(file, map_location="cpu", weights_only=True)["model"]
     merged, report = merge_state_dicts(model.state_dict(), restored)
     if not report["loaded"]:
-        raise ValueError(f"finetune init from {path}: no checkpoint tensor matched the model")
+        raise ValueError(f"{path}: no checkpoint tensor matched the model")
     model.load_state_dict(merged)
     return report
 

@@ -153,9 +153,8 @@ def test_fused_attention_route_from_a_json_config(tmp_path):
     assert model["fused_attn_train"] and model["fused_attn_stats"]
 
 
-@pytest.mark.parametrize("flags", [["--viz"], ["--zero1"], ["--tp-size", "2"],
-                                   ["--steps-per-dispatch", "2"], ["--eval-retrieval-itr"],
-                                   ["--eval-recognition"], ["--remat"], ["--profile-dir", "p"]])
+@pytest.mark.parametrize("flags", [["--zero1"], ["--tp-size", "2"],
+                                   ["--steps-per-dispatch", "2"], ["--remat"]])
 def test_unported_flags_raise(flags):
     with pytest.raises(NotImplementedError, match="not ported"):
         cli.main(BASE + flags)

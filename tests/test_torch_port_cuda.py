@@ -901,3 +901,73 @@ def test_swin_wrappers_refuse_what_the_kernels_do_not_take(dev):
         blk.requires_grad_(True)((xv, kt), hw)
     with pytest.raises(NotImplementedError):
         blk.train()((xv, kt), hw)
+
+
+def _scale_block_weights(model, gen):
+    """Give every matrix of the blocks' attention and MLP (Q, K/V, the SR
+    conv, the out-projection, fc1, fc2) std gain / sqrt(fan_in), gain 1.5
+    for Q and K/V and 1 elsewhere, as chip_smoke.py's stage_params does, and
+    a 0.03 normal perturbation to every 1-d parameter. With the 0.02 init
+    the attention is near-uniform and a block's update tiny beside its
+    residual, so a misplaced K/V row moves the logits by well under 1%."""
+    with torch.no_grad():
+        for name, mod in model.named_modules():
+            if isinstance(mod, (torch.nn.Linear, torch.nn.Conv2d)) and (
+                    ".attn." in name or ".mlp." in name):
+                gain = 1.5 if name.endswith(("attn.q", "attn.kv")) else 1.0
+                std = gain / mod.weight[0].numel() ** 0.5
+                mod.weight.copy_(std * torch.randn(mod.weight.shape, generator=gen))
+        for p in model.parameters():
+            if p.dim() == 1:
+                p.add_((0.03 * torch.randn(p.shape, generator=gen)).to(p.device))
+
+
+@pytest.mark.parametrize("batch", [500, 28])
+def test_cls_scorer_matches_plain_at_recognition_batches(dev, batch):
+    """make_cls_scorer on pvlt_tiny with the fine-tune heads (bf16, 256x256,
+    128 tokens) and scaled block weights at the recognition protocol's batch
+    of 500 and the valid split's ragged last batch of 28: kernels A and B 8
+    launches a forward, the logits within 3e-2 of the same model with both
+    wrappers replaced by their plain versions, the argmax equal where the
+    plain margin exceeds twice that bound. A planted fault (A's V rows moved
+    by one) must land outside the bound."""
+    from unittest import mock
+
+    from mvlt_tpu_torch.config import LossType, ModelConfig
+    from mvlt_tpu_torch.eval import recognition
+    from mvlt_tpu_torch.models import pvlt
+    from mvlt_tpu_torch.models.pvlt import create_model
+
+    torch.manual_seed(3)
+    cfg = ModelConfig(compute_dtype="bfloat16",
+                      loss_type=LossType(itm=False, mlm=False, t2i=False, cls=True))
+    model = create_model(cfg, device=dev).eval()
+    gen = torch.Generator().manual_seed(4)
+    _scale_block_weights(model, gen)
+    images = torch.randint(0, 256, (batch, 256, 256, 3), dtype=torch.uint8, generator=gen).to(dev)
+    ids = torch.randint(1000, 8000, (batch, 128), generator=gen).to(dev)
+    launches = (fused_ln_sr_kv.launches, fused_block.launches)
+    sup, sub = recognition.make_cls_scorer(model)(images, ids)
+    kernel = recognition.cls_logits(model, dev, images, ids)
+    torch.cuda.synchronize()
+    assert (fused_ln_sr_kv.launches - launches[0], fused_block.launches - launches[1]) == (16, 16)
+    assert sup.shape == sub.shape == (batch,)
+    with mock.patch.object(pvlt, "fused_ln_sr_kv", sr_kv_reference), \
+            mock.patch.object(pvlt, "fused_block", block_reference):
+        plain = recognition.cls_logits(model, dev, images, ids)
+
+    def v_rows_moved(*args, **kwargs):
+        k, v = fused_ln_sr_kv(*args, **kwargs)
+        return k, v.roll(1, dims=2)
+
+    with mock.patch.object(pvlt, "fused_ln_sr_kv", v_rows_moved):
+        faulty = recognition.cls_logits(model, dev, images, ids)
+    for got, want, bad, pred in zip(kernel, plain, faulty, (sup, sub)):
+        assert got.shape == (batch, want.shape[1]) and torch.isfinite(got).all()
+        scale = want.abs().max()
+        assert (got - want).abs().max() <= 3e-2 * scale
+        assert (bad - want).abs().max() > 3e-2 * scale
+        assert torch.equal(pred, got.argmax(-1))
+        top2 = want.topk(2, dim=-1).values
+        decided = top2[:, 0] - top2[:, 1] > 6e-2 * scale
+        assert torch.equal(got.argmax(-1)[decided], want.argmax(-1)[decided])

@@ -88,6 +88,46 @@ def test_port_imports_and_serves_without_jax():
     assert proc.stdout.strip().endswith("OK")
 
 
+_EVAL_GUARDED = r"""
+import sys
+for name in ("jax", "jaxlib", "flax", "PIL", "cv2", "mvlt_tpu"):
+    sys.modules[name] = None
+import os, pickle, tempfile
+from mvlt_tpu_torch import cli
+with tempfile.TemporaryDirectory() as root:
+    for sub in ("extracted_valid_images", "full_valid_info_PAI", "retrieve_ITR"):
+        os.makedirs(os.path.join(root, sub))
+    open(os.path.join(root, "extracted_valid_images", "p0.png"), "wb").close()
+    with open(os.path.join(root, "full_valid_info_PAI", "p0.pkl"), "wb") as f:
+        pickle.dump({"img_name": "p0.png", "super_cls_id": 1, "sub_cls_id": 2,
+                     "captions": "a wool coat"}, f)
+    with open(os.path.join(root, "retrieve_ITR", "q0.pkl"), "wb") as f:
+        pickle.dump({0: {"img_name": "p0.png", "captions": "a wool coat"}}, f)
+    for flag in ("--eval-recognition", "--eval-retrieval-itr"):
+        try:
+            cli.main(["--config", "configs/test_micro.py", "--device", "cpu",
+                      "--data-path", root, "--output-dir", root, flag])
+        except ImportError as e:      # the first image read needs Pillow
+            assert "PIL" in str(e), e
+            print("read", flag)
+        else:
+            raise AssertionError(f"{flag} ran without reading an image")
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "mvlt_tpu", "PIL", "cv2"))
+assert not [m for m in loaded if sys.modules[m] is not None], loaded
+print("OK")
+"""
+
+
+def test_eval_branches_import_without_pil_and_cv2():
+    """The recognition and retrieval evals of the CLI run with PIL, cv2, jax,
+    flax and the JAX package blocked up to their first image read, which
+    needs Pillow: the readers, metrics and scorers import none of them."""
+    proc = subprocess.run([sys.executable, "-c", _EVAL_GUARDED], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.count("read --eval") == 2 and proc.stdout.strip().endswith("OK")
+
+
 def test_no_jax_import_in_port_sources():
     pattern = re.compile(
         r"^\s*(import\s+(jax|flax|mvlt_tpu)\b(?!_)|from\s+(jax|flax|mvlt_tpu)\b(?!_))", re.M)

@@ -116,7 +116,9 @@ def test_build_dataset_synthetic_or_refused():
     assert isinstance(build_dataset("train", cfg), SyntheticFashionGen)
     assert isinstance(build_dataset("valid", DataConfig(data_path="/data/fg", synthetic=True)),
                       SyntheticFashionGen)
-    with pytest.raises(NotImplementedError, match="readers"):
+    # a data_path takes the on-disk reader, which raises where there is no
+    # tree instead of standing in synthetic data
+    with pytest.raises(FileNotFoundError, match="extracted_train_images"):
         build_dataset("train", DataConfig(data_path="/data/fg"))
 
 
