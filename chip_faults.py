@@ -2,17 +2,19 @@
 """Plant known faults in copies of the port's kernels and check that
 chip_smoke.py's kernel checks catch each one.
 
-    python3 chip_faults.py
+    python3 chip_faults.py [fault ...]
 
 run from the root of a checkout on a machine with a CUDA card and nvcc, as
-chip_smoke.py is. For each fault it copies ``mvlt_tpu_torch/`` and
-``chip_smoke.py`` into ``build/planted_faults/<fault>/``, rewrites one line
-of a kernel source there, runs the chip_smoke phase that checks that kernel
+chip_smoke.py is; with fault names, only those. For each fault it copies
+``mvlt_tpu_torch/``, ``preweights/`` and ``chip_smoke.py`` into
+``build/planted_faults/<fault>/``, rewrites one line of a kernel source (or
+of the model's glue) there, runs the chip_smoke phase that checks it
 (``kernels``, ``v2_kernels``, ``swin_kernels``, ``fba_train_kernels``,
-``train_kernels`` or ``mlm_kernels``) in that copy (its kernels built from the
-changed source), and then, with the bound lifted, prints every check's error
-at the B = 4 shapes. The copy is removed afterwards; the sources of the
-checkout are never changed. It exits non-zero if a fault passes the phase.
+``train_kernels``, ``mlm_kernels``, ``train_glue``, ``v2_route`` or
+``remat``) in that copy (its kernels built from the changed source), and
+then, with the bound lifted, prints every check's error at the B = 4
+shapes. The copy is removed afterwards; the sources of the checkout are
+never changed. It exits non-zero if a fault passes the phase.
 
 Faults, kernel A's chain (csrc/sr_kv.cu), phase kernels:
   sr_gather_swaps_rs  the SR conv's gather takes kernel offset (s, r) for
@@ -99,6 +101,20 @@ The MLM CE kernels (csrc/mlm_ce.cu), phase mlm_kernels:
                        (zero rows of E) at logit 0 instead of -inf;
   merge_last_dropped   the forward's merge leaves out the last vocabulary
                        tile's partial.
+The training paths' glue (models/swin.py, ops/sr_kv.py, models/pvlt.py):
+  swin_train_mask_row  Swin's window attention on its training route takes
+                       the region/pad mask of the window one window row on
+                       (phase train_glue, against kernel F and its plain
+                       version);
+  linear_sr_adaptive_pool  linear SR pools to an adaptive 7x7 grid instead
+                       of floored windows (M = 177 at every stage; phase
+                       train_glue, LINEAR_M);
+  remat_redraws_masks  --remat hands the step's generator to the block
+                       under checkpoint, so the recompute draws new DropPath
+                       and dropout masks (phase remat: gradients and the
+                       generator's end state);
+  v2_fused_route       a v2 block takes the fused attention half when
+                       fused_attn_train is set (phase v2_route: launches).
 """
 
 from __future__ import annotations
@@ -241,6 +257,22 @@ FAULTS = {
         "mlm_kernels", "mvlt_tpu_torch/csrc/mlm_ce.cu",
         "for (int s = 0; s < parts; ++s) {",
         "for (int s = 0; s < parts - 1; ++s) {"),
+    "swin_train_mask_row": (
+        "train_glue", "mvlt_tpu_torch/models/swin.py",
+        "v_txt, bias, mask, scale=hd ** -0.5)",
+        "v_txt, bias, mask.roll(-(-w // ws), 0), scale=hd ** -0.5)"),
+    "linear_sr_adaptive_pool": (
+        "train_glue", "mvlt_tpu_torch/ops/sr_kv.py",
+        "pooled = F.avg_pool2d(grid, win, win)",
+        "pooled = F.adaptive_avg_pool2d(grid, p)"),
+    "remat_redraws_masks": (
+        "remat", "mvlt_tpu_torch/models/pvlt.py",
+        "    if generator is None:\n        return checkpoint(blk, z, hw, None, use_reentrant=False)",
+        "    return checkpoint(blk, z, hw, generator, use_reentrant=False)"),
+    "v2_fused_route": (
+        "v2_route", "mvlt_tpu_torch/models/pvlt.py",
+        "self.training and not self.v2 and not self.drop",
+        "self.training and not self.drop"),
 }
 # per phase: the checks at B = 4 that print each error with the bound lifted
 MARGINS = {
@@ -277,6 +309,16 @@ c.phase_mlm_kernels(stats)
     "fba_train_kernels": """
 c.check_fba_traps(stats, torch.Generator().manual_seed(c.SEED + 17))
 """,
+    "train_glue": """
+c.phase_train_glue(stats)
+""",
+    "v2_route": """
+c.phase_v2_route(stats)
+""",
+    "remat": """
+c.REMAT_TOL = math.inf
+c.phase_remat(stats)
+""",
 }
 RUN = """
 import math, torch, chip_smoke as c
@@ -300,6 +342,7 @@ def run_fault(name: str, phase: str, source: str, good: str, bad: str) -> bool:
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(ROOT / "mvlt_tpu_torch", dst / "mvlt_tpu_torch",
                     ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copytree(ROOT / "preweights", dst / "preweights")
     shutil.copy(ROOT / "chip_smoke.py", dst)
     path = dst / source
     text = path.read_text()
@@ -327,7 +370,8 @@ def run_fault(name: str, phase: str, source: str, good: str, bad: str) -> bool:
 
 
 def main() -> int:
-    results = {name: run_fault(name, *fault) for name, fault in FAULTS.items()}
+    names = sys.argv[1:] or list(FAULTS)
+    results = {name: run_fault(name, *FAULTS[name]) for name in names}
     print(json.dumps({"all_caught": all(results.values()), "caught": results}), flush=True)
     return 0 if all(results.values()) else 1
 

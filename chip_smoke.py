@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths once on one NVIDIA GPU: retrieval serving
-(pvlt_tiny, pvlt_v2_tiny and pvlt_swin_tiny), recognition at B = 500, the
-pre-training step, pre-training through the command line, and the
-downstream evals through the command line on an on-disk tree.
+(pvlt_tiny, pvlt_v2_tiny, pvlt_v2_linear_tiny, pvlt_swin_tiny and the
+registry's deeper models), recognition at B = 500, the pre-training step
+of the v1, v2, linear-SR v2 and Swin backbones, with dropout and with
+--remat, pre-training through the command line, and the downstream evals
+through the command line on an on-disk tree.
 
     python3 chip_smoke.py
 
@@ -152,6 +154,37 @@ JSON line each; a failed phase raises and the script exits non-zero:
      against the same weights in fp32 on the CPU (losses, and per-tensor
      gradient cosines; the card's MLM loss through the kernels, the CPU's
      through the chunked plain decode), beside the CPU's own bf16 gap;
+ 10c. the training paths new in the port's later slices, each phase's
+     seconds printed: train_glue holds the PyTorch glue of the new paths at
+     the stage shapes (B = 4, bf16): Swin's window attention on its
+     training route against the same module's serving route on kernel F
+     and on F's plain version (the 256 stages, 224's padded 28x28 grid and
+     a 10x6 grid in windows of 4, shifted and not), and linear SR's K/V
+     input against a written-out plain version with 177, 192 and 192 rows
+     at 64/32/16 (floored pool windows, not an adaptive 7x7); v2_route
+     takes a v2 step with fused_attn_train set (#10/#11 once per block, the
+     fused half never: it is v1's route); pvlt_v2_tiny and pvlt_swin_tiny
+     (at 256) pre-train as phase 9 (6 steps at B = 150: v2's #10/#11 and
+     Swin's #12/#13 8 times a step, the MLM CE kernels once, nothing else;
+     falling loss, BatchNorm statistics moved), every block of a step vs
+     plain, ms/step and a profile, and a 4-sample step vs the CPU fp32
+     step; pvlt_v2_linear_tiny serves three bundles (C and D 8 launches a
+     forward, A 2: stage 4 only), its blocks vs plain with their K/V rows,
+     ITM logits vs the CPU fp32 model, pairs/s and a profile, then trains
+     as v2; a v1 step with drop_rate = attn_drop_rate = 0.1 launches no
+     block kernel (the JAX package's routes) and its loss falls; remat
+     takes one step with and one without torch.utils.checkpoint per block
+     from one generator seed (pvlt_tiny at B = 150 on the default route
+     with drop_rate 0.1 and on fused_attn_stats, then pvlt_large at B =
+     150): every loss within 1e-3, every gradient within 1e-3 of its
+     tensor's largest magnitude or twice a repeat without remat's own gap
+     (the card's step is not bit-reproducible), the generators in the same
+     state after, the forward
+     kernels launched twice, the peak memory lower, ms/step of each; and
+     pvlt_small, pvlt_medium, pvlt_large, pvlt_v2_small and pvlt_swin_small
+     (at 256, kernel E on every block) each serve one bundle, the ITM
+     head's input of 4 rows within 3e-2 of the CPU fp32 model, the logits
+     beside it;
  11. the command line: ``mvlt_tpu_torch.cli.main`` with
      configs/pretrain_exp21.py on synthetic data (B = 150) for 2 epochs with
      the VL eval in epoch 1, ``--resume last`` for epoch 2, then one CLS
@@ -208,8 +241,10 @@ from mvlt_tpu_torch.eval import recognition
 from mvlt_tpu_torch.eval.recognition import evaluate_recognition, make_cls_scorer
 from mvlt_tpu_torch.eval.retrieval import evaluate_retrieval, make_itm_scorer, uint8_to_unit
 from mvlt_tpu_torch.models.pvlt import Block, SwinBlock, create_model, kernel_operand
-from mvlt_tpu_torch.models.swin import (add_table, heads_of, relative_position_index,
-                                        window_masks, window_partition, window_reverse)
+from mvlt_tpu_torch.models.registry import resolve_model_config
+from mvlt_tpu_torch.models.swin import (SwinJointAttention, add_table, heads_of,
+                                        relative_position_index, window_masks,
+                                        window_partition, window_reverse)
 from mvlt_tpu_torch.ops import _build
 from mvlt_tpu_torch.ops.block_attention import (block_attention_bwd_reference,
                                                 block_attention_reference,
@@ -229,7 +264,8 @@ from mvlt_tpu_torch.ops.pallas_attention import (attention_bwd, attention_fwd,
                                                  attention_reference,
                                                  attention_stats_bwd_reference,
                                                  attention_stats_reference, fused_attention)
-from mvlt_tpu_torch.ops.sr_kv import conv_splits, fused_ln_sr_kv, sr_kv_reference
+from mvlt_tpu_torch.ops.sr_kv import (conv_splits, fused_ln_sr_kv, linear_reduce_kv_input,
+                                      sr_kv_reference)
 from mvlt_tpu_torch.ops.swin_attention import fused_swin_attention, swin_attention_reference
 from mvlt_tpu_torch.ops.swin_band import fused_swin_block, swin_block_reference
 from mvlt_tpu_torch.train.engine import train_one_epoch
@@ -764,18 +800,19 @@ def synthetic_bundles(n: int, seed: int, size: int, text_len: int) -> list:
 
 
 def phase_slice(stats: dict, model_name: str = "pvlt_tiny", path: dict = SERVING_WRAPPERS,
-                phase: str = "slice", size: int = 256, per_forward: dict | None = None):
-    """``model_name``, built for and run at ``size``, scores three bundles
-    through the serving entry points, launching each kernel of ``path``
-    ``per_forward[name]`` times a forward (default once per block) and no
-    other kernel; ``stats`` keeps this run's launches. Returns the model,
-    the bundles and the weights."""
+                phase: str = "slice", size: int = 256, per_forward: dict | None = None,
+                n_bundles: int = 3, record: bool = True):
+    """``model_name``, built for and run at ``size``, scores ``n_bundles``
+    bundles through the serving entry points, launching each kernel of
+    ``path`` ``per_forward[name]`` times a forward (default once per block)
+    and no other kernel; with ``record`` ``stats`` keeps this run's
+    launches. Returns the model, the bundles and the weights."""
     cfg = ModelConfig(name=model_name, compute_dtype="bfloat16",
                       loss_type=LossType(itm=True, mlm=False, t2i=False, cls=False))
     model = create_model(cfg, device="cuda", input_size=size).eval()
     sd = seeded_state_dict(model, SEED)
     model.load_state_dict(sd, strict=True)
-    bundles = synthetic_bundles(3, SEED + 1, size, cfg.num_text_tokens)
+    bundles = synthetic_bundles(n_bundles, SEED + 1, size, cfg.num_text_tokens)
     blocks = sum(model.cfg.depths)
     per_forward = per_forward or dict.fromkeys(path, blocks)
 
@@ -812,7 +849,8 @@ def phase_slice(stats: dict, model_name: str = "pvlt_tiny", path: dict = SERVING
         raise AssertionError(f"{cfg.name} serving launched a kernel of another path: {launches}")
     for name, n in per_forward.items():
         count = launches[name]
-        stats[name]["launches"] = count
+        if record:
+            stats[name]["launches"] = count
         if count != n * forwards:
             raise AssertionError(f"{name} launched {count} times in {forwards} "
                                  f"forwards, expected {n} per forward")
@@ -856,34 +894,54 @@ def check_blocks(model, bundle) -> None:
                              f"version: rel errs {errs} (tol {KERNEL_TOL})")
 
 
-def compare_cpu_fp32(model, bundle, sd, phase: str = "slice_vs_cpu_fp32") -> float:
-    """ITM logits of two pairs against the same weights in fp32 on the CPU
-    (plain path), beside the plain path's own bf16 error on the CPU."""
-    cfg = model.cfg
-    images = uint8_to_unit(torch.from_numpy(bundle["images_101"][:2]))
-    ids = torch.from_numpy(bundle["ori_input_ids_101"][:2]).long()
-    logits = {}
-    for dtype in ("float32", "bfloat16"):
-        cpu = create_model(dataclasses.replace(cfg, compute_dtype=dtype), device="cpu",
-                           input_size=model.input_size).eval()
-        cpu.load_state_dict(sd, strict=True)
+def itm_outputs(model, images, ids) -> tuple:
+    """(ITM logits, the ITM head's input rows: the CLS row after its
+    adapter), fp32 on the host, of one no-grad forward."""
+    feats = []
+    hook = model.itm_head.register_forward_pre_hook(lambda m, args: feats.append(args[0]))
+    try:
         with torch.no_grad():
-            logits[dtype] = cpu(images, ids)["itm_logits"].float()
-    with torch.no_grad():
-        got = model(images.cuda(), ids.cuda())["itm_logits"].float().cpu()
-    want = logits["float32"]
-    scale = want.abs().max().item()
-    diff = (got - want).abs().max().item()
-    rel = diff / scale
-    ok = bool(rel <= SLICE_TOL)
-    emit(phase, pairs=2, logits_card=got.flatten().tolist(),
-         logits_cpu=want.flatten().tolist(), max_abs_diff=diff, rel_err=rel,
-         rel_err_cpu_bf16_plain=(logits["bfloat16"] - want).abs().max().item() / scale,
-         tol=SLICE_TOL, ok=ok)
+            logits = model(images, ids)["itm_logits"]
+    finally:
+        hook.remove()
+    return logits.float().cpu(), feats[0].float().cpu()
+
+
+def compare_cpu_fp32(model, bundle, sd, phase: str = "slice_vs_cpu_fp32", rows: int = 2,
+                     hold: str = "logits") -> float:
+    """ITM logits of ``rows`` pairs, and the ITM head's input rows, against
+    the same weights in fp32 on the CPU (plain path), beside the plain
+    path's own bf16 errors on the CPU; each error max |diff| / max |fp32|.
+    ``hold`` names the one held to SLICE_TOL: the logits, or (``features``)
+    the head's input, where the logits are too small for a bound relative to
+    them (near zero by cancellation, bf16 rounding alone moves them by more)."""
+    cfg = model.cfg
+    images = uint8_to_unit(torch.from_numpy(bundle["images_101"][:rows]))
+    ids = torch.from_numpy(bundle["ori_input_ids_101"][:rows]).long()
+    cpu = {}
+    for dtype in ("float32", "bfloat16"):
+        ref = create_model(dataclasses.replace(cfg, compute_dtype=dtype), device="cpu",
+                           input_size=model.input_size).eval()
+        ref.load_state_dict(sd, strict=True)
+        cpu[dtype] = itm_outputs(ref, images, ids)
+    card = itm_outputs(model, images.cuda(), ids.cuda())
+
+    def rel(got, want):
+        return (got - want).abs().max().item() / want.abs().max().item()
+
+    errs = {k: rel(card[i], cpu["float32"][i]) for i, k in enumerate(("logits", "features"))}
+    ok = bool(errs[hold] <= SLICE_TOL)
+    emit(phase, model=cfg.name, pairs=rows, logits_card=card[0].flatten().tolist(),
+         logits_cpu=cpu["float32"][0].flatten().tolist(),
+         max_abs_diff=(card[0] - cpu["float32"][0]).abs().max().item(), rel_err=errs["logits"],
+         rel_err_features=errs["features"],
+         rel_err_cpu_bf16_plain=rel(cpu["bfloat16"][0], cpu["float32"][0]),
+         rel_err_features_cpu_bf16_plain=rel(cpu["bfloat16"][1], cpu["float32"][1]),
+         held=hold, tol=SLICE_TOL, ok=ok)
     if not ok:
-        raise AssertionError(f"ITM logits on the card differ from the CPU fp32 "
-                             f"model by {rel:.3e} > {SLICE_TOL}")
-    return rel
+        raise AssertionError(f"ITM {hold} on the card differ from the CPU fp32 "
+                             f"model by {errs[hold]:.3e} > {SLICE_TOL}")
+    return errs["logits"]
 
 
 def phase_throughput(model, bundles, groups: dict, prefix: str = "") -> None:
@@ -1049,12 +1107,15 @@ def phase_v2_kernels(stats: dict) -> None:
         torch.cuda.empty_cache()
 
 
-def check_v2_blocks(model, bundle) -> None:
+def check_v2_blocks(model, bundle, phase: str = "v2_slice_blocks_vs_plain") -> None:
     """Every block of one B = 101 pvlt_v2_tiny forward against the plain
     versions on the block's own input and parameters, within KERNEL_TOL:
     K/V element by element and the attention half (kernels A and C run
     again on the block's input and cached operands, as the forward ran
-    them), and the block's output."""
+    them), and the block's output. A linear-SR block (pvlt_v2_linear_tiny,
+    stages 1-3) has no kernel A: its K/V come from Block.linear_sr_kv on the
+    cast operands against the same glue on the fp32 parameters, with
+    LINEAR_M rows."""
     seen = []
     hooks = [blk.register_forward_hook(lambda m, args, out: seen.append((m, args[0], args[1], out)))
              for blk in model.modules() if isinstance(blk, Block)]
@@ -1065,24 +1126,33 @@ def check_v2_blocks(model, bundle) -> None:
     finally:
         for h in hooks:
             h.remove()
-    errs = {"kv": [], "attn": [], "out": []}
+    errs = {"kv": [], "attn": [], "out": [], "kv_rows": []}
     for blk, x, hw, out in seen:
         (kv_p, attn_p, mlp_p), (kv_kw, attn_kw, mlp_kw) = blk.kernel_params(), blk.kernel_kwargs()
         kv_ops, attn_ops, _ = blk.kernel_operands(x.dtype)
+        linear_sr = blk.attn.linear_sr
         with torch.no_grad():
-            k_ref, v_ref = sr_kv_reference(x, hw, *kv_p, **kv_kw)
+            if linear_sr:
+                k_ref, v_ref = blk.linear_sr_kv(x, hw, *kv_p)
+                k, v = blk.linear_sr_kv(x, hw, *kv_ops)
+            else:
+                k_ref, v_ref = sr_kv_reference(x, hw, *kv_p, **kv_kw)
+                k, v = fused_ln_sr_kv(x, hw, *kv_ops, **kv_kw)
             attn_ref = block_attention_reference(x, k_ref, v_ref, *attn_p, **attn_kw)
             want = dwconv_mlp_reference(attn_ref, hw, *mlp_p, **mlp_kw)
-            k, v = fused_ln_sr_kv(x, hw, *kv_ops, **kv_kw)
             attn = fused_block_attention(x, k, v, *attn_ops, **attn_kw)
+        if linear_sr and k.shape[2] != LINEAR_M[hw[0]]:
+            raise AssertionError(f"linear SR at a {hw} grid gave {k.shape[2]} K/V rows, "
+                                 f"expected {LINEAR_M[hw[0]]}")
+        errs["kv_rows"].append(k.shape[2])
         errs["kv"].append(max(_rel_err(k, k_ref)[1], _rel_err(v, v_ref)[1]))
         errs["attn"].append(_rel_err(attn, attn_ref)[1])
         errs["out"].append(_rel_err(out, want)[1])
     worst = max(errs["kv"] + errs["attn"] + errs["out"])
     ok = len(errs["out"]) == sum(model.cfg.depths) and worst <= KERNEL_TOL
-    emit("v2_slice_blocks_vs_plain", batch=BATCH, blocks=len(errs["out"]),
-         rel_err_kv=errs["kv"], rel_err_attn=errs["attn"], rel_err_out=errs["out"],
-         tol=KERNEL_TOL, ok=ok)
+    emit(phase, model=model.cfg.name, batch=BATCH, blocks=len(errs["out"]),
+         kv_rows=errs["kv_rows"], rel_err_kv=errs["kv"], rel_err_attn=errs["attn"],
+         rel_err_out=errs["out"], tol=KERNEL_TOL, ok=ok)
     if not ok:
         raise AssertionError(f"a block of the v2 path disagrees with its plain "
                              f"version: rel errs {errs} (tol {KERNEL_TOL})")
@@ -1872,7 +1942,7 @@ def phase_train_slice(stats: dict, cfg: ModelConfig | None = None, phase: str = 
     of ``route``'s wrapper ``name`` (default: under its own name). Returns
     the state, the config, the weights and the device batch."""
     cfg = cfg or train_config()
-    record = record or {name: name for name in route}
+    record = {name: name for name in route} if record is None else record
     model = create_model(cfg)
     sd = seeded_state_dict(model, SEED)
     model.load_state_dict(sd, strict=True)
@@ -1905,7 +1975,7 @@ def phase_train_slice(stats: dict, cfg: ModelConfig | None = None, phase: str = 
                 **{name: TRAIN_STEPS for name in MLM_WRAPPERS}}
     emit(phase, model=cfg.name, compute_dtype=cfg.compute_dtype, batch=TRAIN_BATCH,
          fused_attn_train=cfg.fused_attn_train, fused_attn_stats=cfg.fused_attn_stats,
-         steps=TRAIN_STEPS, seconds_host_inclusive=seconds, losses=losses,
+         drop_rate=cfg.drop_rate, attn_drop_rate=cfg.attn_drop_rate, steps=TRAIN_STEPS, seconds_host_inclusive=seconds, losses=losses,
          launches=launches, launches_expected=expected, finite=finite,
          loss_falling=falling, bn_stats_changed=bn_moved)
     if not finite:
@@ -1942,7 +2012,9 @@ def check_train_blocks(state, cfg, batch, phase: str = "train_blocks_vs_plain") 
     gradients of its input and parameters for the upstream gradient the
     step gave it, against the plain versions on the block's own input and
     DropPath draws, within KERNEL_TOL; on the fused_attn_train route also
-    the gradients of the block's K and V (the fused call's dK, dV)."""
+    the gradients of the block's K and V (the fused call's dK, dV). A v2
+    block's kernels are #10/#11 (its DWConv MLP is PyTorch on both sides),
+    a Swin block's #12/#13 (its window attention is PyTorch on both)."""
     model = state.model
     saved = {k: v.clone() for k, v in model.state_dict().items()}
     seen = {}
@@ -1954,7 +2026,7 @@ def check_train_blocks(state, cfg, batch, phase: str = "train_blocks_vs_plain") 
         seen[blk]["out"] = out.detach()
         out.register_hook(lambda g: seen[blk].__setitem__("dy", g))
 
-    blocks = [blk for blk in model.modules() if isinstance(blk, Block)]
+    blocks = [blk for blk in model.modules() if isinstance(blk, (Block, SwinBlock))]
     hooks = [h for blk in blocks for h in (blk.register_forward_pre_hook(pre),
                                            blk.register_forward_hook(post))]
     try:
@@ -1985,8 +2057,11 @@ def check_train_blocks(state, cfg, batch, phase: str = "train_blocks_vs_plain") 
             gen.set_state(e["rng"])
             x = e["x"].clone().requires_grad_()
             kv = {}
-            out = blk.train_forward(x, e["hw"], gen, attention=attention, ln_mlp=ln_mlp,
-                                    block_attention=kv_recorder(fba, kv))
+            if isinstance(blk, SwinBlock):
+                out = blk.train_forward(x, e["hw"], gen, ln_mlp=ln_mlp)
+            else:
+                out = blk.train_forward(x, e["hw"], gen, attention=attention, ln_mlp=ln_mlp,
+                                        block_attention=kv_recorder(fba, kv))
             grads = torch.autograd.grad(out, [x] + params, e["dy"])
             results.append((out.detach(), grads, kv))
         (out_k, grads_k, kv_k), (out_p, grads_p, kv_p) = results
@@ -2663,6 +2738,307 @@ def phase_cli_eval() -> None:
                              f"launches {launches}, viz {viz}, {train_line}")
 
 
+# ---- v2, linear-SR and Swin training, dropout, --remat, deeper models -------
+
+# the block kernels of a training step, once per block and step: v2 and
+# linear SR #10/#11 (the DWConv MLP in PyTorch), Swin #12/#13 (the window
+# attention in PyTorch); the MLM CE kernels once per step as everywhere
+V2_TRAIN_ROUTE = {"attention_fwd": attention_fwd, "attention_bwd": attention_bwd}
+SWIN_TRAIN_ROUTE = {"ln_mlp_fwd": ln_mlp_fwd, "ln_mlp_bwd": ln_mlp_bwd}
+# linear SR's K/V rows at the 256x256 stages that reduce (grid side -> M):
+# floored pool windows of 9, 4 and 2 give 7x7, 8x8 and 8x8 cells, + 128 text
+LINEAR_M = {64: 177, 32: 192, 16: 192}
+# the window attention's training route against kernel F and its plain
+# version: the pvlt_swin_tiny stages at 256 and 224 (a padded 28x28 grid),
+# and F's ragged grid in windows of 4: (h, w, dim, heads, window)
+SWIN_TRAIN_ATTN_SHAPES = [(64, 64, 64, 1, 8), (32, 32, 128, 2, 8), (16, 16, 320, 5, 8),
+                          (8, 8, 512, 8, 8), (28, 28, 128, 2, 8), (10, 6, 96, 3, 4)]
+# remat against no remat, one step from one generator seed: each loss, and
+# each gradient relative to its tensor's largest magnitude (or twice what a
+# repeat of the step without remat moves that tensor by, where that is more)
+REMAT_TOL = 1e-3
+# the wrappers a remat step launches twice (forward, then the recompute)
+REMAT_RECOMPUTED = ("attention_fwd", "ln_mlp_fwd", "fba_train_fwd")
+DEEPER = ("pvlt_small", "pvlt_medium", "pvlt_large", "pvlt_v2_small", "pvlt_swin_small")
+
+
+def timed(name: str, fn, *args):
+    """fn(*args), and a line with the seconds it took."""
+    start = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    emit("phase_seconds", name=name, seconds=time.perf_counter() - start)
+    return out
+
+
+def swin_train_attention(gen, d: int, heads: int, ws: int, shift: bool):
+    """A SwinJointAttention on the card in fp32 master parameters, Q and K/V
+    of gain 1.5 / sqrt(D), the projection 1 / sqrt(D), biases 0.03, the
+    relative-position table at std 0.5 (swin_block_params' scales)."""
+    attn = SwinJointAttention(d, heads, ws, shift, True, ws)
+    with torch.no_grad():
+        for lin, gain in ((attn.q, 1.5), (attn.kv, 1.5), (attn.proj, 1.0)):
+            lin.weight.copy_(gain * d ** -0.5 * torch.randn(lin.weight.shape, generator=gen))
+            lin.bias.copy_(0.03 * torch.randn(lin.bias.shape, generator=gen))
+        attn.relative_position_bias_table.normal_(0.0, 0.5, generator=gen)
+    return attn.cuda()
+
+
+def linear_kv_input_plain(normed, grid: int, w, b, g, be):
+    """linear_reduce_kv_input written out in fp32 for a square grid: each
+    pooled cell the mean of its floored window, the 1x1 conv as a product,
+    LN, exact GELU, the text rows appended."""
+    bsz, _, d = normed.shape
+    win = grid // min(7, grid)
+    cells = grid // win
+    vis = normed[:, : grid * grid].float().reshape(bsz, grid, grid, d)[:, : cells * win,
+                                                                       : cells * win]
+    mean = vis.reshape(bsz, cells, win, cells, win, d).mean((2, 4)).reshape(bsz, -1, d)
+    red = mean @ w.reshape(d, d).float().t() + b.float()
+    red = F.gelu(F.layer_norm(red, (d,), g.float(), be.float(), 1e-5))
+    return torch.cat([red, normed[:, grid * grid:].float()], dim=1)
+
+
+def phase_train_glue(stats: dict) -> None:
+    """The PyTorch glue new on the training paths, at the stage shapes, B =
+    4, bf16: Swin's window attention on its training route (einsum,
+    differentiable) against the same module's serving route on kernel F and
+    on F's plain version, unshifted and shifted (every output within
+    KERNEL_TOL); linear SR's K/V input against linear_kv_input_plain, with
+    LINEAR_M rows at 64/32/16."""
+    gen = torch.Generator().manual_seed(SEED + 23)
+    errs = []
+    for h, w, d, nh, window in SWIN_TRAIN_ATTN_SHAPES:
+        for shift in (False, True):
+            ws = min(window, h, w)
+            attn = swin_train_attention(gen, d, nh, ws, shift)
+            x = torch.randn(SMOKE_BATCH, h * w + TEXT, d, generator=gen).cuda().to(torch.bfloat16)
+            train = attn.train()(x, (h, w), TEXT)
+            with torch.no_grad():
+                kernel = attn.eval()(x, (h, w), TEXT)
+                plain = attn(x, (h, w), TEXT, attention=swin_attention_reference)
+            err = max(_rel_err(train, plain)[1], _rel_err(kernel, plain)[1])
+            errs.append([f"{h}x{w}/{ws}", shift, _rel_err(train, plain)[1],
+                         _rel_err(kernel, plain)[1]])
+            stats["swin_attention"]["max_abs_err"] = max(stats["swin_attention"]["max_abs_err"],
+                                                         _rel_err(kernel, plain)[0])
+            if err > KERNEL_TOL:
+                raise AssertionError(f"Swin window attention at {h}x{w}, window {ws}, shift "
+                                     f"{shift}: training route vs plain, kernel F vs plain "
+                                     f"{errs[-1][2:]} (tol {KERNEL_TOL})")
+    lin = []
+    for grid, d in ((64, 64), (32, 128), (16, 320)):
+        normed = torch.randn(SMOKE_BATCH, grid * grid + TEXT, d, generator=gen)
+        w = torch.randn(d, d, 1, 1, generator=gen) * d ** -0.5
+        b, be = (0.03 * torch.randn(d, generator=gen) for _ in range(2))
+        g = 1 + 0.03 * torch.randn(d, generator=gen)
+        normed, w, b, g, be = (t.cuda() for t in (normed.to(torch.bfloat16), w, b, g, be))
+        got = linear_reduce_kv_input(normed, (grid, grid), w, b, g, be, 1e-5)
+        want = linear_kv_input_plain(normed, grid, w, b, g, be)
+        if got.shape[1] != LINEAR_M[grid] or want.shape[1] != LINEAR_M[grid]:
+            raise AssertionError(f"linear SR at {grid}x{grid}: {got.shape[1]} K/V rows, plain "
+                                 f"{want.shape[1]}, expected {LINEAR_M[grid]}")
+        lin.append([grid, got.shape[1], _rel_err(got, want)[1]])
+        if lin[-1][2] > KERNEL_TOL:
+            raise AssertionError(f"linear SR's K/V input at {grid}x{grid} is {lin[-1][2]} off "
+                                 f"its plain version (tol {KERNEL_TOL})")
+    emit("train_glue", batch=SMOKE_BATCH,
+         swin_window_attention=[["grid/window", "shift", "train_vs_plain", "kernel_vs_plain"]]
+         + errs, linear_kv_input=[["grid", "rows", "rel_err"]] + lin, tol=KERNEL_TOL, ok=True)
+
+
+def phase_v2_route(stats: dict) -> None:
+    """A v2 step with fused_attn_train and fused_attn_stats set: the fused
+    attention half is v1's route (mvlt_tpu/models/pvlt.py:861-866), so
+    #10/#11 launch once per block and the fused wrappers never."""
+    cfg = dataclasses.replace(train_config(), name="pvlt_v2_tiny", fused_attn_train=True,
+                              fused_attn_stats=True)
+    model = create_model(cfg)
+    model.load_state_dict(seeded_state_dict(model, SEED), strict=True)
+    state = create_train_state(model, OptimConfig(warmup_epochs=0), CPU_BATCH, 1, seed=SEED)
+    batch = batch_to_device(train_batch(SEED, CPU_BATCH), "cuda")
+    reset_launches()
+    _, losses = make_train_step(cfg)(state, batch)
+    launches = read_launches()
+    blocks = sum(model.cfg.depths)
+    want = {"attention_fwd": blocks, "attention_bwd": blocks, "fba_train_fwd": 0,
+            "fba_train_bwd": 0, "mlm_ce_fwd": 1, "mlm_ce_bwd": 1}
+    ok = all(launches[k] == n for k, n in want.items()) and all(
+        np.isfinite(float(v)) for v in losses.values())
+    emit("v2_route", model=cfg.name, batch=CPU_BATCH, fused_attn_train=True, launches=launches,
+         launches_expected=want, ok=ok)
+    if not ok:
+        raise AssertionError(f"a v2 step with fused_attn_train launched {launches}, "
+                             f"expected {want}")
+
+
+def phase_family_train(stats: dict, name: str, route: dict, prefix: str) -> None:
+    """``name`` pre-trains as pvlt_tiny does in phase 9 (configs/pretrain_exp21.py's
+    objective, B = 150, bf16, TRAIN_STEPS steps; ``route``'s kernels once
+    per block and step, the MLM CE kernels once per step, nothing else;
+    falling loss, BatchNorm statistics moved), every block of a step vs
+    plain, ms/step with a profile, and a 4-sample step vs the CPU fp32 step.
+    The kernels line keeps phase 9's launches."""
+    cfg = dataclasses.replace(train_config(), name=name)
+    state, cfg, sd, batch = phase_train_slice(stats, cfg, prefix + "train_slice", route, {})
+    check_train_blocks(state, cfg, batch, prefix + "train_blocks_vs_plain")
+    phase_train_throughput(state, cfg, prefix)
+    del state, batch
+    torch.cuda.empty_cache()
+    compare_train_cpu(cfg, sd, {prefix + "train_vs_cpu_fp32": (False, False)})
+
+
+def phase_linear(stats: dict) -> None:
+    """pvlt_v2_linear_tiny: serving (kernels C and D once per block, kernel A
+    only at stage 4, where sr = 1; the linear SR front end in PyTorch with
+    LINEAR_M K/V rows), its blocks vs plain, ITM logits vs the CPU fp32
+    model, pairs/s and a profile; then its training as phase_family_train."""
+    per_forward = {"sr_kv": 2, "block_attention": 8, "dwconv_mlp": 8}
+    model, bundles, sd = phase_slice(stats, "pvlt_v2_linear_tiny", V2_SERVING_WRAPPERS,
+                                     "linear_slice", per_forward=per_forward, record=False)
+    check_v2_blocks(model, bundles[0], "linear_slice_blocks_vs_plain")
+    compare_cpu_fp32(model, bundles[0], sd, "linear_slice_vs_cpu_fp32")
+    phase_throughput(model, bundles, V2_GROUPS, "linear_")
+    del model
+    torch.cuda.empty_cache()
+    phase_family_train(stats, "pvlt_v2_linear_tiny", V2_TRAIN_ROUTE, "linear_")
+
+
+def phase_dropout(stats: dict) -> None:
+    """A v1 pre-training step with drop_rate = attn_drop_rate = 0.1: no
+    block kernel (the JAX routing: no LN-MLP kernel with drop_rate, no
+    attention kernel with attn_drop_rate in training mode, no fused half),
+    the MLM CE kernels once per step; finite, falling losses; ms/step."""
+    cfg = dataclasses.replace(train_config(), drop_rate=0.1, attn_drop_rate=0.1)
+    state, cfg, _, _ = phase_train_slice(stats, cfg, "dropout_train_slice", {}, {})
+    phase_train_throughput(state, cfg, "dropout_")
+    del state
+    torch.cuda.empty_cache()
+
+
+def remat_pair(cfg: ModelConfig, batch: dict, phase: str, expected: dict) -> None:
+    """One step of ``cfg`` without remat, again without it, and with it,
+    each from the same weights and generator seed on ``batch``: every loss
+    within REMAT_TOL, every gradient within REMAT_TOL of its tensor's
+    largest magnitude or twice the two runs without remat's own gap on that
+    tensor (the step is not bit-reproducible on the card: atomics in the
+    backward of cuDNN's convs, of the embedding gathers and of the
+    pos-embeds' bilinear resize), the generators in the same state after,
+    the forward wrappers of REMAT_RECOMPUTED launched twice as often with
+    remat, and the peak memory lower with it; then ms/step of each."""
+    sd = None
+    runs = {}
+    for label, remat in (("plain", False), ("again", False), ("remat", True)):
+        run_cfg = dataclasses.replace(cfg, remat=remat)
+        model = create_model(run_cfg)
+        sd = sd or seeded_state_dict(model, SEED)
+        model.load_state_dict(sd, strict=True)
+        state = create_train_state(model, OptimConfig(warmup_epochs=0), TRAIN_BATCH, 1,
+                                   seed=SEED)
+        step = make_train_step(run_cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        _, losses = step(state, batch)
+        torch.cuda.synchronize()
+        runs[label] = {
+            "losses": {k: float(v) for k, v in losses.items()},
+            "grads": {n: p.grad.detach().clone() for n, p in model.named_parameters()
+                      if p.grad is not None},
+            "rng": state.generator.get_state().cpu(), "launches": read_launches(),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "ms_per_step": (cuda_time_ms(lambda: step(state, batch), warmup=1, reps=3)
+                            if label != "again" else None)}
+        del model, state, step
+        torch.cuda.empty_cache()
+    plain, again, remat = runs["plain"], runs["again"], runs["remat"]
+    loss_err = max(abs(remat["losses"][k] - v) / max(abs(v), 1e-12)
+                   for k, v in plain["losses"].items() if v)
+
+    def gaps(run):
+        return {n: (run["grads"][n] - g).abs().max().item() / max(g.abs().max().item(), 1e-30)
+                for n, g in plain["grads"].items()}
+
+    grad_err, floor = gaps(remat), gaps(again)
+    bad = {n: (e, floor[n]) for n, e in grad_err.items() if e > max(REMAT_TOL, 2 * floor[n])}
+    worst = max(grad_err, key=grad_err.get)
+    above = sorted((n for n, e in grad_err.items() if e > REMAT_TOL), key=grad_err.get)[-5:]
+    want = {k: n * (2 if k in REMAT_RECOMPUTED else 1) for k, n in expected.items()}
+    launches_ok = all(plain["launches"][k] == expected.get(k, 0)
+                      and remat["launches"][k] == want.get(k, 0) for k in WRAPPERS)
+    rng_equal = torch.equal(plain["rng"], remat["rng"])
+    ok = (loss_err <= REMAT_TOL and not bad and rng_equal and launches_ok
+          and sorted(plain["grads"]) == sorted(remat["grads"])
+          and remat["peak_gib"] < plain["peak_gib"])
+    emit(phase, model=cfg.name, batch=TRAIN_BATCH, drop_path_rate=cfg.drop_path_rate,
+         bert_dropout=cfg.bert_dropout, drop_rate=cfg.drop_rate,
+         fused_attn_train=cfg.fused_attn_train, fused_attn_stats=cfg.fused_attn_stats,
+         losses=plain["losses"], rel_err_losses=loss_err, rel_err_grads=grad_err[worst],
+         worst_tensor=worst, worst_tensor_floor=floor[worst],
+         above_tol={n: [grad_err[n], floor[n]] for n in above},
+         rel_err_grads_repeat=max(floor.values()), failing=bad, generator_equal=rng_equal,
+         launches=plain["launches"], launches_remat=remat["launches"],
+         launches_expected=expected, launches_remat_expected=want,
+         peak_gib=plain["peak_gib"], peak_gib_remat=remat["peak_gib"],
+         ms_per_step=plain["ms_per_step"], ms_per_step_remat=remat["ms_per_step"],
+         method="first step's peak by torch.cuda.max_memory_allocated; ms by CUDA events, "
+                "1 warm-up, median of 3 further steps", tol=REMAT_TOL, ok=ok)
+    if not ok:
+        raise AssertionError(f"{phase}: remat vs not: losses {loss_err}, gradients {bad} "
+                             f"(tensor: error, repeat's gap), generator equal {rng_equal}, "
+                             f"launches {launches_ok}, peaks {plain['peak_gib']} / "
+                             f"{remat['peak_gib']} GiB (tol {REMAT_TOL})")
+
+
+def phase_remat(stats: dict) -> None:
+    """remat_pair for pvlt_tiny at B = 150 on the default route with
+    DropPath, BERT dropout and drop_rate 0.1 (#10/#11 launched, the MLP
+    glue), and on fused_attn_stats with DropPath and BERT dropout (the
+    fused half takes no drop_rate)."""
+    batch = batch_to_device(train_batch(SEED, TRAIN_BATCH), "cuda")
+    base = train_config()
+    blocks = sum(base.depths)
+    mlm = {"mlm_ce_fwd": 1, "mlm_ce_bwd": 1}
+    remat_pair(dataclasses.replace(base, drop_rate=0.1), batch, "remat_default",
+               {"attention_fwd": blocks, "attention_bwd": blocks, **mlm})
+    remat_pair(dataclasses.replace(base, fused_attn_train=True, fused_attn_stats=True), batch,
+               "remat_fused_attn_stats",
+               {"fba_train_fwd": blocks, "fba_train_bwd": blocks, "ln_mlp_fwd": blocks,
+                "ln_mlp_bwd": blocks, **mlm})
+
+
+def phase_remat_large(stats: dict) -> None:
+    """remat_pair for pvlt_large (depths 3/8/27/3) at B = 150 with
+    configs/pretrain_exp21.py's regularisers, the case remat exists for
+    (mvlt_tpu/models/pvlt.py:1196-1199)."""
+    batch = batch_to_device(train_batch(SEED, TRAIN_BATCH), "cuda")
+    cfg = dataclasses.replace(train_config(), name="pvlt_large")
+    blocks = sum((3, 8, 27, 3))
+    remat_pair(cfg, batch, "remat_pvlt_large",
+               {"attention_fwd": blocks, "attention_bwd": blocks, "ln_mlp_fwd": blocks,
+                "ln_mlp_bwd": blocks, "mlm_ce_fwd": 1, "mlm_ce_bwd": 1})
+
+
+def phase_registry(stats: dict) -> None:
+    """Each deeper model of the registry serves one B = 101 bundle through
+    evaluate_retrieval (v1: A and B, v2: A, C and D, once per block; Swin at
+    256: E on every block), with the ITM head's input of 4 rows within
+    SLICE_TOL of the same weights in fp32 on the CPU and the ITM logits
+    beside it: pvlt_small's seeded logits are ~0.05, and the CPU's own bf16
+    plain path puts them 13% off fp32 (relative to the largest), so no bf16
+    model could hold them to SLICE_TOL."""
+    paths = {"v1": SERVING_WRAPPERS, "v2": V2_SERVING_WRAPPERS, "swin": {"swin_block":
+                                                                         fused_swin_block}}
+    for name in DEEPER:
+        variant = resolve_model_config(ModelConfig(name=name)).variant
+        model, bundles, sd = phase_slice(stats, name, paths[variant], f"registry_{name}",
+                                         n_bundles=1, record=False)
+        compare_cpu_fp32(model, bundles[0], sd, f"registry_{name}_vs_cpu_fp32", rows=4,
+                         hold="features")
+        del model
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU only",
@@ -2699,6 +3075,15 @@ def main() -> int:
     phase_fba_train(stats)
     compare_train_cpu(cfg, sd, {"train_vs_cpu_fp32": (False, False),
                                 **{p + "_train_vs_cpu_fp32": f for p, f in FBA_FORMS.items()}})
+    timed("train_glue", phase_train_glue, stats)
+    timed("v2_route", phase_v2_route, stats)
+    timed("v2_train", phase_family_train, stats, "pvlt_v2_tiny", V2_TRAIN_ROUTE, "v2_")
+    timed("swin_train", phase_family_train, stats, "pvlt_swin_tiny", SWIN_TRAIN_ROUTE, "swin_")
+    timed("linear", phase_linear, stats)
+    timed("dropout", phase_dropout, stats)
+    timed("remat", phase_remat, stats)
+    timed("remat_large", phase_remat_large, stats)
+    timed("registry", phase_registry, stats)
     phase_cli(stats)
     phase_cli_eval()
     print(json.dumps({"kernels": [

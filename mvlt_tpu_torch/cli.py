@@ -16,9 +16,10 @@ on the CPU), each on the weights of ``--resume`` (a reference ``.pth``, a
 checkpoint of the port, or none: a fresh init). It runs on the card unless
 ``--device cpu`` is given, and raises when there is no card.
 
-Not ported, and refused with NotImplementedError: ``--zero1``,
-``--tp-size`` other than 1, ``--steps-per-dispatch`` above 1 and
-``--remat``.
+``--remat`` recomputes each block's activations in the backward
+(torch.utils.checkpoint, models/pvlt.py:checkpoint_block). Not ported, and
+refused with NotImplementedError: ``--zero1``, ``--tp-size`` other than 1
+and ``--steps-per-dispatch`` above 1.
 
 Usage:
   python -m mvlt_tpu_torch.cli --config configs/pretrain_exp21.py --data-path <root>
@@ -68,7 +69,8 @@ def get_args_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-repeated-aug", action="store_true",
                    help="plain distributed shuffle instead of the x3 "
                         "repeated-augmentation sampler (main_vl.py:221-242)")
-    p.add_argument("--remat", action="store_true", help="not ported")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute each block's activations in the backward")
     p.add_argument("--synthetic-data", action="store_true")
     p.add_argument("--fp32", action="store_true",
                    help="float32 compute (the reference's --fp32/no-AMP switch)")
@@ -152,7 +154,6 @@ def _refuse_unported(args, cfg: RunConfig) -> None:
         "--zero1": args.zero1,
         "--tp-size other than 1": cfg.tp_size != 1,
         "--steps-per-dispatch above 1": args.steps_per_dispatch > 1,
-        "--remat": cfg.model.remat,
     }
     refused = [name for name, on in unported.items() if on]
     if refused:

@@ -7,11 +7,12 @@ mvlt_tpu/config.py): the same fields, defaults and merge rules (every key
 of a config file wins over the default), so a configuration means the same
 thing on both sides; tests/test_torch_port_convert.py pins them equal. The
 port reads ``fused_attn_train`` (a v1 block in training mode runs its
-attention half as one fused call, ops/block_attention.py) and
-``fused_attn_stats`` (that call's saved-statistics backward). Other fields
+attention half as one fused call, ops/block_attention.py),
+``fused_attn_stats`` (that call's saved-statistics backward) and ``remat``
+(each block under torch.utils.checkpoint). Other fields
 that steer the JAX package's TPU kernels (``block_attn_kernel``,
 ``pack_stage1``, ``head_pair_attn``, ``pack_mlp_train``,
-``fused_mlp_train``, ``kernel_gelu``, ``dwconv_mlp_kernel``, ``remat``) are
+``fused_mlp_train``, ``kernel_gelu``, ``dwconv_mlp_kernel``) are
 kept for that equality and are not read by the port, which has exact-erf
 GELU everywhere.
 """

@@ -12,8 +12,10 @@ exported from the JAX package or a published ``.pth`` loads with
 slot, dropped at use; NHWC images in (NCHW accepted). The v2 backbone
 (PVT-v2) embeds patches with overlapping convs (k7 s4, then k3 s2) and runs
 the DWConv MLP (fc1 -> 3x3 depthwise conv on the visual rows -> GELU -> fc2);
-its conv-SR attention is v1's. The Swin backbone embeds patches as v1 and
-attends in (shifted on every odd block) windows plus all text tokens
+its conv-SR attention is v1's, and with ``linear_sr`` (pvlt_v2_linear_tiny)
+the stages that reduce pool the visual rows (floored windows to at most
+7x7), then a 1x1 conv, SR-LN and GELU. The Swin backbone embeds patches as
+v1 and attends in (shifted on every odd block) windows plus all text tokens
 (models/swin.py); a Swin model is built for the input size it runs at, since
 its relative-position tables take their shape from the stages' grids.
 
@@ -23,20 +25,28 @@ A block has two paths, each the plain PyTorch versions on a CPU tensor and
 Hopper kernels and nothing else in their place on a CUDA tensor:
   * serving, in eval mode when no gradient is wanted: ops/sr_kv.py then
     ops/block_fused.py (v1), or ops/sr_kv.py, ops/block_attention.py and
-    ops/dwconv_mlp.py (v2), on bf16 operands cast once and detached;
+    ops/dwconv_mlp.py (v2; with linear SR the K/V front end and projection
+    in PyTorch in place of ops/sr_kv.py), on bf16 operands cast once and
+    detached;
   * Swin serving, in eval mode when no gradient is wanted: on a stage
     ``swin_band_stage`` admits, ops/swin_band.py (kernel E) for the visual
     rows' whole block, their text rows in PyTorch; elsewhere SwinJointAttention
     with ops/swin_attention.py (kernel F) and the LN-MLP of ops/fused_mlp.py;
-  * training (v1 only), whenever a gradient is wanted or in training mode: the
-    projections, SR conv and SR-LN in PyTorch, the attention core of
-    ops/pallas_attention.py and the LN-MLP of ops/fused_mlp.py, both
-    differentiable, with DropPath (training mode only) as per-sample scales;
-    with ``fused_attn_train`` in training mode the K/V projection stays in
-    PyTorch and the rest of the attention half (LN1, Q, attention, the
-    out-projection and the DropPath add) is one call of
-    ops/block_attention.py:fused_block_attention_train (``fused_attn_stats``:
-    its saved-statistics backward).
+  * training, whenever a gradient is wanted or in training mode, with the
+    routes of the JAX package's Block (mvlt_tpu/models/pvlt.py:858-991):
+    the projections and the K/V front end in PyTorch, the attention core of
+    ops/pallas_attention.py (v1, v2), and the LN-MLP of ops/fused_mlp.py
+    (v1, Swin), both differentiable, with DropPath (training mode only) as
+    per-sample scales. v2's DWConv MLP is PyTorch glue, as is Swin's window
+    attention (swin.py:window_attention); with ``drop_rate`` the MLP of v1
+    and Swin is glue too, and with ``attn_drop_rate`` the attention core
+    (``attention_dropout``), since no kernel takes a dropout mask. With
+    ``fused_attn_train`` in training mode a v1 block without dropout keeps
+    its K/V projection in PyTorch and runs the rest of the attention half
+    (LN1, Q, attention, the out-projection and the DropPath add) as one call
+    of ops/block_attention.py:fused_block_attention_train
+    (``fused_attn_stats``: its saved-statistics backward). With ``remat``
+    each block runs under torch.utils.checkpoint (``checkpoint_block``).
 The training forward returns the MLM head's transformed hidden rows, the
 tied table and the bias (``mlm_hidden``, ``mlm_table``, ``mlm_bias``) in
 place of the [B, T, vocab] logits, for the chunked loss; eval returns all
@@ -52,9 +62,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.optim.optimizer import register_optimizer_step_post_hook
+from torch.utils.checkpoint import checkpoint
 
 from mvlt_tpu_torch.config import DataConfig, ModelConfig
-from mvlt_tpu_torch.models.bert_embeddings import BertEmbeddings
+from mvlt_tpu_torch.models.bert_embeddings import BertEmbeddings, dropout
 from mvlt_tpu_torch.models.heads import CLSHead, ITGHead, ITMHead, MLMHead
 from mvlt_tpu_torch.models.registry import resolve_model_config, validate_model_config
 from mvlt_tpu_torch.models.swin import (TEXT_POOL, SwinJointAttention, heads_of, merge_heads,
@@ -64,9 +75,10 @@ from mvlt_tpu_torch.ops.block_attention import (fused_block_attention,
 from mvlt_tpu_torch.ops.block_fused import fused_block
 from mvlt_tpu_torch.ops.dwconv_mlp import fused_dwconv_mlp
 from mvlt_tpu_torch.ops.fused_mlp import fused_ln_mlp
-from mvlt_tpu_torch.ops.kernel_math import gelu, layer_norm_fp32, linear, softmax_av
+from mvlt_tpu_torch.ops.kernel_math import acc_dtype, gelu, layer_norm_fp32, linear, softmax_av
 from mvlt_tpu_torch.ops.pallas_attention import fused_attention
-from mvlt_tpu_torch.ops.sr_kv import fused_ln_sr_kv, reduce_kv_input, split_kv
+from mvlt_tpu_torch.ops.sr_kv import (fused_ln_sr_kv, linear_reduce_kv_input, reduce_kv_input,
+                                      split_kv)
 from mvlt_tpu_torch.ops.swin_attention import fused_swin_attention
 from mvlt_tpu_torch.ops.swin_band import fused_swin_block
 
@@ -121,18 +133,22 @@ class OverlapPatchEmbed(nn.Module):
 class JointSRAttention(nn.Module):
     """Parameters of the joint image+text attention with spatial reduction on
     the visual K/V: queries from all N rows, K/V from
-    [SR-LN(SRconv(visual)) ; text]. ``Block`` computes it on one of its
-    two paths."""
+    [SR-LN(SRconv(visual)) ; text]. With ``linear_sr`` (PVT-v2's linear SR)
+    ``sr`` is a 1x1 conv after a floored average pool and SR-LN is followed
+    by GELU (ops/sr_kv.py:linear_reduce_kv_input). ``Block`` computes it on
+    one of its two paths."""
 
     def __init__(self, dim: int, num_heads: int, sr_ratio: int = 1,
-                 qkv_bias: bool = False, ln_eps: float = 1e-5):
+                 qkv_bias: bool = False, ln_eps: float = 1e-5, linear_sr: bool = False):
         super().__init__()
         self.sr_ratio = sr_ratio
+        self.linear_sr = linear_sr
         self.q = nn.Linear(dim, dim, bias=qkv_bias)
         self.kv = nn.Linear(dim, 2 * dim, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
-        if sr_ratio > 1:
-            self.sr = nn.Conv2d(dim, dim, sr_ratio, stride=sr_ratio)
+        if linear_sr or sr_ratio > 1:
+            self.sr = nn.Conv2d(dim, dim, 1 if linear_sr else sr_ratio,
+                                stride=1 if linear_sr else sr_ratio)
             self.norm = nn.LayerNorm(dim, eps=ln_eps)
 
 
@@ -229,24 +245,86 @@ class CastOperands:
             any(x.requires_grad for x in xs) or any(p.requires_grad for p in self.parameters()))
 
 
-class Block(CastOperands, nn.Module):
+def _add_scaled(x: torch.Tensor, out: torch.Tensor, scale: Optional[torch.Tensor]) -> torch.Tensor:
+    """x + s * out with the per-sample DropPath scale s [B] (None: 1)."""
+    return x + (out if scale is None else out * scale.to(x.dtype)[:, None, None])
+
+
+def attention_dropout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+                      rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """softmax(q k^T * scale) v with dropout on the probabilities, the masks
+    from ``generator``: fp32 logits and softmax, the dropped probabilities
+    rounded to v.dtype, an fp32 P.V sum, q.dtype out. Counterpart of
+    mvlt_tpu/models/pvlt.py:227-239, which materialises the probabilities in
+    XLA and never in a kernel; so does this."""
+    acc = acc_dtype(q.dtype)
+    probs = torch.softmax(torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2)) * scale, dim=-1)
+    probs = dropout(probs, rate, generator).to(v.dtype)
+    return torch.matmul(probs.to(acc), v.to(acc)).to(q.dtype)
+
+
+class BlockGlue(CastOperands):
+    """What the two block classes share on the training path: the DropPath
+    draw, dropout, and the LN-MLP half. ``drop_path`` and ``drop`` are the
+    block's rates; every mask comes from the step's ``generator`` and only
+    in training mode."""
+
+    drop_path = 0.0
+    drop = 0.0
+
+    def drop_path_scale(self, x: torch.Tensor,
+                        generator: Optional[torch.Generator]) -> Optional[torch.Tensor]:
+        """Per-sample stochastic-depth scale [B] fp32 (Bernoulli(keep) /
+        keep) in training mode, None where DropPath is off."""
+        if not self.training or self.drop_path == 0.0:
+            return None
+        keep = 1.0 - self.drop_path
+        mask = torch.rand(x.shape[0], generator=generator, device=x.device) < keep
+        return mask.float() / keep
+
+    def dropout(self, t: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+        """Dropout at the block's ``drop`` in training mode; else ``t``."""
+        return dropout(t, self.drop, generator) if self.training and self.drop else t
+
+    def mlp_half(self, x: torch.Tensor, generator: Optional[torch.Generator],
+                 ln_mlp=fused_ln_mlp) -> torch.Tensor:
+        """x + s2 mlp(LN2 x) of the plain MLP: ``ln_mlp`` (the LN-MLP kernels'
+        wrapper; a check passes its plain version) with DropPath as its row
+        scale; with ``drop`` > 0 PyTorch glue with dropout after GELU and
+        after fc2, since the JAX package's kernel takes no dropout
+        (mvlt_tpu/models/pvlt.py:925-930, :287-296)."""
+        m = self.mlp
+        if self.drop:
+            hidden = gelu(linear(_ln(x, self.norm2), m.fc1.weight, m.fc1.bias))
+            out = linear(self.dropout(hidden, generator), m.fc2.weight, m.fc2.bias)
+            return _add_scaled(x, self.dropout(out, generator), self.drop_path_scale(x, generator))
+        return ln_mlp(x, self.norm2.weight, self.norm2.bias, m.fc1.weight, m.fc1.bias,
+                      m.fc2.weight, m.fc2.bias, self.drop_path_scale(x, generator),
+                      self.norm2.eps)
+
+
+class Block(BlockGlue, nn.Module):
     """Pre-LN block: x + s1 attn(LN1 x), then + s2 mlp(LN2 .), where s1, s2
     are per-sample DropPath scales (mask / keep) in training mode and 1 in
     eval; ``mlp`` is the DWConv MLP for ``v2``. Serving path or training path
-    as the module docstring says."""
+    as the module docstring says; ``drop`` and ``attn_drop`` are the dropout
+    rates of the projections and MLP and of the attention probabilities."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float, sr_ratio: int,
                  qkv_bias: bool, ln_eps: float = 1e-6, sr_ln_eps: float = 1e-5,
                  drop_path: float = 0.0, v2: bool = False, fused_attn_train: bool = False,
-                 fused_attn_stats: bool = False):
+                 fused_attn_stats: bool = False, linear_sr: bool = False, drop: float = 0.0,
+                 attn_drop: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
         self.drop_path = drop_path
+        self.drop = drop
+        self.attn_drop = attn_drop
         self.v2 = v2
         self.fused_attn_train = fused_attn_train
         self.fused_attn_stats = fused_attn_stats
         self.norm1 = nn.LayerNorm(dim, eps=ln_eps)
-        self.attn = JointSRAttention(dim, num_heads, sr_ratio, qkv_bias, sr_ln_eps)
+        self.attn = JointSRAttention(dim, num_heads, sr_ratio, qkv_bias, sr_ln_eps, linear_sr)
         self.norm2 = nn.LayerNorm(dim, eps=ln_eps)
         self.mlp = (DWConvMlp if v2 else Mlp)(dim, int(dim * mlp_ratio))
 
@@ -254,7 +332,8 @@ class Block(CastOperands, nn.Module):
         """The parameters in the argument order of the serving wrappers: v1
         ``fused_ln_sr_kv`` and ``fused_block``; v2 ``fused_ln_sr_kv``,
         ``fused_block_attention`` and ``fused_dwconv_mlp``. The SR ones are
-        None at sr == 1."""
+        None at sr == 1; with linear SR the first group feeds the K/V front
+        end in PyTorch (``kv_input``) in place of kernel A."""
         a, m = self.attn, self.mlp
         sr = ((a.sr.weight, a.sr.bias, a.norm.weight, a.norm.bias)
               if a.sr_ratio > 1 else (None,) * 4)
@@ -277,22 +356,37 @@ class Block(CastOperands, nn.Module):
             return kv, dict(heads=self.num_heads, eps=self.norm1.eps), dict(eps=self.norm2.eps)
         return kv, dict(heads=self.num_heads, eps1=self.norm1.eps, eps2=self.norm2.eps)
 
-    def drop_path_scale(self, x: torch.Tensor,
-                        generator: Optional[torch.Generator]) -> Optional[torch.Tensor]:
-        """Per-sample stochastic-depth scale [B] fp32 (Bernoulli(keep) /
-        keep) in training mode, None where DropPath is off."""
-        if not self.training or self.drop_path == 0.0:
-            return None
-        keep = 1.0 - self.drop_path
-        mask = torch.rand(x.shape[0], generator=generator, device=x.device) < keep
-        return mask.float() / keep
+    def kv_input(self, normed: torch.Tensor, hw: tuple, sr_weight, sr_bias, srn_weight,
+                 srn_bias) -> torch.Tensor:
+        """The K/V input from the LN1'd stream: the linear SR front end, or
+        the conv SR one (the stream itself at sr == 1)."""
+        a = self.attn
+        if a.linear_sr:
+            return linear_reduce_kv_input(normed, hw, sr_weight, sr_bias, srn_weight, srn_bias,
+                                          a.norm.eps)
+        return reduce_kv_input(normed, hw, a.sr_ratio, sr_weight, sr_bias, srn_weight, srn_bias,
+                               a.norm.eps if a.sr_ratio > 1 else 1e-5)
+
+    def linear_sr_kv(self, x: torch.Tensor, hw: tuple, ln1_weight, ln1_bias, sr_weight,
+                     sr_bias, srn_weight, srn_bias, kv_weight, kv_bias):
+        """K, V [B, heads, M, hd], contiguous, of a linear-SR block on the
+        given parameters (``kernel_params``'s first group, or its cast
+        operands): LN1, ``kv_input`` and the K/V projection in PyTorch,
+        where kernel A runs for conv SR."""
+        normed = layer_norm_fp32(x, ln1_weight, ln1_bias, self.norm1.eps)
+        kv_in = self.kv_input(normed, hw, sr_weight, sr_bias, srn_weight, srn_bias)
+        k, v = split_kv(linear(kv_in, kv_weight, kv_bias), self.num_heads)
+        return k.contiguous(), v.contiguous()
 
     def forward(self, x: torch.Tensor, hw: tuple,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if self.training or self.wants_grad(x):
             return self.train_forward(x, hw, generator)
         ops, kws = self.kernel_operands(x.dtype), self.kernel_kwargs()
-        k, v = fused_ln_sr_kv(x, hw, *ops[0], **kws[0])
+        if self.attn.linear_sr:
+            k, v = self.linear_sr_kv(x, hw, *ops[0])
+        else:
+            k, v = fused_ln_sr_kv(x, hw, *ops[0], **kws[0])
         if self.v2:
             x = fused_block_attention(x, k, v, *ops[1], **kws[1])
             return fused_dwconv_mlp(x, hw, *ops[2], **kws[2])
@@ -303,56 +397,84 @@ class Block(CastOperands, nn.Module):
         """The differentiable path on the fp32 master parameters. ``attention``,
         ``ln_mlp`` and ``block_attention`` are the kernels' wrappers; a check
         passes functions of the same signatures over their plain versions.
-        In training mode with ``fused_attn_train`` the attention half after
-        the K/V projection is one ``block_attention`` call; otherwise (and in
-        eval mode with a gradient wanted) Q, ``attention``, the projection
-        and the DropPath add run apart."""
-        if self.v2:
-            raise NotImplementedError(
-                "PVT-v2 training (or a gradient through a v2 block) is not ported yet: "
-                "ROADMAP Queue 1 item 14; v2 serves in eval mode under torch.no_grad()")
-        a, m = self.attn, self.mlp
+        The routes follow mvlt_tpu/models/pvlt.py:Block: in training mode with
+        ``fused_attn_train`` a v1 block without dropout runs the attention
+        half after the K/V projection as one ``block_attention`` call;
+        otherwise Q, ``attention`` (or, with ``attn_drop`` in training mode,
+        ``attention_dropout``), the projection and the DropPath add run apart.
+        The MLP half is ``mlp_half`` (v1) or ``dwconv_mlp_half`` (v2)."""
+        a = self.attn
         b, n, d = x.shape
         heads = self.num_heads
         hd = d // heads
         normed = layer_norm_fp32(x, self.norm1.weight, self.norm1.bias, self.norm1.eps)
-        sr = ((a.sr.weight, a.sr.bias, a.norm.weight, a.norm.bias, a.norm.eps)
-              if a.sr_ratio > 1 else (None,) * 4 + (1e-5,))
-        kv_in = reduce_kv_input(normed, hw, a.sr_ratio, *sr)
-        k, v = split_kv(linear(kv_in, a.kv.weight, a.kv.bias), heads)
-        if self.fused_attn_train and self.training:
+        sr = ((a.sr.weight, a.sr.bias, a.norm.weight, a.norm.bias)
+              if a.sr_ratio > 1 else (None,) * 4)
+        k, v = split_kv(linear(self.kv_input(normed, hw, *sr), a.kv.weight, a.kv.bias), heads)
+        if (self.fused_attn_train and self.training and not self.v2 and not self.drop
+                and not self.attn_drop):
             x = block_attention(x, k, v, self.norm1.weight, self.norm1.bias, a.q.weight,
                                 a.q.bias, a.proj.weight, a.proj.bias,
                                 self.drop_path_scale(x, generator), heads=heads,
                                 eps=self.norm1.eps, save_stats=self.fused_attn_stats)
         else:
             q = linear(normed, a.q.weight, a.q.bias).reshape(b, n, heads, hd).transpose(1, 2)
-            o = attention(q, k, v, hd ** -0.5).transpose(1, 2).reshape(b, n, d)
-            attn_out = linear(o, a.proj.weight, a.proj.bias)
-            s1 = self.drop_path_scale(x, generator)
-            x = x + (attn_out if s1 is None else attn_out * s1.to(x.dtype)[:, None, None])
-        return ln_mlp(x, self.norm2.weight, self.norm2.bias, m.fc1.weight, m.fc1.bias,
-                      m.fc2.weight, m.fc2.bias, self.drop_path_scale(x, generator),
-                      self.norm2.eps)
+            if self.attn_drop and self.training:
+                o = attention_dropout(q, k, v, hd ** -0.5, self.attn_drop, generator)
+            else:
+                o = attention(q, k, v, hd ** -0.5)
+            attn_out = linear(o.transpose(1, 2).reshape(b, n, d), a.proj.weight, a.proj.bias)
+            attn_out = self.dropout(attn_out, generator)
+            x = _add_scaled(x, attn_out, self.drop_path_scale(x, generator))
+        if self.v2:
+            return self.dwconv_mlp_half(x, hw, generator)
+        return self.mlp_half(x, generator, ln_mlp)
+
+    def dwconv_mlp_half(self, x: torch.Tensor, hw: tuple,
+                        generator: Optional[torch.Generator]) -> torch.Tensor:
+        """x + s2 mlp(LN2 x) of PVT-v2's MLP, differentiable PyTorch glue:
+        fc1, the 3x3 depthwise conv on the visual rows (the text rows passed
+        through), exact GELU on every row, dropout, fc2, dropout. Counterpart
+        of mvlt_tpu/models/pvlt.py:DWConvMlp (:250-276); kernel D serves
+        only, as the JAX package's does."""
+        m = self.mlp
+        b, _, _ = x.shape
+        h, w = hw
+        hidden = linear(_ln(x, self.norm2), m.fc1.weight, m.fc1.bias)
+        c = hidden.shape[-1]
+        dw = m.dwconv.dwconv
+        vis = F.conv2d(hidden[:, : h * w].reshape(b, h, w, c).permute(0, 3, 1, 2),
+                       dw.weight.to(x.dtype), dw.bias.to(x.dtype), padding=1, groups=c)
+        hidden = torch.cat([vis.flatten(2).transpose(1, 2), hidden[:, h * w:]], dim=1)
+        hidden = self.dropout(gelu(hidden), generator)
+        out = self.dropout(linear(hidden, m.fc2.weight, m.fc2.bias), generator)
+        return _add_scaled(x, out, self.drop_path_scale(x, generator))
 
 
-class SwinBlock(CastOperands, nn.Module):
-    """Pre-LN Swin block, serving only: x + attn(LN1 x), then + mlp(LN2 .),
-    the window shifted by half on ``shift`` blocks. On a stage
-    ``swin_band_stage`` admits it takes and returns the split stream (visual
-    rows [B, h*w, C], text rows [B, T, C]): kernel E runs the visual rows'
-    whole block, PyTorch the text rows' (their queries over K/V of the pooled
-    LN1 rows and of the text rows, then the MLP), as the JAX package's
+class SwinBlock(BlockGlue, nn.Module):
+    """Pre-LN Swin block: x + s1 attn(LN1 x), then + s2 mlp(LN2 .), the
+    window shifted by half on ``shift`` blocks; s1, s2 DropPath scales in
+    training mode, ``drop`` the projection and MLP dropout. Serving (eval
+    mode, no gradient wanted): on a stage ``swin_band_stage`` admits it
+    takes and returns the split stream (visual rows [B, h*w, C], text rows
+    [B, T, C]): kernel E runs the visual rows' whole block, PyTorch the text
+    rows' (their queries over K/V of the pooled LN1 rows and of the text
+    rows, then the MLP), as the JAX package's
     mvlt_tpu/models/pvlt.py:Block._swin_fused_block does. Elsewhere it takes
     the joint stream [B, h*w + T, C]: SwinJointAttention (kernel F), then the
-    LN-MLP of ops/fused_mlp.py. Training mode, or a gradient wanted, raises."""
+    LN-MLP of ops/fused_mlp.py. Training mode, or a gradient wanted: the
+    joint stream through ``train_forward``."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float, qkv_bias: bool,
-                 window_size: int, shift: bool, table_ws: int, ln_eps: float = 1e-6):
+                 window_size: int, shift: bool, table_ws: int, ln_eps: float = 1e-6,
+                 drop_path: float = 0.0, drop: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
+        self.drop_path = drop_path
+        self.drop = drop
         self.norm1 = nn.LayerNorm(dim, eps=ln_eps)
-        self.attn = SwinJointAttention(dim, num_heads, window_size, shift, qkv_bias, table_ws)
+        self.attn = SwinJointAttention(dim, num_heads, window_size, shift, qkv_bias, table_ws,
+                                       drop)
         self.norm2 = nn.LayerNorm(dim, eps=ln_eps)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
 
@@ -373,16 +495,29 @@ class SwinBlock(CastOperands, nn.Module):
     def forward(self, x, hw: tuple, generator: Optional[torch.Generator] = None):
         joint = torch.is_tensor(x)
         if self.training or self.wants_grad(*((x,) if joint else x)):
-            raise NotImplementedError(
-                "Swin training (or a gradient through a Swin block) is not ported yet: "
-                "ROADMAP Queue 1 item 14; Swin serves in eval mode under torch.no_grad()")
+            if not joint:
+                raise ValueError("the split stream (kernel E) serves only: PVLT passes "
+                                 "the joint stream in training mode or with a gradient wanted")
+            return self.train_forward(x, hw, generator)
         return self.window_forward(x, hw) if joint else self.band_forward(*x, hw)
+
+    def train_forward(self, x: torch.Tensor, hw: tuple,
+                      generator: Optional[torch.Generator] = None, *,
+                      ln_mlp=fused_ln_mlp) -> torch.Tensor:
+        """The differentiable block on the joint stream: SwinJointAttention
+        on its einsum route (``window_attention``), projection dropout and
+        DropPath, then ``mlp_half`` (``ln_mlp``, the LN-MLP kernels' wrapper
+        with DropPath as its row scale; a check passes its plain version)."""
+        t = x.shape[1] - hw[0] * hw[1]
+        attn_out = self.attn(_ln(x, self.norm1), hw, t, generator=generator)
+        x = _add_scaled(x, attn_out, self.drop_path_scale(x, generator))
+        return self.mlp_half(x, generator, ln_mlp)
 
     def window_forward(self, x: torch.Tensor, hw: tuple, *, attention=fused_swin_attention,
                        ln_mlp=fused_ln_mlp) -> torch.Tensor:
-        """The joint stream's block: attention with kernel F, then the LN-MLP
-        (``attention`` and ``ln_mlp`` the kernels' wrappers; a check passes
-        their plain versions)."""
+        """The joint stream's serving block: attention with kernel F, then the
+        LN-MLP (``attention`` and ``ln_mlp`` the kernels' wrappers; a check
+        passes their plain versions)."""
         t = x.shape[1] - hw[0] * hw[1]
         x = x + self.attn(_ln(x, self.norm1), hw, t, attention=attention)
         m = self.mlp
@@ -423,6 +558,31 @@ class SwinBlock(CastOperands, nn.Module):
         return out_vis, xt + linear(hid, w2, b2)
 
 
+def checkpoint_block(blk: nn.Module, z: torch.Tensor, hw: tuple,
+                     generator: Optional[torch.Generator]) -> torch.Tensor:
+    """``blk(z, hw, generator)`` under torch.utils.checkpoint (``--remat``):
+    its activations are recomputed in the backward instead of kept, as
+    mvlt_tpu/models/pvlt.py:1194-1202 does with nn.remat. checkpoint replays
+    only the default generators, so the block draws its DropPath scales and
+    dropout masks from a generator started at ``generator``'s state: the
+    recompute draws the same masks, and ``generator`` is then moved to where
+    the block left it, as it would stand without remat."""
+    if generator is None:
+        return checkpoint(blk, z, hw, None, use_reentrant=False)
+    start, end = generator.get_state(), []
+
+    def run(z):
+        gen = torch.Generator(device=generator.device)
+        gen.set_state(start)
+        out = blk(z, hw, gen)
+        end.append(gen.get_state())
+        return out
+
+    out = checkpoint(run, z, use_reentrant=False)
+    generator.set_state(end[0])
+    return out
+
+
 def resize_pos_embed(pos: torch.Tensor, native_hw: tuple, hw: tuple) -> torch.Tensor:
     """Bilinearly resize a [1, gh*gw, C] table to a new grid
     (align_corners=False, no antialias)."""
@@ -453,10 +613,8 @@ class PVLT(nn.Module):
 
     def __init__(self, cfg: ModelConfig, input_size: int = DataConfig.input_size):
         super().__init__()
-        if cfg.variant not in ("v1", "v2", "swin") or cfg.linear_sr:
-            raise NotImplementedError(
-                f"variant {cfg.variant!r}{' with linear_sr' if cfg.linear_sr else ''} "
-                f"is not ported yet")
+        if cfg.variant not in ("v1", "v2", "swin"):
+            raise NotImplementedError(f"variant {cfg.variant!r} is not ported")
         v2 = cfg.variant == "v2"
         self.cfg = cfg
         self.input_size = input_size
@@ -486,12 +644,16 @@ class PVLT(nn.Module):
             if cfg.variant == "swin":
                 table_ws = window_size_for(cfg.window_size, (grid, grid))
                 blocks = [SwinBlock(dim, cfg.num_heads[i], cfg.mlp_ratios[i], cfg.qkv_bias,
-                                    cfg.window_size, j % 2 == 1, table_ws, cfg.block_ln_eps)
+                                    cfg.window_size, j % 2 == 1, table_ws, cfg.block_ln_eps,
+                                    next(dpr), cfg.drop_rate)
                           for j in range(cfg.depths[i])]
             else:
+                # linear SR where the stage reduces (mvlt_tpu/models/pvlt.py:1212)
+                linear_sr = cfg.linear_sr and cfg.sr_ratios[i] > 1
                 blocks = [Block(dim, cfg.num_heads[i], cfg.mlp_ratios[i], cfg.sr_ratios[i],
                                 cfg.qkv_bias, cfg.block_ln_eps, eps, next(dpr), v2,
-                                cfg.fused_attn_train, cfg.fused_attn_stats)
+                                cfg.fused_attn_train, cfg.fused_attn_stats, linear_sr,
+                                cfg.drop_rate, cfg.attn_drop_rate)
                           for _ in range(cfg.depths[i])]
             setattr(self, f"block{i + 1}", nn.ModuleList(blocks))
             grid //= 2
@@ -519,10 +681,11 @@ class PVLT(nn.Module):
                 mlm_row_idx: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> Dict[str, Optional[torch.Tensor]]:
         cfg = self.cfg
-        if self.training and (cfg.drop_rate or cfg.attn_drop_rate):
-            raise NotImplementedError("drop_rate and attn_drop_rate are not ported: "
-                                      "training needs both at 0")
         dtype = self.compute_dtype
+        # eval mode with no gradient wanted: the serving kernels (the JAX
+        # package's `deterministic`, and no VJP through a serving kernel)
+        serving = not self.training and not (torch.is_grad_enabled() and (
+            images.requires_grad or any(p.requires_grad for p in self.parameters())))
         if images.shape[-1] != cfg.in_chans and images.shape[1] == cfg.in_chans:
             images = images.permute(0, 2, 3, 1)        # NCHW accepted
         b = images.shape[0]
@@ -539,12 +702,17 @@ class PVLT(nn.Module):
             native_g = cfg.img_size // (cfg.patch_size * 2 ** i)
             pos = resize_pos_embed(pos.to(dtype), (native_g, native_g), (h, w))
             text_pos = getattr(self, f"text_pos_embed{i + 1}").to(dtype)
-            if cfg.variant == "swin" and swin_band_stage(cfg.window_size, (h, w)):
+            if serving and cfg.variant == "swin" and swin_band_stage(cfg.window_size, (h, w)):
                 z = (x + pos, y + text_pos)              # split: kernel E's stage
             else:
                 z = torch.cat([x + pos, y + text_pos], dim=1)
+                if self.training and cfg.drop_rate:
+                    z = dropout(z, cfg.drop_rate, generator)
             for blk in getattr(self, f"block{i + 1}"):
-                z = blk(z, (h, w), generator)
+                if cfg.remat and not serving:
+                    z = checkpoint_block(blk, z, (h, w), generator)
+                else:
+                    z = blk(z, (h, w), generator)
             x, y = z if isinstance(z, tuple) else (z[:, : h * w], z[:, h * w:])
             x = x.reshape(b, h, w, dim)
             img_feats.append(x)

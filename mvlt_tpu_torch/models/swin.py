@@ -11,9 +11,12 @@ columns are never masked, so no row of a padded window is empty.
 
 ``window_masks``, ``relative_position_index``, ``NEG_INF`` and ``TEXT_POOL``
 are the port's own copies of the JAX module's, pinned to them by
-tests/test_torch_port_swin.py. ``SwinJointAttention`` is the plain path of the
-module; its windowed softmax.V goes through ops/swin_attention.py, which
-launches kernel F on a CUDA tensor.
+tests/test_torch_port_swin.py. ``SwinJointAttention`` is the module's
+PyTorch glue; where the JAX module's ``use_kernel`` holds (eval mode, no
+gradient wanted) its windowed softmax.V goes through ops/swin_attention.py,
+which launches kernel F on a CUDA tensor, and elsewhere (training mode, or
+a gradient wanted) through ``window_attention``, the differentiable
+counterpart of the JAX module's einsum branch.
 """
 
 from __future__ import annotations
@@ -23,7 +26,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mvlt_tpu_torch.ops.kernel_math import linear, softmax_av
+from mvlt_tpu_torch.models.bert_embeddings import dropout
+from mvlt_tpu_torch.ops.kernel_math import acc_dtype, linear, softmax_av
 from mvlt_tpu_torch.ops.swin_attention import fused_swin_attention
 
 NEG_INF = -1e9
@@ -117,14 +121,39 @@ def window_reverse(t: torch.Tensor, hw: tuple, ws: int, shift: int) -> torch.Ten
     return g[:, :h, :w].reshape(b, h * w, c)
 
 
+def position_bias(rel_table: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """The relative-position bias [heads, ws^2, ws^2] fp32: ``rel_table``
+    [(2 ws - 1)^2, heads] at ``index`` (``relative_position_index``)."""
+    return rel_table.float()[index.long()].permute(2, 0, 1)
+
+
 def add_table(rel_table: torch.Tensor, index: torch.Tensor, mask: torch.Tensor,
               t_num: int) -> torch.Tensor:
     """The additive logit table kernel F takes, [nW, heads, ws^2, ws^2 + T]
-    fp32: the relative-position bias ``rel_table`` [(2 ws - 1)^2, heads] at
-    ``index`` (``relative_position_index``) plus the region/pad ``mask``
-    (``window_masks``) on the window columns, zeros on the T text columns."""
-    bias = rel_table.float()[index.long()].permute(2, 0, 1)
-    return F.pad(bias[None] + mask[:, None], (0, t_num))
+    fp32: ``position_bias`` plus the region/pad ``mask`` (``window_masks``)
+    on the window columns, zeros on the T text columns."""
+    return F.pad(position_bias(rel_table, index)[None] + mask[:, None], (0, t_num))
+
+
+def window_attention(q_win: torch.Tensor, k_win: torch.Tensor, v_win: torch.Tensor,
+                     k_txt: torch.Tensor, v_txt: torch.Tensor, bias: torch.Tensor,
+                     mask: torch.Tensor, *, scale: float) -> torch.Tensor:
+    """The windows' joint attention, differentiable: q/k/v_win [B, nW, heads,
+    ws^2, hd], k/v_txt [B, heads, T, hd], ``bias`` [heads, ws^2, ws^2] and
+    ``mask`` [nW, ws^2, ws^2] fp32. The visual-visual logits in fp32 plus
+    the bias, then the region/pad mask; the text columns unmasked; softmax
+    in fp32, the probabilities rounded to q's dtype, the two products summed
+    in fp32. Counterpart of mvlt_tpu/models/swin.py:157-171."""
+    acc = acc_dtype(q_win.dtype)
+    q = q_win.to(acc)
+    logits_vv = torch.matmul(q, k_win.to(acc).transpose(-1, -2)) * scale
+    logits_vv = logits_vv + bias[None, None] + mask[None, :, None]
+    logits_vt = torch.matmul(q, k_txt.to(acc)[:, None].transpose(-1, -2)) * scale
+    probs = torch.softmax(torch.cat([logits_vv, logits_vt], dim=-1), dim=-1).to(q_win.dtype)
+    ws2 = q_win.shape[-2]
+    out = (torch.matmul(probs[..., :ws2].to(acc), v_win.to(acc))
+           + torch.matmul(probs[..., ws2:].to(acc), v_txt.to(acc)[:, None]))
+    return out.to(q_win.dtype)
 
 
 def heads_of(t: torch.Tensor, heads: int) -> torch.Tensor:
@@ -144,12 +173,14 @@ class SwinJointAttention(nn.Module):
     and ``relative_position_bias_table`` [(2 ws - 1)^2, heads], where ws is
     the window of the grid the model is built to run on (``table_ws``): the
     table's shape depends on it, as the flax parameter's does on the images
-    the JAX model is initialised with."""
+    the JAX model is initialised with. ``proj_drop``: dropout after the
+    projection in training mode."""
 
     def __init__(self, dim: int, num_heads: int, window_size: int, shift: bool,
-                 qkv_bias: bool, table_ws: int):
+                 qkv_bias: bool, table_ws: int, proj_drop: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
+        self.proj_drop = proj_drop
         self.window_size = window_size
         self.shift = shift
         self.q = nn.Linear(dim, dim, bias=qkv_bias)
@@ -187,10 +218,14 @@ class SwinJointAttention(nn.Module):
         return add_table(table, *self._static(hw, table.device), t_num)
 
     def forward(self, x: torch.Tensor, hw: tuple, t_num: int, *,
-                attention=fused_swin_attention) -> torch.Tensor:
+                attention=fused_swin_attention,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         """x: the LayerNorm'd joint stream [B, h*w + T, C] -> the attention
-        output before the residual. ``attention`` is kernel F's wrapper; a
-        check passes its plain version."""
+        output before the residual. In eval mode with no gradient wanted the
+        windows go through ``attention``, kernel F's wrapper (a check passes
+        its plain version); in training mode, or with a gradient wanted,
+        through ``window_attention`` (mvlt_tpu/models/swin.py:141-144's
+        ``use_kernel``). ``generator`` draws the projection's dropout."""
         b, n, c = x.shape
         h, w = hw
         nh = self.num_heads
@@ -204,8 +239,16 @@ class SwinJointAttention(nn.Module):
             return heads_of(window_partition(t[:, : h * w], hw, ws, s), nh).contiguous()
 
         k_txt, v_txt = (heads_of(t[:, h * w:], nh).contiguous() for t in (k_all, v_all))
-        out_win = attention(windows(q), windows(k_all), windows(v_all), k_txt, v_txt,
-                            self.add_table(hw, t_num), scale=hd ** -0.5)
+        use_kernel = not self.training and not (torch.is_grad_enabled() and (
+            x.requires_grad or any(p.requires_grad for p in self.parameters())))
+        if use_kernel:
+            out_win = attention(windows(q), windows(k_all), windows(v_all), k_txt, v_txt,
+                                self.add_table(hw, t_num), scale=hd ** -0.5)
+        else:
+            index, mask = self._static(hw, x.device)
+            bias = position_bias(self.relative_position_bias_table, index)
+            out_win = window_attention(windows(q), windows(k_all), windows(v_all), k_txt,
+                                       v_txt, bias, mask, scale=hd ** -0.5)
         out_vis = window_reverse(out_win.movedim(2, -2).flatten(-2), hw, ws, s)
 
         # text queries: pooled visual K/V (floor pooling) + text K/V
@@ -218,5 +261,7 @@ class SwinJointAttention(nn.Module):
         k_t = torch.cat([heads_of(pooled(k_all), nh), k_txt], dim=-2)
         v_t = torch.cat([heads_of(pooled(v_all), nh), v_txt], dim=-2)
         out_txt = merge_heads(softmax_av(heads_of(q[:, h * w:], nh), k_t, v_t, scale=hd ** -0.5))
-        out = torch.cat([out_vis, out_txt], dim=1)
-        return linear(out, self.proj.weight, self.proj.bias)
+        out = linear(torch.cat([out_vis, out_txt], dim=1), self.proj.weight, self.proj.bias)
+        if self.training and self.proj_drop:
+            out = dropout(out, self.proj_drop, generator)
+        return out

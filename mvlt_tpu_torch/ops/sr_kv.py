@@ -10,7 +10,9 @@ conv's contraction split by ``conv_splits``) for a CUDA tensor, or raises.
 K and V are [B, heads, M, hd] with M = (h/sr)(w/sr) + T, or M = N at
 sr == 1; the text rows of the K/V input are LN1 of the stream, not
 SR-normalised. ``s2d_operand`` writes out the space-to-depth operand the SR
-conv's kernel gathers, for the tests.
+conv's kernel gathers, for the tests. ``linear_reduce_kv_input`` is the
+K/V input of PVT-v2's linear SR, which no kernel computes: the model runs
+it in PyTorch on both paths, as the JAX package runs it in XLA.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from mvlt_tpu_torch.ops import _build
 # the wgmma tiles (csrc/hopper.cuh: kGemmTile, kGemmChunk) and the most
 # ranges of a split contraction, as the LN-MLP backward's plan takes them
 from mvlt_tpu_torch.ops.fused_mlp import BWD_CHUNK, BWD_TILE, MAX_SPLITS
-from mvlt_tpu_torch.ops.kernel_math import layer_norm_fp32, linear
+from mvlt_tpu_torch.ops.kernel_math import gelu, layer_norm_fp32, linear
 
 
 def reduce_kv_input(normed: torch.Tensor, hw: tuple, sr: int,
@@ -41,6 +43,32 @@ def reduce_kv_input(normed: torch.Tensor, hw: tuple, sr: int,
                    None if sr_bias is None else sr_bias.to(normed.dtype), stride=sr)
     red = layer_norm_fp32(red.flatten(2).transpose(1, 2), srn_weight, srn_bias, eps_sr)
     return torch.cat([red, normed[:, h * w:]], dim=1)
+
+
+# the pooled grid's side of PVT-v2's linear SR (mvlt_tpu/models/pvlt.py:181)
+LINEAR_SR_POOL = 7
+
+
+def linear_reduce_kv_input(normed: torch.Tensor, hw: tuple, sr_weight: torch.Tensor,
+                           sr_bias: torch.Tensor | None, srn_weight: torch.Tensor,
+                           srn_bias: torch.Tensor, eps_sr: float) -> torch.Tensor:
+    """The K/V input of PVT-v2's linear SR from the LN1'd joint stream
+    [B, h*w + T, D]: the visual grid average-pooled in windows of
+    (h // p, w // p) with p = min(7, h, w), windows as strides, the last
+    partial window dropped (at 64/32/16 that gives 7x7, 8x8 and 8x8, not an
+    adaptive 7x7), then the 1x1 conv ``sr_weight`` [D, D, 1, 1], SR-LN and
+    exact GELU; the text rows as they are. Counterpart of
+    mvlt_tpu/models/pvlt.py:197-209, in PyTorch (no kernel computes it)."""
+    b, _, d = normed.shape
+    h, w = hw
+    p = min(LINEAR_SR_POOL, h, w)
+    win = (max(1, h // p), max(1, w // p))
+    grid = normed[:, : h * w].reshape(b, h, w, d).permute(0, 3, 1, 2)
+    pooled = F.avg_pool2d(grid, win, win)
+    red = F.conv2d(pooled, sr_weight.to(normed.dtype),
+                   None if sr_bias is None else sr_bias.to(normed.dtype))
+    red = layer_norm_fp32(red.flatten(2).transpose(1, 2), srn_weight, srn_bias, eps_sr)
+    return torch.cat([gelu(red), normed[:, h * w:]], dim=1)
 
 
 def split_kv(kv: torch.Tensor, heads: int) -> tuple[torch.Tensor, torch.Tensor]:

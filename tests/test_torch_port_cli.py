@@ -1,12 +1,13 @@
 """The port's command line (mvlt_tpu_torch/cli.py) on the CPU: the micro
 pre-training config on synthetic data for 2 epochs (12 steps each at
 B = 16), then ``--resume``, the CLS fine-tune init from its checkpoint,
-``--eval``, the step options and the flags that stay unported; the
+``--eval``, the step options, ``--remat`` and the flags that stay unported; the
 checkpoint manager's policy; and the run config built from the same flags
 equal to the JAX package's."""
 
 import json
 import os
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -14,10 +15,14 @@ import torch
 
 from mvlt_tpu_torch import cli
 from mvlt_tpu_torch.config import config_to_dict, load_config_file
+from mvlt_tpu_torch.models import pvlt
 from mvlt_tpu_torch.models.pvlt import create_model
 from mvlt_tpu_torch.train.state import create_train_state
 from mvlt_tpu_torch.utils.checkpoint import (STATE_FILE, CheckpointManager, load_finetune_state,
                                              resolve_checkpoint_path)
+from tests.test_torch_port_train import one_torch_thread
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
 BASE = ["--config", "configs/test_micro.py", "--synthetic-data", "--device", "cpu",
         "--batch-size", "16"]
@@ -127,8 +132,6 @@ def test_fused_attention_route_from_a_json_config(tmp_path):
     saved-statistics backward once per block and step, the default route's
     attention core never."""
     import runpy
-    from unittest import mock
-
     from mvlt_tpu_torch.ops import block_attention, pallas_attention
 
     flat = runpy.run_path("configs/test_micro.py")["cfg"]
@@ -155,9 +158,22 @@ def test_fused_attention_route_from_a_json_config(tmp_path):
 
 @pytest.mark.parametrize("flags", [["--zero1"], ["--tp-size", "2"],
                                    ["--steps-per-dispatch", "2"], ["--remat"]])
-def test_unported_flags_raise(flags):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        cli.main(BASE + flags)
+def test_unported_flags_raise(flags, tmp_path):
+    """--zero1, --tp-size 2 and --steps-per-dispatch 2 stay refused;
+    --remat is ported: one epoch runs every block under
+    torch.utils.checkpoint and saves the flag in the checkpoint's config."""
+    if flags != ["--remat"]:
+        with pytest.raises(NotImplementedError, match="not ported"):
+            cli.main(BASE + flags)
+        return
+    run = str(tmp_path / "remat")
+    with mock.patch.object(pvlt, "checkpoint", wraps=pvlt.checkpoint) as ckpt:
+        cli.main(BASE + flags + ["--epochs", "1", "--batch-size", "48", "--output-dir", run])
+    (line,) = _log(run)
+    assert np.isfinite(line["total_loss"])
+    assert ckpt.call_count == 8 * _saved(run)["step"] > 0
+    with open(os.path.join(run, "checkpoint", "last.json")) as f:
+        assert json.load(f)["config"]["model"]["remat"]
 
 
 def test_resume_of_a_missing_checkpoint_raises(tmp_path):

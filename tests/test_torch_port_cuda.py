@@ -683,11 +683,18 @@ def test_v2_wrappers_refuse_what_the_kernels_do_not_take(dev):
                              torch.zeros(dim, 40, device=dev), None, eps=1e-6)
         with pytest.raises(ValueError, match="weight shape"):
             fused_dwconv_mlp(x, hw, *mlp_args[:4], mlp_args[4][:, :, :2], *mlp_args[5:], **kw_d)
-    # a gradient wanted, or training mode: v2 serves only
-    with pytest.raises(NotImplementedError):
-        blk(x, hw)
-    with pytest.raises(NotImplementedError):
-        blk.train()(x, hw)
+    # a gradient wanted, or training mode: the training path (#10/#11, the
+    # DWConv MLP in PyTorch), no serving kernel
+    served = (fused_ln_sr_kv.launches, fused_block_attention.launches,
+              fused_dwconv_mlp.launches)
+    fwd, bwd = attention_fwd.launches, attention_bwd.launches
+    for train in (False, True):
+        out = blk.train(train)(x, hw)
+        out.float().sum().backward()
+        assert torch.isfinite(out.float()).all()
+    assert (attention_fwd.launches, attention_bwd.launches) == (fwd + 2, bwd + 2)
+    assert (fused_ln_sr_kv.launches, fused_block_attention.launches,
+            fused_dwconv_mlp.launches) == served
 
 
 def _launch_counts():
@@ -896,11 +903,20 @@ def test_swin_wrappers_refuse_what_the_kernels_do_not_take(dev):
         with pytest.raises(ValueError, match="out of range"):
             fused_swin_attention(q81, q81, q81, kt4, kt4,
                                  torch.zeros(1, 2, 81, 81 + t, device=dev), scale=1.0)
-    # a gradient wanted, or training mode: Swin serves only
-    with pytest.raises(NotImplementedError):
+    # a gradient wanted, or training mode: the split stream serves only; the
+    # joint stream trains on the window glue and #12/#13, no serving kernel
+    with pytest.raises(ValueError, match="serves only"):
         blk.requires_grad_(True)((xv, kt), hw)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="serves only"):
         blk.train()((xv, kt), hw)
+    served = (fused_swin_block.launches, fused_swin_attention.launches)
+    mlp = (ln_mlp_fwd.launches, ln_mlp_bwd.launches)
+    for train in (False, True):
+        out = blk.train(train)(torch.cat([xv, kt], dim=1), hw)
+        out.float().sum().backward()
+        assert torch.isfinite(out.float()).all()
+    assert (ln_mlp_fwd.launches, ln_mlp_bwd.launches) == (mlp[0] + 2, mlp[1] + 2)
+    assert (fused_swin_block.launches, fused_swin_attention.launches) == served
 
 
 def _scale_block_weights(model, gen):

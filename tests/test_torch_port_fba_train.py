@@ -176,7 +176,9 @@ def test_route_launches(jax_step, save_stats):
 
 def test_route_is_v1_training_only():
     """The flag leaves a block's eval-mode forward and its eval-mode
-    gradient route as they were; a v2 block still refuses to train."""
+    gradient route as they were; a v2 block trains on the default route
+    whatever the flag says (mvlt_tpu/models/pvlt.py:861-866), its output
+    equal to a v2 block's without it on the same DropPath draws."""
     gen = torch.Generator().manual_seed(2)
     x = torch.randn(2, 16 + 3, 16, generator=gen)
     plain = Block(16, 2, 2.0, 2, True).eval()
@@ -184,9 +186,15 @@ def test_route_is_v1_training_only():
     fused.load_state_dict(plain.state_dict())
     with torch.no_grad():
         torch.testing.assert_close(fused(x, (4, 4)), plain(x, (4, 4)), rtol=0, atol=0)
-    v2 = Block(16, 2, 2.0, 2, True, v2=True, fused_attn_train=True).train()
-    with pytest.raises(NotImplementedError):
-        v2(x, (4, 4))
+    v2 = Block(16, 2, 2.0, 2, True, drop_path=0.5, v2=True, fused_attn_train=True).train()
+    v2_default = Block(16, 2, 2.0, 2, True, drop_path=0.5, v2=True).train()
+    v2_default.load_state_dict(v2.state_dict())
+    with mock.patch.object(fba, "block_attention_train_fwd",
+                           wraps=fba.block_attention_train_fwd) as fused_fwd:
+        out = v2(x, (4, 4), torch.Generator().manual_seed(3))
+    assert fused_fwd.call_count == 0
+    torch.testing.assert_close(out, v2_default(x, (4, 4), torch.Generator().manual_seed(3)),
+                               rtol=0, atol=0)
 
 
 def test_route_matches_the_default_route_with_drop_path():

@@ -65,6 +65,14 @@ for with_stats in (False, True):
                                    is_main=False)
     block_attention.block_attention_bwd_reference = ref
     assert len(calls) == 8 and np.isfinite(stats["total_loss"]), (calls, stats)
+for name, extra in (("pvlt_v2_tiny", {}), ("pvlt_v2_linear_tiny", dict(remat=True)),
+                    ("pvlt_swin_tiny", dict(drop_rate=0.1))):
+    train_cfg = ModelConfig(**micro, name=name, **extra)
+    state = create_train_state(create_model(train_cfg, device="cpu", input_size=32),
+                               OptimConfig(warmup_epochs=0), 2, 1)
+    state, stats = train_one_epoch(make_train_step(train_cfg), state, batches(data, 2),
+                                   is_main=False)
+    assert state.step == 1 and np.isfinite(stats["total_loss"]), (name, stats)
 import os, tempfile
 from mvlt_tpu_torch import cli
 with tempfile.TemporaryDirectory() as out:

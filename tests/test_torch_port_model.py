@@ -111,9 +111,9 @@ def test_registry_matches_jax():
 
 @pytest.mark.parametrize("loss_type", [LossType(), LossType(itm=True, mlm=False, t2i=False, cls=True)])
 def test_unported_heads_raise(loss_type):
-    """Every head is ported now, with any choice of heads, on the v1, v2 and
-    Swin backbones; what is still unported, v2's linear SR, raises whatever
-    heads are on."""
+    """Every head is ported now, with any choice of heads, on the v1, v2,
+    linear-SR v2 and Swin backbones; linear SR no longer raises, and its
+    stages that reduce carry the 1x1 SR conv."""
     model = create_model(dataclasses.replace(MICRO, loss_type=loss_type), device="cpu")
     assert hasattr(model, "sup_cls_head") == loss_type.cls
     assert hasattr(model, "t2i_head") == loss_type.t2i
@@ -123,21 +123,25 @@ def test_unported_heads_raise(loss_type):
     swin = create_model(dataclasses.replace(MICRO, name="pvlt_swin_tiny", loss_type=loss_type),
                         device="cpu")
     assert swin.cfg.variant == "swin" and hasattr(swin, "t2i_head") == loss_type.t2i
-    with pytest.raises(NotImplementedError):
-        create_model(dataclasses.replace(MICRO, name="pvlt_v2_linear_tiny", loss_type=loss_type),
-                     device="cpu")
+    linear = create_model(dataclasses.replace(MICRO, name="pvlt_v2_linear_tiny",
+                                              loss_type=loss_type), device="cpu")
+    assert linear.cfg.linear_sr and hasattr(linear, "t2i_head") == loss_type.t2i
+    assert [tuple(b.attn.sr.weight.shape[2:]) for s in (1, 2, 3)
+            for b in getattr(linear, f"block{s}")] == [(1, 1)] * 6
+    assert not hasattr(linear.block4[0].attn, "sr")
 
 
 def test_training_mode_raises(micro_pair):
-    """Training mode runs now; it raises only for the regularisers not
-    ported yet (dropout after the pos-embeds and on the attention
-    probabilities), which eval mode does not use."""
+    """Training mode runs, with the dropout after the pos-embeds, in the
+    projections and MLP and on the attention probabilities too
+    (tests/test_torch_port_dropout_remat.py holds them to their law); eval
+    mode does not use them."""
     port = create_model(dataclasses.replace(MICRO, drop_rate=0.1, attn_drop_rate=0.1),
                         device="cpu")
     port.load_state_dict(micro_pair[2].state_dict())
     images, ids = torch.zeros(1, 64, 64, 3), torch.zeros(1, 16, dtype=torch.long)
-    with pytest.raises(NotImplementedError):
-        port.train()(images, ids)
+    out = port.train()(images, ids, generator=torch.Generator().manual_seed(0))
+    assert torch.isfinite(out["itm_logits"]).all()
     with torch.no_grad():
         torch.testing.assert_close(port.eval()(images, ids)["itm_logits"],
                                    micro_pair[2](images, ids)["itm_logits"])

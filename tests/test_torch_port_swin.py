@@ -155,17 +155,19 @@ def test_swin_init_follows_flax():
 
 
 def test_swin_serves_only():
-    """A Swin block in training mode, or with a gradient wanted, raises; a
-    model built for one input size refuses a grid of another window."""
+    """Swin trains now: a training-mode forward and an eval forward with a
+    gradient wanted run on the joint stream (tests/test_torch_port_train_swin.py
+    holds the step to JAX); the split stream of kernel E serves only, and a
+    block handed it in training mode raises; a model built for one input
+    size refuses a grid of another window."""
     model = create_model(MICRO_SWIN, device="cpu", input_size=64)
-    images, ids = (torch.zeros(1, 64, 64, 3), torch.zeros(1, 16, dtype=torch.long))
-    with pytest.raises(NotImplementedError, match="Swin training"):
-        model.train()(images, ids)
-    with pytest.raises(NotImplementedError, match="Swin training"):
-        model.eval()(images, ids)                           # parameters want gradients
+    images, ids = (torch.rand(1, 64, 64, 3), torch.zeros(1, 16, dtype=torch.long))
+    for train in (True, False):
+        out = model.train(train)(images, ids)
+        assert torch.isfinite(out["itm_logits"]).all() and out["itm_logits"].requires_grad
     block = next(m for m in model.modules() if isinstance(m, SwinBlock))
     with torch.no_grad():
-        with pytest.raises(NotImplementedError):
-            block.train()(torch.zeros(1, 256 + 16, 16), (16, 16))
+        with pytest.raises(ValueError, match="serves only"):
+            block.train()((torch.zeros(1, 256, 16), torch.zeros(1, 16, 16)), (16, 16))
         with pytest.raises(ValueError, match="input size"):
             model.eval()(torch.zeros(1, 32, 32, 3), ids)      # stage 3 window 2, table of 4

@@ -49,12 +49,12 @@ def _configs(heads):
             config.ModelConfig(**MICRO, loss_type=config.LossType(**heads)))
 
 
-def _numpy_weights(model, seed):
-    """Trees shaped by tracing the JAX init, filled from a numpy seed: matrices
-    small, LayerNorm and BatchNorm scales near 1, running variances
-    positive."""
+def _numpy_weights(model, seed, img=IMG):
+    """Trees shaped by tracing the JAX init at ``img`` x ``img``, filled from
+    a numpy seed: matrices small, LayerNorm and BatchNorm scales near 1,
+    running variances positive."""
     variables = jax.eval_shape(model.init, jax.random.PRNGKey(0),
-                               jnp.zeros((1, IMG, IMG, 3)), jnp.zeros((1, T), jnp.int32))
+                               jnp.zeros((1, img, img, 3)), jnp.zeros((1, T), jnp.int32))
     gen = np.random.default_rng(seed)
 
     def fill(path, leaf):
@@ -67,11 +67,11 @@ def _numpy_weights(model, seed):
             jax.tree_util.tree_map_with_path(fill, variables["batch_stats"]))
 
 
-def make_batch(rng, b=B):
-    imgs = rng.random((b, IMG, IMG, 3)).astype(np.float32)
+def make_batch(rng, b=B, img=IMG):
+    imgs = rng.random((b, img, img, 3)).astype(np.float32)
     return {
         "images": imgs,
-        "masked_images": np.where(rng.random((b, IMG, IMG, 1)) < 0.5, 1e-6, imgs).astype(np.float32),
+        "masked_images": np.where(rng.random((b, img, img, 1)) < 0.5, 1e-6, imgs).astype(np.float32),
         "input_ids": rng.integers(0, 64, (b, T)).astype(np.int32),
         "mlm_labels": np.where(rng.random((b, T)) < 0.15,
                                rng.integers(0, 64, (b, T)), -1).astype(np.int32),
@@ -85,13 +85,17 @@ def make_batch(rng, b=B):
 def jax_step():
     """(JAX config, port config, params, batch_stats, batch, jitted
     grads-losses-stats-outputs function of (params, stats, images, train))."""
+    return build_jax_step(*_configs(HEADS))
+
+
+def build_jax_step(jcfg, pcfg, img=IMG):
+    """The fixture's tuple for any pair of configs, at ``img`` x ``img``."""
     from mvlt_tpu.models import create_model as jax_create_model
     from mvlt_tpu.train.losses import compute_losses, mlm_gather_plan
 
-    jcfg, pcfg = _configs(HEADS)
     model = jax_create_model(jcfg)
-    params, stats = _numpy_weights(model, seed=1)
-    batch = make_batch(np.random.default_rng(2))
+    params, stats = _numpy_weights(model, seed=1, img=img)
+    batch = make_batch(np.random.default_rng(2), img=img)
 
     def grads(params, stats, images, train):
         kwargs, loss_batch = {}, batch
@@ -117,8 +121,18 @@ def jax_step():
     return jcfg, pcfg, params, stats, batch, jax.jit(grads, static_argnames=("train",))
 
 
-def _port_state(pcfg, params, stats, step):
-    model = create_model(pcfg, device="cpu")
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """Runs a module's micro models on one torch thread: their many small
+    ops wait on the thread pool's barriers in a loaded multi-worker run."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _port_state(pcfg, params, stats, step, img=IMG):
+    model = create_model(pcfg, device="cpu", input_size=img)
     model.load_state_dict(state_dict_from_jax(params, stats), strict=True)
     state = create_train_state(model, config.OptimConfig(warmup_epochs=0), B, 10)
     state.step = step
@@ -141,7 +155,7 @@ def check_step_against_jax(jax_step, pcfg, step, train_mode):
     images = batch["masked_images"] if step % 2 else batch["images"]
     g_jax, (l_jax, stats_jax, _) = grads(params, stats, images, train=train_mode)
 
-    state = _port_state(pcfg, params, stats, step)
+    state = _port_state(pcfg, params, stats, step, img=images.shape[1])
     state, l_port = make_train_step(pcfg, train_mode=train_mode)(state, batch)
     assert state.step == step + 1
     for k in LOSS_KEYS:

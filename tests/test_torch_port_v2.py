@@ -9,7 +9,7 @@ in interpret mode, block_attn_kernel="full", pack_stage1=True,
 dwconv_mlp_kernel=True, kernel_gelu="erf") at 2e-3, the bound
 tests/test_v2_fused_routing.py holds that routing to. Then pvlt_v2_tiny at
 its widths (256x256, 128 tokens, B = 2), the initialisers, the strict load of
-a full v2 tree, and the refusal to train. Parameter trees are shaped by
+a full v2 tree, and training (v2, linear SR, Swin) running. Parameter trees are shaped by
 tracing the JAX init (jax.eval_shape) and filled from a numpy seed.
 """
 
@@ -186,20 +186,18 @@ def test_full_v2_tree_loads_strictly():
 
 
 def test_v2_training_and_gradients_raise():
-    """v2 serves only: training mode, or a gradient wanted through a block,
-    raises NotImplementedError (ROADMAP Queue 1 item 14), as Swin training
-    does; linear SR stays unported."""
-    model = create_model(MICRO_V2, device="cpu")
-    images, ids = torch.zeros(1, 64, 64, 3), torch.zeros(1, 16, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        model.train()(images, ids)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        model.eval()(images, ids)                 # parameters want gradients
-    with torch.no_grad():
-        assert model(images, ids)["itm_logits"].shape == (1, 1, 2)
-    with pytest.raises(NotImplementedError):
-        create_model(dataclasses.replace(MICRO_V2, name="pvlt_v2_linear_tiny"), device="cpu")
-    swin = create_model(dataclasses.replace(MICRO_V2, name="pvlt_swin_tiny"), device="cpu",
-                        input_size=64)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        swin.train()(images, ids)
+    """v2, linear-SR v2 and Swin train now: a training-mode forward and an
+    eval-mode forward with gradients wanted both run and give every block
+    parameter a gradient (tests/test_torch_port_train_v2.py and _swin.py
+    hold the steps to JAX); eval under no_grad serves."""
+    images, ids = torch.rand(2, 64, 64, 3), torch.zeros(2, 16, dtype=torch.long)
+    for name in ("pvlt_v2_tiny", "pvlt_v2_linear_tiny", "pvlt_swin_tiny"):
+        model = create_model(dataclasses.replace(MICRO_V2, name=name), device="cpu",
+                             input_size=64)
+        for train in (True, False):
+            model.zero_grad(set_to_none=True)
+            model.train(train)(images, ids)["itm_logits"].sum().backward()
+            blocks = [(n, p) for n, p in model.named_parameters() if n.startswith("block")]
+            assert all(p.grad is not None and torch.isfinite(p.grad).all() for _, p in blocks), name
+        with torch.no_grad():
+            assert model.eval()(images, ids)["itm_logits"].shape == (2, 1, 2)
