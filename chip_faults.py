@@ -10,10 +10,10 @@ chip_smoke.py is; with fault names, only those. For each fault it copies
 ``build/planted_faults/<fault>/``, rewrites one line of a kernel source (or
 of the model's glue) there, runs the chip_smoke phase that checks it
 (``kernels``, ``v2_kernels``, ``swin_kernels``, ``fba_train_kernels``,
-``train_kernels``, ``mlm_kernels``, ``train_glue``, ``v2_route`` or
-``remat``) in that copy (its kernels built from the changed source), and
-then, with the bound lifted, prints every check's error at the B = 4
-shapes. The copy is removed afterwards; the sources of the checkout are
+``train_kernels``, ``mlm_kernels``, ``train_glue``, ``v2_route``,
+``remat`` or ``ddp_two_ranks``) in that copy (its kernels built from the
+changed source), and then, with the bound lifted, prints every check's
+error at the B = 4 shapes. The copy is removed afterwards; the sources of the checkout are
 never changed. It exits non-zero if a fault passes the phase.
 
 Faults, kernel A's chain (csrc/sr_kv.cu), phase kernels:
@@ -115,6 +115,19 @@ The training paths' glue (models/swin.py, ops/sr_kv.py, models/pvlt.py):
                        generator's end state);
   v2_fused_route       a v2 block takes the fused attention half when
                        fused_attn_train is set (phase v2_route: launches).
+Data parallelism (models/heads.py, train/losses.py, parallel/sharding.py),
+phase ddp_two_ranks (two gloo ranks on the card against one process):
+  bn_per_rank_stats    the T2I head's BatchNorm normalises each rank's batch
+                       by its own statistics, skipping the cross-rank sums;
+  mlm_mean_of_means    each rank divides its MLM loss by its own labeled
+                       count (DDP then averages the ranks' means);
+  eval_pad_counted     the padded slots of a rank's eval shard enter the
+                       gathered results;
+  bn_grad_unreduced    the cross-rank sums' backward (parallel/sharding.py:
+                       _AllReduceSum) returns each rank's own gradient
+                       unreduced: the BatchNorms' statistics stay global,
+                       their gradients miss the other rank's loss (a fault
+                       of the gradients alone).
 """
 
 from __future__ import annotations
@@ -273,9 +286,29 @@ FAULTS = {
         "v2_route", "mvlt_tpu_torch/models/pvlt.py",
         "self.training and not self.v2 and not self.drop",
         "self.training and not self.drop"),
+    "bn_per_rank_stats": (
+        "ddp_two_ranks", "mvlt_tpu_torch/models/heads.py",
+        "if group_size(self.group) == 1:",
+        "if True:"),
+    "mlm_mean_of_means": (
+        "ddp_two_ranks", "mvlt_tpu_torch/train/losses.py",
+        "    return loss * global_mean_scale(labels, group, total)",
+        "    return loss"),
+    "eval_pad_counted": (
+        "ddp_two_ranks", "mvlt_tpu_torch/parallel/sharding.py",
+        "mask[r, :EvalShard(shard.total, r, shard.world).count] = True",
+        "mask[r, :] = True"),
+    "bn_grad_unreduced": (
+        "ddp_two_ranks", "mvlt_tpu_torch/parallel/sharding.py",
+        "        dx = dy.clone()\n        dist.all_reduce(dx, group=ctx.group)\n        return dx, None",
+        "        return dy.clone(), None"),
 }
 # per phase: the checks at B = 4 that print each error with the bound lifted
 MARGINS = {
+    # the phase's own line carries every gap beside its bound
+    "ddp_two_ranks": """
+pass
+""",
     "kernels": """
 gen = torch.Generator().manual_seed(c.SEED)
 shapes = [(f"stage{i + 1}", (h, w, d, nh, sr, hid, c.TEXT))

@@ -200,7 +200,24 @@ JSON line each; a failed phase raises and the script exits non-zero:
      metrics of the same reader and scorer run directly (kernels A and B
      launched, no training kernel), the recognition artifact, ``--viz``,
      and one pre-training epoch on the tree's reader (the readers decode
-     with Pillow; the phase fails where it is not installed).
+     with Pillow; the phase fails where it is not installed);
+ 13. data parallelism at world 1 (ddp_world1): phase 11's first run (2
+     pre-training epochs of configs/pretrain_exp21.py, synthetic, B = 150,
+     the VL eval on the sharded path) under ``python -m
+     torch.distributed.run --nproc_per_node=1`` on NCCL, its launches equal
+     to that run's without a process group, its rank-0 checkpoint loaded
+     strictly by ``load_eval_model``; in the rank, a DDP step against the unwrapped
+     step from the same state and batch (DDP_TOL, the largest gap printed);
+ 14. two ranks on the one card over gloo (ddp_two_ranks; NCCL refuses two
+     ranks on one device): a B = 75 step each against the B = 150 step
+     (losses and BatchNorm statistics within DDP_TOL, gradients within
+     DDP_TOL or the step's own noise under a reordering of its rows and,
+     formed in bf16, the ranks' bf16 roundings), ZeRO-1's AdamW on the same
+     gradients (within ZERO_TOL,
+     the moments split), retrieval over 3 bundles and recognition over 10
+     items sharded over the ranks with the one-process metrics, the
+     two-rank step's ms (gloo through host copies) beside the one-process
+     step's.
 
 Then one line {"kernels": [...]}: per kernel the launches of its path's
 run (the MLM CE kernels': the command line's), the largest error of its
@@ -2545,6 +2562,11 @@ TRACE_KERNELS = {"attention_fwd": ("attn_fwd_hopper_kernel",),
                  "mlm_ce_fwd": ("mlm_ce_fwd_kernel",), "mlm_ce_bwd": ("mlm_ce_dlogits_kernel",)}
 
 
+# the launches of phase_cli's first run (2 pre-training epochs), which
+# ddp_world1 repeats under torchrun
+CLI_PRETRAIN_LAUNCHES: dict = {}
+
+
 def phase_cli(stats: dict) -> None:
     """The pre-training entry point on the card, as a user runs it:
     ``mvlt_tpu_torch.cli.main`` with configs/pretrain_exp21.py on synthetic
@@ -2567,14 +2589,16 @@ def phase_cli(stats: dict) -> None:
                           "--synthetic-data", "--output-dir", str(ft), "--epochs", "1",
                           "--finetune", str(pre)])]
     try:
-        reset_launches()
-        seconds = {}
+        seconds, by_run = {}, {}
         for label, argv in runs:
+            reset_launches()
             start = time.perf_counter()
             cli.main(argv)
             torch.cuda.synchronize()
             seconds[label] = time.perf_counter() - start
-        launches = read_launches()
+            by_run[label] = read_launches()
+        launches = {k: sum(run[k] for run in by_run.values()) for k in WRAPPERS}
+        CLI_PRETRAIN_LAUNCHES.update(by_run["pretrain"])
         start = time.perf_counter()
         cli.main(["--config", str(REPO / "configs" / "pretrain_exp21.py"), "--synthetic-data",
                   "--output-dir", str(out / "profiled"), "--epochs", "1",
@@ -2754,9 +2778,12 @@ LINEAR_M = {64: 177, 32: 192, 16: 192}
 SWIN_TRAIN_ATTN_SHAPES = [(64, 64, 64, 1, 8), (32, 32, 128, 2, 8), (16, 16, 320, 5, 8),
                           (8, 8, 512, 8, 8), (28, 28, 128, 2, 8), (10, 6, 96, 3, 4)]
 # remat against no remat, one step from one generator seed: each loss, and
-# each gradient relative to its tensor's largest magnitude (or twice what a
-# repeat of the step without remat moves that tensor by, where that is more)
+# each gradient relative to its tensor's largest magnitude
 REMAT_TOL = 1e-3
+# tensors held instead to twice what a repeat of the step without remat
+# moves them by, where that is more than REMAT_TOL: none since the
+# pos-embed resize became two fixed products (models/pvlt.py:resize_pos_embed)
+REMAT_REPEAT_GAP: tuple = ()
 # the wrappers a remat step launches twice (forward, then the recompute)
 REMAT_RECOMPUTED = ("attention_fwd", "ln_mlp_fwd", "fba_train_fwd")
 DEEPER = ("pvlt_small", "pvlt_medium", "pvlt_large", "pvlt_v2_small", "pvlt_swin_small")
@@ -2920,12 +2947,11 @@ def remat_pair(cfg: ModelConfig, batch: dict, phase: str, expected: dict) -> Non
     """One step of ``cfg`` without remat, again without it, and with it,
     each from the same weights and generator seed on ``batch``: every loss
     within REMAT_TOL, every gradient within REMAT_TOL of its tensor's
-    largest magnitude or twice the two runs without remat's own gap on that
-    tensor (the step is not bit-reproducible on the card: atomics in the
-    backward of cuDNN's convs, of the embedding gathers and of the
-    pos-embeds' bilinear resize), the generators in the same state after,
-    the forward wrappers of REMAT_RECOMPUTED launched twice as often with
-    remat, and the peak memory lower with it; then ms/step of each."""
+    largest magnitude (a tensor of REMAT_REPEAT_GAP: or twice the two runs
+    without remat's own gap on it), the pos-embeds' gradients bit-equal
+    over the two runs without remat, the generators in the same state
+    after, the forward wrappers of REMAT_RECOMPUTED launched twice as often
+    with remat, and the peak memory lower with it; then ms/step of each."""
     sd = None
     runs = {}
     for label, remat in (("plain", False), ("again", False), ("remat", True)):
@@ -2960,14 +2986,18 @@ def remat_pair(cfg: ModelConfig, batch: dict, phase: str, expected: dict) -> Non
                 for n, g in plain["grads"].items()}
 
     grad_err, floor = gaps(remat), gaps(again)
-    bad = {n: (e, floor[n]) for n, e in grad_err.items() if e > max(REMAT_TOL, 2 * floor[n])}
+    bad = {n: (e, floor[n]) for n, e in grad_err.items()
+           if e > (max(REMAT_TOL, 2 * floor[n]) if n in REMAT_REPEAT_GAP else REMAT_TOL)}
+    pos_repeat_equal = all(torch.equal(again["grads"][n], g) for n, g in plain["grads"].items()
+                           if "pos_embed" in n)
+    repeat_gaps = {n: e for n, e in sorted(floor.items(), key=lambda kv: -kv[1]) if e}
     worst = max(grad_err, key=grad_err.get)
     above = sorted((n for n, e in grad_err.items() if e > REMAT_TOL), key=grad_err.get)[-5:]
     want = {k: n * (2 if k in REMAT_RECOMPUTED else 1) for k, n in expected.items()}
     launches_ok = all(plain["launches"][k] == expected.get(k, 0)
                       and remat["launches"][k] == want.get(k, 0) for k in WRAPPERS)
     rng_equal = torch.equal(plain["rng"], remat["rng"])
-    ok = (loss_err <= REMAT_TOL and not bad and rng_equal and launches_ok
+    ok = (loss_err <= REMAT_TOL and not bad and rng_equal and launches_ok and pos_repeat_equal
           and sorted(plain["grads"]) == sorted(remat["grads"])
           and remat["peak_gib"] < plain["peak_gib"])
     emit(phase, model=cfg.name, batch=TRAIN_BATCH, drop_path_rate=cfg.drop_path_rate,
@@ -2976,7 +3006,9 @@ def remat_pair(cfg: ModelConfig, batch: dict, phase: str, expected: dict) -> Non
          losses=plain["losses"], rel_err_losses=loss_err, rel_err_grads=grad_err[worst],
          worst_tensor=worst, worst_tensor_floor=floor[worst],
          above_tol={n: [grad_err[n], floor[n]] for n in above},
-         rel_err_grads_repeat=max(floor.values()), failing=bad, generator_equal=rng_equal,
+         rel_err_grads_repeat=max(floor.values()), repeat_gaps=dict(list(repeat_gaps.items())[:8]),
+         pos_embed_grads_repeat_bit_equal=pos_repeat_equal, failing=bad,
+         generator_equal=rng_equal,
          launches=plain["launches"], launches_remat=remat["launches"],
          launches_expected=expected, launches_remat_expected=want,
          peak_gib=plain["peak_gib"], peak_gib_remat=remat["peak_gib"],
@@ -2986,7 +3018,8 @@ def remat_pair(cfg: ModelConfig, batch: dict, phase: str, expected: dict) -> Non
     if not ok:
         raise AssertionError(f"{phase}: remat vs not: losses {loss_err}, gradients {bad} "
                              f"(tensor: error, repeat's gap), generator equal {rng_equal}, "
-                             f"launches {launches_ok}, peaks {plain['peak_gib']} / "
+                             f"launches {launches_ok}, pos-embeds' repeat bit-equal "
+                             f"{pos_repeat_equal}, peaks {plain['peak_gib']} / "
                              f"{remat['peak_gib']} GiB (tol {REMAT_TOL})")
 
 
@@ -3038,8 +3071,544 @@ def phase_registry(stats: dict) -> None:
         del model
         torch.cuda.empty_cache()
 
+# ---- data parallelism (mvlt_tpu_torch/parallel/) ---------------------------
+
+DDP_DIR = REPO / "build" / "chip_smoke_ddp"
+DDP_TOL = 1e-3      # a DDP step's losses, gradients and BatchNorm statistics, relative
+                    # to each tensor's largest magnitude, unless the step's own noise is more:
+# the one-process step on the same rows in another order (the batch's
+# halves swapped) moves gradients too: the T2I head's BatchNorms couple
+# every row, and bf16 roundings of their outputs cascade into the
+# backbone's gradients; a gradient may differ by SWAP_FACTOR times the
+# largest such move over all tensors. A tensor's own move does not bound
+# it: the ranks' B = 75 shapes round otherwise than B = 150 does, and move
+# tensors that neither the swap nor the rows dealt to the ranks alternately
+# (printed beside each of the largest ratios) move as much. A fault of the
+# gradients alone, such as the cross-rank sums' backward unreduced, lands
+# thousands of times over this bound (chip_faults.py:bn_grad_unreduced)
+SWAP_FACTOR = 2.0
+# a gradient that autograd forms in bf16 (every element bf16-valued in the
+# one-process step) carries each rank's rounding of its partial and the
+# one-process rounding of the total: up to BF16_SPACING of each magnitude
+BF16_SPACING = 2.0 ** -8
+FIRST_BN = ("t2i_head.reduction1.1.", "t2i_head.reduction2.1.", "t2i_head.reduction3.1.")
+ZERO_TOL = 1e-6     # ZeRO-1's parameters after AdamW against the plain AdamW's
+DDP_BUNDLES = 3
+DDP_ITEMS = 10
+PRETRAIN_CONFIG = REPO / "configs" / "pretrain_exp21.py"
+
+
+_SEEDED: dict = {}
+
+
+def seeded_weights(model) -> dict:
+    """seeded_state_dict(model, SEED), made once in a process per set of
+    tensor names and shapes."""
+    key = tuple((n, tuple(t.shape)) for n, t in model.state_dict().items())
+    if key not in _SEEDED:
+        _SEEDED[key] = seeded_state_dict(model, SEED)
+    return _SEEDED[key]
+
+
+def ddp_config() -> ModelConfig:
+    """pvlt_tiny at full width with configs/pretrain_exp21.py's heads and
+    routes, DropPath and dropout off: the comparisons' config."""
+    return ModelConfig(name="pvlt_tiny", compute_dtype="bfloat16", drop_path_rate=0.0,
+                       bert_dropout=0.0)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def spawn_ranks(role: str, world: int, spec: dict, timeout: float,
+                torchrun: bool = False) -> list:
+    """Run ``chip_smoke.py --ddp-rank <role>`` as ``world`` ranks (through
+    torch.distributed.run, or with the torchrun environment set here, all on
+    cuda:0); each writes its results to DDP_DIR/<role>_<rank>.json. Raises
+    RuntimeError with the ranks' output if one fails, TimeoutExpired if the
+    timeout passes."""
+    DDP_DIR.mkdir(parents=True, exist_ok=True)
+    spec_path = DDP_DIR / f"{role}.json"
+    spec_path.write_text(json.dumps(spec))
+    port = free_port()
+    rank_cmd = [str(REPO / "chip_smoke.py"), "--ddp-rank", role, str(spec_path)]
+    if torchrun:
+        cmds = [[sys.executable, "-m", "torch.distributed.run", f"--nproc_per_node={world}",
+                 "--master_addr=127.0.0.1", f"--master_port={port}", *rank_cmd]]
+        envs = [dict(os.environ)]
+    else:
+        cmds = [[sys.executable, *rank_cmd] for _ in range(world)]
+        envs = [{**os.environ, "RANK": str(r), "WORLD_SIZE": str(world), "LOCAL_RANK": str(r),
+                 "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)} for r in range(world)]
+    procs = [subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd, env in zip(cmds, envs)]
+    try:
+        outs = [p.communicate(timeout=timeout) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode for p in procs):   # a crash, not a failed check
+        raise RuntimeError(f"{role}: a rank failed: " + " | ".join(
+            f"rc {p.returncode}: {o[-1500:]} {e[-2500:]}" for p, (o, e) in zip(procs, outs)))
+    return [json.loads((DDP_DIR / f"{role}_{r}.json").read_text()) for r in range(world)]
+
+
+def grads_of(model) -> dict:
+    return {n: p.grad.detach().float().cpu() for n, p in model.named_parameters()
+            if p.grad is not None}
+
+
+def rel_gaps(got: dict, want: dict) -> dict:
+    """Per tensor, the largest gap between two dicts of tensors relative to
+    the ``want`` tensor's largest magnitude."""
+    assert sorted(got) == sorted(want), (sorted(set(got) ^ set(want)))[:5]
+    return {n: float((got[n].double() - w.double()).abs().max())
+            / max(float(w.double().abs().max()), 1e-30) for n, w in want.items()}
+
+
+def max_rel_gap(got: dict, want: dict) -> tuple[float, str]:
+    """The largest of ``rel_gaps`` and the tensor's name."""
+    gaps = rel_gaps(got, want)
+    worst = max(gaps, key=gaps.get)
+    return gaps[worst], worst
+
+
+def top_gaps(gaps: dict, want: dict, k: int = 12) -> list:
+    """The ``k`` largest gaps: [name, gap, largest magnitude, elements]."""
+    return [[n, gaps[n], float(want[n].abs().max()), want[n].numel()]
+            for n in sorted(gaps, key=gaps.get, reverse=True)[:k]]
+
+
+def loss_gap(got: dict, want: dict) -> float:
+    return max(abs(got[k] - v) / max(abs(v), 1e-12) for k, v in want.items() if v)
+
+
+def ddp_world1_rank(spec: dict) -> None:
+    """The rank of ``ddp_world1`` (torchrun, one process, NCCL): the CLI's
+    epoch with the launch counts, the rank-0 checkpoint loaded by
+    ``load_eval_model`` and with strict names, then one DDP step against
+    the unwrapped step from the same weights, generator and batch."""
+    from mvlt_tpu_torch.parallel import mesh
+    from mvlt_tpu_torch.parallel.sharding import wrap_model
+    from mvlt_tpu_torch.utils.checkpoint import STATE_FILE
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    reset_launches()
+    start = time.perf_counter()
+    cli.main(spec["argv"])
+    torch.cuda.synchronize()
+    cli_seconds = time.perf_counter() - start
+    launches = read_launches()
+    backend, world = torch.distributed.get_backend(), mesh.world_size()
+    device = torch.device("cuda", torch.cuda.current_device())
+    saved = torch.load(pathlib.Path(spec["run"]) / "checkpoint" / "last" / STATE_FILE,
+                       map_location="cpu", weights_only=True)["model"]
+    run_cfg = cli.build_run_config(cli.get_args_parser().parse_args(
+        spec["argv"] + ["--resume", spec["run"]]))
+    eval_model = cli.load_eval_model(run_cfg, device)
+    eval_model.load_state_dict(saved, strict=True)
+    strict_names = (sorted(saved) == sorted(eval_model.state_dict())
+                    and not any(k.startswith("module.") for k in saved))
+    del eval_model
+
+    cfg = ddp_config()
+    batch = batch_to_device(train_batch(SEED, TRAIN_BATCH), device)
+    runs = {}
+    for label in ("plain", "ddp"):
+        model = create_model(cfg, device=device)
+        model.load_state_dict(seeded_weights(model), strict=True)
+        ddp = wrap_model(model, device) if label == "ddp" else None
+        state = create_train_state(model, OptimConfig(warmup_epochs=0), TRAIN_BATCH, 1,
+                                   seed=SEED, ddp=ddp)
+        _, losses = make_train_step(cfg)(state, batch)
+        runs[label] = ({k: float(v) for k, v in losses.items()}, grads_of(model))
+        del model, state, ddp
+    gap, worst = max_rel_gap(runs["ddp"][1], runs["plain"][1])
+    (pathlib.Path(spec["out"]) / "world1_0.json").write_text(json.dumps({
+        "launches": launches, "backend": backend, "world": world, "cli_seconds": cli_seconds,
+        "strict_names": strict_names, "checkpoint_tensors": len(saved),
+        "step_grad_gap": gap, "step_grad_gap_tensor": worst,
+        "step_loss_gap": loss_gap(runs["ddp"][0], runs["plain"][0]),
+        "losses": runs["ddp"][0]}))
+    mesh.destroy()
+
+
+def phase_ddp_world1(stats: dict) -> None:
+    """Data parallelism at world 1 through the user's entry point:
+    ``python -m torch.distributed.run --nproc_per_node=1`` running
+    ``mvlt_tpu_torch.cli.main`` with configs/pretrain_exp21.py on synthetic
+    data (B = 150, 2 epochs of one step, the VL eval on the sharded path in
+    epoch 1) on NCCL, the first run of phase ``cli`` again: finite losses
+    and eval statistics, a rank-0 checkpoint with the reference's names
+    that ``load_eval_model`` loads strictly, and every wrapper launched as
+    often as in that run without a process group. Then, in the rank, one
+    DDP step against the unwrapped step from the same state and batch: each
+    loss and gradient within DDP_TOL of its tensor's largest magnitude (the
+    largest gap printed)."""
+    out = DDP_DIR / "world1"
+    shutil.rmtree(out, ignore_errors=True)
+    # phase_cli's first run: its launches without a process group
+    argv = ["--config", str(PRETRAIN_CONFIG), "--synthetic-data", "--epochs", "2"]
+    try:
+        if not CLI_PRETRAIN_LAUNCHES:   # the phase run on its own
+            reset_launches()
+            cli.main(argv + ["--output-dir", str(out / "plain")])
+            torch.cuda.synchronize()
+            CLI_PRETRAIN_LAUNCHES.update(read_launches())
+        plain = dict(CLI_PRETRAIN_LAUNCHES)
+        torch.cuda.empty_cache()
+        run = out / "ddp"
+        start = time.perf_counter()
+        (res,) = spawn_ranks("world1", 1, {"argv": argv + ["--output-dir", str(run)],
+                                           "run": str(run), "out": str(DDP_DIR)},
+                             timeout=600, torchrun=True)
+        seconds = time.perf_counter() - start
+        log = _train_log(run)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    finite = all(np.isfinite(v) for line in log for v in line.values())
+    evals = {k: v for k, v in log[-1].items() if k.startswith("eval_")}
+    ok = (res["backend"] == "nccl" and res["world"] == 1 and len(log) == 2 and finite
+          and bool(evals) and res["strict_names"] and res["launches"] == plain
+          and all(plain[k] for k in (*TRAINING_WRAPPERS, *MLM_WRAPPERS))
+          and res["step_grad_gap"] <= DDP_TOL and res["step_loss_gap"] <= DDP_TOL)
+    emit("ddp_world1", config="configs/pretrain_exp21.py", batch=TRAIN_BATCH,
+         backend=res["backend"], world=res["world"], launches=res["launches"],
+         launches_without_process_group=plain, strict_names=res["strict_names"],
+         checkpoint_tensors=res["checkpoint_tensors"], losses=log, eval_stats=evals,
+         step_grad_gap=res["step_grad_gap"], step_grad_gap_tensor=res["step_grad_gap_tensor"],
+         step_loss_gap=res["step_loss_gap"], tol=DDP_TOL, cli_seconds=res["cli_seconds"],
+         seconds=seconds, ok=ok)
+    if not ok:
+        raise AssertionError(f"ddp_world1 failed its checks: {res}, log {log}, "
+                             f"launches without a process group {plain}")
+
+
+def eval_models(device) -> tuple:
+    """(ITM-only model for retrieval, CLS-only model for recognition),
+    pvlt_tiny in bf16 with seeded weights, in eval mode."""
+    models = []
+    for heads in (LossType(itm=True, mlm=False, t2i=False, cls=False), CLS_HEADS):
+        model = create_model(ModelConfig(name="pvlt_tiny", compute_dtype="bfloat16",
+                                         loss_type=heads), device=device)
+        model.load_state_dict(seeded_weights(model), strict=True)
+        models.append(model.eval())
+    return tuple(models)
+
+
+def ddp_evals(device, artifact_dir: pathlib.Path, shard_of=None) -> dict:
+    """Retrieval over DDP_BUNDLES bundles and recognition over DDP_ITEMS
+    items (batch 500: one ragged batch), sharded with ``shard_of(n)``; the
+    metrics, and the recognition artifact's labels and predictions (None on
+    a rank other than 0, which writes none)."""
+    itm, cls_model = eval_models(device)
+    bundles = synthetic_bundles(DDP_BUNDLES, SEED + 5, 256, 128)
+    items = RecognitionItems(DDP_ITEMS, SEED + 6, 256, 128)
+    shard = shard_of(len(bundles)) if shard_of else None
+    retrieval = evaluate_retrieval(make_itm_scorer(itm), cli._simple_loader(bundles, 1, shard),
+                                   is_main=False, shard=shard)
+    shard = shard_of(len(items)) if shard_of else None
+    main = shard is None or shard.rank == 0
+    rec = evaluate_recognition(make_cls_scorer(cls_model),
+                               cli._simple_loader(items, REC_BATCH, shard), is_main=main,
+                               shard=shard, artifact_dir=str(artifact_dir))
+    preds = None
+    if main:
+        with open(artifact_dir / "recognition_predictions.json") as f:
+            art = json.load(f)
+        preds = {k: art[k] for k in ("sup_labels", "sup_preds", "sub_labels", "sub_preds")}
+    return {"retrieval": retrieval, "recognition": rec, "recognition_predictions": preds}
+
+
+def ddp_two_ranks_rank(spec: dict) -> None:
+    """A rank of ``ddp_two_ranks`` (gloo, both ranks on cuda:0): one DDP
+    step at B = 75 (its rows of the B = 150 batch); the same step with the
+    rows dealt to the ranks alternately (what regrouping the rows alone
+    moves); the same step under ZeRO-1 through
+    ``create_train_state(zero1=True)`` and ``make_train_step``, its state
+    consolidated and saved by ``CheckpointManager``; the step's time; and
+    the sharded evals."""
+    from torch.distributed.algorithms.ddp_comm_hooks import default_hooks
+
+    from mvlt_tpu_torch.parallel import mesh
+    from mvlt_tpu_torch.parallel.sharding import EvalShard, wrap_model
+    from mvlt_tpu_torch.utils.checkpoint import STATE_FILE, CheckpointManager
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = mesh.maybe_init_distributed(device="cuda:0", backend="gloo")
+    rank, world = mesh.rank(), mesh.world_size()
+    cfg = ddp_config()
+    host = dict(np.load(spec["batch"]))
+    share = TRAIN_BATCH // world
+
+    def rows_of(rows):
+        return batch_to_device({k: v[rows] for k, v in host.items()}, device)
+
+    def ddp_state(zero1=False):
+        """A DDP model from the seeded weights and its state at step 0."""
+        net = create_model(cfg, device=device)
+        net.load_state_dict(seeded_weights(net), strict=True)
+        wrap = wrap_model(net, device)
+        return net, wrap, create_train_state(net, OptimConfig(warmup_epochs=0), TRAIN_BATCH,
+                                             1, seed=SEED + rank, ddp=wrap, zero1=zero1)
+
+    batch = rows_of(slice(rank * share, (rank + 1) * share))
+    model, ddp, state = ddp_state()
+    names = {id(p): n for n, p in model.named_parameters()}
+    partial_max = {}
+
+    def recording_hook(group, bucket):
+        """DDP's all-reduce, after noting each gradient's largest magnitude
+        on this rank before the reduction."""
+        for p, g in zip(bucket.parameters(), bucket.gradients()):
+            partial_max[names[id(p)]] = g.detach().abs().max()
+        return default_hooks.allreduce_hook(group, bucket)
+
+    ddp.register_comm_hook(None, recording_hook)
+    step = make_train_step(cfg)
+    reset_launches()
+    _, losses = step(state, batch)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    partials = {n: float(v) for n, v in partial_max.items()}   # this step's (the timing reruns)
+    grads = grads_of(model)
+    after = {n: p.detach().clone() for n, p in model.named_parameters()}
+    buffers = {n: b.detach().float().cpu() for n, b in model.named_buffers()}
+    sums = torch.tensor([float(losses[k]) for k in sorted(losses)], dtype=torch.float64,
+                        device=device)
+    torch.distributed.all_reduce(sums)
+    mean_losses = dict(zip(sorted(losses), (sums / world).tolist()))
+    checksum = torch.tensor([sum(float(g.double().sum()) for g in grads.values())],
+                            dtype=torch.float64, device=device)
+    both = torch.zeros(world, dtype=torch.float64, device=device)
+    both[rank] = checksum[0]
+    torch.distributed.all_reduce(both)
+
+    net, wrap, probe = ddp_state()
+    step(probe, rows_of(slice(rank, None, world)))
+    dealt_grads = grads_of(net)
+    del net, wrap, probe
+
+    # the same step under ZeRO-1, through the port's state and step, then
+    # its AdamW state consolidated on rank 0 and saved as the CLI saves it
+    net, wrap, zstate = ddp_state(zero1=True)
+    step(zstate, batch)
+    torch.cuda.synchronize()
+    zero_gap = max(float((p - after[n]).abs().max()) for n, p in net.named_parameters())
+    moment_bytes = sum(t.numel() * t.element_size()
+                       for st in zstate.optimizer.optim.state.values()
+                       for k, t in st.items() if k in ("exp_avg", "exp_avg_sq"))
+    full_bytes = 2 * sum(p.numel() * p.element_size() for p in net.parameters()
+                         if p.requires_grad)
+    ckpt_dir = pathlib.Path(spec["out"]) / "zero1_run"
+    CheckpointManager(str(ckpt_dir)).save_epoch(zstate, 0, 1)
+    saved_gap = saved_names = None
+    if rank == 0:   # the consolidated moments against the plain AdamW's
+        saved = torch.load(ckpt_dir / "checkpoint" / "last" / STATE_FILE, map_location="cpu",
+                           weights_only=True)
+        plain_moments = state.optimizer.state_dict()["state"]
+        saved_moments = saved["optimizer"]["state"]
+        saved_names = (sorted(saved["model"]) == sorted(model.state_dict())
+                       and sorted(saved_moments) == sorted(plain_moments))
+        saved_gap = max(float((saved_moments[i][k].float().cpu() - v.float().cpu()).abs().max())
+                        for i, st in plain_moments.items()
+                        for k, v in st.items() if k in ("exp_avg", "exp_avg_sq"))
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    del net, wrap, zstate
+
+    ms = cuda_time_ms(lambda: step(state, batch), warmup=1, reps=3)
+    del state, model
+    torch.cuda.empty_cache()
+    evals = ddp_evals(device, pathlib.Path(spec["out"]) / f"rank{rank}", EvalShard.of_this_rank)
+    out = pathlib.Path(spec["out"])
+    if rank == 0:
+        torch.save({"grads": grads, "buffers": buffers, "dealt_grads": dealt_grads},
+                   out / "two_ranks_tensors.pt")
+    (out / f"two_ranks_{rank}.json").write_text(json.dumps({
+        "world": world, "backend": torch.distributed.get_backend(), "launches": launches,
+        "losses": {k: float(v) for k, v in losses.items()}, "mean_losses": mean_losses,
+        "grad_checksums": both.tolist(), "zero1_param_gap": zero_gap,
+        "zero1_moment_bytes": moment_bytes, "full_moment_bytes": full_bytes,
+        "zero1_saved_moment_gap": saved_gap, "zero1_saved_names": saved_names,
+        "partial_max": partials, "ms_per_step": ms, **evals}))
+    mesh.destroy()
+
+
+def phase_ddp_two_ranks(stats: dict) -> None:
+    """Two ranks on the one card over gloo (NCCL refuses two ranks on one
+    device), pvlt_tiny at full width with the pre-training heads, DropPath
+    and dropout off, host masks, seeded weights: one step at B = 75 a rank
+    against this process's step at B = 150. Each loss within DDP_TOL; each
+    gradient within DDP_TOL of its tensor's largest magnitude or, where
+    more, within the step's own noise: SWAP_FACTOR times the largest move
+    of any gradient when this process takes the same step on the rows in
+    another order (the batch's halves swapped), to which a gradient
+    autograd forms in bf16 (bf16-valued in the one-process step) adds
+    BF16_SPACING of the largest rank partial (read by a comm hook before
+    the reduction) plus the total's largest magnitude (each rank rounds its
+    partial to bf16 before DDP adds them, where one process rounds the
+    total once). The largest ratios print each tensor's own moves, under
+    the swap and with the rows dealt to the ranks alternately, and the
+    worst gap over a bound from a tensor's own moves is printed. The
+    BatchNorm running statistics within DDP_TOL (the backbone-reading ones
+    printed apart).
+    Every training wrapper launched as in the one-process step. The same
+    two-rank step under ZeRO-1 through the port's state and step (the
+    parameters within ZERO_TOL of the plain two-rank step's, each rank
+    holding about half the moments' bytes, the state consolidated and saved
+    by CheckpointManager with the moments of the plain step), and retrieval
+    over DDP_BUNDLES bundles and recognition over DDP_ITEMS items sharded
+    over the ranks, whose metrics (and rank 0's recognition artifact's
+    predictions) equal this process's. The two-rank step's ms beside the
+    one-process step's: gloo through host copies, not a speed of NCCL
+    DDP."""
+    cfg = ddp_config()
+    DDP_DIR.mkdir(parents=True, exist_ok=True)
+    host = train_batch(SEED, TRAIN_BATCH)
+    arrays = {k: v for k, v in host.items() if isinstance(v, np.ndarray)}
+    np.savez(DDP_DIR / "batch.npz", **arrays)
+    model = create_model(cfg)
+    model.load_state_dict(seeded_weights(model), strict=True)
+    state = create_train_state(model, OptimConfig(warmup_epochs=0), TRAIN_BATCH, 1, seed=SEED)
+    step = make_train_step(cfg)
+    batch = batch_to_device(arrays, "cuda")
+    reset_launches()
+    _, losses = step(state, batch)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    want_losses = {k: float(v) for k, v in losses.items()}
+    want_grads = grads_of(model)
+    want_buffers = {n: b.detach().float().cpu() for n, b in model.named_buffers()}
+    one_ms = cuda_time_ms(lambda: step(state, batch), warmup=1, reps=3)
+    del state, model
+    # the same step on the batch with its halves swapped: what the order of
+    # the rows alone moves each tensor by
+    half = TRAIN_BATCH // 2
+    swapped = {k: torch.cat([v[half:], v[:half]]) for k, v in batch.items()}
+    model = create_model(cfg)
+    model.load_state_dict(seeded_weights(model), strict=True)
+    state = create_train_state(model, OptimConfig(warmup_epochs=0), TRAIN_BATCH, 1, seed=SEED)
+    step(state, swapped)
+    swap_grads = rel_gaps(grads_of(model), want_grads)
+    swap_buffers = rel_gaps({n: b.detach().float().cpu() for n, b in model.named_buffers()},
+                            want_buffers)
+    del state, model, batch, swapped
+    torch.cuda.empty_cache()
+    want_evals = ddp_evals(torch.device("cuda"), DDP_DIR / "one_process")
+    torch.cuda.empty_cache()
+    start = time.perf_counter()
+    try:
+        ranks = spawn_ranks("two_ranks", 2, {"batch": str(DDP_DIR / "batch.npz"),
+                                             "out": str(DDP_DIR)}, timeout=600)
+        got = torch.load(DDP_DIR / "two_ranks_tensors.pt", weights_only=True)
+    finally:
+        shutil.rmtree(DDP_DIR, ignore_errors=True)
+    seconds = time.perf_counter() - start
+    # each gradient against its bound: DDP_TOL of its largest magnitude, or
+    # the step's reordering noise, plus for a gradient formed in bf16 the
+    # roundings of the ranks' partials and of the one-process total
+    grad_gaps = rel_gaps(got["grads"], want_grads)
+    swap_max = max(swap_grads.values())
+    dealt = rel_gaps(got["dealt_grads"], got["grads"])
+    own = {n: g / max(DDP_TOL, SWAP_FACTOR * max(swap_grads[n], dealt[n]))
+           for n, g in grad_gaps.items()}
+    own_worst = max(own, key=own.get)
+    bf16_formed = {n for n, w in want_grads.items()
+                   if torch.equal(w.to(torch.bfloat16).float(), w)}
+    bounds = {}
+    for n, w in want_grads.items():
+        big = float(w.abs().max())
+        rel = max(DDP_TOL, SWAP_FACTOR * swap_max)
+        if n in bf16_formed:   # the roundings add to the reordering's noise
+            partial = max(r["partial_max"][n] for r in ranks)
+            rel += BF16_SPACING * (partial + big) / max(big, 1e-30)
+        bounds[n] = rel
+    ratios = {n: grad_gaps[n] / bounds[n] for n in grad_gaps}
+    worst_ratio = max(ratios, key=ratios.get)
+    bn_gaps = rel_gaps(got["buffers"], want_buffers)
+    first_bn = {n: g for n, g in bn_gaps.items() if n.startswith(FIRST_BN)}
+    chained_bn = {n: g for n, g in bn_gaps.items() if n not in first_bn}
+    l_gap = loss_gap(ranks[0]["mean_losses"], want_losses)
+    checks = {
+        "backend_gloo_world_2": all(r["backend"] == "gloo" and r["world"] == 2 for r in ranks),
+        "grads_equal_on_both_ranks": len(set(ranks[0]["grad_checksums"])) == 1,
+        "losses": l_gap <= DDP_TOL, "grads": ratios[worst_ratio] <= 1.0,
+        "batchnorms": len(first_bn) == 6 and max(bn_gaps.values()) <= DDP_TOL,
+        "launches": all(r["launches"] == launches for r in ranks)
+        and all(launches[k] for k in (*TRAINING_WRAPPERS, *MLM_WRAPPERS)),
+        "zero1_params": all(r["zero1_param_gap"] <= ZERO_TOL for r in ranks),
+        "zero1_saved": ranks[0]["zero1_saved_names"] is True
+        and ranks[0]["zero1_saved_moment_gap"] <= ZERO_TOL,
+        "zero1_moments_split": (sum(r["zero1_moment_bytes"] for r in ranks)
+                                == ranks[0]["full_moment_bytes"]
+                                and all(0.3 < r["zero1_moment_bytes"] / r["full_moment_bytes"]
+                                        < 0.7 for r in ranks)),
+        "retrieval_equal": all(r["retrieval"] == want_evals["retrieval"] for r in ranks)
+        and want_evals["retrieval"]["num_queries"] == DDP_BUNDLES,
+        "recognition_equal": all(r["recognition"] == want_evals["recognition"] for r in ranks)
+        and ranks[0]["recognition_predictions"] == want_evals["recognition_predictions"]
+        and len(want_evals["recognition_predictions"]["sup_preds"]) == DDP_ITEMS,
+    }
+    diag = {"top_grad_gaps": [g + [bounds[g[0]], swap_grads[g[0]]]
+                              for g in top_gaps(grad_gaps, want_grads)],
+            "top_grad_ratios": [[n, ratios[n], grad_gaps[n], bounds[n], swap_grads[n], dealt[n]]
+                                for n in sorted(ratios, key=ratios.get, reverse=True)[:8]],
+            "worst_gap_over_own_moves": [own_worst, own[own_worst]],
+            "grads_over_half_bound": sum(r > 0.5 for r in ratios.values()),
+            "grads_bf16_formed": len(bf16_formed), "grads_total": len(want_grads),
+            "grads_above_tol": sum(g > DDP_TOL for g in grad_gaps.values()),
+            "first_batchnorm_gaps": first_bn,
+            "top_chained_bn_gaps": [g + [swap_buffers[g[0]]]
+                                    for g in top_gaps(chained_bn, want_buffers, 6)],
+            "swap_grad_gap_max": max(swap_grads.values()),
+            "dealt_grad_gap_max": max(dealt.values()),
+            "swap_bn_gap_max": max(swap_buffers.values())}
+    ok = all(checks.values())
+    emit("ddp_two_ranks", model="pvlt_tiny", batch_per_rank=TRAIN_BATCH // 2,
+         global_batch=TRAIN_BATCH, checks=checks, rel_err_losses=l_gap,
+         rel_err_grads=grad_gaps[max(grad_gaps, key=grad_gaps.get)],
+         worst_grad_tensor=max(grad_gaps, key=grad_gaps.get),
+         worst_grad_over_bound=[worst_ratio, ratios[worst_ratio]],
+         rel_err_first_batchnorms=max(first_bn.values()),
+         rel_err_chained_batchnorms=max(chained_bn.values()), tol=DDP_TOL,
+         swap_factor=SWAP_FACTOR, bf16_spacing=BF16_SPACING,
+         rank_losses=[r["losses"] for r in ranks], losses_one_process=want_losses,
+         launches=[r["launches"] for r in ranks], launches_one_process=launches,
+         zero1_param_gap=[r["zero1_param_gap"] for r in ranks], zero_tol=ZERO_TOL,
+         zero1_moment_bytes=[r["zero1_moment_bytes"] for r in ranks],
+         zero1_saved_moment_gap=ranks[0]["zero1_saved_moment_gap"],
+         full_moment_bytes=ranks[0]["full_moment_bytes"],
+         retrieval=ranks[0]["retrieval"], recognition=ranks[0]["recognition"],
+         ms_per_step_two_ranks=[r["ms_per_step"] for r in ranks], ms_per_step_one_process=one_ms,
+         ms_note="two ranks over gloo on one card: gradients all-reduced through host copies, "
+                 "not a speed of NCCL DDP; CUDA events, 1 warm-up, median of 3 steps",
+         seconds=seconds, **diag, ok=ok)
+    if not ok:
+        raise AssertionError(f"ddp_two_ranks failed {[k for k, v in checks.items() if not v]}: "
+                             f"losses {l_gap}, gradient over its bound {worst_ratio} "
+                             f"{ratios[worst_ratio]}, BatchNorms {max(bn_gaps.values())}, "
+                             f"retrieval "
+                             f"{[r['retrieval'] for r in ranks]} vs {want_evals['retrieval']}")
+
+
+DDP_ROLES = {"world1": ddp_world1_rank, "two_ranks": ddp_two_ranks_rank}
+
+
 
 def main() -> int:
+    if len(sys.argv) > 1 and sys.argv[1] == "--ddp-rank":   # a rank of a ddp_* phase
+        DDP_ROLES[sys.argv[2]](json.loads(pathlib.Path(sys.argv[3]).read_text()))
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU only",
               file=sys.stderr)
@@ -3086,6 +3655,8 @@ def main() -> int:
     timed("registry", phase_registry, stats)
     phase_cli(stats)
     phase_cli_eval()
+    timed("ddp_world1", phase_ddp_world1, stats)
+    timed("ddp_two_ranks", phase_ddp_two_ranks, stats)
     print(json.dumps({"kernels": [
         {**k, **{key: v for key, v in stats[k["name"]].items() if key != "bound_shares"}}
         for k in KERNELS]}), flush=True)

@@ -17,12 +17,22 @@ checkpoint of the port, or none: a fresh init). It runs on the card unless
 ``--device cpu`` is given, and raises when there is no card.
 
 ``--remat`` recomputes each block's activations in the backward
-(torch.utils.checkpoint, models/pvlt.py:checkpoint_block). Not ported, and
-refused with NotImplementedError: ``--zero1``, ``--tp-size`` other than 1
-and ``--steps-per-dispatch`` above 1.
+(torch.utils.checkpoint, models/pvlt.py:checkpoint_block).
+
+Data parallelism: launched by torchrun, each rank joins the process group
+the environment names (NCCL on the card, gloo with ``--device cpu``), wraps
+the model in DDP, draws its share of the samples with ``seed + rank`` for
+its masks, trains with the LR of the global batch (``--batch-size`` per
+rank), and scores its shard of every eval; only rank 0 prints, writes
+``train_log.jsonl`` and saves. ``--zero1`` partitions the AdamW state over
+the ranks (in one process there is nothing to partition and AdamW runs as
+it is). Not ported, and refused with NotImplementedError: ``--tp-size``
+other than 1 and ``--steps-per-dispatch`` above 1.
 
 Usage:
   python -m mvlt_tpu_torch.cli --config configs/pretrain_exp21.py --data-path <root>
+  python -m torch.distributed.run --nproc_per_node=8 -m mvlt_tpu_torch.cli \\
+      --config configs/pretrain_exp21.py --data-path <root> [--zero1]
   python -m mvlt_tpu_torch.cli --config configs/finetune_exp48.py --data-path <root> \\
       --finetune ./runs/pretrain_exp21
   python -m mvlt_tpu_torch.cli --config configs/pretrain_exp21.py --data-path <root> \\
@@ -42,6 +52,8 @@ import time
 import torch
 
 from mvlt_tpu_torch.config import RunConfig, apply_overrides, load_config_file
+from mvlt_tpu_torch.parallel import mesh
+from mvlt_tpu_torch.parallel.sharding import EvalShard, wrap_model
 
 
 def get_args_parser() -> argparse.ArgumentParser:
@@ -77,7 +89,8 @@ def get_args_parser() -> argparse.ArgumentParser:
     p.add_argument("--device-masks", action="store_true",
                    help="generate grid masks on the device (halves image H2D traffic)")
     p.add_argument("--steps-per-dispatch", type=int, default=1, help="not ported (1 only)")
-    p.add_argument("--zero1", action="store_true", help="not ported")
+    p.add_argument("--zero1", action="store_true",
+                   help="partition the AdamW state over the data-parallel ranks (ZeRO-1)")
     p.add_argument("--grad-accum", type=int, default=1,
                    help="k>1 splits each batch into k sequential microbatches inside "
                         "the step (averaged grads, BN stats threaded through)")
@@ -151,7 +164,6 @@ def build_run_config(args) -> RunConfig:
 
 def _refuse_unported(args, cfg: RunConfig) -> None:
     unported = {
-        "--zero1": args.zero1,
         "--tp-size other than 1": cfg.tp_size != 1,
         "--steps-per-dispatch above 1": args.steps_per_dispatch > 1,
     }
@@ -176,13 +188,14 @@ def load_eval_model(cfg: RunConfig, device):
     return model.eval()
 
 
-def _simple_loader(dataset, batch: int = 1):
-    """Host batches of an eval dataset in order, the last one ragged."""
+def _simple_loader(dataset, batch: int = 1, shard=None):
+    """Host batches of an eval dataset in order, the last one ragged; with
+    ``shard`` (parallel/sharding.py:EvalShard) those of this rank's slots."""
     from mvlt_tpu_torch.data.pipeline import DataLoader
     from mvlt_tpu_torch.data.samplers import SequentialSampler
 
-    return DataLoader(dataset, SequentialSampler(len(dataset)), batch, num_workers=4,
-                      drop_last=False)
+    sampler = SequentialSampler(len(dataset)) if shard is None else shard.indices()
+    return DataLoader(dataset, sampler, batch, num_workers=4, drop_last=False)
 
 
 def _eval_retrieval(args, cfg: RunConfig, device) -> dict:
@@ -199,9 +212,12 @@ def _eval_retrieval(args, cfg: RunConfig, device) -> dict:
         cfg = apply_overrides(cfg, {"loss_type": {"itm": 1, "mlm": 0, "t2i": 0, "cls": 0}})
     model = load_eval_model(cfg, device)
     dataset = FashionGenRetrieval(cfg.data.data_path, cfg.data, direction)
-    results = evaluate_retrieval(make_itm_scorer(model), _simple_loader(dataset, batch=1))
-    print(f"retrieval {direction.upper()}: "
-          + " ".join(f"acc@{k}: {results[f'acc@{k}']}" for k in (1, 5, 10)), flush=True)
+    shard = EvalShard.of_this_rank(len(dataset))
+    results = evaluate_retrieval(make_itm_scorer(model), _simple_loader(dataset, 1, shard),
+                                 is_main=mesh.is_main(), shard=shard)
+    if mesh.is_main():
+        print(f"retrieval {direction.upper()}: "
+              + " ".join(f"acc@{k}: {results[f'acc@{k}']}" for k in (1, 5, 10)), flush=True)
     return results
 
 
@@ -217,10 +233,13 @@ def _eval_recognition(cfg: RunConfig, device) -> dict:
     dataset = FashionGenRecognition(cfg.data.data_path, cfg.data)
     # the reference protocol batches recognition at 500 (main_vl.py:374-385)
     rec_batch = 500 if device.type == "cuda" else 64
+    shard = EvalShard.of_this_rank(len(dataset))
+    names = dataset.names() if mesh.world_size() > 1 and mesh.is_main() else None
     return evaluate_recognition(
-        make_cls_scorer(model), _simple_loader(dataset, batch=rec_batch),
+        make_cls_scorer(model), _simple_loader(dataset, rec_batch, shard),
         num_super=cfg.model.num_super_classes, num_sub=cfg.model.num_sub_classes,
-        artifact_dir=os.path.join(cfg.output_dir or ".", "visualization"))
+        artifact_dir=os.path.join(cfg.output_dir or ".", "visualization"),
+        is_main=mesh.is_main(), shard=shard, names=names)
 
 
 def main(argv=None) -> "dict | None":
@@ -242,12 +261,18 @@ def main(argv=None) -> "dict | None":
     args = get_args_parser().parse_args(argv)
     cfg = build_run_config(args)
     _refuse_unported(args, cfg)
-    device = torch.device(args.device)
+    # a rank of a torchrun launch joins its group (and names its device);
+    # without the environment, one process on --device
+    device = mesh.maybe_init_distributed(args.device) or torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: torch sees no CUDA device "
                            f"(pass --device cpu to run on the host)")
-    print(f"device: {device}" + (f" ({torch.cuda.get_device_name(device)})"
-                                 if device.type == "cuda" else ""), flush=True)
+    rank, world, is_main = mesh.rank(), mesh.world_size(), mesh.is_main()
+    if is_main:
+        print(f"device: {device}" + (f" ({torch.cuda.get_device_name(device)})"
+                                     if device.type == "cuda" else "")
+              + (f"; {world} ranks ({torch.distributed.get_backend()})"
+                 if mesh.initialized() else ""), flush=True)
     torch.manual_seed(cfg.seed)
 
     if args.eval_retrieval_itr or args.eval_retrieval_tir:
@@ -256,29 +281,39 @@ def main(argv=None) -> "dict | None":
         return _eval_recognition(cfg, device)
 
     model = create_model(cfg.model, device=device, input_size=cfg.data.input_size)
+    # DDP broadcasts rank 0's weights before anything casts or caches them
+    ddp = wrap_model(model, device) if mesh.initialized() else None
 
     train_ds = build_dataset("train", cfg.data, itm_enabled=cfg.model.loss_type.itm,
                              seed=cfg.seed)
     # the reference's --repeated-aug switch (main_vl.py:221-242): RA x3 by
-    # default, a plain shuffle otherwise; one process
+    # default, a plain shuffle otherwise; each rank its share
     if cfg.data.repeated_aug > 1:
-        sampler = RepeatedAugmentSampler(len(train_ds), 0, 1, cfg.data.repeated_aug, cfg.seed)
+        sampler = RepeatedAugmentSampler(len(train_ds), rank, world, cfg.data.repeated_aug,
+                                         cfg.seed)
     else:
-        sampler = DistributedSampler(len(train_ds), 0, 1, seed=cfg.seed)
+        sampler = DistributedSampler(len(train_ds), rank, world, seed=cfg.seed)
     batch = cfg.optim.batch_size
     steps_per_epoch = max(1, len(sampler) // batch)
     if args.grad_accum > 1 and batch % args.grad_accum:
         raise ValueError(f"--grad-accum {args.grad_accum} must divide the batch {batch}")
+    if args.zero1 and ddp is None and is_main:
+        print("--zero1 in one process: nothing to partition, AdamW as it is", flush=True)
 
-    state = create_train_state(model, cfg.optim, batch, steps_per_epoch, seed=cfg.seed)
+    # the schedule scales with the global batch, the masks draw seed + rank
+    # (mvlt_tpu/cli.py:172, :245)
+    state = create_train_state(model, cfg.optim, batch * world, steps_per_epoch,
+                               seed=cfg.seed + rank, ddp=ddp, zero1=args.zero1)
     ckpt = CheckpointManager(cfg.output_dir or "./runs/default", cfg)
     start_epoch = 0
     if cfg.resume:
         state, start_epoch = ckpt.restore(state, cfg.resume)
-        print(f"resumed at epoch {start_epoch} (step {state.step})", flush=True)
+        if is_main:
+            print(f"resumed at epoch {start_epoch} (step {state.step})", flush=True)
     elif cfg.finetune:
         load_finetune_state(cfg.finetune, model)
-        print(f"finetune init from {cfg.finetune}", flush=True)
+        if is_main:
+            print(f"finetune init from {cfg.finetune}", flush=True)
 
     device_masks = args.device_masks and cfg.data.mask_strategy == "random_grid"
     # t2i_labels is never read (the T2I loss compares with the full image);
@@ -300,12 +335,14 @@ def main(argv=None) -> "dict | None":
     eval_fn = make_vl_eval_fn(model, cfg.model)
     valid_ds = build_dataset("valid", cfg.data, itm_enabled=cfg.model.loss_type.itm,
                              seed=cfg.seed + 10_000)
-    # eval keeps every sample: the ragged last batch counts exactly
+    # eval keeps every sample: the ragged last batch counts exactly; under a
+    # process group every rank reads each batch and scores its share of the rows
     valid_loader = DataLoader(valid_ds, SequentialSampler(len(valid_ds)), batch,
                               put_fn=None, drop_last=False)
+    run_eval = functools.partial(evaluate_vl, eval_fn, valid_loader, is_main=is_main)
 
     if args.eval:
-        return evaluate_vl(eval_fn, valid_loader)
+        return run_eval()
 
     if args.viz:
         from mvlt_tpu_torch.eval.visualize import visualize_vl
@@ -317,33 +354,40 @@ def main(argv=None) -> "dict | None":
             return model(torch.as_tensor(images, device=device).float(),
                          torch.as_tensor(ids, device=device).long())
 
-        n = visualize_vl(viz_step, valid_loader, valid_ds.tokenizer,
-                         os.path.join(cfg.output_dir or ".", "visualization"),
-                         max_samples=args.viz_samples)
-        print(f"wrote {n} visualization samples", flush=True)
+        if is_main:   # the samples of the first batches: rank 0 alone
+            n = visualize_vl(viz_step, valid_loader, valid_ds.tokenizer,
+                             os.path.join(cfg.output_dir or ".", "visualization"),
+                             max_samples=args.viz_samples)
+            print(f"wrote {n} visualization samples", flush=True)
         return None
 
     log_path = os.path.join(cfg.output_dir or ".", "train_log.jsonl")
-    os.makedirs(os.path.dirname(log_path) or ".", exist_ok=True)
+    if is_main:
+        os.makedirs(os.path.dirname(log_path) or ".", exist_ok=True)
     for epoch in range(start_epoch, cfg.optim.epochs):
         loader.set_epoch(epoch)
         t0 = time.time()
-        # a trace of the first trained epoch only, when asked for
-        with trace(args.profile_dir if epoch == start_epoch else ""):
+        # a trace of the first trained epoch only (rank 0's), when asked for
+        with trace(args.profile_dir if epoch == start_epoch and is_main else ""):
             state, stats = train_one_epoch(train_step, state, loader, epoch,
                                            lr_schedule=state.lr_schedule,
-                                           log_every=cfg.log_every)
+                                           log_every=cfg.log_every, is_main=is_main)
         quality = None
         if epoch >= int(cfg.optim.epochs * cfg.save_every_frac):
-            eval_stats = evaluate_vl(eval_fn, valid_loader)
+            eval_stats = run_eval()
             quality = eval_stats["quality_score"]
             stats.update({f"eval_{k}": v for k, v in eval_stats.items()})
+        # every rank (ZeRO-1 consolidates the optimizer state); rank 0 writes
         ckpt.save_epoch(state, epoch, cfg.optim.epochs, quality, cfg.save_every_frac)
-        with open(log_path, "a") as f:   # one JSON line per epoch (main_vl.py:500-502)
-            f.write(json.dumps({"epoch": epoch, "time": time.time() - t0,
-                                **{k: round(float(v), 6) for k, v in stats.items()}}) + "\n")
+        if is_main:   # one JSON line per epoch (main_vl.py:500-502)
+            with open(log_path, "a") as f:
+                f.write(json.dumps({"epoch": epoch, "time": time.time() - t0,
+                                    **{k: round(float(v), 6) for k, v in stats.items()}}) + "\n")
     return None
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        mesh.destroy()

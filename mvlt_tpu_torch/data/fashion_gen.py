@@ -196,6 +196,10 @@ class FashionGenRecognition:
             "info_list": text_dict["img_name"],
         }
 
+    def names(self) -> list:
+        """Every item's name, in order (a sharded run's artifact)."""
+        return [_load_pickle(p)["img_name"] for p in self.text_dicts]
+
 
 class SyntheticFashionGen:
     """In-memory dataset with the pre-training item schema."""

@@ -5,8 +5,11 @@ engine_grid_masking.py:396-474): the whole valid split goes through the
 model with clean text ids, the 48-way (super) and 122-way (sub) heads are
 argmaxed, and accuracy with macro / micro / weighted F1 is reported per
 head, beside a JSON artifact of the predictions (the reference writes text
-files under ./visulization/<hdr>/). One process: the last batch keeps its
-ragged size.
+files under ./visulization/<hdr>/). The last batch keeps its ragged size.
+Across data-parallel ranks (``shard=``, the JAX package's ``mesh=``) each
+rank scores its contiguous shard of the items; predictions and labels are
+gathered into zero-filled buffers that all_reduce sums, the padded slots
+dropped, and rank 0 writes the artifact (the names from the dataset).
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import torch
 
 from mvlt_tpu_torch.eval.metrics import cls_metrics
 from mvlt_tpu_torch.eval.retrieval import uint8_to_unit
+from mvlt_tpu_torch.parallel.sharding import EvalShard, gather_slots
 
 
 @torch.no_grad()
@@ -49,10 +53,16 @@ def make_cls_scorer(model) -> Callable:
 
 def evaluate_recognition(scorer: Callable, loader: Iterable, num_super: int = 48,
                          num_sub: int = 122, artifact_dir: Optional[str] = None,
-                         is_main: bool = True) -> Dict[str, float]:
+                         is_main: bool = True, shard: Optional[EvalShard] = None,
+                         names: Optional[list] = None) -> Dict[str, float]:
     """Run the recognition protocol over ``loader``'s batches (images,
     ori_input_ids, sup/sub_cls_labels, optional info_list names); writes
-    ``recognition_predictions.json`` into ``artifact_dir`` when given."""
+    ``recognition_predictions.json`` into ``artifact_dir`` when given. With
+    ``shard`` the loader yields this rank's slots of the items
+    (``shard.indices()``), the metrics are those of every rank's real slots
+    together, the same on every rank, and the artifact's names are
+    ``names`` (every item's, in order) when given."""
+    given_names = names
     sup_labels, sup_preds, sub_labels, sub_preds, names = [], [], [], [], []
     for batch in loader:
         imgs = np.asarray(batch["images"])
@@ -65,6 +75,14 @@ def evaluate_recognition(scorer: Callable, loader: Iterable, num_super: int = 48
         sub_labels.extend(np.asarray(batch["sub_cls_labels"]).reshape(-1).tolist())
         if "info_list" in batch:
             names.extend(batch["info_list"])
+    if shard is not None:
+        every = gather_slots(torch.tensor([sup_labels, sup_preds, sub_labels, sub_preds],
+                                          dtype=torch.float64).T.reshape(-1, 4), shard)
+        sup_labels, sup_preds, sub_labels, sub_preds = every.long().T.tolist()
+        if given_names is not None:
+            names = list(given_names)
+        elif shard.world > 1:   # this rank's names only: none rather than some
+            names = []
 
     sup_acc, sup_macro, sup_micro, sup_weighted = cls_metrics(sup_labels, sup_preds, num_super)
     sub_acc, sub_macro, sub_micro, sub_weighted = cls_metrics(sub_labels, sub_preds, num_sub)

@@ -5,16 +5,20 @@ Counterpart of mvlt_tpu/eval/retrieval.py (protocol engine_grid_masking.py:
 truth; every pair is scored with the ITM head's positive-class softmax
 probability, candidates are ranked by a stable descending sort, and
 acc@1/5/10 are reported over the reference's fixed denominator of 1000
-queries, with the true-count accuracies beside them. Single device; the
-sharded form comes with the port of ``parallel/``.
+queries, with the true-count accuracies beside them. Across data-parallel
+ranks (``shard=``, the JAX package's ``mesh=``) each rank scores its
+contiguous shard of the bundles; the ranks of the ground truth are gathered
+into zero-filled buffers that all_reduce sums, the padded slots dropped.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable
+from typing import Callable, Dict, Iterable, Optional
 
 import numpy as np
 import torch
+
+from mvlt_tpu_torch.parallel.sharding import EvalShard, gather_slots
 
 FIXED_DENOM = 1000  # reference protocol constant (engine_grid_masking.py:393)
 
@@ -52,11 +56,14 @@ def rank_of_ground_truth(scores: np.ndarray) -> int:
 
 
 def evaluate_retrieval(scorer: Callable, loader: Iterable, log_every: int = 50,
-                       is_main: bool = True) -> Dict[str, float]:
+                       is_main: bool = True,
+                       shard: Optional[EvalShard] = None) -> Dict[str, float]:
     """Run the retrieval protocol. ``loader`` yields dicts with images_101
-    [Q?, 101, H, W, 3] (uint8 or float) and ori_input_ids_101 [Q?, 101, T]."""
-    counts = {1: 0, 5: 0, 10: 0}
-    n_queries = 0
+    [Q?, 101, H, W, 3] (uint8 or float) and ori_input_ids_101 [Q?, 101, T].
+    With ``shard`` the loader yields this rank's slots of the bundles
+    (``shard.indices()``), and the results are those of every rank's real
+    slots together, the same on every rank."""
+    ranks = []
     for batch in loader:
         imgs = np.asarray(batch["images_101"])
         ids = np.asarray(batch["ori_input_ids_101"])
@@ -68,17 +75,18 @@ def evaluate_retrieval(scorer: Callable, loader: Iterable, log_every: int = 50,
             flat_imgs = flat_imgs.astype(np.float32)
         scores = scorer(flat_imgs, ids.reshape(q * c, -1).astype(np.int64))
         scores = torch.as_tensor(scores).float().cpu().numpy().reshape(q, c)
-        for qi in range(q):
-            rank = rank_of_ground_truth(scores[qi])
-            for k in counts:
-                counts[k] += rank < k
-            n_queries += 1
-        if is_main and n_queries % log_every < q:
-            print(f"retrieval [{n_queries}] "
-                  f"acc@1={counts[1]/FIXED_DENOM:.3f} "
-                  f"acc@5={counts[5]/FIXED_DENOM:.3f} "
-                  f"acc@10={counts[10]/FIXED_DENOM:.3f}", flush=True)
-
+        ranks.extend(rank_of_ground_truth(scores[qi]) for qi in range(q))
+        if is_main and len(ranks) % log_every < q:
+            hits = {k: sum(r < k for r in ranks) for k in (1, 5, 10)}
+            print(f"retrieval [{len(ranks)}] "
+                  f"acc@1={hits[1]/FIXED_DENOM:.3f} "
+                  f"acc@5={hits[5]/FIXED_DENOM:.3f} "
+                  f"acc@10={hits[10]/FIXED_DENOM:.3f}", flush=True)
+    if shard is not None:
+        ranks = gather_slots(torch.tensor(ranks, dtype=torch.float64)[:, None],
+                             shard)[:, 0].long().tolist()
+    counts = {k: sum(r < k for r in ranks) for k in (1, 5, 10)}
+    n_queries = len(ranks)
     results = {f"acc@{k}": counts[k] / FIXED_DENOM for k in counts}
     results.update({f"acc@{k}_true": counts[k] / max(n_queries, 1) for k in counts})
     results["num_queries"] = n_queries

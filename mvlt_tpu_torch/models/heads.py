@@ -12,7 +12,10 @@ Counterparts of mvlt_tpu/models/heads.py (reference libs/vl_heads.py):
 BatchNorm follows flax's (the JAX package's) statistics: the batch variance
 that normalises in training and enters the running variance is the biased
 one, where torch.nn.BatchNorm2d keeps the unbiased one; momentum 0.1
-(flax 0.9), eps 1e-5.
+(flax 0.9), eps 1e-5. Under data parallelism the training statistics are
+those of the global batch, as in the JAX package's SPMD step: the sums are
+all-reduced over the ranks with a gradient through the reduction, as
+torch's SyncBatchNorm takes them.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from torch import nn
 
 from mvlt_tpu_torch.ops.kernel_math import acc_dtype, gelu, layer_norm_fp32, linear, matmul_acc
 from mvlt_tpu_torch.ops.upsample import upsample_bilinear_align_corners
+from mvlt_tpu_torch.parallel.sharding import all_reduce_sum, group_size
 
 
 class BertHeadTransform(nn.Module):
@@ -78,7 +82,11 @@ class CLSHead(ITMHead):
 class BatchNorm(nn.Module):
     """BatchNorm over the channels of an NCHW map with flax's statistics
     (biased batch variance); state-dict names of torch's BatchNorm2d
-    without ``num_batches_tracked``."""
+    without ``num_batches_tracked``. With a process ``group`` of more than
+    one rank (set by parallel/sharding.py:wrap_model) the training
+    statistics are taken over every rank's batch."""
+
+    group = None
 
     def __init__(self, channels: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
@@ -88,12 +96,28 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
+    def batch_stats(self, xf: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """(mean, biased variance) per channel of the batch: this rank's, or
+        over all ranks of ``group``, two passes either way. Across ranks the
+        sums (and the element count) are all-reduced, the second pass
+        around the global mean; the reductions' backward sums the ranks'
+        gradients, so each rank's loss reaches every rank's input."""
+        if group_size(self.group) == 1:
+            mean = xf.mean((0, 2, 3))
+            return mean, (xf - mean[:, None, None]).square().mean((0, 2, 3))
+        count = xf.new_full((1,), xf.numel() // xf.shape[1])
+        sums = all_reduce_sum(torch.cat([xf.sum((0, 2, 3)), count]), self.group,
+                              differentiable=True)
+        mean = sums[:-1] / sums[-1]
+        dev = all_reduce_sum((xf - mean[:, None, None]).square().sum((0, 2, 3)), self.group,
+                             differentiable=True)
+        return mean, dev / sums[-1]
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         acc = acc_dtype(x.dtype)
         xf = x.to(acc)
         if self.training:
-            mean = xf.mean((0, 2, 3))
-            var = (xf - mean[:, None, None]).square().mean((0, 2, 3))
+            mean, var = self.batch_stats(xf)
             with torch.no_grad():
                 self.running_mean.lerp_(mean.to(self.running_mean.dtype), self.momentum)
                 self.running_var.lerp_(var.to(self.running_var.dtype), self.momentum)

@@ -81,6 +81,7 @@ from mvlt_tpu_torch.ops.sr_kv import (fused_ln_sr_kv, linear_reduce_kv_input, re
                                       split_kv)
 from mvlt_tpu_torch.ops.swin_attention import fused_swin_attention
 from mvlt_tpu_torch.ops.swin_band import fused_swin_block
+from mvlt_tpu_torch.ops.upsample import resize_bilinear
 
 
 def _ln(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
@@ -585,15 +586,13 @@ def checkpoint_block(blk: nn.Module, z: torch.Tensor, hw: tuple,
 
 def resize_pos_embed(pos: torch.Tensor, native_hw: tuple, hw: tuple) -> torch.Tensor:
     """Bilinearly resize a [1, gh*gw, C] table to a new grid
-    (align_corners=False, no antialias)."""
+    (align_corners=False, no antialias) as two fixed interpolation products
+    (ops/upsample.py:resize_bilinear), whose backward is deterministic."""
     if tuple(native_hw) == tuple(hw):
         return pos
     (gh, gw), (h, w) = native_hw, hw
     c = pos.shape[-1]
-    grid = pos.reshape(1, gh, gw, c).permute(0, 3, 1, 2)
-    grid = F.interpolate(grid, size=(h, w), mode="bilinear", align_corners=False,
-                         antialias=False)
-    return grid.permute(0, 2, 3, 1).reshape(1, h * w, c)
+    return resize_bilinear(pos.reshape(1, gh, gw, c), h, w).reshape(1, h * w, c)
 
 
 class PVLT(nn.Module):

@@ -1,0 +1,90 @@
+"""Process-group bring-up from the torchrun environment.
+
+Counterpart of mvlt_tpu/parallel/mesh.py:maybe_init_distributed, and of the
+reference's init_distributed_mode (libs/utils.py:218-254): ``RANK``,
+``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and ``MASTER_PORT`` name the
+rank; NCCL carries a CUDA device's collectives and gloo the CPU's unless the
+caller names a backend. With none of those variables set there is no process
+group and everything runs in one process, as before; with some but not all
+of them, or with a CUDA device that is missing, it raises. Nothing falls
+back to another backend, to the CPU or to one process.
+"""
+
+from __future__ import annotations
+
+import datetime
+import os
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+ENV_KEYS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+
+_device: Optional[torch.device] = None   # the device this rank's collectives use
+
+
+def maybe_init_distributed(device: Optional[str] = None, backend: Optional[str] = None,
+                           timeout_s: float = 600.0) -> Optional[torch.device]:
+    """Join the process group the environment names and return this rank's
+    device: ``device`` when given (``cpu``, ``cuda`` or ``cuda:i``; a bare
+    ``cuda`` means ``cuda:LOCAL_RANK``), else ``cuda:LOCAL_RANK``. Returns
+    None, and starts nothing, when the environment names no rank. Called
+    again in a process that joined already, it returns the same device."""
+    global _device
+    present = [k for k in ENV_KEYS if os.environ.get(k)]
+    if not present:
+        return None
+    if len(present) != len(ENV_KEYS):
+        missing = [k for k in ENV_KEYS if k not in present]
+        raise RuntimeError(f"partial torchrun environment: {', '.join(present)} set but "
+                           f"{', '.join(missing)} missing")
+    if dist.is_initialized():
+        return _device
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    local_rank = int(os.environ["LOCAL_RANK"])
+    dev = torch.device(device if device and device != "cuda" else f"cuda:{local_rank}")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available() or dev.index >= torch.cuda.device_count():
+            raise RuntimeError(f"rank {rank}: {dev} does not exist "
+                               f"({torch.cuda.device_count() if torch.cuda.is_available() else 0} "
+                               f"CUDA devices)")
+        torch.cuda.set_device(dev)
+    backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
+    kwargs = {"device_id": dev} if backend == "nccl" else {}
+    dist.init_process_group(backend, init_method="env://", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=timeout_s), **kwargs)
+    _device = dev
+    return dev
+
+
+def initialized() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
+def rank() -> int:
+    return dist.get_rank() if initialized() else 0
+
+
+def world_size() -> int:
+    return dist.get_world_size() if initialized() else 1
+
+
+def is_main() -> bool:
+    return rank() == 0
+
+
+def comm_device() -> torch.device:
+    """The device whose tensors this rank's collectives take (NCCL's are
+    CUDA tensors); the CPU without a process group."""
+    if _device is not None:
+        return _device
+    return torch.device("cpu")
+
+
+def destroy() -> None:
+    """Leave the process group, if any."""
+    global _device
+    if initialized():
+        dist.destroy_process_group()
+    _device = None

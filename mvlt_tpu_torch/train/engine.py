@@ -4,7 +4,9 @@ Counterpart of mvlt_tpu/train/engine.py (reference
 engine_grid_masking.py:27-150): runs the step over a loader, reads each
 step's losses one step late so the host queues the next step before it
 waits for the card, logs them, and on a non-finite total loss warns and
-goes on (the reference's semantics).
+goes on (the reference's semantics). Under data parallelism only the main
+rank prints, and the epoch's averages are every rank's together (the
+meters are synchronized first).
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ def train_one_epoch(train_step, state, loader: Iterable, epoch: int = 0,
         pending = (step_idx, losses)
     if pending is not None:
         _drain(pending, logger, lr_schedule)
+    logger.synchronize_between_processes()
     stats = logger.global_averages()
     if is_main:
         print(f"epoch {epoch} averaged stats:", {k: round(v, 5) for k, v in stats.items()},

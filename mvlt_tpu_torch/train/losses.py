@@ -10,6 +10,21 @@ backward writes their bf16 gradient once), or in row chunks, recomputing
 each chunk's logits in the backward (activation checkpointing), so the
 [rows, vocab] logits never exist whole; with the gather plan it decodes
 only the labeled rows.
+
+Under data parallelism (a process ``group`` of more than one rank, each
+holding an equal share of the global batch, DDP averaging the gradients)
+the step must equal the single-device step on the global batch, as the JAX
+package's SPMD step does:
+  * the ITM, CLS and T2I losses are means over rows (or pixels) of equal
+    per-rank batches, so the mean of the ranks' means, which DDP's average
+    of their gradients differentiates, is the global mean: no change;
+  * the MLM loss is a mean over the labeled tokens, whose count differs by
+    rank: each rank's mean is scaled by world * count / global count
+    (``global_mean_scale``), so that the ranks' average is the global sum
+    over the global count;
+  * the MLM gather plan keeps the labeled rows before the *global*
+    capacity: one exchange of the per-rank labeled counts offsets each
+    rank's running count (``mlm_gather_plan``).
 """
 
 from __future__ import annotations
@@ -21,6 +36,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from mvlt_tpu_torch.ops.mlm_ce import mlm_ce_loss
+from mvlt_tpu_torch.parallel.sharding import all_reduce_sum, exclusive_prefix, group_size
 
 MLM_LOSS_WEIGHT = 1.0
 ITM_LOSS_WEIGHT = 1.0
@@ -75,62 +91,107 @@ def chunked_mlm_loss(hidden: torch.Tensor, table: torch.Tensor, bias: torch.Tens
     return total / count.clamp(min=1)
 
 
-def _mlm_decode_loss(hidden, table, bias, labels, chunk: int, use_kernel: bool):
+def global_mean_scale(labels: torch.Tensor, group,
+                      total: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """world * (this rank's labeled count) / (the global labeled count): the
+    factor that turns a rank's mean over its labeled tokens into its share
+    of the global mean under DDP's gradient average. The global count is
+    ``total`` when the caller has it (the gather plan's), else one
+    all_reduce."""
+    count = (labels != MLM_IGNORE_INDEX).sum().to(torch.float32)
+    if total is None:
+        total = all_reduce_sum(count, group)
+    return group_size(group) * count / total.to(torch.float32).clamp(min=1.0)
+
+
+def _global_mean(loss: torch.Tensor, labels: torch.Tensor, group,
+                 total: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A rank's MLM mean as its share of the global one (unchanged without a
+    group of more than one rank)."""
+    if group_size(group) == 1:
+        return loss
+    return loss * global_mean_scale(labels, group, total)
+
+
+def _mlm_decode_loss(hidden, table, bias, labels, chunk: int, use_kernel: bool, group=None,
+                     total=None):
     """The MLM decode: with ``use_kernel``, on the card, the fused vocab-tiled
     CE kernels (ops/mlm_ce.py:mlm_ce_loss: the logits never in device
     memory, their gradient once, in bf16, in the backward); otherwise, and
     always on the CPU, the chunked loss, as in the JAX package off the TPU
-    (mvlt_tpu/train/losses.py:_mlm_decode_loss)."""
+    (mvlt_tpu/train/losses.py:_mlm_decode_loss). Under ``group``, the
+    rank's share of the global mean (``total``: the global labeled count,
+    if known)."""
     if use_kernel and hidden.device.type == "cuda":
-        return mlm_ce_loss(hidden, table, bias, labels)
-    return chunked_mlm_loss(hidden, table, bias, labels, chunk=chunk)
+        loss = mlm_ce_loss(hidden, table, bias, labels)
+    else:
+        loss = chunked_mlm_loss(hidden, table, bias, labels, chunk=chunk)
+    return _global_mean(loss, labels, group, total)
 
 
-def mlm_gather_plan(labels: torch.Tensor, capacity_frac: float = 0.25, chunk: int = 2048):
-    """Static-capacity gather plan for the labeled MLM rows: (idx [capacity],
-    sel_labels [capacity], chunk), or None when the capacity would not shrink
-    the stream. capacity = ceil(int(B*T * frac) / 512) * 512 (at least 512);
+def mlm_gather_plan(labels: torch.Tensor, capacity_frac: float = 0.25, chunk: int = 2048,
+                    group=None):
+    """Static-capacity gather plan for the labeled MLM rows: (idx [slots],
+    sel_labels [slots], chunk, kept), or None when the capacity would not
+    shrink the stream; ``kept`` is the count of labeled rows the plan keeps
+    over every rank, the MLM mean's divisor. capacity = ceil(int(B*T * frac) / 512) * 512 (at least 512);
     the labeled rows go to the front in order, without a sort; unfilled
     slots point at distinct rows (their own index) with label -1; labeled
     rows past the capacity are dropped from the mean, never mislabeled. The
-    decode chunk shrinks to a divisor of the capacity."""
+    decode chunk shrinks to a divisor of the slots.
+
+    Under ``group`` (ranks holding equal consecutive shares of the global
+    batch, rank order = row order) B*T and the capacity are the global
+    batch's; one exchange of the ranks' labeled counts gives each rank the
+    count before its rows, so a row is kept when its global position among
+    the labeled rows is below the capacity, as in the single-device plan
+    on the global batch. A rank may keep up to min(its rows, capacity)."""
     labs = labels.reshape(-1)
     n = labs.shape[0]
-    capacity = max(512, -(-int(n * capacity_frac) // 512) * 512)
-    if capacity >= n:
+    world = group_size(group)
+    capacity = max(512, -(-int(n * world * capacity_frac) // 512) * 512)
+    if capacity >= n * world:
         return None
-    chunk = math.gcd(capacity, max(512, chunk // 512 * 512))
     valid = labs != MLM_IGNORE_INDEX
     pos = torch.cumsum(valid, 0) - 1
-    dest = torch.where(valid & (pos < capacity), pos, capacity)
-    base = torch.cat([torch.arange(capacity, device=labs.device),
+    offset, total = exclusive_prefix(valid.sum(), group)
+    keep = valid & (pos + offset < capacity)
+    slots = min(n, capacity)
+    chunk = math.gcd(slots, max(512, chunk // 512 * 512))
+    dest = torch.where(keep, pos, slots)
+    base = torch.cat([torch.arange(slots, device=labs.device),
                       torch.zeros(1, dtype=torch.long, device=labs.device)])
-    # slot `capacity` collects every unplaced row and is cut off
-    idx = base.scatter(0, dest, torch.arange(n, device=labs.device))[:capacity]
-    filled = torch.arange(capacity, device=labs.device) < valid.sum().clamp(max=capacity)
+    # slot `slots` collects every unplaced row and is cut off
+    idx = base.scatter(0, dest, torch.arange(n, device=labs.device))[:slots]
+    filled = torch.arange(slots, device=labs.device) < keep.sum()
     sel = torch.where(filled, labs[idx], torch.full_like(labs[idx], MLM_IGNORE_INDEX))
-    return idx, sel, chunk
+    return idx, sel, chunk, total.clamp(max=capacity)
 
 
 def gathered_mlm_loss(hidden, table, bias, labels, capacity_frac: float = 0.25,
-                      chunk: int = 2048, ce_kernel: bool = False) -> torch.Tensor:
+                      chunk: int = 2048, ce_kernel: bool = False, group=None) -> torch.Tensor:
     """MLM cross entropy decoding only the labeled rows of a full [B, T, H]
     hidden stream."""
-    plan = mlm_gather_plan(labels, capacity_frac=capacity_frac, chunk=chunk)
+    plan = mlm_gather_plan(labels, capacity_frac=capacity_frac, chunk=chunk, group=group)
     if plan is None:
-        return _mlm_decode_loss(hidden, table, bias, labels, chunk, ce_kernel)
-    idx, sel, chunk = plan
+        return _mlm_decode_loss(hidden, table, bias, labels, chunk, ce_kernel, group)
+    idx, sel, chunk, kept = plan
     rows = hidden.reshape(-1, hidden.shape[-1])[idx]
-    return _mlm_decode_loss(rows[None], table, bias, sel[None], chunk, ce_kernel)
+    return _mlm_decode_loss(rows[None], table, bias, sel[None], chunk, ce_kernel, group, kept)
 
 
 def compute_losses(outputs: Dict[str, Any], batch: Dict[str, torch.Tensor],
                    num_super: int = 48, num_sub: int = 122, mlm_chunk: int = 2048,
-                   mlm_capacity_frac: float = 1.0,
-                   mlm_ce_kernel: bool = False) -> Dict[str, torch.Tensor]:
+                   mlm_capacity_frac: float = 1.0, mlm_ce_kernel: bool = False,
+                   group=None, mlm_count: Optional[torch.Tensor] = None
+                   ) -> Dict[str, torch.Tensor]:
     """Every enabled objective for one step, and their weighted sum as
     ``total_loss``. batch: images [B, H, W, 3] (the clean T2I target),
-    mlm_labels [B, T] (-1 unmasked), itm_labels [B], sup/sub_cls_labels [B]."""
+    mlm_labels [B, T] (-1 unmasked), itm_labels [B], sup/sub_cls_labels [B].
+    Under a data-parallel ``group`` the MLM loss is the rank's share of the
+    global mean (see the module's docstring; ``mlm_count``: the global
+    labeled count when the caller has it, as a gather plan does); the others
+    need no change."""
     ref = next(v for v in outputs.values() if isinstance(v, torch.Tensor))
     zero = torch.zeros((), dtype=torch.float32, device=ref.device)
     losses = {k: zero for k in ("loss_mlm", "loss_itm", "loss_sup_cls", "loss_sub_cls",
@@ -138,17 +199,18 @@ def compute_losses(outputs: Dict[str, Any], batch: Dict[str, torch.Tensor],
     total = zero
     if outputs.get("mlm_logits") is not None:
         vocab = outputs["mlm_logits"].shape[-1]
-        losses["loss_mlm"] = MLM_LOSS_WEIGHT * cross_entropy(
-            outputs["mlm_logits"].reshape(-1, vocab), batch["mlm_labels"].reshape(-1),
-            ignore_index=MLM_IGNORE_INDEX)
+        labels = batch["mlm_labels"].reshape(-1)
+        losses["loss_mlm"] = MLM_LOSS_WEIGHT * _global_mean(cross_entropy(
+            outputs["mlm_logits"].reshape(-1, vocab), labels, ignore_index=MLM_IGNORE_INDEX),
+            labels, group)
     elif outputs.get("mlm_hidden") is not None:
         args = (outputs["mlm_hidden"], outputs["mlm_table"], outputs["mlm_bias"],
                 batch["mlm_labels"])
         if mlm_capacity_frac < 1.0:
             loss = gathered_mlm_loss(*args, capacity_frac=mlm_capacity_frac,
-                                     chunk=mlm_chunk, ce_kernel=mlm_ce_kernel)
+                                     chunk=mlm_chunk, ce_kernel=mlm_ce_kernel, group=group)
         else:
-            loss = _mlm_decode_loss(*args, mlm_chunk, mlm_ce_kernel)
+            loss = _mlm_decode_loss(*args, mlm_chunk, mlm_ce_kernel, group, mlm_count)
         losses["loss_mlm"] = MLM_LOSS_WEIGHT * loss
     if outputs.get("itm_logits") is not None:
         losses["loss_itm"] = ITM_LOSS_WEIGHT * cross_entropy(

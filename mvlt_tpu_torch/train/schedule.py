@@ -6,7 +6,8 @@ schedule (optax.warmup_cosine_decay_schedule: linear from warmup_lr to the
 peak over the warmup steps, then cosine to min_lr at the last step), and
 AdamW with no weight decay on 1-D parameters (biases, LayerNorm and
 BatchNorm scales; timm's add_weight_decay), as torch.optim.AdamW parameter
-groups, optionally after optax.clip_by_global_norm (``clip_grad``).
+groups, optionally after optax.clip_by_global_norm (``clip_grad``); under
+ZeRO-1 the same groups partitioned over the data-parallel ranks.
 """
 
 from __future__ import annotations
@@ -40,17 +41,30 @@ def make_lr_schedule(cfg: OptimConfig, global_batch_size: int,
     return lr
 
 
-def make_optimizer(cfg: OptimConfig, model: torch.nn.Module) -> torch.optim.AdamW:
+def make_optimizer(cfg: OptimConfig, model: torch.nn.Module,
+                   zero1_group=None) -> torch.optim.Optimizer:
     """AdamW over the model's parameters, weight decay on those with more
     than one dimension only. The LR is set per step from the schedule;
-    ``cfg.clip_grad`` is applied by the step (``clip_by_global_norm``)."""
+    ``cfg.clip_grad`` is applied by the step (``clip_by_global_norm``).
+    With ``zero1_group`` (a process group) the same groups under ZeRO-1:
+    each rank keeps the moments of its partition of the parameters only."""
     params = [p for p in model.parameters() if p.requires_grad]
     groups = [{"params": [p for p in params if p.dim() > 1], "weight_decay": cfg.weight_decay},
               {"params": [p for p in params if p.dim() <= 1], "weight_decay": 0.0}]
+    if zero1_group is not None:
+        from torch.distributed.optim import ZeroRedundancyOptimizer
+
+        # the wrapper's groups take set_lr; its step copies them into the
+        # inner AdamW's, then broadcasts each rank's updated partition
+        return ZeroRedundancyOptimizer(groups, optimizer_class=torch.optim.AdamW,
+                                       process_group=zero1_group, lr=cfg.lr, betas=cfg.betas,
+                                       eps=cfg.eps)
     return torch.optim.AdamW(groups, lr=cfg.lr, betas=cfg.betas, eps=cfg.eps)
 
 
 def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    """The LR of every group; under ZeRO-1 the wrapper's groups, which its
+    step copies into the inner optimizer's."""
     for group in optimizer.param_groups:
         group["lr"] = lr
 

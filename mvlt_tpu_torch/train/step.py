@@ -17,11 +17,21 @@ Counterpart of mvlt_tpu/train/step.py:make_train_step. Kept from it:
     running statistics pass through the microbatches in order;
   * the global-norm gradient clipping of ``state.clip_grad`` before AdamW;
   * the BatchNorm running statistics, updated by the training forward.
+Under data parallelism (``state.ddp``) the step runs the DDP wrap, whose
+backward averages the gradients over the ranks; the losses take the global
+MLM mean and gather plan (train/losses.py) and the BatchNorms the global
+statistics (models/heads.py), so the step equals the single-device step on
+every rank's batch together (mvlt_tpu/train/step.py under a data mesh).
+With ``grad_accum = k`` each rank's batch must hold its share of each
+global microbatch in order; every microbatch but the last runs under
+``no_sync``, so the gradients are reduced once. Clipping sees the reduced
+gradients, the same on every rank.
 Not ported, and refused: ``scan_steps > 1`` (one dispatch for several steps).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, Tuple
 
 import torch
@@ -59,22 +69,23 @@ def make_train_step(cfg: ModelConfig, *, device_masks: bool = False, mask_ratio:
             else:
                 images = batch["masked_images"].float()
 
-        kwargs, loss_batch = {}, batch
+        kwargs, loss_batch, mlm_count = {}, batch, None
         mlm_chunk = max(cfg.mlm_loss_chunk, 1)
         mlm_frac = cfg.mlm_capacity_frac
         if cfg.loss_type.mlm and train_mode and cfg.mlm_loss_chunk > 0 and mlm_frac < 1.0:
             plan = mlm_gather_plan(batch["mlm_labels"], capacity_frac=mlm_frac,
-                                   chunk=mlm_chunk)
+                                   chunk=mlm_chunk, group=state.group)
             if plan is not None:
-                idx, sel, mlm_chunk = plan
+                idx, sel, mlm_chunk, mlm_count = plan
                 kwargs["mlm_row_idx"] = idx
                 loss_batch = {**batch, "mlm_labels": sel[None]}
                 mlm_frac = 1.0
 
-        out = state.model(images, batch["input_ids"].long(), generator=state.generator, **kwargs)
+        out = state.net(images, batch["input_ids"].long(), generator=state.generator, **kwargs)
         losses = compute_losses(out, loss_batch, cfg.num_super_classes, cfg.num_sub_classes,
                                 mlm_chunk=mlm_chunk, mlm_capacity_frac=mlm_frac,
-                                mlm_ce_kernel=cfg.mlm_ce_kernel)
+                                mlm_ce_kernel=cfg.mlm_ce_kernel, group=state.group,
+                                mlm_count=mlm_count)
         (losses["total_loss"] * scale).backward()
         return {k: v.detach() for k, v in losses.items()}
 
@@ -89,8 +100,13 @@ def make_train_step(cfg: ModelConfig, *, device_masks: bool = False, mask_ratio:
             if n % grad_accum:
                 raise ValueError(f"grad_accum {grad_accum} does not divide the batch {n}")
             mb = n // grad_accum
-            parts = [forward_backward(state, {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()},
-                                      1.0 / grad_accum) for i in range(grad_accum)]
+            parts = []
+            for i in range(grad_accum):
+                micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+                # DDP reduces the gradients once, in the last microbatch's backward
+                sync = state.ddp is None or i == grad_accum - 1
+                with contextlib.nullcontext() if sync else state.ddp.no_sync():
+                    parts.append(forward_backward(state, micro, 1.0 / grad_accum))
             losses = {k: torch.stack([p[k] for p in parts]).mean() for k in parts[0]}
         if state.clip_grad:
             clip_by_global_norm(state.model.parameters(), state.clip_grad)

@@ -15,6 +15,14 @@ it, so a meta never points at a torn checkpoint. Saves are synchronous: the
 JAX package's asynchronous Orbax writer has no counterpart here. The LR
 schedule is a function of the step and needs no state.
 
+Under data parallelism every rank calls ``save_epoch`` and ``restore``:
+rank 0 writes the unwrapped model's state dict (the reference's names,
+without DDP's ``module.``), under ZeRO-1 the optimizer state consolidated on
+rank 0 first (a collective); ``generators`` holds every rank's generator
+state and ``generator`` rank 0's. Every rank restores the same file, each
+taking its own generator state; the optimizer state has one layout with
+and without ZeRO-1, so either resumes the other.
+
 The fine-tune init (``load_finetune_state``) intersects state-dict keys with
 shape filtering, as ``merge_params_by_path`` intersects parameter paths: a
 reference ``.pth`` loads as it is.
@@ -29,6 +37,8 @@ from typing import Dict, Mapping, Optional, Tuple
 import torch
 
 from mvlt_tpu_torch.config import RunConfig, config_to_dict
+from mvlt_tpu_torch.parallel import mesh
+from mvlt_tpu_torch.parallel.sharding import EvalShard, barrier, gather_slots
 
 STATE_FILE = "state.pt"
 
@@ -103,7 +113,10 @@ class CheckpointManager:
 
     def __init__(self, output_dir: str, cfg: Optional[RunConfig] = None):
         self.root = os.path.abspath(os.path.join(output_dir, "checkpoint"))
-        os.makedirs(self.root, exist_ok=True)
+        self.is_main = mesh.is_main()
+        if self.is_main:
+            os.makedirs(self.root, exist_ok=True)
+        barrier()
         self.cfg = cfg
         self.best_score = float("-inf")
         meta = self._read_meta("best")
@@ -121,11 +134,22 @@ class CheckpointManager:
         return None
 
     def _save(self, tag: str, state, epoch: int, score: Optional[float]) -> None:
+        """Called by every rank; rank 0 writes, the others wait for it."""
+        from torch.distributed.optim import ZeroRedundancyOptimizer
+
+        if isinstance(state.optimizer, ZeroRedundancyOptimizer):
+            state.optimizer.consolidate_state_dict(to=0)
+        generators = _every_rank_generator_state(state.generator)
+        if self.is_main:
+            self._write(tag, state, epoch, score, generators)
+        barrier()
+
+    def _write(self, tag: str, state, epoch: int, score: Optional[float], generators) -> None:
         d = self._path(tag)
         os.makedirs(d, exist_ok=True)
         data = {"step": state.step, "model": state.model.state_dict(),
                 "optimizer": state.optimizer.state_dict(),
-                "generator": state.generator.get_state()}
+                "generator": generators[0], "generators": generators}
         tmp = os.path.join(d, STATE_FILE + ".tmp")
         torch.save(data, tmp)
         os.replace(tmp, os.path.join(d, STATE_FILE))
@@ -164,10 +188,24 @@ class CheckpointManager:
         data = torch.load(file, map_location="cpu", weights_only=True)
         state.model.load_state_dict(data["model"])
         state.optimizer.load_state_dict(data["optimizer"])
-        state.generator.set_state(data["generator"])
+        # each rank its own stream; a rank the writer did not have keeps
+        # the one it was seeded with
+        generators = data.get("generators") or [data["generator"]]
+        if mesh.rank() < len(generators):
+            state.generator.set_state(generators[mesh.rank()])
         state.step = int(data["step"])
         meta = {}
         if os.path.exists(path + ".json"):
             with open(path + ".json") as f:
                 meta = json.load(f)
         return state, int(meta.get("epoch", -1)) + 1
+
+
+def _every_rank_generator_state(generator: torch.Generator) -> list:
+    """Every rank's generator state (uint8 CPU tensors), in rank order."""
+    mine = generator.get_state()
+    if mesh.world_size() == 1:
+        return [mine]
+    shard = EvalShard(mesh.world_size(), mesh.rank(), mesh.world_size())
+    every = gather_slots(mine.to(torch.float64)[None], shard)
+    return [row.to(torch.uint8) for row in every]

@@ -1,8 +1,9 @@
-"""Metric smoothing and periodic training-loop logging, single process.
+"""Metric smoothing and periodic training-loop logging.
 
 Counterpart of mvlt_tpu/utils/logging.py (reference libs/utils.py:18-161):
-windowed meters with global averages and periodic iteration lines. The
-multi-process meter reduction comes with the port of ``parallel/``.
+windowed meters with global averages, periodic iteration lines, and the
+meters' reduction over the data-parallel ranks (``all_reduce`` of each
+meter's count and total, libs/utils.py:36-47).
 """
 
 from __future__ import annotations
@@ -14,6 +15,9 @@ from typing import Dict, Iterable, Iterator, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from mvlt_tpu_torch.parallel import mesh
 
 
 class SmoothedValue:
@@ -30,6 +34,12 @@ class SmoothedValue:
         self.window.append(value)
         self.count += n
         self.total += value * n
+
+    def synchronize_between_processes(self) -> None:
+        """Sum [count, total] over the ranks (libs/utils.py:36-47), so that
+        ``global_avg`` is every rank's series together; the window stays
+        this rank's. Nothing to do in one process."""
+        _all_reduce_meters([self])
 
     @property
     def median(self) -> float:
@@ -56,6 +66,18 @@ class SmoothedValue:
                                max=self.max, value=self.value)
 
 
+def _all_reduce_meters(meters) -> None:
+    """One all_reduce of the meters' [count, total] pairs, in float64 on the
+    collectives' device; every rank must pass its meters in the same order."""
+    if mesh.world_size() == 1 or not meters:
+        return
+    t = torch.tensor([[m.count, m.total] for m in meters], dtype=torch.float64,
+                     device=mesh.comm_device())
+    dist.all_reduce(t)
+    for m, (count, total) in zip(meters, t.cpu().tolist()):
+        m.count, m.total = int(count), float(total)
+
+
 def _device_mem_mb() -> Optional[float]:
     if not torch.cuda.is_available():
         return None
@@ -74,6 +96,11 @@ class MetricLogger:
 
     def __str__(self) -> str:
         return self.delimiter.join(f"{k}: {m}" for k, m in self.meters.items())
+
+    def synchronize_between_processes(self) -> None:
+        """Every meter's count and total summed over the ranks, the meters
+        taken by name in sorted order (each rank holds the same names)."""
+        _all_reduce_meters([self.meters[k] for k in sorted(self.meters)])
 
     def global_averages(self) -> Dict[str, float]:
         return {k: m.global_avg for k, m in self.meters.items()}

@@ -159,9 +159,19 @@ def test_fused_attention_route_from_a_json_config(tmp_path):
 @pytest.mark.parametrize("flags", [["--zero1"], ["--tp-size", "2"],
                                    ["--steps-per-dispatch", "2"], ["--remat"]])
 def test_unported_flags_raise(flags, tmp_path):
-    """--zero1, --tp-size 2 and --steps-per-dispatch 2 stay refused;
-    --remat is ported: one epoch runs every block under
-    torch.utils.checkpoint and saves the flag in the checkpoint's config."""
+    """--tp-size 2 and --steps-per-dispatch 2 stay refused; --remat is
+    ported: one epoch runs every block under torch.utils.checkpoint and
+    saves the flag in the checkpoint's config; --zero1 is ported: in one
+    process it has nothing to partition, and an epoch trains with AdamW's
+    own state (the two-rank run is tests/test_torch_port_ddp_eval.py's)."""
+    if flags == ["--zero1"]:
+        run = str(tmp_path / "zero1")
+        cli.main(BASE + flags + ["--epochs", "1", "--batch-size", "48", "--output-dir", run])
+        (line,) = _log(run)
+        assert np.isfinite(line["total_loss"])
+        saved = _saved(run)
+        assert saved["step"] > 0 and saved["optimizer"]["state"]
+        return
     if flags != ["--remat"]:
         with pytest.raises(NotImplementedError, match="not ported"):
             cli.main(BASE + flags)

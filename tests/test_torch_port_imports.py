@@ -146,3 +146,31 @@ def test_no_jax_import_in_port_sources():
     assert pattern.search("from mvlt_tpu.config import ModelConfig")
     assert pattern.search("import mvlt_tpu")
     assert not pattern.search("from mvlt_tpu_torch.config import ModelConfig")
+
+
+def test_two_rank_step_without_jax(tmp_path):
+    """Two gloo ranks (tests/_ddp_worker.py) each take a DDP step, with
+    grad_accum 1 and 2, with jax, flax and the JAX package blocked in both:
+    finite losses, the same reduced gradients on both ranks."""
+    import numpy as np
+    import torch
+
+    from mvlt_tpu_torch import config
+    from mvlt_tpu_torch.models.pvlt import create_model
+    from tests.test_torch_port_ddp import GLOBAL_B, HEADS, make_global_batch, spawn
+    from tests.test_torch_port_train import IMG, MICRO
+
+    torch.manual_seed(0)
+    model = create_model(config.ModelConfig(**MICRO, loss_type=config.LossType(**HEADS)),
+                         device="cpu", input_size=IMG)
+    torch.save(model.state_dict(), tmp_path / "weights.pt")
+    np.savez(tmp_path / "batch.npz", **make_global_batch())
+    spec = {"micro": MICRO, "heads": HEADS, "img": IMG, "global_batch": GLOBAL_B,
+            "weights": str(tmp_path / "weights.pt"), "batch": str(tmp_path / "batch.npz"),
+            "step_dtypes": ["float32"], "cases": ["step"]}
+    runs = spawn(spec, tmp_path / "out", guard=True)["step"]
+    for key in ("float32_accum1", "float32_accum2"):
+        a, b = runs[0][key], runs[1][key]
+        assert all(np.isfinite(v) for v in a["losses"].values()), a["losses"]
+        assert sorted(a["grads"]) == sorted(b["grads"])
+        assert all(torch.equal(g, b["grads"][n]) for n, g in a["grads"].items())

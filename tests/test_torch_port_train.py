@@ -185,8 +185,8 @@ def test_training_outputs_match_jax(jax_step):
     jcfg, pcfg, params, stats, batch, grads = jax_step
     _, (_, _, out_jax) = grads(params, stats, batch["images"], train=True)
     model = _port_state(pcfg, params, stats, 0).model.train()
-    idx, _, _ = mlm_gather_plan(torch.from_numpy(batch["mlm_labels"]),
-                                capacity_frac=pcfg.mlm_capacity_frac)
+    idx, _, _, _ = mlm_gather_plan(torch.from_numpy(batch["mlm_labels"]),
+                                   capacity_frac=pcfg.mlm_capacity_frac)
     with torch.no_grad():
         out = model(torch.from_numpy(batch["images"]),
                     torch.from_numpy(batch["input_ids"]).long(), mlm_row_idx=idx)

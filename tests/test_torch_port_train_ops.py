@@ -183,12 +183,13 @@ def test_mlm_gather_plan_matches_jax(rate, frac):
 
     rng = np.random.default_rng(int(rate * 100))
     labels = np.where(rng.random((40, 32)) < rate, rng.integers(0, 50, (40, 32)), -1)
-    idx, sel, chunk = losses.mlm_gather_plan(T(labels), capacity_frac=frac, chunk=2048)
+    idx, sel, chunk, kept = losses.mlm_gather_plan(T(labels), capacity_frac=frac, chunk=2048)
     j_idx, j_sel, j_chunk = jax_plan(jnp.asarray(labels, jnp.int32), capacity_frac=frac,
                                      chunk=2048)
     assert chunk == j_chunk
     np.testing.assert_array_equal(idx.numpy(), np.asarray(j_idx))
     np.testing.assert_array_equal(sel.numpy(), np.asarray(j_sel))
+    assert int(kept) == int((np.asarray(j_sel) != -1).sum())
     assert losses.mlm_gather_plan(T(labels[:8]), capacity_frac=frac) is None
 
 
