@@ -11,7 +11,7 @@ chip_smoke.py is; with fault names, only those. For each fault it copies
 of the model's glue) there, runs the chip_smoke phase that checks it
 (``kernels``, ``v2_kernels``, ``swin_kernels``, ``fba_train_kernels``,
 ``train_kernels``, ``mlm_kernels``, ``train_glue``, ``v2_route``,
-``remat`` or ``ddp_two_ranks``) in that copy (its kernels built from the
+``remat``, ``ddp_two_ranks``, ``tp_kernels`` or ``tp_two_ranks``) in that copy (its kernels built from the
 changed source), and then, with the bound lifted, prints every check's
 error at the B = 4 shapes. The copy is removed afterwards; the sources of the checkout are
 never changed. It exits non-zero if a fault passes the phase.
@@ -128,6 +128,32 @@ phase ddp_two_ranks (two gloo ranks on the card against one process):
                        unreduced: the BatchNorms' statistics stay global,
                        their gradients miss the other rank's loss (a fault
                        of the gradients alone).
+Tensor parallelism (parallel/tensor.py, models/pvlt.py, parallel/mesh.py;
+the kernels' tensor-parallel modes), phase tp_kernels (the modes summed in
+one process against the unsharded kernels and plain versions) or
+tp_two_ranks (two gloo ranks of one model group against one process):
+  tp_residual_every_rank  the LN-MLP half adds the residual x to each
+                       rank's partial before the model group's sum, so x
+                       counts tp + 1 times;
+  tp_proj_bias_every_rank  the split attention adds proj.bias to each
+                       rank's partial before the sum (tp + 1 times);
+  copy_to_model_unreduced  copy_to_model's backward returns the rank's own
+                       gradient unreduced: LN1, the SR conv and everything
+                       upstream of a split attention miss the other heads'
+                       gradient (a fault of the gradients alone);
+  tp_bwd_dy_passthrough  #13's tensor-parallel mode keeps the dy
+                       passthrough in its partial dx, so the sum counts dy
+                       tp times (phase tp_kernels);
+  tp_vocab_start_off_by_one  #14's tensor-parallel mode maps a label to the
+                       column one before its own (phase tp_kernels);
+  generator_world_rank the mask generator seeded by world rank, not data
+                       rank: the ranks of a model group draw different
+                       DropPath and dropout masks for the same rows;
+  tp_db2_rank_dependent  the split LN-MLP half's fc2.bias gradient (whole
+                       on every rank, never summed) scaled by 1 + the model
+                       rank: rank 0 holds the right tensors, rank 1's
+                       replicated gradient differs (caught by ranks_equal
+                       alone).
 """
 
 from __future__ import annotations
@@ -256,7 +282,7 @@ FAULTS = {
         "a.s[(row & ~(hopper::kGemmTile - 1)) / a.n]"),
     "no_onehot": (
         "mlm_kernels", "mvlt_tpu_torch/csrc/mlm_ce.cu",
-        "dl = g[h] * (v == lab[h] ? p - 1.0f : p);",
+        "dl = g[h] * (v + a.vocab_start == lab[h] ? p - 1.0f : p);",
         "dl = g[h] * p;"),
     "one_slot_dropped": (
         "mlm_kernels", "mvlt_tpu_torch/csrc/mlm_ce.cu",
@@ -302,11 +328,47 @@ FAULTS = {
         "ddp_two_ranks", "mvlt_tpu_torch/parallel/sharding.py",
         "        dx = dy.clone()\n        dist.all_reduce(dx, group=ctx.group)\n        return dx, None",
         "        return dy.clone(), None"),
+    "tp_residual_every_rank": (
+        "tp_two_ranks", "mvlt_tpu_torch/parallel/tensor.py",
+        "        total = _model_sum(part, group)",
+        "        total = _model_sum(part + x.to(part.dtype), group)"),
+    "tp_proj_bias_every_rank": (
+        "tp_two_ranks", "mvlt_tpu_torch/models/pvlt.py",
+        "total = reduce_from_model(linear_partial(o, a.proj.weight), group)",
+        "total = reduce_from_model(linear_partial(o, a.proj.weight) + a.proj.bias, group)"),
+    "copy_to_model_unreduced": (
+        "tp_two_ranks", "mvlt_tpu_torch/parallel/tensor.py",
+        "        return _model_sum(dy, ctx.group).to(dy.dtype), None",
+        "        return dy, None"),
+    "tp_bwd_dy_passthrough": (
+        "tp_kernels", "mvlt_tpu_torch/csrc/ln_mlp_bwd.cu",
+        "make_float2(l0, l1);",
+        "make_float2(dyv[k][p].x + l0, dyv[k][p].y + l1);"),
+    "tp_vocab_start_off_by_one": (
+        "tp_kernels", "mvlt_tpu_torch/csrc/mlm_ce.cu",
+        "const int c = l - a.vocab_start;",
+        "const int c = l - (a.vocab_start + 1);"),
+    "tp_db2_rank_dependent": (
+        "tp_two_ranks", "mvlt_tpu_torch/parallel/tensor.py",
+        "        grads = (summed[-2 * d:-d], summed[-d:], dw1, db1, dw2, db2)",
+        "        grads = (summed[-2 * d:-d], summed[-d:], dw1, db1, dw2,\n"
+        "                 db2 * (1 + dist.get_rank(ctx.group)))"),
+    "generator_world_rank": (
+        "tp_two_ranks", "mvlt_tpu_torch/parallel/mesh.py",
+        "    return seed + data_rank()",
+        "    return seed + rank()"),
 }
 # per phase: the checks at B = 4 that print each error with the bound lifted
 MARGINS = {
     # the phase's own line carries every gap beside its bound
     "ddp_two_ranks": """
+pass
+""",
+    "tp_two_ranks": """
+pass
+""",
+    # its kernel_check lines carry each error up to the first that fails
+    "tp_kernels": """
 pass
 """,
     "kernels": """

@@ -3,8 +3,9 @@
 (pvlt_tiny, pvlt_v2_tiny, pvlt_v2_linear_tiny, pvlt_swin_tiny and the
 registry's deeper models), recognition at B = 500, the pre-training step
 of the v1, v2, linear-SR v2 and Swin backbones, with dropout and with
---remat, pre-training through the command line, and the downstream evals
-through the command line on an on-disk tree.
+--remat, pre-training through the command line, the downstream evals
+through the command line on an on-disk tree, and data and tensor
+parallelism over gloo ranks on the one card.
 
     python3 chip_smoke.py
 
@@ -217,10 +218,27 @@ JSON line each; a failed phase raises and the script exits non-zero:
      the moments split), retrieval over 3 bundles and recognition over 10
      items sharded over the ranks with the one-process metrics, the
      two-rank step's ms (gloo through host copies) beside the one-process
-     step's.
+     step's;
+ 15. the tensor-parallel modes of #12/#13 (tp_kernels: a rank's slice of
+     the hidden, H / 2 and H / 4, at the four stage shapes at B = 150 and a
+     ragged one) and of #14/#15 (V / 2 at R = 3,072, labels in both halves
+     and ignored rows), summed over the slices in fp32 in this process and
+     held to the unsharded kernel and the plain version within 2e-2, one
+     rank's launch timed beside the unsharded launch;
+ 16. tensor parallelism on two gloo ranks of one model group on the one
+     card (tp_two_ranks: tp = 2, dp = 1, pvlt_tiny split by
+     parallel/tensor.py:shard_model, the whole B = 150 batch): the step at
+     each parity against this process's (losses, consolidated gradients
+     under ddp_two_ranks' bound, BatchNorm statistics), the launches a rank
+     (#10/#11 and #12/#13's tensor-parallel modes once per block, #14/#15's
+     once a step, nothing else), the consolidated checkpoint restored in one
+     process, equal masks on both ranks with DropPath and dropout on, the
+     split model's VL eval against this process's on the same route, the
+     step's ms over gloo.
 
 Then one line {"kernels": [...]}: per kernel the launches of its path's
-run (the MLM CE kernels': the command line's), the largest error of its
+run (the MLM CE kernels': the command line's; the tensor-parallel modes':
+a rank's in tp_two_ranks' step), the largest error of its
 checks, its time and its plain version's summed over the four stage shapes
 at the path's batch (one launch each; the MLM CE kernels at R = 3,072), the
 bound, and the library call's time where there is one; the nvidia-smi
@@ -231,6 +249,7 @@ non-zero before printing any result.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import math
 import os
@@ -273,9 +292,11 @@ from mvlt_tpu_torch.ops.block_attention import (block_attention_bwd_reference,
 from mvlt_tpu_torch.ops.block_fused import block_reference, fused_block
 from mvlt_tpu_torch.ops.dwconv_mlp import dwconv_mlp_reference, fused_dwconv_mlp, scratch_elems
 from mvlt_tpu_torch.ops.fused_mlp import (fused_ln_mlp, ln_mlp_bwd, ln_mlp_bwd_reference,
-                                          ln_mlp_fwd, ln_mlp_reference)
+                                          ln_mlp_bwd_tp, ln_mlp_fwd, ln_mlp_fwd_tp,
+                                          ln_mlp_reference)
 from mvlt_tpu_torch.ops.kernel_math import gelu_grad, layer_norm_fp32, linear
-from mvlt_tpu_torch.ops.mlm_ce import (mlm_ce_bwd, mlm_ce_fwd, mlm_nll_bwd_reference,
+from mvlt_tpu_torch.ops.mlm_ce import (mlm_ce_bwd, mlm_ce_bwd_tp, mlm_ce_fwd, mlm_ce_fwd_tp,
+                                       mlm_nll_bwd_reference, mlm_nll_partial_reference,
                                        mlm_nll_reference)
 from mvlt_tpu_torch.ops.pallas_attention import (attention_bwd, attention_fwd,
                                                  attention_reference,
@@ -285,6 +306,7 @@ from mvlt_tpu_torch.ops.sr_kv import (conv_splits, fused_ln_sr_kv, linear_reduce
                                       sr_kv_reference)
 from mvlt_tpu_torch.ops.swin_attention import fused_swin_attention, swin_attention_reference
 from mvlt_tpu_torch.ops.swin_band import fused_swin_block, swin_block_reference
+from mvlt_tpu_torch.parallel.tensor import COL, ROW, shard_tensor
 from mvlt_tpu_torch.train.engine import train_one_epoch
 from mvlt_tpu_torch.train.state import create_train_state
 from mvlt_tpu_torch.train.step import make_train_step
@@ -372,6 +394,14 @@ KERNELS = [
     {"name": "fba_train_bwd_stats", "route": "cuda",
      "source": "mvlt_tpu_torch/csrc/block_attention_train.cu",
      "replaces": "mvlt_tpu/ops/block_attention.py:544 (_bwd_kernel_stats :265)"},
+    {"name": "ln_mlp_fwd_tp", "route": "cuda", "source": "mvlt_tpu_torch/csrc/ln_mlp.cu",
+     "replaces": "mvlt_tpu/ops/fused_mlp.py:380 (its tensor-parallel mode)"},
+    {"name": "ln_mlp_bwd_tp", "route": "cuda", "source": "mvlt_tpu_torch/csrc/ln_mlp_bwd.cu",
+     "replaces": "mvlt_tpu/ops/fused_mlp.py:214 (its tensor-parallel mode)"},
+    {"name": "mlm_ce_fwd_tp", "route": "cuda", "source": "mvlt_tpu_torch/csrc/mlm_ce.cu",
+     "replaces": "mvlt_tpu/ops/mlm_ce.py:187 (its tensor-parallel mode)"},
+    {"name": "mlm_ce_bwd_tp", "route": "cuda", "source": "mvlt_tpu_torch/csrc/mlm_ce.cu",
+     "replaces": "mvlt_tpu/ops/mlm_ce.py:249 (its tensor-parallel mode)"},
 ]
 SERVING_WRAPPERS = {"sr_kv": fused_ln_sr_kv, "block_fused": fused_block}
 # kernel A's chain runs #12's norm kernel and its own under SrKvRoute,
@@ -388,8 +418,12 @@ MLM_WRAPPERS = {"mlm_ce_fwd": mlm_ce_fwd, "mlm_ce_bwd": mlm_ce_bwd}   # once per
 FBA_WRAPPERS = {"fba_train_fwd": block_attention_train_fwd,
                 "fba_train_bwd": block_attention_train_bwd}
 FBA_ROUTE = {**FBA_WRAPPERS, "ln_mlp_fwd": ln_mlp_fwd, "ln_mlp_bwd": ln_mlp_bwd}
+# the tensor-parallel modes of #12-#15 (a rank's slice of the hidden or of
+# the vocabulary), each counted apart from its one-process launches
+TP_WRAPPERS = {"ln_mlp_fwd_tp": ln_mlp_fwd_tp, "ln_mlp_bwd_tp": ln_mlp_bwd_tp,
+               "mlm_ce_fwd_tp": mlm_ce_fwd_tp, "mlm_ce_bwd_tp": mlm_ce_bwd_tp}
 WRAPPERS = {**SERVING_WRAPPERS, **V2_SERVING_WRAPPERS, **SWIN_WRAPPERS, **TRAINING_WRAPPERS,
-            **MLM_WRAPPERS, **FBA_WRAPPERS}
+            **MLM_WRAPPERS, **FBA_WRAPPERS, **TP_WRAPPERS}
 
 
 def new_stats() -> dict:
@@ -3601,7 +3635,420 @@ def phase_ddp_two_ranks(stats: dict) -> None:
                              f"{[r['retrieval'] for r in ranks]} vs {want_evals['retrieval']}")
 
 
-DDP_ROLES = {"world1": ddp_world1_rank, "two_ranks": ddp_two_ranks_rank}
+# ---- tensor parallelism ---------------------------------------------------
+
+TP_SIZES = (2, 4)
+TP_MLM_ROWS = MLM_ROWS
+TP_EVAL_ITEMS = (32, 12)   # the VL eval's batches: one full, one ragged
+# the launches of one tensor-parallel step a rank: #10/#11 and the LN-MLP
+# kernels' tensor-parallel modes once per block, the MLM CE kernels' once
+TP_STEP_LAUNCHES = {"attention_fwd": 8, "attention_bwd": 8, "ln_mlp_fwd_tp": 8,
+                    "ln_mlp_bwd_tp": 8, "mlm_ce_fwd_tp": 1, "mlm_ce_bwd_tp": 1}
+
+
+def tp_hidden_slices(mlp: tuple, rank: int, tp: int) -> tuple:
+    """(W1, b1, W2) of rank ``rank``'s slice of the hidden."""
+    _, _, w1, b1, w2, _ = mlp
+    return shard_tensor(w1, ROW, rank, tp), shard_tensor(b1, ROW, rank, tp), \
+        shard_tensor(w2, COL, rank, tp)
+
+
+def tp_mlp_sums(a: dict, tp: int) -> tuple:
+    """#12's and #13's tensor-parallel modes on each of ``tp`` slices of the
+    hidden, summed in fp32 in this process as the model group sums them,
+    with b2, x and dy added once: (y,), (dx, dgamma, dbeta, dW1, db1, dW2,
+    db2), and every slice's db2 (each must be the whole one)."""
+    g, be, _, _, _, b2 = a["mlp"]
+    x, s, dy = a["x"], a["s"], a["dy"]
+    parts, grads = [], []
+    for r in range(tp):
+        w1, b1, w2 = tp_hidden_slices(a["mlp"], r, tp)
+        parts.append(ln_mlp_fwd_tp(x, g, be, w1, b1, w2, s, 1e-6))
+        grads.append(ln_mlp_bwd_tp(x, g, be, w1, b1, w2, s, 1e-6, dy))
+    y = (x.float() + sum(parts) + s[:, None, None] * b2).to(x.dtype)
+    dx = (dy.float() + sum(o[0] for o in grads)).to(x.dtype)
+    whole = (dx, sum(o[1] for o in grads), sum(o[2] for o in grads),
+             torch.cat([o[3] for o in grads]), torch.cat([o[4] for o in grads]),
+             torch.cat([o[5] for o in grads], dim=1), grads[0][6])
+    return (y,), whole, [o[6] for o in grads]
+
+
+def tp_bounds(shape: tuple, batch: int, tp: int) -> dict:
+    """(ms, bound_by) of one rank's launch of #12's and #13's
+    tensor-parallel modes: the products on H / tp of the hidden, the stream
+    (and dy) read in bf16, the fp32 partial written, the slice's bf16
+    weights read and (backward) its fp32 gradients written."""
+    h, w, d, _, _, hid, t = shape
+    rows, hl = batch * (h * w + t), hid // tp
+    return {"ln_mlp_fwd_tp": bound(4 * rows * d * hl, 2 * rows * d + 4 * rows * d + 2 * 2 * d * hl),
+            "ln_mlp_bwd_tp": bound(10 * rows * d * hl, 2 * 2 * rows * d + 4 * rows * d
+                                   + 2 * 2 * d * hl + 4 * 2 * d * hl)}
+
+
+def tp_mlm_bounds(rows: int, vocab: int) -> dict:
+    """(ms, bound_by) of one rank's launch of #14's and #15's
+    tensor-parallel modes on ``vocab`` rows of the table (mlm_bounds' work
+    on the rank's share)."""
+    r, h, v = rows, MLM_WIDTH, vocab
+    operands = 2 * r * h + 2 * v * h + 4 * v + 4 * r
+    return {"mlm_ce_fwd_tp": bound(2 * r * v * h, operands + 2 * 4 * r),
+            "mlm_ce_bwd_tp": bound(6 * r * v * h,
+                                   operands + 2 * 4 * r + 4 * (r * h + v * h + v))}
+
+
+def check_tp_errors(stats: dict, name: str, label: str, keys: tuple, got, unsharded,
+                    plain, **fields) -> None:
+    """A tensor-parallel mode's summed outputs against the unsharded kernel's
+    and the plain version's, each within KERNEL_TOL."""
+    errs = {f"{against}_{k}": _rel_err(g, w_) for against, want in
+            (("kernel", unsharded), ("plain", plain)) for k, g, w_ in zip(keys, got, want)}
+    worst = max(e[1] for e in errs.values())
+    ok = bool(worst <= KERNEL_TOL and np.isfinite(worst))
+    emit("kernel_check", kernel=name, shape=label, rel_err={k: e[1] for k, e in errs.items()},
+         tol=KERNEL_TOL, ok=ok, **fields)
+    if not ok:
+        raise AssertionError(f"{name} (summed over the ranks) disagrees at {label}: {errs} "
+                             f"(tol {KERNEL_TOL})")
+    stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"],
+                                     max(e[0] for e in errs.values()))
+
+
+def tp_time(stats: dict, name: str, label: str, kernel, unsharded, plain, bound_pair,
+            **fields) -> None:
+    """One rank's launch of a tensor-parallel mode by CUDA events, beside the
+    unsharded kernel's launch and the mode's plain version on the same
+    slice; summed into its kernels-line entry."""
+    ms, unsharded_ms, plain_ms = cuda_time_ms(kernel), cuda_time_ms(unsharded), cuda_time_ms(plain)
+    bound_ms, bound_by = bound_pair
+    emit("kernel_time", kernel=name, shape=label, ms=ms, unsharded_ms=unsharded_ms,
+         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+         device_ms=device_time_ms(kernel), **fields)
+    add_time(stats, name, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+             library_ms=None)
+
+
+def phase_tp_kernels(stats: dict) -> None:
+    """The tensor-parallel modes of #12/#13 at H / 2 and H / 4 (pvlt_tiny's
+    stage shapes at B = 150 and a ragged shape at B = 4) and of #14/#15 at
+    V / 2 (R = 3,072, labels in both halves and ignored rows), each summed
+    over the slices in fp32 in this process and held to the unsharded
+    kernel and to the plain version within KERNEL_TOL; #13's db2 whole on
+    every slice. At tp = 2 one rank's launch is timed beside the unsharded
+    launch and the mode's plain version."""
+    gen = torch.Generator().manual_seed(SEED + 23)
+    shapes = [(f"stage{i + 1}", (h, w, d, nh, sr, hid, TEXT), TRAIN_BATCH)
+              for i, (h, w, d, nh, sr, hid) in enumerate(STAGES)]
+    for label, shape, batch in shapes + [("ragged", TRAIN_RAGGED, SMOKE_BATCH)]:
+        a = train_kernel_inputs(gen, shape, batch)
+        fwd_k, bwd_k = (ln_mlp_fwd(*_mlp_fwd_args(a)),), ln_mlp_bwd(*_mlp_bwd_args(a))
+        fwd_p, bwd_p = (ln_mlp_reference(*_mlp_fwd_args(a)),), ln_mlp_bwd_reference(
+            *_mlp_bwd_args(a))
+        for tp in TP_SIZES:
+            y, grads, db2s = tp_mlp_sums(a, tp)
+            torch.cuda.synchronize()
+            fields = dict(batch=batch, tp=tp, hidden=shape[5], hidden_per_rank=shape[5] // tp)
+            check_tp_errors(stats, "ln_mlp_fwd_tp", label, ("y",), y, fwd_k, fwd_p, **fields)
+            check_tp_errors(stats, "ln_mlp_bwd_tp", label,
+                            ("dx", "dgamma", "dbeta", "dW1", "db1", "dW2", "db2"), grads, bwd_k,
+                            bwd_p, **fields)
+            if not all(torch.equal(d, db2s[0]) for d in db2s):
+                raise AssertionError(f"#13's tensor-parallel db2 differs between slices at {label}")
+            del y, grads, db2s
+        if batch == TRAIN_BATCH:
+            g, be, _, _, _, _ = a["mlp"]
+            w1, b1, w2 = tp_hidden_slices(a["mlp"], 0, 2)
+            x, s, dy = a["x"], a["s"], a["dy"]
+            bounds = tp_bounds(shape, batch, 2)
+            tp_time(stats, "ln_mlp_fwd_tp", label,
+                    lambda: ln_mlp_fwd_tp(x, g, be, w1, b1, w2, s, 1e-6),
+                    lambda: ln_mlp_fwd(*_mlp_fwd_args(a)),
+                    lambda: ln_mlp_reference(x, g, be, w1, b1, w2, None, s, 1e-6, partial=True),
+                    bounds["ln_mlp_fwd_tp"], batch=batch, tp=2)
+            tp_time(stats, "ln_mlp_bwd_tp", label,
+                    lambda: ln_mlp_bwd_tp(x, g, be, w1, b1, w2, s, 1e-6, dy),
+                    lambda: ln_mlp_bwd(*_mlp_bwd_args(a)),
+                    lambda: ln_mlp_bwd_reference(x, g, be, w1, b1, w2, s, 1e-6, dy,
+                                                 passthrough=False),
+                    bounds["ln_mlp_bwd_tp"], batch=batch, tp=2)
+        del a, fwd_k, bwd_k, fwd_p, bwd_p
+        torch.cuda.empty_cache()
+
+    x, table, bias, labels, g = mlm_inputs(gen, TP_MLM_ROWS, 0.15)
+    half = VOCAB // 2
+    starts = (0, half)
+    if not all(bool(((labels >= s0) & (labels < s0 + half)).any()) for s0 in starts) \
+            or not bool((labels < 0).any()):
+        raise AssertionError("the MLM CE check's labels miss a half of the vocabulary")
+    parts = [mlm_ce_fwd_tp(x, table[s0:s0 + half], bias[s0:s0 + half], labels, s0)
+             for s0 in starts]
+    lse = torch.logsumexp(torch.stack([p[0] for p in parts]), 0)
+    nll = torch.where(labels >= 0, lse - sum(p[1] for p in parts), 0.0)
+    grads = [mlm_ce_bwd_tp(x, table[s0:s0 + half], bias[s0:s0 + half], labels, lse, g, s0)
+             for s0 in starts]
+    summed = (sum(o[0] for o in grads), torch.cat([o[1] for o in grads]),
+              torch.cat([o[2] for o in grads]))
+    want_k, want_p = mlm_ce_fwd(x, table, bias, labels), mlm_nll_reference(x, table, bias, labels)
+    torch.cuda.synchronize()
+    fields = dict(rows=TP_MLM_ROWS, tp=2, vocab=VOCAB, vocab_per_rank=half,
+                  labeled=int((labels >= 0).sum()))
+    check_tp_errors(stats, "mlm_ce_fwd_tp", "path", ("nll", "lse"), (nll, lse), want_k, want_p,
+                    **fields)
+    check_tp_errors(stats, "mlm_ce_bwd_tp", "path", ("d_rows", "d_table", "d_bias"), summed,
+                    mlm_ce_bwd(x, table, bias, labels, want_k[1], g),
+                    mlm_nll_bwd_reference(x, table, bias, labels, want_p[1], g), **fields)
+    bounds = tp_mlm_bounds(TP_MLM_ROWS, half)
+    t0, b0 = table[:half].contiguous(), bias[:half].contiguous()
+    tp_time(stats, "mlm_ce_fwd_tp", "path", lambda: mlm_ce_fwd_tp(x, t0, b0, labels, 0),
+            lambda: mlm_ce_fwd(x, table, bias, labels),
+            lambda: mlm_nll_partial_reference(x, t0, b0, labels, 0), bounds["mlm_ce_fwd_tp"],
+            **fields)
+    tp_time(stats, "mlm_ce_bwd_tp", "path", lambda: mlm_ce_bwd_tp(x, t0, b0, labels, lse, g, 0),
+            lambda: mlm_ce_bwd(x, table, bias, labels, want_k[1], g),
+            lambda: mlm_nll_bwd_reference(x, t0, b0, labels, lse, g, 0),
+            bounds["mlm_ce_bwd_tp"], **fields)
+    del x, table, bias, labels, g, parts, grads, summed
+    torch.cuda.empty_cache()
+
+
+def tp_eval_batches() -> list:
+    """The VL eval's host batches of the tensor-parallel phase (synthetic
+    pre-training items: clean and masked images, masked text, ITM labels)."""
+    data = SyntheticFashionGen(DataConfig(), size=sum(TP_EVAL_ITEMS), seed=SEED + 29)
+    items = [data[i] for i in range(len(data))]
+    return [collate(items[:TP_EVAL_ITEMS[0]]), collate(items[TP_EVAL_ITEMS[0]:])]
+
+
+def training_route_forward(self, x, hw, generator=None):
+    """Block.forward on the training route whatever the mode (#10 and the
+    one-process LN-MLP kernel): the route a split block takes in eval mode,
+    for the one-process comparison."""
+    return self.train_forward(x, hw, generator)
+
+
+def tensors_digest(tensors: dict) -> str:
+    """sha256 of the names and bytes of ``tensors`` in name order: equal
+    on two ranks only where every tensor is equal bit for bit."""
+    h = hashlib.sha256()
+    for n in sorted(tensors):
+        h.update(n.encode())
+        h.update(tensors[n].contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def tp_two_ranks_rank(spec: dict) -> None:
+    """A rank of ``tp_two_ranks`` (gloo, both ranks on cuda:0, tp = 2, dp =
+    1): the step of pvlt_tiny split over the two ranks from the whole
+    seeded weights at each parity on the whole B = 150 batch, its launches,
+    its consolidated gradients, parameters and BatchNorm statistics, a
+    checkpoint of the step-0 state, its time, a digest of each set of
+    consolidated tensors (every rank's own, for ``ranks_equal``); one step at
+    configs/pretrain_exp21.py's DropPath and BERT dropout from this rank's
+    seed; the VL eval of the split model."""
+    from mvlt_tpu_torch.eval.vl_eval import evaluate_vl, make_vl_eval_fn
+    from mvlt_tpu_torch.parallel import mesh
+    from mvlt_tpu_torch.parallel.tensor import consolidate, shard_model
+    from mvlt_tpu_torch.utils.checkpoint import CheckpointManager
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = mesh.maybe_init_distributed(device="cuda:0", backend="gloo")
+    mesh.init_model_parallel(2)
+    group, rank = mesh.model_group(), mesh.rank()
+    batch = batch_to_device(dict(np.load(spec["batch"])), device)
+    out = pathlib.Path(spec["out"])
+
+    def split(cfg, step: int = 0):
+        model = create_model(cfg, device=device)
+        model.load_state_dict(seeded_weights(model), strict=True)   # whole, then the shard
+        shard_model(model, group)
+        state = create_train_state(model, OptimConfig(warmup_epochs=0), TRAIN_BATCH, 1,
+                                   seed=mesh.rank_seed(SEED), model_group=group)
+        state.step = step
+        return model, state
+
+    def whole(tensors: dict, cfg) -> dict:
+        return {n: t.detach().float().cpu() for n, t in consolidate(tensors, group, cfg).items()}
+
+    cfg = ddp_config()
+    res, tensors = {"world": mesh.world_size(), "backend": torch.distributed.get_backend(),
+                    "ranks": [mesh.data_rank(), mesh.model_rank()]}, {}
+    for parity in (0, 1):
+        model, state = split(cfg, parity)
+        step = make_train_step(cfg)
+        reset_launches()
+        _, losses = step(state, batch)
+        torch.cuda.synchronize()
+        res[f"launches{parity}"] = read_launches()
+        res[f"losses{parity}"] = {k: float(v) for k, v in losses.items()}
+        tensors[f"grads{parity}"] = whole({n: p.grad for n, p in model.named_parameters()},
+                                          model.cfg)
+        if parity == 0:
+            tensors["params"] = whole(dict(model.named_parameters()), model.cfg)
+            tensors["buffers"] = {n: b.detach().float().cpu() for n, b in model.named_buffers()}
+            CheckpointManager(str(out / "tp_run")).save_epoch(state, 0, 1)
+            res["ms_per_step"] = cuda_time_ms(lambda: step(state, batch), warmup=1, reps=3)
+        del model, state
+        torch.cuda.empty_cache()
+    # the masks: both ranks of the model group must draw the same
+    drop_cfg = train_config()
+    model, state = split(drop_cfg)
+    _, losses = make_train_step(drop_cfg)(state, batch)
+    res["dropout_losses"] = {k: float(v) for k, v in losses.items()}
+    res["dropout_generator"] = state.generator.get_state().tolist()
+    del model, state
+    torch.cuda.empty_cache()
+    model, _ = split(cfg)
+    res["vl_eval"] = evaluate_vl(make_vl_eval_fn(model.eval(), cfg), tp_eval_batches(),
+                                 is_main=False)
+    res["digests"] = {k: tensors_digest(v) for k, v in tensors.items()}
+    if rank == 0:
+        torch.save(tensors, out / "tp_tensors.pt")
+    (out / f"tp_two_ranks_{rank}.json").write_text(json.dumps(res))
+    mesh.destroy()
+
+
+def phase_tp_two_ranks(stats: dict) -> None:
+    """Tensor parallelism on two gloo ranks on the one card (tp = 2, dp = 1;
+    NCCL refuses two ranks on one device), pvlt_tiny at full width with
+    configs/pretrain_exp21.py's heads, DropPath and dropout off, host masks,
+    seeded weights, the whole B = 150 batch on each rank: one step at each
+    parity against this process's step on the same weights and batch. The
+    losses within DDP_TOL; each consolidated gradient within the bound of
+    ddp_two_ranks (max(DDP_TOL, SWAP_FACTOR x the largest move of any
+    gradient when this process takes the step on the batch's halves
+    swapped), plus, for a gradient formed in bf16, BF16_SPACING of twice its
+    largest magnitude: each side rounds it once); the BatchNorm statistics
+    within DDP_TOL; both ranks' losses and VL eval equal, and their
+    consolidated gradients (both parities), parameters after the step and
+    BatchNorm statistics equal bit for bit (each rank's digest of its own:
+    a replicated tensor that drifts on one rank shows). Per
+    rank #10/#11 and the LN-MLP kernels' tensor-parallel modes launched once
+    per block, the MLM CE kernels' once, nothing else. The consolidated
+    checkpoint restores strictly in one process with the run's parameters.
+    With pretrain_exp21's DropPath and BERT dropout on, both ranks draw the
+    same masks (equal losses and generator states). The split model's VL
+    eval against this process's on the same route (the blocks' training
+    route; accuracies within one flip, losses within DDP_TOL), and beside
+    the serving route's. The two-rank step's ms beside the one-process
+    step's: gloo through host copies, not a speed of tensor parallelism."""
+    from mvlt_tpu_torch.eval.vl_eval import evaluate_vl, make_vl_eval_fn
+    from mvlt_tpu_torch.utils.checkpoint import STATE_FILE, CheckpointManager
+
+    cfg = ddp_config()
+    DDP_DIR.mkdir(parents=True, exist_ok=True)
+    arrays = {k: v for k, v in train_batch(SEED, TRAIN_BATCH).items() if isinstance(v, np.ndarray)}
+    np.savez(DDP_DIR / "batch.npz", **arrays)
+    batch = batch_to_device(arrays, "cuda")
+    step = make_train_step(cfg)
+
+    def one_process(b, parity: int = 0):
+        model = create_model(cfg)
+        model.load_state_dict(seeded_weights(model), strict=True)
+        state = create_train_state(model, OptimConfig(warmup_epochs=0), TRAIN_BATCH, 1, seed=SEED)
+        state.step = parity
+        _, losses = step(state, b)
+        return model, state, {k: float(v) for k, v in losses.items()}
+
+    want = {}
+    for parity in (0, 1):
+        model, state, losses = one_process(batch, parity)
+        want[parity] = (losses, grads_of(model))
+        if parity == 0:
+            want_params = {n: p.detach().float().cpu() for n, p in model.named_parameters()}
+            want_buffers = {n: b.detach().float().cpu() for n, b in model.named_buffers()}
+            one_ms = cuda_time_ms(lambda: step(state, batch), warmup=1, reps=3)
+        del model, state
+    half = TRAIN_BATCH // 2
+    model, state, _ = one_process({k: torch.cat([v[half:], v[:half]]) for k, v in batch.items()})
+    swap = rel_gaps(grads_of(model), want[0][1])
+    del model, state
+    model = create_model(cfg)
+    model.load_state_dict(seeded_weights(model), strict=True)
+    model.eval()
+    with mock.patch.object(Block, "forward", training_route_forward):
+        want_vl = evaluate_vl(make_vl_eval_fn(model, cfg), tp_eval_batches(), is_main=False)
+    serving_vl = evaluate_vl(make_vl_eval_fn(model, cfg), tp_eval_batches(), is_main=False)
+    del model, batch
+    torch.cuda.empty_cache()
+    start = time.perf_counter()
+    try:
+        ranks = spawn_ranks("tp_two_ranks", 2, {"batch": str(DDP_DIR / "batch.npz"),
+                                                "out": str(DDP_DIR)}, timeout=600)
+        got = torch.load(DDP_DIR / "tp_tensors.pt", weights_only=True)
+        saved = torch.load(DDP_DIR / "tp_run" / "checkpoint" / "last" / STATE_FILE,
+                           map_location="cpu", weights_only=True)
+        reloaded = create_model(cfg)
+        restored_state = create_train_state(reloaded, OptimConfig(warmup_epochs=0), TRAIN_BATCH, 1)
+        CheckpointManager(str(DDP_DIR / "tp_run")).restore(restored_state, "last")
+        restored = {n: p.detach().float().cpu() for n, p in reloaded.named_parameters()}
+        del reloaded, restored_state
+    finally:
+        shutil.rmtree(DDP_DIR, ignore_errors=True)
+    seconds = time.perf_counter() - start
+    swap_max = max(swap.values())
+    bf16_formed = {n for n, w in want[0][1].items() if torch.equal(w.to(torch.bfloat16).float(), w)}
+    bounds = {n: max(DDP_TOL, SWAP_FACTOR * swap_max)
+              + (2 * BF16_SPACING if n in bf16_formed else 0.0) for n in want[0][1]}
+    ratios, gaps = {}, {}
+    for parity in (0, 1):
+        gaps[parity] = rel_gaps(got[f"grads{parity}"], want[parity][1])
+        ratios[parity] = {n: g / bounds[n] for n, g in gaps[parity].items()}
+    worst = {p: max(r, key=r.get) for p, r in ratios.items()}
+    bn_gap = max(rel_gaps(got["buffers"], want_buffers).values())
+    l_gaps = {p: loss_gap(ranks[0][f"losses{p}"], want[p][0]) for p in (0, 1)}
+    expected = {name: TP_STEP_LAUNCHES.get(name, 0) for name in WRAPPERS}
+    labels = [b["mlm_labels"] for b in tp_eval_batches()]
+    counts = {"mlm_acc": sum(int((lb >= 0).sum()) for lb in labels),
+              "itm_acc": sum(TP_EVAL_ITEMS)}
+    vl = ranks[0]["vl_eval"]
+    vl_gaps = {k: (abs(vl[k] - v) * counts[k] if k in counts
+                   else abs(vl[k] - v) / max(abs(v), 1e-12)) for k, v in want_vl.items()}
+    checks = {
+        "backend_gloo_world_2": all(r["backend"] == "gloo" and r["world"] == 2 for r in ranks),
+        "model_ranks": [r["ranks"] for r in ranks] == [[0, 0], [0, 1]],
+        "losses": max(l_gaps.values()) <= DDP_TOL,
+        "grads": max(ratios[p][worst[p]] for p in (0, 1)) <= 1.0,
+        "batchnorms": bn_gap <= DDP_TOL,
+        "ranks_equal": all(ranks[0][k] == ranks[1][k]
+                           for k in ("losses0", "losses1", "vl_eval", "digests")),
+        "launches": all(r[f"launches{p}"] == expected for r in ranks for p in (0, 1)),
+        "checkpoint_tp1": sorted(saved["model"]) == sorted({**want_params, **want_buffers})
+        and all(torch.equal(restored[n], got["params"][n]) for n in restored),
+        "same_masks": ranks[0]["dropout_losses"] == ranks[1]["dropout_losses"]
+        and ranks[0]["dropout_generator"] == ranks[1]["dropout_generator"],
+        "vl_eval": all(vl_gaps[k] <= (1.0 if k in counts else DDP_TOL) for k in vl_gaps),
+    }
+    stats_launches = ranks[0]["launches0"]
+    for name in TP_WRAPPERS:
+        stats[name]["launches"] = stats_launches[name]
+    ok = all(checks.values())
+    emit("tp_two_ranks", model="pvlt_tiny", tp=2, dp=1, batch=TRAIN_BATCH, checks=checks,
+         rel_err_losses=l_gaps, worst_grad_over_bound={p: [worst[p], ratios[p][worst[p]]]
+                                                      for p in (0, 1)},
+         rel_err_grads_max={p: max(gaps[p].values()) for p in (0, 1)},
+         top_grad_ratios={p: [[n, ratios[p][n], gaps[p][n], bounds[n]]
+                              for n in sorted(ratios[p], key=ratios[p].get, reverse=True)[:6]]
+                          for p in (0, 1)},
+         grads_over_half_bound={p: sum(r > 0.5 for r in ratios[p].values()) for p in (0, 1)},
+         swap_grad_gap_max=swap_max, rel_err_batchnorms=bn_gap, tol=DDP_TOL,
+         param_gap_one_process=max(rel_gaps(got["params"], want_params).values()),
+         launches=ranks[0]["launches0"], launches_expected=expected,
+         losses=ranks[0]["losses0"], losses_one_process=want[0][0],
+         dropout_losses=[r["dropout_losses"] for r in ranks],
+         vl_eval=vl, vl_eval_one_process_training_route=want_vl,
+         vl_eval_one_process_serving_route=serving_vl, vl_gaps=vl_gaps, vl_counts=counts,
+         ms_per_step_two_ranks=[r["ms_per_step"] for r in ranks], ms_per_step_one_process=one_ms,
+         ms_note="two ranks over gloo on one card: every partial sum through host copies, not "
+                 "a speed of tensor parallelism; CUDA events, 1 warm-up, median of 3 steps",
+         seconds=seconds, ok=ok)
+    if not ok:
+        raise AssertionError(f"tp_two_ranks failed {[k for k, v in checks.items() if not v]}: "
+                             f"losses {l_gaps}, gradients {[(worst[p], ratios[p][worst[p]]) for p in (0, 1)]}, "
+                             f"BatchNorms {bn_gap}, VL eval {vl_gaps}")
+
+
+DDP_ROLES = {"world1": ddp_world1_rank, "two_ranks": ddp_two_ranks_rank,
+             "tp_two_ranks": tp_two_ranks_rank}
 
 
 
@@ -3657,6 +4104,8 @@ def main() -> int:
     phase_cli_eval()
     timed("ddp_world1", phase_ddp_world1, stats)
     timed("ddp_two_ranks", phase_ddp_two_ranks, stats)
+    timed("tp_kernels", phase_tp_kernels, stats)
+    timed("tp_two_ranks", phase_tp_two_ranks, stats)
     print(json.dumps({"kernels": [
         {**k, **{key: v for key, v in stats[k["name"]].items() if key != "bound_shares"}}
         for k in KERNELS]}), flush=True)

@@ -26,13 +26,29 @@ its masks, trains with the LR of the global batch (``--batch-size`` per
 rank), and scores its shard of every eval; only rank 0 prints, writes
 ``train_log.jsonl`` and saves. ``--zero1`` partitions the AdamW state over
 the ranks (in one process there is nothing to partition and AdamW runs as
-it is). Not ported, and refused with NotImplementedError: ``--tp-size``
-other than 1 and ``--steps-per-dispatch`` above 1.
+it is).
+
+Tensor parallelism: ``--tp-size N`` under torchrun splits the world into
+model groups of N consecutive ranks and data groups
+(parallel/mesh.py:init_model_parallel, the model axis innermost); the v1
+model of the training branch is split over its model group
+(parallel/tensor.py:shard_model; rank 0 prints the layout), DDP and the
+cross-rank sums act over the data group, each data rank draws its share of
+the samples and its masks from seed + data rank, and the LR takes the
+global batch of ``--batch-size`` per data rank. The VL eval (in training
+and ``--eval``) runs on the split model, each model group scoring its data
+rank's rows; the checkpoints hold the whole model and resume at any tp. The
+other eval modes and ``--viz`` build the whole model on every rank and
+shard the rows over the world, as without tensor parallelism. Refused with
+NotImplementedError: ``--steps-per-dispatch`` above 1, and with
+``--tp-size`` above 1 the v2, linear v2 and Swin backbones,
+``fused_attn_train``, ``drop_rate`` / ``attn_drop_rate`` above 0,
+``--remat`` and ``--zero1``.
 
 Usage:
   python -m mvlt_tpu_torch.cli --config configs/pretrain_exp21.py --data-path <root>
   python -m torch.distributed.run --nproc_per_node=8 -m mvlt_tpu_torch.cli \\
-      --config configs/pretrain_exp21.py --data-path <root> [--zero1]
+      --config configs/pretrain_exp21.py --data-path <root> [--zero1 | --tp-size 2]
   python -m mvlt_tpu_torch.cli --config configs/finetune_exp48.py --data-path <root> \\
       --finetune ./runs/pretrain_exp21
   python -m mvlt_tpu_torch.cli --config configs/pretrain_exp21.py --data-path <root> \\
@@ -163,11 +179,15 @@ def build_run_config(args) -> RunConfig:
 
 
 def _refuse_unported(args, cfg: RunConfig) -> None:
-    unported = {
-        "--tp-size other than 1": cfg.tp_size != 1,
-        "--steps-per-dispatch above 1": args.steps_per_dispatch > 1,
-    }
-    refused = [name for name, on in unported.items() if on]
+    from mvlt_tpu_torch.models.registry import resolve_model_config
+    from mvlt_tpu_torch.parallel.tensor import refusals
+
+    refused = ["--steps-per-dispatch above 1"] if args.steps_per_dispatch > 1 else []
+    if cfg.tp_size > 1:
+        refused += [f"--tp-size {cfg.tp_size} with {name}" for name in refusals(
+            resolve_model_config(cfg.model), remat=args.remat, zero1=args.zero1)]
+    if cfg.tp_size < 1:
+        raise ValueError(f"--tp-size {cfg.tp_size}: must be at least 1")
     if refused:
         raise NotImplementedError(f"not ported to mvlt_tpu_torch yet: {'; '.join(refused)}")
 
@@ -267,7 +287,7 @@ def main(argv=None) -> "dict | None":
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: torch sees no CUDA device "
                            f"(pass --device cpu to run on the host)")
-    rank, world, is_main = mesh.rank(), mesh.world_size(), mesh.is_main()
+    world, is_main = mesh.world_size(), mesh.is_main()
     if is_main:
         print(f"device: {device}" + (f" ({torch.cuda.get_device_name(device)})"
                                      if device.type == "cuda" else "")
@@ -280,19 +300,33 @@ def main(argv=None) -> "dict | None":
     if args.eval_recognition:
         return _eval_recognition(cfg, device)
 
+    tp = 1 if args.viz else cfg.tp_size   # --viz: the whole model, rank 0 alone
+    if tp > 1 and not mesh.initialized():
+        raise ValueError(f"--tp-size {tp} needs a process group of a multiple of {tp} ranks: "
+                         f"launch with python -m torch.distributed.run")
+    mesh.init_model_parallel(tp)
+    # every rank builds the same whole model from the seed, then keeps its shard
     model = create_model(cfg.model, device=device, input_size=cfg.data.input_size)
+    if tp > 1:
+        from mvlt_tpu_torch.parallel.tensor import describe, shard_model
+
+        shard_model(model, mesh.model_group())
+        if is_main:
+            print(describe(model), flush=True)
     # DDP broadcasts rank 0's weights before anything casts or caches them
-    ddp = wrap_model(model, device) if mesh.initialized() else None
+    ddp = (wrap_model(model, device, mesh.data_group())
+           if mesh.initialized() and (tp == 1 or mesh.data_size() > 1) else None)
+    data_rank, dp = mesh.data_rank(), mesh.data_size()
 
     train_ds = build_dataset("train", cfg.data, itm_enabled=cfg.model.loss_type.itm,
                              seed=cfg.seed)
     # the reference's --repeated-aug switch (main_vl.py:221-242): RA x3 by
-    # default, a plain shuffle otherwise; each rank its share
+    # default, a plain shuffle otherwise; each data rank its share
     if cfg.data.repeated_aug > 1:
-        sampler = RepeatedAugmentSampler(len(train_ds), rank, world, cfg.data.repeated_aug,
+        sampler = RepeatedAugmentSampler(len(train_ds), data_rank, dp, cfg.data.repeated_aug,
                                          cfg.seed)
     else:
-        sampler = DistributedSampler(len(train_ds), rank, world, seed=cfg.seed)
+        sampler = DistributedSampler(len(train_ds), data_rank, dp, seed=cfg.seed)
     batch = cfg.optim.batch_size
     steps_per_epoch = max(1, len(sampler) // batch)
     if args.grad_accum > 1 and batch % args.grad_accum:
@@ -300,10 +334,11 @@ def main(argv=None) -> "dict | None":
     if args.zero1 and ddp is None and is_main:
         print("--zero1 in one process: nothing to partition, AdamW as it is", flush=True)
 
-    # the schedule scales with the global batch, the masks draw seed + rank
-    # (mvlt_tpu/cli.py:172, :245)
-    state = create_train_state(model, cfg.optim, batch * world, steps_per_epoch,
-                               seed=cfg.seed + rank, ddp=ddp, zero1=args.zero1)
+    # the schedule scales with the global batch, the masks draw seed + data
+    # rank (mvlt_tpu/cli.py:172, :245)
+    state = create_train_state(model, cfg.optim, batch * dp, steps_per_epoch,
+                               seed=mesh.rank_seed(cfg.seed), ddp=ddp, zero1=args.zero1,
+                               model_group=mesh.model_group())
     ckpt = CheckpointManager(cfg.output_dir or "./runs/default", cfg)
     start_epoch = 0
     if cfg.resume:
@@ -336,7 +371,8 @@ def main(argv=None) -> "dict | None":
     valid_ds = build_dataset("valid", cfg.data, itm_enabled=cfg.model.loss_type.itm,
                              seed=cfg.seed + 10_000)
     # eval keeps every sample: the ragged last batch counts exactly; under a
-    # process group every rank reads each batch and scores its share of the rows
+    # process group every rank reads each batch and scores its data rank's
+    # share of the rows
     valid_loader = DataLoader(valid_ds, SequentialSampler(len(valid_ds)), batch,
                               put_fn=None, drop_last=False)
     run_eval = functools.partial(evaluate_vl, eval_fn, valid_loader, is_main=is_main)

@@ -65,5 +65,5 @@ extern "C" int mvlt_block_fused(const void* x, const void* k, const void* v,
   const cudaError_t err = attention_half_chain<BlockFusedRoute>(half, st);
   if (err != cudaSuccess) return (int)err;
   return mvlt_ln_mlp_fwd(h, ln2_w, ln2_b, w1, b1, w2, b2, nullptr, out, nrm, g,
-                         (long long)batch * n, n, d, hidden, d <= 128, 2, eps2, stream);
+                         (long long)batch * n, n, d, hidden, d <= 128, 2, eps2, nullptr, stream);
 }

@@ -39,6 +39,13 @@
 //     4, B = 150, 29 MB of LN(x) and 118 MB of G, written once and read once
 //     (about 90 us of traffic against 0.12 ms of products at the peak).
 //
+// Tensor-parallel mode (the C entry's `part` set): W1 and b1 are a rank's
+// [H / tp] rows and W2 its [D, H / tp] columns; the epilogue writes the
+// fp32 partial s (G W2^T) (ln_mlp.cuh:store_out), which the model group
+// sums before b2 and the residual are added and y is rounded once
+// (parallel/tensor.py:fused_ln_mlp_tp). The same kernels, one branch in
+// the epilogue.
+//
 // The three-launch kernels are also run by kernel D's chain (LN2, fc1 with
 // GELU off, fc2 without a row scale) and kernel E's (the MLP half), under
 // their route tags (ln_mlp.cuh).
@@ -351,25 +358,30 @@ cudaError_t ln_mlp_fwd(const LnMlpArgs& a, bool fused, cudaStream_t st) {
 // only) picks the one-launch kernel; otherwise nrm (rows * D) and g (rows *
 // H) bf16 are the three-launch form's scratch. `route` 0 runs #12 itself,
 // 1 kernel E's MLP half (SwinBlockRoute), 2 kernel B's (BlockFusedRoute);
-// 1 and 2 take no row scale (s unused).
+// 1 and 2 take no row scale (s unused). With `part` (fp32 [rows, D]) not
+// null, route 0 only, the tensor-parallel mode: the partial in `part` in
+// place of y (out and b2 unused; ln_mlp.cuh).
 extern "C" int mvlt_ln_mlp_fwd(const void* x, const void* gamma, const void* beta,
                                const void* w1, const void* b1, const void* w2, const void* b2,
                                const void* s, void* out, void* nrm, void* g, long long rows, int n,
-                               int d, int hidden, int fused, int route, float eps, void* stream) {
+                               int d, int hidden, int fused, int route, float eps, void* part,
+                               void* stream) {
   using namespace mvlt;
   if (rows < 1 || rows > (1LL << 30) || n < 1 || d < 16 || d > 512 || d % 16 || hidden < 16 ||
-      hidden % 16 || (fused && d > kFusedMaxD) || route < 0 || route > 2)
+      hidden % 16 || (fused && d > kFusedMaxD) || route < 0 || route > 2 || (part && route))
     return (int)cudaErrorInvalidValue;
-  const LnMlpArgs a{static_cast<const bf16*>(x),     static_cast<const float*>(gamma),
-                    static_cast<const float*>(beta), static_cast<const bf16*>(w1),
-                    static_cast<const float*>(b1),   static_cast<const bf16*>(w2),
-                    static_cast<const float*>(b2),   static_cast<const float*>(s),
-                    static_cast<bf16*>(out),         static_cast<bf16*>(nrm),
-                    static_cast<bf16*>(g),           (int)rows,
-                    n,                               d,
-                    hidden,                          eps};
+  LnMlpArgs a{static_cast<const bf16*>(x),     static_cast<const float*>(gamma),
+              static_cast<const float*>(beta), static_cast<const bf16*>(w1),
+              static_cast<const float*>(b1),   static_cast<const bf16*>(w2),
+              static_cast<const float*>(b2),   static_cast<const float*>(s),
+              static_cast<bf16*>(out),         static_cast<bf16*>(nrm),
+              static_cast<bf16*>(g),           (int)rows,
+              n,                               d,
+              hidden,                          eps};
+  a.part = static_cast<float*>(part);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return (int)(route == 0   ? ln_mlp_fwd<LnMlpRoute>(a, fused, st)
                : route == 1 ? ln_mlp_fwd<SwinBlockRoute>(a, fused, st)
                             : ln_mlp_fwd<BlockFusedRoute>(a, fused, st));
 }
+

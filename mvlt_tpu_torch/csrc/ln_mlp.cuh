@@ -36,15 +36,27 @@ struct LnMlpArgs {
   float eps;
   float* stats;  // the norm kernel's (mean, 1/std) of row r at stats[r * stats_ld], or null
   int stats_ld;
+  // tensor-parallel mode (#12 alone, LnMlpRoute): where not null the
+  // epilogue writes the fp32 partial s (v) [rows, D] here, without b2 and
+  // the residual, and `out` is unused
+  float* part;
 };
 
 // y rows of an epilogue: 8 columns c .. c + 7 of row `row`, v the fc2 sums:
-// y = x + s (v + b2), s the row's sample's scale or 1.
+// y = x + s (v + b2), s the row's sample's scale or 1; in the
+// tensor-parallel mode the fp32 partial s v alone (the model group sums the
+// ranks' partials, then b2 and x are added once).
 template <class Route>
 __device__ __forceinline__ void store_out(const LnMlpArgs& a, int row, int c,
                                           const float (&v)[8]) {
   const size_t o = (size_t)row * a.d + c;
   const float sc = Route::kRowScale ? a.s[row / a.n] : 1.0f;
+  if (a.part) {
+    float4* p = reinterpret_cast<float4*>(a.part + o);
+    p[0] = make_float4(sc * v[0], sc * v[1], sc * v[2], sc * v[3]);
+    p[1] = make_float4(sc * v[4], sc * v[5], sc * v[6], sc * v[7]);
+    return;
+  }
   const uint4 xr = *reinterpret_cast<const uint4*>(a.x + o);
   const __nv_bfloat162* xp = reinterpret_cast<const __nv_bfloat162*>(&xr);
   float y[8];
@@ -71,8 +83,11 @@ cudaError_t ln_mlp_fwd_out(const LnMlpArgs& a, cudaStream_t st);
 
 // ln_mlp.cu's C entry; route 0 is #12 itself (LnMlpRoute), 1 kernel E
 // (SwinBlockRoute), 2 kernel B (BlockFusedRoute); routes 1 and 2 take no
-// row scale (s may be null).
+// row scale (s may be null). `part` not null (route 0): the tensor-parallel
+// mode (#12 on a rank's [H / tp] slice of the hidden), part [rows, D] fp32
+// = s (GELU(LN(x) W1^T + b1) W2^T), no b2, no residual.
 extern "C" int mvlt_ln_mlp_fwd(const void* x, const void* gamma, const void* beta,
                                const void* w1, const void* b1, const void* w2, const void* b2,
                                const void* s, void* out, void* nrm, void* g, long long rows, int n,
-                               int d, int hidden, int fused, int route, float eps, void* stream);
+                               int d, int hidden, int fused, int route, float eps, void* part,
+                               void* stream);

@@ -54,6 +54,14 @@
 //       added in warp order.
 // The scratch (ops/fused_mlp.py:bwd_scratch) is the wrapper's, through the
 // caching allocator: 1.48 GB at stage 1, B = 150.
+// Tensor-parallel mode (dx_part not null; W1, b1 a rank's [H / tp] rows,
+// W2 its [D, H / tp] columns): the row kernel writes the fp32 partial
+// LN-backward(dn gamma) [rows, D] to dx_part without the dy passthrough
+// (summed over the model group, dy would count tp times), and dgamma and
+// dbeta are this rank's partials; LN's backward is linear in dn, so the
+// model group's sum of (dx_part, dgamma, dbeta) is the whole one
+// (parallel/tensor.py:fused_ln_mlp_tp). dW1, db1 and dW2 are the rank's
+// own; db2 = sum s dy is whole on every rank (dy is replicated).
 // Measured (chip_smoke.py on an H100 80GB HBM3 at 700 W, pvlt_tiny's stages
 // at B = 150): 2.82 / 1.81 / 1.56 / 1.68 ms by CUDA events at stages 1-4,
 // 2.69 / 1.47 / 1.32 / 1.31 ms of device time, against 12.2 / 9.7 / 10.7 /
@@ -109,6 +117,7 @@ struct BwdArgs {
   float* colp;     // [row blocks, 3, D] column sums of s.dy, dn.nhat, dn
   int rows, n, d, hidden;
   float eps;
+  float* dx_part;  // tensor-parallel mode: [rows, D] fp32 LN-backward(dn) without dy, or null
 };
 
 
@@ -355,11 +364,12 @@ __global__ void __launch_bounds__(kThreads) ln_mlp_bwd_rows_kernel(BwdArgs a) {
       for (int p = 0; p < P; ++p) {
         const int c = 2 * lane + 64 * p;
         if (c < d) {
-          const float v0 = dyv[k][p].x + (dn[k][p].x * a.gamma[c] - m1[k] - xh[k][p].x * m2[k]) *
-                                             st[k].y;
-          const float v1 = dyv[k][p].y +
-                           (dn[k][p].y * a.gamma[c + 1] - m1[k] - xh[k][p].y * m2[k]) * st[k].y;
-          store_bf16x2(a.dx + (size_t)r * d + c, v0, v1);
+          const float l0 = (dn[k][p].x * a.gamma[c] - m1[k] - xh[k][p].x * m2[k]) * st[k].y;
+          const float l1 = (dn[k][p].y * a.gamma[c + 1] - m1[k] - xh[k][p].y * m2[k]) * st[k].y;
+          if (a.dx_part)
+            *reinterpret_cast<float2*>(a.dx_part + (size_t)r * d + c) = make_float2(l0, l1);
+          else
+            store_bf16x2(a.dx + (size_t)r * d + c, dyv[k][p].x + l0, dyv[k][p].y + l1);
           sb2[p][0] += dyv[k][p].x * sc, sb2[p][1] += dyv[k][p].y * sc;
           sg[p][0] += dn[k][p].x * xh[k][p].x, sg[p][1] += dn[k][p].y * xh[k][p].y;
           sbe[p][0] += dn[k][p].x, sbe[p][1] += dn[k][p].y;
@@ -464,14 +474,15 @@ cudaError_t row_pass(bool rows_kernel, const BwdArgs& a, cudaStream_t st) {
 // space); db1p ceil(rows / 128) * H floats; colp ceil(rows / 128) * 3 * D
 // floats; wslots 2 * splits * H * D floats when splits > 1 (else unused).
 // splits (the row ranges of the weight gradients) is trimmed so that none
-// is empty.
+// is empty. With dx_part (fp32 [rows, D]) not null, the tensor-parallel
+// mode: dx_part in place of dx (unused), dgamma and dbeta partial.
 extern "C" int mvlt_ln_mlp_bwd(const void* x, const void* dy, const void* gamma,
                                const void* beta, const void* w1, const void* b1,
                                const void* w2, const void* s, void* dx, void* nhat, void* dys,
                                void* stats, void* g, void* dh, void* dn, void* db1p, void* colp,
                                void* wslots, void* dw1, void* dw2, void* db1, void* db2,
                                void* dgamma, void* dbeta, long long rows, int n, int d,
-                               int hidden, int splits, float eps, void* stream) {
+                               int hidden, int splits, float eps, void* dx_part, void* stream) {
   using namespace mvlt;
   if (rows < 1 || rows > (1LL << 30) || n < 1 || d < 16 || d > 2 * 32 * kMaxPairs || d % 16 ||
       hidden < 16 || hidden % 16 || splits < 1)
@@ -489,7 +500,8 @@ extern "C" int mvlt_ln_mlp_bwd(const void* x, const void* dy, const void* gamma,
                   static_cast<bf16*>(dys),         static_cast<float2*>(stats),
                   static_cast<bf16*>(g),           static_cast<bf16*>(dh),
                   static_cast<float*>(dn),         static_cast<float*>(db1p),
-                  static_cast<float*>(colp),       nr, n, d, hidden, eps};
+                  static_cast<float*>(colp),       nr, n, d, hidden, eps,
+                  static_cast<float*>(dx_part)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int row_tiles = (nr + kGemmTile - 1) / kGemmTile;
   const int htiles = (hidden + kGemmTile - 1) / kGemmTile;

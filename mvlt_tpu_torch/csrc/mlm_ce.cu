@@ -59,6 +59,14 @@
 // Every sum runs in a fixed order: two calls on the same inputs are
 // bit-equal, and no float atomics are used. The least traffic is 432 GFLOP
 // against ~0.4 GB of dl written and read twice.
+//
+// Tensor-parallel mode (a vocabulary-parallel decode, the table and bias a
+// rank's rows [vocab_start, vocab_start + V)): labels stay global, a row's
+// label picks a column only inside the rank's range, and a label outside
+// it picks nothing while the row still counts. The forward then writes the
+// rank's (lse, picked) (`picked` not null) for the model group to combine;
+// the backward takes the group's lse and returns dx as this rank's partial
+// (parallel/tensor.py:vocab_parallel_nll).
 
 #include <math.h>
 
@@ -75,7 +83,7 @@ struct FwdArgs {
   const float* bias;
   const int* labels;
   float* ws;  // [vocab tiles][rows][3] partials (max, sum of exp, picked)
-  int rows, vocab, chunks;
+  int rows, vocab, chunks, vocab_start;
 };
 
 __global__ void __launch_bounds__(kGemmThreads, 1) mlm_ce_fwd_kernel(FwdArgs a) {
@@ -87,11 +95,13 @@ __global__ void __launch_bounds__(kGemmThreads, 1) mlm_ce_fwd_kernel(FwdArgs a) 
   // thread rows rl and rl + 8 of the tile, columns 8j + cq, + 1
   const int rl = tile_row(), cq = tile_col();
   float mx[2] = {-INFINITY, -INFINITY}, picked[2] = {0.0f, 0.0f};
-  int lab[2];
+  int lab[2];  // the label's column in this rank's range; -1 for none (or ignored)
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = m0 + rl + 8 * h;
-    lab[h] = r < a.rows ? a.labels[r] : -1;
+    const int l = r < a.rows ? a.labels[r] : -1;
+    const int c = l - a.vocab_start;
+    lab[h] = l >= 0 && c >= 0 && c < a.vocab ? c : -1;
   }
 #pragma unroll
   for (int j = 0; j < 16; ++j) {
@@ -135,9 +145,10 @@ __global__ void __launch_bounds__(kGemmThreads, 1) mlm_ce_fwd_kernel(FwdArgs a) 
   }
 }
 
-// One thread per row: merge the vocabulary tiles' (max, sum, picked) in order.
+// One thread per row: merge the vocabulary tiles' (max, sum, picked) in
+// order; nll, or in the tensor-parallel mode the rank's picked logit.
 __global__ void mlm_ce_merge_kernel(const float* ws, const int* labels, int rows, int parts,
-                                    float* nll, float* lse) {
+                                    float* nll, float* lse, bool partial) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= rows) return;
   float m = -INFINITY;
@@ -150,7 +161,7 @@ __global__ void mlm_ce_merge_kernel(const float* ws, const int* labels, int rows
   }
   const float l = m + logf(sum);
   lse[r] = l;
-  nll[r] = labels[r] >= 0 ? l - picked : 0.0f;
+  nll[r] = partial ? picked : labels[r] >= 0 ? l - picked : 0.0f;
 }
 
 // ---- backward (wgmma) ----------------------------------------------------
@@ -163,7 +174,7 @@ struct DlArgs {
   const float* g;
   bf16* dl;    // [rows_pad][vocab_pad]
   float* dbp;  // [rows_pad / 128][vocab_pad] column sums of each row tile
-  int rows, vocab, vocab_pad, chunks;
+  int rows, vocab, vocab_pad, chunks, vocab_start;
 };
 
 __global__ void __launch_bounds__(kGemmThreads, 1) mlm_ce_dlogits_kernel(DlArgs a) {
@@ -182,7 +193,7 @@ __global__ void __launch_bounds__(kGemmThreads, 1) mlm_ce_dlogits_kernel(DlArgs 
   for (int h = 0; h < 2; ++h) {
     const int r = m0 + rl + 8 * h;
     const bool in = r < a.rows;
-    lab[h] = in ? a.labels[r] : -1;
+    lab[h] = in ? a.labels[r] : -1;  // global; its column here is lab - vocab_start
     nlse[h] = in ? -a.lse[r] * kLog2e : 0.0f;
     g[h] = in ? a.g[r] : 0.0f;
   }
@@ -194,7 +205,7 @@ __global__ void __launch_bounds__(kGemmThreads, 1) mlm_ce_dlogits_kernel(DlArgs 
       float dl = 0.0f;
       if (lab[h] >= 0 && v < a.vocab) {
         const float p = fast_exp2(fmaf(d[4 * j + e] + a.bias[v], kLog2e, nlse[h]));
-        dl = g[h] * (v == lab[h] ? p - 1.0f : p);
+        dl = g[h] * (v + a.vocab_start == lab[h] ? p - 1.0f : p);
       }
       d[4 * j + e] = dl;
     }
@@ -270,11 +281,15 @@ cudaError_t prepare(const void* kernel, size_t bytes) {
 // multiple of 64 (both directions stream it in 64-deep chunks).
 
 // ws: (vocab rounded up to 128) / 128 * rows * 3 floats, the partials.
+// vocab_start: the global index of the table's first row (0 in one
+// process); with `partial` the nll output holds the rank's picked logit
+// (the tensor-parallel mode).
 extern "C" int mvlt_mlm_ce_fwd(const void* x, const void* table, const void* bias,
                                const void* labels, void* ws, void* nll, void* lse, int rows,
-                               int vocab, int h, void* stream) {
+                               int vocab, int h, int vocab_start, int partial, void* stream) {
   using namespace mvlt;
-  if (rows < 1 || vocab < 1 || h < 64 || h % 64) return (int)cudaErrorInvalidValue;
+  if (rows < 1 || vocab < 1 || h < 64 || h % 64 || vocab_start < 0)
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = prepare((const void*)mlm_ce_fwd_kernel, kGemmSmem);
   if (err != cudaSuccess) return (int)err;
   const int row_tiles = (rows + kGemmTile - 1) / kGemmTile;
@@ -282,14 +297,14 @@ extern "C" int mvlt_mlm_ce_fwd(const void* x, const void* table, const void* bia
   const FwdArgs a{Mat{static_cast<const bf16*>(x), h, rows, h},
                   Mat{static_cast<const bf16*>(table), h, vocab, h},
                   static_cast<const float*>(bias), static_cast<const int*>(labels),
-                  static_cast<float*>(ws), rows, vocab, h / kGemmChunk};
+                  static_cast<float*>(ws), rows, vocab, h / kGemmChunk, vocab_start};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   mlm_ce_fwd_kernel<<<dim3(row_tiles, vocab_tiles), kGemmThreads, kGemmSmem, st>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   mlm_ce_merge_kernel<<<(rows + 255) / 256, 256, 0, st>>>(
       static_cast<const float*>(ws), static_cast<const int*>(labels), rows, vocab_tiles,
-      static_cast<float*>(nll), static_cast<float*>(lse));
+      static_cast<float*>(nll), static_cast<float*>(lse), partial != 0);
   return (int)cudaGetLastError();
 }
 
@@ -297,13 +312,16 @@ extern "C" int mvlt_mlm_ce_fwd(const void* x, const void* table, const void* bia
 // (rows and vocab rounded up to 128); slots: splits * rows * h floats when
 // splits > 1 (else unused). dx [rows, h], dtable [vocab, h] and dbias
 // [vocab], all fp32. h is a multiple of 64; splits (the vocabulary ranges of
-// dx) at least 1, trimmed so that none is empty.
+// dx) at least 1, trimmed so that none is empty. vocab_start as the
+// forward's; lse is then the model group's, and dx this rank's partial.
 extern "C" int mvlt_mlm_ce_bwd(const void* x, const void* table, const void* bias,
                                const void* labels, const void* lse, const void* g, void* dl,
                                void* dbp, void* slots, void* dx, void* dtable, void* dbias,
-                               int rows, int vocab, int h, int splits, void* stream) {
+                               int rows, int vocab, int h, int splits, int vocab_start,
+                               void* stream) {
   using namespace mvlt;
-  if (rows < 1 || vocab < 1 || h < 64 || h % 64 || splits < 1) return (int)cudaErrorInvalidValue;
+  if (rows < 1 || vocab < 1 || h < 64 || h % 64 || splits < 1 || vocab_start < 0)
+    return (int)cudaErrorInvalidValue;
   const int rows_pad = (rows + kGemmTile - 1) / kGemmTile * kGemmTile;
   const int vocab_pad = (vocab + kGemmTile - 1) / kGemmTile * kGemmTile;
   cudaError_t err = prepare((const void*)mlm_ce_dlogits_kernel, kGemmSmem);
@@ -320,7 +338,8 @@ extern "C" int mvlt_mlm_ce_bwd(const void* x, const void* table, const void* bia
 
   const DlArgs da{xm, em, static_cast<const float*>(bias), static_cast<const int*>(labels),
                   static_cast<const float*>(lse), static_cast<const float*>(g), dlb,
-                  static_cast<float*>(dbp), rows, vocab, vocab_pad, h / kGemmChunk};
+                  static_cast<float*>(dbp), rows, vocab, vocab_pad, h / kGemmChunk,
+                  vocab_start};
   mlm_ce_dlogits_kernel<<<dim3(row_tiles, vocab_tiles), kGemmThreads, kGemmSmem, st>>>(da);
   err = cudaGetLastError();
   if (err == cudaSuccess)

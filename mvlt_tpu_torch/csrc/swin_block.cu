@@ -240,5 +240,5 @@ extern "C" int mvlt_swin_block(const void* x, const void* kt, const void* vt, co
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return mvlt_ln_mlp_fwd(hres, ln2_w, ln2_b, w1, b1, w2, b2, nullptr, out, ln1, qkv, rows, hw, d,
-                         hidden, d <= 128, 1, eps2, stream);
+                         hidden, d <= 128, 1, eps2, nullptr, stream);
 }

@@ -16,7 +16,11 @@ Across data-parallel ranks (the JAX package's ``mesh=``) every rank reads
 each batch, pads it to a multiple of the ranks, and scores its contiguous
 share of the rows; the per-row values are gathered into zero-filled buffers
 that all_reduce sums, and every rank takes the batch's sums from all rows
-in order, as one process does (one rank scores every row).
+in order, as one process does (one rank scores every row). Under tensor
+parallelism the rows are split over the data ranks, the ranks of a model
+group score the same rows together, and the MLM decode of a split
+vocabulary combines the ranks' nll and argmax
+(parallel/tensor.py:VocabShardLogits).
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from mvlt_tpu_torch.data.fashion_gen import batch_to_device
 from mvlt_tpu_torch.eval.metrics import psnr_from_mse
 from mvlt_tpu_torch.parallel import mesh
 from mvlt_tpu_torch.parallel.sharding import EvalShard, gather_slots
+from mvlt_tpu_torch.parallel.tensor import VocabShardLogits
 from mvlt_tpu_torch.utils.logging import MetricLogger
 
 PAD_LABEL = -1
@@ -49,6 +54,13 @@ def make_vl_eval_fn(model, cfg) -> Callable[[Dict], Dict[str, float]]:
         """Per-row (nll sum, correct, labeled count) of logits [B, ..., C]
         against labels [B, ...], ignoring -1; an argmax is never -1, so
         padded rows and ignored tokens count nothing."""
+        if isinstance(logits, VocabShardLogits):
+            b = labels.shape[0]
+            labels = labels.reshape(b, -1)
+            nll, argmax = logits.nll_and_argmax(labels)
+            valid = labels != PAD_LABEL
+            return (nll.sum(1), ((argmax == labels) & valid).sum(1).float(),
+                    valid.sum(1).float())
         b = logits.shape[0]
         logits = logits.reshape(b, -1, logits.shape[-1]).float()
         labels = labels.reshape(b, -1)
@@ -153,13 +165,13 @@ def pad_eval_batch(feed: Dict[str, np.ndarray], multiple: int) -> Dict[str, np.n
 def evaluate_vl(eval_batch_fn: Callable, loader: Iterable, log_every: int = 10,
                 is_main: bool = True) -> Dict[str, float]:
     """Run the VL eval over host batches, each batch's rows split over the
-    data-parallel ranks (every rank reads the same batches; the padding
+    data ranks (every rank reads the same batches; the padding
     rows count nothing; in one process no row is padded). Returns the
     meters' global averages and ``quality_score``, the same on every rank."""
     logger = MetricLogger(is_main=is_main)
     for batch in logger.log_every(loader, log_every, header="Eval:"):
         feed = pad_eval_batch({k: v for k, v in batch.items() if isinstance(v, np.ndarray)},
-                              mesh.world_size())
+                              mesh.data_size())
         m = batch_sums(_sharded_rows(eval_batch_fn, feed))
         nv = m["n_valid"]
         if "mlm_correct" in m:

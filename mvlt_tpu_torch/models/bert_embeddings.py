@@ -4,13 +4,17 @@ Counterpart of mvlt_tpu/models/bert_embeddings.py (HF ``BertEmbeddings`` as
 the reference builds it). Position ids are arange(T) and the token type is
 always 0, so the type embedding is one row broadcast over [B, T], not a
 gather. LayerNorm eps is 1e-12; dropout (0.1) acts in training only, with
-its mask drawn from the generator the caller passes.
+its mask drawn from the generator the caller passes. Under tensor
+parallelism (a ``vocab_group`` passed in) the word embedding holds this
+rank's rows of the vocabulary and the lookup is vocabulary-parallel.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from mvlt_tpu_torch.parallel.tensor import vocab_parallel_embedding
 
 
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:
@@ -33,10 +37,12 @@ class BertEmbeddings(nn.Module):
         self.dropout_rate = dropout_rate
 
     def forward(self, input_ids: torch.Tensor,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None, vocab_group=None) -> torch.Tensor:
         """input_ids [B, T] -> fp32 [B, T, hidden]."""
         t = input_ids.shape[-1]
-        x = (self.word_embeddings(input_ids)
+        words = (self.word_embeddings(input_ids) if vocab_group is None else
+                 vocab_parallel_embedding(input_ids, self.word_embeddings.weight, vocab_group))
+        x = (words
              + self.position_embeddings.weight[:t]
              + self.token_type_embeddings.weight[0])
         x = self.LayerNorm(x)

@@ -27,6 +27,7 @@ from torch import nn
 from mvlt_tpu_torch.ops.kernel_math import acc_dtype, gelu, layer_norm_fp32, linear, matmul_acc
 from mvlt_tpu_torch.ops.upsample import upsample_bilinear_align_corners
 from mvlt_tpu_torch.parallel.sharding import all_reduce_sum, group_size
+from mvlt_tpu_torch.parallel.tensor import VocabShardLogits, vocab_start
 
 
 class BertHeadTransform(nn.Module):
@@ -43,20 +44,35 @@ class BertHeadTransform(nn.Module):
 
 class MLMHead(nn.Module):
     """Masked language modelling head; its decoder is the (tied) embedding
-    table passed in at call time."""
+    table passed in at call time. Under tensor parallelism (a
+    ``vocab_group`` passed in) the table and ``bias`` hold this rank's rows
+    of the vocabulary."""
 
     def __init__(self, vocab_size: int = 30522, hidden_size: int = 768):
         super().__init__()
         self.transform = BertHeadTransform(hidden_size)
         self.bias = nn.Parameter(torch.zeros(vocab_size))
 
-    def forward(self, x: torch.Tensor, table: torch.Tensor, decode: bool = True):
+    def forward(self, x: torch.Tensor, table: torch.Tensor, decode: bool = True,
+                vocab_group=None):
         """x [B, T, hidden], table [vocab, hidden] -> fp32 logits
-        [B, T, vocab]; with decode=False (hidden, bias) for the chunked loss."""
+        [B, T, vocab]; with decode=False (hidden, bias) for the chunked loss.
+        On a vocabulary split over ``vocab_group`` the decode is this rank's
+        logits as a parallel/tensor.py:VocabShardLogits, whose nll and
+        argmax combine the ranks' without gathering the logits: an eval
+        decode, refused where a gradient is wanted (x's would hold this
+        rank's vocabulary alone; the loss takes decode=False)."""
         x = self.transform(x)
         if not decode:
             return x, self.bias
-        return matmul_acc(x, table.transpose(0, 1), x.dtype) + self.bias
+        if vocab_group is not None and torch.is_grad_enabled() and x.requires_grad:
+            raise NotImplementedError("the MLM decode through the logits on a split "
+                                      "vocabulary has no backward: train with "
+                                      "mlm_loss_chunk > 0")
+        logits = matmul_acc(x, table.transpose(0, 1), x.dtype) + self.bias
+        if vocab_group is None:
+            return logits
+        return VocabShardLogits(logits, vocab_start(table, vocab_group), vocab_group)
 
 
 class ITMHead(nn.Module):
@@ -172,7 +188,11 @@ class ITGHead(nn.Module):
         x2_2 = self.conv_concat2(torch.cat([x2_1, self.conv_upsample4(up2(high))], dim=-1))
         x3_2 = self.conv_concat3(torch.cat([x3_1, self.conv_upsample5(up2(x2_2))], dim=-1))
         refined = self.conv4(x3_2)
+        # the 1x1 score conv as a product over the NHWC channels: a conv on
+        # the channels-last view gives its weight a channels-last gradient,
+        # whose strides differ from the parameter's in the size-1 dims, and
+        # DDP then warns on every step that they differ from its bucket view
         conv = self.score[0]
-        score = F.conv2d(refined.permute(0, 3, 1, 2), conv.weight.to(refined.dtype),
-                         conv.bias.to(refined.dtype)).permute(0, 2, 3, 1)
+        w = conv.weight.to(refined.dtype)
+        score = F.linear(refined, w.reshape(w.shape[0], -1), conv.bias.to(refined.dtype))
         return upsample_bilinear_align_corners(score, 8)

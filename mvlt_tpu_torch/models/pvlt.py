@@ -47,8 +47,16 @@ Hopper kernels and nothing else in their place on a CUDA tensor:
     of ops/block_attention.py:fused_block_attention_train
     (``fused_attn_stats``: its saved-statistics backward). With ``remat``
     each block runs under torch.utils.checkpoint (``checkpoint_block``).
+Under tensor parallelism (parallel/tensor.py:shard_model, v1 only) a block
+whose attention or MLP is split over a model group takes the training
+route in eval mode too, under no_grad: #10/#11 on the rank's heads and the
+LN-MLP kernels in their tensor-parallel modes. The serving kernels A-F
+fuse the out-projection, the residual, LN2 and the MLP across what is
+there a sum over ranks, so a shard never runs them; they stay for the
+unsharded model.
 The training forward returns the MLM head's transformed hidden rows, the
-tied table and the bias (``mlm_hidden``, ``mlm_table``, ``mlm_bias``) in
+tied table and the bias (``mlm_hidden``, ``mlm_table``, ``mlm_bias``, and
+``mlm_vocab_group``: the model group of a split vocabulary, else None) in
 place of the [B, T, vocab] logits, for the chunked loss; eval returns all
 five logits.
 """
@@ -82,6 +90,8 @@ from mvlt_tpu_torch.ops.sr_kv import (fused_ln_sr_kv, linear_reduce_kv_input, re
 from mvlt_tpu_torch.ops.swin_attention import fused_swin_attention
 from mvlt_tpu_torch.ops.swin_band import fused_swin_block
 from mvlt_tpu_torch.ops.upsample import resize_bilinear
+from mvlt_tpu_torch.parallel.tensor import (copy_to_model, fused_ln_mlp_tp, linear_partial,
+                                            reduce_from_model)
 
 
 def _ln(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
@@ -272,6 +282,8 @@ class BlockGlue(CastOperands):
 
     drop_path = 0.0
     drop = 0.0
+    tp_group = None      # the model group under tensor parallelism
+    mlp_split = False    # the MLP hidden split over it
 
     def drop_path_scale(self, x: torch.Tensor,
                         generator: Optional[torch.Generator]) -> Optional[torch.Tensor]:
@@ -293,12 +305,18 @@ class BlockGlue(CastOperands):
         wrapper; a check passes its plain version) with DropPath as its row
         scale; with ``drop`` > 0 PyTorch glue with dropout after GELU and
         after fc2, since the JAX package's kernel takes no dropout
-        (mvlt_tpu/models/pvlt.py:925-930, :287-296)."""
+        (mvlt_tpu/models/pvlt.py:925-930, :287-296). With ``mlp_split``
+        parallel/tensor.py:fused_ln_mlp_tp over the rank's hidden slice."""
         m = self.mlp
         if self.drop:
             hidden = gelu(linear(_ln(x, self.norm2), m.fc1.weight, m.fc1.bias))
             out = linear(self.dropout(hidden, generator), m.fc2.weight, m.fc2.bias)
             return _add_scaled(x, self.dropout(out, generator), self.drop_path_scale(x, generator))
+        if self.mlp_split:
+            return fused_ln_mlp_tp(x, self.norm2.weight, self.norm2.bias, m.fc1.weight,
+                                   m.fc1.bias, m.fc2.weight, m.fc2.bias,
+                                   self.drop_path_scale(x, generator), self.norm2.eps,
+                                   self.tp_group)
         return ln_mlp(x, self.norm2.weight, self.norm2.bias, m.fc1.weight, m.fc1.bias,
                       m.fc2.weight, m.fc2.bias, self.drop_path_scale(x, generator),
                       self.norm2.eps)
@@ -309,7 +327,12 @@ class Block(BlockGlue, nn.Module):
     are per-sample DropPath scales (mask / keep) in training mode and 1 in
     eval; ``mlp`` is the DWConv MLP for ``v2``. Serving path or training path
     as the module docstring says; ``drop`` and ``attn_drop`` are the dropout
-    rates of the projections and MLP and of the attention probabilities."""
+    rates of the projections and MLP and of the attention probabilities.
+    Under tensor parallelism (``tp_group`` set by parallel/tensor.py:
+    shard_model) the attention holds the rank's whole heads where
+    ``attn_split`` and the MLP its slice of the hidden where ``mlp_split``."""
+
+    attn_split = False
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float, sr_ratio: int,
                  qkv_bias: bool, ln_eps: float = 1e-6, sr_ln_eps: float = 1e-5,
@@ -381,7 +404,7 @@ class Block(BlockGlue, nn.Module):
 
     def forward(self, x: torch.Tensor, hw: tuple,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        if self.training or self.wants_grad(x):
+        if self.training or self.wants_grad(x) or self.tp_group is not None:
             return self.train_forward(x, hw, generator)
         ops, kws = self.kernel_operands(x.dtype), self.kernel_kwargs()
         if self.attn.linear_sr:
@@ -403,15 +426,23 @@ class Block(BlockGlue, nn.Module):
         half after the K/V projection as one ``block_attention`` call;
         otherwise Q, ``attention`` (or, with ``attn_drop`` in training mode,
         ``attention_dropout``), the projection and the DropPath add run apart.
-        The MLP half is ``mlp_half`` (v1) or ``dwconv_mlp_half`` (v2)."""
+        The MLP half is ``mlp_half`` (v1) or ``dwconv_mlp_half`` (v2).
+        With ``attn_split`` the q and kv products take their inputs through
+        ``copy_to_model`` and give the rank's heads, and the out-projection's
+        partial is summed by ``reduce_from_model`` before its bias and the
+        residual are added, once."""
         a = self.attn
         b, n, d = x.shape
-        heads = self.num_heads
-        hd = d // heads
+        hd = d // self.num_heads
+        heads = a.q.weight.shape[0] // hd     # the rank's heads under tensor parallelism
+        group = self.tp_group if self.attn_split else None
         normed = layer_norm_fp32(x, self.norm1.weight, self.norm1.bias, self.norm1.eps)
         sr = ((a.sr.weight, a.sr.bias, a.norm.weight, a.norm.bias)
               if a.sr_ratio > 1 else (None,) * 4)
-        k, v = split_kv(linear(self.kv_input(normed, hw, *sr), a.kv.weight, a.kv.bias), heads)
+        kv_in = self.kv_input(normed, hw, *sr)
+        if group is not None:
+            normed, kv_in = copy_to_model(normed, group), copy_to_model(kv_in, group)
+        k, v = split_kv(linear(kv_in, a.kv.weight, a.kv.bias), heads)
         if (self.fused_attn_train and self.training and not self.v2 and not self.drop
                 and not self.attn_drop):
             x = block_attention(x, k, v, self.norm1.weight, self.norm1.bias, a.q.weight,
@@ -424,7 +455,12 @@ class Block(BlockGlue, nn.Module):
                 o = attention_dropout(q, k, v, hd ** -0.5, self.attn_drop, generator)
             else:
                 o = attention(q, k, v, hd ** -0.5)
-            attn_out = linear(o.transpose(1, 2).reshape(b, n, d), a.proj.weight, a.proj.bias)
+            o = o.transpose(1, 2).reshape(b, n, heads * hd)
+            if group is None:
+                attn_out = linear(o, a.proj.weight, a.proj.bias)
+            else:
+                total = reduce_from_model(linear_partial(o, a.proj.weight), group)
+                attn_out = (total + a.proj.bias.to(total.dtype)).to(x.dtype)
             attn_out = self.dropout(attn_out, generator)
             x = _add_scaled(x, attn_out, self.drop_path_scale(x, generator))
         if self.v2:
@@ -600,15 +636,21 @@ class PVLT(nn.Module):
     ``mlm_logits``, ``itm_logits``, ``sup_cls_logits``, ``sub_cls_logits``
     and ``t2i_logits`` (NHWC), None for a head that is off. In training mode
     with ``cfg.mlm_loss_chunk > 0`` the MLM head returns ``mlm_hidden``,
-    ``mlm_table`` and ``mlm_bias`` instead of logits, and ``mlm_row_idx``
-    (from train/losses.py:mlm_gather_plan) picks the text rows it runs on.
+    ``mlm_table``, ``mlm_bias`` and ``mlm_vocab_group`` instead of logits,
+    and ``mlm_row_idx`` (from train/losses.py:mlm_gather_plan) picks the
+    text rows it runs on.
     ``generator`` draws the dropout and DropPath masks.
 
     Parameters start at PyTorch's defaults (``create_model`` re-initialises
     them as the JAX package does); load trained or exported weights with
     ``load_state_dict``. A Swin model's relative-position tables are sized
     for the stage grids of ``input_size`` x ``input_size`` images, the size
-    it then runs at (JAX sizes them from the images it initialises with)."""
+    it then runs at (JAX sizes them from the images it initialises with).
+    ``tp_group`` is the model group once parallel/tensor.py:shard_model has
+    split it, ``vocab_group`` the same where the vocabulary is split."""
+
+    tp_group = None
+    vocab_group = None
 
     def __init__(self, cfg: ModelConfig, input_size: int = DataConfig.input_size):
         super().__init__()
@@ -688,7 +730,7 @@ class PVLT(nn.Module):
         if images.shape[-1] != cfg.in_chans and images.shape[1] == cfg.in_chans:
             images = images.permute(0, 2, 3, 1)        # NCHW accepted
         b = images.shape[0]
-        y = self.text_embeddings(input_ids, generator).to(dtype)
+        y = self.text_embeddings(input_ids, generator, self.vocab_group).to(dtype)
         x = images.to(dtype)
         img_feats = []
         for i, dim in enumerate(cfg.embed_dims):
@@ -724,9 +766,11 @@ class PVLT(nn.Module):
             if self.training and cfg.mlm_loss_chunk > 0:
                 rows = y if mlm_row_idx is None else y.reshape(-1, y.shape[-1])[mlm_row_idx][None]
                 hid, bias = self.mlm_head(self._adapter("mlm", rows), table, decode=False)
-                out.update(mlm_hidden=hid, mlm_table=table, mlm_bias=bias)
+                out.update(mlm_hidden=hid, mlm_table=table, mlm_bias=bias,
+                           mlm_vocab_group=self.vocab_group)
             else:
-                out["mlm_logits"] = self.mlm_head(self._adapter("mlm", y), table)
+                out["mlm_logits"] = self.mlm_head(self._adapter("mlm", y), table,
+                                                  vocab_group=self.vocab_group)
         cls_feat = y[:, 0:1]
         if lt.itm:
             out["itm_logits"] = self.itm_head(self._adapter("itm", cls_feat))

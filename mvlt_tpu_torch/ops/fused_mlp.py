@@ -15,6 +15,14 @@ and what scratch it takes); ``fused_ln_mlp`` is the differentiable ``autograd.Fu
 takes the fp32 master parameters, rounds the matrices to x.dtype inside,
 and returns fp32 gradients for them; s gets no gradient (the DropPath mask
 is a constant).
+
+Tensor-parallel mode (``ln_mlp_fwd_tp``, ``ln_mlp_bwd_tp``; plain versions
+``ln_mlp_reference(partial=True)`` and ``ln_mlp_bwd_reference(
+passthrough=False)``): on a rank's [H / tp] slice of the hidden (W1, b1 its
+rows, W2 its columns) the forward gives the fp32 partial s (G W2^T), without
+b2 and x, and the backward the fp32 LN-backward of the rank's dn without the
+dy passthrough, with the rank's partial dgamma and dbeta; the model group
+sums them (parallel/tensor.py:fused_ln_mlp_tp).
 """
 
 from __future__ import annotations
@@ -41,21 +49,28 @@ def _rows_scale(row_scale, x):
     return row_scale.to(acc_dtype(x.dtype))[:, None, None]
 
 
-def ln_mlp_reference(x, gamma, beta, w1, b1, w2, b2, row_scale, eps: float):
+def ln_mlp_reference(x, gamma, beta, w1, b1, w2, b2, row_scale, eps: float,
+                     partial: bool = False):
     """Plain forward in x.dtype: LN statistics, the products' sums, GELU and
     the residual in fp32, the LN output and the GELU output rounded to
-    x.dtype before the products."""
+    x.dtype before the products. With ``partial`` (the tensor-parallel
+    mode; b2 unused) the unrounded s (G W2^T) in fp32 (fp64 for fp64)."""
     acc = acc_dtype(x.dtype)
     normed = layer_norm_fp32(x, gamma, beta, eps)
     h = matmul_acc(normed, w1.transpose(0, 1), x.dtype) + b1.to(acc)
-    y = matmul_acc(gelu(h).to(x.dtype), w2.transpose(0, 1), x.dtype) + b2.to(acc)
-    return (x.to(acc) + _rows_scale(row_scale, x) * y).to(x.dtype)
+    y = matmul_acc(gelu(h).to(x.dtype), w2.transpose(0, 1), x.dtype)
+    if partial:
+        return _rows_scale(row_scale, x) * y
+    return (x.to(acc) + _rows_scale(row_scale, x) * (y + b2.to(acc))).to(x.dtype)
 
 
-def ln_mlp_bwd_reference(x, gamma, beta, w1, b1, w2, row_scale, eps: float, dy):
+def ln_mlp_bwd_reference(x, gamma, beta, w1, b1, w2, row_scale, eps: float, dy,
+                         passthrough: bool = True):
     """Plain backward for the output gradient dy: (dx, dgamma, dbeta, dW1,
     db1, dW2, db2), the hidden recomputed; parameter gradients in fp32 (fp64
-    for fp64), dx in x.dtype. Rows with s = 0 pass dy through to dx."""
+    for fp64), dx in x.dtype. Rows with s = 0 pass dy through to dx.
+    Without ``passthrough`` (the tensor-parallel mode) dx is the LN
+    backward of dn alone, unrounded in fp32 (fp64 for fp64)."""
     acc = acc_dtype(x.dtype)
     dt = x.dtype
     d, hidden = x.shape[-1], w1.shape[0]
@@ -72,7 +87,7 @@ def ln_mlp_bwd_reference(x, gamma, beta, w1, b1, w2, row_scale, eps: float, dy):
     dw1 = matmul_acc(rows_dh1.transpose(0, 1), normed.reshape(-1, d), dt)
     dnormed = matmul_acc(dh1, w1, dt)
     dx_ln, dgamma, dbeta = layer_norm_bwd(x, gamma, eps, dnormed)
-    dx = (dy.to(acc) + dx_ln).to(dt)
+    dx = (dy.to(acc) + dx_ln).to(dt) if passthrough else dx_ln
     return dx, dgamma, dbeta, dw1, db1, dw2, db2
 
 
@@ -136,6 +151,28 @@ def bwd_scratch(rows: int, d: int, hidden: int, splits: int) -> dict:
             "wslots": (2 * splits * hidden * d if splits > 1 else 0, f32)}
 
 
+def _fwd_launch(name: str, x, gamma, beta, w1, b1, w2, b2, row_scale, eps: float,
+                partial: bool):
+    """The forward's kernels on a CUDA tensor: y in x.dtype, or with
+    ``partial`` the fp32 partial of the tensor-parallel mode."""
+    g, be, w1_, b1_, w2_, b2_, s = _check(name, x, gamma, beta, w1, b1, w2, b2, row_scale)
+    b, n, d = x.shape
+    hidden = w1.shape[0]
+    fused = fwd_fused(d)
+    scratch = [torch.empty(max(count, 1), dtype=dt, device=x.device)
+               for count, dt in fwd_scratch(b * n, d, hidden, fused).values()]
+    out = (torch.empty(x.shape, dtype=torch.float32, device=x.device) if partial
+           else torch.empty_like(x))
+    err = _build.load_library().mvlt_ln_mlp_fwd(
+        x.data_ptr(), g.data_ptr(), be.data_ptr(), w1_.data_ptr(), b1_.data_ptr(),
+        w2_.data_ptr(), None if partial else b2_.data_ptr(), s.data_ptr(),
+        None if partial else out.data_ptr(), *(t.data_ptr() for t in scratch), b * n, n, d,
+        hidden, int(fused), 0, eps, out.data_ptr() if partial else None,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check_launch(name, err)
+    return out
+
+
 def ln_mlp_fwd(x, gamma, beta, w1, b1, w2, b2, row_scale, eps: float):
     """Forward. A CPU tensor takes ``ln_mlp_reference``; a CUDA tensor
     launches the kernel (one launch for D <= 128, else three with the
@@ -143,34 +180,28 @@ def ln_mlp_fwd(x, gamma, beta, w1, b1, w2, b2, row_scale, eps: float):
     ``ln_mlp_fwd.launches``."""
     if x.device.type == "cpu":
         return ln_mlp_reference(x, gamma, beta, w1, b1, w2, b2, row_scale, eps)
-    name = "ln_mlp_fwd"
-    g, be, w1_, b1_, w2_, b2_, s = _check(name, x, gamma, beta, w1, b1, w2, b2, row_scale)
-    b, n, d = x.shape
-    hidden = w1.shape[0]
-    fused = fwd_fused(d)
-    scratch = [torch.empty(max(count, 1), dtype=dt, device=x.device)
-               for count, dt in fwd_scratch(b * n, d, hidden, fused).values()]
-    out = torch.empty_like(x)
-    err = _build.load_library().mvlt_ln_mlp_fwd(
-        x.data_ptr(), g.data_ptr(), be.data_ptr(), w1_.data_ptr(), b1_.data_ptr(),
-        w2_.data_ptr(), b2_.data_ptr(), s.data_ptr(), out.data_ptr(),
-        *(t.data_ptr() for t in scratch), b * n, n, d, hidden, int(fused), 0, eps,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check_launch(name, err)
+    out = _fwd_launch("ln_mlp_fwd", x, gamma, beta, w1, b1, w2, b2, row_scale, eps, False)
     ln_mlp_fwd.launches += 1
     return out
 
 
-def ln_mlp_bwd(x, gamma, beta, w1, b1, w2, row_scale, eps: float, dy):
-    """Backward (dx, dgamma, dbeta, dW1, db1, dW2, db2). A CPU tensor takes
-    ``ln_mlp_bwd_reference``; a CUDA tensor launches the kernels (the rows'
-    LN and s.dy, the hidden and its gradient, the weight gradients, dn, dx
-    with the column sums, the in-order slot sums) with the scratch of
-    ``bwd_scratch``, anything else raises. Counts launches in
-    ``ln_mlp_bwd.launches``."""
+def ln_mlp_fwd_tp(x, gamma, beta, w1, b1, w2, row_scale, eps: float):
+    """The forward's tensor-parallel mode on a rank's slice of the hidden:
+    the fp32 partial s (G W2^T) [B, N, D]. A CPU tensor takes
+    ``ln_mlp_reference(partial=True)``; a CUDA tensor launches the kernel
+    (its epilogue writing the partial), anything else raises. Counts
+    launches in ``ln_mlp_fwd_tp.launches``."""
     if x.device.type == "cpu":
-        return ln_mlp_bwd_reference(x, gamma, beta, w1, b1, w2, row_scale, eps, dy)
-    name = "ln_mlp_bwd"
+        return ln_mlp_reference(x, gamma, beta, w1, b1, w2, None, row_scale, eps, partial=True)
+    out = _fwd_launch("ln_mlp_fwd_tp", x, gamma, beta, w1, b1, w2, None, row_scale, eps, True)
+    ln_mlp_fwd_tp.launches += 1
+    return out
+
+
+def _bwd_launch(name: str, x, gamma, beta, w1, b1, w2, row_scale, eps: float, dy,
+                partial: bool):
+    """The backward's kernels on a CUDA tensor; with ``partial`` dx is the
+    fp32 partial of the tensor-parallel mode."""
     g, be, w1_, b1_, w2_, _, s = _check(name, x, gamma, beta, w1, b1, w2, None, row_scale)
     _build.check_stream(name, dy)
     if dy.shape != x.shape:
@@ -186,7 +217,7 @@ def ln_mlp_bwd(x, gamma, beta, w1, b1, w2, row_scale, eps: float, dy):
     if not layout["dn"][0]:
         scratch["dn"] = scratch["g"]   # dn is written after G's last read
     f32 = dict(dtype=torch.float32, device=dev)
-    dx = torch.empty_like(x)
+    dx = torch.empty(x.shape, **f32) if partial else torch.empty_like(x)
     dw1, dw2 = torch.empty((hidden, d), **f32), torch.empty((d, hidden), **f32)
     db1, db2 = torch.empty(hidden, **f32), torch.empty(d, **f32)
     dgamma, dbeta = torch.empty(d, **f32), torch.empty(d, **f32)
@@ -195,14 +226,46 @@ def ln_mlp_bwd(x, gamma, beta, w1, b1, w2, row_scale, eps: float, dy):
         b1_.data_ptr(), w2_.data_ptr(), s.data_ptr(), dx.data_ptr(),
         *(t.data_ptr() for t in scratch.values()), dw1.data_ptr(), dw2.data_ptr(),
         db1.data_ptr(), db2.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(), rows, n, d,
-        hidden, splits, eps, torch.cuda.current_stream(dev).cuda_stream)
+        hidden, splits, eps, dx.data_ptr() if partial else None,
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(name, err)
-    ln_mlp_bwd.launches += 1
     return dx, dgamma, dbeta, dw1, db1, dw2, db2
+
+
+
+def ln_mlp_bwd(x, gamma, beta, w1, b1, w2, row_scale, eps: float, dy):
+    """Backward (dx, dgamma, dbeta, dW1, db1, dW2, db2). A CPU tensor takes
+    ``ln_mlp_bwd_reference``; a CUDA tensor launches the kernels (the rows'
+    LN and s.dy, the hidden and its gradient, the weight gradients, dn, dx
+    with the column sums, the in-order slot sums) with the scratch of
+    ``bwd_scratch``, anything else raises. Counts launches in
+    ``ln_mlp_bwd.launches``."""
+    if x.device.type == "cpu":
+        return ln_mlp_bwd_reference(x, gamma, beta, w1, b1, w2, row_scale, eps, dy)
+    out = _bwd_launch("ln_mlp_bwd", x, gamma, beta, w1, b1, w2, row_scale, eps, dy, False)
+    ln_mlp_bwd.launches += 1
+    return out
+
+
+def ln_mlp_bwd_tp(x, gamma, beta, w1, b1, w2, row_scale, eps: float, dy):
+    """The backward's tensor-parallel mode on a rank's slice of the hidden:
+    (dx_part, dgamma, dbeta, dW1, db1, dW2, db2), dx_part the fp32
+    LN-backward of the rank's dn without dy, dgamma and dbeta partial, db2
+    whole. A CPU tensor takes ``ln_mlp_bwd_reference(passthrough=False)``;
+    a CUDA tensor launches the kernels, anything else raises. Counts
+    launches in ``ln_mlp_bwd_tp.launches``."""
+    if x.device.type == "cpu":
+        return ln_mlp_bwd_reference(x, gamma, beta, w1, b1, w2, row_scale, eps, dy,
+                                    passthrough=False)
+    out = _bwd_launch("ln_mlp_bwd_tp", x, gamma, beta, w1, b1, w2, row_scale, eps, dy, True)
+    ln_mlp_bwd_tp.launches += 1
+    return out
 
 
 ln_mlp_fwd.launches = 0
 ln_mlp_bwd.launches = 0
+ln_mlp_fwd_tp.launches = 0
+ln_mlp_bwd_tp.launches = 0
 
 
 class _FusedLnMlp(torch.autograd.Function):

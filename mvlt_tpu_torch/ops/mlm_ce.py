@@ -16,6 +16,14 @@ the logits from the saved logsumexp as the kernels do. ``mlm_ce_fwd`` and
 differentiable ``autograd.Function``. It takes the fp32 master table, rounds
 it to the rows' type once in the forward, and returns fp32 gradients for the
 table and the bias.
+
+Tensor-parallel mode (``mlm_ce_fwd_tp``, ``mlm_ce_bwd_tp``; plain versions
+``mlm_nll_partial_reference`` and ``mlm_nll_bwd_reference(vocab_start=)``):
+the table and bias are a rank's rows [vocab_start, vocab_start + V) of the
+vocabulary and the labels stay global. The forward gives the rank's (lse,
+picked logit; 0 where the label lies outside its range), the backward takes
+the model group's lse and gives the rank's partial d_rows beside its own
+d_table and d_bias (parallel/tensor.py:vocab_parallel_nll combines them).
 """
 
 from __future__ import annotations
@@ -50,14 +58,36 @@ def mlm_nll_reference(rows, table, bias, labels):
     return torch.where(valid, lse - picked, 0.0), lse
 
 
-def mlm_nll_bwd_reference(rows, table, bias, labels, lse, g):
+def _local_labels(labels, vocab_start: int, vocab: int):
+    """(the label's column in the table's rows, whether it lies there)."""
+    local = labels.long() - vocab_start
+    inside = (labels >= 0) & (local >= 0) & (local < vocab)
+    return torch.where(inside, local, 0), inside
+
+
+def mlm_nll_partial_reference(rows, table, bias, labels, vocab_start: int):
+    """Plain forward of the tensor-parallel mode on the table's rows
+    [vocab_start, vocab_start + V): (lse [R], picked [R]) of this range in
+    fp32 (fp64 for fp64 rows), picked 0 where the label lies elsewhere or
+    is ignored."""
+    logits = _logits(rows, table, bias)
+    local, inside = _local_labels(labels, vocab_start, table.shape[0])
+    picked = torch.where(inside, logits.gather(-1, local[:, None])[:, 0], 0.0)
+    return torch.logsumexp(logits, dim=-1), picked
+
+
+def mlm_nll_bwd_reference(rows, table, bias, labels, lse, g, vocab_start: int = 0):
     """Plain backward for the per-row output gradient g: (d_rows, d_table,
     d_bias) in fp32 (fp64 for fp64 rows), the logits recomputed from lse;
-    dl is rounded to rows.dtype before its two products, as in the kernels."""
+    dl is rounded to rows.dtype before its two products, as in the kernels.
+    With ``vocab_start`` (the tensor-parallel mode) the table is the rows
+    from there on, lse the whole vocabulary's and d_rows this range's
+    partial."""
     acc = acc_dtype(rows.dtype)
     dl = torch.exp(_logits(rows, table, bias) - lse.to(acc)[:, None])
     valid = labels >= 0
-    dl[torch.arange(rows.shape[0], device=rows.device), torch.where(valid, labels, 0).long()] -= 1.0
+    local, inside = _local_labels(labels, vocab_start, table.shape[0])
+    dl[torch.arange(rows.shape[0], device=rows.device), local] -= inside.to(acc)
     dl = torch.where(valid[:, None], g.to(acc)[:, None] * dl, 0.0)
     return (matmul_acc(dl, table, rows.dtype), matmul_acc(dl.transpose(0, 1), rows, rows.dtype),
             dl.sum(0))
@@ -109,14 +139,9 @@ def bwd_plan(rows: int, vocab: int, width: int, sms: int) -> tuple[int, int, int
     return rows_pad, vocab_pad, _build.split_plan(tiles, vocab_pad // BWD_CHUNK, sms, MAX_SPLITS)
 
 
-def mlm_ce_fwd(rows, table, bias, labels):
-    """Forward (nll, lse). A CPU tensor takes ``mlm_nll_reference``; a CUDA
-    tensor launches the kernel (and its merge of the vocabulary tiles'
-    partials), anything else raises. Counts launches in
-    ``mlm_ce_fwd.launches``."""
-    if rows.device.type == "cpu":
-        return mlm_nll_reference(rows, table, bias, labels)
-    name = "mlm_ce_fwd"
+def _fwd_launch(name: str, rows, table, bias, labels, vocab_start: int, partial: bool = False):
+    """The forward's kernels on a CUDA tensor: (nll, lse), with ``partial``
+    (picked, lse)."""
     tab, b, lab = _check(name, rows, table, bias, labels)
     r, h = rows.shape
     v = tab.shape[0]
@@ -127,20 +152,39 @@ def mlm_ce_fwd(rows, table, bias, labels):
     lse = torch.empty(r, dtype=torch.float32, device=dev)
     err = lib.mvlt_mlm_ce_fwd(rows.data_ptr(), tab.data_ptr(), b.data_ptr(), lab.data_ptr(),
                               ws.data_ptr(), nll.data_ptr(), lse.data_ptr(), r, v, h,
+                              vocab_start, int(partial),
                               torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(name, err)
-    mlm_ce_fwd.launches += 1
     return nll, lse
 
 
-def mlm_ce_bwd(rows, table, bias, labels, lse, g):
-    """Backward (d_rows, d_table, d_bias), all fp32. A CPU tensor takes
-    ``mlm_nll_bwd_reference``; a CUDA tensor launches the kernels (dl, the
-    db sum, dx with its range sum, dE), anything else raises. Counts
-    launches in ``mlm_ce_bwd.launches``."""
+def mlm_ce_fwd(rows, table, bias, labels):
+    """Forward (nll, lse). A CPU tensor takes ``mlm_nll_reference``; a CUDA
+    tensor launches the kernel (and its merge of the vocabulary tiles'
+    partials), anything else raises. Counts launches in
+    ``mlm_ce_fwd.launches``."""
     if rows.device.type == "cpu":
-        return mlm_nll_bwd_reference(rows, table, bias, labels, lse, g)
-    name = "mlm_ce_bwd"
+        return mlm_nll_reference(rows, table, bias, labels)
+    out = _fwd_launch("mlm_ce_fwd", rows, table, bias, labels, 0)
+    mlm_ce_fwd.launches += 1
+    return out
+
+
+def mlm_ce_fwd_tp(rows, table, bias, labels, vocab_start: int):
+    """The forward's tensor-parallel mode on the table's rows from
+    ``vocab_start``: (lse, picked) of the range. A CPU tensor takes
+    ``mlm_nll_partial_reference``; a CUDA tensor launches the kernels,
+    anything else raises. Counts launches in ``mlm_ce_fwd_tp.launches``."""
+    if rows.device.type == "cpu":
+        return mlm_nll_partial_reference(rows, table, bias, labels, vocab_start)
+    nll_or_picked, lse = _fwd_launch("mlm_ce_fwd_tp", rows, table, bias, labels, vocab_start,
+                                     partial=True)
+    mlm_ce_fwd_tp.launches += 1
+    return lse, nll_or_picked
+
+
+def _bwd_launch(name: str, rows, table, bias, labels, lse, g, vocab_start: int):
+    """The backward's kernels on a CUDA tensor."""
     tab, b, lab = _check(name, rows, table, bias, labels)
     r, h = rows.shape
     v = tab.shape[0]
@@ -161,14 +205,41 @@ def mlm_ce_bwd(rows, table, bias, labels, lse, g):
                               per_row[0].data_ptr(), per_row[1].data_ptr(), dl.data_ptr(),
                               dbp.data_ptr(), slots.data_ptr(), d_rows.data_ptr(),
                               d_table.data_ptr(), d_bias.data_ptr(), r, v, h, splits,
-                              torch.cuda.current_stream(dev).cuda_stream)
+                              vocab_start, torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(name, err)
-    mlm_ce_bwd.launches += 1
     return d_rows, d_table, d_bias
+
+
+def mlm_ce_bwd(rows, table, bias, labels, lse, g):
+    """Backward (d_rows, d_table, d_bias), all fp32. A CPU tensor takes
+    ``mlm_nll_bwd_reference``; a CUDA tensor launches the kernels (dl, the
+    db sum, dx with its range sum, dE), anything else raises. Counts
+    launches in ``mlm_ce_bwd.launches``."""
+    if rows.device.type == "cpu":
+        return mlm_nll_bwd_reference(rows, table, bias, labels, lse, g)
+    out = _bwd_launch("mlm_ce_bwd", rows, table, bias, labels, lse, g, 0)
+    mlm_ce_bwd.launches += 1
+    return out
+
+
+def mlm_ce_bwd_tp(rows, table, bias, labels, lse, g, vocab_start: int):
+    """The backward's tensor-parallel mode: lse the model group's, the
+    table's rows from ``vocab_start``; (the range's partial d_rows, its
+    d_table, its d_bias), all fp32. A CPU tensor takes
+    ``mlm_nll_bwd_reference(vocab_start=)``; a CUDA tensor launches the
+    kernels, anything else raises. Counts launches in
+    ``mlm_ce_bwd_tp.launches``."""
+    if rows.device.type == "cpu":
+        return mlm_nll_bwd_reference(rows, table, bias, labels, lse, g, vocab_start)
+    out = _bwd_launch("mlm_ce_bwd_tp", rows, table, bias, labels, lse, g, vocab_start)
+    mlm_ce_bwd_tp.launches += 1
+    return out
 
 
 mlm_ce_fwd.launches = 0
 mlm_ce_bwd.launches = 0
+mlm_ce_fwd_tp.launches = 0
+mlm_ce_bwd_tp.launches = 0
 
 
 class _MlmNll(torch.autograd.Function):

@@ -8,6 +8,15 @@ caller names a backend. With none of those variables set there is no process
 group and everything runs in one process, as before; with some but not all
 of them, or with a CUDA device that is missing, it raises. Nothing falls
 back to another backend, to the CPU or to one process.
+
+Tensor parallelism (``init_model_parallel``) splits the world into
+``world / tp`` data groups' worth of model groups, as
+mvlt_tpu/parallel/mesh.py:make_mesh reshapes the devices to (data, model):
+rank = data_index x tp + model_index, the model axis innermost. A model
+group holds the ``tp`` ranks of one data index (one replica of the model,
+sharded); a data group the ``dp`` ranks of one model index (the ranks
+holding the same shard, over which DDP averages). With tp = 1 the data
+group is the world and there is no model group.
 """
 
 from __future__ import annotations
@@ -22,6 +31,7 @@ import torch.distributed as dist
 ENV_KEYS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
 
 _device: Optional[torch.device] = None   # the device this rank's collectives use
+_layout: Optional[dict] = None           # tp > 1: {"tp", "data_group", "model_group"}
 
 
 def maybe_init_distributed(device: Optional[str] = None, backend: Optional[str] = None,
@@ -82,9 +92,71 @@ def comm_device() -> torch.device:
     return torch.device("cpu")
 
 
+def init_model_parallel(tp: int) -> None:
+    """Split the world into model groups of ``tp`` consecutive ranks and data
+    groups of the ranks ``tp`` apart. Every rank calls it, in the same order
+    as its other group creations; tp = 1 undoes it (the world is one data
+    group). Raises when tp does not divide the world."""
+    global _layout
+    world = world_size()
+    if tp < 1 or world % tp:
+        raise ValueError(f"--tp-size {tp} does not divide the {world} ranks")
+    _layout = None
+    if tp == 1:
+        return
+    dp, me = world // tp, rank()
+    layout = {"tp": tp}
+    for d in range(dp):              # every rank creates every group, in one order
+        g = dist.new_group([d * tp + m for m in range(tp)])
+        if d == me // tp:
+            layout["model_group"] = g
+    for m in range(tp):
+        g = dist.new_group([d * tp + m for d in range(dp)])
+        if m == me % tp:
+            layout["data_group"] = g
+    _layout = layout
+
+
+def model_size() -> int:
+    return _layout["tp"] if _layout else 1
+
+
+def model_rank() -> int:
+    return rank() % model_size()
+
+
+def data_size() -> int:
+    return world_size() // model_size()
+
+
+def data_rank() -> int:
+    return rank() // model_size()
+
+
+def model_group():
+    """This rank's model group; None at tp = 1."""
+    return _layout["model_group"] if _layout else None
+
+
+def data_group():
+    """This rank's data group: the world at tp = 1 (None without a process
+    group)."""
+    if _layout:
+        return _layout["data_group"]
+    return dist.group.WORLD if initialized() else None
+
+
+def rank_seed(seed: int) -> int:
+    """The seed of this rank's mask generator: ``seed`` + its data rank, so
+    that the ranks of a model group, which hold the same rows, draw the same
+    DropPath and dropout masks (mvlt_tpu/cli.py seeds each host)."""
+    return seed + data_rank()
+
+
 def destroy() -> None:
     """Leave the process group, if any."""
-    global _device
+    global _device, _layout
     if initialized():
         dist.destroy_process_group()
     _device = None
+    _layout = None

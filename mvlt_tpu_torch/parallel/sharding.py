@@ -8,8 +8,9 @@ train/schedule.py:make_optimizer's). An eval set
 is cut into contiguous, equal shards, the last one padded; a rank's results
 go into its slots of zero-filled buffers that ``all_reduce`` sums, and the
 padded slots are masked out. The collectives used are ``all_reduce`` and
-``broadcast`` only: gloo offers nothing else on CUDA tensors. The TP rules
-of the JAX package are not ported.
+``broadcast`` only: gloo offers nothing else on CUDA tensors. Under tensor
+parallelism (parallel/tensor.py) all of this acts over the data group: the
+ranks of a model group hold the same rows.
 """
 
 from __future__ import annotations
@@ -73,10 +74,12 @@ def exclusive_prefix(count: torch.Tensor, group) -> tuple[torch.Tensor, torch.Te
 
 def wrap_model(model: torch.nn.Module, device: torch.device,
                group=None) -> DistributedDataParallel:
-    """``model`` under DDP on ``device``, its BatchNorms' training statistics
-    taken over all ranks (heads.py:BatchNorm.group). DDP's construction
-    broadcasts rank 0's parameters and buffers, a write that moves no
-    ``_version``: every block's cast cache is dropped after it."""
+    """``model`` under DDP over ``group`` (the data group; the world by
+    default) on ``device``, its BatchNorms' training statistics taken over
+    the group's ranks (heads.py:BatchNorm.group). DDP's construction
+    broadcasts the group's first rank's parameters and buffers, a write
+    that moves no ``_version``: every block's cast cache is dropped after
+    it."""
     group = group if group is not None else dist.group.WORLD
     from mvlt_tpu_torch.models.heads import BatchNorm
 
@@ -120,15 +123,19 @@ class EvalShard:
 
     @classmethod
     def of_this_rank(cls, total: int) -> "EvalShard":
-        return cls(total, mesh.rank(), mesh.world_size())
+        """This rank's shard among the data ranks (the world without tensor
+        parallelism; the ranks of a model group share one)."""
+        return cls(total, mesh.data_rank(), mesh.data_size())
 
 
 def gather_slots(local: torch.Tensor, shard: EvalShard, group=None) -> torch.Tensor:
     """The results of every rank's real slots in the set's order: ``local``
     [slots, ...] is this rank's, one row a slot. Each rank writes its rows
     into a zero-filled [world, slots, ...] buffer in float64 (exact for the
-    counts and fp32 values it carries), all_reduce sums the buffers, and the
-    padded slots are dropped. Returns float64 [total, ...] on the CPU."""
+    counts and fp32 values it carries), all_reduce sums the buffers over
+    ``group`` (the data group by default), and the padded slots are
+    dropped. Returns float64 [total, ...] on the CPU."""
+    group = group if group is not None else mesh.data_group()
     if local.shape[0] != shard.slots:
         raise ValueError(f"{local.shape[0]} rows for {shard.slots} slots")
     device = mesh.comm_device() if shard.world > 1 else local.device

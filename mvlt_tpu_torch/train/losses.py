@@ -25,6 +25,12 @@ package's SPMD step does:
   * the MLM gather plan keeps the labeled rows before the *global*
     capacity: one exchange of the per-rank labeled counts offsets each
     rank's running count (``mlm_gather_plan``).
+Under tensor parallelism ``group`` is the data group (the ranks of a model
+group hold the same rows: a sum over the world would count each sample tp
+times), and on a vocabulary split over the model group (``vocab_group``)
+the MLM decode is parallel/tensor.py:vocab_parallel_mlm_loss, kernels
+#14/#15 in their tensor-parallel modes on the card and their plain
+versions on the CPU, whatever ``mlm_ce_kernel`` says.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from torch.utils.checkpoint import checkpoint
 
 from mvlt_tpu_torch.ops.mlm_ce import mlm_ce_loss
 from mvlt_tpu_torch.parallel.sharding import all_reduce_sum, exclusive_prefix, group_size
+from mvlt_tpu_torch.parallel.tensor import vocab_parallel_mlm_loss
 
 MLM_LOSS_WEIGHT = 1.0
 ITM_LOSS_WEIGHT = 1.0
@@ -114,15 +121,18 @@ def _global_mean(loss: torch.Tensor, labels: torch.Tensor, group,
 
 
 def _mlm_decode_loss(hidden, table, bias, labels, chunk: int, use_kernel: bool, group=None,
-                     total=None):
+                     total=None, vocab_group=None):
     """The MLM decode: with ``use_kernel``, on the card, the fused vocab-tiled
     CE kernels (ops/mlm_ce.py:mlm_ce_loss: the logits never in device
     memory, their gradient once, in bf16, in the backward); otherwise, and
     always on the CPU, the chunked loss, as in the JAX package off the TPU
-    (mvlt_tpu/train/losses.py:_mlm_decode_loss). Under ``group``, the
+    (mvlt_tpu/train/losses.py:_mlm_decode_loss); on a vocabulary split over
+    ``vocab_group`` the vocabulary-parallel loss. Under ``group``, the
     rank's share of the global mean (``total``: the global labeled count,
     if known)."""
-    if use_kernel and hidden.device.type == "cuda":
+    if vocab_group is not None:
+        loss = vocab_parallel_mlm_loss(hidden, table, bias, labels, vocab_group)
+    elif use_kernel and hidden.device.type == "cuda":
         loss = mlm_ce_loss(hidden, table, bias, labels)
     else:
         loss = chunked_mlm_loss(hidden, table, bias, labels, chunk=chunk)
@@ -169,15 +179,18 @@ def mlm_gather_plan(labels: torch.Tensor, capacity_frac: float = 0.25, chunk: in
 
 
 def gathered_mlm_loss(hidden, table, bias, labels, capacity_frac: float = 0.25,
-                      chunk: int = 2048, ce_kernel: bool = False, group=None) -> torch.Tensor:
+                      chunk: int = 2048, ce_kernel: bool = False, group=None,
+                      vocab_group=None) -> torch.Tensor:
     """MLM cross entropy decoding only the labeled rows of a full [B, T, H]
     hidden stream."""
     plan = mlm_gather_plan(labels, capacity_frac=capacity_frac, chunk=chunk, group=group)
     if plan is None:
-        return _mlm_decode_loss(hidden, table, bias, labels, chunk, ce_kernel, group)
+        return _mlm_decode_loss(hidden, table, bias, labels, chunk, ce_kernel, group,
+                                vocab_group=vocab_group)
     idx, sel, chunk, kept = plan
     rows = hidden.reshape(-1, hidden.shape[-1])[idx]
-    return _mlm_decode_loss(rows[None], table, bias, sel[None], chunk, ce_kernel, group, kept)
+    return _mlm_decode_loss(rows[None], table, bias, sel[None], chunk, ce_kernel, group, kept,
+                            vocab_group)
 
 
 def compute_losses(outputs: Dict[str, Any], batch: Dict[str, torch.Tensor],
@@ -191,7 +204,8 @@ def compute_losses(outputs: Dict[str, Any], batch: Dict[str, torch.Tensor],
     Under a data-parallel ``group`` the MLM loss is the rank's share of the
     global mean (see the module's docstring; ``mlm_count``: the global
     labeled count when the caller has it, as a gather plan does); the others
-    need no change."""
+    need no change. On a vocabulary split over a model group (the model's
+    ``mlm_vocab_group`` output) the MLM loss is vocabulary-parallel."""
     ref = next(v for v in outputs.values() if isinstance(v, torch.Tensor))
     zero = torch.zeros((), dtype=torch.float32, device=ref.device)
     losses = {k: zero for k in ("loss_mlm", "loss_itm", "loss_sup_cls", "loss_sub_cls",
@@ -206,11 +220,14 @@ def compute_losses(outputs: Dict[str, Any], batch: Dict[str, torch.Tensor],
     elif outputs.get("mlm_hidden") is not None:
         args = (outputs["mlm_hidden"], outputs["mlm_table"], outputs["mlm_bias"],
                 batch["mlm_labels"])
+        vocab_group = outputs.get("mlm_vocab_group")
         if mlm_capacity_frac < 1.0:
             loss = gathered_mlm_loss(*args, capacity_frac=mlm_capacity_frac,
-                                     chunk=mlm_chunk, ce_kernel=mlm_ce_kernel, group=group)
+                                     chunk=mlm_chunk, ce_kernel=mlm_ce_kernel, group=group,
+                                     vocab_group=vocab_group)
         else:
-            loss = _mlm_decode_loss(*args, mlm_chunk, mlm_ce_kernel, group, mlm_count)
+            loss = _mlm_decode_loss(*args, mlm_chunk, mlm_ce_kernel, group, mlm_count,
+                                    vocab_group)
         losses["loss_mlm"] = MLM_LOSS_WEIGHT * loss
     if outputs.get("itm_logits") is not None:
         losses["loss_itm"] = ITM_LOSS_WEIGHT * cross_entropy(

@@ -18,6 +18,7 @@ from typing import Callable
 import torch
 
 from mvlt_tpu_torch.config import OptimConfig
+from mvlt_tpu_torch.parallel.sharding import all_reduce_sum
 
 
 def scaled_base_lr(cfg: OptimConfig, global_batch_size: int) -> float:
@@ -69,14 +70,24 @@ def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
         group["lr"] = lr
 
 
-def clip_by_global_norm(params, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm(params, max_norm: float, model_group=None) -> torch.Tensor:
     """optax.clip_by_global_norm on the gradients of ``params``, in place:
     with the global norm at or above ``max_norm`` every gradient g becomes
     (g / norm) * max_norm, below it none changes (torch's
     clip_grad_norm_ would scale by max_norm / (norm + 1e-6) instead).
-    Returns the norm, a device scalar; nothing waits for the device."""
-    grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+    Under tensor parallelism (``model_group``) a parameter split over the
+    group (``tp_split``, parallel/tensor.py) adds its shards' squares summed
+    over the group, a replicated one its own once. Returns the norm, a
+    device scalar; nothing waits for the device."""
+    params = [p for p in params if p.grad is not None]
+    grads = [p.grad for p in params]
+    square = sum(g.float().square().sum() for p, g in zip(params, grads)
+                 if not getattr(p, "tp_split", None))
+    split = [g for p, g in zip(params, grads) if getattr(p, "tp_split", None)]
+    if split:
+        square = square + all_reduce_sum(sum(g.float().square().sum() for g in split),
+                                         model_group)
+    norm = torch.sqrt(square)
     keep = norm < max_norm
     for g in grads:
         g.copy_(torch.where(keep, g, g / norm.to(g.dtype) * max_norm))

@@ -26,6 +26,9 @@ With ``grad_accum = k`` each rank's batch must hold its share of each
 global microbatch in order; every microbatch but the last runs under
 ``no_sync``, so the gradients are reduced once. Clipping sees the reduced
 gradients, the same on every rank.
+Under tensor parallelism (``state.model_group``) the losses take a split
+vocabulary's parallel decode and clipping sums the shards' squares over the
+model group; ``state.group`` is the data group.
 Not ported, and refused: ``scan_steps > 1`` (one dispatch for several steps).
 """
 
@@ -109,7 +112,7 @@ def make_train_step(cfg: ModelConfig, *, device_masks: bool = False, mask_ratio:
                     parts.append(forward_backward(state, micro, 1.0 / grad_accum))
             losses = {k: torch.stack([p[k] for p in parts]).mean() for k in parts[0]}
         if state.clip_grad:
-            clip_by_global_norm(state.model.parameters(), state.clip_grad)
+            clip_by_global_norm(state.model.parameters(), state.clip_grad, state.model_group)
         set_lr(state.optimizer, state.lr_schedule(state.step))
         state.optimizer.step()
         state.step += 1

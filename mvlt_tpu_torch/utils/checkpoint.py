@@ -18,14 +18,21 @@ schedule is a function of the step and needs no state.
 Under data parallelism every rank calls ``save_epoch`` and ``restore``:
 rank 0 writes the unwrapped model's state dict (the reference's names,
 without DDP's ``module.``), under ZeRO-1 the optimizer state consolidated on
-rank 0 first (a collective); ``generators`` holds every rank's generator
-state and ``generator`` rank 0's. Every rank restores the same file, each
-taking its own generator state; the optimizer state has one layout with
-and without ZeRO-1, so either resumes the other.
+rank 0 first (a collective); ``generators`` holds every data rank's
+generator state and ``generator`` rank 0's. Every rank restores the same
+file, each taking its data rank's generator state; the optimizer state has
+one layout with and without ZeRO-1, so either resumes the other.
+
+Under tensor parallelism (``state.model_group``) the file holds the whole
+model: saving consolidates the parameters and the AdamW moments over the
+model group (parallel/tensor.py:consolidate) and rank 0 writes them with
+the reference's names; restoring shards them (shard_state_dict). A run
+saved at one tp resumes at any other, tp = 1 included.
 
 The fine-tune init (``load_finetune_state``) intersects state-dict keys with
 shape filtering, as ``merge_params_by_path`` intersects parameter paths: a
-reference ``.pth`` loads as it is.
+reference ``.pth`` loads as it is; a split model merges into its whole
+state dict, then takes its shard.
 """
 
 from __future__ import annotations
@@ -35,10 +42,12 @@ import os
 from typing import Dict, Mapping, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from mvlt_tpu_torch.config import RunConfig, config_to_dict
 from mvlt_tpu_torch.parallel import mesh
-from mvlt_tpu_torch.parallel.sharding import EvalShard, barrier, gather_slots
+from mvlt_tpu_torch.parallel.sharding import EvalShard, barrier, gather_slots, group_size
+from mvlt_tpu_torch.parallel.tensor import consolidate, shard_state_dict
 
 STATE_FILE = "state.pt"
 
@@ -101,11 +110,56 @@ def load_finetune_state(path: str, model: torch.nn.Module) -> Dict[str, list]:
         if not os.path.exists(file):
             raise FileNotFoundError(f"finetune checkpoint not found: {path!r} ({file})")
         restored = torch.load(file, map_location="cpu", weights_only=True)["model"]
-    merged, report = merge_state_dicts(model.state_dict(), restored)
+    group = getattr(model, "tp_group", None)
+    merged, report = merge_state_dicts(consolidate(model.state_dict(), group, model.cfg)
+                                       if group is not None else model.state_dict(), restored)
     if not report["loaded"]:
         raise ValueError(f"{path}: no checkpoint tensor matched the model")
+    if group is not None:
+        merged = shard_state_dict(merged, dist.get_rank(group), group_size(group), model.cfg)
     model.load_state_dict(merged)
     return report
+
+
+def _moment_names(state) -> list:
+    """The parameter names in the optimizer state dict's index order."""
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    return [names[id(p)] for g in state.optimizer.param_groups for p in g["params"]]
+
+
+def _map_moments(optim: dict, names: list, fn) -> dict:
+    """``optim`` with each parameter's moments passed through
+    ``fn(name, tensor)``."""
+    moments = {i: {k: fn(names[i], t) if k in ("exp_avg", "exp_avg_sq") else t
+                   for k, t in st.items()} for i, st in optim["state"].items()}
+    return {**optim, "state": moments}
+
+
+def whole_state(state) -> tuple[dict, dict]:
+    """(model state dict, optimizer state dict) of the whole model: under
+    tensor parallelism consolidated over the model group (a collective on
+    every rank of it), else as they are."""
+    model_sd, optim_sd = state.model.state_dict(), state.optimizer.state_dict()
+    group = state.model_group
+    if group_size(group) == 1:
+        return model_sd, optim_sd
+    cfg = state.model.cfg
+    return (consolidate(model_sd, group, cfg),
+            _map_moments(optim_sd, _moment_names(state),
+                           lambda n, t: consolidate({n: t}, group, cfg)[n]))
+
+
+def load_whole_state(state, model_sd: dict, optim_sd: dict) -> None:
+    """Load a whole model's state dicts into ``state``, each rank taking
+    its shard under tensor parallelism (strict names)."""
+    group = state.model_group
+    if group_size(group) > 1:
+        cfg, tp, rank = state.model.cfg, group_size(group), dist.get_rank(group)
+        model_sd = shard_state_dict(model_sd, rank, tp, cfg)
+        optim_sd = _map_moments(optim_sd, _moment_names(state),
+                                  lambda n, t: shard_state_dict({n: t}, rank, tp, cfg)[n])
+    state.model.load_state_dict(model_sd, strict=True)
+    state.optimizer.load_state_dict(optim_sd)
 
 
 class CheckpointManager:
@@ -140,15 +194,18 @@ class CheckpointManager:
         if isinstance(state.optimizer, ZeroRedundancyOptimizer):
             state.optimizer.consolidate_state_dict(to=0)
         generators = _every_rank_generator_state(state.generator)
+        # a split model's consolidation is a collective of its model group;
+        # ZeRO-1's state dict exists on rank 0 alone
+        whole = whole_state(state) if self.is_main or state.model_group is not None else None
         if self.is_main:
-            self._write(tag, state, epoch, score, generators)
+            self._write(tag, state, epoch, score, generators, *whole)
         barrier()
 
-    def _write(self, tag: str, state, epoch: int, score: Optional[float], generators) -> None:
+    def _write(self, tag: str, state, epoch: int, score: Optional[float], generators,
+               model_sd: dict, optim_sd: dict) -> None:
         d = self._path(tag)
         os.makedirs(d, exist_ok=True)
-        data = {"step": state.step, "model": state.model.state_dict(),
-                "optimizer": state.optimizer.state_dict(),
+        data = {"step": state.step, "model": model_sd, "optimizer": optim_sd,
                 "generator": generators[0], "generators": generators}
         tmp = os.path.join(d, STATE_FILE + ".tmp")
         torch.save(data, tmp)
@@ -186,13 +243,12 @@ class CheckpointManager:
             raise FileNotFoundError(
                 f"resume target not found: {tag_or_path!r} (resolved to {path})")
         data = torch.load(file, map_location="cpu", weights_only=True)
-        state.model.load_state_dict(data["model"])
-        state.optimizer.load_state_dict(data["optimizer"])
-        # each rank its own stream; a rank the writer did not have keeps
-        # the one it was seeded with
+        load_whole_state(state, data["model"], data["optimizer"])
+        # each data rank its own stream; a data rank the writer did not
+        # have keeps the one it was seeded with
         generators = data.get("generators") or [data["generator"]]
-        if mesh.rank() < len(generators):
-            state.generator.set_state(generators[mesh.rank()])
+        if mesh.data_rank() < len(generators):
+            state.generator.set_state(generators[mesh.data_rank()])
         state.step = int(data["step"])
         meta = {}
         if os.path.exists(path + ".json"):
@@ -202,10 +258,11 @@ class CheckpointManager:
 
 
 def _every_rank_generator_state(generator: torch.Generator) -> list:
-    """Every rank's generator state (uint8 CPU tensors), in rank order."""
+    """Every data rank's generator state (uint8 CPU tensors), in data-rank
+    order (the ranks of a model group draw from equal generators)."""
     mine = generator.get_state()
     if mesh.world_size() == 1:
         return [mine]
     shard = EvalShard(mesh.world_size(), mesh.rank(), mesh.world_size())
-    every = gather_slots(mine.to(torch.float64)[None], shard)
-    return [row.to(torch.uint8) for row in every]
+    every = gather_slots(mine.to(torch.float64)[None], shard, dist.group.WORLD)
+    return [row.to(torch.uint8) for row in every[::mesh.model_size()]]

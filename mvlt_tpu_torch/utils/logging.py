@@ -3,7 +3,8 @@
 Counterpart of mvlt_tpu/utils/logging.py (reference libs/utils.py:18-161):
 windowed meters with global averages, periodic iteration lines, and the
 meters' reduction over the data-parallel ranks (``all_reduce`` of each
-meter's count and total, libs/utils.py:36-47).
+meter's count and total over the data group, libs/utils.py:36-47; the
+ranks of a tensor-parallel model group hold the same values).
 """
 
 from __future__ import annotations
@@ -69,11 +70,11 @@ class SmoothedValue:
 def _all_reduce_meters(meters) -> None:
     """One all_reduce of the meters' [count, total] pairs, in float64 on the
     collectives' device; every rank must pass its meters in the same order."""
-    if mesh.world_size() == 1 or not meters:
+    if mesh.data_size() == 1 or not meters:
         return
     t = torch.tensor([[m.count, m.total] for m in meters], dtype=torch.float64,
                      device=mesh.comm_device())
-    dist.all_reduce(t)
+    dist.all_reduce(t, group=mesh.data_group())
     for m, (count, total) in zip(meters, t.cpu().tolist()):
         m.count, m.total = int(count), float(total)
 

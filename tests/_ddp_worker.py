@@ -1,5 +1,6 @@
-"""Worker of the port's data-parallel tests (tests/test_torch_port_ddp.py,
-tests/test_torch_port_ddp_eval.py, tests/test_torch_port_imports.py).
+"""Worker of the port's data- and tensor-parallel tests
+(tests/test_torch_port_ddp.py, tests/test_torch_port_ddp_eval.py,
+tests/test_torch_port_imports.py, tests/test_torch_port_tp.py).
 
 Run as ``python tests/_ddp_worker.py <spec.json> [--guard]`` with the
 torchrun environment (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR,
@@ -175,8 +176,80 @@ def case_eval(spec, rank, world) -> dict:
     return {"vl": vl, "retrieval": retrieval, "recognition": recognition}
 
 
+def tp_state(spec, step: int = 0, clip: float = 0.0):
+    """A state of the spec's micro model split over this rank's model group
+    (parallel/mesh.py:init_model_parallel done), under DDP over its data group when there are
+    several, from the spec's whole weights."""
+    from mvlt_tpu_torch.parallel.tensor import shard_model
+    from mvlt_tpu_torch.parallel.sharding import wrap_model
+
+    cfg = port_config(spec)
+    model = create_model(cfg, device="cpu", input_size=spec["img"])
+    model.load_state_dict(torch.load(spec["weights"], weights_only=True), strict=True)
+    shard_model(model, mesh.model_group())
+    ddp = wrap_model(model, torch.device("cpu"), mesh.data_group()) if mesh.data_size() > 1 \
+        else None
+    state = create_train_state(model, config.OptimConfig(warmup_epochs=0, clip_grad=clip),
+                               spec["global_batch"], 10, seed=mesh.rank_seed(0), ddp=ddp,
+                               model_group=mesh.model_group())
+    state.step = step
+    return cfg, state
+
+
+def tp_snapshot(cfg, state, losses) -> dict:
+    """The step's losses and the whole model's gradients, parameters and
+    buffers, consolidated over the model group."""
+    from mvlt_tpu_torch.parallel.tensor import consolidate
+
+    group, model = state.model_group, state.model
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    return {"losses": {k: float(v) for k, v in losses.items()},
+            "grads": consolidate(grads, group, cfg),
+            "params": consolidate({n: p.detach().clone() for n, p in model.named_parameters()},
+                                  group, cfg),
+            "buffers": {n: b.detach().clone() for n, b in model.named_buffers()}}
+
+
+def case_tp(spec, rank, world) -> dict:
+    """Steps of the split model on this data rank's rows of the global batch:
+    at step 0 (clean images), step 1 (masked images) and step 0 with
+    clip_grad; then a checkpoint of the step-1 state (whole, rank 0 writes)."""
+    out = {}
+    mesh.init_model_parallel(spec["tp"])
+    rows = rank_rows(spec["global_batch"], mesh.data_rank(), mesh.data_size())
+    for name, step, clip in (("step0", 0, 0.0), ("step1", 1, 0.0), ("clip", 0, spec["clip"])):
+        cfg, state = tp_state(spec, step, clip)
+        state, losses = make_train_step(cfg)(state, local_batch(spec, rows))
+        out[name] = tp_snapshot(cfg, state, losses)
+        if name == "step1":
+            CheckpointManager(spec["ckpt_dir"]).save_epoch(state, 0, 3)
+    out["layout"] = {"model_rank": mesh.model_rank(), "data_rank": mesh.data_rank(),
+                     "generator": state.generator.get_state()}
+    return out
+
+
+def case_tp_decode(spec, rank, world) -> dict:
+    """The eval decode of a vocabulary split over the model group against
+    the whole logits' nll and argmax, on logits whose maxima repeat within
+    and across the ranks' ranges (the lowest index must win)."""
+    from mvlt_tpu_torch.parallel.tensor import VocabShardLogits
+
+    mesh.init_model_parallel(spec["tp"])
+    gen = torch.Generator().manual_seed(5)
+    logits = torch.randn(6, 7, 30, generator=gen).round(decimals=1)
+    logits[0, :, [3, 20]] = 9.0                  # across the two ranges
+    logits[1, :, [16, 29]] = 9.0                 # within the second range
+    logits[2, :, [0, 1, 15]] = 9.0               # within the first, and across
+    labels = torch.randint(-1, 30, (6, 7), generator=gen)
+    width = 30 // mesh.model_size()
+    start = mesh.model_rank() * width
+    shard = VocabShardLogits(logits[..., start:start + width], start, mesh.model_group())
+    nll, argmax = shard.nll_and_argmax(labels)
+    return {"nll": nll, "argmax": argmax, "logits": logits, "labels": labels}
+
+
 CASES = {"step": case_step, "plan": case_plan, "meters": case_meters, "zero": case_zero,
-         "eval": case_eval}
+         "eval": case_eval, "tp": case_tp, "tp_decode": case_tp_decode}
 
 
 def main() -> None:

@@ -159,7 +159,9 @@ def test_fused_attention_route_from_a_json_config(tmp_path):
 @pytest.mark.parametrize("flags", [["--zero1"], ["--tp-size", "2"],
                                    ["--steps-per-dispatch", "2"], ["--remat"]])
 def test_unported_flags_raise(flags, tmp_path):
-    """--tp-size 2 and --steps-per-dispatch 2 stay refused; --remat is
+    """--steps-per-dispatch 2 stays refused; --tp-size 2 is ported under
+    torchrun (tests/test_torch_port_tp.py) and in one process raises, as it
+    has no ranks to split the model over; --remat is
     ported: one epoch runs every block under torch.utils.checkpoint and
     saves the flag in the checkpoint's config; --zero1 is ported: in one
     process it has nothing to partition, and an epoch trains with AdamW's
@@ -171,6 +173,10 @@ def test_unported_flags_raise(flags, tmp_path):
         assert np.isfinite(line["total_loss"])
         saved = _saved(run)
         assert saved["step"] > 0 and saved["optimizer"]["state"]
+        return
+    if flags == ["--tp-size", "2"]:
+        with pytest.raises(ValueError, match="torch.distributed.run"):
+            cli.main(BASE + flags)
         return
     if flags != ["--remat"]:
         with pytest.raises(NotImplementedError, match="not ported"):

@@ -14,8 +14,8 @@ one process that scores the same halves of each batch itself. The CLI
 trains one epoch of configs/test_micro.py on two CPU ranks under torchrun
 with --zero1 (ZeRO-1, the sharded VL eval, a checkpoint), then resumes it
 for a second epoch without --zero1: only rank 0 writes the log and the
-checkpoint. A partial torchrun environment raises,
-and --tp-size 2 and --steps-per-dispatch 2 stay refused under torchrun.
+checkpoint. A partial torchrun environment raises, and --tp-size 2 with
+--zero1 and --steps-per-dispatch 2 stay refused under torchrun.
 """
 
 import json
