@@ -11,7 +11,9 @@ chip_smoke.py is; with fault names, only those. For each fault it copies
 of the model's glue) there, runs the chip_smoke phase that checks it
 (``kernels``, ``v2_kernels``, ``swin_kernels``, ``fba_train_kernels``,
 ``train_kernels``, ``mlm_kernels``, ``train_glue``, ``v2_route``,
-``remat``, ``ddp_two_ranks``, ``tp_kernels`` or ``tp_two_ranks``) in that copy (its kernels built from the
+``remat``, ``ddp_two_ranks``, ``tp_kernels``, ``tp_two_ranks`` or
+``tp_families``; on a machine with four cards ``nccl_tp_step`` or
+``nccl_tp_zero1``) in that copy (its kernels built from the
 changed source), and then, with the bound lifted, prints every check's
 error at the B = 4 shapes. The copy is removed afterwards; the sources of the checkout are
 never changed. It exits non-zero if a fault passes the phase.
@@ -135,8 +137,9 @@ tp_two_ranks (two gloo ranks of one model group against one process):
   tp_residual_every_rank  the LN-MLP half adds the residual x to each
                        rank's partial before the model group's sum, so x
                        counts tp + 1 times;
-  tp_proj_bias_every_rank  the split attention adds proj.bias to each
-                       rank's partial before the sum (tp + 1 times);
+  tp_proj_bias_every_rank  a row-parallel product (the split attention's
+                       out-projection) adds its bias to each rank's
+                       partial before the sum (tp + 1 times);
   copy_to_model_unreduced  copy_to_model's backward returns the rank's own
                        gradient unreduced: LN1, the SR conv and everything
                        upstream of a split attention miss the other heads'
@@ -154,6 +157,28 @@ tp_two_ranks (two gloo ranks of one model group against one process):
                        rank: rank 0 holds the right tensors, rank 1's
                        replicated gradient differs (caught by ranks_equal
                        alone).
+Tensor parallelism of the other backbones and training options
+(models/bert_embeddings.py, parallel/tensor.py), phase tp_families (two
+gloo ranks of one model group against one process, each case at B = 32):
+  tp_dropout_local_mask  a split tensor's dropout mask drawn over the
+                       rank's slice alone (the hidden, the rank's heads'
+                       probabilities): other masks than one process's, and
+                       the generator left elsewhere;
+  swin_table_unsliced  every rank takes heads 0 .. h / tp of Swin's
+                       relative-position tables, not its own columns;
+  dwconv_wrong_slice   v2's depthwise conv takes the next rank's channels,
+                       not those of its slice of fc1's output.
+Across four cards over NCCL (utils/checkpoint.py, parallel/mesh.py), on a
+machine with four cards:
+  zero1_moments_model_rank0  saving consolidates ZeRO-1's moments over the
+                       model group from model rank 0's shard alone (phase
+                       nccl_tp_zero1: the checkpoint's moments against the
+                       plain split step's);
+  data_group_over_model_axis  each rank's data group is its model group
+                       (the data axis taken for the model axis): DDP
+                       averages the shards of the other heads and hidden
+                       slices, and no gradient of the other data rank's rows
+                       arrives (phase nccl_tp_step).
 """
 
 from __future__ import annotations
@@ -326,16 +351,17 @@ FAULTS = {
         "mask[r, :] = True"),
     "bn_grad_unreduced": (
         "ddp_two_ranks", "mvlt_tpu_torch/parallel/sharding.py",
-        "        dx = dy.clone()\n        dist.all_reduce(dx, group=ctx.group)\n        return dx, None",
+        "        dx = dy.clone(memory_format=torch.contiguous_format)\n"
+        "        dist.all_reduce(dx, group=ctx.group)\n        return dx, None",
         "        return dy.clone(), None"),
     "tp_residual_every_rank": (
         "tp_two_ranks", "mvlt_tpu_torch/parallel/tensor.py",
         "        total = _model_sum(part, group)",
         "        total = _model_sum(part + x.to(part.dtype), group)"),
     "tp_proj_bias_every_rank": (
-        "tp_two_ranks", "mvlt_tpu_torch/models/pvlt.py",
-        "total = reduce_from_model(linear_partial(o, a.proj.weight), group)",
-        "total = reduce_from_model(linear_partial(o, a.proj.weight) + a.proj.bias, group)"),
+        "tp_two_ranks", "mvlt_tpu_torch/parallel/tensor.py",
+        "    total = reduce_from_model(linear_partial(x, weight), group)",
+        "    total = reduce_from_model(linear_partial(x, weight) + bias, group)"),
     "copy_to_model_unreduced": (
         "tp_two_ranks", "mvlt_tpu_torch/parallel/tensor.py",
         "        return _model_sum(dy, ctx.group).to(dy.dtype), None",
@@ -357,6 +383,34 @@ FAULTS = {
         "tp_two_ranks", "mvlt_tpu_torch/parallel/mesh.py",
         "    return seed + data_rank()",
         "    return seed + rank()"),
+    "tp_dropout_local_mask": (
+        "tp_families", "mvlt_tpu_torch/models/bert_embeddings.py",
+        "        shape[dim] *= tp\n"
+        "    mask = torch.rand(shape, generator=generator, device=x.device) < keep\n"
+        "    if split is not None:\n"
+        "        mask = mask.narrow(dim, rank * x.shape[dim], x.shape[dim])",
+        "        pass\n"
+        "    mask = torch.rand(shape, generator=generator, device=x.device) < keep\n"
+        "    if split is not None:\n"
+        "        mask = mask.narrow(dim, 0, x.shape[dim])"),
+    "swin_table_unsliced": (
+        "tp_families", "mvlt_tpu_torch/parallel/tensor.py",
+        "            new = torch.nn.Parameter(shard_tensor(old.data, kind, rank, tp),",
+        "            new = torch.nn.Parameter(shard_tensor(\n"
+        "                old.data, kind, 0 if name.endswith('bias_table') else rank, tp),"),
+    "dwconv_wrong_slice": (
+        "tp_families", "mvlt_tpu_torch/parallel/tensor.py",
+        "            new = torch.nn.Parameter(shard_tensor(old.data, kind, rank, tp),",
+        "            new = torch.nn.Parameter(shard_tensor(\n"
+        "                old.data, kind, (rank + 1) % tp if '.dwconv.' in name else rank, tp),"),
+    "zero1_moments_model_rank0": (
+        "nccl_tp_zero1", "mvlt_tpu_torch/utils/checkpoint.py",
+        "lambda n, t: consolidate({n: t}, group, cfg)[n]",
+        "lambda n, t: consolidate({n: t * (dist.get_rank(group) == 0)}, group, cfg)[n]"),
+    "data_group_over_model_axis": (
+        "nccl_tp_step", "mvlt_tpu_torch/parallel/mesh.py",
+        "            layout[\"data_group\"] = g",
+        "            layout[\"data_group\"] = layout[\"model_group\"]"),
 }
 # per phase: the checks at B = 4 that print each error with the bound lifted
 MARGINS = {
@@ -369,6 +423,15 @@ pass
 """,
     # its kernel_check lines carry each error up to the first that fails
     "tp_kernels": """
+pass
+""",
+    "tp_families": """
+pass
+""",
+    "nccl_tp_step": """
+pass
+""",
+    "nccl_tp_zero1": """
 pass
 """,
     "kernels": """

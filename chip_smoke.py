@@ -5,9 +5,12 @@ registry's deeper models), recognition at B = 500, the pre-training step
 of the v1, v2, linear-SR v2 and Swin backbones, with dropout and with
 --remat, pre-training through the command line, the downstream evals
 through the command line on an on-disk tree, and data and tensor
-parallelism over gloo ranks on the one card.
+parallelism (every backbone, dropout, --remat) over gloo ranks on the one
+card; with ``--cards 4``, data and tensor parallelism over NCCL across
+four cards instead.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --cards 4
 
 run from the root of a checkout, on a machine with a CUDA card, the CUDA
 toolkit (nvcc) and PyTorch built for CUDA; JAX is not needed. Phases, one
@@ -234,7 +237,28 @@ JSON line each; a failed phase raises and the script exits non-zero:
      once a step, nothing else), the consolidated checkpoint restored in one
      process, equal masks on both ranks with DropPath and dropout on, the
      split model's VL eval against this process's on the same route, the
-     step's ms over gloo.
+     step's ms over gloo;
+ 17. tp_families: the same two gloo ranks at B = 150 split pvlt_v2_tiny,
+     pvlt_v2_linear_tiny and pvlt_swin_tiny, pvlt_tiny with every dropout
+     at 0.1 and pvlt_swin_tiny under --remat (TP_FAMILY_CASES), each step
+     against this process's from the same weights and mask seed: losses,
+     consolidated gradients under tp_two_ranks' bound, parameters equal to
+     AdamW's step on the consolidated gradients, BatchNorm statistics, the
+     generator in the one-process state (the split masks drew what one
+     process draws), every rank's digests equal, exact launches a rank.
+
+``--cards 4`` (a machine with four cards; each phase under
+``python -m torch.distributed.run --nproc_per_node=4``, one rank a card,
+NCCL, a process-group or subprocess timeout failing a hang): the build,
+then nccl_ddp (the pre-training command line at world 4, B = 150 a rank,
+two epochs; a DDP step on each rank's quarter of a B = 600 batch against
+one process's B = 600 step on cuda:0 under ddp_two_ranks' bound, the same
+step under ZeRO-1; a rank's ms a step beside one process's at B = 150) and
+nccl_tp (dp 2 x tp 2: the command line at --tp-size 2 on v1, v2 and Swin;
+a split step of each at B = 150 a data rank against one process's at B =
+300; v2 under ZeRO-1 over the data group, its checkpoint resumed at tp = 1
+without it). It prints the cards' nvidia-smi lines and the same last line,
+``count`` the cards it used.
 
 Then one line {"kernels": [...]}: per kernel the launches of its path's
 run (the MLM CE kernels': the command line's; the tensor-parallel modes':
@@ -4047,8 +4071,744 @@ def phase_tp_two_ranks(stats: dict) -> None:
                              f"BatchNorms {bn_gap}, VL eval {vl_gaps}")
 
 
+# ---- tensor parallelism of the other backbones and training options -------
+
+# the pre-training batch: at B = 32 a bf16 gradient formed from fewer rows
+# moved up to 1.12 times the bound of tp_two_ranks (v2 and linear v2, one
+# call on the H100), three bf16 spacings of its largest magnitude
+TP_FAMILY_BATCH = TRAIN_BATCH
+TP_FAMILY_LAUNCHES = {      # the launches of one split step a rank, by family
+    "attention": {"attention_fwd": 8, "attention_bwd": 8, "mlm_ce_fwd_tp": 1,
+                  "mlm_ce_bwd_tp": 1},
+    "ln_mlp": {"ln_mlp_fwd_tp": 8, "ln_mlp_bwd_tp": 8, "mlm_ce_fwd_tp": 1, "mlm_ce_bwd_tp": 1},
+    "glue": {"mlm_ce_fwd_tp": 1, "mlm_ce_bwd_tp": 1},
+    "ln_mlp_remat": {"ln_mlp_fwd_tp": 16, "ln_mlp_bwd_tp": 8, "mlm_ce_fwd_tp": 1,
+                     "mlm_ce_bwd_tp": 1},
+}
+DROPOUT_ON = dict(drop_rate=0.1, attn_drop_rate=0.1, drop_path_rate=0.1, bert_dropout=0.1)
+# case: (registry model, config overrides on ddp_config, launches a rank):
+# the v2 and linear-SR v2 attention on #10/#11 and their DWConv MLP in glue
+# on the rank's channels; Swin's window attention in glue on the rank's
+# heads and table columns, its MLP on #12/#13's tensor-parallel modes; v1
+# with every dropout on (no block kernel: the glue on the rank's heads and
+# hidden, each split mask the rank's slice of the one-process mask); Swin
+# under --remat (the forward's kernels and collectives repeated)
+TP_FAMILY_CASES = {
+    "v2": ("pvlt_v2_tiny", {}, "attention"),
+    "linear": ("pvlt_v2_linear_tiny", {}, "attention"),
+    "swin": ("pvlt_swin_tiny", {}, "ln_mlp"),
+    "dropout": ("pvlt_tiny", DROPOUT_ON, "glue"),
+    "remat": ("pvlt_swin_tiny", {"remat": True}, "ln_mlp_remat"),
+}
+
+
+def tp_case_config(case: str, dropout: bool = True) -> ModelConfig:
+    """The case's config at full width (bf16, 256x256, the pre-training
+    heads); ``dropout`` False: its rates at 0 (the reordering probe)."""
+    name, overrides, _ = TP_FAMILY_CASES[case]
+    cfg = dataclasses.replace(ddp_config(), name=name, **overrides)
+    if not dropout:
+        cfg = dataclasses.replace(cfg, **dict.fromkeys(DROPOUT_ON, 0.0))
+    return cfg
+
+
+def split_train_state(cfg: ModelConfig, device, global_batch: int, model_group, zero1=False):
+    """A model of ``cfg`` from the seeded whole weights, split over
+    ``model_group``, under DDP over the data group where it has several
+    ranks, and its state at step 0 (the mask seed of this data rank)."""
+    from mvlt_tpu_torch.parallel import mesh
+    from mvlt_tpu_torch.parallel.sharding import wrap_model
+    from mvlt_tpu_torch.parallel.tensor import shard_model
+
+    model = create_model(cfg, device=device)
+    model.load_state_dict(seeded_weights(model), strict=True)
+    shard_model(model, model_group)
+    ddp = wrap_model(model, device, mesh.data_group()) if mesh.data_size() > 1 else None
+    state = create_train_state(model, OptimConfig(warmup_epochs=0), global_batch, 1,
+                               seed=mesh.rank_seed(SEED), ddp=ddp, zero1=zero1,
+                               model_group=model_group)
+    return model, state
+
+
+def consolidated(model, group) -> dict:
+    """(gradients, parameters, buffers) of a split model, whole, fp32 on the
+    host."""
+    from mvlt_tpu_torch.parallel.tensor import consolidate
+
+    def whole(tensors):
+        return {n: t.detach().to("cpu", torch.float32, copy=True)
+                for n, t in consolidate(tensors, group, model.cfg).items()}
+
+    return {"grads": whole({n: p.grad for n, p in model.named_parameters()}),
+            "params": whole(dict(model.named_parameters())),
+            "buffers": {n: b.detach().to("cpu", torch.float32, copy=True)
+                        for n, b in model.named_buffers()}}
+
+
+def tp_families_rank(spec: dict) -> None:
+    """A rank of ``tp_families`` (gloo, both ranks on cuda:0, tp = 2, dp =
+    1): one step of each case of TP_FAMILY_CASES on the whole batch of
+    spec (TP_FAMILY_BATCH), its launches, losses, generator state after,
+    and its consolidated gradients, parameters and BatchNorm statistics
+    (rank 0 writes them) with each rank's digest of its own."""
+    from mvlt_tpu_torch.parallel import mesh
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = mesh.maybe_init_distributed(device="cuda:0", backend="gloo", timeout_s=300)
+    mesh.init_model_parallel(2)
+    group, rank = mesh.model_group(), mesh.rank()
+    batch = batch_to_device(dict(np.load(spec["batch"])), device)
+    out = pathlib.Path(spec["out"])
+    res, tensors = {"world": mesh.world_size(), "backend": torch.distributed.get_backend()}, {}
+    for case in TP_FAMILY_CASES:
+        cfg = tp_case_config(case)
+        model, state = split_train_state(cfg, device, TP_FAMILY_BATCH, group)
+        reset_launches()
+        _, losses = make_train_step(cfg)(state, batch)
+        torch.cuda.synchronize()
+        tensors[case] = consolidated(model, group)
+        res[case] = {"launches": read_launches(),
+                     "losses": {k: float(v) for k, v in losses.items()},
+                     "generator": state.generator.get_state().tolist(),
+                     "digests": {k: tensors_digest(v) for k, v in tensors[case].items()}}
+        del model, state
+        torch.cuda.empty_cache()
+    if rank == 0:
+        torch.save(tensors, out / "tp_families_tensors.pt")
+    (out / f"tp_families_{rank}.json").write_text(json.dumps(res))
+    mesh.destroy()
+
+
+def adamw_first_step(before: dict, grads: dict, lr: float) -> dict:
+    """AdamW's first step (OptimConfig's betas and eps, its weight decay on
+    the tensors of more than one dimension) from the weights ``before`` on
+    ``grads``, on the host in fp32: what a split step's consolidated
+    parameters must be, given its consolidated gradients."""
+    cfg = OptimConfig()
+    params = {n: before[n].clone().requires_grad_(True) for n in grads}
+    for n, p in params.items():
+        p.grad = grads[n].clone()
+    groups = [{"params": [p for p in params.values() if p.dim() > 1],
+               "weight_decay": cfg.weight_decay},
+              {"params": [p for p in params.values() if p.dim() <= 1], "weight_decay": 0.0}]
+    torch.optim.AdamW(groups, lr=lr, betas=cfg.betas, eps=cfg.eps).step()
+    return {n: p.detach() for n, p in params.items()}
+
+
+def param_gap(got: torch.Tensor, want: torch.Tensor, before: torch.Tensor) -> float:
+    """A parameter after the step against ``adamw_first_step``'s, relative
+    to the update's largest magnitude, less two fp32 spacings of the
+    tensor's largest magnitude (the card's and the host's roundings)."""
+    slack = 2.0 ** -22 * float(want.abs().max())
+    gap = max(float((got - want).abs().max()) - slack, 0.0)
+    return gap / max(float((want - before).abs().max()), 1e-30)
+
+
+def step_bounds(want_grads: dict, swap: dict) -> dict:
+    """Each gradient's bound: max(DDP_TOL, SWAP_FACTOR x the largest move of
+    any gradient when one process takes the step on its rows reordered),
+    plus twice BF16_SPACING where the gradient is formed in bf16 (each side
+    rounds it once)."""
+    swap_max = max(swap.values())
+    bf16_formed = {n for n, w in want_grads.items()
+                   if torch.equal(w.to(torch.bfloat16).float(), w)}
+    return {n: max(DDP_TOL, SWAP_FACTOR * swap_max)
+            + (2 * BF16_SPACING if n in bf16_formed else 0.0) for n in want_grads}
+
+
+def one_process_step(cfg: ModelConfig, batch: dict, global_batch: int) -> dict:
+    """This process's step of ``cfg`` from the seeded weights (mask seed
+    SEED): its losses, gradients, buffers after, generator state after, the
+    seeded weights and the step's LR."""
+    model = create_model(cfg)
+    weights = seeded_weights(model)
+    model.load_state_dict(weights, strict=True)
+    state = create_train_state(model, OptimConfig(warmup_epochs=0), global_batch, 1, seed=SEED)
+    _, losses = make_train_step(cfg)(state, batch)
+    res = {"losses": {k: float(v) for k, v in losses.items()}, "grads": grads_of(model),
+           "buffers": {n: b.detach().float().cpu() for n, b in model.named_buffers()},
+           "generator": state.generator.get_state().tolist(), "weights": weights,
+           "lr": state.lr_schedule(0)}
+    del model, state
+    torch.cuda.empty_cache()
+    return res
+
+
+def compare_split_step(got: dict, want: dict, swap: dict) -> dict:
+    """A consolidated split step against this process's: each gradient over
+    its bound (step_bounds); each parameter's gap to AdamW's first step on
+    the consolidated gradients from the whole weights (param_gap, within
+    ZERO_TOL: the split optimizer step consolidates to the whole one; the
+    gradients are held to one process by their bound, and AdamW's first
+    step, about +-lr whatever a gradient's size, would hide their gaps);
+    the BatchNorm statistics' gap."""
+    grads, before = want["grads"], want["weights"]
+    bounds = step_bounds(grads, swap)
+    g_gaps = rel_gaps(got["grads"], grads)
+    g_ratio = {n: g / bounds[n] for n, g in g_gaps.items()}
+    adamw = adamw_first_step(before, got["grads"], want["lr"])
+    p_gaps = {n: param_gap(got["params"][n], adamw[n], before[n]) for n in grads}
+    worst_g, worst_p = max(g_ratio, key=g_ratio.get), max(p_gaps, key=p_gaps.get)
+    return {"grad_ratio": [worst_g, g_ratio[worst_g]], "param_gap": [worst_p, p_gaps[worst_p]],
+            "rel_err_grads_max": max(g_gaps.values()),
+            "bn_gap": max(rel_gaps(got["buffers"], want["buffers"]).values()),
+            "swap_grad_gap_max": max(swap.values()),
+            "top_grad_ratios": [[n, g_ratio[n], g_gaps[n], bounds[n]]
+                                for n in sorted(g_ratio, key=g_ratio.get, reverse=True)[:4]]}
+
+
+def phase_tp_families(stats: dict) -> None:
+    """Tensor parallelism of the v2, linear-SR v2 and Swin backbones, of
+    dropout and of --remat, on two gloo ranks of one model group on the one
+    card (tp = 2, dp = 1; NCCL refuses two ranks on one device), each at
+    full width (256x256, 128 tokens, bf16, the pre-training heads, seeded
+    weights) on the whole TP_FAMILY_BATCH batch: one step of each case of
+    TP_FAMILY_CASES against this process's step from the same weights and
+    mask seed. Per case: the losses within DDP_TOL; each consolidated
+    gradient within tp_two_ranks' bound (step_bounds, from the case's own
+    step on the batch's halves swapped, with its dropout off since masks
+    follow positions); each parameter after AdamW within its gradient's
+    gradients from the whole weights within ZERO_TOL (param_gap); the BatchNorm
+    statistics within DDP_TOL; both ranks' losses, generator states and
+    digests of their consolidated tensors equal; the generator in the
+    one-process step's state after (the split masks drew what one process
+    draws); the launches a rank exactly TP_FAMILY_LAUNCHES' (and no other
+    wrapper's)."""
+    DDP_DIR.mkdir(parents=True, exist_ok=True)
+    arrays = {k: v for k, v in train_batch(SEED + 31, TP_FAMILY_BATCH).items()
+              if isinstance(v, np.ndarray)}
+    np.savez(DDP_DIR / "tp_families_batch.npz", **arrays)
+    batch = batch_to_device(arrays, "cuda")
+    half = TP_FAMILY_BATCH // 2
+    swapped = {k: torch.cat([v[half:], v[:half]]) for k, v in batch.items()}
+    want, swaps = {}, {}
+    for case in TP_FAMILY_CASES:
+        want[case] = one_process_step(tp_case_config(case), batch, TP_FAMILY_BATCH)
+        base = tp_case_config(case, dropout=False)
+        unswapped = (one_process_step(base, batch, TP_FAMILY_BATCH)["grads"]
+                     if base != tp_case_config(case) else want[case]["grads"])
+        swaps[case] = rel_gaps(one_process_step(base, swapped, TP_FAMILY_BATCH)["grads"],
+                               unswapped)
+    del batch, swapped
+    torch.cuda.empty_cache()
+    start = time.perf_counter()
+    try:
+        ranks = spawn_ranks("tp_families", 2, {"batch": str(DDP_DIR / "tp_families_batch.npz"),
+                                               "out": str(DDP_DIR)}, timeout=600)
+        got = torch.load(DDP_DIR / "tp_families_tensors.pt", weights_only=True)
+    finally:
+        shutil.rmtree(DDP_DIR, ignore_errors=True)
+    seconds = time.perf_counter() - start
+    failed, results = [], {}
+    for case, (name, _, kind) in TP_FAMILY_CASES.items():
+        cmp = compare_split_step(got[case], want[case], swaps[case])
+        expected = {w: TP_FAMILY_LAUNCHES[kind].get(w, 0) for w in WRAPPERS}
+        l_gap = loss_gap(ranks[0][case]["losses"], want[case]["losses"])
+        checks = {
+            "backend_gloo_world_2": all(r["backend"] == "gloo" and r["world"] == 2
+                                        for r in ranks),
+            "losses": l_gap <= DDP_TOL, "grads": cmp["grad_ratio"][1] <= 1.0,
+            "params": cmp["param_gap"][1] <= ZERO_TOL, "batchnorms": cmp["bn_gap"] <= DDP_TOL,
+            "ranks_equal": all(ranks[0][case][k] == ranks[1][case][k]
+                               for k in ("losses", "generator", "digests")),
+            "same_masks_as_one_process": ranks[0][case]["generator"] == want[case]["generator"],
+            "launches": all(r[case]["launches"] == expected for r in ranks),
+        }
+        results[case] = {"model": name, "checks": checks, "rel_err_losses": l_gap,
+                         "launches": ranks[0][case]["launches"], **cmp}
+        failed += [f"{case}:{k}" for k, v in checks.items() if not v]
+    ok = not failed
+    emit("tp_families", tp=2, dp=1, batch=TP_FAMILY_BATCH, tol=DDP_TOL, cases=results,
+         launches_expected={c: TP_FAMILY_LAUNCHES[k] for c, (_, _, k) in TP_FAMILY_CASES.items()},
+         seconds=seconds, ok=ok)
+    if not ok:
+        raise AssertionError(f"tp_families failed {failed}: "
+                             + "; ".join(f"{c} grads {r['grad_ratio']} params {r['param_gap']} "
+                                         f"losses {r['rel_err_losses']} BN {r['bn_gap']}"
+                                         for c, r in results.items()))
+
+
+# ---- data and tensor parallelism over NCCL across four cards (--cards 4) ----
+
+NCCL_CARDS = 4
+NCCL_TIMEOUT_S = 300        # a process-group call that waits longer fails the run
+NCCL_TP = 2
+# family: its launches a rank of a split step (dp 2 x tp 2)
+NCCL_FAMILIES = {"pvlt_tiny": TP_STEP_LAUNCHES, "pvlt_v2_tiny": TP_FAMILY_LAUNCHES["attention"],
+                 "pvlt_swin_tiny": TP_FAMILY_LAUNCHES["ln_mlp"]}
+
+
+def nccl_ddp_rank(spec: dict) -> None:
+    """A rank of ``nccl_ddp`` (torchrun, one rank a card, NCCL): the
+    pre-training command line at world 4 with its launches, then one DDP
+    step at B = 150 on this rank's quarter of the B = 600 batch (each
+    gradient's largest magnitude on this rank noted before the
+    reduction), the same step under ZeRO-1; then the step's time under DDP
+    (no comm hook) and of the rank's own model without DDP, every rank at
+    once."""
+    from torch.distributed.algorithms.ddp_comm_hooks import default_hooks
+
+    from mvlt_tpu_torch.parallel import mesh
+    from mvlt_tpu_torch.parallel.sharding import wrap_model
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh.maybe_init_distributed(timeout_s=NCCL_TIMEOUT_S)   # the command line joins it
+    reset_launches()
+    start = time.perf_counter()
+    cli.main(spec["argv"])
+    torch.cuda.synchronize()
+    cli_seconds, cli_launches = time.perf_counter() - start, read_launches()
+    rank, world, device = mesh.rank(), mesh.world_size(), mesh.comm_device()
+    cfg = ddp_config()
+    host = dict(np.load(spec["batch"]))
+    share = host["images"].shape[0] // world
+    batch = batch_to_device({k: v[rank * share:(rank + 1) * share] for k, v in host.items()},
+                            device)
+    res = {"backend": torch.distributed.get_backend(), "world": world, "device": str(device),
+           "card": torch.cuda.get_device_name(device), "cli_launches": cli_launches,
+           "cli_seconds": cli_seconds}
+    step = make_train_step(cfg)
+    after = {}
+    for zero1 in (False, True):
+        model = create_model(cfg, device=device)
+        model.load_state_dict(seeded_weights(model), strict=True)
+        ddp = wrap_model(model, device)
+        names = {id(p): n for n, p in model.named_parameters()}
+        partial_max = {}
+
+        def recording_hook(group, bucket):
+            for p, g in zip(bucket.parameters(), bucket.gradients()):
+                partial_max[names[id(p)]] = g.detach().abs().max()
+            return default_hooks.allreduce_hook(group, bucket)
+
+        ddp.register_comm_hook(None, recording_hook)
+        state = create_train_state(model, OptimConfig(warmup_epochs=0), share * world, 1,
+                                   seed=SEED + rank, ddp=ddp, zero1=zero1)
+        reset_launches()
+        _, losses = step(state, batch)
+        torch.cuda.synchronize()
+        params = {n: p.detach().clone() for n, p in model.named_parameters()}
+        if not zero1:
+            res["launches"] = read_launches()
+            res["partial_max"] = {n: float(v) for n, v in partial_max.items()}
+            grads = grads_of(model)
+            sums = torch.tensor([float(losses[k]) for k in sorted(losses)], dtype=torch.float64,
+                                device=device)
+            torch.distributed.all_reduce(sums)
+            res["mean_losses"] = dict(zip(sorted(losses), (sums / world).tolist()))
+            res["grad_digest"] = tensors_digest(grads)
+            if rank == 0:
+                torch.save({"grads": grads,
+                            "buffers": {n: b.detach().float().cpu()
+                                        for n, b in model.named_buffers()}},
+                           pathlib.Path(spec["out"]) / "nccl_ddp_tensors.pt")
+            after = params
+        else:
+            res["zero1_param_gap"] = max(float((p - after[n]).abs().max())
+                                         for n, p in params.items())
+            res["zero1_moment_bytes"] = sum(
+                t.numel() * t.element_size() for st in state.optimizer.optim.state.values()
+                for k, t in st.items() if k in ("exp_avg", "exp_avg_sq"))
+            res["full_moment_bytes"] = 2 * sum(p.numel() * p.element_size()
+                                               for p in model.parameters())
+        del model, ddp, state
+        torch.cuda.empty_cache()
+    # the step's time as the command line trains (no comm hook), and each
+    # rank's own model without DDP at the same time: weak scaling on the
+    # host the ranks share
+    for label in ("alone", "ddp"):
+        model = create_model(cfg, device=device)
+        model.load_state_dict(seeded_weights(model), strict=True)
+        ddp = wrap_model(model, device) if label == "ddp" else None
+        state = create_train_state(model, OptimConfig(warmup_epochs=0), share * world, 1,
+                                   seed=SEED + rank, ddp=ddp)
+        res[f"ms_{label}"] = cuda_time_ms(lambda: step(state, batch), warmup=2, reps=5)
+        del model, ddp, state
+        torch.cuda.empty_cache()
+        torch.distributed.barrier()
+    (pathlib.Path(spec["out"]) / f"nccl_ddp_{rank}.json").write_text(json.dumps(res))
+    mesh.destroy()
+
+
+def phase_nccl_ddp(stats: dict) -> None:
+    """Data parallelism over NCCL across four cards, one rank a card,
+    through the user's entry point: ``python -m torch.distributed.run
+    --nproc_per_node=4 chip_smoke.py --ddp-rank nccl_ddp`` runs
+    ``mvlt_tpu_torch.cli.main`` with configs/pretrain_exp21.py on synthetic
+    data (B = 150 a rank, 2 epochs of one step, the VL eval in epoch 1):
+    NCCL at world 4, finite losses and eval statistics, every rank's
+    training kernels launched once per block a step. Then, in the ranks,
+    one DDP step (pvlt_tiny, the pre-training heads, DropPath and dropout
+    off, seeded weights) on each rank's quarter of a B = 600 batch against
+    this process's step at B = 600 on cuda:0: the losses within DDP_TOL,
+    every gradient within ddp_two_ranks' bound (DDP_TOL or the step's own
+    reordering noise, plus for a gradient formed in bf16 the ranks' and
+    the one-process bf16 roundings), the BatchNorm statistics within
+    DDP_TOL, every rank's gradients equal; the same step under ZeRO-1 (the
+    parameters within ZERO_TOL of the DDP step's, a quarter of the moments
+    a rank). The DDP step's ms a rank at B = 150 and its samples/s at world
+    4 beside each rank's own model without DDP, timed at once on the host
+    the ranks share: the weak-scaling efficiency (this process's step at B
+    = 150 on cuda:0 printed beside)."""
+    cfg = ddp_config()
+    global_b = TRAIN_BATCH * NCCL_CARDS
+    DDP_DIR.mkdir(parents=True, exist_ok=True)
+    arrays = {k: v for k, v in train_batch(SEED + 37, global_b).items()
+              if isinstance(v, np.ndarray)}
+    np.savez(DDP_DIR / "nccl_batch.npz", **arrays)
+    batch = batch_to_device(arrays, "cuda")
+    want = one_process_step(cfg, batch, global_b)
+    half = global_b // 2
+    swapped = one_process_step(cfg, {k: torch.cat([v[half:], v[:half]])
+                                     for k, v in batch.items()}, global_b)
+    swap = rel_gaps(swapped["grads"], want["grads"])
+    del batch, swapped
+    one = batch_to_device({k: v[:TRAIN_BATCH] for k, v in arrays.items()}, "cuda")
+    model = create_model(cfg)
+    model.load_state_dict(seeded_weights(model), strict=True)
+    state = create_train_state(model, OptimConfig(warmup_epochs=0), TRAIN_BATCH, 1, seed=SEED)
+    step = make_train_step(cfg)
+    one_ms = cuda_time_ms(lambda: step(state, one), warmup=1, reps=3)
+    del model, state, one
+    torch.cuda.empty_cache()
+    run = DDP_DIR / "nccl_ddp_run"
+    argv = ["--config", str(PRETRAIN_CONFIG), "--synthetic-data", "--epochs", "2",
+            "--output-dir", str(run)]
+    start = time.perf_counter()
+    try:
+        ranks = spawn_ranks("nccl_ddp", NCCL_CARDS,
+                            {"argv": argv, "batch": str(DDP_DIR / "nccl_batch.npz"),
+                             "out": str(DDP_DIR)}, timeout=900, torchrun=True)
+        got = torch.load(DDP_DIR / "nccl_ddp_tensors.pt", weights_only=True)
+        log = _train_log(run)
+    finally:
+        shutil.rmtree(DDP_DIR, ignore_errors=True)
+    seconds = time.perf_counter() - start
+    grads = want["grads"]
+    gaps = rel_gaps(got["grads"], grads)
+    swap_max = max(swap.values())
+    bf16_formed = {n for n, w in grads.items() if torch.equal(w.to(torch.bfloat16).float(), w)}
+    bounds = {}
+    for n, w in grads.items():
+        big = float(w.abs().max())
+        bounds[n] = max(DDP_TOL, SWAP_FACTOR * swap_max)
+        if n in bf16_formed:   # each rank's rounding of its partial, and the total's
+            partial = max(r["partial_max"][n] for r in ranks)
+            bounds[n] += BF16_SPACING * (NCCL_CARDS * partial + big) / max(big, 1e-30)
+    ratios = {n: gaps[n] / bounds[n] for n in gaps}
+    worst = max(ratios, key=ratios.get)
+    bn_gap = max(rel_gaps(got["buffers"], want["buffers"]).values())
+    l_gap = loss_gap(ranks[0]["mean_losses"], want["losses"])
+    steps = len(log)
+    cli_expected = {"attention_fwd": 8 * steps, "attention_bwd": 8 * steps,
+                    "ln_mlp_fwd": 8 * steps, "ln_mlp_bwd": 8 * steps, "mlm_ce_fwd": steps,
+                    "mlm_ce_bwd": steps}
+    rank_ms, alone_ms = [r["ms_ddp"] for r in ranks], [r["ms_alone"] for r in ranks]
+    world1_ms = statistics.median(alone_ms)
+    checks = {
+        "backend_nccl_world_4": all(r["backend"] == "nccl" and r["world"] == NCCL_CARDS
+                                    for r in ranks),
+        "one_card_a_rank": len({r["device"] for r in ranks}) == NCCL_CARDS,
+        "cli_epochs": steps == 2 and all(np.isfinite(v) for ln in log for v in ln.values())
+        and any(k.startswith("eval_") for k in log[-1]),
+        "cli_launches": all(all(r["cli_launches"][k] == v for k, v in cli_expected.items())
+                            for r in ranks),
+        "losses": l_gap <= DDP_TOL, "grads": ratios[worst] <= 1.0,
+        "batchnorms": bn_gap <= DDP_TOL,
+        "ranks_equal": len({r["grad_digest"] for r in ranks}) == 1,
+        "launches": all(r["launches"] == ranks[0]["launches"] for r in ranks)
+        and ranks[0]["launches"]["attention_fwd"] == 8,
+        "zero1_params": all(r["zero1_param_gap"] <= ZERO_TOL for r in ranks),
+        "zero1_moments_split": sum(r["zero1_moment_bytes"] for r in ranks)
+        == ranks[0]["full_moment_bytes"],
+    }
+    ok = all(checks.values())
+    emit("nccl_ddp", model="pvlt_tiny", world=NCCL_CARDS, batch_per_rank=TRAIN_BATCH,
+         global_batch=global_b, checks=checks, rel_err_losses=l_gap,
+         worst_grad_over_bound=[worst, ratios[worst]], rel_err_grads_max=max(gaps.values()),
+         top_grad_ratios=[[n, ratios[n], gaps[n], bounds[n], swap[n]]
+                          for n in sorted(ratios, key=ratios.get, reverse=True)[:6]],
+         swap_grad_gap_max=swap_max, rel_err_batchnorms=bn_gap, tol=DDP_TOL,
+         zero1_param_gap=[r["zero1_param_gap"] for r in ranks], zero_tol=ZERO_TOL,
+         zero1_moment_bytes=[r["zero1_moment_bytes"] for r in ranks],
+         cards=[r["card"] for r in ranks], cli_log=log, cli_launches=ranks[0]["cli_launches"],
+         cli_seconds=[r["cli_seconds"] for r in ranks],
+         ms_per_step_world4=rank_ms, ms_per_step_alone=alone_ms,
+         ms_per_step_one_process_cuda0=one_ms,
+         samples_per_s_world4=NCCL_CARDS * TRAIN_BATCH / max(rank_ms) * 1e3,
+         samples_per_s_world1=TRAIN_BATCH / world1_ms * 1e3,
+         weak_scaling_efficiency=world1_ms / max(rank_ms),
+         ms_note="CUDA events around a step, 2 warm-up, median of 5, every rank at once: "
+                 "world 4, each rank's DDP step at B = 150 with its NCCL all-reduces (the "
+                 "slowest rank sets the rate); world 1, each rank's own model without DDP (the "
+                 "median); one_process_cuda0: this process before the ranks (1 warm-up, "
+                 "median of 3)",
+         seconds=seconds, ok=ok)
+    if not ok:
+        raise AssertionError(f"nccl_ddp failed {[k for k, v in checks.items() if not v]}: "
+                             f"losses {l_gap}, gradient over its bound {worst} {ratios[worst]}, "
+                             f"BatchNorms {bn_gap}")
+
+
+def nccl_tp_rank(spec: dict) -> None:
+    """A rank of ``nccl_tp`` (torchrun, one rank a card, NCCL, dp 2 x tp
+    2): per family of the spec, the pre-training command line at
+    --tp-size 2 (one epoch with its VL eval) and one split step at B = 150
+    on this data rank's half of the B = 300 batch (consolidated gradients,
+    parameters and BatchNorm statistics, rank 0 writes them; each rank's
+    digest of its own; the step's time); with ``zero1``, v2's split step
+    without and with ZeRO-1 over the data group, the ZeRO-1 state saved by
+    CheckpointManager (rank 0 compares its moments with the plain step's
+    consolidated ones)."""
+    from mvlt_tpu_torch.parallel import mesh
+    from mvlt_tpu_torch.parallel.tensor import consolidate
+    from mvlt_tpu_torch.utils.checkpoint import STATE_FILE, CheckpointManager, _moment_names
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = mesh.maybe_init_distributed(timeout_s=NCCL_TIMEOUT_S)
+    out = pathlib.Path(spec["out"])
+    rank = mesh.rank()
+    res = {"backend": torch.distributed.get_backend(), "world": mesh.world_size(),
+           "device": str(device)}
+    host = dict(np.load(spec["batch"]))
+    tensors = {}
+    for name in spec["families"]:
+        if spec["cli"]:
+            run = out / f"nccl_tp_{name}"
+            reset_launches()
+            cli.main(["--config", str(PRETRAIN_CONFIG), "--synthetic-data", "--epochs", "1",
+                      "--model", name, "--tp-size", str(NCCL_TP), "--output-dir", str(run)])
+            torch.cuda.synchronize()
+            torch.distributed.barrier()       # rank 0 has written the log
+            res[f"cli_{name}"] = {"launches": read_launches(),
+                                  "log": _train_log(run) if rank == 0 else None}
+        mesh.init_model_parallel(NCCL_TP)
+        res["ranks"] = [mesh.data_rank(), mesh.model_rank()]
+        share = host["images"].shape[0] // mesh.data_size()
+        lo = mesh.data_rank() * share
+        batch = batch_to_device({k: v[lo:lo + share] for k, v in host.items()}, device)
+        cfg = dataclasses.replace(ddp_config(), name=name)
+        model, state = split_train_state(cfg, device, share * mesh.data_size(),
+                                         mesh.model_group())
+        step = make_train_step(cfg)
+        reset_launches()
+        _, losses = step(state, batch)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        tensors[name] = consolidated(model, mesh.model_group())
+        sums = torch.tensor([float(losses[k]) for k in sorted(losses)], dtype=torch.float64,
+                            device=device)
+        torch.distributed.all_reduce(sums, group=mesh.data_group())
+        res[name] = {"launches": launches,
+                     "mean_losses": dict(zip(sorted(losses), (sums / mesh.data_size()).tolist())),
+                     "digests": {k: tensors_digest(v) for k, v in tensors[name].items()},
+                     "ms_per_step": cuda_time_ms(lambda: step(state, batch), warmup=1, reps=3)}
+        del model, state
+        torch.cuda.empty_cache()
+    if spec["zero1"]:
+        mesh.init_model_parallel(NCCL_TP)
+        share = host["images"].shape[0] // mesh.data_size()
+        lo = mesh.data_rank() * share
+        batch = batch_to_device({k: v[lo:lo + share] for k, v in host.items()}, device)
+        cfg = dataclasses.replace(ddp_config(), name="pvlt_v2_tiny")
+        for zero1 in (False, True):
+            model, state = split_train_state(cfg, device, share * mesh.data_size(),
+                                             mesh.model_group(), zero1=zero1)
+            make_train_step(cfg)(state, batch)
+            torch.cuda.synchronize()
+            if zero1:
+                res["zero1_moment_bytes"] = sum(
+                    t.numel() * t.element_size() for st in state.optimizer.optim.state.values()
+                    for k, t in st.items() if k in ("exp_avg", "exp_avg_sq"))
+                CheckpointManager(str(out / "nccl_tp_zero1")).save_epoch(state, 0, 1)
+                res["zero1_params_digest"] = tensors_digest(
+                    consolidated(model, mesh.model_group())["params"])
+            else:   # the plain step's moments and parameters, whole, by name
+                order = _moment_names(state)
+                by_name = {n: state.optimizer.state[p] for n, p in model.named_parameters()}
+                moments = {k: consolidate({n: by_name[n][k] for n in order},
+                                          mesh.model_group(), cfg)
+                           for k in ("exp_avg", "exp_avg_sq")}
+                plain_params = consolidated(model, mesh.model_group())["params"]
+                buffer_names = [n for n, _ in model.named_buffers()]
+            del model, state
+            torch.cuda.empty_cache()
+        if rank == 0:
+            saved = torch.load(out / "nccl_tp_zero1" / "checkpoint" / "last" / STATE_FILE,
+                               map_location="cpu", weights_only=True)
+            saved_m = saved["optimizer"]["state"]
+            res["zero1_saved_moment_gap"] = max(
+                float((saved_m[i][k].float().cpu() - moments[k][n].float().cpu()).abs().max())
+                for i, n in enumerate(order) for k in moments)
+            res["zero1_saved_param_gap"] = max(
+                float((saved["model"][n].float().cpu() - v).abs().max())
+                for n, v in plain_params.items())
+            res["zero1_saved_names"] = (sorted(saved_m) == list(range(len(order)))
+                                        and sorted(saved["model"])
+                                        == sorted([*plain_params, *buffer_names]))
+    if rank == 0:
+        torch.save(tensors, out / "nccl_tp_tensors.pt")
+    (out / f"nccl_tp_{rank}.json").write_text(json.dumps(res))
+    mesh.destroy()
+
+
+def phase_nccl_tp(stats: dict, families=NCCL_FAMILIES, run_cli: bool = True,
+                  zero1: bool = True) -> None:
+    """Tensor parallelism over NCCL across four cards as dp 2 x tp 2 (model
+    groups of cards 0-1 and 2-3), through ``python -m
+    torch.distributed.run --nproc_per_node=4 chip_smoke.py --ddp-rank
+    nccl_tp``: for v1, v2 and Swin at 256 (``families``), the pre-training
+    command line at --tp-size 2 for one epoch (finite losses, the VL eval,
+    the layout) and one split step at B = 150 a data rank against this
+    process's step at B = 300 on cuda:0: the losses (the data ranks' mean)
+    within DDP_TOL, each consolidated gradient within tp_two_ranks' bound
+    and each parameter within ZERO_TOL of AdamW's step on the consolidated
+    gradients (param_gap), the
+    BatchNorm statistics within DDP_TOL, the digests of every rank's
+    consolidated tensors equal, a rank's launches of #10-#15 as
+    TP_FAMILY_LAUNCHES, a rank's ms a step beside this process's at B =
+    150. With ``zero1``: v2's split step under ZeRO-1 over the data group,
+    its consolidated checkpoint's moments and parameters within ZERO_TOL
+    of the plain split step's, each rank about half of its shard's
+    moments, the checkpoint resumed here at tp = 1 without ZeRO-1 to those
+    parameters (the ranks' digest) and moments (the file's, exactly)."""
+    from mvlt_tpu_torch.utils.checkpoint import STATE_FILE, CheckpointManager
+
+    global_b = TRAIN_BATCH * (NCCL_CARDS // NCCL_TP)
+    DDP_DIR.mkdir(parents=True, exist_ok=True)
+    arrays = {k: v for k, v in train_batch(SEED + 41, global_b).items()
+              if isinstance(v, np.ndarray)}
+    np.savez(DDP_DIR / "nccl_tp_batch.npz", **arrays)
+    batch = batch_to_device(arrays, "cuda")
+    one = batch_to_device({k: v[:TRAIN_BATCH] for k, v in arrays.items()}, "cuda")
+    half = global_b // 2
+    want, swaps, one_ms = {}, {}, {}
+    for name in families:
+        cfg = dataclasses.replace(ddp_config(), name=name)
+        want[name] = one_process_step(cfg, batch, global_b)
+        swaps[name] = rel_gaps(one_process_step(cfg, {k: torch.cat([v[half:], v[:half]])
+                                                      for k, v in batch.items()}, global_b)["grads"],
+                               want[name]["grads"])
+        model = create_model(cfg)
+        model.load_state_dict(seeded_weights(model), strict=True)
+        state = create_train_state(model, OptimConfig(warmup_epochs=0), TRAIN_BATCH, 1,
+                                   seed=SEED)
+        step = make_train_step(cfg)
+        one_ms[name] = cuda_time_ms(lambda: step(state, one), warmup=1, reps=3)
+        del model, state
+        torch.cuda.empty_cache()
+    del batch, one
+    torch.cuda.empty_cache()
+    start = time.perf_counter()
+    restored_ok = None
+    try:
+        ranks = spawn_ranks("nccl_tp", NCCL_CARDS,
+                            {"batch": str(DDP_DIR / "nccl_tp_batch.npz"), "out": str(DDP_DIR),
+                             "families": list(families), "cli": run_cli, "zero1": zero1},
+                            timeout=1200, torchrun=True)
+        got = torch.load(DDP_DIR / "nccl_tp_tensors.pt", weights_only=True)
+        if zero1:   # the ZeRO-1 checkpoint at tp = 1 without ZeRO-1, in this process
+            ckpt = DDP_DIR / "nccl_tp_zero1"
+            saved = torch.load(ckpt / "checkpoint" / "last" / STATE_FILE, map_location="cpu",
+                               weights_only=True)
+            model = create_model(dataclasses.replace(ddp_config(), name="pvlt_v2_tiny"))
+            state = create_train_state(model, OptimConfig(warmup_epochs=0), global_b, 1)
+            state, _ = CheckpointManager(str(ckpt)).restore(state, "last")
+            params = {n: p.detach().float().cpu() for n, p in model.named_parameters()}
+            moments = state.optimizer.state_dict()["state"]
+            restored_ok = (tensors_digest(params) == ranks[0]["zero1_params_digest"]
+                           and all(torch.equal(moments[i][k].cpu(), st[k])
+                                   for i, st in saved["optimizer"]["state"].items()
+                                   for k in ("exp_avg", "exp_avg_sq")))
+            del model, state
+    finally:
+        shutil.rmtree(DDP_DIR, ignore_errors=True)
+    seconds = time.perf_counter() - start
+    failed, results = [], {}
+    for name in families:
+        expected = {w: NCCL_FAMILIES[name].get(w, 0) for w in WRAPPERS}
+        cmp = compare_split_step(got[name], want[name], swaps[name])
+        l_gap = loss_gap(ranks[0][name]["mean_losses"], want[name]["losses"])
+        checks = {"losses": l_gap <= DDP_TOL, "grads": cmp["grad_ratio"][1] <= 1.0,
+                  "params": cmp["param_gap"][1] <= ZERO_TOL, "batchnorms": cmp["bn_gap"] <= DDP_TOL,
+                  "ranks_equal": len({json.dumps(r[name]["digests"], sort_keys=True)
+                                      for r in ranks}) == 1,
+                  "launches": all(r[name]["launches"] == expected for r in ranks)}
+        if run_cli:
+            log = ranks[0][f"cli_{name}"]["log"]
+            checks["cli_epoch"] = (len(log) == 1 and any(k.startswith("eval_") for k in log[0])
+                                   and all(np.isfinite(v) for v in log[0].values()))
+        results[name] = {"checks": checks, "rel_err_losses": l_gap,
+                         "ms_per_step_rank": [r[name]["ms_per_step"] for r in ranks],
+                         "ms_per_step_one_process_b150": one_ms[name],
+                         "launches": ranks[0][name]["launches"], **cmp}
+        if run_cli:
+            results[name]["cli_log"] = ranks[0][f"cli_{name}"]["log"]
+        failed += [f"{name}:{k}" for k, v in checks.items() if not v]
+    common = {"backend_nccl_world_4": all(r["backend"] == "nccl" and r["world"] == NCCL_CARDS
+                                          for r in ranks),
+              "one_card_a_rank": len({r["device"] for r in ranks}) == NCCL_CARDS}
+    if families:
+        common["layout"] = [r["ranks"] for r in ranks] == [[0, 0], [0, 1], [1, 0], [1, 1]]
+    if zero1:
+        common["zero1_saved"] = (ranks[0]["zero1_saved_names"] is True
+                                 and ranks[0]["zero1_saved_moment_gap"] <= ZERO_TOL
+                                 and ranks[0]["zero1_saved_param_gap"] <= ZERO_TOL)
+        common["zero1_resumed_tp1"] = bool(restored_ok)
+    failed += [k for k, v in common.items() if not v]
+    ok = not failed
+    emit("nccl_tp", dp=NCCL_CARDS // NCCL_TP, tp=NCCL_TP, batch_per_data_rank=TRAIN_BATCH,
+         global_batch=global_b, checks=common, families=results, tol=DDP_TOL,
+         zero1_saved_moment_gap=ranks[0].get("zero1_saved_moment_gap"),
+         zero1_saved_param_gap=ranks[0].get("zero1_saved_param_gap"),
+         zero1_moment_bytes=[r.get("zero1_moment_bytes") for r in ranks], zero_tol=ZERO_TOL,
+         ms_note="CUDA events around a step, 1 warm-up, median of 3; a rank: B = 150 on its "
+                 "half of the model, with its NCCL sums; one process: B = 150, the whole model",
+         seconds=seconds, ok=ok)
+    if not ok:
+        raise AssertionError(f"nccl_tp failed {failed}: " + "; ".join(
+            f"{n} grads {r['grad_ratio']} params {r['param_gap']} losses "
+            f"{r['rel_err_losses']} BN {r['bn_gap']}" for n, r in results.items()))
+
+
+def phase_nccl_tp_step(stats: dict) -> None:
+    """nccl_tp's split step of v1 alone (no command line, no ZeRO-1)."""
+    phase_nccl_tp(stats, families=("pvlt_tiny",), run_cli=False, zero1=False)
+
+
+def phase_nccl_tp_zero1(stats: dict) -> None:
+    """nccl_tp's ZeRO-1 checkpoint alone."""
+    phase_nccl_tp(stats, families=(), run_cli=False, zero1=True)
+
+
+def main_cards(cards: int) -> int:
+    """``--cards 4``: the build, then data and tensor parallelism over NCCL
+    across the cards (nccl_ddp, nccl_tp), each rank on its own card."""
+    if cards != NCCL_CARDS:
+        raise ValueError(f"--cards {cards}: the multi-card mode takes {NCCL_CARDS} cards")
+    if torch.cuda.device_count() < cards:
+        raise RuntimeError(f"--cards {cards}: torch sees {torch.cuda.device_count()} CUDA "
+                           f"devices")
+    smi = phase_device()
+    emit("cards", nvidia_smi=subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines())
+    phase_build()
+    stats = new_stats()
+    timed("nccl_ddp", phase_nccl_ddp, stats)
+    timed("nccl_tp", phase_nccl_tp, stats)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": cards}}), flush=True)
+    return 0
+
+
 DDP_ROLES = {"world1": ddp_world1_rank, "two_ranks": ddp_two_ranks_rank,
-             "tp_two_ranks": tp_two_ranks_rank}
+             "tp_two_ranks": tp_two_ranks_rank, "tp_families": tp_families_rank,
+             "nccl_ddp": nccl_ddp_rank, "nccl_tp": nccl_tp_rank}
 
 
 
@@ -4060,6 +4820,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on a GPU only",
               file=sys.stderr)
         return 2
+    if len(sys.argv) > 2 and sys.argv[1] == "--cards":
+        return main_cards(int(sys.argv[2]))
     smi = phase_device()
     phase_build()
     stats = new_stats()
@@ -4106,6 +4868,7 @@ def main() -> int:
     timed("ddp_two_ranks", phase_ddp_two_ranks, stats)
     timed("tp_kernels", phase_tp_kernels, stats)
     timed("tp_two_ranks", phase_tp_two_ranks, stats)
+    timed("tp_families", phase_tp_families, stats)
     print(json.dumps({"kernels": [
         {**k, **{key: v for key, v in stats[k["name"]].items() if key != "bound_shares"}}
         for k in KERNELS]}), flush=True)

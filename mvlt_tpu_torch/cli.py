@@ -30,20 +30,21 @@ it is).
 
 Tensor parallelism: ``--tp-size N`` under torchrun splits the world into
 model groups of N consecutive ranks and data groups
-(parallel/mesh.py:init_model_parallel, the model axis innermost); the v1
-model of the training branch is split over its model group
-(parallel/tensor.py:shard_model; rank 0 prints the layout), DDP and the
-cross-rank sums act over the data group, each data rank draws its share of
-the samples and its masks from seed + data rank, and the LR takes the
-global batch of ``--batch-size`` per data rank. The VL eval (in training
+(parallel/mesh.py:init_model_parallel, the model axis innermost); the
+model of the training branch (v1, v2, linear-SR v2 or Swin) is split over
+its model group (parallel/tensor.py:shard_model; rank 0 prints the
+layout), DDP, ``--zero1`` and the cross-rank sums act over the data group,
+each data rank draws its share of the samples and its masks from seed +
+data rank (the ranks of a model group the same), ``--remat`` recomputes a
+split block's collectives in the backward, and the LR takes the global
+batch of ``--batch-size`` per data rank. The VL eval (in training
 and ``--eval``) runs on the split model, each model group scoring its data
 rank's rows; the checkpoints hold the whole model and resume at any tp. The
 other eval modes and ``--viz`` build the whole model on every rank and
 shard the rows over the world, as without tensor parallelism. Refused with
 NotImplementedError: ``--steps-per-dispatch`` above 1, and with
-``--tp-size`` above 1 the v2, linear v2 and Swin backbones,
-``fused_attn_train``, ``drop_rate`` / ``attn_drop_rate`` above 0,
-``--remat`` and ``--zero1``.
+``--tp-size`` above 1 ``fused_attn_train`` and ``mlm_loss_chunk <= 0``
+(parallel/tensor.py:refusals).
 
 Usage:
   python -m mvlt_tpu_torch.cli --config configs/pretrain_exp21.py --data-path <root>
@@ -184,8 +185,8 @@ def _refuse_unported(args, cfg: RunConfig) -> None:
 
     refused = ["--steps-per-dispatch above 1"] if args.steps_per_dispatch > 1 else []
     if cfg.tp_size > 1:
-        refused += [f"--tp-size {cfg.tp_size} with {name}" for name in refusals(
-            resolve_model_config(cfg.model), remat=args.remat, zero1=args.zero1)]
+        refused += [f"--tp-size {cfg.tp_size} with {name}"
+                    for name in refusals(resolve_model_config(cfg.model))]
     if cfg.tp_size < 1:
         raise ValueError(f"--tp-size {cfg.tp_size}: must be at least 1")
     if refused:
@@ -318,8 +319,13 @@ def main(argv=None) -> "dict | None":
            if mesh.initialized() and (tp == 1 or mesh.data_size() > 1) else None)
     data_rank, dp = mesh.data_rank(), mesh.data_size()
 
+    # the synthetic set holds at least one global batch (64 items, as the
+    # JAX package's, give one process a batch of 150 under RA x3 but four
+    # data ranks none)
+    repeats = max(1, cfg.data.repeated_aug)
     train_ds = build_dataset("train", cfg.data, itm_enabled=cfg.model.loss_type.itm,
-                             seed=cfg.seed)
+                             seed=cfg.seed,
+                             synthetic_size=max(64, -(-cfg.optim.batch_size * dp // repeats)))
     # the reference's --repeated-aug switch (main_vl.py:221-242): RA x3 by
     # default, a plain shuffle otherwise; each data rank its share
     if cfg.data.repeated_aug > 1:
@@ -332,7 +338,7 @@ def main(argv=None) -> "dict | None":
     if args.grad_accum > 1 and batch % args.grad_accum:
         raise ValueError(f"--grad-accum {args.grad_accum} must divide the batch {batch}")
     if args.zero1 and ddp is None and is_main:
-        print("--zero1 in one process: nothing to partition, AdamW as it is", flush=True)
+        print("--zero1 with one data rank: nothing to partition, AdamW as it is", flush=True)
 
     # the schedule scales with the global batch, the masks draw seed + data
     # rank (mvlt_tpu/cli.py:172, :245)

@@ -256,12 +256,13 @@ class SyntheticFashionGen:
         }
 
 
-def build_dataset(split: str, cfg: DataConfig, itm_enabled: bool = True, seed: int = 0):
+def build_dataset(split: str, cfg: DataConfig, itm_enabled: bool = True, seed: int = 0,
+                  synthetic_size: int = 64):
     """Dataset factory (mvlt_tpu/data/fashion_gen.py:build_dataset): the
-    synthetic set for ``cfg.synthetic`` or an empty ``data_path``, else the
-    ``split`` of the tree at ``data_path``."""
+    synthetic set of ``synthetic_size`` items for ``cfg.synthetic`` or an
+    empty ``data_path``, else the ``split`` of the tree at ``data_path``."""
     if cfg.synthetic or not cfg.data_path:
-        return SyntheticFashionGen(cfg, itm_enabled=itm_enabled, seed=seed)
+        return SyntheticFashionGen(cfg, size=synthetic_size, itm_enabled=itm_enabled, seed=seed)
     return FashionGenPretrain(cfg.data_path, split, cfg, itm_enabled=itm_enabled, seed=seed)
 
 

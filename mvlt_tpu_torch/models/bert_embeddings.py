@@ -17,11 +17,22 @@ from torch import nn
 from mvlt_tpu_torch.parallel.tensor import vocab_parallel_embedding
 
 
-def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None,
+            split: tuple | None = None) -> torch.Tensor:
     """Inverted dropout with the mask from ``generator``: kept elements are
-    scaled by 1 / (1 - rate), as flax's Dropout does."""
+    scaled by 1 / (1 - rate), as flax's Dropout does. ``split`` = (dim,
+    rank, tp): ``x`` is slice ``rank`` of ``tp`` equal slices along ``dim``
+    of the tensor one process drops (tensor parallelism); the whole mask is
+    drawn, as one process draws it, and this slice of it kept, since a
+    generator's draws depend on the element count."""
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    shape = list(x.shape)
+    if split is not None:
+        dim, rank, tp = split
+        shape[dim] *= tp
+    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    if split is not None:
+        mask = mask.narrow(dim, rank * x.shape[dim], x.shape[dim])
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 

@@ -47,13 +47,16 @@ Hopper kernels and nothing else in their place on a CUDA tensor:
     of ops/block_attention.py:fused_block_attention_train
     (``fused_attn_stats``: its saved-statistics backward). With ``remat``
     each block runs under torch.utils.checkpoint (``checkpoint_block``).
-Under tensor parallelism (parallel/tensor.py:shard_model, v1 only) a block
-whose attention or MLP is split over a model group takes the training
-route in eval mode too, under no_grad: #10/#11 on the rank's heads and the
-LN-MLP kernels in their tensor-parallel modes. The serving kernels A-F
-fuse the out-projection, the residual, LN2 and the MLP across what is
-there a sum over ranks, so a shard never runs them; they stay for the
-unsharded model.
+Under tensor parallelism (parallel/tensor.py:shard_model) every block of a
+split model takes the training route in eval mode too, under no_grad:
+#10/#11 on the rank's heads (v1, v2), Swin's window attention glue on the
+rank's heads and bias-table columns, the LN-MLP kernels in their
+tensor-parallel modes (v1, Swin), v2's DWConv MLP glue on the rank's hidden
+channels, and with dropout the glue on the same splits, each split
+tensor's mask the rank's slice of the one-process mask. The serving
+kernels A-F fuse the out-projection, the residual, LN2 and the MLP across
+what is there a sum over ranks, so a shard never runs them; they stay for
+the unsharded model.
 The training forward returns the MLM head's transformed hidden rows, the
 tied table and the bias (``mlm_hidden``, ``mlm_table``, ``mlm_bias``, and
 ``mlm_vocab_group``: the model group of a split vocabulary, else None) in
@@ -90,8 +93,8 @@ from mvlt_tpu_torch.ops.sr_kv import (fused_ln_sr_kv, linear_reduce_kv_input, re
 from mvlt_tpu_torch.ops.swin_attention import fused_swin_attention
 from mvlt_tpu_torch.ops.swin_band import fused_swin_block
 from mvlt_tpu_torch.ops.upsample import resize_bilinear
-from mvlt_tpu_torch.parallel.tensor import (copy_to_model, fused_ln_mlp_tp, linear_partial,
-                                            reduce_from_model)
+from mvlt_tpu_torch.parallel.tensor import (copy_to_model, fused_ln_mlp_tp,
+                                            row_parallel_linear, split_dim)
 
 
 def _ln(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
@@ -262,15 +265,17 @@ def _add_scaled(x: torch.Tensor, out: torch.Tensor, scale: Optional[torch.Tensor
 
 
 def attention_dropout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
-                      rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+                      rate: float, generator: Optional[torch.Generator],
+                      split: Optional[tuple] = None) -> torch.Tensor:
     """softmax(q k^T * scale) v with dropout on the probabilities, the masks
     from ``generator``: fp32 logits and softmax, the dropped probabilities
     rounded to v.dtype, an fp32 P.V sum, q.dtype out. Counterpart of
     mvlt_tpu/models/pvlt.py:227-239, which materialises the probabilities in
-    XLA and never in a kernel; so does this."""
+    XLA and never in a kernel; so does this. ``split``: the rank's heads of
+    a split attention (``dropout``'s)."""
     acc = acc_dtype(q.dtype)
     probs = torch.softmax(torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2)) * scale, dim=-1)
-    probs = dropout(probs, rate, generator).to(v.dtype)
+    probs = dropout(probs, rate, generator, split).to(v.dtype)
     return torch.matmul(probs.to(acc), v.to(acc)).to(q.dtype)
 
 
@@ -278,11 +283,15 @@ class BlockGlue(CastOperands):
     """What the two block classes share on the training path: the DropPath
     draw, dropout, and the LN-MLP half. ``drop_path`` and ``drop`` are the
     block's rates; every mask comes from the step's ``generator`` and only
-    in training mode."""
+    in training mode. Under tensor parallelism (``tp_group`` set by
+    parallel/tensor.py:shard_model) the attention holds the rank's whole
+    heads where ``attn_split`` and the MLP its slice of the hidden where
+    ``mlp_split``."""
 
     drop_path = 0.0
     drop = 0.0
     tp_group = None      # the model group under tensor parallelism
+    attn_split = False   # the attention's heads split over it
     mlp_split = False    # the MLP hidden split over it
 
     def drop_path_scale(self, x: torch.Tensor,
@@ -295,9 +304,18 @@ class BlockGlue(CastOperands):
         mask = torch.rand(x.shape[0], generator=generator, device=x.device) < keep
         return mask.float() / keep
 
-    def dropout(self, t: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
-        """Dropout at the block's ``drop`` in training mode; else ``t``."""
-        return dropout(t, self.drop, generator) if self.training and self.drop else t
+    def dropout(self, t: torch.Tensor, generator: Optional[torch.Generator],
+                split: Optional[tuple] = None) -> torch.Tensor:
+        """Dropout at the block's ``drop`` in training mode; else ``t``.
+        ``split``: t is a rank's slice (``dropout``'s)."""
+        return dropout(t, self.drop, generator, split) if self.training and self.drop else t
+
+    def mlp_hidden_in(self, x: torch.Tensor) -> tuple:
+        """(LN2 x, the model group the hidden is split over or None): with
+        ``mlp_split`` LN2's output enters fc1 through ``copy_to_model``."""
+        normed = _ln(x, self.norm2)
+        group = self.tp_group if self.mlp_split else None
+        return (normed if group is None else copy_to_model(normed, group)), group
 
     def mlp_half(self, x: torch.Tensor, generator: Optional[torch.Generator],
                  ln_mlp=fused_ln_mlp) -> torch.Tensor:
@@ -306,11 +324,15 @@ class BlockGlue(CastOperands):
         scale; with ``drop`` > 0 PyTorch glue with dropout after GELU and
         after fc2, since the JAX package's kernel takes no dropout
         (mvlt_tpu/models/pvlt.py:925-930, :287-296). With ``mlp_split``
-        parallel/tensor.py:fused_ln_mlp_tp over the rank's hidden slice."""
+        parallel/tensor.py:fused_ln_mlp_tp over the rank's hidden slice, or
+        with ``drop`` the glue on it: the hidden's mask the rank's slice,
+        fc2's partials summed before its bias, the output's mask whole."""
         m = self.mlp
         if self.drop:
-            hidden = gelu(linear(_ln(x, self.norm2), m.fc1.weight, m.fc1.bias))
-            out = linear(self.dropout(hidden, generator), m.fc2.weight, m.fc2.bias)
+            normed, group = self.mlp_hidden_in(x)
+            hidden = gelu(linear(normed, m.fc1.weight, m.fc1.bias))
+            hidden = self.dropout(hidden, generator, split_dim(group, -1))
+            out = row_parallel_linear(hidden, m.fc2.weight, m.fc2.bias, group)
             return _add_scaled(x, self.dropout(out, generator), self.drop_path_scale(x, generator))
         if self.mlp_split:
             return fused_ln_mlp_tp(x, self.norm2.weight, self.norm2.bias, m.fc1.weight,
@@ -327,12 +349,7 @@ class Block(BlockGlue, nn.Module):
     are per-sample DropPath scales (mask / keep) in training mode and 1 in
     eval; ``mlp`` is the DWConv MLP for ``v2``. Serving path or training path
     as the module docstring says; ``drop`` and ``attn_drop`` are the dropout
-    rates of the projections and MLP and of the attention probabilities.
-    Under tensor parallelism (``tp_group`` set by parallel/tensor.py:
-    shard_model) the attention holds the rank's whole heads where
-    ``attn_split`` and the MLP its slice of the hidden where ``mlp_split``."""
-
-    attn_split = False
+    rates of the projections and MLP and of the attention probabilities."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float, sr_ratio: int,
                  qkv_bias: bool, ln_eps: float = 1e-6, sr_ln_eps: float = 1e-5,
@@ -428,9 +445,11 @@ class Block(BlockGlue, nn.Module):
         ``attention_dropout``), the projection and the DropPath add run apart.
         The MLP half is ``mlp_half`` (v1) or ``dwconv_mlp_half`` (v2).
         With ``attn_split`` the q and kv products take their inputs through
-        ``copy_to_model`` and give the rank's heads, and the out-projection's
-        partial is summed by ``reduce_from_model`` before its bias and the
-        residual are added, once."""
+        ``copy_to_model`` and give the rank's heads, the attention
+        probabilities' dropout keeps the rank's heads' slice of the whole
+        mask, and the out-projection's partial is summed by
+        ``reduce_from_model`` before its bias and the residual are added,
+        once (``row_parallel_linear``)."""
         a = self.attn
         b, n, d = x.shape
         hd = d // self.num_heads
@@ -452,16 +471,13 @@ class Block(BlockGlue, nn.Module):
         else:
             q = linear(normed, a.q.weight, a.q.bias).reshape(b, n, heads, hd).transpose(1, 2)
             if self.attn_drop and self.training:
-                o = attention_dropout(q, k, v, hd ** -0.5, self.attn_drop, generator)
+                o = attention_dropout(q, k, v, hd ** -0.5, self.attn_drop, generator,
+                                      split_dim(group, 1))
             else:
                 o = attention(q, k, v, hd ** -0.5)
             o = o.transpose(1, 2).reshape(b, n, heads * hd)
-            if group is None:
-                attn_out = linear(o, a.proj.weight, a.proj.bias)
-            else:
-                total = reduce_from_model(linear_partial(o, a.proj.weight), group)
-                attn_out = (total + a.proj.bias.to(total.dtype)).to(x.dtype)
-            attn_out = self.dropout(attn_out, generator)
+            attn_out = self.dropout(row_parallel_linear(o, a.proj.weight, a.proj.bias, group),
+                                    generator)
             x = _add_scaled(x, attn_out, self.drop_path_scale(x, generator))
         if self.v2:
             return self.dwconv_mlp_half(x, hw, generator)
@@ -473,18 +489,22 @@ class Block(BlockGlue, nn.Module):
         fc1, the 3x3 depthwise conv on the visual rows (the text rows passed
         through), exact GELU on every row, dropout, fc2, dropout. Counterpart
         of mvlt_tpu/models/pvlt.py:DWConvMlp (:250-276); kernel D serves
-        only, as the JAX package's does."""
+        only, as the JAX package's does. With ``mlp_split`` on the rank's
+        hidden channels: fc1's rows, the conv's channels, the hidden's
+        dropout mask sliced, fc2's partials summed before its bias."""
         m = self.mlp
         b, _, _ = x.shape
         h, w = hw
-        hidden = linear(_ln(x, self.norm2), m.fc1.weight, m.fc1.bias)
+        normed, group = self.mlp_hidden_in(x)
+        hidden = linear(normed, m.fc1.weight, m.fc1.bias)
         c = hidden.shape[-1]
         dw = m.dwconv.dwconv
         vis = F.conv2d(hidden[:, : h * w].reshape(b, h, w, c).permute(0, 3, 1, 2),
                        dw.weight.to(x.dtype), dw.bias.to(x.dtype), padding=1, groups=c)
         hidden = torch.cat([vis.flatten(2).transpose(1, 2), hidden[:, h * w:]], dim=1)
-        hidden = self.dropout(gelu(hidden), generator)
-        out = self.dropout(linear(hidden, m.fc2.weight, m.fc2.bias), generator)
+        hidden = self.dropout(gelu(hidden), generator, split_dim(group, -1))
+        out = self.dropout(row_parallel_linear(hidden, m.fc2.weight, m.fc2.bias, group),
+                           generator)
         return _add_scaled(x, out, self.drop_path_scale(x, generator))
 
 
@@ -499,8 +519,9 @@ class SwinBlock(BlockGlue, nn.Module):
     rows, then the MLP), as the JAX package's
     mvlt_tpu/models/pvlt.py:Block._swin_fused_block does. Elsewhere it takes
     the joint stream [B, h*w + T, C]: SwinJointAttention (kernel F), then the
-    LN-MLP of ops/fused_mlp.py. Training mode, or a gradient wanted: the
-    joint stream through ``train_forward``."""
+    LN-MLP of ops/fused_mlp.py. Training mode, a gradient wanted, or a block
+    split by tensor parallelism: the joint stream through
+    ``train_forward``."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float, qkv_bias: bool,
                  window_size: int, shift: bool, table_ws: int, ln_eps: float = 1e-6,
@@ -531,7 +552,7 @@ class SwinBlock(BlockGlue, nn.Module):
 
     def forward(self, x, hw: tuple, generator: Optional[torch.Generator] = None):
         joint = torch.is_tensor(x)
-        if self.training or self.wants_grad(*((x,) if joint else x)):
+        if self.training or self.wants_grad(*((x,) if joint else x)) or self.tp_group is not None:
             if not joint:
                 raise ValueError("the split stream (kernel E) serves only: PVLT passes "
                                  "the joint stream in training mode or with a gradient wanted")
@@ -544,9 +565,12 @@ class SwinBlock(BlockGlue, nn.Module):
         """The differentiable block on the joint stream: SwinJointAttention
         on its einsum route (``window_attention``), projection dropout and
         DropPath, then ``mlp_half`` (``ln_mlp``, the LN-MLP kernels' wrapper
-        with DropPath as its row scale; a check passes its plain version)."""
+        with DropPath as its row scale; a check passes its plain version).
+        With ``attn_split`` the attention runs on the rank's heads and sums
+        its out-projection's partials over the model group."""
         t = x.shape[1] - hw[0] * hw[1]
-        attn_out = self.attn(_ln(x, self.norm1), hw, t, generator=generator)
+        attn_out = self.attn(_ln(x, self.norm1), hw, t, generator=generator,
+                             group=self.tp_group if self.attn_split else None)
         x = _add_scaled(x, attn_out, self.drop_path_scale(x, generator))
         return self.mlp_half(x, generator, ln_mlp)
 
@@ -725,8 +749,10 @@ class PVLT(nn.Module):
         dtype = self.compute_dtype
         # eval mode with no gradient wanted: the serving kernels (the JAX
         # package's `deterministic`, and no VJP through a serving kernel)
-        serving = not self.training and not (torch.is_grad_enabled() and (
-            images.requires_grad or any(p.requires_grad for p in self.parameters())))
+        # (a model split by tensor parallelism takes the training route)
+        serving = self.tp_group is None and not self.training and not (
+            torch.is_grad_enabled() and (
+                images.requires_grad or any(p.requires_grad for p in self.parameters())))
         if images.shape[-1] != cfg.in_chans and images.shape[1] == cfg.in_chans:
             images = images.permute(0, 2, 3, 1)        # NCHW accepted
         b = images.shape[0]

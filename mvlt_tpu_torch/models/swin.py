@@ -29,6 +29,7 @@ from torch import nn
 from mvlt_tpu_torch.models.bert_embeddings import dropout
 from mvlt_tpu_torch.ops.kernel_math import acc_dtype, linear, softmax_av
 from mvlt_tpu_torch.ops.swin_attention import fused_swin_attention
+from mvlt_tpu_torch.parallel.tensor import copy_to_model, row_parallel_linear
 
 NEG_INF = -1e9
 
@@ -219,27 +220,36 @@ class SwinJointAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, hw: tuple, t_num: int, *,
                 attention=fused_swin_attention,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None, group=None) -> torch.Tensor:
         """x: the LayerNorm'd joint stream [B, h*w + T, C] -> the attention
         output before the residual. In eval mode with no gradient wanted the
         windows go through ``attention``, kernel F's wrapper (a check passes
         its plain version); in training mode, or with a gradient wanted,
         through ``window_attention`` (mvlt_tpu/models/swin.py:141-144's
-        ``use_kernel``). ``generator`` draws the projection's dropout."""
+        ``use_kernel``). ``generator`` draws the projection's dropout. With
+        a model ``group`` (tensor parallelism) the parameters hold this
+        rank's heads (q's and kv's rows, the bias table's columns, proj's
+        columns): x enters q and kv through ``copy_to_model``, the windows,
+        masks, pooled text K/V and text queries run on the rank's heads, the
+        out-projection's partials are summed before its bias, and the
+        windows take ``window_attention`` in every mode."""
         b, n, c = x.shape
         h, w = hw
-        nh = self.num_heads
-        hd = c // nh
+        hd = c // self.num_heads
+        nh = self.q.weight.shape[0] // hd      # the rank's heads under tensor parallelism
         ws, s = self.window(hw)
+        if group is not None:
+            x = copy_to_model(x, group)
         q = linear(x, self.q.weight, self.q.bias)
         kv = linear(x, self.kv.weight, self.kv.bias)
-        k_all, v_all = kv[..., :c], kv[..., c:]
+        cl = q.shape[-1]
+        k_all, v_all = kv[..., :cl], kv[..., cl:]
 
         def windows(t):    # visual rows -> [B, nW, heads, ws^2, hd]
             return heads_of(window_partition(t[:, : h * w], hw, ws, s), nh).contiguous()
 
         k_txt, v_txt = (heads_of(t[:, h * w:], nh).contiguous() for t in (k_all, v_all))
-        use_kernel = not self.training and not (torch.is_grad_enabled() and (
+        use_kernel = group is None and not self.training and not (torch.is_grad_enabled() and (
             x.requires_grad or any(p.requires_grad for p in self.parameters())))
         if use_kernel:
             out_win = attention(windows(q), windows(k_all), windows(v_all), k_txt, v_txt,
@@ -255,13 +265,14 @@ class SwinJointAttention(nn.Module):
         win = max(1, h // TEXT_POOL)
 
         def pooled(t):
-            grid = t[:, : h * w].reshape(b, h, w, c).permute(0, 3, 1, 2)
+            grid = t[:, : h * w].reshape(b, h, w, cl).permute(0, 3, 1, 2)
             return F.avg_pool2d(grid, win, win).flatten(2).transpose(1, 2)
 
         k_t = torch.cat([heads_of(pooled(k_all), nh), k_txt], dim=-2)
         v_t = torch.cat([heads_of(pooled(v_all), nh), v_txt], dim=-2)
         out_txt = merge_heads(softmax_av(heads_of(q[:, h * w:], nh), k_t, v_t, scale=hd ** -0.5))
-        out = linear(torch.cat([out_vis, out_txt], dim=1), self.proj.weight, self.proj.bias)
+        out = row_parallel_linear(torch.cat([out_vis, out_txt], dim=1), self.proj.weight,
+                                  self.proj.bias, group)
         if self.training and self.proj_drop:
             out = dropout(out, self.proj_drop, generator)
         return out

@@ -32,6 +32,7 @@ ENV_KEYS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
 
 _device: Optional[torch.device] = None   # the device this rank's collectives use
 _layout: Optional[dict] = None           # tp > 1: {"tp", "data_group", "model_group"}
+_layouts: dict = {}                      # tp -> its layout, made once a process group
 
 
 def maybe_init_distributed(device: Optional[str] = None, backend: Optional[str] = None,
@@ -96,13 +97,18 @@ def init_model_parallel(tp: int) -> None:
     """Split the world into model groups of ``tp`` consecutive ranks and data
     groups of the ranks ``tp`` apart. Every rank calls it, in the same order
     as its other group creations; tp = 1 undoes it (the world is one data
-    group). Raises when tp does not divide the world."""
+    group). A tp set up before in this process group takes its groups
+    again (every rank calls with the same sequence of tp, so none creates
+    a group the others skip). Raises when tp does not divide the world."""
     global _layout
     world = world_size()
     if tp < 1 or world % tp:
         raise ValueError(f"--tp-size {tp} does not divide the {world} ranks")
     _layout = None
     if tp == 1:
+        return
+    if tp in _layouts:
+        _layout = _layouts[tp]
         return
     dp, me = world // tp, rank()
     layout = {"tp": tp}
@@ -114,7 +120,7 @@ def init_model_parallel(tp: int) -> None:
         g = dist.new_group([d * tp + m for d in range(dp)])
         if m == me % tp:
             layout["data_group"] = g
-    _layout = layout
+    _layout = _layouts[tp] = layout
 
 
 def model_size() -> int:
@@ -160,3 +166,4 @@ def destroy() -> None:
         dist.destroy_process_group()
     _device = None
     _layout = None
+    _layouts.clear()

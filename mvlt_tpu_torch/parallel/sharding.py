@@ -8,7 +8,8 @@ train/schedule.py:make_optimizer's). An eval set
 is cut into contiguous, equal shards, the last one padded; a rank's results
 go into its slots of zero-filled buffers that ``all_reduce`` sums, and the
 padded slots are masked out. The collectives used are ``all_reduce`` and
-``broadcast`` only: gloo offers nothing else on CUDA tensors. Under tensor
+``broadcast`` only: gloo offers nothing else on CUDA tensors; each takes a
+contiguous tensor (NCCL refuses others). Under tensor
 parallelism (parallel/tensor.py) all of this acts over the data group: the
 ranks of a model group hold the same rows.
 """
@@ -37,13 +38,13 @@ class _AllReduceSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         ctx.group = group
-        y = x.clone()
+        y = x.clone(memory_format=torch.contiguous_format)
         dist.all_reduce(y, group=group)
         return y
 
     @staticmethod
     def backward(ctx, dy):
-        dx = dy.clone()
+        dx = dy.clone(memory_format=torch.contiguous_format)
         dist.all_reduce(dx, group=ctx.group)
         return dx, None
 
@@ -55,7 +56,7 @@ def all_reduce_sum(x: torch.Tensor, group=None, differentiable: bool = False) ->
         return x
     if differentiable:
         return _AllReduceSum.apply(x, group)
-    y = x.detach().clone()
+    y = x.detach().clone(memory_format=torch.contiguous_format)
     dist.all_reduce(y, group=group)
     return y
 

@@ -1,5 +1,6 @@
-"""Tensor parallelism of the v1 backbone: Megatron column/row shards over a
-model group, a vocabulary-parallel word embedding and MLM cross entropy.
+"""Tensor parallelism of the v1, v2, linear-SR v2 and Swin backbones:
+Megatron column/row shards over a model group, a vocabulary-parallel word
+embedding and MLM cross entropy.
 
 Counterpart of mvlt_tpu/parallel/sharding.py's model axis (``_RULES`` :39,
 ``_spec_for`` :63). There GSPMD places the shards and inserts the
@@ -9,11 +10,16 @@ written out. The port reproduces the function, not GSPMD's layout:
   * ``RULES`` shards a block's attention by whole heads, and only where
     ``num_heads % tp == 0`` (JAX's divisibility guard looks at the output
     width, which at pvlt_tiny's 1 and 5 heads cuts through a head; the
-    port keeps such an attention replicated); the MLP hidden where
-    ``hidden % tp == 0``; the word embedding's rows and ``mlm_head.bias``
-    where ``vocab % tp == 0``. Everything else is replicated. The K/V
-    weight [2D, D] holds K's rows then V's: a rank's shard is the K rows of
-    its heads then the V rows of its heads, not a contiguous slice.
+    port keeps such an attention replicated), Swin's relative-position
+    table [(2 ws - 1)^2, heads] by its head columns alongside; the MLP
+    hidden where ``hidden % tp == 0``, v2's 3x3 depthwise conv by its
+    channels alongside (the conv is per channel: a rank's channels are its
+    slice of fc1's output); the word embedding's rows and
+    ``mlm_head.bias`` where ``vocab % tp == 0``. Everything else is
+    replicated (linear SR's pool, 1x1 conv and SR-LN, Swin's window index,
+    masks and text pooling). The K/V weight [2D, D] holds K's rows then
+    V's: a rank's shard is the K rows of its heads then the V rows of its
+    heads, not a contiguous slice.
   * ``copy_to_model`` (identity forward, all-reduce backward) stands at the
     input of every column-parallel product (q's and kv's), so that every
     replicated tensor upstream gets its whole gradient on every rank;
@@ -27,7 +33,14 @@ written out. The port reproduces the function, not GSPMD's layout:
     LN2, which LN's backward, linear in its output gradient, allows. The
     other order (sum dLN2-out, then a replicated LN backward) would take
     LN's backward out of kernel #13 into another pass over the [rows, D]
-    stream; this one keeps #13 whole and sums the same bytes.
+    stream; this one keeps #13 whole and sums the same bytes. With
+    dropout the MLP half is PyTorch glue over the same split
+    (``row_parallel_linear`` after fc2), as it is without tensor
+    parallelism; a dropout mask of a split tensor (the hidden, the
+    attention probabilities of the rank's heads) is the rank's slice of the
+    whole mask one process draws (models/bert_embeddings.py:dropout), so
+    the ranks of a model group, which share one generator stream, keep the
+    one-process masks.
   * The MLM decode is vocabulary-parallel (``vocab_parallel_nll``): each
     rank's kernel #14 gives its range's (lse, picked logit), the group
     combines them in fp32 (the logsumexp of the lses, the sum of the
@@ -50,37 +63,36 @@ import torch
 import torch.distributed as dist
 
 from mvlt_tpu_torch.ops.fused_mlp import ln_mlp_bwd_tp, ln_mlp_fwd_tp
-from mvlt_tpu_torch.ops.kernel_math import acc_dtype, matmul_acc
+from mvlt_tpu_torch.ops.kernel_math import acc_dtype, linear, matmul_acc
 from mvlt_tpu_torch.ops.mlm_ce import mlm_ce_bwd_tp, mlm_ce_fwd_tp
+from mvlt_tpu_torch.parallel import mesh
 from mvlt_tpu_torch.parallel.sharding import group_size
 
 ROW, COL, KV = "row", "col", "kv"
 # (state-dict name, the width whose divisibility decides, how the tensor
 # splits): the first rule that matches a name decides; no match, replicated.
 # ROW splits dim 0 (a column-parallel product's output rows, the
-# vocabulary), COL dim 1 (a row-parallel product's input columns), KV the
-# K and V halves of dim 0 alike.
+# vocabulary, the depthwise conv's channels), COL dim 1 (a row-parallel
+# product's input columns, the bias table's heads), KV the K and V halves
+# of dim 0 alike.
 RULES = (
     (re.compile(r"^block(\d+)\.\d+\.attn\.q\.(weight|bias)$"), "heads", ROW),
     (re.compile(r"^block(\d+)\.\d+\.attn\.kv\.(weight|bias)$"), "heads", KV),
     (re.compile(r"^block(\d+)\.\d+\.attn\.proj\.weight$"), "heads", COL),
+    (re.compile(r"^block(\d+)\.\d+\.attn\.relative_position_bias_table$"), "heads", COL),
     (re.compile(r"^block(\d+)\.\d+\.mlp\.fc1\.(weight|bias)$"), "hidden", ROW),
+    (re.compile(r"^block(\d+)\.\d+\.mlp\.dwconv\.dwconv\.(weight|bias)$"), "hidden", ROW),
     (re.compile(r"^block(\d+)\.\d+\.mlp\.fc2\.weight$"), "hidden", COL),
     (re.compile(r"^text_embeddings\.word_embeddings\.weight$"), "vocab", ROW),
     (re.compile(r"^mlm_head\.bias$"), "vocab", ROW),
 )
 
 
-def refusals(cfg, *, remat: bool = False, zero1: bool = False) -> List[str]:
+def refusals(cfg) -> List[str]:
     """What tensor parallelism does not cover yet, for a resolved model
-    config (and the CLI's ``--remat`` / ``--zero1``): each a name."""
+    config: each a name."""
     out = {
-        "v2 and linear-SR v2 backbones": cfg.variant == "v2",
-        "the Swin backbone": cfg.variant == "swin",
         "fused_attn_train": bool(cfg.fused_attn_train),
-        "drop_rate / attn_drop_rate > 0": bool(cfg.drop_rate or cfg.attn_drop_rate),
-        "--remat": bool(remat or cfg.remat),
-        "--zero1": zero1,
         "mlm_loss_chunk <= 0 (the MLM loss through the logits)":
             bool(cfg.loss_type.mlm and cfg.mlm_loss_chunk <= 0),
     }
@@ -115,13 +127,15 @@ def layout(names, cfg, tp: int) -> Dict[str, Optional[str]]:
 
 
 def shard_tensor(t: torch.Tensor, kind: Optional[str], rank: int, tp: int) -> torch.Tensor:
-    """Rank ``rank``'s shard of the whole tensor ``t`` (a contiguous copy)."""
+    """Rank ``rank``'s shard of the whole tensor ``t`` (a copy with the
+    strides of a new tensor: a view's, even where they do not matter, would
+    differ from its gradient's under DDP)."""
     if kind is None:
         return t
     if kind == KV:
         k, v = t.chunk(2, 0)
-        return torch.cat([k.chunk(tp, 0)[rank], v.chunk(tp, 0)[rank]]).contiguous()
-    return t.chunk(tp, 0 if kind == ROW else 1)[rank].contiguous()
+        return torch.cat([k.chunk(tp, 0)[rank], v.chunk(tp, 0)[rank]])
+    return t.chunk(tp, 0 if kind == ROW else 1)[rank].clone(memory_format=torch.contiguous_format)
 
 
 def _placed(local: torch.Tensor, kind: str, rank: int, tp: int) -> torch.Tensor:
@@ -163,21 +177,26 @@ def placed_state(local: Mapping[str, torch.Tensor], rank: int, tp: int,
 def consolidate(local: Mapping[str, torch.Tensor], group, cfg) -> Dict[str, torch.Tensor]:
     """The whole state dict from this rank's under the model ``group``, on
     every rank of it (each split tensor one all_reduce of its placed copy:
-    exact, every other slot holds zeros)."""
+    exact, every other slot holds zeros), each tensor on its own device: a
+    host tensor (ZeRO-1's consolidated moments) is summed on the device the
+    collectives take (NCCL's are CUDA tensors)."""
     tp = group_size(group)
     if tp == 1:
         return dict(local)
     out = placed_state(local, dist.get_rank(group), tp, cfg)
+    device = mesh.comm_device()
     for n, t in out.items():
         if split_of(n, cfg, tp) is not None:
-            dist.all_reduce(t, group=group)
+            summed = t.to(device)
+            dist.all_reduce(summed, group=group)
+            out[n] = summed.to(t.device)
     return out
 
 
 def _model_sum(t: torch.Tensor, group) -> torch.Tensor:
     """The sum of ``t`` over the model group, taken in fp32 (fp64 for
     fp64), as a new tensor of that type."""
-    y = t.to(acc_dtype(t.dtype)).clone()
+    y = t.to(acc_dtype(t.dtype), memory_format=torch.contiguous_format, copy=True)
     dist.all_reduce(y, group=group)
     return y
 
@@ -220,6 +239,24 @@ def linear_partial(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     unrounded (the operands in x's type, the sum in fp32): the partial that
     ``reduce_from_model`` sums."""
     return matmul_acc(x, weight.transpose(0, 1), x.dtype)
+
+
+def row_parallel_linear(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                        group) -> torch.Tensor:
+    """x W^T + b of a row-parallel product on this rank's input columns:
+    the ranks' fp32 partials summed over the model ``group``, then b added
+    once and the sum rounded to x's type once. Without a group, ``linear``."""
+    if group is None:
+        return linear(x, weight, bias)
+    total = reduce_from_model(linear_partial(x, weight), group)
+    return (total + bias.to(total.dtype)).to(x.dtype)
+
+
+def split_dim(group, dim: int) -> Optional[tuple]:
+    """(dim, rank, tp) of a tensor split along ``dim`` over the model
+    ``group`` (models/bert_embeddings.py:dropout's ``split``); None without
+    a group."""
+    return None if group is None else (dim, dist.get_rank(group), group_size(group))
 
 
 class _FusedLnMlpTp(torch.autograd.Function):
@@ -354,7 +391,7 @@ class VocabShardLogits:
 
 
 def shard_model(model: torch.nn.Module, group) -> torch.nn.Module:
-    """Shard a whole, initialised v1 PVLT in place over the model ``group``
+    """Shard a whole, initialised PVLT in place over the model ``group``
     under ``RULES``: each split parameter becomes this rank's shard (marked
     ``tp_split``), every block and the model learn the group (the model's
     ``vocab_group`` too where the vocabulary splits). Every rank must start from the same weights (the same seed,

@@ -26,8 +26,11 @@ one layout with and without ZeRO-1, so either resumes the other.
 Under tensor parallelism (``state.model_group``) the file holds the whole
 model: saving consolidates the parameters and the AdamW moments over the
 model group (parallel/tensor.py:consolidate) and rank 0 writes them with
-the reference's names; restoring shards them (shard_state_dict). A run
-saved at one tp resumes at any other, tp = 1 included.
+the reference's names; restoring shards them (shard_state_dict). Under
+ZeRO-1 as well, each data group first consolidates its shard's moments on
+its data rank 0 (the ranks of model group 0), which then consolidate them
+over their model group. A run saved at one tp, with or without ZeRO-1,
+resumes at any other, tp = 1 included.
 
 The fine-tune init (``load_finetune_state``) intersects state-dict keys with
 shape filtering, as ``merge_params_by_path`` intersects parameter paths: a
@@ -192,11 +195,12 @@ class CheckpointManager:
         from torch.distributed.optim import ZeroRedundancyOptimizer
 
         if isinstance(state.optimizer, ZeroRedundancyOptimizer):
+            # onto the data group's first rank: data rank 0, one per model rank
             state.optimizer.consolidate_state_dict(to=0)
         generators = _every_rank_generator_state(state.generator)
-        # a split model's consolidation is a collective of its model group;
-        # ZeRO-1's state dict exists on rank 0 alone
-        whole = whole_state(state) if self.is_main or state.model_group is not None else None
+        # a split model's consolidation is a collective of its model group,
+        # model group 0's (data rank 0, where ZeRO-1's state dicts are)
+        whole = whole_state(state) if mesh.data_rank() == 0 else None
         if self.is_main:
             self._write(tag, state, epoch, score, generators, *whole)
         barrier()

@@ -1,6 +1,7 @@
 """Worker of the port's data- and tensor-parallel tests
 (tests/test_torch_port_ddp.py, tests/test_torch_port_ddp_eval.py,
-tests/test_torch_port_imports.py, tests/test_torch_port_tp.py).
+tests/test_torch_port_imports.py, tests/test_torch_port_tp.py,
+tests/test_torch_port_tp_families.py).
 
 Run as ``python tests/_ddp_worker.py <spec.json> [--guard]`` with the
 torchrun environment (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR,
@@ -37,8 +38,9 @@ from mvlt_tpu_torch.utils.checkpoint import CheckpointManager  # noqa: E402
 from mvlt_tpu_torch.utils.logging import MetricLogger  # noqa: E402
 
 
-def port_config(spec, dtype: str = "") -> config.ModelConfig:
-    micro = {k: tuple(v) if isinstance(v, list) else v for k, v in spec["micro"].items()}
+def port_config(spec, dtype: str = "", **overrides) -> config.ModelConfig:
+    micro = {k: tuple(v) if isinstance(v, list) else v
+             for k, v in {**spec["micro"], **overrides}.items()}
     if dtype:
         micro["compute_dtype"] = dtype
     return config.ModelConfig(**micro, loss_type=config.LossType(**spec["heads"]))
@@ -176,22 +178,26 @@ def case_eval(spec, rank, world) -> dict:
     return {"vl": vl, "retrieval": retrieval, "recognition": recognition}
 
 
-def tp_state(spec, step: int = 0, clip: float = 0.0):
-    """A state of the spec's micro model split over this rank's model group
-    (parallel/mesh.py:init_model_parallel done), under DDP over its data group when there are
-    several, from the spec's whole weights."""
+def tp_state(spec, step: int = 0, clip: float = 0.0, zero1: bool = False, dtype: str = "",
+             **overrides):
+    """A state of the spec's micro model (``overrides`` on its config, the
+    masters in ``dtype``) split over this rank's model group
+    (parallel/mesh.py:init_model_parallel done), under DDP over its data
+    group when there are several, ZeRO-1 over it with ``zero1``, from the
+    spec's whole weights."""
     from mvlt_tpu_torch.parallel.tensor import shard_model
     from mvlt_tpu_torch.parallel.sharding import wrap_model
 
-    cfg = port_config(spec)
+    cfg = port_config(spec, dtype, **overrides)
     model = create_model(cfg, device="cpu", input_size=spec["img"])
     model.load_state_dict(torch.load(spec["weights"], weights_only=True), strict=True)
+    model.to(getattr(torch, cfg.compute_dtype))    # fp64 runs keep fp64 masters
     shard_model(model, mesh.model_group())
     ddp = wrap_model(model, torch.device("cpu"), mesh.data_group()) if mesh.data_size() > 1 \
         else None
     state = create_train_state(model, config.OptimConfig(warmup_epochs=0, clip_grad=clip),
                                spec["global_batch"], 10, seed=mesh.rank_seed(0), ddp=ddp,
-                               model_group=mesh.model_group())
+                               zero1=zero1, model_group=mesh.model_group())
     state.step = step
     return cfg, state
 
@@ -248,8 +254,45 @@ def case_tp_decode(spec, rank, world) -> dict:
     return {"nll": nll, "argmax": argmax, "logits": logits, "labels": labels}
 
 
+def case_tp_families(spec, rank, world) -> dict:
+    """For each family of the spec (its own micro config, weights, image
+    size and global batch): a step of the split model at step 0 on this
+    data rank's rows (fp32, the JAX comparison). Then each fp64 case of the
+    spec on its family (dropout, --remat, ZeRO-1 over the data group): a
+    step from the same weights and seed, the ZeRO-1 case saving its
+    checkpoint; the resume case restores that checkpoint at this tp
+    without ZeRO-1. Every snapshot consolidated over the model group."""
+    from mvlt_tpu_torch.utils.checkpoint import whole_state
+
+    mesh.init_model_parallel(spec["tp"])
+    rows = rank_rows(spec["global_batch"], mesh.data_rank(), mesh.data_size())
+    out = {}
+    for label, fam in spec["families"].items():
+        fspec = {**spec, **fam}
+        cfg, state = tp_state(fspec)
+        state, losses = make_train_step(cfg)(state, local_batch(fspec, rows))
+        out[label] = tp_snapshot(cfg, state, losses)
+    for label, case in spec["fp64_cases"].items():
+        fspec = {**spec, **spec["families"][case["family"]]}
+        cfg, state = tp_state(fspec, zero1=case.get("zero1", False), dtype="float64",
+                              **case["overrides"])
+        if case.get("resume"):
+            state, epoch = CheckpointManager(case["resume"]).restore(state, "last")
+            model_sd, optim_sd = whole_state(state)
+            out[label] = {"params": model_sd, "moments": optim_sd["state"],
+                          "step": state.step, "epoch": epoch}
+            continue
+        state, losses = make_train_step(cfg)(state, local_batch(fspec, rows))
+        out[label] = tp_snapshot(cfg, state, losses)
+        out[label]["generator"] = state.generator.get_state()
+        if case.get("save"):
+            CheckpointManager(case["save"]).save_epoch(state, 0, 3)
+    return out
+
+
 CASES = {"step": case_step, "plan": case_plan, "meters": case_meters, "zero": case_zero,
-         "eval": case_eval, "tp": case_tp, "tp_decode": case_tp_decode}
+         "eval": case_eval, "tp": case_tp, "tp_decode": case_tp_decode,
+         "tp_families": case_tp_families}
 
 
 def main() -> None:

@@ -20,6 +20,8 @@ checkpoint. A partial torchrun environment raises, and --tp-size 2 with
 
 import json
 import os
+import pathlib
+import runpy
 import subprocess
 import sys
 import types
@@ -175,10 +177,18 @@ def test_partial_torchrun_environment_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [["--tp-size", "2"], ["--steps-per-dispatch", "2"]])
-def test_unported_flags_raise_under_torchrun(flags, monkeypatch):
+def test_unported_flags_raise_under_torchrun(flags, monkeypatch, tmp_path):
+    """What is still refused raises before any process group starts:
+    --steps-per-dispatch above 1, and --tp-size 2 (with --zero1, which it
+    now covers) on a config it still refuses (fused_attn_train)."""
     for key, val in zip(mesh.ENV_KEYS, ("0", "2", "0", "127.0.0.1", "1")):
         monkeypatch.setenv(key, val)
+    config = "configs/test_micro.py"
+    if "--tp-size" in flags:
+        micro = runpy.run_path(config)["cfg"]
+        micro["model_overrides"] = {**micro["model_overrides"], "fused_attn_train": True}
+        config = str(tmp_path / "fused.json")
+        pathlib.Path(config).write_text(json.dumps(micro))
     with pytest.raises(NotImplementedError, match="not ported"):
-        cli.main(["--config", "configs/test_micro.py", "--synthetic-data", "--device", "cpu",
-                  "--zero1"] + flags)
+        cli.main(["--config", config, "--synthetic-data", "--device", "cpu", "--zero1"] + flags)
     assert not mesh.initialized()

@@ -23,8 +23,9 @@ under torchrun at --tp-size 2 (the vocabulary of 30,522 split into two odd
 halves of 15,261), its VL eval equal to one process's on the checkpoint it
 wrote, which resumes at tp = 1, and a CLS fine-tune epoch at --tp-size 2
 starts from it. Every combination tensor parallelism does
-not cover is refused with NotImplementedError, and so is a gradient through
-the split vocabulary's eval decode.
+not cover (fused_attn_train, mlm_loss_chunk <= 0) is refused with
+NotImplementedError, every one it covers passes the gate, and a gradient
+through the split vocabulary's eval decode is refused.
 """
 
 import json
@@ -220,12 +221,17 @@ REFUSED = [("--model", "pvlt_v2_tiny"), ("--model", "pvlt_v2_linear_tiny"),
            ("--model", "pvlt_swin_tiny"), ("--remat",), ("--zero1",), ("fused_attn_train",),
            ("drop_rate",), ("attn_drop_rate",), ("mlm_loss_chunk",)]
 OVERRIDES = {"fused_attn_train": True, "mlm_loss_chunk": 0}
+# what tensor parallelism still refuses; the other combinations it covers
+STILL_REFUSED = ("fused_attn_train", "mlm_loss_chunk")
 
 
 @pytest.mark.parametrize("combo", REFUSED, ids=lambda c: c[-1].lstrip("-"))
 def test_tp_refusals(combo, tmp_path, monkeypatch):
-    """Under torchrun, --tp-size 2 with each combination not covered raises
-    NotImplementedError naming it, before any process group starts."""
+    """Under torchrun, --tp-size 2 with each combination still not covered
+    (fused_attn_train, mlm_loss_chunk <= 0) raises NotImplementedError
+    naming it, before any process group starts; each combination covered
+    since (the v2, linear-SR v2 and Swin backbones, --remat, --zero1,
+    dropout) passes the gate, which names nothing."""
     for key, val in zip(mesh.ENV_KEYS, ("0", "2", "0", "127.0.0.1", "1")):
         monkeypatch.setenv(key, val)
     flags = [c for c in combo if c.startswith("-") or c.startswith("pvlt")]
@@ -236,11 +242,17 @@ def test_tp_refusals(combo, tmp_path, monkeypatch):
         path.write_text(json.dumps({"model": "pvlt_tiny", "model_overrides": {
             combo[0]: OVERRIDES.get(combo[0], 0.1)}}))
         argv[1] = str(path)
-    with pytest.raises(NotImplementedError, match="--tp-size 2 with"):
-        cli.main(argv)
+    args = cli.get_args_parser().parse_args(argv)
+    if combo[0] in STILL_REFUSED:
+        with pytest.raises(NotImplementedError, match="--tp-size 2 with"):
+            cli.main(argv)
+    else:
+        cli._refuse_unported(args, cli.build_run_config(args))
     assert not mesh.initialized()
-    names = refusals(config.ModelConfig(variant="v2"), remat=True, zero1=True)
-    assert len(names) == 3
+    names = refusals(config.ModelConfig(variant="v2", remat=True, drop_rate=0.1))
+    assert names == []
+    names = refusals(config.ModelConfig(fused_attn_train=True, mlm_loss_chunk=0))
+    assert len(names) == 2
 
 
 def test_split_decode_refuses_a_gradient():

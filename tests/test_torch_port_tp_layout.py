@@ -2,11 +2,14 @@
 CPU without a process group.
 
 Which tensors split at tp = 2 and 4 is pinned for pvlt_tiny, the micro
-config of tests/test_train_step.py and pvlt_large (their state-dict names
-from models built on the meta device): an attention splits by whole heads
-only where the stage's heads divide by tp (pvlt_tiny's 1/2/5/8 heads: stages
-2 and 4 at tp = 2, stage 4 at tp = 4), every MLP hidden at both, the
-vocabulary of 30,522 at tp = 2 only; nothing else splits. ``shard_state_dict``
+config of tests/test_train_step.py, pvlt_large, pvlt_v2_tiny,
+pvlt_v2_linear_tiny and pvlt_swin_tiny (their state-dict names from models
+built on the meta device): an attention splits by whole heads only where
+the stage's heads divide by tp (the 1/2/5/8 heads: stages 2 and 4 at tp =
+2, stage 4 at tp = 4), Swin's relative-position tables by their head
+columns with it, every MLP hidden at both, v2's depthwise conv by its
+channels with it, the vocabulary of 30,522 at tp = 2 only; nothing else
+splits (linear SR's front end, Swin's text pooling). ``shard_state_dict``
 then the ranks' ``placed_state`` (what ``consolidate`` sums over the model
 group) give back every tensor exactly with the same names, and a shard's
 K/V rows are its heads' K rows then their V rows, against an index written
@@ -31,6 +34,9 @@ CONFIGS = {
     "pvlt_tiny": config.ModelConfig(name="pvlt_tiny", loss_type=HEADS),
     "micro": config.ModelConfig(**MICRO, loss_type=HEADS),
     "pvlt_large": config.ModelConfig(name="pvlt_large", loss_type=HEADS),
+    "pvlt_v2_tiny": config.ModelConfig(name="pvlt_v2_tiny", loss_type=HEADS),
+    "pvlt_v2_linear_tiny": config.ModelConfig(name="pvlt_v2_linear_tiny", loss_type=HEADS),
+    "pvlt_swin_tiny": config.ModelConfig(name="pvlt_swin_tiny", loss_type=HEADS),
 }
 # (stages whose attention splits, whether the vocabulary splits) by tp;
 # every stage's MLP hidden splits at both
@@ -38,6 +44,9 @@ EXPECTED = {
     ("pvlt_tiny", 2): ({2, 4}, True), ("pvlt_tiny", 4): ({4}, False),
     ("micro", 2): ({2, 3, 4}, True), ("micro", 4): ({4}, True),
     ("pvlt_large", 2): ({2, 4}, True), ("pvlt_large", 4): ({4}, False),
+    ("pvlt_v2_tiny", 2): ({2, 4}, True), ("pvlt_v2_tiny", 4): ({4}, False),
+    ("pvlt_v2_linear_tiny", 2): ({2, 4}, True), ("pvlt_v2_linear_tiny", 4): ({4}, False),
+    ("pvlt_swin_tiny", 2): ({2, 4}, True), ("pvlt_swin_tiny", 4): ({4}, False),
 }
 
 
@@ -49,7 +58,8 @@ def _names(cfg) -> list:
 @pytest.mark.parametrize("name,tp", sorted(EXPECTED))
 def test_rule_table(name, tp):
     cfg = resolve_model_config(CONFIGS[name])
-    split = layout(_names(cfg), cfg, tp)
+    names = _names(cfg)
+    split = layout(names, cfg, tp)
     attn, vocab = EXPECTED[(name, tp)]
     want = {}
     for s, depth in enumerate(cfg.depths, start=1):
@@ -59,8 +69,15 @@ def test_rule_table(name, tp):
                 want.update({f"{blk}.attn.q.weight": ROW, f"{blk}.attn.q.bias": ROW,
                              f"{blk}.attn.kv.weight": KV, f"{blk}.attn.kv.bias": KV,
                              f"{blk}.attn.proj.weight": COL})
+                if cfg.variant == "swin":   # the bias table's head columns
+                    want[f"{blk}.attn.relative_position_bias_table"] = COL
             want.update({f"{blk}.mlp.fc1.weight": ROW, f"{blk}.mlp.fc1.bias": ROW,
                          f"{blk}.mlp.fc2.weight": COL})
+            if cfg.variant == "v2":         # the depthwise conv's channels
+                want.update({f"{blk}.mlp.dwconv.dwconv.weight": ROW,
+                             f"{blk}.mlp.dwconv.dwconv.bias": ROW})
+    # linear SR's 1x1 conv and SR-LN, and every other tensor, replicated
+    assert cfg.name != "pvlt_v2_linear_tiny" or "block1.0.attn.sr.weight" in names
     if vocab:
         want.update({"text_embeddings.word_embeddings.weight": ROW, "mlm_head.bias": ROW})
     assert {n: k for n, k in split.items() if k} == want
