@@ -168,6 +168,21 @@ gloo ranks of one model group against one process, each case at B = 32):
                        relative-position tables, not its own columns;
   dwconv_wrong_slice   v2's depthwise conv takes the next rank's channels,
                        not those of its slice of fc1's output.
+Sequence parallelism (parallel/sequence.py, models/bert_embeddings.py),
+phase sp_two_ranks (two gloo ranks of one model group against one process
+and each primitive against the whole tensor's rows):
+  sp_kv_grad_unsummed  the K/V gather's backward keeps the rank's rows of
+                       its own dK/dV without the other ranks' parts;
+  sp_row_grads_unsummed  the blocks' gradients of a split stage are not
+                       summed over the model group (each rank keeps its
+                       rows' part);
+  sp_no_halo           the halo rows arrive as zeros: kernel D and v2's
+                       DWConv glue pad each band's edges as the grid's;
+  sp_linear_pool_band  linear SR pools each band's share of the windows
+                       without the all-reduce (the other bands' rows lost,
+                       the divisor still the whole window's);
+  sp_dropout_band_mask  a dropout mask of a rank's rows drawn over its rows
+                       alone, not the one-process mask's rows.
 Across four cards over NCCL (utils/checkpoint.py, parallel/mesh.py), on a
 machine with four cards:
   zero1_moments_model_rank0  saving consolidates ZeRO-1's moments over the
@@ -328,7 +343,7 @@ FAULTS = {
     "linear_sr_adaptive_pool": (
         "train_glue", "mvlt_tpu_torch/ops/sr_kv.py",
         "pooled = F.avg_pool2d(grid, win, win)",
-        "pooled = F.adaptive_avg_pool2d(grid, p)"),
+        "pooled = F.adaptive_avg_pool2d(grid, LINEAR_SR_POOL)"),
     "remat_redraws_masks": (
         "remat", "mvlt_tpu_torch/models/pvlt.py",
         "    if generator is None:\n        return checkpoint(blk, z, hw, None, use_reentrant=False)",
@@ -407,6 +422,27 @@ FAULTS = {
         "nccl_tp_zero1", "mvlt_tpu_torch/utils/checkpoint.py",
         "lambda n, t: consolidate({n: t}, group, cfg)[n]",
         "lambda n, t: consolidate({n: t * (dist.get_rank(group) == 0)}, group, cfg)[n]"),
+    "sp_kv_grad_unsummed": (
+        "sp_two_ranks", "mvlt_tpu_torch/parallel/sequence.py",
+        "return (take(_summed(dy, ctx.plan), ctx.plan, ctx.m_vis, ctx.dim).contiguous(),",
+        "return (take(dy, ctx.plan, ctx.m_vis, ctx.dim).contiguous(),"),
+    "sp_row_grads_unsummed": (
+        "sp_two_ranks", "mvlt_tpu_torch/parallel/sequence.py",
+        "    dist.all_reduce(flat, group=group)\n",
+        ""),
+    "sp_no_halo": (
+        "sp_two_ranks", "mvlt_tpu_torch/parallel/sequence.py",
+        "        slots = _all_slots(edges, plan)  ",
+        "        slots = _all_slots(edges, plan) * 0  "),
+    "sp_linear_pool_band": (
+        "sp_two_ranks", "mvlt_tpu_torch/parallel/sequence.py",
+        "    total = all_reduce_sum(linear_pool_partial(band, plan, win, out), plan.group,\n"
+        "                           differentiable=True)",
+        "    total = linear_pool_partial(band, plan, win, out)"),
+    "sp_dropout_band_mask": (
+        "sp_two_ranks", "mvlt_tpu_torch/models/bert_embeddings.py",
+        "        shape[dim] = plan.h * plan.w + plan.t\n",
+        "        rows = None\n"),
     "data_group_over_model_axis": (
         "nccl_tp_step", "mvlt_tpu_torch/parallel/mesh.py",
         "            layout[\"data_group\"] = g",
@@ -426,6 +462,9 @@ pass
 pass
 """,
     "tp_families": """
+pass
+""",
+    "sp_two_ranks": """
 pass
 """,
     "nccl_tp_step": """

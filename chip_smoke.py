@@ -4,10 +4,11 @@
 registry's deeper models), recognition at B = 500, the pre-training step
 of the v1, v2, linear-SR v2 and Swin backbones, with dropout and with
 --remat, pre-training through the command line, the downstream evals
-through the command line on an on-disk tree, and data and tensor
-parallelism (every backbone, dropout, --remat) over gloo ranks on the one
-card; with ``--cards 4``, data and tensor parallelism over NCCL across
-four cards instead.
+through the command line on an on-disk tree, data and tensor
+parallelism (every backbone, dropout, --remat) and sequence parallelism
+(v1, v2, linear v2) over gloo ranks on the one card; with ``--cards 4``,
+data, tensor and sequence parallelism over NCCL across four cards
+instead.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --cards 4
@@ -245,7 +246,19 @@ JSON line each; a failed phase raises and the script exits non-zero:
      consolidated gradients under tp_two_ranks' bound, parameters equal to
      AdamW's step on the consolidated gradients, BatchNorm statistics, the
      generator in the one-process state (the split masks drew what one
-     process draws), every rank's digests equal, exact launches a rank.
+     process draws), every rank's digests equal, exact launches a rank;
+ 18. sp_two_ranks: the same two gloo ranks as one sequence-parallel model
+     group (create_model(..., sp_group=), every stage split into bands of
+     half its grid rows and 64 text rows): each primitive of
+     parallel/sequence.py at stage 1 against the whole tensor's rows within
+     SP_PRIMITIVE_TOL (split and gather, the K/V gather and its
+     reduce-scatter, the halo exchange, linear SR's pool, a dropout mask's
+     rows, each backward), pvlt_tiny, pvlt_v2_tiny and pvlt_v2_linear_tiny
+     scoring a B = 101 bundle on their bands (A and B, or A, C and D,
+     SP_SERVING's launches a forward a rank) within SLICE_TOL of this
+     process's whole forward, a B = 150 step of v1 on both routes and of v2
+     against this process's under tp_families' bounds with SP_STEPS'
+     launches a rank; kernel A on each band beside A on the whole grid.
 
 ``--cards 4`` (a machine with four cards; each phase under
 ``python -m torch.distributed.run --nproc_per_node=4``, one rank a card,
@@ -257,12 +270,16 @@ step under ZeRO-1; a rank's ms a step beside one process's at B = 150) and
 nccl_tp (dp 2 x tp 2: the command line at --tp-size 2 on v1, v2 and Swin;
 a split step of each at B = 150 a data rank against one process's at B =
 300; v2 under ZeRO-1 over the data group, its checkpoint resumed at tp = 1
-without it). It prints the cards' nvidia-smi lines and the same last line,
-``count`` the cards it used.
+without it) and nccl_sp (sp 4: pvlt_tiny serving a B = 101 bundle and its
+B = 150 step on bands of a quarter of the rows; dp 2 x sp 2: v2's step at
+B = 150 a data rank against one process at B = 300; sp_two_ranks' checks,
+a rank's ms beside one process's). It prints the cards' nvidia-smi lines
+and the same last line, ``count`` the cards it used.
 
 Then one line {"kernels": [...]}: per kernel the launches of its path's
 run (the MLM CE kernels': the command line's; the tensor-parallel modes':
-a rank's in tp_two_ranks' step), the largest error of its
+a rank's in tp_two_ranks' step; ``sp_launches``: a rank's over
+sp_two_ranks' forwards and steps), the largest error of its
 checks, its time and its plain version's summed over the four stage shapes
 at the path's batch (one launch each; the MLM CE kernels at R = 3,072), the
 bound, and the library call's time where there is one; the nvidia-smi
@@ -453,8 +470,8 @@ WRAPPERS = {**SERVING_WRAPPERS, **V2_SERVING_WRAPPERS, **SWIN_WRAPPERS, **TRAINI
 def new_stats() -> dict:
     """Per kernel of KERNELS, the fields of its entry in the kernels line,
     summed or maxed over the phases that run it."""
-    return {k["name"]: {"launches": 0, "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-                        "bound_ms": 0.0, "bound_by": None, "library_ms": None,
+    return {k["name"]: {"launches": 0, "sp_launches": 0, "max_abs_err": 0.0, "ms": 0.0,
+                        "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": None, "library_ms": None,
                         "bound_shares": {"bytes": 0.0, "operations": 0.0}}
             for k in KERNELS}
 
@@ -4329,6 +4346,383 @@ def phase_tp_families(stats: dict) -> None:
                                          for c, r in results.items()))
 
 
+# ---- sequence parallelism (parallel/sequence.py) ---------------------------
+
+SP_SIZE = 2
+# a serving forward's launches a rank, by model: every block on its band
+SP_SERVING = {
+    "pvlt_tiny": {"sr_kv": 8, "block_fused": 8},
+    "pvlt_v2_tiny": {"sr_kv": 8, "block_attention": 8, "dwconv_mlp": 8},
+    "pvlt_v2_linear_tiny": {"sr_kv": 2, "block_attention": 8, "dwconv_mlp": 8},
+}
+# case: (registry model, config overrides on ddp_config, a step's launches a rank)
+SP_STEPS = {
+    "v1": ("pvlt_tiny", {}, {"attention_fwd": 8, "attention_bwd": 8, "ln_mlp_fwd": 8,
+                             "ln_mlp_bwd": 8, "mlm_ce_fwd": 1, "mlm_ce_bwd": 1}),
+    "v1_fused": ("pvlt_tiny", {"fused_attn_train": True},
+                 {"fba_train_fwd": 8, "fba_train_bwd": 8, "ln_mlp_fwd": 8, "ln_mlp_bwd": 8,
+                  "mlm_ce_fwd": 1, "mlm_ce_bwd": 1}),
+    "v2": ("pvlt_v2_tiny", {}, {"attention_fwd": 8, "attention_bwd": 8, "mlm_ce_fwd": 1,
+                                "mlm_ce_bwd": 1}),
+}
+# the primitives move or add values without rounding (fp32 buffers, a sum
+# of one value and zeros); linear SR's pool adds in another order
+SP_PRIMITIVE_TOL = 1e-6
+SP_PRIMITIVE_BATCH = 8
+
+
+def sp_serving_config(name: str) -> ModelConfig:
+    return ModelConfig(name=name, compute_dtype="bfloat16",
+                       loss_type=LossType(itm=True, mlm=False, t2i=False, cls=False))
+
+
+def sp_step_config(case: str) -> ModelConfig:
+    name, overrides, _ = SP_STEPS[case]
+    return dataclasses.replace(ddp_config(), name=name, **overrides)
+
+
+def sp_bundle(device) -> tuple:
+    """One B = 101 bundle (synthetic_bundles'), its images divided by 255 on
+    ``device`` as make_itm_scorer divides them."""
+    bundle = synthetic_bundles(1, SEED + 1, 256, TEXT)[0]
+    images = uint8_to_unit(torch.from_numpy(bundle["images_101"]).to(device))
+    return images, torch.from_numpy(bundle["ori_input_ids_101"]).long().to(device)
+
+
+def sp_primitives(device, group) -> dict:
+    """Each primitive of parallel/sequence.py on this rank at stage 1 of
+    pvlt_tiny at 256 (a 64x64 grid, 128 text rows, B = 8), against what it
+    must give, taken from the whole tensor (the same on every rank): {check:
+    its largest gap relative to the expected tensor's largest magnitude}."""
+    from mvlt_tpu_torch.models.bert_embeddings import dropout
+    from mvlt_tpu_torch.ops.sr_kv import linear_pool_shape
+    from mvlt_tpu_torch.parallel import sequence
+
+    n, rank = torch.distributed.get_world_size(group), torch.distributed.get_rank(group)
+    h = w = 64
+    b, d, heads, sr = SP_PRIMITIVE_BATCH, 64, 1, 8
+    plan = sequence.row_plan(h, w, TEXT, sr, n, rank, group)
+    gen = torch.Generator(device=device).manual_seed(SEED + 61)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=device)   # noqa: E731
+    gaps = {}
+
+    def gap(name, got, want):
+        gaps[name] = float((got.double() - want.double()).abs().max()) / max(
+            float(want.double().abs().max()), 1e-30)
+
+    mv = plan.hb * w
+    z = rnd(b, h * w + TEXT, d).requires_grad_(True)
+    zb = sequence.split_rows(z, plan)
+    gap("split_rows", zb, sequence.take(z, plan, mv))
+    back = sequence.gather_rows(zb, plan)
+    gap("gather_rows", back, z)
+    r = rnd(*z.shape)
+    (back * r).sum().backward()
+    gap("split_gather_backward", z.grad, r)       # whole on every rank
+    m_vis = sequence.kv_visual_rows(plan, sr)
+    kv = rnd(2, b, heads, (h // sr) * (w // sr) + TEXT, d // heads)
+    local = sequence.take(kv, plan, m_vis, -2).requires_grad_(True)
+    got = sequence.gather_kv(local, plan, m_vis)
+    gap("gather_kv", got, kv)
+    r = rnd(*kv.shape)
+    (got * r).sum().backward()                    # every rank's queries: the same r
+    gap("gather_kv_backward", local.grad, n * sequence.take(r, plan, m_vis, -2))
+    x = rnd(b, h * w + TEXT, d)
+    xb = sequence.take(x, plan, mv).requires_grad_(True)
+    ext = sequence.exchange_halo(xb, plan)
+    gap("exchange_halo", ext, sequence.halo_band(x, plan))
+    r = rnd(*x.shape)
+    (ext * sequence.halo_band(r, plan)).sum().backward()
+    count = torch.ones(h * w + TEXT, device=device)   # the ranks holding each row
+    for q in range(1, n):
+        count[q * plan.hb * w - w:q * plan.hb * w + w] += 1
+    gap("exchange_halo_backward", xb.grad, sequence.take(r * count[None, :, None], plan, mv))
+    win, out = linear_pool_shape((h, w))
+    grid = x[:, :h * w].reshape(b, h, w, d)
+    pooled = sequence.linear_pool(grid[:, rank * plan.hb:(rank + 1) * plan.hb], plan, win, out)
+    want = F.avg_pool2d(grid.permute(0, 3, 1, 2), win, win).permute(0, 2, 3, 1)
+    gap("linear_pool", pooled, want)
+    state = gen.get_state()
+    ones = torch.ones(b, h * w + TEXT, d, device=device)
+    whole = dropout(ones, 0.1, gen)
+    gen.set_state(state)
+    rows = dropout(sequence.take(ones, plan, mv), 0.1, gen, rows=(1, plan))
+    gap("dropout_rows", rows, sequence.take(whole, plan, mv))
+    return gaps
+
+
+def host_copy(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().to("cpu", torch.float32, copy=True)
+
+
+def sp_rank_cases(spec: dict, device, group) -> tuple:
+    """This rank's runs of the sequence-parallel cases of ``spec`` (a model
+    group made by mesh.init_model_parallel): each serving model's ITM
+    forward on the bundle through make_itm_scorer (launches, logits, the
+    ITM head's input, ms a forward) and each step case on this data rank's
+    rows (launches, losses, digests; the whole gradients, parameters and
+    BatchNorm statistics in ``tensors``; ms a step). Returns (results,
+    tensors)."""
+    from mvlt_tpu_torch.parallel import mesh
+    from mvlt_tpu_torch.parallel.sharding import wrap_model
+
+    res, tensors = {"serving": {}, "steps": {}}, {}
+    if spec["serving"]:
+        images, ids = sp_bundle(device)
+    for name in spec["serving"]:
+        model = create_model(sp_serving_config(name), device=device, sp_group=group).eval()
+        model.load_state_dict(seeded_weights(model), strict=True)
+        scorer = make_itm_scorer(model)
+        reset_launches()
+        scores = scorer(images, ids)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        logits, feats = itm_outputs(model, images, ids)
+        tensors[f"serving_{name}"] = {"logits": logits, "feats": feats, "scores": scores.cpu()}
+        res["serving"][name] = {"launches": launches, "split": list(model.sp_split),
+                                "ms": cuda_time_ms(lambda: scorer(images, ids), warmup=1, reps=3)
+                                if spec["time"] else None,
+                                "digest": tensors_digest(tensors[f"serving_{name}"])}
+        del model
+        torch.cuda.empty_cache()
+    host = dict(np.load(spec["batch"])) if spec["steps"] else {}
+    for case in spec["steps"]:
+        cfg = sp_step_config(case)
+        share = host["images"].shape[0] // mesh.data_size()
+        lo = mesh.data_rank() * share
+        batch = batch_to_device({k: v[lo:lo + share] for k, v in host.items()}, device)
+        model = create_model(cfg, device=device, sp_group=group)
+        model.load_state_dict(seeded_weights(model), strict=True)
+        ddp = wrap_model(model, device, mesh.data_group()) if mesh.data_size() > 1 else None
+        state = create_train_state(model, OptimConfig(warmup_epochs=0), share * mesh.data_size(),
+                                   1, seed=mesh.rank_seed(SEED), ddp=ddp)
+        step = make_train_step(cfg)
+        reset_launches()
+        _, losses = step(state, batch)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        tensors[case] = {"grads": {n: host_copy(p.grad) for n, p in model.named_parameters()},
+                         "params": {n: host_copy(p) for n, p in model.named_parameters()},
+                         "buffers": {n: host_copy(b) for n, b in model.named_buffers()}}
+        sums = torch.tensor([float(losses[k]) for k in sorted(losses)], dtype=torch.float64,
+                            device=device)
+        if mesh.data_size() > 1:
+            torch.distributed.all_reduce(sums, group=mesh.data_group())
+        res["steps"][case] = {
+            "launches": launches, "split": list(model.sp_split),
+            "mean_losses": dict(zip(sorted(losses), (sums / mesh.data_size()).tolist())),
+            "digests": {k: tensors_digest(v) for k, v in tensors[case].items()},
+            "ms": cuda_time_ms(lambda: step(state, batch), warmup=1, reps=3)
+            if spec["time"] else None}
+        del model, state, ddp
+        torch.cuda.empty_cache()
+    return res, tensors
+
+
+def sp_two_ranks_rank(spec: dict) -> None:
+    """A rank of ``sp_two_ranks`` (gloo, both ranks on cuda:0, one model
+    group of two): the primitives, then ``sp_rank_cases``; rank 0 writes
+    the tensors."""
+    from mvlt_tpu_torch.parallel import mesh
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = mesh.maybe_init_distributed(device="cuda:0", backend="gloo", timeout_s=300)
+    mesh.init_model_parallel(SP_SIZE)
+    group, rank = mesh.model_group(), mesh.rank()
+    out = pathlib.Path(spec["out"])
+    res = {"world": mesh.world_size(), "backend": torch.distributed.get_backend(),
+           "primitives": sp_primitives(device, group)}
+    cases, tensors = sp_rank_cases(spec, device, group)
+    res.update(cases)
+    if rank == 0:
+        torch.save(tensors, out / "sp_tensors.pt")
+    (out / f"sp_two_ranks_{rank}.json").write_text(json.dumps(res))
+    mesh.destroy()
+
+
+def sp_serving_reference(names, device) -> dict:
+    """This process's whole forward of each model on the bundle from the
+    same weights: {name: (logits, ITM head input, ms a forward)}."""
+    images, ids = sp_bundle(device)
+    out = {}
+    for name in names:
+        model = create_model(sp_serving_config(name), device=device).eval()
+        model.load_state_dict(seeded_weights(model), strict=True)
+        scorer = make_itm_scorer(model)
+        logits, feats = itm_outputs(model, images, ids)
+        out[name] = (logits, feats, cuda_time_ms(lambda: scorer(images, ids), warmup=1, reps=3))
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def sp_step_references(cases, batch: dict, global_b: int) -> tuple:
+    """This process's step of each case on ``batch`` and the gradients'
+    moves when the batch's halves swap (the bound's input), and the ms of a
+    step at TRAIN_BATCH: ({case: one_process_step}, {case: swap gaps},
+    {case: ms})."""
+    half = global_b // 2
+    swapped = {k: torch.cat([v[half:], v[:half]]) for k, v in batch.items()}
+    one = {k: v[:TRAIN_BATCH] for k, v in batch.items()}
+    want, swaps, ms = {}, {}, {}
+    for case in cases:
+        cfg = sp_step_config(case)
+        want[case] = one_process_step(cfg, batch, global_b)
+        swaps[case] = rel_gaps(one_process_step(cfg, swapped, global_b)["grads"],
+                               want[case]["grads"])
+        model = create_model(cfg)
+        model.load_state_dict(seeded_weights(model), strict=True)
+        state = create_train_state(model, OptimConfig(warmup_epochs=0), TRAIN_BATCH, 1, seed=SEED)
+        step = make_train_step(cfg)
+        ms[case] = cuda_time_ms(lambda: step(state, one), warmup=1, reps=3)
+        del model, state
+        torch.cuda.empty_cache()
+    return want, swaps, ms
+
+
+def sp_compare(ranks: list, got: dict, serving: dict, want: dict, swaps: dict) -> tuple:
+    """The ranks' results against this process's: per serving model the
+    ITM head's input and logits (gap relative to the largest, within
+    SLICE_TOL) and a rank's launches (SP_SERVING a forward, nothing else);
+    per step case compare_split_step's gradients, parameters and BatchNorm
+    statistics, the losses within DDP_TOL and a rank's launches
+    (SP_STEPS'); every rank of a model group the same digests. Returns
+    (results, failed checks)."""
+    results, failed = {}, []
+    for name in serving:
+        logits, feats, ms = serving[name]
+        mine = got[f"serving_{name}"]
+        g_feats = _rel_err(mine["feats"], feats)[1]
+        g_logits = _rel_err(mine["logits"], logits)[1]
+        expected = {w: SP_SERVING[name].get(w, 0) for w in WRAPPERS}
+        checks = {"feats": g_feats <= SLICE_TOL, "logits": g_logits <= SLICE_TOL,
+                  "launches": all(r["serving"][name]["launches"] == expected for r in ranks),
+                  "all_stages_split": all(all(r["serving"][name]["split"]) for r in ranks),
+                  "ranks_equal": len({r["serving"][name]["digest"] for r in ranks}) == 1}
+        results[name] = {"checks": checks, "rel_err_itm_input": g_feats,
+                         "rel_err_itm_logits": g_logits, "tol": SLICE_TOL,
+                         "launches": ranks[0]["serving"][name]["launches"],
+                         "ms_forward_rank": [r["serving"][name]["ms"] for r in ranks],
+                         "ms_forward_one_process": ms}
+        failed += [f"{name}:{k}" for k, v in checks.items() if not v]
+    for case in want:
+        cmp = compare_split_step(got[case], want[case], swaps[case])
+        l_gap = loss_gap(ranks[0]["steps"][case]["mean_losses"], want[case]["losses"])
+        expected = {w: SP_STEPS[case][2].get(w, 0) for w in WRAPPERS}
+        checks = {"losses": l_gap <= DDP_TOL, "grads": cmp["grad_ratio"][1] <= 1.0,
+                  "params": cmp["param_gap"][1] <= ZERO_TOL, "batchnorms": cmp["bn_gap"] <= DDP_TOL,
+                  "launches": all(r["steps"][case]["launches"] == expected for r in ranks),
+                  "all_stages_split": all(all(r["steps"][case]["split"]) for r in ranks),
+                  "ranks_equal": len({json.dumps(r["steps"][case]["digests"], sort_keys=True)
+                                      for r in ranks}) == 1}
+        results[case] = {"checks": checks, "rel_err_losses": l_gap,
+                         "launches": ranks[0]["steps"][case]["launches"],
+                         "ms_step_rank": [r["steps"][case]["ms"] for r in ranks], **cmp}
+        failed += [f"{case}:{k}" for k, v in checks.items() if not v]
+    return results, failed
+
+
+def sp_record_launches(stats: dict, rank0: dict) -> None:
+    """Each kernel's launches a rank over the phase's forwards and steps."""
+    for part in ("serving", "steps"):
+        for run in rank0[part].values():
+            for name, n in run["launches"].items():
+                stats[name]["sp_launches"] += n
+
+
+def kernel_a_band_gap(device) -> dict:
+    """Kernel A on each rank's band of stage 1 (B = 101, a 64x64 grid, 128
+    text rows) against the rows of A on the whole grid: its split
+    contraction takes other ranges on the shorter grid, so the rows may
+    differ by a bf16 rounding."""
+    from mvlt_tpu_torch.parallel import sequence
+
+    gen = torch.Generator().manual_seed(SEED + 67)
+    h, w, d, heads, sr, hidden = STAGES[0]
+    p = stage_params(gen, d, sr, hidden, device)
+    args = [t if t is None or t.dim() == 1 else t.to(torch.bfloat16) for t in _kv_args(p)]
+    x = torch.randn(BATCH, h * w + TEXT, d, generator=gen).to(device, torch.bfloat16)
+    kw = dict(sr=sr, heads=heads, eps1=1e-6, eps_sr=1e-5)
+    whole = torch.stack(fused_ln_sr_kv(x, (h, w), *args, **kw))
+    gaps, equal = [], True
+    for r in range(SP_SIZE):
+        plan = sequence.row_plan(h, w, TEXT, sr, SP_SIZE, r)
+        band = torch.stack(fused_ln_sr_kv(sequence.take(x, plan, plan.hb * w).contiguous(),
+                                          plan.hw, *args, **kw))
+        want = sequence.take(whole, plan, sequence.kv_visual_rows(plan, sr), -2)
+        gaps.append(_rel_err(band, want))
+        equal = equal and torch.equal(band, want)
+    return {"max_abs": max(g[0] for g in gaps), "rel": max(g[1] for g in gaps),
+            "bit_equal": equal, "splits_whole": conv_splits(BATCH, (h // sr) * (w // sr), d, sr,
+                                                            _build.sm_count(0)),
+            "splits_band": conv_splits(BATCH, (h // sr // SP_SIZE) * (w // sr), d, sr,
+                                       _build.sm_count(0))}
+
+
+def phase_sp_two_ranks(stats: dict) -> None:
+    """Sequence parallelism on two gloo ranks of one model group on the one
+    card (NCCL refuses two ranks on one device), each model at full width
+    (256x256, 128 tokens, bf16, seeded weights), every stage split into
+    bands of half its grid rows and 64 text rows. Per rank: each primitive
+    of parallel/sequence.py at stage 1 against the whole tensor's rows
+    within SP_PRIMITIVE_TOL (split and gather and their backward, the K/V
+    gather and its reduce-scatter, the halo exchange and its backward,
+    linear SR's pool, a dropout mask of the rows); pvlt_tiny,
+    pvlt_v2_tiny and pvlt_v2_linear_tiny score one B = 101 bundle through
+    make_itm_scorer on their bands (A and B, or A, C and D, SP_SERVING's
+    launches a forward a rank and no other kernel), the ITM head's input
+    and logits within SLICE_TOL of this process's whole forward; one B =
+    150 step of v1 on both routes and of v2 against this process's
+    (compare_split_step: the losses within DDP_TOL, each gradient within
+    ddp_two_ranks' bound, the parameters within ZERO_TOL of AdamW's step on
+    the gradients, the BatchNorm statistics), SP_STEPS' launches a step a
+    rank; both ranks' digests equal. Kernel A's band rows beside its whole
+    grid's (information). The ranks are not timed: over gloo every gather
+    goes through host copies (nccl_sp times a rank)."""
+    DDP_DIR.mkdir(parents=True, exist_ok=True)
+    arrays = {k: v for k, v in train_batch(SEED + 51, TRAIN_BATCH).items()
+              if isinstance(v, np.ndarray)}
+    np.savez(DDP_DIR / "sp_batch.npz", **arrays)
+    batch = batch_to_device(arrays, "cuda")
+    serving = sp_serving_reference(SP_SERVING, "cuda")
+    want, swaps, one_ms = sp_step_references(SP_STEPS, batch, TRAIN_BATCH)
+    band = kernel_a_band_gap("cuda")
+    del batch
+    torch.cuda.empty_cache()
+    start = time.perf_counter()
+    try:
+        ranks = spawn_ranks("sp_two_ranks", SP_SIZE,
+                            {"batch": str(DDP_DIR / "sp_batch.npz"), "out": str(DDP_DIR),
+                             "serving": list(SP_SERVING), "steps": list(SP_STEPS),
+                             "time": False}, timeout=900)
+        got = torch.load(DDP_DIR / "sp_tensors.pt", weights_only=True)
+    finally:
+        shutil.rmtree(DDP_DIR, ignore_errors=True)
+    seconds = time.perf_counter() - start
+    results, failed = sp_compare(ranks, got, serving, want, swaps)
+    for case in want:
+        results[case]["ms_step_one_process"] = one_ms[case]
+    primitives = {k: max(r["primitives"][k] for r in ranks) for k in ranks[0]["primitives"]}
+    common = {"backend_gloo_world_2": all(r["backend"] == "gloo" and r["world"] == SP_SIZE
+                                          for r in ranks),
+              "primitives": all(v <= SP_PRIMITIVE_TOL for v in primitives.values())}
+    failed += [k for k, v in common.items() if not v]
+    sp_record_launches(stats, ranks[0])
+    ok = not failed
+    emit("sp_two_ranks", sp=SP_SIZE, dp=1, batch_serving=BATCH, batch_step=TRAIN_BATCH,
+         checks=common, primitives_rel_err=primitives, primitive_tol=SP_PRIMITIVE_TOL,
+         primitive_over_tol={k: v / SP_PRIMITIVE_TOL for k, v in primitives.items()},
+         cases=results, kernel_a_band_vs_whole=band, tol=DDP_TOL,
+         ms_note="the ranks are not timed: over gloo every gather goes through host copies "
+                 "(nccl_sp times them); one process: CUDA events, 1 warm-up, median of 3",
+         seconds=seconds, ok=ok)
+    if not ok:
+        raise AssertionError(f"sp_two_ranks failed {failed}: primitives {primitives}; " + "; ".join(
+            f"{c} {r.get('grad_ratio')} {r.get('param_gap')} {r.get('rel_err_itm_input')}"
+            for c, r in results.items()))
+
+
 # ---- data and tensor parallelism over NCCL across four cards (--cards 4) ----
 
 NCCL_CARDS = 4
@@ -4784,6 +5178,95 @@ def phase_nccl_tp_zero1(stats: dict) -> None:
     phase_nccl_tp(stats, families=(), run_cli=False, zero1=True)
 
 
+NCCL_SP_CASES = {    # label: (model group size, serving models, step cases, global batch)
+    "sp4": (NCCL_CARDS, ("pvlt_tiny",), ("v1",), TRAIN_BATCH),
+    "dp2_sp2": (2, (), ("v2",), 2 * TRAIN_BATCH),
+}
+
+
+def nccl_sp_rank(spec: dict) -> None:
+    """A rank of ``nccl_sp`` (torchrun, one rank a card, NCCL): for each case
+    of NCCL_SP_CASES, its model groups made, ``sp_rank_cases`` on them;
+    rank 0 writes the tensors."""
+    from mvlt_tpu_torch.parallel import mesh
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = mesh.maybe_init_distributed(timeout_s=NCCL_TIMEOUT_S)
+    out = pathlib.Path(spec["out"])
+    res = {"backend": torch.distributed.get_backend(), "world": mesh.world_size(),
+           "device": str(device)}
+    tensors = {}
+    for label, (sp, serving, steps, _) in NCCL_SP_CASES.items():
+        mesh.init_model_parallel(sp)
+        case_spec = {"serving": serving, "steps": steps, "batch": spec[f"batch_{label}"],
+                     "time": True}
+        r, t = sp_rank_cases(case_spec, device, mesh.model_group())
+        res[label] = {**r, "ranks": [mesh.data_rank(), mesh.model_rank()]}
+        tensors[label] = t
+    if mesh.rank() == 0:
+        torch.save(tensors, out / "nccl_sp_tensors.pt")
+    (out / f"nccl_sp_{mesh.rank()}.json").write_text(json.dumps(res))
+    mesh.destroy()
+
+
+def phase_nccl_sp(stats: dict) -> None:
+    """Sequence parallelism over NCCL across four cards, through ``python -m
+    torch.distributed.run --nproc_per_node=4 chip_smoke.py --ddp-rank
+    nccl_sp``: sp 4 (one model group of the four cards, bands of a quarter
+    of each stage's grid rows and 32 text rows) serving pvlt_tiny's B = 101
+    bundle and taking its B = 150 step; then dp 2 x sp 2 taking v2's step,
+    B = 150 a data rank against this process's at B = 300. Each against
+    this process with sp_two_ranks' bounds and launches (sp_compare); every
+    rank the same digests; a rank's ms a forward and a step beside this
+    process's (information)."""
+    DDP_DIR.mkdir(parents=True, exist_ok=True)
+    spec = {"out": str(DDP_DIR)}
+    serving, want, swaps, one_ms = {}, {}, {}, {}
+    for label, (_, names, steps, global_b) in NCCL_SP_CASES.items():
+        arrays = {k: v for k, v in train_batch(SEED + 71, global_b).items()
+                  if isinstance(v, np.ndarray)}
+        spec[f"batch_{label}"] = str(DDP_DIR / f"nccl_sp_{label}.npz")
+        np.savez(spec[f"batch_{label}"], **arrays)
+        batch = batch_to_device(arrays, "cuda")
+        serving[label] = sp_serving_reference(names, "cuda")
+        want[label], swaps[label], one_ms[label] = sp_step_references(steps, batch, global_b)
+        del batch
+        torch.cuda.empty_cache()
+    start = time.perf_counter()
+    try:
+        ranks = spawn_ranks("nccl_sp", NCCL_CARDS, spec, timeout=900, torchrun=True)
+        got = torch.load(DDP_DIR / "nccl_sp_tensors.pt", weights_only=True)
+    finally:
+        shutil.rmtree(DDP_DIR, ignore_errors=True)
+    seconds = time.perf_counter() - start
+    failed, results = [], {}
+    for label in NCCL_SP_CASES:
+        res, bad = sp_compare([r[label] for r in ranks], got[label], serving[label], want[label],
+                              swaps[label])
+        for case in want[label]:
+            res[case]["ms_step_one_process_b150"] = one_ms[label][case]
+        results[label] = res
+        failed += [f"{label}:{k}" for k in bad]
+    common = {"backend_nccl_world_4": all(r["backend"] == "nccl" and r["world"] == NCCL_CARDS
+                                          for r in ranks),
+              "one_card_a_rank": len({r["device"] for r in ranks}) == NCCL_CARDS,
+              "layout_sp4": [r["sp4"]["ranks"] for r in ranks] == [[0, q] for q in range(4)],
+              "layout_dp2_sp2": [r["dp2_sp2"]["ranks"] for r in ranks]
+              == [[0, 0], [0, 1], [1, 0], [1, 1]]}
+    failed += [k for k, v in common.items() if not v]
+    ok = not failed
+    emit("nccl_sp", checks=common, cases=results, tol=DDP_TOL, serving_tol=SLICE_TOL,
+         ms_note="CUDA events, 1 warm-up, median of 3; a rank: its band of every stage with "
+                 "its NCCL gathers; one process: the whole model, B = 101 a forward, B = 150 "
+                 "a step",
+         seconds=seconds, ok=ok)
+    if not ok:
+        raise AssertionError(f"nccl_sp failed {failed}: " + "; ".join(
+            f"{lb}/{c} {r.get('grad_ratio')} {r.get('param_gap')} {r.get('rel_err_itm_input')}"
+            for lb, res in results.items() for c, r in res.items()))
+
+
 def main_cards(cards: int) -> int:
     """``--cards 4``: the build, then data and tensor parallelism over NCCL
     across the cards (nccl_ddp, nccl_tp), each rank on its own card."""
@@ -4800,6 +5283,7 @@ def main_cards(cards: int) -> int:
     stats = new_stats()
     timed("nccl_ddp", phase_nccl_ddp, stats)
     timed("nccl_tp", phase_nccl_tp, stats)
+    timed("nccl_sp", phase_nccl_sp, stats)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": cards}}), flush=True)
@@ -4808,7 +5292,8 @@ def main_cards(cards: int) -> int:
 
 DDP_ROLES = {"world1": ddp_world1_rank, "two_ranks": ddp_two_ranks_rank,
              "tp_two_ranks": tp_two_ranks_rank, "tp_families": tp_families_rank,
-             "nccl_ddp": nccl_ddp_rank, "nccl_tp": nccl_tp_rank}
+             "nccl_ddp": nccl_ddp_rank, "nccl_tp": nccl_tp_rank,
+             "sp_two_ranks": sp_two_ranks_rank, "nccl_sp": nccl_sp_rank}
 
 
 
@@ -4869,6 +5354,7 @@ def main() -> int:
     timed("tp_kernels", phase_tp_kernels, stats)
     timed("tp_two_ranks", phase_tp_two_ranks, stats)
     timed("tp_families", phase_tp_families, stats)
+    timed("sp_two_ranks", phase_sp_two_ranks, stats)
     print(json.dumps({"kernels": [
         {**k, **{key: v for key, v in stats[k["name"]].items() if key != "bound_shares"}}
         for k in KERNELS]}), flush=True)

@@ -16,9 +16,9 @@ Across data-parallel ranks (the JAX package's ``mesh=``) every rank reads
 each batch, pads it to a multiple of the ranks, and scores its contiguous
 share of the rows; the per-row values are gathered into zero-filled buffers
 that all_reduce sums, and every rank takes the batch's sums from all rows
-in order, as one process does (one rank scores every row). Under tensor
-parallelism the rows are split over the data ranks, the ranks of a model
-group score the same rows together, and the MLM decode of a split
+in order, as one process does (one rank scores every row). Under tensor or
+sequence parallelism the rows are split over the data ranks, the ranks of a
+model group score the same rows together, and the MLM decode of a split
 vocabulary combines the ranks' nll and argmax
 (parallel/tensor.py:VocabShardLogits).
 """

@@ -14,25 +14,34 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from mvlt_tpu_torch.parallel.sequence import take
 from mvlt_tpu_torch.parallel.tensor import vocab_parallel_embedding
 
 
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None,
-            split: tuple | None = None) -> torch.Tensor:
+            split: tuple | None = None, rows: tuple | None = None) -> torch.Tensor:
     """Inverted dropout with the mask from ``generator``: kept elements are
     scaled by 1 / (1 - rate), as flax's Dropout does. ``split`` = (dim,
     rank, tp): ``x`` is slice ``rank`` of ``tp`` equal slices along ``dim``
-    of the tensor one process drops (tensor parallelism); the whole mask is
-    drawn, as one process draws it, and this slice of it kept, since a
-    generator's draws depend on the element count."""
+    of the tensor one process drops (tensor parallelism); ``rows`` = (dim,
+    plan): ``x`` holds a sequence-parallel rank's rows along ``dim``
+    (parallel/sequence.py:RowPlan, its band's grid rows then its text
+    rows). Either way the whole mask is drawn, as one process draws it, and
+    this rank's part of it kept, since a generator's draws depend on the
+    element count."""
     keep = 1.0 - rate
     shape = list(x.shape)
+    if rows is not None:
+        dim, plan = rows
+        shape[dim] = plan.h * plan.w + plan.t
     if split is not None:
         dim, rank, tp = split
         shape[dim] *= tp
     mask = torch.rand(shape, generator=generator, device=x.device) < keep
     if split is not None:
         mask = mask.narrow(dim, rank * x.shape[dim], x.shape[dim])
+    if rows is not None:
+        mask = take(mask, plan, plan.hb * plan.w, dim)
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 

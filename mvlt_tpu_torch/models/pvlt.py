@@ -57,6 +57,14 @@ tensor's mask the rank's slice of the one-process mask. The serving
 kernels A-F fuse the out-projection, the residual, LN2 and the MLP across
 what is there a sum over ranks, so a shard never runs them; they stay for
 the unsharded model.
+Under sequence parallelism (``create_model(..., sp_group=)``, v1, v2 and
+linear-SR v2; parallel/sequence.py) every rank holds the whole model and
+each stage that ``row_plan`` splits runs its blocks on the rank's band of
+grid rows and slice of text rows: the serving kernels A and B, or A, C and
+D, on the band (A's K/V rows, or linear SR's pooled sums, gathered whole;
+D with a halo row from each neighbour), the training route the same way;
+the stream is gathered whole at the stage's end and the heads run
+replicated.
 The training forward returns the MLM head's transformed hidden rows, the
 tied table and the bias (``mlm_hidden``, ``mlm_table``, ``mlm_bias``, and
 ``mlm_vocab_group``: the model group of a split vocabulary, else None) in
@@ -66,6 +74,7 @@ five logits.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import numpy as np
@@ -88,11 +97,12 @@ from mvlt_tpu_torch.ops.dwconv_mlp import fused_dwconv_mlp
 from mvlt_tpu_torch.ops.fused_mlp import fused_ln_mlp
 from mvlt_tpu_torch.ops.kernel_math import acc_dtype, gelu, layer_norm_fp32, linear, softmax_av
 from mvlt_tpu_torch.ops.pallas_attention import fused_attention
-from mvlt_tpu_torch.ops.sr_kv import (fused_ln_sr_kv, linear_reduce_kv_input, reduce_kv_input,
-                                      split_kv)
+from mvlt_tpu_torch.ops.sr_kv import (fused_ln_sr_kv, linear_pool_shape, linear_reduce_kv_input,
+                                      linear_sr_rows, reduce_kv_input, split_kv)
 from mvlt_tpu_torch.ops.swin_attention import fused_swin_attention
 from mvlt_tpu_torch.ops.swin_band import fused_swin_block
 from mvlt_tpu_torch.ops.upsample import resize_bilinear
+from mvlt_tpu_torch.parallel import sequence
 from mvlt_tpu_torch.parallel.tensor import (copy_to_model, fused_ln_mlp_tp,
                                             row_parallel_linear, split_dim)
 
@@ -266,16 +276,17 @@ def _add_scaled(x: torch.Tensor, out: torch.Tensor, scale: Optional[torch.Tensor
 
 def attention_dropout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
                       rate: float, generator: Optional[torch.Generator],
-                      split: Optional[tuple] = None) -> torch.Tensor:
+                      split: Optional[tuple] = None, rows: Optional[tuple] = None) -> torch.Tensor:
     """softmax(q k^T * scale) v with dropout on the probabilities, the masks
     from ``generator``: fp32 logits and softmax, the dropped probabilities
     rounded to v.dtype, an fp32 P.V sum, q.dtype out. Counterpart of
     mvlt_tpu/models/pvlt.py:227-239, which materialises the probabilities in
     XLA and never in a kernel; so does this. ``split``: the rank's heads of
-    a split attention (``dropout``'s)."""
+    a split attention, ``rows``: a sequence-parallel rank's query rows
+    (``dropout``'s)."""
     acc = acc_dtype(q.dtype)
     probs = torch.softmax(torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2)) * scale, dim=-1)
-    probs = dropout(probs, rate, generator, split).to(v.dtype)
+    probs = dropout(probs, rate, generator, split, rows).to(v.dtype)
     return torch.matmul(probs.to(acc), v.to(acc)).to(q.dtype)
 
 
@@ -286,7 +297,10 @@ class BlockGlue(CastOperands):
     in training mode. Under tensor parallelism (``tp_group`` set by
     parallel/tensor.py:shard_model) the attention holds the rank's whole
     heads where ``attn_split`` and the MLP its slice of the hidden where
-    ``mlp_split``."""
+    ``mlp_split``. Under sequence parallelism the block's methods take the
+    stage's row plan ``sp`` (parallel/sequence.py:RowPlan) and the stream
+    holds the rank's rows; a mask of such a tensor is the rank's rows of the
+    one-process mask."""
 
     drop_path = 0.0
     drop = 0.0
@@ -305,10 +319,13 @@ class BlockGlue(CastOperands):
         return mask.float() / keep
 
     def dropout(self, t: torch.Tensor, generator: Optional[torch.Generator],
-                split: Optional[tuple] = None) -> torch.Tensor:
+                split: Optional[tuple] = None, sp=None) -> torch.Tensor:
         """Dropout at the block's ``drop`` in training mode; else ``t``.
-        ``split``: t is a rank's slice (``dropout``'s)."""
-        return dropout(t, self.drop, generator, split) if self.training and self.drop else t
+        ``split``: t is a rank's slice (``dropout``'s); ``sp``: t [B, rows,
+        ...] holds the rows of the row plan ``sp``."""
+        if not (self.training and self.drop):
+            return t
+        return dropout(t, self.drop, generator, split, None if sp is None else (1, sp))
 
     def mlp_hidden_in(self, x: torch.Tensor) -> tuple:
         """(LN2 x, the model group the hidden is split over or None): with
@@ -318,7 +335,7 @@ class BlockGlue(CastOperands):
         return (normed if group is None else copy_to_model(normed, group)), group
 
     def mlp_half(self, x: torch.Tensor, generator: Optional[torch.Generator],
-                 ln_mlp=fused_ln_mlp) -> torch.Tensor:
+                 ln_mlp=fused_ln_mlp, sp=None) -> torch.Tensor:
         """x + s2 mlp(LN2 x) of the plain MLP: ``ln_mlp`` (the LN-MLP kernels'
         wrapper; a check passes its plain version) with DropPath as its row
         scale; with ``drop`` > 0 PyTorch glue with dropout after GELU and
@@ -326,14 +343,16 @@ class BlockGlue(CastOperands):
         (mvlt_tpu/models/pvlt.py:925-930, :287-296). With ``mlp_split``
         parallel/tensor.py:fused_ln_mlp_tp over the rank's hidden slice, or
         with ``drop`` the glue on it: the hidden's mask the rank's slice,
-        fc2's partials summed before its bias, the output's mask whole."""
+        fc2's partials summed before its bias, the output's mask whole.
+        ``sp``: x holds the rows of that row plan (every mask its rows')."""
         m = self.mlp
         if self.drop:
             normed, group = self.mlp_hidden_in(x)
             hidden = gelu(linear(normed, m.fc1.weight, m.fc1.bias))
-            hidden = self.dropout(hidden, generator, split_dim(group, -1))
+            hidden = self.dropout(hidden, generator, split_dim(group, -1), sp)
             out = row_parallel_linear(hidden, m.fc2.weight, m.fc2.bias, group)
-            return _add_scaled(x, self.dropout(out, generator), self.drop_path_scale(x, generator))
+            return _add_scaled(x, self.dropout(out, generator, sp=sp),
+                               self.drop_path_scale(x, generator))
         if self.mlp_split:
             return fused_ln_mlp_tp(x, self.norm2.weight, self.norm2.bias, m.fc1.weight,
                                    m.fc1.bias, m.fc2.weight, m.fc2.bias,
@@ -398,43 +417,73 @@ class Block(BlockGlue, nn.Module):
         return kv, dict(heads=self.num_heads, eps1=self.norm1.eps, eps2=self.norm2.eps)
 
     def kv_input(self, normed: torch.Tensor, hw: tuple, sr_weight, sr_bias, srn_weight,
-                 srn_bias) -> torch.Tensor:
+                 srn_bias, sp=None) -> torch.Tensor:
         """The K/V input from the LN1'd stream: the linear SR front end, or
-        the conv SR one (the stream itself at sr == 1)."""
+        the conv SR one (the stream itself at sr == 1). Under sequence
+        parallelism (``sp``, the stage's row plan; ``normed`` the band's
+        rows, ``hw`` its grid) the whole K/V input, in the one-process
+        order: conv SR reduces the band and gathers the rows
+        (sequence.gather_kv); linear SR pools the whole grid from every
+        band's share of each window (sequence.linear_pool), runs the rest of
+        its front end replicated and gathers the text rows."""
         a = self.attn
         if a.linear_sr:
-            return linear_reduce_kv_input(normed, hw, sr_weight, sr_bias, srn_weight, srn_bias,
-                                          a.norm.eps)
-        return reduce_kv_input(normed, hw, a.sr_ratio, sr_weight, sr_bias, srn_weight, srn_bias,
-                               a.norm.eps if a.sr_ratio > 1 else 1e-5)
+            if sp is None:
+                return linear_reduce_kv_input(normed, hw, sr_weight, sr_bias, srn_weight,
+                                              srn_bias, a.norm.eps)
+            b, _, d = normed.shape
+            hb, w = hw
+            win, out = linear_pool_shape((sp.h, sp.w))
+            pooled = sequence.linear_pool(normed[:, :hb * w].reshape(b, hb, w, d), sp, win, out)
+            red = linear_sr_rows(pooled.permute(0, 3, 1, 2), sr_weight, sr_bias, srn_weight,
+                                 srn_bias, a.norm.eps)
+            return torch.cat([red, sequence.gather_kv(normed[:, hb * w:], sp, 0, dim=1)], 1)
+        kv_in = reduce_kv_input(normed, hw, a.sr_ratio, sr_weight, sr_bias, srn_weight,
+                                srn_bias, a.norm.eps if a.sr_ratio > 1 else 1e-5)
+        if sp is None:
+            return kv_in
+        return sequence.gather_kv(kv_in, sp, sequence.kv_visual_rows(sp, a.sr_ratio), dim=1)
 
     def linear_sr_kv(self, x: torch.Tensor, hw: tuple, ln1_weight, ln1_bias, sr_weight,
-                     sr_bias, srn_weight, srn_bias, kv_weight, kv_bias):
+                     sr_bias, srn_weight, srn_bias, kv_weight, kv_bias, sp=None):
         """K, V [B, heads, M, hd], contiguous, of a linear-SR block on the
         given parameters (``kernel_params``'s first group, or its cast
         operands): LN1, ``kv_input`` and the K/V projection in PyTorch,
-        where kernel A runs for conv SR."""
+        where kernel A runs for conv SR; ``sp``: the whole K/V from the
+        band's rows."""
         normed = layer_norm_fp32(x, ln1_weight, ln1_bias, self.norm1.eps)
-        kv_in = self.kv_input(normed, hw, sr_weight, sr_bias, srn_weight, srn_bias)
+        kv_in = self.kv_input(normed, hw, sr_weight, sr_bias, srn_weight, srn_bias, sp)
         k, v = split_kv(linear(kv_in, kv_weight, kv_bias), self.num_heads)
         return k.contiguous(), v.contiguous()
 
     def forward(self, x: torch.Tensor, hw: tuple,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None, sp=None) -> torch.Tensor:
+        """The block on the stream x [B, h*w + T, D] of the grid ``hw``. Under
+        sequence parallelism x holds the rank's rows of the row plan ``sp``
+        and ``hw`` is its band's grid: kernel A gives the band's K/V rows,
+        gathered whole (sequence.gather_kv), and B, or C and D, run on the
+        band, D with one halo grid row from each neighbour
+        (sequence.exchange_halo), whose output rows are dropped."""
         if self.training or self.wants_grad(x) or self.tp_group is not None:
-            return self.train_forward(x, hw, generator)
+            return self.train_forward(x, hw, generator, sp=sp)
         ops, kws = self.kernel_operands(x.dtype), self.kernel_kwargs()
         if self.attn.linear_sr:
-            k, v = self.linear_sr_kv(x, hw, *ops[0])
+            k, v = self.linear_sr_kv(x, hw, *ops[0], sp=sp)
         else:
             k, v = fused_ln_sr_kv(x, hw, *ops[0], **kws[0])
+            if sp is not None:
+                k, v = sequence.gather_kv(torch.stack([k, v]), sp,
+                                          sequence.kv_visual_rows(sp, self.attn.sr_ratio))
         if self.v2:
             x = fused_block_attention(x, k, v, *ops[1], **kws[1])
-            return fused_dwconv_mlp(x, hw, *ops[2], **kws[2])
+            if sp is None:
+                return fused_dwconv_mlp(x, hw, *ops[2], **kws[2])
+            out = fused_dwconv_mlp(sequence.exchange_halo(x, sp), sp.halo_hw, *ops[2], **kws[2])
+            return sequence.trim_halo(out, sp)
         return fused_block(x, k, v, *ops[1], **kws[1])
 
     def train_forward(self, x, hw, generator=None, *, attention=fused_attention,
-                      ln_mlp=fused_ln_mlp, block_attention=fused_block_attention_train):
+                      ln_mlp=fused_ln_mlp, block_attention=fused_block_attention_train, sp=None):
         """The differentiable path on the fp32 master parameters. ``attention``,
         ``ln_mlp`` and ``block_attention`` are the kernels' wrappers; a check
         passes functions of the same signatures over their plain versions.
@@ -449,7 +498,9 @@ class Block(BlockGlue, nn.Module):
         probabilities' dropout keeps the rank's heads' slice of the whole
         mask, and the out-projection's partial is summed by
         ``reduce_from_model`` before its bias and the residual are added,
-        once (``row_parallel_linear``)."""
+        once (``row_parallel_linear``). Under sequence parallelism (``sp``)
+        x holds the band's rows: ``kv_input`` gives the whole K/V input, and
+        every other step runs on the band's rows."""
         a = self.attn
         b, n, d = x.shape
         hd = d // self.num_heads
@@ -458,7 +509,7 @@ class Block(BlockGlue, nn.Module):
         normed = layer_norm_fp32(x, self.norm1.weight, self.norm1.bias, self.norm1.eps)
         sr = ((a.sr.weight, a.sr.bias, a.norm.weight, a.norm.bias)
               if a.sr_ratio > 1 else (None,) * 4)
-        kv_in = self.kv_input(normed, hw, *sr)
+        kv_in = self.kv_input(normed, hw, *sr, sp=sp)
         if group is not None:
             normed, kv_in = copy_to_model(normed, group), copy_to_model(kv_in, group)
         k, v = split_kv(linear(kv_in, a.kv.weight, a.kv.bias), heads)
@@ -472,39 +523,44 @@ class Block(BlockGlue, nn.Module):
             q = linear(normed, a.q.weight, a.q.bias).reshape(b, n, heads, hd).transpose(1, 2)
             if self.attn_drop and self.training:
                 o = attention_dropout(q, k, v, hd ** -0.5, self.attn_drop, generator,
-                                      split_dim(group, 1))
+                                      split_dim(group, 1), None if sp is None else (2, sp))
             else:
                 o = attention(q, k, v, hd ** -0.5)
             o = o.transpose(1, 2).reshape(b, n, heads * hd)
             attn_out = self.dropout(row_parallel_linear(o, a.proj.weight, a.proj.bias, group),
-                                    generator)
+                                    generator, sp=sp)
             x = _add_scaled(x, attn_out, self.drop_path_scale(x, generator))
         if self.v2:
-            return self.dwconv_mlp_half(x, hw, generator)
-        return self.mlp_half(x, generator, ln_mlp)
+            return self.dwconv_mlp_half(x, hw, generator, sp)
+        return self.mlp_half(x, generator, ln_mlp, sp)
 
     def dwconv_mlp_half(self, x: torch.Tensor, hw: tuple,
-                        generator: Optional[torch.Generator]) -> torch.Tensor:
+                        generator: Optional[torch.Generator], sp=None) -> torch.Tensor:
         """x + s2 mlp(LN2 x) of PVT-v2's MLP, differentiable PyTorch glue:
         fc1, the 3x3 depthwise conv on the visual rows (the text rows passed
         through), exact GELU on every row, dropout, fc2, dropout. Counterpart
         of mvlt_tpu/models/pvlt.py:DWConvMlp (:250-276); kernel D serves
         only, as the JAX package's does. With ``mlp_split`` on the rank's
         hidden channels: fc1's rows, the conv's channels, the hidden's
-        dropout mask sliced, fc2's partials summed before its bias."""
+        dropout mask sliced, fc2's partials summed before its bias. Under
+        sequence parallelism (``sp``) LN2, fc1 and the conv run on the band
+        with one halo grid row from each neighbour (sequence.exchange_halo)
+        and the conv's halo rows are dropped."""
         m = self.mlp
         b, _, _ = x.shape
-        h, w = hw
-        normed, group = self.mlp_hidden_in(x)
+        h, w = hw if sp is None else sp.halo_hw
+        normed, group = self.mlp_hidden_in(x if sp is None else sequence.exchange_halo(x, sp))
         hidden = linear(normed, m.fc1.weight, m.fc1.bias)
         c = hidden.shape[-1]
         dw = m.dwconv.dwconv
         vis = F.conv2d(hidden[:, : h * w].reshape(b, h, w, c).permute(0, 3, 1, 2),
                        dw.weight.to(x.dtype), dw.bias.to(x.dtype), padding=1, groups=c)
         hidden = torch.cat([vis.flatten(2).transpose(1, 2), hidden[:, h * w:]], dim=1)
-        hidden = self.dropout(gelu(hidden), generator, split_dim(group, -1))
+        if sp is not None:
+            hidden = sequence.trim_halo(hidden, sp)
+        hidden = self.dropout(gelu(hidden), generator, split_dim(group, -1), sp)
         out = self.dropout(row_parallel_linear(hidden, m.fc2.weight, m.fc2.bias, group),
-                           generator)
+                           generator, sp=sp)
         return _add_scaled(x, out, self.drop_path_scale(x, generator))
 
 
@@ -620,14 +676,17 @@ class SwinBlock(BlockGlue, nn.Module):
 
 
 def checkpoint_block(blk: nn.Module, z: torch.Tensor, hw: tuple,
-                     generator: Optional[torch.Generator]) -> torch.Tensor:
+                     generator: Optional[torch.Generator], **kwargs) -> torch.Tensor:
     """``blk(z, hw, generator)`` under torch.utils.checkpoint (``--remat``):
     its activations are recomputed in the backward instead of kept, as
     mvlt_tpu/models/pvlt.py:1194-1202 does with nn.remat. checkpoint replays
     only the default generators, so the block draws its DropPath scales and
     dropout masks from a generator started at ``generator``'s state: the
     recompute draws the same masks, and ``generator`` is then moved to where
-    the block left it, as it would stand without remat."""
+    the block left it, as it would stand without remat. ``kwargs`` go to
+    the block (a row plan ``sp``: the recompute repeats its collectives)."""
+    if kwargs:
+        blk = functools.partial(blk, **kwargs)
     if generator is None:
         return checkpoint(blk, z, hw, None, use_reentrant=False)
     start, end = generator.get_state(), []
@@ -671,10 +730,16 @@ class PVLT(nn.Module):
     for the stage grids of ``input_size`` x ``input_size`` images, the size
     it then runs at (JAX sizes them from the images it initialises with).
     ``tp_group`` is the model group once parallel/tensor.py:shard_model has
-    split it, ``vocab_group`` the same where the vocabulary is split."""
+    split it, ``vocab_group`` the same where the vocabulary is split.
+    ``sp_group`` is the model group a sequence-parallel model
+    (``create_model(..., sp_group=)``) splits each stage's rows over, where
+    parallel/sequence.py:row_plan splits the stage; ``sp_split`` says
+    which stages the last forward split (sequence.reduce_row_grads)."""
 
     tp_group = None
     vocab_group = None
+    sp_group = None
+    sp_split = ()
 
     def __init__(self, cfg: ModelConfig, input_size: int = DataConfig.input_size):
         super().__init__()
@@ -749,7 +814,8 @@ class PVLT(nn.Module):
         dtype = self.compute_dtype
         # eval mode with no gradient wanted: the serving kernels (the JAX
         # package's `deterministic`, and no VJP through a serving kernel)
-        # (a model split by tensor parallelism takes the training route)
+        # (a model split by tensor parallelism takes the training route; a
+        # sequence-parallel one serves on its bands)
         serving = self.tp_group is None and not self.training and not (
             torch.is_grad_enabled() and (
                 images.requires_grad or any(p.requires_grad for p in self.parameters())))
@@ -758,7 +824,7 @@ class PVLT(nn.Module):
         b = images.shape[0]
         y = self.text_embeddings(input_ids, generator, self.vocab_group).to(dtype)
         x = images.to(dtype)
-        img_feats = []
+        img_feats, split = [], []
         for i, dim in enumerate(cfg.embed_dims):
             x, (h, w) = getattr(self, f"patch_embed{i + 1}")(x)
             dense, norm = getattr(self, f"text_embed{i + 1}")
@@ -769,20 +835,29 @@ class PVLT(nn.Module):
             native_g = cfg.img_size // (cfg.patch_size * 2 ** i)
             pos = resize_pos_embed(pos.to(dtype), (native_g, native_g), (h, w))
             text_pos = getattr(self, f"text_pos_embed{i + 1}").to(dtype)
+            plan = sequence.stage_plan(self, i, h, w, y.shape[1])
             if serving and cfg.variant == "swin" and swin_band_stage(cfg.window_size, (h, w)):
                 z = (x + pos, y + text_pos)              # split: kernel E's stage
             else:
                 z = torch.cat([x + pos, y + text_pos], dim=1)
                 if self.training and cfg.drop_rate:
                     z = dropout(z, cfg.drop_rate, generator)
+            # sequence parallelism: the rank's band and text rows, whole again after
+            kw = {} if plan is None else {"sp": plan}
+            if plan is not None:
+                z = sequence.split_rows(z, plan)
             for blk in getattr(self, f"block{i + 1}"):
                 if cfg.remat and not serving:
-                    z = checkpoint_block(blk, z, (h, w), generator)
+                    z = checkpoint_block(blk, z, plan.hw if plan else (h, w), generator, **kw)
                 else:
-                    z = blk(z, (h, w), generator)
+                    z = blk(z, plan.hw if plan else (h, w), generator, **kw)
+            if plan is not None:
+                z = sequence.gather_rows(z, plan)
+            split.append(plan is not None)
             x, y = z if isinstance(z, tuple) else (z[:, : h * w], z[:, h * w:])
             x = x.reshape(b, h, w, dim)
             img_feats.append(x)
+        self.sp_split = tuple(split)
 
         lt = cfg.loss_type
         out: Dict[str, Optional[torch.Tensor]] = dict.fromkeys(
@@ -845,11 +920,19 @@ def init_weights(model: PVLT) -> PVLT:
 
 
 def create_model(cfg: ModelConfig, *, device="cuda",
-                 input_size: int = DataConfig.input_size) -> PVLT:
+                 input_size: int = DataConfig.input_size, sp_group=None) -> PVLT:
     """A PVLT for ``cfg`` with the registry preset for ``cfg.name`` applied,
     initialised as the JAX package initialises it (``init_weights``), on
     ``device`` (the card unless the caller asks for another); a Swin model
-    for images of ``input_size``."""
+    for images of ``input_size``. ``sp_group``: a sequence-parallel model
+    whose stages split their rows over that model group
+    (parallel/mesh.py:model_group after init_model_parallel), as the JAX
+    package's ``create_model(cfg, sp_mesh=mesh)``; every rank of the group
+    holds the whole model and must start from the same weights.
+    parallel/sequence.py:refusals names what it refuses."""
     cfg = resolve_model_config(cfg)
     validate_model_config(cfg)
-    return init_weights(PVLT(cfg, input_size)).to(device)
+    sequence.refusals(cfg, sp_group, None)
+    model = init_weights(PVLT(cfg, input_size)).to(device)
+    model.sp_group = sp_group
+    return model

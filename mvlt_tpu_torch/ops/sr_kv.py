@@ -49,26 +49,43 @@ def reduce_kv_input(normed: torch.Tensor, hw: tuple, sr: int,
 LINEAR_SR_POOL = 7
 
 
+def linear_pool_shape(hw: tuple) -> tuple:
+    """((wh, ww), (oh, ow)): linear SR's pooling windows on an h x w grid,
+    (h // p, w // p) with p = min(7, h, w), and how many fit, the last
+    partial window dropped (at 64/32/16 that gives 7x7, 8x8 and 8x8, not
+    an adaptive 7x7)."""
+    h, w = hw
+    p = min(LINEAR_SR_POOL, h, w)
+    win = (max(1, h // p), max(1, w // p))
+    return win, (h // win[0], w // win[1])
+
+
+def linear_sr_rows(pooled: torch.Tensor, sr_weight: torch.Tensor, sr_bias: torch.Tensor | None,
+                   srn_weight: torch.Tensor, srn_bias: torch.Tensor,
+                   eps_sr: float) -> torch.Tensor:
+    """The reduced K/V input rows [B, oh*ow, D] of linear SR from the pooled
+    grid [B, D, oh, ow]: the 1x1 conv ``sr_weight`` [D, D, 1, 1], SR-LN and
+    exact GELU."""
+    red = F.conv2d(pooled, sr_weight.to(pooled.dtype),
+                   None if sr_bias is None else sr_bias.to(pooled.dtype))
+    return gelu(layer_norm_fp32(red.flatten(2).transpose(1, 2), srn_weight, srn_bias, eps_sr))
+
+
 def linear_reduce_kv_input(normed: torch.Tensor, hw: tuple, sr_weight: torch.Tensor,
                            sr_bias: torch.Tensor | None, srn_weight: torch.Tensor,
                            srn_bias: torch.Tensor, eps_sr: float) -> torch.Tensor:
     """The K/V input of PVT-v2's linear SR from the LN1'd joint stream
-    [B, h*w + T, D]: the visual grid average-pooled in windows of
-    (h // p, w // p) with p = min(7, h, w), windows as strides, the last
-    partial window dropped (at 64/32/16 that gives 7x7, 8x8 and 8x8, not an
-    adaptive 7x7), then the 1x1 conv ``sr_weight`` [D, D, 1, 1], SR-LN and
-    exact GELU; the text rows as they are. Counterpart of
-    mvlt_tpu/models/pvlt.py:197-209, in PyTorch (no kernel computes it)."""
+    [B, h*w + T, D]: the visual grid average-pooled in ``linear_pool_shape``'s
+    windows, windows as strides, then ``linear_sr_rows``; the text rows as
+    they are. Counterpart of mvlt_tpu/models/pvlt.py:197-209, in PyTorch (no
+    kernel computes it)."""
     b, _, d = normed.shape
     h, w = hw
-    p = min(LINEAR_SR_POOL, h, w)
-    win = (max(1, h // p), max(1, w // p))
+    win, _ = linear_pool_shape(hw)
     grid = normed[:, : h * w].reshape(b, h, w, d).permute(0, 3, 1, 2)
     pooled = F.avg_pool2d(grid, win, win)
-    red = F.conv2d(pooled, sr_weight.to(normed.dtype),
-                   None if sr_bias is None else sr_bias.to(normed.dtype))
-    red = layer_norm_fp32(red.flatten(2).transpose(1, 2), srn_weight, srn_bias, eps_sr)
-    return torch.cat([gelu(red), normed[:, h * w:]], dim=1)
+    red = linear_sr_rows(pooled, sr_weight, sr_bias, srn_weight, srn_bias, eps_sr)
+    return torch.cat([red, normed[:, h * w:]], dim=1)
 
 
 def split_kv(kv: torch.Tensor, heads: int) -> tuple[torch.Tensor, torch.Tensor]:

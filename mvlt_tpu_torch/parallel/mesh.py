@@ -16,7 +16,9 @@ rank = data_index x tp + model_index, the model axis innermost. A model
 group holds the ``tp`` ranks of one data index (one replica of the model,
 sharded); a data group the ``dp`` ranks of one model index (the ranks
 holding the same shard, over which DDP averages). With tp = 1 the data
-group is the world and there is no model group.
+group is the world and there is no model group. Sequence parallelism
+(parallel/sequence.py) takes the same groups: a model group's ranks hold
+the whole model and split each stage's rows; the data groups average.
 """
 
 from __future__ import annotations

@@ -9,9 +9,10 @@ is cut into contiguous, equal shards, the last one padded; a rank's results
 go into its slots of zero-filled buffers that ``all_reduce`` sums, and the
 padded slots are masked out. The collectives used are ``all_reduce`` and
 ``broadcast`` only: gloo offers nothing else on CUDA tensors; each takes a
-contiguous tensor (NCCL refuses others). Under tensor
-parallelism (parallel/tensor.py) all of this acts over the data group: the
-ranks of a model group hold the same rows.
+contiguous tensor (NCCL refuses others). Under tensor or sequence
+parallelism (parallel/tensor.py, parallel/sequence.py) all of this acts over
+the data group: the ranks of a model group hold the same rows, and a
+sequence-parallel model's T2I head runs replicated on them.
 """
 
 from __future__ import annotations

@@ -65,7 +65,7 @@ import torch.distributed as dist
 from mvlt_tpu_torch.ops.fused_mlp import ln_mlp_bwd_tp, ln_mlp_fwd_tp
 from mvlt_tpu_torch.ops.kernel_math import acc_dtype, linear, matmul_acc
 from mvlt_tpu_torch.ops.mlm_ce import mlm_ce_bwd_tp, mlm_ce_fwd_tp
-from mvlt_tpu_torch.parallel import mesh
+from mvlt_tpu_torch.parallel import mesh, sequence
 from mvlt_tpu_torch.parallel.sharding import group_size
 
 ROW, COL, KV = "row", "col", "kv"
@@ -396,9 +396,11 @@ def shard_model(model: torch.nn.Module, group) -> torch.nn.Module:
     ``tp_split``), every block and the model learn the group (the model's
     ``vocab_group`` too where the vocabulary splits). Every rank must start from the same weights (the same seed,
     or a state dict loaded before). Raises NotImplementedError for what
-    ``refusals`` names."""
-    tp = group_size(group)
+    ``refusals`` names, and for a sequence-parallel model
+    (parallel/sequence.py:refusals)."""
     cfg = model.cfg
+    sequence.refusals(cfg, model.sp_group, group)
+    tp = group_size(group)
     refused = refusals(cfg)
     if refused:
         raise NotImplementedError(f"tensor parallelism does not cover: {'; '.join(refused)}")

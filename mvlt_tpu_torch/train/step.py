@@ -28,7 +28,11 @@ global microbatch in order; every microbatch but the last runs under
 gradients, the same on every rank.
 Under tensor parallelism (``state.model_group``) the losses take a split
 vocabulary's parallel decode and clipping sums the shards' squares over the
-model group; ``state.group`` is the data group.
+model group; ``state.group`` is the data group. Under sequence parallelism
+(a model built with ``sp_group``) each rank's gradients of the blocks of a
+split stage hold its rows' part: parallel/sequence.py:reduce_row_grads sums
+them over the model group after the backward, before the clip, which then
+sees whole gradients on every rank.
 Not ported, and refused: ``scan_steps > 1`` (one dispatch for several steps).
 """
 
@@ -42,6 +46,7 @@ import torch
 from mvlt_tpu_torch.config import ModelConfig
 from mvlt_tpu_torch.data.fashion_gen import batch_to_device
 from mvlt_tpu_torch.data.masks import device_apply_mask, device_grid_masks
+from mvlt_tpu_torch.parallel.sequence import reduce_row_grads
 from mvlt_tpu_torch.train.losses import compute_losses, mlm_gather_plan
 from mvlt_tpu_torch.train.schedule import clip_by_global_norm, set_lr
 from mvlt_tpu_torch.train.state import TrainState
@@ -111,6 +116,7 @@ def make_train_step(cfg: ModelConfig, *, device_masks: bool = False, mask_ratio:
                 with contextlib.nullcontext() if sync else state.ddp.no_sync():
                     parts.append(forward_backward(state, micro, 1.0 / grad_accum))
             losses = {k: torch.stack([p[k] for p in parts]).mean() for k in parts[0]}
+        reduce_row_grads(state.model)
         if state.clip_grad:
             clip_by_global_norm(state.model.parameters(), state.clip_grad, state.model_group)
         set_lr(state.optimizer, state.lr_schedule(state.step))

@@ -30,7 +30,9 @@ the reference's names; restoring shards them (shard_state_dict). Under
 ZeRO-1 as well, each data group first consolidates its shard's moments on
 its data rank 0 (the ranks of model group 0), which then consolidate them
 over their model group. A run saved at one tp, with or without ZeRO-1,
-resumes at any other, tp = 1 included.
+resumes at any other, tp = 1 included. Under sequence parallelism every
+rank holds the whole model (``state.model_group`` None): rank 0 writes it
+as one process would, and it restores in one process with strict names.
 
 The fine-tune init (``load_finetune_state``) intersects state-dict keys with
 shape filtering, as ``merge_params_by_path`` intersects parameter paths: a

@@ -1,7 +1,7 @@
-"""Worker of the port's data- and tensor-parallel tests
+"""Worker of the port's data-, tensor- and sequence-parallel tests
 (tests/test_torch_port_ddp.py, tests/test_torch_port_ddp_eval.py,
 tests/test_torch_port_imports.py, tests/test_torch_port_tp.py,
-tests/test_torch_port_tp_families.py).
+tests/test_torch_port_tp_families.py, tests/test_torch_port_sp.py).
 
 Run as ``python tests/_ddp_worker.py <spec.json> [--guard]`` with the
 torchrun environment (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR,
@@ -152,14 +152,16 @@ def case_zero(spec, rank, world) -> dict:
 
 def case_eval(spec, rank, world) -> dict:
     """The VL eval, retrieval and recognition of the spec's data with every
-    eval sharded over the ranks."""
+    eval sharded over the (data) ranks; with spec["sp_group"] the model is
+    sequence-parallel over the model group."""
     from mvlt_tpu_torch import cli
     from mvlt_tpu_torch.eval.recognition import evaluate_recognition, make_cls_scorer
     from mvlt_tpu_torch.eval.retrieval import evaluate_retrieval, make_itm_scorer
     from mvlt_tpu_torch.eval.vl_eval import evaluate_vl, make_vl_eval_fn
 
     cfg = port_config(spec)
-    model = create_model(cfg, device="cpu", input_size=spec["img"])
+    model = create_model(cfg, device="cpu", input_size=spec["img"],
+                         sp_group=mesh.model_group() if spec.get("sp_group") else None)
     model.load_state_dict(torch.load(spec["weights"], weights_only=True), strict=True)
     model.eval()
     data = torch.load(spec["eval_data"], weights_only=False)
@@ -290,9 +292,60 @@ def case_tp_families(spec, rank, world) -> dict:
     return out
 
 
+def sp_model(spec, fam: dict, dtype: str = "", **overrides):
+    """The family's micro model (``overrides`` on its config, the masters in
+    ``dtype``) from its whole weights, sequence-parallel over this rank's
+    model group (parallel/mesh.py:init_model_parallel done)."""
+    cfg = port_config({**spec, **fam}, dtype, **overrides)
+    model = create_model(cfg, device="cpu", input_size=spec["img"],
+                         sp_group=mesh.model_group())
+    model.load_state_dict(torch.load(fam["weights"], weights_only=True), strict=True)
+    model.to(getattr(torch, cfg.compute_dtype))    # fp64 runs keep fp64 masters
+    return cfg, model
+
+
+def case_sp(spec, rank, world) -> dict:
+    """Sequence parallelism over model groups of spec["sp"] ranks: per
+    family, the eval forward of this data rank's rows of the global batch
+    (every head), the stages it split and ``describe``; per step case, one
+    step at step 0 on those rows (DDP over the data group where there are
+    several), the v1 one saving a checkpoint; with spec["eval"] the VL,
+    retrieval and recognition evals of the v1 model, sharded over the data
+    ranks."""
+    from mvlt_tpu_torch.parallel.sequence import describe
+
+    mesh.init_model_parallel(spec["sp"])
+    rows = rank_rows(spec["global_batch"], mesh.data_rank(), mesh.data_size())
+    batch = local_batch(spec, rows)
+    out = {"layout": {"model_rank": mesh.model_rank(), "data_rank": mesh.data_rank()},
+           "forward": {}, "split": {}, "describe": {}}
+    for label, fam in spec["families"].items():
+        _, model = sp_model(spec, fam)
+        model.eval()
+        with torch.no_grad():
+            logits = model(torch.from_numpy(batch["images"]),
+                           torch.from_numpy(batch["input_ids"]).long())
+        out["forward"][label] = {k: v for k, v in logits.items() if v is not None}
+        out["split"][label] = model.sp_split
+        out["describe"][label] = describe(model)
+    for label, (family, overrides, dtype) in spec["steps"].items():
+        cfg, model = sp_model(spec, spec["families"][family], dtype, **overrides)
+        ddp = wrap_model(model, torch.device("cpu"), mesh.data_group()) \
+            if mesh.data_size() > 1 else None
+        state = create_train_state(model, config.OptimConfig(warmup_epochs=0),
+                                   spec["global_batch"], 10, seed=mesh.rank_seed(0), ddp=ddp)
+        state, losses = make_train_step(cfg)(state, batch)
+        out[label] = {**snapshot(state, losses), "generator": state.generator.get_state()}
+        if label == "v1":
+            CheckpointManager(spec["ckpt_dir"]).save_epoch(state, 0, 3)
+    if spec.get("eval_data"):
+        out["eval"] = case_eval({**spec, **spec["families"]["v1"], "sp_group": True}, rank, world)
+    return out
+
+
 CASES = {"step": case_step, "plan": case_plan, "meters": case_meters, "zero": case_zero,
          "eval": case_eval, "tp": case_tp, "tp_decode": case_tp_decode,
-         "tp_families": case_tp_families}
+         "tp_families": case_tp_families, "sp": case_sp}
 
 
 def main() -> None:

@@ -174,3 +174,39 @@ def test_two_rank_step_without_jax(tmp_path):
         assert all(np.isfinite(v) for v in a["losses"].values()), a["losses"]
         assert sorted(a["grads"]) == sorted(b["grads"])
         assert all(torch.equal(g, b["grads"][n]) for n, g in a["grads"].items())
+
+
+def test_sequence_parallel_forward_and_step_without_jax(tmp_path):
+    """Two gloo ranks of one model group (tests/_ddp_worker.py, case sp)
+    run the sequence-parallel eval forward and step of pvlt_tiny and
+    pvlt_v2_tiny at 64x64 with jax, flax and the JAX package blocked in
+    both: every stage split, finite losses, the same logits and gradients
+    on both ranks."""
+    import numpy as np
+    import torch
+
+    from mvlt_tpu_torch import config
+    from mvlt_tpu_torch.models.pvlt import create_model
+    from tests.test_torch_port_ddp import GLOBAL_B, HEADS, spawn
+    from tests.test_torch_port_tp_families import global_batch
+    from tests.test_torch_port_train import MICRO
+
+    families = {}
+    for label, name in (("v1", "pvlt_tiny"), ("v2", "pvlt_v2_tiny")):
+        micro = {**MICRO, "img_size": 64, "name": name}
+        torch.manual_seed(0)
+        model = create_model(config.ModelConfig(**micro, loss_type=config.LossType(**HEADS)),
+                             device="cpu", input_size=64)
+        torch.save(model.state_dict(), tmp_path / f"{label}.pt")
+        families[label] = {"micro": micro, "weights": str(tmp_path / f"{label}.pt")}
+    np.savez(tmp_path / "batch.npz", **global_batch(5))
+    spec = {"heads": HEADS, "img": 64, "global_batch": GLOBAL_B, "sp": 2,
+            "batch": str(tmp_path / "batch.npz"), "families": families,
+            "steps": {"v1": ["v1", {}, "float32"], "v2": ["v2", {}, "float32"]},
+            "ckpt_dir": str(tmp_path / "ckpt"), "cases": ["sp"]}
+    a, b = spawn(spec, tmp_path / "out", guard=True)["sp"]
+    for label in families:
+        assert a["split"][label] == (True, True, True, True)
+        assert all(torch.equal(t, b["forward"][label][k]) for k, t in a["forward"][label].items())
+        assert all(np.isfinite(v) for v in a[label]["losses"].values()), a[label]["losses"]
+        assert all(torch.equal(g, b[label]["grads"][n]) for n, g in a[label]["grads"].items())
