@@ -11,8 +11,8 @@ chip_smoke.py is; with fault names, only those. For each fault it copies
 of the model's glue) there, runs the chip_smoke phase that checks it
 (``kernels``, ``v2_kernels``, ``swin_kernels``, ``fba_train_kernels``,
 ``train_kernels``, ``mlm_kernels``, ``train_glue``, ``v2_route``,
-``remat``, ``ddp_two_ranks``, ``tp_kernels``, ``tp_two_ranks`` or
-``tp_families``; on a machine with four cards ``nccl_tp_step`` or
+``remat``, ``ddp_two_ranks``, ``tp_kernels``, ``tp_two_ranks``,
+``tp_families``, ``sp_two_ranks``, ``sp_swin`` or ``sp_tp``; on a machine with four cards ``nccl_tp_step`` or
 ``nccl_tp_zero1``) in that copy (its kernels built from the
 changed source), and then, with the bound lifted, prints every check's
 error at the B = 4 shapes. The copy is removed afterwards; the sources of the checkout are
@@ -183,6 +183,22 @@ and each primitive against the whole tensor's rows):
                        the divisor still the whole window's);
   sp_dropout_band_mask  a dropout mask of a rank's rows drawn over its rows
                        alone, not the one-process mask's rows.
+Swin under sequence parallelism (parallel/sequence.py, models/swin.py),
+phase sp_swin (sp_two_ranks on Swin alone: its bundle on the bands, its
+step, the primitives):
+  sp_swin_no_exchange  the shifted windows' roll takes no rows from the next
+                       band: each rank rolls its own band cyclically;
+  sp_swin_band_pool    the text queries' pool window taken from the band's
+                       grid (h / n rows) instead of the whole grid's.
+Sequence parallelism with tensor-parallel weights on one model group
+(parallel/sequence.py:row_grad_params), phase sp_tp (sp_two_ranks' steps
+with the weights split, alone):
+  sptp_shard_grads_summed  the tensor-parallel shards' gradients summed over
+                       the model group with the rest (each rank's shard
+                       plus the other ranks' different shards);
+  sptp_band_bias_unsummed  the out-projection's and fc2's biases, added on
+                       the band after the reduce-scatter, left out of the
+                       sum (each rank keeps its band's part).
 Across four cards over NCCL (utils/checkpoint.py, parallel/mesh.py), on a
 machine with four cards:
   zero1_moments_model_rank0  saving consolidates ZeRO-1's moments over the
@@ -443,6 +459,23 @@ FAULTS = {
         "sp_two_ranks", "mvlt_tpu_torch/models/bert_embeddings.py",
         "        shape[dim] = plan.h * plan.w + plan.t\n",
         "        rows = None\n"),
+    "sp_swin_no_exchange": (
+        "sp_swin", "mvlt_tpu_torch/parallel/sequence.py",
+        "plan)[roll_partner(plan, shift)]",
+        "plan)[plan.rank]"),
+    "sp_swin_band_pool": (
+        "sp_swin", "mvlt_tpu_torch/models/swin.py",
+        "win = max(1, whole[0] // TEXT_POOL)",
+        "win = max(1, hw[0] // TEXT_POOL)"),
+    "sptp_shard_grads_summed": (
+        "sp_tp", "mvlt_tpu_torch/parallel/sequence.py",
+        '            if not getattr(p, "tp_split", None)]',
+        "            ]"),
+    "sptp_band_bias_unsummed": (
+        "sp_tp", "mvlt_tpu_torch/parallel/sequence.py",
+        '            for p in getattr(model, f"block{i + 1}").parameters()\n',
+        '            for n, p in getattr(model, f"block{i + 1}").named_parameters()\n'
+        '            if not n.endswith(("proj.bias", "fc2.bias"))\n'),
     "data_group_over_model_axis": (
         "nccl_tp_step", "mvlt_tpu_torch/parallel/mesh.py",
         "            layout[\"data_group\"] = g",
@@ -465,6 +498,12 @@ pass
 pass
 """,
     "sp_two_ranks": """
+pass
+""",
+    "sp_swin": """
+pass
+""",
+    "sp_tp": """
 pass
 """,
     "nccl_tp_step": """

@@ -248,17 +248,24 @@ JSON line each; a failed phase raises and the script exits non-zero:
      generator in the one-process state (the split masks drew what one
      process draws), every rank's digests equal, exact launches a rank;
  18. sp_two_ranks: the same two gloo ranks as one sequence-parallel model
-     group (create_model(..., sp_group=), every stage split into bands of
-     half its grid rows and 64 text rows): each primitive of
-     parallel/sequence.py at stage 1 against the whole tensor's rows within
-     SP_PRIMITIVE_TOL (split and gather, the K/V gather and its
-     reduce-scatter, the halo exchange, linear SR's pool, a dropout mask's
-     rows, each backward), pvlt_tiny, pvlt_v2_tiny and pvlt_v2_linear_tiny
-     scoring a B = 101 bundle on their bands (A and B, or A, C and D,
-     SP_SERVING's launches a forward a rank) within SLICE_TOL of this
-     process's whole forward, a B = 150 step of v1 on both routes and of v2
-     against this process's under tp_families' bounds with SP_STEPS'
-     launches a rank; kernel A on each band beside A on the whole grid.
+     group (create_model(..., sp_group=), each stage planned_split names
+     split into bands of half its grid rows and 64 text rows; Swin's stages
+     1-3, by whole window rows): each primitive of parallel/sequence.py at
+     stage 1 against the whole tensor's rows within SP_PRIMITIVE_TOL (split
+     and gather, the K/V gather and its reduce-scatter, the halo exchange,
+     linear SR's pool, a dropout mask's rows, Swin's shifted-window roll,
+     the reduce-scatter of a row-parallel product's partials, each
+     backward), pvlt_tiny, pvlt_v2_tiny, pvlt_v2_linear_tiny and
+     pvlt_swin_tiny scoring a B = 101 bundle on their bands (A and B, A, C
+     and D, or F and #12 on Swin's split stages and E on the whole one:
+     sp_serving_launches a forward a rank) within SLICE_TOL of this
+     process's whole forward (Swin's on the same route), a B = 150 step of v1 on both routes, of v2
+     and of Swin, and of v1 and Swin with their weights split over the same
+     two ranks (SP x TP: the consolidated tensors, #10-#15's TP modes,
+     SPTP_STEPS' launches) against this process's under tp_families'
+     bounds with SP_STEPS' launches a rank; kernel A on each band beside A
+     on the whole grid; kernel F on a band's windows against its plain
+     version.
 
 ``--cards 4`` (a machine with four cards; each phase under
 ``python -m torch.distributed.run --nproc_per_node=4``, one rank a card,
@@ -270,10 +277,11 @@ step under ZeRO-1; a rank's ms a step beside one process's at B = 150) and
 nccl_tp (dp 2 x tp 2: the command line at --tp-size 2 on v1, v2 and Swin;
 a split step of each at B = 150 a data rank against one process's at B =
 300; v2 under ZeRO-1 over the data group, its checkpoint resumed at tp = 1
-without it) and nccl_sp (sp 4: pvlt_tiny serving a B = 101 bundle and its
-B = 150 step on bands of a quarter of the rows; dp 2 x sp 2: v2's step at
-B = 150 a data rank against one process at B = 300; sp_two_ranks' checks,
-a rank's ms beside one process's). It prints the cards' nvidia-smi lines
+without it) and nccl_sp (sp 4: pvlt_tiny and pvlt_swin_tiny serving a B = 101 bundle
+and taking their B = 150 steps on bands of a quarter of the rows, Swin's
+stages 1-2, and pvlt_tiny's step with its weights split over the same four
+ranks; dp 2 x sp 2: v2's step at B = 150 a data rank against one process
+at B = 300; sp_two_ranks' checks, a rank's ms beside one process's). It prints the cards' nvidia-smi lines
 and the same last line, ``count`` the cards it used.
 
 Then one line {"kernels": [...]}: per kernel the launches of its path's
@@ -4350,10 +4358,12 @@ def phase_tp_families(stats: dict) -> None:
 
 SP_SIZE = 2
 # a serving forward's launches a rank, by model: every block on its band
+# (Swin's: sp_serving_launches, by the stages that split)
 SP_SERVING = {
     "pvlt_tiny": {"sr_kv": 8, "block_fused": 8},
     "pvlt_v2_tiny": {"sr_kv": 8, "block_attention": 8, "dwconv_mlp": 8},
     "pvlt_v2_linear_tiny": {"sr_kv": 2, "block_attention": 8, "dwconv_mlp": 8},
+    "pvlt_swin_tiny": None,
 }
 # case: (registry model, config overrides on ddp_config, a step's launches a rank)
 SP_STEPS = {
@@ -4364,6 +4374,18 @@ SP_STEPS = {
                   "mlm_ce_fwd": 1, "mlm_ce_bwd": 1}),
     "v2": ("pvlt_v2_tiny", {}, {"attention_fwd": 8, "attention_bwd": 8, "mlm_ce_fwd": 1,
                                 "mlm_ce_bwd": 1}),
+    "swin": ("pvlt_swin_tiny", {}, {"ln_mlp_fwd": 8, "ln_mlp_bwd": 8, "mlm_ce_fwd": 1,
+                                    "mlm_ce_bwd": 1}),
+}
+# sequence parallelism with the weights split over the same model group
+# (shard_model): SP_STEPS' cases, each with its launches a rank of a step
+# by the model group's size (pvlt_tiny's vocabulary of 30,522 rows splits
+# over 2 ranks, not over 4)
+SPTP_STEPS = {
+    "v1": {2: TP_STEP_LAUNCHES,
+           4: {**{k: v for k, v in TP_STEP_LAUNCHES.items() if "mlm" not in k},
+               "mlm_ce_fwd": 1, "mlm_ce_bwd": 1}},
+    "swin": {2: TP_FAMILY_LAUNCHES["ln_mlp"]},
 }
 # the primitives move or add values without rounding (fp32 buffers, a sum
 # of one value and zeros); linear SR's pool adds in another order
@@ -4379,6 +4401,27 @@ def sp_serving_config(name: str) -> ModelConfig:
 def sp_step_config(case: str) -> ModelConfig:
     name, overrides, _ = SP_STEPS[case]
     return dataclasses.replace(ddp_config(), name=name, **overrides)
+
+
+def planned_split(cfg: ModelConfig, n: int) -> list:
+    """The stages parallel/sequence.py:row_plan splits at 256 over n ranks."""
+    from mvlt_tpu_torch.models.registry import resolve_model_config
+    from mvlt_tpu_torch.parallel import sequence
+
+    cfg = resolve_model_config(cfg)
+    return [sequence.row_plan(h, w, cfg.num_text_tokens, sequence.stage_unit(cfg, i, (h, w)),
+                              n, 0).split
+            for i, (h, w) in enumerate(sequence.stage_grids(cfg, 256))]
+
+
+def sp_serving_launches(name: str, split: list) -> dict:
+    """A serving forward's launches a rank: SP_SERVING's; Swin's split
+    stages (two blocks each) on the window path, F and #12 a block, the
+    others whole on kernel E (every stage at 256 admits it)."""
+    if name != "pvlt_swin_tiny":
+        return SP_SERVING[name]
+    k = sum(split)
+    return {"swin_attention": 2 * k, "ln_mlp_fwd": 2 * k, "swin_block": 2 * (len(split) - k)}
 
 
 def sp_bundle(device) -> tuple:
@@ -4407,7 +4450,7 @@ def sp_primitives(device, group) -> dict:
     gaps = {}
 
     def gap(name, got, want):
-        gaps[name] = float((got.double() - want.double()).abs().max()) / max(
+        gaps[name] = float((got.detach().double() - want.double()).abs().max()) / max(
             float(want.double().abs().max()), 1e-30)
 
     mv = plan.hb * w
@@ -4448,6 +4491,28 @@ def sp_primitives(device, group) -> dict:
     gen.set_state(state)
     rows = dropout(sequence.take(ones, plan, mv), 0.1, gen, rows=(1, plan))
     gap("dropout_rows", rows, sequence.take(whole, plan, mv))
+    # Swin's shifted windows at stage 1 (windows of 8, s = 4): the band of
+    # the grid rolled by -s rows, its backward the gradient rolled back
+    s, grid = 4, rnd(b, h * w, d)
+    gb = grid[:, rank * mv:(rank + 1) * mv].clone().requires_grad_(True)
+    rolled = sequence.roll_rows(gb, plan, -s)
+
+    def roll(t, k):
+        return torch.roll(t.reshape(b, h, w, d), k, 1).reshape(b, h * w, d)[
+            :, rank * mv:(rank + 1) * mv]
+
+    gap("roll_rows", rolled, roll(grid, -s))
+    r = rnd(b, h * w, d)
+    (rolled * r[:, rank * mv:(rank + 1) * mv]).sum().backward()
+    gap("roll_rows_backward", gb.grad, roll(r, s))
+    # a row-parallel product's partials (the same on every rank here)
+    # reduce-scattered to the band, the backward all-gathering
+    part = rnd(b, h * w + TEXT, d).requires_grad_(True)
+    scattered = sequence.scatter_rows(part, plan)
+    gap("scatter_rows", scattered, n * sequence.take(part.detach(), plan, mv))
+    r = rnd(*part.shape)
+    (scattered * sequence.take(r, plan, mv)).sum().backward()
+    gap("scatter_rows_backward", part.grad, r)
     return gaps
 
 
@@ -4461,10 +4526,13 @@ def sp_rank_cases(spec: dict, device, group) -> tuple:
     forward on the bundle through make_itm_scorer (launches, logits, the
     ITM head's input, ms a forward) and each step case on this data rank's
     rows (launches, losses, digests; the whole gradients, parameters and
-    BatchNorm statistics in ``tensors``; ms a step). Returns (results,
-    tensors)."""
+    BatchNorm statistics in ``tensors``; ms a step), and each case of
+    spec["sptp_steps"] with the weights split over the group as well
+    (results under "sptp", consolidated tensors under "sptp_<case>").
+    Returns (results, tensors)."""
     from mvlt_tpu_torch.parallel import mesh
     from mvlt_tpu_torch.parallel.sharding import wrap_model
+    from mvlt_tpu_torch.parallel.tensor import shard_model
 
     res, tensors = {"serving": {}, "steps": {}}, {}
     if spec["serving"]:
@@ -4485,33 +4553,41 @@ def sp_rank_cases(spec: dict, device, group) -> tuple:
                                 "digest": tensors_digest(tensors[f"serving_{name}"])}
         del model
         torch.cuda.empty_cache()
-    host = dict(np.load(spec["batch"])) if spec["steps"] else {}
-    for case in spec["steps"]:
+    steps = ([(case, False) for case in spec["steps"]]
+             + [(case, True) for case in spec.get("sptp_steps", ())])
+    host = dict(np.load(spec["batch"])) if steps else {}
+    res["sptp"] = {}
+    for case, sptp in steps:
         cfg = sp_step_config(case)
         share = host["images"].shape[0] // mesh.data_size()
         lo = mesh.data_rank() * share
         batch = batch_to_device({k: v[lo:lo + share] for k, v in host.items()}, device)
         model = create_model(cfg, device=device, sp_group=group)
         model.load_state_dict(seeded_weights(model), strict=True)
+        if sptp:     # the weights split over the model group too
+            shard_model(model, group)
         ddp = wrap_model(model, device, mesh.data_group()) if mesh.data_size() > 1 else None
         state = create_train_state(model, OptimConfig(warmup_epochs=0), share * mesh.data_size(),
-                                   1, seed=mesh.rank_seed(SEED), ddp=ddp)
+                                   1, seed=mesh.rank_seed(SEED), ddp=ddp,
+                                   model_group=group if sptp else None)
         step = make_train_step(cfg)
         reset_launches()
         _, losses = step(state, batch)
         torch.cuda.synchronize()
         launches = read_launches()
-        tensors[case] = {"grads": {n: host_copy(p.grad) for n, p in model.named_parameters()},
+        key = f"sptp_{case}" if sptp else case
+        tensors[key] = (consolidated(model, group) if sptp else
+                        {"grads": {n: host_copy(p.grad) for n, p in model.named_parameters()},
                          "params": {n: host_copy(p) for n, p in model.named_parameters()},
-                         "buffers": {n: host_copy(b) for n, b in model.named_buffers()}}
+                         "buffers": {n: host_copy(b) for n, b in model.named_buffers()}})
         sums = torch.tensor([float(losses[k]) for k in sorted(losses)], dtype=torch.float64,
                             device=device)
         if mesh.data_size() > 1:
             torch.distributed.all_reduce(sums, group=mesh.data_group())
-        res["steps"][case] = {
+        res["sptp" if sptp else "steps"][case] = {
             "launches": launches, "split": list(model.sp_split),
             "mean_losses": dict(zip(sorted(losses), (sums / mesh.data_size()).tolist())),
-            "digests": {k: tensors_digest(v) for k, v in tensors[case].items()},
+            "digests": {k: tensors_digest(v) for k, v in tensors[key].items()},
             "ms": cuda_time_ms(lambda: step(state, batch), warmup=1, reps=3)
             if spec["time"] else None}
         del model, state, ddp
@@ -4541,9 +4617,19 @@ def sp_two_ranks_rank(spec: dict) -> None:
     mesh.destroy()
 
 
-def sp_serving_reference(names, device) -> dict:
+def sp_serving_reference(names, device, sp: int = SP_SIZE) -> dict:
     """This process's whole forward of each model on the bundle from the
-    same weights: {name: (logits, ITM head input, ms a forward)}."""
+    same weights: {name: (logits, ITM head input, ms a forward, None)}.
+    Swin's bands serve a split stage on the window path (F and #12), as the
+    JAX package's gate keeps its band kernel off under sp_mesh: its
+    reference takes that path on the stages planned_split splits over
+    ``sp`` ranks and E on the others, as the bands do, and the last entry
+    holds (logits, ITM head input) of its forward on E at every stage."""
+    from unittest import mock
+
+    from mvlt_tpu_torch.models import pvlt
+    from mvlt_tpu_torch.parallel import sequence
+
     images, ids = sp_bundle(device)
     out = {}
     for name in names:
@@ -4551,7 +4637,17 @@ def sp_serving_reference(names, device) -> dict:
         model.load_state_dict(seeded_weights(model), strict=True)
         scorer = make_itm_scorer(model)
         logits, feats = itm_outputs(model, images, ids)
-        out[name] = (logits, feats, cuda_time_ms(lambda: scorer(images, ids), warmup=1, reps=3))
+        ms = cuda_time_ms(lambda: scorer(images, ids), warmup=1, reps=3)
+        e_route = None
+        if name == "pvlt_swin_tiny":
+            split = planned_split(model.cfg, sp)
+            bands = {g for g, on in zip(sequence.stage_grids(model.cfg, 256), split) if on}
+            gate = pvlt.swin_band_stage
+            e_route = (logits, feats)
+            with mock.patch.object(pvlt, "swin_band_stage",
+                                   lambda ws, hw: tuple(hw) not in bands and gate(ws, hw)):
+                logits, feats = itm_outputs(model, images, ids)
+        out[name] = (logits, feats, ms, e_route)
         del model
         torch.cuda.empty_cache()
     return out
@@ -4581,51 +4677,68 @@ def sp_step_references(cases, batch: dict, global_b: int) -> tuple:
     return want, swaps, ms
 
 
-def sp_compare(ranks: list, got: dict, serving: dict, want: dict, swaps: dict) -> tuple:
+def sp_compare(ranks: list, got: dict, serving: dict, want: dict, swaps: dict,
+               sp: int = SP_SIZE) -> tuple:
     """The ranks' results against this process's: per serving model the
     ITM head's input and logits (gap relative to the largest, within
-    SLICE_TOL) and a rank's launches (SP_SERVING a forward, nothing else);
-    per step case compare_split_step's gradients, parameters and BatchNorm
-    statistics, the losses within DDP_TOL and a rank's launches
-    (SP_STEPS'); every rank of a model group the same digests. Returns
-    (results, failed checks)."""
+    SLICE_TOL) and a rank's launches (sp_serving_launches a forward,
+    nothing else); per step case, and per case with the weights split over
+    the model group too (its consolidated tensors), compare_split_step's
+    gradients, parameters and BatchNorm statistics, the losses within
+    DDP_TOL and a rank's launches (SP_STEPS', SPTP_STEPS'); every model
+    splitting the stages planned_split names over ``sp`` ranks, at least
+    one; every rank of a model group the same digests. Returns (results,
+    failed checks)."""
     results, failed = {}, []
     for name in serving:
-        logits, feats, ms = serving[name]
+        logits, feats, ms, e_route = serving[name]
         mine = got[f"serving_{name}"]
         g_feats = _rel_err(mine["feats"], feats)[1]
         g_logits = _rel_err(mine["logits"], logits)[1]
-        expected = {w: SP_SERVING[name].get(w, 0) for w in WRAPPERS}
+        vs_e = None if e_route is None else {   # information: the route differs
+            "rel_err_itm_input": _rel_err(mine["feats"], e_route[1])[1],
+            "rel_err_itm_logits": _rel_err(mine["logits"], e_route[0])[1],
+            "one_process_window_vs_e_itm_logits": _rel_err(logits, e_route[0])[1]}
+        split = planned_split(sp_serving_config(name), sp)
+        expected = {w: sp_serving_launches(name, split).get(w, 0) for w in WRAPPERS}
         checks = {"feats": g_feats <= SLICE_TOL, "logits": g_logits <= SLICE_TOL,
                   "launches": all(r["serving"][name]["launches"] == expected for r in ranks),
-                  "all_stages_split": all(all(r["serving"][name]["split"]) for r in ranks),
+                  "stages_split_as_planned": any(split) and all(
+                      r["serving"][name]["split"] == split for r in ranks),
                   "ranks_equal": len({r["serving"][name]["digest"] for r in ranks}) == 1}
         results[name] = {"checks": checks, "rel_err_itm_input": g_feats,
                          "rel_err_itm_logits": g_logits, "tol": SLICE_TOL,
+                         "vs_one_process_on_kernel_e": vs_e,
                          "launches": ranks[0]["serving"][name]["launches"],
                          "ms_forward_rank": [r["serving"][name]["ms"] for r in ranks],
                          "ms_forward_one_process": ms}
         failed += [f"{name}:{k}" for k, v in checks.items() if not v]
-    for case in want:
-        cmp = compare_split_step(got[case], want[case], swaps[case])
-        l_gap = loss_gap(ranks[0]["steps"][case]["mean_losses"], want[case]["losses"])
-        expected = {w: SP_STEPS[case][2].get(w, 0) for w in WRAPPERS}
+    runs = [(case, "steps", case, SP_STEPS[case][2]) for case in want
+            if case in ranks[0]["steps"]]
+    runs += [(case, "sptp", f"sptp_{case}", SPTP_STEPS[case][sp]) for case in want
+             if case in ranks[0]["sptp"]]
+    for case, part, key, launches in runs:
+        cmp = compare_split_step(got[key], want[case], swaps[case])
+        l_gap = loss_gap(ranks[0][part][case]["mean_losses"], want[case]["losses"])
+        expected = {w: launches.get(w, 0) for w in WRAPPERS}
+        split = planned_split(sp_step_config(case), sp)
         checks = {"losses": l_gap <= DDP_TOL, "grads": cmp["grad_ratio"][1] <= 1.0,
                   "params": cmp["param_gap"][1] <= ZERO_TOL, "batchnorms": cmp["bn_gap"] <= DDP_TOL,
-                  "launches": all(r["steps"][case]["launches"] == expected for r in ranks),
-                  "all_stages_split": all(all(r["steps"][case]["split"]) for r in ranks),
-                  "ranks_equal": len({json.dumps(r["steps"][case]["digests"], sort_keys=True)
+                  "launches": all(r[part][case]["launches"] == expected for r in ranks),
+                  "stages_split_as_planned": any(split) and all(
+                      r[part][case]["split"] == split for r in ranks),
+                  "ranks_equal": len({json.dumps(r[part][case]["digests"], sort_keys=True)
                                       for r in ranks}) == 1}
-        results[case] = {"checks": checks, "rel_err_losses": l_gap,
-                         "launches": ranks[0]["steps"][case]["launches"],
-                         "ms_step_rank": [r["steps"][case]["ms"] for r in ranks], **cmp}
-        failed += [f"{case}:{k}" for k, v in checks.items() if not v]
+        results[key] = {"checks": checks, "rel_err_losses": l_gap,
+                        "launches": ranks[0][part][case]["launches"],
+                        "ms_step_rank": [r[part][case]["ms"] for r in ranks], **cmp}
+        failed += [f"{key}:{k}" for k, v in checks.items() if not v]
     return results, failed
 
 
 def sp_record_launches(stats: dict, rank0: dict) -> None:
     """Each kernel's launches a rank over the phase's forwards and steps."""
-    for part in ("serving", "steps"):
+    for part in ("serving", "steps", "sptp"):
         for run in rank0[part].values():
             for name, n in run["launches"].items():
                 stats[name]["sp_launches"] += n
@@ -4660,7 +4773,38 @@ def kernel_a_band_gap(device) -> dict:
                                        _build.sm_count(0))}
 
 
-def phase_sp_two_ranks(stats: dict) -> None:
+def kernel_f_band_gap(stats: dict) -> dict:
+    """Kernel F on rank 1's windows of Swin's stage 1 at 256 (B = 101, a
+    band of 32 of 64 grid rows, windows of 8, shifted: the whole grid's
+    table sliced to the band's window rows, as SwinJointAttention takes
+    it) against its plain version; raises past KERNEL_TOL."""
+    from mvlt_tpu_torch.parallel import sequence
+
+    gen = torch.Generator().manual_seed(SEED + 69)
+    h = w = 64
+    d, nh, ws, s = 64, 1, 8, 4
+    plan = sequence.row_plan(h, w, TEXT, ws, SP_SIZE, 1)
+    args, scale = swin_attention_inputs(gen, (plan.hb, w, d, nh, ws, TEXT), True, BATCH)
+    rel = (0.5 * torch.randn((2 * ws - 1) ** 2, nh, generator=gen)).to("cuda")
+    index = torch.from_numpy(relative_position_index(ws)).to("cuda")
+    mask = torch.from_numpy(window_masks(h, w, ws, s)[sequence.band_windows(plan, ws)]).to("cuda")
+    args = (*args[:5], add_table(rel, index, mask, TEXT))
+    got = fused_swin_attention(*args, scale=scale)
+    want = swin_attention_reference(*args, scale=scale)
+    torch.cuda.synchronize()
+    abs_err, rel_err = _rel_err(got, want)
+    ok = bool(rel_err <= KERNEL_TOL and np.isfinite(rel_err))
+    stats["swin_attention"]["max_abs_err"] = max(stats["swin_attention"]["max_abs_err"], abs_err)
+    if not ok:
+        raise AssertionError(f"kernel F on a band disagrees with its plain version: rel err "
+                             f"{rel_err:.3e} > {KERNEL_TOL}")
+    return {"windows": args[0].shape[1], "max_abs_err": abs_err, "rel_err": rel_err,
+            "tol": KERNEL_TOL}
+
+
+def phase_sp_two_ranks(stats: dict, serving: tuple = tuple(SP_SERVING),
+                       steps: tuple = tuple(SP_STEPS), sptp_steps: tuple = tuple(SPTP_STEPS),
+                       phase: str = "sp_two_ranks") -> None:
     """Sequence parallelism on two gloo ranks of one model group on the one
     card (NCCL refuses two ranks on one device), each model at full width
     (256x256, 128 tokens, bf16, seeded weights), every stage split into
@@ -4668,41 +4812,54 @@ def phase_sp_two_ranks(stats: dict) -> None:
     of parallel/sequence.py at stage 1 against the whole tensor's rows
     within SP_PRIMITIVE_TOL (split and gather and their backward, the K/V
     gather and its reduce-scatter, the halo exchange and its backward,
-    linear SR's pool, a dropout mask of the rows); pvlt_tiny,
-    pvlt_v2_tiny and pvlt_v2_linear_tiny score one B = 101 bundle through
-    make_itm_scorer on their bands (A and B, or A, C and D, SP_SERVING's
-    launches a forward a rank and no other kernel), the ITM head's input
-    and logits within SLICE_TOL of this process's whole forward; one B =
-    150 step of v1 on both routes and of v2 against this process's
+    linear SR's pool, a dropout mask of the rows, Swin's shifted-window
+    roll and the reduce-scatter of a row-parallel product's partials, each
+    backward); pvlt_tiny, pvlt_v2_tiny, pvlt_v2_linear_tiny and
+    pvlt_swin_tiny score one B = 101 bundle through make_itm_scorer on
+    their bands (A and B, or A, C and D, or on Swin's split stages 1-3 F
+    and #12 a block and on stage 4, whole, E: sp_serving_launches a
+    forward a rank and no other kernel), the ITM head's input and logits
+    within SLICE_TOL of this process's whole forward (Swin's on the route
+    its bands take, sp_serving_reference; its gap to E's route beside
+    it); one B = 150 step of v1 on both routes, of v2 and of Swin against
+    this process's
     (compare_split_step: the losses within DDP_TOL, each gradient within
     ddp_two_ranks' bound, the parameters within ZERO_TOL of AdamW's step on
     the gradients, the BatchNorm statistics), SP_STEPS' launches a step a
-    rank; both ranks' digests equal. Kernel A's band rows beside its whole
-    grid's (information). The ranks are not timed: over gloo every gather
-    goes through host copies (nccl_sp times a rank)."""
+    rank; then v1's and Swin's step with the weights split over the same
+    two ranks (sequence and tensor parallelism on one model group; the
+    consolidated tensors held the same way, SPTP_STEPS' launches of
+    #10-#15's modes); both ranks' digests equal. Kernel A's band rows
+    beside its whole grid's (information); kernel F on a band's windows
+    against its plain version. The ranks are not timed: over gloo every
+    gather goes through host copies (nccl_sp times a rank)."""
     DDP_DIR.mkdir(parents=True, exist_ok=True)
     arrays = {k: v for k, v in train_batch(SEED + 51, TRAIN_BATCH).items()
               if isinstance(v, np.ndarray)}
     np.savez(DDP_DIR / "sp_batch.npz", **arrays)
     batch = batch_to_device(arrays, "cuda")
-    serving = sp_serving_reference(SP_SERVING, "cuda")
-    want, swaps, one_ms = sp_step_references(SP_STEPS, batch, TRAIN_BATCH)
+    names = serving
+    serving = sp_serving_reference(names, "cuda")
+    want, swaps, one_ms = sp_step_references([c for c in SP_STEPS if c in steps + sptp_steps],
+                                             batch, TRAIN_BATCH)
     band = kernel_a_band_gap("cuda")
+    band_f = kernel_f_band_gap(stats)
     del batch
     torch.cuda.empty_cache()
     start = time.perf_counter()
     try:
         ranks = spawn_ranks("sp_two_ranks", SP_SIZE,
                             {"batch": str(DDP_DIR / "sp_batch.npz"), "out": str(DDP_DIR),
-                             "serving": list(SP_SERVING), "steps": list(SP_STEPS),
-                             "time": False}, timeout=900)
+                             "serving": list(names), "steps": list(steps),
+                             "sptp_steps": list(sptp_steps), "time": False}, timeout=900)
         got = torch.load(DDP_DIR / "sp_tensors.pt", weights_only=True)
     finally:
         shutil.rmtree(DDP_DIR, ignore_errors=True)
     seconds = time.perf_counter() - start
     results, failed = sp_compare(ranks, got, serving, want, swaps)
-    for case in want:
-        results[case]["ms_step_one_process"] = one_ms[case]
+    for key, r in results.items():
+        if key.removeprefix("sptp_") in one_ms:
+            r["ms_step_one_process"] = one_ms[key.removeprefix("sptp_")]
     primitives = {k: max(r["primitives"][k] for r in ranks) for k in ranks[0]["primitives"]}
     common = {"backend_gloo_world_2": all(r["backend"] == "gloo" and r["world"] == SP_SIZE
                                           for r in ranks),
@@ -4710,17 +4867,30 @@ def phase_sp_two_ranks(stats: dict) -> None:
     failed += [k for k, v in common.items() if not v]
     sp_record_launches(stats, ranks[0])
     ok = not failed
-    emit("sp_two_ranks", sp=SP_SIZE, dp=1, batch_serving=BATCH, batch_step=TRAIN_BATCH,
+    emit(phase, sp=SP_SIZE, dp=1, batch_serving=BATCH, batch_step=TRAIN_BATCH,
          checks=common, primitives_rel_err=primitives, primitive_tol=SP_PRIMITIVE_TOL,
          primitive_over_tol={k: v / SP_PRIMITIVE_TOL for k, v in primitives.items()},
-         cases=results, kernel_a_band_vs_whole=band, tol=DDP_TOL,
+         cases=results, kernel_a_band_vs_whole=band, kernel_f_band_vs_plain=band_f, tol=DDP_TOL,
          ms_note="the ranks are not timed: over gloo every gather goes through host copies "
                  "(nccl_sp times them); one process: CUDA events, 1 warm-up, median of 3",
          seconds=seconds, ok=ok)
     if not ok:
-        raise AssertionError(f"sp_two_ranks failed {failed}: primitives {primitives}; " + "; ".join(
+        raise AssertionError(f"{phase} failed {failed}: primitives {primitives}; " + "; ".join(
             f"{c} {r.get('grad_ratio')} {r.get('param_gap')} {r.get('rel_err_itm_input')}"
             for c, r in results.items()))
+
+
+def phase_sp_swin(stats: dict) -> None:
+    """sp_two_ranks on Swin alone: its bundle on the bands and its step, the
+    primitives (chip_faults.py's Swin faults)."""
+    phase_sp_two_ranks(stats, ("pvlt_swin_tiny",), ("swin",), (), "sp_swin")
+
+
+def phase_sp_tp(stats: dict) -> None:
+    """sp_two_ranks' steps with the weights split over the model group too,
+    alone, and the primitives (chip_faults.py's sequence x tensor
+    parallelism faults)."""
+    phase_sp_two_ranks(stats, (), (), tuple(SPTP_STEPS), "sp_tp")
 
 
 # ---- data and tensor parallelism over NCCL across four cards (--cards 4) ----
@@ -5178,9 +5348,10 @@ def phase_nccl_tp_zero1(stats: dict) -> None:
     phase_nccl_tp(stats, families=(), run_cli=False, zero1=True)
 
 
-NCCL_SP_CASES = {    # label: (model group size, serving models, step cases, global batch)
-    "sp4": (NCCL_CARDS, ("pvlt_tiny",), ("v1",), TRAIN_BATCH),
-    "dp2_sp2": (2, (), ("v2",), 2 * TRAIN_BATCH),
+NCCL_SP_CASES = {    # label: (model group size, serving models, step cases, the step
+    # cases with the weights split over the model group too, global batch)
+    "sp4": (NCCL_CARDS, ("pvlt_tiny", "pvlt_swin_tiny"), ("v1", "swin"), ("v1",), TRAIN_BATCH),
+    "dp2_sp2": (2, (), ("v2",), (), 2 * TRAIN_BATCH),
 }
 
 
@@ -5197,10 +5368,10 @@ def nccl_sp_rank(spec: dict) -> None:
     res = {"backend": torch.distributed.get_backend(), "world": mesh.world_size(),
            "device": str(device)}
     tensors = {}
-    for label, (sp, serving, steps, _) in NCCL_SP_CASES.items():
+    for label, (sp, serving, steps, sptp_steps, _) in NCCL_SP_CASES.items():
         mesh.init_model_parallel(sp)
-        case_spec = {"serving": serving, "steps": steps, "batch": spec[f"batch_{label}"],
-                     "time": True}
+        case_spec = {"serving": serving, "steps": steps, "sptp_steps": sptp_steps,
+                     "batch": spec[f"batch_{label}"], "time": True}
         r, t = sp_rank_cases(case_spec, device, mesh.model_group())
         res[label] = {**r, "ranks": [mesh.data_rank(), mesh.model_rank()]}
         tensors[label] = t
@@ -5214,8 +5385,11 @@ def phase_nccl_sp(stats: dict) -> None:
     """Sequence parallelism over NCCL across four cards, through ``python -m
     torch.distributed.run --nproc_per_node=4 chip_smoke.py --ddp-rank
     nccl_sp``: sp 4 (one model group of the four cards, bands of a quarter
-    of each stage's grid rows and 32 text rows) serving pvlt_tiny's B = 101
-    bundle and taking its B = 150 step; then dp 2 x sp 2 taking v2's step,
+    of each stage's grid rows and 32 text rows; Swin's stages 1-2 split,
+    3-4 whole) serving pvlt_tiny's and pvlt_swin_tiny's B = 101 bundle and
+    taking their B = 150 steps, then pvlt_tiny's step with its weights split
+    over the same four ranks (sequence and tensor parallelism on one model
+    group); then dp 2 x sp 2 taking v2's step,
     B = 150 a data rank against this process's at B = 300. Each against
     this process with sp_two_ranks' bounds and launches (sp_compare); every
     rank the same digests; a rank's ms a forward and a step beside this
@@ -5223,13 +5397,13 @@ def phase_nccl_sp(stats: dict) -> None:
     DDP_DIR.mkdir(parents=True, exist_ok=True)
     spec = {"out": str(DDP_DIR)}
     serving, want, swaps, one_ms = {}, {}, {}, {}
-    for label, (_, names, steps, global_b) in NCCL_SP_CASES.items():
+    for label, (_, names, steps, _, global_b) in NCCL_SP_CASES.items():
         arrays = {k: v for k, v in train_batch(SEED + 71, global_b).items()
                   if isinstance(v, np.ndarray)}
         spec[f"batch_{label}"] = str(DDP_DIR / f"nccl_sp_{label}.npz")
         np.savez(spec[f"batch_{label}"], **arrays)
         batch = batch_to_device(arrays, "cuda")
-        serving[label] = sp_serving_reference(names, "cuda")
+        serving[label] = sp_serving_reference(names, "cuda", NCCL_SP_CASES[label][0])
         want[label], swaps[label], one_ms[label] = sp_step_references(steps, batch, global_b)
         del batch
         torch.cuda.empty_cache()
@@ -5241,11 +5415,12 @@ def phase_nccl_sp(stats: dict) -> None:
         shutil.rmtree(DDP_DIR, ignore_errors=True)
     seconds = time.perf_counter() - start
     failed, results = [], {}
-    for label in NCCL_SP_CASES:
+    for label, (sp, *_) in NCCL_SP_CASES.items():
         res, bad = sp_compare([r[label] for r in ranks], got[label], serving[label], want[label],
-                              swaps[label])
-        for case in want[label]:
-            res[case]["ms_step_one_process_b150"] = one_ms[label][case]
+                              swaps[label], sp)
+        for key, r in res.items():
+            if key.removeprefix("sptp_") in one_ms[label]:
+                r["ms_step_one_process_b150"] = one_ms[label][key.removeprefix("sptp_")]
         results[label] = res
         failed += [f"{label}:{k}" for k in bad]
     common = {"backend_nccl_world_4": all(r["backend"] == "nccl" and r["world"] == NCCL_CARDS

@@ -57,14 +57,20 @@ tensor's mask the rank's slice of the one-process mask. The serving
 kernels A-F fuse the out-projection, the residual, LN2 and the MLP across
 what is there a sum over ranks, so a shard never runs them; they stay for
 the unsharded model.
-Under sequence parallelism (``create_model(..., sp_group=)``, v1, v2 and
-linear-SR v2; parallel/sequence.py) every rank holds the whole model and
-each stage that ``row_plan`` splits runs its blocks on the rank's band of
-grid rows and slice of text rows: the serving kernels A and B, or A, C and
-D, on the band (A's K/V rows, or linear SR's pooled sums, gathered whole;
-D with a halo row from each neighbour), the training route the same way;
-the stream is gathered whole at the stage's end and the heads run
-replicated.
+Under sequence parallelism (``create_model(..., sp_group=)``, every
+backbone; parallel/sequence.py) each stage that ``row_plan`` splits runs
+its blocks on the rank's band of grid rows and slice of text rows: the
+serving kernels A and B, or A, C and D, on the band (A's K/V rows, or
+linear SR's pooled sums, gathered whole; D with a halo row from each
+neighbour), Swin's window path (kernel F on the band's windows, the
+shifted ones taking rows from the next band, then the LN-MLP forward; kernel E
+serves only the stages left whole, as the JAX package's gate keeps its
+band kernel off under ``sp_mesh``), the training route the same way; the
+stream is gathered whole at the stage's end and the heads run replicated.
+With tensor-parallel weights as well (``shard_model`` over the same
+group) the stream holds the band between the blocks, each split half
+gathers its LN'd band whole and reduce-scatters its partials back to the
+band (parallel/tensor.py).
 The training forward returns the MLM head's transformed hidden rows, the
 tied table and the bias (``mlm_hidden``, ``mlm_table``, ``mlm_bias``, and
 ``mlm_vocab_group``: the model group of a split vocabulary, else None) in
@@ -103,7 +109,7 @@ from mvlt_tpu_torch.ops.swin_attention import fused_swin_attention
 from mvlt_tpu_torch.ops.swin_band import fused_swin_block
 from mvlt_tpu_torch.ops.upsample import resize_bilinear
 from mvlt_tpu_torch.parallel import sequence
-from mvlt_tpu_torch.parallel.tensor import (copy_to_model, fused_ln_mlp_tp,
+from mvlt_tpu_torch.parallel.tensor import (copy_to_model, fused_ln_mlp_tp, model_input,
                                             row_parallel_linear, split_dim)
 
 
@@ -327,12 +333,13 @@ class BlockGlue(CastOperands):
             return t
         return dropout(t, self.drop, generator, split, None if sp is None else (1, sp))
 
-    def mlp_hidden_in(self, x: torch.Tensor) -> tuple:
+    def mlp_hidden_in(self, x: torch.Tensor, sp=None) -> tuple:
         """(LN2 x, the model group the hidden is split over or None): with
-        ``mlp_split`` LN2's output enters fc1 through ``copy_to_model``."""
+        ``mlp_split`` LN2's output enters fc1 through ``model_input``
+        (``copy_to_model``, or with ``sp`` the band gathered whole)."""
         normed = _ln(x, self.norm2)
         group = self.tp_group if self.mlp_split else None
-        return (normed if group is None else copy_to_model(normed, group)), group
+        return (normed if group is None else model_input(normed, group, sp)), group
 
     def mlp_half(self, x: torch.Tensor, generator: Optional[torch.Generator],
                  ln_mlp=fused_ln_mlp, sp=None) -> torch.Tensor:
@@ -344,20 +351,23 @@ class BlockGlue(CastOperands):
         parallel/tensor.py:fused_ln_mlp_tp over the rank's hidden slice, or
         with ``drop`` the glue on it: the hidden's mask the rank's slice,
         fc2's partials summed before its bias, the output's mask whole.
-        ``sp``: x holds the rows of that row plan (every mask its rows')."""
+        ``sp``: x holds the rows of that row plan (every mask its rows');
+        with ``mlp_split`` too the hidden covers the whole stream, gathered
+        from the bands, and fc2's partials are reduce-scattered to the band."""
         m = self.mlp
         if self.drop:
-            normed, group = self.mlp_hidden_in(x)
+            normed, group = self.mlp_hidden_in(x, sp)
             hidden = gelu(linear(normed, m.fc1.weight, m.fc1.bias))
-            hidden = self.dropout(hidden, generator, split_dim(group, -1), sp)
-            out = row_parallel_linear(hidden, m.fc2.weight, m.fc2.bias, group)
+            hidden = self.dropout(hidden, generator, split_dim(group, -1),
+                                  sp if group is None else None)
+            out = row_parallel_linear(hidden, m.fc2.weight, m.fc2.bias, group, sp)
             return _add_scaled(x, self.dropout(out, generator, sp=sp),
                                self.drop_path_scale(x, generator))
         if self.mlp_split:
             return fused_ln_mlp_tp(x, self.norm2.weight, self.norm2.bias, m.fc1.weight,
                                    m.fc1.bias, m.fc2.weight, m.fc2.bias,
                                    self.drop_path_scale(x, generator), self.norm2.eps,
-                                   self.tp_group)
+                                   self.tp_group, sp)
         return ln_mlp(x, self.norm2.weight, self.norm2.bias, m.fc1.weight, m.fc1.bias,
                       m.fc2.weight, m.fc2.bias, self.drop_path_scale(x, generator),
                       self.norm2.eps)
@@ -500,18 +510,26 @@ class Block(BlockGlue, nn.Module):
         ``reduce_from_model`` before its bias and the residual are added,
         once (``row_parallel_linear``). Under sequence parallelism (``sp``)
         x holds the band's rows: ``kv_input`` gives the whole K/V input, and
-        every other step runs on the band's rows."""
+        every other step runs on the band's rows. Both together: LN1's band
+        is gathered whole (``model_input``), the K/V front end, q and the
+        attention of the rank's heads run on the whole stream, and the
+        out-projection's partials are reduce-scattered to the band."""
         a = self.attn
-        b, n, d = x.shape
+        b, _, d = x.shape
         hd = d // self.num_heads
         heads = a.q.weight.shape[0] // hd     # the rank's heads under tensor parallelism
         group = self.tp_group if self.attn_split else None
         normed = layer_norm_fp32(x, self.norm1.weight, self.norm1.bias, self.norm1.eps)
         sr = ((a.sr.weight, a.sr.bias, a.norm.weight, a.norm.bias)
               if a.sr_ratio > 1 else (None,) * 4)
-        kv_in = self.kv_input(normed, hw, *sr, sp=sp)
-        if group is not None:
-            normed, kv_in = copy_to_model(normed, group), copy_to_model(kv_in, group)
+        if group is not None and sp is not None:
+            normed = model_input(normed, group, sp)
+            kv_in = self.kv_input(normed, (sp.h, sp.w), *sr)
+        else:
+            kv_in = self.kv_input(normed, hw, *sr, sp=sp)
+            if group is not None:
+                normed, kv_in = copy_to_model(normed, group), copy_to_model(kv_in, group)
+        n = normed.shape[1]
         k, v = split_kv(linear(kv_in, a.kv.weight, a.kv.bias), heads)
         if (self.fused_attn_train and self.training and not self.v2 and not self.drop
                 and not self.attn_drop):
@@ -523,11 +541,12 @@ class Block(BlockGlue, nn.Module):
             q = linear(normed, a.q.weight, a.q.bias).reshape(b, n, heads, hd).transpose(1, 2)
             if self.attn_drop and self.training:
                 o = attention_dropout(q, k, v, hd ** -0.5, self.attn_drop, generator,
-                                      split_dim(group, 1), None if sp is None else (2, sp))
+                                      split_dim(group, 1),
+                                      None if sp is None or group is not None else (2, sp))
             else:
                 o = attention(q, k, v, hd ** -0.5)
             o = o.transpose(1, 2).reshape(b, n, heads * hd)
-            attn_out = self.dropout(row_parallel_linear(o, a.proj.weight, a.proj.bias, group),
+            attn_out = self.dropout(row_parallel_linear(o, a.proj.weight, a.proj.bias, group, sp),
                                     generator, sp=sp)
             x = _add_scaled(x, attn_out, self.drop_path_scale(x, generator))
         if self.v2:
@@ -545,21 +564,29 @@ class Block(BlockGlue, nn.Module):
         dropout mask sliced, fc2's partials summed before its bias. Under
         sequence parallelism (``sp``) LN2, fc1 and the conv run on the band
         with one halo grid row from each neighbour (sequence.exchange_halo)
-        and the conv's halo rows are dropped."""
+        and the conv's halo rows are dropped; with ``mlp_split`` too LN2's
+        band is gathered whole, fc1 and the conv run on the whole grid and
+        fc2's partials are reduce-scattered to the band."""
         m = self.mlp
         b, _, _ = x.shape
-        h, w = hw if sp is None else sp.halo_hw
-        normed, group = self.mlp_hidden_in(x if sp is None else sequence.exchange_halo(x, sp))
+        if sp is not None and self.mlp_split:
+            h, w = sp.h, sp.w
+            normed, group = self.mlp_hidden_in(x, sp)
+            halo = None
+        else:
+            h, w = hw if sp is None else sp.halo_hw
+            normed, group = self.mlp_hidden_in(x if sp is None else sequence.exchange_halo(x, sp))
+            halo = sp
         hidden = linear(normed, m.fc1.weight, m.fc1.bias)
         c = hidden.shape[-1]
         dw = m.dwconv.dwconv
         vis = F.conv2d(hidden[:, : h * w].reshape(b, h, w, c).permute(0, 3, 1, 2),
                        dw.weight.to(x.dtype), dw.bias.to(x.dtype), padding=1, groups=c)
         hidden = torch.cat([vis.flatten(2).transpose(1, 2), hidden[:, h * w:]], dim=1)
-        if sp is not None:
+        if halo is not None:
             hidden = sequence.trim_halo(hidden, sp)
-        hidden = self.dropout(gelu(hidden), generator, split_dim(group, -1), sp)
-        out = self.dropout(row_parallel_linear(hidden, m.fc2.weight, m.fc2.bias, group),
+        hidden = self.dropout(gelu(hidden), generator, split_dim(group, -1), halo)
+        out = self.dropout(row_parallel_linear(hidden, m.fc2.weight, m.fc2.bias, group, sp),
                            generator, sp=sp)
         return _add_scaled(x, out, self.drop_path_scale(x, generator))
 
@@ -577,7 +604,10 @@ class SwinBlock(BlockGlue, nn.Module):
     the joint stream [B, h*w + T, C]: SwinJointAttention (kernel F), then the
     LN-MLP of ops/fused_mlp.py. Training mode, a gradient wanted, or a block
     split by tensor parallelism: the joint stream through
-    ``train_forward``."""
+    ``train_forward``. Under sequence parallelism (a row plan ``sp``) the
+    joint stream holds the rank's band, ``hw`` the band's grid, and the
+    window path or ``train_forward`` runs on it (SwinJointAttention's
+    ``sp``); kernel E never sees a band."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float, qkv_bias: bool,
                  window_size: int, shift: bool, table_ws: int, ln_eps: float = 1e-6,
@@ -606,37 +636,44 @@ class SwinBlock(BlockGlue, nn.Module):
         return dict(hw=hw, heads=self.num_heads, window=ws, shift=shift,
                     pool=max(1, hw[0] // TEXT_POOL), eps1=self.norm1.eps, eps2=self.norm2.eps)
 
-    def forward(self, x, hw: tuple, generator: Optional[torch.Generator] = None):
+    def forward(self, x, hw: tuple, generator: Optional[torch.Generator] = None, sp=None):
         joint = torch.is_tensor(x)
         if self.training or self.wants_grad(*((x,) if joint else x)) or self.tp_group is not None:
             if not joint:
                 raise ValueError("the split stream (kernel E) serves only: PVLT passes "
                                  "the joint stream in training mode or with a gradient wanted")
-            return self.train_forward(x, hw, generator)
-        return self.window_forward(x, hw) if joint else self.band_forward(*x, hw)
+            return self.train_forward(x, hw, generator, sp=sp)
+        return self.window_forward(x, hw, sp=sp) if joint else self.band_forward(*x, hw)
+
+    @staticmethod
+    def text_rows(x: torch.Tensor, hw: tuple, sp) -> int:
+        """The whole stream's text rows: T, which a band's table keeps."""
+        return sp.t if sp is not None else x.shape[1] - hw[0] * hw[1]
 
     def train_forward(self, x: torch.Tensor, hw: tuple,
                       generator: Optional[torch.Generator] = None, *,
-                      ln_mlp=fused_ln_mlp) -> torch.Tensor:
+                      ln_mlp=fused_ln_mlp, sp=None) -> torch.Tensor:
         """The differentiable block on the joint stream: SwinJointAttention
         on its einsum route (``window_attention``), projection dropout and
         DropPath, then ``mlp_half`` (``ln_mlp``, the LN-MLP kernels' wrapper
         with DropPath as its row scale; a check passes its plain version).
         With ``attn_split`` the attention runs on the rank's heads and sums
-        its out-projection's partials over the model group."""
-        t = x.shape[1] - hw[0] * hw[1]
-        attn_out = self.attn(_ln(x, self.norm1), hw, t, generator=generator,
-                             group=self.tp_group if self.attn_split else None)
+        its out-projection's partials over the model group. ``sp``: x holds
+        that row plan's band."""
+        attn_out = self.attn(_ln(x, self.norm1), hw, self.text_rows(x, hw, sp),
+                             generator=generator,
+                             group=self.tp_group if self.attn_split else None, sp=sp)
         x = _add_scaled(x, attn_out, self.drop_path_scale(x, generator))
-        return self.mlp_half(x, generator, ln_mlp)
+        return self.mlp_half(x, generator, ln_mlp, sp)
 
     def window_forward(self, x: torch.Tensor, hw: tuple, *, attention=fused_swin_attention,
-                       ln_mlp=fused_ln_mlp) -> torch.Tensor:
+                       ln_mlp=fused_ln_mlp, sp=None) -> torch.Tensor:
         """The joint stream's serving block: attention with kernel F, then the
         LN-MLP (``attention`` and ``ln_mlp`` the kernels' wrappers; a check
-        passes their plain versions)."""
-        t = x.shape[1] - hw[0] * hw[1]
-        x = x + self.attn(_ln(x, self.norm1), hw, t, attention=attention)
+        passes their plain versions). ``sp``: x holds that row plan's band,
+        kernel F runs on its windows."""
+        x = x + self.attn(_ln(x, self.norm1), hw, self.text_rows(x, hw, sp),
+                          attention=attention, sp=sp)
         m = self.mlp
         return ln_mlp(x, self.norm2.weight, self.norm2.bias, m.fc1.weight, m.fc1.bias,
                       m.fc2.weight, m.fc2.bias, None, self.norm2.eps)
@@ -836,7 +873,8 @@ class PVLT(nn.Module):
             pos = resize_pos_embed(pos.to(dtype), (native_g, native_g), (h, w))
             text_pos = getattr(self, f"text_pos_embed{i + 1}").to(dtype)
             plan = sequence.stage_plan(self, i, h, w, y.shape[1])
-            if serving and cfg.variant == "swin" and swin_band_stage(cfg.window_size, (h, w)):
+            if (serving and cfg.variant == "swin" and plan is None
+                    and swin_band_stage(cfg.window_size, (h, w))):
                 z = (x + pos, y + text_pos)              # split: kernel E's stage
             else:
                 z = torch.cat([x + pos, y + text_pos], dim=1)
@@ -928,11 +966,11 @@ def create_model(cfg: ModelConfig, *, device="cuda",
     whose stages split their rows over that model group
     (parallel/mesh.py:model_group after init_model_parallel), as the JAX
     package's ``create_model(cfg, sp_mesh=mesh)``; every rank of the group
-    holds the whole model and must start from the same weights.
-    parallel/sequence.py:refusals names what it refuses."""
+    holds the whole model and must start from the same weights;
+    parallel/tensor.py:shard_model over the same group then splits its
+    weights as well."""
     cfg = resolve_model_config(cfg)
     validate_model_config(cfg)
-    sequence.refusals(cfg, sp_group, None)
     model = init_weights(PVLT(cfg, input_size)).to(device)
     model.sp_group = sp_group
     return model

@@ -29,7 +29,8 @@ from torch import nn
 from mvlt_tpu_torch.models.bert_embeddings import dropout
 from mvlt_tpu_torch.ops.kernel_math import acc_dtype, linear, softmax_av
 from mvlt_tpu_torch.ops.swin_attention import fused_swin_attention
-from mvlt_tpu_torch.parallel.tensor import copy_to_model, row_parallel_linear
+from mvlt_tpu_torch.parallel import sequence
+from mvlt_tpu_torch.parallel.tensor import model_input, row_parallel_linear
 
 NEG_INF = -1e9
 
@@ -94,22 +95,25 @@ def swin_band_stage(window_size: int, hw: tuple) -> bool:
     return ws % 2 == 0 and h % ws == 0 and w % ws == 0 and h % win == 0 and w % win == 0
 
 
-def window_partition(t: torch.Tensor, hw: tuple, ws: int, shift: int) -> torch.Tensor:
+def window_partition(t: torch.Tensor, hw: tuple, ws: int, shift: int,
+                     rows: bool = True) -> torch.Tensor:
     """Visual tokens [B, h*w, C] in row-major (y, x) order -> windows
     [B, nW, ws^2, C]: the grid zero-padded to multiples of ws, rolled by
-    -shift along both axes, cut into ws x ws windows (row-major, each
-    row-major inside)."""
+    -shift along both axes (along x alone where ``rows`` is False: a
+    sequence-parallel band whose rows parallel/sequence.py:roll_rows
+    rolled), cut into ws x ws windows (row-major, each row-major inside)."""
     b, _, c = t.shape
     h, w = hw
     hp, wp = _pad_to(h, ws), _pad_to(w, ws)
     g = F.pad(t.reshape(b, h, w, c), (0, 0, 0, wp - w, 0, hp - h))
     if shift:
-        g = torch.roll(g, (-shift, -shift), dims=(1, 2))
+        g = torch.roll(g, (-shift, -shift), dims=(1, 2)) if rows else torch.roll(g, -shift, 2)
     g = g.reshape(b, hp // ws, ws, wp // ws, ws, c).permute(0, 1, 3, 2, 4, 5)
     return g.reshape(b, (hp // ws) * (wp // ws), ws * ws, c)
 
 
-def window_reverse(t: torch.Tensor, hw: tuple, ws: int, shift: int) -> torch.Tensor:
+def window_reverse(t: torch.Tensor, hw: tuple, ws: int, shift: int,
+                   rows: bool = True) -> torch.Tensor:
     """Inverse of ``window_partition``: windows [B, nW, ws^2, C] -> tokens
     [B, h*w, C], the padding cropped."""
     b, _, _, c = t.shape
@@ -118,7 +122,7 @@ def window_reverse(t: torch.Tensor, hw: tuple, ws: int, shift: int) -> torch.Ten
     g = t.reshape(b, hp // ws, wp // ws, ws, ws, c).permute(0, 1, 3, 2, 4, 5)
     g = g.reshape(b, hp, wp, c)
     if shift:
-        g = torch.roll(g, (shift, shift), dims=(1, 2))
+        g = torch.roll(g, (shift, shift), dims=(1, 2)) if rows else torch.roll(g, shift, 2)
     return g[:, :h, :w].reshape(b, h * w, c)
 
 
@@ -202,25 +206,30 @@ class SwinJointAttention(nn.Module):
                 f"model for the input size it runs at (create_model(..., input_size=))")
         return ws, (ws // 2 if self.shift else 0)
 
-    def _static(self, hw: tuple, device) -> tuple[torch.Tensor, torch.Tensor]:
+    def _static(self, hw: tuple, device, sp=None) -> tuple[torch.Tensor, torch.Tensor]:
         """(relative-position index [ws^2, ws^2] int64, region/pad mask
-        [nW, ws^2, ws^2] fp32) of a grid on ``device``, made once."""
-        key = (tuple(hw), str(device))
+        [nW, ws^2, ws^2] fp32) of a grid on ``device``, made once; ``sp``:
+        the whole grid's mask's windows of that row plan's band
+        (sequence.band_windows)."""
+        key = (tuple(hw), str(device), None if sp is None else (sp.rank, sp.n))
         if key not in self._tables:
             ws, s = self.window(hw)
-            self._tables[key] = (
-                torch.from_numpy(relative_position_index(ws)).to(device),
-                torch.from_numpy(window_masks(*hw, ws, s)).to(device))
+            mask = window_masks(*hw, ws, s)
+            if sp is not None:
+                mask = mask[sequence.band_windows(sp, ws)]
+            self._tables[key] = (torch.from_numpy(relative_position_index(ws)).to(device),
+                                 torch.from_numpy(np.ascontiguousarray(mask)).to(device))
         return self._tables[key]
 
-    def add_table(self, hw: tuple, t_num: int) -> torch.Tensor:
-        """``add_table`` of this module's bias on a grid of ``hw``."""
+    def add_table(self, hw: tuple, t_num: int, sp=None) -> torch.Tensor:
+        """``add_table`` of this module's bias on a grid of ``hw`` (the
+        band's windows of the row plan ``sp``)."""
         table = self.relative_position_bias_table
-        return add_table(table, *self._static(hw, table.device), t_num)
+        return add_table(table, *self._static(hw, table.device, sp), t_num)
 
     def forward(self, x: torch.Tensor, hw: tuple, t_num: int, *,
                 attention=fused_swin_attention,
-                generator: torch.Generator | None = None, group=None) -> torch.Tensor:
+                generator: torch.Generator | None = None, group=None, sp=None) -> torch.Tensor:
         """x: the LayerNorm'd joint stream [B, h*w + T, C] -> the attention
         output before the residual. In eval mode with no gradient wanted the
         windows go through ``attention``, kernel F's wrapper (a check passes
@@ -232,47 +241,70 @@ class SwinJointAttention(nn.Module):
         columns): x enters q and kv through ``copy_to_model``, the windows,
         masks, pooled text K/V and text queries run on the rank's heads, the
         out-projection's partials are summed before its bias, and the
-        windows take ``window_attention`` in every mode."""
-        b, n, c = x.shape
-        h, w = hw
+        windows take ``window_attention`` in every mode.
+
+        ``sp`` (sequence parallelism, the stage's row plan): x holds the
+        rank's band of whole window rows and its text rows, ``hw`` the
+        band's grid; the window, the pool window and the masks are the
+        whole grid's (sp.h, sp.w). Alone, the band's windows run here: on a
+        shifted block q, k and v of the band's rows are rolled by -s grid
+        rows across the bands (sequence.roll_rows) and along x locally, the
+        window outputs rolled back; the masks and the bias table are the
+        whole grid's sliced to the band's window rows; each rank pools its
+        band (whole pool windows) and the pooled and text K/V rows are
+        gathered whole (sequence.gather_kv). With a ``group`` too, x is
+        gathered whole, runs as above on the rank's heads, and the
+        out-projection's partials are reduce-scattered to the band."""
+        b, _, c = x.shape
+        whole = hw if sp is None else (sp.h, sp.w)
         hd = c // self.num_heads
         nh = self.q.weight.shape[0] // hd      # the rank's heads under tensor parallelism
-        ws, s = self.window(hw)
+        ws, s = self.window(whole)
+        win = max(1, whole[0] // TEXT_POOL)
+        band = sp if group is None else None    # x holds a band here
         if group is not None:
-            x = copy_to_model(x, group)
+            x = model_input(x, group, sp)
+            hw = whole
+        h, w = hw
+        m = h * w
         q = linear(x, self.q.weight, self.q.bias)
         kv = linear(x, self.kv.weight, self.kv.bias)
         cl = q.shape[-1]
-        k_all, v_all = kv[..., :cl], kv[..., cl:]
+        qkv = torch.cat([q[:, :m], kv[:, :m]], -1)
+        if band is not None:
+            qkv = sequence.roll_rows(qkv, band, -s)
+        win_q, win_k, win_v = (
+            heads_of(window_partition(t, hw, ws, s, rows=band is None), nh).contiguous()
+            for t in qkv.split(cl, -1))
 
-        def windows(t):    # visual rows -> [B, nW, heads, ws^2, hd]
-            return heads_of(window_partition(t[:, : h * w], hw, ws, s), nh).contiguous()
+        # the text queries' K/V: the visual K/V pooled in floored windows
+        # (pool(LN1) then project is project then pool), then the text K/V
+        def pooled(t):
+            grid = t.reshape(b, h, w, t.shape[-1]).permute(0, 3, 1, 2)
+            return F.avg_pool2d(grid, win, win).flatten(2).transpose(1, 2)
 
-        k_txt, v_txt = (heads_of(t[:, h * w:], nh).contiguous() for t in (k_all, v_all))
+        kv_t = torch.cat([pooled(kv[:, :m]), kv[:, m:]], 1)
+        if band is not None:
+            kv_t = sequence.gather_kv(kv_t, band, kv_t.shape[1] - band.tb, dim=1)
+        k_t, v_t = heads_of(kv_t[..., :cl], nh), heads_of(kv_t[..., cl:], nh)
+        k_txt, v_txt = k_t[:, :, -t_num:].contiguous(), v_t[:, :, -t_num:].contiguous()
         use_kernel = group is None and not self.training and not (torch.is_grad_enabled() and (
             x.requires_grad or any(p.requires_grad for p in self.parameters())))
         if use_kernel:
-            out_win = attention(windows(q), windows(k_all), windows(v_all), k_txt, v_txt,
-                                self.add_table(hw, t_num), scale=hd ** -0.5)
+            out_win = attention(win_q, win_k, win_v, k_txt, v_txt,
+                                self.add_table(whole, t_num, band), scale=hd ** -0.5)
         else:
-            index, mask = self._static(hw, x.device)
+            index, mask = self._static(whole, x.device, band)
             bias = position_bias(self.relative_position_bias_table, index)
-            out_win = window_attention(windows(q), windows(k_all), windows(v_all), k_txt,
-                                       v_txt, bias, mask, scale=hd ** -0.5)
-        out_vis = window_reverse(out_win.movedim(2, -2).flatten(-2), hw, ws, s)
-
-        # text queries: pooled visual K/V (floor pooling) + text K/V
-        win = max(1, h // TEXT_POOL)
-
-        def pooled(t):
-            grid = t[:, : h * w].reshape(b, h, w, cl).permute(0, 3, 1, 2)
-            return F.avg_pool2d(grid, win, win).flatten(2).transpose(1, 2)
-
-        k_t = torch.cat([heads_of(pooled(k_all), nh), k_txt], dim=-2)
-        v_t = torch.cat([heads_of(pooled(v_all), nh), v_txt], dim=-2)
-        out_txt = merge_heads(softmax_av(heads_of(q[:, h * w:], nh), k_t, v_t, scale=hd ** -0.5))
+            out_win = window_attention(win_q, win_k, win_v, k_txt, v_txt, bias, mask,
+                                       scale=hd ** -0.5)
+        out_vis = window_reverse(out_win.movedim(2, -2).flatten(-2), hw, ws, s,
+                                 rows=band is None)
+        if band is not None:
+            out_vis = sequence.roll_rows(out_vis, band, s)
+        out_txt = merge_heads(softmax_av(heads_of(q[:, m:], nh), k_t, v_t, scale=hd ** -0.5))
         out = row_parallel_linear(torch.cat([out_vis, out_txt], dim=1), self.proj.weight,
-                                  self.proj.bias, group)
+                                  self.proj.bias, group, sp)
         if self.training and self.proj_drop:
-            out = dropout(out, self.proj_drop, generator)
+            out = dropout(out, self.proj_drop, generator, rows=None if sp is None else (1, sp))
         return out

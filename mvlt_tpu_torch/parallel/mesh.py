@@ -17,8 +17,9 @@ group holds the ``tp`` ranks of one data index (one replica of the model,
 sharded); a data group the ``dp`` ranks of one model index (the ranks
 holding the same shard, over which DDP averages). With tp = 1 the data
 group is the world and there is no model group. Sequence parallelism
-(parallel/sequence.py) takes the same groups: a model group's ranks hold
-the whole model and split each stage's rows; the data groups average.
+(parallel/sequence.py) takes the same groups: a model group's ranks split
+each stage's rows, holding the whole model or, under tensor parallelism
+over the same group, their shards of it; the data groups average.
 """
 
 from __future__ import annotations

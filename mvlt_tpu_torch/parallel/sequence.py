@@ -1,6 +1,6 @@
-"""Sequence parallelism of the v1, v2 and linear-SR v2 backbones: the joint
-token stream of a stage split over a model group, every rank holding the
-whole model.
+"""Sequence parallelism of every backbone (v1, v2, linear-SR v2, Swin): the
+joint token stream of a stage split over a model group, whose ranks hold
+the whole model or, under --tp-size, its tensor-parallel shards.
 
 Counterpart of mvlt_tpu/parallel/sharding.py:sequence_sharding_constraint
 (:161-172), which ``PVLT.sp_mesh`` applies to the joint [B, h*w + T, C]
@@ -11,12 +11,14 @@ written out. The port splits by whole grid rows, so that every serving
 kernel stays on the path:
 
   * ``row_plan``: a stage splits when its h grid rows divide into n bands
-    whose height is a multiple of the SR ratio (kernel A's conv windows
-    then never cross a band) and n divides its T text rows; rank r holds
-    grid rows [r h/n, (r+1) h/n) and text rows [r T/n, (r+1) T/n), and its
-    blocks run on that band with hw = (h/n, w). Otherwise the stage runs
-    whole on every rank (JAX's constraint is a no-op where N does not
-    divide).
+    whose height is a multiple of the stage's ``stage_unit`` and n divides
+    its T text rows; rank r holds grid rows [r h/n, (r+1) h/n) and text
+    rows [r T/n, (r+1) T/n), and its blocks run on that band with hw =
+    (h/n, w). The unit is the SR ratio (kernel A's conv windows then never
+    cross a band), or for Swin the lcm of the window and the text-pool
+    window (a band holds whole window rows and whole pool windows).
+    Otherwise the stage runs whole on every rank (JAX's constraint is a
+    no-op where N does not divide).
   * ``split_rows`` / ``gather_rows``: the stage's entry keeps the rank's
     rows, and its backward all-gathers the rows' gradients, so that the
     replicated code before the split gets whole, identical gradients; the
@@ -36,11 +38,25 @@ kernel stays on the path:
     the bands; each rank sums its rows' share of every window, the sums
     are all-reduced (its backward all-reduces the partial gradients) and
     divided by the window's whole count.
+  * ``roll_rows``: the band of the whole grid cyclically rolled by a few
+    rows, for Swin's shifted windows (a rank's shifted windows cover grid
+    rows [r0 + s, r0 + hb + s) mod h, so it takes the next rank's top s
+    rows, the last rank rank 0's); the windows' outputs go back by the
+    opposite roll, and each roll's backward is the other one. The roll
+    along x stays local: a band spans whole rows.
+  * ``scatter_rows`` (reduce-scatter forward, all-gather backward) is
+    ``gather_kv``'s transpose: under --tp-size a block gathers its LN'd
+    band whole at each column-parallel product (``gather_kv``) and
+    reduce-scatters each row-parallel product's fp32 partials to the band,
+    where the bias and the residual are added (Megatron-LM's sequence
+    parallelism, Korthikanti et al. 2022).
 
 Every block parameter of a split stage then holds a partial gradient on
 each rank, summed over the model group by ``reduce_row_grads`` before the
-clip (the patch embeds, text denses, position tables and heads run
-replicated, and their gradients are whole). The collectives are
+clip, except a tensor-parallel shard (``tp_split``), whose gradient was
+formed on the gathered stream and is whole for its shard (the patch
+embeds, text denses, position tables and heads run replicated, and their
+gradients are whole). The collectives are
 ``all_reduce`` sums only, in fp32 (fp64 for fp64): gloo offers nothing
 else on CUDA tensors; a gather places each rank's rows in a zero-filled
 buffer, which is exact.
@@ -49,6 +65,7 @@ buffer, which is exact.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -101,11 +118,11 @@ class RowPlan:
         return self.hb + self.above + self.below, self.w
 
 
-def row_plan(h: int, w: int, t: int, sr: int, n: int, rank: int, group=None) -> RowPlan:
+def row_plan(h: int, w: int, t: int, unit: int, n: int, rank: int, group=None) -> RowPlan:
     """The row plan of a stage over ``n`` ranks (see the module docstring);
-    ``sr`` the SR conv's ratio (1 where no conv reduces the K/V rows: sr 1,
-    or linear SR)."""
-    split = n > 1 and h % n == 0 and (h // n) % sr == 0 and t % n == 0
+    ``unit`` the rows a band's height must be a multiple of
+    (``stage_unit``)."""
+    split = n > 1 and h % n == 0 and (h // n) % unit == 0 and t % n == 0
     return RowPlan(h, w, t, n, rank, split, group)
 
 
@@ -202,6 +219,78 @@ def gather_kv(local: torch.Tensor, plan: RowPlan, m_vis: int, dim: int = -2) -> 
     return _GatherKv.apply(local, plan, m_vis, dim)
 
 
+class _ScatterRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, z, plan, m_vis, dim):
+        ctx.plan, ctx.m_vis, ctx.dim = plan, m_vis, dim
+        return take(_summed(z, plan), plan, m_vis, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, dy):
+        return (assemble(_all_slots(dy.contiguous(), ctx.plan), ctx.m_vis, ctx.dim).contiguous(),
+                None, None, None)
+
+
+def scatter_rows(whole: torch.Tensor, plan: RowPlan) -> torch.Tensor:
+    """The rank's rows [B, hb*w + tb, ...] of the sum over the group of
+    ``whole`` [B, h*w + T, ...] (each rank's fp32 partial of a row-parallel
+    product), in fp32 (fp64 for fp64); the backward all-gathers the rows'
+    gradients. The transpose of ``gather_kv`` along dim 1."""
+    return _ScatterRows.apply(whole, plan, plan.hb * plan.w, 1)
+
+
+def roll_edge(x: torch.Tensor, plan: RowPlan, shift: int) -> torch.Tensor:
+    """The rows [B, |shift| w, C] of the band's visual rows ``x`` that
+    ``roll_rows`` hands to a neighbour: its first |shift| grid rows for
+    shift < 0 (to the previous rank), its last for shift > 0 (to the next)."""
+    k, hbw = abs(shift) * plan.w, plan.hb * plan.w
+    return x[:, :k] if shift < 0 else x[:, hbw - k:hbw]
+
+
+def roll_partner(plan: RowPlan, shift: int) -> int:
+    """The rank whose ``roll_edge`` this rank takes, cyclically."""
+    return (plan.rank + (1 if shift < 0 else -1)) % plan.n
+
+
+def roll_join(x: torch.Tensor, got: torch.Tensor, plan: RowPlan, shift: int) -> torch.Tensor:
+    """The band of the rolled grid from the band's own rows ``x`` and the
+    partner's edge ``got``."""
+    k, hbw = abs(shift) * plan.w, plan.hb * plan.w
+    return torch.cat([x[:, k:hbw], got] if shift < 0 else [got, x[:, :hbw - k]], 1)
+
+
+def _roll_rows(x: torch.Tensor, plan: RowPlan, shift: int) -> torch.Tensor:
+    got = _all_slots(roll_edge(x, plan, shift).contiguous(), plan)[roll_partner(plan, shift)]
+    return roll_join(x, got, plan, shift)
+
+
+class _RollRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, plan, shift):
+        ctx.plan, ctx.shift = plan, shift
+        return _roll_rows(x, plan, shift)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _roll_rows(dy.contiguous(), ctx.plan, -ctx.shift), None, None
+
+
+def roll_rows(x: torch.Tensor, plan: RowPlan, shift: int) -> torch.Tensor:
+    """The band's visual rows [B, hb*w, C] of the whole grid rolled by
+    ``shift`` grid rows as ``torch.roll`` rolls (row y of the result is row
+    y - shift, mod h), for 0 < |shift| <= hb; the backward rolls the
+    gradient back, each row's gradient to the rank that owns the row."""
+    return _RollRows.apply(x, plan, shift) if shift else x
+
+
+def band_windows(plan: RowPlan, ws: int) -> slice:
+    """The band's windows among the whole grid's (row-major, ceil(w / ws)
+    a window row): its window rows [r hb / ws, (r+1) hb / ws)."""
+    per_row = -(-plan.w // ws)
+    first = plan.rank * (plan.hb // ws) * per_row
+    return slice(first, first + (plan.hb // ws) * per_row)
+
+
 def kv_visual_rows(plan: RowPlan, sr: int) -> int:
     """The visual K/V rows a band gives: the SR conv's reduced pixels, or
     the band's own rows at sr 1."""
@@ -291,37 +380,31 @@ def linear_pool(band: torch.Tensor, plan: RowPlan, win: tuple, out: tuple) -> to
     return (total / (win[0] * win[1])).to(band.dtype)
 
 
+def row_grad_params(model: torch.nn.Module) -> list:
+    """The parameters whose gradients ``reduce_row_grads`` sums: those of
+    the blocks of every stage the last forward split, less the
+    tensor-parallel shards (``tp_split``)."""
+    return [p for i, split in enumerate(model.sp_split) if split
+            for p in getattr(model, f"block{i + 1}").parameters()
+            if not getattr(p, "tp_split", None)]
+
+
 def reduce_row_grads(model: torch.nn.Module) -> None:
-    """Sum over the model group, in place, the gradients of the blocks of
-    every stage the last forward split (each rank's holds its rows' part):
-    one all_reduce in fp32 (fp64 for fp64). The other parameters' gradients
-    are whole on every rank and stay."""
+    """Sum over the model group, in place, the gradients of
+    ``row_grad_params`` (each rank's holds its rows' part): one all_reduce
+    in fp32 (fp64 for fp64). The other parameters' gradients are whole on
+    every rank and stay: a tensor-parallel shard's was formed on the
+    gathered stream, and summing it would add the other ranks' shards of
+    the same shape."""
     group = getattr(model, "sp_group", None)
     if group is None or not any(model.sp_split):
         return
-    grads = [p.grad for i, split in enumerate(model.sp_split) if split
-             for p in getattr(model, f"block{i + 1}").parameters() if p.grad is not None]
+    grads = [p.grad for p in row_grad_params(model) if p.grad is not None]
     acc = acc_dtype(grads[0].dtype)
     flat = torch.cat([g.reshape(-1).to(acc) for g in grads])
     dist.all_reduce(flat, group=group)
     for g, s in zip(grads, torch.split(flat, [g.numel() for g in grads])):
         g.copy_(s.view_as(g))
-
-
-def refusals(cfg, sp_group, tp_group) -> None:
-    """Raise NotImplementedError, naming it, for a combination sequence
-    parallelism does not cover: the Swin backbone (its windows and the
-    shifted windows' roll cross the bands), or sequence parallelism
-    together with tensor-parallel weights."""
-    if sp_group is None:
-        return
-    refused = []
-    if cfg.variant == "swin":
-        refused.append("the Swin backbone")
-    if tp_group is not None:
-        refused.append("tensor-parallel weights (--tp-size)")
-    if refused:
-        raise NotImplementedError("sequence parallelism does not cover: " + "; ".join(refused))
 
 
 def stage_grids(cfg, input_size: int) -> list:
@@ -337,9 +420,16 @@ def stage_grids(cfg, input_size: int) -> list:
     return grids
 
 
-def stage_sr(cfg, i: int) -> int:
-    """The ratio of the conv that reduces stage i's K/V rows: the SR ratio,
-    or 1 where linear SR pools instead."""
+def stage_unit(cfg, i: int, hw: tuple) -> int:
+    """The rows a band of stage i's grid ``hw`` must be a multiple of: the
+    ratio of the conv that reduces its K/V rows (1 where linear SR pools
+    instead, or at sr 1); for Swin the lcm of its window and its text-pool
+    window, so that a band holds whole window rows (the window's masks and
+    bias table slice by them) and whole pool windows."""
+    if cfg.variant == "swin":
+        from mvlt_tpu_torch.models.swin import TEXT_POOL, window_size_for
+
+        return math.lcm(window_size_for(cfg.window_size, hw), max(1, hw[0] // TEXT_POOL))
     sr = cfg.sr_ratios[i]
     return 1 if cfg.linear_sr and sr > 1 else sr
 
@@ -349,13 +439,17 @@ def describe(model: torch.nn.Module) -> str:
     one line a stage."""
     cfg, group = model.cfg, model.sp_group
     n = group_size(group)
-    lines = [f"sequence parallelism over {n} ranks (the model replicated):"]
+    weights = ("the model replicated" if getattr(model, "tp_group", None) is None
+               else "the weights split by --tp-size")
+    lines = [f"sequence parallelism over {n} ranks ({weights}):"]
     for i, (h, w) in enumerate(stage_grids(cfg, model.input_size)):
         t = cfg.num_text_tokens
-        plan = row_plan(h, w, t, stage_sr(cfg, i), n, 0)
+        unit = stage_unit(cfg, i, (h, w))
+        plan = row_plan(h, w, t, unit, n, 0)
         what = (f"split, {plan.hb} of {h} grid rows and {plan.tb} of {t} text rows a rank"
                 if plan.split else
-                f"whole on every rank ({h} grid rows, {t} text rows, sr {stage_sr(cfg, i)})")
+                f"whole on every rank ({h} grid rows, {t} text rows, "
+                + (f"bands of {unit} rows" if cfg.variant == "swin" else f"sr {unit}") + ")")
         lines.append(f"  stage {i + 1} ({h}x{w}): {what}")
     return "\n".join(lines)
 
@@ -366,6 +460,6 @@ def stage_plan(model, i: int, h: int, w: int, t: int) -> Optional[RowPlan]:
     group = getattr(model, "sp_group", None)
     if group is None:
         return None
-    plan = row_plan(h, w, t, stage_sr(model.cfg, i), group_size(group), dist.get_rank(group),
-                    group)
+    plan = row_plan(h, w, t, stage_unit(model.cfg, i, (h, w)), group_size(group),
+                    dist.get_rank(group), group)
     return plan if plan.split else None

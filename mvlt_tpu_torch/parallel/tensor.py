@@ -49,6 +49,20 @@ written out. The port reproduces the function, not GSPMD's layout:
     (max, first argmax + offset), the lowest index winning ties, and never
     gathers the logits (``VocabShardLogits``).
 
+  * Under sequence parallelism too (a model built with ``sp_group``, the
+    same model group; parallel/sequence.py), a split stage's stream holds
+    the rank's band between the blocks. ``model_input`` then all-gathers
+    the LN'd band whole where ``copy_to_model`` stood (its backward a
+    reduce-scatter), the tensor-parallel products run on the whole stream
+    as above, and ``row_parallel_linear`` and ``fused_ln_mlp_tp``
+    reduce-scatter their fp32 partials to the band in place of the
+    all-reduce, then add the bias and the residual on the band (Megatron-LM's
+    sequence parallelism). Every replicated parameter of such a block is
+    then used on the band's rows, or (SR and LN2 inside #13) gets a
+    gradient from the rank's heads or hidden slice alone: its gradient is
+    this rank's part, which parallel/sequence.py:reduce_row_grads sums; a
+    shard's is whole and stays.
+
 The collectives are ``all_reduce`` sums only (gloo offers nothing else on
 CUDA tensors): a rank's shard is placed in a zero-filled full tensor and
 summed (``consolidate``), per-rank values in zero-filled slots.
@@ -228,6 +242,16 @@ def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
     return _CopyToModel.apply(x, group)
 
 
+def model_input(x: torch.Tensor, group, sp=None) -> torch.Tensor:
+    """The input of a column-parallel product: ``copy_to_model``; under
+    sequence parallelism (``sp``, the stage's row plan; x the band's rows)
+    the whole stream gathered from the bands, the backward summing the
+    ranks' gradients and keeping the band's (sequence.gather_kv)."""
+    if sp is None:
+        return copy_to_model(x, group)
+    return sequence.gather_kv(x, sp, sp.hb * sp.w, dim=1)
+
+
 def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
     """The sum over the model group in fp32 (fp64 for fp64), identity
     backward: the output of a row-parallel product, before its bias."""
@@ -242,13 +266,16 @@ def linear_partial(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
 
 
 def row_parallel_linear(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-                        group) -> torch.Tensor:
+                        group, sp=None) -> torch.Tensor:
     """x W^T + b of a row-parallel product on this rank's input columns:
     the ranks' fp32 partials summed over the model ``group``, then b added
-    once and the sum rounded to x's type once. Without a group, ``linear``."""
+    once and the sum rounded to x's type once. Without a group, ``linear``.
+    ``sp``: x holds the whole stream's rows and the sum is reduce-scattered
+    to the band of that row plan (sequence.scatter_rows), b added there."""
     if group is None:
         return linear(x, weight, bias)
-    total = reduce_from_model(linear_partial(x, weight), group)
+    part = linear_partial(x, weight)
+    total = reduce_from_model(part, group) if sp is None else sequence.scatter_rows(part, sp)
     return (total + bias.to(total.dtype)).to(x.dtype)
 
 
@@ -261,39 +288,55 @@ def split_dim(group, dim: int) -> Optional[tuple]:
 
 class _FusedLnMlpTp(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, gamma, beta, w1, b1, w2, b2, row_scale, eps, group):
-        ctx.eps, ctx.group = eps, group
+    def forward(ctx, x, gamma, beta, w1, b1, w2, b2, row_scale, eps, group, sp):
+        ctx.eps, ctx.group, ctx.sp = eps, group, sp
         ctx.param_dtypes = [t.dtype for t in (gamma, beta, w1, b1, w2, b2)]
-        ctx.save_for_backward(x, gamma, beta, w1, b1, w2, row_scale)
-        part = ln_mlp_fwd_tp(x, gamma, beta, w1, b1, w2, row_scale, eps)
-        total = _model_sum(part, group)
+        xw = x if sp is None else sequence.gather_rows(x, sp)
+        ctx.save_for_backward(xw, gamma, beta, w1, b1, w2, row_scale)
+        part = ln_mlp_fwd_tp(xw, gamma, beta, w1, b1, w2, row_scale, eps)
+        if sp is None:
+            total = _model_sum(part, group)
+        else:
+            total = sequence.take(_model_sum(part, group), sp, sp.hb * sp.w)
         s = row_scale.to(total.dtype)[:, None, None]
         return (x.to(total.dtype) + total + s * b2.to(total.dtype)).to(x.dtype)
 
     @staticmethod
     def backward(ctx, dy):
         x, gamma, beta, w1, b1, w2, row_scale = ctx.saved_tensors
-        if dy.device.type == "cuda":
-            dy = dy.contiguous()
+        sp = ctx.sp
+        dyw = dy.contiguous() if sp is None else sequence.gather_rows(dy, sp)
         dx_part, dgamma, dbeta, dw1, db1, dw2, db2 = ln_mlp_bwd_tp(
-            x, gamma, beta, w1, b1, w2, row_scale, ctx.eps, dy)
+            x, gamma, beta, w1, b1, w2, row_scale, ctx.eps, dyw)
         d = dx_part.shape[-1]
-        summed = _model_sum(torch.cat([dx_part.reshape(-1), dgamma, dbeta]), ctx.group)
-        dx = (dy.to(summed.dtype) + summed[:-2 * d].reshape(dx_part.shape)).to(x.dtype)
-        grads = (summed[-2 * d:-d], summed[-d:], dw1, db1, dw2, db2)
-        return (dx, *(g.to(t) for g, t in zip(grads, ctx.param_dtypes)), None, None, None)
+        if sp is None:
+            summed = _model_sum(torch.cat([dx_part.reshape(-1), dgamma, dbeta]), ctx.group)
+            dx_sum = summed[:-2 * d].reshape(dx_part.shape)
+            dgamma, dbeta = summed[-2 * d:-d], summed[-d:]
+        else:
+            # the band's rows; dgamma, dbeta and db2 stay this rank's parts
+            # (sequence.reduce_row_grads sums them): b2 is added on the band
+            dx_sum = sequence.take(_model_sum(dx_part, ctx.group), sp, sp.hb * sp.w)
+            acc = dx_sum.dtype
+            db2 = (dy.to(acc) * row_scale.to(acc)[:, None, None]).sum((0, 1))
+        dx = (dy.to(dx_sum.dtype) + dx_sum).to(x.dtype)
+        grads = (dgamma, dbeta, dw1, db1, dw2, db2)
+        return (dx, *(g.to(t) for g, t in zip(grads, ctx.param_dtypes)), None, None, None,
+                None)
 
 
-def fused_ln_mlp_tp(x, gamma, beta, w1, b1, w2, b2, row_scale, eps: float, group):
+def fused_ln_mlp_tp(x, gamma, beta, w1, b1, w2, b2, row_scale, eps: float, group, sp=None):
     """x + s * MLP(LN(x)) with the hidden split over the model ``group``
     (W1, b1 this rank's rows, W2 its columns, b2 whole): kernels #12/#13
     in their tensor-parallel modes on CUDA tensors, their plain versions on
     CPU tensors; the ranks' fp32 partials summed, then b2 and x added once
     and y rounded once, as the one-process kernel does. row_scale None
-    means ones."""
+    means ones. ``sp``: x holds the band of that row plan; the kernels run
+    on the stream gathered whole, their partials are reduce-scattered to
+    the band, and LN2's and b2's gradients are this rank's parts."""
     if row_scale is None:
         row_scale = torch.ones(x.shape[0], dtype=torch.float32, device=x.device)
-    return _FusedLnMlpTp.apply(x, gamma, beta, w1, b1, w2, b2, row_scale, eps, group)
+    return _FusedLnMlpTp.apply(x, gamma, beta, w1, b1, w2, b2, row_scale, eps, group, sp)
 
 
 def vocab_start(table: torch.Tensor, group) -> int:
@@ -395,11 +438,14 @@ def shard_model(model: torch.nn.Module, group) -> torch.nn.Module:
     under ``RULES``: each split parameter becomes this rank's shard (marked
     ``tp_split``), every block and the model learn the group (the model's
     ``vocab_group`` too where the vocabulary splits). Every rank must start from the same weights (the same seed,
-    or a state dict loaded before). Raises NotImplementedError for what
-    ``refusals`` names, and for a sequence-parallel model
-    (parallel/sequence.py:refusals)."""
+    or a state dict loaded before). A sequence-parallel model (built with
+    ``sp_group``, the same group) then runs each split stage on the band
+    between its blocks (the module docstring). Raises
+    NotImplementedError for what ``refusals`` names."""
     cfg = model.cfg
-    sequence.refusals(cfg, model.sp_group, group)
+    if model.sp_group is not None and model.sp_group is not group:
+        raise ValueError("a sequence-parallel model splits its weights over its own model "
+                         "group (sp_group)")
     tp = group_size(group)
     refused = refusals(cfg)
     if refused:

@@ -311,7 +311,8 @@ def case_sp(spec, rank, world) -> dict:
     step at step 0 on those rows (DDP over the data group where there are
     several), the v1 one saving a checkpoint; with spec["eval"] the VL,
     retrieval and recognition evals of the v1 model, sharded over the data
-    ranks."""
+    ranks; then each (sp, family) of spec["sptp"] with tensor-parallel
+    weights as well (``case_sptp``)."""
     from mvlt_tpu_torch.parallel.sequence import describe
 
     mesh.init_model_parallel(spec["sp"])
@@ -340,7 +341,48 @@ def case_sp(spec, rank, world) -> dict:
             CheckpointManager(spec["ckpt_dir"]).save_epoch(state, 0, 3)
     if spec.get("eval_data"):
         out["eval"] = case_eval({**spec, **spec["families"]["v1"], "sp_group": True}, rank, world)
+    out["sptp"] = {f"{sp}_{label}": case_sptp(spec, sp, label, rank)
+                   for sp, label in spec.get("sptp", [])}
     return out
+
+
+def case_sptp(spec, sp: int, label: str, rank: int) -> dict:
+    """Sequence parallelism together with tensor-parallel weights over model
+    groups of ``sp`` ranks: the family's model built with the model group as
+    its sp_group and split over it by shard_model. Its eval forward of this
+    data rank's rows (the MLM logits as this rank's vocabulary shard and
+    its first index) and one fp32 step at step 0 (DDP over the data group
+    where there are several), consolidated over the model group; the v1
+    step at sp 2 saves a checkpoint under spec["sptp_ckpt_dir"]."""
+    from mvlt_tpu_torch.parallel.sequence import describe
+    from mvlt_tpu_torch.parallel.tensor import shard_model
+
+    mesh.init_model_parallel(sp)
+    group = mesh.model_group()
+    batch = local_batch(spec, rank_rows(spec["global_batch"], mesh.data_rank(), mesh.data_size()))
+    fam = spec["families"][label]
+    _, model = sp_model(spec, fam)
+    shard_model(model, group)
+    model.eval()
+    with torch.no_grad():
+        logits = model(torch.from_numpy(batch["images"]),
+                       torch.from_numpy(batch["input_ids"]).long())
+    mlm = logits.pop("mlm_logits")
+    res = {"layout": {"model_rank": mesh.model_rank(), "data_rank": mesh.data_rank()},
+           "forward": {k: v for k, v in logits.items() if v is not None},
+           "mlm_local": mlm.local, "mlm_start": mlm.start, "split": model.sp_split,
+           "describe": describe(model)}
+    cfg, model = sp_model(spec, fam)
+    shard_model(model, group)
+    ddp = wrap_model(model, torch.device("cpu"), mesh.data_group()) \
+        if mesh.data_size() > 1 else None
+    state = create_train_state(model, config.OptimConfig(warmup_epochs=0), spec["global_batch"],
+                               10, seed=mesh.rank_seed(0), ddp=ddp, model_group=group)
+    state, losses = make_train_step(cfg)(state, batch)
+    res["step"] = {**tp_snapshot(cfg, state, losses), "split": model.sp_split}
+    if (sp, label) == (2, "v1"):
+        CheckpointManager(spec["sptp_ckpt_dir"]).save_epoch(state, 0, 3)
+    return res
 
 
 CASES = {"step": case_step, "plan": case_plan, "meters": case_meters, "zero": case_zero,
@@ -352,7 +394,8 @@ def main() -> None:
     with open(sys.argv[1]) as f:
         spec = json.load(f)
     torch.set_num_threads(1)
-    assert mesh.maybe_init_distributed(device="cpu") == torch.device("cpu")
+    assert mesh.maybe_init_distributed(device="cpu", timeout_s=spec["pg_timeout_s"]) == \
+        torch.device("cpu")
     rank, world = mesh.rank(), mesh.world_size()
     assert torch.distributed.get_backend() == "gloo" and world == spec["world"]
     try:

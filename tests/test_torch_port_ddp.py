@@ -29,9 +29,10 @@ import dataclasses
 import json
 import os
 import pathlib
-import socket
+import signal
 import subprocess
 import sys
+import time
 
 import jax
 import jax.numpy as jnp
@@ -57,37 +58,95 @@ PLAN_FRAC = 0.16
 PORT_TOL = 1e-6
 
 
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+SPAWN_TIMEOUT_S = 300.0     # one deadline for all the ranks of a spawn or launch
+
+
+def _stop(procs) -> None:
+    """Kill every process still running, with its process group (a launcher's
+    workers too), and reap it."""
+    for p in procs:
+        if p.poll() is None:
+            try:
+                os.killpg(p.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+        p.wait()
+
+
+def _wait_all(procs, deadline: float) -> str:
+    """Wait until every process has exited 0 (""), one has exited otherwise
+    or the deadline passed (what happened); the others are then killed at
+    once."""
+    try:
+        while True:
+            codes = [p.poll() for p in procs]
+            bad = [(i, c) for i, c in enumerate(codes) if c not in (None, 0)]
+            if bad:
+                return f"process {bad[0][0]} exited {bad[0][1]}"
+            if all(c == 0 for c in codes):
+                return ""
+            if time.monotonic() > deadline:
+                return f"still running after the deadline: {[i for i, c in enumerate(codes) if c is None]}"
+            time.sleep(0.1)
+    finally:
+        _stop(procs)
+
+
+def _popen(cmd, log: pathlib.Path, env: dict) -> subprocess.Popen:
+    """``cmd`` in its own session (so that its process group can be killed),
+    stdout and stderr into ``log`` (a file: no pipe can fill, and no
+    orphaned child can hold one open)."""
+    with open(log, "w") as f:
+        return subprocess.Popen(cmd, cwd=REPO, env=env, stdout=f, stderr=subprocess.STDOUT,
+                                text=True, start_new_session=True)
 
 
 def spawn(spec: dict, out: pathlib.Path, world: int = 2, guard: bool = False,
-          timeout: float = 300) -> dict:
-    """Run the spec's cases on ``world`` gloo ranks; {case: [rank 0's, ...]}."""
+          timeout: float = SPAWN_TIMEOUT_S) -> dict:
+    """Run the spec's cases on ``world`` gloo ranks; {case: [rank 0's, ...]}.
+    This process holds the rendezvous store on a port it bound (port 0) and
+    keeps it until the ranks are done, and the ranks join it as clients
+    (torchrun's agent store), so no port is picked and released before
+    use. One deadline covers all the ranks; when one exits non-zero or the
+    deadline passes, every rank is killed at once. The ranks' process group
+    times out at a third of the deadline."""
     out.mkdir(parents=True, exist_ok=True)
-    spec = {**spec, "world": world, "out": str(out)}
+    spec = {**spec, "world": world, "out": str(out), "pg_timeout_s": timeout / 3}
     path = out / "spec.json"
     path.write_text(json.dumps(spec))
-    port = free_port()
+    store = torch.distributed.TCPStore("127.0.0.1", 0, world, is_master=True,
+                                       wait_for_workers=False)
     procs = []
     try:
         for r in range(world):
             env = {**os.environ, "RANK": str(r), "WORLD_SIZE": str(world), "LOCAL_RANK": str(r),
-                   "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port), "OMP_NUM_THREADS": "1"}
-            procs.append(subprocess.Popen(
-                [sys.executable, str(WORKER), str(path)] + (["--guard"] if guard else []),
-                cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-        outs = [p.communicate(timeout=timeout) for p in procs]
+                   "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(store.port),
+                   "TORCHELASTIC_USE_AGENT_STORE": "True", "OMP_NUM_THREADS": "1"}
+            procs.append(_popen([sys.executable, str(WORKER), str(path)]
+                                + (["--guard"] if guard else []), out / f"rank{r}.log", env))
+        failure = _wait_all(procs, time.monotonic() + timeout)
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-    for p, (o, e) in zip(procs, outs):
-        assert p.returncode == 0, o + e[-4000:]
+        _stop(procs)
+        del store
+    logs = "".join(f"--- rank {r}\n" + (out / f"rank{r}.log").read_text()[-4000:]
+                   for r in range(world))
+    assert not failure, f"{failure}\n{logs}"
     return {case: [torch.load(out / f"{case}_{r}.pt", weights_only=False) for r in range(world)]
             for case in spec["cases"]}
+
+
+def torchrun(nproc: int, args: list, log: pathlib.Path, timeout: float = SPAWN_TIMEOUT_S) -> str:
+    """``python -m torch.distributed.run --standalone --nproc_per_node=nproc
+    <args>`` (its rendezvous store bound on port 0 and kept by the agent;
+    every process killed at the deadline); asserts it exits 0 and returns
+    its output."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={nproc}"] + args
+    proc = _popen(cmd, log, {**os.environ, "OMP_NUM_THREADS": "1"})
+    failure = _wait_all([proc], time.monotonic() + timeout)
+    text = log.read_text()
+    assert not failure, f"{failure}\n{text[-8000:]}"
+    return text
 
 
 def make_global_batch(seed: int = 3) -> dict:

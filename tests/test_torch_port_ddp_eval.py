@@ -22,8 +22,6 @@ import json
 import os
 import pathlib
 import runpy
-import subprocess
-import sys
 import types
 
 import numpy as np
@@ -37,7 +35,7 @@ from mvlt_tpu_torch.eval.vl_eval import evaluate_vl, make_vl_eval_fn, pad_eval_b
 from mvlt_tpu_torch.models.pvlt import create_model
 from mvlt_tpu_torch.parallel import mesh
 from mvlt_tpu_torch.utils.checkpoint import STATE_FILE
-from tests.test_torch_port_ddp import REPO, free_port, spawn
+from tests.test_torch_port_ddp import spawn, torchrun
 from tests.test_torch_port_train import IMG, MICRO, T, one_torch_thread
 
 ALL_HEADS = dict(itm=True, mlm=True, t2i=True, cls=True)
@@ -128,15 +126,12 @@ def test_sharded_evals_equal_one_process(eval_runs, tmp_path, one_torch_thread):
     assert got == want and got["names"][9] == "item09.png"
 
 
-def _torchrun(args, out, timeout=300):
-    env = {**os.environ, "OMP_NUM_THREADS": "1"}
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node=2",
-           "--master_addr=127.0.0.1", f"--master_port={free_port()}", "-m", "mvlt_tpu_torch.cli",
-           "--config", "configs/test_micro.py", "--synthetic-data", "--device", "cpu",
-           "--batch-size", "16", "--output-dir", str(out)] + args
-    proc = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True, text=True, timeout=timeout)
-    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-5000:]
-    return proc.stdout
+def _torchrun(args, out):
+    out.mkdir(parents=True, exist_ok=True)
+    logs = sorted(out.glob("torchrun*.log"))
+    return torchrun(2, ["-m", "mvlt_tpu_torch.cli", "--config", "configs/test_micro.py",
+                        "--synthetic-data", "--device", "cpu", "--batch-size", "16",
+                        "--output-dir", str(out)] + args, out / f"torchrun{len(logs)}.log")
 
 
 def test_cli_two_ranks_zero1_then_resume(tmp_path):

@@ -6,30 +6,44 @@ The JAX package's contract (tests/test_sequence_parallel.py) is that
 mesh's model axis, leaves the forward as it was. Here worker processes
 (tests/_ddp_worker.py, case ``sp``) split each stage's rows over a model
 group of two ranks, at world 2 (sp 2) and at world 4 (dp 2 x sp 2), for
-four micro configs at 64x64 with every head on (the micro model of
+five micro configs at 64x64 with every head on (the micro model of
 tests/test_train_step.py, 16 text tokens): ``pvlt_tiny``,
 ``pvlt_v2_tiny`` and ``pvlt_v2_linear_tiny``, whose four stages all split
-(bands of 8, 4, 2 and 1 grid rows, each a multiple of its SR ratio), and
+(bands of 8, 4, 2 and 1 grid rows, each a multiple of its SR ratio),
 ``pvlt_tiny`` with SR ratios (8, 4, 4, 1), whose stage 3 (a 4x4 grid, bands
-of 2 rows for an SR conv of 4) runs whole on both ranks. Each data rank's
+of 2 rows for an SR conv of 4) runs whole on both ranks, and
+``pvlt_swin_tiny`` with windows of 4, whose stages 1 and 2 split into bands
+of whole window rows (8 and 4 rows; each stage's second block shifted, its
+windows taking rows from the next band) and stages 3 and 4 (bands of 2 and
+1 rows) run whole. Each data rank's
 eval forward is held to JAX's ``sp_mesh`` forward on a dp 2 x tp 2 mesh of
 the virtual CPU devices and to JAX's unsharded forward, every logit at
 rtol 2e-4 / atol 2e-5, the tolerance of that test. One fp32 step on the
 global batch of 8 (v1 on its default route and on the fused_attn_train
-route, v2, linear v2) is held to JAX's single-device step: the losses (the
+route, v2, linear v2, Swin) is held to JAX's single-device step: the losses (the
 data ranks' mean), every gradient and the BatchNorm statistics at the same
 tolerance, the parameters after AdamW to the port's one-process step. With
-dropout and DropPath (v1, v2, and linear v2 under --remat) the fp64 step
+dropout and DropPath (v1, v2, and linear v2 and Swin under --remat) the fp64 step
 is held to the port's one process from the same seed within 1e-6 of each
 tensor's largest magnitude, the generator left where one process leaves
 it (every mask the rank's rows of the one-process mask). Both ranks of a
 model group hold the same tensors. A checkpoint written under sequence
 parallelism restores in one process with strict names; the VL, retrieval
 and recognition evals shard over the data ranks and equal one process's.
-Swin and sequence parallelism with tensor-parallel weights are refused.
-The row plan, the split and gather, kernel A's band rows, kernel D's halo
-band and linear SR's partial window sums are held to the whole stream's
-in one process, without ranks. Two gloo spawns.
+Sequence parallelism together with tensor-parallel weights (the model
+group the model splits its rows over also splitting its weights by
+shard_model) runs v1 and Swin at world 2 (sp = tp = 2), v2 and linear v2
+at dp 2 x sp 2, and Swin on one model group of four (stage 1 split, its
+one-head attention replicated on the bands, its MLP hidden split): each
+eval forward is held to JAX's ``sp_mesh`` forward with the variables placed
+by ``param_shardings`` (the same model axis carrying tokens and weights)
+and to JAX's unsharded forward, each fp32 step's consolidated gradients,
+losses and BatchNorm statistics to JAX's single-device step; the v1
+step's checkpoint restores at tp 1, sp 1. The row plan, the split and
+gather, kernel A's band rows, kernel D's halo band and linear SR's partial
+window sums are held to the whole stream's in one process, without ranks
+(tests/test_torch_port_sp_swin.py holds the Swin bands' and the SP x TP
+primitives on threads). Two gloo spawns.
 """
 
 import concurrent.futures
@@ -51,7 +65,6 @@ from mvlt_tpu_torch.models.pvlt import create_model
 from mvlt_tpu_torch.ops.dwconv_mlp import dwconv_mlp_reference
 from mvlt_tpu_torch.ops.sr_kv import linear_pool_shape, sr_kv_reference
 from mvlt_tpu_torch.parallel import sequence
-from mvlt_tpu_torch.parallel.tensor import shard_model
 from mvlt_tpu_torch.train.state import create_train_state
 from mvlt_tpu_torch.train.step import make_train_step
 from mvlt_tpu_torch.utils.checkpoint import STATE_FILE, CheckpointManager
@@ -73,14 +86,22 @@ CONFIGS = {
     "v2": ("pvlt_v2_tiny", {}, (True, True, True, True)),
     "linear": ("pvlt_v2_linear_tiny", {}, (True, True, True, True)),
     "mixed": ("pvlt_tiny", {"sr_ratios": (8, 4, 4, 1)}, (True, True, False, True)),
+    "swin": ("pvlt_swin_tiny", {"window_size": 4}, (True, True, False, False)),
 }
 # fp32 steps against JAX: label: (config, overrides); JAX's step on the CPU
 # takes the XLA route whatever fused_attn_train says, v1's reference
 STEPS = {"v1": ("v1", {}), "v1_fused": ("v1", {"fused_attn_train": True}),
-         "v2": ("v2", {}), "linear": ("linear", {})}
+         "v2": ("v2", {}), "linear": ("linear", {}), "swin": ("swin", {})}
 DROP = dict(drop_rate=0.1, attn_drop_rate=0.1, drop_path_rate=0.1, bert_dropout=0.1)
+SWIN_DROP = {k: v for k, v in DROP.items() if k != "attn_drop_rate"}   # Swin refuses it
 FP64_CASES = {"dropout_v1": ("v1", DROP), "dropout_v2": ("v2", DROP),
-              "remat_linear": ("linear", {**DROP, "remat": True})}
+              "remat_linear": ("linear", {**DROP, "remat": True}),
+              "remat_swin": ("swin", {**SWIN_DROP, "remat": True})}
+# sequence parallelism with tensor-parallel weights, by world: (the model
+# group's size, family); the stages each splits where sp is not SP
+SPTP = {2: ((2, "v1"), (2, "swin")), 4: ((2, "v2"), (2, "linear"), (4, "swin"))}
+SPTP_CASES = [(world, sp, label) for world, cases in SPTP.items() for sp, label in cases]
+SPLIT_AT_4 = {"swin": (True, False, False, False)}
 
 
 def micro(label: str) -> dict:
@@ -128,21 +149,26 @@ def setup(tmp_path_factory):
     data = eval_data()
     torch.save(data, root / "eval.pt")
     spec = {"heads": ALL_HEADS, "img": IMG, "global_batch": GLOBAL_B, "sp": SP,
-            "batch": str(root / "batch.npz"), "families": spec_fams, "cases": ["sp"]}
+            "batch": str(root / "batch.npz"), "families": spec_fams, "cases": ["sp"],
+            "sptp_ckpt_dir": str(root / "sptp_ckpt")}
     return root, fams, batch, data, spec
 
 
-def jax_forward(fam, batch, sp_mesh=None):
+def jax_forward(fam, batch, sp_mesh=None, place_params: bool = False):
     """JAX's eval forward on the global batch, unsharded or with the joint
-    stream over a dp 2 x tp 2 mesh's model axis: {output: numpy}."""
+    stream over a dp 2 x tp 2 mesh's model axis (``place_params``: the
+    parameters placed by its tensor-parallel rules too): {output: numpy}."""
     from mvlt_tpu.models import create_model as jax_create_model
     from mvlt_tpu.parallel import shard_batch
+    from mvlt_tpu.parallel.sharding import param_shardings
 
     jcfg, jmodel, params, stats = fam
     model = jmodel if sp_mesh is None else jax_create_model(jcfg, sp_mesh=sp_mesh)
     inputs = {"images": jnp.asarray(batch["images"]), "ids": jnp.asarray(batch["input_ids"])}
     if sp_mesh is not None:
         inputs = shard_batch(sp_mesh, inputs)
+    if place_params:
+        params = jax.device_put(params, param_shardings(sp_mesh, params))
     out = jax.jit(lambda v, im, i: model.apply(v, im, i, train=False))(
         {"params": params, "batch_stats": stats}, inputs["images"], inputs["ids"])
     return {k: np.asarray(out[k]) for k in OUTPUTS}
@@ -173,10 +199,12 @@ def jax_references(setup) -> dict:
 
     _, fams, batch, _, _ = setup
     mesh = make_mesh(dp_size=2, tp_size=2, devices=jax.devices()[:4])
-    out = {"forward": {}, "forward_sp": {}, "step": {}}
+    out = {"forward": {}, "forward_sp": {}, "forward_sptp": {}, "step": {}}
     for label, fam in fams.items():
         out["forward"][label] = jax_forward(fam, batch)
         out["forward_sp"][label] = jax_forward(fam, batch, mesh)
+    for label in {label for _, _, label in SPTP_CASES}:
+        out["forward_sptp"][label] = jax_forward(fams[label], batch, mesh, place_params=True)
     for label in {c for c, _ in STEPS.values()}:
         out["step"][label] = jax_step(fams[label], batch)
     return out
@@ -186,13 +214,13 @@ def jax_references(setup) -> dict:
 def runs(setup):
     """({world: every rank's ``sp`` results}, JAX's references): world 2
     (sp 2) with the fp32 steps and the fp64 dropout and remat cases, world
-    4 (dp 2 x sp 2) with the fp32 steps and the evals; JAX's forwards and
-    steps are taken in a thread meanwhile."""
+    4 (dp 2 x sp 2) with the fp32 steps and the evals, each then with its
+    SPTP cases; JAX's forwards and steps are taken in a thread meanwhile."""
     root, _, _, _, spec = setup
     steps = {k: [c, o, "float32"] for k, (c, o) in STEPS.items()}
-    spec2 = {**spec, "ckpt_dir": str(root / "ckpt2"),
+    spec2 = {**spec, "ckpt_dir": str(root / "ckpt2"), "sptp": SPTP[2],
              "steps": {**steps, **{k: [c, o, "float64"] for k, (c, o) in FP64_CASES.items()}}}
-    spec4 = {**spec, "ckpt_dir": str(root / "ckpt4"), "steps": steps,
+    spec4 = {**spec, "ckpt_dir": str(root / "ckpt4"), "steps": steps, "sptp": SPTP[4],
              "eval_data": str(root / "eval.pt")}
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         refs = pool.submit(jax_references, setup)
@@ -343,20 +371,105 @@ def test_sp_evals_match_one_process(setup, runs):
             assert abs(got["vl"][k] - v) <= 1e-5 * max(abs(v), 1.0), k
 
 
-def test_swin_under_sp_is_refused():
-    cfg = config.ModelConfig(**{**micro("v1"), "name": "pvlt_swin_tiny"},
-                             loss_type=config.LossType(**ALL_HEADS))
-    with pytest.raises(NotImplementedError, match="sequence parallelism does not cover: "
-                                                  "the Swin backbone"):
-        create_model(cfg, device="cpu", input_size=IMG, sp_group=object())
+def sptp_data_rows(world: int, sp: int, data_rank: int) -> slice:
+    share = GLOBAL_B // (world // sp)
+    return slice(data_rank * share, (data_rank + 1) * share)
 
 
-def test_sp_with_tensor_parallel_weights_is_refused():
-    model = create_model(port_config("v1"), device="cpu", input_size=IMG, sp_group=object())
-    with pytest.raises(NotImplementedError, match="tensor-parallel weights"):
-        shard_model(model, object())
-    with pytest.raises(NotImplementedError, match="tensor-parallel weights"):
-        sequence.refusals(model.cfg, object(), object())
+@pytest.mark.parametrize("world,sp,label", SPTP_CASES)
+def test_sptp_forward_matches_jax(runs, world, sp, label):
+    """Sequence parallelism with tensor-parallel weights: every head's
+    logits of each data rank's rows (the MLM logits of each rank's
+    vocabulary shard) against JAX's sp_mesh forward with the parameters
+    placed by param_shardings and JAX's unsharded forward; the stages split
+    as the row plan says; every rank of a model group holds the same
+    logits of the other heads."""
+    ranks, refs = runs[0][world], runs[1]
+    key = f"{sp}_{label}"
+    for r in ranks:
+        got = r["sptp"][key]
+        assert got["split"] == (CONFIGS[label][2] if sp == SP else SPLIT_AT_4[label])
+        assert got["layout"]["model_rank"] == ranks.index(r) % sp
+        rows = sptp_data_rows(world, sp, got["layout"]["data_rank"])
+        for want in (refs["forward"][label], refs["forward_sptp"][label]):
+            for k, v in got["forward"].items():
+                np.testing.assert_allclose(v.numpy(), want[k][rows], err_msg=k, **TOL)
+            local, start = got["mlm_local"], got["mlm_start"]
+            np.testing.assert_allclose(
+                local.numpy(), want["mlm_logits"][rows][..., start:start + local.shape[-1]],
+                err_msg="mlm_logits", **TOL)
+    assert sorted(ranks[0]["sptp"][key]["forward"]) == sorted(set(OUTPUTS) - {"mlm_logits"})
+    for g in range(0, world, sp):
+        for m in range(1, sp):
+            for k, v in ranks[g]["sptp"][key]["forward"].items():
+                assert torch.equal(v, ranks[g + m]["sptp"][key]["forward"][k]), k
+
+
+@pytest.mark.parametrize("world,sp,label", SPTP_CASES)
+def test_sptp_step_matches_jax_single_device(setup, runs, world, sp, label):
+    """The fp32 step at step 0: the data ranks' mean losses, every
+    consolidated gradient and the BatchNorm statistics against JAX's
+    single-device step, the parameters after AdamW against the port's one
+    process; every rank holds the same consolidated tensors."""
+    ranks, refs = runs[0][world], runs[1]
+    key = f"{sp}_{label}"
+    steps = [r["sptp"][key]["step"] for r in ranks]
+    for got in steps[1:]:
+        for part in ("grads", "params", "buffers"):
+            for n, t in got[part].items():
+                assert torch.equal(t, steps[0][part][n]), (part, n)
+    want_g, want_l, want_bn = refs["step"][label]
+    for k in LOSS_KEYS:
+        got = float(np.mean([s["losses"][k] for s in steps[::sp]]))
+        np.testing.assert_allclose(got, want_l[k], err_msg=k, **TOL)
+    assert sorted(steps[0]["grads"]) == sorted(want_g)
+    for n, w in want_g.items():
+        np.testing.assert_allclose(steps[0]["grads"][n].numpy(), w.numpy(), err_msg=n, **TOL)
+    for n, w in want_bn.items():
+        np.testing.assert_allclose(steps[0]["buffers"][n].numpy(), w.numpy(), err_msg=n, **TOL)
+    model, _, _ = one_process(setup, label, "float32")
+    for n, p in model.named_parameters():
+        np.testing.assert_allclose(steps[0]["params"][n].numpy(), p.detach().numpy(),
+                                   err_msg=n, **TOL)
+
+
+def test_sptp_checkpoint_restores_at_tp1_sp1(setup, runs):
+    """The v1 step's checkpoint under sp = tp = 2 holds the whole model and
+    restores strictly in one process to the consolidated parameters."""
+    root = setup[0] / "sptp_ckpt"
+    model = create_model(port_config("v1"), device="cpu", input_size=IMG)
+    state = create_train_state(model, config.OptimConfig(warmup_epochs=0), GLOBAL_B, 10)
+    state, epoch = CheckpointManager(str(root)).restore(state, "last")
+    assert (state.step, epoch) == (1, 1)
+    want = runs[0][2][0]["sptp"]["2_v1"]["step"]["params"]
+    for n, p in model.named_parameters():
+        assert torch.equal(p.detach(), want[n]), n
+
+
+def test_sptp_describe_names_the_split_stages(runs):
+    lines = runs[0][2][1]["sptp"]["2_swin"]["describe"].splitlines()
+    assert lines[0] == "sequence parallelism over 2 ranks (the weights split by --tp-size):"
+    assert lines[2] == "  stage 2 (8x8): split, 4 of 8 grid rows and 8 of 16 text rows a rank"
+    assert lines[3] == ("  stage 3 (4x4): whole on every rank (4 grid rows, 16 text rows, "
+                        "bands of 4 rows)")
+
+
+@pytest.mark.parametrize("size,n,split", [
+    (256, 2, (True, True, True, False)),     # bands of 32, 16, 8 rows; stage 4's 4 < its window
+    (256, 4, (True, True, False, False)),
+    (224, 2, (False, False, False, False)),  # 56/28/14/7: no band of whole windows of 8 (7)
+])
+def test_swin_splits_by_whole_window_rows(size, n, split):
+    """pvlt_swin_tiny's stages split where a band holds whole window rows
+    and whole text-pool windows: at 256 stages 1-3 at sp 2 and 1-2 at sp 4,
+    at 224 none."""
+    from mvlt_tpu_torch.models.registry import resolve_model_config
+
+    cfg = resolve_model_config(config.ModelConfig(name="pvlt_swin_tiny"))
+    got = tuple(sequence.row_plan(h, w, cfg.num_text_tokens, sequence.stage_unit(cfg, i, (h, w)),
+                                  n, 0).split
+                for i, (h, w) in enumerate(sequence.stage_grids(cfg, size)))
+    assert got == split
 
 
 # ---- the pieces in one process, without ranks --------------------------------------------

@@ -29,9 +29,6 @@ through the split vocabulary's eval decode is refused.
 """
 
 import json
-import os
-import subprocess
-import sys
 
 import jax
 import jax.numpy as jnp
@@ -48,7 +45,7 @@ from mvlt_tpu_torch.parallel.tensor import refusals
 from mvlt_tpu_torch.train.state import create_train_state
 from mvlt_tpu_torch.train.step import make_train_step
 from mvlt_tpu_torch.utils.checkpoint import STATE_FILE, CheckpointManager
-from tests.test_torch_port_ddp import GLOBAL_B, REPO, free_port, setup, spawn  # noqa: F401
+from tests.test_torch_port_ddp import GLOBAL_B, setup, spawn, torchrun  # noqa: F401
 from tests.test_torch_port_train import IMG, LOSS_KEYS, one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=2e-4, atol=2e-5)
@@ -169,15 +166,12 @@ def test_split_vocabulary_decode(tp_runs):
         assert r["argmax"][0, 0] == 3 and r["argmax"][1, 0] == 16 and r["argmax"][2, 0] == 0
 
 
-def _torchrun(args, out, timeout=300):
-    env = {**os.environ, "OMP_NUM_THREADS": "1"}
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node=2",
-           "--master_addr=127.0.0.1", f"--master_port={free_port()}", "-m", "mvlt_tpu_torch.cli",
-           "--config", "configs/test_micro.py", "--synthetic-data", "--device", "cpu",
-           "--batch-size", "16", "--output-dir", str(out)] + args
-    proc = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True, text=True, timeout=timeout)
-    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-5000:]
-    return proc.stdout
+def _torchrun(args, out):
+    out.mkdir(parents=True, exist_ok=True)
+    logs = sorted(out.glob("torchrun*.log"))
+    return torchrun(2, ["-m", "mvlt_tpu_torch.cli", "--config", "configs/test_micro.py",
+                        "--synthetic-data", "--device", "cpu", "--batch-size", "16",
+                        "--output-dir", str(out)] + args, out / f"torchrun{len(logs)}.log")
 
 
 def test_cli_tp2_then_resume_at_tp1(tmp_path, one_torch_thread):

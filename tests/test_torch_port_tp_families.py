@@ -33,10 +33,7 @@ launch.
 
 import concurrent.futures
 import json
-import os
 import runpy
-import subprocess
-import sys
 
 import jax
 import jax.numpy as jnp
@@ -52,7 +49,7 @@ from mvlt_tpu_torch.train.state import create_train_state
 from mvlt_tpu_torch.train.step import make_train_step
 from mvlt_tpu_torch.utils.checkpoint import STATE_FILE, CheckpointManager
 from tests.test_torch_port_ddp import (GLOBAL_B, HEADS, PORT_TOL, REPO, assert_close_to_max,
-                                       free_port, spawn)
+                                       spawn, torchrun)
 from tests.test_torch_port_train import LOSS_KEYS, MICRO, T, _numpy_weights, one_torch_thread
 
 pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
@@ -283,15 +280,12 @@ def test_cli_tp2_v2_zero1_remat_dropout(tmp_path):
     path = tmp_path / "v2.json"
     path.write_text(json.dumps(micro))
     out = tmp_path / "run"
-    env = {**os.environ, "OMP_NUM_THREADS": "1"}
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node=4",
-           "--master_addr=127.0.0.1", f"--master_port={free_port()}", "-m", "mvlt_tpu_torch.cli",
-           "--config", str(path), "--synthetic-data", "--device", "cpu", "--batch-size", "8",
-           "--epochs", "1", "--tp-size", "2", "--zero1", "--remat", "--output-dir", str(out)]
-    proc = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
-    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-5000:]
-    assert proc.stdout.count("device: cpu; 4 ranks (gloo)") == 1
-    assert "stage 2 (2 blocks): attention sharded, 1 of 2 heads a rank" in proc.stdout
+    stdout = torchrun(4, ["-m", "mvlt_tpu_torch.cli", "--config", str(path), "--synthetic-data",
+                          "--device", "cpu", "--batch-size", "8", "--epochs", "1", "--tp-size",
+                          "2", "--zero1", "--remat", "--output-dir", str(out)],
+                      tmp_path / "torchrun.log")
+    assert stdout.count("device: cpu; 4 ranks (gloo)") == 1
+    assert "stage 2 (2 blocks): attention sharded, 1 of 2 heads a rank" in stdout
     with open(out / "train_log.jsonl") as f:
         (line,) = [json.loads(ln) for ln in f]
     assert all(np.isfinite(v) for v in line.values()) and "eval_mlm_acc" in line
