@@ -74,6 +74,12 @@ attention core on csrc/attention.cu), phase fba_train_kernels:
                    head);
   lse_stats_log2   the statistics form takes lse = max - log2(1/den), the
                    base-2 log of the natural statistics.
+Their tensor-parallel modes (a rank's heads, hd apart from D), phase
+tp_kernels:
+  fba_tp_q_stride  the forward's Q view steps D a row, as the whole
+                   width does, instead of the rank's heads' width;
+  fba_tp_dx_with_dy  the backward's partial dx adds dy on every rank (the
+                   model group's sum then holds tp dy).
 The training attention kernels (csrc/attention.cu), phase train_kernels:
   no_online_rescale    the forward keeps the running sum and output as they
                        are when a later K/V chunk raises a row's max (seen
@@ -202,9 +208,14 @@ with the weights split, alone):
 Across four cards over NCCL (utils/checkpoint.py, parallel/mesh.py), on a
 machine with four cards:
   zero1_moments_model_rank0  saving consolidates ZeRO-1's moments over the
-                       model group from model rank 0's shard alone (phase
-                       nccl_tp_zero1: the checkpoint's moments against the
-                       plain split step's);
+                       model group from model rank 0's shard alone, after
+                       Zero1AdamW gathered each shard's slices over the data
+                       group (phase nccl_tp_zero1: the checkpoint's moments
+                       against the plain split step's);
+  zero1_moments_data_rank0  Zero1AdamW gathers each moment from data rank
+                       0's slice alone (on one card: phase ddp_two_ranks,
+                       its ZeRO-1 checkpoint's moments against the plain
+                       step's);
   data_group_over_model_axis  each rank's data group is its model group
                        (the data axis taken for the model axis): DDP
                        averages the shards of the other heads and hidden
@@ -237,12 +248,12 @@ FAULTS = {
         "for (int s = 0; s < a.splits - 1; ++s) {"),
     "c_head_stride": (
         "v2_kernels", "mvlt_tpu_torch/csrc/attn_chain.cuh",
-        "const long long view_a[3] = {(long long)h.n * d, hd, d};",
-        "const long long view_a[3] = {(long long)h.n * d, hd / 2, d};"),
+        "const long long view_a[3] = {(long long)h.n * dh, hd, dh};",
+        "const long long view_a[3] = {(long long)h.n * dh, hd / 2, dh};"),
     "a_head_stride": (
         "kernels", "mvlt_tpu_torch/csrc/attn_chain.cuh",
-        "const long long view_a[3] = {(long long)h.n * d, hd, d};",
-        "const long long view_a[3] = {(long long)h.n * d, hd / 2, d};"),
+        "const long long view_a[3] = {(long long)h.n * dh, hd, dh};",
+        "const long long view_a[3] = {(long long)h.n * dh, hd / 2, dh};"),
     "mlp_reads_x": (
         "kernels", "mvlt_tpu_torch/csrc/block_fused.cu",
         "return mvlt_ln_mlp_fwd(h, ln2_w,",
@@ -295,10 +306,18 @@ FAULTS = {
         "fba_train_kernels", "mvlt_tpu_torch/csrc/block_attention_train.cu",
         "const int ranges = splits;",
         "const int ranges = splits - 1;"),
+    "fba_tp_q_stride": (
+        "tp_kernels", "mvlt_tpu_torch/csrc/attn_chain.cuh",
+        "const long long view_q[3] = {(long long)h.n * dh, hd, dh};",
+        "const long long view_q[3] = {(long long)h.n * d, hd, d};"),
+    "fba_tp_dx_with_dy": (
+        "tp_kernels", "mvlt_tpu_torch/csrc/block_attention_train.cu",
+        "= make_float2(l0, l1);",
+        "= make_float2(dyv[k][p].x + l0, dyv[k][p].y + l1);"),
     "q_head_stride": (
         "fba_train_kernels", "mvlt_tpu_torch/csrc/block_attention_train.cu",
-        "const long long sq[3] = {(long long)n * d, hd, d}",
-        "const long long sq[3] = {(long long)n * d, hd / 2, d}"),
+        "const long long sq[3] = {(long long)n * dh, hd, dh}",
+        "const long long sq[3] = {(long long)n * dh, hd / 2, dh}"),
     "lse_stats_log2": (
         "fba_train_kernels", "mvlt_tpu_torch/csrc/block_attention_train.cu",
         "sr[0] - logf(sr[1]);",
@@ -354,8 +373,8 @@ FAULTS = {
         "for (int s = 0; s < parts - 1; ++s) {"),
     "swin_train_mask_row": (
         "train_glue", "mvlt_tpu_torch/models/swin.py",
-        "v_txt, bias, mask, scale=hd ** -0.5)",
-        "v_txt, bias, mask.roll(-(-w // ws), 0), scale=hd ** -0.5)"),
+        "k_txt, v_txt, bias, mask,\n",
+        "k_txt, v_txt, bias, mask.roll(-(-w // ws), 0),\n"),
     "linear_sr_adaptive_pool": (
         "train_glue", "mvlt_tpu_torch/ops/sr_kv.py",
         "pooled = F.avg_pool2d(grid, win, win)",
@@ -387,12 +406,12 @@ FAULTS = {
         "        return dy.clone(), None"),
     "tp_residual_every_rank": (
         "tp_two_ranks", "mvlt_tpu_torch/parallel/tensor.py",
-        "        total = _model_sum(part, group)",
-        "        total = _model_sum(part + x.to(part.dtype), group)"),
+        "        if sp is None:\n            total = _model_sum(part, group)",
+        "        if sp is None:\n            total = _model_sum(part + x.to(part.dtype), group)"),
     "tp_proj_bias_every_rank": (
         "tp_two_ranks", "mvlt_tpu_torch/parallel/tensor.py",
-        "    total = reduce_from_model(linear_partial(x, weight), group)",
-        "    total = reduce_from_model(linear_partial(x, weight) + bias, group)"),
+        "    part = linear_partial(x, weight)\n",
+        "    part = linear_partial(x, weight) + bias\n"),
     "copy_to_model_unreduced": (
         "tp_two_ranks", "mvlt_tpu_torch/parallel/tensor.py",
         "        return _model_sum(dy, ctx.group).to(dy.dtype), None",
@@ -407,9 +426,8 @@ FAULTS = {
         "const int c = l - (a.vocab_start + 1);"),
     "tp_db2_rank_dependent": (
         "tp_two_ranks", "mvlt_tpu_torch/parallel/tensor.py",
-        "        grads = (summed[-2 * d:-d], summed[-d:], dw1, db1, dw2, db2)",
-        "        grads = (summed[-2 * d:-d], summed[-d:], dw1, db1, dw2,\n"
-        "                 db2 * (1 + dist.get_rank(ctx.group)))"),
+        "        grads = (dgamma, dbeta, dw1, db1, dw2, db2)",
+        "        grads = (dgamma, dbeta, dw1, db1, dw2, db2 * (1 + dist.get_rank(ctx.group)))"),
     "generator_world_rank": (
         "tp_two_ranks", "mvlt_tpu_torch/parallel/mesh.py",
         "    return seed + data_rank()",
@@ -438,6 +456,10 @@ FAULTS = {
         "nccl_tp_zero1", "mvlt_tpu_torch/utils/checkpoint.py",
         "lambda n, t: consolidate({n: t}, group, cfg)[n]",
         "lambda n, t: consolidate({n: t * (dist.get_rank(group) == 0)}, group, cfg)[n]"),
+    "zero1_moments_data_rank0": (
+        "ddp_two_ranks", "mvlt_tpu_torch/parallel/sharding.py",
+        "                full.narrow(*part).copy_(st[key])",
+        "                full.narrow(*part).copy_(st[key] * (self.rank == 0))"),
     "sp_kv_grad_unsummed": (
         "sp_two_ranks", "mvlt_tpu_torch/parallel/sequence.py",
         "return (take(_summed(dy, ctx.plan), ctx.plan, ctx.m_vis, ctx.dim).contiguous(),",

@@ -334,7 +334,9 @@ from mvlt_tpu_torch.ops import _build
 from mvlt_tpu_torch.ops.block_attention import (block_attention_bwd_reference,
                                                 block_attention_reference,
                                                 block_attention_train_bwd,
+                                                block_attention_train_bwd_tp,
                                                 block_attention_train_fwd,
+                                                block_attention_train_fwd_tp,
                                                 block_attention_train_reference,
                                                 fused_block_attention,
                                                 fused_block_attention_train)
@@ -451,6 +453,20 @@ KERNELS = [
      "replaces": "mvlt_tpu/ops/mlm_ce.py:187 (its tensor-parallel mode)"},
     {"name": "mlm_ce_bwd_tp", "route": "cuda", "source": "mvlt_tpu_torch/csrc/mlm_ce.cu",
      "replaces": "mvlt_tpu/ops/mlm_ce.py:249 (its tensor-parallel mode)"},
+    {"name": "fba_train_fwd_tp", "route": "cuda",
+     "source": "mvlt_tpu_torch/csrc/block_attention_train.cu",
+     "replaces": "mvlt_tpu/ops/block_attention.py:647 (its tensor-parallel mode)"},
+    {"name": "fba_train_fwd_stats_tp", "route": "cuda",
+     "source": "mvlt_tpu_torch/csrc/block_attention_train.cu",
+     "replaces": "mvlt_tpu/ops/block_attention.py:692 (its tensor-parallel mode)"},
+    {"name": "fba_train_bwd_tp", "route": "cuda",
+     "source": "mvlt_tpu_torch/csrc/block_attention_train.cu",
+     "replaces": "mvlt_tpu/ops/block_attention.py:544 (_bwd_kernel :136, its tensor-parallel "
+                 "mode)"},
+    {"name": "fba_train_bwd_stats_tp", "route": "cuda",
+     "source": "mvlt_tpu_torch/csrc/block_attention_train.cu",
+     "replaces": "mvlt_tpu/ops/block_attention.py:544 (_bwd_kernel_stats :265, its "
+                 "tensor-parallel mode)"},
 ]
 SERVING_WRAPPERS = {"sr_kv": fused_ln_sr_kv, "block_fused": fused_block}
 # kernel A's chain runs #12's norm kernel and its own under SrKvRoute,
@@ -467,10 +483,13 @@ MLM_WRAPPERS = {"mlm_ce_fwd": mlm_ce_fwd, "mlm_ce_bwd": mlm_ce_bwd}   # once per
 FBA_WRAPPERS = {"fba_train_fwd": block_attention_train_fwd,
                 "fba_train_bwd": block_attention_train_bwd}
 FBA_ROUTE = {**FBA_WRAPPERS, "ln_mlp_fwd": ln_mlp_fwd, "ln_mlp_bwd": ln_mlp_bwd}
-# the tensor-parallel modes of #12-#15 (a rank's slice of the hidden or of
-# the vocabulary), each counted apart from its one-process launches
+# the tensor-parallel modes of #6-#8 and #12-#15 (a rank's heads, slice of
+# the hidden or of the vocabulary), each counted apart from its one-process
+# launches; #6-#8's in either form (the kernels line keeps the forms apart)
 TP_WRAPPERS = {"ln_mlp_fwd_tp": ln_mlp_fwd_tp, "ln_mlp_bwd_tp": ln_mlp_bwd_tp,
-               "mlm_ce_fwd_tp": mlm_ce_fwd_tp, "mlm_ce_bwd_tp": mlm_ce_bwd_tp}
+               "mlm_ce_fwd_tp": mlm_ce_fwd_tp, "mlm_ce_bwd_tp": mlm_ce_bwd_tp,
+               "fba_train_fwd_tp": block_attention_train_fwd_tp,
+               "fba_train_bwd_tp": block_attention_train_bwd_tp}
 WRAPPERS = {**SERVING_WRAPPERS, **V2_SERVING_WRAPPERS, **SWIN_WRAPPERS, **TRAINING_WRAPPERS,
             **MLM_WRAPPERS, **FBA_WRAPPERS, **TP_WRAPPERS}
 
@@ -1593,6 +1612,44 @@ V2_GROUPS = {"sr_kv": ("SrKvRoute",), "block_attention": ("BlockAttentionRoute",
              "dwconv_mlp": ("DwConvRoute", "dwconv_")}
 
 
+def phase_swin256_window(model, bundle, sd, e_logits_err: float) -> None:
+    """The window route (kernel F and the LN-MLP forward) of pvlt_swin_tiny
+    at 256, which serves a stage's bands under sequence parallelism,
+    against the CPU fp32 model (compare_cpu_fp32, the ITM logits within
+    SLICE_TOL) on the bundle and weights of swin_slice_vs_cpu_fp32: with
+    models/swin.py:swin_band_stage patched off on the stages sp 2 splits
+    (1-3), as sp_serving_reference does, and on every stage; E's figure of
+    the same bundle beside them. Over the bound, every block of that route
+    is held to its plain version at 256's shapes (check_swin_blocks) before
+    the phase fails."""
+    from mvlt_tpu_torch.models import pvlt
+    from mvlt_tpu_torch.parallel import sequence
+
+    split = planned_split(model.cfg, SP_SIZE)
+    bands = {g for g, on in zip(sequence.stage_grids(model.cfg, 256), split) if on}
+    gate = pvlt.swin_band_stage
+    forms = {"sp2_stages": lambda ws, hw: tuple(hw) not in bands and gate(ws, hw),
+             "every_stage": lambda ws, hw: False}
+    errs, failed = {}, []
+    for form, off in forms.items():
+        with mock.patch.object(pvlt, "swin_band_stage", off):
+            try:
+                errs[form] = compare_cpu_fp32(model, bundle, sd,
+                                              f"swin256_window_{form}_vs_cpu_fp32")
+            except AssertionError as e:
+                failed.append(form)
+                errs[form] = str(e)
+                check_swin_blocks(model, bundle, f"swin256_window_{form}_blocks_vs_plain")
+    emit("swin256_window_vs_cpu_fp32", model=model.cfg.name, input=256,
+         window_stages={"sp2_stages": [i + 1 for i, on in enumerate(split) if on],
+                        "every_stage": [1, 2, 3, 4]},
+         rel_err_logits=errs, rel_err_logits_e_route=e_logits_err, tol=SLICE_TOL,
+         ok=not failed)
+    if failed:
+        raise AssertionError(f"Swin's window route at 256 differs from the CPU fp32 model past "
+                             f"{SLICE_TOL}: {errs}")
+
+
 def phase_swin(stats: dict) -> None:
     """Swin serving: kernels E and F vs plain; pvlt_swin_tiny at 224 (stage 1
     on kernel E, stages 2-4 on F and the LN-MLP forward) through
@@ -1607,9 +1664,10 @@ def phase_swin(stats: dict) -> None:
         model, bundles, sd = phase_slice(stats, "pvlt_swin_tiny", SWIN_WRAPPERS,
                                          prefix + "slice", size, per_forward)
         check_swin_blocks(model, bundles[0], prefix + "slice_blocks_vs_plain")
-        compare_cpu_fp32(model, bundles[0], sd, prefix + "slice_vs_cpu_fp32")
+        e_err = compare_cpu_fp32(model, bundles[0], sd, prefix + "slice_vs_cpu_fp32")
         if size == 256:
             swin_init_gap(model, bundles[0], sd)
+            phase_swin256_window(model, bundles[0], sd, e_err)
         phase_throughput(model, bundles, SWIN_GROUPS, prefix)
         del model
         torch.cuda.empty_cache()
@@ -3176,6 +3234,26 @@ SWAP_FACTOR = 2.0
 BF16_SPACING = 2.0 ** -8
 FIRST_BN = ("t2i_head.reduction1.1.", "t2i_head.reduction2.1.", "t2i_head.reduction3.1.")
 ZERO_TOL = 1e-6     # ZeRO-1's parameters after AdamW against the plain AdamW's
+
+
+def moment_bytes(optimizer) -> int:
+    """The bytes of an optimizer's AdamW moments on this rank."""
+    return sum(t.numel() * t.element_size() for st in optimizer.state.values()
+               for k, t in st.items() if k in ("exp_avg", "exp_avg_sq"))
+
+
+def zero1_parts(params, data: int) -> dict:
+    """The fp32 AdamW moments of ``params`` (a rank's, its tensor-parallel
+    shards marked) under ZeRO-1 by element over ``data`` ranks: the bytes
+    of those that split (parallel/sharding.py:zero1_dim), of those every
+    rank keeps whole, and what a rank must hold: sharded / data + whole."""
+    from mvlt_tpu_torch.parallel.sharding import zero1_dim
+
+    params = [p for p in params if p.requires_grad]
+    sharded = sum(8 * p.numel() for p in params if zero1_dim(p, data) is not None)
+    whole = sum(8 * p.numel() for p in params if zero1_dim(p, data) is None)
+    return {"sharded_bytes": sharded, "replicated_bytes": whole,
+            "rank_bytes": sharded // data + whole}
 DDP_BUNDLES = 3
 DDP_ITEMS = 10
 PRETRAIN_CONFIG = REPO / "configs" / "pretrain_exp21.py"
@@ -3488,9 +3566,8 @@ def ddp_two_ranks_rank(spec: dict) -> None:
     step(zstate, batch)
     torch.cuda.synchronize()
     zero_gap = max(float((p - after[n]).abs().max()) for n, p in net.named_parameters())
-    moment_bytes = sum(t.numel() * t.element_size()
-                       for st in zstate.optimizer.optim.state.values()
-                       for k, t in st.items() if k in ("exp_avg", "exp_avg_sq"))
+    zero_bytes = moment_bytes(zstate.optimizer)
+    zero_parts = zero1_parts(net.parameters(), world)
     full_bytes = 2 * sum(p.numel() * p.element_size() for p in net.parameters()
                          if p.requires_grad)
     ckpt_dir = pathlib.Path(spec["out"]) / "zero1_run"
@@ -3521,7 +3598,8 @@ def ddp_two_ranks_rank(spec: dict) -> None:
         "world": world, "backend": torch.distributed.get_backend(), "launches": launches,
         "losses": {k: float(v) for k, v in losses.items()}, "mean_losses": mean_losses,
         "grad_checksums": both.tolist(), "zero1_param_gap": zero_gap,
-        "zero1_moment_bytes": moment_bytes, "full_moment_bytes": full_bytes,
+        "zero1_moment_bytes": zero_bytes, "zero1_parts": zero_parts,
+        "full_moment_bytes": full_bytes,
         "zero1_saved_moment_gap": saved_gap, "zero1_saved_names": saved_names,
         "partial_max": partials, "ms_per_step": ms, **evals}))
     mesh.destroy()
@@ -3548,7 +3626,8 @@ def phase_ddp_two_ranks(stats: dict) -> None:
     Every training wrapper launched as in the one-process step. The same
     two-rank step under ZeRO-1 through the port's state and step (the
     parameters within ZERO_TOL of the plain two-rank step's, each rank
-    holding about half the moments' bytes, the state consolidated and saved
+    holding exactly half of every moment ZeRO-1 splits by element and the
+    whole of the others (zero1_parts), the state consolidated and saved
     by CheckpointManager with the moments of the plain step), and retrieval
     over DDP_BUNDLES bundles and recognition over DDP_ITEMS items sharded
     over the ranks, whose metrics (and rank 0's recognition artifact's
@@ -3632,10 +3711,8 @@ def phase_ddp_two_ranks(stats: dict) -> None:
         "zero1_params": all(r["zero1_param_gap"] <= ZERO_TOL for r in ranks),
         "zero1_saved": ranks[0]["zero1_saved_names"] is True
         and ranks[0]["zero1_saved_moment_gap"] <= ZERO_TOL,
-        "zero1_moments_split": (sum(r["zero1_moment_bytes"] for r in ranks)
-                                == ranks[0]["full_moment_bytes"]
-                                and all(0.3 < r["zero1_moment_bytes"] / r["full_moment_bytes"]
-                                        < 0.7 for r in ranks)),
+        "zero1_moments_split": all(r["zero1_moment_bytes"] == r["zero1_parts"]["rank_bytes"]
+                                   for r in ranks),
         "retrieval_equal": all(r["retrieval"] == want_evals["retrieval"] for r in ranks)
         and want_evals["retrieval"]["num_queries"] == DDP_BUNDLES,
         "recognition_equal": all(r["recognition"] == want_evals["recognition"] for r in ranks)
@@ -3670,7 +3747,7 @@ def phase_ddp_two_ranks(stats: dict) -> None:
          zero1_param_gap=[r["zero1_param_gap"] for r in ranks], zero_tol=ZERO_TOL,
          zero1_moment_bytes=[r["zero1_moment_bytes"] for r in ranks],
          zero1_saved_moment_gap=ranks[0]["zero1_saved_moment_gap"],
-         full_moment_bytes=ranks[0]["full_moment_bytes"],
+         zero1_parts=ranks[0]["zero1_parts"], full_moment_bytes=ranks[0]["full_moment_bytes"],
          retrieval=ranks[0]["retrieval"], recognition=ranks[0]["recognition"],
          ms_per_step_two_ranks=[r["ms_per_step"] for r in ranks], ms_per_step_one_process=one_ms,
          ms_note="two ranks over gloo on one card: gradients all-reduced through host copies, "
@@ -3693,6 +3770,21 @@ TP_EVAL_ITEMS = (32, 12)   # the VL eval's batches: one full, one ragged
 # kernels' tensor-parallel modes once per block, the MLM CE kernels' once
 TP_STEP_LAUNCHES = {"attention_fwd": 8, "attention_bwd": 8, "ln_mlp_fwd_tp": 8,
                     "ln_mlp_bwd_tp": 8, "mlm_ce_fwd_tp": 1, "mlm_ce_bwd_tp": 1}
+# on the fused_attn_train route: #6-#8's tensor-parallel modes on the four
+# blocks whose heads split over two ranks (stages 2 and 4), the unsharded
+# launch on the other four (stages 1 and 3: 1 and 5 heads)
+TP_FBA_LAUNCHES = {"fba_train_fwd": 4, "fba_train_bwd": 4, "fba_train_fwd_tp": 4,
+                   "fba_train_bwd_tp": 4, "ln_mlp_fwd_tp": 8, "ln_mlp_bwd_tp": 8,
+                   "mlm_ce_fwd_tp": 1, "mlm_ce_bwd_tp": 1}
+# tp_two_ranks' other routes: (config overrides on ddp_config, a split
+# step's launches a rank); through the logits the MLM loss is PyTorch's
+# matmul and the vocabulary-parallel cross entropy, no MLM CE kernel
+TP_ROUTES = {
+    "fused": ({"fused_attn_train": True}, TP_FBA_LAUNCHES),
+    "fused_stats": ({"fused_attn_train": True, "fused_attn_stats": True}, TP_FBA_LAUNCHES),
+    "mlm_logits": ({"mlm_loss_chunk": 0},
+                   {k: v for k, v in TP_STEP_LAUNCHES.items() if "mlm" not in k}),
+}
 
 
 def tp_hidden_slices(mlp: tuple, rank: int, tp: int) -> tuple:
@@ -3776,6 +3868,156 @@ def tp_time(stats: dict, name: str, label: str, kernel, unsharded, plain, bound_
              library_ms=None)
 
 
+# #6-#8's tensor-parallel modes: the pvlt_tiny stages whose heads split
+# (stages 2 and 4 at tp 2, stage 4 at tp 4) and a ragged shape of four
+# heads of 32 (N = 67, M = 22)
+FBA_TP_RAGGED = (6, 10, 128, 4, 2, 512, 7)
+
+
+def fba_tp_slices(a: dict, rank: int, tp: int) -> tuple:
+    """(K, V, Wq, bq, Wp) of rank ``rank``'s heads: K and V its heads, Wq
+    and bq their rows, Wp their columns."""
+    _, _, wq, bq, wp, _ = a["params"]
+    hr = a["kw"]["heads"] // tp
+    heads = slice(rank * hr, (rank + 1) * hr)
+    return (a["k"][:, heads].contiguous(), a["v"][:, heads].contiguous(),
+            shard_tensor(wq, ROW, rank, tp), shard_tensor(bq, ROW, rank, tp),
+            shard_tensor(wp, COL, rank, tp))
+
+
+def fba_tp_sums(a: dict, tp: int, with_stats: bool) -> tuple:
+    """#6 (#7 ``with_stats``) and #8's tensor-parallel modes on each of
+    ``tp`` slices of the heads, summed in fp32 in this process as the
+    model group sums them, with s bp, x and dy added once: (out,), the nine
+    gradients of the whole (each slice's stats feeding its backward), and
+    every slice's dbp (each must be the whole one)."""
+    g, be, _, _, _, bp = a["params"]
+    x, s, dy = a["x"], a["s"], a["dy"]
+    hr = a["kw"]["heads"] // tp
+    parts, grads = [], []
+    for r in range(tp):
+        k, v, wq, bq, wp = fba_tp_slices(a, r, tp)
+        res = block_attention_train_fwd_tp(x, k, v, g, be, wq, bq, wp, s, heads=hr, eps=1e-6,
+                                           save_stats=with_stats)
+        part, st = res if with_stats else (res, None)
+        parts.append(part)
+        grads.append(block_attention_train_bwd_tp(x, k, v, g, be, wq, bq, wp, s, dy, heads=hr,
+                                                  eps=1e-6, stats=st))
+    out = (x.float() + sum(parts) + s[:, None, None] * bp).to(x.dtype)
+    dx = (dy.float() + sum(o[0] for o in grads)).to(x.dtype)
+    whole = (dx, torch.cat([o[1] for o in grads], 1), torch.cat([o[2] for o in grads], 1),
+             sum(o[3] for o in grads), sum(o[4] for o in grads),
+             torch.cat([o[5] for o in grads]), torch.cat([o[6] for o in grads]),
+             torch.cat([o[7] for o in grads], 1), grads[0][8])
+    return (out,), whole, [o[8] for o in grads]
+
+
+def fba_tp_bounds(shape: tuple, batch: int, tp: int) -> dict:
+    """(ms, bound_by) of one rank's launch of #6-#8's tensor-parallel modes
+    on H / tp heads, dh = D / tp wide: fba_bounds' work on the rank's
+    heads (the products and K/V of dh columns), x (and dy) read in bf16,
+    the fp32 partial out (dx) written, the slice's bf16 Wq and Wp read and
+    (backward) their fp32 gradients and dgamma, dbeta, dbq, dbp written."""
+    h, w, d, nh, sr, hid, t = shape
+    n = h * w + t
+    m = (h // sr) * (w // sr) + t if sr > 1 else n
+    dh = d // tp
+    rows, kv, st = batch * n, batch * m * dh, 4 * batch * n * (2 + 2 * nh // tp)
+    fwd_bytes = 2 * rows * d + 4 * rows * d + 2 * 2 * kv + 2 * 2 * d * dh
+    bwd_bytes = (2 * 2 * rows * d + 4 * rows * d + 2 * 4 * kv + 2 * 2 * d * dh
+                 + 4 * (2 * d * dh + dh + 3 * d))
+    fwd_flops = 4 * rows * (d * dh + m * dh)
+    bwd_flops = 10 * rows * d * dh + 12 * rows * m * dh
+    return {"fba_train_fwd_tp": bound(fwd_flops, fwd_bytes),
+            "fba_train_fwd_stats_tp": bound(fwd_flops, fwd_bytes + st),
+            "fba_train_bwd_tp": bound(bwd_flops, bwd_bytes),
+            "fba_train_bwd_stats_tp": bound(bwd_flops, bwd_bytes + st)}
+
+
+def check_fba_tp(stats: dict, gen, label: str, shape: tuple, batch: int,
+                 time_tp: int = 0) -> None:
+    """#6/#7/#8's tensor-parallel modes at every tp of TP_SIZES that divides
+    the shape's heads, in both forms, summed over the slices and held to
+    the unsharded kernel of the same form and to the plain version within
+    KERNEL_TOL; #8's dbp whole on every slice. At ``time_tp`` one rank's
+    launch of each is timed beside the unsharded launch and its plain
+    version on the same slice."""
+    a = fba_inputs(gen, shape, batch)
+    kw = a["kw"]
+    for with_stats in (False, True):
+        sfx = "_stats" if with_stats else ""
+        res_k = block_attention_train_fwd(*_fba_fwd_args(a), save_stats=True, **kw)
+        res_p = block_attention_train_reference(*_fba_fwd_args(a), save_stats=True, **kw)
+        fwd_k, fwd_p = (res_k[0],), (res_p[0],)
+        bwd_k = block_attention_train_bwd(*_fba_bwd_args(a), stats=res_k[1] if with_stats
+                                          else None, **kw)
+        bwd_p = block_attention_bwd_reference(*_fba_bwd_args(a), stats=res_p[1] if with_stats
+                                              else None, **kw)
+        for tp in TP_SIZES:
+            if kw["heads"] % tp:
+                continue
+            out, grads, dbps = fba_tp_sums(a, tp, with_stats)
+            torch.cuda.synchronize()
+            fields = dict(batch=batch, tp=tp, heads=kw["heads"], heads_per_rank=kw["heads"] // tp)
+            check_tp_errors(stats, f"fba_train_fwd{sfx}_tp", label, ("out",), out, fwd_k, fwd_p,
+                            **fields)
+            check_tp_errors(stats, f"fba_train_bwd{sfx}_tp", label, FBA_GRADS, grads, bwd_k,
+                            bwd_p, **fields)
+            if not all(torch.equal(d, dbps[0]) for d in dbps):
+                raise AssertionError(f"#8's tensor-parallel dbp differs between slices at {label}")
+            del out, grads, dbps
+        del res_k, res_p, bwd_k, bwd_p
+    if time_tp:
+        g, be, *_ = a["params"]
+        x, s, dy = a["x"], a["s"], a["dy"]
+        k, v, wq, bq, wp = fba_tp_slices(a, 0, time_tp)
+        hr = kw["heads"] // time_tp
+        _, st = block_attention_train_fwd_tp(x, k, v, g, be, wq, bq, wp, s, heads=hr, eps=1e-6,
+                                             save_stats=True)
+        _, st_ref = block_attention_train_reference(x, k, v, g, be, wq, bq, wp, None, s,
+                                                    heads=hr, eps=1e-6, save_stats=True,
+                                                    partial=True)
+        _, st_whole = block_attention_train_fwd(*_fba_fwd_args(a), save_stats=True, **kw)
+        bounds = fba_tp_bounds(shape, batch, time_tp)
+        for with_stats in (False, True):
+            sfx = "_stats" if with_stats else ""
+            tp_time(stats, f"fba_train_fwd{sfx}_tp", label,
+                    lambda: block_attention_train_fwd_tp(x, k, v, g, be, wq, bq, wp, s,
+                                                         heads=hr, eps=1e-6,
+                                                         save_stats=with_stats),
+                    lambda: block_attention_train_fwd(*_fba_fwd_args(a), save_stats=with_stats,
+                                                      **kw),
+                    lambda: block_attention_train_reference(x, k, v, g, be, wq, bq, wp, None, s,
+                                                            heads=hr, eps=1e-6,
+                                                            save_stats=with_stats, partial=True),
+                    bounds[f"fba_train_fwd{sfx}_tp"], batch=batch, tp=time_tp)
+            tp_time(stats, f"fba_train_bwd{sfx}_tp", label,
+                    lambda: block_attention_train_bwd_tp(x, k, v, g, be, wq, bq, wp, s, dy,
+                                                         heads=hr, eps=1e-6,
+                                                         stats=st if with_stats else None),
+                    lambda: block_attention_train_bwd(*_fba_bwd_args(a), stats=st_whole
+                                                      if with_stats else None, **kw),
+                    lambda: block_attention_bwd_reference(x, k, v, g, be, wq, bq, wp, s, dy,
+                                                          heads=hr, eps=1e-6,
+                                                          stats=st_ref if with_stats else None,
+                                                          partial=True),
+                    bounds[f"fba_train_bwd{sfx}_tp"], batch=batch, tp=time_tp)
+    del a
+    torch.cuda.empty_cache()
+
+
+def phase_fba_tp_kernels(stats: dict) -> None:
+    """check_fba_tp on the pvlt_tiny stages whose heads split over 2 or 4
+    ranks (B = 150, one rank's launch at tp 2 timed) and on FBA_TP_RAGGED
+    (B = 4)."""
+    gen = torch.Generator().manual_seed(SEED + 24)
+    for i, (h, w, d, nh, sr, hid) in enumerate(STAGES):
+        if nh % 2 == 0:
+            check_fba_tp(stats, gen, f"stage{i + 1}", (h, w, d, nh, sr, hid, TEXT), TRAIN_BATCH,
+                         time_tp=2)
+    check_fba_tp(stats, gen, "ragged", FBA_TP_RAGGED, SMOKE_BATCH)
+
+
 def phase_tp_kernels(stats: dict) -> None:
     """The tensor-parallel modes of #12/#13 at H / 2 and H / 4 (pvlt_tiny's
     stage shapes at B = 150 and a ragged shape at B = 4) and of #14/#15 at
@@ -3783,7 +4025,8 @@ def phase_tp_kernels(stats: dict) -> None:
     over the slices in fp32 in this process and held to the unsharded
     kernel and to the plain version within KERNEL_TOL; #13's db2 whole on
     every slice. At tp = 2 one rank's launch is timed beside the unsharded
-    launch and the mode's plain version."""
+    launch and the mode's plain version. Then #6-#8's modes on a rank's
+    heads (phase_fba_tp_kernels)."""
     gen = torch.Generator().manual_seed(SEED + 23)
     shapes = [(f"stage{i + 1}", (h, w, d, nh, sr, hid, TEXT), TRAIN_BATCH)
               for i, (h, w, d, nh, sr, hid) in enumerate(STAGES)]
@@ -3857,6 +4100,7 @@ def phase_tp_kernels(stats: dict) -> None:
             bounds["mlm_ce_bwd_tp"], **fields)
     del x, table, bias, labels, g, parts, grads, summed
     torch.cuda.empty_cache()
+    phase_fba_tp_kernels(stats)
 
 
 def tp_eval_batches() -> list:
@@ -3890,9 +4134,10 @@ def tp_two_ranks_rank(spec: dict) -> None:
     seeded weights at each parity on the whole B = 150 batch, its launches,
     its consolidated gradients, parameters and BatchNorm statistics, a
     checkpoint of the step-0 state, its time, a digest of each set of
-    consolidated tensors (every rank's own, for ``ranks_equal``); one step at
-    configs/pretrain_exp21.py's DropPath and BERT dropout from this rank's
-    seed; the VL eval of the split model."""
+    consolidated tensors (every rank's own, for ``ranks_equal``); step 0 on
+    each route of TP_ROUTES (its launches, losses, consolidated tensors and
+    digests); one step at configs/pretrain_exp21.py's DropPath and BERT
+    dropout from this rank's seed; the VL eval of the split model."""
     from mvlt_tpu_torch.eval.vl_eval import evaluate_vl, make_vl_eval_fn
     from mvlt_tpu_torch.parallel import mesh
     from mvlt_tpu_torch.parallel.tensor import consolidate, shard_model
@@ -3938,6 +4183,17 @@ def tp_two_ranks_rank(spec: dict) -> None:
             res["ms_per_step"] = cuda_time_ms(lambda: step(state, batch), warmup=1, reps=3)
         del model, state
         torch.cuda.empty_cache()
+    for route, (overrides, _) in TP_ROUTES.items():
+        route_cfg = dataclasses.replace(cfg, **overrides)
+        model, state = split(route_cfg)
+        reset_launches()
+        _, losses = make_train_step(route_cfg)(state, batch)
+        torch.cuda.synchronize()
+        res[f"launches_{route}"] = read_launches()
+        res[f"losses_{route}"] = {k: float(v) for k, v in losses.items()}
+        tensors[f"route_{route}"] = consolidated(model, group)
+        del model, state
+        torch.cuda.empty_cache()
     # the masks: both ranks of the model group must draw the same
     drop_cfg = train_config()
     model, state = split(drop_cfg)
@@ -3949,7 +4205,9 @@ def tp_two_ranks_rank(spec: dict) -> None:
     model, _ = split(cfg)
     res["vl_eval"] = evaluate_vl(make_vl_eval_fn(model.eval(), cfg), tp_eval_batches(),
                                  is_main=False)
-    res["digests"] = {k: tensors_digest(v) for k, v in tensors.items()}
+    res["digests"] = {k: tensors_digest(v) if not k.startswith("route_") else
+                      {part: tensors_digest(t) for part, t in v.items()}
+                      for k, v in tensors.items()}
     if rank == 0:
         torch.save(tensors, out / "tp_tensors.pt")
     (out / f"tp_two_ranks_{rank}.json").write_text(json.dumps(res))
@@ -3979,7 +4237,15 @@ def phase_tp_two_ranks(stats: dict) -> None:
     eval against this process's on the same route (the blocks' training
     route; accuracies within one flip, losses within DDP_TOL), and beside
     the serving route's. The two-rank step's ms beside the one-process
-    step's: gloo through host copies, not a speed of tensor parallelism."""
+    step's: gloo through host copies, not a speed of tensor parallelism.
+    Then step 0 on each route of TP_ROUTES (the fused_attn_train route in
+    both backward forms, #6-#8's tensor-parallel modes where the heads
+    split; the MLM loss through the logits) against this process's step on
+    the same route (compare_split_step: each gradient within the bound
+    measured by that route's own swap of the batch's halves, the
+    parameters within ZERO_TOL of AdamW's step on the consolidated
+    gradients, the BatchNorm statistics, the losses within DDP_TOL), with
+    exactly TP_ROUTES' launches a rank."""
     from mvlt_tpu_torch.eval.vl_eval import evaluate_vl, make_vl_eval_fn
     from mvlt_tpu_torch.utils.checkpoint import STATE_FILE, CheckpointManager
 
@@ -4011,6 +4277,14 @@ def phase_tp_two_ranks(stats: dict) -> None:
     model, state, _ = one_process({k: torch.cat([v[half:], v[:half]]) for k, v in batch.items()})
     swap = rel_gaps(grads_of(model), want[0][1])
     del model, state
+    swapped = {k: torch.cat([v[half:], v[:half]]) for k, v in batch.items()}
+    want_routes, swap_routes = {}, {}
+    for route, (overrides, _) in TP_ROUTES.items():
+        route_cfg = dataclasses.replace(cfg, **overrides)
+        want_routes[route] = one_process_step(route_cfg, batch, TRAIN_BATCH)
+        swap_routes[route] = rel_gaps(one_process_step(route_cfg, swapped, TRAIN_BATCH)["grads"],
+                                      want_routes[route]["grads"])
+    del swapped
     model = create_model(cfg)
     model.load_state_dict(seeded_weights(model), strict=True)
     model.eval()
@@ -4067,9 +4341,28 @@ def phase_tp_two_ranks(stats: dict) -> None:
         and ranks[0]["dropout_generator"] == ranks[1]["dropout_generator"],
         "vl_eval": all(vl_gaps[k] <= (1.0 if k in counts else DDP_TOL) for k in vl_gaps),
     }
+    routes = {}
+    for route, (_, launches) in TP_ROUTES.items():
+        cmp = compare_split_step(got[f"route_{route}"], want_routes[route], swap_routes[route])
+        r_gap = loss_gap(ranks[0][f"losses_{route}"], want_routes[route]["losses"])
+        expected_r = {name: launches.get(name, 0) for name in WRAPPERS}
+        route_checks = {"losses": r_gap <= DDP_TOL, "grads": cmp["grad_ratio"][1] <= 1.0,
+                        "params": cmp["param_gap"][1] <= ZERO_TOL,
+                        "batchnorms": cmp["bn_gap"] <= DDP_TOL,
+                        "launches": all(r[f"launches_{route}"] == expected_r for r in ranks),
+                        "ranks_equal": all(ranks[0][f"losses_{route}"] == r[f"losses_{route}"]
+                                           and ranks[0]["digests"][f"route_{route}"]
+                                           == r["digests"][f"route_{route}"] for r in ranks)}
+        routes[route] = {"checks": route_checks, "rel_err_losses": r_gap,
+                         "launches": ranks[0][f"launches_{route}"], **cmp}
+        checks[f"route_{route}"] = all(route_checks.values())
     stats_launches = ranks[0]["launches0"]
     for name in TP_WRAPPERS:
         stats[name]["launches"] = stats_launches[name]
+    for form, route in (("", "fused"), ("_stats", "fused_stats")):
+        for half in ("fwd", "bwd"):
+            stats[f"fba_train_{half}{form}_tp"]["launches"] = \
+                ranks[0][f"launches_{route}"][f"fba_train_{half}_tp"]
     ok = all(checks.values())
     emit("tp_two_ranks", model="pvlt_tiny", tp=2, dp=1, batch=TRAIN_BATCH, checks=checks,
          rel_err_losses=l_gaps, worst_grad_over_bound={p: [worst[p], ratios[p][worst[p]]]
@@ -4089,7 +4382,7 @@ def phase_tp_two_ranks(stats: dict) -> None:
          ms_per_step_two_ranks=[r["ms_per_step"] for r in ranks], ms_per_step_one_process=one_ms,
          ms_note="two ranks over gloo on one card: every partial sum through host copies, not "
                  "a speed of tensor parallelism; CUDA events, 1 warm-up, median of 3 steps",
-         seconds=seconds, ok=ok)
+         routes=routes, seconds=seconds, ok=ok)
     if not ok:
         raise AssertionError(f"tp_two_ranks failed {[k for k, v in checks.items() if not v]}: "
                              f"losses {l_gaps}, gradients {[(worst[p], ratios[p][worst[p]]) for p in (0, 1)]}, "
@@ -4385,6 +4678,7 @@ SPTP_STEPS = {
     "v1": {2: TP_STEP_LAUNCHES,
            4: {**{k: v for k, v in TP_STEP_LAUNCHES.items() if "mlm" not in k},
                "mlm_ce_fwd": 1, "mlm_ce_bwd": 1}},
+    "v1_fused": {2: TP_FBA_LAUNCHES},
     "swin": {2: TP_FAMILY_LAUNCHES["ln_mlp"]},
 }
 # the primitives move or add values without rounding (fp32 buffers, a sum
@@ -4677,8 +4971,25 @@ def sp_step_references(cases, batch: dict, global_b: int) -> tuple:
     return want, swaps, ms
 
 
+def cyclic_moves(cfg: ModelConfig, batch: dict, global_b: int, parts: int,
+                 want_grads: dict) -> dict:
+    """Each gradient's largest move when this process takes the step on the
+    batch cut into ``parts`` equal parts in each other cyclic order (rolled
+    by 1 .. parts - 1 parts), against its step on the batch as it is: the
+    rounding spread of a sum of ``parts`` partials taken in another order.
+    At parts = 2 the swap of the halves that the bounds take."""
+    share = global_b // parts
+    moves = {}
+    for k in range(1, parts):
+        rolled = {key: torch.cat([v[k * share:], v[:k * share]]) for key, v in batch.items()}
+        for n, g in rel_gaps(one_process_step(cfg, rolled, global_b)["grads"],
+                             want_grads).items():
+            moves[n] = max(moves.get(n, 0.0), g)
+    return moves
+
+
 def sp_compare(ranks: list, got: dict, serving: dict, want: dict, swaps: dict,
-               sp: int = SP_SIZE) -> tuple:
+               sp: int = SP_SIZE, sptp_swaps: dict | None = None) -> tuple:
     """The ranks' results against this process's: per serving model the
     ITM head's input and logits (gap relative to the largest, within
     SLICE_TOL) and a rank's launches (sp_serving_launches a forward,
@@ -4688,7 +4999,9 @@ def sp_compare(ranks: list, got: dict, serving: dict, want: dict, swaps: dict,
     DDP_TOL and a rank's launches (SP_STEPS', SPTP_STEPS'); every model
     splitting the stages planned_split names over ``sp`` ranks, at least
     one; every rank of a model group the same digests. Returns (results,
-    failed checks)."""
+    failed checks). ``sptp_swaps``: the moves that bound the
+    cases with split weights, by case, in place of ``swaps`` (cyclic_moves
+    over the model group's size)."""
     results, failed = {}, []
     for name in serving:
         logits, feats, ms, e_route = serving[name]
@@ -4718,7 +5031,8 @@ def sp_compare(ranks: list, got: dict, serving: dict, want: dict, swaps: dict,
     runs += [(case, "sptp", f"sptp_{case}", SPTP_STEPS[case][sp]) for case in want
              if case in ranks[0]["sptp"]]
     for case, part, key, launches in runs:
-        cmp = compare_split_step(got[key], want[case], swaps[case])
+        swap = (sptp_swaps or {}).get(case, swaps[case]) if part == "sptp" else swaps[case]
+        cmp = compare_split_step(got[key], want[case], swap)
         l_gap = loss_gap(ranks[0][part][case]["mean_losses"], want[case]["losses"])
         expected = {w: launches.get(w, 0) for w in WRAPPERS}
         split = planned_split(sp_step_config(case), sp)
@@ -4901,6 +5215,16 @@ NCCL_TP = 2
 # family: its launches a rank of a split step (dp 2 x tp 2)
 NCCL_FAMILIES = {"pvlt_tiny": TP_STEP_LAUNCHES, "pvlt_v2_tiny": TP_FAMILY_LAUNCHES["attention"],
                  "pvlt_swin_tiny": TP_FAMILY_LAUNCHES["ln_mlp"]}
+# nccl_tp's split steps on another route (no command line): label ->
+# (registry model, config overrides on ddp_config, a rank's launches)
+NCCL_TP_ROUTES = {"pvlt_tiny_fused": ("pvlt_tiny", {"fused_attn_train": True}, TP_FBA_LAUNCHES)}
+
+
+def nccl_tp_case(label: str) -> tuple:
+    """(config, a split step's launches a rank) of a label of nccl_tp."""
+    name, overrides, launches = NCCL_TP_ROUTES.get(label, (label, {}, None))
+    return (dataclasses.replace(ddp_config(), name=name, **overrides),
+            NCCL_FAMILIES[label] if launches is None else launches)
 
 
 def nccl_ddp_rank(spec: dict) -> None:
@@ -4972,9 +5296,8 @@ def nccl_ddp_rank(spec: dict) -> None:
         else:
             res["zero1_param_gap"] = max(float((p - after[n]).abs().max())
                                          for n, p in params.items())
-            res["zero1_moment_bytes"] = sum(
-                t.numel() * t.element_size() for st in state.optimizer.optim.state.values()
-                for k, t in st.items() if k in ("exp_avg", "exp_avg_sq"))
+            res["zero1_moment_bytes"] = moment_bytes(state.optimizer)
+            res["zero1_parts"] = zero1_parts(model.parameters(), world)
             res["full_moment_bytes"] = 2 * sum(p.numel() * p.element_size()
                                                for p in model.parameters())
         del model, ddp, state
@@ -5011,8 +5334,9 @@ def phase_nccl_ddp(stats: dict) -> None:
     reordering noise, plus for a gradient formed in bf16 the ranks' and
     the one-process bf16 roundings), the BatchNorm statistics within
     DDP_TOL, every rank's gradients equal; the same step under ZeRO-1 (the
-    parameters within ZERO_TOL of the DDP step's, a quarter of the moments
-    a rank). The DDP step's ms a rank at B = 150 and its samples/s at world
+    parameters within ZERO_TOL of the DDP step's; each rank's moments
+    exactly a quarter of those ZeRO-1 splits by element plus the whole of
+    the others, both parts printed). The DDP step's ms a rank at B = 150 and its samples/s at world
     4 beside each rank's own model without DDP, timed at once on the host
     the ranks share: the weak-scaling efficiency (this process's step at B
     = 150 on cuda:0 printed beside)."""
@@ -5085,8 +5409,8 @@ def phase_nccl_ddp(stats: dict) -> None:
         "launches": all(r["launches"] == ranks[0]["launches"] for r in ranks)
         and ranks[0]["launches"]["attention_fwd"] == 8,
         "zero1_params": all(r["zero1_param_gap"] <= ZERO_TOL for r in ranks),
-        "zero1_moments_split": sum(r["zero1_moment_bytes"] for r in ranks)
-        == ranks[0]["full_moment_bytes"],
+        "zero1_moments_split": all(r["zero1_moment_bytes"] == r["zero1_parts"]["rank_bytes"]
+                                   for r in ranks),
     }
     ok = all(checks.values())
     emit("nccl_ddp", model="pvlt_tiny", world=NCCL_CARDS, batch_per_rank=TRAIN_BATCH,
@@ -5097,6 +5421,10 @@ def phase_nccl_ddp(stats: dict) -> None:
          swap_grad_gap_max=swap_max, rel_err_batchnorms=bn_gap, tol=DDP_TOL,
          zero1_param_gap=[r["zero1_param_gap"] for r in ranks], zero_tol=ZERO_TOL,
          zero1_moment_bytes=[r["zero1_moment_bytes"] for r in ranks],
+         zero1_sharded_bytes=ranks[0]["zero1_parts"]["sharded_bytes"],
+         zero1_replicated_bytes=ranks[0]["zero1_parts"]["replicated_bytes"],
+         zero1_rank_bytes_expected=ranks[0]["zero1_parts"]["rank_bytes"],
+         full_moment_bytes=ranks[0]["full_moment_bytes"],
          cards=[r["card"] for r in ranks], cli_log=log, cli_launches=ranks[0]["cli_launches"],
          cli_seconds=[r["cli_seconds"] for r in ranks],
          ms_per_step_world4=rank_ms, ms_per_step_alone=alone_ms,
@@ -5122,13 +5450,17 @@ def nccl_tp_rank(spec: dict) -> None:
     --tp-size 2 (one epoch with its VL eval) and one split step at B = 150
     on this data rank's half of the B = 300 batch (consolidated gradients,
     parameters and BatchNorm statistics, rank 0 writes them; each rank's
-    digest of its own; the step's time); with ``zero1``, v2's split step
-    without and with ZeRO-1 over the data group, the ZeRO-1 state saved by
-    CheckpointManager (rank 0 compares its moments with the plain step's
-    consolidated ones)."""
+    digest of its own; the step's time), the command line for the
+    families of NCCL_FAMILIES only; with ``zero1``, v2's split step
+    without and with ZeRO-1 over the data group (each rank's moment bytes
+    and their expected parts), the ZeRO-1 state saved by CheckpointManager
+    (rank 0 compares its moments with the plain step's consolidated ones),
+    then restored here under ZeRO-1 and gathered whole again (rank 0
+    compares them and the parameters with the file's)."""
     from mvlt_tpu_torch.parallel import mesh
     from mvlt_tpu_torch.parallel.tensor import consolidate
-    from mvlt_tpu_torch.utils.checkpoint import STATE_FILE, CheckpointManager, _moment_names
+    from mvlt_tpu_torch.utils.checkpoint import (STATE_FILE, CheckpointManager, _moment_names,
+                                                 whole_state)
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5140,7 +5472,7 @@ def nccl_tp_rank(spec: dict) -> None:
     host = dict(np.load(spec["batch"]))
     tensors = {}
     for name in spec["families"]:
-        if spec["cli"]:
+        if spec["cli"] and name in NCCL_FAMILIES:
             run = out / f"nccl_tp_{name}"
             reset_launches()
             cli.main(["--config", str(PRETRAIN_CONFIG), "--synthetic-data", "--epochs", "1",
@@ -5154,7 +5486,7 @@ def nccl_tp_rank(spec: dict) -> None:
         share = host["images"].shape[0] // mesh.data_size()
         lo = mesh.data_rank() * share
         batch = batch_to_device({k: v[lo:lo + share] for k, v in host.items()}, device)
-        cfg = dataclasses.replace(ddp_config(), name=name)
+        cfg, _ = nccl_tp_case(name)
         model, state = split_train_state(cfg, device, share * mesh.data_size(),
                                          mesh.model_group())
         step = make_train_step(cfg)
@@ -5184,9 +5516,8 @@ def nccl_tp_rank(spec: dict) -> None:
             make_train_step(cfg)(state, batch)
             torch.cuda.synchronize()
             if zero1:
-                res["zero1_moment_bytes"] = sum(
-                    t.numel() * t.element_size() for st in state.optimizer.optim.state.values()
-                    for k, t in st.items() if k in ("exp_avg", "exp_avg_sq"))
+                res["zero1_moment_bytes"] = moment_bytes(state.optimizer)
+                res["zero1_parts"] = zero1_parts(model.parameters(), mesh.data_size())
                 CheckpointManager(str(out / "nccl_tp_zero1")).save_epoch(state, 0, 1)
                 res["zero1_params_digest"] = tensors_digest(
                     consolidated(model, mesh.model_group())["params"])
@@ -5200,9 +5531,24 @@ def nccl_tp_rank(spec: dict) -> None:
                 buffer_names = [n for n, _ in model.named_buffers()]
             del model, state
             torch.cuda.empty_cache()
+        # the round trip: the checkpoint restored under ZeRO-1 at dp 2 x tp 2
+        model, state = split_train_state(cfg, device, share * mesh.data_size(),
+                                         mesh.model_group(), zero1=True)
+        state, _ = CheckpointManager(str(out / "nccl_tp_zero1")).restore(state, "last")
+        res["zero1_restored_moment_bytes"] = moment_bytes(state.optimizer)
+        state.optimizer.consolidate_state_dict()
+        back_model, back_optim = whole_state(state)
+        del model, state
+        torch.cuda.empty_cache()
         if rank == 0:
             saved = torch.load(out / "nccl_tp_zero1" / "checkpoint" / "last" / STATE_FILE,
                                map_location="cpu", weights_only=True)
+            res["zero1_round_trip"] = (
+                all(torch.equal(back_model[n].cpu(), t) for n, t in saved["model"].items())
+                and sorted(back_optim["state"]) == sorted(saved["optimizer"]["state"])
+                and all(torch.equal(back_optim["state"][i][k].cpu(), st[k])
+                        for i, st in saved["optimizer"]["state"].items()
+                        for k in ("exp_avg", "exp_avg_sq")))
             saved_m = saved["optimizer"]["state"]
             res["zero1_saved_moment_gap"] = max(
                 float((saved_m[i][k].float().cpu() - moments[k][n].float().cpu()).abs().max())
@@ -5219,8 +5565,8 @@ def nccl_tp_rank(spec: dict) -> None:
     mesh.destroy()
 
 
-def phase_nccl_tp(stats: dict, families=NCCL_FAMILIES, run_cli: bool = True,
-                  zero1: bool = True) -> None:
+def phase_nccl_tp(stats: dict, families=(*NCCL_FAMILIES, *NCCL_TP_ROUTES),
+                  run_cli: bool = True, zero1: bool = True) -> None:
     """Tensor parallelism over NCCL across four cards as dp 2 x tp 2 (model
     groups of cards 0-1 and 2-3), through ``python -m
     torch.distributed.run --nproc_per_node=4 chip_smoke.py --ddp-rank
@@ -5234,10 +5580,14 @@ def phase_nccl_tp(stats: dict, families=NCCL_FAMILIES, run_cli: bool = True,
     BatchNorm statistics within DDP_TOL, the digests of every rank's
     consolidated tensors equal, a rank's launches of #10-#15 as
     TP_FAMILY_LAUNCHES, a rank's ms a step beside this process's at B =
-    150. With ``zero1``: v2's split step under ZeRO-1 over the data group,
-    its consolidated checkpoint's moments and parameters within ZERO_TOL
-    of the plain split step's, each rank about half of its shard's
-    moments, the checkpoint resumed here at tp = 1 without ZeRO-1 to those
+    150; v1's split step also on the fused_attn_train route (#6-#8's
+    tensor-parallel modes, NCCL_TP_ROUTES), without a command line. With
+    ``zero1``: v2's split step under ZeRO-1 over the data group, its
+    consolidated checkpoint's moments and parameters within ZERO_TOL of the
+    plain split step's, each rank's moments exactly half of its shard's
+    moments that split by element plus the others (zero1_parts), the
+    checkpoint restored by the ranks under ZeRO-1 and gathered whole again
+    equal to the file, and resumed here at tp = 1 without ZeRO-1 to those
     parameters (the ranks' digest) and moments (the file's, exactly)."""
     from mvlt_tpu_torch.utils.checkpoint import STATE_FILE, CheckpointManager
 
@@ -5251,7 +5601,7 @@ def phase_nccl_tp(stats: dict, families=NCCL_FAMILIES, run_cli: bool = True,
     half = global_b // 2
     want, swaps, one_ms = {}, {}, {}
     for name in families:
-        cfg = dataclasses.replace(ddp_config(), name=name)
+        cfg, _ = nccl_tp_case(name)
         want[name] = one_process_step(cfg, batch, global_b)
         swaps[name] = rel_gaps(one_process_step(cfg, {k: torch.cat([v[half:], v[:half]])
                                                       for k, v in batch.items()}, global_b)["grads"],
@@ -5293,7 +5643,7 @@ def phase_nccl_tp(stats: dict, families=NCCL_FAMILIES, run_cli: bool = True,
     seconds = time.perf_counter() - start
     failed, results = [], {}
     for name in families:
-        expected = {w: NCCL_FAMILIES[name].get(w, 0) for w in WRAPPERS}
+        expected = {w: nccl_tp_case(name)[1].get(w, 0) for w in WRAPPERS}
         cmp = compare_split_step(got[name], want[name], swaps[name])
         l_gap = loss_gap(ranks[0][name]["mean_losses"], want[name]["losses"])
         checks = {"losses": l_gap <= DDP_TOL, "grads": cmp["grad_ratio"][1] <= 1.0,
@@ -5301,7 +5651,7 @@ def phase_nccl_tp(stats: dict, families=NCCL_FAMILIES, run_cli: bool = True,
                   "ranks_equal": len({json.dumps(r[name]["digests"], sort_keys=True)
                                       for r in ranks}) == 1,
                   "launches": all(r[name]["launches"] == expected for r in ranks)}
-        if run_cli:
+        if run_cli and name in NCCL_FAMILIES:
             log = ranks[0][f"cli_{name}"]["log"]
             checks["cli_epoch"] = (len(log) == 1 and any(k.startswith("eval_") for k in log[0])
                                    and all(np.isfinite(v) for v in log[0].values()))
@@ -5309,7 +5659,7 @@ def phase_nccl_tp(stats: dict, families=NCCL_FAMILIES, run_cli: bool = True,
                          "ms_per_step_rank": [r[name]["ms_per_step"] for r in ranks],
                          "ms_per_step_one_process_b150": one_ms[name],
                          "launches": ranks[0][name]["launches"], **cmp}
-        if run_cli:
+        if run_cli and name in NCCL_FAMILIES:
             results[name]["cli_log"] = ranks[0][f"cli_{name}"]["log"]
         failed += [f"{name}:{k}" for k, v in checks.items() if not v]
     common = {"backend_nccl_world_4": all(r["backend"] == "nccl" and r["world"] == NCCL_CARDS
@@ -5322,6 +5672,10 @@ def phase_nccl_tp(stats: dict, families=NCCL_FAMILIES, run_cli: bool = True,
                                  and ranks[0]["zero1_saved_moment_gap"] <= ZERO_TOL
                                  and ranks[0]["zero1_saved_param_gap"] <= ZERO_TOL)
         common["zero1_resumed_tp1"] = bool(restored_ok)
+        common["zero1_moments_split"] = all(
+            r["zero1_moment_bytes"] == r["zero1_parts"]["rank_bytes"]
+            == r["zero1_restored_moment_bytes"] for r in ranks)
+        common["zero1_round_trip_dp2_tp2"] = ranks[0]["zero1_round_trip"] is True
     failed += [k for k, v in common.items() if not v]
     ok = not failed
     emit("nccl_tp", dp=NCCL_CARDS // NCCL_TP, tp=NCCL_TP, batch_per_data_rank=TRAIN_BATCH,
@@ -5329,6 +5683,7 @@ def phase_nccl_tp(stats: dict, families=NCCL_FAMILIES, run_cli: bool = True,
          zero1_saved_moment_gap=ranks[0].get("zero1_saved_moment_gap"),
          zero1_saved_param_gap=ranks[0].get("zero1_saved_param_gap"),
          zero1_moment_bytes=[r.get("zero1_moment_bytes") for r in ranks], zero_tol=ZERO_TOL,
+         zero1_parts=[r.get("zero1_parts") for r in ranks],
          ms_note="CUDA events around a step, 1 warm-up, median of 3; a rank: B = 150 on its "
                  "half of the model, with its NCCL sums; one process: B = 150, the whole model",
          seconds=seconds, ok=ok)
@@ -5396,7 +5751,7 @@ def phase_nccl_sp(stats: dict) -> None:
     process's (information)."""
     DDP_DIR.mkdir(parents=True, exist_ok=True)
     spec = {"out": str(DDP_DIR)}
-    serving, want, swaps, one_ms = {}, {}, {}, {}
+    serving, want, swaps, one_ms, cyclic = {}, {}, {}, {}, {}
     for label, (_, names, steps, _, global_b) in NCCL_SP_CASES.items():
         arrays = {k: v for k, v in train_batch(SEED + 71, global_b).items()
                   if isinstance(v, np.ndarray)}
@@ -5405,6 +5760,11 @@ def phase_nccl_sp(stats: dict) -> None:
         batch = batch_to_device(arrays, "cuda")
         serving[label] = sp_serving_reference(names, "cuda", NCCL_SP_CASES[label][0])
         want[label], swaps[label], one_ms[label] = sp_step_references(steps, batch, global_b)
+        sp = NCCL_SP_CASES[label][0]
+        if sp > 2:   # the split weights' partials are summed over sp ranks: sp-way moves
+            cyclic[label] = {case: cyclic_moves(sp_step_config(case), batch, global_b, sp,
+                                                want[label][case]["grads"])
+                             for case in NCCL_SP_CASES[label][3]}
         del batch
         torch.cuda.empty_cache()
     start = time.perf_counter()
@@ -5414,10 +5774,24 @@ def phase_nccl_sp(stats: dict) -> None:
     finally:
         shutil.rmtree(DDP_DIR, ignore_errors=True)
     seconds = time.perf_counter() - start
-    failed, results = [], {}
+    failed, results, bounds = [], {}, {}
     for label, (sp, *_) in NCCL_SP_CASES.items():
         res, bad = sp_compare([r[label] for r in ranks], got[label], serving[label], want[label],
-                              swaps[label], sp)
+                              swaps[label], sp, cyclic.get(label))
+        for case, moves in cyclic.get(label, {}).items():
+            two = step_bounds(want[label][case]["grads"], swaps[label][case])
+            many = step_bounds(want[label][case]["grads"], moves)
+            gaps = rel_gaps(got[label][f"sptp_{case}"]["grads"], want[label][case]["grads"])
+            worst = max(gaps, key=lambda n: gaps[n] / many[n])
+            bounds[f"{label}/sptp_{case}"] = {
+                "two_way_bound_max": max(two.values()), f"{sp}_way_bound_max": max(many.values()),
+                "two_way_move_max": max(swaps[label][case].values()),
+                f"{sp}_way_move_max": max(moves.values()),
+                "worst": [worst, gaps[worst], gaps[worst] / two[worst],
+                          gaps[worst] / many[worst]],
+                "top": [[n, gaps[n], two[n], many[n], gaps[n] / many[n]]
+                        for n in sorted(gaps, key=lambda n: gaps[n] / many[n],
+                                        reverse=True)[:6]]}
         for key, r in res.items():
             if key.removeprefix("sptp_") in one_ms[label]:
                 r["ms_step_one_process_b150"] = one_ms[label][key.removeprefix("sptp_")]
@@ -5432,6 +5806,10 @@ def phase_nccl_sp(stats: dict) -> None:
     failed += [k for k, v in common.items() if not v]
     ok = not failed
     emit("nccl_sp", checks=common, cases=results, tol=DDP_TOL, serving_tol=SLICE_TOL,
+         sptp_bounds=bounds,
+         bounds_note="the split weights' cases at sp 4 take the bound of the four-way cyclic "
+                     "moves of one process's step (cyclic_moves); each gradient's gap over the "
+                     "two-way and the four-way bound, [name, gap, two-way, four-way, ratio]",
          ms_note="CUDA events, 1 warm-up, median of 3; a rank: its band of every stage with "
                  "its NCCL gathers; one process: the whole model, B = 101 a forward, B = 150 "
                  "a step",

@@ -41,10 +41,13 @@ batch of ``--batch-size`` per data rank. The VL eval (in training
 and ``--eval``) runs on the split model, each model group scoring its data
 rank's rows; the checkpoints hold the whole model and resume at any tp. The
 other eval modes and ``--viz`` build the whole model on every rank and
-shard the rows over the world, as without tensor parallelism. Refused with
-NotImplementedError: ``--steps-per-dispatch`` above 1, and with
-``--tp-size`` above 1 ``fused_attn_train`` and ``mlm_loss_chunk <= 0``
-(parallel/tensor.py:refusals).
+shard the rows over the world, as without tensor parallelism. Every model
+option the JAX package takes runs under ``--tp-size`` (``fused_attn_train``
+and ``mlm_loss_chunk <= 0`` included). A model group stays inside a node:
+``--tp-size`` must divide torchrun's ``LOCAL_WORLD_SIZE``. ``--zero1``
+shards each AdamW moment by element over the data group
+(parallel/sharding.py:Zero1AdamW). Refused with NotImplementedError:
+``--steps-per-dispatch`` above 1.
 
 Usage:
   python -m mvlt_tpu_torch.cli --config configs/pretrain_exp21.py --data-path <root>
@@ -180,17 +183,11 @@ def build_run_config(args) -> RunConfig:
 
 
 def _refuse_unported(args, cfg: RunConfig) -> None:
-    from mvlt_tpu_torch.models.registry import resolve_model_config
-    from mvlt_tpu_torch.parallel.tensor import refusals
-
-    refused = ["--steps-per-dispatch above 1"] if args.steps_per_dispatch > 1 else []
-    if cfg.tp_size > 1:
-        refused += [f"--tp-size {cfg.tp_size} with {name}"
-                    for name in refusals(resolve_model_config(cfg.model))]
     if cfg.tp_size < 1:
         raise ValueError(f"--tp-size {cfg.tp_size}: must be at least 1")
-    if refused:
-        raise NotImplementedError(f"not ported to mvlt_tpu_torch yet: {'; '.join(refused)}")
+    if args.steps_per_dispatch > 1:
+        raise NotImplementedError("not ported to mvlt_tpu_torch yet: --steps-per-dispatch "
+                                  "above 1")
 
 
 def load_eval_model(cfg: RunConfig, device):

@@ -22,6 +22,12 @@
 //   4. out = x + s (A Wp^T + bp) by #12's out kernel (its fc2 with G = A,
 //      K = D), x read in bf16, the sum in fp32 and rounded once; each row
 //      takes its own sample's scale (a 128-row tile may span two samples).
+// Tensor-parallel mode (the fused attention forward only, `part` set): Wq
+// and bq are a rank's heads' rows [H hd, D] and Wp its columns [D, H hd],
+// with hd passed in (not D / H); Q and A are [rows, H hd], the statistics
+// the rank's heads', and step 4 writes the fp32 partial s (A Wp^T) to
+// `part` (ln_mlp.cuh:store_out), without bp and x, for the model group to
+// sum (parallel/tensor.py:fused_attn_tp).
 // Every launch runs under the caller's route tag (common.cuh), so a profile
 // books the chain's device time to the path that ran it, and the wrappers
 // of #10 and #12 count none of these launches. The rounding points are the
@@ -59,33 +65,38 @@ struct HalfArgs {
   float* lse;  // scratch [B, H, N]
   int batch, n, d, heads, m;
   float scale, eps;
+  int hd = 0;            // the head dim; 0: D / heads
+  float* part = nullptr;  // [rows, D] fp32: the tensor-parallel mode's partial
 };
 
-// Whether the chain takes these shapes: head dim 32 or 64 (#10's), D a
-// multiple of 16 and at most 512 (#12's), at most 2^30 rows.
-inline bool half_chain_takes(int batch, int n, int d, int heads, int m) {
+// Whether the chain takes these shapes: head dim 32 or 64 (#10's), the
+// heads at most D wide, D a multiple of 16 and at most 512 (#12's), at most
+// 2^30 rows.
+inline bool half_chain_takes(int batch, int n, int d, int heads, int m, int hd) {
   const long long rows = (long long)batch * n;
-  return batch >= 1 && n >= 1 && m >= 1 && heads >= 1 && d % heads == 0 && d % 16 == 0 &&
-         d <= 512 && (d / heads == 32 || d / heads == 64) && rows <= (1LL << 30);
+  return batch >= 1 && n >= 1 && m >= 1 && heads >= 1 && heads * hd <= d && d % 16 == 0 &&
+         d <= 512 && (hd == 32 || hd == 64) && rows <= (1LL << 30);
 }
 
 // Launches the chain on `st`; returns the first failing cudaError_t.
 template <class Route>
 cudaError_t attention_half_chain(const HalfArgs& h, cudaStream_t st) {
-  if (!half_chain_takes(h.batch, h.n, h.d, h.heads, h.m)) return cudaErrorInvalidValue;
-  const int d = h.d, hd = d / h.heads, sw = 2 + 2 * h.heads;
+  if (h.heads < 1 || (!h.hd && h.d % h.heads)) return cudaErrorInvalidValue;
+  const int d = h.d, hd = h.hd ? h.hd : d / h.heads, dh = h.heads * hd, sw = 2 + 2 * h.heads;
+  if (!half_chain_takes(h.batch, h.n, d, h.heads, h.m, hd) || (!h.part && dh != d))
+    return cudaErrorInvalidValue;
   const long long rows = (long long)h.batch * h.n;
-  // LN1 and Q as #12's norm and hidden (fc1 = Wq, no GELU); the
-  // out-projection as its fc2 over A
+  // LN1 and Q as #12's norm and hidden (fc1 = Wq, no GELU, dh wide); the
+  // out-projection as its fc2 over A (K = dh)
   const LnMlpArgs ln{h.x,   h.ln1_w, h.ln1_b, h.wq, h.bq, h.wp,    h.bp,    h.s,   h.out,
-                     h.nrm, h.q,     (int)rows, h.n, d,    d,    h.eps, h.stats, sw};
+                     h.nrm, h.q,     (int)rows, h.n, d,    dh,   h.eps, h.stats, sw};
   cudaError_t err = ln_mlp_fwd_norm<Route>(ln, st);
   if (err == cudaSuccess) err = ln_mlp_fwd_hidden<Route, false>(ln, st);
   if (err != cudaSuccess) return err;
   // the attention core on [B, H, N, hd] views: (batch, head, row) strides of
   // Q, K, V, then A
-  const long long view_q[3] = {(long long)h.n * d, hd, d};
-  const long long view_a[3] = {(long long)h.n * d, hd, d};
+  const long long view_q[3] = {(long long)h.n * dh, hd, dh};
+  const long long view_a[3] = {(long long)h.n * dh, hd, dh};
   const long long view_kv[3] = {(long long)h.heads * h.m * hd, (long long)h.m * hd, hd};
   long long strides[12];
   for (int c = 0; c < 3; ++c) {
@@ -99,6 +110,7 @@ cudaError_t attention_half_chain(const HalfArgs& h, cudaStream_t st) {
   if (err != cudaSuccess) return err;
   LnMlpArgs proj = ln;
   proj.g = h.attn;
+  proj.part = h.part;
   return ln_mlp_fwd_out<Route>(proj, st);
 }
 

@@ -62,6 +62,17 @@
 // Padded rows and columns load as zeros and add nothing; a sample with s = 0
 // has dO = 0, so its dQ, dLN1 and every sum it joins are exactly 0 and its
 // dx is dy.
+//
+// Tensor-parallel mode (the C entries' `part` / `dx_part` set): the chains
+// run on a rank's H heads of head dim hd (passed in, H hd < D): Wq and bq
+// its [H hd, D] rows, Wp its [D, H hd] columns, K and V its heads. Q, dO, A
+// and dQ are [rows, H hd]; the forward writes the fp32 partial s (A Wp^T)
+// without bp and x (attn_chain.cuh), the backward the fp32 partial dx, the
+// LN1 backward of the rank's dLN1 without dy, with dgamma and dbeta of the
+// rank's heads and dWq, dbq, dWp of its shard whole; dbp is s.dy's column
+// sum, whole on every rank. The model group sums the partials
+// (parallel/tensor.py:fused_attn_tp). The same kernels, with the width of
+// the heads apart from D and one branch in the row kernel's store.
 
 #include <math.h>
 
@@ -107,6 +118,8 @@ struct BwdArgs {
   float* colp;  // [col blocks][4][D]: column sums of s.dy, dLN1.nhat, dLN1, dQ
   int rows, n, d, heads;
   float eps;
+  int dh;                    // the heads' width H hd (D, or a rank's under TP)
+  float* dx_part = nullptr;  // [rows, D] fp32: the tensor-parallel mode's dx
 };
 
 
@@ -255,7 +268,7 @@ __global__ void __launch_bounds__(kThreads) fba_bwd_rows_kernel(BwdArgs a) {
           dn[k][p] = *reinterpret_cast<const float2*>(a.dn + o);
           const float2 xv = load_bf16x2(a.x + o);
           dyv[k][p] = load_bf16x2(a.dy + o);
-          dqv[k][p] = load_bf16x2(a.dq + o);
+          if (c < a.dh) dqv[k][p] = load_bf16x2(a.dq + (size_t)(r0 + k) * a.dh + c);
           xh[k][p] = make_float2((xv.x - st[k].x) * st[k].y, (xv.y - st[k].x) * st[k].y);
           const float g0 = dn[k][p].x * a.ln1_w[c], g1 = dn[k][p].y * a.ln1_w[c + 1];
           m1[k] += g0 + g1;
@@ -277,11 +290,12 @@ __global__ void __launch_bounds__(kThreads) fba_bwd_rows_kernel(BwdArgs a) {
       for (int p = 0; p < P; ++p) {
         const int c = 2 * lane + 64 * p;
         if (c >= d) continue;
-        const float v0 =
-            dyv[k][p].x + (dn[k][p].x * a.ln1_w[c] - m1[k] - xh[k][p].x * m2[k]) * st[k].y;
-        const float v1 =
-            dyv[k][p].y + (dn[k][p].y * a.ln1_w[c + 1] - m1[k] - xh[k][p].y * m2[k]) * st[k].y;
-        store_bf16x2(a.dx + (size_t)r * d + c, v0, v1);
+        const float l0 = (dn[k][p].x * a.ln1_w[c] - m1[k] - xh[k][p].x * m2[k]) * st[k].y;
+        const float l1 = (dn[k][p].y * a.ln1_w[c + 1] - m1[k] - xh[k][p].y * m2[k]) * st[k].y;
+        if (a.dx_part)  // the rank's part, without dy
+          *reinterpret_cast<float2*>(a.dx_part + (size_t)r * d + c) = make_float2(l0, l1);
+        else
+          store_bf16x2(a.dx + (size_t)r * d + c, dyv[k][p].x + l0, dyv[k][p].y + l1);
         sum[0][p][0] += dyv[k][p].x * sc, sum[0][p][1] += dyv[k][p].y * sc;
         sum[1][p][0] += dn[k][p].x * xh[k][p].x, sum[1][p][1] += dn[k][p].y * xh[k][p].y;
         sum[2][p][0] += dn[k][p].x, sum[2][p][1] += dn[k][p].y;
@@ -367,13 +381,15 @@ cudaError_t launch_proj(const ProjJob& j0, const ProjJob* j1, cudaStream_t st) {
 
 // Forward: out [B, N, D]; stats [B, N, 2 + 2H] fp32 where not null. K and V
 // [B, H, m, hd] contiguous, hd 32 or 64. The scratch, as
-// ops/block_attention.py:fwd_scratch sizes it: nrm, q and attn rows * D
-// bf16, lse B * H * N floats.
+// ops/block_attention.py:fwd_scratch sizes it: nrm rows * D, q and attn
+// rows * H hd bf16, lse B * H * N floats. `part` not null: the
+// tensor-parallel mode (the module note), part [B, N, D] fp32 in place of
+// out (out and bp unused); otherwise H hd = D.
 extern "C" int mvlt_fba_fwd(const void* x, const void* k, const void* v, const void* ln1_w,
                             const void* ln1_b, const void* wq, const void* bq, const void* wp,
                             const void* bp, const void* s, void* out, void* stats, void* nrm,
-                            void* q, void* attn, void* lse, int batch, int n, int d, int heads,
-                            int m, float scale, float eps1, void* stream) {
+                            void* q, void* attn, void* lse, void* part, int batch, int n, int d,
+                            int heads, int m, int hd, float scale, float eps1, void* stream) {
   using namespace mvlt;
   const HalfArgs h{static_cast<const bf16*>(x),     static_cast<const bf16*>(k),
                    static_cast<const bf16*>(v),     static_cast<const float*>(ln1_w),
@@ -386,41 +402,45 @@ extern "C" int mvlt_fba_fwd(const void* x, const void* k, const void* v, const v
                    batch,                           n,
                    d,                               heads,
                    m,                               scale,
-                   eps1};
+                   eps1,                            hd,
+                   static_cast<float*>(part)};
   return (int)attention_half_chain<FbaFwdRoute>(h, static_cast<cudaStream_t>(stream));
 }
 
 // Backward. K and V [B, H, m, hd] contiguous, hd 32 or 64; stats as the
 // forward wrote them, or null for the recompute form. The scratch, as
-// ops/block_attention.py:bwd_scratch sizes it: nrm, dys, attn and dq rows *
-// D bf16, qdo 2 * rows * D bf16 (Q, then dO; later dLN1 in fp32), st rows
-// float2, lse B * H * N floats, colp col_blocks * 4 * D floats, wslots 2 *
-// splits * D * D floats when splits > 1; aslots and dq_acc the attention
-// backward's (ops/pallas_attention.py:attention_bwd). dk, dv [B, H, m, hd]
-// bf16; the parameter gradients fp32, dWq and dWp [D, D] in torch layout.
-// splits (the row ranges of the weight gradients) is trimmed so that none is
-// empty.
+// ops/block_attention.py:bwd_scratch sizes it: nrm and dys rows * D, attn
+// and dq rows * H hd bf16, qdo 2 * rows * D bf16 (Q, then dO, each rows *
+// H hd; later dLN1 in fp32), st rows float2, lse B * H * N floats, colp
+// col_blocks * 4 * D floats, wslots 2 * splits * H hd * D floats when
+// splits > 1; aslots and dq_acc the attention backward's
+// (ops/pallas_attention.py:attention_bwd). dk, dv [B, H, m, hd] bf16; the
+// parameter gradients fp32, dWq [H hd, D] and dWp [D, H hd] in torch
+// layout. splits (the row ranges of the weight gradients) is trimmed so
+// that none is empty. `dx_part` not null: the tensor-parallel mode (the
+// module note), dx_part [B, N, D] fp32 in place of dx; otherwise H hd = D.
 extern "C" int mvlt_fba_bwd(const void* x, const void* dy, const void* k, const void* v,
                             const void* ln1_w, const void* ln1_b, const void* wq,
                             const void* bq, const void* wp, const void* s, const void* stats,
                             void* dx, void* nrm, void* dys, void* qdo, void* attn, void* dq,
                             void* st, void* lse, void* colp, void* wslots, void* aslots,
                             void* dq_acc, void* dk, void* dv, void* dwq, void* dbq, void* dwp,
-                            void* dbp, void* dgamma, void* dbeta, int batch, int n, int d,
-                            int heads, int m, int splits, int attn_splits, int col_blocks,
-                            float scale, float eps1, void* stream) {
+                            void* dbp, void* dgamma, void* dbeta, void* dx_part, int batch,
+                            int n, int d, int heads, int m, int hd, int splits, int attn_splits,
+                            int col_blocks, float scale, float eps1, void* stream) {
   using namespace mvlt;
   const long long rows_ll = (long long)batch * n;
-  if (batch < 1 || n < 1 || m < 1 || heads < 1 || heads > 32 || d % heads || d % 16 ||
-      d > 512 || (d / heads != 32 && d / heads != 64) || rows_ll > (1LL << 30) || splits < 1 ||
-      col_blocks < 1)
+  const int dh = heads * hd;
+  if (batch < 1 || n < 1 || m < 1 || heads < 1 || heads > 32 || d % 16 || d > 512 ||
+      (hd != 32 && hd != 64) || dh > d || (!dx_part && dh != d) || rows_ll > (1LL << 30) ||
+      splits < 1 || col_blocks < 1)
     return (int)cudaErrorInvalidValue;
-  const int rows = (int)rows_ll, hd = d / heads;
+  const int rows = (int)rows_ll;
   cudaError_t err = allow_dynamic_smem((const void*)fba_bwd_proj_kernel, kGemmSmem);
   if (err == cudaSuccess) err = allow_dynamic_smem((const void*)fba_bwd_wgrad_kernel, kGemmSmem);
   if (err != cudaSuccess) return (int)err;
   bf16* q = static_cast<bf16*>(qdo);
-  bf16* dout = q + (size_t)rows * d;
+  bf16* dout = q + (size_t)rows * dh;
   const BwdArgs a{static_cast<const bf16*>(x),     static_cast<const bf16*>(dy),
                   static_cast<const float*>(ln1_w), static_cast<const float*>(ln1_b),
                   static_cast<const float*>(s),     static_cast<const float*>(stats),
@@ -430,22 +450,24 @@ extern "C" int mvlt_fba_bwd(const void* x, const void* dy, const void* k, const 
                   static_cast<float*>(lse),         static_cast<float*>(colp),
                   rows,                             n,
                   d,                                heads,
-                  eps1};
+                  eps1,                             dh,
+                  static_cast<float*>(dx_part)};
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
 
   // LN1(x), s.dy, (mean, rstd) (and lse from the statistics)
   err = row_pass(false, a, col_blocks, cs);
   if (err != cudaSuccess) return (int)err;
   // Q = LN1(x) Wq^T + bq, dO = (s.dy) Wp
-  const Mat wq_m{static_cast<const bf16*>(wq), d, d, d};
-  const Mat wp_m{static_cast<const bf16*>(wp), d, d, d};
-  const ProjJob jq{Mat{a.nrm, d, rows, d}, wq_m, static_cast<const float*>(bq), q, d, 0, 0};
-  const ProjJob jdo{Mat{a.dys, d, rows, d}, wp_m, nullptr, dout, d, 1, 0};
+  // Wq [dh][D] (K-major for Q, MN-major for dLN1), Wp [D][dh] (MN-major)
+  const Mat wq_m{static_cast<const bf16*>(wq), d, dh, d};
+  const Mat wp_m{static_cast<const bf16*>(wp), dh, d, dh};
+  const ProjJob jq{Mat{a.nrm, d, rows, d}, wq_m, static_cast<const float*>(bq), q, dh, 0, 0};
+  const ProjJob jdo{Mat{a.dys, d, rows, d}, wp_m, nullptr, dout, dh, 1, 0};
   err = launch_proj(jq, &jdo, cs);
   if (err != cudaSuccess) return (int)err;
 
   // the attention core on [B, H, N, hd] views: (batch, head, row) strides
-  const long long sq[3] = {(long long)n * d, hd, d}, skv[3] = {(long long)heads * m * hd,
+  const long long sq[3] = {(long long)n * dh, hd, dh}, skv[3] = {(long long)heads * m * hd,
                                                               (long long)m * hd, hd};
   long long strides[18];
   for (int i = 0; i < 6; ++i)
@@ -461,25 +483,25 @@ extern "C" int mvlt_fba_bwd(const void* x, const void* dy, const void* k, const 
                                         stream);
   if (err != cudaSuccess) return (int)err;
 
-  // dWq [D][D] = dQ^T LN1(x), dWp [D][D] = (s.dy)^T A, over row ranges
+  // dWq [dh][D] = dQ^T LN1(x), dWp [D][dh] = (s.dy)^T A, over row ranges
   const int rchunks = (rows + kGemmChunk - 1) / kGemmChunk, per = (rchunks + splits - 1) / splits;
   splits = (rchunks + per - 1) / per;
-  const long long dd = (long long)d * d;
+  const long long dd = (long long)d * dh;
   float* ws = static_cast<float*>(wslots);
   const bool slots = splits > 1;
-  const GemmArgs gq{Mat{a.nrm, d, rows, d}, Mat{a.dq, d, rows, d},
-                    slots ? ws : static_cast<float*>(dwq), dd, d, d, d, rchunks, per};
-  const GemmArgs gp{Mat{static_cast<const bf16*>(attn), d, rows, d}, Mat{a.dys, d, rows, d},
-                    slots ? ws + splits * dd : static_cast<float*>(dwp), dd, d, d, d, rchunks,
+  const GemmArgs gq{Mat{a.nrm, d, rows, d}, Mat{a.dq, dh, rows, dh},
+                    slots ? ws : static_cast<float*>(dwq), dd, d, dh, d, rchunks, per};
+  const GemmArgs gp{Mat{static_cast<const bf16*>(attn), dh, rows, dh}, Mat{a.dys, d, rows, d},
+                    slots ? ws + splits * dd : static_cast<float*>(dwp), dd, dh, d, dh, rchunks,
                     per};
-  const int dtiles = (d + kGemmTile - 1) / kGemmTile;
-  fba_bwd_wgrad_kernel<<<dim3(dtiles * dtiles, 2 * splits), kGemmThreads, kGemmSmem, cs>>>(
-      gq, gp, splits);
+  const int tiles = ((d + kGemmTile - 1) / kGemmTile) * ((dh + kGemmTile - 1) / kGemmTile);
+  fba_bwd_wgrad_kernel<<<dim3(tiles, 2 * splits), kGemmThreads, kGemmSmem, cs>>>(gq, gp,
+                                                                                 splits);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
   // dLN1 = dQ Wq, fp32, over Q and dO (both read by now)
-  const ProjJob jn{Mat{a.dq, d, rows, d}, wq_m, nullptr, a.dn, d, 1, 1};
+  const ProjJob jn{Mat{a.dq, dh, rows, dh}, wq_m, nullptr, a.dn, d, 1, 1};
   err = launch_proj(jn, nullptr, cs);
   if (err != cudaSuccess) return (int)err;
   err = row_pass(true, a, col_blocks, cs);
@@ -495,7 +517,7 @@ extern "C" int mvlt_fba_bwd(const void* x, const void* dy, const void* k, const 
   add(cp, 4LL * d, col_blocks, d, dbp);
   add(cp + d, 4LL * d, col_blocks, d, dgamma);
   add(cp + 2 * d, 4LL * d, col_blocks, d, dbeta);
-  add(cp + 3 * d, 4LL * d, col_blocks, d, dbq);
+  add(cp + 3 * d, 4LL * d, col_blocks, dh, dbq);
   if (slots) {
     const int ranges = splits;  // every range of rows, in order
     add(ws, dd, ranges, (int)dd, dwq);

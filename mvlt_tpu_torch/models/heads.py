@@ -27,7 +27,7 @@ from torch import nn
 from mvlt_tpu_torch.ops.kernel_math import acc_dtype, gelu, layer_norm_fp32, linear, matmul_acc
 from mvlt_tpu_torch.ops.upsample import upsample_bilinear_align_corners
 from mvlt_tpu_torch.parallel.sharding import all_reduce_sum, group_size
-from mvlt_tpu_torch.parallel.tensor import VocabShardLogits, vocab_start
+from mvlt_tpu_torch.parallel.tensor import VocabShardLogits, copy_to_model, vocab_start
 
 
 class BertHeadTransform(nn.Module):
@@ -59,16 +59,16 @@ class MLMHead(nn.Module):
         [B, T, vocab]; with decode=False (hidden, bias) for the chunked loss.
         On a vocabulary split over ``vocab_group`` the decode is this rank's
         logits as a parallel/tensor.py:VocabShardLogits, whose nll and
-        argmax combine the ranks' without gathering the logits: an eval
-        decode, refused where a gradient is wanted (x's would hold this
-        rank's vocabulary alone; the loss takes decode=False)."""
+        argmax combine the ranks' without gathering the logits (the eval),
+        and whose ``local`` logits train through
+        parallel/tensor.py:vocab_parallel_cross_entropy (train/losses.py);
+        x enters the decode through ``copy_to_model``, so that its gradient
+        sums every rank's vocabulary."""
         x = self.transform(x)
         if not decode:
             return x, self.bias
-        if vocab_group is not None and torch.is_grad_enabled() and x.requires_grad:
-            raise NotImplementedError("the MLM decode through the logits on a split "
-                                      "vocabulary has no backward: train with "
-                                      "mlm_loss_chunk > 0")
+        if vocab_group is not None:
+            x = copy_to_model(x, vocab_group)
         logits = matmul_acc(x, table.transpose(0, 1), x.dtype) + self.bias
         if vocab_group is None:
             return logits

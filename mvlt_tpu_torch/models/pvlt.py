@@ -109,8 +109,8 @@ from mvlt_tpu_torch.ops.swin_attention import fused_swin_attention
 from mvlt_tpu_torch.ops.swin_band import fused_swin_block
 from mvlt_tpu_torch.ops.upsample import resize_bilinear
 from mvlt_tpu_torch.parallel import sequence
-from mvlt_tpu_torch.parallel.tensor import (copy_to_model, fused_ln_mlp_tp, model_input,
-                                            row_parallel_linear, split_dim)
+from mvlt_tpu_torch.parallel.tensor import (copy_to_model, fused_attn_tp, fused_ln_mlp_tp,
+                                            model_input, row_parallel_linear, split_dim)
 
 
 def _ln(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
@@ -508,7 +508,11 @@ class Block(BlockGlue, nn.Module):
         probabilities' dropout keeps the rank's heads' slice of the whole
         mask, and the out-projection's partial is summed by
         ``reduce_from_model`` before its bias and the residual are added,
-        once (``row_parallel_linear``). Under sequence parallelism (``sp``)
+        once (``row_parallel_linear``); on the fused route the attention half
+        is parallel/tensor.py:fused_attn_tp on the rank's heads (#6-#8 in
+        their tensor-parallel modes: x whole into the kernels, the ranks'
+        partials summed, then bp, the DropPath scale and the residual).
+        Under sequence parallelism (``sp``)
         x holds the band's rows: ``kv_input`` gives the whole K/V input, and
         every other step runs on the band's rows. Both together: LN1's band
         is gathered whole (``model_input``), the K/V front end, q and the
@@ -533,10 +537,14 @@ class Block(BlockGlue, nn.Module):
         k, v = split_kv(linear(kv_in, a.kv.weight, a.kv.bias), heads)
         if (self.fused_attn_train and self.training and not self.v2 and not self.drop
                 and not self.attn_drop):
-            x = block_attention(x, k, v, self.norm1.weight, self.norm1.bias, a.q.weight,
-                                a.q.bias, a.proj.weight, a.proj.bias,
-                                self.drop_path_scale(x, generator), heads=heads,
-                                eps=self.norm1.eps, save_stats=self.fused_attn_stats)
+            args = (x, k, v, self.norm1.weight, self.norm1.bias, a.q.weight, a.q.bias,
+                    a.proj.weight, a.proj.bias, self.drop_path_scale(x, generator))
+            if group is None:
+                x = block_attention(*args, heads=heads, eps=self.norm1.eps,
+                                    save_stats=self.fused_attn_stats)
+            else:
+                x = fused_attn_tp(*args, heads=heads, eps=self.norm1.eps,
+                                  save_stats=self.fused_attn_stats, group=group, sp=sp)
         else:
             q = linear(normed, a.q.weight, a.q.bias).reshape(b, n, heads, hd).transpose(1, 2)
             if self.attn_drop and self.training:

@@ -39,8 +39,8 @@ _SIGNATURES = {
     "mvlt_sr_kv": [_P] * 14 + [_I] * 8 + [_F, _F, _P],
     "mvlt_block_fused": [_P] * 22 + [_I] * 6 + [_F, _F, _F, _P],
     "mvlt_block_attention": [_P] * 14 + [_I] * 5 + [_F, _F, _P],
-    "mvlt_fba_fwd": [_P] * 16 + [_I] * 5 + [_F, _F, _P],
-    "mvlt_fba_bwd": [_P] * 31 + [_I] * 8 + [_F, _F, _P],
+    "mvlt_fba_fwd": [_P] * 17 + [_I] * 6 + [_F, _F, _P],
+    "mvlt_fba_bwd": [_P] * 32 + [_I] * 9 + [_F, _F, _P],
     "mvlt_dwconv_mlp": [_P] * 11 + [_I] * 6 + [_F, _P],
     "mvlt_attention_fwd": [_P] * 5 + [_STRIDES] + [_I] * 5 + [_F, _P],
     "mvlt_attention_bwd": [_P] * 11 + [_STRIDES] + [_I] * 6 + [_F, _P],

@@ -26,6 +26,18 @@ differentiable ``autograd.Function`` on the fp32 master parameters.
 ``bwd_plan``, ``bwd_col_blocks`` and ``bwd_scratch`` the backward's
 launches and scratch.
 
+Tensor-parallel mode of the training form (``block_attention_train_fwd_tp``,
+``block_attention_train_bwd_tp``; plain versions
+``block_attention_train_reference(partial=True)`` and
+``block_attention_bwd_reference(partial=True)``): on a rank's H heads (Wq,
+bq its [H hd, D] rows, Wp its [D, H hd] columns, K and V its heads, hd =
+Wq's rows / H) the forward gives the fp32 partial s (A Wp^T) without bp and
+x (the statistics: LN1's of the whole row, the max and 1/denominator of the
+rank's heads), and the backward the fp32 LN1 backward of the rank's dLN1
+without dy, dgamma and dbeta of the rank's heads, dWq, dbq, dWp of its
+shard and dK, dV of its heads; dbp is whole. The model group sums the
+partials (parallel/tensor.py:fused_attn_tp).
+
 K and V are [B, heads, M, hd]. The statistics side output is [B, N, 2 + 2H]
 fp32 in natural units: per row the LN1 mean and 1/std, then per head h the
 row max of the scaled logits (column 2 + 2h) and the reciprocal of the
@@ -53,22 +65,27 @@ BWD_MAX_COL_BLOCKS = 512
 
 
 def attention_residual(x, k, v, ln1_weight, ln1_bias, wq, bq, wp, bp, *,
-                       heads: int, eps: float, row_scale=None) -> torch.Tensor:
+                       heads: int, eps: float, row_scale=None,
+                       partial: bool = False) -> torch.Tensor:
     """x + s * (proj(attention(LN1(x) Wq + bq, K, V)) + bp), unrounded: the
     sum is fp32 (fp64 for fp64), the products in x.dtype with fp32 LN
-    statistics and softmax. Linear weights in torch layout [out, in];
-    row_scale [B] (None: ones) scales the projection only."""
-    b, n, d = x.shape
-    hd = d // heads
+    statistics and softmax. Linear weights in torch layout [out, in], the
+    head dim Wq's rows / heads; row_scale [B] (None: ones) scales the
+    projection only. With ``partial`` (the tensor-parallel mode; bp unused)
+    s (A Wp^T) alone, its product unrounded."""
+    b, n, _ = x.shape
+    dh = wq.shape[0]
+    hd = dh // heads
     normed = layer_norm_fp32(x, ln1_weight, ln1_bias, eps)
     q = linear(normed, wq, bq).reshape(b, n, heads, hd).transpose(1, 2)
     attn = softmax_av(q, k.to(x.dtype), v.to(x.dtype), scale=hd ** -0.5)
-    attn = attn.transpose(1, 2).reshape(b, n, d)
+    attn = attn.transpose(1, 2).reshape(b, n, dh)
     acc = acc_dtype(x.dtype)
-    y = linear(attn, wp, bp).to(acc)
+    y = (matmul_acc(attn, wp.transpose(0, 1), x.dtype) if partial
+         else linear(attn, wp, bp).to(acc))
     if row_scale is not None:
         y = y * row_scale.to(acc)[:, None, None]
-    return x.to(acc) + y
+    return y if partial else x.to(acc) + y
 
 
 def block_attention_reference(x, k, v, ln1_weight, ln1_bias, wq, bq, wp, bp, *,
@@ -152,19 +169,23 @@ def _logits(q, k, scale: float):
 
 def block_attention_train_reference(x, k, v, ln1_weight, ln1_bias, wq, bq, wp, bp,
                                     row_scale=None, *, heads: int, eps: float,
-                                    save_stats: bool = False):
+                                    save_stats: bool = False, partial: bool = False):
     """Plain forward of the training form in x.dtype: ``attention_residual``
     with the row scale, rounded once; with ``save_stats`` also the
-    statistics [B, N, 2 + 2H] in the sum type (module docstring).
-    Differentiable by autograd."""
+    statistics [B, N, 2 + 2H] in the sum type (module docstring). With
+    ``partial`` (the tensor-parallel mode on the rank's heads; bp unused)
+    the unrounded partial s (A Wp^T) in the sum type. Differentiable by
+    autograd."""
     out = attention_residual(x, k, v, ln1_weight, ln1_bias, wq, bq, wp, bp, heads=heads,
-                             eps=eps, row_scale=row_scale).to(x.dtype)
+                             eps=eps, row_scale=row_scale, partial=partial)
+    if not partial:
+        out = out.to(x.dtype)
     if not save_stats:
         return out
     with torch.no_grad():
         mean, rstd = _ln_stats(x, eps)
         q = _heads(linear(layer_norm_fp32(x, ln1_weight, ln1_bias, eps), wq, bq), heads)
-        logits = _logits(q, k, (x.shape[-1] // heads) ** -0.5)
+        logits = _logits(q, k, (wq.shape[0] // heads) ** -0.5)
         mx = logits.amax(-1)
         inv = 1.0 / torch.exp(logits - mx[..., None]).sum(-1)
         per_head = torch.stack([mx, inv], -1).transpose(1, 2).flatten(2)   # [B, N, 2H]
@@ -173,7 +194,7 @@ def block_attention_train_reference(x, k, v, ln1_weight, ln1_bias, wq, bq, wp, b
 
 
 def block_attention_bwd_reference(x, k, v, ln1_weight, ln1_bias, wq, bq, wp, row_scale, dy,
-                                  *, heads: int, eps: float, stats=None):
+                                  *, heads: int, eps: float, stats=None, partial: bool = False):
     """Plain backward of the training form for the output gradient dy:
     (dx, dk, dv, dgamma, dbeta, dWq, dbq, dWp, dbp), written out as the
     Pallas backward computes it. Without ``stats`` LN1 and P are recomputed
@@ -185,10 +206,12 @@ def block_attention_bwd_reference(x, k, v, ln1_weight, ln1_bias, wq, bq, wp, row
     dP = dO V^T, dS = P (dP - rowsum(dP P)) scale, dQ = dS K, dK = dS^T Q;
     dWp = dys^T A, dWq = dQ^T LN1(x), dLN1 = dQ Wq, dx = dy + the LN1
     backward. Rows with s = 0 pass dy through to dx and add nothing to any
-    other gradient. row_scale gets none (a constant)."""
+    other gradient. row_scale gets none (a constant). With ``partial`` (the
+    tensor-parallel mode on the rank's heads, hd = Wq's rows / heads) dx is
+    the LN1 backward alone, unrounded in the sum type."""
     acc, dt = acc_dtype(x.dtype), x.dtype
     b, n, d = x.shape
-    hd = d // heads
+    hd = wq.shape[0] // heads
     scale = hd ** -0.5
     mean, rstd = _ln_stats(x, eps, stats)
     nhat = (x.to(acc) - mean) * rstd
@@ -210,43 +233,50 @@ def block_attention_bwd_reference(x, k, v, ln1_weight, ln1_bias, wq, bq, wp, row
     ds = (p * (dp - (dp * p).sum(-1, keepdim=True)) * scale).to(dt)
     dq = _merge(matmul_acc(ds, k, dt))
     dk = matmul_acc(ds.transpose(-1, -2), q, dt)
-    rows = lambda t: t.reshape(-1, d)
+    rows = lambda t: t.reshape(-1, t.shape[-1])
     dwp = matmul_acc(rows(dys).transpose(0, 1), rows(attn), dt)
     dwq = matmul_acc(rows(dq).transpose(0, 1), rows(normed), dt)
     dnormed = matmul_acc(dq, wq, dt)
     dnhat = dnormed * ln1_weight.to(acc)
     dx_ln = (dnhat - dnhat.mean(-1, keepdim=True)
              - nhat * (dnhat * nhat).mean(-1, keepdim=True)) * rstd
-    dx = (dy.to(acc) + dx_ln).to(dt)
+    dx = dx_ln if partial else (dy.to(acc) + dx_ln).to(dt)
     return (dx, dk.to(k.dtype), dv.to(v.dtype), rows(dnormed * nhat).sum(0),
             rows(dnormed).sum(0), dwq, rows(dq).sum(0), dwp, rows(dys).sum(0))
 
 
-def _check_stream_heads(name: str, x, heads: int) -> int:
-    """The stream checks of the attention kernels; returns the head dim."""
+def _check_stream_heads(name: str, x, heads: int, hd: int = 0) -> int:
+    """The stream checks of the attention kernels; returns the head dim
+    (``hd``, or D / heads where it is 0)."""
     _build.check_stream(name, x)
     d = x.shape[-1]
-    if d % heads or (d // heads) % 16:
+    if not hd and d % heads:
         raise ValueError(f"{name}: D={d} with {heads} heads gives no 16-multiple head dim")
-    return d // heads
+    hd = hd or d // heads
+    if hd % 16 or heads * hd > d:
+        raise ValueError(f"{name}: D={d} with {heads} heads of {hd}: no 16-multiple head dim "
+                         f"within D")
+    return hd
 
 
 def check_train_heads(name: str, d: int, heads: int) -> None:
     """The backward's attention core (csrc/attention.cu) takes head dims 32
     and 64 only; the training form refuses any other before its forward
-    launches, so that a step never fails halfway into its backward."""
+    launches, so that a step never fails halfway into its backward. ``d``:
+    the heads' width (D, or a rank's heads' under tensor parallelism)."""
     if d % heads or d // heads not in HEAD_DIMS:
         raise ValueError(f"{name}: D={d} with {heads} heads gives head dim {d / heads:g}; "
                          f"the training kernels take head dims {HEAD_DIMS}")
 
 
-def bwd_plan(rows: int, d: int, sms: int) -> int:
+def bwd_plan(rows: int, d: int, sms: int, dh: int = 0) -> int:
     """Row ranges of the backward's weight-gradient GEMMs (dWq and dWp in one
-    launch, each of ceil(D/128)^2 output tiles, contracting over the rows in
-    64-row chunks): the fewest whose blocks fill at least 90% of their last
-    wave on ``sms`` SMs (else the fullest), no range empty. Each range sums
-    into an fp32 slot, added in order after."""
-    tiles = 2 * (-(-d // BWD_TILE)) ** 2
+    launch, each of ceil(D/128) ceil(dh/128) output tiles, dh the heads'
+    width, D where 0; contracting over the rows in 64-row chunks): the
+    fewest whose blocks fill at least 90% of their last wave on ``sms``
+    SMs (else the fullest), no range empty. Each range sums into an fp32
+    slot, added in order after."""
+    tiles = 2 * (-(-d // BWD_TILE)) * (-(-(dh or d) // BWD_TILE))
     return _build.split_plan(tiles, -(-rows // BWD_CHUNK), sms, MAX_SPLITS)
 
 
@@ -257,47 +287,82 @@ def bwd_col_blocks(rows: int) -> int:
     return min(-(-rows // BWD_COL_ROWS), BWD_MAX_COL_BLOCKS)
 
 
-def fwd_scratch(batch: int, n: int, d: int, heads: int) -> dict:
+def fwd_scratch(batch: int, n: int, d: int, heads: int, hd: int = 0) -> dict:
     """The forward's scratch, name -> (elements, dtype), in the order the C
-    entry takes it: LN1(x), Q and the attention output A bf16 [rows, D],
-    the attention core's lse [B, H, N] fp32 (written, not read)."""
+    entry takes it: LN1(x) bf16 [rows, D], Q and the attention output A
+    bf16 [rows, heads hd] (hd = D / heads where 0), the attention core's
+    lse [B, H, N] fp32 (written, not read)."""
     bf16, rows = torch.bfloat16, batch * n
-    return {"nrm": (rows * d, bf16), "q": (rows * d, bf16), "attn": (rows * d, bf16),
+    dh = heads * hd if hd else d
+    return {"nrm": (rows * d, bf16), "q": (rows * dh, bf16), "attn": (rows * dh, bf16),
             "lse": (batch * heads * n, torch.float32)}
 
 
 def bwd_scratch(batch: int, n: int, d: int, heads: int, m: int, splits: int,
-                attn_splits: int) -> dict:
+                attn_splits: int, hd: int = 0) -> dict:
     """The backward's scratch, name -> (elements, dtype), in the order the C
-    entry takes it: LN1(x) and s.dy bf16 [rows, D]; Q then dO bf16 [2, rows,
-    D] (dLN1 in fp32 over both once they are read); A = P V and dQ bf16
-    [rows, D]; (mean, rstd) [rows]; lse [B, H, N]; column-sum slots [col
-    blocks, 4, D]; the weight gradients' slots [2, splits, D, D] (0 for one
-    range, written straight to dWq/dWp); the attention backward's dK/dV
-    slots [attn_splits, 2, B.H.M.hd] (0 for one split) and its fp32 dq sum
-    where M > 192 (else 0)."""
+    entry takes it, for heads of hd (D / heads where 0), dh = heads hd
+    wide: LN1(x) and s.dy bf16 [rows, D]; Q then dO bf16 [2, rows, dh] in a
+    [2, rows, D] space (dLN1 in fp32 over it once they are read); A = P V
+    and dQ bf16 [rows, dh]; (mean, rstd) [rows]; lse [B, H, N]; column-sum
+    slots [col blocks, 4, D]; the weight gradients' slots [2, splits, dh, D]
+    (0 for one range, written straight to dWq/dWp); the attention
+    backward's dK/dV slots [attn_splits, 2, B.H.M.hd] (0 for one split) and
+    its fp32 dq sum where M > 192 (else 0)."""
     bf16, f32 = torch.bfloat16, torch.float32
-    rows, hd = batch * n, d // heads
+    hd = hd or d // heads
+    rows, dh = batch * n, heads * hd
     bhm = batch * heads * m * hd
     return {"nrm": (rows * d, bf16), "dys": (rows * d, bf16), "qdo": (2 * rows * d, bf16),
-            "attn": (rows * d, bf16), "dq": (rows * d, bf16), "st": (2 * rows, f32),
+            "attn": (rows * dh, bf16), "dq": (rows * dh, bf16), "st": (2 * rows, f32),
             "lse": (batch * heads * n, f32), "colp": (bwd_col_blocks(rows) * 4 * d, f32),
-            "wslots": (2 * splits * d * d if splits > 1 else 0, f32),
+            "wslots": (2 * splits * d * dh if splits > 1 else 0, f32),
             "aslots": (2 * attn_splits * bhm if attn_splits > 1 else 0, f32),
             "dq_acc": (batch * heads * n * hd if m > 3 * TILE else 0, f32)}
 
 
 def _train_operands(name: str, x, k, v, ln1_weight, ln1_bias, wq, bq, wp, row_scale,
-                    heads: int):
-    """What the training kernels read: (hd, gamma, beta, Wq, bq, Wp, s) as
-    bf16 matrices and fp32 vectors, after the stream and K/V checks."""
-    hd = _check_stream_heads(name, x, heads)
+                    heads: int, partial: bool):
+    """What the training kernels read: (hd, dh, gamma, beta, Wq, bq, Wp, s)
+    as bf16 matrices and fp32 vectors, after the stream, head and K/V
+    checks; ``partial``: a rank's heads, hd from Wq's rows (else D / heads,
+    Wq whole)."""
     b, _, d = x.shape
+    if partial and (wq.dim() != 2 or wq.shape[0] % heads):
+        raise ValueError(f"{name}: Wq {tuple(wq.shape)} holds no whole {heads} heads")
+    hd = _check_stream_heads(name, x, heads, wq.shape[0] // heads if partial else 0)
+    dh = heads * hd
+    check_train_heads(name, dh, heads)
     _build.check_kv(name, k, v, b, heads, hd, x.device)
     dev, vec = x.device, _build.kernel_vector
-    return (hd, vec(name, ln1_weight, d, dev), vec(name, ln1_bias, d, dev),
-            _build.kernel_weight(name, wq, (d, d), dev), vec(name, bq, d, dev),
-            _build.kernel_weight(name, wp, (d, d), dev), vec(name, row_scale, b, dev))
+    return (hd, dh, vec(name, ln1_weight, d, dev), vec(name, ln1_bias, d, dev),
+            _build.kernel_weight(name, wq, (dh, d), dev), vec(name, bq, dh, dev),
+            _build.kernel_weight(name, wp, (d, dh), dev), vec(name, row_scale, b, dev))
+
+
+def _fwd_launch(name: str, x, k, v, ln1_weight, ln1_bias, wq, bq, wp, bp, row_scale, *,
+                heads: int, eps: float, save_stats: bool, partial: bool):
+    """The forward's chain on a CUDA tensor: (out or the fp32 partial,
+    stats or None)."""
+    hd, dh, g1, be1, wq_, bq_, wp_, s = _train_operands(name, x, k, v, ln1_weight, ln1_bias,
+                                                        wq, bq, wp, row_scale, heads, partial)
+    b, n, d = x.shape
+    bp_ = None if partial else _build.kernel_vector(name, bp, d, x.device)
+    out = (torch.empty(x.shape, dtype=torch.float32, device=x.device) if partial
+           else torch.empty_like(x))
+    stats = (torch.empty((b, n, 2 + 2 * heads), dtype=torch.float32, device=x.device)
+             if save_stats else None)
+    work = [torch.empty(count, dtype=dt, device=x.device)
+            for count, dt in fwd_scratch(b, n, d, heads, hd).values()]
+    err = _build.load_library().mvlt_fba_fwd(
+        x.data_ptr(), k.data_ptr(), v.data_ptr(), g1.data_ptr(), be1.data_ptr(),
+        wq_.data_ptr(), bq_.data_ptr(), wp_.data_ptr(), None if partial else bp_.data_ptr(),
+        s.data_ptr(), None if partial else out.data_ptr(),
+        None if stats is None else stats.data_ptr(), *(t.data_ptr() for t in work),
+        out.data_ptr() if partial else None, b, n, d, heads, k.shape[2], hd, hd ** -0.5, eps,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check_launch(name, err)
+    return out, stats
 
 
 def block_attention_train_fwd(x, k, v, ln1_weight, ln1_bias, wq, bq, wp, bp, row_scale, *,
@@ -313,26 +378,70 @@ def block_attention_train_fwd(x, k, v, ln1_weight, ln1_bias, wq, bq, wp, bp, row
         return block_attention_train_reference(x, k, v, ln1_weight, ln1_bias, wq, bq, wp, bp,
                                                row_scale, heads=heads, eps=eps,
                                                save_stats=save_stats)
-    name = "block_attention_train_fwd"
-    hd, g1, be1, wq_, bq_, wp_, s = _train_operands(name, x, k, v, ln1_weight, ln1_bias, wq,
-                                                    bq, wp, row_scale, heads)
-    b, n, d = x.shape
-    check_train_heads(name, d, heads)
-    bp_ = _build.kernel_vector(name, bp, d, x.device)
-    out = torch.empty_like(x)
-    stats = (torch.empty((b, n, 2 + 2 * heads), dtype=torch.float32, device=x.device)
-             if save_stats else None)
-    work = [torch.empty(count, dtype=dt, device=x.device)
-            for count, dt in fwd_scratch(b, n, d, heads).values()]
-    err = _build.load_library().mvlt_fba_fwd(
-        x.data_ptr(), k.data_ptr(), v.data_ptr(), g1.data_ptr(), be1.data_ptr(),
-        wq_.data_ptr(), bq_.data_ptr(), wp_.data_ptr(), bp_.data_ptr(), s.data_ptr(),
-        out.data_ptr(), None if stats is None else stats.data_ptr(),
-        *(t.data_ptr() for t in work), b, n, d, heads, k.shape[2], hd ** -0.5, eps,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check_launch(name, err)
+    out, stats = _fwd_launch("block_attention_train_fwd", x, k, v, ln1_weight, ln1_bias, wq,
+                             bq, wp, bp, row_scale, heads=heads, eps=eps,
+                             save_stats=save_stats, partial=False)
     block_attention_train_fwd.launches += 1
     return (out, stats) if save_stats else out
+
+
+def block_attention_train_fwd_tp(x, k, v, ln1_weight, ln1_bias, wq, bq, wp, row_scale, *,
+                                 heads: int, eps: float, save_stats: bool = False):
+    """Forward of the tensor-parallel mode on a rank's ``heads`` heads (Wq,
+    bq its rows, Wp its columns): the fp32 partial s (A Wp^T) [B, N, D], or
+    (partial, stats) with ``save_stats``. A CPU tensor takes
+    ``block_attention_train_reference(partial=True)``; a CUDA tensor
+    launches the chain with its out-projection writing the partial,
+    anything else raises. Counts calls in
+    ``block_attention_train_fwd_tp.launches``."""
+    if x.device.type == "cpu":
+        return block_attention_train_reference(x, k, v, ln1_weight, ln1_bias, wq, bq, wp, None,
+                                               row_scale, heads=heads, eps=eps,
+                                               save_stats=save_stats, partial=True)
+    out, stats = _fwd_launch("block_attention_train_fwd_tp", x, k, v, ln1_weight, ln1_bias,
+                             wq, bq, wp, None, row_scale, heads=heads, eps=eps,
+                             save_stats=save_stats, partial=True)
+    block_attention_train_fwd_tp.launches += 1
+    return (out, stats) if save_stats else out
+
+
+def _bwd_launch(name: str, x, k, v, ln1_weight, ln1_bias, wq, bq, wp, row_scale, dy, *,
+                heads: int, eps: float, stats, partial: bool):
+    """The backward's kernels on a CUDA tensor; with ``partial`` dx is the
+    fp32 partial of the tensor-parallel mode."""
+    hd, dh, g1, be1, wq_, bq_, wp_, s = _train_operands(name, x, k, v, ln1_weight, ln1_bias,
+                                                        wq, bq, wp, row_scale, heads, partial)
+    _build.check_stream(name, dy)
+    b, n, d = x.shape
+    if dy.shape != x.shape:
+        raise ValueError(f"{name}: dy {tuple(dy.shape)} and x {tuple(x.shape)} differ")
+    if stats is not None and (stats.device != x.device or stats.dtype != torch.float32
+                              or tuple(stats.shape) != (b, n, 2 + 2 * heads)
+                              or not stats.is_contiguous()):
+        raise ValueError(f"{name}: stats must be contiguous fp32 [{b}, {n}, {2 + 2 * heads}] "
+                         f"on {x.device}, got {tuple(stats.shape)} {stats.dtype}")
+    m = k.shape[2]
+    dev = x.device
+    sms = _build.sm_count(dev.index)
+    splits, attn_splits = bwd_plan(b * n, d, sms, dh), plan_splits(b * heads, n, sms)
+    scratch = [torch.empty(max(count, 1), dtype=dt, device=dev)
+               for count, dt in bwd_scratch(b, n, d, heads, m, splits, attn_splits,
+                                            hd).values()]
+    f32 = dict(dtype=torch.float32, device=dev)
+    dx = torch.empty(x.shape, **f32) if partial else torch.empty_like(x)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    dwq, dwp = torch.empty((dh, d), **f32), torch.empty((d, dh), **f32)
+    dbq, dbp, dg, dbe = (torch.empty(c, **f32) for c in (dh, d, d, d))
+    err = _build.load_library().mvlt_fba_bwd(
+        x.data_ptr(), dy.data_ptr(), k.data_ptr(), v.data_ptr(), g1.data_ptr(),
+        be1.data_ptr(), wq_.data_ptr(), bq_.data_ptr(), wp_.data_ptr(), s.data_ptr(),
+        None if stats is None else stats.data_ptr(), None if partial else dx.data_ptr(),
+        *(t.data_ptr() for t in scratch), dk.data_ptr(), dv.data_ptr(), dwq.data_ptr(),
+        dbq.data_ptr(), dwp.data_ptr(), dbp.data_ptr(), dg.data_ptr(), dbe.data_ptr(),
+        dx.data_ptr() if partial else None, b, n, d, heads, m, hd, splits, attn_splits,
+        bwd_col_blocks(b * n), hd ** -0.5, eps, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check_launch(name, err)
+    return dx, dk, dv, dg, dbe, dwq, dbq, dwp, dbp
 
 
 def block_attention_train_bwd(x, k, v, ln1_weight, ln1_bias, wq, bq, wp, row_scale, dy, *,
@@ -348,44 +457,35 @@ def block_attention_train_bwd(x, k, v, ln1_weight, ln1_bias, wq, bq, wp, row_sca
     if x.device.type == "cpu":
         return block_attention_bwd_reference(x, k, v, ln1_weight, ln1_bias, wq, bq, wp,
                                              row_scale, dy, heads=heads, eps=eps, stats=stats)
-    name = "block_attention_train_bwd"
-    hd, g1, be1, wq_, bq_, wp_, s = _train_operands(name, x, k, v, ln1_weight, ln1_bias, wq,
-                                                    bq, wp, row_scale, heads)
-    _build.check_stream(name, dy)
-    b, n, d = x.shape
-    check_train_heads(name, d, heads)
-    if dy.shape != x.shape:
-        raise ValueError(f"{name}: dy {tuple(dy.shape)} and x {tuple(x.shape)} differ")
-    if stats is not None and (stats.device != x.device or stats.dtype != torch.float32
-                              or tuple(stats.shape) != (b, n, 2 + 2 * heads)
-                              or not stats.is_contiguous()):
-        raise ValueError(f"{name}: stats must be contiguous fp32 [{b}, {n}, {2 + 2 * heads}] "
-                         f"on {x.device}, got {tuple(stats.shape)} {stats.dtype}")
-    m = k.shape[2]
-    dev = x.device
-    sms = _build.sm_count(dev.index)
-    splits, attn_splits = bwd_plan(b * n, d, sms), plan_splits(b * heads, n, sms)
-    scratch = [torch.empty(max(count, 1), dtype=dt, device=dev)
-               for count, dt in bwd_scratch(b, n, d, heads, m, splits, attn_splits).values()]
-    f32 = dict(dtype=torch.float32, device=dev)
-    dx, dk, dv = torch.empty_like(x), torch.empty_like(k), torch.empty_like(v)
-    dwq, dwp = torch.empty((d, d), **f32), torch.empty((d, d), **f32)
-    dbq, dbp, dg, dbe = (torch.empty(d, **f32) for _ in range(4))
-    err = _build.load_library().mvlt_fba_bwd(
-        x.data_ptr(), dy.data_ptr(), k.data_ptr(), v.data_ptr(), g1.data_ptr(),
-        be1.data_ptr(), wq_.data_ptr(), bq_.data_ptr(), wp_.data_ptr(), s.data_ptr(),
-        None if stats is None else stats.data_ptr(), dx.data_ptr(),
-        *(t.data_ptr() for t in scratch), dk.data_ptr(), dv.data_ptr(), dwq.data_ptr(),
-        dbq.data_ptr(), dwp.data_ptr(), dbp.data_ptr(), dg.data_ptr(), dbe.data_ptr(), b, n, d,
-        heads, m, splits, attn_splits, bwd_col_blocks(b * n), hd ** -0.5, eps,
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check_launch(name, err)
+    out = _bwd_launch("block_attention_train_bwd", x, k, v, ln1_weight, ln1_bias, wq, bq, wp,
+                      row_scale, dy, heads=heads, eps=eps, stats=stats, partial=False)
     block_attention_train_bwd.launches += 1
-    return dx, dk, dv, dg, dbe, dwq, dbq, dwp, dbp
+    return out
+
+
+def block_attention_train_bwd_tp(x, k, v, ln1_weight, ln1_bias, wq, bq, wp, row_scale, dy, *,
+                                 heads: int, eps: float, stats=None):
+    """Backward of the tensor-parallel mode on a rank's ``heads`` heads:
+    (dx, dk, dv, dgamma, dbeta, dWq, dbq, dWp, dbp) with dx the fp32 LN1
+    backward of the rank's dLN1 without dy and dgamma, dbeta partial (the
+    model group sums them), the shard's dWq, dbq, dWp and dbp whole. A CPU
+    tensor takes ``block_attention_bwd_reference(partial=True)``; a CUDA
+    tensor launches the kernels, anything else raises. Counts launches in
+    ``block_attention_train_bwd_tp.launches``."""
+    if x.device.type == "cpu":
+        return block_attention_bwd_reference(x, k, v, ln1_weight, ln1_bias, wq, bq, wp,
+                                             row_scale, dy, heads=heads, eps=eps, stats=stats,
+                                             partial=True)
+    out = _bwd_launch("block_attention_train_bwd_tp", x, k, v, ln1_weight, ln1_bias, wq, bq,
+                      wp, row_scale, dy, heads=heads, eps=eps, stats=stats, partial=True)
+    block_attention_train_bwd_tp.launches += 1
+    return out
 
 
 block_attention_train_fwd.launches = 0
 block_attention_train_bwd.launches = 0
+block_attention_train_fwd_tp.launches = 0
+block_attention_train_bwd_tp.launches = 0
 
 
 class FusedBlockAttentionTrain(torch.autograd.Function):

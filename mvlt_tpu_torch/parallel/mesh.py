@@ -16,7 +16,12 @@ rank = data_index x tp + model_index, the model axis innermost. A model
 group holds the ``tp`` ranks of one data index (one replica of the model,
 sharded); a data group the ``dp`` ranks of one model index (the ranks
 holding the same shard, over which DDP averages). With tp = 1 the data
-group is the world and there is no model group. Sequence parallelism
+group is the world and there is no model group. A model group stays inside
+one node, as make_hybrid_mesh (mvlt_tpu/parallel/mesh.py:67-99) keeps the
+model axis inside a slice: torchrun numbers a node's ranks consecutively
+and sets ``LOCAL_WORLD_SIZE`` to their count, so tp must divide it
+(``ranks_per_node``; without the variable every rank is taken to run on
+one machine); data groups span the nodes. Sequence parallelism
 (parallel/sequence.py) takes the same groups: a model group's ranks split
 each stage's rows, holding the whole model or, under tensor parallelism
 over the same group, their shards of it; the data groups average.
@@ -96,17 +101,28 @@ def comm_device() -> torch.device:
     return torch.device("cpu")
 
 
+def ranks_per_node() -> int:
+    """The ranks of this rank's node: torchrun's ``LOCAL_WORLD_SIZE``, or
+    the whole world where it is unset (every rank on one machine)."""
+    return int(os.environ.get("LOCAL_WORLD_SIZE") or world_size())
+
+
 def init_model_parallel(tp: int) -> None:
     """Split the world into model groups of ``tp`` consecutive ranks and data
     groups of the ranks ``tp`` apart. Every rank calls it, in the same order
     as its other group creations; tp = 1 undoes it (the world is one data
     group). A tp set up before in this process group takes its groups
     again (every rank calls with the same sequence of tp, so none creates
-    a group the others skip). Raises when tp does not divide the world."""
+    a group the others skip). Raises ValueError when tp does not divide the
+    world, or does not divide the ranks of a node (``ranks_per_node``): a
+    model group would then straddle two nodes."""
     global _layout
-    world = world_size()
+    world, local = world_size(), ranks_per_node()
     if tp < 1 or world % tp:
         raise ValueError(f"--tp-size {tp} does not divide the {world} ranks")
+    if local % tp:
+        raise ValueError(f"--tp-size {tp} does not divide the {local} ranks of a node "
+                         f"(LOCAL_WORLD_SIZE): a model group would straddle two nodes")
     _layout = None
     if tp == 1:
         return

@@ -2,9 +2,11 @@
 
 Counterpart of mvlt_tpu/parallel/sharding.py's data axis (the reference's
 DDP wrap, main_vl.py:298-302): there GSPMD inserts the gradient psum, here
-DistributedDataParallel all-reduces the gradients (ZeRO-1, which
-partitions the AdamW moments as ``state_shardings(zero1=True)`` does, is
-train/schedule.py:make_optimizer's). An eval set
+DistributedDataParallel all-reduces the gradients; ZeRO-1 (``Zero1AdamW``,
+built by train/schedule.py:make_optimizer) shards each AdamW moment by
+element over the data ranks as ``state_shardings(zero1=True)`` does
+(``_zero1_spec``, :78-91): the first dim the data size divides and tensor
+parallelism has not split. An eval set
 is cut into contiguous, equal shards, the last one padded; a rank's results
 go into its slots of zero-filled buffers that ``all_reduce`` sums, and the
 padded slots are masked out. The collectives used are ``all_reduce`` and
@@ -18,7 +20,7 @@ sequence-parallel model's T2I head runs replicated on them.
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+from typing import List, Optional
 
 import torch
 import torch.distributed as dist
@@ -149,6 +151,149 @@ def gather_slots(local: torch.Tensor, shard: EvalShard, group=None) -> torch.Ten
     if shard.world > 1:
         dist.all_reduce(buf, group=group)
     return buf.cpu().reshape((-1,) + tuple(local.shape[1:]))[mask.reshape(-1)]
+
+
+# the dim a tensor-parallel split takes (parallel/tensor.py: ROW, COL, KV)
+_TP_DIM = {"row": 0, "col": 1, "kv": 0}
+
+
+def zero1_dim(p: torch.Tensor, world: int) -> Optional[int]:
+    """The dim of ``p`` whose ZeRO-1 moments split over ``world`` data
+    ranks: the first that ``world`` divides and that tensor parallelism has
+    not split (``tp_split``; the dims are those of the rank's shard); None:
+    whole moments on every rank (``world`` 1, or no such dim)."""
+    if world <= 1:
+        return None
+    split = _TP_DIM.get(getattr(p, "tp_split", None))
+    return next((i for i, n in enumerate(p.shape) if i != split and n % world == 0), None)
+
+
+class Zero1AdamW(torch.optim.AdamW):
+    """AdamW under ZeRO-1 by element over the data ``group``: each
+    parameter's moments are this rank's slice along ``zero1_dim`` (whole
+    where it has none), the step runs AdamW's arithmetic
+    (torch.optim.AdamW's single-tensor form, decoupled weight decay) on the
+    rank's slice of the parameter and its gradient, after DDP's gradient
+    average and the clip, and one all_reduce of a zero-filled buffer
+    holding every rank's updated slices gathers the parameters whole
+    (exact: the other slots are zeros). Its param_groups are AdamW's, so
+    ``set_lr`` holds. ``consolidate_state_dict`` (every rank of the group)
+    gathers the moments whole; ``state_dict`` then gives plain AdamW's form,
+    and ``load_state_dict`` takes that form and keeps the rank's slices, so
+    a checkpoint resumes with or without ZeRO-1 at any data size."""
+
+    def __init__(self, params, group, **kwargs):
+        super().__init__(params, **kwargs)
+        self.world = group_size(group)
+        self.rank = dist.get_rank(group) if self.world > 1 else 0
+        self.data_group = group
+        self._whole = None   # param -> (exp_avg, exp_avg_sq) whole, after consolidation
+
+    def _part(self, p: torch.Tensor) -> Optional[tuple]:
+        """(dim, start, length) of the rank's slice of p's moments, or None."""
+        dim = zero1_dim(p, self.world)
+        if dim is None:
+            return None
+        n = p.shape[dim] // self.world
+        return dim, self.rank * n, n
+
+    def _params(self) -> list:
+        return [p for g in self.param_groups for p in g["params"]]
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        self._whole = None
+        placed = []
+        for group in self.param_groups:
+            lr, (beta1, beta2) = group["lr"], group["betas"]
+            eps, wd = group["eps"], group["weight_decay"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                part = self._part(p)
+                pv, g = (p, p.grad) if part is None else (p.narrow(*part), p.grad.narrow(*part))
+                st = self.state[p]
+                if not st:
+                    st["step"] = torch.tensor(0.0)
+                    st["exp_avg"] = torch.zeros_like(pv, memory_format=torch.contiguous_format)
+                    st["exp_avg_sq"] = torch.zeros_like(pv, memory_format=torch.contiguous_format)
+                st["step"] += 1
+                step = st["step"].item()
+                pv.mul_(1 - lr * wd)
+                st["exp_avg"].lerp_(g, 1 - beta1)
+                st["exp_avg_sq"].mul_(beta2).addcmul_(g, g, value=1 - beta2)
+                denom = (st["exp_avg_sq"].sqrt() / (1 - beta2 ** step) ** 0.5).add_(eps)
+                pv.addcdiv_(st["exp_avg"], denom, value=-(lr / (1 - beta1 ** step)))
+                if part is not None:
+                    placed.append((p, part))
+        self._gather(placed)
+        return loss
+
+    def _gather(self, placed: list) -> None:
+        """Every rank's updated slices into the parameters, whole: one
+        all_reduce a dtype of a zero-filled flat buffer."""
+        by_dtype: dict = {}
+        for p, part in placed:
+            by_dtype.setdefault(p.dtype, []).append((p, part))
+        for dtype, items in by_dtype.items():
+            buf = torch.zeros(sum(p.numel() for p, _ in items), dtype=dtype,
+                              device=items[0][0].device)
+            views, off = [], 0
+            for p, part in items:
+                view = buf[off:off + p.numel()].view(p.shape)
+                view.narrow(*part).copy_(p.narrow(*part))
+                views.append(view)
+                off += p.numel()
+            dist.all_reduce(buf, group=self.data_group)
+            for (p, _), view in zip(items, views):
+                p.copy_(view)
+
+    @torch.no_grad()
+    def consolidate_state_dict(self) -> None:
+        """Gather every sharded moment whole (a collective: every rank of the
+        data group calls it, in one order), for ``state_dict``."""
+        whole = {}
+        for p in self._params():
+            part, st = self._part(p), self.state.get(p)
+            if part is None or not st:
+                continue
+            moments = []
+            for key in ("exp_avg", "exp_avg_sq"):
+                full = torch.zeros(p.shape, dtype=st[key].dtype, device=st[key].device)
+                full.narrow(*part).copy_(st[key])
+                dist.all_reduce(full, group=self.data_group)
+                moments.append(full)
+            whole[p] = tuple(moments)
+        self._whole = whole
+
+    def state_dict(self) -> dict:
+        """Plain AdamW's state dict, the moments whole (after
+        ``consolidate_state_dict`` where any is sharded)."""
+        sd = super().state_dict()
+        params = self._params()
+        sharded = [i for i in sd["state"] if self._part(params[i]) is not None]
+        if sharded and self._whole is None:
+            raise RuntimeError("Zero1AdamW.state_dict: call consolidate_state_dict() on every "
+                               "rank of the data group first")
+        for i in sharded:
+            exp_avg, exp_avg_sq = self._whole[params[i]]
+            sd["state"][i] = {**sd["state"][i], "exp_avg": exp_avg, "exp_avg_sq": exp_avg_sq}
+        return sd
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        """Plain AdamW's form, the moments whole; each rank keeps copies of
+        its slices (of every loaded tensor: they may be the caller's)."""
+        super().load_state_dict(state_dict)
+        self._whole = None
+        for p in self._params():
+            part, st = self._part(p), self.state.get(p)
+            for key, t in (st or {}).items():
+                mine = t.narrow(*part) if part is not None and key != "step" else t
+                st[key] = mine.clone(memory_format=torch.contiguous_format)
 
 
 def barrier() -> None:

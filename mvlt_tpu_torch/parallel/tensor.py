@@ -41,25 +41,40 @@ written out. The port reproduces the function, not GSPMD's layout:
     whole mask one process draws (models/bert_embeddings.py:dropout), so
     the ranks of a model group, which share one generator stream, keep the
     one-process masks.
+  * On the ``fused_attn_train`` route a split attention half is one
+    autograd function over kernels #6-#8 in their tensor-parallel modes
+    (``fused_attn_tp``), as the MLP half is over #12/#13: the kernels take
+    x whole (LN1 is inside them) and the rank's heads; the forward sums the
+    ranks' fp32 partials s (A Wp^T), then adds s bp and x and rounds once;
+    the backward sums the ranks' (dx, dgamma, dbeta) partials of LN1's
+    backward in one all-reduce, as copy_to_model would sum x's gradient and
+    LN1's, adds dy once, and takes dbp once from the whole s.dy (bp is
+    replicated, as in ``row_parallel_linear``).
   * The MLM decode is vocabulary-parallel (``vocab_parallel_nll``): each
     rank's kernel #14 gives its range's (lse, picked logit), the group
     combines them in fp32 (the logsumexp of the lses, the sum of the
     picks), and #15 takes the global lse and gives the rows' partial
     gradient, summed by copy_to_model. The eval decode combines each rank's
     (max, first argmax + offset), the lowest index winning ties, and never
-    gathers the logits (``VocabShardLogits``).
+    gathers the logits (``VocabShardLogits``). With ``mlm_loss_chunk <= 0``
+    the training decode keeps the rank's logits [..., V / tp] (its input
+    through ``copy_to_model``) and the loss is
+    ``vocab_parallel_cross_entropy``: the row max, the sum of exp and the
+    picked logit combined over the group, softmax minus one-hot on the
+    rank's columns in the backward.
 
   * Under sequence parallelism too (a model built with ``sp_group``, the
     same model group; parallel/sequence.py), a split stage's stream holds
     the rank's band between the blocks. ``model_input`` then all-gathers
     the LN'd band whole where ``copy_to_model`` stood (its backward a
     reduce-scatter), the tensor-parallel products run on the whole stream
-    as above, and ``row_parallel_linear`` and ``fused_ln_mlp_tp``
-    reduce-scatter their fp32 partials to the band in place of the
-    all-reduce, then add the bias and the residual on the band (Megatron-LM's
-    sequence parallelism). Every replicated parameter of such a block is
-    then used on the band's rows, or (SR and LN2 inside #13) gets a
-    gradient from the rank's heads or hidden slice alone: its gradient is
+    as above, and ``row_parallel_linear``, ``fused_ln_mlp_tp`` and
+    ``fused_attn_tp`` reduce-scatter their fp32 partials to the band in
+    place of the all-reduce, then add the bias and the residual on the band
+    (Megatron-LM's sequence parallelism). Every replicated parameter of such
+    a block is then used on the band's rows, or (SR, LN1 inside #8 and LN2
+    inside #13) gets a gradient from the rank's heads or hidden slice
+    alone: its gradient is
     this rank's part, which parallel/sequence.py:reduce_row_grads sums; a
     shard's is whole and stays.
 
@@ -76,6 +91,8 @@ from typing import Dict, List, Mapping, Optional
 import torch
 import torch.distributed as dist
 
+from mvlt_tpu_torch.ops.block_attention import (block_attention_train_bwd_tp,
+                                                block_attention_train_fwd_tp)
 from mvlt_tpu_torch.ops.fused_mlp import ln_mlp_bwd_tp, ln_mlp_fwd_tp
 from mvlt_tpu_torch.ops.kernel_math import acc_dtype, linear, matmul_acc
 from mvlt_tpu_torch.ops.mlm_ce import mlm_ce_bwd_tp, mlm_ce_fwd_tp
@@ -100,17 +117,6 @@ RULES = (
     (re.compile(r"^text_embeddings\.word_embeddings\.weight$"), "vocab", ROW),
     (re.compile(r"^mlm_head\.bias$"), "vocab", ROW),
 )
-
-
-def refusals(cfg) -> List[str]:
-    """What tensor parallelism does not cover yet, for a resolved model
-    config: each a name."""
-    out = {
-        "fused_attn_train": bool(cfg.fused_attn_train),
-        "mlm_loss_chunk <= 0 (the MLM loss through the logits)":
-            bool(cfg.loss_type.mlm and cfg.mlm_loss_chunk <= 0),
-    }
-    return [name for name, on in out.items() if on]
 
 
 def _width(cfg, axis: str, stage: Optional[int]) -> int:
@@ -286,6 +292,16 @@ def split_dim(group, dim: int) -> Optional[tuple]:
     return None if group is None else (dim, dist.get_rank(group), group_size(group))
 
 
+def sum_ln_partials(dx_part, dgamma, dbeta, group) -> tuple:
+    """(dx, dgamma, dbeta) of a LayerNorm whose output feeds a product split
+    over the model ``group``, from each rank's part of its backward: summed
+    in one fp32 all_reduce (fp64 for fp64), as copy_to_model would sum the
+    LayerNorm output's gradient before a replicated backward."""
+    d = dx_part.shape[-1]
+    summed = _model_sum(torch.cat([dx_part.reshape(-1), dgamma, dbeta]), group)
+    return summed[:-2 * d].reshape(dx_part.shape), summed[-2 * d:-d], summed[-d:]
+
+
 class _FusedLnMlpTp(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, gamma, beta, w1, b1, w2, b2, row_scale, eps, group, sp):
@@ -308,11 +324,8 @@ class _FusedLnMlpTp(torch.autograd.Function):
         dyw = dy.contiguous() if sp is None else sequence.gather_rows(dy, sp)
         dx_part, dgamma, dbeta, dw1, db1, dw2, db2 = ln_mlp_bwd_tp(
             x, gamma, beta, w1, b1, w2, row_scale, ctx.eps, dyw)
-        d = dx_part.shape[-1]
         if sp is None:
-            summed = _model_sum(torch.cat([dx_part.reshape(-1), dgamma, dbeta]), ctx.group)
-            dx_sum = summed[:-2 * d].reshape(dx_part.shape)
-            dgamma, dbeta = summed[-2 * d:-d], summed[-d:]
+            dx_sum, dgamma, dbeta = sum_ln_partials(dx_part, dgamma, dbeta, ctx.group)
         else:
             # the band's rows; dgamma, dbeta and db2 stay this rank's parts
             # (sequence.reduce_row_grads sums them): b2 is added on the band
@@ -337,6 +350,66 @@ def fused_ln_mlp_tp(x, gamma, beta, w1, b1, w2, b2, row_scale, eps: float, group
     if row_scale is None:
         row_scale = torch.ones(x.shape[0], dtype=torch.float32, device=x.device)
     return _FusedLnMlpTp.apply(x, gamma, beta, w1, b1, w2, b2, row_scale, eps, group, sp)
+
+
+class _FusedAttnTp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, k, v, gamma, beta, wq, bq, wp, bp, row_scale, heads, eps, save_stats,
+                group, sp):
+        ctx.heads, ctx.eps, ctx.group, ctx.sp = heads, eps, group, sp
+        ctx.param_dtypes = [t.dtype for t in (gamma, beta, wq, bq, wp, bp)]
+        xw = x if sp is None else sequence.gather_rows(x, sp)
+        if x.device.type == "cuda":
+            xw, k, v = xw.contiguous(), k.contiguous(), v.contiguous()
+        wq_c, wp_c = wq.detach().to(x.dtype), wp.detach().to(x.dtype)   # rounded once
+        res = block_attention_train_fwd_tp(xw, k, v, gamma, beta, wq_c, bq, wp_c, row_scale,
+                                           heads=heads, eps=eps, save_stats=save_stats)
+        part, stats = res if save_stats else (res, None)
+        ctx.save_for_backward(xw, k, v, gamma, beta, wq_c, bq, wp_c, row_scale, stats)
+        total = _model_sum(part, group)
+        if sp is not None:
+            total = sequence.take(total, sp, sp.hb * sp.w)
+        s = row_scale.to(total.dtype)[:, None, None]
+        return (x.to(total.dtype) + total + s * bp.to(total.dtype)).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        xw, k, v, gamma, beta, wq_c, bq, wp_c, row_scale, stats = ctx.saved_tensors
+        sp = ctx.sp
+        dyw = dy.contiguous() if sp is None else sequence.gather_rows(dy, sp)
+        dx_part, dk, dv, dgamma, dbeta, dwq, dbq, dwp, dbp = block_attention_train_bwd_tp(
+            xw, k, v, gamma, beta, wq_c, bq, wp_c, row_scale, dyw.to(xw.dtype),
+            heads=ctx.heads, eps=ctx.eps, stats=stats)
+        if sp is None:
+            dx_sum, dgamma, dbeta = sum_ln_partials(dx_part, dgamma, dbeta, ctx.group)
+        else:
+            # the band's rows; dgamma, dbeta and dbp stay this rank's parts
+            # (sequence.reduce_row_grads sums them): bp is added on the band
+            dx_sum = sequence.take(_model_sum(dx_part, ctx.group), sp, sp.hb * sp.w)
+            acc = dx_sum.dtype
+            dbp = (dy.to(acc) * row_scale.to(acc)[:, None, None]).sum((0, 1))
+        dx = (dy.to(dx_sum.dtype) + dx_sum).to(xw.dtype)
+        grads = (dgamma, dbeta, dwq, dbq, dwp, dbp)
+        return (dx, dk, dv, *(g.to(t) for g, t in zip(grads, ctx.param_dtypes)), None, None,
+                None, None, None, None)
+
+
+def fused_attn_tp(x, k, v, gamma, beta, wq, bq, wp, bp, row_scale, *, heads: int, eps: float,
+                  save_stats: bool, group, sp=None):
+    """x + s * (proj(attention(LN1 x)) + bp) with the attention's heads
+    split over the model ``group`` (Wq, bq this rank's ``heads`` heads'
+    rows, Wp their columns, K and V those heads, bp whole): kernels #6-#8 in
+    their tensor-parallel modes on CUDA tensors, their plain versions on CPU
+    tensors (``save_stats`` picks the statistics forms); the ranks' fp32
+    partials summed, then s bp and x added once and the output rounded
+    once, as the one-process kernel does. row_scale None means ones.
+    ``sp``: x holds the band of that row plan; the kernels run on the
+    stream gathered whole, their partials are reduce-scattered to the band,
+    and LN1's and bp's gradients are this rank's parts."""
+    if row_scale is None:
+        row_scale = torch.ones(x.shape[0], dtype=torch.float32, device=x.device)
+    return _FusedAttnTp.apply(x, k, v, gamma, beta, wq, bq, wp, bp, row_scale, heads, eps,
+                              save_stats, group, sp)
 
 
 def vocab_start(table: torch.Tensor, group) -> int:
@@ -406,6 +479,47 @@ def vocab_parallel_mlm_loss(hidden, table, bias, labels, group) -> torch.Tensor:
     return nll.sum() / (labs >= 0).sum().clamp(min=1)
 
 
+class _VocabParallelCe(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, logits, labels, start, group):
+        lf = logits.to(acc_dtype(logits.dtype))
+        v = lf.shape[-1]
+        local = labels.long() - start
+        inside = (labels >= 0) & (local >= 0) & (local < v)
+        idx = torch.where(inside, local, 0)
+        picked = torch.where(inside, lf.gather(-1, idx[:, None])[:, 0], 0.0)
+        mx = _slots([lf.amax(-1)], group)[0].amax(0)          # the row max over the group
+        both = _model_sum(torch.stack([torch.exp(lf - mx[:, None]).sum(-1), picked]), group)
+        valid = labels >= 0
+        nll = torch.where(valid, torch.log(both[0]) + mx - both[1], 0.0)
+        ctx.save_for_backward(logits, mx, both[0], idx, inside, valid)
+        return nll
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, mx, sumexp, idx, inside, valid = ctx.saved_tensors
+        lf = logits.to(mx.dtype)
+        dl = torch.exp(lf - mx[:, None]) / sumexp[:, None]
+        dl.scatter_add_(-1, idx[:, None], -inside.to(dl.dtype)[:, None])
+        g = torch.where(valid, g.to(dl.dtype), 0.0)   # an ignored row takes no gradient
+        return (dl * g[:, None]).to(logits.dtype), None, None, None
+
+
+def vocab_parallel_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, start: int,
+                                 group) -> torch.Tensor:
+    """The mean cross entropy over the labelled rows (labels -1 ignored; 0
+    when none is labelled) of logits split over the model ``group`` by
+    vocabulary: ``logits`` [..., V / tp] this rank's columns from the global
+    index ``start``, ``labels`` [...] global, as F.cross_entropy(
+    ignore_index=-1) of the whole logits. The row max, then the sum of exp
+    and the picked logit, are combined over the group in fp32 (fp64 for
+    fp64); the backward is softmax minus one-hot on the rank's columns."""
+    rows = logits.reshape(-1, logits.shape[-1])
+    labs = labels.reshape(-1)
+    nll = _VocabParallelCe.apply(rows, labs, start, group)
+    return nll.sum() / (labs >= 0).sum().clamp(min=1)
+
+
 class VocabShardLogits:
     """The MLM decode of an eval forward on a vocabulary split over the
     model ``group``: this rank's fp32 logits [..., V / tp] from the global
@@ -437,19 +551,16 @@ def shard_model(model: torch.nn.Module, group) -> torch.nn.Module:
     """Shard a whole, initialised PVLT in place over the model ``group``
     under ``RULES``: each split parameter becomes this rank's shard (marked
     ``tp_split``), every block and the model learn the group (the model's
-    ``vocab_group`` too where the vocabulary splits). Every rank must start from the same weights (the same seed,
-    or a state dict loaded before). A sequence-parallel model (built with
-    ``sp_group``, the same group) then runs each split stage on the band
-    between its blocks (the module docstring). Raises
-    NotImplementedError for what ``refusals`` names."""
+    ``vocab_group`` too where the vocabulary splits). Every rank must start
+    from the same weights (the same seed, or a state dict loaded before). A
+    sequence-parallel model (built with ``sp_group``, the same group) then
+    runs each split stage on the band between its blocks (the module
+    docstring)."""
     cfg = model.cfg
     if model.sp_group is not None and model.sp_group is not group:
         raise ValueError("a sequence-parallel model splits its weights over its own model "
                          "group (sp_group)")
     tp = group_size(group)
-    refused = refusals(cfg)
-    if refused:
-        raise NotImplementedError(f"tensor parallelism does not cover: {'; '.join(refused)}")
     if tp == 1:
         return model
     rank = dist.get_rank(group)
@@ -479,7 +590,8 @@ def describe(model: torch.nn.Module) -> str:
     """The layout of a sharded model, one line a stage and one for the
     vocabulary: which attentions and MLPs are split over how many ranks."""
     tp = group_size(getattr(model, "tp_group", None))
-    lines = [f"tensor parallelism over {tp} ranks (model axis innermost):"]
+    lines = [f"tensor parallelism over {tp} ranks (model axis innermost; "
+             f"{mesh.ranks_per_node()} ranks a node, each model group inside one):"]
     for i in range(model.cfg.num_stages):
         blocks = getattr(model, f"block{i + 1}")
         heads, hidden = model.cfg.num_heads[i], blocks[0].mlp.fc1.weight.shape[0] * (

@@ -30,7 +30,9 @@ group hold the same rows: a sum over the world would count each sample tp
 times), and on a vocabulary split over the model group (``vocab_group``)
 the MLM decode is parallel/tensor.py:vocab_parallel_mlm_loss, kernels
 #14/#15 in their tensor-parallel modes on the card and their plain
-versions on the CPU, whatever ``mlm_ce_kernel`` says.
+versions on the CPU, whatever ``mlm_ce_kernel`` says; through the logits
+(``mlm_loss_chunk <= 0``) it is parallel/tensor.py:
+vocab_parallel_cross_entropy of the rank's columns.
 """
 
 from __future__ import annotations
@@ -43,7 +45,8 @@ from torch.utils.checkpoint import checkpoint
 
 from mvlt_tpu_torch.ops.mlm_ce import mlm_ce_loss
 from mvlt_tpu_torch.parallel.sharding import all_reduce_sum, exclusive_prefix, group_size
-from mvlt_tpu_torch.parallel.tensor import vocab_parallel_mlm_loss
+from mvlt_tpu_torch.parallel.tensor import (VocabShardLogits, vocab_parallel_cross_entropy,
+                                            vocab_parallel_mlm_loss)
 
 MLM_LOSS_WEIGHT = 1.0
 ITM_LOSS_WEIGHT = 1.0
@@ -205,18 +208,23 @@ def compute_losses(outputs: Dict[str, Any], batch: Dict[str, torch.Tensor],
     global mean (see the module's docstring; ``mlm_count``: the global
     labeled count when the caller has it, as a gather plan does); the others
     need no change. On a vocabulary split over a model group (the model's
-    ``mlm_vocab_group`` output) the MLM loss is vocabulary-parallel."""
+    ``mlm_vocab_group`` output, or split logits, a
+    parallel/tensor.py:VocabShardLogits) the MLM loss is
+    vocabulary-parallel."""
     ref = next(v for v in outputs.values() if isinstance(v, torch.Tensor))
     zero = torch.zeros((), dtype=torch.float32, device=ref.device)
     losses = {k: zero for k in ("loss_mlm", "loss_itm", "loss_sup_cls", "loss_sub_cls",
                                 "loss_t2i")}
     total = zero
-    if outputs.get("mlm_logits") is not None:
-        vocab = outputs["mlm_logits"].shape[-1]
+    logits = outputs.get("mlm_logits")
+    if logits is not None:
         labels = batch["mlm_labels"].reshape(-1)
-        losses["loss_mlm"] = MLM_LOSS_WEIGHT * _global_mean(cross_entropy(
-            outputs["mlm_logits"].reshape(-1, vocab), labels, ignore_index=MLM_IGNORE_INDEX),
-            labels, group)
+        if isinstance(logits, VocabShardLogits):
+            loss = vocab_parallel_cross_entropy(logits.local, labels, logits.start, logits.group)
+        else:
+            loss = cross_entropy(logits.reshape(-1, logits.shape[-1]), labels,
+                                 ignore_index=MLM_IGNORE_INDEX)
+        losses["loss_mlm"] = MLM_LOSS_WEIGHT * _global_mean(loss, labels, group)
     elif outputs.get("mlm_hidden") is not None:
         args = (outputs["mlm_hidden"], outputs["mlm_table"], outputs["mlm_bias"],
                 batch["mlm_labels"])

@@ -7,7 +7,8 @@ peak over the warmup steps, then cosine to min_lr at the last step), and
 AdamW with no weight decay on 1-D parameters (biases, LayerNorm and
 BatchNorm scales; timm's add_weight_decay), as torch.optim.AdamW parameter
 groups, optionally after optax.clip_by_global_norm (``clip_grad``); under
-ZeRO-1 the same groups partitioned over the data-parallel ranks.
+ZeRO-1 the same groups with each moment sharded by element over the
+data-parallel ranks.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from typing import Callable
 import torch
 
 from mvlt_tpu_torch.config import OptimConfig
-from mvlt_tpu_torch.parallel.sharding import all_reduce_sum
+from mvlt_tpu_torch.parallel.sharding import Zero1AdamW, all_reduce_sum
 
 
 def scaled_base_lr(cfg: OptimConfig, global_batch_size: int) -> float:
@@ -47,25 +48,19 @@ def make_optimizer(cfg: OptimConfig, model: torch.nn.Module,
     """AdamW over the model's parameters, weight decay on those with more
     than one dimension only. The LR is set per step from the schedule;
     ``cfg.clip_grad`` is applied by the step (``clip_by_global_norm``).
-    With ``zero1_group`` (a process group) the same groups under ZeRO-1:
-    each rank keeps the moments of its partition of the parameters only."""
+    With ``zero1_group`` (a process group, the data group) the same groups
+    under ZeRO-1 by element (parallel/sharding.py:Zero1AdamW): each rank
+    keeps its slice of every moment that splits."""
     params = [p for p in model.parameters() if p.requires_grad]
     groups = [{"params": [p for p in params if p.dim() > 1], "weight_decay": cfg.weight_decay},
               {"params": [p for p in params if p.dim() <= 1], "weight_decay": 0.0}]
     if zero1_group is not None:
-        from torch.distributed.optim import ZeroRedundancyOptimizer
-
-        # the wrapper's groups take set_lr; its step copies them into the
-        # inner AdamW's, then broadcasts each rank's updated partition
-        return ZeroRedundancyOptimizer(groups, optimizer_class=torch.optim.AdamW,
-                                       process_group=zero1_group, lr=cfg.lr, betas=cfg.betas,
-                                       eps=cfg.eps)
+        return Zero1AdamW(groups, zero1_group, lr=cfg.lr, betas=cfg.betas, eps=cfg.eps)
     return torch.optim.AdamW(groups, lr=cfg.lr, betas=cfg.betas, eps=cfg.eps)
 
 
 def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
-    """The LR of every group; under ZeRO-1 the wrapper's groups, which its
-    step copies into the inner optimizer's."""
+    """The LR of every group."""
     for group in optimizer.param_groups:
         group["lr"] = lr
 

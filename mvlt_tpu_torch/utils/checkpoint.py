@@ -17,8 +17,8 @@ schedule is a function of the step and needs no state.
 
 Under data parallelism every rank calls ``save_epoch`` and ``restore``:
 rank 0 writes the unwrapped model's state dict (the reference's names,
-without DDP's ``module.``), under ZeRO-1 the optimizer state consolidated on
-rank 0 first (a collective); ``generators`` holds every data rank's
+without DDP's ``module.``), under ZeRO-1 the optimizer's moments gathered
+whole first (a collective of each data group); ``generators`` holds every data rank's
 generator state and ``generator`` rank 0's. Every rank restores the same
 file, each taking its data rank's generator state; the optimizer state has
 one layout with and without ZeRO-1, so either resumes the other.
@@ -27,9 +27,9 @@ Under tensor parallelism (``state.model_group``) the file holds the whole
 model: saving consolidates the parameters and the AdamW moments over the
 model group (parallel/tensor.py:consolidate) and rank 0 writes them with
 the reference's names; restoring shards them (shard_state_dict). Under
-ZeRO-1 as well, each data group first consolidates its shard's moments on
-its data rank 0 (the ranks of model group 0), which then consolidate them
-over their model group. A run saved at one tp, with or without ZeRO-1,
+ZeRO-1 as well, each data group first gathers its shard's moments whole,
+and the ranks of model group 0 (data rank 0) then consolidate them over
+their model group. A run saved at one tp, with or without ZeRO-1,
 resumes at any other, tp = 1 included. Under sequence parallelism every
 rank holds the whole model (``state.model_group`` None): rank 0 writes it
 as one process would, and it restores in one process with strict names.
@@ -51,7 +51,8 @@ import torch.distributed as dist
 
 from mvlt_tpu_torch.config import RunConfig, config_to_dict
 from mvlt_tpu_torch.parallel import mesh
-from mvlt_tpu_torch.parallel.sharding import EvalShard, barrier, gather_slots, group_size
+from mvlt_tpu_torch.parallel.sharding import (EvalShard, Zero1AdamW, barrier, gather_slots,
+                                             group_size)
 from mvlt_tpu_torch.parallel.tensor import consolidate, shard_state_dict
 
 STATE_FILE = "state.pt"
@@ -194,11 +195,9 @@ class CheckpointManager:
 
     def _save(self, tag: str, state, epoch: int, score: Optional[float]) -> None:
         """Called by every rank; rank 0 writes, the others wait for it."""
-        from torch.distributed.optim import ZeroRedundancyOptimizer
-
-        if isinstance(state.optimizer, ZeroRedundancyOptimizer):
-            # onto the data group's first rank: data rank 0, one per model rank
-            state.optimizer.consolidate_state_dict(to=0)
+        if isinstance(state.optimizer, Zero1AdamW):
+            # every rank of each data group gathers its moments whole
+            state.optimizer.consolidate_state_dict()
         generators = _every_rank_generator_state(state.generator)
         # a split model's consolidation is a collective of its model group,
         # model group 0's (data rank 0, where ZeRO-1's state dicts are)

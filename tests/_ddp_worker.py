@@ -134,8 +134,7 @@ def case_zero(spec, rank, world) -> dict:
         tag = "zero1" if zero1 else "plain"
         out[tag] = snapshot(state, losses)
         out[tag]["moment_bytes"] = sum(
-            t.numel() * t.element_size()
-            for s in (state.optimizer.optim.state if zero1 else state.optimizer.state).values()
+            t.numel() * t.element_size() for s in state.optimizer.state.values()
             for k, t in s.items() if k in ("exp_avg", "exp_avg_sq"))
         fresh = [kernel_operand(t, torch.bfloat16) for t in blocks[0].kernel_params()[0]]
         cached = blocks[0].kernel_operands(torch.bfloat16)[0]
@@ -221,7 +220,10 @@ def tp_snapshot(cfg, state, losses) -> dict:
 def case_tp(spec, rank, world) -> dict:
     """Steps of the split model on this data rank's rows of the global batch:
     at step 0 (clean images), step 1 (masked images) and step 0 with
-    clip_grad; then a checkpoint of the step-1 state (whole, rank 0 writes)."""
+    clip_grad; then a checkpoint of the step-1 state (whole, rank 0 writes);
+    then step 0 on each route of spec["routes"] (config overrides: the
+    fused_attn_train route in either form, the MLM loss through the
+    logits). The layout names each rank's node (torchrun's GROUP_RANK)."""
     out = {}
     mesh.init_model_parallel(spec["tp"])
     rows = rank_rows(spec["global_batch"], mesh.data_rank(), mesh.data_size())
@@ -232,7 +234,13 @@ def case_tp(spec, rank, world) -> dict:
         if name == "step1":
             CheckpointManager(spec["ckpt_dir"]).save_epoch(state, 0, 3)
     out["layout"] = {"model_rank": mesh.model_rank(), "data_rank": mesh.data_rank(),
-                     "generator": state.generator.get_state()}
+                     "generator": state.generator.get_state(),
+                     "node": int(os.environ.get("GROUP_RANK", "0")),
+                     "ranks_per_node": mesh.ranks_per_node()}
+    for name, overrides in spec.get("routes", {}).items():
+        cfg, state = tp_state(spec, **overrides)
+        state, losses = make_train_step(cfg)(state, local_batch(spec, rows))
+        out[name] = tp_snapshot(cfg, state, losses)
     return out
 
 
@@ -262,8 +270,11 @@ def case_tp_families(spec, rank, world) -> dict:
     data rank's rows (fp32, the JAX comparison). Then each fp64 case of the
     spec on its family (dropout, --remat, ZeRO-1 over the data group): a
     step from the same weights and seed, the ZeRO-1 case saving its
-    checkpoint; the resume case restores that checkpoint at this tp
-    without ZeRO-1. Every snapshot consolidated over the model group."""
+    checkpoint; a resume case restores a checkpoint at this tp (under
+    ZeRO-1 where it says so: its moments gathered whole again, and each
+    rank's moment bytes). Every snapshot consolidated over the model
+    group."""
+    from mvlt_tpu_torch.parallel.sharding import Zero1AdamW
     from mvlt_tpu_torch.utils.checkpoint import whole_state
 
     mesh.init_model_parallel(spec["tp"])
@@ -280,9 +291,13 @@ def case_tp_families(spec, rank, world) -> dict:
                               **case["overrides"])
         if case.get("resume"):
             state, epoch = CheckpointManager(case["resume"]).restore(state, "last")
+            nbytes = sum(t.numel() * t.element_size() for st in state.optimizer.state.values()
+                         for k, t in st.items() if k in ("exp_avg", "exp_avg_sq"))
+            if isinstance(state.optimizer, Zero1AdamW):
+                state.optimizer.consolidate_state_dict()
             model_sd, optim_sd = whole_state(state)
             out[label] = {"params": model_sd, "moments": optim_sd["state"],
-                          "step": state.step, "epoch": epoch}
+                          "step": state.step, "epoch": epoch, "moment_bytes": nbytes}
             continue
         state, losses = make_train_step(cfg)(state, local_batch(fspec, rows))
         out[label] = tp_snapshot(cfg, state, losses)

@@ -102,8 +102,11 @@ def _popen(cmd, log: pathlib.Path, env: dict) -> subprocess.Popen:
 
 
 def spawn(spec: dict, out: pathlib.Path, world: int = 2, guard: bool = False,
-          timeout: float = SPAWN_TIMEOUT_S) -> dict:
+          timeout: float = SPAWN_TIMEOUT_S, nodes: int = 1) -> dict:
     """Run the spec's cases on ``world`` gloo ranks; {case: [rank 0's, ...]}.
+    ``nodes``: the ranks set the torchrun environment of that many nodes
+    (LOCAL_WORLD_SIZE world / nodes, a node's ranks consecutive, GROUP_RANK
+    the node), all on this machine.
     This process holds the rendezvous store on a port it bound (port 0) and
     keeps it until the ranks are done, and the ranks join it as clients
     (torchrun's agent store), so no port is picked and released before
@@ -118,10 +121,13 @@ def spawn(spec: dict, out: pathlib.Path, world: int = 2, guard: bool = False,
                                        wait_for_workers=False)
     procs = []
     try:
+        local = world // nodes
         for r in range(world):
-            env = {**os.environ, "RANK": str(r), "WORLD_SIZE": str(world), "LOCAL_RANK": str(r),
-                   "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(store.port),
-                   "TORCHELASTIC_USE_AGENT_STORE": "True", "OMP_NUM_THREADS": "1"}
+            env = {**os.environ, "RANK": str(r), "WORLD_SIZE": str(world),
+                   "LOCAL_RANK": str(r % local), "LOCAL_WORLD_SIZE": str(local),
+                   "GROUP_RANK": str(r // local), "MASTER_ADDR": "127.0.0.1",
+                   "MASTER_PORT": str(store.port), "TORCHELASTIC_USE_AGENT_STORE": "True",
+                   "OMP_NUM_THREADS": "1"}
             procs.append(_popen([sys.executable, str(WORKER), str(path)]
                                 + (["--guard"] if guard else []), out / f"rank{r}.log", env))
         failure = _wait_all(procs, time.monotonic() + timeout)
@@ -352,13 +358,18 @@ def test_meters_synchronize(step_runs):
 
 def test_zero1_matches_the_plain_ddp_step(setup, zero_runs):
     """The same gradients and, after AdamW, parameters within 1e-6; each
-    rank holds part of the moments, together all of them; every block's
-    cast cache follows the step (it was filled before it)."""
-    full = 2 * sum(p.numel() * p.element_size()
-                   for p in port_state(setup, dtype=setup[6]["zero_dtype"]).model.parameters())
+    rank holds half of every moment that splits by element
+    (parallel/sharding.py:zero1_dim) and the whole of the others, exactly;
+    every block's cast cache follows the step (it was filled before it)."""
+    from mvlt_tpu_torch.parallel.sharding import zero1_dim
+
+    params = list(port_state(setup, dtype=setup[6]["zero_dtype"]).model.parameters())
+    full = 2 * sum(p.numel() * p.element_size() for p in params)
+    whole = 2 * sum(p.numel() * p.element_size() for p in params if zero1_dim(p, 2) is None)
     shares = [r["zero1"]["moment_bytes"] for r in zero_runs]
     assert [r["plain"]["moment_bytes"] for r in zero_runs] == [full, full]
-    assert sum(shares) == full and all(0.3 * full < s < 0.7 * full for s in shares), shares
+    assert (full - whole) % 2 == 0 and full - whole > 0.9 * full
+    assert shares == [(full - whole) // 2 + whole] * 2, shares
     for r in zero_runs:
         for name, p in r["plain"]["params"].items():
             assert torch.equal(r["zero1"]["grads"][name], r["plain"]["grads"][name]), name

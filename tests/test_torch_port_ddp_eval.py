@@ -14,8 +14,9 @@ one process that scores the same halves of each batch itself. The CLI
 trains one epoch of configs/test_micro.py on two CPU ranks under torchrun
 with --zero1 (ZeRO-1, the sharded VL eval, a checkpoint), then resumes it
 for a second epoch without --zero1: only rank 0 writes the log and the
-checkpoint. A partial torchrun environment raises, and --tp-size 2 with
---zero1 and --steps-per-dispatch 2 stay refused under torchrun.
+checkpoint. A partial torchrun environment raises, and --steps-per-dispatch
+2 stays refused under torchrun, alone and with --tp-size 2 and --zero1 on
+the fused_attn_train route, which the refusal no longer names.
 """
 
 import json
@@ -171,11 +172,12 @@ def test_partial_torchrun_environment_raises(monkeypatch):
     assert not mesh.initialized()
 
 
-@pytest.mark.parametrize("flags", [["--tp-size", "2"], ["--steps-per-dispatch", "2"]])
+@pytest.mark.parametrize("flags", [["--tp-size", "2", "--steps-per-dispatch", "2"],
+                                   ["--steps-per-dispatch", "2"]])
 def test_unported_flags_raise_under_torchrun(flags, monkeypatch, tmp_path):
     """What is still refused raises before any process group starts:
-    --steps-per-dispatch above 1, and --tp-size 2 (with --zero1, which it
-    now covers) on a config it still refuses (fused_attn_train)."""
+    --steps-per-dispatch above 1, named alone, also with --tp-size 2 and
+    --zero1 on the fused_attn_train route (both covered now)."""
     for key, val in zip(mesh.ENV_KEYS, ("0", "2", "0", "127.0.0.1", "1")):
         monkeypatch.setenv(key, val)
     config = "configs/test_micro.py"
@@ -184,6 +186,8 @@ def test_unported_flags_raise_under_torchrun(flags, monkeypatch, tmp_path):
         micro["model_overrides"] = {**micro["model_overrides"], "fused_attn_train": True}
         config = str(tmp_path / "fused.json")
         pathlib.Path(config).write_text(json.dumps(micro))
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(NotImplementedError, match="not ported") as refused:
         cli.main(["--config", config, "--synthetic-data", "--device", "cpu", "--zero1"] + flags)
+    assert str(refused.value) == ("not ported to mvlt_tpu_torch yet: --steps-per-dispatch "
+                                  "above 1")
     assert not mesh.initialized()

@@ -23,8 +23,9 @@ one process.
     whole stream's rows, and the rank's input and parameter gradients
     summed over the ranks against the whole ones;
   * the whole train step of sequence parallelism with tensor-parallel
-    weights (v1, v2, linear v2 and Swin at sp 2, Swin at sp 4, and with
-    dropout, DropPath and --remat) against one process's: the consolidated
+    weights (v1 on both attention routes, the fused one in both forms, v2,
+    linear v2 and Swin at sp 2, Swin at sp 4, and with dropout, DropPath
+    and --remat) against one process's: the consolidated
     gradients within 1e-6 of each tensor's largest magnitude, the generator
     at one process's state, and the gradient bookkeeping (a shard's
     gradient whole, every other parameter of a split stage's block summed
@@ -219,6 +220,8 @@ DROP = dict(drop_rate=0.1, drop_path_rate=0.1, bert_dropout=0.1)
 # label: (registry model, overrides, model group size)
 SPTP_STEPS = {
     "v1": ("pvlt_tiny", {}, 2),
+    "v1_fused": ("pvlt_tiny", {"fused_attn_train": True}, 2),
+    "v1_fused_stats": ("pvlt_tiny", {"fused_attn_train": True, "fused_attn_stats": True}, 2),
     "v2": ("pvlt_v2_tiny", {}, 2),
     "linear": ("pvlt_v2_linear_tiny", {}, 2),
     "swin": ("pvlt_swin_tiny", {"window_size": 4}, 2),
@@ -288,7 +291,7 @@ def test_sptp_step_matches_one_process(monkeypatch, label):
         for k, v in losses.items():
             assert abs(float(got_losses[k]) - float(v)) <= PORT_TOL * max(abs(float(v)), 1e-12)
         assert torch.equal(gen, state.generator.get_state())
-    if label in ("v1", "swin"):
+    if label in ("v1", "v1_fused", "swin"):
         for wrong in (dict(sum_shards=True), dict(skip_bias=True)):
             grads = sptp_step(cfg, sd, batch, n, **wrong)[0][0]
             gaps = [float((grads[k] - w).abs().max() / w.abs().max()) for k, w in want.items()

@@ -22,10 +22,13 @@ across the ranks' ranges. The CLI trains an epoch of configs/test_micro.py
 under torchrun at --tp-size 2 (the vocabulary of 30,522 split into two odd
 halves of 15,261), its VL eval equal to one process's on the checkpoint it
 wrote, which resumes at tp = 1, and a CLS fine-tune epoch at --tp-size 2
-starts from it. Every combination tensor parallelism does
-not cover (fused_attn_train, mlm_loss_chunk <= 0) is refused with
-NotImplementedError, every one it covers passes the gate, and a gradient
-through the split vocabulary's eval decode is refused.
+starts from it. The same spawns take step 0 on the fused_attn_train route
+in both forms (#6-#8's tensor-parallel modes) and with the MLM loss
+through the logits (mlm_loss_chunk = 0), each held to JAX's single-device
+step; the world-4 spawn runs under a two-node torchrun environment
+(LOCAL_WORLD_SIZE 2), each model group inside a node. Every model option
+passes the --tp-size gate, and the gradient through the split
+vocabulary's decode equals one process's.
 """
 
 import json
@@ -41,27 +44,33 @@ from mvlt_tpu_torch.convert import state_dict_from_jax
 from mvlt_tpu_torch.models.heads import MLMHead
 from mvlt_tpu_torch.models.pvlt import create_model
 from mvlt_tpu_torch.parallel import mesh
-from mvlt_tpu_torch.parallel.tensor import refusals
+from mvlt_tpu_torch.parallel import tensor
 from mvlt_tpu_torch.train.state import create_train_state
 from mvlt_tpu_torch.train.step import make_train_step
 from mvlt_tpu_torch.utils.checkpoint import STATE_FILE, CheckpointManager
+from tests._thread_ranks import ThreadGroup, patched, run_ranks
 from tests.test_torch_port_ddp import GLOBAL_B, setup, spawn, torchrun  # noqa: F401
 from tests.test_torch_port_train import IMG, LOSS_KEYS, one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=2e-4, atol=2e-5)
 CLIP = 0.05
 STEPS = (("step0", 0, 0.0), ("step1", 1, 0.0), ("clip", 0, CLIP))
+# step 0 on the other routes: config overrides
+ROUTES = {"fused": {"fused_attn_train": True},
+          "fused_stats": {"fused_attn_train": True, "fused_attn_stats": True},
+          "mlm_logits": {"mlm_loss_chunk": 0}}
 
 
 @pytest.fixture(scope="module")
 def tp_runs(setup):
     """{world: {case: every rank's results}} of the ``tp`` case at world 2
-    (tp 2) and world 4 (dp 2 x tp 2), and of the decode case at tp 2."""
+    (tp 2) and world 4 (dp 2 x tp 2, two simulated nodes of two ranks), and
+    of the decode case at tp 2."""
     root, runs = setup[7], {}
     for world in (2, 4):
         spec = {**setup[6], "tp": 2, "clip": CLIP, "ckpt_dir": str(root / f"tp{world}_run"),
-                "cases": ["tp", "tp_decode"] if world == 2 else ["tp"]}
-        runs[world] = spawn(spec, root / f"tp{world}", world=world)
+                "routes": ROUTES, "cases": ["tp", "tp_decode"] if world == 2 else ["tp"]}
+        runs[world] = spawn(spec, root / f"tp{world}", world=world, nodes=world // 2)
     return runs
 
 
@@ -97,14 +106,18 @@ def jax_steps(setup):
     return out
 
 
-def port_step(setup, step: int, clip: float) -> dict:
-    """The port's one-process step from the same weights on the global batch."""
-    model = create_model(setup[4], device="cpu", input_size=IMG)
+def port_step(setup, step: int, clip: float, **overrides) -> dict:
+    """The port's one-process step from the same weights on the global batch
+    (``overrides`` on its config)."""
+    import dataclasses
+
+    cfg = dataclasses.replace(setup[4], **overrides)
+    model = create_model(cfg, device="cpu", input_size=IMG)
     model.load_state_dict(torch.load(setup[7] / "weights.pt", weights_only=True), strict=True)
     state = create_train_state(model, config.OptimConfig(warmup_epochs=0, clip_grad=clip),
                                GLOBAL_B, 10)
     state.step = step
-    state, losses = make_train_step(setup[4])(state, setup[5])
+    state, losses = make_train_step(cfg)(state, setup[5])
     return {n: p.detach().clone() for n, p in model.named_parameters()}
 
 
@@ -120,7 +133,16 @@ def test_tp_step_matches_jax_single_device(setup, tp_runs, jax_steps, world, nam
     layouts = [r["layout"] for r in tp_runs[world]["tp"]]
     assert [(x["data_rank"], x["model_rank"]) for x in layouts] == [
         (r // 2, r % 2) for r in range(world)]
-    want_g, want_l, want_bn = jax_steps[name]
+    # a model group's ranks on one node; at world 4 the data groups span two
+    assert [x["node"] for x in layouts] == [x["data_rank"] for x in layouts]
+    assert {x["ranks_per_node"] for x in layouts} == {2}
+    check_against_jax(setup, runs, jax_steps[name], step, clip)
+
+
+def check_against_jax(setup, runs, jax_step, step: int, clip: float, **overrides) -> None:
+    """Every rank's consolidated step against JAX's single-device step and
+    the parameters against the port's one-process step, at TOL."""
+    want_g, want_l, want_bn = jax_step
     data_ranks = runs[::2]             # one rank of each model group
     for k in LOSS_KEYS:
         got = float(np.mean([r["losses"][k] for r in data_ranks]))
@@ -130,9 +152,28 @@ def test_tp_step_matches_jax_single_device(setup, tp_runs, jax_steps, world, nam
         np.testing.assert_allclose(runs[0]["grads"][n].numpy(), w.numpy(), err_msg=n, **TOL)
     for n, w in want_bn.items():
         np.testing.assert_allclose(runs[0]["buffers"][n].numpy(), w.numpy(), err_msg=n, **TOL)
-    one = port_step(setup, step, clip)
+    one = port_step(setup, step, clip, **overrides)
     for n, p in one.items():
         np.testing.assert_allclose(runs[0]["params"][n].numpy(), p.numpy(), err_msg=n, **TOL)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("route", sorted(ROUTES))
+def test_tp_route_step_matches_jax_single_device(setup, tp_runs, jax_steps, world, route,
+                                                 one_torch_thread):
+    """Step 0 of the split model on the fused_attn_train route (both forms:
+    #6-#8's tensor-parallel modes where the heads split) and through the
+    MLM logits (the vocabulary-parallel cross entropy) against JAX's
+    single-device step 0, which computes the same function: the losses,
+    every consolidated gradient and BatchNorm statistic at TOL, the
+    parameters after AdamW against the port's one-process step on the same
+    route; every rank the same tensors."""
+    runs = [r[route] for r in tp_runs[world]["tp"]]
+    for r in runs[1:]:
+        for key in ("grads", "params", "buffers"):
+            for n, t in runs[0][key].items():
+                assert torch.equal(t, r[key][n]), (key, n)
+    check_against_jax(setup, runs, jax_steps["step0"], 0, 0.0, **ROUTES[route])
 
 
 def test_tp_checkpoint_resumes_at_tp1(setup, tp_runs, one_torch_thread):
@@ -215,17 +256,16 @@ REFUSED = [("--model", "pvlt_v2_tiny"), ("--model", "pvlt_v2_linear_tiny"),
            ("--model", "pvlt_swin_tiny"), ("--remat",), ("--zero1",), ("fused_attn_train",),
            ("drop_rate",), ("attn_drop_rate",), ("mlm_loss_chunk",)]
 OVERRIDES = {"fused_attn_train": True, "mlm_loss_chunk": 0}
-# what tensor parallelism still refuses; the other combinations it covers
-STILL_REFUSED = ("fused_attn_train", "mlm_loss_chunk")
 
 
 @pytest.mark.parametrize("combo", REFUSED, ids=lambda c: c[-1].lstrip("-"))
 def test_tp_refusals(combo, tmp_path, monkeypatch):
-    """Under torchrun, --tp-size 2 with each combination still not covered
-    (fused_attn_train, mlm_loss_chunk <= 0) raises NotImplementedError
-    naming it, before any process group starts; each combination covered
-    since (the v2, linear-SR v2 and Swin backbones, --remat, --zero1,
-    dropout) passes the gate, which names nothing."""
+    """Under torchrun, --tp-size 2 with each combination once refused (the
+    v2, linear-SR v2 and Swin backbones, --remat, --zero1, dropout, and
+    since the tensor-parallel modes of #6-#8 and the vocabulary-parallel
+    cross entropy, fused_attn_train and mlm_loss_chunk <= 0) passes the
+    gate, which refuses nothing, before any process group starts; the
+    refusal list is gone from parallel/tensor.py."""
     for key, val in zip(mesh.ENV_KEYS, ("0", "2", "0", "127.0.0.1", "1")):
         monkeypatch.setenv(key, val)
     flags = [c for c in combo if c.startswith("-") or c.startswith("pvlt")]
@@ -237,24 +277,54 @@ def test_tp_refusals(combo, tmp_path, monkeypatch):
             combo[0]: OVERRIDES.get(combo[0], 0.1)}}))
         argv[1] = str(path)
     args = cli.get_args_parser().parse_args(argv)
-    if combo[0] in STILL_REFUSED:
-        with pytest.raises(NotImplementedError, match="--tp-size 2 with"):
-            cli.main(argv)
-    else:
-        cli._refuse_unported(args, cli.build_run_config(args))
+    cfg = cli.build_run_config(args)
+    cli._refuse_unported(args, cfg)
+    assert cfg.tp_size == 2
     assert not mesh.initialized()
-    names = refusals(config.ModelConfig(variant="v2", remat=True, drop_rate=0.1))
-    assert names == []
-    names = refusals(config.ModelConfig(fused_attn_train=True, mlm_loss_chunk=0))
-    assert len(names) == 2
+    assert not hasattr(tensor, "refusals")
 
 
-def test_split_decode_refuses_a_gradient():
-    """The MLM head's decode through the logits on a split vocabulary is an
-    eval decode: where a gradient is wanted it raises NotImplementedError
-    (the hidden rows' gradient would hold this rank's vocabulary alone)
-    before any collective."""
-    head = MLMHead(vocab_size=8, hidden_size=16)
-    x, table = torch.randn(2, 3, 16), torch.randn(8, 16)
-    with pytest.raises(NotImplementedError, match="mlm_loss_chunk > 0"):
-        head(x, table, vocab_group=object())
+def test_split_decode_refuses_a_gradient(monkeypatch):
+    """The MLM head's decode through the logits on a split vocabulary, once
+    refused where a gradient is wanted, now trains: its input enters
+    through copy_to_model and the loss is the vocabulary-parallel cross
+    entropy. On two thread ranks (tests/_thread_ranks.py) the loss, the
+    hidden rows' gradient, the transform's and each rank's table rows' and
+    bias's gradients equal one process's F.cross_entropy(ignore_index=-1)
+    of the whole logits, in fp64."""
+    patched(monkeypatch)
+    torch.manual_seed(4)
+    head = MLMHead(vocab_size=8, hidden_size=16).double()
+    with torch.no_grad():
+        head.bias.normal_()
+    x, table = torch.randn(2, 3, 16, dtype=torch.float64), torch.randn(8, 16, dtype=torch.float64)
+    labels = torch.tensor([[1, -1, 6], [7, 0, -1]])
+    xw, tw = x.clone().requires_grad_(), table.clone().requires_grad_()
+    logits = head(xw, tw)
+    loss = torch.nn.functional.cross_entropy(logits.reshape(-1, 8), labels.reshape(-1),
+                                             ignore_index=-1)
+    loss.backward()
+    want = {"x": xw.grad, "table": tw.grad, **{n: p.grad.clone() for n, p in
+                                              head.named_parameters()}}
+    group = ThreadGroup(2)
+
+    def rank(r):
+        mine = MLMHead(vocab_size=4, hidden_size=16).double()
+        sd = {n: (t[4 * r:4 * (r + 1)] if n == "bias" else t) for n, t in head.state_dict().items()}
+        mine.load_state_dict(sd)
+        xr, tr = x.clone().requires_grad_(), table[4 * r:4 * (r + 1)].clone().requires_grad_()
+        shard = mine(xr, tr, vocab_group=group)
+        loss_r = tensor.vocab_parallel_cross_entropy(shard.local, labels, shard.start, group)
+        loss_r.backward()
+        return loss_r.detach(), xr.grad, tr.grad, {n: p.grad for n, p in mine.named_parameters()}
+
+    res = run_ranks(group, rank)
+    tol = dict(rtol=1e-12, atol=1e-12)
+    for r, (loss_r, dx, dtable, grads) in enumerate(res):
+        torch.testing.assert_close(loss_r, loss.detach(), **tol)
+        torch.testing.assert_close(dx, want["x"], **tol)
+        torch.testing.assert_close(dtable, want["table"][4 * r:4 * (r + 1)], **tol)
+        torch.testing.assert_close(grads["bias"], want["bias"][4 * r:4 * (r + 1)], **tol)
+        for n, g in grads.items():
+            if n != "bias":
+                torch.testing.assert_close(g, want[n], **tol, msg=n)

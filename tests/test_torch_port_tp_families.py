@@ -128,8 +128,12 @@ def runs(families):
     JAX's steps are taken in a thread meanwhile."""
     root = families[0]
     zero_dir = str(root / "zero1_run")
+    one_dir = str(root / "one_run")
+    _, state, _ = one_process(families[1]["v2"])
+    CheckpointManager(one_dir).save_epoch(state, 0, 3)     # world 1, plain AdamW
     spec4 = {**base_spec(families), "fp64_cases": {
-        "zero1_v2": {"family": "v2", "overrides": {}, "zero1": True, "save": zero_dir}}}
+        "zero1_v2": {"family": "v2", "overrides": {}, "zero1": True, "save": zero_dir},
+        "resume_zero1": {"family": "v2", "overrides": {}, "zero1": True, "resume": one_dir}}}
     spec2 = {**base_spec(families), "fp64_cases": {
         **{k: {"family": f, "overrides": o} for k, (f, o) in FP64_CASES.items()},
         "resume_tp2": {"family": "v2", "overrides": {}, "resume": zero_dir}}}
@@ -266,6 +270,37 @@ def test_zero1_under_tp_then_resume(families, runs):
         for i, st in saved["optimizer"]["state"].items():
             for k in ("exp_avg", "exp_avg_sq"):
                 assert torch.equal(res["moments"][i][k], st[k]), (i, k)
+
+
+def test_world1_checkpoint_resumes_under_zero1(families, runs):
+    """A checkpoint of one process's plain AdamW step restores at dp 2 x tp 2
+    under ZeRO-1 by element: each rank keeps its slice of every moment of
+    its shard that splits (sharded / 2 + whole bytes, exactly), and the
+    moments gathered whole again (over the data group, then the model
+    group) and the parameters equal the checkpoint's."""
+    from mvlt_tpu_torch.parallel.sharding import zero1_dim
+    from mvlt_tpu_torch.parallel.tensor import shard_tensor, split_of
+
+    saved = torch.load(families[0] / "one_run" / "checkpoint" / "last" / STATE_FILE,
+                       weights_only=True)
+    model, _, _ = one_process(families[1]["v2"])
+    for rank, r in enumerate(runs[0][4]):
+        res = r["resume_zero1"]
+        assert (res["step"], res["epoch"]) == (1, 1)
+        for n, t in saved["model"].items():
+            assert torch.equal(res["params"][n], t), n
+        assert sorted(res["moments"]) == sorted(saved["optimizer"]["state"])
+        for i, st in saved["optimizer"]["state"].items():
+            for k in ("exp_avg", "exp_avg_sq"):
+                assert torch.equal(res["moments"][i][k], st[k]), (i, k)
+        want = 0
+        for n, p in model.named_parameters():
+            kind = split_of(n, model.cfg, 2)
+            shard = torch.nn.Parameter(shard_tensor(p.detach(), kind, rank % 2, 2))
+            shard.tp_split = kind
+            nbytes = 2 * shard.numel() * shard.element_size()
+            want += nbytes // 2 if zero1_dim(shard, 2) is not None else nbytes
+        assert res["moment_bytes"] == want
 
 
 def test_cli_tp2_v2_zero1_remat_dropout(tmp_path):
