@@ -6,13 +6,14 @@ chip_smoke.py's kernel checks catch each one.
 
 run from the root of a checkout on a machine with a CUDA card and nvcc, as
 chip_smoke.py is; with fault names, only those. For each fault it copies
-``mvlt_tpu_torch/``, ``preweights/`` and ``chip_smoke.py`` into
+``mvlt_tpu_torch/``, ``preweights/``, ``configs/`` and ``chip_smoke.py`` into
 ``build/planted_faults/<fault>/``, rewrites one line of a kernel source (or
 of the model's glue) there, runs the chip_smoke phase that checks it
 (``kernels``, ``v2_kernels``, ``swin_kernels``, ``fba_train_kernels``,
 ``train_kernels``, ``mlm_kernels``, ``train_glue``, ``v2_route``,
 ``remat``, ``ddp_two_ranks``, ``tp_kernels``, ``tp_two_ranks``,
-``tp_families``, ``sp_two_ranks``, ``sp_swin`` or ``sp_tp``; on a machine with four cards ``nccl_tp_step`` or
+``tp_families``, ``sp_two_ranks``, ``sp_swin``, ``sp_tp``, ``scan_steps`` or
+``cli_eval``; on a machine with four cards ``nccl_tp_step`` or
 ``nccl_tp_zero1``) in that copy (its kernels built from the
 changed source), and then, with the bound lifted, prints every check's
 error at the B = 4 shapes. The copy is removed afterwards; the sources of the checkout are
@@ -205,6 +206,14 @@ with the weights split, alone):
   sptp_band_bias_unsummed  the out-projection's and fc2's biases, added on
                        the band after the reduce-scatter, left out of the
                        sum (each rank keeps its band's part).
+Multi-step dispatch (train/step.py), phase scan_steps (two dispatched steps
+against two single ones, in bits):
+  scan_same_substep    every sub-step of a call takes the stacked batch's
+                       first batch, batch[0], instead of batch[i].
+The native host library (data/fashion_gen.py), phase cli_eval (the train
+reader's images against the native crop-resize):
+  native_crop_pil      the train reader ignores use_native_image_ops and
+                       crops and resizes with Pillow.
 Across four cards over NCCL (utils/checkpoint.py, parallel/mesh.py), on a
 machine with four cards:
   zero1_moments_model_rank0  saving consolidates ZeRO-1's moments over the
@@ -502,6 +511,14 @@ FAULTS = {
         "nccl_tp_step", "mvlt_tpu_torch/parallel/mesh.py",
         "            layout[\"data_group\"] = g",
         "            layout[\"data_group\"] = layout[\"model_group\"]"),
+    "scan_same_substep": (
+        "scan_steps", "mvlt_tpu_torch/train/step.py",
+        "one_step(state, {k: v[i] for k, v in batch.items()})",
+        "one_step(state, {k: v[0] for k, v in batch.items()})"),
+    "native_crop_pil": (
+        "cli_eval", "mvlt_tpu_torch/data/fashion_gen.py",
+        'if self.split == "train" and cfg.use_native_image_ops:',
+        "if False:"),
 }
 # per phase: the checks at B = 4 that print each error with the bound lifted
 MARGINS = {
@@ -532,6 +549,12 @@ pass
 pass
 """,
     "nccl_tp_zero1": """
+pass
+""",
+    "scan_steps": """
+pass
+""",
+    "cli_eval": """
 pass
 """,
     "kernels": """
@@ -601,6 +624,7 @@ def run_fault(name: str, phase: str, source: str, good: str, bad: str) -> bool:
     shutil.copytree(ROOT / "mvlt_tpu_torch", dst / "mvlt_tpu_torch",
                     ignore=shutil.ignore_patterns("__pycache__"))
     shutil.copytree(ROOT / "preweights", dst / "preweights")
+    shutil.copytree(ROOT / "configs", dst / "configs")
     shutil.copy(ROOT / "chip_smoke.py", dst)
     path = dst / source
     text = path.read_text()

@@ -19,7 +19,8 @@ JSON line each; a failed phase raises and the script exits non-zero:
 
   1. device: card name and power limit (nvidia-smi), torch/CUDA/nvcc versions;
      TF32 off (matmul and cuDNN) for the fp32 comparisons;
-  2. build: nvcc compiles mvlt_tpu_torch/csrc/*.cu for sm_90a; ptxas's
+  2. build: g++ builds the native host library (data/native.py) and
+     nvcc compiles mvlt_tpu_torch/csrc/*.cu for sm_90a; ptxas's
      registers and spills per kernel, and the HGMMA instructions in the SASS
      of each wgmma kernel (WGMMA_KERNELS: the training attention kernels,
      the MLM CE kernels, the LN-MLP forward's and backward's product
@@ -133,6 +134,12 @@ JSON line each; a failed phase raises and the script exits non-zero:
      samples against the CPU comes after phase 10b);
  10. training throughput at B = 150: ms/step and samples/s, peak memory,
      and a torch.profiler breakdown;
+ 10a. scan_steps: make_train_step(scan_steps=2) (pvlt_tiny,
+     configs/pretrain_exp21.py's model with DropPath and BERT dropout at
+     0.1, B = 150, one seeded state made twice) against two single steps
+     from step 0 and from step 3: losses, parameters, BatchNorm statistics,
+     AdamW moments, step and generator equal in bits, #10-#15 launched
+     exactly twice a single step's count; ms per step of both by events;
  10b. the fused_attn_train route (kernels #6/#7 forward, #8 backward):
      fba_train_kernels holds the fused attention half's forward (out), its
      statistics form (out; LN mean and 1/std, each head's row max and
@@ -196,8 +203,11 @@ JSON line each; a failed phase raises and the script exits non-zero:
      fine-tune epoch (configs/finetune_exp48.py) from that checkpoint, in
      build/chip_smoke_cli (removed after): logs, checkpoints, finite losses
      and eval statistics, every kernel launched, the MLM CE kernels once per
-     pre-training step; then one more epoch, apart from those three timed
-     runs, under ``--profile-dir``, whose trace names the training kernels;
+     pre-training step; one epoch at --batch-size 96 (two steps) at
+     ``--steps-per-dispatch`` 1 and 2, each step's losses equal in bits and
+     the log lines equal but for time and LR; then one more epoch, apart
+     from those timed runs, under ``--profile-dir``, whose trace names the
+     training kernels;
  12. the downstream command lines (cli_eval) on a small Fashion-Gen tree
      written under build/ and a .pth of seeded weights:
      ``--eval-retrieval-itr`` and ``-tir``, each with and without
@@ -205,7 +215,10 @@ JSON line each; a failed phase raises and the script exits non-zero:
      metrics of the same reader and scorer run directly (kernels A and B
      launched, no training kernel), the recognition artifact, ``--viz``,
      and one pre-training epoch on the tree's reader (the readers decode
-     with Pillow; the phase fails where it is not installed);
+     with Pillow; the phase fails where it is not installed); the train
+     reader through the native host library (the C++ tokenizer, every image
+     equal to native_crop_resize and not to PIL's) and its items/s with
+     use_native_image_ops on and off;
  13. data parallelism at world 1 (ddp_world1): phase 11's first run (2
      pre-training epochs of configs/pretrain_exp21.py, synthetic, B = 150,
      the VL eval on the sharded path) under ``python -m
@@ -219,7 +232,9 @@ JSON line each; a failed phase raises and the script exits non-zero:
      DDP_TOL or the step's own noise under a reordering of its rows and,
      formed in bf16, the ranks' bf16 roundings), ZeRO-1's AdamW on the same
      gradients (within ZERO_TOL,
-     the moments split), retrieval over 3 bundles and recognition over 10
+     the moments split), one call of two steps (scan_steps=2) equal in bits
+     to two single DDP steps on each rank and within the same bounds of one
+     process's call, retrieval over 3 bundles and recognition over 10
      items sharded over the ranks with the one-process metrics, the
      two-rank step's ms (gloo through host copies) beside the one-process
      step's;
@@ -641,8 +656,15 @@ def phase_build() -> None:
     ok = (all(any(k in name for name in hgmma) for k in WGMMA_KERNELS)
           and all(any(k in name and tag in name for name in hgmma) for k, tag in WGMMA_ROUTES)
           and all(n > 0 for n in hgmma.values()))
+    from mvlt_tpu_torch.data import native
+
+    start = time.perf_counter()   # the host library the readers and tokenizer use
+    native_path = native.build()
+    native.load_library()
     emit("build", library=str(path.relative_to(path.parents[2])),
-         seconds=round(seconds, 2), ptxas=ptxas, hgmma=hgmma, ok=ok)
+         seconds=round(seconds, 2), ptxas=ptxas, hgmma=hgmma,
+         native_library=str(native_path.relative_to(REPO)),
+         native_seconds=round(time.perf_counter() - start, 2), ok=ok)
     if not ok:
         raise AssertionError(f"a wgmma kernel has no HGMMA in its SASS: {hgmma}")
 
@@ -2330,6 +2352,114 @@ def phase_train_throughput(state, cfg, prefix: str = "", groups: dict = TRAIN_GR
                    prefix + "train_profile")
 
 
+# ---- multi-step dispatch (make_train_step(scan_steps=k)) -----------------
+
+SCAN_K = 2
+# the training kernels of a step on the default route: a dispatch of k
+# steps launches each exactly k times a single step's count
+SCAN_WRAPPERS = (*TRAINING_WRAPPERS, *MLM_WRAPPERS)
+
+
+def state_gaps(a, b) -> dict:
+    """The largest |a - b| of two train states' parameters, buffers (the
+    BatchNorm statistics) and AdamW moments, and whether their steps and
+    generators agree; every number 0.0 where the states are equal in bits."""
+    def gap(x, y):
+        return float((x.double() - y.double()).abs().max()) if x.numel() else 0.0
+
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    params = {n for n, _ in a.model.named_parameters()}
+    oa, ob = a.optimizer.state_dict()["state"], b.optimizer.state_dict()["state"]
+    return {
+        "params": max(gap(sa[n], sb[n]) for n in sa if n in params),
+        "buffers": max(gap(sa[n], sb[n]) for n in sa if n not in params),
+        "moments": max(gap(oa[i][k], ob[i][k]) for i in oa for k in oa[i]
+                       if torch.is_tensor(oa[i][k])),
+        "equal": (all(torch.equal(sa[n], sb[n]) for n in sa) and sorted(oa) == sorted(ob)
+                  and all(torch.equal(torch.as_tensor(oa[i][k]), torch.as_tensor(ob[i][k]))
+                          for i in oa for k in oa[i])
+                  and a.step == b.step
+                  and torch.equal(a.generator.get_state(), b.generator.get_state())),
+    }
+
+
+def phase_scan_steps(stats: dict) -> None:
+    """make_train_step(scan_steps=2) on the card: pvlt_tiny with
+    configs/pretrain_exp21.py's model (bf16, DropPath 0.1, BERT dropout 0.1,
+    the MLM CE kernels) at B = 150, one seeded state made twice. From step 0
+    one takes two single steps on batches b0 and b1 and the other one call
+    on them stacked [2, 150, ...]; both then take a single step on b0, and
+    from step 3 (odd: masked images first) two single steps on b1, b0
+    against one call. After each pair the stacked losses, every parameter,
+    every buffer (the BatchNorm statistics), every AdamW moment, the step
+    and the generator's state are equal in bits (the largest gaps printed;
+    the step is bit-reproducible since F14); the call launches each
+    training kernel (#10-#15) exactly twice a single step's count and no
+    other kernel. Then ms per step of both by CUDA events around two
+    single steps and around one call (a measurement, no claim)."""
+    from mvlt_tpu_torch.config import load_config_file
+
+    cfg = load_config_file(str(REPO / "configs" / "pretrain_exp21.py")).model
+    b0, b1 = (batch_to_device(train_batch(SEED + i, TRAIN_BATCH), "cuda") for i in (3, 4))
+
+    def fresh():
+        model = create_model(cfg)
+        model.load_state_dict(seeded_state_dict(model, SEED), strict=True)
+        return create_train_state(model, OptimConfig(warmup_epochs=0), TRAIN_BATCH,
+                                  TRAIN_STEPS, seed=SEED)
+
+    single, scan = make_train_step(cfg), make_train_step(cfg, scan_steps=SCAN_K)
+    singles, dispatched = fresh(), fresh()
+    pairs, launches = {}, {}
+    for label, (x, y) in (("even", (b0, b1)), ("odd", (b1, b0))):
+        start = singles.step
+        reset_launches()
+        singles, l0 = single(singles, x)
+        torch.cuda.synchronize()
+        one = read_launches()
+        singles, l1 = single(singles, y)
+        reset_launches()
+        dispatched, losses = scan(dispatched, {k: torch.stack([x[k], y[k]]) for k in x})
+        torch.cuda.synchronize()
+        launches[label] = read_launches()
+        want = {k: torch.stack([l0[k], l1[k]]) for k in l0}
+        gaps = state_gaps(singles, dispatched)
+        pairs[label] = {
+            "start_step": start, "losses": {k: v.tolist() for k, v in losses.items()},
+            "loss_gap": max(float((losses[k].double() - want[k].double()).abs().max())
+                            for k in want),
+            "losses_equal": sorted(losses) == sorted(want)
+            and all(torch.equal(losses[k], want[k]) for k in want),
+            **gaps,
+            "launches_twice_single": all(one[n] > 0 and launches[label][n] == SCAN_K * one[n]
+                                         for n in SCAN_WRAPPERS)
+            and not any(launches[label][n] for n in WRAPPERS if n not in SCAN_WRAPPERS),
+            "single_step_launches": {n: one[n] for n in SCAN_WRAPPERS}}
+        if label == "even":   # both to an odd step
+            singles, _ = single(singles, x)
+            dispatched, _ = single(dispatched, x)
+    stacked = {k: torch.stack([b0[k], b1[k]]) for k in b0}
+    times = {"single": [], "scan": []}
+    for form in ("single", "scan", "scan", "single"):
+        run = ((lambda: (single(singles, b0), single(singles, b1))) if form == "single"
+               else (lambda: scan(dispatched, stacked)))
+        times[form].append(cuda_time_ms(run, warmup=1, reps=3) / SCAN_K)
+    ok = all(p["losses_equal"] and p["equal"] and p["launches_twice_single"]
+             and p["start_step"] % 2 == (label == "odd") for label, p in pairs.items())
+    emit("scan_steps", model=cfg.name, config="configs/pretrain_exp21.py", batch=TRAIN_BATCH,
+         k=SCAN_K, drop_path_rate=cfg.drop_path_rate, bert_dropout=cfg.bert_dropout,
+         pairs=pairs, launches=launches, ms_per_step_single=times["single"],
+         ms_per_step_scan=times["scan"],
+         ms_method="CUDA events around two single steps and around one call of two steps, "
+                   "1 warm-up, median of 3, turns single, scan, scan, single; per step",
+         nvidia_smi=nvidia_smi_line(), ok=ok)
+    if not ok:
+        raise AssertionError(f"scan_steps={SCAN_K} differs from {SCAN_K} single steps: "
+                             f"{pairs}")
+    del singles, dispatched, b0, b1, stacked
+    torch.cuda.empty_cache()
+
+
 # ---- the fused_attn_train route ------------------------------------------
 
 FBA_GRADS = ("dx", "dk", "dv", "dgamma", "dbeta", "dWq", "dbq", "dWp", "dbp")
@@ -2708,6 +2838,58 @@ TRACE_KERNELS = {"attention_fwd": ("attn_fwd_hopper_kernel",),
 CLI_PRETRAIN_LAUNCHES: dict = {}
 
 
+CLI_DISPATCH_BATCH = 96   # two steps an epoch over the synthetic set's 192 draws
+
+
+def cli_dispatch_pair(out: pathlib.Path) -> dict:
+    """One pre-training epoch of configs/pretrain_exp21.py on synthetic data
+    at --batch-size 96 (two steps) through ``cli.main`` at
+    --steps-per-dispatch 1 and 2, each step's losses recorded from the
+    step the CLI builds: at k = 2 one call returns both steps' rows, equal
+    in bits to the k = 1 run's, and the epochs' train_log.jsonl lines equal
+    but for the time and the LR (logged once a call, with its last
+    step's); the launches of the two runs equal."""
+    from mvlt_tpu_torch.train import step as step_module
+
+    build = step_module.make_train_step
+    runs = {}
+    for k in (1, 2):
+        rows = []
+
+        def recording(*args, **kwargs):
+            fn = build(*args, **kwargs)
+
+            def run(state, batch):
+                state, losses = fn(state, batch)
+                rows.append(losses)
+                return state, losses
+            return run
+
+        run_dir = out / f"dispatch{k}"
+        reset_launches()
+        start = time.perf_counter()
+        with mock.patch.object(step_module, "make_train_step", recording):
+            cli.main(["--config", str(REPO / "configs" / "pretrain_exp21.py"),
+                      "--synthetic-data", "--batch-size", str(CLI_DISPATCH_BATCH),
+                      "--epochs", "1", "--steps-per-dispatch", str(k),
+                      "--output-dir", str(run_dir)])
+        torch.cuda.synchronize()
+        per_step = [{name: v.reshape(-1)[i].item() for name, v in losses.items()}
+                    for losses in rows for i in range(k)]
+        (line,) = _train_log(run_dir)
+        runs[k] = {"calls": len(rows), "losses": per_step, "line": line,
+                   "launches": read_launches(), "seconds": time.perf_counter() - start}
+    drop = ("time", "lr")
+    one, two = runs[1], runs[2]
+    ok = (one["calls"] == 2 and two["calls"] == 1 and len(two["losses"]) == 2
+          and two["losses"] == one["losses"]
+          and {k: v for k, v in two["line"].items() if k not in drop}
+          == {k: v for k, v in one["line"].items() if k not in drop}
+          and two["launches"] == one["launches"]
+          and all(one["launches"][n] for n in SCAN_WRAPPERS))
+    return {"batch": CLI_DISPATCH_BATCH, "k1": one, "k2": two, "ok": ok}
+
+
 def phase_cli(stats: dict) -> None:
     """The pre-training entry point on the card, as a user runs it:
     ``mvlt_tpu_torch.cli.main`` with configs/pretrain_exp21.py on synthetic
@@ -2740,6 +2922,7 @@ def phase_cli(stats: dict) -> None:
             by_run[label] = read_launches()
         launches = {k: sum(run[k] for run in by_run.values()) for k in WRAPPERS}
         CLI_PRETRAIN_LAUNCHES.update(by_run["pretrain"])
+        dispatch = cli_dispatch_pair(out)
         start = time.perf_counter()
         cli.main(["--config", str(REPO / "configs" / "pretrain_exp21.py"), "--synthetic-data",
                   "--output-dir", str(out / "profiled"), "--epochs", "1",
@@ -2769,8 +2952,9 @@ def phase_cli(stats: dict) -> None:
                   (*SERVING_WRAPPERS, *TRAINING_WRAPPERS, *MLM_WRAPPERS))
           and not any(launches[name] for name in V2_SERVING_WRAPPERS if name != "sr_kv")
           and not any(launches[name] for name in FBA_WRAPPERS)
-          and len(traces) == 1 and all(traced.values()))
+          and len(traces) == 1 and all(traced.values()) and dispatch["ok"])
     emit("cli", config="configs/pretrain_exp21.py", batch=TRAIN_BATCH, epochs_run=[0, 1, 2],
+         steps_per_dispatch=dispatch,
          profile_traces=len(traces), profile_kernels=traced,
          profiled_epoch_seconds=profiled_seconds,
          resumed_at_epoch=2, pretrain_steps=steps, finetune_steps=1, seconds=seconds,
@@ -2837,7 +3021,53 @@ def direct_eval(argv: list, tree: str, sd: dict) -> dict:
         FashionGenRetrieval(tree, cfg.data, direction), 1), is_main=False)
 
 
-def phase_cli_eval() -> None:
+READER_ITEMS = 64   # the tree's train split
+
+
+def native_reader_check(tree: pathlib.Path) -> dict:
+    """The train reader of the tree at 256 (DataConfig's defaults,
+    use_native_image_ops on) reads through the native host library: its
+    tokenizer is the C++ one, and every item's image equals
+    native_crop_resize of the decoded file, not PIL's crop-resize (within
+    1.5/255 of it). Then the reader's items/s over the split with the key
+    on and off, in turns (on, off, off, on), one host thread: a measurement
+    of the host, no claim."""
+    from mvlt_tpu_torch.data import native
+    from mvlt_tpu_torch.data.fashion_gen import FashionGenPretrain
+    from mvlt_tpu_torch.data.image_ops import decode_rgb, load_image
+
+    cfg = DataConfig()
+    reader = FashionGenPretrain(str(tree), "train", cfg, seed=SEED)
+    equal_native = differs_pil = 0
+    pil_gap = 0.0
+    for i in range(len(reader)):
+        image = reader[i]["images"]
+        equal_native += np.array_equal(image, native.native_crop_resize(
+            decode_rgb(reader.images[i]), cfg.input_size))
+        plain = load_image(reader.images[i], cfg.input_size)
+        differs_pil += not np.array_equal(image, plain)
+        pil_gap = max(pil_gap, float(np.abs(image - plain).max()))
+    rates = {"on": [], "off": []}
+    for key in ("on", "off", "off", "on"):
+        timed_reader = FashionGenPretrain(str(tree), "train", dataclasses.replace(
+            cfg, use_native_image_ops=key == "on"), seed=SEED)
+        start = time.perf_counter()
+        for i in range(len(timed_reader)):
+            timed_reader[i]
+        rates[key].append(len(timed_reader) / (time.perf_counter() - start))
+    ok = (isinstance(reader.tokenizer, native.NativeTokenizer) and len(reader) == READER_ITEMS
+          and equal_native == differs_pil == READER_ITEMS and pil_gap < 1.5 / 255)
+    return {"library": str(native.library_path().relative_to(REPO)),
+            "tokenizer": type(reader.tokenizer).__name__, "items": len(reader),
+            "images_equal_native": equal_native, "images_differ_from_pil": differs_pil,
+            "max_gap_to_pil": pil_gap, "items_per_s_native_on": rates["on"],
+            "items_per_s_native_off": rates["off"], "input_size": cfg.input_size,
+            "rate_method": "one host thread, __getitem__ over the 64 train items of the tree "
+                           "(40x44 PNGs), turns on, off, off, on",
+            "nvidia_smi": nvidia_smi_line(), "ok": ok}
+
+
+def phase_cli_eval(stats: dict | None = None) -> None:
     """The downstream entry points on the card, as a user runs them, on a
     small Fashion-Gen tree under build/ and a reference-style .pth of seeded
     weights (every head): ``--eval-retrieval-itr`` and ``-tir`` with and
@@ -2884,6 +3114,7 @@ def phase_cli_eval() -> None:
         torch.cuda.synchronize()
         train_launches = read_launches()
         (train_line,) = _train_log(out / "pretrain")
+        native_reader = native_reader_check(tree)
     finally:
         shutil.rmtree(out, ignore_errors=True)
     files = ["masked.png", "original.png", "predictions.txt", "reconstruction.png"]
@@ -2893,14 +3124,18 @@ def phase_cli_eval() -> None:
           and not any(launches[name] for name in WRAPPERS if name not in SERVING_WRAPPERS)
           and viz == [files] * 4
           and np.isfinite(train_line["total_loss"]) and "eval_quality_score" in train_line
-          and all(train_launches[name] for name in (*TRAINING_WRAPPERS, *MLM_WRAPPERS)))
-    emit("cli_eval", pillow=PIL.__version__, results=got, direct_results_equal={
+          and all(train_launches[name] for name in (*TRAINING_WRAPPERS, *MLM_WRAPPERS))
+          and native_reader["ok"])
+    emit("cli_eval", pillow=PIL.__version__, native_reader=native_reader,
+         results=got, direct_results_equal={
         m: got[m] == want[m] for m in modes}, recognition_predictions=predictions,
         launches=launches, viz_samples=viz, pretrain_on_reader=train_line,
         pretrain_launches=train_launches, ok=ok)
     if not ok:
-        raise AssertionError(f"the downstream CLI failed its checks: {got} vs {want}, "
-                             f"launches {launches}, viz {viz}, {train_line}")
+        raise AssertionError(f"the downstream CLI failed its checks: native reader "
+                             f"{native_reader['images_equal_native']} of {READER_ITEMS} "
+                             f"images native ({native_reader['tokenizer']}), "
+                             f"{got} vs {want}, launches {launches}, viz {viz}, {train_line}")
 
 
 # ---- v2, linear-SR and Swin training, dropout, --remat, deeper models -------
@@ -3586,13 +3821,32 @@ def ddp_two_ranks_rank(spec: dict) -> None:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     del net, wrap, zstate
 
+    # one call of two steps (scan_steps=2) on this rank's rows twice, against
+    # two single DDP steps (in bits) here and one process's call in the phase
+    net, wrap, sstate = ddp_state()
+    _, scan_losses = make_train_step(cfg, scan_steps=2)(
+        sstate, {k: torch.stack([v, v]) for k, v in batch.items()})
+    scan_grads = grads_of(net)   # the second step's
+    scan_buffers = {n: b.detach().float().cpu() for n, b in net.named_buffers()}
+    net2, wrap2, twice = ddp_state()
+    _, first = step(twice, batch)
+    _, second = step(twice, batch)
+    scan_gaps = state_gaps(twice, sstate)
+    scan_equal = scan_gaps["equal"] and all(
+        torch.equal(scan_losses[k], torch.stack([first[k], second[k]])) for k in first)
+    scan_sums = torch.stack([scan_losses[k].double() for k in sorted(scan_losses)])
+    torch.distributed.all_reduce(scan_sums)
+    scan_mean_losses = dict(zip(sorted(scan_losses), (scan_sums / world).tolist()))
+    del net, wrap, sstate, net2, wrap2, twice
+
     ms = cuda_time_ms(lambda: step(state, batch), warmup=1, reps=3)
     del state, model
     torch.cuda.empty_cache()
     evals = ddp_evals(device, pathlib.Path(spec["out"]) / f"rank{rank}", EvalShard.of_this_rank)
     out = pathlib.Path(spec["out"])
     if rank == 0:
-        torch.save({"grads": grads, "buffers": buffers, "dealt_grads": dealt_grads},
+        torch.save({"grads": grads, "buffers": buffers, "dealt_grads": dealt_grads,
+                    "scan_grads": scan_grads, "scan_buffers": scan_buffers},
                    out / "two_ranks_tensors.pt")
     (out / f"two_ranks_{rank}.json").write_text(json.dumps({
         "world": world, "backend": torch.distributed.get_backend(), "launches": launches,
@@ -3601,7 +3855,8 @@ def ddp_two_ranks_rank(spec: dict) -> None:
         "zero1_moment_bytes": zero_bytes, "zero1_parts": zero_parts,
         "full_moment_bytes": full_bytes,
         "zero1_saved_moment_gap": saved_gap, "zero1_saved_names": saved_names,
-        "partial_max": partials, "ms_per_step": ms, **evals}))
+        "partial_max": partials, "ms_per_step": ms, "scan_mean_losses": scan_mean_losses,
+        "scan_equal_singles": scan_equal, "scan_single_gaps": scan_gaps, **evals}))
     mesh.destroy()
 
 
@@ -3653,6 +3908,16 @@ def phase_ddp_two_ranks(stats: dict) -> None:
     want_buffers = {n: b.detach().float().cpu() for n, b in model.named_buffers()}
     one_ms = cuda_time_ms(lambda: step(state, batch), warmup=1, reps=3)
     del state, model
+    # one call of two steps on the batch twice (scan_steps=2), as the ranks take it
+    model = create_model(cfg)
+    model.load_state_dict(seeded_weights(model), strict=True)
+    state = create_train_state(model, OptimConfig(warmup_epochs=0), TRAIN_BATCH, 1, seed=SEED)
+    _, scan_losses = make_train_step(cfg, scan_steps=2)(
+        state, {k: torch.stack([v, v]) for k, v in batch.items()})
+    want_scan_losses = {k: v.tolist() for k, v in scan_losses.items()}
+    want_scan_grads = grads_of(model)
+    want_scan_buffers = {n: b.detach().float().cpu() for n, b in model.named_buffers()}
+    del state, model
     # the same step on the batch with its halves swapped: what the order of
     # the rows alone moves each tensor by
     half = TRAIN_BATCH // 2
@@ -3701,6 +3966,14 @@ def phase_ddp_two_ranks(stats: dict) -> None:
     first_bn = {n: g for n, g in bn_gaps.items() if n.startswith(FIRST_BN)}
     chained_bn = {n: g for n, g in bn_gaps.items() if n not in first_bn}
     l_gap = loss_gap(ranks[0]["mean_losses"], want_losses)
+    # the dispatched pair: each step's losses, the second step's gradients
+    # under the first step's bounds, the BatchNorm statistics after both
+    scan_l_gap = max(loss_gap({k: v[i] for k, v in ranks[0]["scan_mean_losses"].items()},
+                              {k: v[i] for k, v in want_scan_losses.items()}) for i in (0, 1))
+    scan_grad_gaps = rel_gaps(got["scan_grads"], want_scan_grads)
+    scan_ratios = {n: scan_grad_gaps[n] / bounds[n] for n in scan_grad_gaps}
+    scan_worst = max(scan_ratios, key=scan_ratios.get)
+    scan_bn_gap = max(rel_gaps(got["scan_buffers"], want_scan_buffers).values())
     checks = {
         "backend_gloo_world_2": all(r["backend"] == "gloo" and r["world"] == 2 for r in ranks),
         "grads_equal_on_both_ranks": len(set(ranks[0]["grad_checksums"])) == 1,
@@ -3713,6 +3986,9 @@ def phase_ddp_two_ranks(stats: dict) -> None:
         and ranks[0]["zero1_saved_moment_gap"] <= ZERO_TOL,
         "zero1_moments_split": all(r["zero1_moment_bytes"] == r["zero1_parts"]["rank_bytes"]
                                    for r in ranks),
+        "scan_equal_two_single_steps": all(r["scan_equal_singles"] for r in ranks),
+        "scan_vs_one_process": scan_l_gap <= DDP_TOL and scan_ratios[scan_worst] <= 1.0
+        and scan_bn_gap <= DDP_TOL,
         "retrieval_equal": all(r["retrieval"] == want_evals["retrieval"] for r in ranks)
         and want_evals["retrieval"]["num_queries"] == DDP_BUNDLES,
         "recognition_equal": all(r["recognition"] == want_evals["recognition"] for r in ranks)
@@ -3750,6 +4026,9 @@ def phase_ddp_two_ranks(stats: dict) -> None:
          zero1_parts=ranks[0]["zero1_parts"], full_moment_bytes=ranks[0]["full_moment_bytes"],
          retrieval=ranks[0]["retrieval"], recognition=ranks[0]["recognition"],
          ms_per_step_two_ranks=[r["ms_per_step"] for r in ranks], ms_per_step_one_process=one_ms,
+         scan_rel_err_losses=scan_l_gap, scan_worst_grad_over_bound=[
+             scan_worst, scan_ratios[scan_worst]], scan_rel_err_batchnorms=scan_bn_gap,
+         scan_single_gaps=[r["scan_single_gaps"] for r in ranks],
          ms_note="two ranks over gloo on one card: gradients all-reduced through host copies, "
                  "not a speed of NCCL DDP; CUDA events, 1 warm-up, median of 3 steps",
          seconds=seconds, **diag, ok=ok)
@@ -5887,6 +6166,7 @@ def main() -> int:
     phase_train_throughput(state, cfg)
     del state, batch
     torch.cuda.empty_cache()
+    timed("scan_steps", phase_scan_steps, stats)
     phase_fba_train_kernels(stats)
     phase_fba_train(stats)
     compare_train_cpu(cfg, sd, {"train_vs_cpu_fp32": (False, False),

@@ -46,8 +46,15 @@ option the JAX package takes runs under ``--tp-size`` (``fused_attn_train``
 and ``mlm_loss_chunk <= 0`` included). A model group stays inside a node:
 ``--tp-size`` must divide torchrun's ``LOCAL_WORLD_SIZE``. ``--zero1``
 shards each AdamW moment by element over the data group
-(parallel/sharding.py:Zero1AdamW). Refused with NotImplementedError:
-``--steps-per-dispatch`` above 1.
+(parallel/sharding.py:Zero1AdamW).
+
+``--steps-per-dispatch k`` takes k optimizer steps in each call of the step
+(train/step.py:make_train_step(scan_steps=k)) on k batches the loader
+stacks and moves to the device at once (DataLoader(stack_steps=k)); the
+engine logs each step's losses. The steps equal k single ones bit for bit,
+alone or with any of the options above; the LR schedule still counts
+``len(sampler) // batch`` steps an epoch, and an epoch runs
+``steps // k`` calls. A checkpoint resumes at any k.
 
 Usage:
   python -m mvlt_tpu_torch.cli --config configs/pretrain_exp21.py --data-path <root>
@@ -108,7 +115,9 @@ def get_args_parser() -> argparse.ArgumentParser:
                    help="float32 compute (the reference's --fp32/no-AMP switch)")
     p.add_argument("--device-masks", action="store_true",
                    help="generate grid masks on the device (halves image H2D traffic)")
-    p.add_argument("--steps-per-dispatch", type=int, default=1, help="not ported (1 only)")
+    p.add_argument("--steps-per-dispatch", type=int, default=1,
+                   help="k>1 runs k optimizer steps in one call of the step on k stacked "
+                        "batches (equal to k single steps; losses still logged per step)")
     p.add_argument("--zero1", action="store_true",
                    help="partition the AdamW state over the data-parallel ranks (ZeRO-1)")
     p.add_argument("--grad-accum", type=int, default=1,
@@ -182,12 +191,10 @@ def build_run_config(args) -> RunConfig:
     return cfg
 
 
-def _refuse_unported(args, cfg: RunConfig) -> None:
+def _check_flags(args, cfg: RunConfig) -> None:
+    """Raise ValueError before any process group starts on a --tp-size below 1."""
     if cfg.tp_size < 1:
         raise ValueError(f"--tp-size {cfg.tp_size}: must be at least 1")
-    if args.steps_per_dispatch > 1:
-        raise NotImplementedError("not ported to mvlt_tpu_torch yet: --steps-per-dispatch "
-                                  "above 1")
 
 
 def load_eval_model(cfg: RunConfig, device):
@@ -278,7 +285,7 @@ def main(argv=None) -> "dict | None":
 
     args = get_args_parser().parse_args(argv)
     cfg = build_run_config(args)
-    _refuse_unported(args, cfg)
+    _check_flags(args, cfg)
     # a rank of a torchrun launch joins its group (and names its device);
     # without the environment, one process on --device
     device = mesh.maybe_init_distributed(args.device) or torch.device(args.device)
@@ -360,16 +367,18 @@ def main(argv=None) -> "dict | None":
     drop_keys = ("t2i_labels",)
     if device_masks or not cfg.model.loss_type.t2i:
         drop_keys += ("masked_images",)
+    # k steps a call: the loader stacks k batches, one copy to the device
+    spd = max(1, args.steps_per_dispatch)
     loader = DataLoader(train_ds, sampler, batch,
                         put_fn=functools.partial(to_device, device=device),
                         num_workers=cfg.data.num_workers, prefetch_depth=cfg.data.prefetch_depth,
-                        drop_keys=drop_keys)
+                        drop_keys=drop_keys, stack_steps=spd)
     train_step = make_train_step(
         cfg.model, device_masks=device_masks, mask_ratio=cfg.data.mask_ratio,
         mask_patch_size=cfg.data.mask_patch_size,
         # reference quirk (main_vl.py:435): fine-tuning from a checkpoint
         # trains with dropout and DropPath off
-        train_mode=not cfg.finetune, grad_accum=max(1, args.grad_accum))
+        train_mode=not cfg.finetune, scan_steps=spd, grad_accum=max(1, args.grad_accum))
     eval_fn = make_vl_eval_fn(model, cfg.model)
     valid_ds = build_dataset("valid", cfg.data, itm_enabled=cfg.model.loss_type.itm,
                              seed=cfg.seed + 10_000)
@@ -410,7 +419,8 @@ def main(argv=None) -> "dict | None":
         with trace(args.profile_dir if epoch == start_epoch and is_main else ""):
             state, stats = train_one_epoch(train_step, state, loader, epoch,
                                            lr_schedule=state.lr_schedule,
-                                           log_every=cfg.log_every, is_main=is_main)
+                                           log_every=cfg.log_every, is_main=is_main,
+                                           steps_per_dispatch=spd)
         quality = None
         if epoch >= int(cfg.optim.epochs * cfg.save_every_frac):
             eval_stats = run_eval()

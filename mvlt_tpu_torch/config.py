@@ -119,6 +119,8 @@ class DataConfig:
     mask_patch_size: int = 16
     vocab_file: str = "preweights/bert-base-uncased-vocab.txt"
     repeated_aug: int = 3
+    # the train split's images through the native crop-resize
+    # (data/native.py); the valid split and the evals keep exact PIL
     use_native_image_ops: bool = True
     num_workers: int = 4
     prefetch_depth: int = 2

@@ -15,11 +15,14 @@ the reference's layout (mcloader/fashion_gen.py):
 
 Every item is a deterministic function of (seed, epoch, index). A missing
 directory raises, as ``os.listdir`` does; no reader falls back to synthetic
-data. Images go through PIL (``image_ops``): the JAX package's native C++
-crop-resize (``use_native_image_ops``, its default, agreeing with PIL to
-1.5/255) and its batch tokenizer are not ported, so the port takes the PIL
-path and the Python WordPiece tokenizer (the same ids) whatever the config
-key says.
+data. As in the JAX package, the train split's images go through the native
+host library's crop-resize (data/native.py) when ``use_native_image_ops``
+is set (the default; within 1.5/255 of PIL, equal to the JAX reader's in
+bits), and through PIL otherwise; the valid split and the eval readers
+always take PIL (``image_ops``). Text goes through the native C++ tokenizer
+(``make_tokenizer``), the retrieval bundle's 101 captions in one
+``encode_batch`` call. Where the native library does not build, the readers
+raise.
 """
 
 from __future__ import annotations
@@ -32,9 +35,10 @@ import numpy as np
 import torch
 
 from mvlt_tpu_torch.config import DataConfig
-from mvlt_tpu_torch.data.image_ops import load_image, load_image_u8
+from mvlt_tpu_torch.data.image_ops import decode_rgb, load_image, load_image_u8
 from mvlt_tpu_torch.data.masks import (apply_mask, generate_grid_mask, generate_square_mask,
                                        generate_stroke_mask)
+from mvlt_tpu_torch.data.native import native_crop_resize
 from mvlt_tpu_torch.data.pipeline import collate
 from mvlt_tpu_torch.data.text_masking import process_caption
 from mvlt_tpu_torch.data.tokenizer import make_tokenizer
@@ -115,7 +119,10 @@ class FashionGenPretrain:
         else:
             text_idx, itm_label = index, 1
         text_dict = _load_pickle(self.text_dicts[text_idx])
-        image = load_image(self.images[index], cfg.input_size)
+        if self.split == "train" and cfg.use_native_image_ops:
+            image = native_crop_resize(decode_rgb(self.images[index]), cfg.input_size, crop=True)
+        else:
+            image = load_image(self.images[index], cfg.input_size)
         img_mask = self._make_mask(rng, index)
         text = process_caption(text_dict["captions"], self.tokenizer, cfg.num_text_tokens,
                                cfg.word_mask_rate, rng)
@@ -153,16 +160,16 @@ class FashionGenRetrieval:
 
     def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
         cfg = self.cfg
-        images, ids, info = [], [], []
+        images, captions, info = [], [], []
         for cand in _load_pickle(self.bundles[index]).values():
             images.append(load_image_u8(os.path.join(self.image_root, cand["img_name"]),
                                         cfg.input_size))
-            # clean ids: encode == process_caption's ori_input_ids at rate 0
-            ids.append(self.tokenizer.encode(cand["captions"], cfg.num_text_tokens))
+            captions.append(cand["captions"])
             info.append({"img_name": cand["img_name"], "prod_caption": cand["captions"]})
         return {
             "images_101": np.stack(images),
-            "ori_input_ids_101": np.asarray(ids, np.int32),
+            # clean ids: encode == process_caption's ori_input_ids at rate 0
+            "ori_input_ids_101": self.tokenizer.encode_batch(captions, cfg.num_text_tokens),
             "info_list": info,
         }
 

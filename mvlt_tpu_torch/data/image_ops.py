@@ -31,6 +31,15 @@ def whitespace_crop(img):
     return img.crop((w_min, h_min, w_max, h_max))
 
 
+def decode_rgb(path: str) -> np.ndarray:
+    """The image file decoded to uint8 [H, W, 3] RGB, uncropped: the input
+    of the native crop-resize (data/native.py)."""
+    from PIL import Image
+
+    with open(path, "rb") as f:
+        return np.asarray(Image.open(f).convert("RGB"))
+
+
 def load_image_u8(path: str, size: int, crop: bool = True) -> np.ndarray:
     """Decode -> (optional) whitespace crop -> bilinear resize: uint8
     [size, size, 3]. PIL resizes in the uint8 domain, so

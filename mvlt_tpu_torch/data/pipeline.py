@@ -6,9 +6,10 @@ mcloader/data_prefetcher.py): a pool of decode threads builds the items, a
 producer thread collates the batches, drops the keys the step never reads,
 moves each batch to the device (``to_device``: pinned host memory,
 non_blocking copies) and keeps up to ``prefetch_depth`` of them in a bounded
-queue; an error in the producer is raised in the consumer. The multi-step
-stacking of the JAX loader (``stack_steps``, for ``--steps-per-dispatch``) is
-not ported.
+queue; an error in the producer is raised in the consumer. With
+``stack_steps = k`` it groups k consecutive batches into one, every array
+stacked on a leading [k] axis, for the step that runs k optimizer steps a
+call (train/step.py:make_train_step(scan_steps=k), ``--steps-per-dispatch``).
 """
 
 from __future__ import annotations
@@ -32,6 +33,16 @@ def collate(items) -> Dict[str, Any]:
             out[key] = np.stack([np.asarray(v) for v in vals])
         else:
             out[key] = vals
+    return out
+
+
+def stack_group(group) -> Dict[str, Any]:
+    """k collated batches as one: arrays stacked on a new leading [k] axis,
+    other values (info lists) collected into k-lists."""
+    out: Dict[str, Any] = {}
+    for key in group[0]:
+        vals = [b[key] for b in group]
+        out[key] = np.stack(vals) if isinstance(vals[0], np.ndarray) else vals
     return out
 
 
@@ -65,11 +76,16 @@ class DataLoader:
       drop_keys: batch keys removed on the host before put_fn: the
         ``masked_images`` the step remakes on the device with device masks
         (or never reads without T2I), and the ``t2i_labels`` no loss reads.
+      stack_steps: k > 1 groups k consecutive batches into one item
+        (``stack_group``: [k, B, ...] arrays, k-lists of the rest) that
+        put_fn moves to the device at once; a trailing partial group is
+        dropped, and the length counts groups.
     """
 
     def __init__(self, dataset, sampler, batch_size: int,
                  put_fn: Optional[Callable] = None, num_workers: int = 4,
-                 prefetch_depth: int = 2, drop_last: bool = True, drop_keys: tuple = ()):
+                 prefetch_depth: int = 2, drop_last: bool = True, drop_keys: tuple = (),
+                 stack_steps: int = 1):
         self.dataset = dataset
         self.sampler = sampler
         self.batch_size = batch_size
@@ -78,6 +94,7 @@ class DataLoader:
         self.prefetch_depth = max(1, prefetch_depth)
         self.drop_last = drop_last
         self.drop_keys = tuple(drop_keys)
+        self.stack_steps = max(1, stack_steps)
 
     def set_epoch(self, epoch: int) -> None:
         self.sampler.set_epoch(epoch)
@@ -86,7 +103,8 @@ class DataLoader:
 
     def __len__(self) -> int:
         n = len(self.sampler)
-        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+        n = n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+        return n // self.stack_steps
 
     def __iter__(self) -> Iterator[Any]:
         indices = list(self.sampler)
@@ -99,12 +117,18 @@ class DataLoader:
 
         def produce():
             try:
+                group = []
                 with ThreadPoolExecutor(self.num_workers) as pool:
                     for start in range(0, len(indices), self.batch_size):
                         chunk = indices[start: start + self.batch_size]
                         batch = collate(list(pool.map(self.dataset.__getitem__, chunk)))
                         for key in self.drop_keys:
                             batch.pop(key, None)
+                        if self.stack_steps > 1:
+                            group.append(batch)
+                            if len(group) < self.stack_steps:
+                                continue
+                            batch, group = stack_group(group), []
                         if self.put_fn is not None:
                             batch = self.put_fn(batch)
                         out_q.put(batch)

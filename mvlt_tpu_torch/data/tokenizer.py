@@ -4,7 +4,8 @@ The port's own copy of mvlt_tpu/data/tokenizer.py (the algorithm of BERT's
 reference tokenizer: clean, lowercase, NFD accent stripping, punctuation
 split, CJK isolation, then greedy longest-match WordPiece with ``##``
 continuations). tests/test_torch_port_convert.py pins its ids to the JAX
-package's on the shipped vocab.
+package's on the shipped vocab. The data pipeline takes the C++ tokenizer
+(``make_tokenizer``), which gives the same ids.
 """
 
 from __future__ import annotations
@@ -171,6 +172,10 @@ class WordPieceTokenizer:
 
 
 def make_tokenizer(vocab_file: str) -> WordPieceTokenizer:
-    """The tokenizer the data pipeline uses. The JAX package prefers its C++
-    tokenizer here, which gives the same ids; the port has only this one."""
-    return WordPieceTokenizer(vocab_file)
+    """The tokenizer the data pipeline uses: the C++ batch tokenizer of the
+    native host library (data/native.py), as in the JAX package. It gives
+    this module's ids and raises where the library does not build;
+    ``WordPieceTokenizer`` stays the plain twin the tests hold it to."""
+    from mvlt_tpu_torch.data.native import NativeTokenizer
+
+    return NativeTokenizer(vocab_file)

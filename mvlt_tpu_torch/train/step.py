@@ -33,7 +33,13 @@ model group; ``state.group`` is the data group. Under sequence parallelism
 split stage hold its rows' part: parallel/sequence.py:reduce_row_grads sums
 them over the model group after the backward, before the clip, which then
 sees whole gradients on every rank.
-Not ported, and refused: ``scan_steps > 1`` (one dispatch for several steps).
+``scan_steps = k``: one call takes a batch stacked on a leading [k] axis
+(data/pipeline.py:DataLoader(stack_steps=k)) and runs the single step k
+times in a Python loop (JAX's lax.scan), on ``batch[i]`` in order, each
+sub-step with its own parity from ``state.step``, its own draws from
+``state.generator``, its own DDP all-reduce, clip, ZeRO-1 update and
+sequence-parallel row sums: the same arithmetic as k calls, bit for bit.
+The losses come back stacked [k], on the device.
 """
 
 from __future__ import annotations
@@ -60,9 +66,11 @@ def make_train_step(cfg: ModelConfig, *, device_masks: bool = False, mask_ratio:
     model's device): forward and backward over ``grad_accum``
     microbatches, clipping, and the AdamW update with the LR of
     ``state.lr_schedule(state.step)``. ``losses`` holds detached scalars on
-    the device (reading them waits for the step)."""
-    if scan_steps != 1:
-        raise NotImplementedError("scan_steps > 1 is not ported")
+    the device (reading them waits for the step). With ``scan_steps = k``
+    the batch is stacked [k, B, ...], the call takes k such steps, and each
+    loss is a [k] tensor of the sub-steps' values."""
+    if scan_steps < 1:
+        raise ValueError(f"scan_steps {scan_steps}: must be at least 1")
     use_masked_input = cfg.loss_type.t2i
 
     def forward_backward(state: TrainState, batch: Dict, scale: float) -> Dict:
@@ -97,8 +105,7 @@ def make_train_step(cfg: ModelConfig, *, device_masks: bool = False, mask_ratio:
         (losses["total_loss"] * scale).backward()
         return {k: v.detach() for k, v in losses.items()}
 
-    def train_step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
-        batch = batch_to_device(batch, state.device)
+    def one_step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
         state.model.train(train_mode)
         state.optimizer.zero_grad(set_to_none=True)
         if grad_accum == 1:
@@ -123,5 +130,19 @@ def make_train_step(cfg: ModelConfig, *, device_masks: bool = False, mask_ratio:
         state.optimizer.step()
         state.step += 1
         return state, losses
+
+    def train_step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
+        batch = batch_to_device(batch, state.device)
+        if scan_steps == 1:
+            return one_step(state, batch)
+        leads = {k: v.shape[0] if v.dim() else None for k, v in batch.items()}
+        if set(leads.values()) != {scan_steps}:
+            raise ValueError(f"scan_steps {scan_steps}: expected every array stacked on a "
+                             f"leading [{scan_steps}] axis, got {leads}")
+        rows = []
+        for i in range(scan_steps):
+            state, losses = one_step(state, {k: v[i] for k, v in batch.items()})
+            rows.append(losses)
+        return state, {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
 
     return train_step

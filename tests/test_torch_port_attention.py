@@ -22,6 +22,9 @@ from mvlt_tpu_torch.ops.pallas_attention import (TILE, attention_fwd,
                                                  attention_stats_reference, fused_attention,
                                                  plan_splits, split_ranges)
 from tests.kernel_utils import run_interpret
+from tests.test_torch_port_train import one_torch_thread
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 T = torch.from_numpy

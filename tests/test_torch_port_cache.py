@@ -13,6 +13,9 @@ import pytest
 import torch
 
 from mvlt_tpu_torch.models.pvlt import Block
+from tests.test_torch_port_train import one_torch_thread
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
 
 @pytest.mark.parametrize("impl", ["fused", "foreach"])

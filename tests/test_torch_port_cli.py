@@ -1,7 +1,8 @@
 """The port's command line (mvlt_tpu_torch/cli.py) on the CPU: the micro
 pre-training config on synthetic data for 2 epochs (12 steps each at
 B = 16), then ``--resume``, the CLS fine-tune init from its checkpoint,
-``--eval``, the step options, ``--remat`` and the flags that stay unported; the
+``--eval``, the step options, ``--remat``, ``--steps-per-dispatch 2`` against
+k = 1, and ``--tp-size`` without ranks; the
 checkpoint manager's policy; and the run config built from the same flags
 equal to the JAX package's."""
 
@@ -42,6 +43,22 @@ def _log(run):
 
 def _saved(run, tag="last"):
     return torch.load(os.path.join(run, "checkpoint", tag, STATE_FILE), weights_only=True)
+
+
+def _assert_tensors_equal(got, want, where=""):
+    """Two nested dicts / lists of tensors and numbers, equal in bits."""
+    if isinstance(want, dict):
+        assert sorted(got) == sorted(want), where
+        for k in want:
+            _assert_tensors_equal(got[k], want[k], f"{where}/{k}")
+    elif isinstance(want, (list, tuple)):
+        assert len(got) == len(want), where
+        for i, (g, w) in enumerate(zip(got, want)):
+            _assert_tensors_equal(g, w, f"{where}/{i}")
+    elif isinstance(want, torch.Tensor):
+        assert torch.equal(got, want), where
+    else:
+        assert got == want, where
 
 
 @pytest.fixture(scope="module")
@@ -158,8 +175,11 @@ def test_fused_attention_route_from_a_json_config(tmp_path):
 
 @pytest.mark.parametrize("flags", [["--zero1"], ["--tp-size", "2"],
                                    ["--steps-per-dispatch", "2"], ["--remat"]])
-def test_unported_flags_raise(flags, tmp_path):
-    """--steps-per-dispatch 2 stays refused; --tp-size 2 is ported under
+def test_unported_flags_raise(flags, tmp_path, request):
+    """--steps-per-dispatch 2 is ported: two epochs log every step's losses,
+    their averages and the VL eval equal to the k = 1 run's (the LR, logged
+    once a call with its last step's value, averages other steps), and save
+    step 24; --tp-size 2 is ported under
     torchrun (tests/test_torch_port_tp.py) and in one process raises, as it
     has no ranks to split the model over; --remat is
     ported: one epoch runs every block under torch.utils.checkpoint and
@@ -178,9 +198,20 @@ def test_unported_flags_raise(flags, tmp_path):
         with pytest.raises(ValueError, match="torch.distributed.run"):
             cli.main(BASE + flags)
         return
-    if flags != ["--remat"]:
-        with pytest.raises(NotImplementedError, match="not ported"):
-            cli.main(BASE + flags)
+    if flags == ["--steps-per-dispatch", "2"]:
+        want = _log(request.getfixturevalue("pretrain_run"))
+        run = str(tmp_path / "dispatch2")
+        cli.main(BASE + flags + ["--output-dir", run])
+        got = _log(run)
+        assert [line["epoch"] for line in got] == [0, 1]
+        for g, w in zip(got, want):
+            assert set(g) == set(w)
+            assert {k: v for k, v in g.items() if k not in ("time", "lr")} == \
+                {k: v for k, v in w.items() if k not in ("time", "lr")}
+        # the checkpoint equals the k = 1 run's in bits, so it resumes at any k
+        saved, want = _saved(run), _saved(request.getfixturevalue("pretrain_run"))
+        assert saved["step"] == want["step"] == 24
+        _assert_tensors_equal(saved, want)
         return
     run = str(tmp_path / "remat")
     with mock.patch.object(pvlt, "checkpoint", wraps=pvlt.checkpoint) as ckpt:

@@ -15,6 +15,9 @@ import pytest
 from mvlt_tpu import config as jax_config
 from mvlt_tpu_torch import config, convert
 from mvlt_tpu_torch.data import tokenizer
+from tests.test_torch_port_train import one_torch_thread
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
 CONFIGS = pathlib.Path(__file__).resolve().parent.parent / "configs"
 FULL = dict(img_size=32, embed_dims=(8, 16, 32, 64), num_heads=(1, 2, 2, 4),

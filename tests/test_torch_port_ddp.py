@@ -50,6 +50,8 @@ from mvlt_tpu_torch.train.step import make_train_step
 from mvlt_tpu_torch.utils.checkpoint import STATE_FILE, CheckpointManager
 from tests.test_torch_port_train import IMG, LOSS_KEYS, MICRO, T, _numpy_weights, one_torch_thread
 
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
+
 REPO = pathlib.Path(__file__).resolve().parent.parent
 WORKER = REPO / "tests" / "_ddp_worker.py"
 GLOBAL_B = 8

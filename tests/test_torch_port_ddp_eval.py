@@ -14,9 +14,9 @@ one process that scores the same halves of each batch itself. The CLI
 trains one epoch of configs/test_micro.py on two CPU ranks under torchrun
 with --zero1 (ZeRO-1, the sharded VL eval, a checkpoint), then resumes it
 for a second epoch without --zero1: only rank 0 writes the log and the
-checkpoint. A partial torchrun environment raises, and --steps-per-dispatch
-2 stays refused under torchrun, alone and with --tp-size 2 and --zero1 on
-the fused_attn_train route, which the refusal no longer names.
+checkpoint. A partial torchrun environment raises. One more launch runs the
+CLI four times on its two ranks: --steps-per-dispatch 2 equals k = 1 under
+--zero1, alone and with --tp-size 2 on the fused_attn_train route.
 """
 
 import json
@@ -38,6 +38,8 @@ from mvlt_tpu_torch.parallel import mesh
 from mvlt_tpu_torch.utils.checkpoint import STATE_FILE
 from tests.test_torch_port_ddp import spawn, torchrun
 from tests.test_torch_port_train import IMG, MICRO, T, one_torch_thread
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
 ALL_HEADS = dict(itm=True, mlm=True, t2i=True, cls=True)
 REC_BATCH = 4
@@ -135,14 +137,24 @@ def _torchrun(args, out):
                         "--output-dir", str(out)] + args, out / f"torchrun{len(logs)}.log")
 
 
-def test_cli_two_ranks_zero1_then_resume(tmp_path):
-    """One epoch with --zero1 (gloo, ZeRO-1, the sharded VL eval), then a
-    second from its checkpoint without --zero1; rank 0 alone writes."""
-    out = tmp_path / "run"
+@pytest.fixture(scope="module")
+def zero1_run(tmp_path_factory):
+    """One epoch on two ranks with --zero1: (its directory, the launch's
+    output, its train_log.jsonl line, its checkpoint's step)."""
+    out = tmp_path_factory.mktemp("zero1") / "run"
     first = _torchrun(["--zero1", "--epochs", "1"], out)
-    assert first.count("device: cpu; 2 ranks (gloo)") == 1 and first.count("eval:") == 1
     with open(out / "train_log.jsonl") as f:
         (line,) = [json.loads(ln) for ln in f]
+    return out, first, line, torch.load(out / "checkpoint" / "last" / STATE_FILE,
+                                        weights_only=True)["step"]
+
+
+def test_cli_two_ranks_zero1_then_resume(zero1_run):
+    """One epoch with --zero1 (gloo, ZeRO-1, the sharded VL eval), then a
+    second from its checkpoint without --zero1 and at --steps-per-dispatch
+    2; rank 0 alone writes."""
+    out, first, line, _ = zero1_run
+    assert first.count("device: cpu; 2 ranks (gloo)") == 1 and first.count("eval:") == 1
     assert np.isfinite(line["total_loss"]) and "eval_quality_score" in line
     saved = torch.load(out / "checkpoint" / "last" / STATE_FILE, weights_only=True)
     steps = saved["step"]
@@ -150,7 +162,7 @@ def test_cli_two_ranks_zero1_then_resume(tmp_path):
     assert not [k for k in saved["model"] if k.startswith("module.")]
     assert not torch.equal(saved["generators"][0], saved["generators"][1])
 
-    second = _torchrun(["--resume", "last", "--epochs", "2"], out)
+    second = _torchrun(["--resume", "last", "--epochs", "2", "--steps-per-dispatch", "2"], out)
     assert second.count(f"resumed at epoch 1 (step {steps})") == 1
     with open(out / "train_log.jsonl") as f:
         assert [json.loads(ln)["epoch"] for ln in f] == [0, 1]
@@ -172,22 +184,66 @@ def test_partial_torchrun_environment_raises(monkeypatch):
     assert not mesh.initialized()
 
 
+_DISPATCH_RUNS = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+from mvlt_tpu_torch import cli
+from mvlt_tpu_torch.parallel import mesh
+try:
+    for argv in json.loads(open(sys.argv[2]).read()):
+        cli.main(argv)
+finally:
+    mesh.destroy()
+"""
+
+
+@pytest.fixture(scope="module")
+def dispatch_runs(tmp_path_factory, zero1_run):
+    """One torchrun launch of two gloo ranks running the CLI three times in
+    its process group, one epoch each with --zero1: at k = 2 on
+    configs/test_micro.py (``zero1_run`` is its k = 1), then at --tp-size 2
+    on the fused_attn_train route at k = 1 and 2. Returns ({(tp, k): (the
+    epoch's log line, the checkpoint's step)}, the launch's output)."""
+    tmp = tmp_path_factory.mktemp("dispatch")
+    micro = runpy.run_path("configs/test_micro.py")["cfg"]
+    micro["model_overrides"] = {**micro["model_overrides"], "fused_attn_train": True}
+    fused = tmp / "fused.json"
+    fused.write_text(json.dumps(micro))
+    runs, argvs = {(1, 1): zero1_run[0]}, []
+    for tp, k, config_path in ((1, 2, "configs/test_micro.py"), (2, 1, str(fused)),
+                               (2, 2, str(fused))):
+        runs[(tp, k)] = tmp / f"tp{tp}_k{k}"
+        argvs.append(["--config", config_path, "--synthetic-data", "--device", "cpu",
+                      "--batch-size", "16", "--epochs", "1", "--zero1", "--output-dir",
+                      str(runs[(tp, k)]), "--tp-size", str(tp), "--steps-per-dispatch", str(k)])
+    (tmp / "runs.json").write_text(json.dumps(argvs))
+    (tmp / "runs.py").write_text(_DISPATCH_RUNS)
+    text = torchrun(2, [str(tmp / "runs.py"), str(pathlib.Path(__file__).resolve().parents[1]),
+                        str(tmp / "runs.json")], tmp / "torchrun.log")
+    logs = {(1, 1): (zero1_run[2], zero1_run[3])}
+    for key, out in runs.items():
+        if key != (1, 1):
+            with open(out / "train_log.jsonl") as f:
+                (line,) = [json.loads(ln) for ln in f]
+            logs[key] = (line, torch.load(out / "checkpoint" / "last" / STATE_FILE,
+                                          weights_only=True)["step"])
+    return logs, text
+
+
 @pytest.mark.parametrize("flags", [["--tp-size", "2", "--steps-per-dispatch", "2"],
                                    ["--steps-per-dispatch", "2"]])
-def test_unported_flags_raise_under_torchrun(flags, monkeypatch, tmp_path):
-    """What is still refused raises before any process group starts:
-    --steps-per-dispatch above 1, named alone, also with --tp-size 2 and
-    --zero1 on the fused_attn_train route (both covered now)."""
-    for key, val in zip(mesh.ENV_KEYS, ("0", "2", "0", "127.0.0.1", "1")):
-        monkeypatch.setenv(key, val)
-    config = "configs/test_micro.py"
-    if "--tp-size" in flags:
-        micro = runpy.run_path(config)["cfg"]
-        micro["model_overrides"] = {**micro["model_overrides"], "fused_attn_train": True}
-        config = str(tmp_path / "fused.json")
-        pathlib.Path(config).write_text(json.dumps(micro))
-    with pytest.raises(NotImplementedError, match="not ported") as refused:
-        cli.main(["--config", config, "--synthetic-data", "--device", "cpu", "--zero1"] + flags)
-    assert str(refused.value) == ("not ported to mvlt_tpu_torch yet: --steps-per-dispatch "
-                                  "above 1")
-    assert not mesh.initialized()
+def test_unported_flags_raise_under_torchrun(flags, dispatch_runs):
+    """--steps-per-dispatch 2 (once refused, hence the name) trains under
+    torchrun with --zero1, alone and with --tp-size 2 on the fused_attn_train
+    route: the epoch's losses and VL eval equal the k = 1 epoch's on the same
+    ranks (the LR, logged once a call, averages other steps) and the
+    checkpoint holds as many steps."""
+    logs, text = dispatch_runs
+    tp = 2 if "--tp-size" in flags else 1
+    (once, steps1), (twice, steps2) = logs[(tp, 1)], logs[(tp, 2)]
+    assert steps1 == steps2 > 0 and steps2 % 2 == 0
+    assert "eval_quality_score" in once
+    drop = ("time", "lr")
+    assert {k: v for k, v in twice.items() if k not in drop} == \
+        {k: v for k, v in once.items() if k not in drop}
+    assert text.count("device: cpu; 2 ranks (gloo)") == 3

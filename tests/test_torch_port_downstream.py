@@ -44,6 +44,9 @@ from mvlt_tpu.models import create_model as jax_create_model
 from mvlt_tpu_torch import cli
 from mvlt_tpu_torch.config import apply_overrides, load_config_file
 from mvlt_tpu_torch.eval import metrics, parity, recognition, retrieval
+from tests.test_torch_port_train import one_torch_thread
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
 CONFIG = "configs/test_micro.py"
 TOL = 2e-4

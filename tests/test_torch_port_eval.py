@@ -14,7 +14,9 @@ from mvlt_tpu_torch import config
 from mvlt_tpu_torch.convert import state_dict_from_jax
 from mvlt_tpu_torch.eval.vl_eval import evaluate_vl, make_vl_eval_fn, pad_eval_batch
 from mvlt_tpu_torch.models.pvlt import create_model
-from tests.test_torch_port_train import IMG, MICRO, T, _numpy_weights
+from tests.test_torch_port_train import IMG, MICRO, T, _numpy_weights, one_torch_thread
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
 TOL = 2e-4
 HEADS = dict(itm=True, mlm=True, t2i=True, cls=True)

@@ -36,7 +36,10 @@ from mvlt_tpu_torch.ops.block_attention import (block_attention_bwd_reference,
                                                 fused_block_attention_train)
 from mvlt_tpu_torch.train.step import make_train_step
 from tests.kernel_utils import run_interpret
-from tests.test_torch_port_train import LOSS_KEYS, _port_state, check_step_against_jax, jax_step
+from tests.test_torch_port_train import (LOSS_KEYS, _port_state, check_step_against_jax, jax_step,
+                                         one_torch_thread)
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 T = torch.from_numpy

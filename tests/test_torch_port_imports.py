@@ -1,13 +1,21 @@
 """The port runs where JAX and the JAX package are absent: a GPU host for it
 needs no jax, no flax, no PIL, no cv2 and nothing of mvlt_tpu."""
 
+import os
 import pathlib
 import re
 import subprocess
 import sys
 
+import pytest
+
+from tests.test_torch_port_train import one_torch_thread
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
+
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PKG = REPO / "mvlt_tpu_torch"
+ONE_THREAD = {**os.environ, "OMP_NUM_THREADS": "1"}   # as one_torch_thread, in the child
 
 _GUARDED = r"""
 import sys
@@ -79,6 +87,28 @@ with tempfile.TemporaryDirectory() as out:
     cli.main(["--config", "configs/test_micro.py", "--synthetic-data", "--device", "cpu",
               "--batch-size", "48", "--epochs", "1", "--output-dir", out])
     assert os.path.exists(os.path.join(out, "checkpoint", "last", "state.pt"))
+del sys.modules["PIL"]      # the train reader decodes with Pillow; jax stays blocked
+import pickle
+from PIL import Image
+from mvlt_tpu_torch.data import native
+from mvlt_tpu_torch.data.fashion_gen import FashionGenPretrain
+from mvlt_tpu_torch.data.tokenizer import WordPieceTokenizer
+with tempfile.TemporaryDirectory() as root:
+    for sub in ("extracted_train_images", "full_train_info_PAI"):
+        os.makedirs(os.path.join(root, sub))
+    img = np.full((40, 30, 3), 255, np.uint8)
+    img[5:30, 4:20] = 60
+    Image.fromarray(img).save(os.path.join(root, "extracted_train_images", "p0.png"))
+    with open(os.path.join(root, "full_train_info_PAI", "p0.pkl"), "wb") as f:
+        pickle.dump({"img_name": "p0.png", "super_cls_id": 1, "sub_cls_id": 2,
+                     "captions": "a wool coat"}, f)
+    reader = FashionGenPretrain(root, "train", DataConfig(input_size=32, num_text_tokens=16),
+                                itm_enabled=False)
+    assert isinstance(reader.tokenizer, native.NativeTokenizer)
+    item = reader[0]
+    assert np.array_equal(item["images"], native.native_crop_resize(img, 32)), "not native"
+    plain = WordPieceTokenizer(DataConfig().vocab_file).encode("a wool coat", 16)
+    assert item["ori_input_ids"].tolist() == plain, item
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "mvlt_tpu"))
 assert not [m for m in loaded if sys.modules[m] is not None], loaded
 print("OK")
@@ -89,8 +119,9 @@ def test_port_imports_and_serves_without_jax():
     """Serving (v1, v2 and Swin), one training step on the default route and
     one on the fused_attn_train route in each backward form, and one epoch
     through the CLI (training, VL eval, checkpoint) of the port with jax,
-    flax and the JAX package blocked."""
-    proc = subprocess.run([sys.executable, "-c", _GUARDED], cwd=REPO,
+    flax and the JAX package blocked; then, with Pillow allowed, an item of
+    the train reader through the native crop-resize and tokenizer."""
+    proc = subprocess.run([sys.executable, "-c", _GUARDED], cwd=REPO, env=ONE_THREAD,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.strip().endswith("OK")
@@ -130,7 +161,7 @@ def test_eval_branches_import_without_pil_and_cv2():
     """The recognition and retrieval evals of the CLI run with PIL, cv2, jax,
     flax and the JAX package blocked up to their first image read, which
     needs Pillow: the readers, metrics and scorers import none of them."""
-    proc = subprocess.run([sys.executable, "-c", _EVAL_GUARDED], cwd=REPO,
+    proc = subprocess.run([sys.executable, "-c", _EVAL_GUARDED], cwd=REPO, env=ONE_THREAD,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.count("read --eval") == 2 and proc.stdout.strip().endswith("OK")
@@ -210,3 +241,13 @@ def test_sequence_parallel_forward_and_step_without_jax(tmp_path):
         assert all(torch.equal(t, b["forward"][label][k]) for k, t in a["forward"][label].items())
         assert all(np.isfinite(v) for v in a[label]["losses"].values()), a[label]["losses"]
         assert all(torch.equal(g, b[label]["grads"][n]) for n, g in a[label]["grads"].items())
+
+
+def test_planted_faults_find_their_lines():
+    """Every fault of chip_faults.py finds the line it rewrites exactly once
+    in its source, so none goes stale unnoticed until a card run."""
+    import chip_faults
+
+    for name, (phase, source, good, bad) in chip_faults.FAULTS.items():
+        assert (REPO / source).read_text().count(good) == 1, name
+        assert good != bad and phase in chip_faults.MARGINS, name

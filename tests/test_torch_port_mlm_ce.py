@@ -20,6 +20,9 @@ from mvlt_tpu_torch.ops.mlm_ce import (BWD_TILE, MAX_SPLITS, bwd_plan, fwd_parti
                                        mlm_nll_bwd_reference, mlm_nll_reference)
 from mvlt_tpu_torch.train.losses import chunked_mlm_loss, compute_losses
 from tests.kernel_utils import run_interpret
+from tests.test_torch_port_train import one_torch_thread
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
 H = 64
 TOL = 2e-4

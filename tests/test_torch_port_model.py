@@ -20,6 +20,9 @@ from mvlt_tpu.config import LossType, ModelConfig
 from mvlt_tpu_torch.convert import state_dict_from_jax
 from mvlt_tpu_torch.models import registry
 from mvlt_tpu_torch.models.pvlt import create_model
+from tests.test_torch_port_train import one_torch_thread
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
 ITM_ONLY = LossType(itm=True, mlm=False, t2i=False, cls=False)
 MICRO = ModelConfig(

@@ -22,6 +22,9 @@ from mvlt_tpu_torch.ops.fused_mlp import ln_mlp_bwd, ln_mlp_fwd
 from mvlt_tpu_torch.ops.pallas_attention import attention_bwd, attention_fwd
 from mvlt_tpu_torch.ops.sr_kv import fused_ln_sr_kv, sr_kv_reference
 from tests.kernel_utils import run_interpret
+from tests.test_torch_port_train import one_torch_thread
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 

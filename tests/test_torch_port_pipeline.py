@@ -1,7 +1,7 @@
 """The port's input pipeline and clipping against the JAX package's, on the
 CPU: device grid masks fed with JAX's own uniforms (bit-equal), the
 samplers' index streams and the DataLoader's batches (equal for the same
-seed and epoch), the dataset factory, and gradient clipping against
+seed and epoch, also stacked two steps a group), the dataset factory, and gradient clipping against
 optax.clip_by_global_norm (2e-7 relative, fp32)."""
 
 import functools
@@ -21,8 +21,11 @@ from mvlt_tpu_torch.data import samplers
 from mvlt_tpu_torch.data.fashion_gen import SyntheticFashionGen, build_dataset
 from mvlt_tpu_torch.data.masks import (device_apply_mask, device_grid_masks,
                                        grid_masks_from_uniforms)
-from mvlt_tpu_torch.data.pipeline import DataLoader, to_device
+from mvlt_tpu_torch.data.pipeline import DataLoader, stack_group, to_device
 from mvlt_tpu_torch.train.schedule import clip_by_global_norm
+from tests.test_torch_port_train import one_torch_thread
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
 SMALL = dict(input_size=32, num_text_tokens=16)
 
@@ -92,6 +95,40 @@ def test_dataloader_batches_match_jax(drop_last):
                 assert isinstance(g[k], torch.Tensor)
                 np.testing.assert_array_equal(g[k].numpy(), w[k], err_msg=k)
     assert len(got[-1]["images"]) == (4 if drop_last else 2)
+
+
+def test_stacked_dataloader_matches_jax():
+    """stack_steps=2 on 7 batches of 4: three groups (the seventh batch
+    dropped), each array [2, 4, ...] equal to JAX's DataLoader(stack_steps=2)
+    and to the unstacked loader's consecutive batches; put_fn moves each
+    group to the device once; an info list becomes a 2-list of lists."""
+    cfg = DataConfig(**SMALL)
+    kw = dict(batch_size=4, num_workers=2, drop_keys=("t2i_labels",))
+    puts = []
+
+    def put(batch):
+        puts.append(sorted(batch))
+        return to_device(batch, "cpu")
+
+    ours = DataLoader(SyntheticFashionGen(cfg, size=28, seed=2), samplers.SequentialSampler(28),
+                      put_fn=put, stack_steps=2, **kw)
+    theirs = jax_pipeline.DataLoader(JaxSynthetic(cfg, size=28, seed=2),
+                                     jax_samplers.SequentialSampler(28), stack_steps=2, **kw)
+    single = list(DataLoader(SyntheticFashionGen(cfg, size=28, seed=2),
+                             samplers.SequentialSampler(28), **kw))
+    got, want = list(ours), list(theirs)
+    assert len(ours) == len(theirs) == len(got) == len(want) == 3 and len(puts) == 3
+    for j, (g, w) in enumerate(zip(got, want)):
+        assert sorted(g) == sorted(w) and "t2i_labels" not in g
+        for k in w:
+            assert isinstance(g[k], torch.Tensor) and g[k].shape[:2] == (2, 4), k
+            np.testing.assert_array_equal(g[k].numpy(), w[k], err_msg=k)
+            for i in range(2):
+                np.testing.assert_array_equal(g[k][i].numpy(), single[2 * j + i][k], err_msg=k)
+    groups = [{"x": np.full((2,), i), "info_list": [f"a{i}", f"b{i}"]} for i in range(2)]
+    stacked = stack_group(groups)
+    assert stacked["x"].shape == (2, 2) and stacked["info_list"] == [["a0", "b0"], ["a1", "b1"]]
+    assert stacked["info_list"] == jax_pipeline._stack_group(groups)["info_list"]
 
 
 def test_dataloader_raises_producer_errors_in_the_consumer():

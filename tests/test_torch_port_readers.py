@@ -4,8 +4,9 @@ pre-training reader (train and valid splits, two epochs, grid, square and
 stroke masks, the valid split's pickled masks in CHW and HW form, with and
 without ITM negatives; both splits smaller than 52 items, where the
 negative offset is clamped), of the retrieval reader (ITR and TIR) and of
-the recognition reader, equal array by array to the JAX reader's with its
-native image path off, and within 1.5/255 of it with that path on."""
+the recognition reader, equal array by array to the JAX reader's with the
+native crop-resize of the train split off on both sides, and with it on
+(the default) on both sides."""
 
 import pickle
 
@@ -19,6 +20,9 @@ from mvlt_tpu.data import image_ops as jax_image_ops
 from mvlt_tpu.data import masks as jax_masks
 from mvlt_tpu_torch import config
 from mvlt_tpu_torch.data import fashion_gen, image_ops, masks
+from tests.test_torch_port_train import one_torch_thread
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
 VOCAB = "preweights/bert-base-uncased-vocab.txt"
 SIZE = 32
@@ -78,10 +82,10 @@ def tree(tmp_path_factory):
     return str(root)
 
 
-def _cfgs(**kw):
-    kw = dict(input_size=SIZE, num_text_tokens=16, vocab_file=VOCAB, word_mask_rate=0.3, **kw)
-    return (config.DataConfig(**kw),
-            jax_config.DataConfig(**kw, use_native_image_ops=False))
+def _cfgs(native=False, **kw):
+    kw = dict(input_size=SIZE, num_text_tokens=16, vocab_file=VOCAB, word_mask_rate=0.3,
+              use_native_image_ops=native, **kw)
+    return config.DataConfig(**kw), jax_config.DataConfig(**kw)
 
 
 def _assert_items_equal(got, want, where):
@@ -122,20 +126,27 @@ def test_pretrain_items_match_jax(tree, split, strategy, ratio, itm):
 
 
 def test_pretrain_native_images_within_tolerance(tree):
-    """With the JAX reader's native crop-resize on (its default), the port's
-    PIL images stay within 1.5/255 of it and every other array is equal."""
-    cfg, _ = _cfgs(mask_strategy="random_grid", mask_ratio=0.5)
-    jcfg = jax_config.DataConfig(input_size=SIZE, num_text_tokens=16, vocab_file=VOCAB,
-                                 word_mask_rate=0.3, use_native_image_ops=True)
+    """With the native crop-resize on (the default on both sides), every
+    array of every train item equals the JAX reader's, the images in bits;
+    they differ from the PIL path's (by at most 1.5/255), so the native
+    path ran; the valid split keeps PIL, as in JAX."""
+    cfg, jcfg = _cfgs(native=True, mask_strategy="random_grid", mask_ratio=0.5)
+    assert config.DataConfig().use_native_image_ops and cfg.use_native_image_ops
     ours = fashion_gen.FashionGenPretrain(tree, "train", cfg, seed=1)
     theirs = jax_fg.FashionGenPretrain(tree, "train", jcfg, seed=1)
+    pil = fashion_gen.FashionGenPretrain(tree, "train", _cfgs()[0], seed=1)
+    differs = 0
     for i in range(len(ours)):
-        got, want = ours[i], theirs[i]
-        for k in want:
-            if k in ("images", "masked_images"):
-                np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1.5 / 255, err_msg=k)
-            else:
-                assert np.array_equal(got[k], want[k]), (i, k)
+        got = ours[i]
+        _assert_items_equal(got, theirs[i], i)
+        plain = pil[i]["images"]
+        assert np.abs(got["images"] - plain).max() < 1.5 / 255
+        differs += not np.array_equal(got["images"], plain)
+    assert differs == len(ours)
+    valid = fashion_gen.FashionGenPretrain(tree, "valid", cfg, seed=1)
+    _assert_items_equal(valid[0], jax_fg.FashionGenPretrain(tree, "valid", jcfg, seed=1)[0],
+                        "valid")
+    assert np.array_equal(valid[0]["images"], image_ops.load_image(valid.images[0], SIZE))
 
 
 @pytest.mark.parametrize("direction", ["itr", "tir"])

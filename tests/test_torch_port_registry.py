@@ -23,6 +23,9 @@ from mvlt_tpu_torch.config import ModelConfig
 from mvlt_tpu_torch.convert import state_dict_from_jax
 from mvlt_tpu_torch.models.pvlt import PVLT, Block, SwinBlock
 from mvlt_tpu_torch.models.registry import resolve_model_config, validate_model_config
+from tests.test_torch_port_train import one_torch_thread
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
 DEEPER = ("pvlt_small", "pvlt_medium", "pvlt_large", "pvlt_v2_small", "pvlt_swin_small")
 SIZE = 256

@@ -18,6 +18,9 @@ import torch.nn.functional as F
 from mvlt_tpu.models.pvlt import _resize_pos_embed
 from mvlt_tpu_torch.models.pvlt import resize_pos_embed
 from mvlt_tpu_torch.ops.upsample import half_pixel_matrix
+from tests.test_torch_port_train import one_torch_thread
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
 GRIDS = [((7, 7), (8, 8)), ((14, 14), (16, 16)), ((28, 28), (32, 32)), ((56, 56), (64, 64)),
          ((8, 8), (7, 7)), ((4, 6), (5, 9))]

@@ -8,6 +8,9 @@ from torch import nn
 
 from mvlt_tpu.eval import retrieval as jax_retrieval
 from mvlt_tpu_torch.eval import retrieval
+from tests.test_torch_port_train import one_torch_thread
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
 
 @pytest.mark.parametrize("scores", [

@@ -22,6 +22,9 @@ import torch.nn.functional as F
 from mvlt_tpu_torch.ops.kernel_math import layer_norm_fp32, linear
 from mvlt_tpu_torch.ops.sr_kv import s2d_operand, split_kv
 from tests.kernel_utils import run_interpret
+from tests.test_torch_port_train import one_torch_thread
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
 
 def _flat(weight: torch.Tensor) -> torch.Tensor:

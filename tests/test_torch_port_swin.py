@@ -35,6 +35,9 @@ from mvlt_tpu.config import LossType, ModelConfig
 from mvlt_tpu_torch.convert import state_dict_from_jax
 from mvlt_tpu_torch.models.pvlt import SwinBlock, create_model
 from tests.kernel_utils import run_interpret
+from tests.test_torch_port_train import one_torch_thread
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
 ALL_HEADS = LossType(itm=True, mlm=True, t2i=True, cls=True)
 KEYS = ("mlm_logits", "itm_logits", "sup_cls_logits", "sub_cls_logits", "t2i_logits")

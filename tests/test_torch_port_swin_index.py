@@ -17,6 +17,9 @@ import torch
 from mvlt_tpu_torch.models.pvlt import SwinBlock
 from mvlt_tpu_torch.models.swin import window_partition, window_reverse
 from mvlt_tpu_torch.ops.swin_band import window_index
+from tests.test_torch_port_train import one_torch_thread
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
 
 @pytest.mark.parametrize("hw,ws,shift", [((8, 8), 4, 0), ((8, 8), 4, 2), ((8, 12), 4, 2),

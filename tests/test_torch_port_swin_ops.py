@@ -25,6 +25,9 @@ from mvlt_tpu_torch.models import swin as port_swin
 from mvlt_tpu_torch.ops.swin_attention import fused_swin_attention, plan
 from mvlt_tpu_torch.ops.swin_band import fused_swin_block
 from tests.kernel_utils import run_interpret
+from tests.test_torch_port_train import one_torch_thread
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 

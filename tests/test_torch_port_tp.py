@@ -52,6 +52,8 @@ from tests._thread_ranks import ThreadGroup, patched, run_ranks
 from tests.test_torch_port_ddp import GLOBAL_B, setup, spawn, torchrun  # noqa: F401
 from tests.test_torch_port_train import IMG, LOSS_KEYS, one_torch_thread  # noqa: F401
 
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
+
 TOL = dict(rtol=2e-4, atol=2e-5)
 CLIP = 0.05
 STEPS = (("step0", 0, 0.0), ("step1", 1, 0.0), ("clip", 0, CLIP))
@@ -278,7 +280,7 @@ def test_tp_refusals(combo, tmp_path, monkeypatch):
         argv[1] = str(path)
     args = cli.get_args_parser().parse_args(argv)
     cfg = cli.build_run_config(args)
-    cli._refuse_unported(args, cfg)
+    cli._check_flags(args, cfg)
     assert cfg.tp_size == 2
     assert not mesh.initialized()
     assert not hasattr(tensor, "refusals")

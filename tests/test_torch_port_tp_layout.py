@@ -27,7 +27,9 @@ from mvlt_tpu_torch.models.registry import resolve_model_config
 from mvlt_tpu_torch.ops.sr_kv import split_kv
 from mvlt_tpu_torch.parallel.tensor import (COL, KV, ROW, layout, placed_state,
                                             shard_state_dict, shard_tensor)
-from tests.test_torch_port_train import MICRO
+from tests.test_torch_port_train import MICRO, one_torch_thread
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
 HEADS = config.LossType(itm=True, mlm=True, t2i=True, cls=True)
 CONFIGS = {

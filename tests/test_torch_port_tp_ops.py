@@ -21,6 +21,9 @@ import torch
 
 from mvlt_tpu_torch.ops import fused_mlp, mlm_ce
 from mvlt_tpu_torch.parallel.tensor import COL, ROW, shard_tensor
+from tests.test_torch_port_train import one_torch_thread
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
 TOL = dict(rtol=1e-10, atol=1e-12)
 

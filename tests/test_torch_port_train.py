@@ -15,6 +15,7 @@ read.
 """
 
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -123,12 +124,17 @@ def build_jax_step(jcfg, pcfg, img=IMG):
 
 @pytest.fixture(scope="module")
 def one_torch_thread():
-    """Runs a module's micro models on one torch thread: their many small
-    ops wait on the thread pool's barriers in a loaded multi-worker run."""
+    """Runs a module's models on one torch thread: their many small ops
+    wait on the thread pool's barriers in a loaded multi-worker run (a
+    gradcheck took 420 s there on eight threads a worker, 2.5 s on one).
+    Every tests/test_torch_port_*.py module takes it (pytestmark)."""
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
+
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
 
 def _port_state(pcfg, params, stats, step, img=IMG):
@@ -257,10 +263,106 @@ def test_train_one_epoch_on_synthetic_data(capsys):
     assert state.step == 5 and capsys.readouterr().out.count("non-finite total loss") == 2
 
 
-@pytest.mark.parametrize("kw", [dict(scan_steps=2)])
-def test_unported_step_options_raise(kw):
-    with pytest.raises(NotImplementedError):
-        make_train_step(_configs(HEADS)[1], **kw)
+def test_train_one_epoch_drains_k_rows_a_call(capsys):
+    """steps_per_dispatch=2 (mvlt_tpu/train/engine.py:_drain): each call's
+    two rows are logged once each, row i as step step_idx + i (a non-finite
+    one warns with its own index), the LR logged is the call's last step's,
+    and the stacked info lists never reach the step."""
+    lrs = []
+
+    def lr_schedule(step):
+        lrs.append(step)
+        return float(step)
+
+    def step(state, batch):
+        assert sorted(batch) == ["v"]
+        state.step += 2
+        v = torch.as_tensor(batch["v"])
+        return state, {"total_loss": v, "loss_mlm": torch.arange(2.0) + state.step}
+
+    calls = [{"v": np.array([1.0, 2.0]), "info_list": [["a"], ["b"]]},
+             {"v": np.array([float("nan"), 4.0]), "info_list": [["c"], ["d"]]},
+             {"v": np.array([5.0, float("inf")]), "info_list": [["e"], ["f"]]}]
+    state = types.SimpleNamespace(step=10)
+    capsys.readouterr()
+    state, stats = train_one_epoch(step, state, calls, lr_schedule=lr_schedule, is_main=False,
+                                   steps_per_dispatch=2)
+    assert state.step == 16 and lrs == [11, 13, 15] and stats["lr"] == 13.0
+    assert stats["loss_mlm"] == np.mean([12, 13, 14, 15, 16, 17])
+    warned = [ln for ln in capsys.readouterr().out.splitlines() if "non-finite" in ln]
+    assert [ln.split(" at step ")[1].split(":")[0] for ln in warned] == ["12", "15"]
+    with pytest.raises(ValueError, match="rows"):
+        train_one_epoch(step, state, calls[:1], is_main=False, steps_per_dispatch=3)
+
+
+@pytest.mark.parametrize("kw", [dict(scan_steps=2), dict(scan_steps=2, grad_accum=2),
+                                dict(scan_steps=2, drop_path_rate=0.1, bert_dropout=0.1)])
+def test_unported_step_options_raise(jax_step, kw):
+    """scan_steps=2 (once refused, hence the name) on a batch stacked [2, B]
+    equals two single steps in bits, from an even and from an odd step, also
+    with grad_accum=2 and with DropPath and dropout on: the stacked losses,
+    every parameter and buffer, every AdamW moment, the step and the
+    generator's state."""
+    jcfg, pcfg, params, stats, batch, _ = jax_step
+    opts = {k: v for k, v in kw.items() if k in ("scan_steps", "grad_accum")}
+    pcfg = dataclasses.replace(pcfg, **{k: v for k, v in kw.items() if k not in opts})
+    second = make_batch(np.random.default_rng(7))
+    stacked = {k: np.stack([batch[k], second[k]]) for k in batch}
+    single = make_train_step(pcfg, grad_accum=opts.get("grad_accum", 1))
+    for start in (1, 0):   # the last, from step 0, is held to JAX below
+        a = _port_state(pcfg, params, stats, start)
+        b = _port_state(pcfg, params, stats, start)
+        a, l0 = single(a, batch)
+        a, l1 = single(a, second)
+        b, losses = make_train_step(pcfg, **opts)(b, stacked)
+        assert a.step == b.step == start + 2
+        for k in LOSS_KEYS:
+            assert losses[k].shape == (2,) and torch.equal(losses[k], torch.stack([l0[k], l1[k]]))
+        sa, sb = a.model.state_dict(), b.model.state_dict()
+        assert all(torch.equal(sa[k], sb[k]) for k in sa)
+        oa, ob = a.optimizer.state_dict()["state"], b.optimizer.state_dict()["state"]
+        assert sorted(oa) == sorted(ob) and all(torch.equal(oa[i][k], ob[i][k])
+                                                for i in oa for k in oa[i])
+        assert torch.equal(a.generator.get_state(), b.generator.get_state())
+    if kw == dict(scan_steps=2):
+        check_scan_against_jax(jax_step, stacked, b, losses)
+
+
+def check_scan_against_jax(jax_step, stacked, state, losses):
+    """The port's two steps from step 0 against mvlt_tpu/train/step.py's
+    make_train_step(scan_steps=2) from the same weights and AdamW schedule:
+    the stacked losses and the BatchNorm statistics to 2e-4, and AdamW's
+    first moments (0.1 (0.9 g0 + g1)) to 1e-3 of each tensor's largest
+    magnitude, the tolerances of test_step_matches_jax."""
+    import optax
+
+    from mvlt_tpu.models import create_model as jax_create_model
+    from mvlt_tpu.train.schedule import make_optimizer
+    from mvlt_tpu.train.state import TrainState
+    from mvlt_tpu.train.step import make_train_step as jax_make_train_step
+
+    jcfg, _, params, stats, _, _ = jax_step
+    tx = make_optimizer(jax_config.OptimConfig(warmup_epochs=0), B, 10)
+    jstate = TrainState(step=jnp.zeros((), jnp.int32), params=params, batch_stats=stats,
+                        opt_state=tx.init(params), tx=tx)
+    scan = jax_make_train_step(jax_create_model(jcfg), jcfg, donate=False, scan_steps=2)
+    jstate, jlosses = scan(jstate, stacked, jax.random.PRNGKey(0))
+    assert int(jstate.step) == state.step == 2
+    for k in LOSS_KEYS:
+        np.testing.assert_allclose(losses[k].numpy(), np.asarray(jlosses[k]), rtol=2e-4,
+                                   atol=2e-4, err_msg=k)
+    buffers = dict(state.model.named_buffers())
+    for name, w in state_dict_from_jax({}, jax.device_get(jstate.batch_stats)).items():
+        np.testing.assert_allclose(buffers[name].numpy(), w.numpy(), rtol=2e-4, atol=2e-4,
+                                   err_msg=name)
+    (adam,) = [s for s in jax.tree_util.tree_leaves(
+        jstate.opt_state, is_leaf=lambda x: isinstance(x, optax.ScaleByAdamState))
+        if isinstance(s, optax.ScaleByAdamState)]
+    got = dict(state.model.named_parameters())
+    for name, w in state_dict_from_jax(jax.device_get(adam.mu)).items():
+        m = state.optimizer.state[got[name]]["exp_avg"]
+        bound = 1e-3 * float(w.abs().max()) + 1e-12
+        assert float((m - w).abs().max()) <= bound, (name, float((m - w).abs().max()), bound)
 
 
 def test_grad_accum_step_matches_jax(jax_step):

@@ -29,6 +29,9 @@ from mvlt_tpu_torch.ops.pallas_attention import (attention_bwd_reference,
 from mvlt_tpu_torch.ops.upsample import upsample_bilinear_align_corners
 from mvlt_tpu_torch.train import losses, schedule
 from tests.kernel_utils import run_interpret
+from tests.test_torch_port_train import one_torch_thread
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 T = torch.from_numpy

@@ -25,6 +25,9 @@ from mvlt_tpu_torch.ops.block_attention import block_attention_reference, fused_
 from mvlt_tpu_torch.ops.dwconv_mlp import dwconv_mlp_reference, fused_dwconv_mlp
 from mvlt_tpu_torch.ops.sr_kv import sr_kv_reference
 from tests.kernel_utils import run_interpret
+from tests.test_torch_port_train import one_torch_thread
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 
