@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from mvlt_tpu_torch.parallel.sharding import EvalShard, gather_slots
+from mvlt_tpu_torch.utils.profiling import annotate
 
 FIXED_DENOM = 1000  # reference protocol constant (engine_grid_masking.py:393)
 
@@ -33,12 +34,15 @@ def uint8_to_unit(images: torch.Tensor) -> torch.Tensor:
 
 @torch.no_grad()
 def _score(model, device, images, input_ids) -> torch.Tensor:
-    images = torch.as_tensor(images, device=device)
-    if images.dtype == torch.uint8:
-        images = uint8_to_unit(images)
-    out = model(images, torch.as_tensor(input_ids, device=device))
-    logits = out["itm_logits"].reshape(-1, 2).float()
-    return torch.softmax(logits, dim=-1)[:, 1]
+    with annotate("mvlt.retrieval.h2d"):
+        images = torch.as_tensor(images, device=device)
+        if images.dtype == torch.uint8:
+            images = uint8_to_unit(images)
+        input_ids = torch.as_tensor(input_ids, device=device)
+    with annotate("mvlt.retrieval.forward"):
+        out = model(images, input_ids)
+        logits = out["itm_logits"].reshape(-1, 2).float()
+        return torch.softmax(logits, dim=-1)[:, 1]
 
 
 def make_itm_scorer(model) -> Callable:
@@ -64,24 +68,36 @@ def evaluate_retrieval(scorer: Callable, loader: Iterable, log_every: int = 50,
     (``shard.indices()``), and the results are those of every rank's real
     slots together, the same on every rank."""
     ranks = []
-    for batch in loader:
-        imgs = np.asarray(batch["images_101"])
-        ids = np.asarray(batch["ori_input_ids_101"])
-        if imgs.ndim == 4:  # single bundle
-            imgs, ids = imgs[None], ids[None]
-        q, c = imgs.shape[0], imgs.shape[1]
-        flat_imgs = imgs.reshape((q * c,) + imgs.shape[2:])
-        if flat_imgs.dtype != np.uint8:
-            flat_imgs = flat_imgs.astype(np.float32)
-        scores = scorer(flat_imgs, ids.reshape(q * c, -1).astype(np.int64))
-        scores = torch.as_tensor(scores).float().cpu().numpy().reshape(q, c)
-        ranks.extend(rank_of_ground_truth(scores[qi]) for qi in range(q))
-        if is_main and len(ranks) % log_every < q:
-            hits = {k: sum(r < k for r in ranks) for k in (1, 5, 10)}
-            print(f"retrieval [{len(ranks)}] "
-                  f"acc@1={hits[1]/FIXED_DENOM:.3f} "
-                  f"acc@5={hits[5]/FIXED_DENOM:.3f} "
-                  f"acc@10={hits[10]/FIXED_DENOM:.3f}", flush=True)
+    batches = iter(loader)
+    while True:
+        # one loader item's work; the last call finds the loader at its end
+        with annotate("mvlt.retrieval.call"):
+            with annotate("mvlt.retrieval.fetch"):
+                batch = next(batches, None)
+            if batch is None:
+                break
+            with annotate("mvlt.retrieval.stage"):
+                imgs = np.asarray(batch["images_101"])
+                ids = np.asarray(batch["ori_input_ids_101"])
+                if imgs.ndim == 4:  # single bundle
+                    imgs, ids = imgs[None], ids[None]
+                q, c = imgs.shape[0], imgs.shape[1]
+                flat_imgs = imgs.reshape((q * c,) + imgs.shape[2:])
+                if flat_imgs.dtype != np.uint8:
+                    flat_imgs = flat_imgs.astype(np.float32)
+                flat_ids = ids.reshape(q * c, -1).astype(np.int64)
+            with annotate("mvlt.retrieval.score"):
+                scores = scorer(flat_imgs, flat_ids)
+            with annotate("mvlt.retrieval.readback"):
+                scores = torch.as_tensor(scores).float().cpu().numpy().reshape(q, c)
+            with annotate("mvlt.retrieval.rank"):
+                ranks.extend(rank_of_ground_truth(scores[qi]) for qi in range(q))
+                if is_main and len(ranks) % log_every < q:
+                    hits = {k: sum(r < k for r in ranks) for k in (1, 5, 10)}
+                    print(f"retrieval [{len(ranks)}] "
+                          f"acc@1={hits[1]/FIXED_DENOM:.3f} "
+                          f"acc@5={hits[5]/FIXED_DENOM:.3f} "
+                          f"acc@10={hits[10]/FIXED_DENOM:.3f}", flush=True)
     if shard is not None:
         ranks = gather_slots(torch.tensor(ranks, dtype=torch.float64)[:, None],
                              shard)[:, 0].long().tolist()

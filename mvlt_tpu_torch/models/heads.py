@@ -28,6 +28,7 @@ from mvlt_tpu_torch.ops.kernel_math import acc_dtype, gelu, layer_norm_fp32, lin
 from mvlt_tpu_torch.ops.upsample import upsample_bilinear_align_corners
 from mvlt_tpu_torch.parallel.sharding import all_reduce_sum, group_size
 from mvlt_tpu_torch.parallel.tensor import VocabShardLogits, copy_to_model, vocab_start
+from mvlt_tpu_torch.utils.profiling import annotate
 
 
 class BertHeadTransform(nn.Module):
@@ -122,11 +123,12 @@ class BatchNorm(nn.Module):
             mean = xf.mean((0, 2, 3))
             return mean, (xf - mean[:, None, None]).square().mean((0, 2, 3))
         count = xf.new_full((1,), xf.numel() // xf.shape[1])
-        sums = all_reduce_sum(torch.cat([xf.sum((0, 2, 3)), count]), self.group,
-                              differentiable=True)
-        mean = sums[:-1] / sums[-1]
-        dev = all_reduce_sum((xf - mean[:, None, None]).square().sum((0, 2, 3)), self.group,
-                             differentiable=True)
+        with annotate("mvlt.sync.bn"):
+            sums = all_reduce_sum(torch.cat([xf.sum((0, 2, 3)), count]), self.group,
+                                  differentiable=True)
+            mean = sums[:-1] / sums[-1]
+            dev = all_reduce_sum((xf - mean[:, None, None]).square().sum((0, 2, 3)), self.group,
+                                 differentiable=True)
         return mean, dev / sums[-1]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

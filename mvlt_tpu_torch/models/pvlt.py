@@ -111,6 +111,7 @@ from mvlt_tpu_torch.ops.upsample import resize_bilinear
 from mvlt_tpu_torch.parallel import sequence
 from mvlt_tpu_torch.parallel.tensor import (copy_to_model, fused_attn_tp, fused_ln_mlp_tp,
                                             model_input, row_parallel_linear, split_dim)
+from mvlt_tpu_torch.utils.profiling import annotate
 
 
 def _ln(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
@@ -867,44 +868,56 @@ class PVLT(nn.Module):
         if images.shape[-1] != cfg.in_chans and images.shape[1] == cfg.in_chans:
             images = images.permute(0, 2, 3, 1)        # NCHW accepted
         b = images.shape[0]
-        y = self.text_embeddings(input_ids, generator, self.vocab_group).to(dtype)
-        x = images.to(dtype)
+        with annotate("mvlt.model.embed"):
+            y = self.text_embeddings(input_ids, generator, self.vocab_group).to(dtype)
+            x = images.to(dtype)
         img_feats, split = [], []
         for i, dim in enumerate(cfg.embed_dims):
-            x, (h, w) = getattr(self, f"patch_embed{i + 1}")(x)
-            dense, norm = getattr(self, f"text_embed{i + 1}")
-            y = _ln(linear(y, dense.weight, dense.bias), norm)
-            pos = getattr(self, f"pos_embed{i + 1}")
-            if i == cfg.num_stages - 1:
-                pos = pos[:, 1:]                       # PVT cls slot
-            native_g = cfg.img_size // (cfg.patch_size * 2 ** i)
-            pos = resize_pos_embed(pos.to(dtype), (native_g, native_g), (h, w))
-            text_pos = getattr(self, f"text_pos_embed{i + 1}").to(dtype)
-            plan = sequence.stage_plan(self, i, h, w, y.shape[1])
-            if (serving and cfg.variant == "swin" and plan is None
-                    and swin_band_stage(cfg.window_size, (h, w))):
-                z = (x + pos, y + text_pos)              # split: kernel E's stage
-            else:
-                z = torch.cat([x + pos, y + text_pos], dim=1)
-                if self.training and cfg.drop_rate:
-                    z = dropout(z, cfg.drop_rate, generator)
+            with annotate("mvlt.model.embed"):
+                x, (h, w) = getattr(self, f"patch_embed{i + 1}")(x)
+                dense, norm = getattr(self, f"text_embed{i + 1}")
+                y = _ln(linear(y, dense.weight, dense.bias), norm)
+                pos = getattr(self, f"pos_embed{i + 1}")
+                if i == cfg.num_stages - 1:
+                    pos = pos[:, 1:]                       # PVT cls slot
+                native_g = cfg.img_size // (cfg.patch_size * 2 ** i)
+                pos = resize_pos_embed(pos.to(dtype), (native_g, native_g), (h, w))
+                text_pos = getattr(self, f"text_pos_embed{i + 1}").to(dtype)
+                plan = sequence.stage_plan(self, i, h, w, y.shape[1])
+                if (serving and cfg.variant == "swin" and plan is None
+                        and swin_band_stage(cfg.window_size, (h, w))):
+                    z = (x + pos, y + text_pos)              # split: kernel E's stage
+                else:
+                    z = torch.cat([x + pos, y + text_pos], dim=1)
+                    if self.training and cfg.drop_rate:
+                        z = dropout(z, cfg.drop_rate, generator)
             # sequence parallelism: the rank's band and text rows, whole again after
             kw = {} if plan is None else {"sp": plan}
-            if plan is not None:
-                z = sequence.split_rows(z, plan)
-            for blk in getattr(self, f"block{i + 1}"):
-                if cfg.remat and not serving:
-                    z = checkpoint_block(blk, z, plan.hw if plan else (h, w), generator, **kw)
-                else:
-                    z = blk(z, plan.hw if plan else (h, w), generator, **kw)
-            if plan is not None:
-                z = sequence.gather_rows(z, plan)
+            with annotate("mvlt.model.blocks"):
+                if plan is not None:
+                    z = sequence.split_rows(z, plan)
+                for blk in getattr(self, f"block{i + 1}"):
+                    if cfg.remat and not serving:
+                        z = checkpoint_block(blk, z, plan.hw if plan else (h, w), generator,
+                                             **kw)
+                    else:
+                        z = blk(z, plan.hw if plan else (h, w), generator, **kw)
+                if plan is not None:
+                    z = sequence.gather_rows(z, plan)
             split.append(plan is not None)
             x, y = z if isinstance(z, tuple) else (z[:, : h * w], z[:, h * w:])
             x = x.reshape(b, h, w, dim)
             img_feats.append(x)
         self.sp_split = tuple(split)
 
+        with annotate("mvlt.model.heads"):
+            return self._heads(y, img_feats, mlm_row_idx)
+
+    def _heads(self, y: torch.Tensor, img_feats: list,
+               mlm_row_idx: Optional[torch.Tensor]) -> Dict[str, Optional[torch.Tensor]]:
+        """The adapters and heads on the last stage's text rows ``y`` and
+        the stage maps ``img_feats``."""
+        cfg = self.cfg
         lt = cfg.loss_type
         out: Dict[str, Optional[torch.Tensor]] = dict.fromkeys(
             ("mlm_logits", "itm_logits", "sup_cls_logits", "sub_cls_logits", "t2i_logits"))

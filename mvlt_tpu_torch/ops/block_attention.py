@@ -57,6 +57,7 @@ from mvlt_tpu_torch.ops.fused_mlp import BWD_CHUNK, BWD_TILE, MAX_SPLITS
 from mvlt_tpu_torch.ops.kernel_math import (acc_dtype, layer_norm_fp32, linear, matmul_acc,
                                             softmax_av)
 from mvlt_tpu_torch.ops.pallas_attention import HEAD_DIMS, TILE, plan_splits
+from mvlt_tpu_torch.utils.profiling import op_span
 
 # the rows a block of the backward's finishing row kernel takes at least,
 # in at most BWD_MAX_COL_BLOCKS blocks
@@ -96,6 +97,7 @@ def block_attention_reference(x, k, v, ln1_weight, ln1_bias, wq, bq, wp, bp, *,
                               heads=heads, eps=eps).to(x.dtype)
 
 
+@op_span
 def fused_block_attention(x, k, v, ln1_weight, ln1_bias, wq, bq, wp, bp, *,
                           heads: int, eps: float) -> torch.Tensor:
     """The attention half of one block. A CPU tensor takes
@@ -365,6 +367,7 @@ def _fwd_launch(name: str, x, k, v, ln1_weight, ln1_bias, wq, bq, wp, bp, row_sc
     return out, stats
 
 
+@op_span
 def block_attention_train_fwd(x, k, v, ln1_weight, ln1_bias, wq, bq, wp, bp, row_scale, *,
                               heads: int, eps: float, save_stats: bool = False):
     """Forward of the training form: out, or (out, stats) with
@@ -385,6 +388,7 @@ def block_attention_train_fwd(x, k, v, ln1_weight, ln1_bias, wq, bq, wp, bp, row
     return (out, stats) if save_stats else out
 
 
+@op_span
 def block_attention_train_fwd_tp(x, k, v, ln1_weight, ln1_bias, wq, bq, wp, row_scale, *,
                                  heads: int, eps: float, save_stats: bool = False):
     """Forward of the tensor-parallel mode on a rank's ``heads`` heads (Wq,
@@ -444,6 +448,7 @@ def _bwd_launch(name: str, x, k, v, ln1_weight, ln1_bias, wq, bq, wp, row_scale,
     return dx, dk, dv, dg, dbe, dwq, dbq, dwp, dbp
 
 
+@op_span
 def block_attention_train_bwd(x, k, v, ln1_weight, ln1_bias, wq, bq, wp, row_scale, dy, *,
                               heads: int, eps: float, stats=None):
     """Backward of the training form: (dx, dk, dv, dgamma, dbeta, dWq, dbq,
@@ -463,6 +468,7 @@ def block_attention_train_bwd(x, k, v, ln1_weight, ln1_bias, wq, bq, wp, row_sca
     return out
 
 
+@op_span
 def block_attention_train_bwd_tp(x, k, v, ln1_weight, ln1_bias, wq, bq, wp, row_scale, dy, *,
                                  heads: int, eps: float, stats=None):
     """Backward of the tensor-parallel mode on a rank's ``heads`` heads:

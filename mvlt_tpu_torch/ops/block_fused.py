@@ -17,6 +17,7 @@ from mvlt_tpu_torch.ops.block_attention import attention_residual, fwd_scratch
 from mvlt_tpu_torch.ops.fused_mlp import fwd_fused
 from mvlt_tpu_torch.ops.kernel_math import gelu, layer_norm_fp32, linear
 from mvlt_tpu_torch.ops.pallas_attention import HEAD_DIMS
+from mvlt_tpu_torch.utils.profiling import op_span
 
 
 def block_reference(x, k, v, ln1_weight, ln1_bias, wq, bq, wp, bp,
@@ -45,6 +46,7 @@ def scratch(batch: int, n: int, d: int, heads: int, hidden: int) -> dict:
             "g": (0 if fwd_fused(d) else rows * hidden, torch.bfloat16), "lse": half["lse"]}
 
 
+@op_span
 def fused_block(x, k, v, ln1_weight, ln1_bias, wq, bq, wp, bp,
                 ln2_weight, ln2_bias, w1, b1, w2, b2, *, heads: int,
                 eps1: float, eps2: float) -> torch.Tensor:

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from mvlt_tpu_torch.ops import _build
 from mvlt_tpu_torch.ops.kernel_math import gelu, layer_norm_fp32, linear
+from mvlt_tpu_torch.utils.profiling import op_span
 
 
 def dwconv_mlp_reference(x, hw, ln2_weight, ln2_bias, w1, b1, dw_weight, dw_bias,
@@ -46,6 +47,7 @@ def scratch_elems(rows: int, d: int, hidden: int) -> int:
     return rows * (hidden + max(d, hidden))
 
 
+@op_span
 def fused_dwconv_mlp(x, hw, ln2_weight, ln2_bias, w1, b1, dw_weight, dw_bias, w2, b2, *,
                      eps: float) -> torch.Tensor:
     """The MLP half of one v2 block. A CPU tensor takes

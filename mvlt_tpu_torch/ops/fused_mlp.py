@@ -32,6 +32,7 @@ import torch
 from mvlt_tpu_torch.ops import _build
 from mvlt_tpu_torch.ops.kernel_math import (acc_dtype, gelu, gelu_grad, layer_norm_bwd,
                                             layer_norm_fp32, matmul_acc)
+from mvlt_tpu_torch.utils.profiling import op_span
 
 
 # the widest stream of the one-launch forward (csrc/ln_mlp.cu: kFusedMaxD)
@@ -173,6 +174,7 @@ def _fwd_launch(name: str, x, gamma, beta, w1, b1, w2, b2, row_scale, eps: float
     return out
 
 
+@op_span
 def ln_mlp_fwd(x, gamma, beta, w1, b1, w2, b2, row_scale, eps: float):
     """Forward. A CPU tensor takes ``ln_mlp_reference``; a CUDA tensor
     launches the kernel (one launch for D <= 128, else three with the
@@ -185,6 +187,7 @@ def ln_mlp_fwd(x, gamma, beta, w1, b1, w2, b2, row_scale, eps: float):
     return out
 
 
+@op_span
 def ln_mlp_fwd_tp(x, gamma, beta, w1, b1, w2, row_scale, eps: float):
     """The forward's tensor-parallel mode on a rank's slice of the hidden:
     the fp32 partial s (G W2^T) [B, N, D]. A CPU tensor takes
@@ -233,6 +236,7 @@ def _bwd_launch(name: str, x, gamma, beta, w1, b1, w2, row_scale, eps: float, dy
 
 
 
+@op_span
 def ln_mlp_bwd(x, gamma, beta, w1, b1, w2, row_scale, eps: float, dy):
     """Backward (dx, dgamma, dbeta, dW1, db1, dW2, db2). A CPU tensor takes
     ``ln_mlp_bwd_reference``; a CUDA tensor launches the kernels (the rows'
@@ -247,6 +251,7 @@ def ln_mlp_bwd(x, gamma, beta, w1, b1, w2, row_scale, eps: float, dy):
     return out
 
 
+@op_span
 def ln_mlp_bwd_tp(x, gamma, beta, w1, b1, w2, row_scale, eps: float, dy):
     """The backward's tensor-parallel mode on a rank's slice of the hidden:
     (dx_part, dgamma, dbeta, dW1, db1, dW2, db2), dx_part the fp32

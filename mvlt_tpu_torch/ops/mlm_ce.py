@@ -32,6 +32,7 @@ import torch
 
 from mvlt_tpu_torch.ops import _build
 from mvlt_tpu_torch.ops.kernel_math import acc_dtype, matmul_acc
+from mvlt_tpu_torch.utils.profiling import op_span
 
 # both directions stream the width in 64-deep chunks; widths up to 768, the
 # one the JAX kernel's VMEM tiles are sized for (mvlt_tpu/ops/mlm_ce.py:54)
@@ -158,6 +159,7 @@ def _fwd_launch(name: str, rows, table, bias, labels, vocab_start: int, partial:
     return nll, lse
 
 
+@op_span
 def mlm_ce_fwd(rows, table, bias, labels):
     """Forward (nll, lse). A CPU tensor takes ``mlm_nll_reference``; a CUDA
     tensor launches the kernel (and its merge of the vocabulary tiles'
@@ -170,6 +172,7 @@ def mlm_ce_fwd(rows, table, bias, labels):
     return out
 
 
+@op_span
 def mlm_ce_fwd_tp(rows, table, bias, labels, vocab_start: int):
     """The forward's tensor-parallel mode on the table's rows from
     ``vocab_start``: (lse, picked) of the range. A CPU tensor takes
@@ -210,6 +213,7 @@ def _bwd_launch(name: str, rows, table, bias, labels, lse, g, vocab_start: int):
     return d_rows, d_table, d_bias
 
 
+@op_span
 def mlm_ce_bwd(rows, table, bias, labels, lse, g):
     """Backward (d_rows, d_table, d_bias), all fp32. A CPU tensor takes
     ``mlm_nll_bwd_reference``; a CUDA tensor launches the kernels (dl, the
@@ -222,6 +226,7 @@ def mlm_ce_bwd(rows, table, bias, labels, lse, g):
     return out
 
 
+@op_span
 def mlm_ce_bwd_tp(rows, table, bias, labels, lse, g, vocab_start: int):
     """The backward's tensor-parallel mode: lse the model group's, the
     table's rows from ``vocab_start``; (the range's partial d_rows, its

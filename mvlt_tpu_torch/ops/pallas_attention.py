@@ -23,6 +23,7 @@ import torch
 
 from mvlt_tpu_torch.ops import _build
 from mvlt_tpu_torch.ops.kernel_math import acc_dtype, softmax_av
+from mvlt_tpu_torch.utils.profiling import op_span
 
 
 def attention_reference(q, k, v, scale: float) -> torch.Tensor:
@@ -124,6 +125,7 @@ def _check(name: str, t, what: str, like=None) -> None:
                          f"strides {t.stride()}")
 
 
+@op_span
 def attention_fwd(q, k, v, scale: float):
     """Forward, (o, lse). A CPU tensor takes ``attention_stats_reference``;
     CUDA tensors launch the kernel, anything else raises. Counts launches in
@@ -151,6 +153,7 @@ def attention_fwd(q, k, v, scale: float):
     return o, lse
 
 
+@op_span
 def attention_bwd(q, k, v, o, lse, do, scale: float):
     """Backward (dq, dk, dv) from the forward's o and lse. A CPU tensor takes
     ``attention_stats_bwd_reference``; CUDA tensors launch the kernel (and,

@@ -25,6 +25,7 @@ from mvlt_tpu_torch.ops import _build
 # ranges of a split contraction, as the LN-MLP backward's plan takes them
 from mvlt_tpu_torch.ops.fused_mlp import BWD_CHUNK, BWD_TILE, MAX_SPLITS
 from mvlt_tpu_torch.ops.kernel_math import gelu, layer_norm_fp32, linear
+from mvlt_tpu_torch.utils.profiling import op_span
 
 
 def reduce_kv_input(normed: torch.Tensor, hw: tuple, sr: int,
@@ -146,6 +147,7 @@ def scratch(batch: int, n: int, d: int, m: int, p: int, splits: int) -> dict:
             "kvin": (batch * m * d if p else 0, torch.bfloat16)}
 
 
+@op_span
 def fused_ln_sr_kv(x, hw, ln1_weight, ln1_bias, sr_weight, sr_bias,
                    srn_weight, srn_bias, kv_weight, kv_bias, *, sr: int,
                    heads: int, eps1: float, eps_sr: float):

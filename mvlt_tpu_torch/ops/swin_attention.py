@@ -17,6 +17,7 @@ import torch
 
 from mvlt_tpu_torch.ops import _build
 from mvlt_tpu_torch.ops.kernel_math import acc_dtype
+from mvlt_tpu_torch.utils.profiling import op_span
 
 
 def swin_attention_reference(q_win, k_win, v_win, k_txt, v_txt, add_table, *,
@@ -52,6 +53,7 @@ def plan(batch: int, nw: int, heads: int, sms: int) -> tuple[int, int]:
     return wgs, min(nw, per)
 
 
+@op_span
 def fused_swin_attention(q_win, k_win, v_win, k_txt, v_txt, add_table, *,
                          scale: float) -> torch.Tensor:
     """Windowed joint attention. A CPU tensor takes

@@ -32,6 +32,7 @@ from mvlt_tpu_torch.ops import _build
 from mvlt_tpu_torch.ops.kernel_math import acc_dtype, gelu, layer_norm_fp32, linear, matmul_acc
 from mvlt_tpu_torch.ops.swin_attention import (HEAD_DIMS, MAX_KEYS, MAX_WINDOW_ROWS, plan,
                                                 swin_attention_reference)
+from mvlt_tpu_torch.utils.profiling import op_span
 
 
 def swin_block_reference(x, k_txt, v_txt, rel_table, ln1_weight, ln1_bias, wq, bq, wkv, bkv,
@@ -92,6 +93,7 @@ def scratch_elems(rows: int, d: int, hidden: int) -> int:
     return rows * (2 * d + max(4 * d, hidden))
 
 
+@op_span
 def fused_swin_block(x, k_txt, v_txt, rel_table, ln1_weight, ln1_bias, wq, bq, wkv, bkv,
                      wp, bp, ln2_weight, ln2_bias, w1, b1, w2, b2, *, hw: tuple, heads: int,
                      window: int, shift: int, pool: int, eps1: float, eps2: float,

@@ -20,6 +20,7 @@ from typing import Callable, Iterable, Optional
 import torch
 
 from mvlt_tpu_torch.utils.logging import MetricLogger
+from mvlt_tpu_torch.utils.profiling import annotate, step_marker
 
 
 def train_one_epoch(train_step, state, loader: Iterable, epoch: int = 0,
@@ -30,15 +31,23 @@ def train_one_epoch(train_step, state, loader: Iterable, epoch: int = 0,
     one value per optimizer step of the call."""
     logger = MetricLogger(is_main=is_main)
     pending = None   # (step index, device losses), read one step late
-    for batch in logger.log_every(loader, log_every, header=f"Epoch [{epoch}]"):
+    batches = iter(logger.log_every(loader, log_every, header=f"Epoch [{epoch}]"))
+    while True:
+        with annotate("mvlt.train.fetch"):
+            batch = next(batches, None)
+        if batch is None:
+            break
         step_idx = state.step
         feed = {k: v for k, v in batch.items() if not isinstance(v, list)}   # info lists
-        state, losses = train_step(state, feed)
+        with step_marker(step_idx):
+            state, losses = train_step(state, feed)
         if pending is not None:
-            _drain(pending, logger, lr_schedule, steps_per_dispatch)
+            with annotate("mvlt.train.drain"):
+                _drain(pending, logger, lr_schedule, steps_per_dispatch)
         pending = (step_idx, losses)
     if pending is not None:
-        _drain(pending, logger, lr_schedule, steps_per_dispatch)
+        with annotate("mvlt.train.drain"):
+            _drain(pending, logger, lr_schedule, steps_per_dispatch)
     logger.synchronize_between_processes()
     stats = logger.global_averages()
     if is_main:

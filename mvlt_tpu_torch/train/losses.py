@@ -47,6 +47,7 @@ from mvlt_tpu_torch.ops.mlm_ce import mlm_ce_loss
 from mvlt_tpu_torch.parallel.sharding import all_reduce_sum, exclusive_prefix, group_size
 from mvlt_tpu_torch.parallel.tensor import (VocabShardLogits, vocab_parallel_cross_entropy,
                                             vocab_parallel_mlm_loss)
+from mvlt_tpu_torch.utils.profiling import annotate
 
 MLM_LOSS_WEIGHT = 1.0
 ITM_LOSS_WEIGHT = 1.0
@@ -110,7 +111,8 @@ def global_mean_scale(labels: torch.Tensor, group,
     all_reduce."""
     count = (labels != MLM_IGNORE_INDEX).sum().to(torch.float32)
     if total is None:
-        total = all_reduce_sum(count, group)
+        with annotate("mvlt.sync.mlm_count"):
+            total = all_reduce_sum(count, group)
     return group_size(group) * count / total.to(torch.float32).clamp(min=1.0)
 
 

@@ -56,6 +56,7 @@ from mvlt_tpu_torch.parallel.sequence import reduce_row_grads
 from mvlt_tpu_torch.train.losses import compute_losses, mlm_gather_plan
 from mvlt_tpu_torch.train.schedule import clip_by_global_norm, set_lr
 from mvlt_tpu_torch.train.state import TrainState
+from mvlt_tpu_torch.utils.profiling import annotate
 
 
 def make_train_step(cfg: ModelConfig, *, device_masks: bool = False, mask_ratio: float = 0.5,
@@ -76,33 +77,37 @@ def make_train_step(cfg: ModelConfig, *, device_masks: bool = False, mask_ratio:
     def forward_backward(state: TrainState, batch: Dict, scale: float) -> Dict:
         """Losses of one (micro)batch; its gradients, times ``scale``, are
         added to the parameters' .grad."""
-        images = batch["images"].float()
-        if use_masked_input and state.step % 2 == 1:
-            if device_masks:
-                masks = device_grid_masks(state.generator, images.shape[0], images.shape[1],
-                                          mask_ratio, mask_patch_size)
-                images = device_apply_mask(images, masks)
-            else:
-                images = batch["masked_images"].float()
+        with annotate("mvlt.train.forward"):
+            images = batch["images"].float()
+            if use_masked_input and state.step % 2 == 1:
+                if device_masks:
+                    masks = device_grid_masks(state.generator, images.shape[0], images.shape[1],
+                                              mask_ratio, mask_patch_size)
+                    images = device_apply_mask(images, masks)
+                else:
+                    images = batch["masked_images"].float()
 
-        kwargs, loss_batch, mlm_count = {}, batch, None
-        mlm_chunk = max(cfg.mlm_loss_chunk, 1)
-        mlm_frac = cfg.mlm_capacity_frac
-        if cfg.loss_type.mlm and train_mode and cfg.mlm_loss_chunk > 0 and mlm_frac < 1.0:
-            plan = mlm_gather_plan(batch["mlm_labels"], capacity_frac=mlm_frac,
-                                   chunk=mlm_chunk, group=state.group)
-            if plan is not None:
-                idx, sel, mlm_chunk, mlm_count = plan
-                kwargs["mlm_row_idx"] = idx
-                loss_batch = {**batch, "mlm_labels": sel[None]}
-                mlm_frac = 1.0
+            kwargs, loss_batch, mlm_count = {}, batch, None
+            mlm_chunk = max(cfg.mlm_loss_chunk, 1)
+            mlm_frac = cfg.mlm_capacity_frac
+            if cfg.loss_type.mlm and train_mode and cfg.mlm_loss_chunk > 0 and mlm_frac < 1.0:
+                plan = mlm_gather_plan(batch["mlm_labels"], capacity_frac=mlm_frac,
+                                       chunk=mlm_chunk, group=state.group)
+                if plan is not None:
+                    idx, sel, mlm_chunk, mlm_count = plan
+                    kwargs["mlm_row_idx"] = idx
+                    loss_batch = {**batch, "mlm_labels": sel[None]}
+                    mlm_frac = 1.0
 
-        out = state.net(images, batch["input_ids"].long(), generator=state.generator, **kwargs)
-        losses = compute_losses(out, loss_batch, cfg.num_super_classes, cfg.num_sub_classes,
-                                mlm_chunk=mlm_chunk, mlm_capacity_frac=mlm_frac,
-                                mlm_ce_kernel=cfg.mlm_ce_kernel, group=state.group,
-                                mlm_count=mlm_count)
-        (losses["total_loss"] * scale).backward()
+            out = state.net(images, batch["input_ids"].long(), generator=state.generator,
+                            **kwargs)
+        with annotate("mvlt.train.loss"):
+            losses = compute_losses(out, loss_batch, cfg.num_super_classes, cfg.num_sub_classes,
+                                    mlm_chunk=mlm_chunk, mlm_capacity_frac=mlm_frac,
+                                    mlm_ce_kernel=cfg.mlm_ce_kernel, group=state.group,
+                                    mlm_count=mlm_count)
+        with annotate("mvlt.train.backward"):
+            (losses["total_loss"] * scale).backward()
         return {k: v.detach() for k, v in losses.items()}
 
     def one_step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
@@ -123,16 +128,19 @@ def make_train_step(cfg: ModelConfig, *, device_masks: bool = False, mask_ratio:
                 with contextlib.nullcontext() if sync else state.ddp.no_sync():
                     parts.append(forward_backward(state, micro, 1.0 / grad_accum))
             losses = {k: torch.stack([p[k] for p in parts]).mean() for k in parts[0]}
-        reduce_row_grads(state.model)
-        if state.clip_grad:
-            clip_by_global_norm(state.model.parameters(), state.clip_grad, state.model_group)
-        set_lr(state.optimizer, state.lr_schedule(state.step))
-        state.optimizer.step()
+        with annotate("mvlt.train.clip"):
+            reduce_row_grads(state.model)
+            if state.clip_grad:
+                clip_by_global_norm(state.model.parameters(), state.clip_grad, state.model_group)
+        with annotate("mvlt.train.optimizer"):
+            set_lr(state.optimizer, state.lr_schedule(state.step))
+            state.optimizer.step()
         state.step += 1
         return state, losses
 
     def train_step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
-        batch = batch_to_device(batch, state.device)
+        with annotate("mvlt.train.h2d"):
+            batch = batch_to_device(batch, state.device)
         if scan_steps == 1:
             return one_step(state, batch)
         leads = {k: v.shape[0] if v.dim() else None for k, v in batch.items()}

@@ -288,7 +288,7 @@ def test_profiling_helpers(tmp_path):
             torch.ones(4).sum()
     (trace,) = os.listdir(tmp_path)
     names = {e.get("name") for e in json.loads((tmp_path / trace).read_text())["traceEvents"]}
-    assert {"train_step_3", "host_phase"} <= names
+    assert {"mvlt.train.step", "host_phase"} <= names
 
 
 def test_eval_on_the_card_without_one_raises(tree):
